@@ -35,7 +35,38 @@ imports nothing of JAX. Phases, each printing one JSON line:
             ``F.scaled_dot_product_attention`` over the gathered K/V as a
             library yardstick the port never calls, the byte bound; and
             the serve burst's decode tokens/s and request latency p50/p99.
-6. kernels  one line listing every ported kernel.
+6. flash_kernel  the three flash kernels (B2 forward, B3 dq, B4 dk/dv)
+            against their plain PyTorch versions: bf16 and fp32, Dh 32 and
+            64 at T in {8, 40, 64, 136, 512, 2048}, Dh 128 at T in {40,
+            136, 512}, BH in {1, 16}; O and LSE
+            within rtol=atol=1e-5 (fp32) / 1e-2 (bf16), gradients within
+            2e-4 / 3e-2; the backward run twice must be bit-identical.
+7. train    the port's ``train`` payload (``run_train_payload``) at the
+            flagship preset, bf16, ``attention = "flash"``, remat, seq 512,
+            batch 64, 30 steps, a checkpoint every 10, over a 2M-token
+            order-1 Markov corpus written with numpy (512 ids of the
+            vocab, 4 seeded successors each). Launch counts are zeroed
+            just before and read just after. Checks: the first loss within
+            0.5 ln V of ln V, every loss finite, the mean of the last 5 at
+            least 1 nat below the first, B2 launched 2 x n_layers per step
+            (remat recomputes the forward) and B3/B4 n_layers per step,
+            train-progress.json at step 30.
+8. resume   checkpoints after step 10 deleted, the payload rerun to 30:
+            it resumes from 10 and steps 11-30 match within 1e-3 in loss.
+9. flash_vs_naive  from the same fp32 weights at seq 512, batch 4: loss
+            within 1e-4 and every gradient within 5e-3; at bf16 the first
+            5 train-step losses within 2e-2.
+10. eval_serve  ``run_eval_payload`` prints its ``[kvedge-eval]`` line
+            with a loss below the first training loss; ``serve`` restores
+            the checkpoint and two greedy requests return the naive
+            forward's argmax tokens over the restored params at fp32.
+11. train_timings  at the train shape (BH 512, T 512, Dh 64, bf16): each
+            flash kernel's ms, its plain version's, its bound, and
+            ``F.scaled_dot_product_attention(is_causal=True)`` forward and
+            backward as the library yardstick the port never calls; the
+            train step's ms, tokens/s, MFU, and the device idle share over
+            3 profiled steps.
+12. kernels  one line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check
 exits non-zero before it. Without a card, or without the repository
@@ -61,6 +92,9 @@ BF16_FLOPS = 989e12             # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12              # fp32 outside the tensor cores
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 CARD: dict = {}  # the nvidia-smi name and power limit, once read
+# The serve phases' state directory: inside the checkout, and empty, so
+# they serve the numpy-seeded weights (no checkpoint to restore).
+SEEDED_STATE_DIR = os.path.join(HERE, "build", "chip_smoke_seeded")
 
 
 class CheckFailed(RuntimeError):
@@ -189,6 +223,69 @@ def phase_kernel_vs_plain(torch, pa, device="cuda"):
     return cases, worst
 
 
+# ---- phase 7: flash kernels vs plain --------------------------------------
+
+FLASH_TOL = {"float32": (1e-5, 2e-4), "bfloat16": (1e-2, 3e-2)}  # (out, grad)
+
+
+def flash_inputs(torch, *, dtype, bh, seq, dh, seed, device="cuda"):
+    """q, k, v and a cotangent dO ``[BH, T, Dh]`` on the card, from a seed."""
+    gen = torch.Generator().manual_seed(seed)
+    td = getattr(torch, dtype)
+    return [torch.randn((bh, seq, dh), generator=gen).to(td).to(device)
+            for _ in range(4)]
+
+
+def phase_flash_vs_plain(torch, fa, device="cuda"):
+    """B2-B4 against their plain versions: forward (O, LSE) and backward
+    (dq, dk, dv from a random dO); the backward run twice on the same
+    inputs must give bit-identical gradients (no atomics)."""
+    cases = [dict(dtype=dt, dh=dh, seq=t, bh=bh)
+             for dt in ("bfloat16", "float32") for dh in (32, 64)
+             for t in (8, 40, 64, 136, 512, 2048) for bh in (1, 16)]
+    cases += [dict(dtype=dt, dh=128, seq=t, bh=bh)
+              for dt in ("bfloat16", "float32") for t in (40, 136, 512)
+              for bh in (1, 16)]
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for i, case in enumerate(cases):
+        q, k, v, do = flash_inputs(torch, seed=300 + i, device=device, **case)
+        out, lse = fa.flash_forward(q, k, v)
+        delta = fa.attention_delta(do, out)
+        dq = fa.flash_backward_dq(q, k, v, do, lse, delta)
+        dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, delta)
+        dq2 = fa.flash_backward_dq(q, k, v, do, lse, delta)
+        dk2, dv2 = fa.flash_backward_dkv(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()  # a fault surfaces here, attributed
+        p_out, p_lse = fa.flash_forward_reference(q, k, v)
+        # The plain backward from the kernel's own O and LSE, so the
+        # gradients are compared on the same inputs.
+        p_dq = fa.flash_backward_dq_reference(q, k, v, do, lse, delta)
+        p_dk, p_dv = fa.flash_backward_dkv_reference(q, k, v, do, lse, delta)
+        tol, gtol = FLASH_TOL[case["dtype"]]
+        errs, ok = {}, True
+        for name, got, want, t in (("out", out, p_out, tol),
+                                   ("lse", lse, p_lse, FLASH_TOL["float32"][0]),
+                                   ("dq", dq, p_dq, gtol), ("dk", dk, p_dk, gtol),
+                                   ("dv", dv, p_dv, gtol)):
+            got, want = got.float(), want.float()
+            errs[name] = float((got - want).abs().max())
+            ok = ok and bool(torch.isfinite(got).all()) and torch.allclose(
+                got, want, rtol=t, atol=t)
+        deterministic = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                         and torch.equal(dv, dv2))
+        emit({"phase": "flash_kernel", "case": i, **case, "tol": tol,
+              "grad_tol": gtol, "max_abs_err": errs,
+              "bitwise_deterministic": deterministic, "ok": ok and deterministic})
+        check(ok, f"flash case {i} {case} disagrees with plain: {errs}")
+        check(deterministic, f"flash case {i} {case}: backward not bitwise "
+              "deterministic across two runs")
+        worst["flash_fwd"] = max(worst["flash_fwd"], errs["out"])
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"])
+        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"],
+                                     errs["dv"])
+    return cases, worst
+
+
 # ---- phase 4: serve -----------------------------------------------------
 
 def post(url, doc, timeout=600):
@@ -265,7 +362,7 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
                 preset="flagship", max_seq=2048):
     cfg = ServeConfig(preset=preset, max_seq=max_seq, serving_slots=4,
                       serving_page_size=16, serving_prefill_chunk=64,
-                      serving_window=64)
+                      serving_window=64, state_dir=SEEDED_STATE_DIR)
     rt = serve.ServeRuntime(cfg, device=device, dtype="bfloat16", seed=0,
                             host="127.0.0.1", port=0)
     try:
@@ -327,7 +424,8 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
     for mode in ("auto", "gather"):
         cfg32 = ServeConfig(preset=preset, max_seq=max_seq, serving_slots=4,
                             serving_page_size=16, serving_prefill_chunk=64,
-                            serving_window=64, payload_paged_attention=mode)
+                            serving_window=64, payload_paged_attention=mode,
+                            state_dir=SEEDED_STATE_DIR)
         rt = serve.ServeRuntime(cfg32, device=device, dtype="float32",
                                 seed=0)
         try:
@@ -521,6 +619,385 @@ def phase_timings(torch, pa, lives, serve_doc, max_seq=2048, page=16):
     return doc
 
 
+# ---- phases 8-12: training ----------------------------------------------
+
+TRAIN = dict(preset="flagship", batch=64, seq=512, steps=30,
+             checkpoint_every=10, corpus_tokens=2_000_000)
+RESUME_FROM = 10
+STATE_DIR = os.path.join(HERE, "build", "chip_smoke")
+
+
+def markov_corpus(np, path, write_corpus, vocab, n_tokens, seed=2026):
+    """An order-1 Markov chain over 512 token ids drawn from the vocab,
+    each id with 4 seeded successors: structure a model learns in a few
+    steps, so the loss must fall."""
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(vocab, 512, replace=False)
+    succ = rng.integers(0, 512, (512, 4)).tolist()
+    picks = rng.integers(0, 4, n_tokens).tolist()
+    state, chain = 0, []
+    for c in picks:
+        chain.append(state)
+        state = succ[state][c]
+    write_corpus(path, ids[np.asarray(chain)])
+
+
+def counts(pa, fa) -> dict:
+    return {"paged_decode": pa.paged_decode_attention.launches,
+            "flash_fwd": fa.flash_forward.launches,
+            "flash_bwd_dq": fa.flash_backward_dq.launches,
+            "flash_bwd_dkv": fa.flash_backward_dkv.launches}
+
+
+def zero_counts(pa, fa) -> None:
+    for fn in (pa.paged_decode_attention, fa.flash_forward,
+               fa.flash_backward_dq, fa.flash_backward_dkv):
+        fn.launches = 0
+
+
+def phase_train(np, pa, fa, tr, RuntimeConfig, write_corpus, device="cuda"):
+    """The port's train payload at flagship width, bf16, flash, remat."""
+    import shutil
+
+    shutil.rmtree(STATE_DIR, ignore_errors=True)
+    os.makedirs(STATE_DIR)
+    corpus = os.path.join(STATE_DIR, "markov.bin")
+    t0 = time.perf_counter()
+    cfg = RuntimeConfig(
+        state_dir=STATE_DIR, preset=TRAIN["preset"], payload="train",
+        train_corpus=corpus, max_seq=TRAIN["seq"],
+        train_batch=TRAIN["batch"], train_steps=TRAIN["steps"],
+        train_checkpoint_every=TRAIN["checkpoint_every"],
+        payload_attention="flash")
+    tcfg = cfg.model_config("bfloat16")
+    markov_corpus(np, corpus, write_corpus, tcfg.vocab, TRAIN["corpus_tokens"])
+    corpus_s = time.perf_counter() - t0
+    zero_counts(pa, fa)
+    result = tr.run_train_payload(cfg, device=device, dtype="bfloat16")
+    launches = counts(pa, fa)
+    check(result.ok, f"train payload failed: {result.error}")
+    losses = result.losses
+    ln_v = math.log(tcfg.vocab)
+    steps, layers = TRAIN["steps"], tcfg.n_layers
+    progress = tr.read_train_progress(STATE_DIR) or {}
+    tail = sum(losses[-5:]) / 5
+    doc = {"phase": "train", "dtype": "bfloat16", "attention": "flash",
+           "remat": tcfg.remat, **TRAIN, "params": tcfg.param_count,
+           "corpus_s": corpus_s, "losses": losses,
+           "first_loss": losses[0], "last5_mean": tail, "ln_vocab": ln_v,
+           "launches": launches, "elapsed_s": result.elapsed_ms / 1e3,
+           "progress": progress,
+           "checkpoints": sorted(os.listdir(os.path.join(STATE_DIR,
+                                                          "checkpoints")))}
+    finite = len(losses) == steps and all(math.isfinite(x) for x in losses)
+    # Remat runs the forward kernel twice per layer and step; a CPU
+    # rehearsal of this phase launches no kernel at all.
+    want = {"paged_decode": 0, "flash_fwd": 2 * layers * steps,
+            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps}
+    launches_ok = launches == (want if device == "cuda"
+                               else dict.fromkeys(want, 0))
+    ok = (finite and abs(losses[0] - ln_v) <= 0.5 * ln_v
+          and tail <= losses[0] - 1.0 and launches_ok
+          and progress.get("step") == steps)
+    emit({**doc, "expected_launches": want, "ok": ok})
+    check(finite, f"train losses {losses}")
+    check(abs(losses[0] - ln_v) <= 0.5 * ln_v,
+          f"first loss {losses[0]} outside ln V {ln_v} +- 50%")
+    check(tail <= losses[0] - 1.0,
+          f"loss fell only {losses[0] - tail} nats in {steps} steps")
+    check(launches_ok, f"kernel launches {launches} != {want}")
+    check(progress.get("step") == steps, f"train-progress.json {progress}")
+    return cfg, result, launches
+
+
+def phase_resume(tr, cfg, first, device="cuda"):
+    """Drop every checkpoint after step 10 and train to 30 again."""
+    import shutil
+
+    ckpt_dir = os.path.join(STATE_DIR, "checkpoints")
+    for name in os.listdir(ckpt_dir):
+        if name.isdigit() and int(name) > RESUME_FROM:
+            shutil.rmtree(os.path.join(ckpt_dir, name))
+    again = tr.run_train_payload(cfg, device=device, dtype="bfloat16")
+    check(again.ok, f"resumed train payload failed: {again.error}")
+    want = first.losses[RESUME_FROM:]
+    diff = max(abs(a - b) for a, b in zip(again.losses, want)) \
+        if len(again.losses) == len(want) else float("inf")
+    ok = again.resumed_from == RESUME_FROM and diff <= 1e-3
+    emit({"phase": "resume", "resumed_from": again.resumed_from,
+          "steps_run": len(again.losses), "max_loss_diff": diff,
+          "bit_exact": again.losses == want, "tol": 1e-3,
+          "note": "the embedding's scatter-add backward is not "
+                  "bit-deterministic on CUDA, so bit-exactness is not asked",
+          "ok": ok})
+    check(again.resumed_from == RESUME_FROM,
+          f"resumed from {again.resumed_from}, not {RESUME_FROM}")
+    check(diff <= 1e-3, f"resumed losses differ by {diff}")
+
+
+def phase_flash_vs_naive(torch, np, training, ttr, tcfg_flag, device="cuda"):
+    """flash against naive from the same fp32 weights (loss and every
+    gradient, seq 512, batch 4), and 5 bf16 train steps each."""
+    import dataclasses
+
+    rng = np.random.default_rng(11)
+    batch = torch.from_numpy(rng.integers(
+        0, tcfg_flag.vocab, (4, TRAIN["seq"] + 1))).to(device)
+    tree = ttr.init_params(3, tcfg_flag)
+    out = {}
+    for att in ("naive", "flash"):
+        cfg = dataclasses.replace(tcfg_flag, dtype="float32", attention=att)
+        params = training.master_params(tree, cfg, device)
+        keys = sorted(params)
+        loss = ttr.loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, [params[k] for k in keys])
+        out[att] = (float(loss.detach()), dict(zip(keys, grads)))
+    loss_diff = abs(out["naive"][0] - out["flash"][0])
+    grad_err = {k: float((out["flash"][1][k] - g).abs().max())
+                for k, g in out["naive"][1].items()}
+    grads_ok = all(torch.allclose(out["flash"][1][k], g, rtol=5e-3, atol=5e-3)
+                   for k, g in out["naive"][1].items())
+    bf16 = {}
+    for att in ("naive", "flash"):
+        cfg = dataclasses.replace(tcfg_flag, dtype="bfloat16", attention=att)
+        params = training.master_params(tree, cfg, device)
+        init, step = training.make_train_step(cfg, device)
+        opt = init(params)
+        losses = []
+        for i in range(5):
+            b = torch.from_numpy(np.random.default_rng(40 + i).integers(
+                0, cfg.vocab, (4, TRAIN["seq"] + 1)))
+            params, opt, loss = step(params, opt, b)
+            losses.append(float(loss))
+        bf16[att] = losses
+    bf16_diff = max(abs(a - b) for a, b in zip(bf16["naive"], bf16["flash"]))
+    ok = loss_diff <= 1e-4 and grads_ok and bf16_diff <= 2e-2
+    emit({"phase": "flash_vs_naive", "seq": TRAIN["seq"], "batch": 4,
+          "fp32_losses": {a: out[a][0] for a in out},
+          "fp32_loss_diff": loss_diff, "fp32_grad_max_abs_err": grad_err,
+          "bf16_losses": bf16, "bf16_max_loss_diff": bf16_diff,
+          "tol": {"fp32_loss": 1e-4, "fp32_grad": 5e-3, "bf16_loss": 2e-2},
+          "ok": ok})
+    check(loss_diff <= 1e-4, f"fp32 flash vs naive loss differs {loss_diff}")
+    check(grads_ok, f"fp32 flash vs naive gradients differ {grad_err}")
+    check(bf16_diff <= 2e-2, f"bf16 flash vs naive losses differ {bf16_diff}")
+
+
+def phase_eval_serve(torch, np, tr, serve, forward, params_from_numpy, cfg,
+                     first_loss, device="cuda"):
+    """eval on the trained state; serve restores it and answers two
+    greedy requests with the naive forward's argmax tokens (fp32)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ev = tr.run_eval_payload(dataclasses.replace(cfg, payload="eval"),
+                                 device=device, dtype="bfloat16")
+    printed = buf.getvalue()
+    sys.stdout.write(printed)
+    line = [ln for ln in printed.splitlines()
+            if ln.startswith("[kvedge-eval] checkpoint_step=")]
+    check(ev.ok and line, f"eval payload failed: {ev.error}")
+    check(math.isfinite(ev.loss) and ev.loss < first_loss,
+          f"eval loss {ev.loss} not below the first training loss "
+          f"{first_loss}")
+    rt = serve.ServeRuntime(dataclasses.replace(cfg, payload="serve"),
+                            device=device, dtype="float32", host="127.0.0.1",
+                            port=0)
+    try:
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        _, tree = tr.restore_latest_params(cfg, rt.tcfg)
+        weights = params_from_numpy(tree, rt.tcfg, device)
+        corpus = np.fromfile(cfg.train_corpus, dtype=np.int32, offset=16)
+        same, replies = [], []
+        for start, n in ((1000, 24), (3210, 40)):
+            prompt = corpus[start:start + n].tolist()
+            code, doc = post(url, {"tokens": [prompt], "n_new": 16})
+            check(code == 200, f"serve after train: HTTP {code}: {doc}")
+            seq = list(prompt)
+            for _ in range(16):
+                logits = forward(weights, torch.tensor([seq], device=device),
+                                 rt.tcfg)
+                seq.append(int(logits[0, -1].argmax()))
+            same.append(doc["tokens"] == [seq])
+            replies.append(doc)
+        restored = rt.restored_step
+    finally:
+        rt.close()
+    ok = restored == TRAIN["steps"] and all(same) and all(
+        d["restored_step"] == TRAIN["steps"] for d in replies)
+    emit({"phase": "eval_serve", "eval_line": line[0], "eval_loss": ev.loss,
+          "first_train_loss": first_loss, "restored_step": restored,
+          "served_equals_forward": same, "ok": ok})
+    check(restored == TRAIN["steps"], f"serve restored step {restored}")
+    check(all(same), "served tokens differ from the naive forward's argmax")
+
+
+def event_ms(torch, fn, reps=10):
+    """Median device ms of one call of ``fn`` (CUDA events, after 2
+    warm-up calls)."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def flash_bound(bh, seq, dh, itemsize, matmuls, in_tensors, out_tensors,
+                rows_in, rows_out):
+    """(least ms, "bytes" | "operations", flops, bytes, ms at the peak
+    operation rate, ms at the memory rate) of a causal pass:
+    ``matmuls`` products of 2 * BH * T(T+1)/2 * Dh operations each, each
+    [BH, T, Dh] operand read once and each output written once, plus the
+    fp32 [BH, T] rows (lse, delta)."""
+    flops = matmuls * 2 * bh * seq * (seq + 1) // 2 * dh
+    nbytes = ((in_tensors + out_tensors) * bh * seq * dh * itemsize
+              + (rows_in + rows_out) * bh * seq * 4)
+    t_ops = flops / (BF16_FLOPS if itemsize == 2 else FP32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes, t_ops, t_bytes)
+
+
+def phase_train_timings(torch, np, fa, training, ttr, tcfg_flag):
+    """Kernel, plain and SDPA times at the train shape, and the step."""
+    import dataclasses
+
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    b, h, dh, t = TRAIN["batch"], tcfg_flag.n_heads, tcfg_flag.d_head, \
+        TRAIN["seq"]
+    bh = b * h
+    q, k, v, do = flash_inputs(torch, dtype="bfloat16", bh=bh, seq=t, dh=dh,
+                               seed=77)
+    out, lse = fa.flash_forward(q, k, v)
+    delta = fa.attention_delta(do, out)
+    p_out, _ = fa.flash_forward_reference(q, k, v)
+    p_dq = fa.flash_backward_dq_reference(q, k, v, do, lse, delta)
+    p_dk, p_dv = fa.flash_backward_dkv_reference(q, k, v, do, lse, delta)
+    dq = fa.flash_backward_dq(q, k, v, do, lse, delta)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, delta)
+    tol, gtol = FLASH_TOL["bfloat16"]
+    pairs = {"flash_fwd": [(out, p_out, tol)], "flash_bwd_dq": [(dq, p_dq, gtol)],
+             "flash_bwd_dkv": [(dk, p_dk, gtol), (dv, p_dv, gtol)]}
+    errs = {n: max(float((g.float() - w.float()).abs().max()) for g, w, _ in ps)
+            for n, ps in pairs.items()}
+    agree = all(torch.allclose(g.float(), w.float(), rtol=t, atol=t)
+                for ps in pairs.values() for g, w, t in ps)
+    del pairs
+    del p_out, p_dq, p_dk, p_dv
+    # SDPA on the same values as [B, H, T, Dh], the yardstick the port
+    # never calls: its forward, and its backward (dq, dk, dv in one call).
+    sq, sk, sv = (x.reshape(b, h, t, dh).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    sdo = do.reshape(b, h, t, dh)
+    s_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+    rows = {
+        "flash_fwd": dict(
+            ms=event_ms(torch, lambda: fa.flash_forward(q, k, v)),
+            plain_ms=event_ms(torch, lambda: fa.flash_forward_reference(
+                q, k, v), 5),
+            library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, is_causal=True)),
+            bound=flash_bound(bh, t, dh, 2, 2, 3, 1, 0, 1)),
+        "flash_bwd_dq": dict(
+            ms=event_ms(torch, lambda: fa.flash_backward_dq(
+                q, k, v, do, lse, delta)),
+            plain_ms=event_ms(torch, lambda: fa.flash_backward_dq_reference(
+                q, k, v, do, lse, delta), 5),
+            bound=flash_bound(bh, t, dh, 2, 3, 4, 1, 2, 0)),
+        "flash_bwd_dkv": dict(
+            ms=event_ms(torch, lambda: fa.flash_backward_dkv(
+                q, k, v, do, lse, delta)),
+            plain_ms=event_ms(torch, lambda: fa.flash_backward_dkv_reference(
+                q, k, v, do, lse, delta), 5),
+            bound=flash_bound(bh, t, dh, 2, 4, 4, 2, 2, 0)),
+    }
+    sdpa_bwd_ms = event_ms(torch, lambda: torch.autograd.grad(
+        s_out, (sq, sk, sv), sdo, retain_graph=True))
+    rows["flash_bwd_dq"]["library_ms"] = sdpa_bwd_ms
+    rows["flash_bwd_dkv"]["library_ms"] = sdpa_bwd_ms
+    del sq, sk, sv, s_out, q, k, v, do, out, lse, delta, dq, dk, dv
+
+    # The train step at the payload's shape, fresh weights.
+    cfg = dataclasses.replace(tcfg_flag, dtype="bfloat16", attention="flash")
+    params = training.master_params(ttr.init_params(5, cfg), cfg, "cuda")
+    init, step = training.make_train_step(cfg, "cuda")
+    opt = init(params)
+    batch = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (b, t + 1))).cuda()
+    for _ in range(2):
+        params, opt, loss = step(params, opt, batch)
+    torch.cuda.synchronize()
+    n_steps = 5
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        params, opt, loss = step(params, opt, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            params, opt, loss = step(params, opt, batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    tokens = b * t
+    attn_flops = 3 * 2 * 2 * b * h * (t * (t + 1) // 2) * dh * cfg.n_layers
+    model_flops = 6 * cfg.param_count * tokens + attn_flops
+    doc = {"phase": "train_timings",
+           "shape": {"BH": bh, "T": t, "Dh": dh, "dtype": "bfloat16",
+                     "batch": b, "heads": h},
+           "timing": "CUDA events, median of 10 calls after 2 warm-up "
+                     "(plain: of 5); step: host clock over 5 synchronized "
+                     "steps after 2 warm-up",
+           "kernels": {n: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                           "library_ms": r["library_ms"],
+                           "bound_ms": r["bound"][0],
+                           "bound_by": r["bound"][1],
+                           "flops": r["bound"][2], "bytes": r["bound"][3],
+                           "flop_bound_ms": r["bound"][4],
+                           "byte_bound_ms": r["bound"][5],
+                           "achieved_TFLOPs": r["bound"][2] / r["ms"] / 1e9,
+                           "max_abs_err": errs[n]}
+                       for n, r in rows.items()},
+           "library": "torch.nn.functional.scaled_dot_product_attention("
+                      "is_causal=True): forward for flash_fwd; its backward "
+                      "(dq, dk and dv in one call) for both backward rows",
+           "step_ms": step_ms, "tokens_per_step": tokens,
+           "train_tokens_per_s": tokens / step_ms * 1e3,
+           "profiled_steps": 3, "profiled_wall_ms": prof_wall_ms,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / prof_wall_ms,
+           "kernel_launches_per_step": sum(e.count for e in kernels) / 3,
+           "top_kernels": [{"name": e.key[:90], "count": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in top],
+           "model_flops_per_step": model_flops,
+           "mfu": model_flops / (step_ms * 1e-3) / BF16_FLOPS,
+           "mfu_formula": "(6 params tokens + 6 x causal attention matmul "
+                          "FLOPs of the forward's 2) / step / 989 TFLOP/s",
+           "tol": {"out": tol, "grad": gtol}, "ok": agree}
+    emit(doc)
+    check(doc["ok"], f"train-shape kernels disagree with plain: {errs}")
+    return doc
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -535,11 +1012,17 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     try:
+        from kvedge_torch.data.feeder import write_corpus
+        from kvedge_torch.models import training
+        from kvedge_torch.models import transformer as ttr
         from kvedge_torch.models.transformer import forward
+        from kvedge_torch.models.weights import params_from_numpy
         from kvedge_torch.ops import _build
+        from kvedge_torch.ops import attention as fa
         from kvedge_torch.ops import paged_attention as pa
         from kvedge_torch.runtime import serve
-        from kvedge_torch.runtime.config import ServeConfig
+        from kvedge_torch.runtime import train as tr
+        from kvedge_torch.runtime.config import RuntimeConfig, ServeConfig
         from kvedge_torch.runtime.devicecheck import resolve_device
     except ImportError as e:
         print(f"chip_smoke: the kvedge_torch package is not beside this "
@@ -583,6 +1066,27 @@ def main() -> int:
         phase = "timings"
         t = phase_timings(torch, pa, lives, serve_doc)
 
+        phase = "flash_kernel"
+        _, flash_worst = phase_flash_vs_plain(torch, fa)
+
+        phase = "train"
+        cfg, first, train_launches = phase_train(np, pa, fa, tr, RuntimeConfig,
+                                                 write_corpus)
+
+        phase = "resume"
+        phase_resume(tr, cfg, first)
+
+        tcfg_flag = cfg.model_config("bfloat16")
+        phase = "flash_vs_naive"
+        phase_flash_vs_naive(torch, np, training, ttr, tcfg_flag)
+
+        phase = "eval_serve"
+        phase_eval_serve(torch, np, tr, serve, forward, params_from_numpy, cfg,
+                         first.losses[0])
+
+        phase = "train_timings"
+        tt = phase_train_timings(torch, np, fa, training, ttr, tcfg_flag)
+
         phase = "kernels"
         kernels = [{
             "name": "paged_decode", "route": "cuda",
@@ -594,14 +1098,29 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "ok": True,
         }]
+        for kname, line in (("flash_fwd", 98), ("flash_bwd_dq", 234),
+                            ("flash_bwd_dkv", 273)):
+            k = tt["kernels"][kname]
+            kernels.append({
+                "name": kname, "route": "cuda",
+                "source": "kvedge_torch/ops/csrc/flash_attention.cu",
+                "replaces": f"kvedge_tpu/ops/attention.py:{line}",
+                "launches": train_launches[kname],
+                "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
+                "worst_case_err": flash_worst[kname],
+                "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": k["library_ms"], "ok": True,
+            })
         print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     except Exception as e:  # the run failed: say where, print no result
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}"})
         return 1
     print(nvidia_smi(), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": count}}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

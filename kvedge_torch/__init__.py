@@ -1,11 +1,17 @@
-"""kvedge-torch: the kvedge serving payload in PyTorch and CUDA for Hopper.
+"""kvedge-torch: the kvedge payloads in PyTorch and CUDA for Hopper.
 
 A second package beside ``kvedge_tpu``, which stays as it is and is the
-reference. This package ports the reference's main path slice by slice;
-the first slice is the paged ``serve`` payload: ``POST /generate`` over
-a continuous-batching server, a paged KV cache, the flagship decoder,
-and one hand-written CUDA kernel for single-query paged decode attention
-(``ops/csrc/paged_decode.cu``).
+reference. This package ports the reference's main path slice by slice:
+
+* the paged ``serve`` payload: ``POST /generate`` over a
+  continuous-batching server, a paged KV cache, the flagship decoder,
+  and a hand-written CUDA kernel for single-query paged decode attention
+  (``ops/csrc/paged_decode.cu``);
+* the ``train`` and ``eval`` payloads: the corpus feeder, the loss with
+  per-layer remat, optax-ordered AdamW, the port's own checkpoints
+  (which ``serve`` restores), and ``attention = "flash"`` as an autograd
+  function over three hand-written CUDA kernels, the flash forward and
+  its dq and dk/dv backward passes (``ops/csrc/flash_attention.cu``).
 
 Ground rules, kept by every module here:
 

@@ -1,8 +1,8 @@
-"""``python -m kvedge_torch serve ...`` (see ``runtime/serve.py``)."""
+"""``python -m kvedge_torch serve|train|eval ...`` (see ``cli.py``)."""
 
 import sys
 
-from kvedge_torch.runtime.serve import main
+from kvedge_torch.cli import main
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,10 +1,19 @@
 """Model shape: the port's own copy of ``TransformerConfig`` and ``PRESETS``.
 
 The fields, ``d_head``, ``kv_heads`` and ``validate`` follow the JAX
-package's ``models/transformer.py`` for the fields the serving slice
-uses. Training-only fields (remat, MoE, pipeline, fused cross-entropy,
-sequence-parallel attention) are not carried: the slice serves a dense
-decoder, and a config naming them is refused rather than ignored.
+package's ``models/transformer.py`` for the fields the serving and
+training slices use, with the same validation messages. What the port
+does not run yet is refused with a clear error rather than ignored:
+sequence-parallel attention (``"ring"``, ``"ulysses"``),
+``remat_policy="dots"``, ``fused_xent``, MoE (``n_experts``) and
+pipelining (``pipeline_stages``) — ROADMAP Queue A lists each.
+
+``attention`` picks the training and full-sequence attention:
+``"naive"`` materializes the ``[T, T]`` scores in plain torch;
+``"flash"`` runs the hand-written flash kernels (``ops/attention.py``).
+``remat`` recomputes each layer in backward (``torch.utils.checkpoint``)
+instead of saving its activations; ``remat_policy="full"`` is the only
+policy.
 
 ``paged_attention`` has CUDA semantics here. "auto" means the
 hand-written paged-decode kernel (``ops/paged_attention.py``) for every
@@ -34,6 +43,14 @@ class TransformerConfig:
     dtype: str = "bfloat16"  # compute dtype: "bfloat16" or "float32"
     # Paged decode attention: "auto" | "kernel" | "gather" (module doc).
     paged_attention: str = "auto"
+    # Training (module doc).
+    remat: bool = True
+    remat_policy: str = "full"
+    attention: str = "naive"
+    # Refused unless left at their defaults (not ported yet).
+    n_experts: int = 0
+    pipeline_stages: int = 0
+    fused_xent: bool = False
 
     @property
     def d_head(self) -> int:
@@ -69,6 +86,36 @@ class TransformerConfig:
             )
         if self.max_seq < 2:
             raise ValueError(f"max_seq must be >= 2, got {self.max_seq}")
+        if self.attention not in ("naive", "flash", "ring", "ulysses"):
+            raise ValueError(
+                "attention must be 'naive', 'flash', 'ring', or "
+                f"'ulysses', got {self.attention!r}"
+            )
+        if self.attention in ("ring", "ulysses"):
+            raise ValueError(
+                f"attention={self.attention!r} is sequence-parallel and not "
+                "ported to PyTorch yet (use 'naive' or 'flash')")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(
+                f"remat_policy must be 'full' or 'dots', got "
+                f"{self.remat_policy!r}"
+            )
+        if self.remat_policy == "dots":
+            raise ValueError(
+                "remat_policy='dots' is not ported to PyTorch yet (use "
+                "'full')")
+        if self.n_experts:
+            raise ValueError(
+                f"n_experts={self.n_experts}: MoE layers are not ported to "
+                "PyTorch yet (dense FFN only)")
+        if self.pipeline_stages:
+            raise ValueError(
+                f"pipeline_stages={self.pipeline_stages}: pipelining is not "
+                "ported to PyTorch yet")
+        if self.fused_xent:
+            raise ValueError(
+                "fused_xent is not ported to PyTorch yet: the training loss "
+                "materializes the logits")
 
 
 # Named model shapes, the same table as the JAX package's: "probe" is

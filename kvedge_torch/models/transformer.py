@@ -1,37 +1,48 @@
 """The flagship decoder in PyTorch: the counterpart of the JAX package's
-``models/transformer.py`` for inference.
+``models/transformer.py``, for inference and for training.
 
 Params are a flat dict of layer-stacked tensors with the reference's
-keys and shapes (``[L, ...]`` for per-layer weights), held in the
-compute dtype: the bridge (``models/weights.py``) casts each fp32
-master weight ONCE at load, which gives the same bits as the
-reference's cast at every use. Every function keeps the reference's
-rounding points, because the tests hold the port to the JAX package
-token for token at fp32:
+keys and shapes (``[L, ...]`` for per-layer weights). Serving holds
+them in the compute dtype (the bridge, ``models/weights.py``, casts each
+fp32 master weight once at load); training holds fp32 masters. The
+layer body casts every weight to the compute dtype at its use, as the
+reference does: a no-op for pre-cast weights, the autograd cast for
+masters. Every function keeps the reference's rounding points, because
+the tests hold the port to the JAX package token for token at fp32:
 
 * ``_rmsnorm``: mean of squares in fp32, ``rsqrt(+1e-6)``, the SCALE
   cast to the dtype, then ``x * scale`` and ``* gain`` in the dtype.
 * ``_rotary``: frequencies, angles, ``cos`` and ``sin`` in fp32, cast
   to the dtype, products in the dtype.
-* attention scores: a dtype matmul (fp32 accumulation, one rounding),
-  then the divide by ``sqrt(d_head)`` in the dtype, the causal mask at
-  ``finfo(dtype).min``, the softmax on the fp32 upcast and the weights
-  rounded back to the dtype.
+* naive attention scores: a dtype matmul (fp32 accumulation, one
+  rounding), then the divide by ``sqrt(d_head)`` in the dtype, the
+  causal mask at ``finfo(dtype).min``, the softmax on the fp32 upcast
+  and the weights rounded back to the dtype. Flash attention
+  (``ops/attention.py``) has its own chain: fp32 scores multiplied by
+  ``Dh^-0.5``, never rounded to the dtype.
 * GELU is the tanh approximation (``jax.nn.gelu``'s default).
-* ``tied_readout``: bf16 operands upcast to fp32 and one fp32 matmul —
-  products of bf16 values are exact in fp32, so this is the
-  reference's bf16-operand, fp32-accumulate dot.
+* ``tied_readout``: the embedding rounded to x's dtype, both operands
+  upcast to fp32 and one fp32 matmul — products of bf16 values are
+  exact in fp32, so this is the reference's bf16-operand,
+  fp32-accumulate dot.
+
+``forward`` is the no-grad naive oracle the serving paths are held to;
+``forward_hidden`` and ``loss_fn`` are the training path, with per-layer
+remat (``torch.utils.checkpoint``) when ``cfg.remat``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from kvedge_torch.models.config import TransformerConfig
+from kvedge_torch.ops.attention import flash_attention, pick_block
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -78,8 +89,10 @@ def init_params(seed: int, cfg: TransformerConfig) -> dict[str, np.ndarray]:
 
 
 def tied_readout(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
-    """Weight-tied logits, fp32: ``x [..., D] @ embedding [V, D].T``."""
-    return torch.matmul(x.float(), embedding.float().t())
+    """Weight-tied logits, fp32: ``x [..., D] @ embedding [V, D].T`` with
+    the embedding rounded to x's dtype first (the reference's
+    ``embedding.T.astype(x.dtype)``)."""
+    return torch.matmul(x.float(), embedding.to(x.dtype).float().t())
 
 
 def stacked_layer_params(params: dict, cfg: TransformerConfig) -> tuple:
@@ -153,17 +166,17 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def mlp(x: torch.Tensor, w_up, w_down, ln_mlp) -> torch.Tensor:
     """The MLP half of a block, residual included."""
     normed = _rmsnorm(x, ln_mlp)
-    return x + gelu(normed @ w_up) @ w_down
+    return x + gelu(normed @ w_up.to(x.dtype)) @ w_down.to(x.dtype)
 
 
 def _layer(cfg: TransformerConfig, x: torch.Tensor, layer_params) -> torch.Tensor:
-    """One pre-norm block with naive causal attention; x ``[B, T, D]``."""
+    """One pre-norm block, naive or flash causal attention; x ``[B, T, D]``."""
     w_qkv, w_out, w_up, w_down, ln_attn, ln_mlp = layer_params
     batch, seq, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.kv_heads, cfg.d_head
     dtype = x.dtype
 
-    q, k, v = split_qkv(cfg, _rmsnorm(x, ln_attn) @ w_qkv)
+    q, k, v = split_qkv(cfg, _rmsnorm(x, ln_attn) @ w_qkv.to(dtype))
     positions = torch.arange(seq, device=x.device)
     q = _rotary(q, positions)
     k = _rotary(k, positions)
@@ -171,12 +184,23 @@ def _layer(cfg: TransformerConfig, x: torch.Tensor, layer_params) -> torch.Tenso
         # Head h reads kv head h // group (split_qkv's kv-major layout).
         k = torch.repeat_interleave(k, h // kv, dim=2)
         v = torch.repeat_interleave(v, h // kv, dim=2)
-    scores = scale_scores(torch.einsum("bqhd,bkhd->bhqk", q, k), dh)
-    causal = torch.ones(seq, seq, dtype=torch.bool, device=x.device).tril()
-    scores = scores.masked_fill(~causal, torch.finfo(dtype).min)
-    weights = torch.softmax(scores.float(), dim=-1).to(dtype)
-    attended = torch.einsum("bhqk,bkhd->bqhd", weights, v)
-    x = x + attended.reshape(batch, seq, h * dh) @ w_out
+    if cfg.attention == "flash":
+        # [B, T, H, Dh] -> [B*H, T, Dh], the reference's heads_to_programs.
+        def heads_to_programs(t):
+            return t.transpose(1, 2).reshape(batch * h, seq, dh)
+
+        attended = flash_attention(
+            heads_to_programs(q), heads_to_programs(k), heads_to_programs(v),
+            pick_block(seq))
+        attended = attended.reshape(batch, h, seq, dh).transpose(1, 2)
+    else:
+        scores = scale_scores(torch.einsum("bqhd,bkhd->bhqk", q, k), dh)
+        causal = torch.ones(seq, seq, dtype=torch.bool,
+                            device=x.device).tril()
+        scores = scores.masked_fill(~causal, torch.finfo(dtype).min)
+        weights = torch.softmax(scores.float(), dim=-1).to(dtype)
+        attended = torch.einsum("bhqk,bkhd->bqhd", weights, v)
+    x = x + attended.reshape(batch, seq, h * dh) @ w_out.to(dtype)
     return mlp(x, w_up, w_down, ln_mlp)
 
 
@@ -184,8 +208,10 @@ def forward(params: dict, tokens: torch.Tensor,
             cfg: TransformerConfig) -> torch.Tensor:
     """tokens ``[B, T]`` int -> logits ``[B, T, V]`` fp32.
 
-    The naive-attention forward pass: the in-port oracle that paged
-    decode is held to (paged greedy tokens == this pass's argmax)."""
+    The naive-attention forward pass, whatever ``cfg.attention`` says:
+    the in-port oracle that paged decode is held to (paged greedy tokens
+    == this pass's argmax)."""
+    cfg = dataclasses.replace(cfg, attention="naive")
     x = params["embedding"][tokens]
     stacked = stacked_layer_params(params, cfg)
     with torch.no_grad():
@@ -193,3 +219,36 @@ def forward(params: dict, tokens: torch.Tensor,
             x = _layer(cfg, x, tuple(p[layer] for p in stacked))
         x = _rmsnorm(x, params["ln_final"])
         return tied_readout(x, params["embedding"])
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor,
+                   cfg: TransformerConfig) -> torch.Tensor:
+    """tokens ``[B, T]`` int -> hidden ``[B, T, D]`` in the compute dtype:
+    the stack up to and including the final RMSNorm, differentiable.
+
+    With ``cfg.remat`` and grad enabled, each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in backward instead of saved, so the flash forward kernel
+    runs twice per layer and step."""
+    dtype = torch_dtype(cfg.dtype)
+    x = params["embedding"][tokens].to(dtype)
+    stacked = stacked_layer_params(params, cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in range(cfg.n_layers):
+        layer_params = tuple(p[layer] for p in stacked)
+        if remat:
+            x = checkpoint(_layer, cfg, x, layer_params, use_reentrant=False)
+        else:
+            x = _layer(cfg, x, layer_params)
+    return _rmsnorm(x, params["ln_final"])
+
+
+def loss_fn(params: dict, batch: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """Next-token cross-entropy, fp32: batch ``[B, T+1]`` int, targets
+    shifted by one; ``mean(logsumexp(logits) - logits[target])``."""
+    inputs, targets = batch[:, :-1], batch[:, 1:]
+    logits = tied_readout(forward_hidden(params, inputs, cfg),
+                          params["embedding"])
+    target_logit = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.mean(torch.logsumexp(logits, dim=-1) - target_logit)

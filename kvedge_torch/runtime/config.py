@@ -1,13 +1,17 @@
-"""The serving knobs the port reads, from the runtime TOML.
+"""The runtime knobs the port reads, from the runtime TOML.
 
 The same TOML document as the JAX package's runtime config, with the
-same names and defaults, for the subset this slice serves:
+same names and defaults, for the subset the ported payloads run:
 
+    [runtime]  state_dir, checkpoint_dir
     [model]    preset, vocab, d_model, n_heads, n_kv_heads, n_layers, d_ff
-    [payload]  kind ("serve"), serving ("paged"), seq (the model's
-               max_seq), paged_attention, serving_slots,
-               serving_page_size, serving_pages, serving_prefill_chunk,
-               serving_window, serving_kv_dtype
+    [payload]  kind ("serve" | "train" | "eval"), seq (the model's
+               max_seq and the training sequence length), attention
+               ("" = "naive" | "flash"), corpus, eval_corpus, steps,
+               batch, checkpoint_every; for serving: serving ("paged"),
+               paged_attention, serving_slots, serving_page_size,
+               serving_pages, serving_prefill_chunk, serving_window,
+               serving_kv_dtype
     [status]   port, bind
 
 Any other section or key is REFUSED with its name, not ignored: a knob
@@ -28,13 +32,22 @@ class RuntimeConfigError(ValueError):
     pass
 
 
+DEFAULT_STATE_DIR = "/var/lib/kvedge/state"
+_VALID_ATTENTION = ("", "naive", "flash", "ring", "ulysses")
+_RUNTIME_KEYS = {"state_dir": "state_dir", "checkpoint_dir": "checkpoint_dir"}
 _MODEL_KEYS = ("preset", "vocab", "d_model", "n_heads", "n_kv_heads",
                "n_layers", "d_ff")
-# TOML key -> ServeConfig field.
+# TOML key -> RuntimeConfig field.
 _PAYLOAD_KEYS = {
     "kind": "payload",
     "serving": "payload_serving",
     "seq": "max_seq",
+    "attention": "payload_attention",
+    "corpus": "train_corpus",
+    "eval_corpus": "eval_corpus",
+    "steps": "train_steps",
+    "batch": "train_batch",
+    "checkpoint_every": "train_checkpoint_every",
     "paged_attention": "payload_paged_attention",
     "serving_slots": "serving_slots",
     "serving_page_size": "serving_page_size",
@@ -47,9 +60,12 @@ _STATUS_KEYS = {"port": "status_port", "bind": "status_bind"}
 
 
 @dataclasses.dataclass(frozen=True)
-class ServeConfig:
-    """Validated serving config (the parsed form of the TOML)."""
+class RuntimeConfig:
+    """Validated runtime config (the parsed form of the TOML)."""
 
+    state_dir: str = DEFAULT_STATE_DIR
+    # "" = <state_dir>/checkpoints (runtime/checkpoint.py).
+    checkpoint_dir: str = ""
     preset: str = ""  # "" = "probe"
     vocab: int = 0    # 0 = from the preset, for every shape field
     d_model: int = 0
@@ -60,6 +76,13 @@ class ServeConfig:
     payload: str = "serve"
     payload_serving: str = "paged"
     max_seq: int = 128  # [payload] seq (the reference's train_seq default)
+    payload_attention: str = ""  # "" = "naive"
+    train_corpus: str = ""
+    # "" = evaluate on the training corpus, with a warning.
+    eval_corpus: str = ""
+    train_steps: int = 100
+    train_batch: int = 8
+    train_checkpoint_every: int = 10
     payload_paged_attention: str = ""  # "" = "auto"
     serving_slots: int = 4
     serving_page_size: int = 16
@@ -71,7 +94,7 @@ class ServeConfig:
     status_bind: str = "0.0.0.0"
 
     @classmethod
-    def parse(cls, text: str) -> "ServeConfig":
+    def parse(cls, text: str) -> "RuntimeConfig":
         try:
             doc = tomllib.loads(text)
         except tomllib.TOMLDecodeError as e:
@@ -79,15 +102,16 @@ class ServeConfig:
         return cls.from_mapping(doc)
 
     @classmethod
-    def from_mapping(cls, doc: Mapping) -> "ServeConfig":
-        unknown = sorted(set(doc) - {"model", "payload", "status"})
+    def from_mapping(cls, doc: Mapping) -> "RuntimeConfig":
+        unknown = sorted(set(doc) - {"runtime", "model", "payload", "status"})
         if unknown:
             raise RuntimeConfigError(
                 f"section(s) {unknown} are not read by the PyTorch port "
-                "(it reads [model], [payload] and [status] only)"
+                "(it reads [runtime], [model], [payload] and [status] only)"
             )
         fields: dict = {}
-        for section, known in (("model", {k: k for k in _MODEL_KEYS}),
+        for section, known in (("runtime", _RUNTIME_KEYS),
+                               ("model", {k: k for k in _MODEL_KEYS}),
                                ("payload", _PAYLOAD_KEYS),
                                ("status", _STATUS_KEYS)):
             table = doc.get(section, {})
@@ -109,20 +133,45 @@ class ServeConfig:
         for name in ("vocab", "d_model", "n_heads", "n_kv_heads", "n_layers",
                      "d_ff", "max_seq", "serving_slots", "serving_page_size",
                      "serving_pages", "serving_prefill_chunk",
-                     "serving_window", "status_port"):
+                     "serving_window", "status_port", "train_steps",
+                     "train_batch", "train_checkpoint_every"):
             value = getattr(self, name)
             if not isinstance(value, int) or isinstance(value, bool) \
                     or value < 0:
                 raise RuntimeConfigError(
                     f"{name} must be a non-negative integer, got {value!r}")
+        for name in ("state_dir", "checkpoint_dir", "train_corpus",
+                     "eval_corpus", "payload_attention"):
+            if not isinstance(getattr(self, name), str):
+                raise RuntimeConfigError(
+                    f"{name} must be a string, got {getattr(self, name)!r}")
         if self.preset not in ("", *PRESETS):
             raise RuntimeConfigError(
                 f"[model] preset must be one of {sorted(PRESETS)}, got "
                 f"{self.preset!r}")
-        if self.payload != "serve":
+        if self.payload not in ("serve", "train", "eval"):
             raise RuntimeConfigError(
                 f"[payload] kind = {self.payload!r}: the PyTorch port runs "
-                "the 'serve' payload only")
+                "the 'serve', 'train' and 'eval' payloads")
+        if self.payload_attention not in _VALID_ATTENTION:
+            raise RuntimeConfigError(
+                f"[payload] attention must be one of {_VALID_ATTENTION}, "
+                f"got {self.payload_attention!r}")
+        if self.payload == "train" and not self.train_corpus:
+            raise RuntimeConfigError(
+                "[payload] kind = 'train' requires corpus = '<path>' "
+                "(a KVFEED01 token file, typically on the state volume)")
+        if self.payload == "eval" and not (self.train_corpus
+                                           or self.eval_corpus):
+            raise RuntimeConfigError(
+                "[payload] kind = 'eval' requires corpus = '<path>' or "
+                "eval_corpus = '<path>' (a KVFEED01 token file; "
+                "eval_corpus is the held-out split)")
+        for name in ("train_steps", "train_batch", "train_checkpoint_every"):
+            if getattr(self, name) <= 0:
+                raise RuntimeConfigError(
+                    f"[payload] {name.removeprefix('train_')} must be "
+                    "positive")
         if self.payload_serving not in ("", "paged"):
             raise RuntimeConfigError(
                 f"[payload] serving = {self.payload_serving!r}: the PyTorch "
@@ -144,7 +193,8 @@ class ServeConfig:
                 f"[payload] seq = {self.max_seq} is too small to serve")
 
     def model_config(self, dtype: str = "bfloat16") -> TransformerConfig:
-        """The served model: the preset with explicit fields on top."""
+        """The model of every payload: the preset with explicit fields on
+        top, ``seq`` as its max_seq, and ``[payload] attention``."""
         base = PRESETS[self.preset or "probe"]
         tcfg = TransformerConfig(
             vocab=self.vocab or base["vocab"],
@@ -156,6 +206,7 @@ class ServeConfig:
             max_seq=self.max_seq,
             dtype=dtype,
             paged_attention=self.payload_paged_attention or "auto",
+            attention=self.payload_attention or "naive",
         )
         try:
             tcfg.validate()
@@ -163,3 +214,7 @@ class ServeConfig:
             raise RuntimeConfigError(
                 f"[model] configuration is invalid: {e}") from e
         return tcfg
+
+
+# The serving slice's name for the same parsed config.
+ServeConfig = RuntimeConfig

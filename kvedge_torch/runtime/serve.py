@@ -8,7 +8,7 @@ contract is the reference's::
     {"tokens": [[int, ...], ...], "n_new": int,
      "temperature": float = 0, "top_p": float = 1, "seed": int = 0}
     -> {"tokens": [[prompt + generated], ...], "n_new": N,
-        "restored_step": null}
+        "restored_step": step | null}
 
 Each row of a request is its own request into the shared page pool,
 submitted concurrently so rows (and other clients' rows) ride the same
@@ -24,9 +24,12 @@ interleaved, then ``{"done": true, "tokens": ..., "n_new": N,
 ``{"error": ...}`` record, and a client that disconnects cancels its
 rows.
 
-``ServeRuntime`` builds everything (device check, weights from a seed,
-the server, the HTTP listener); ``python -m kvedge_torch serve`` runs
-it until interrupted.
+``ServeRuntime`` builds everything (device check, weights, the server,
+the HTTP listener); ``python -m kvedge_torch serve`` (``cli.py``) runs
+it until interrupted. The weights are the params of the latest
+checkpoint that ``train`` wrote under the state directory
+(``restored_step`` in every response names its step), as the
+reference's serve restores them, or else the seeded numpy init.
 """
 
 from __future__ import annotations
@@ -46,10 +49,10 @@ from kvedge_torch.models.serving import (
     ServerBusy,
     ServerClosed,
 )
-from kvedge_torch.models.transformer import init_params
 from kvedge_torch.models.weights import params_from_numpy
 from kvedge_torch.runtime.config import ServeConfig
 from kvedge_torch.runtime.devicecheck import resolve_device, run_device_check
+from kvedge_torch.runtime.train import restore_latest_params
 
 # Request-body ceiling: a token grid is small; anything bigger is refused
 # before json.loads.
@@ -192,8 +195,9 @@ class ServeRuntime:
     ``serve_fn`` and (with ``port`` set) the HTTP listener.
 
     ``device`` is the card unless "cpu" is asked for; ``params`` is a
-    numpy param tree (the reference's layout) or None for weights made
-    from ``seed``; ``dtype`` is the compute dtype.
+    numpy param tree (the reference's layout) or None for the latest
+    checkpoint's params, or weights made from ``seed`` when there is no
+    checkpoint; ``dtype`` is the compute dtype.
     """
 
     def __init__(self, cfg: ServeConfig, *, device=None,
@@ -206,8 +210,11 @@ class ServeRuntime:
                                f"{self.device_check.error}")
         self.cfg = cfg
         self.tcfg = cfg.model_config(dtype)
-        tree = params if params is not None else init_params(seed, self.tcfg)
-        weights = params_from_numpy(tree, self.tcfg, self.device)
+        self.restored_step = None
+        if params is None:
+            self.restored_step, params = restore_latest_params(
+                cfg, self.tcfg, seed)
+        weights = params_from_numpy(params, self.tcfg, self.device)
         slots, pages, page_size, _ = _serving_pool_dims(cfg, self.tcfg)
         self.max_rows = _serve_max_rows(cfg, self.tcfg)
         self.server = PagedGenerationServer(
@@ -258,7 +265,8 @@ class ServeRuntime:
                                          sampling=row_sampling(i))
 
         self._fan_out(len(prompts), one_row)
-        return {"tokens": rows, "n_new": n_new, "restored_step": None}
+        return {"tokens": rows, "n_new": n_new,
+                "restored_step": self.restored_step}
 
     def _fan_out(self, n_rows: int, fn) -> None:
         """Run ``fn(i)`` for every row on the bounded row pool, rows
@@ -344,7 +352,7 @@ class ServeRuntime:
             raise
         yield {"done": True,
                "tokens": [p + g for p, g in zip(prompts, generated)],
-               "n_new": n_new, "restored_step": None}
+               "n_new": n_new, "restored_step": self.restored_step}
 
     def _start_http(self, host: str, port: int) -> None:
         runtime = self
@@ -435,52 +443,3 @@ class ServeRuntime:
         self.server.close(drain=drain)
         self._rows.shutdown(wait=True)
 
-
-def main(argv=None) -> int:
-    """``python -m kvedge_torch serve [--config x.toml] [--preset P]
-    [--max-seq N] [--port P] [--bind H] [--device cuda|cpu] [--seed S]
-    [--dtype bfloat16|float32]``."""
-    import argparse
-    import dataclasses
-    import signal
-
-    ap = argparse.ArgumentParser(prog="python -m kvedge_torch")
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    sp = sub.add_parser("serve", help="serve POST /generate")
-    sp.add_argument("--config", help="runtime TOML ([model], [payload], "
-                    "[status])")
-    sp.add_argument("--preset", choices=("probe", "flagship"))
-    sp.add_argument("--max-seq", type=int)
-    sp.add_argument("--port", type=int)
-    sp.add_argument("--bind")
-    sp.add_argument("--device", choices=("cuda", "cpu"), default=None)
-    sp.add_argument("--seed", type=int, default=0,
-                    help="seed of the numpy-made weights")
-    sp.add_argument("--dtype", choices=("bfloat16", "float32"),
-                    default="bfloat16")
-    args = ap.parse_args(argv)
-
-    cfg = ServeConfig()
-    if args.config:
-        with open(args.config, encoding="utf-8") as f:
-            cfg = ServeConfig.parse(f.read())
-    overrides = {k: v for k, v in (("preset", args.preset),
-                                   ("max_seq", args.max_seq),
-                                   ("status_port", args.port),
-                                   ("status_bind", args.bind))
-                 if v is not None}
-    cfg = dataclasses.replace(cfg, **overrides)
-    cfg.validate()
-    runtime = ServeRuntime(cfg, device=args.device, dtype=args.dtype,
-                           seed=args.seed, port=cfg.status_port)
-    stop = threading.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: stop.set())
-    print(json.dumps({"serving": f"http://{cfg.status_bind}:{runtime.port}",
-                      "device": str(runtime.device),
-                      "device_check": runtime.device_check.to_dict(),
-                      "model": dataclasses.asdict(runtime.tcfg)}),
-          flush=True)
-    stop.wait()
-    runtime.close(drain=True)
-    return 0

@@ -43,10 +43,10 @@ from kvedge_torch.models.serving import (
 from kvedge_torch.models.transformer import forward
 from kvedge_torch.models.weights import params_from_numpy
 from kvedge_torch.runtime.config import RuntimeConfigError, ServeConfig
+from kvedge_torch.cli import main
 from kvedge_torch.runtime.serve import (
     ServeRuntime,
     _parse_generate_request,
-    main,
     row_key_data,
 )
 
@@ -232,10 +232,10 @@ def _post(url, doc):
         return e.code, json.loads(e.read())
 
 
-def test_http_round_trip_on_cpu():
+def test_http_round_trip_on_cpu(tmp_path):
     cfg = ServeConfig(preset="probe", n_layers=1, max_seq=64,
                       serving_slots=2, serving_prefill_chunk=8,
-                      serving_window=4)
+                      serving_window=4, state_dir=str(tmp_path))
     rt = ServeRuntime(cfg, device="cpu", dtype="float32", seed=3,
                       host="127.0.0.1", port=0)
     try:
