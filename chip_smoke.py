@@ -60,13 +60,48 @@ imports nothing of JAX. Phases, each printing one JSON line:
             with a loss below the first training loss; ``serve`` restores
             the checkpoint and two greedy requests return the naive
             forward's argmax tokens over the restored params at fp32.
-11. train_timings  at the train shape (BH 512, T 512, Dh 64, bf16): each
-            flash kernel's ms, its plain version's, its bound, and
-            ``F.scaled_dot_product_attention(is_causal=True)`` forward and
-            backward as the library yardstick the port never calls; the
-            train step's ms, tokens/s, MFU, and the device idle share over
-            3 profiled steps.
-12. kernels  one line listing every ported kernel.
+11. xent_kernel  the three fused cross-entropy kernels (B5 forward, B6
+            dx, B7 dE) against their plain PyTorch versions: bf16 and fp32,
+            V in {128, 640, 32000}, D in {64, 128, 512}, N in {8, 64,
+            1032}, targets pinned to every vocab tile, plus an embedding
+            scaled by 400 (logits in the hundreds); loss (lse - target
+            logit) within 1e-5 (fp32) / 1e-2 (bf16), dx and dE within 1e-5
+            (fp32) / 3e-2 and at most 2^-6 (dx) / 2^-7 (dE) of their
+            largest entry (bf16); logits in the hundreds: the loss within
+            rtol 1e-4, atol 1e-3, the gradients within 1e-3 (fp32) / the
+            same shares (bf16) of their largest entry. Each case also
+            reports the plain version against itself summed in another
+            order, and fails unless a dx that dropped the softmax term
+            would fail its bound. The backward run twice must be
+            bit-identical; through ``fused_xent``, ids -1, V and V + 7 give
+            the plain version's NaN mask.
+12. rmsnorm the RMSNorm kernel (B8) against ``_rmsnorm`` at [32768, 512],
+            [3, 64], [5, 128] and [2, 8, 256], bf16 (one bf16 ulp, rtol
+            2^-7) and fp32 (rtol 1e-6), with the count of elements that
+            differ at all; then one flagship fp32 train step (flash, remat,
+            batch 4, seq 512) with ``_rmsnorm`` swapped for
+            ``rmsnorm_fused``, restored afterwards: loss within 1e-5 of the
+            stock step's, B8 launched 4 x n_layers + 1 = 33 times.
+13. train_fused  the flagship trained through ``training.run_training``
+            with ``fused_xent``, bf16, flash, remat, seq 512, batch 64, 30
+            steps over the train phase's corpus. Launch counts are zeroed
+            just before and read just after: B5, B6 and B7 once per step,
+            B2-B4 as in the train phase. The loss falls at least 1 nat.
+            From the same fp32 weights at batch 4, fused against the
+            materialized logits: loss within 1e-4, every gradient within
+            5e-3; the first 5 bf16 steps within 2e-2.
+14. train_timings  at the train shape: each flash kernel (BH 512, T 512,
+            Dh 64, bf16), each xent kernel (N 32768, V 32000, D 512, bf16)
+            and B8 ([32768, 512] bf16): ms, its plain version's ms, its
+            bound, achieved TFLOP/s, and a library yardstick the port never
+            calls (``F.scaled_dot_product_attention(is_causal=True)``; a
+            bf16 ``torch.mm`` upcast to fp32 logits then
+            ``F.cross_entropy``, two calls; ``F.rms_norm``). The xent
+            kernels are held to the xent_kernel phase's bf16 bounds with a
+            cotangent g in [0.5, 1.5]. The train step with and without
+            ``fused_xent``: ms, tokens/s, MFU, the device idle share over 3
+            profiled steps and the peak device memory of one step.
+15. kernels  one line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check
 exits non-zero before it. Without a card, or without the repository
@@ -642,20 +677,35 @@ def markov_corpus(np, path, write_corpus, vocab, n_tokens, seed=2026):
     write_corpus(path, ids[np.asarray(chain)])
 
 
-def counts(pa, fa) -> dict:
-    return {"paged_decode": pa.paged_decode_attention.launches,
-            "flash_fwd": fa.flash_forward.launches,
-            "flash_bwd_dq": fa.flash_backward_dq.launches,
-            "flash_bwd_dkv": fa.flash_backward_dkv.launches}
+def kernel_wrappers(pa, fa, xe, rn) -> dict:
+    """Every kernel wrapper by the name the kernels line gives it."""
+    return {"paged_decode": pa.paged_decode_attention,
+            "flash_fwd": fa.flash_forward,
+            "flash_bwd_dq": fa.flash_backward_dq,
+            "flash_bwd_dkv": fa.flash_backward_dkv,
+            "xent_fwd": xe.xent_forward,
+            "xent_bwd_dx": xe.xent_backward_dx,
+            "xent_bwd_de": xe.xent_backward_de,
+            "rmsnorm": rn.rmsnorm_forward}
 
 
-def zero_counts(pa, fa) -> None:
-    for fn in (pa.paged_decode_attention, fa.flash_forward,
-               fa.flash_backward_dq, fa.flash_backward_dkv):
+def counts(kfns) -> dict:
+    return {name: fn.launches for name, fn in kfns.items()}
+
+
+def zero_counts(kfns) -> None:
+    for fn in kfns.values():
         fn.launches = 0
 
 
-def phase_train(np, pa, fa, tr, RuntimeConfig, write_corpus, device="cuda"):
+def expect_counts(kfns, device, **launches) -> dict:
+    """The launch counts a path should leave: those named, 0 for every
+    other kernel; all 0 on a CPU rehearsal, which launches no kernel."""
+    return {name: (launches.get(name, 0) if device == "cuda" else 0)
+            for name in kfns}
+
+
+def phase_train(np, kfns, tr, RuntimeConfig, write_corpus, device="cuda"):
     """The port's train payload at flagship width, bf16, flash, remat."""
     import shutil
 
@@ -672,9 +722,9 @@ def phase_train(np, pa, fa, tr, RuntimeConfig, write_corpus, device="cuda"):
     tcfg = cfg.model_config("bfloat16")
     markov_corpus(np, corpus, write_corpus, tcfg.vocab, TRAIN["corpus_tokens"])
     corpus_s = time.perf_counter() - t0
-    zero_counts(pa, fa)
+    zero_counts(kfns)
     result = tr.run_train_payload(cfg, device=device, dtype="bfloat16")
-    launches = counts(pa, fa)
+    launches = counts(kfns)
     check(result.ok, f"train payload failed: {result.error}")
     losses = result.losses
     ln_v = math.log(tcfg.vocab)
@@ -690,12 +740,11 @@ def phase_train(np, pa, fa, tr, RuntimeConfig, write_corpus, device="cuda"):
            "checkpoints": sorted(os.listdir(os.path.join(STATE_DIR,
                                                           "checkpoints")))}
     finite = len(losses) == steps and all(math.isfinite(x) for x in losses)
-    # Remat runs the forward kernel twice per layer and step; a CPU
-    # rehearsal of this phase launches no kernel at all.
-    want = {"paged_decode": 0, "flash_fwd": 2 * layers * steps,
-            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps}
-    launches_ok = launches == (want if device == "cuda"
-                               else dict.fromkeys(want, 0))
+    # Remat runs the forward kernel twice per layer and step.
+    want = expect_counts(kfns, device, flash_fwd=2 * layers * steps,
+                         flash_bwd_dq=layers * steps,
+                         flash_bwd_dkv=layers * steps)
+    launches_ok = launches == want
     ok = (finite and abs(losses[0] - ln_v) <= 0.5 * ln_v
           and tail <= losses[0] - 1.0 and launches_ok
           and progress.get("step") == steps)
@@ -735,52 +784,75 @@ def phase_resume(tr, cfg, first, device="cuda"):
     check(diff <= 1e-3, f"resumed losses differ by {diff}")
 
 
-def phase_flash_vs_naive(torch, np, training, ttr, tcfg_flag, device="cuda"):
-    """flash against naive from the same fp32 weights (loss and every
-    gradient, seq 512, batch 4), and 5 bf16 train steps each."""
+def agreement(torch, np, training, ttr, cfgs, tree_seed, batch_seed,
+              step_seed, device="cuda"):
+    """Two variants of one model, ``cfgs`` = {name: config}, from the same
+    weights: the fp32 loss and every gradient at seq 512, batch 4, then
+    5 bf16 train steps each. Returns the phase's fields and whether the
+    gradients agree within 5e-3."""
     import dataclasses
 
-    rng = np.random.default_rng(11)
+    (name_a, cfg_a), (name_b, _) = cfgs.items()
+    rng = np.random.default_rng(batch_seed)
     batch = torch.from_numpy(rng.integers(
-        0, tcfg_flag.vocab, (4, TRAIN["seq"] + 1))).to(device)
-    tree = ttr.init_params(3, tcfg_flag)
-    out = {}
-    for att in ("naive", "flash"):
-        cfg = dataclasses.replace(tcfg_flag, dtype="float32", attention=att)
+        0, cfg_a.vocab, (4, TRAIN["seq"] + 1))).to(device)
+    tree = ttr.init_params(tree_seed, cfg_a)
+    out, bf16 = {}, {}
+    for name, cfg in cfgs.items():
+        cfg = dataclasses.replace(cfg, dtype="float32")
         params = training.master_params(tree, cfg, device)
         keys = sorted(params)
         loss = ttr.loss_fn(params, batch, cfg)
         grads = torch.autograd.grad(loss, [params[k] for k in keys])
-        out[att] = (float(loss.detach()), dict(zip(keys, grads)))
-    loss_diff = abs(out["naive"][0] - out["flash"][0])
-    grad_err = {k: float((out["flash"][1][k] - g).abs().max())
-                for k, g in out["naive"][1].items()}
-    grads_ok = all(torch.allclose(out["flash"][1][k], g, rtol=5e-3, atol=5e-3)
-                   for k, g in out["naive"][1].items())
-    bf16 = {}
-    for att in ("naive", "flash"):
-        cfg = dataclasses.replace(tcfg_flag, dtype="bfloat16", attention=att)
+        out[name] = (float(loss.detach()), dict(zip(keys, grads)))
+    for name, cfg in cfgs.items():
+        cfg = dataclasses.replace(cfg, dtype="bfloat16")
         params = training.master_params(tree, cfg, device)
         init, step = training.make_train_step(cfg, device)
         opt = init(params)
         losses = []
         for i in range(5):
-            b = torch.from_numpy(np.random.default_rng(40 + i).integers(
+            b = torch.from_numpy(np.random.default_rng(step_seed + i).integers(
                 0, cfg.vocab, (4, TRAIN["seq"] + 1)))
             params, opt, loss = step(params, opt, b)
             losses.append(float(loss))
-        bf16[att] = losses
-    bf16_diff = max(abs(a - b) for a, b in zip(bf16["naive"], bf16["flash"]))
-    ok = loss_diff <= 1e-4 and grads_ok and bf16_diff <= 2e-2
-    emit({"phase": "flash_vs_naive", "seq": TRAIN["seq"], "batch": 4,
-          "fp32_losses": {a: out[a][0] for a in out},
-          "fp32_loss_diff": loss_diff, "fp32_grad_max_abs_err": grad_err,
-          "bf16_losses": bf16, "bf16_max_loss_diff": bf16_diff,
-          "tol": {"fp32_loss": 1e-4, "fp32_grad": 5e-3, "bf16_loss": 2e-2},
-          "ok": ok})
-    check(loss_diff <= 1e-4, f"fp32 flash vs naive loss differs {loss_diff}")
-    check(grads_ok, f"fp32 flash vs naive gradients differ {grad_err}")
-    check(bf16_diff <= 2e-2, f"bf16 flash vs naive losses differ {bf16_diff}")
+        bf16[name] = losses
+    grads_a, grads_b = out[name_a][1], out[name_b][1]
+    grad_err = {k: float((grads_b[k] - g).abs().max())
+                for k, g in grads_a.items()}
+    grads_ok = all(torch.allclose(grads_b[k], g, rtol=5e-3, atol=5e-3)
+                   for k, g in grads_a.items())
+    loss_diff = abs(out[name_a][0] - out[name_b][0])
+    bf16_diff = max(abs(a - b) for a, b in zip(bf16[name_a], bf16[name_b]))
+    doc = {"seq": TRAIN["seq"], "batch": 4,
+           "fp32_losses": {n: out[n][0] for n in out},
+           "fp32_loss_diff": loss_diff, "fp32_grad_max_abs_err": grad_err,
+           "bf16_losses": bf16, "bf16_max_loss_diff": bf16_diff,
+           "tol": {"fp32_loss": 1e-4, "fp32_grad": 5e-3, "bf16_loss": 2e-2},
+           "ok": loss_diff <= 1e-4 and grads_ok and bf16_diff <= 2e-2}
+    return doc, grads_ok
+
+
+def check_agreement(phase, doc, grads_ok, what):
+    emit({"phase": phase, **doc})
+    check(doc["fp32_loss_diff"] <= 1e-4,
+          f"fp32 {what} loss differs {doc['fp32_loss_diff']}")
+    check(grads_ok, f"fp32 {what} gradients differ "
+          f"{doc['fp32_grad_max_abs_err']}")
+    check(doc["bf16_max_loss_diff"] <= 2e-2,
+          f"bf16 {what} losses differ {doc['bf16_max_loss_diff']}")
+
+
+def phase_flash_vs_naive(torch, np, training, ttr, tcfg_flag, device="cuda"):
+    """flash against naive from the same fp32 weights (loss and every
+    gradient, seq 512, batch 4), and 5 bf16 train steps each."""
+    import dataclasses
+
+    cfgs = {att: dataclasses.replace(tcfg_flag, attention=att)
+            for att in ("naive", "flash")}
+    doc, grads_ok = agreement(torch, np, training, ttr, cfgs, 3, 11, 40,
+                              device)
+    check_agreement("flash_vs_naive", doc, grads_ok, "flash vs naive")
 
 
 def phase_eval_serve(torch, np, tr, serve, forward, params_from_numpy, cfg,
@@ -869,12 +941,101 @@ def flash_bound(bh, seq, dh, itemsize, matmuls, in_tensors, out_tensors,
             else "bytes", flops, nbytes, t_ops, t_bytes)
 
 
-def phase_train_timings(torch, np, fa, training, ttr, tcfg_flag):
-    """Kernel, plain and SDPA times at the train shape, and the step."""
+def measure_step(torch, np, training, ttr, cfg, batch_rows, seq):
+    """One train step's ms (host clock over 5 synchronized steps after 2
+    warm-up), the device busy and idle share over 3 profiled steps, and
+    the peak device memory of one step, at fresh weights."""
+    from torch.profiler import ProfilerActivity, profile
+
+    params = training.master_params(ttr.init_params(5, cfg), cfg, "cuda")
+    init, step = training.make_train_step(cfg, "cuda")
+    opt = init(params)
+    batch = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (batch_rows, seq + 1))).cuda()
+    for _ in range(2):
+        params, opt, loss = step(params, opt, batch)
+    torch.cuda.synchronize()
+    n_steps = 5
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        params, opt, loss = step(params, opt, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            params, opt, loss = step(params, opt, batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, loss = step(params, opt, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = batch_rows * seq
+    h, dh = cfg.n_heads, cfg.d_head
+    attn_flops = 3 * 2 * 2 * batch_rows * h * (seq * (seq + 1) // 2) * dh \
+        * cfg.n_layers
+    model_flops = 6 * cfg.param_count * tokens + attn_flops
+    del params, opt
+    return {"step_ms": step_ms, "tokens_per_step": tokens,
+            "train_tokens_per_s": tokens / step_ms * 1e3,
+            "profiled_steps": 3, "profiled_wall_ms": prof_wall_ms,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / prof_wall_ms,
+            "kernel_launches_per_step": sum(e.count for e in kernels) / 3,
+            "top_kernels": [{"name": e.key[:90], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top],
+            "peak_memory_bytes": peak,
+            "model_flops_per_step": model_flops,
+            "mfu": model_flops / (step_ms * 1e-3) / BF16_FLOPS}
+
+
+def xent_bound(n, v, d, itemsize, products, out_bytes):
+    """(least ms, "bytes" | "operations", flops, bytes, ms at the peak
+    operation rate, ms at the memory rate) of an xent pass: ``products``
+    [N, V, D] products of 2 N V D operations; x, E and the targets read
+    once (and lse and g by the backward), ``out_bytes`` written once."""
+    flops = products * 2 * n * v * d
+    nbytes = (n + v) * d * itemsize + n * 4 + out_bytes
+    if products == 2:
+        nbytes += 2 * n * 4  # lse and g
+    t_ops = flops / (BF16_FLOPS if itemsize == 2 else FP32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes, t_ops, t_bytes)
+
+
+def library_xent(torch, F, x, e16, targets):
+    """The two-call yardstick the port never calls: one bf16 cuBLAS
+    ``x @ E^T`` with its logits upcast to fp32, then ``F.cross_entropy``.
+    Returns (forward fn, backward fn, label)."""
+    tg = targets.long()
+    xa, ea = (t.detach().requires_grad_(True) for t in (x, e16))
+
+    def forward():
+        return F.cross_entropy(torch.mm(xa, ea.t()).float(), tg,
+                               reduction="none")
+
+    def backward():
+        loss = F.cross_entropy(torch.mm(xa, ea.t()).float(), tg)
+        return torch.autograd.grad(loss, (xa, ea))
+
+    return forward, backward, ("torch.mm(x, E^T) in bf16, .float(), then "
+                               "F.cross_entropy (two calls)")
+
+
+def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
+    """Kernel, plain and library times at the train shape, and the train
+    step with and without fused_xent."""
     import dataclasses
 
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     b, h, dh, t = TRAIN["batch"], tcfg_flag.n_heads, tcfg_flag.d_head, \
         TRAIN["seq"]
@@ -930,72 +1091,412 @@ def phase_train_timings(torch, np, fa, training, ttr, tcfg_flag):
     rows["flash_bwd_dkv"]["library_ms"] = sdpa_bwd_ms
     del sq, sk, sv, s_out, q, k, v, do, out, lse, delta, dq, dk, dv
 
-    # The train step at the payload's shape, fresh weights.
+    # B5-B7 at the fused train step's shape: N = B T rows of the hidden
+    # state, the flagship's D and V, bf16; g in [0.5, 1.5], so that the
+    # gradients' entries are O(0.1) and O(1) and a bound relative to them
+    # can fail a wrong kernel (the times do not depend on g's values).
+    n, d, vocab = b * t, tcfg_flag.d_model, tcfg_flag.vocab
+    gen = torch.Generator().manual_seed(78)
+    x = torch.randn((n, d), generator=gen).to(torch.bfloat16).cuda()
+    e16 = (torch.randn((vocab, d), generator=gen) * 0.02).to(
+        torch.bfloat16).cuda()
+    tg = torch.randint(0, vocab, (n,), generator=gen,
+                       dtype=torch.int32).cuda()
+    g = (torch.rand(n, generator=gen) + 0.5).cuda()
+    x_lse, x_tl = xe.xent_forward(x, e16, tg)
+    x_dx = xe.xent_backward_dx(x, e16, tg, x_lse, g)
+    x_de = xe.xent_backward_de(x, e16, tg, x_lse, g)
+    p_lse, p_tl = xe.xent_forward_reference(x, e16, tg)
+    xtol = XENT_TOL["bfloat16"][0]
+    p_dx = xe.xent_backward_dx_reference(x, e16, tg, x_lse, g).float()
+    p_de = xe.xent_backward_de_reference(x, e16, tg, x_lse, g)
+    x_pairs = {"xent_fwd": (x_lse - x_tl, p_lse - p_tl, (xtol, xtol)),
+               "xent_bwd_dx": (x_dx, p_dx, grad_tol("bfloat16", "dx", p_dx)),
+               "xent_bwd_de": (x_de, p_de, grad_tol("bfloat16", "de", p_de))}
+    xent_tols = {}
+    for name, (got, want, (rt, at)) in x_pairs.items():
+        errs[name] = float((got.float() - want.float()).abs().max())
+        xent_tols[name] = [rt, at]
+        agree = agree and torch.allclose(got.float(), want.float(),
+                                         rtol=rt, atol=at)
+    ctrl = dropped_softmax_dx(x, e16, tg, g).float()
+    xent_control = float((ctrl - p_dx).abs().max())
+    xent_sensitive = not torch.allclose(ctrl, p_dx, rtol=0.0,
+                                        atol=xent_tols["xent_bwd_dx"][1])
+    del ctrl, p_dx
+    del x_pairs, p_lse, p_tl, p_de
+    lib_fwd, lib_bwd, lib_label = library_xent(torch, F, x, e16, tg)
+    lib_bwd_ms = event_ms(torch, lib_bwd, 5)
+    rows["xent_fwd"] = dict(
+        ms=event_ms(torch, lambda: xe.xent_forward(x, e16, tg)),
+        plain_ms=event_ms(torch, lambda: xe.xent_forward_reference(
+            x, e16, tg), 3),
+        library_ms=event_ms(torch, lib_fwd, 5),
+        bound=xent_bound(n, vocab, d, 2, 1, 2 * n * 4))
+    rows["xent_bwd_dx"] = dict(
+        ms=event_ms(torch, lambda: xe.xent_backward_dx(x, e16, tg, x_lse, g)),
+        plain_ms=event_ms(torch, lambda: xe.xent_backward_dx_reference(
+            x, e16, tg, x_lse, g), 3),
+        library_ms=lib_bwd_ms, bound=xent_bound(n, vocab, d, 2, 2, n * d * 2))
+    rows["xent_bwd_de"] = dict(
+        ms=event_ms(torch, lambda: xe.xent_backward_de(x, e16, tg, x_lse, g)),
+        plain_ms=event_ms(torch, lambda: xe.xent_backward_de_reference(
+            x, e16, tg, x_lse, g), 3),
+        library_ms=lib_bwd_ms,
+        bound=xent_bound(n, vocab, d, 2, 2, vocab * d * 4))
+    del x_lse, x_tl, x_dx, x_de, e16, tg, g
+
+    # B8 at [B T, D] bf16, the shape each of its 33 launches a step has.
+    gain = torch.randn(d, generator=gen).cuda() * 0.1 + 1.0
+    gain16 = gain.to(torch.bfloat16)
+    r_got = rn.rmsnorm_forward(x, gain)
+    r_want = rn.rmsnorm_reference(x, gain)
+    errs["rmsnorm"] = float((r_got.float() - r_want.float()).abs().max())
+    agree = agree and torch.allclose(r_got.float(), r_want.float(),
+                                     rtol=2.0 ** -7, atol=0.0)
+    r_bytes = 2 * n * d * 2 + d * 4
+    r_ops = 4 * n * d
+    r_tb = r_bytes / HBM_BYTES_PER_S * 1e3
+    r_to = r_ops / BF16_FLOPS * 1e3
+    rows["rmsnorm"] = dict(
+        ms=event_ms(torch, lambda: rn.rmsnorm_forward(x, gain)),
+        plain_ms=event_ms(torch, lambda: rn.rmsnorm_reference(x, gain)),
+        library_ms=event_ms(torch, lambda: F.rms_norm(x, (d,), gain16,
+                                                      1e-6)),
+        bound=(max(r_tb, r_to), "bytes" if r_tb >= r_to else "operations",
+               r_ops, r_bytes, r_to, r_tb))
+    del x, gain, gain16, r_got, r_want
+
+    # The train step at the payload's shape, with and without fused_xent.
     cfg = dataclasses.replace(tcfg_flag, dtype="bfloat16", attention="flash")
-    params = training.master_params(ttr.init_params(5, cfg), cfg, "cuda")
-    init, step = training.make_train_step(cfg, "cuda")
-    opt = init(params)
-    batch = torch.from_numpy(np.random.default_rng(5).integers(
-        0, cfg.vocab, (b, t + 1))).cuda()
-    for _ in range(2):
-        params, opt, loss = step(params, opt, batch)
-    torch.cuda.synchronize()
-    n_steps = 5
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        params, opt, loss = step(params, opt, batch)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / n_steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            params, opt, loss = step(params, opt, batch)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    tokens = b * t
-    attn_flops = 3 * 2 * 2 * b * h * (t * (t + 1) // 2) * dh * cfg.n_layers
-    model_flops = 6 * cfg.param_count * tokens + attn_flops
+    unfused = measure_step(torch, np, training, ttr, cfg, b, t)
+    fused = measure_step(torch, np, training, ttr,
+                         dataclasses.replace(cfg, fused_xent=True), b, t)
     doc = {"phase": "train_timings",
            "shape": {"BH": bh, "T": t, "Dh": dh, "dtype": "bfloat16",
-                     "batch": b, "heads": h},
+                     "batch": b, "heads": h, "xent_N": n, "xent_V": vocab,
+                     "xent_D": d, "rmsnorm": [n, d]},
            "timing": "CUDA events, median of 10 calls after 2 warm-up "
-                     "(plain: of 5); step: host clock over 5 synchronized "
-                     "steps after 2 warm-up",
-           "kernels": {n: {"ms": r["ms"], "plain_ms": r["plain_ms"],
-                           "library_ms": r["library_ms"],
-                           "bound_ms": r["bound"][0],
-                           "bound_by": r["bound"][1],
-                           "flops": r["bound"][2], "bytes": r["bound"][3],
-                           "flop_bound_ms": r["bound"][4],
-                           "byte_bound_ms": r["bound"][5],
-                           "achieved_TFLOPs": r["bound"][2] / r["ms"] / 1e9,
-                           "max_abs_err": errs[n]}
-                       for n, r in rows.items()},
-           "library": "torch.nn.functional.scaled_dot_product_attention("
-                      "is_causal=True): forward for flash_fwd; its backward "
-                      "(dq, dk and dv in one call) for both backward rows",
-           "step_ms": step_ms, "tokens_per_step": tokens,
-           "train_tokens_per_s": tokens / step_ms * 1e3,
-           "profiled_steps": 3, "profiled_wall_ms": prof_wall_ms,
-           "device_busy_ms": busy_ms,
-           "device_idle_share": 1 - busy_ms / prof_wall_ms,
-           "kernel_launches_per_step": sum(e.count for e in kernels) / 3,
-           "top_kernels": [{"name": e.key[:90], "count": e.count,
-                            "ms": e.self_device_time_total / 1e3}
-                           for e in top],
-           "model_flops_per_step": model_flops,
-           "mfu": model_flops / (step_ms * 1e-3) / BF16_FLOPS,
+                     "(plain: of 5, xent plain of 3); step: host clock "
+                     "over 5 synchronized steps after 2 warm-up",
+           "kernels": {n_: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                            "library_ms": r["library_ms"],
+                            "bound_ms": r["bound"][0],
+                            "bound_by": r["bound"][1],
+                            "flops": r["bound"][2], "bytes": r["bound"][3],
+                            "flop_bound_ms": r["bound"][4],
+                            "byte_bound_ms": r["bound"][5],
+                            "achieved_TFLOPs": r["bound"][2] / r["ms"] / 1e9,
+                            "achieved_GBps": r["bound"][3] / r["ms"] / 1e6,
+                            "max_abs_err": errs[n_]}
+                       for n_, r in rows.items()},
+           "library": {"flash": "torch.nn.functional.scaled_dot_product_"
+                                "attention(is_causal=True): forward for "
+                                "flash_fwd; its backward (dq, dk and dv in "
+                                "one call) for both backward rows",
+                       "xent": lib_label + ": forward for xent_fwd; its "
+                               "backward (dx and dE in one call) for both "
+                               "backward rows",
+                       "rmsnorm": "torch.nn.functional.rms_norm, bf16 "
+                                  "weight"},
+           **unfused,
            "mfu_formula": "(6 params tokens + 6 x causal attention matmul "
                           "FLOPs of the forward's 2) / step / 989 TFLOP/s",
-           "tol": {"out": tol, "grad": gtol}, "ok": agree}
+           "peak_memory": "torch.cuda.max_memory_allocated() over one step, "
+                          "params and AdamW state included",
+           "fused_xent": fused,
+           "tol": {"out": tol, "grad": gtol, "rmsnorm_rtol": 2.0 ** -7,
+                   "xent": xent_tols},
+           "xent_control_dropped_softmax_dx_err": xent_control,
+           "xent_control_fails": xent_sensitive,
+           "ok": agree and xent_sensitive}
     emit(doc)
-    check(doc["ok"], f"train-shape kernels disagree with plain: {errs}")
+    check(agree, f"train-shape kernels disagree with plain: {errs}")
+    check(xent_sensitive, "the train-shape dx tolerance would pass a kernel "
+          f"that dropped the softmax term (off by {xent_control})")
     return doc
+
+
+# ---- xent kernels vs plain -------------------------------------------------
+
+XENT_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 3e-2)}  # (loss, grad)
+# bf16 gradients are held, besides, within this share of their largest
+# entry, whichever is tighter. dE is an fp32 sum of ds rounded to bf16
+# times x: a ds rounded the other way moves an entry by at most one bf16
+# ulp of it (2^-7 of it). dx adds its own rounding to bf16: two ulps. A
+# kernel that returned zeros, or dropped the softmax term, is off by 4e-2
+# or more of the largest dx in every case (``control``).
+BF16_GRAD_REL = {"dx": 2.0 ** -6, "de": 2.0 ** -7}
+# Logits in the hundreds: the loss to the reference's bound for that case
+# (rtol 1e-4, atol 1e-3, test_fused_xent.py:100-102); the gradients only
+# relative to their largest entry (bf16 as above, fp32 1e-3). There the
+# plain version summed in another order (``order_gap``: the D and V axes
+# permuted) is itself ~0.5 off in dx, ~3e-3 of the largest entry.
+EXTREME_LOSS_TOL = (1e-4, 1e-3)
+EXTREME_FP32_GRAD_REL = 1e-3
+
+
+def grad_tol(dtype, name, want, extreme=False):
+    """(rtol, atol) of dx or dE (``name``) against its plain value."""
+    top = float(want.abs().max())
+    if dtype == "float32":
+        gtol = XENT_TOL[dtype][1]
+        return (0.0, EXTREME_FP32_GRAD_REL * top) if extreme else (gtol, gtol)
+    atol = BF16_GRAD_REL[name] * top
+    return 0.0, atol if extreme else min(atol, XENT_TOL[dtype][1])
+
+
+def dropped_softmax_dx(x, e, targets, g):
+    """The control: the dx of a kernel that dropped the softmax term,
+    ``-(g -> dtype) E[target]`` rounded to x's dtype."""
+    ds = -g.to(x.dtype).float()[:, None]
+    return (ds * e[targets.long()].float()).to(x.dtype)
+
+
+def xent_order_gap(torch, xe, x, e, targets, lse, g, want, seed):
+    """The plain version against itself summed in another order: the D
+    axis (the logits' sum) and the V axis (lse's and dx's) permuted, the
+    results permuted back. Returns {"loss", "dx", "de"} max abs gaps;
+    ``want`` holds the plain (loss, dx, dE)."""
+    gen = torch.Generator().manual_seed(seed)
+    pd = torch.randperm(x.shape[1], generator=gen).to(x.device)
+    pv = torch.randperm(e.shape[0], generator=gen).to(x.device)
+    iv, idd = torch.argsort(pv), torch.argsort(pd)
+    xp, ep = x[:, pd].contiguous(), e[pv][:, pd].contiguous()
+    tp = iv[targets.long()].to(torch.int32)
+    p_lse, p_tl = xe.xent_forward_reference(xp, ep, tp)
+    got = (p_lse - p_tl,
+           xe.xent_backward_dx_reference(xp, ep, tp, lse, g)[:, idd],
+           xe.xent_backward_de_reference(xp, ep, tp, lse, g)[iv][:, idd])
+    return {k: float((a.float() - b.float()).abs().max())
+            for k, a, b in zip(("loss", "dx", "de"), got, want)}
+
+
+def xent_inputs(torch, *, dtype, n, v, d, seed, scale=0.05, device="cuda"):
+    """x [N, D] in the dtype, the fp32 master E [V, D], targets pinned so
+    that row i aims at the vocab tile i (mod the tile count), and a
+    cotangent g in [0.5, 1.5]."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, d), generator=gen).to(getattr(torch, dtype))
+    emb = torch.randn((v, d), generator=gen) * scale
+    rows = torch.arange(n)
+    tiles = (v + 63) // 64
+    targets = ((rows % tiles) * 64 + rows % 64).clamp(max=v - 1)
+    g = torch.rand(n, generator=gen) + 0.5
+    return [t.to(device) for t in (x, emb, targets.to(torch.int32), g)]
+
+
+def phase_xent_vs_plain(torch, xe, device="cuda"):
+    """B5-B7 against their plain versions: lse - target logit, dx, dE;
+    the backward run twice must be bit-identical (no atomics); through
+    ``fused_xent``, ids -1, V and V + 7 give the plain version's NaN mask
+    (-1 wraps, the others NaN); the dropped-softmax control must fail the
+    dx tolerance."""
+    cases = [dict(dtype=dt, v=v, d=d, n=n, scale=0.05)
+             for dt in ("bfloat16", "float32") for v in (128, 640, 32000)
+             for d in (64, 128, 512) for n in (8, 64, 1032)]
+    # Logits in the hundreds: the online logsumexp must stay finite.
+    cases += [dict(dtype=dt, v=640, d=128, n=64, scale=0.05 * 400)
+              for dt in ("bfloat16", "float32")]
+    worst = {"xent_fwd": 0.0, "xent_bwd_dx": 0.0, "xent_bwd_de": 0.0}
+    for i, case in enumerate(cases):
+        x, emb, tg, g = xent_inputs(torch, seed=500 + i, device=device, **case)
+        e = emb.to(x.dtype)
+        lse, tl = xe.xent_forward(x, e, tg)
+        dx = xe.xent_backward_dx(x, e, tg, lse, g)
+        de = xe.xent_backward_de(x, e, tg, lse, g)
+        dx2 = xe.xent_backward_dx(x, e, tg, lse, g)
+        de2 = xe.xent_backward_de(x, e, tg, lse, g)
+        bad = tg.long().clone()
+        bad[:3] = torch.tensor([-1, case["v"], case["v"] + 7])
+        fused = xe.fused_xent(x, emb, bad)
+        if device == "cuda":
+            torch.cuda.synchronize()  # a fault surfaces here, attributed
+        p_lse, p_tl = xe.xent_forward_reference(x, e, tg)
+        # The plain backward from the kernel's own LSE, so the gradients
+        # are compared on the same inputs.
+        p_dx = xe.xent_backward_dx_reference(x, e, tg, lse, g)
+        p_de = xe.xent_backward_de_reference(x, e, tg, lse, g)
+        ids, valid = xe.wrap_targets(bad, case["v"])
+        q_lse, q_tl = xe.xent_forward_reference(x, e, ids)
+        p_fused = q_lse - q_tl.masked_fill(~valid, float("nan"))
+        extreme = case["scale"] > 1
+        ltol = EXTREME_LOSS_TOL if extreme else (XENT_TOL[case["dtype"]][0],) * 2
+        errs, tols, ok = {}, {}, True
+        for name, got, want in (("loss", lse - tl, p_lse - p_tl),
+                                ("dx", dx, p_dx), ("de", de, p_de)):
+            got, want = got.float(), want.float()
+            errs[name] = float((got - want).abs().max())
+            tols[name] = ltol if name == "loss" else grad_tol(
+                case["dtype"], name, want, extreme)
+            ok = ok and bool(torch.isfinite(got).all()) and torch.allclose(
+                got, want, rtol=tols[name][0], atol=tols[name][1])
+        ctrl = dropped_softmax_dx(x, e, tg, g).float()
+        control = float((ctrl - p_dx.float()).abs().max())
+        sensitive = not torch.allclose(ctrl, p_dx.float(), rtol=tols["dx"][0],
+                                       atol=tols["dx"][1])
+        gap = xent_order_gap(torch, xe, x, e, tg, lse, g,
+                             (p_lse - p_tl, p_dx, p_de), seed=900 + i)
+        nan_ok = torch.equal(fused.isnan(), p_fused.isnan()) and bool(
+            fused.isnan()[1:3].all()) and torch.allclose(
+                fused[valid], p_fused[valid], rtol=ltol[0], atol=ltol[1])
+        deterministic = torch.equal(dx, dx2) and torch.equal(de, de2)
+        emit({"phase": "xent_kernel", "case": i, **case,
+              "tol": {k: list(t) for k, t in tols.items()},
+              "tol_form": "[rtol, atol] of allclose, atol from the "
+                          "largest plain entry where rtol is 0",
+              "max_abs_err": errs, "order_gap": gap,
+              "max_abs_want": {"dx": float(p_dx.float().abs().max()),
+                               "de": float(p_de.abs().max())},
+              "control_dropped_softmax_dx_err": control,
+              "control_fails": sensitive,
+              "max_lse": float(lse.max()), "nan_mask_ok": nan_ok,
+              "bitwise_deterministic": deterministic,
+              "ok": ok and nan_ok and deterministic and sensitive})
+        check(ok, f"xent case {i} {case} disagrees with plain: {errs}")
+        check(nan_ok, f"xent case {i} {case}: out-of-range ids do not give "
+              "the plain version's NaN mask")
+        check(deterministic, f"xent case {i} {case}: backward not bitwise "
+              "deterministic across two runs")
+        check(sensitive, f"xent case {i} {case}: the dx tolerance "
+              f"{tols['dx']} would pass a kernel that dropped the softmax "
+              f"term (off by {control})")
+        worst["xent_fwd"] = max(worst["xent_fwd"], errs["loss"])
+        worst["xent_bwd_dx"] = max(worst["xent_bwd_dx"], errs["dx"])
+        worst["xent_bwd_de"] = max(worst["xent_bwd_de"], errs["de"])
+    return cases, worst
+
+
+# ---- RMSNorm kernel and the swapped train step -----------------------------
+
+RMS_SHAPES = ((32768, 512), (3, 64), (5, 128), (2, 8, 256))
+
+
+def phase_rmsnorm(torch, np, kfns, rn, training, ttr, tcfg_flag,
+                  device="cuda"):
+    """B8 against ``_rmsnorm`` (tolerance: one bf16 ulp, rtol 2^-7; fp32
+    1e-6 relative, since only the order of the mean's sum differs), then
+    one flagship fp32 train step with ``_rmsnorm`` swapped for
+    ``rmsnorm_fused``, as tools/bench_rmsnorm_fusion.py swaps it: its
+    loss within 1e-5 of the stock step's, 4 n_layers + 1 launches."""
+    import dataclasses
+
+    worst = 0.0
+    for dtype in ("bfloat16", "float32"):
+        for i, shape in enumerate(RMS_SHAPES):
+            gen = torch.Generator().manual_seed(700 + i)
+            x = torch.randn(shape, generator=gen).to(getattr(torch, dtype))
+            gain = torch.randn(shape[-1:], generator=gen) * 0.1 + 1.0
+            x, gain = x.to(device), gain.to(device)
+            got = rn.rmsnorm_fused(x, gain)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            want = ttr._rmsnorm(x, gain)
+            rtol, atol = (2.0 ** -7, 0.0) if dtype == "bfloat16" else \
+                (1e-6, 1e-7)
+            differ = int((got != want).sum())
+            err = float((got.float() - want.float()).abs().max())
+            ok = torch.allclose(got.float(), want.float(), rtol=rtol,
+                                atol=atol)
+            emit({"phase": "rmsnorm_kernel", "dtype": dtype,
+                  "shape": list(shape), "elements": got.numel(),
+                  "elements_differ": differ, "max_abs_err": err,
+                  "rtol": rtol, "atol": atol, "ok": ok})
+            check(ok, f"rmsnorm {dtype} {shape} disagrees with _rmsnorm "
+                  f"({differ} elements differ, worst {err})")
+            if shape == RMS_SHAPES[0] and dtype == "bfloat16":
+                worst = err
+
+    # The swap, from the same fp32 weights and batch.
+    cfg = dataclasses.replace(tcfg_flag, dtype="float32", attention="flash")
+    tree = ttr.init_params(13, cfg)
+    batch = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab, (4, TRAIN["seq"] + 1)))
+    losses = {}
+    stock = ttr._rmsnorm
+    for variant in ("stock", "fused"):
+        params = training.master_params(tree, cfg, device)
+        init, step = training.make_train_step(cfg, device)
+        opt = init(params)
+        if variant == "fused":
+            ttr._rmsnorm = rn.rmsnorm_fused
+        try:
+            zero_counts(kfns)
+            _, _, loss = step(params, opt, batch)
+            losses[variant] = float(loss)
+            launches = counts(kfns)
+        finally:
+            ttr._rmsnorm = stock
+    layers = cfg.n_layers
+    want = expect_counts(kfns, device, rmsnorm=4 * layers + 1,
+                         flash_fwd=2 * layers, flash_bwd_dq=layers,
+                         flash_bwd_dkv=layers)
+    diff = abs(losses["stock"] - losses["fused"])
+    ok = diff <= 1e-5 and launches == want
+    emit({"phase": "rmsnorm_swap", "dtype": "float32", "batch": 4,
+          "seq": TRAIN["seq"], "losses": losses, "loss_diff": diff,
+          "tol": 1e-5, "launches": launches, "expected_launches": want,
+          "ok": ok})
+    check(diff <= 1e-5, f"rmsnorm swap moved the loss by {diff}")
+    check(launches == want, f"rmsnorm swap launches {launches} != {want}")
+    return worst, launches
+
+
+# ---- training with fused_xent -------------------------------------------
+
+FUSED_DIR = os.path.join(HERE, "build", "chip_smoke_fused")
+
+
+def phase_train_fused(torch, np, kfns, training, tr, ttr, open_feeder,
+                      tcfg_flag, device="cuda"):
+    """The flagship trained through ``run_training`` with fused_xent
+    (bf16, flash, remat), over the train phase's corpus."""
+    import dataclasses
+    import shutil
+
+    cfg = dataclasses.replace(tcfg_flag, dtype="bfloat16", attention="flash",
+                              fused_xent=True)
+    shutil.rmtree(FUSED_DIR, ignore_errors=True)
+    feeder = open_feeder(os.path.join(STATE_DIR, "markov.bin"),
+                         batch=TRAIN["batch"], seq=TRAIN["seq"])
+    steps, layers = TRAIN["steps"], cfg.n_layers
+    zero_counts(kfns)
+    t0 = time.perf_counter()
+    result = training.run_training(
+        cfg, FUSED_DIR, steps, tr._batches(feeder, cfg.vocab, device),
+        checkpoint_every=steps, device=device)
+    elapsed = time.perf_counter() - t0
+    launches = counts(kfns)
+    losses = result.losses
+    ln_v = math.log(cfg.vocab)
+    tail = sum(losses[-5:]) / 5
+    want = expect_counts(kfns, device, flash_fwd=2 * layers * steps,
+                         flash_bwd_dq=layers * steps,
+                         flash_bwd_dkv=layers * steps, xent_fwd=steps,
+                         xent_bwd_dx=steps, xent_bwd_de=steps)
+    finite = len(losses) == steps and all(math.isfinite(x) for x in losses)
+    ok = (finite and abs(losses[0] - ln_v) <= 0.5 * ln_v
+          and tail <= losses[0] - 1.0 and launches == want)
+    emit({"phase": "train_fused", "dtype": "bfloat16", "attention": "flash",
+          "remat": cfg.remat, "fused_xent": True, **TRAIN,
+          "losses": losses, "first_loss": losses[0], "last5_mean": tail,
+          "ln_vocab": ln_v, "elapsed_s": elapsed, "launches": launches,
+          "expected_launches": want, "ok": ok})
+    check(finite, f"fused train losses {losses}")
+    check(abs(losses[0] - ln_v) <= 0.5 * ln_v,
+          f"fused first loss {losses[0]} outside ln V {ln_v} +- 50%")
+    check(tail <= losses[0] - 1.0,
+          f"fused loss fell only {losses[0] - tail} nats in {steps} steps")
+    check(launches == want, f"fused kernel launches {launches} != {want}")
+
+    # From the same fp32 weights at batch 4: loss and every gradient,
+    # fused against the materialized logits; then 5 bf16 steps each.
+    cfgs = {"unfused": dataclasses.replace(cfg, fused_xent=False),
+            "fused": cfg}
+    doc, grads_ok = agreement(torch, np, training, ttr, cfgs, 4, 21, 60,
+                              device)
+    check_agreement("fused_vs_unfused", doc, grads_ok, "fused vs unfused")
+    return result, launches
 
 
 def main() -> int:
@@ -1012,7 +1513,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     try:
-        from kvedge_torch.data.feeder import write_corpus
+        from kvedge_torch.data.feeder import open_feeder, write_corpus
         from kvedge_torch.models import training
         from kvedge_torch.models import transformer as ttr
         from kvedge_torch.models.transformer import forward
@@ -1020,6 +1521,8 @@ def main() -> int:
         from kvedge_torch.ops import _build
         from kvedge_torch.ops import attention as fa
         from kvedge_torch.ops import paged_attention as pa
+        from kvedge_torch.ops import rmsnorm as rn
+        from kvedge_torch.ops import xent as xe
         from kvedge_torch.runtime import serve
         from kvedge_torch.runtime import train as tr
         from kvedge_torch.runtime.config import RuntimeConfig, ServeConfig
@@ -1029,6 +1532,7 @@ def main() -> int:
               f"script ({e})", file=sys.stderr)
         return 2
 
+    kfns = kernel_wrappers(pa, fa, xe, rn)
     phase = "device"
     try:
         resolve_device("cuda")
@@ -1070,7 +1574,7 @@ def main() -> int:
         _, flash_worst = phase_flash_vs_plain(torch, fa)
 
         phase = "train"
-        cfg, first, train_launches = phase_train(np, pa, fa, tr, RuntimeConfig,
+        cfg, first, train_launches = phase_train(np, kfns, tr, RuntimeConfig,
                                                  write_corpus)
 
         phase = "resume"
@@ -1084,8 +1588,20 @@ def main() -> int:
         phase_eval_serve(torch, np, tr, serve, forward, params_from_numpy, cfg,
                          first.losses[0])
 
+        phase = "xent_kernel"
+        _, xent_worst = phase_xent_vs_plain(torch, xe)
+
+        phase = "rmsnorm"
+        rms_worst, rms_launches = phase_rmsnorm(torch, np, kfns, rn, training,
+                                                ttr, tcfg_flag)
+
+        phase = "train_fused"
+        _, fused_launches = phase_train_fused(torch, np, kfns, training, tr,
+                                              ttr, open_feeder, tcfg_flag)
+
         phase = "train_timings"
-        tt = phase_train_timings(torch, np, fa, training, ttr, tcfg_flag)
+        tt = phase_train_timings(torch, np, fa, xe, rn, training, ttr,
+                                 tcfg_flag)
 
         phase = "kernels"
         kernels = [{
@@ -1108,6 +1624,25 @@ def main() -> int:
                 "launches": train_launches[kname],
                 "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
                 "worst_case_err": flash_worst[kname],
+                "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": k["library_ms"], "ok": True,
+            })
+        for kname, where, launched, worst_err in (
+                ("xent_fwd", "xent.py:72", fused_launches, xent_worst),
+                ("xent_bwd_dx", "xent.py:115", fused_launches, xent_worst),
+                ("xent_bwd_de", "xent.py:148", fused_launches, xent_worst),
+                ("rmsnorm", "rmsnorm.py:35", rms_launches,
+                 {"rmsnorm": rms_worst})):
+            k = tt["kernels"][kname]
+            kernels.append({
+                "name": kname, "route": "cuda",
+                "source": "kvedge_torch/ops/csrc/"
+                          f"{'rmsnorm' if kname == 'rmsnorm' else 'xent'}.cu",
+                "replaces": f"kvedge_tpu/ops/{where}",
+                "launches": launched[kname],
+                "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
+                "worst_case_err": worst_err[kname],
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                 "library_ms": k["library_ms"], "ok": True,

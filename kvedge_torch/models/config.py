@@ -5,15 +5,17 @@ package's ``models/transformer.py`` for the fields the serving and
 training slices use, with the same validation messages. What the port
 does not run yet is refused with a clear error rather than ignored:
 sequence-parallel attention (``"ring"``, ``"ulysses"``),
-``remat_policy="dots"``, ``fused_xent``, MoE (``n_experts``) and
-pipelining (``pipeline_stages``) — ROADMAP Queue A lists each.
+``remat_policy="dots"``, MoE (``n_experts``) and pipelining
+(``pipeline_stages``) — ROADMAP Queue A lists each.
 
 ``attention`` picks the training and full-sequence attention:
 ``"naive"`` materializes the ``[T, T]`` scores in plain torch;
 ``"flash"`` runs the hand-written flash kernels (``ops/attention.py``).
 ``remat`` recomputes each layer in backward (``torch.utils.checkpoint``)
 instead of saving its activations; ``remat_policy="full"`` is the only
-policy.
+policy. ``fused_xent`` trains through the hand-written fused
+cross-entropy kernels (``ops/xent.py``): no ``[B*T, V]`` logits tensor
+exists in either pass.
 
 ``paged_attention`` has CUDA semantics here. "auto" means the
 hand-written paged-decode kernel (``ops/paged_attention.py``) for every
@@ -47,10 +49,10 @@ class TransformerConfig:
     remat: bool = True
     remat_policy: str = "full"
     attention: str = "naive"
+    fused_xent: bool = False
     # Refused unless left at their defaults (not ported yet).
     n_experts: int = 0
     pipeline_stages: int = 0
-    fused_xent: bool = False
 
     @property
     def d_head(self) -> int:
@@ -112,10 +114,6 @@ class TransformerConfig:
             raise ValueError(
                 f"pipeline_stages={self.pipeline_stages}: pipelining is not "
                 "ported to PyTorch yet")
-        if self.fused_xent:
-            raise ValueError(
-                "fused_xent is not ported to PyTorch yet: the training loss "
-                "materializes the logits")
 
 
 # Named model shapes, the same table as the JAX package's: "probe" is

@@ -28,7 +28,12 @@ the tests hold the port to the JAX package token for token at fp32:
 
 ``forward`` is the no-grad naive oracle the serving paths are held to;
 ``forward_hidden`` and ``loss_fn`` are the training path, with per-layer
-remat (``torch.utils.checkpoint``) when ``cfg.remat``.
+remat (``torch.utils.checkpoint``) when ``cfg.remat``. With
+``cfg.fused_xent`` the loss head is the fused cross-entropy kernels
+(``ops/xent.py``) over the hidden rows, outside the checkpointed layers;
+otherwise it is ``tied_readout`` and a logsumexp over the fp32 logits.
+Both heads take the target logit with ``jnp.take_along_axis``'s index
+semantics: ids in ``[-V, 0)`` wrap, ids outside ``[-V, V)`` give NaN.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from kvedge_torch.models.config import TransformerConfig
 from kvedge_torch.ops.attention import flash_attention, pick_block
+from kvedge_torch.ops.xent import fused_xent, wrap_targets
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -243,12 +249,40 @@ def forward_hidden(params: dict, tokens: torch.Tensor,
     return _rmsnorm(x, params["ln_final"])
 
 
+def take_target_logit(logits: torch.Tensor,
+                      targets: torch.Tensor) -> torch.Tensor:
+    """``logits[..., target]`` with ``jnp.take_along_axis``'s semantics:
+    negative ids in ``[-V, 0)`` wrap, ids outside ``[-V, V)`` give NaN
+    (a corrupt corpus NaNs the loss loudly instead of raising or
+    training on a wrong logit)."""
+    ids, valid = wrap_targets(targets, logits.shape[-1])
+    picked = torch.gather(logits, -1, ids[..., None].long())[..., 0]
+    return picked.masked_fill(~valid, float("nan"))
+
+
+def _fused_xent_loss(params: dict, inputs: torch.Tensor,
+                     targets: torch.Tensor,
+                     cfg: TransformerConfig) -> torch.Tensor:
+    """The training cross-entropy through the fused kernels: the hidden
+    rows ``[B*T, D]`` go straight into :func:`fused_xent`, so the
+    ``[B, T, V]`` logits never exist in either pass. The reference's
+    mesh branches (tensor-parallel refusal, data-parallel ``shard_map``)
+    do not apply: the port runs on one device."""
+    hidden = forward_hidden(params, inputs, cfg)
+    b, t, d = hidden.shape
+    per_row = fused_xent(hidden.reshape(b * t, d), params["embedding"],
+                         targets.reshape(b * t))
+    return torch.mean(per_row)
+
+
 def loss_fn(params: dict, batch: torch.Tensor,
             cfg: TransformerConfig) -> torch.Tensor:
     """Next-token cross-entropy, fp32: batch ``[B, T+1]`` int, targets
     shifted by one; ``mean(logsumexp(logits) - logits[target])``."""
     inputs, targets = batch[:, :-1], batch[:, 1:]
+    if cfg.fused_xent:
+        return _fused_xent_loss(params, inputs, targets, cfg)
     logits = tied_readout(forward_hidden(params, inputs, cfg),
                           params["embedding"])
-    target_logit = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    return torch.mean(torch.logsumexp(logits, dim=-1) - target_logit)
+    return torch.mean(torch.logsumexp(logits, dim=-1)
+                      - take_target_logit(logits, targets))

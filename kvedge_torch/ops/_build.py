@@ -93,3 +93,29 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib
+
+
+def on_cuda(what: str, t) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA, got {t.device}")
+    return True
+
+
+def launch(name: str, what: str, symbol: str, argtypes, args,
+           shape_note: str) -> None:
+    """Call the C entry point ``symbol`` of ``csrc/<name>.cu`` and raise
+    unless it returned 0 (launched): a negative code is a shape the
+    kernel does not take, a positive one ``cudaGetLastError()``."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: "
+            f"{'unsupported shape' if rc < 0 else f'CUDA error {rc}'} "
+            f"({shape_note})")

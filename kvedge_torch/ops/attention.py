@@ -34,6 +34,8 @@ import ctypes
 import numpy as np
 import torch
 
+from kvedge_torch.ops import _build
+
 _KERNEL = "flash_attention"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -153,82 +155,61 @@ def _check(name, tensors, rows=()):
     return bh, seq, dh
 
 
-def _launch(name, symbol, argtypes, args, shape_note):
-    from kvedge_torch.ops import _build
-
-    fn = getattr(_build.load(_KERNEL), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: "
-            f"{'unsupported shape' if rc < 0 else f'CUDA error {rc}'} "
-            f"({shape_note})")
-
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def _on_cuda(name: str, t: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} runs on CUDA, got {t.device}")
-    return True
 
 
 def flash_forward(q, k, v):
     """Causal attention forward (B2): q, k, v ``[BH, T, Dh]`` post-rotary
     and unscaled -> (out ``[BH, T, Dh]``, lse ``[BH, T]`` fp32)."""
-    if not _on_cuda("flash forward", q):
+    if not _build.on_cuda("flash forward", q):
         return flash_forward_reference(q, k, v)
     bh, seq, dh = _check("flash forward", (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((bh, seq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _launch("flash forward", "kvedge_flash_fwd",
-            [_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-            (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), lse.data_ptr(), bh, seq, dh, softmax_scale(dh),
-             stream), f"BH={bh}, T={seq}, Dh={dh}, dtype={q.dtype}")
+    _build.launch(
+        _KERNEL, "flash forward", "kvedge_flash_fwd",
+        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+        (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         out.data_ptr(), lse.data_ptr(), bh, seq, dh, softmax_scale(dh),
+         stream), f"BH={bh}, T={seq}, Dh={dh}, dtype={q.dtype}")
     flash_forward.launches += 1
     return out, lse
 
 
 def flash_backward_dq(q, k, v, dout, lse, delta):
     """The dq pass (B3): ``[BH, T, Dh]`` in q's dtype."""
-    if not _on_cuda("flash dq", q):
+    if not _build.on_cuda("flash dq", q):
         return flash_backward_dq_reference(q, k, v, dout, lse, delta)
     bh, seq, dh = _check("flash dq", (q, k, v, dout), (lse, delta))
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _launch("flash dq", "kvedge_flash_bwd_dq",
-            [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-            (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             bh, seq, dh, softmax_scale(dh), stream),
-            f"BH={bh}, T={seq}, Dh={dh}, dtype={q.dtype}")
+    _build.launch(
+        _KERNEL, "flash dq", "kvedge_flash_bwd_dq",
+        [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+        (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+         bh, seq, dh, softmax_scale(dh), stream),
+        f"BH={bh}, T={seq}, Dh={dh}, dtype={q.dtype}")
     flash_backward_dq.launches += 1
     return dq
 
 
 def flash_backward_dkv(q, k, v, dout, lse, delta):
     """The dk/dv pass (B4): (dk, dv), ``[BH, T, Dh]`` each."""
-    if not _on_cuda("flash dk/dv", q):
+    if not _build.on_cuda("flash dk/dv", q):
         return flash_backward_dkv_reference(q, k, v, dout, lse, delta)
     bh, seq, dh = _check("flash dk/dv", (q, k, v, dout), (lse, delta))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _launch("flash dk/dv", "kvedge_flash_bwd_dkv",
-            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-            (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), bh, seq, dh, softmax_scale(dh), stream),
-            f"BH={bh}, T={seq}, Dh={dh}, dtype={q.dtype}")
+    _build.launch(
+        _KERNEL, "flash dk/dv", "kvedge_flash_bwd_dkv",
+        [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+        (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+         dv.data_ptr(), bh, seq, dh, softmax_scale(dh), stream),
+        f"BH={bh}, T={seq}, Dh={dh}, dtype={q.dtype}")
     flash_backward_dkv.launches += 1
     return dk, dv
 

@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from kvedge_torch.models.transformer import scale_scores, score_divisor
+from kvedge_torch.ops import _build
 
 _KERNEL = "paged_decode"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -133,14 +134,9 @@ def _check(q, pool_k, pool_v, tables, q_positions, scale_k, scale_v):
     return quantized
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.kvedge_paged_decode
-    if fn.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                       i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
-        fn.restype = i32
-    return fn
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
 
 
 def paged_decode_attention(q, pool_k, pool_v, tables, q_positions,
@@ -155,17 +151,12 @@ def paged_decode_attention(q, pool_k, pool_v, tables, q_positions,
     (``[P, page, K]`` fp32) mark an int8 pool. Returns ``[B, H, Dh]`` in
     q's dtype. The kernel reads each row's LIVE pages only.
     """
-    if q.device.type == "cpu":
+    if not _build.on_cuda("paged decode", q):
         return paged_decode_attention_reference(
             q, pool_k, pool_v, tables, q_positions,
             scale_k=scale_k, scale_v=scale_v)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged decode kernel runs on CUDA, got {q.device}")
     quantized = _check(q, pool_k, pool_v, tables, q_positions,
                        scale_k, scale_v)
-    from kvedge_torch.ops import _build
-
-    fn = _bind(_build.load(_KERNEL))
     batch, h, dh = q.shape
     _, page, kv, _ = pool_k.shape
     max_pages = tables.shape[1]
@@ -174,20 +165,17 @@ def paged_decode_attention(q, pool_k, pool_v, tables, q_positions,
     scratch = torch.empty((batch, h, s_cap), dtype=torch.float32,
                           device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(_DTYPE_CODES[q.dtype], int(quantized), q.data_ptr(),
-            pool_k.data_ptr(), pool_v.data_ptr(),
-            scale_k.data_ptr() if quantized else None,
-            scale_v.data_ptr() if quantized else None,
-            tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), batch, h, kv, dh, page, max_pages, s_cap,
-            score_divisor(dh, q.dtype), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"paged decode kernel launch failed: "
-            f"{'unsupported shape' if rc < 0 else f'CUDA error {rc}'} "
-            f"(B={batch}, H={h}, K={kv}, Dh={dh}, page={page}, "
-            f"max_pages={max_pages}, dtype={q.dtype}, int8={quantized})"
-        )
+    _build.launch(
+        _KERNEL, "paged decode", "kvedge_paged_decode", _ARGTYPES,
+        (_DTYPE_CODES[q.dtype], int(quantized), q.data_ptr(),
+         pool_k.data_ptr(), pool_v.data_ptr(),
+         scale_k.data_ptr() if quantized else None,
+         scale_v.data_ptr() if quantized else None,
+         tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
+         scratch.data_ptr(), batch, h, kv, dh, page, max_pages, s_cap,
+         score_divisor(dh, q.dtype), stream),
+        f"B={batch}, H={h}, K={kv}, Dh={dh}, page={page}, "
+        f"max_pages={max_pages}, dtype={q.dtype}, int8={quantized}")
     paged_decode_attention.launches += 1
     return out
 
