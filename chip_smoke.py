@@ -14,9 +14,11 @@ imports nothing of JAX. Phases, each printing one JSON line:
             the card: bf16 and fp32, MHA (H=K=8) and GQA (H=8, K=2), page
             16 at live lengths {1, 15, 16, 17, 300} and page 128 at
             {511, 512, 513, 4096} in ragged batches, int8 pools at pages
-            16 and 128. Tolerance rtol=atol=1e-5 for fp32, 1e-2 for bf16
-            and int8. The plain version is itself held to a float64
-            recomputation of the same rounding chain.
+            16 and 128; over a 128-page table (8 CTAs a row) live {1, 2,
+            319, 320, 321} and G = 8 over an int8 pool. Tolerance
+            rtol=atol=1e-5 for fp32, 1e-2 for bf16 and int8. The plain
+            version is itself held to a float64 recomputation of the same
+            rounding chain.
 4. serve    the port's entry point (``kvedge_torch.runtime.serve``) on
             127.0.0.1 at the flagship preset (vocab 32000, d_model 512,
             8 heads, 8 layers, d_ff 2048, bf16, numpy-seeded weights),
@@ -33,8 +35,10 @@ imports nothing of JAX. Phases, each printing one JSON line:
 5. timings  CUDA-event times at the serve phase's decode shapes (L2
             flushed before each launch): the kernel, its plain version,
             ``F.scaled_dot_product_attention`` over the gathered K/V as a
-            library yardstick the port never calls, the byte bound; and
-            the serve burst's decode tokens/s and request latency p50/p99.
+            library yardstick the port never calls, the kernel's ratio to
+            it, the byte bound; the same at page 128, one row at live
+            4096; and the serve burst's decode tokens/s and request
+            latency p50/p99.
 6. flash_kernel  the three flash kernels (B2 forward, B3 dq, B4 dk/dv)
             against their plain PyTorch versions: bf16 and fp32, Dh 32 and
             64 at T in {8, 40, 64, 136, 512, 2048}, Dh 128 at T in {40,
@@ -92,13 +96,16 @@ imports nothing of JAX. Phases, each printing one JSON line:
             5e-3; the first 5 bf16 steps within 2e-2.
 14. train_timings  at the train shape: each flash kernel (BH 512, T 512,
             Dh 64, bf16), each xent kernel (N 32768, V 32000, D 512, bf16)
-            and B8 ([32768, 512] bf16): ms, its plain version's ms, its
-            bound, achieved TFLOP/s, and a library yardstick the port never
-            calls (``F.scaled_dot_product_attention(is_causal=True)``; a
-            bf16 ``torch.mm`` upcast to fp32 logits then
-            ``F.cross_entropy``, two calls; ``F.rms_norm``). The xent
-            kernels are held to the xent_kernel phase's bf16 bounds with a
-            cotangent g in [0.5, 1.5]. The train step with and without
+            and B8 ([32768, 512] bf16): ms (flash and B8: a CUDA-graph
+            replay, so the host's launch work is off the clock, and for B2
+            the eager back-to-back call_ms beside it; xent: CUDA events
+            around calls back to back), its plain version's ms, its bound,
+            achieved TFLOP/s, a library yardstick the port never calls
+            (``F.scaled_dot_product_attention(is_causal=True)``; a bf16
+            ``torch.mm`` upcast to fp32 logits then ``F.cross_entropy``,
+            two calls; ``F.rms_norm``) and the kernel's ratio to it. The
+            xent kernels are held to the xent_kernel phase's bf16 bounds
+            with a cotangent g in [0.5, 1.5]. The train step with and without
             ``fused_xent``: ms, tokens/s, MFU, the device idle share over 3
             profiled steps and the peak device memory of one step.
 15. kernels  one line listing every ported kernel.
@@ -158,12 +165,14 @@ def nvidia_smi() -> str:
 # ---- phase 3: kernel vs plain -------------------------------------------
 
 def make_case(torch, *, dtype, heads, kv_heads, page, lives, int8, seed,
-              device="cuda"):
-    """Ragged inputs on the card: row b lives through ``lives[b]`` keys."""
+              max_pages=0, device="cuda"):
+    """Ragged inputs on the card: row b lives through ``lives[b]`` keys;
+    tables at least ``max_pages`` wide (the pool's shape sets B1's
+    cluster split)."""
     gen = torch.Generator().manual_seed(seed)
     dh = 64
     q_pos = [n - 1 for n in lives]
-    max_pages = max(p // page + 1 for p in q_pos) + 1
+    max_pages = max(max(p // page + 1 for p in q_pos) + 1, max_pages)
     pages = sum(p // page + 1 for p in q_pos) + 2
     tables = torch.zeros((len(lives), max_pages), dtype=torch.int32)
     # Pages handed out in a shuffled order, as a live pool hands them out.
@@ -236,6 +245,15 @@ def phase_kernel_vs_plain(torch, pa, device="cuda"):
                             (128, [511, 512, 513, 2000])):
             cases.append(dict(dtype=dtype, heads=8, kv_heads=2, page=page,
                               lives=lives, int8=True))
+    # B1's cluster split over a serving-width table (8 CTAs a row): live 1
+    # and 2 leave slices empty, 319 / 320 / 321 sit at 8 x 40 - 1, 8 x 40
+    # and 8 x 40 + 1; G = 8 over an int8 pool.
+    for dtype in ("bfloat16", "float32"):
+        cases.append(dict(dtype=dtype, heads=8, kv_heads=8, page=16,
+                          lives=[1, 2, 319, 320, 321], int8=False,
+                          max_pages=128))
+        cases.append(dict(dtype=dtype, heads=8, kv_heads=1, page=16,
+                          lives=[700, 37], int8=True, max_pages=128))
     worst = 0.0
     for i, case in enumerate(cases):
         args, kw = make_case(torch, seed=100 + i, device=device, **case)
@@ -619,14 +637,30 @@ def phase_timings(torch, pa, lives, serve_doc, max_seq=2048, page=16):
         torch, lambda: F.scaled_dot_product_attention(qs, k, v,
                                                       attn_mask=mask), flush)
     bound_ms, bound_by, nbytes = bound(lives, heads, kv, dh, 2, page)
-    # A long-context leg at page 128 (one row at live 4096), for PERF.md.
+    # A long-context leg at page 128 (one row at live 4096), for PERF.md,
+    # with the same SDPA yardstick over its gathered K/V.
     long_args, _ = make_case(torch, dtype="bfloat16", heads=8, kv_heads=8,
                              page=128, lives=[4096], int8=False, seed=9)
+    long_got = pa.paged_decode_attention(*long_args)
+    long_plain = pa.paged_decode_attention_reference(*long_args)
+    long_err = float((long_got.float() - long_plain.float()).abs().max())
+    lq, lpk, lpv, ltab, lpos = long_args
+    lk = pa.gather_pages(lpk, None, ltab, lq.dtype).transpose(1, 2)
+    lv = pa.gather_pages(lpv, None, ltab, lq.dtype).transpose(1, 2)
+    lk, lv = lk.contiguous(), lv.contiguous()
+    lmask = (torch.arange(lk.shape[2], device=dev)[None]
+             <= lpos[:, None])[:, None, None, :]
+    lqs = lq[:, :, None]
     long_ms, _ = time_ms(torch, lambda: pa.paged_decode_attention(*long_args),
                          flush)
     long_plain_ms, _ = time_ms(
         torch, lambda: pa.paged_decode_attention_reference(*long_args), flush)
+    long_library_ms, _ = time_ms(
+        torch, lambda: F.scaled_dot_product_attention(lqs, lk, lv,
+                                                      attn_mask=lmask), flush)
     long_bound, _, _ = bound([4096], 8, 8, dh, 2, 128)
+    split = pa.decode_split(max_pages, page, heads // kv, 2)[0]
+    long_split = pa.decode_split(ltab.shape[1], 128, 1, 2)[0]
     doc = {"phase": "timings", "shape": {"rows": 4, "heads": heads,
                                          "kv_heads": kv, "d_head": dh,
                                          "page": page, "max_pages": max_pages,
@@ -634,6 +668,7 @@ def phase_timings(torch, pa, lives, serve_doc, max_seq=2048, page=16):
            "timing": "device ms: CUDA-graph replay, L2 flushed, median of "
                      "30; call ms: eager call on the stream, same",
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "ratio_to_library": ms / library_ms, "cluster_split": split,
            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
            "library_call_ms": library_call_ms,
            "library": "torch.nn.functional.scaled_dot_product_attention "
@@ -641,16 +676,21 @@ def phase_timings(torch, pa, lives, serve_doc, max_seq=2048, page=16):
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
            "achieved_GBps": nbytes / (ms * 1e-3) / 1e9,
            "max_abs_err": err, "library_max_abs_err": lib_err,
-           "longctx_page128_live4096": {"ms": long_ms,
-                                        "plain_ms": long_plain_ms,
-                                        "bound_ms": long_bound},
+           "longctx_page128_live4096": {
+               "ms": long_ms, "plain_ms": long_plain_ms,
+               "library_ms": long_library_ms,
+               "ratio_to_library": long_ms / long_library_ms,
+               "ratio_to_plain": long_ms / long_plain_ms,
+               "bound_ms": long_bound, "cluster_split": long_split,
+               "max_abs_err": long_err},
            "l2_flushed": True,
            "e2e": {k: serve_doc[k] for k in (
                "decode_tokens_per_s", "latency_p50_s", "latency_p99_s",
                "ms_per_decode_step")},
-           "ok": err <= 1e-2}
+           "ok": err <= 1e-2 and long_err <= 1e-2}
     emit(doc)
     check(err <= 1e-2, f"timing-shape kernel disagrees by {err}")
+    check(long_err <= 1e-2, f"live-4096 kernel disagrees by {long_err}")
     return doc
 
 
@@ -907,20 +947,56 @@ def phase_eval_serve(torch, np, tr, serve, forward, params_from_numpy, cfg,
     check(all(same), "served tokens differ from the naive forward's argmax")
 
 
-def event_ms(torch, fn, reps=10):
-    """Median device ms of one call of ``fn`` (CUDA events, after 2
-    warm-up calls)."""
+def event_ms(torch, fn, reps=10, runs=3):
+    """Device ms of one call of ``fn``: CUDA events around a run of
+    ``reps`` calls back to back, divided by ``reps``; the median of
+    ``runs`` runs after 2 warm-up calls. Back to back, the host's launch
+    work for one call overlaps the device's work on the one before, as
+    in a training step; where the host takes longer than the card, this
+    times the host (``graph_ms`` does not)."""
     for _ in range(2):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def graph_ms(torch, fn, reps=10, runs=5):
+    """Device ms of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, CUDA events around a replay, divided by ``reps``; the
+    median of ``runs`` replays after a warm-up one. The host's launch work
+    (the wrapper's Python, the library's dispatch) is off the clock, for
+    a kernel and its yardstick alike."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
     times.sort()
     return times[len(times) // 2]
 
@@ -1064,22 +1140,26 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
                   for x in (q, k, v))
     sdo = do.reshape(b, h, t, dh)
     s_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+    fq, fk, fv = (x.reshape(b, h, t, dh) for x in (q, k, v))
+    fwd = lambda: fa.flash_forward(q, k, v)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        fq, fk, fv, is_causal=True)
     rows = {
         "flash_fwd": dict(
-            ms=event_ms(torch, lambda: fa.flash_forward(q, k, v)),
+            ms=graph_ms(torch, fwd), call_ms=event_ms(torch, fwd),
             plain_ms=event_ms(torch, lambda: fa.flash_forward_reference(
                 q, k, v), 5),
-            library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
-                sq, sk, sv, is_causal=True)),
+            library_ms=graph_ms(torch, sdpa),
+            library_call_ms=event_ms(torch, sdpa),
             bound=flash_bound(bh, t, dh, 2, 2, 3, 1, 0, 1)),
         "flash_bwd_dq": dict(
-            ms=event_ms(torch, lambda: fa.flash_backward_dq(
+            ms=graph_ms(torch, lambda: fa.flash_backward_dq(
                 q, k, v, do, lse, delta)),
             plain_ms=event_ms(torch, lambda: fa.flash_backward_dq_reference(
                 q, k, v, do, lse, delta), 5),
             bound=flash_bound(bh, t, dh, 2, 3, 4, 1, 2, 0)),
         "flash_bwd_dkv": dict(
-            ms=event_ms(torch, lambda: fa.flash_backward_dkv(
+            ms=graph_ms(torch, lambda: fa.flash_backward_dkv(
                 q, k, v, do, lse, delta)),
             plain_ms=event_ms(torch, lambda: fa.flash_backward_dkv_reference(
                 q, k, v, do, lse, delta), 5),
@@ -1090,6 +1170,7 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
     rows["flash_bwd_dq"]["library_ms"] = sdpa_bwd_ms
     rows["flash_bwd_dkv"]["library_ms"] = sdpa_bwd_ms
     del sq, sk, sv, s_out, q, k, v, do, out, lse, delta, dq, dk, dv
+    del fq, fk, fv, fwd, sdpa
 
     # B5-B7 at the fused train step's shape: N = B T rows of the hidden
     # state, the flagship's D and V, bf16; g in [0.5, 1.5], so that the
@@ -1159,9 +1240,9 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
     r_tb = r_bytes / HBM_BYTES_PER_S * 1e3
     r_to = r_ops / BF16_FLOPS * 1e3
     rows["rmsnorm"] = dict(
-        ms=event_ms(torch, lambda: rn.rmsnorm_forward(x, gain)),
+        ms=graph_ms(torch, lambda: rn.rmsnorm_forward(x, gain)),
         plain_ms=event_ms(torch, lambda: rn.rmsnorm_reference(x, gain)),
-        library_ms=event_ms(torch, lambda: F.rms_norm(x, (d,), gain16,
+        library_ms=graph_ms(torch, lambda: F.rms_norm(x, (d,), gain16,
                                                       1e-6)),
         bound=(max(r_tb, r_to), "bytes" if r_tb >= r_to else "operations",
                r_ops, r_bytes, r_to, r_tb))
@@ -1176,11 +1257,21 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
            "shape": {"BH": bh, "T": t, "Dh": dh, "dtype": "bfloat16",
                      "batch": b, "heads": h, "xent_N": n, "xent_V": vocab,
                      "xent_D": d, "rmsnorm": [n, d]},
-           "timing": "CUDA events, median of 10 calls after 2 warm-up "
-                     "(plain: of 5, xent plain of 3); step: host clock "
-                     "over 5 synchronized steps after 2 warm-up",
+           "timing": "flash kernels, B8 and their SDPA forward and "
+                     "rms_norm yardsticks: CUDA-graph replay of 10 calls, "
+                     "per call, median of 5 replays (host launch work off "
+                     "the clock); call_ms, plain versions, xent kernels "
+                     "and the backward yardsticks: CUDA events around 10 "
+                     "calls back to back (plain: 5, xent plain 3), per "
+                     "call, median of 3 such runs after 2 warm-up calls; "
+                     "step: host clock over 5 synchronized steps after 2 "
+                     "warm-up",
            "kernels": {n_: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                            **{k_: r[k_] for k_ in ("call_ms",
+                                                    "library_call_ms")
+                               if k_ in r},
                             "library_ms": r["library_ms"],
+                            "ratio_to_library": r["ms"] / r["library_ms"],
                             "bound_ms": r["bound"][0],
                             "bound_by": r["bound"][1],
                             "flops": r["bound"][2], "bytes": r["bound"][3],
@@ -1612,7 +1703,10 @@ def main() -> int:
             "max_err": t["max_abs_err"], "worst_err_over_tol": worst,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "ok": True,
+            "library_ms": t["library_ms"],
+            "ratio_to_library": t["ratio_to_library"],
+            "status": "redesigned (thread-block cluster split, scores "
+                      "in shared memory, cp.async K/V)", "ok": True,
         }]
         for kname, line in (("flash_fwd", 98), ("flash_bwd_dq", 234),
                             ("flash_bwd_dkv", 273)):
@@ -1626,7 +1720,12 @@ def main() -> int:
                 "worst_case_err": flash_worst[kname],
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                "library_ms": k["library_ms"], "ok": True,
+                "library_ms": k["library_ms"],
+                "ratio_to_library": k["ratio_to_library"],
+                **({"status": "redesigned (wgmma on a TMA-fed mbarrier "
+                              "ring, two q tiles a CTA, O by TMA store)"}
+                   if kname == "flash_fwd" else {}),
+                "ok": True,
             })
         for kname, where, launched, worst_err in (
                 ("xent_fwd", "xent.py:72", fused_launches, xent_worst),

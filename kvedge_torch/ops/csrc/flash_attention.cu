@@ -37,17 +37,34 @@
 // 0.061 ms at 3.35 TB/s: at this short T the bound is the bytes, and at
 // T >= ~1200 it becomes the operations.
 //
-// Design (simple first). Every CTA owns one (bh, 64-row tile):
-//   forward / dq: one CTA per (bh, q tile); a loop over the k tiles up to
-//     and including the diagonal (tiles above it are never loaded).
+// Design. Every CTA owns q or k rows of one head, in 64-row tiles:
+//   forward / dq: a loop over the k tiles up to and including the
+//     diagonal (tiles above it are never loaded).
 //   dk/dv:        one CTA per (bh, k tile); a loop over the q tiles from
 //     the diagonal down. Each CTA owns its dk/dv rows, so there are no
 //     atomics and the backward is deterministic, as the TPU grid is.
-// bf16 runs on the tensor cores: 4 warps, each owning 16 rows of the
-// tile, with mma.sync m16n8k16 (bf16 operands, fp32 accumulation) on
-// tiles staged in shared memory, and the online softmax on the score
-// accumulators in registers (section "bf16" below). wgmma, TMA and warp
-// specialisation are later work. fp32 has no tensor-core path of full
+// The bf16 forward (B2) is built for Hopper (section "bf16, B2" below):
+// a CTA is one warpgroup that owns two 64-row q tiles of a head in turn,
+// n_q - 1 - p and then p, so the CTAs are of one size; TMA brings both Q
+// tiles and then the K/V tiles of the two as one stream into 2-stage
+// rings of 128-byte (Dh 32: 64-byte) swizzled shared memory guarded by
+// mbarriers, K's stage refilled as soon as its Q K^T is done and V's
+// when its P V is, so each load is issued an iteration or more before
+// its use; S = Q K^T and O += P V run on wgmma (A = P from registers, V
+// read MN-major), the next tile's S overlapping this tile's softmax and
+// P V; the causal mask runs on the diagonal tile only; O leaves through
+// shared memory as one TMA store per q tile. At the flagship shape it
+// holds 4 CTAs an SM, and their warps still wait on the loads ~18% of
+// the time; the tensor cores and the exponentials are each busy about a
+// quarter of it. Less L2 traffic (two warpgroups sharing each K/V tile),
+// a persistent grid, a third ring stage, an L2 prefetch of later heads,
+// Q read from registers and L2 eviction policies all measured slower or
+// no faster (PERF.md, `kvedge_torch/tools/flash_fwd_variants.py`).
+// The bf16 backward (B3, B4) still runs on
+// mma.sync m16n8k16: 4 warps, each owning 16 rows of the tile, on tiles
+// staged in shared memory, the softmax on the score accumulators in
+// registers (section "bf16: tensor-core tiles"). fp32 has no tensor-core
+// path of full
 // fp32 precision (TF32 would round the operands), so it runs on the CUDA
 // cores with fp32 FMA: 256 threads (16 x 16), thread (ty, tx) owning tile
 // rows ty + 16 i and tile columns tx + 16 j (i, j < 4) of every 64 x 64
@@ -58,6 +75,7 @@
 // banks. Its bound at the fp32 peak (67 TFLOP/s) is 0.26 / 0.39 / 0.51 ms
 // at the shape above.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -585,98 +603,559 @@ __device__ __forceinline__ void zero(float (&a)[N][4]) {
     for (int e = 0; e < 4; ++e) a[i][e] = 0.f;
 }
 
-// Accumulator element e of n tile nt sits at tile row g + 8 (e / 2) and
-// tile column 8 nt + 2 t + e % 2.
+// ---- bf16, B2: forward on wgmma, with TMA into an mbarrier ring ----------
+//
+// A CTA is one warpgroup (128 threads) of one head. It owns two 64-row q
+// tiles in turn, n_q - 1 - p and then p (pair p of the causal triangle's
+// rows; an odd n_q leaves its middle tile alone in the last pair), so
+// every CTA but that one reads n_q + 1 k tiles: the CTAs are of one size,
+// and the second q tile's first K/V tiles stream in while the first is
+// still being computed. Thread 0 issues every TMA load: both Q tiles at
+// the start, then the two q tiles' k tiles as one stream, tile g of it
+// into stage g % kStages of the K ring and of the V ring, each
+// completing on its own "full" mbarrier. A stage of either ring is
+// reloaded once every warp has arrived on its "empty" mbarrier, which a
+// warp does when its wgmmas on the tile are complete: K's after Q K^T,
+// V's after P V, an iteration later. Tiles live in shared memory as TMA
+// writes them with 128-byte swizzle (64-byte for Dh 32), in panels of 64
+// rows by kCols columns (Dh 128: two panels), which is the canonical
+// layout the wgmma descriptors name: K-major for Q and K, MN-major for V.
+// O is rounded into its q tile's Q buffer in the same layout and leaves
+// by TMA store.
+// Per k tile kt the tensor cores run S_kt = Q K_kt^T together with
+// O += P_{kt-1} V_{kt-1}, and the softmax of S_kt overlaps the second.
+// The softmax runs in base 2 on the raw scores, p = 2^(s c - m c) with
+// c = scale * log2(e), which is exp(s * scale - m * scale) up to the
+// last bits of fp32.
 
-// ---- bf16, B2: forward -----------------------------------------------------
+constexpr int kStages = 2;  // K/V tiles in flight
+constexpr float kLog2e = 1.4426950408889634f;
+
+// CTAs an SM should hold: 4 caps a thread at 128 registers, which the
+// Dh 32 and 64 kernels fit; Dh 128's output accumulator needs more.
+constexpr int fwd_min_blocks(int dh) { return dh > 64 ? 3 : 4; }
+
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                      float* __restrict__ lse, int seq, float scale) {
-  constexpr int LD = DH + 8;
-  extern __shared__ uint4 smem_vec[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_vec);
-  bf16* Ks = Qs + kTile * LD;
-  bf16* Vs = Ks + kTile * LD;
+struct FwdTile {
+  static constexpr int kCols = DH < 64 ? DH : 64;      // columns of a panel
+  static constexpr int kPanels = DH / kCols;
+  static constexpr int kRowBytes = 2 * kCols;          // the swizzle span
+  static constexpr int kPanelBytes = kTile * kRowBytes;
+  static constexpr int kBytes = kPanels * kPanelBytes;  // one 64-row tile
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // B128 / B64
+};
 
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const size_t base = static_cast<size_t>(bh) * seq * DH;
-  const int q0 = qt * kTile;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  load_tile_bf16<DH>(Qs, q + base, q0, seq);
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float o[DH / 8][4];
-  zero(o);
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
 
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's K and V are no longer read
-    load_tile_bf16<DH>(Ks, k + base, k0, seq);
-    load_tile_bf16<DH>(Vs, v + base, k0, seq);
-    __syncthreads();
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
 
-    float s[8][4];
-    zero(s);
-    mma_xyt<DH>(s, Qs, r0, Ks, g, t);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = q0 + r0 + g + 8 * (e >> 1);
-        const int col = k0 + 8 * nt + 2 * t + (e & 1);
-        const float x = s[nt][e] * scale;
-        s[nt][e] = (col <= row && col < seq) ? x : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    float m_new[2], corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      // Column 0 of tile 0 is visible to every row, so m_new is finite.
-      m_new[h] = fmaxf(m[h], quad_max(mx[h]));
-      corr[h] = expf(m[h] - m_new[h]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - m_new[e >> 1]);
-        s[nt][e] = p;  // unrounded into l; rounded as mma_pz packs it
-        sum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      l[h] = l[h] * corr[h] + quad_sum(sum[h]);
-      m[h] = m_new[h];
-    }
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[nd][e] *= corr[e >> 1];
-    mma_pz<DH>(o, s, Vs, g, t);
-  }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
 
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + g + 8 * h;
-    if (row >= seq) continue;
-    bf16* orow = out + base + static_cast<size_t>(row) * DH + 2 * t;
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd)
-      *reinterpret_cast<uint32_t*>(orow + 8 * nd) =
-          pack_bf16(o[nd][2 * h] / l[h], o[nd][2 * h + 1] / l[h]);
-    if (t == 0) lse[static_cast<size_t>(bh) * seq + row] = m[h] + logf(l[h]);
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
 }
 
+// One box of a 3-D tensor map ({c0, c1, c2} innermost first) into shared
+// memory at dst, completing on the mbarrier bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2) : "memory");
+}
+
+// The tile in shared memory at src (as tma_load lays it out) to the box
+// {c0, c1, c2} of a 3-D tensor map; rows past the map's edge are not
+// written. Completes as a bulk group (bulk_commit, bulk_wait_read).
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until the committed bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// A wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets (each stored in 16-byte units) and the swizzle layout.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Pins the registers a wgmma reads or writes at this point of the
+// program, so that the compiler neither sinks their definitions past a
+// wgmma.fence (ptxas would then serialize every wgmma) nor moves their
+// uses across the asynchronous product's wait. Placed, as CUTLASS places
+// it, before the fence and after the commit.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (64 x 64 fp32) = (accumulate ? d : 0) + A . B^T, A and B bf16 in
+// shared memory, both K-major (descriptors da, db).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 32 fp32) += A . B, A bf16 in registers (the m64 k16 A
+// fragment), B bf16 in shared memory, MN-major (descriptor db).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64 fp32) += A . B, A bf16 in registers (the m64 k16 A
+// fragment), B bf16 in shared memory, MN-major (descriptor db).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128 fp32) += A . B, A bf16 in registers (the m64 k16 A
+// fragment), B bf16 in shared memory, MN-major (descriptor db).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// K or V (map) tile kt of head bh, the g-th of the CTA's stream, into
+// stage g % kStages of the ring at base, completing on its "full"
+// barrier (full + 8 stage).
+template <int DH>
+__device__ __forceinline__ void load_ring(const CUtensorMap* map,
+                                          uint32_t base, uint32_t full,
+                                          int g, int kt, int bh) {
+  using L = FwdTile<DH>;
+  const int s = g % kStages;
+  mbar_expect_tx(full + 8u * s, L::kBytes);
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+    tma_load(base + s * L::kBytes + p * L::kPanelBytes, map, full + 8u * s,
+             p * L::kCols, kt * kTile, bh);
+}
+
+// The k tile of the stream's tile g: the first q tile's k tiles 0..first,
+// then the second's.
+__device__ __forceinline__ int stream_tile(int g, int first) {
+  return g <= first ? g : g - first - 1;
+}
+
+// This warp has read stream tile g of a ring for the last time: it
+// arrives on the stage's "empty" barrier (empty + 8 stage), and thread 0,
+// once every warp has, refills the stage with the stream's tile
+// g + kStages, if there is one.
+template <int DH>
+__device__ __forceinline__ void release_stage(const CUtensorMap* map,
+                                              uint32_t base, uint32_t full,
+                                              uint32_t empty, int g,
+                                              int n_loads, int first,
+                                              int bh) {
+  const int s = g % kStages;
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty + 8u * s);
+  const int next = g + kStages;
+  if (threadIdx.x == 0 && next < n_loads) {
+    mbar_wait(empty + 8u * s, (g / kStages) & 1);
+    load_ring<DH>(map, base, full, next, stream_tile(next, first), bh);
+  }
+  __syncwarp();
+}
+
+// The online softmax of one 64 x 64 tile of raw scores held as wgmma
+// accumulators: s[4 nt + e] sits at tile row r0 + 8 (e / 2) and tile
+// column 8 nt + 2 t + e % 2. Masks the diagonal tile, updates the running
+// max m (of the raw scores) and sum l, leaves p = 2^(s c - m c) in s
+// (it enters l unrounded), and returns in corr the factor the output
+// accumulator must take.
+__device__ __forceinline__ void online_softmax(float (&s)[32], bool diag,
+                                               int r0, int t, float c,
+                                               float (&m)[2], float (&l)[2],
+                                               float (&corr)[2]) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (diag && 8 * nt + 2 * t + (e & 1) > r0 + 8 * (e >> 1))
+        s[4 * nt + e] = -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * nt + e]);
+    }
+  float mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    // Column 0 of tile 0 is visible to every row, so m_new is finite.
+    const float m_new = fmaxf(m[h], quad_max(mx[h]));
+    corr[h] = ex2((m[h] - m_new) * c);
+    m[h] = m_new;
+    mc[h] = m_new * c;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = ex2(fmaf(s[i], c, -mc[(i >> 1) & 1]));
+    sum[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + quad_sum(sum[h]);
+}
+
+// p rounded to bf16 as the A fragments of P V: the accumulators of score
+// columns 16 kc .. 16 kc + 15 are exactly the A fragment of k step kc.
+__device__ __forceinline__ void pack_p(const float (&s)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    a[nt >> 1][2 * (nt & 1)] = pack_bf16(s[4 * nt], s[4 * nt + 1]);
+    a[nt >> 1][2 * (nt & 1) + 1] = pack_bf16(s[4 * nt + 2], s[4 * nt + 3]);
+  }
+}
+
+// O = acc / l rounded to bf16 into the tile at so, laid out as tma_load
+// lays out a tile (swizzled panels), for tma_store to write: each 16-byte
+// chunk c of tile row r sits at chunk c ^ (r mod 8) of its 128-byte row
+// (64-byte rows: c ^ (r / 2 mod 4)), so a warp's stores hit 32 banks.
+template <int DH>
+__device__ __forceinline__ void stage_o(uint32_t so, const float (&o)[DH / 2],
+                                        const float (&l)[2], int r0, int t) {
+  using L = FwdTile<DH>;
+  constexpr uint32_t kMask = L::kRowBytes == 128 ? 7 : 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) {
+      const int col = 8 * nd + 2 * t;
+      const uint32_t off = (r0 + 8 * h) * L::kRowBytes + (col % L::kCols) * 2;
+      const uint32_t addr = so + (col / L::kCols) * L::kPanelBytes +
+                            (off ^ (((off >> 7) & kMask) << 4));
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr),
+                   "r"(pack_bf16(o[4 * nd + 2 * h] / l[h],
+                                 o[4 * nd + 2 * h + 1] / l[h]))
+                   : "memory");
+    }
+}
+
+// S = Q . K^T for the warpgroup's Q tile at sq and the K tile at sk.
+template <int DH>
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t sq,
+                                         uint32_t sk) {
+  using L = FwdTile<DH>;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t off =
+        (kk * 16 / L::kCols) * L::kPanelBytes + (kk * 16 % L::kCols) * 2;
+    wgmma_ss_n64(s, smem_desc(sq + off, 16, 8 * L::kRowBytes, L::kLayout),
+                 smem_desc(sk + off, 16, 8 * L::kRowBytes, L::kLayout),
+                 kk > 0);
+  }
+}
+
+// O += P . V for the P fragments a and the V tile at sv (MN-major).
+template <int DH>
+__device__ __forceinline__ void issue_pv(float (&o)[DH / 2],
+                                         const uint32_t (&a)[4][4],
+                                         uint32_t sv) {
+  using L = FwdTile<DH>;
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+    wgmma_rs(o, a[kc],
+             smem_desc(sv + kc * 16 * L::kRowBytes, L::kPanelBytes,
+                       8 * L::kRowBytes, L::kLayout));
+}
+
+template <int DH>
+__global__ void __launch_bounds__(128, fwd_min_blocks(DH))
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_o,
+                      float* __restrict__ lse, int seq, float scale) {
+  using L = FwdTile<DH>;
+  extern __shared__ uint8_t fwd_smem[];
+  // bars: [0, 1] the Q tiles, [2 + s] K full, [2 + kStages + s] V full,
+  // [2 + 2 kStages + s] K empty, [2 + 3 kStages + s] V empty.
+  __shared__ __align__(8) uint64_t bars[2 + 4 * kStages];
+  const uint32_t sq = (smem_u32(fwd_smem) + 1023u) & ~1023u;  // 2 Q tiles
+  const uint32_t sk = sq + 2 * L::kBytes;                       // ring of K
+  const uint32_t sv = sk + kStages * L::kBytes;                 // ring of V
+  const uint32_t bar_q = smem_u32(bars);
+  const uint32_t full_k = bar_q + 16u;
+  const uint32_t full_v = full_k + 8u * kStages;
+  const uint32_t empty_k = full_v + 8u * kStages;
+  const uint32_t empty_v = empty_k + 8u * kStages;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r0 = 16 * (tid >> 5) + (lane >> 2);  // tile rows r0, r0 + 8
+  const int t = lane & 3;
+  const int n_q = (seq + kTile - 1) / kTile;
+  const int pair = blockIdx.x;
+  const int bh = blockIdx.y;
+  // The CTA's q tiles, the heavier first; tile qt reads k tiles 0..qt.
+  const int first = n_q - 1 - pair;
+  const int n_items = pair < first ? 2 : 1;
+  const int n_loads = first + 1 + (n_items == 2 ? pair + 1 : 0);
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_q + 8u, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8u * s, 1);
+      mbar_init(full_v + 8u * s, 1);
+      mbar_init(empty_k + 8u * s, 4);  // one arrival per warp
+      mbar_init(empty_v + 8u * s, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int it = 0; it < n_items; ++it) {
+      mbar_expect_tx(bar_q + 8u * it, L::kBytes);
+#pragma unroll
+      for (int p = 0; p < L::kPanels; ++p)
+        tma_load(sq + it * L::kBytes + p * L::kPanelBytes, &map_q,
+                 bar_q + 8u * it, p * L::kCols,
+                 (it == 0 ? first : pair) * kTile, bh);
+    }
+    for (int g = 0; g < kStages && g < n_loads; ++g) {
+      load_ring<DH>(&map_k, sk, full_k, g, stream_tile(g, first), bh);
+      load_ring<DH>(&map_v, sv, full_v, g, stream_tile(g, first), bh);
+    }
+  }
+
+  const float c = scale * kLog2e;
+  int g0 = 0;  // the stream index of this q tile's k tile 0
+  for (int it = 0; it < n_items; ++it) {
+    const int qt = it == 0 ? first : pair;
+    const int nk = qt + 1;  // k tiles 0..qt; qt is the diagonal
+    const uint32_t sqt = sq + it * L::kBytes;
+    float s[32], o[DH / 2];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    float corr[2];
+    uint32_t a[4][4];
+
+    // Tile 0's scores and probabilities.
+    mbar_wait(bar_q + 8u * it, 0);
+    mbar_wait(full_k + 8u * (g0 % kStages), (g0 / kStages) & 1);
+    fence_regs(s);
+    wgmma_fence();
+    issue_qk<DH>(s, sqt, sk + (g0 % kStages) * L::kBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    release_stage<DH>(&map_k, sk, full_k, empty_k, g0, n_loads, first, bh);
+    online_softmax(s, nk == 1, r0, t, c, m, l, corr);
+    pack_p(s, a);
+
+    // Then, for each later tile kt, S_kt = Q K_kt^T runs on the tensor
+    // cores while they also run O += P_{kt-1} V_{kt-1}; the softmax of
+    // S_kt overlaps the second product, and O takes its correction, and
+    // P_kt its place in the A fragments, once that product is done. Each
+    // consumed stage is released, and thread 0 refills it with the
+    // stream's tile kStages further on, which may be the next q tile's.
+    for (int kt = 1; kt <= nk; ++kt) {
+      const int g = g0 + kt;  // stream index of tile kt
+      const int sp = (g - 1) % kStages;
+      mbar_wait(full_v + 8u * sp, ((g - 1) / kStages) & 1);
+      fence_regs(o);
+      fence_regs(a);
+      if (kt < nk) {
+        const int st = g % kStages;
+        mbar_wait(full_k + 8u * st, (g / kStages) & 1);
+        fence_regs(s);
+        wgmma_fence();
+        issue_qk<DH>(s, sqt, sk + st * L::kBytes);
+        wgmma_commit();
+        issue_pv<DH>(o, a, sv + sp * L::kBytes);
+        wgmma_commit();
+        fence_regs(s);
+        fence_regs(o);
+        fence_regs(a);
+        wgmma_wait<1>();  // S_kt is ready; P V may still run
+        fence_regs(s);
+        release_stage<DH>(&map_k, sk, full_k, empty_k, g, n_loads, first, bh);
+        online_softmax(s, kt == nk - 1, r0, t, c, m, l, corr);
+      } else {  // the last tile's P V alone
+        wgmma_fence();
+        issue_pv<DH>(o, a, sv + sp * L::kBytes);
+        wgmma_commit();
+        fence_regs(o);
+        fence_regs(a);
+      }
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(a);
+      release_stage<DH>(&map_v, sv, full_v, empty_v, g - 1, n_loads, first, bh);
+      if (kt < nk) {
+#pragma unroll
+        for (int i = 0; i < DH / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+        pack_p(s, a);
+      }
+    }
+    g0 += nk;
+
+    // The epilogue: O through this q tile's Q buffer (its last Q K^T is
+    // done) and one TMA store, which runs on while the next q tile
+    // computes; the LSE straight to memory.
+    stage_o<DH>(sqt, o, l, r0, t);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid == 0) {
+#pragma unroll
+      for (int p = 0; p < L::kPanels; ++p)
+        tma_store(&map_o, sqt + p * L::kPanelBytes, p * L::kCols, qt * kTile,
+                  bh);
+      bulk_commit();
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = qt * kTile + r0 + 8 * h;
+      if (t == 0 && row < seq)
+        lse[static_cast<size_t>(bh) * seq + row] = m[h] * scale + logf(l[h]);
+    }
+  }
+  if (tid == 0) bulk_wait_read();  // shared memory outlives the stores
+}
+
 // ---- bf16, B3: dq ----------------------------------------------------------
+// mma.sync accumulator element e of n tile nt sits at tile row g + 8 (e / 2)
+// and tile column 8 nt + 2 t + e % 2.
+
 template <int DH>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
@@ -852,12 +1331,61 @@ constexpr int bf16_tile_bytes(int dh) {
   return kTile * (dh + 8) * static_cast<int>(sizeof(bf16));
 }
 
+// cuTensorMapEncodeTiled lives in libcuda; it is reached through the
+// runtime so that the library links against nothing but cudart.
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a bf16 [BH, T, DH] array in boxes of 64 rows by one
+// swizzle panel; rows past T read as zeros and no box crosses a head.
+template <int DH>
+int encode_tile_map(CUtensorMap* map, const void* ptr, int BH, int seq) {
+  using L = FwdTile<DH>;
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(DH),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {DH * sizeof(bf16),
+                                 static_cast<cuuint64_t>(seq) * DH *
+                                     sizeof(bf16)};
+  const cuuint32_t box[3] = {L::kCols, kTile, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return static_cast<int>(
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_64B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
 template <int DH>
 int fwd(int dtype_code, const void* q, const void* k, const void* v,
         void* out, float* lse, int BH, int seq, float scale,
         cudaStream_t stream) {
-  const dim3 grid((seq + kTile - 1) / kTile, BH);
   if (dtype_code == 0) {
+    const dim3 grid((seq + kTile - 1) / kTile, BH);
     const int smem = fwd_smem_floats(DH) * static_cast<int>(sizeof(float));
     if (int rc = launch_setup(flash_fwd_kernel<DH>, smem)) return rc;
     flash_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(
@@ -865,12 +1393,18 @@ int fwd(int dtype_code, const void* q, const void* k, const void* v,
         static_cast<const float*>(v), static_cast<float*>(out), lse, seq,
         scale);
   } else {
-    const int smem = 3 * bf16_tile_bytes(DH);
+    CUtensorMap map_q, map_k, map_v, map_o;
+    if (int rc = encode_tile_map<DH>(&map_q, q, BH, seq)) return rc;
+    if (int rc = encode_tile_map<DH>(&map_k, k, BH, seq)) return rc;
+    if (int rc = encode_tile_map<DH>(&map_v, v, BH, seq)) return rc;
+    if (int rc = encode_tile_map<DH>(&map_o, out, BH, seq)) return rc;
+    // 1024 bytes of slack to align the tiles for the 128-byte swizzle.
+    const int smem = 1024 + (2 + 2 * kStages) * FwdTile<DH>::kBytes;
     if (int rc = launch_setup(flash_fwd_bf16_kernel<DH>, smem)) return rc;
-    flash_fwd_bf16_kernel<DH><<<grid, kMmaThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, seq,
-        scale);
+    const int n_q = (seq + kTile - 1) / kTile;
+    const dim3 grid((n_q + 1) / 2, BH);  // one CTA a pair of q tiles
+    flash_fwd_bf16_kernel<DH><<<grid, 128, smem, stream>>>(
+        map_q, map_k, map_v, map_o, lse, seq, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

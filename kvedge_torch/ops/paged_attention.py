@@ -29,6 +29,15 @@ from kvedge_torch.ops import _build
 _KERNEL = "paged_decode"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GROUPS = (1, 2, 4, 8)
+_DH = 64
+# The kernel's launch shape (csrc/paged_decode.cu): a cluster of at most
+# 8 CTAs (the portable cluster size) of 8 warps per (sequence, kv head),
+# about 128 pool positions a CTA, K and V staged in rings of 32 KB each.
+_MAX_SPLIT = 8
+_ROWS_PER_CTA = 128
+_RING_BYTES = 32768
+_WARPS = 8
+SMEM_LIMIT = 232448  # bytes of shared memory a CTA may use on Hopper (227 KB)
 
 
 def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor,
@@ -134,9 +143,40 @@ def _check(q, pool_k, pool_v, tables, q_positions, scale_k, scale_v):
     return quantized
 
 
+def decode_split(max_pages: int, page: int, group: int,
+                 pool_itemsize: int) -> tuple[int, int, int, int]:
+    """The kernel's launch shape for a pool of ``max_pages`` pages of
+    ``page`` positions a row, ``group`` = H / K query heads per kv head
+    and pool elements of ``pool_itemsize`` bytes (1 marks int8):
+    ``(split, slice_rows, ring_rows, smem_bytes)``.
+
+    Each (row, kv head) runs on a cluster of ``split`` CTAs, one per
+    contiguous slice of at most ``slice_rows`` positions, chosen from the
+    pool's shape alone (the live lengths stay on the card). A CTA keeps
+    its slice's scores in shared memory and stages K and V through rings
+    of ``ring_rows`` rows. Raises when that does not fit in a CTA's
+    shared memory."""
+    s_cap = max_pages * page
+    split = max(1, min(_MAX_SPLIT, -(-s_cap // _ROWS_PER_CTA)))
+    slice_rows = -(-s_cap // split)
+    row_bytes = _DH * pool_itemsize
+    ring_rows = min(slice_rows, _RING_BYTES // row_bytes)
+    floats = (group * slice_rows + (2 * ring_rows if pool_itemsize == 1 else 0)
+              + 2 * _WARPS * group + 4 * group + _WARPS * group * _DH
+              + group * _DH)
+    smem = 2 * ring_rows * row_bytes + 4 * floats
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"paged decode kernel: a slice of {slice_rows} positions x "
+            f"{group} heads needs {smem} bytes of shared memory, over the "
+            f"{SMEM_LIMIT} (227 KB) a CTA may use; the pool's rows "
+            f"({max_pages} pages of {page}) are too long for {split} CTAs")
+    return split, slice_rows, ring_rows, smem
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-             _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
 
 
 def paged_decode_attention(q, pool_k, pool_v, tables, q_positions,
@@ -149,7 +189,8 @@ def paged_decode_attention(q, pool_k, pool_v, tables, q_positions,
     ``[B]`` int32 (row b attends key positions ``0..q_positions[b]``,
     whose K/V are already written). ``scale_k``/``scale_v``
     (``[P, page, K]`` fp32) mark an int8 pool. Returns ``[B, H, Dh]`` in
-    q's dtype. The kernel reads each row's LIVE pages only.
+    q's dtype. The kernel reads each row's LIVE pages only, each row
+    split across a cluster of CTAs (:func:`decode_split`).
     """
     if not _build.on_cuda("paged decode", q):
         return paged_decode_attention_reference(
@@ -160,10 +201,9 @@ def paged_decode_attention(q, pool_k, pool_v, tables, q_positions,
     batch, h, dh = q.shape
     _, page, kv, _ = pool_k.shape
     max_pages = tables.shape[1]
-    s_cap = max_pages * page
+    split, slice_rows, ring_rows, smem = decode_split(
+        max_pages, page, h // kv, pool_k.element_size())
     out = torch.empty_like(q)
-    scratch = torch.empty((batch, h, s_cap), dtype=torch.float32,
-                          device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.launch(
         _KERNEL, "paged decode", "kvedge_paged_decode", _ARGTYPES,
@@ -172,10 +212,11 @@ def paged_decode_attention(q, pool_k, pool_v, tables, q_positions,
          scale_k.data_ptr() if quantized else None,
          scale_v.data_ptr() if quantized else None,
          tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
-         scratch.data_ptr(), batch, h, kv, dh, page, max_pages, s_cap,
-         score_divisor(dh, q.dtype), stream),
+         batch, h, kv, dh, page, max_pages, split, slice_rows, ring_rows,
+         smem, score_divisor(dh, q.dtype), stream),
         f"B={batch}, H={h}, K={kv}, Dh={dh}, page={page}, "
-        f"max_pages={max_pages}, dtype={q.dtype}, int8={quantized}")
+        f"max_pages={max_pages}, dtype={q.dtype}, int8={quantized}, "
+        f"split={split}")
     paged_decode_attention.launches += 1
     return out
 

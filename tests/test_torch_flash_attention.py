@@ -68,8 +68,9 @@ def _close(got, want, tol, what):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("dh", [16, 32])
-@pytest.mark.parametrize("seq,block", [(64, 32), (64, None), (40, None)])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("seq,block", [(64, 32), (64, None), (40, None),
+                                       (136, None)])
 def test_plain_forward_matches_reference_kernel(reference, seq, block, dh,
                                                 dtype):
     q, k, v = _qkv(10 + seq + dh, 3, seq, dh)
@@ -168,6 +169,18 @@ def test_kernel_checks_refuse_what_the_kernels_do_not_take():
     assert fa.softmax_scale(32) == float(np.float32(32 ** -0.5))
 
 
+@pytest.mark.parametrize("shape,match", [
+    ((0, 16, 64), "1 <= BH <= 65535"),
+    ((65536, 1, 32), "1 <= BH <= 65535"),
+    ((2, 0, 64), "T >= 1"),
+])
+def test_kernel_checks_refuse_shapes_outside_the_grid(shape, match):
+    """Every flash kernel's grid puts BH on gridDim.y (at most 65535)."""
+    x = torch.zeros(shape, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=match):
+        fa._check("t", (x, x, x))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -178,10 +191,15 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("dh", [32, 64])
-@pytest.mark.parametrize("seq", [8, 40, 136])
-def test_cuda_kernels_match_plain_versions(cuda_device, seq, dh, dtype):
-    q, k, v, do = _torch(_qkv(seq + dh, 4, seq, dh, n=4), dtype,
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("seq", [8, 40, 64, 136, 320, 512])
+@pytest.mark.parametrize("bh", [1, 16])
+def test_cuda_kernels_match_plain_versions(cuda_device, bh, seq, dh, dtype):
+    """T 8 and 40 are one partial tile, 64 one full tile, 136 two full
+    tiles and a partial one, 320 five (an odd number of 128-row blocks,
+    one with a single tile), 512 eight: each meets the bf16 forward's TMA
+    loads, whose rows past T read as zeros."""
+    q, k, v, do = _torch(_qkv(seq + dh + bh, bh, seq, dh, n=4), dtype,
                          cuda_device)
     before = (fa.flash_forward.launches, fa.flash_backward_dq.launches,
               fa.flash_backward_dkv.launches)

@@ -9,8 +9,13 @@ kernel under ``interpret=True`` on the small ragged case. Tolerances:
 fp32 1e-5 (sum order), bf16 and int8 1e-2 (one bf16 rounding of a
 score or weight can differ between the frameworks' matmuls).
 
-The CUDA kernel itself runs only on the card: the ``cuda``-marked test
-holds it to the plain version there and skips on a machine without one.
+The kernel's launch shape (``decode_split``: the cluster size, each
+CTA's slice, its K/V ring and its shared memory, or a refusal when the
+scores cannot fit) is pure Python and is tested here. The CUDA kernel
+itself runs only on the card: the ``cuda``-marked tests hold it to the
+plain version there, across the cluster split too (empty slices, slice
+boundaries, a K/V ring that loops, G = 8 over int8), and skip on a
+machine without one.
 The machine with the card has no JAX, so this module imports without it
 (the JAX comparisons then skip) and runs there as
 ``python -m pytest --noconftest -m cuda tests/test_torch_paged_attention.py``.
@@ -55,11 +60,14 @@ def _jax_gather(q, pool_k, pool_v, tables, q_pos):
     return att.reshape(B, 1, H, Dh)[:, 0]
 
 
-def _ragged(B, H, KV, Dh, page, q_pos_list, seed=0, int8=False):
+def _ragged(B, H, KV, Dh, page, q_pos_list, seed=0, int8=False,
+            max_pages=None):
     """numpy inputs whose rows live exactly through ``q_pos_list``; page 0
-    stays the unused alias every zeroed table entry points at."""
+    stays the unused alias every zeroed table entry points at. Tables are
+    at least ``max_pages`` wide (the pool's shape sets the kernel's
+    split)."""
     rng = np.random.default_rng(seed)
-    MP = max(qp // page + 1 for qp in q_pos_list) + 1
+    MP = max(max(qp // page + 1 for qp in q_pos_list) + 1, max_pages or 0)
     P = sum(qp // page + 1 for qp in q_pos_list) + 1
     q = rng.standard_normal((B, H, Dh)).astype(np.float32)
     tables = np.zeros((B, MP), np.int32)
@@ -135,6 +143,19 @@ CASES = {
 }
 
 
+# The kernel's cluster split: (B, H, K, Dh, page, q_pos, max_pages, int8).
+# Wide tables give 8 CTAs a row: live 1 and 2 leave slices empty, 319 /
+# 320 / 321 live positions sit at 8 x 40 - 1, 8 x 40 and 8 x 40 + 1,
+# live 4096 at page 128 loops over its K/V ring, and G = 8 reads an
+# int8 pool.
+CLUSTER_CASES = {
+    "live1-live2": (2, 8, 8, 64, 16, [0, 1], 128, False),
+    "split-boundaries": (3, 8, 2, 64, 16, [318, 319, 320], 128, False),
+    "page128-live4096": (1, 8, 8, 64, 128, [4095], 33, False),
+    "gqa8-int8": (2, 8, 1, 64, 16, [700, 37], 64, True),
+}
+
+
 @pytest.fixture
 def reference():
     if jax is None:
@@ -160,6 +181,19 @@ def test_plain_version_matches_jax_gather_int8(reference, page):
     got = tpa.paged_decode_attention_reference(*args, **kw)
     want = np.asarray(_want(case, "bfloat16").astype(jnp.float32))
     _check(got, want, "bfloat16", f"int8 page {page}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(CLUSTER_CASES))
+def test_plain_version_matches_jax_gather_on_split_cases(reference, name,
+                                                         dtype):
+    B, H, KV, Dh, page, q_pos, max_pages, int8 = CLUSTER_CASES[name]
+    case = _ragged(B, H, KV, Dh, page, q_pos, seed=5, int8=int8,
+                   max_pages=max_pages)
+    args, kw = _torch_inputs(case, dtype)
+    got = tpa.paged_decode_attention_reference(*args, **kw)
+    want = np.asarray(_want(case, dtype).astype(jnp.float32))
+    _check(got, want, "bfloat16" if int8 else dtype, name)
 
 
 def test_plain_version_matches_jax_pallas_interpret(reference):
@@ -211,6 +245,72 @@ def test_wrapper_checks_refuse_what_the_kernel_does_not_take():
                    torch.ones(pk.shape[:3]), torch.ones(pk.shape[:3]))
 
 
+@pytest.mark.parametrize("max_pages,page,group,itemsize,want", [
+    # The serving pool (max_seq 2048, page 16), MHA, bf16.
+    (128, 16, 1, 2, (8, 256, 256, 2 * 256 * 128 + 4 * (256 + 16 + 4 + 512
+                                                         + 64))),
+    # Page 128 at live 4096: the 256-row bf16 ring loops over 528 rows.
+    (33, 128, 1, 2, (8, 528, 256, 2 * 256 * 128 + 4 * (528 + 16 + 4 + 512
+                                                        + 64))),
+    # A short fp32 pool stays on one CTA.
+    (3, 16, 4, 4, (1, 48, 48, 2 * 48 * 256 + 4 * (192 + 64 + 16 + 2048
+                                                   + 256))),
+    # int8, G = 8: the scales ride beside the 512-row ring.
+    (17, 128, 8, 1, (8, 272, 272, 2 * 272 * 64 + 4 * (8 * 272 + 2 * 272
+                                                      + 128 + 32 + 4096
+                                                      + 512))),
+])
+def test_decode_split_sizes_the_kernel_launch(max_pages, page, group,
+                                              itemsize, want):
+    assert tpa.decode_split(max_pages, page, group, itemsize) == want
+
+
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("page", [16, 128])
+def test_decode_split_covers_the_pool_within_shared_memory(page, group,
+                                                           itemsize):
+    """For every pool up to 1024 pages: at most 8 CTAs, slices that cover
+    every position, a ring no longer than the slice, and the layout
+    within the 227 KB a CTA may use -- or a refusal naming that limit."""
+    fits = 0
+    for max_pages in (1, 2, 3, 7, 8, 64, 128, 129, 256, 1024):
+        s_cap = max_pages * page
+        try:
+            split, slice_rows, ring_rows, smem = tpa.decode_split(
+                max_pages, page, group, itemsize)
+        except ValueError as e:
+            assert "232448" in str(e) and group * s_cap // 8 * 4 > 100_000
+            continue
+        fits += 1
+        assert 1 <= split <= 8 and split * slice_rows >= s_cap
+        assert (split - 1) * slice_rows < s_cap
+        assert 1 <= ring_rows <= slice_rows
+        assert ring_rows * 64 * itemsize <= 32768
+        assert smem <= tpa.SMEM_LIMIT
+    assert fits >= 8
+
+
+def test_decode_split_refuses_a_score_slice_that_cannot_fit():
+    # 65536 positions over 8 CTAs is 8192 scores for each of 8 heads.
+    with pytest.raises(ValueError, match=r"232448 \(227 KB\)"):
+        tpa.decode_split(4096, 16, 8, 2)
+    # The same pool fits with one query head per kv head.
+    split, slice_rows, _, smem = tpa.decode_split(4096, 16, 1, 2)
+    assert (split, slice_rows) == (8, 8192) and smem <= tpa.SMEM_LIMIT
+
+
+def test_wrapper_on_cpu_takes_any_pool_length():
+    """The refusal is the kernel's: on a CPU tensor the wrapper computes
+    the plain version even for a pool the kernel could not split."""
+    case = _ragged(1, 8, 1, 64, 16, [40], max_pages=4096)
+    args, kw = _torch_inputs(case, "float32")
+    with pytest.raises(ValueError):
+        tpa.decode_split(args[3].shape[1], 16, 8, 4)
+    got = tpa.paged_decode_attention(*args, **kw)
+    assert torch.equal(got, tpa.paged_decode_attention_reference(*args, **kw))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -221,16 +321,25 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(CLUSTER_CASES))
 def test_cuda_kernel_matches_plain_version(cuda_device, name, dtype):
-    B, H, KV, Dh, page, q_pos = CASES[name]
+    """CASES at their own table widths; CLUSTER_CASES across B1's cluster
+    split (empty slices, slice boundaries, a looping ring, G = 8 int8)."""
+    if name in CASES:
+        B, H, KV, Dh, page, q_pos = CASES[name]
+        max_pages, int8, seed = None, False, 3
+    else:
+        B, H, KV, Dh, page, q_pos, max_pages, int8 = CLUSTER_CASES[name]
+        seed = 9
     if Dh != 64:
         pytest.skip("the kernel is built for Dh = 64")
-    case = _ragged(B, H, KV, Dh, page, q_pos, seed=3)
+    case = _ragged(B, H, KV, Dh, page, q_pos, seed=seed, int8=int8,
+                   max_pages=max_pages)
     args, kw = _torch_inputs(case, dtype, cuda_device)
     before = tpa.paged_decode_attention.launches
     got = tpa.paged_decode_attention(*args, **kw)
     torch.cuda.synchronize()
     assert tpa.paged_decode_attention.launches == before + 1
     want = tpa.paged_decode_attention_reference(*args, **kw)
-    _check(got, want.float().cpu().numpy(), dtype, f"cuda {name}")
+    _check(got, want.float().cpu().numpy(), "bfloat16" if int8 else dtype,
+           f"cuda {name}")
