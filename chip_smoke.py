@@ -103,7 +103,13 @@ imports nothing of JAX. Phases, each printing one JSON line:
             achieved TFLOP/s, a library yardstick the port never calls
             (``F.scaled_dot_product_attention(is_causal=True)``; a bf16
             ``torch.mm`` upcast to fp32 logits then ``F.cross_entropy``,
-            two calls; ``F.rms_norm``) and the kernel's ratio to it. The
+            two calls; ``F.rms_norm``) and the kernel's ratio to it.
+            SDPA's backward (dq, dk, dv in one ``autograd.grad``) is timed
+            by CUDA-graph replay like B3 and B4, its eager time kept as
+            ``library_call_ms``, and the backend its kernels' names show
+            (profiled) is recorded; the port's ``attention_delta`` pass
+            is timed the same way, and ``backward_ratio`` is (delta + B3 +
+            B4) / SDPA's backward. The
             xent kernels are held to the xent_kernel phase's bf16 bounds
             with a cotangent g in [0.5, 1.5]. The train step with and without
             ``fused_xent``: ms, tokens/s, MFU, the device idle share over 3
@@ -970,20 +976,22 @@ def event_ms(torch, fn, reps=10, runs=3):
     return times[len(times) // 2]
 
 
-def graph_ms(torch, fn, reps=10, runs=5):
+def graph_ms(torch, fn, reps=10, runs=5, stream=None):
     """Device ms of one call of ``fn``: ``reps`` calls captured in one
     CUDA graph, CUDA events around a replay, divided by ``reps``; the
     median of ``runs`` replays after a warm-up one. The host's launch work
     (the wrapper's Python, the library's dispatch) is off the clock, for
-    a kernel and its yardstick alike."""
-    side = torch.cuda.Stream()
+    a kernel and its yardstick alike. ``stream`` is the side stream to
+    warm up and capture on (a new one when None): an autograd backward
+    runs on its forward's stream, so that forward must run there."""
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -999,6 +1007,28 @@ def graph_ms(torch, fn, reps=10, runs=5):
     del graph
     times.sort()
     return times[len(times) // 2]
+
+
+def sdpa_backend(torch, fn, stream):
+    """The CUDA kernels one call of ``fn`` (SDPA's backward) launches, by
+    ``torch.profiler``, and the backend their names say ran: "cudnn",
+    "flash", "mem_efficient" or "unknown"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.cuda.stream(stream):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    joined = " ".join(names).lower()
+    backend = ("cudnn" if "cudnn" in joined else
+               "flash" if "flash" in joined else
+               "mem_efficient" if ("fmha" in joined or "efficient" in joined)
+               else "unknown")
+    return {"backend": backend, "kernels": [n[:120] for n in names]}
 
 
 def flash_bound(bh, seq, dh, itemsize, matmuls, in_tensors, out_tensors,
@@ -1136,10 +1166,18 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
     del p_out, p_dq, p_dk, p_dv
     # SDPA on the same values as [B, H, T, Dh], the yardstick the port
     # never calls: its forward, and its backward (dq, dk, dv in one call).
+    # The backward is captured in a CUDA graph like the kernels, so its
+    # forward runs on the stream the capture uses.
     sq, sk, sv = (x.reshape(b, h, t, dh).detach().requires_grad_(True)
                   for x in (q, k, v))
     sdo = do.reshape(b, h, t, dh)
-    s_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+    bwd_stream = torch.cuda.Stream()
+    bwd_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(bwd_stream):
+        s_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+    torch.cuda.current_stream().wait_stream(bwd_stream)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        s_out, (sq, sk, sv), sdo, retain_graph=True)
     fq, fk, fv = (x.reshape(b, h, t, dh) for x in (q, k, v))
     fwd = lambda: fa.flash_forward(q, k, v)  # noqa: E731
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -1165,12 +1203,25 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
                 q, k, v, do, lse, delta), 5),
             bound=flash_bound(bh, t, dh, 2, 4, 4, 2, 2, 0)),
     }
-    sdpa_bwd_ms = event_ms(torch, lambda: torch.autograd.grad(
-        s_out, (sq, sk, sv), sdo, retain_graph=True))
-    rows["flash_bwd_dq"]["library_ms"] = sdpa_bwd_ms
-    rows["flash_bwd_dkv"]["library_ms"] = sdpa_bwd_ms
+    sdpa_bwd_ms = graph_ms(torch, sdpa_bwd, stream=bwd_stream)
+    sdpa_bwd_call_ms = event_ms(torch, sdpa_bwd)
+    for n_ in ("flash_bwd_dq", "flash_bwd_dkv"):
+        rows[n_]["library_ms"] = sdpa_bwd_ms
+        rows[n_]["library_call_ms"] = sdpa_bwd_call_ms
+    # The port's backward is delta (plain torch, as the reference computes
+    # it outside its kernels) + B3 + B4; SDPA's one call includes its own.
+    d_bound = flash_bound(bh, t, dh, 2, 0, 2, 0, 0, 1)
+    delta_row = {"ms": graph_ms(torch, lambda: fa.attention_delta(do, out)),
+                 "bound_ms": d_bound[0], "bound_by": d_bound[1],
+                 "bytes": d_bound[3]}
+    backward = {
+        "port_ms": delta_row["ms"] + rows["flash_bwd_dq"]["ms"]
+                   + rows["flash_bwd_dkv"]["ms"],
+        "sdpa_ms": sdpa_bwd_ms, "sdpa_call_ms": sdpa_bwd_call_ms,
+        "sdpa_backend": sdpa_backend(torch, sdpa_bwd, bwd_stream)}
+    backward["backward_ratio"] = backward["port_ms"] / sdpa_bwd_ms
     del sq, sk, sv, s_out, q, k, v, do, out, lse, delta, dq, dk, dv
-    del fq, fk, fv, fwd, sdpa
+    del fq, fk, fv, fwd, sdpa, sdpa_bwd
 
     # B5-B7 at the fused train step's shape: N = B T rows of the hidden
     # state, the flagship's D and V, bf16; g in [0.5, 1.5], so that the
@@ -1257,15 +1308,20 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
            "shape": {"BH": bh, "T": t, "Dh": dh, "dtype": "bfloat16",
                      "batch": b, "heads": h, "xent_N": n, "xent_V": vocab,
                      "xent_D": d, "rmsnorm": [n, d]},
-           "timing": "flash kernels, B8 and their SDPA forward and "
-                     "rms_norm yardsticks: CUDA-graph replay of 10 calls, "
+           "timing": "flash kernels, attention_delta, B8 and their SDPA "
+                     "forward and backward and rms_norm yardsticks: "
+                     "CUDA-graph replay of 10 calls, "
                      "per call, median of 5 replays (host launch work off "
-                     "the clock); call_ms, plain versions, xent kernels "
-                     "and the backward yardsticks: CUDA events around 10 "
+                     "the clock); call_ms, library_call_ms, plain versions, "
+                     "xent kernels and their backward yardstick: CUDA "
+                     "events around 10 "
                      "calls back to back (plain: 5, xent plain 3), per "
                      "call, median of 3 such runs after 2 warm-up calls; "
                      "step: host clock over 5 synchronized steps after 2 "
                      "warm-up",
+           "attention_delta": delta_row,
+           "backward": backward,
+           "backward_ratio": backward["backward_ratio"],
            "kernels": {n_: {"ms": r["ms"], "plain_ms": r["plain_ms"],
                             **{k_: r[k_] for k_ in ("call_ms",
                                                     "library_call_ms")
