@@ -42,7 +42,8 @@ imports nothing of JAX. Phases, each printing one JSON line:
 6. flash_kernel  the three flash kernels (B2 forward, B3 dq, B4 dk/dv)
             against their plain PyTorch versions: bf16 and fp32, Dh 32 and
             64 at T in {8, 40, 64, 136, 512, 2048}, Dh 128 at T in {40,
-            136, 512}, BH in {1, 16}; O and LSE
+            136, 512}, and bf16 at Dh 32, 64 and 128 at T 192 and 576 (odd
+            tile counts), BH in {1, 16}; O and LSE
             within rtol=atol=1e-5 (fp32) / 1e-2 (bf16), gradients within
             2e-4 / 3e-2; the backward run twice must be bit-identical.
 7. train    the port's ``train`` payload (``run_train_payload``) at the
@@ -305,6 +306,9 @@ def phase_flash_vs_plain(torch, fa, device="cuda"):
     cases += [dict(dtype=dt, dh=128, seq=t, bh=bh)
               for dt in ("bfloat16", "float32") for t in (40, 136, 512)
               for bh in (1, 16)]
+    # Odd tile counts (3, 9): the last CTA of B2-B4's pairs owns one tile.
+    cases += [dict(dtype="bfloat16", dh=dh, seq=t, bh=bh)
+              for dh in (32, 64, 128) for t in (192, 576) for bh in (1, 16)]
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for i, case in enumerate(cases):
         q, k, v, do = flash_inputs(torch, seed=300 + i, device=device, **case)
@@ -1015,14 +1019,20 @@ def sdpa_backend(torch, fn, stream):
     "flash", "mem_efficient" or "unknown"."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = []
     with torch.cuda.stream(stream):
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-    names = sorted({e.key for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA})
+        for _ in range(2):  # a first profile in a process may see nothing
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            names = sorted({e.key for e in prof.key_averages()
+                            if e.device_type == torch.autograd.DeviceType.CUDA})
+            if names:
+                break
     joined = " ".join(names).lower()
     backend = ("cudnn" if "cudnn" in joined else
                "flash" if "flash" in joined else
@@ -1778,9 +1788,18 @@ def main() -> int:
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                 "library_ms": k["library_ms"],
                 "ratio_to_library": k["ratio_to_library"],
-                **({"status": "redesigned (wgmma on a TMA-fed mbarrier "
-                              "ring, two q tiles a CTA, O by TMA store)"}
-                   if kname == "flash_fwd" else {}),
+                "status": {
+                    "flash_fwd": "redesigned (wgmma on a TMA-fed mbarrier "
+                                 "ring, two q tiles a CTA, O by TMA store)",
+                    "flash_bwd_dq": "redesigned (wgmma on TMA-fed K and V "
+                                    "mbarrier rings, two q tiles a CTA, dQ "
+                                    "beside the next tile's S and dP, dq by "
+                                    "TMA store)",
+                    "flash_bwd_dkv": "redesigned (wgmma on TMA-fed Q and dO "
+                                     "mbarrier rings with lse and delta, two "
+                                     "k tiles a CTA, S^T and dP^T as the A "
+                                     "operand of dV and dK, dk and dv by TMA "
+                                     "store)"}[kname],
                 "ok": True,
             })
         for kname, where, launched, worst_err in (

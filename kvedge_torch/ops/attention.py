@@ -40,6 +40,7 @@ _KERNEL = "flash_attention"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 DEFAULT_BLOCK = 256
+_DELTA_BLOCK = 64  # rows of the blocks whose products' diagonals give delta
 
 
 def pick_block(seq: int) -> int:
@@ -57,6 +58,29 @@ def pick_block(seq: int) -> int:
         f"got {seq} (training slices [B, S+1] batches to S tokens — choose "
         "S divisible by 8)"
     )
+
+
+def cta_tiles(seq: int, kernel: str) -> list[list[tuple[int, int]]]:
+    """The (q tile, k tile) products each CTA of one head runs, in order,
+    in the bf16 kernels' schedule (``csrc/flash_attention.cu`` computes
+    the same on the card from ``blockIdx.x``). CTA p owns the 64-row tiles
+    of pair p, ``n - 1 - p`` and ``p`` (an odd ``n`` leaves the middle
+    tile alone), so every CTA but that one runs ``n + 1`` tile products.
+    ``kernel`` is "fwd" or "dq" (q tiles, the heavier first, each over k
+    tiles 0..qt) or "dkv" (k tiles, the heavier first, each over q tiles
+    kt..n-1)."""
+    if kernel not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"kernel must be fwd, dq or dkv, got {kernel!r}")
+    n = -(-seq // 64)
+    ctas = []
+    for p in range((n + 1) // 2):
+        owned = [n - 1 - p] + ([p] if p < n - 1 - p else [])
+        if kernel == "dkv":
+            owned.reverse()
+            ctas.append([(qt, kt) for kt in owned for qt in range(kt, n)])
+        else:
+            ctas.append([(qt, kt) for qt in owned for kt in range(qt + 1)])
+    return ctas
 
 
 def softmax_scale(d_head: int) -> float:
@@ -109,8 +133,26 @@ def flash_backward_dkv_reference(q, k, v, dout, lse, delta):
 
 
 def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """``delta = rowsum(dO * O)`` in fp32, ``[BH, T]``."""
-    return (dout.float() * out.float()).sum(dim=-1)
+    """``delta = rowsum(dO * O)`` in fp32, ``[..., T]``. A product of two
+    bf16 values is exact in fp32, so only the order of the fp32 sum is
+    free. On the card, for bf16, it is the diagonal of the products of
+    64-row blocks of dO and O^T, one batched matmul with fp32 output (the
+    fastest plain-torch form measured, PERF.md section 6); otherwise one
+    ``addcmul`` onto a one-element fp32 zero, which promotes both operands
+    inside its kernel, and a sum."""
+    dh = dout.shape[-1]
+    if (dout.is_cuda and dout.dtype == torch.bfloat16
+            and dout.numel() % (_DELTA_BLOCK * dh) == 0):
+        blocks = torch.bmm(
+            dout.reshape(-1, _DELTA_BLOCK, dh),
+            out.reshape(-1, _DELTA_BLOCK, dh).transpose(1, 2),
+            out_dtype=torch.float32)
+        # A view when the rows of a head fill whole blocks: copy it.
+        return blocks.diagonal(dim1=1, dim2=2).reshape(
+            dout.shape[:-1]).contiguous()
+    zero = torch.zeros((1,) * dout.dim(), dtype=torch.float32,
+                       device=dout.device)
+    return torch.addcmul(zero, dout, out).sum(dim=-1)
 
 
 def flash_backward_reference(q, k, v, out, lse, dout):
@@ -149,9 +191,11 @@ def _check(name, tensors, rows=()):
             raise ValueError(f"{name}: inputs must share one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name} reads bf16 tiles in 16-byte vectors; the "
-                         "operands' storage must be 16-byte aligned")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (*tensors, *rows)):
+        raise ValueError(f"{name} reads bf16 tiles, and lse and delta rows, "
+                         "by TMA; the operands' storage must be 16-byte "
+                         "aligned")
     return bh, seq, dh
 
 

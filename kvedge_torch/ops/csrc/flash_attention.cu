@@ -40,9 +40,9 @@
 // Design. Every CTA owns q or k rows of one head, in 64-row tiles:
 //   forward / dq: a loop over the k tiles up to and including the
 //     diagonal (tiles above it are never loaded).
-//   dk/dv:        one CTA per (bh, k tile); a loop over the q tiles from
-//     the diagonal down. Each CTA owns its dk/dv rows, so there are no
-//     atomics and the backward is deterministic, as the TPU grid is.
+//   dk/dv:        a loop over the q tiles from the diagonal down. Each
+//     CTA owns its dk/dv rows, so there are no atomics and the backward
+//     is deterministic, as the TPU grid is.
 // The bf16 forward (B2) is built for Hopper (section "bf16, B2" below):
 // a CTA is one warpgroup that owns two 64-row q tiles of a head in turn,
 // n_q - 1 - p and then p, so the CTAs are of one size; TMA brings both Q
@@ -60,11 +60,16 @@
 // a persistent grid, a third ring stage, an L2 prefetch of later heads,
 // Q read from registers and L2 eviction policies all measured slower or
 // no faster (PERF.md, `kvedge_torch/tools/flash_fwd_variants.py`).
-// The bf16 backward (B3, B4) still runs on
-// mma.sync m16n8k16: 4 warps, each owning 16 rows of the tile, on tiles
-// staged in shared memory, the softmax on the score accumulators in
-// registers (section "bf16: tensor-core tiles"). fp32 has no tensor-core
-// path of full
+// The bf16 backward (B3, B4) is built the same way (section "bf16, B3
+// and B4"): pairs of tiles a CTA, the tiles it owns resident, the others
+// streamed through TMA rings, S and dP on wgmma with both operands in
+// shared memory, and the gradient products with p or ds rounded to bf16
+// as they are packed into wgmma's register A operand. B3 (dq) keeps Q and
+// dO and streams K and V, and runs dQ's product beside the next tile's S
+// and dP; B4 (dk, dv) keeps K and V, streams Q and dO with their lse and
+// delta entries, and computes S^T and dP^T, whose key rows make p^T and
+// ds^T the A operand of dV and dK without a transpose. fp32 has no
+// tensor-core path of full
 // fp32 precision (TF32 would round the operands), so it runs on the CUDA
 // cores with fp32 FMA: 256 threads (16 x 16), thread (ty, tx) owning tile
 // rows ty + 16 i and tile columns tx + 16 j (i, j < 4) of every 64 x 64
@@ -473,25 +478,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16: tensor-core tiles (mma.sync m16n8k16, fp32 accumulation) -----
-//
-// The same algorithm and rounding points on bf16 tiles in shared memory.
-// A CTA of 4 warps owns one 64-row tile; warp w owns its rows 16w..16w+15
-// of every 64 x 64 score tile, held in registers as eight 16 x 8 mma
-// accumulators. A row lives in the 4 lanes of a quad, so its max and sum
-// reduce with two shuffles. p and ds are rounded to bf16 as they are
-// packed into the A operand of the next product, straight from the score
-// accumulators. Shared-memory rows are padded by 8 elements so that the
-// fragment loads of a warp fall on 32 different banks.
+// ---- bf16: shared pieces -------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kWarps = 4;
-constexpr int kMmaThreads = 32 * kWarps;
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // Two fp32 values rounded to bf16 (round to nearest even), low half first.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -499,92 +488,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d (16 x 8, fp32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col).
-__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// A 64-row tile of a [.., DH] bf16 array into shared memory, row stride
-// DH + 8, in 16-byte vectors; rows at or past `seq` read as zero.
-template <int DH>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst,
-                                               const bf16* __restrict__ src,
-                                               int row0, int seq) {
-  constexpr int LD = DH + 8;
-  constexpr int V = DH / 8;
-  for (int i = threadIdx.x; i < kTile * V; i += kMmaThreads) {
-    const int r = i / V;
-    const int c = (i % V) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < seq)
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row) * DH + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// acc[nt] += X[r0 + 0..15, :] . Y[8 nt + 0..7, :]^T over the DH columns,
-// for the 64 rows of Y (nt < 8): X and Y row-major in shared memory.
-// Lane (g, t) = (lane / 4, lane % 4) holds the fragments of rows g, g + 8.
-template <int DH>
-__device__ __forceinline__ void mma_xyt(float (&acc)[8][4], const bf16* X,
-                                        int r0, const bf16* Y, int g,
-                                        int t) {
-  constexpr int LD = DH + 8;
-#pragma unroll
-  for (int kc = 0; kc < DH / 16; ++kc) {
-    const int kk = kc * 16 + 2 * t;
-    const uint32_t a0 = ld32(X + (r0 + g) * LD + kk);
-    const uint32_t a1 = ld32(X + (r0 + g + 8) * LD + kk);
-    const uint32_t a2 = ld32(X + (r0 + g) * LD + kk + 8);
-    const uint32_t a3 = ld32(X + (r0 + g + 8) * LD + kk + 8);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const bf16* y = Y + (8 * nt + g) * LD + kk;
-      mma16816(acc[nt], a0, a1, a2, a3, ld32(y), ld32(y + 8));
-    }
-  }
-}
-
-// acc[nd] += (P -> bf16) . Z for the warp's 16 x 64 tile P, held as the
-// score accumulators p[8][4], and Z row-major [64][DH] in shared memory
-// (nd < DH / 8). The accumulators of score columns 16 kc .. 16 kc + 15
-// are exactly the A fragment of k step kc.
-template <int DH>
-__device__ __forceinline__ void mma_pz(float (&acc)[DH / 8][4],
-                                       const float (&p)[8][4], const bf16* Z,
-                                       int g, int t) {
-  constexpr int LD = DH + 8;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const uint32_t a0 = pack_bf16(p[2 * kc][0], p[2 * kc][1]);
-    const uint32_t a1 = pack_bf16(p[2 * kc][2], p[2 * kc][3]);
-    const uint32_t a2 = pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]);
-    const uint32_t a3 = pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3]);
-    const bf16* z = Z + (kc * 16 + 2 * t) * LD + g;
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-      const bf16* zc = z + 8 * nd;
-      mma16816(acc[nd], a0, a1, a2, a3, pack_bf16(zc[0], zc[LD]),
-               pack_bf16(zc[8 * LD], zc[9 * LD]));
-    }
-  }
-}
-
+// The max and sum over the 4 lanes of a quad (one accumulator row).
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -593,14 +497,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[i][e] = 0.f;
 }
 
 // ---- bf16, B2: forward on wgmma, with TMA into an mbarrier ring ----------
@@ -850,20 +746,56 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
 }
 
 
-// K or V (map) tile kt of head bh, the g-th of the CTA's stream, into
-// stage g % kStages of the ring at base, completing on its "full"
-// barrier (full + 8 stage).
+// Row tile `tile` of head bh of a [BH, T, DH] map into the tile at dst,
+// completing on bar, whose expected bytes the caller has raised.
 template <int DH>
-__device__ __forceinline__ void load_ring(const CUtensorMap* map,
-                                          uint32_t base, uint32_t full,
-                                          int g, int kt, int bh) {
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int tile, int bh) {
   using L = FwdTile<DH>;
-  const int s = g % kStages;
-  mbar_expect_tx(full + 8u * s, L::kBytes);
 #pragma unroll
   for (int p = 0; p < L::kPanels; ++p)
-    tma_load(base + s * L::kBytes + p * L::kPanelBytes, map, full + 8u * s,
-             p * L::kCols, kt * kTile, bh);
+    tma_load(dst + p * L::kPanelBytes, map, bar, p * L::kCols, tile * kTile,
+             bh);
+}
+
+// The tile at src to row tile `tile` of head bh of a [BH, T, DH] map.
+template <int DH>
+__device__ __forceinline__ void tma_store_tile(const CUtensorMap* map,
+                                               uint32_t src, int tile,
+                                               int bh) {
+  using L = FwdTile<DH>;
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+    tma_store(map, src + p * L::kPanelBytes, p * L::kCols, tile * kTile, bh);
+}
+
+// Row tile `tile` of head bh, the g-th of a stream, into stage g % S of
+// the ring at base, completing on the stage's "full" barrier.
+template <int DH, int S>
+__device__ __forceinline__ void ring_load(const CUtensorMap* map,
+                                          uint32_t base, uint32_t full, int g,
+                                          int tile, int bh) {
+  using L = FwdTile<DH>;
+  const int s = g % S;
+  mbar_expect_tx(full + 8u * s, L::kBytes);
+  tma_tile<DH>(base + s * L::kBytes, map, full + 8u * s, tile, bh);
+}
+
+// This warp has read the stream's tile g of a ring of S stages for the
+// last time: it arrives on the stage's "empty" barrier. Returns true in
+// thread 0 when the stage is to be refilled with tile g + S, once every
+// warp has arrived; the caller refills it, then calls __syncwarp().
+template <int S>
+__device__ __forceinline__ bool ring_release(uint32_t empty, int g,
+                                             int n_loads) {
+  const int s = g % S;
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty + 8u * s);
+  if (threadIdx.x == 0 && g + S < n_loads) {
+    mbar_wait(empty + 8u * s, (g / S) & 1);
+    return true;
+  }
+  return false;
 }
 
 // The k tile of the stream's tile g: the first q tile's k tiles 0..first,
@@ -872,25 +804,32 @@ __device__ __forceinline__ int stream_tile(int g, int first) {
   return g <= first ? g : g - first - 1;
 }
 
-// This warp has read stream tile g of a ring for the last time: it
-// arrives on the stage's "empty" barrier (empty + 8 stage), and thread 0,
-// once every warp has, refills the stage with the stream's tile
-// g + kStages, if there is one.
-template <int DH>
+// This warp has read stream tile g of a ring of S stages for the last
+// time; thread 0, once every warp has, refills the stage with the
+// stream's tile g + S, if there is one.
+template <int DH, int S>
 __device__ __forceinline__ void release_stage(const CUtensorMap* map,
                                               uint32_t base, uint32_t full,
                                               uint32_t empty, int g,
                                               int n_loads, int first,
                                               int bh) {
-  const int s = g % kStages;
+  if (ring_release<S>(empty, g, n_loads))
+    ring_load<DH, S>(map, base, full, g + S, stream_tile(g + S, first), bh);
   __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(empty + 8u * s);
-  const int next = g + kStages;
-  if (threadIdx.x == 0 && next < n_loads) {
-    mbar_wait(empty + 8u * s, (g / kStages) & 1);
-    load_ring<DH>(map, base, full, next, stream_tile(next, first), bh);
+}
+
+// The tile in shared memory at so (as stage_o lays it out) leaves by TMA
+// store: every warp's stores are made visible to the async proxy, then
+// thread 0 issues the store, which runs on while the CTA goes on.
+template <int DH>
+__device__ __forceinline__ void store_tile(const CUtensorMap* map,
+                                           uint32_t so, int tile, int bh) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    tma_store_tile<DH>(map, so, tile, bh);
+    bulk_commit();
   }
-  __syncwarp();
 }
 
 // The online softmax of one 64 x 64 tile of raw scores held as wgmma
@@ -1041,15 +980,14 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   if (tid == 0) {
     for (int it = 0; it < n_items; ++it) {
       mbar_expect_tx(bar_q + 8u * it, L::kBytes);
-#pragma unroll
-      for (int p = 0; p < L::kPanels; ++p)
-        tma_load(sq + it * L::kBytes + p * L::kPanelBytes, &map_q,
-                 bar_q + 8u * it, p * L::kCols,
-                 (it == 0 ? first : pair) * kTile, bh);
+      tma_tile<DH>(sq + it * L::kBytes, &map_q, bar_q + 8u * it,
+                   it == 0 ? first : pair, bh);
     }
     for (int g = 0; g < kStages && g < n_loads; ++g) {
-      load_ring<DH>(&map_k, sk, full_k, g, stream_tile(g, first), bh);
-      load_ring<DH>(&map_v, sv, full_v, g, stream_tile(g, first), bh);
+      ring_load<DH, kStages>(&map_k, sk, full_k, g, stream_tile(g, first),
+                             bh);
+      ring_load<DH, kStages>(&map_v, sv, full_v, g, stream_tile(g, first),
+                             bh);
     }
   }
 
@@ -1078,7 +1016,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
-    release_stage<DH>(&map_k, sk, full_k, empty_k, g0, n_loads, first, bh);
+    release_stage<DH, kStages>(&map_k, sk, full_k, empty_k, g0, n_loads,
+                               first, bh);
     online_softmax(s, nk == 1, r0, t, c, m, l, corr);
     pack_p(s, a);
 
@@ -1108,7 +1047,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
         fence_regs(a);
         wgmma_wait<1>();  // S_kt is ready; P V may still run
         fence_regs(s);
-        release_stage<DH>(&map_k, sk, full_k, empty_k, g, n_loads, first, bh);
+        release_stage<DH, kStages>(&map_k, sk, full_k, empty_k, g, n_loads,
+                                   first, bh);
         online_softmax(s, kt == nk - 1, r0, t, c, m, l, corr);
       } else {  // the last tile's P V alone
         wgmma_fence();
@@ -1120,7 +1060,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(a);
-      release_stage<DH>(&map_v, sv, full_v, empty_v, g - 1, n_loads, first, bh);
+      release_stage<DH, kStages>(&map_v, sv, full_v, empty_v, g - 1, n_loads,
+                                 first, bh);
       if (kt < nk) {
 #pragma unroll
         for (int i = 0; i < DH / 2; ++i) o[i] *= corr[(i >> 1) & 1];
@@ -1133,15 +1074,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     // done) and one TMA store, which runs on while the next q tile
     // computes; the LSE straight to memory.
     stage_o<DH>(sqt, o, l, r0, t);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (tid == 0) {
-#pragma unroll
-      for (int p = 0; p < L::kPanels; ++p)
-        tma_store(&map_o, sqt + p * L::kPanelBytes, p * L::kCols, qt * kTile,
-                  bh);
-      bulk_commit();
-    }
+    store_tile<DH>(&map_o, sqt, qt, bh);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = qt * kTile + r0 + 8 * h;
@@ -1152,170 +1085,458 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   if (tid == 0) bulk_wait_read();  // shared memory outlives the stores
 }
 
-// ---- bf16, B3: dq ----------------------------------------------------------
-// mma.sync accumulator element e of n tile nt sits at tile row g + 8 (e / 2)
-// and tile column 8 nt + 2 t + e % 2.
+// ---- bf16, B3 and B4: the backward on wgmma, with TMA into mbarrier rings --
+//
+// Both passes are built from B2's pieces. A CTA is one warpgroup of one
+// head that owns two 64-row tiles in turn, the tiles of pair p (n - 1 - p
+// and p; an odd n leaves the middle tile alone in the last pair), so that
+// the CTAs are of one size. TMA loads every tile in B2's swizzled panels;
+// the first two products of a tile run on wgmma with both operands
+// K-major in shared memory, the others with A, p or ds rounded to bf16,
+// straight from the registers that hold the scores and B read MN-major.
+// The gradient is rounded into the shared memory of a tile the CTA reads
+// no more and leaves by TMA store. Every output row is written by one CTA
+// in a fixed order: no atomics, and the backward is bitwise deterministic.
+//
+// B3 (dq): the CTA's two q tiles and their dO tiles stay resident; the k
+// tiles of both stream through a K ring and a V ring as in B2. Per k tile
+// S = Q K^T and dP = dO V^T run together; V's stage is released when dP
+// is done; p = 2^(s c - lse log2 e) (the mask on the diagonal tile only)
+// and ds = p (dp - delta); dQ += (ds -> bf16) K then runs on the tensor
+// cores together with the next tile's S and dP. K is read by both
+// products, so its stage is released after dQ's, and its ring has a third
+// stage to keep its load an iteration ahead.
+//
+// B4 (dk, dv): the CTA's two k tiles (the heavier first) keep K and V
+// resident; the q tiles from each diagonal down stream through a Q ring
+// and a dO ring, each stage with its 64 lse or delta entries, which a 1-D
+// TMA box brings on the same mbarrier. Per q tile S^T = K Q^T and dP^T =
+// V dO^T: the accumulators have key rows, so p^T and ds^T are exactly the
+// A fragments of dV += (p^T -> bf16) dO and dK += (ds^T -> bf16) Q, with
+// dO and Q read MN-major as B2 reads V. Four sets of accumulators (S^T,
+// dP^T, dK, dV) leave no registers for the next tile's products to be in
+// flight, so a CTA runs its tile's four in turn and the SM overlaps its
+// CTAs (3 an SM at Dh 64). Query columns past T (TMA reads them as zeros,
+// and their lse as the next head's) are masked like the causal ones.
+//
+// Dh 128: B4's accumulators alone take 192 registers a thread, and either
+// pass's tiles 130-150 KB, so both run one CTA an SM at up to 255
+// registers; Dh 32 and 64 fit 4 and 3.
 
+constexpr int kStagesDqK = 3;  // B3's K ring: K is read by two products
+constexpr int kStagesDqV = 2;  // B3's V ring
+constexpr int kStagesDkv = 2;  // B4's Q and dO rings
+constexpr int kRowBytes64 = kTile * 4;  // 64 fp32 entries of lse or delta
+
+__host__ __device__ constexpr int bwd_min_blocks(int dh) {
+  return dh > 64 ? 1 : dh > 32 ? 3 : 4;
+}
+
+// 64 fp32 entries of a 1-D tensor map from entry c0 into shared memory at
+// dst, completing on the mbarrier bar.
+__device__ __forceinline__ void tma_load_row(uint32_t dst,
+                                             const CUtensorMap* map,
+                                             uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0) : "memory");
+}
+
+// acc * mul rounded to bf16 into the tile at so, in the layout stage_o
+// writes (the swizzled panels tma_store reads).
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int seq, float scale) {
-  constexpr int LD = DH + 8;
-  extern __shared__ uint4 smem_vec[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_vec);
-  bf16* Os = Qs + kTile * LD;  // dO
-  bf16* Ks = Os + kTile * LD;
-  bf16* Vs = Ks + kTile * LD;
-
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const size_t base = static_cast<size_t>(bh) * seq * DH;
-  const size_t rbase = static_cast<size_t>(bh) * seq;
-  const int q0 = qt * kTile;
-
-  load_tile_bf16<DH>(Qs, q + base, q0, seq);
-  load_tile_bf16<DH>(Os, dout + base, q0, seq);
-  float lse_r[2], delta_r[2];
+__device__ __forceinline__ void stage_scaled(uint32_t so,
+                                             const float (&acc)[DH / 2],
+                                             float mul, int r0, int t) {
+  using L = FwdTile<DH>;
+  constexpr uint32_t kMask = L::kRowBytes == 128 ? 7 : 3;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + g + 8 * h;
-    lse_r[h] = row < seq ? lse[rbase + row] : 0.f;
-    delta_r[h] = row < seq ? delta[rbase + row] : 0.f;
-  }
-  float acc[DH / 8][4];
-  zero(acc);
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) {
+      const int col = 8 * nd + 2 * t;
+      const uint32_t off = (r0 + 8 * h) * L::kRowBytes + (col % L::kCols) * 2;
+      const uint32_t addr = so + (col / L::kCols) * L::kPanelBytes +
+                            (off ^ (((off >> 7) & kMask) << 4));
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr),
+                   "r"(pack_bf16(acc[4 * nd + 2 * h] * mul,
+                                 acc[4 * nd + 2 * h + 1] * mul))
+                   : "memory");
+    }
+}
 
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile_bf16<DH>(Ks, k + base, k0, seq);
-    load_tile_bf16<DH>(Vs, v + base, k0, seq);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    zero(s);
-    zero(dp);
-    mma_xyt<DH>(s, Qs, r0, Ks, g, t);
-    mma_xyt<DH>(dp, Os, r0, Vs, g, t);
+// B3: the score tile's p = 2^(s c - lse log2 e) and ds = p (dp - delta),
+// left in s. Element i of a wgmma accumulator sits at tile row
+// r0 + 8 ((i / 2) % 2) and column 8 (i / 4) + 2 t + i % 2; lc and dl hold
+// lse log2 e and delta of rows r0 and r0 + 8. On the diagonal tile keys
+// past the query are masked.
+__device__ __forceinline__ void dq_ds(float (&s)[32], const float (&dp)[32],
+                                      bool diag, int r0, int t, float c,
+                                      const float (&lc)[2],
+                                      const float (&dl)[2]) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int row = q0 + r0 + g + 8 * h;
-        const int col = k0 + 8 * nt + 2 * t + (e & 1);
-        const float p = (col <= row && col < seq)
-                            ? expf(s[nt][e] * scale - lse_r[h]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - delta_r[h]);  // ds
-      }
-    mma_pz<DH>(acc, s, Ks, g, t);
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + g + 8 * h;
-    if (row >= seq) continue;
-    bf16* drow = dq + base + static_cast<size_t>(row) * DH + 2 * t;
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd)
-      *reinterpret_cast<uint32_t*>(drow + 8 * nd) =
-          pack_bf16(acc[nd][2 * h] * scale, acc[nd][2 * h + 1] * scale);
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+    const float p =
+        diag && col > r0 + 8 * h ? 0.f : ex2(fmaf(s[i], c, -lc[h]));
+    s[i] = p * (dp[i] - dl[h]);
   }
 }
 
-// ---- bf16, B4: dk and dv ---------------------------------------------------
-// Scores are held transposed: tile rows are keys, tile columns queries.
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          int seq, float scale) {
-  constexpr int LD = DH + 8;
-  extern __shared__ uint4 smem_vec[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_vec);
-  bf16* Vs = Ks + kTile * LD;
-  bf16* Qs = Vs + kTile * LD;
-  bf16* Os = Qs + kTile * LD;  // dO
-  float* lse_s = reinterpret_cast<float*>(Os + kTile * LD);
-  float* delta_s = lse_s + kTile;
+__global__ void __launch_bounds__(128, bwd_min_blocks(DH))
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const __grid_constant__ CUtensorMap map_dq,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, int seq,
+                         float scale) {
+  using L = FwdTile<DH>;
+  constexpr int SK = kStagesDqK;
+  constexpr int SV = kStagesDqV;
+  extern __shared__ uint8_t bwd_smem[];
+  // bars: [0, 1] each q tile's Q and dO, then K full and K empty (SK
+  // each), then V full and V empty (SV each).
+  __shared__ __align__(8) uint64_t bars[2 + 2 * SK + 2 * SV];
+  const uint32_t sq = (smem_u32(bwd_smem) + 1023u) & ~1023u;  // 2 Q tiles
+  const uint32_t sdo = sq + 2 * L::kBytes;                     // 2 dO tiles
+  const uint32_t sk = sdo + 2 * L::kBytes;                     // ring of K
+  const uint32_t sv = sk + SK * L::kBytes;                     // ring of V
+  const uint32_t bar_q = smem_u32(bars);
+  const uint32_t full_k = bar_q + 16u;
+  const uint32_t empty_k = full_k + 8u * SK;
+  const uint32_t full_v = empty_k + 8u * SK;
+  const uint32_t empty_v = full_v + 8u * SV;
 
-  const int kt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r0 = 16 * (tid >> 5) + (lane >> 2);  // tile rows r0, r0 + 8
   const int t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const size_t base = static_cast<size_t>(bh) * seq * DH;
-  const size_t rbase = static_cast<size_t>(bh) * seq;
-  const int k0 = kt * kTile;
-  const int nq = (seq + kTile - 1) / kTile;
+  const int n_q = (seq + kTile - 1) / kTile;
+  const int pair = blockIdx.x;
+  const int bh = blockIdx.y;
+  // The CTA's q tiles, the heavier first; tile qt reads k tiles 0..qt.
+  const int first = n_q - 1 - pair;
+  const int n_items = pair < first ? 2 : 1;
+  const int n_loads = first + 1 + (n_items == 2 ? pair + 1 : 0);
 
-  load_tile_bf16<DH>(Ks, k + base, k0, seq);
-  load_tile_bf16<DH>(Vs, v + base, k0, seq);
-  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-
-  for (int qt = kt; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile_bf16<DH>(Qs, q + base, q0, seq);
-    load_tile_bf16<DH>(Os, dout + base, q0, seq);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < seq ? lse[rbase + row] : 0.f;
-      delta_s[threadIdx.x] = row < seq ? delta[rbase + row] : 0.f;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_q + 8u, 1);
+    for (int s = 0; s < SK; ++s) {
+      mbar_init(full_k + 8u * s, 1);
+      mbar_init(empty_k + 8u * s, 4);  // one arrival per warp
     }
-    __syncthreads();
+    for (int s = 0; s < SV; ++s) {
+      mbar_init(full_v + 8u * s, 1);
+      mbar_init(empty_v + 8u * s, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int it = 0; it < n_items; ++it) {
+      const int qt = it == 0 ? first : pair;
+      mbar_expect_tx(bar_q + 8u * it, 2 * L::kBytes);
+      tma_tile<DH>(sq + it * L::kBytes, &map_q, bar_q + 8u * it, qt, bh);
+      tma_tile<DH>(sdo + it * L::kBytes, &map_do, bar_q + 8u * it, qt, bh);
+    }
+    for (int g = 0; g < SK && g < n_loads; ++g)
+      ring_load<DH, SK>(&map_k, sk, full_k, g, stream_tile(g, first), bh);
+    for (int g = 0; g < SV && g < n_loads; ++g)
+      ring_load<DH, SV>(&map_v, sv, full_v, g, stream_tile(g, first), bh);
+  }
 
-    float st[8][4], dpt[8][4];
-    zero(st);
-    zero(dpt);
-    mma_xyt<DH>(st, Ks, r0, Qs, g, t);
-    mma_xyt<DH>(dpt, Vs, r0, Os, g, t);
+  const float c = scale * kLog2e;
+  float s[32], dp[32], dq[DH / 2];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  uint32_t a[4][4];
+  int g0 = 0;  // the stream index of this q tile's k tile 0
+  for (int it = 0; it < n_items; ++it) {
+    const int qt = it == 0 ? first : pair;
+    const int nk = qt + 1;  // k tiles 0..qt; qt is the diagonal
+    const uint32_t sqt = sq + it * L::kBytes;
+    const uint32_t sdot = sdo + it * L::kBytes;
+    float lc[2], dl[2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int krow = k0 + r0 + g + 8 * (e >> 1);
-        const int qc = 8 * nt + 2 * t + (e & 1);
-        const int qrow = q0 + qc;
-        const float p = (krow <= qrow && qrow < seq)
-                            ? expf(st[nt][e] * scale - lse_s[qc]) : 0.f;
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - delta_s[qc]);  // ds^T
+    for (int h = 0; h < 2; ++h) {
+      const int row = qt * kTile + r0 + 8 * h;
+      const size_t at = static_cast<size_t>(bh) * seq + row;
+      lc[h] = row < seq ? lse[at] * kLog2e : 0.f;
+      dl[h] = row < seq ? delta[at] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dq[i] = 0.f;
+    mbar_wait(bar_q + 8u * it, 0);
+
+    // Tile 0's S and dP, then its ds as dQ's A fragments.
+    mbar_wait(full_k + 8u * (g0 % SK), (g0 / SK) & 1);
+    mbar_wait(full_v + 8u * (g0 % SV), (g0 / SV) & 1);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    issue_qk<DH>(s, sqt, sk + (g0 % SK) * L::kBytes);
+    issue_qk<DH>(dp, sdot, sv + (g0 % SV) * L::kBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    release_stage<DH, SV>(&map_v, sv, full_v, empty_v, g0, n_loads, first,
+                          bh);
+    dq_ds(s, dp, nk == 1, r0, t, c, lc, dl);
+    pack_p(s, a);
+
+    // Then, for each later tile kt, S_kt and dP_kt run on the tensor cores
+    // with dQ += ds_{kt-1} K_{kt-1}; ds_kt is computed while the latter
+    // runs, and takes its place in the A fragments once it is done.
+    for (int kt = 1; kt <= nk; ++kt) {
+      const int g = g0 + kt;  // stream index of tile kt
+      const uint32_t skp = sk + ((g - 1) % SK) * L::kBytes;
+      fence_regs(dq);
+      fence_regs(a);
+      if (kt < nk) {
+        mbar_wait(full_k + 8u * (g % SK), (g / SK) & 1);
+        mbar_wait(full_v + 8u * (g % SV), (g / SV) & 1);
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+        issue_qk<DH>(s, sqt, sk + (g % SK) * L::kBytes);
+        issue_qk<DH>(dp, sdot, sv + (g % SV) * L::kBytes);
+        wgmma_commit();
+        issue_pv<DH>(dq, a, skp);
+        wgmma_commit();
+        fence_regs(s);
+        fence_regs(dp);
+        fence_regs(dq);
+        fence_regs(a);
+        wgmma_wait<1>();  // S_kt and dP_kt are ready; dQ may still run
+        fence_regs(s);
+        fence_regs(dp);
+        release_stage<DH, SV>(&map_v, sv, full_v, empty_v, g, n_loads,
+                              first, bh);
+        dq_ds(s, dp, kt == nk - 1, r0, t, c, lc, dl);
+      } else {  // the last tile's dQ product alone
+        wgmma_fence();
+        issue_pv<DH>(dq, a, skp);
+        wgmma_commit();
+        fence_regs(dq);
+        fence_regs(a);
       }
-    mma_pz<DH>(dv_acc, st, Os, g, t);
-    mma_pz<DH>(dk_acc, dpt, Qs, g, t);
-  }
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(a);
+      release_stage<DH, SK>(&map_k, sk, full_k, empty_k, g - 1, n_loads,
+                            first, bh);
+      if (kt < nk) pack_p(s, a);
+    }
+    g0 += nk;
 
+    // dq = (acc * scale) -> bf16 through this q tile's Q buffer, which no
+    // product reads any more.
+    __syncthreads();
+    stage_scaled<DH>(sqt, dq, scale, r0, t);
+    store_tile<DH>(&map_dq, sqt, qt, bh);
+  }
+  if (tid == 0) bulk_wait_read();  // shared memory outlives the stores
+}
+
+// B4: p^T of a transposed score tile (key rows, query columns), left in s:
+// p = 2^(s c - lse log2 e), 0 for a query column past T (at or past
+// qmax) and, on the diagonal tile, for a query before the key. lrow holds
+// the stage's 64 lse entries.
+__device__ __forceinline__ void dkv_p(float (&s)[32], const float* lrow,
+                                      bool diag, int qmax, int r0, int t,
+                                      float c) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = k0 + r0 + g + 8 * h;
-    if (row >= seq) continue;
-    const size_t off = base + static_cast<size_t>(row) * DH + 2 * t;
+  for (int nt = 0; nt < 8; ++nt) {
+    const float2 l = *reinterpret_cast<const float2*>(lrow + 8 * nt + 2 * t);
 #pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * nd) = pack_bf16(
-          dk_acc[nd][2 * h] * scale, dk_acc[nd][2 * h + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * nd) =
-          pack_bf16(dv_acc[nd][2 * h], dv_acc[nd][2 * h + 1]);
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * nt + 2 * t + (e & 1);
+      const bool keep = col < qmax && !(diag && col < r0 + 8 * (e >> 1));
+      const float lv = (e & 1) ? l.y : l.x;
+      s[4 * nt + e] = keep ? ex2(fmaf(s[4 * nt + e], c, -lv * kLog2e)) : 0.f;
     }
   }
+}
+
+// B4: ds^T = p^T (dp^T - delta), left in dp; drow holds the stage's 64
+// delta entries.
+__device__ __forceinline__ void dkv_ds(float (&dp)[32], const float (&s)[32],
+                                       const float* drow, int t) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float2 d = *reinterpret_cast<const float2*>(drow + 8 * nt + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[4 * nt + e] = s[4 * nt + e] * (dp[4 * nt + e] - ((e & 1) ? d.y : d.x));
+  }
+}
+
+// B4's Q tile qt with its lse entries, and its dO tile with its delta
+// entries, the stream's tile g, into stage g % kStagesDkv of the two
+// rings; each completes on its own "full" barrier.
+template <int DH>
+__device__ __forceinline__ void dkv_load(
+    const CUtensorMap* map_q, const CUtensorMap* map_do,
+    const CUtensorMap* map_lse, const CUtensorMap* map_delta, uint32_t sq,
+    uint32_t sdo, uint32_t srow, uint32_t full_q, uint32_t full_do, int g,
+    int qt, int bh, int seq) {
+  using L = FwdTile<DH>;
+  const int s = g % kStagesDkv;
+  const int entry = bh * seq + qt * kTile;
+  mbar_expect_tx(full_q + 8u * s, L::kBytes + kRowBytes64);
+  tma_tile<DH>(sq + s * L::kBytes, map_q, full_q + 8u * s, qt, bh);
+  tma_load_row(srow + s * kRowBytes64, map_lse, full_q + 8u * s, entry);
+  mbar_expect_tx(full_do + 8u * s, L::kBytes + kRowBytes64);
+  tma_tile<DH>(sdo + s * L::kBytes, map_do, full_do + 8u * s, qt, bh);
+  tma_load_row(srow + (kStagesDkv + s) * kRowBytes64, map_delta,
+               full_do + 8u * s, entry);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(128, bwd_min_blocks(DH))
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const __grid_constant__ CUtensorMap map_dk,
+                          const __grid_constant__ CUtensorMap map_dv,
+                          const __grid_constant__ CUtensorMap map_lse,
+                          const __grid_constant__ CUtensorMap map_delta,
+                          int seq, float scale) {
+  using L = FwdTile<DH>;
+  constexpr int S = kStagesDkv;
+  extern __shared__ uint8_t bwd_smem[];
+  // bars: [0, 1] each k tile's K and V, then Q full, dO full and the
+  // stages' empty barriers (S each; a stage of both rings is freed at once).
+  __shared__ __align__(8) uint64_t bars[2 + 3 * S];
+  const uint32_t base = smem_u32(bwd_smem);
+  const uint32_t sk = (base + 1023u) & ~1023u;  // 2 K tiles
+  const uint32_t sv = sk + 2 * L::kBytes;       // 2 V tiles
+  const uint32_t sq = sv + 2 * L::kBytes;       // ring of Q
+  const uint32_t sdo = sq + S * L::kBytes;      // ring of dO
+  const uint32_t srow = sdo + S * L::kBytes;    // lse rows, then delta rows
+  const float* rows = reinterpret_cast<const float*>(bwd_smem + (srow - base));
+  const uint32_t bar_kv = smem_u32(bars);
+  const uint32_t full_q = bar_kv + 16u;
+  const uint32_t full_do = full_q + 8u * S;
+  const uint32_t empty = full_do + 8u * S;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r0 = 16 * (tid >> 5) + (lane >> 2);  // tile rows r0, r0 + 8
+  const int t = lane & 3;
+  const int n = (seq + kTile - 1) / kTile;
+  const int pair = blockIdx.x;
+  const int bh = blockIdx.y;
+  // The CTA's k tiles, the heavier first; k tile kt reads q tiles kt..n-1.
+  const int kt0 = pair;
+  const int kt1 = n - 1 - pair;
+  const int n_items = kt0 < kt1 ? 2 : 1;
+  const int n_first = n - kt0;
+  const int n_loads = n_first + (n_items == 2 ? n - kt1 : 0);
+  // The q tile of the stream's tile g.
+  auto stream_q = [=](int g) { return g < n_first ? kt0 + g : kt1 + g - n_first; };
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    mbar_init(bar_kv + 8u, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full_q + 8u * s, 1);
+      mbar_init(full_do + 8u * s, 1);
+      mbar_init(empty + 8u * s, 4);  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int it = 0; it < n_items; ++it) {
+      const int kt = it == 0 ? kt0 : kt1;
+      mbar_expect_tx(bar_kv + 8u * it, 2 * L::kBytes);
+      tma_tile<DH>(sk + it * L::kBytes, &map_k, bar_kv + 8u * it, kt, bh);
+      tma_tile<DH>(sv + it * L::kBytes, &map_v, bar_kv + 8u * it, kt, bh);
+    }
+    for (int g = 0; g < S && g < n_loads; ++g)
+      dkv_load<DH>(&map_q, &map_do, &map_lse, &map_delta, sq, sdo, srow,
+                   full_q, full_do, g, stream_q(g), bh, seq);
+  }
+
+  const float c = scale * kLog2e;
+  float s[32], dp[32], dk[DH / 2], dv[DH / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  uint32_t ap[4][4], ads[4][4];
+  int g = 0;  // the stream index of the current q tile
+  for (int it = 0; it < n_items; ++it) {
+    const int kt = it == 0 ? kt0 : kt1;
+    const uint32_t skt = sk + it * L::kBytes;
+    const uint32_t svt = sv + it * L::kBytes;
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(bar_kv + 8u * it, 0);
+    for (int qt = kt; qt < n; ++qt, ++g) {
+      const int st = g % S;
+      const int ph = (g / S) & 1;
+      const uint32_t sqs = sq + st * L::kBytes;
+      const uint32_t sdos = sdo + st * L::kBytes;
+      mbar_wait(full_q + 8u * st, ph);
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      issue_qk<DH>(s, skt, sqs);  // S^T = K Q^T
+      wgmma_commit();
+      mbar_wait(full_do + 8u * st, ph);
+      issue_qk<DH>(dp, svt, sdos);  // dP^T = V dO^T
+      wgmma_commit();
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_wait<1>();  // S^T is ready; dP^T may still run
+      fence_regs(s);
+      dkv_p(s, rows + st * kTile, qt == kt, seq - qt * kTile, r0, t, c);
+      wgmma_wait<0>();
+      fence_regs(dp);
+      dkv_ds(dp, s, rows + (S + st) * kTile, t);
+      pack_p(s, ap);
+      pack_p(dp, ads);
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(ap);
+      fence_regs(ads);
+      wgmma_fence();
+      issue_pv<DH>(dv, ap, sdos);  // dV += (p^T -> bf16) dO
+      issue_pv<DH>(dk, ads, sqs);  // dK += (ds^T -> bf16) Q
+      wgmma_commit();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(ap);
+      fence_regs(ads);
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      if (ring_release<S>(empty, g, n_loads))
+        dkv_load<DH>(&map_q, &map_do, &map_lse, &map_delta, sq, sdo, srow,
+                     full_q, full_do, g + S, stream_q(g + S), bh, seq);
+      __syncwarp();
+    }
+
+    // dk = (acc * scale) -> bf16 and dv = acc -> bf16 through this k
+    // tile's K and V buffers, which no product reads any more.
+    __syncthreads();
+    stage_scaled<DH>(skt, dk, scale, r0, t);
+    stage_scaled<DH>(svt, dv, 1.f, r0, t);
+    store_tile<DH>(&map_dk, skt, kt, bh);
+    if (tid == 0) {
+      tma_store_tile<DH>(&map_dv, svt, kt, bh);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait_read();  // shared memory outlives the stores
 }
 
 // ---- launchers ---------------------------------------------------------------
@@ -1325,10 +1546,6 @@ template <typename K>
 int launch_setup(K kernel, int smem_bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
-}
-
-constexpr int bf16_tile_bytes(int dh) {
-  return kTile * (dh + 8) * static_cast<int>(sizeof(bf16));
 }
 
 // cuTensorMapEncodeTiled lives in libcuda; it is reached through the
@@ -1380,6 +1597,24 @@ int encode_tile_map(CUtensorMap* map, const void* ptr, int BH, int seq) {
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
+// The tensor map of an fp32 [BH, T] array (lse, delta) as one row of
+// BH * T entries, in boxes of 64: a box that starts in a head's last,
+// partial tile reads on into the next head's entries (zeros past the
+// end), which the kernel masks.
+int encode_row_map(CUtensorMap* map, const float* ptr, int BH, int seq) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(BH) * seq};
+  const cuuint64_t strides[1] = {0};  // a rank-1 map has none
+  const cuuint32_t box[1] = {kTile};
+  const cuuint32_t elem[1] = {1};
+  return static_cast<int>(
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr),
+         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
 template <int DH>
 int fwd(int dtype_code, const void* q, const void* k, const void* v,
         void* out, float* lse, int BH, int seq, float scale,
@@ -1413,21 +1648,29 @@ template <int DH>
 int bwd_dq(int dtype_code, const void* q, const void* k, const void* v,
            const void* dout, const float* lse, const float* delta, void* dq,
            int BH, int seq, float scale, cudaStream_t stream) {
-  const dim3 grid((seq + kTile - 1) / kTile, BH);
+  const int n_q = (seq + kTile - 1) / kTile;
   if (dtype_code == 0) {
     const int smem = dq_smem_floats(DH) * static_cast<int>(sizeof(float));
     if (int rc = launch_setup(flash_bwd_dq_kernel<DH>, smem)) return rc;
-    flash_bwd_dq_kernel<DH><<<grid, kThreads, smem, stream>>>(
+    flash_bwd_dq_kernel<DH><<<dim3(n_q, BH), kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, static_cast<float*>(dq), seq, scale);
   } else {
-    const int smem = 4 * bf16_tile_bytes(DH);
+    CUtensorMap map_q, map_k, map_v, map_do, map_dq;
+    if (int rc = encode_tile_map<DH>(&map_q, q, BH, seq)) return rc;
+    if (int rc = encode_tile_map<DH>(&map_k, k, BH, seq)) return rc;
+    if (int rc = encode_tile_map<DH>(&map_v, v, BH, seq)) return rc;
+    if (int rc = encode_tile_map<DH>(&map_do, dout, BH, seq)) return rc;
+    if (int rc = encode_tile_map<DH>(&map_dq, dq, BH, seq)) return rc;
+    // 1024 bytes of slack to align the tiles for the 128-byte swizzle.
+    const int smem =
+        1024 + (4 + kStagesDqK + kStagesDqV) * FwdTile<DH>::kBytes;
     if (int rc = launch_setup(flash_bwd_dq_bf16_kernel<DH>, smem)) return rc;
-    flash_bwd_dq_bf16_kernel<DH><<<grid, kMmaThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, static_cast<bf16*>(dq), seq, scale);
+    // One CTA a pair of q tiles.
+    flash_bwd_dq_bf16_kernel<DH><<<dim3((n_q + 1) / 2, BH), 128, smem,
+                                   stream>>>(map_q, map_k, map_v, map_do,
+                                             map_dq, lse, delta, seq, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1436,22 +1679,33 @@ template <int DH>
 int bwd_dkv(int dtype_code, const void* q, const void* k, const void* v,
             const void* dout, const float* lse, const float* delta, void* dk,
             void* dv, int BH, int seq, float scale, cudaStream_t stream) {
-  const dim3 grid((seq + kTile - 1) / kTile, BH);
+  const int n_k = (seq + kTile - 1) / kTile;
   if (dtype_code == 0) {
     const int smem = dkv_smem_floats(DH) * static_cast<int>(sizeof(float));
     if (int rc = launch_setup(flash_bwd_dkv_kernel<DH>, smem)) return rc;
-    flash_bwd_dkv_kernel<DH><<<grid, kThreads, smem, stream>>>(
+    flash_bwd_dkv_kernel<DH><<<dim3(n_k, BH), kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, static_cast<float*>(dk), static_cast<float*>(dv), seq, scale);
   } else {
-    const int smem =
-        4 * bf16_tile_bytes(DH) + 2 * kTile * static_cast<int>(sizeof(float));
+    CUtensorMap map_q, map_k, map_v, map_do, map_dk, map_dv, map_lse,
+        map_delta;
+    if (int rc = encode_tile_map<DH>(&map_q, q, BH, seq)) return rc;
+    if (int rc = encode_tile_map<DH>(&map_k, k, BH, seq)) return rc;
+    if (int rc = encode_tile_map<DH>(&map_v, v, BH, seq)) return rc;
+    if (int rc = encode_tile_map<DH>(&map_do, dout, BH, seq)) return rc;
+    if (int rc = encode_tile_map<DH>(&map_dk, dk, BH, seq)) return rc;
+    if (int rc = encode_tile_map<DH>(&map_dv, dv, BH, seq)) return rc;
+    if (int rc = encode_row_map(&map_lse, lse, BH, seq)) return rc;
+    if (int rc = encode_row_map(&map_delta, delta, BH, seq)) return rc;
+    const int smem = 1024 + (4 + 2 * kStagesDkv) * FwdTile<DH>::kBytes +
+                     2 * kStagesDkv * kRowBytes64;
     if (int rc = launch_setup(flash_bwd_dkv_bf16_kernel<DH>, smem)) return rc;
-    flash_bwd_dkv_bf16_kernel<DH><<<grid, kMmaThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq, scale);
+    // One CTA a pair of k tiles.
+    flash_bwd_dkv_bf16_kernel<DH><<<dim3((n_k + 1) / 2, BH), 128, smem,
+                                    stream>>>(map_q, map_k, map_v, map_do,
+                                              map_dk, map_dv, map_lse,
+                                              map_delta, seq, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1465,10 +1719,10 @@ bool shape_ok(int dtype_code, int BH, int seq, int Dh) {
 
 // C entry points bound with ctypes (kvedge_torch/ops/_build.py,
 // kvedge_torch/ops/attention.py). dtype_code: 0 = float32, 1 = bfloat16
-// (bf16 pointers 16-byte aligned). Each returns cudaGetLastError() after
-// its launch (0 = launched), or -1 for a shape it does not take (Dh not
-// in {32, 64, 128}, BH or T < 1, BH > 65535); the wrapper checks those
-// before calling.
+// (bf16 tensors, and the fp32 lse and delta beside them, 16-byte
+// aligned). Each returns cudaGetLastError() after its launch (0 =
+// launched), or -1 for a shape it does not take (Dh not in {32, 64, 128},
+// BH or T < 1, BH > 65535); the wrapper checks those before calling.
 
 #define KVEDGE_DISPATCH(FN, ...)                      \
   do {                                                \

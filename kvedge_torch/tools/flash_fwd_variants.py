@@ -14,10 +14,10 @@ one that disagrees is reported and not timed). A diagnostic variant
 drops part of the work (the exponentials, a product, a head's own Q or
 K/V, the O store) to show that part's share of the time; its output is
 wrong by construction and it is timed all the same. ``diag_timeline``
-writes a record per CTA in place of the LSE (its SM, its start and
-length on the global timer, its cycles, and the cycles warps 0-2 spent
-waiting on mbarriers), and one JSON line sums them up: the CTAs an SM
-held at once, the SM clock, and the share of time the warps waited.
+writes a record per CTA to a device array (its SM, its start and length
+on the global timer, its cycles, and the cycles warps 0-2 spent waiting
+on mbarriers), and one JSON line sums them up: the CTAs an SM held at
+once, the SM clock, and the share of time the warps waited.
 
 All are timed in turns with ``F.scaled_dot_product_attention(
 is_causal=True)`` on the same inputs, at the flagship training shape
@@ -59,64 +59,108 @@ _EXP = ("s[i] = ex2(fmaf(s[i], c, -mc[(i >> 1) & 1]));",
         "s[i] = fmaf(s[i], c, -mc[(i >> 1) & 1]);")
 _PV = ("issue_pv<DH>(o, a, sv + sp * L::kBytes);", "")
 _QK = ("issue_qk<DH>(s, sqt, sk + st * L::kBytes);", "")
+# Per-CTA records for a timeline (``timeline_edits``): each warp's cycles
+# waiting on mbarriers, counted in shared memory, and at the kernel's end
+# a record of 8 words a CTA in a device array that ``kvedge_diag_records``
+# copies out: SM, global-timer start (two words), ns, cycles, and the
+# waits of warps 0-2.
+_END = ("  if (tid == 0) bulk_wait_read();  // shared memory outlives the "
+        "stores\n")
+_WAITS = (
+    ("__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {\n"
+     "  uint32_t done = 0;\n",
+     "__device__ __forceinline__ unsigned long long* diag_wait() {\n"
+     "  __shared__ unsigned long long w[4];\n"
+     "  return w;\n"
+     "}\n"
+     "__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {\n"
+     "  const long long diag_t0 = clock64();\n"
+     "  uint32_t done = 0;\n"),
+    ('        : "=r"(done) : "r"(bar), "r"(parity) : "memory");\n  }\n}\n',
+     '        : "=r"(done) : "r"(bar), "r"(parity) : "memory");\n  }\n'
+     "  if ((threadIdx.x & 31) == 0)\n"
+     "    diag_wait()[threadIdx.x >> 5] += clock64() - diag_t0;\n}\n"),
+    ("#include <stdint.h>\n",
+     "#include <stdint.h>\n__device__ unsigned kvedge_diag_rec[8 * 65536];\n"),
+    ("// C entry points bound with ctypes",
+     'extern "C" int kvedge_diag_records(void* dst, int bytes) {\n'
+     "  return static_cast<int>(\n"
+     "      cudaMemcpyFromSymbol(dst, kvedge_diag_rec, bytes));\n}\n\n"
+     "// C entry points bound with ctypes"),
+)
+_START = ("  unsigned long long diag_g0;\n"
+          '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(diag_g0));\n'
+          "  const long long diag_c0 = clock64();\n"
+          "  if (threadIdx.x < 4) diag_wait()[threadIdx.x] = 0;\n")
+_RECORD = ("  __syncthreads();\n"
+           "  if (tid == 0) {\n"
+           "    unsigned long long g1;\n"
+           '    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));\n'
+           "    const long long c1 = clock64();\n"
+           "    unsigned smid;\n"
+           '    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));\n'
+           "    unsigned* rec = kvedge_diag_rec +\n"
+           "                    8 * (blockIdx.y * gridDim.x + blockIdx.x);\n"
+           "    rec[0] = smid;\n"
+           "    rec[1] = static_cast<unsigned>(diag_g0);\n"
+           "    rec[2] = static_cast<unsigned>(diag_g0 >> 32);\n"
+           "    rec[3] = static_cast<unsigned>(g1 - diag_g0);\n"
+           "    rec[4] = static_cast<unsigned>(c1 - diag_c0);\n"
+           "    for (int w = 0; w < 3; ++w)\n"
+           "      rec[5 + w] = static_cast<unsigned>(diag_wait()[w]);\n"
+           "  }\n")
+
+
+def timeline_edits(*kernels):
+    """The edits of a timeline variant: for each kernel, a line of its own
+    near its start (the timer starts after it) and the text just before
+    its final ``bulk_wait_read`` (the record is written after it)."""
+    edits = list(_WAITS)
+    for start, end in kernels:
+        edits += [(start, start + _START), (end + _END, end + _END + _RECORD)]
+    return tuple(edits)
+
+
+_EXP = ("s[i] = ex2(fmaf(s[i], c, -mc[(i >> 1) & 1]));",
+        "s[i] = fmaf(s[i], c, -mc[(i >> 1) & 1]);")
+_PV = ("issue_pv<DH>(o, a, sv + sp * L::kBytes);", "")
+_QK = ("issue_qk<DH>(s, sqt, sk + st * L::kBytes);", "")
 DIAGNOSTICS = {
     "diag_no_exp": (_EXP,),
     "diag_no_products": (_PV, _QK),
     # Every CTA reads head 0's K and V (all from L2 after the first).
-    "diag_kv_of_one_head": (("p * L::kCols, kt * kTile, bh);",
-                             "p * L::kCols, kt * kTile, 0);"),),
+    "diag_kv_of_one_head": (
+        ("ring_load<DH, kStages>(&map_k, sk, full_k, g, stream_tile(g, first),"
+         "\n                             bh);\n"
+         "      ring_load<DH, kStages>(&map_v, sv, full_v, g, stream_tile(g, "
+         "first),\n                             bh);",
+         "ring_load<DH, kStages>(&map_k, sk, full_k, g, stream_tile(g, first),"
+         "\n                             0);\n"
+         "      ring_load<DH, kStages>(&map_v, sv, full_v, g, stream_tile(g, "
+         "first),\n                             0);"),
+        ("release_stage<DH, kStages>(&map_k, sk, full_k, empty_k, g0, n_loads,"
+         "\n                               first, bh);",
+         "release_stage<DH, kStages>(&map_k, sk, full_k, empty_k, g0, n_loads,"
+         "\n                               first, 0);"),
+        ("release_stage<DH, kStages>(&map_k, sk, full_k, empty_k, g, n_loads,"
+         "\n                                   first, bh);",
+         "release_stage<DH, kStages>(&map_k, sk, full_k, empty_k, g, n_loads,"
+         "\n                                   first, 0);"),
+        ("release_stage<DH, kStages>(&map_v, sv, full_v, empty_v, g - 1, "
+         "n_loads,\n                                 first, bh);",
+         "release_stage<DH, kStages>(&map_v, sv, full_v, empty_v, g - 1, "
+         "n_loads,\n                                 first, 0);")),
     # Every CTA reads head 0's Q tiles.
-    "diag_q_of_one_head": (("(it == 0 ? first : pair) * kTile, bh);",
-                            "(it == 0 ? first : pair) * kTile, 0);"),),
+    "diag_q_of_one_head": (("it == 0 ? first : pair, bh);",
+                            "it == 0 ? first : pair, 0);"),),
     # O is staged in shared memory but never stored.
-    "diag_no_o_store": (("tma_store(&map_o, sqt + p * L::kPanelBytes, "
-                         "p * L::kCols, qt * kTile,\n                  bh);",
-                         ""),),
-    # Writes a record per CTA in place of the LSE (see timeline()).
-    "diag_timeline": (
-        ("__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {\n"
-         "  uint32_t done = 0;\n",
-         "__device__ __forceinline__ unsigned long long* diag_wait() {\n"
-         "  __shared__ unsigned long long w[4];\n"
-         "  return w;\n"
-         "}\n"
-         "__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {\n"
-         "  const long long diag_t0 = clock64();\n"
-         "  uint32_t done = 0;\n"),
-        ('        : "=r"(done) : "r"(bar), "r"(parity) : "memory");\n  }\n}\n',
-         '        : "=r"(done) : "r"(bar), "r"(parity) : "memory");\n  }\n'
-         "  if ((threadIdx.x & 31) == 0)\n"
-         "    diag_wait()[threadIdx.x >> 5] += clock64() - diag_t0;\n}\n"),
-        ("  const int n_loads = first + 1 + (n_items == 2 ? pair + 1 : 0);\n",
-         "  const int n_loads = first + 1 + (n_items == 2 ? pair + 1 : 0);\n"
-         "  unsigned long long diag_g0;\n"
-         '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(diag_g0));\n'
-         "  const long long diag_c0 = clock64();\n"
-         "  if (tid < 4) diag_wait()[tid] = 0;\n"),
-        ("        lse[static_cast<size_t>(bh) * seq + row] = "
-         "m[h] * scale + logf(l[h]);",
-         "        (void)row;"),
-        ("  if (tid == 0) bulk_wait_read();  // shared memory outlives the "
-         "stores\n",
-         "  if (tid == 0) bulk_wait_read();\n"
-         "  __syncthreads();\n"
-         "  if (tid == 0) {\n"
-         "    unsigned long long g1;\n"
-         '    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));\n'
-         "    const long long c1 = clock64();\n"
-         "    unsigned smid;\n"
-         '    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));\n'
-         "    unsigned* rec = reinterpret_cast<unsigned*>(lse) +\n"
-         "                    8 * (blockIdx.y * gridDim.x + blockIdx.x);\n"
-         "    rec[0] = smid;\n"
-         "    rec[1] = static_cast<unsigned>(diag_g0);\n"
-         "    rec[2] = static_cast<unsigned>(diag_g0 >> 32);\n"
-         "    rec[3] = static_cast<unsigned>(g1 - diag_g0);\n"
-         "    rec[4] = static_cast<unsigned>(c1 - diag_c0);\n"
-         "    for (int w = 0; w < 3; ++w)\n"
-         "      rec[5 + w] = static_cast<unsigned>(diag_wait()[w]);\n"
-         "  }\n"),
-    ),
+    "diag_no_o_store": (("    store_tile<DH>(&map_o, sqt, qt, bh);\n",
+                         "    __syncthreads();\n"),),
+    # A record per CTA (see timeline()); the outputs stay right.
+    "diag_timeline": timeline_edits(
+        ("  const uint32_t sq = (smem_u32(fwd_smem) + 1023u) & ~1023u;  "
+         "// 2 Q tiles\n",
+         "m[h] * scale + logf(l[h]);\n    }\n  }\n")),
 }
 BH, T, DH = 512, 512, 64
 
@@ -145,17 +189,20 @@ def build(name: str, edits) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def graph_ms(fn, reps=10, runs=5) -> float:
+def graph_ms(fn, reps=10, runs=5, stream=None) -> float:
     """Device ms of one call: ``reps`` calls captured in one CUDA graph,
-    CUDA events around a replay, per call, the median of ``runs``."""
-    side = torch.cuda.Stream()
+    CUDA events around a replay, per call, the median of ``runs``.
+    ``stream`` is the side stream to capture on (a new one when None): an
+    autograd backward runs on its forward's stream, so that forward must
+    have run there."""
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -172,17 +219,27 @@ def graph_ms(fn, reps=10, runs=5) -> float:
     return times[len(times) // 2]
 
 
-def timeline(call, lse) -> dict:
-    """What ``diag_timeline``'s records say of one warm call: per CTA its
-    SM, start and length on the global timer (ns), its cycles, and the
-    cycles warps 0-2 spent waiting on mbarriers (warp 0 also waits for
-    ring stages to empty before it refills them)."""
+def timeline(lib, call, n_cta) -> dict:
+    """What a timeline variant's records say of one warm ``call`` of its
+    library ``lib`` launching ``n_cta`` CTAs: per CTA its SM, start and
+    length on the global timer (ns), its cycles, and the cycles warps 0-2
+    spent waiting on mbarriers (warp 0 also waits for ring stages to
+    empty before it refills them)."""
     call()
     call()
     torch.cuda.synchronize()
-    n_cta = (T // 64 + 1) // 2 * BH
-    rec = lse.view(torch.int32).flatten()[:8 * n_cta].view(n_cta, 8)
-    rec = rec.cpu().long() & 0xFFFFFFFF
+    rec = torch.empty(8 * n_cta, dtype=torch.int32)
+    rc = lib.kvedge_diag_records(ctypes.c_void_p(rec.data_ptr()),
+                                 ctypes.c_int(rec.numel() * 4))
+    assert rc == 0, f"reading the records failed: {rc}"
+    return timeline_stats(rec)
+
+
+def timeline_stats(rec) -> dict:
+    """Sums up 8 int32 words a CTA (SM, global-timer start low and high
+    words, ns, cycles, the cycles warps 0-2 waited on mbarriers)."""
+    n_cta = rec.numel() // 8
+    rec = rec.view(n_cta, 8).cpu().long() & 0xFFFFFFFF
     sm, ns, cyc = rec[:, 0], rec[:, 3], rec[:, 4]
     start = rec[:, 1] | (rec[:, 2] << 32)
     start = start - start.min()
@@ -258,8 +315,9 @@ def main() -> None:
         if agrees or name in DIAGNOSTICS:
             calls[name] = call
         if name == "diag_timeline":
-            print(json.dumps({"timeline": timeline(call, lse), "card": smi}),
-                  flush=True)
+            n_cta = len(fa.cta_tiles(T, "fwd")) * BH
+            print(json.dumps({"timeline": timeline(lib, call, n_cta),
+                              "card": smi}), flush=True)
     shaped = [x.reshape(BH // 8, 8, T, DH) for x in (q, k, v)]
     sdpa = lambda: F.scaled_dot_product_attention(*shaped, is_causal=True)
     for rnd in range(2):

@@ -181,6 +181,29 @@ def test_kernel_checks_refuse_shapes_outside_the_grid(shape, match):
         fa._check("t", (x, x, x))
 
 
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("seq", [8, 40, 64, 136, 192, 512, 576, 2048])
+def test_cta_tiles_cover_each_causal_tile_once(seq, kernel):
+    """Pairs of tiles (n - 1 - p, p) a CTA: every causal (q tile, k tile)
+    product is run once, every CTA but an odd count's middle one runs
+    n + 1 of them, and each CTA starts with its heavier tile."""
+    n = -(-seq // 64)
+    ctas = fa.cta_tiles(seq, kernel)
+    assert len(ctas) == (n + 1) // 2
+    done = [tile for cta in ctas for tile in cta]
+    assert sorted(done) == [(q, k) for q in range(n) for k in range(q + 1)]
+    sizes = [len(cta) for cta in ctas]
+    assert sizes[:n // 2] == [n + 1] * (n // 2)
+    if n % 2:
+        assert sizes[-1] == (n + 1) // 2
+    owner = 0 if kernel in ("fwd", "dq") else 1  # the tile the CTA owns
+    for cta in ctas:
+        first = [tile for tile in cta if tile[owner] == cta[0][owner]]
+        assert len(first) >= len(cta) - len(first)
+    with pytest.raises(ValueError, match="fwd, dq or dkv"):
+        fa.cta_tiles(seq, "bwd")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -220,3 +243,70 @@ def test_cuda_kernels_match_plain_versions(cuda_device, bh, seq, dh, dtype):
                                                        delta)
     _close(dk, want_dk.float().cpu().numpy(), gtol, "cuda dk")
     _close(dv, want_dv.float().cpu().numpy(), gtol, "cuda dv")
+
+
+def _backward(q, k, v, do):
+    out, lse = fa.flash_forward(q, k, v)
+    delta = fa.attention_delta(do, out)
+    dq = fa.flash_backward_dq(q, k, v, do, lse, delta)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, delta)
+    return lse, delta, (dq, dk, dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("seq", [8, 40, 192, 576])
+@pytest.mark.parametrize("bh", [1, 16])
+def test_cuda_backward_pairs_and_padding(cuda_device, bh, seq, dh, dtype):
+    """T 192 and 576 are 3 and 9 tiles: an odd count leaves the middle
+    tile alone in the last CTA of a pair schedule. T 8 and 40 are one
+    partial tile, whose query rows past T read as zeros, and whose lse and
+    delta entries past T come from the next head: dk and dv must mask
+    them."""
+    q, k, v, do = _torch(_qkv(2 * seq + dh + bh, bh, seq, dh, n=4), dtype,
+                         cuda_device)
+    lse, delta, (dq, dk, dv) = _backward(q, k, v, do)
+    torch.cuda.synchronize()
+    gtol = {"float32": 2e-4, "bfloat16": 3e-2}[dtype]
+    want_dk, want_dv = fa.flash_backward_dkv_reference(q, k, v, do, lse,
+                                                       delta)
+    for name, got, want in (
+            ("dq", dq, fa.flash_backward_dq_reference(q, k, v, do, lse,
+                                                      delta)),
+            ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        assert bool(torch.isfinite(got).all()), name
+        _close(got, want.float().cpu().numpy(), gtol, f"cuda {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_cuda_backward_bitwise_identical_over_two_runs(cuda_device, dh,
+                                                       dtype):
+    """No atomics: dq, dk and dv are written by one CTA each, in a fixed
+    order, so two runs on the same inputs agree bit for bit."""
+    q, k, v, do = _torch(_qkv(5 + dh, 16, 576, dh, n=4), dtype, cuda_device)
+    _, _, first = _backward(q, k, v, do)
+    _, _, second = _backward(q, k, v, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,seq", [(16, 512), (2, 64), (3, 40), (1, 8)])
+def test_cuda_delta_is_an_fp32_sum_of_the_exact_products(cuda_device, bh,
+                                                         seq):
+    """On the card bf16 delta comes from 64-row block products where the
+    rows divide into blocks (16 x 512, 2 x 64: there the blocks' diagonals
+    are a strided view, which the kernels refuse) and from addcmul
+    otherwise: either is a contiguous fp32 sum of the exact products,
+    within the rounding bound of a 64-term fp32 sum in any order."""
+    do, o = _torch(_qkv(9 + seq, bh, seq, 64, n=2), "bfloat16", cuda_device)
+    got = fa.attention_delta(do, o)
+    assert got.dtype == torch.float32 and got.shape == (bh, seq)
+    assert got.is_contiguous()
+    prod = do.double() * o.double()
+    bound = 64 * 2.0 ** -24 * prod.abs().sum(-1)
+    assert bool(((got.double() - prod.sum(-1)).abs() <= bound).all())
