@@ -1013,10 +1013,9 @@ def graph_ms(torch, fn, reps=10, runs=5, stream=None):
     return times[len(times) // 2]
 
 
-def sdpa_backend(torch, fn, stream):
-    """The CUDA kernels one call of ``fn`` (SDPA's backward) launches, by
-    ``torch.profiler``, and the backend their names say ran: "cudnn",
-    "flash", "mem_efficient" or "unknown"."""
+def device_kernels(torch, fn, stream):
+    """The names of the CUDA kernels one call of ``fn`` launches on
+    ``stream``, by ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     names = []
@@ -1033,12 +1032,20 @@ def sdpa_backend(torch, fn, stream):
                             if e.device_type == torch.autograd.DeviceType.CUDA})
             if names:
                 break
+    return [n[:120] for n in names]
+
+
+def sdpa_backend(torch, fn, stream):
+    """The CUDA kernels one call of ``fn`` (SDPA's backward) launches, and
+    the backend their names say ran: "cudnn", "flash", "mem_efficient" or
+    "unknown"."""
+    names = device_kernels(torch, fn, stream)
     joined = " ".join(names).lower()
     backend = ("cudnn" if "cudnn" in joined else
                "flash" if "flash" in joined else
                "mem_efficient" if ("fmha" in joined or "efficient" in joined)
                else "unknown")
-    return {"backend": backend, "kernels": [n[:120] for n in names]}
+    return {"backend": backend, "kernels": names}
 
 
 def flash_bound(bh, seq, dh, itemsize, matmuls, in_tensors, out_tensors,
@@ -1127,10 +1134,12 @@ def xent_bound(n, v, d, itemsize, products, out_bytes):
             else "bytes", flops, nbytes, t_ops, t_bytes)
 
 
-def library_xent(torch, F, x, e16, targets):
+def library_xent(torch, F, x, e16, targets, stream):
     """The two-call yardstick the port never calls: one bf16 cuBLAS
     ``x @ E^T`` with its logits upcast to fp32, then ``F.cross_entropy``.
-    Returns (forward fn, backward fn, label)."""
+    Returns (forward fn, backward fn, label). The backward is
+    ``autograd.grad`` alone, through a graph whose forward runs once here
+    on ``stream``, so that it can be captured on that stream."""
     tg = targets.long()
     xa, ea = (t.detach().requires_grad_(True) for t in (x, e16))
 
@@ -1138,9 +1147,13 @@ def library_xent(torch, F, x, e16, targets):
         return F.cross_entropy(torch.mm(xa, ea.t()).float(), tg,
                                reduction="none")
 
-    def backward():
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
         loss = F.cross_entropy(torch.mm(xa, ea.t()).float(), tg)
-        return torch.autograd.grad(loss, (xa, ea))
+    torch.cuda.current_stream().wait_stream(stream)
+
+    def backward():
+        return torch.autograd.grad(loss, (xa, ea), retain_graph=True)
 
     return forward, backward, ("torch.mm(x, E^T) in bf16, .float(), then "
                                "F.cross_entropy (two calls)")
@@ -1267,25 +1280,45 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
                                         atol=xent_tols["xent_bwd_dx"][1])
     del ctrl, p_dx
     del x_pairs, p_lse, p_tl, p_de
-    lib_fwd, lib_bwd, lib_label = library_xent(torch, F, x, e16, tg)
-    lib_bwd_ms = event_ms(torch, lib_bwd, 5)
+    # Every xent time by graph replay, the library's backward (dx and dE
+    # in one autograd.grad, its forward run once outside the capture)
+    # too; the eager figures beside them as call_ms / library_call_ms.
+    lib_stream = torch.cuda.Stream()
+    lib_fwd, lib_bwd, lib_label = library_xent(torch, F, x, e16, tg,
+                                               lib_stream)
+    lib_bwd_ms = graph_ms(torch, lib_bwd, stream=lib_stream)
+    with torch.cuda.stream(lib_stream):
+        lib_bwd_call_ms = event_ms(torch, lib_bwd, 5)
+    lib_bwd_kernels = device_kernels(torch, lib_bwd, lib_stream)
+    fwd_fn = lambda: xe.xent_forward(x, e16, tg)  # noqa: E731
+    dx_fn = lambda: xe.xent_backward_dx(x, e16, tg, x_lse, g)  # noqa: E731
+    de_fn = lambda: xe.xent_backward_de(x, e16, tg, x_lse, g)  # noqa: E731
     rows["xent_fwd"] = dict(
-        ms=event_ms(torch, lambda: xe.xent_forward(x, e16, tg)),
+        ms=graph_ms(torch, fwd_fn), call_ms=event_ms(torch, fwd_fn),
         plain_ms=event_ms(torch, lambda: xe.xent_forward_reference(
             x, e16, tg), 3),
-        library_ms=event_ms(torch, lib_fwd, 5),
+        library_ms=graph_ms(torch, lib_fwd),
+        library_call_ms=event_ms(torch, lib_fwd, 5),
         bound=xent_bound(n, vocab, d, 2, 1, 2 * n * 4))
     rows["xent_bwd_dx"] = dict(
-        ms=event_ms(torch, lambda: xe.xent_backward_dx(x, e16, tg, x_lse, g)),
+        ms=graph_ms(torch, dx_fn), call_ms=event_ms(torch, dx_fn),
         plain_ms=event_ms(torch, lambda: xe.xent_backward_dx_reference(
             x, e16, tg, x_lse, g), 3),
-        library_ms=lib_bwd_ms, bound=xent_bound(n, vocab, d, 2, 2, n * d * 2))
+        library_ms=lib_bwd_ms, library_call_ms=lib_bwd_call_ms,
+        bound=xent_bound(n, vocab, d, 2, 2, n * d * 2))
     rows["xent_bwd_de"] = dict(
-        ms=event_ms(torch, lambda: xe.xent_backward_de(x, e16, tg, x_lse, g)),
+        ms=graph_ms(torch, de_fn), call_ms=event_ms(torch, de_fn),
         plain_ms=event_ms(torch, lambda: xe.xent_backward_de_reference(
             x, e16, tg, x_lse, g), 3),
-        library_ms=lib_bwd_ms,
+        library_ms=lib_bwd_ms, library_call_ms=lib_bwd_call_ms,
         bound=xent_bound(n, vocab, d, 2, 2, vocab * d * 4))
+    xent_backward = {
+        "port_ms": rows["xent_bwd_dx"]["ms"] + rows["xent_bwd_de"]["ms"],
+        "library_ms": lib_bwd_ms, "library_call_ms": lib_bwd_call_ms,
+        "library_kernels": lib_bwd_kernels}
+    xent_backward["xent_backward_ratio"] = (xent_backward["port_ms"]
+                                            / lib_bwd_ms)
+    del lib_fwd, lib_bwd, fwd_fn, dx_fn, de_fn
     del x_lse, x_tl, x_dx, x_de, e16, tg, g
 
     # B8 at [B T, D] bf16, the shape each of its 33 launches a step has.
@@ -1318,13 +1351,13 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
            "shape": {"BH": bh, "T": t, "Dh": dh, "dtype": "bfloat16",
                      "batch": b, "heads": h, "xent_N": n, "xent_V": vocab,
                      "xent_D": d, "rmsnorm": [n, d]},
-           "timing": "flash kernels, attention_delta, B8 and their SDPA "
-                     "forward and backward and rms_norm yardsticks: "
+           "timing": "every kernel (flash, attention_delta, xent, B8) and "
+                     "its yardstick (SDPA's forward and backward, the "
+                     "library xent's forward and backward, rms_norm): "
                      "CUDA-graph replay of 10 calls, "
                      "per call, median of 5 replays (host launch work off "
-                     "the clock); call_ms, library_call_ms, plain versions, "
-                     "xent kernels and their backward yardstick: CUDA "
-                     "events around 10 "
+                     "the clock); call_ms, library_call_ms and the plain "
+                     "versions: CUDA events around 10 "
                      "calls back to back (plain: 5, xent plain 3), per "
                      "call, median of 3 such runs after 2 warm-up calls; "
                      "step: host clock over 5 synchronized steps after 2 "
@@ -1332,6 +1365,8 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
            "attention_delta": delta_row,
            "backward": backward,
            "backward_ratio": backward["backward_ratio"],
+           "xent_backward": xent_backward,
+           "xent_backward_ratio": xent_backward["xent_backward_ratio"],
            "kernels": {n_: {"ms": r["ms"], "plain_ms": r["plain_ms"],
                             **{k_: r[k_] for k_ in ("call_ms",
                                                     "library_call_ms")
@@ -1352,8 +1387,9 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
                                 "flash_fwd; its backward (dq, dk and dv in "
                                 "one call) for both backward rows",
                        "xent": lib_label + ": forward for xent_fwd; its "
-                               "backward (dx and dE in one call) for both "
-                               "backward rows",
+                               "backward alone (dx and dE in one "
+                               "autograd.grad, the forward outside the "
+                               "clock) for both backward rows",
                        "rmsnorm": "torch.nn.functional.rms_norm, bf16 "
                                   "weight"},
            **unfused,
@@ -1819,8 +1855,15 @@ def main() -> int:
                 "worst_case_err": worst_err[kname],
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                "library_ms": k["library_ms"], "ok": True,
+                "library_ms": k["library_ms"],
+                "ratio_to_library": k["ratio_to_library"], "ok": True,
             })
+            if kname in ("xent_bwd_dx", "xent_bwd_de"):
+                kernels[-1]["status"] = (
+                    "redesigned (wgmma on a TMA-fed mbarrier ring, 64 "
+                    "resident rows, two consumer warpgroups splitting D, "
+                    "a producer warpgroup; library_ms is the library's "
+                    "whole backward, dx and dE)")
         print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     except Exception as e:  # the run failed: say where, print no result
         emit({"phase": phase, "ok": False,

@@ -7,8 +7,9 @@ first use it is compiled for Hopper with
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so <source>.cu
 
 into ``build/kvedge_torch/`` at the repository root (``build/`` is
-git-ignored), named by a hash of the source so an edited kernel never
-loads a stale library, and loaded with ``ctypes``. Nothing here links
+git-ignored), named by a hash of the source with the local headers it
+includes (``csrc/*.cuh``) so an edited kernel or header never loads a
+stale library, and loaded with ``ctypes``. Nothing here links
 against PyTorch: the wrappers pass ``tensor.data_ptr()`` and the current
 stream's handle as integers. Importing this module compiles nothing.
 """
@@ -19,6 +20,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -55,9 +57,30 @@ def nvcc_path() -> str:
     )
 
 
+_LOCAL_INCLUDE = re.compile(r'^#include "([^"]+)"[ \t]*$', re.M)
+
+
+def source(name: str) -> str:
+    """The text nvcc reads for ``csrc/<name>.cu``: each local ``#include
+    "x.cuh"`` replaced by that header's text (its ``#pragma once`` line
+    dropped), once per header. A copy of it builds anywhere."""
+    seen = set()
+
+    def expand(text: str) -> str:
+        def one(m):
+            header = m.group(1)
+            if header in seen:
+                return ""
+            seen.add(header)
+            body = (CSRC / header).read_text().replace("#pragma once\n", "")
+            return expand(body)
+        return _LOCAL_INCLUDE.sub(one, text)
+
+    return expand((CSRC / f"{name}.cu").read_text())
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha256(source(name).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

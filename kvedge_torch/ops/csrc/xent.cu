@@ -30,50 +30,44 @@
 // and written once (0.02-0.03 ms at 3.35 TB/s). All three are bound by
 // the operations.
 //
-// Design (simple first). The TPU kernels carry their state across a
-// sequential grid axis in VMEM; here one CTA owns a tile of resident rows
-// and loops over every tile of the other operand inside itself, so
-// nothing is carried between CTAs and there are no atomics: the backward
-// run twice is bit-identical.
+// Design. The TPU kernels carry their state across a sequential grid axis
+// in VMEM; here one CTA owns a tile of resident rows and loops over every
+// tile of the other operand inside itself, so nothing is carried between
+// CTAs and there are no atomics: the backward run twice is bit-identical.
 //   forward: a CTA owns 32 rows of x and streams E in 64-row tiles,
 //            keeping the running max, sum and target logit of its rows.
-//   dx:      a CTA owns 32 rows of x and streams E; per tile it forms ds
-//            [32 x 64] and accumulates dx [32 x D] += ds . E_tile.
-//   dE:      a CTA owns 32 rows of E and streams x in 64-row tiles; per
-//            tile it forms ds^T [32 x 64] and accumulates
-//            dE [32 x D] += ds^T . x_tile.
-// 32 resident rows, not the TPU's hundreds: the [rows, D] fp32
-// accumulator of dx and dE lives in registers, and at D = 512 a 32-row
-// tile over 256 threads is 64 registers a thread (64 rows would be 128).
-// E (32.8 MB in bf16 at the flagship) is re-read from the 50 MB L2 by
-// every row tile rather than from device memory.
-// bf16 runs on the tensor cores with mma.sync m16n8k16 (bf16 operands,
-// fp32 accumulation): 8 warps; for the score tile warp w owns rows
-// 16 (w & 1) .. +15 and columns 16 (w >> 1) .. +15, so a row of the
-// forward's online softmax spans 4 warps and its max and sum are combined
-// through shared memory. ds is rounded to bf16 as it is written to shared
-// memory, where it is the A operand of the second product; there warp w
-// owns rows 16 (w & 1) .. +15 and D / 4 output columns. fp32 has no
-// tensor-core path of full fp32 precision (TF32 would round the
-// operands), so it runs on the CUDA cores with fp32 FMA: thread (ty, tx)
-// of 16 x 16 owns score rows ty + 16 i (i < 2) and columns tx + 16 j
-// (j < 4), so a row's max and sum reduce over a half-warp, and output
-// columns tx + 16 c. Tiles are loaded synchronously; ldmatrix, cp.async or
-// TMA pipelining and wgmma are later work.
+//   dx:      a CTA owns rows of x and streams E; per tile it forms ds
+//            [rows x 64] and accumulates dx [rows x D] += ds . E_tile.
+//   dE:      a CTA owns rows of E and streams x in 64-row tiles; per
+//            tile it forms ds^T [rows x 64] and accumulates
+//            dE [rows x D] += ds^T . x_tile.
+// The bf16 backward (B6, B7) is built for Hopper: 64 resident rows, the
+// streamed tiles by TMA into an mbarrier ring shared by a thread-block
+// cluster, both products on wgmma (section "bf16, B6 and B7" below). The
+// bf16 forward (B5) runs on the tensor cores with mma.sync m16n8k16 (bf16
+// operands, fp32 accumulation): 8 warps, 32 resident rows; for the score
+// tile warp w owns rows 16 (w & 1) .. +15 and columns 16 (w >> 1) .. +15,
+// so a row's online softmax spans 4 warps and its max and sum are
+// combined through shared memory; its tiles are loaded synchronously.
+// fp32 has no tensor-core path of full fp32 precision (TF32 would round
+// the operands), so it runs on the CUDA cores with fp32 FMA: 32 resident
+// rows, thread (ty, tx) of 16 x 16 owns score rows ty + 16 i (i < 2) and
+// columns tx + 16 j (j < 4), so a row's max and sum reduce over a
+// half-warp, and output columns tx + 16 c.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr int kRows = 32;      // resident rows of a CTA
 constexpr int kCols = 64;      // rows of a streamed tile (score columns)
 constexpr int kThreads = 256;  // 8 warps; 16 x 16 on the fp32 path
-constexpr int kLdsBf16 = kCols + 8;  // row stride of the bf16 ds tile
 constexpr int kLdsF32 = kCols + 1;   // row stride of the fp32 ds tile
 
 __device__ __forceinline__ float half_warp_max(float x) {
@@ -88,16 +82,6 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 4);
   x += __shfl_xor_sync(0xffffffffu, x, 2);
   return x + __shfl_xor_sync(0xffffffffu, x, 1);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 template <int N>
@@ -325,19 +309,6 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Two fp32 values rounded to bf16 (round to nearest even), low half first.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // d (16 x 8, fp32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col).
 __device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
@@ -502,120 +473,331 @@ xent_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ e,
   }
 }
 
-// ---- bf16, B6 (kDx) and B7 (!kDx): backward --------------------------------
-// As on the fp32 path: A resident, B streamed. The output [32 x D] is
-// split over the warps as 2 row groups x 4 column groups of D / 4.
+// ---- bf16, B6 (kDx) and B7 (!kDx): the backward on wgmma over TMA rings ---
+//
+// One design for both passes (the pieces are B2-B4's, hopper.cuh). A CTA
+// owns 64 resident rows (B6: of x, B7: of E), which one TMA load brings at
+// the start, and streams every 64-row tile of the other operand (B6: E;
+// B7: x, with the tile's lse, g and targets by 1-D TMA boxes) through a
+// ring of kBwdStages stages guarded by mbarriers. Tiles live in shared
+// memory as TMA writes them, in 64-column panels of 128-byte swizzled
+// rows: K-major for the score product, MN-major for the gradient product.
+// kBwdCluster CTAs that own neighbouring resident blocks form a thread-
+// block cluster and share the stream: each loads 64 / kBwdCluster rows of
+// every tile and multicasts them to all, so the cluster reads each tile
+// from L2 once; a stage is refilled once every consumer warp of every CTA
+// of the cluster has released it. One lane of a producer warpgroup issues
+// the loads; the consumer warpgroups (two where D >= 256, which split D
+// between them, one below) run, per streamed tile t:
+//   S = A . B_t^T            wgmma, both operands K-major in shared
+//                            memory; warpgroup w computes score columns
+//                            w 64/W .. over all of D (W warpgroups);
+//   ds = (exp(s - lse) - onehot) g in fp32, 0 past N or V, rounded to
+//                            bf16 into a shared ds tile (two, used in
+//                            turn), where both warpgroups read it whole;
+//   acc += ds . B_t          wgmma, ds K-major, B_t MN-major (as B2 reads
+//                            V); warpgroup w owns output columns w D/W ..
+// The gradient product of tile t - 1 is issued just before S of tile t,
+// and the stage of t - 1 is released as soon as that product is done, so
+// its refill with tile t + 1 has an iteration to land.
+// The [64, D / W] fp32 accumulator is 128 registers a thread at D 512,
+// which is why D is split. A CTA of three warpgroups may use 168
+// registers a thread, too few for that accumulator and the scores in
+// flight (ptxas then serializes the wgmmas), so with two consumer
+// warpgroups the producer's drops to 40 (setmaxnreg) and theirs rise to
+// 232, as CUTLASS's warp-specialized kernels do. At D 512 the resident
+// rows and two stages take 192 KB, one CTA an SM. Every output row is written by one CTA in a
+// fixed order, from registers as whole 32-byte sectors: no atomics, and
+// two runs are bit-identical. dx leaves in bf16, dE in fp32.
+
+constexpr int kBwdRows = 64;    // resident rows of a CTA; rows of a streamed tile
+constexpr int kBwdStages = 2;   // streamed tiles in flight
+constexpr int kBwdCluster = 1;  // CTAs sharing each streamed tile
+
+template <int D>
+struct BwdShape {
+  static constexpr int kGroups = D >= 256 ? 2 : 1;  // consumer warpgroups
+  static constexpr int kConsumers = 128 * kGroups;
+  static constexpr int kThreads = kConsumers + 128;  // and the producer's
+  static constexpr int kPanels = D / 64;            // 64-column panels
+  static constexpr int kPanelBytes = kBwdRows * 128;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;
+  static constexpr int kSliceRows = kBwdRows / kBwdCluster;  // a CTA's load
+  static constexpr int kScoreCols = kBwdRows / kGroups;  // S of a warpgroup
+  static constexpr int kOutCols = D / kGroups;  // output of a warpgroup
+  static constexpr int kDsBytes = kBwdRows * 128;  // bf16 [64 x 64]
+  static constexpr int kParamBytes = 3 * kBwdRows * 4;  // B7: lse, g, targets
+  // 1024 bytes of slack align the tiles for the 128-byte swizzle.
+  static constexpr int kSmem = 1024 + (1 + kBwdStages) * kTileBytes +
+                               2 * kDsBytes + kBwdStages * kParamBytes;
+};
+
+// S = A . B^T over all of D: A the resident tile at sa, B the warpgroup's
+// score rows of a stage at sb (both in 64-column panels).
+template <int D>
+__device__ __forceinline__ void issue_scores(
+    float (&s)[BwdShape<D>::kScoreCols / 2], uint32_t sa, uint32_t sb) {
+  using L = BwdShape<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * L::kPanelBytes + (kk % 4) * 32;
+    wgmma_ss<0>(s, smem_desc(sa + off, 16, 1024, 1),
+                smem_desc(sb + off, 16, 1024, 1), kk > 0);
+  }
+}
+
+// acc += ds . B: ds the [64 x 64] tile at sds (K-major), B the
+// warpgroup's output panels of a stage at sb (MN-major).
+template <int D>
+__device__ __forceinline__ void issue_grad(
+    float (&acc)[BwdShape<D>::kOutCols / 2], uint32_t sds, uint32_t sb) {
+  using L = BwdShape<D>;
+#pragma unroll
+  for (int kc = 0; kc < kBwdRows / 16; ++kc)
+    wgmma_ss<1>(acc, smem_desc(sds + kc * 32, 16, 1024, 1),
+                smem_desc(sb + kc * 16 * 128, L::kPanelBytes, 1024, 1), 1);
+}
+
+// This warp has read stage s for the last time: it arrives on the stage's
+// "empty" barrier in every CTA of the cluster.
+__device__ __forceinline__ void release_bwd_stage(uint32_t empty, int s) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) {
+    if constexpr (kBwdCluster > 1) {
+#pragma unroll
+      for (int r = 0; r < kBwdCluster; ++r)
+        mbar_arrive_cluster(empty + 8u * s, r);
+    } else {
+      mbar_arrive(empty + 8u * s);
+    }
+  }
+}
+
 template <int D, bool kDx>
-__global__ void __launch_bounds__(kThreads)
-xent_bwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ e,
-                     const int* __restrict__ tgt, const float* __restrict__ lse,
+__global__ void __launch_bounds__(BwdShape<D>::kThreads, 1)
+xent_bwd_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b,
+                     const __grid_constant__ CUtensorMap map_lse,
+                     const __grid_constant__ CUtensorMap map_g,
+                     const __grid_constant__ CUtensorMap map_tgt,
+                     const int* __restrict__ tgt,
+                     const float* __restrict__ lse,
                      const float* __restrict__ g_in, void* __restrict__ out,
                      int n, int v) {
-  constexpr int LD = D + 8;
-  constexpr int NT = D / 32;  // output n tiles of a warp
-  extern __shared__ uint4 smem_vec[];
-  bf16* As = reinterpret_cast<bf16*>(smem_vec);  // [kRows][LD]
-  bf16* Bs = As + kRows * LD;                    // [kCols][LD]
-  bf16* Ds = Bs + kCols * LD;                    // [kRows][kLdsBf16]
-  __shared__ float lse_s[kCols], g_s[kCols];
-  __shared__ int tgt_s[kCols];
+  using L = BwdShape<D>;
+  constexpr int S = kBwdStages;
+  extern __shared__ uint8_t bwd_smem[];
+  // bars: [0] the resident tile, then S "full" and S "empty" barriers.
+  __shared__ __align__(8) uint64_t bars[1 + 2 * S];
+  const uint32_t base = smem_u32(bwd_smem);
+  const uint32_t sa = (base + 1023u) & ~1023u;  // the resident rows
+  const uint32_t sb = sa + L::kTileBytes;       // the ring
+  const uint32_t sds = sb + S * L::kTileBytes;  // two ds tiles
+  const uint32_t sprm = sds + 2 * L::kDsBytes;  // B7: each stage's rows
+  const float* prm = reinterpret_cast<const float*>(bwd_smem + (sprm - base));
+  const uint32_t bar_a = smem_u32(bars);
+  const uint32_t full = bar_a + 8u;
+  const uint32_t empty = full + 8u * S;
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int rg = warp & 1;
-  const int cg = warp >> 1;
-  const bf16* a_src = kDx ? x : e;
-  const bf16* b_src = kDx ? e : x;
+  const int tid = threadIdx.x;
+  // The warpgroup, through a shuffle so that the compiler knows it is
+  // uniform across the warp: a wgmma on a path it takes for divergent
+  // would be serialized (ptxas C7520).
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
   const int a_rows = kDx ? n : v;
   const int b_rows = kDx ? v : n;
-  const int a0 = blockIdx.x * kRows;
+  const int a0 = blockIdx.x * kBwdRows;
+  const int n_tiles = (b_rows + kBwdRows - 1) / kBwdRows;
 
-  load_bf16<D, kRows>(As, a_src, a0, a_rows);
-  if (kDx) load_params(lse_s, tgt_s, g_s, lse, tgt, g_in, a0, kRows, n);
-  float acc[NT][4];
-  zero(acc);
+  if (tid == 0) {
+    mbar_init(bar_a, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8u * s, 1);
+      mbar_init(empty + 8u * s, L::kConsumers / 32 * kBwdCluster);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // every CTA's barriers exist before any load lands
 
-  for (int b0 = 0; b0 < b_rows; b0 += kCols) {
-    __syncthreads();  // the previous tile and its ds are no longer read
-    load_bf16<D, kCols>(Bs, b_src, b0, b_rows);
-    if (!kDx) load_params(lse_s, tgt_s, g_s, lse, tgt, g_in, b0, kCols, n);
-    __syncthreads();
-    float s[2][4];
-    score_bf16<D>(s, As, Bs, rg, cg, g, t);
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+  if (wg == L::kGroups) {
+    // The producer warpgroup: one lane issues every load. Stage s takes
+    // tile t once every consumer warp of the cluster has released tile
+    // t - S. It hands its registers to the consumers first.
+    if constexpr (L::kGroups == 2) setmaxnreg_dec<40>();
+    if (tid == L::kConsumers) {
+      const int rank = kBwdCluster > 1 ? static_cast<int>(cluster_rank()) : 0;
+      mbar_expect_tx(bar_a, L::kTileBytes);
+      for (int p = 0; p < L::kPanels; ++p)
+        tma_load_2d(sa + p * L::kPanelBytes, &map_a, bar_a, 64 * p, a0);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % S;
+        if (t >= S) mbar_wait(empty + 8u * s, (t / S - 1) & 1);
+        const uint32_t bar = full + 8u * s;
+        mbar_expect_tx(bar, L::kTileBytes + (kDx ? 0 : L::kParamBytes));
+        const int row = t * kBwdRows + rank * L::kSliceRows;
+        const uint32_t dst =
+            sb + s * L::kTileBytes + rank * L::kSliceRows * 128;
+        for (int p = 0; p < L::kPanels; ++p) {
+          if constexpr (kBwdCluster > 1)
+            tma_load_2d_multicast(dst + p * L::kPanelBytes, &map_b, bar,
+                                  64 * p, row, (1u << kBwdCluster) - 1);
+          else
+            tma_load_2d(dst + p * L::kPanelBytes, &map_b, bar, 64 * p, row);
+        }
+        if constexpr (!kDx) {
+          const uint32_t ps = sprm + s * L::kParamBytes;
+          tma_load_row(ps, &map_lse, bar, t * kBwdRows);
+          tma_load_row(ps + 256, &map_g, bar, t * kBwdRows);
+          tma_load_row(ps + 512, &map_tgt, bar, t * kBwdRows);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    if constexpr (L::kGroups == 2) setmaxnreg_inc<232>();
+    const int w = wg;  // the consumer warpgroup
+    const int lane = tid & 31;
+    const int r0 = 16 * ((tid >> 5) & 3) + (lane >> 2);  // rows r0, r0 + 8
+    const int t4 = lane & 3;
+    // B6: the resident x rows' lse, g and target. A row at or past N
+    // reads as zeros and takes lse 0 and g 0, so its ds is 0.
+    float row_lse[2] = {0.f, 0.f}, row_g[2] = {0.f, 0.f};
+    int row_tgt[2] = {-1, -1};
+    if constexpr (kDx) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = 16 * rg + g + 8 * h;     // resident row
-        const int c = 16 * cg + 8 * nt + 2 * t;  // streamed rows c, c + 1
+        const int row = a0 + r0 + 8 * h;
+        if (row < n) {
+          row_lse[h] = lse[row];
+          row_g[h] = g_in[row];
+          row_tgt[h] = tgt[row];
+        }
+      }
+    }
+    float sc[L::kScoreCols / 2], acc[L::kOutCols / 2];
+#pragma unroll
+    for (int i = 0; i < L::kScoreCols / 2; ++i) sc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < L::kOutCols / 2; ++i) acc[i] = 0.f;
+    const uint32_t sbw = sb + w * L::kScoreCols * 128;  // score rows
+    const uint32_t sbn = sb + w * (L::kOutCols / 64) * L::kPanelBytes;
+
+    mbar_wait(bar_a, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % S;
+      mbar_wait(full + 8u * s, (t / S) & 1);
+      fence_regs(sc);
+      fence_regs(acc);
+      wgmma_fence();
+      if (t > 0) {  // the gradient product of tile t - 1 first
+        issue_grad<D>(acc, sds + ((t - 1) & 1) * L::kDsBytes,
+                      sbn + ((t - 1) % S) * L::kTileBytes);
+        wgmma_commit();
+      }
+      issue_scores<D>(sc, sa, sbw + s * L::kTileBytes);
+      wgmma_commit();
+      fence_regs(sc);
+      fence_regs(acc);
+      if (t > 0) {
+        // Tile t - 1 is read no more while S_t runs on: its stage is
+        // refilled with tile t + 1, an iteration ahead of its use.
+        wgmma_wait<1>();
+        fence_regs(acc);
+        release_bwd_stage(empty, (t - 1) % S);
+      }
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // ds of tile t into ds tile t % 2, laid out as TMA lays out a tile
+      // (16-byte chunk c of row r at chunk c ^ (r mod 8)). Element i of a
+      // wgmma accumulator sits at row r0 + 8 ((i / 2) % 2) and column
+      // 8 (i / 4) + 2 t4 + i % 2 of the warpgroup's score columns.
+      const uint32_t dst = sds + (t & 1) * L::kDsBytes;
+      const int b0 = t * kBwdRows;
+      const float* ps = prm + s * (L::kParamBytes / 4);
+#pragma unroll
+      for (int i = 0; i < L::kScoreCols / 2; i += 2) {
+        const int h = (i >> 1) & 1;
+        const int r = r0 + 8 * h;
+        const int c = w * L::kScoreCols + 8 * (i >> 2) + 2 * t4;
+        // B7's column parameters as 8-byte vectors: one shared-memory
+        // wavefront for the pair.
+        float2 lp, gp;
+        int2 tp;
+        if constexpr (!kDx) {
+          lp = *reinterpret_cast<const float2*>(ps + c);
+          gp = *reinterpret_cast<const float2*>(ps + kBwdRows + c);
+          tp = *reinterpret_cast<const int2*>(ps + 2 * kBwdRows + c);
+        }
         float ds[2];
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
-          const int p = kDx ? r : c + k;
-          ds[k] = cotangent(s[nt][2 * h + k], lse_s[p], tgt_s[p], g_s[p],
-                            kDx ? b0 + c + k : a0 + r, b0 + c + k < b_rows);
+          float l, gg;
+          int tg, vocab;
+          bool valid;
+          if constexpr (kDx) {
+            l = row_lse[h];
+            gg = row_g[h];
+            tg = row_tgt[h];
+            vocab = b0 + c + k;
+            valid = vocab < v;
+          } else {
+            l = k ? lp.y : lp.x;
+            gg = k ? gp.y : gp.x;
+            tg = k ? tp.y : tp.x;
+            vocab = a0 + r;
+            valid = b0 + c + k < n;
+          }
+          ds[k] = valid ? (ex2((sc[i + k] - l) * kLog2e) -
+                           (vocab == tg ? 1.f : 0.f)) * gg
+                        : 0.f;
         }
         // ds rounded to bf16 here, as the reference's ds.astype(dtype).
-        *reinterpret_cast<uint32_t*>(Ds + r * kLdsBf16 + c) =
-            pack_bf16(ds[0], ds[1]);
+        const uint32_t off = r * 128 + c * 2;
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(dst + (off ^ ((r & 7) << 4))),
+                     "r"(pack_bf16(ds[0], ds[1])) : "memory");
       }
-    __syncthreads();  // ds complete
-
-    // acc += Ds[16 rg + 0..15, :] . Bs[:, cg D/4 + 0 .. D/4 - 1]
-#pragma unroll
-    for (int kc = 0; kc < kCols / 16; ++kc) {
-      const bf16* a = Ds + (16 * rg + g) * kLdsBf16 + kc * 16 + 2 * t;
-      const uint32_t a0f = ld32(a);
-      const uint32_t a1f = ld32(a + 8 * kLdsBf16);
-      const uint32_t a2f = ld32(a + 8);
-      const uint32_t a3f = ld32(a + 8 * kLdsBf16 + 8);
-      const bf16* z = Bs + (kc * 16 + 2 * t) * LD + cg * (D / 4) + g;
-#pragma unroll
-      for (int nd = 0; nd < NT; ++nd) {
-        const bf16* zc = z + 8 * nd;
-        mma16816(acc[nd], a0f, a1f, a2f, a3f, pack_bf16(zc[0], zc[LD]),
-                 pack_bf16(zc[8 * LD], zc[9 * LD]));
-      }
+      fence_proxy_async();
+      named_sync(1, L::kConsumers);  // both halves of ds_t are written
     }
-  }
+    // The last tile's gradient product.
+    fence_regs(acc);
+    wgmma_fence();
+    issue_grad<D>(acc, sds + ((n_tiles - 1) & 1) * L::kDsBytes,
+                  sbn + ((n_tiles - 1) % S) * L::kTileBytes);
+    wgmma_commit();
+    fence_regs(acc);
+    wgmma_wait<0>();
+    fence_regs(acc);
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = a0 + 16 * rg + g + 8 * h;
-    if (row >= a_rows) continue;
-    const size_t off = static_cast<size_t>(row) * D + cg * (D / 4) + 2 * t;
-#pragma unroll
-    for (int nd = 0; nd < NT; ++nd) {
+    for (int i = 0; i < L::kOutCols / 2; i += 2) {
+      const int row = a0 + r0 + 8 * ((i >> 1) & 1);
+      if (row >= a_rows) continue;
+      const size_t off = static_cast<size_t>(row) * D + w * L::kOutCols +
+                         8 * (i >> 2) + 2 * t4;
       if constexpr (kDx) {
-        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + off + 8 * nd) =
-            pack_bf16(acc[nd][2 * h], acc[nd][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + off) =
+            pack_bf16(acc[i], acc[i + 1]);
       } else {
-        *reinterpret_cast<float2*>(static_cast<float*>(out) + off + 8 * nd) =
-            make_float2(acc[nd][2 * h], acc[nd][2 * h + 1]);
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + off) =
+            make_float2(acc[i], acc[i + 1]);
       }
     }
   }
+  __syncwarp();
+  cluster_sync();  // no CTA leaves while a peer may still reach its barriers
 }
 
 // ---- launchers ---------------------------------------------------------------
-
-// Dynamic shared memory above 48 KB needs the kernel's opt-in first.
-template <typename K>
-int launch_setup(K kernel, int smem_bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
-}
 
 constexpr int f32_bytes(int d, bool ds) {
   return ((kRows + kCols) * (d + 1) + (ds ? kRows * kLdsF32 : 0)) *
          static_cast<int>(sizeof(float));
 }
 
-constexpr int bf16_bytes(int d, bool ds) {
-  return ((kRows + kCols) * (d + 8) + (ds ? kRows * kLdsBf16 : 0)) *
-         static_cast<int>(sizeof(bf16));
+constexpr int bf16_bytes(int d) {
+  return (kRows + kCols) * (d + 8) * static_cast<int>(sizeof(bf16));
 }
 
 int blocks(int rows) { return (rows + kRows - 1) / kRows; }
@@ -630,7 +812,7 @@ int fwd(int dtype_code, const void* x, const void* e, const int* tgt,
         static_cast<const float*>(x), static_cast<const float*>(e), tgt, lse,
         tlogit, n, v);
   } else {
-    const int smem = bf16_bytes(D, false);
+    const int smem = bf16_bytes(D);
     if (int rc = launch_setup(xent_fwd_bf16_kernel<D>, smem)) return rc;
     xent_fwd_bf16_kernel<D><<<blocks(n), kThreads, smem, stream>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(e), tgt, lse,
@@ -639,24 +821,101 @@ int fwd(int dtype_code, const void* x, const void* e, const int* tgt,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tensor map of a bf16 [rows, D] array in boxes of `box_rows` rows by
+// one 64-column panel, 128-byte swizzled; rows past `rows` read as zeros.
+template <int D>
+int encode_rows_map(CUtensorMap* map, const void* ptr, int rows,
+                    int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {D * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return static_cast<int>(
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// The tensor map of an [N] array of 4-byte entries (lse, g: fp32;
+// targets: int32) in boxes of 64; entries past N read as zeros.
+int encode_vec_map(CUtensorMap* map, const void* ptr, int n,
+                   CUtensorMapDataType type) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {0};  // a rank-1 map has none
+  const cuuint32_t box[1] = {kBwdRows};
+  const cuuint32_t elem[1] = {1};
+  return static_cast<int>(
+      fn(map, type, 1, const_cast<void*>(ptr), dims, strides, box, elem,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+         CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// The bf16 backward: clusters of kBwdCluster CTAs, one CTA a 64-row
+// resident block (the grid rounded up to whole clusters).
+template <int D, bool kDx>
+int bwd_bf16(const bf16* x, const bf16* e, const int* tgt, const float* lse,
+             const float* g, void* out, int n, int v, cudaStream_t stream) {
+  using L = BwdShape<D>;
+  const int a_rows = kDx ? n : v;
+  CUtensorMap map_a, map_b, map_lse = {}, map_g = {}, map_tgt = {};
+  if (int rc = encode_rows_map<D>(&map_a, kDx ? x : e, a_rows, kBwdRows))
+    return rc;
+  if (int rc = encode_rows_map<D>(&map_b, kDx ? e : x, kDx ? v : n,
+                                  L::kSliceRows))
+    return rc;
+  if (!kDx) {
+    if (int rc = encode_vec_map(&map_lse, lse, n,
+                                CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+      return rc;
+    if (int rc = encode_vec_map(&map_g, g, n, CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+      return rc;
+    if (int rc = encode_vec_map(&map_tgt, tgt, n,
+                                CU_TENSOR_MAP_DATA_TYPE_INT32))
+      return rc;
+  }
+  const auto kernel = xent_bwd_bf16_kernel<D, kDx>;
+  if (int rc = launch_setup(kernel, L::kSmem)) return rc;
+  const int clusters = (a_rows + kBwdRows * kBwdCluster - 1) /
+                       (kBwdRows * kBwdCluster);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * kBwdCluster);
+  cfg.blockDim = dim3(L::kThreads);
+  cfg.dynamicSmemBytes = L::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kBwdCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (int rc = static_cast<int>(cudaLaunchKernelEx(
+          &cfg, kernel, map_a, map_b, map_lse, map_g, map_tgt, tgt, lse, g,
+          out, n, v)))
+    return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, bool kDx>
 int bwd(int dtype_code, const void* x, const void* e, const int* tgt,
         const float* lse, const float* g, void* out, int n, int v,
         cudaStream_t stream) {
-  const int grid = blocks(kDx ? n : v);
-  if (dtype_code == 0) {
-    const int smem = f32_bytes(D, true);
-    if (int rc = launch_setup(xent_bwd_f32_kernel<D, kDx>, smem)) return rc;
-    xent_bwd_f32_kernel<D, kDx><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(e), tgt, lse,
-        g, static_cast<float*>(out), n, v);
-  } else {
-    const int smem = bf16_bytes(D, true);
-    if (int rc = launch_setup(xent_bwd_bf16_kernel<D, kDx>, smem)) return rc;
-    xent_bwd_bf16_kernel<D, kDx><<<grid, kThreads, smem, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(e), tgt, lse, g,
-        out, n, v);
-  }
+  if (dtype_code == 1)
+    return bwd_bf16<D, kDx>(static_cast<const bf16*>(x),
+                            static_cast<const bf16*>(e), tgt, lse, g, out, n,
+                            v, stream);
+  const int smem = f32_bytes(D, true);
+  if (int rc = launch_setup(xent_bwd_f32_kernel<D, kDx>, smem)) return rc;
+  xent_bwd_f32_kernel<D, kDx><<<blocks(kDx ? n : v), kThreads, smem,
+                                stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(e), tgt, lse,
+      g, static_cast<float*>(out), n, v);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -669,7 +928,7 @@ bool shape_ok(int dtype_code, int n, int v, int d) {
 
 // C entry points bound with ctypes (kvedge_torch/ops/_build.py,
 // kvedge_torch/ops/xent.py). dtype_code: 0 = float32, 1 = bfloat16 (bf16
-// pointers 16-byte aligned). Each returns cudaGetLastError() after its
+// x and E, and the backward's lse, g and targets, 16-byte aligned). Each returns cudaGetLastError() after its
 // launch (0 = launched), or -1 for a shape it does not take (D not in
 // {64, 128, 256, 512}, N or V < 1); the wrapper checks those before
 // calling.

@@ -37,8 +37,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _WIDTHS = (64, 128, 256, 512)
 
 # The reference's block preferences (its TPU tiling). The CUDA kernels
-# tile by their own 32 x 64, so these blocks are not theirs; the pickers
-# are kept so that what the reference refuses is refused here too.
+# tile by their own (32 or 64 resident rows, 64-row streamed tiles), so
+# these blocks are not theirs; the pickers are kept so that what the
+# reference refuses is refused here too.
 _VOCAB_BLOCKS = (1280, 1024, 512, 256, 128)
 _ROW_BLOCKS = (1024, 512, 256, 128, 64, 32, 16, 8)
 
@@ -140,6 +141,38 @@ def _check(name, x, e, targets, rows=()):
     return n, v, d
 
 
+# The bf16 backward's launch (csrc/xent.cu, section "bf16, B6 and B7"):
+# 64 resident rows a CTA, clusters of _BWD_CLUSTER CTAs sharing each
+# streamed 64-row tile, a ring of _BWD_STAGES tiles.
+_BWD_ROWS = 64
+_BWD_CLUSTER = 1
+_BWD_STAGES = 2
+_SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
+
+
+def backward_geometry(rows: int, d: int, cluster: int = _BWD_CLUSTER,
+                      stages: int = _BWD_STAGES) -> dict:
+    """The bf16 backward kernel's launch for ``rows`` resident rows (dx:
+    N, dE: V) at width ``d``, as ``csrc/xent.cu`` computes it: CTAs
+    (whole clusters), threads a CTA (one or two consumer warpgroups and a
+    producer warp), dynamic shared memory and whether it fits a block."""
+    groups = 2 if d >= 256 else 1
+    tile = _BWD_ROWS * d * 2
+    smem = (1024 + (1 + stages) * tile + 2 * _BWD_ROWS * 128
+            + stages * 3 * _BWD_ROWS * 4)
+    clusters = -(-rows // (_BWD_ROWS * cluster))
+    return {"ctas": clusters * cluster, "cluster": cluster,
+            "threads": 128 * (groups + 1), "consumer_warpgroups": groups,
+            "stages": stages, "smem_bytes": smem,
+            "fits": smem + 64 <= _SMEM_LIMIT}
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its storage is not 16-byte aligned:
+    the bf16 backward reads lse, g and the targets by TMA."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -168,6 +201,8 @@ def xent_forward(x, e, targets):
 def _backward(what, symbol, out, x, e, targets, lse, g):
     """Launch a backward pass writing ``out`` (dx or dE)."""
     n, v, d = _check(what, x, e, targets, (lse, g))
+    if x.dtype == torch.bfloat16:
+        targets, lse, g = (_aligned16(t) for t in (targets, lse, g))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.launch(_KERNEL, what, symbol,
                   [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

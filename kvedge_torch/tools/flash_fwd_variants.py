@@ -70,7 +70,7 @@ _WAITS = (
     ("__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {\n"
      "  uint32_t done = 0;\n",
      "__device__ __forceinline__ unsigned long long* diag_wait() {\n"
-     "  __shared__ unsigned long long w[4];\n"
+     "  __shared__ unsigned long long w[16];\n"
      "  return w;\n"
      "}\n"
      "__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {\n"
@@ -91,7 +91,7 @@ _WAITS = (
 _START = ("  unsigned long long diag_g0;\n"
           '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(diag_g0));\n'
           "  const long long diag_c0 = clock64();\n"
-          "  if (threadIdx.x < 4) diag_wait()[threadIdx.x] = 0;\n")
+          "  if (threadIdx.x < 16) diag_wait()[threadIdx.x] = 0;\n")
 _RECORD = ("  __syncthreads();\n"
            "  if (tid == 0) {\n"
            "    unsigned long long g1;\n"
@@ -111,13 +111,16 @@ _RECORD = ("  __syncthreads();\n"
            "  }\n")
 
 
-def timeline_edits(*kernels):
+def timeline_edits(*kernels, end_mark=_END):
     """The edits of a timeline variant: for each kernel, a line of its own
     near its start (the timer starts after it) and the text just before
-    its final ``bulk_wait_read`` (the record is written after it)."""
+    ``end_mark``, its last line before every thread meets at its end (by
+    default its final ``bulk_wait_read``; the record is written after
+    it)."""
     edits = list(_WAITS)
     for start, end in kernels:
-        edits += [(start, start + _START), (end + _END, end + _END + _RECORD)]
+        edits += [(start, start + _START),
+                  (end + end_mark, end + end_mark + _RECORD)]
     return tuple(edits)
 
 
@@ -165,25 +168,26 @@ DIAGNOSTICS = {
 BH, T, DH = 512, 512, 64
 
 
-def build(name: str, edits) -> ctypes.CDLL:
-    """The library of the shipped source with ``edits`` applied, or of
-    the file ``edits`` names."""
+def build(name: str, edits, kernel: str = "flash_attention") -> ctypes.CDLL:
+    """The library of the shipped ``csrc/<kernel>.cu`` (its local headers
+    inlined, ``_build.source``) with ``edits`` applied, or of the file
+    ``edits`` names."""
     if not edits:
-        return _build.load("flash_attention")
+        return _build.load(kernel)
     if isinstance(edits, pathlib.Path):
         src = edits.read_text()
     else:
-        src = (_build.CSRC / "flash_attention.cu").read_text()
+        src = _build.source(kernel)
         for old, new in edits:
             assert old in src, f"{name}: {old!r} is not in the source"
             src = src.replace(old, new)
-    path = _build.BUILD_DIR / f"flash_attention_{name}.cu"
-    lib = _build.BUILD_DIR / f"libflash_attention_{name}.so"
+    path = _build.BUILD_DIR / f"{kernel}_{name}.cu"
+    lib = _build.BUILD_DIR / f"lib{kernel}_{name}.so"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path.write_text(src)
-    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                           str(lib), str(path)], capture_output=True,
-                          text=True)
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                           str(_build.CSRC), "-o", str(lib), str(path)],
+                          capture_output=True, text=True)
     path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     proc.check_returncode()
     return ctypes.CDLL(str(lib))

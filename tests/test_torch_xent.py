@@ -229,6 +229,37 @@ def test_kernel_checks_refuse_what_the_kernels_do_not_take():
         tx._check("t", shifted, e.to(torch.bfloat16), t)
 
 
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
+@pytest.mark.parametrize("rows", [8, 64, 129, 1032, 32000, 32768])
+def test_backward_geometry_covers_every_row_in_whole_clusters(rows, d):
+    geo = tx.backward_geometry(rows, d)
+    assert geo["ctas"] % geo["cluster"] == 0
+    # Every resident row has a CTA; a whole cluster less would miss some.
+    assert geo["ctas"] * 64 >= rows > (geo["ctas"] - geo["cluster"]) * 64
+    assert geo["consumer_warpgroups"] == (2 if d >= 256 else 1)
+    assert geo["threads"] == 128 * (geo["consumer_warpgroups"] + 1)
+    assert geo["fits"] and geo["smem_bytes"] <= 232448
+
+
+def test_backward_geometry_at_the_flagship_width():
+    """D 512: 64 resident rows and two 64 KB stages take 210.5 KB, one
+    CTA an SM; a third stage does not fit a block."""
+    geo = tx.backward_geometry(32768, 512)
+    assert (geo["ctas"], geo["smem_bytes"]) == (512, 215552)
+    assert not tx.backward_geometry(32768, 512, stages=3)["fits"]
+    assert tx.backward_geometry(32768, 256, stages=3)["fits"]
+    assert tx.backward_geometry(32000, 512, cluster=4)["ctas"] == 500
+
+
+def test_aligned16_copies_only_misaligned_rows():
+    rows = torch.arange(40, dtype=torch.float32)
+    assert tx._aligned16(rows) is rows
+    shifted = rows[1:33]
+    assert shifted.data_ptr() % 16
+    copy = tx._aligned16(shifted)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, shifted)
+
+
 def test_wrap_targets_is_take_along_axis_index_semantics(reference):
     """The naive head's repair: ``take_target_logit`` against
     ``jnp.take_along_axis`` on the same logits and ids, NaN masks and
@@ -419,5 +450,42 @@ def test_cuda_kernels_match_plain_versions(cuda_device, n, v, d, dtype):
         else:
             rtol, atol = 0.0, min(3e-2, ulps * 2.0 ** -7 * np.abs(want).max())
         _close(got, want, rtol, atol, f"cuda {name}")
+    assert torch.equal(dx, tx.xent_backward_dx(x, e, t, lse, g))
+    assert torch.equal(de, tx.xent_backward_de(x, e, t, lse, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,v,d", [(200, 1000, 256), (130, 330, 512),
+                                   (72, 200, 64), (1032, 32000, 256)])
+def test_cuda_backward_ragged_shapes_and_last_vocab_tile(cuda_device, n, v,
+                                                         d):
+    """The bf16 backward at N and V that are multiples neither of 64 nor
+    of a cluster's 128 rows, with targets in the last, partial vocab tile
+    and a g that is not 16-byte aligned: dx within two bf16 ulps and dE
+    within one of their largest entry (as chip_smoke.py holds them), the
+    two runs bit-identical."""
+    rng = np.random.default_rng(7 * n + v + d)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    e = torch.from_numpy((rng.standard_normal((v, d)) * 0.05).astype(
+        np.float32))
+    x, e = (t.to(cuda_device, torch.bfloat16) for t in (x, e))
+    last = v - 1 - np.arange(n) % (v % 64 or 64)
+    t = torch.from_numpy(np.where(np.arange(n) % 2, last, rng.integers(
+        0, v, n)).astype(np.int32)).to(cuda_device)
+    g = torch.from_numpy(rng.uniform(0.5, 1.5, n + 1).astype(np.float32)).to(
+        cuda_device)[1:]
+    lse, _ = tx.xent_forward(x, e, t)
+    before = (tx.xent_backward_dx.launches, tx.xent_backward_de.launches)
+    dx = tx.xent_backward_dx(x, e, t, lse, g)
+    de = tx.xent_backward_de(x, e, t, lse, g)
+    torch.cuda.synchronize()
+    assert (tx.xent_backward_dx.launches,
+            tx.xent_backward_de.launches) == (before[0] + 1, before[1] + 1)
+    for name, got, want, ulps in (
+            ("dx", dx, tx.xent_backward_dx_reference(x, e, t, lse, g), 2),
+            ("dE", de, tx.xent_backward_de_reference(x, e, t, lse, g), 1)):
+        want = want.float().cpu().numpy()
+        atol = min(3e-2, ulps * 2.0 ** -7 * np.abs(want).max())
+        _close(got, want, 0.0, atol, f"cuda ragged {name}")
     assert torch.equal(dx, tx.xent_backward_dx(x, e, t, lse, g))
     assert torch.equal(de, tx.xent_backward_de(x, e, t, lse, g))
