@@ -60,10 +60,12 @@ def nvcc_path() -> str:
 _LOCAL_INCLUDE = re.compile(r'^#include "([^"]+)"[ \t]*$', re.M)
 
 
-def source(name: str) -> str:
-    """The text nvcc reads for ``csrc/<name>.cu``: each local ``#include
-    "x.cuh"`` replaced by that header's text (its ``#pragma once`` line
-    dropped), once per header. A copy of it builds anywhere."""
+def expand_includes(path: pathlib.Path) -> str:
+    """The text nvcc reads for the source at ``path``: each local
+    ``#include "x.cuh"`` replaced by that header's text (its ``#pragma
+    once`` line dropped), once per header, the header taken from beside
+    ``path`` where it is there and from ``csrc/`` otherwise. A copy of it
+    builds anywhere."""
     seen = set()
 
     def expand(text: str) -> str:
@@ -72,11 +74,18 @@ def source(name: str) -> str:
             if header in seen:
                 return ""
             seen.add(header)
-            body = (CSRC / header).read_text().replace("#pragma once\n", "")
-            return expand(body)
+            found = path.parent / header
+            body = (found if found.exists() else CSRC / header).read_text()
+            return expand(body.replace("#pragma once\n", ""))
         return _LOCAL_INCLUDE.sub(one, text)
 
-    return expand((CSRC / f"{name}.cu").read_text())
+    return expand(path.read_text())
+
+
+def source(name: str) -> str:
+    """``csrc/<name>.cu`` with its local headers inlined
+    (:func:`expand_includes`)."""
+    return expand_includes(CSRC / f"{name}.cu")
 
 
 def library_path(name: str) -> pathlib.Path:

@@ -689,7 +689,7 @@ __device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t sq,
   for (int kk = 0; kk < DH / 16; ++kk) {
     const uint32_t off =
         (kk * 16 / L::kCols) * L::kPanelBytes + (kk * 16 % L::kCols) * 2;
-    wgmma_ss<0>(s, smem_desc(sq + off, 16, 8 * L::kRowBytes, L::kLayout),
+    wgmma_ss_n64(s, smem_desc(sq + off, 16, 8 * L::kRowBytes, L::kLayout),
                  smem_desc(sk + off, 16, 8 * L::kRowBytes, L::kLayout),
                  kk > 0);
   }

@@ -15,7 +15,9 @@
 //   forward: s = x . E^T accumulated in fp32 and never rounded; an fp32
 //            running max m and sum l over the vocab, lse = m + log(l);
 //            the target logit is s at the target column, exactly.
-//   dx:      p = exp(s - lse) in fp32, ds = (p - onehot) * g in fp32,
+//   dx:      p = exp(s - lse) in fp32 (the bf16 kernels take it as
+//            2^((s - lse) log2 e) on the hardware's ex2, within a few
+//            fp32 ulps), ds = (p - onehot) * g in fp32,
 //            dx += (ds -> dtype) . E in fp32, dx -> x's dtype.
 //   dE:      the same ds, dE += (ds -> dtype)^T . x in fp32, kept fp32.
 // Products of bf16 values are exact in fp32, so an fp32-accumulated
@@ -482,33 +484,37 @@ xent_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ e,
 // ring of kBwdStages stages guarded by mbarriers. Tiles live in shared
 // memory as TMA writes them, in 64-column panels of 128-byte swizzled
 // rows: K-major for the score product, MN-major for the gradient product.
-// kBwdCluster CTAs that own neighbouring resident blocks form a thread-
-// block cluster and share the stream: each loads 64 / kBwdCluster rows of
-// every tile and multicasts them to all, so the cluster reads each tile
-// from L2 once; a stage is refilled once every consumer warp of every CTA
-// of the cluster has released it. One lane of a producer warpgroup issues
-// the loads; the consumer warpgroups (two where D >= 256, which split D
-// between them, one below) run, per streamed tile t:
-//   S = A . B_t^T            wgmma, both operands K-major in shared
-//                            memory; warpgroup w computes score columns
-//                            w 64/W .. over all of D (W warpgroups);
+// With kBwdCluster > 1, that many CTAs owning neighbouring resident blocks
+// form a thread-block cluster and share the stream: each loads
+// 64 / kBwdCluster rows of every tile and multicasts them to all, and a
+// stage is refilled once every consumer warp of the cluster has released
+// it; at cluster sizes 2 and 4 that lock-step over a 2-deep ring cost more
+// than the L2 reads it saved (PERF.md), so kBwdCluster is 1. One lane of a
+// producer warpgroup issues the loads; the consumer
+// warpgroups (two where D >= 256, one below) each own D / W of the D
+// columns (W warpgroups) and run, per streamed tile t:
+//   S_w = A[:, w] . B_t[:, w]^T   wgmma m64n64, both operands K-major in
+//                            shared memory, over the warpgroup's columns;
+//   S = S_0 + S_1            the fp32 partials summed through shared
+//                            memory (W = 2), in the same order in both;
 //   ds = (exp(s - lse) - onehot) g in fp32, 0 past N or V, rounded to
-//                            bf16 into a shared ds tile (two, used in
-//                            turn), where both warpgroups read it whole;
-//   acc += ds . B_t          wgmma, ds K-major, B_t MN-major (as B2 reads
-//                            V); warpgroup w owns output columns w D/W ..
-// The gradient product of tile t - 1 is issued just before S of tile t,
-// and the stage of t - 1 is released as soon as that product is done, so
-// its refill with tile t + 1 has an iteration to land.
+//                            bf16 as it is packed into wgmma's register A
+//                            fragments (as B2 packs P);
+//   acc_w += ds . B_t[:, w]  wgmma, ds from registers, B_t MN-major (as
+//                            B2 reads V), into the warpgroup's columns.
+// The gradient product of tile t - 1 is issued before the wait for tile t
+// and S of tile t, and the stage of t - 1 is released as soon as that
+// product is done, so its refill with tile t + 1 has an iteration to land.
 // The [64, D / W] fp32 accumulator is 128 registers a thread at D 512,
 // which is why D is split. A CTA of three warpgroups may use 168
-// registers a thread, too few for that accumulator and the scores in
-// flight (ptxas then serializes the wgmmas), so with two consumer
+// registers a thread, too few for that accumulator with the scores and
+// ds in flight (ptxas then serializes the wgmmas), so with two consumer
 // warpgroups the producer's drops to 40 (setmaxnreg) and theirs rise to
 // 232, as CUTLASS's warp-specialized kernels do. At D 512 the resident
-// rows and two stages take 192 KB, one CTA an SM. Every output row is written by one CTA in a
-// fixed order, from registers as whole 32-byte sectors: no atomics, and
-// two runs are bit-identical. dx leaves in bf16, dE in fp32.
+// rows, two stages and the partials take 226.5 KB, one CTA an SM. Every
+// output row is written by one CTA in a fixed order, from registers as
+// whole 32-byte sectors: no atomics, and two runs are bit-identical. dx
+// leaves in bf16, dE in fp32.
 
 constexpr int kBwdRows = 64;    // resident rows of a CTA; rows of a streamed tile
 constexpr int kBwdStages = 2;   // streamed tiles in flight
@@ -523,39 +529,41 @@ struct BwdShape {
   static constexpr int kPanelBytes = kBwdRows * 128;
   static constexpr int kTileBytes = kPanels * kPanelBytes;
   static constexpr int kSliceRows = kBwdRows / kBwdCluster;  // a CTA's load
-  static constexpr int kScoreCols = kBwdRows / kGroups;  // S of a warpgroup
-  static constexpr int kOutCols = D / kGroups;  // output of a warpgroup
-  static constexpr int kDsBytes = kBwdRows * 128;  // bf16 [64 x 64]
+  static constexpr int kCols = D / kGroups;  // the D columns of a warpgroup
+  // The fp32 score partials, [64 x 64] a warpgroup, when D is split.
+  static constexpr int kPartialBytes = kGroups == 2 ? 2 * 64 * 64 * 4 : 0;
   static constexpr int kParamBytes = 3 * kBwdRows * 4;  // B7: lse, g, targets
   // 1024 bytes of slack align the tiles for the 128-byte swizzle.
   static constexpr int kSmem = 1024 + (1 + kBwdStages) * kTileBytes +
-                               2 * kDsBytes + kBwdStages * kParamBytes;
+                               kPartialBytes + kBwdStages * kParamBytes;
 };
 
-// S = A . B^T over all of D: A the resident tile at sa, B the warpgroup's
-// score rows of a stage at sb (both in 64-column panels).
+// S_w = A . B^T over warpgroup w's D columns: A the resident tile at sa,
+// B a stage at sb (both in 64-column panels).
 template <int D>
-__device__ __forceinline__ void issue_scores(
-    float (&s)[BwdShape<D>::kScoreCols / 2], uint32_t sa, uint32_t sb) {
+__device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t sa,
+                                             uint32_t sb, int w) {
   using L = BwdShape<D>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * L::kPanelBytes + (kk % 4) * 32;
-    wgmma_ss<0>(s, smem_desc(sa + off, 16, 1024, 1),
+  for (int kk = 0; kk < L::kCols / 16; ++kk) {
+    const int c0 = w * L::kCols + kk * 16;
+    const uint32_t off = (c0 / 64) * L::kPanelBytes + (c0 % 64) * 2;
+    wgmma_ss_n64(s, smem_desc(sa + off, 16, 1024, 1),
                 smem_desc(sb + off, 16, 1024, 1), kk > 0);
   }
 }
 
-// acc += ds . B: ds the [64 x 64] tile at sds (K-major), B the
+// acc += ds . B: ds the A fragments a (k steps of 16 tile rows), B the
 // warpgroup's output panels of a stage at sb (MN-major).
 template <int D>
 __device__ __forceinline__ void issue_grad(
-    float (&acc)[BwdShape<D>::kOutCols / 2], uint32_t sds, uint32_t sb) {
+    float (&acc)[BwdShape<D>::kCols / 2], const uint32_t (&a)[4][4],
+    uint32_t sb) {
   using L = BwdShape<D>;
 #pragma unroll
   for (int kc = 0; kc < kBwdRows / 16; ++kc)
-    wgmma_ss<1>(acc, smem_desc(sds + kc * 32, 16, 1024, 1),
-                smem_desc(sb + kc * 16 * 128, L::kPanelBytes, 1024, 1), 1);
+    wgmma_rs(acc, a[kc],
+             smem_desc(sb + kc * 16 * 128, L::kPanelBytes, 1024, 1));
 }
 
 // This warp has read stage s for the last time: it arrives on the stage's
@@ -592,8 +600,9 @@ xent_bwd_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   const uint32_t base = smem_u32(bwd_smem);
   const uint32_t sa = (base + 1023u) & ~1023u;  // the resident rows
   const uint32_t sb = sa + L::kTileBytes;       // the ring
-  const uint32_t sds = sb + S * L::kTileBytes;  // two ds tiles
-  const uint32_t sprm = sds + 2 * L::kDsBytes;  // B7: each stage's rows
+  const uint32_t spart = sb + S * L::kTileBytes;  // the score partials
+  const uint32_t sprm = spart + L::kPartialBytes;  // B7: each stage's rows
+  float* part = reinterpret_cast<float*>(bwd_smem + (spart - base));
   const float* prm = reinterpret_cast<const float*>(bwd_smem + (sprm - base));
   const uint32_t bar_a = smem_u32(bars);
   const uint32_t full = bar_a + 8u;
@@ -656,8 +665,9 @@ xent_bwd_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   } else {
     if constexpr (L::kGroups == 2) setmaxnreg_inc<232>();
     const int w = wg;  // the consumer warpgroup
+    const int lt = tid & 127;
     const int lane = tid & 31;
-    const int r0 = 16 * ((tid >> 5) & 3) + (lane >> 2);  // rows r0, r0 + 8
+    const int r0 = 16 * (lt >> 5) + (lane >> 2);  // rows r0, r0 + 8
     const int t4 = lane & 3;
     // B6: the resident x rows' lse, g and target. A row at or past N
     // reads as zeros and takes lse 0 and g 0, so its ds is 0.
@@ -674,52 +684,65 @@ xent_bwd_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
         }
       }
     }
-    float sc[L::kScoreCols / 2], acc[L::kOutCols / 2];
+    float sc[32], acc[L::kCols / 2];
+    uint32_t a[4][4];  // ds of the last tile, as A fragments
 #pragma unroll
-    for (int i = 0; i < L::kScoreCols / 2; ++i) sc[i] = 0.f;
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < L::kOutCols / 2; ++i) acc[i] = 0.f;
-    const uint32_t sbw = sb + w * L::kScoreCols * 128;  // score rows
-    const uint32_t sbn = sb + w * (L::kOutCols / 64) * L::kPanelBytes;
+    for (int i = 0; i < L::kCols / 2; ++i) acc[i] = 0.f;
+    const uint32_t sbn = sb + w * (L::kCols / 64) * L::kPanelBytes;
 
     mbar_wait(bar_a, 0);
     for (int t = 0; t < n_tiles; ++t) {
       const int s = t % S;
-      mbar_wait(full + 8u * s, (t / S) & 1);
       fence_regs(sc);
       fence_regs(acc);
+      fence_regs(a);
       wgmma_fence();
       if (t > 0) {  // the gradient product of tile t - 1 first
-        issue_grad<D>(acc, sds + ((t - 1) & 1) * L::kDsBytes,
-                      sbn + ((t - 1) % S) * L::kTileBytes);
+        issue_grad<D>(acc, a, sbn + ((t - 1) % S) * L::kTileBytes);
         wgmma_commit();
       }
-      issue_scores<D>(sc, sa, sbw + s * L::kTileBytes);
+      mbar_wait(full + 8u * s, (t / S) & 1);  // it runs while tile t lands
+      issue_scores<D>(sc, sa, sb + s * L::kTileBytes, w);
       wgmma_commit();
       fence_regs(sc);
       fence_regs(acc);
+      fence_regs(a);
       if (t > 0) {
         // Tile t - 1 is read no more while S_t runs on: its stage is
         // refilled with tile t + 1, an iteration ahead of its use.
         wgmma_wait<1>();
         fence_regs(acc);
+        fence_regs(a);
         release_bwd_stage(empty, (t - 1) % S);
       }
       wgmma_wait<0>();
       fence_regs(sc);
+      if constexpr (L::kGroups == 2) {
+        // Thread lt of either warpgroup holds the same 32 entries of S,
+        // so the partials are exchanged entry by entry, conflict-free.
+        // The second barrier keeps the next tile's partial from landing
+        // before the other warpgroup has read this one.
+#pragma unroll
+        for (int i = 0; i < 32; ++i) part[(w * 32 + i) * 128 + lt] = sc[i];
+        named_sync(1, L::kConsumers);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          sc[i] += part[((1 - w) * 32 + i) * 128 + lt];
+        named_sync(1, L::kConsumers);
+      }
 
-      // ds of tile t into ds tile t % 2, laid out as TMA lays out a tile
-      // (16-byte chunk c of row r at chunk c ^ (r mod 8)). Element i of a
-      // wgmma accumulator sits at row r0 + 8 ((i / 2) % 2) and column
-      // 8 (i / 4) + 2 t4 + i % 2 of the warpgroup's score columns.
-      const uint32_t dst = sds + (t & 1) * L::kDsBytes;
+      // ds of tile t into the A fragments. Element i of a wgmma
+      // accumulator sits at tile row r0 + 8 ((i / 2) % 2) and column
+      // 8 (i / 4) + 2 t4 + i % 2, and the accumulators of columns
+      // 16 kc .. 16 kc + 15 are exactly the A fragment of k step kc.
       const int b0 = t * kBwdRows;
       const float* ps = prm + s * (L::kParamBytes / 4);
 #pragma unroll
-      for (int i = 0; i < L::kScoreCols / 2; i += 2) {
+      for (int i = 0; i < 32; i += 2) {
         const int h = (i >> 1) & 1;
-        const int r = r0 + 8 * h;
-        const int c = w * L::kScoreCols + 8 * (i >> 2) + 2 * t4;
+        const int c = 8 * (i >> 2) + 2 * t4;
         // B7's column parameters as 8-byte vectors: one shared-memory
         // wavefront for the pair.
         float2 lp, gp;
@@ -745,7 +768,7 @@ xent_bwd_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
             l = k ? lp.y : lp.x;
             gg = k ? gp.y : gp.x;
             tg = k ? tp.y : tp.x;
-            vocab = a0 + r;
+            vocab = a0 + r0 + 8 * h;
             valid = b0 + c + k < n;
           }
           ds[k] = valid ? (ex2((sc[i + k] - l) * kLog2e) -
@@ -753,28 +776,26 @@ xent_bwd_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
                         : 0.f;
         }
         // ds rounded to bf16 here, as the reference's ds.astype(dtype).
-        const uint32_t off = r * 128 + c * 2;
-        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(dst + (off ^ ((r & 7) << 4))),
-                     "r"(pack_bf16(ds[0], ds[1])) : "memory");
+        const int nt = i >> 2;
+        a[nt >> 1][2 * (nt & 1) + h] = pack_bf16(ds[0], ds[1]);
       }
-      fence_proxy_async();
-      named_sync(1, L::kConsumers);  // both halves of ds_t are written
     }
     // The last tile's gradient product.
     fence_regs(acc);
+    fence_regs(a);
     wgmma_fence();
-    issue_grad<D>(acc, sds + ((n_tiles - 1) & 1) * L::kDsBytes,
-                  sbn + ((n_tiles - 1) % S) * L::kTileBytes);
+    issue_grad<D>(acc, a, sbn + ((n_tiles - 1) % S) * L::kTileBytes);
     wgmma_commit();
     fence_regs(acc);
+    fence_regs(a);
     wgmma_wait<0>();
     fence_regs(acc);
 
 #pragma unroll
-    for (int i = 0; i < L::kOutCols / 2; i += 2) {
+    for (int i = 0; i < L::kCols / 2; i += 2) {
       const int row = a0 + r0 + 8 * ((i >> 1) & 1);
       if (row >= a_rows) continue;
-      const size_t off = static_cast<size_t>(row) * D + w * L::kOutCols +
+      const size_t off = static_cast<size_t>(row) * D + w * L::kCols +
                          8 * (i >> 2) + 2 * t4;
       if constexpr (kDx) {
         *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + off) =

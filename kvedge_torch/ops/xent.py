@@ -155,11 +155,13 @@ def backward_geometry(rows: int, d: int, cluster: int = _BWD_CLUSTER,
     """The bf16 backward kernel's launch for ``rows`` resident rows (dx:
     N, dE: V) at width ``d``, as ``csrc/xent.cu`` computes it: CTAs
     (whole clusters), threads a CTA (one or two consumer warpgroups and a
-    producer warp), dynamic shared memory and whether it fits a block."""
+    producer warpgroup), dynamic shared memory (the resident tile, the
+    ring, the two warpgroups' fp32 score partials, B7's row parameters)
+    and whether it fits a block."""
     groups = 2 if d >= 256 else 1
     tile = _BWD_ROWS * d * 2
-    smem = (1024 + (1 + stages) * tile + 2 * _BWD_ROWS * 128
-            + stages * 3 * _BWD_ROWS * 4)
+    partials = 2 * 64 * 64 * 4 if groups == 2 else 0
+    smem = 1024 + (1 + stages) * tile + partials + stages * 3 * _BWD_ROWS * 4
     clusters = -(-rows // (_BWD_ROWS * cluster))
     return {"ctas": clusters * cluster, "cluster": cluster,
             "threads": 128 * (groups + 1), "consumer_warpgroups": groups,

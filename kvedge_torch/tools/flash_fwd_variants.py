@@ -171,11 +171,12 @@ BH, T, DH = 512, 512, 64
 def build(name: str, edits, kernel: str = "flash_attention") -> ctypes.CDLL:
     """The library of the shipped ``csrc/<kernel>.cu`` (its local headers
     inlined, ``_build.source``) with ``edits`` applied, or of the file
-    ``edits`` names."""
+    ``edits`` names (its headers taken from beside it where they are
+    there, so an older version builds with its own)."""
     if not edits:
         return _build.load(kernel)
     if isinstance(edits, pathlib.Path):
-        src = edits.read_text()
+        src = _build.expand_includes(edits)
     else:
         src = _build.source(kernel)
         for old, new in edits:
@@ -185,9 +186,9 @@ def build(name: str, edits, kernel: str = "flash_attention") -> ctypes.CDLL:
     lib = _build.BUILD_DIR / f"lib{kernel}_{name}.so"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path.write_text(src)
-    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
-                           str(_build.CSRC), "-o", str(lib), str(path)],
-                          capture_output=True, text=True)
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                           str(lib), str(path)], capture_output=True,
+                          text=True)
     path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     proc.check_returncode()
     return ctypes.CDLL(str(lib))

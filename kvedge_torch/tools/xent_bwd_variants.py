@@ -6,15 +6,20 @@ versions of its source, and against the library's backward.
 Needs one CUDA card and ``nvcc``. Builds the shipped ``csrc/xent.cu``,
 its variants (a few lines replaced: the cluster size, the ring depth) and
 each ``OTHER.cu`` named on the command line (an earlier version of the
-source, say ``git show HEAD~1:kvedge_torch/ops/csrc/xent.cu``) beside it
-under ``build/kvedge_torch/``; a version that does not build is reported
-and left out. Each version's dx and dE passes are first held to the plain
+source, say ``git show HEAD~1:kvedge_torch/ops/csrc/xent.cu``, with the
+``hopper.cuh`` of its commit beside it where the current one no longer
+builds it) beside them under ``build/kvedge_torch/``; a version that does
+not build is reported and left out. The shipped layout splits D between
+the two consumer warpgroups for the score product as well and sums the
+fp32 partials; the other layout of the design, each warpgroup computing
+half of the score columns over all of D and sharing ds through a bf16
+tile, is such an older version. Each version's dx and dE passes are first held to the plain
 backward at N 1032, V 32000 and at N 200, V 1000 (D 512 and 256, bf16:
 dx within two bf16 ulps and dE within one of their largest entry) and
 run twice, which must agree bit for bit; one that fails or does not
 launch (a ring too deep for shared memory) is reported and not timed.
 A diagnostic drops part of the work (the score product, the gradient
-product, the exponentials, the barrier between the warpgroups) to show
+product, the exponentials, the exchange of the score partials) to show
 its share of the time: its output is wrong, and it is timed all the same.
 ``diag_timeline`` writes a record per CTA (flash_fwd_variants.timeline):
 CTAs an SM, the SM clock, and the share of time consumer warps 0-2 waited
@@ -42,7 +47,6 @@ import sys
 import torch
 import torch.nn.functional as F
 
-from kvedge_torch.ops import _build
 from kvedge_torch.ops import xent as xe
 from kvedge_torch.tools.flash_fwd_variants import (build, graph_ms,
                                                    timeline, timeline_edits)
@@ -57,201 +61,31 @@ VARIANTS = {
     # 274 KB at D 512: does not fit a block, so it cannot launch there.
     "stages3": (("constexpr int kBwdStages = 2;",
                  "constexpr int kBwdStages = 3;"),),
+    # 256-byte L2 promotion of the tiles' loads.
+    "l2_256": (("CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,",
+                "CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,"),),
     # A record per CTA; the outputs stay right.
     "diag_timeline": timeline_edits(
         ("  const int n_tiles = (b_rows + kBwdRows - 1) / kBwdRows;\n", ""),
         end_mark="  cluster_sync();  // no CTA leaves while a peer may still "
                  "reach its barriers\n"),
 }
-_GRAD = ("issue_grad<D>(acc, sds + ((t - 1) & 1) * L::kDsBytes,\n"
-         "                      sbn + ((t - 1) % S) * L::kTileBytes);", "")
+_EXCHANGE = ("        for (int i = 0; i < 32; ++i) part[(w * 32 + i) * 128 + lt] = sc[i];\n"
+             "        named_sync(1, L::kConsumers);\n"
+             "#pragma unroll\n"
+             "        for (int i = 0; i < 32; ++i)\n"
+             "          sc[i] += part[((1 - w) * 32 + i) * 128 + lt];\n"
+             "        named_sync(1, L::kConsumers);\n", "")
 # Each drops part of the work to show its share of the time; their
 # outputs are wrong by construction and they are timed all the same.
 DIAGNOSTICS = {
-    "diag_no_scores": (("issue_scores<D>(sc, sa, sbw + s * L::kTileBytes);",
+    "diag_no_scores": (("issue_scores<D>(sc, sa, sb + s * L::kTileBytes, w);",
                         ""),),
-    "diag_no_grad": (_GRAD,),
+    "diag_no_grad": (("issue_grad<D>(acc, a, sbn + ((t - 1) % S) * L::kTileBytes);",
+                      ""),),
     "diag_no_exp": (("ex2((sc[i + k] - l) * kLog2e)", "(sc[i + k] - l)"),),
-    "diag_no_sync": (("named_sync(1, L::kConsumers);", ""),),
+    "diag_no_exchange": (_EXCHANGE,),
 }
-# Layout (b): each consumer warpgroup computes S over its half of D
-# (wgmma m64n64 instead of m64n32 over all of D), the two fp32 partials
-# are summed through shared memory (in place of the ds tiles), and ds
-# enters the gradient product from registers (RS wgmma, as B2 feeds P).
-_B_START = "    float sc[L::kScoreCols / 2], acc[L::kOutCols / 2];\n"
-_B_END = "#pragma unroll\n    for (int i = 0; i < L::kOutCols / 2; i += 2) {\n"
-_B_CONSUMER = r"""    float sc[32], acc[L::kOutCols / 2];
-    uint32_t a[4][4];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-#pragma unroll
-    for (int i = 0; i < L::kOutCols / 2; ++i) acc[i] = 0.f;
-    const int lt = tid & 127;
-    float* xbuf = reinterpret_cast<float*>(bwd_smem + (sds - base));
-    const uint32_t sbn = sb + w * (L::kOutCols / 64) * L::kPanelBytes;
-    constexpr int KW = D / L::kGroups;  // the warpgroup's D columns
-
-    mbar_wait(bar_a, 0);
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % S;
-      mbar_wait(full + 8u * s, (t / S) & 1);
-      fence_regs(sc);
-      fence_regs(acc);
-      fence_regs(a);
-      wgmma_fence();
-      if (t > 0) {
-#pragma unroll
-        for (int kc = 0; kc < 4; ++kc)
-          wgmma_rs(acc, a[kc],
-                   smem_desc(sbn + ((t - 1) % S) * L::kTileBytes + kc * 2048,
-                             L::kPanelBytes, 1024, 1));
-        wgmma_commit();
-      }
-#pragma unroll
-      for (int kk = 0; kk < KW / 16; ++kk) {
-        const int c0 = w * KW + kk * 16;
-        const uint32_t off = (c0 / 64) * L::kPanelBytes + (c0 % 64) * 2;
-        wgmma_ss<0>(sc, smem_desc(sa + off, 16, 1024, 1),
-                    smem_desc(sb + s * L::kTileBytes + off, 16, 1024, 1),
-                    kk > 0);
-      }
-      wgmma_commit();
-      fence_regs(sc);
-      fence_regs(acc);
-      fence_regs(a);
-      if (t > 0) {
-        wgmma_wait<1>();
-        fence_regs(acc);
-        fence_regs(a);
-        release_bwd_stage(empty, (t - 1) % S);
-      }
-      wgmma_wait<0>();
-      fence_regs(sc);
-      if constexpr (L::kGroups == 2) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) xbuf[w * 4096 + i * 128 + lt] = sc[i];
-        named_sync(1, L::kConsumers);
-#pragma unroll
-        for (int i = 0; i < 32; ++i) sc[i] += xbuf[(1 - w) * 4096 + i * 128 + lt];
-        named_sync(1, L::kConsumers);
-      }
-      const int b0 = t * kBwdRows;
-      const float* ps = prm + s * (L::kParamBytes / 4);
-#pragma unroll
-      for (int i = 0; i < 32; i += 2) {
-        const int h = (i >> 1) & 1;
-        const int r = r0 + 8 * h;
-        const int c = 8 * (i >> 2) + 2 * t4;
-        // B7's column parameters as 8-byte vectors: one shared-memory
-        // wavefront for the pair.
-        float2 lp, gp;
-        int2 tp;
-        if constexpr (!kDx) {
-          lp = *reinterpret_cast<const float2*>(ps + c);
-          gp = *reinterpret_cast<const float2*>(ps + kBwdRows + c);
-          tp = *reinterpret_cast<const int2*>(ps + 2 * kBwdRows + c);
-        }
-        float ds[2];
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          float l, gg;
-          int tg, vocab;
-          bool valid;
-          if constexpr (kDx) {
-            l = row_lse[h];
-            gg = row_g[h];
-            tg = row_tgt[h];
-            vocab = b0 + c + k;
-            valid = vocab < v;
-          } else {
-            l = k ? lp.y : lp.x;
-            gg = k ? gp.y : gp.x;
-            tg = k ? tp.y : tp.x;
-            vocab = a0 + r;
-            valid = b0 + c + k < n;
-          }
-          ds[k] = valid ? (ex2((sc[i + k] - l) * kLog2e) -
-                           (vocab == tg ? 1.f : 0.f)) * gg
-                        : 0.f;
-        }
-        const int nt = i >> 2;
-        a[nt >> 1][2 * (nt & 1) + ((i >> 1) & 1)] = pack_bf16(ds[0], ds[1]);
-      }
-    }
-    fence_regs(acc);
-    fence_regs(a);
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
-      wgmma_rs(acc, a[kc],
-               smem_desc(sbn + ((n_tiles - 1) % S) * L::kTileBytes + kc * 2048,
-                         L::kPanelBytes, 1024, 1));
-    wgmma_commit();
-    fence_regs(acc);
-    fence_regs(a);
-    wgmma_wait<0>();
-    fence_regs(acc);
-
-"""
-_RS256 = r"""// d (64 x 256 fp32) += A . B, A bf16 in registers, B MN-major.
-__device__ __forceinline__ void wgmma_rs(float (&d)[128],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-    "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-    "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-    "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-    "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-    "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-    "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-    "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-    :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-      "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-      "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-      "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-      "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-      "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-      "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-      "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-      "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-      "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-      "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-      "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-    : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-"""
-
-
-def layout_b_edits(src: str):
-    """The edits of layout (b) on the shipped source ``src``."""
-    old = src[src.index(_B_START):src.index(_B_END)]
-    return (
-        ("                               2 * kDsBytes + kBwdStages * kParamBytes;",
-         "                               kGroups * 16384 + kBwdStages * kParamBytes;"),
-        ("const uint32_t sprm = sds + 2 * L::kDsBytes;",
-         "const uint32_t sprm = sds + L::kGroups * 16384;"),
-        ("template <int D, bool kDx>\n__global__ void __launch_bounds__(BwdShape<D>::kThreads, 1)",
-         _RS256 + "\ntemplate <int D, bool kDx>\n__global__ void __launch_bounds__(BwdShape<D>::kThreads, 1)"),
-        (old, _B_CONSUMER))
 N, V, D = 32768, 32000, 512
 CHECKS = ((1032, 32000, 512), (200, 1000, 256))
 
@@ -336,8 +170,7 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    every = {**VARIANTS, "layout_b": layout_b_edits(_build.source("xent")),
-             **DIAGNOSTICS,
+    every = {**VARIANTS, **DIAGNOSTICS,
              **{pathlib.Path(a).stem: pathlib.Path(a) for a in sys.argv[1:]}}
     with concurrent.futures.ThreadPoolExecutor(len(every)) as ex:
         futures = {n: ex.submit(build, n, e, "xent") for n, e in every.items()}
