@@ -308,43 +308,6 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
-// As tma_load_2d, into the same shared-memory offset of every CTA of the
-// cluster named in `mask`, each completing on its own barrier at `bar`.
-__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
-                                                      const CUtensorMap* map,
-                                                      uint32_t bar, int c0,
-                                                      int c1, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "h"(mask) : "memory");
-}
-
-// Arrive on the mbarrier at `bar` in the shared memory of cluster CTA
-// `cta` (this CTA's own included).
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
-                                                    uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n"
-      ::"r"(bar), "r"(cta) : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every thread of every CTA of the cluster arrives, then waits for all.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // The warpgroup's registers a thread drop to (dec) or rise to (inc) N;
 // every thread of the warpgroup executes it.
 template <int N>

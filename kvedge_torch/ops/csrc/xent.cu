@@ -44,8 +44,8 @@
 //            tile it forms ds^T [rows x 64] and accumulates
 //            dE [rows x D] += ds^T . x_tile.
 // The bf16 backward (B6, B7) is built for Hopper: 64 resident rows, the
-// streamed tiles by TMA into an mbarrier ring shared by a thread-block
-// cluster, both products on wgmma (section "bf16, B6 and B7" below). The
+// streamed tiles by TMA into an mbarrier ring, both products on wgmma
+// (section "bf16, B6 and B7" below). The
 // bf16 forward (B5) runs on the tensor cores with mma.sync m16n8k16 (bf16
 // operands, fp32 accumulation): 8 warps, 32 resident rows; for the score
 // tile warp w owns rows 16 (w & 1) .. +15 and columns 16 (w >> 1) .. +15,
@@ -484,13 +484,9 @@ xent_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ e,
 // ring of kBwdStages stages guarded by mbarriers. Tiles live in shared
 // memory as TMA writes them, in 64-column panels of 128-byte swizzled
 // rows: K-major for the score product, MN-major for the gradient product.
-// With kBwdCluster > 1, that many CTAs owning neighbouring resident blocks
-// form a thread-block cluster and share the stream: each loads
-// 64 / kBwdCluster rows of every tile and multicasts them to all, and a
-// stage is refilled once every consumer warp of the cluster has released
-// it; at cluster sizes 2 and 4 that lock-step over a 2-deep ring cost more
-// than the L2 reads it saved (PERF.md), so kBwdCluster is 1. One lane of a
-// producer warpgroup issues the loads; the consumer
+// (Clusters of 2 or 4 CTAs sharing each tile by TMA multicast measured
+// slower: PERF.md.) One lane of a producer warpgroup issues the loads; the
+// consumer
 // warpgroups (two where D >= 256, one below) each own D / W of the D
 // columns (W warpgroups) and run, per streamed tile t:
 //   S_w = A[:, w] . B_t[:, w]^T   wgmma m64n64, both operands K-major in
@@ -516,9 +512,8 @@ xent_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ e,
 // whole 32-byte sectors: no atomics, and two runs are bit-identical. dx
 // leaves in bf16, dE in fp32.
 
-constexpr int kBwdRows = 64;    // resident rows of a CTA; rows of a streamed tile
-constexpr int kBwdStages = 2;   // streamed tiles in flight
-constexpr int kBwdCluster = 1;  // CTAs sharing each streamed tile
+constexpr int kBwdRows = 64;   // resident rows of a CTA; rows of a streamed tile
+constexpr int kBwdStages = 2;  // streamed tiles in flight
 
 template <int D>
 struct BwdShape {
@@ -528,7 +523,6 @@ struct BwdShape {
   static constexpr int kPanels = D / 64;            // 64-column panels
   static constexpr int kPanelBytes = kBwdRows * 128;
   static constexpr int kTileBytes = kPanels * kPanelBytes;
-  static constexpr int kSliceRows = kBwdRows / kBwdCluster;  // a CTA's load
   static constexpr int kCols = D / kGroups;  // the D columns of a warpgroup
   // The fp32 score partials, [64 x 64] a warpgroup, when D is split.
   static constexpr int kPartialBytes = kGroups == 2 ? 2 * 64 * 64 * 4 : 0;
@@ -567,18 +561,10 @@ __device__ __forceinline__ void issue_grad(
 }
 
 // This warp has read stage s for the last time: it arrives on the stage's
-// "empty" barrier in every CTA of the cluster.
+// "empty" barrier.
 __device__ __forceinline__ void release_bwd_stage(uint32_t empty, int s) {
   __syncwarp();
-  if ((threadIdx.x & 31) == 0) {
-    if constexpr (kBwdCluster > 1) {
-#pragma unroll
-      for (int r = 0; r < kBwdCluster; ++r)
-        mbar_arrive_cluster(empty + 8u * s, r);
-    } else {
-      mbar_arrive(empty + 8u * s);
-    }
-  }
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty + 8u * s);
 }
 
 template <int D, bool kDx>
@@ -622,19 +608,18 @@ xent_bwd_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
     mbar_init(bar_a, 1);
     for (int s = 0; s < S; ++s) {
       mbar_init(full + 8u * s, 1);
-      mbar_init(empty + 8u * s, L::kConsumers / 32 * kBwdCluster);
+      mbar_init(empty + 8u * s, L::kConsumers / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cluster_sync();  // every CTA's barriers exist before any load lands
+  __syncthreads();  // the barriers exist before any thread uses them
 
   if (wg == L::kGroups) {
     // The producer warpgroup: one lane issues every load. Stage s takes
-    // tile t once every consumer warp of the cluster has released tile
-    // t - S. It hands its registers to the consumers first.
+    // tile t once every consumer warp has released tile t - S. It hands
+    // its registers to the consumers first.
     if constexpr (L::kGroups == 2) setmaxnreg_dec<40>();
     if (tid == L::kConsumers) {
-      const int rank = kBwdCluster > 1 ? static_cast<int>(cluster_rank()) : 0;
       mbar_expect_tx(bar_a, L::kTileBytes);
       for (int p = 0; p < L::kPanels; ++p)
         tma_load_2d(sa + p * L::kPanelBytes, &map_a, bar_a, 64 * p, a0);
@@ -643,16 +628,9 @@ xent_bwd_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
         if (t >= S) mbar_wait(empty + 8u * s, (t / S - 1) & 1);
         const uint32_t bar = full + 8u * s;
         mbar_expect_tx(bar, L::kTileBytes + (kDx ? 0 : L::kParamBytes));
-        const int row = t * kBwdRows + rank * L::kSliceRows;
-        const uint32_t dst =
-            sb + s * L::kTileBytes + rank * L::kSliceRows * 128;
-        for (int p = 0; p < L::kPanels; ++p) {
-          if constexpr (kBwdCluster > 1)
-            tma_load_2d_multicast(dst + p * L::kPanelBytes, &map_b, bar,
-                                  64 * p, row, (1u << kBwdCluster) - 1);
-          else
-            tma_load_2d(dst + p * L::kPanelBytes, &map_b, bar, 64 * p, row);
-        }
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load_2d(sb + s * L::kTileBytes + p * L::kPanelBytes, &map_b,
+                      bar, 64 * p, t * kBwdRows);
         if constexpr (!kDx) {
           const uint32_t ps = sprm + s * L::kParamBytes;
           tma_load_row(ps, &map_lse, bar, t * kBwdRows);
@@ -806,8 +784,6 @@ xent_bwd_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     }
   }
-  __syncwarp();
-  cluster_sync();  // no CTA leaves while a peer may still reach its barriers
 }
 
 // ---- launchers ---------------------------------------------------------------
@@ -877,8 +853,7 @@ int encode_vec_map(CUtensorMap* map, const void* ptr, int n,
          CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
-// The bf16 backward: clusters of kBwdCluster CTAs, one CTA a 64-row
-// resident block (the grid rounded up to whole clusters).
+// The bf16 backward: one CTA a 64-row resident block.
 template <int D, bool kDx>
 int bwd_bf16(const bf16* x, const bf16* e, const int* tgt, const float* lse,
              const float* g, void* out, int n, int v, cudaStream_t stream) {
@@ -888,7 +863,7 @@ int bwd_bf16(const bf16* x, const bf16* e, const int* tgt, const float* lse,
   if (int rc = encode_rows_map<D>(&map_a, kDx ? x : e, a_rows, kBwdRows))
     return rc;
   if (int rc = encode_rows_map<D>(&map_b, kDx ? e : x, kDx ? v : n,
-                                  L::kSliceRows))
+                                  kBwdRows))
     return rc;
   if (!kDx) {
     if (int rc = encode_vec_map(&map_lse, lse, n,
@@ -902,24 +877,9 @@ int bwd_bf16(const bf16* x, const bf16* e, const int* tgt, const float* lse,
   }
   const auto kernel = xent_bwd_bf16_kernel<D, kDx>;
   if (int rc = launch_setup(kernel, L::kSmem)) return rc;
-  const int clusters = (a_rows + kBwdRows * kBwdCluster - 1) /
-                       (kBwdRows * kBwdCluster);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * kBwdCluster);
-  cfg.blockDim = dim3(L::kThreads);
-  cfg.dynamicSmemBytes = L::kSmem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kBwdCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (int rc = static_cast<int>(cudaLaunchKernelEx(
-          &cfg, kernel, map_a, map_b, map_lse, map_g, map_tgt, tgt, lse, g,
-          out, n, v)))
-    return rc;
+  kernel<<<(a_rows + kBwdRows - 1) / kBwdRows, L::kThreads, L::kSmem,
+           stream>>>(map_a, map_b, map_lse, map_g, map_tgt, tgt, lse, g, out,
+                     n, v);
   return static_cast<int>(cudaGetLastError());
 }
 

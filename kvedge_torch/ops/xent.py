@@ -141,34 +141,6 @@ def _check(name, x, e, targets, rows=()):
     return n, v, d
 
 
-# The bf16 backward's launch (csrc/xent.cu, section "bf16, B6 and B7"):
-# 64 resident rows a CTA, clusters of _BWD_CLUSTER CTAs sharing each
-# streamed 64-row tile, a ring of _BWD_STAGES tiles.
-_BWD_ROWS = 64
-_BWD_CLUSTER = 1
-_BWD_STAGES = 2
-_SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
-
-
-def backward_geometry(rows: int, d: int, cluster: int = _BWD_CLUSTER,
-                      stages: int = _BWD_STAGES) -> dict:
-    """The bf16 backward kernel's launch for ``rows`` resident rows (dx:
-    N, dE: V) at width ``d``, as ``csrc/xent.cu`` computes it: CTAs
-    (whole clusters), threads a CTA (one or two consumer warpgroups and a
-    producer warpgroup), dynamic shared memory (the resident tile, the
-    ring, the two warpgroups' fp32 score partials, B7's row parameters)
-    and whether it fits a block."""
-    groups = 2 if d >= 256 else 1
-    tile = _BWD_ROWS * d * 2
-    partials = 2 * 64 * 64 * 4 if groups == 2 else 0
-    smem = 1024 + (1 + stages) * tile + partials + stages * 3 * _BWD_ROWS * 4
-    clusters = -(-rows // (_BWD_ROWS * cluster))
-    return {"ctas": clusters * cluster, "cluster": cluster,
-            "threads": 128 * (groups + 1), "consumer_warpgroups": groups,
-            "stages": stages, "smem_bytes": smem,
-            "fits": smem + 64 <= _SMEM_LIMIT}
-
-
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it where its storage is not 16-byte aligned:
     the bf16 backward reads lse, g and the targets by TMA."""

@@ -4,20 +4,22 @@ versions of its source, and against the library's backward.
     python -m kvedge_torch.tools.xent_bwd_variants [OTHER.cu ...]
 
 Needs one CUDA card and ``nvcc``. Builds the shipped ``csrc/xent.cu``,
-its variants (a few lines replaced: the cluster size, the ring depth) and
-each ``OTHER.cu`` named on the command line (an earlier version of the
-source, say ``git show HEAD~1:kvedge_torch/ops/csrc/xent.cu``, with the
-``hopper.cuh`` of its commit beside it where the current one no longer
-builds it) beside them under ``build/kvedge_torch/``; a version that does
-not build is reported and left out. The shipped layout splits D between
-the two consumer warpgroups for the score product as well and sums the
-fp32 partials; the other layout of the design, each warpgroup computing
-half of the score columns over all of D and sharing ds through a bf16
-tile, is such an older version. Each version's dx and dE passes are first held to the plain
-backward at N 1032, V 32000 and at N 200, V 1000 (D 512 and 256, bf16:
-dx within two bf16 ulps and dE within one of their largest entry) and
-run twice, which must agree bit for bit; one that fails or does not
-launch (a ring too deep for shared memory) is reported and not timed.
+its variants (string edits of it: each streamed tile shared by a cluster
+of 2 or 4 CTAs through TMA multicast, a deeper ring, another L2
+promotion) and each ``OTHER.cu`` named on the command line (an earlier
+version of the source, say ``git show HEAD~1:kvedge_torch/ops/csrc/xent.cu``,
+with the ``hopper.cuh`` of its commit beside it where the current one no
+longer builds it) beside them under ``build/kvedge_torch/``; a version
+that does not build is reported and left out. The shipped layout splits
+D between the two consumer warpgroups for the score product as well and
+sums the fp32 partials; the other layout of the design, each warpgroup
+computing half of the score columns over all of D and sharing ds through
+a bf16 tile, is such an older version. Each version's dx and dE passes
+are first held to the plain backward at N 1032, V 32000 and at N 200,
+V 1000 (D 512 and 256, bf16: dx within two bf16 ulps and dE within one
+of their largest entry) and run twice, which must agree bit for bit; one
+that fails or does not launch (a ring too deep for shared memory) is
+reported and not timed.
 A diagnostic drops part of the work (the score product, the gradient
 product, the exponentials, the exchange of the score partials) to show
 its share of the time: its output is wrong, and it is timed all the same.
@@ -51,13 +53,105 @@ from kvedge_torch.ops import xent as xe
 from kvedge_torch.tools.flash_fwd_variants import (build, graph_ms,
                                                    timeline, timeline_edits)
 
+# The kernel's last line before it ends, after its output stores.
+_KERNEL_END = ("            make_float2(acc[i], acc[i + 1]);\n      }\n    }\n"
+               "  }\n")
+# The shipped kernel with clusters of ``c`` CTAs that own neighbouring
+# resident blocks and share the stream: each loads 64 / c rows of every
+# tile and multicasts them to all, and a stage is refilled once every
+# consumer warp of the cluster has released it.
+_CLUSTER_HELPERS = """\
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
+                                                      const CUtensorMap* map,
+                                                      uint32_t bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "h"(mask) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\\n.reg .b32 remote;\\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\\n}\\n"
+      ::"r"(bar), "r"(cta) : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\\n"
+      "barrier.cluster.wait.acquire.aligned;\\n" ::: "memory");
+}
+"""
+
+
+def cluster_edits(c: int):
+    """The edits that share each streamed tile across a cluster of ``c``."""
+    return (
+        ("// The warpgroup's registers a thread drop to (dec) or rise to (inc) N;\n",
+         _CLUSTER_HELPERS + "// The warpgroup's registers a thread drop to "
+         "(dec) or rise to (inc) N;\n"),
+        ("constexpr int kBwdStages = 2;  // streamed tiles in flight\n",
+         "constexpr int kBwdStages = 2;  // streamed tiles in flight\n"
+         f"constexpr int kBwdCluster = {c};\n"),
+        ("  if ((threadIdx.x & 31) == 0) mbar_arrive(empty + 8u * s);\n",
+         "  if ((threadIdx.x & 31) == 0)\n"
+         "    for (int r = 0; r < kBwdCluster; ++r)\n"
+         "      mbar_arrive_cluster(empty + 8u * s, r);\n"),
+        ("mbar_init(empty + 8u * s, L::kConsumers / 32);",
+         "mbar_init(empty + 8u * s, L::kConsumers / 32 * kBwdCluster);"),
+        ("  __syncthreads();  // the barriers exist before any thread uses them\n",
+         "  cluster_sync();\n"),
+        ("        for (int p = 0; p < L::kPanels; ++p)\n"
+         "          tma_load_2d(sb + s * L::kTileBytes + p * L::kPanelBytes, &map_b,\n"
+         "                      bar, 64 * p, t * kBwdRows);\n",
+         "        const int rank = static_cast<int>(cluster_rank());\n"
+         "        constexpr int kSlice = kBwdRows / kBwdCluster;\n"
+         "        for (int p = 0; p < L::kPanels; ++p)\n"
+         "          tma_load_2d_multicast(\n"
+         "              sb + s * L::kTileBytes + p * L::kPanelBytes +\n"
+         "                  rank * kSlice * 128,\n"
+         "              &map_b, bar, 64 * p, t * kBwdRows + rank * kSlice,\n"
+         "              (1u << kBwdCluster) - 1);\n"),
+        (_KERNEL_END, _KERNEL_END + "  __syncwarp();\n  cluster_sync();\n"),
+        ("kDx ? v : n,\n                                  kBwdRows))",
+         "kDx ? v : n,\n                                  kBwdRows / kBwdCluster))"),
+        ("  kernel<<<(a_rows + kBwdRows - 1) / kBwdRows, L::kThreads, L::kSmem,\n"
+         "           stream>>>(map_a, map_b, map_lse, map_g, map_tgt, tgt, lse, g, out,\n"
+         "                     n, v);\n",
+         "  const int clusters = (a_rows + kBwdRows * kBwdCluster - 1) /\n"
+         "                       (kBwdRows * kBwdCluster);\n"
+         "  cudaLaunchConfig_t cfg = {};\n"
+         "  cfg.gridDim = dim3(clusters * kBwdCluster);\n"
+         "  cfg.blockDim = dim3(L::kThreads);\n"
+         "  cfg.dynamicSmemBytes = L::kSmem;\n"
+         "  cfg.stream = stream;\n"
+         "  cudaLaunchAttribute attr[1];\n"
+         "  attr[0].id = cudaLaunchAttributeClusterDimension;\n"
+         "  attr[0].val.clusterDim.x = kBwdCluster;\n"
+         "  attr[0].val.clusterDim.y = 1;\n"
+         "  attr[0].val.clusterDim.z = 1;\n"
+         "  cfg.attrs = attr;\n"
+         "  cfg.numAttrs = 1;\n"
+         "  if (int rc = static_cast<int>(cudaLaunchKernelEx(\n"
+         "          &cfg, kernel, map_a, map_b, map_lse, map_g, map_tgt, tgt, lse, g,\n"
+         "          out, n, v)))\n"
+         "    return rc;\n"),
+    )
+
+
 # name -> ((text in the shipped source, its replacement), ...)
 VARIANTS = {
     "shipped": (),
-    "cluster2": (("constexpr int kBwdCluster = 1;",
-                  "constexpr int kBwdCluster = 2;"),),
-    "cluster4": (("constexpr int kBwdCluster = 1;",
-                  "constexpr int kBwdCluster = 4;"),),
+    "cluster2": cluster_edits(2),
+    "cluster4": cluster_edits(4),
     # 274 KB at D 512: does not fit a block, so it cannot launch there.
     "stages3": (("constexpr int kBwdStages = 2;",
                  "constexpr int kBwdStages = 3;"),),
@@ -67,8 +161,7 @@ VARIANTS = {
     # A record per CTA; the outputs stay right.
     "diag_timeline": timeline_edits(
         ("  const int n_tiles = (b_rows + kBwdRows - 1) / kBwdRows;\n", ""),
-        end_mark="  cluster_sync();  // no CTA leaves while a peer may still "
-                 "reach its barriers\n"),
+        end_mark=_KERNEL_END),
 }
 _EXCHANGE = ("        for (int i = 0; i < 32; ++i) part[(w * 32 + i) * 128 + lt] = sc[i];\n"
              "        named_sync(1, L::kConsumers);\n"
@@ -199,8 +292,8 @@ def main() -> None:
         run_dx, run_de = calls.pop("diag_timeline")
         lib = libs["diag_timeline"]
         print(json.dumps({"timeline": {
-            "dx": timeline(lib, run_dx, xe.backward_geometry(N, D)["ctas"]),
-            "de": timeline(lib, run_de, xe.backward_geometry(V, D)["ctas"])},
+            "dx": timeline(lib, run_dx, -(-N // 64)),
+            "de": timeline(lib, run_de, -(-V // 64))},
             "card": smi}), flush=True)
 
     lib_bwd, lib_stream = library_backward(x, e, tg)

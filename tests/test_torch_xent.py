@@ -230,25 +230,36 @@ def test_kernel_checks_refuse_what_the_kernels_do_not_take():
 
 
 @pytest.mark.parametrize("d", [64, 128, 256, 512])
-@pytest.mark.parametrize("rows", [8, 64, 129, 1032, 32000, 32768])
-def test_backward_geometry_covers_every_row_in_whole_clusters(rows, d):
-    geo = tx.backward_geometry(rows, d)
-    assert geo["ctas"] % geo["cluster"] == 0
-    # Every resident row has a CTA; a whole cluster less would miss some.
-    assert geo["ctas"] * 64 >= rows > (geo["ctas"] - geo["cluster"]) * 64
-    assert geo["consumer_warpgroups"] == (2 if d >= 256 else 1)
-    assert geo["threads"] == 128 * (geo["consumer_warpgroups"] + 1)
-    assert geo["fits"] and geo["smem_bytes"] <= 232448
+@pytest.mark.parametrize("n,v", [(1, 128), (8, 128), (40, 64), (65, 640),
+                                 (130, 330), (200, 1000), (1032, 200)])
+def test_plain_passes_match_float64_autograd_at_ragged_shapes(n, v, d):
+    """The wrappers' CPU path (the plain versions the kernels are held to)
+    at N and V that are not multiples of the kernels' 64-row tiles, half
+    the targets in the last partial vocab tile: lse, the target logit, dx
+    and dE against float64 autograd of sum(g * cross_entropy), fp32."""
+    rng = np.random.default_rng(n * 7 + v + d)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    e = torch.from_numpy(
+        (rng.standard_normal((v, d)) * 0.05).astype(np.float32))
+    t = rng.integers(0, v, n)
+    t[1::2] = v - 1 - np.arange(n)[1::2] % (v % 64 or 64)
+    t = torch.from_numpy(t.astype(np.int32))
+    g = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
 
-
-def test_backward_geometry_at_the_flagship_width():
-    """D 512: 64 resident rows, two 64 KB stages and the score partials
-    take 226.5 KB, one CTA an SM; a third stage does not fit a block."""
-    geo = tx.backward_geometry(32768, 512)
-    assert (geo["ctas"], geo["smem_bytes"]) == (512, 231936)
-    assert not tx.backward_geometry(32768, 512, stages=3)["fits"]
-    assert tx.backward_geometry(32768, 256, stages=3)["fits"]
-    assert tx.backward_geometry(32000, 512, cluster=4)["ctas"] == 500
+    xd, ed = (a.double().requires_grad_(True) for a in (x, e))
+    logits = xd @ ed.t()
+    want_lse = torch.logsumexp(logits, -1)
+    want_tl = logits.gather(1, t.long()[:, None])[:, 0]
+    torch.autograd.backward((want_lse - want_tl) * g.double(),
+                            torch.ones(n, dtype=torch.float64))
+    lse, tl = tx.xent_forward(x, e, t)
+    dx = tx.xent_backward_dx(x, e, t, lse, g)
+    de = tx.xent_backward_de(x, e, t, lse, g)
+    assert dx.dtype == torch.float32 and de.shape == (v, d)
+    for name, got, want in (("lse", lse, want_lse), ("tlogit", tl, want_tl),
+                            ("dx", dx, xd.grad), ("dE", de, ed.grad)):
+        torch.testing.assert_close(got.double(), want.detach(), rtol=1e-5,
+                                   atol=1e-5, msg=name)
 
 
 def test_aligned16_copies_only_misaligned_rows():
