@@ -97,7 +97,8 @@ imports nothing of JAX. Phases, each printing one JSON line:
             5e-3; the first 5 bf16 steps within 2e-2.
 14. train_timings  at the train shape: each flash kernel (BH 512, T 512,
             Dh 64, bf16), each xent kernel (N 32768, V 32000, D 512, bf16)
-            and B8 ([32768, 512] bf16): ms (a CUDA-graph replay, so the
+            and B8 ([32768, 512] bf16, and the swapped fp32 step's
+            [2048, 512]): ms (a CUDA-graph replay, so the
             host's launch work is off the clock, and for B2 and B5-B7 the
             eager back-to-back call_ms beside it), its plain version's ms,
             its bound, achieved TFLOP/s, a library yardstick the port never
@@ -1136,6 +1137,27 @@ def xent_bound(n, v, d, itemsize, products, out_bytes):
             else "bytes", flops, nbytes, t_ops, t_bytes)
 
 
+def rmsnorm_row(torch, F, rn, x, gain):
+    """B8's timing row at x's shape and dtype: the kernel and
+    ``F.rms_norm`` (its weight in x's dtype) by CUDA-graph replay, the
+    plain version by events; bound: x read and y written once, the fp32
+    gain read once, against 4 N D operations."""
+    n, d = x.shape
+    w = gain.to(x.dtype)
+    nbytes = 2 * n * d * x.element_size() + d * 4
+    ops = 4 * n * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (BF16_FLOPS if x.dtype == torch.bfloat16 else FP32_FLOPS) \
+        * 1e3
+    return dict(
+        ms=graph_ms(torch, lambda: rn.rmsnorm_forward(x, gain)),
+        plain_ms=event_ms(torch, lambda: rn.rmsnorm_reference(x, gain)),
+        library_ms=graph_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-6)),
+        bound=(max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+               else "operations", ops, nbytes, t_ops, t_bytes),
+        shape=[n, d], dtype=str(x.dtype).replace("torch.", ""))
+
+
 def library_xent(torch, F, x, e16, targets, stream):
     """The two-call yardstick the port never calls: one bf16 cuBLAS
     ``x @ E^T`` with its logits upcast to fp32, then ``F.cross_entropy``.
@@ -1325,24 +1347,22 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
 
     # B8 at [B T, D] bf16, the shape each of its 33 launches a step has.
     gain = torch.randn(d, generator=gen).cuda() * 0.1 + 1.0
-    gain16 = gain.to(torch.bfloat16)
     r_got = rn.rmsnorm_forward(x, gain)
     r_want = rn.rmsnorm_reference(x, gain)
     errs["rmsnorm"] = float((r_got.float() - r_want.float()).abs().max())
     agree = agree and torch.allclose(r_got.float(), r_want.float(),
                                      rtol=2.0 ** -7, atol=0.0)
-    r_bytes = 2 * n * d * 2 + d * 4
-    r_ops = 4 * n * d
-    r_tb = r_bytes / HBM_BYTES_PER_S * 1e3
-    r_to = r_ops / BF16_FLOPS * 1e3
-    rows["rmsnorm"] = dict(
-        ms=graph_ms(torch, lambda: rn.rmsnorm_forward(x, gain)),
-        plain_ms=event_ms(torch, lambda: rn.rmsnorm_reference(x, gain)),
-        library_ms=graph_ms(torch, lambda: F.rms_norm(x, (d,), gain16,
-                                                      1e-6)),
-        bound=(max(r_tb, r_to), "bytes" if r_tb >= r_to else "operations",
-               r_ops, r_bytes, r_to, r_tb))
-    del x, gain, gain16, r_got, r_want
+    rows["rmsnorm"] = rmsnorm_row(torch, F, rn, x, gain)
+    # And at the shape of its own path, the swapped fp32 step's [B T, D]
+    # (batch 4), where the launch outweighs the bytes.
+    x32 = torch.randn((4 * t, d), generator=gen).cuda()
+    r32 = rn.rmsnorm_forward(x32, gain)
+    errs["rmsnorm_fp32"] = float(
+        (r32 - rn.rmsnorm_reference(x32, gain)).abs().max())
+    agree = agree and torch.allclose(r32, rn.rmsnorm_reference(x32, gain),
+                                     rtol=1e-6, atol=1e-7)
+    rows["rmsnorm_fp32"] = rmsnorm_row(torch, F, rn, x32, gain)
+    del x, x32, r32, gain, r_got, r_want
 
     # A backward pass is held to the library's backward with the passes it
     # shares that call with: the library computes every gradient at once.
@@ -1359,7 +1379,8 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
     doc = {"phase": "train_timings",
            "shape": {"BH": bh, "T": t, "Dh": dh, "dtype": "bfloat16",
                      "batch": b, "heads": h, "xent_N": n, "xent_V": vocab,
-                     "xent_D": d, "rmsnorm": [n, d]},
+                     "xent_D": d, "rmsnorm": [n, d],
+                     "rmsnorm_fp32": [4 * t, d]},
            "timing": "every kernel (flash, attention_delta, xent, B8) and "
                      "its yardstick (SDPA's forward and backward, the "
                      "library xent's forward and backward, rms_norm): "
@@ -1394,7 +1415,9 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
                             "byte_bound_ms": r["bound"][5],
                             "achieved_TFLOPs": r["bound"][2] / r["ms"] / 1e9,
                             "achieved_GBps": r["bound"][3] / r["ms"] / 1e6,
-                            "max_abs_err": errs[n_]}
+                            "max_abs_err": errs[n_],
+                            **{k_: r[k_] for k_ in ("shape", "dtype")
+                               if k_ in r}}
                        for n_, r in rows.items()},
            "library": {"flash": "torch.nn.functional.scaled_dot_product_"
                                 "attention(is_causal=True): forward for "
@@ -1404,8 +1427,8 @@ def phase_train_timings(torch, np, fa, xe, rn, training, ttr, tcfg_flag):
                                "backward alone (dx and dE in one "
                                "autograd.grad, the forward outside the "
                                "clock) for both backward rows",
-                       "rmsnorm": "torch.nn.functional.rms_norm, bf16 "
-                                  "weight"},
+                       "rmsnorm": "torch.nn.functional.rms_norm, its "
+                                  "weight in x's dtype"},
            **unfused,
            "mfu_formula": "(6 params tokens + 6 x causal attention matmul "
                           "FLOPs of the forward's 2) / step / 989 TFLOP/s",
@@ -1872,6 +1895,24 @@ def main() -> int:
                 "library_ms": k["library_ms"],
                 "ratio_to_library": k["ratio_to_library"], "ok": True,
             })
+            if kname == "rmsnorm":
+                f32 = tt["kernels"]["rmsnorm_fp32"]
+                kernels[-1]["fp32_swapped_step_shape"] = {
+                    k_: f32[k_] for k_ in ("shape", "ms", "plain_ms",
+                                           "library_ms", "ratio_to_library",
+                                           "bound_ms", "bound_by",
+                                           "max_abs_err")}
+            if kname == "xent_fwd":
+                kernels[-1]["status"] = (
+                    "redesigned (wgmma on a TMA-fed mbarrier ring of "
+                    "K-chunks, 128 resident rows in two consumer "
+                    "warpgroups, a producer warpgroup, two score tiles in "
+                    "flight)")
+            if kname == "rmsnorm":
+                kernels[-1]["status"] = (
+                    "redesigned (rows held in registers, several a warp, "
+                    "x read once with no L1 allocation, the gain in "
+                    "registers, a grid capped at the SMs' occupancy)")
             if kname in ("xent_bwd_dx", "xent_bwd_de"):
                 kernels[-1]["status"] = (
                     "redesigned (wgmma on a TMA-fed mbarrier ring, 64 "

@@ -15,15 +15,27 @@
 //
 // Bound. At the flagship training shape ([32768, 512] bf16) one launch
 // reads x (33.5 MB) and the gain and writes y (33.5 MB): 0.020 ms at
-// 3.35 TB/s; its 3 N D operations are nothing beside that. Bound by the
-// bytes.
+// 3.35 TB/s; its 4 N D operations are nothing beside that. Bound by the
+// bytes, so the design keeps many bytes in flight and touches each once.
 //
-// Design. One warp per row, 8 rows a 256-thread CTA. Lanes read the row in
-// 16-byte vectors (8 bf16 or 4 fp32 values; scalars when D or an address
-// does not allow it), neighbouring lanes on neighbouring addresses. The
-// first pass sums the squares and reduces them across the warp with
-// shuffles; the second re-reads the row (from L1, a row is at most a few
-// KB) and writes y. x is read from device memory once.
+// Design. A warp takes ROWS rows at a time and holds them in registers:
+// lane l reads vectors l, l + 32, .. (NV of them) of each row, 16 bytes
+// each (8 bf16 or 4 fp32 values; scalars when D or an address does not
+// allow it), neighbouring lanes on neighbouring addresses, all ROWS x NV
+// loads issued before the first square is summed. The sum of squares
+// reduces across the warp with shuffles, and y is written from the same
+// registers: x is read once, as ld.global.nc.L1::no_allocate (read-only,
+// not kept in L1). y is stored plainly, so that it stays in L2 for the
+// product that reads it next. ROWS and NV come from D (at most 32
+// registers of row data a lane): at [*, 512] bf16 NV = 2 and ROWS = 4,
+// 128 bytes in flight a lane; at [*, 512] fp32 NV = 4 and ROWS = 2. A row
+// wider than 32 NV vectors is taken in segments of that width, its
+// earlier segments read a second time. The gain, rounded to the dtype,
+// is read once a warp and kept in registers. CTAs of 8 warps; the grid
+// is as many CTAs as the rows need, capped at what the SMs hold at once,
+// and each warp walks the row groups with that stride, so a small N
+// (the swapped step's [2048, 512]) spreads over as many SMs as it can
+// and a large one runs in waves of full SMs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,78 +60,166 @@ __device__ __forceinline__ bf16 from_float<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// VEC values of a row at column c: one 16-byte load, or one scalar.
+// VEC values of a row: one 16-byte vector, or one scalar.
 template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(T (&out)[VEC], const T* p) {
-  if constexpr (VEC == 1) {
-    out[0] = *p;
-  } else {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const T* vals = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) out[k] = vals[k];
-  }
-}
+struct alignas(VEC == 1 ? alignof(T) : 16) Chunk {
+  T v[VEC];
+};
 
+// Read-only, and not kept in L1: x is read once.
 template <typename T, int VEC>
-__device__ __forceinline__ void store_vec(T* p, const T (&in)[VEC]) {
+__device__ __forceinline__ Chunk<T, VEC> load_x(const T* p) {
+  Chunk<T, VEC> c;
   if constexpr (VEC == 1) {
-    *p = in[0];
+    c.v[0] = *p;
   } else {
     uint4 raw;
-    T* vals = reinterpret_cast<T*>(&raw);
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) vals[k] = in[k];
-    *reinterpret_cast<uint4*>(p) = raw;
+    asm volatile(
+        "ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(raw.x), "=r"(raw.y), "=r"(raw.z), "=r"(raw.w) : "l"(p));
+    c = *reinterpret_cast<const Chunk<T, VEC>*>(&raw);
   }
+  return c;
 }
 
 template <typename T, int VEC>
+__device__ __forceinline__ void store_y(T* p, const Chunk<T, VEC>& c) {
+  if constexpr (VEC == 1) {
+    *p = c.v[0];
+  } else {
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(&c);
+  }
+}
+
+// The gain at the lane's columns of the segment starting at c0, rounded
+// to the dtype.
+template <typename T, int VEC, int NV>
+__device__ __forceinline__ void load_gain(T (&gd)[NV][VEC],
+                                          const float* __restrict__ gain,
+                                          int c0, int lane, int d) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const int c = c0 + (32 * j + lane) * VEC + k;
+      gd[j][k] = from_float<T>(c < d ? gain[c] : 0.f);
+    }
+}
+
+template <typename T, int VEC, int NV, int ROWS>
 __global__ void __launch_bounds__(32 * kWarps)
 rmsnorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gain,
                    T* __restrict__ y, int n, int d) {
+  constexpr int kSpan = 32 * VEC * NV;  // the columns a warp holds of a row
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n) return;  // whole warps only: the shuffles below stay full
-  const T* xr = x + static_cast<size_t>(row) * d;
-  T* yr = y + static_cast<size_t>(row) * d;
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int stride = gridDim.x * kWarps * ROWS;
+  const int segs = (d + kSpan - 1) / kSpan;  // 1 unless D is past the budget
 
-  float ss = 0.f;
-  for (int c = lane * VEC; c < d; c += 32 * VEC) {
-    T v[VEC];
-    load_vec<T, VEC>(v, xr + c);
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      const float f = to_float(v[k]);
-      ss += __fmul_rn(f, f);  // the square rounded, not fused into the sum
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  const float scale = rsqrtf(ss / static_cast<float>(d) + kEps);
-  const float sc = to_float(from_float<T>(scale));  // the scale in the dtype
+  T gd[NV][VEC];
+  load_gain<T, VEC, NV>(gd, gain, 0, lane, d);
+  Chunk<T, VEC> v[ROWS][NV];
 
-  for (int c = lane * VEC; c < d; c += 32 * VEC) {
-    T v[VEC];
-    load_vec<T, VEC>(v, xr + c);
+  // Rows r0 .. r0 + ROWS - 1 (those below n) of segment seg into v.
+  auto load = [&](int r0, int seg) {
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      const float xs = to_float(from_float<T>(__fmul_rn(to_float(v[k]), sc)));
-      const float gd = to_float(from_float<T>(gain[c + k]));
-      v[k] = from_float<T>(__fmul_rn(xs, gd));
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int c = seg * kSpan + (32 * j + lane) * VEC;
+        if (r0 + r < n && c < d)
+          v[r][j] = load_x<T, VEC>(x + static_cast<size_t>(r0 + r) * d + c);
+        else
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) v[r][j].v[k] = from_float<T>(0.f);
+      }
+  };
+
+  // Whole warps walk the row groups, so the shuffles below stay full.
+  for (int r0 = warp * ROWS; r0 < n; r0 += stride) {
+    float ss[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) ss[r] = 0.f;
+    for (int seg = 0; seg < segs; ++seg) {
+      load(r0, seg);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int j = 0; j < NV; ++j)
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            const float f = to_float(v[r][j].v[k]);
+            ss[r] += __fmul_rn(f, f);  // the square rounded, not fused
+          }
     }
-    store_vec<T, VEC>(yr + c, v);
+    float sc[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        ss[r] += __shfl_xor_sync(0xffffffffu, ss[r], off);
+      const float scale = rsqrtf(ss[r] / static_cast<float>(d) + kEps);
+      sc[r] = to_float(from_float<T>(scale));  // the scale in the dtype
+    }
+    // The last segment is still in v; earlier ones are read again.
+    for (int seg = segs - 1; seg >= 0; --seg) {
+      if (seg != segs - 1) load(r0, seg);
+      if (segs > 1) load_gain<T, VEC, NV>(gd, gain, seg * kSpan, lane, d);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          const int c = seg * kSpan + (32 * j + lane) * VEC;
+          if (r0 + r >= n || c >= d) continue;
+          Chunk<T, VEC> out;
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            const float xs = to_float(
+                from_float<T>(__fmul_rn(to_float(v[r][j].v[k]), sc[r])));
+            out.v[k] = from_float<T>(__fmul_rn(xs, to_float(gd[j][k])));
+          }
+          store_y<T, VEC>(y + static_cast<size_t>(r0 + r) * d + c, out);
+        }
+    }
   }
 }
 
-template <typename T, int VEC>
+// NV 16-byte vectors a lane per row; ROWS rows a warp at a time, at most
+// 8 vectors (32 registers) of row data a lane.
+template <typename T, int VEC, int NV>
 int launch(const void* x, const float* gain, void* y, int n, int d,
            cudaStream_t stream) {
-  const int grid = (n + kWarps - 1) / kWarps;
-  rmsnorm_fwd_kernel<T, VEC><<<grid, 32 * kWarps, 0, stream>>>(
+  constexpr int kRowsAtOnce = NV >= 8 ? 1 : (8 / NV > 4 ? 4 : 8 / NV);
+  const auto kernel = rmsnorm_fwd_kernel<T, VEC, NV, kRowsAtOnce>;
+  static int per_sm = 0;  // CTAs an SM holds at once
+  if (per_sm == 0) {
+    if (int rc = static_cast<int>(
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kernel, 32 * kWarps, 0)))
+      return rc;
+  }
+  int dev = 0, sms = 0;
+  if (int rc = static_cast<int>(cudaGetDevice(&dev))) return rc;
+  if (int rc = static_cast<int>(cudaDeviceGetAttribute(
+          &sms, cudaDevAttrMultiProcessorCount, dev)))
+    return rc;
+  const long long groups = (n + kRowsAtOnce - 1) / kRowsAtOnce;
+  const long long want = (groups + kWarps - 1) / kWarps;
+  const int grid = static_cast<int>(
+      want < static_cast<long long>(sms) * per_sm ? want : sms * per_sm);
+  kernel<<<grid, 32 * kWarps, 0, stream>>>(
       static_cast<const T*>(x), gain, static_cast<T*>(y), n, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC>
+int launch_width(const void* x, const float* gain, void* y, int n, int d,
+                 cudaStream_t stream) {
+  const int per_lane = (d + 32 * VEC - 1) / (32 * VEC);
+  if (per_lane <= 1) return launch<T, VEC, 1>(x, gain, y, n, d, stream);
+  if (per_lane <= 2) return launch<T, VEC, 2>(x, gain, y, n, d, stream);
+  if (per_lane <= 4) return launch<T, VEC, 4>(x, gain, y, n, d, stream);
+  return launch<T, VEC, 8>(x, gain, y, n, d, stream);
 }
 
 bool aligned16(const void* p) {
@@ -139,9 +239,9 @@ extern "C" int kvedge_rmsnorm_fwd(int dtype_code, const void* x,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = aligned16(x) && aligned16(y);
   if (dtype_code == 0) {
-    if (vec && d % 4 == 0) return launch<float, 4>(x, gain, y, n, d, st);
-    return launch<float, 1>(x, gain, y, n, d, st);
+    if (vec && d % 4 == 0) return launch_width<float, 4>(x, gain, y, n, d, st);
+    return launch_width<float, 1>(x, gain, y, n, d, st);
   }
-  if (vec && d % 8 == 0) return launch<bf16, 8>(x, gain, y, n, d, st);
-  return launch<bf16, 1>(x, gain, y, n, d, st);
+  if (vec && d % 8 == 0) return launch_width<bf16, 8>(x, gain, y, n, d, st);
+  return launch_width<bf16, 1>(x, gain, y, n, d, st);
 }

@@ -14,7 +14,13 @@
 // Rounding points, each the reference's:
 //   forward: s = x . E^T accumulated in fp32 and never rounded; an fp32
 //            running max m and sum l over the vocab, lse = m + log(l);
-//            the target logit is s at the target column, exactly.
+//            the target logit is s at the target column, exactly. The
+//            bf16 kernel keeps m in log2 units (max(s) log2 e, rounded
+//            once), takes exp(s - max) as 2^(s log2 e - m) on the
+//            hardware's ex2 (within a few fp32 ulps) and lse as
+//            m ln 2 + log(l); each thread keeps its own m and l over its
+//            columns until the end, where the four lanes of a row
+//            combine theirs.
 //   dx:      p = exp(s - lse) in fp32 (the bf16 kernels take it as
 //            2^((s - lse) log2 e) on the hardware's ex2, within a few
 //            fp32 ulps), ds = (p - onehot) * g in fp32,
@@ -30,32 +36,30 @@
 // 2.15 TFLOP for each backward pass: 1.09 / 2.17 / 2.17 ms at the 989
 // TFLOP/s bf16 tensor-core peak, against 66.6 / 66.9 / 99.6 MB read once
 // and written once (0.02-0.03 ms at 3.35 TB/s). All three are bound by
-// the operations.
+// the operations. The forward also takes N V exponentials (1.05e9 at
+// that shape, ~0.3 ms of the SM's ex2 units), which it overlaps with
+// its products.
 //
 // Design. The TPU kernels carry their state across a sequential grid axis
 // in VMEM; here one CTA owns a tile of resident rows and loops over every
 // tile of the other operand inside itself, so nothing is carried between
-// CTAs and there are no atomics: the backward run twice is bit-identical.
-//   forward: a CTA owns 32 rows of x and streams E in 64-row tiles,
-//            keeping the running max, sum and target logit of its rows.
+// CTAs and there are no atomics: every pass run twice is bit-identical.
+//   forward: a CTA owns rows of x and streams E, keeping the running
+//            max, sum and target logit of its rows.
 //   dx:      a CTA owns rows of x and streams E; per tile it forms ds
 //            [rows x 64] and accumulates dx [rows x D] += ds . E_tile.
 //   dE:      a CTA owns rows of E and streams x in 64-row tiles; per
 //            tile it forms ds^T [rows x 64] and accumulates
 //            dE [rows x D] += ds^T . x_tile.
-// The bf16 backward (B6, B7) is built for Hopper: 64 resident rows, the
-// streamed tiles by TMA into an mbarrier ring, both products on wgmma
-// (section "bf16, B6 and B7" below). The
-// bf16 forward (B5) runs on the tensor cores with mma.sync m16n8k16 (bf16
-// operands, fp32 accumulation): 8 warps, 32 resident rows; for the score
-// tile warp w owns rows 16 (w & 1) .. +15 and columns 16 (w >> 1) .. +15,
-// so a row's online softmax spans 4 warps and its max and sum are
-// combined through shared memory; its tiles are loaded synchronously.
-// fp32 has no tensor-core path of full fp32 precision (TF32 would round
-// the operands), so it runs on the CUDA cores with fp32 FMA: 32 resident
-// rows, thread (ty, tx) of 16 x 16 owns score rows ty + 16 i (i < 2) and
-// columns tx + 16 j (j < 4), so a row's max and sum reduce over a
-// half-warp, and output columns tx + 16 c.
+// bf16 is built for Hopper: resident rows and streamed tiles by TMA, the
+// streamed ones through a ring of stages guarded by mbarriers, products
+// on wgmma, a producer warpgroup and two consumer warpgroups whose
+// registers setmaxnreg moves (sections "bf16, B5" and "bf16, B6 and B7"
+// below). fp32 has no tensor-core path of full fp32 precision (TF32
+// would round the operands), so it runs on the CUDA cores with fp32 FMA:
+// 32 resident rows, thread (ty, tx) of 16 x 16 owns score rows ty + 16 i
+// (i < 2) and columns tx + 16 j (j < 4), so a row's max and sum reduce
+// over a half-warp, and output columns tx + 16 c.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -67,9 +71,10 @@
 
 namespace {
 
+// The fp32 kernels' tiles.
 constexpr int kRows = 32;      // resident rows of a CTA
 constexpr int kCols = 64;      // rows of a streamed tile (score columns)
-constexpr int kThreads = 256;  // 8 warps; 16 x 16 on the fp32 path
+constexpr int kThreads = 256;  // 16 x 16
 constexpr int kLdsF32 = kCols + 1;   // row stride of the fp32 ds tile
 
 __device__ __forceinline__ float half_warp_max(float x) {
@@ -84,14 +89,6 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 4);
   x += __shfl_xor_sync(0xffffffffu, x, 2);
   return x + __shfl_xor_sync(0xffffffffu, x, 1);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[i][e] = 0.f;
 }
 
 // ds = (exp(s - lse) - onehot) * g for one score, 0 where `valid` is false.
@@ -297,181 +294,6 @@ xent_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ e,
     float* orow = out + static_cast<size_t>(row) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) orow[tx + 16 * c] = acc[i][c];
-  }
-}
-
-// ---- bf16: tensor-core tiles (mma.sync m16n8k16, fp32 accumulation) -----
-//
-// Shared-memory rows are padded by 8 elements so that the fragment loads
-// of a warp fall on 32 different banks. Accumulator element e of n tile
-// nt sits at tile row g + 8 (e / 2) and tile column 8 nt + 2 t + e % 2,
-// with (g, t) = (lane / 4, lane % 4).
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d (16 x 8, fp32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col).
-__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// ROWS rows of a [.., D] bf16 array into shared memory, row stride D + 8,
-// in 16-byte vectors; rows at or past `nrows` read as zero.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_bf16(bf16* dst,
-                                          const bf16* __restrict__ src,
-                                          int row0, int nrows) {
-  constexpr int LD = D + 8;
-  constexpr int V = D / 8;
-  for (int i = threadIdx.x; i < ROWS * V; i += kThreads) {
-    const int r = i / V;
-    const int c = (i % V) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < nrows)
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// s[nt] = A[16 rg + 0..15, :] . B[16 cg + 8 nt + 0..7, :]^T (nt < 2): the
-// warp's 16 x 16 block of the [32 x 64] score tile, A and B row-major.
-template <int D>
-__device__ __forceinline__ void score_bf16(float (&s)[2][4], const bf16* A,
-                                           const bf16* B, int rg, int cg,
-                                           int g, int t) {
-  constexpr int LD = D + 8;
-  zero(s);
-  const bf16* a = A + (16 * rg + g) * LD + 2 * t;
-  const bf16* b = B + (16 * cg + g) * LD + 2 * t;
-#pragma unroll 8
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int kk = kc * 16;
-    const uint32_t a0 = ld32(a + kk);
-    const uint32_t a1 = ld32(a + 8 * LD + kk);
-    const uint32_t a2 = ld32(a + kk + 8);
-    const uint32_t a3 = ld32(a + 8 * LD + kk + 8);
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const bf16* y = b + 8 * nt * LD + kk;
-      mma16816(s[nt], a0, a1, a2, a3, ld32(y), ld32(y + 8));
-    }
-  }
-}
-
-// ---- bf16, B5: forward -----------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-xent_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ e,
-                     const int* __restrict__ tgt, float* __restrict__ lse,
-                     float* __restrict__ tlogit, int n, int v) {
-  constexpr int LD = D + 8;
-  extern __shared__ uint4 smem_vec[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem_vec);  // [kRows][LD]
-  bf16* Es = Xs + kRows * LD;                    // [kCols][LD]
-  // Per-row partials of the 4 column groups: the tile max, then the sum.
-  __shared__ float part_max[4][kRows], part_sum[4][kRows];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int rg = warp & 1;
-  const int cg = warp >> 1;
-  const int row0 = blockIdx.x * kRows;
-  load_bf16<D, kRows>(Xs, x, row0, n);
-
-  int tg[2];
-  float m[2], l[2], tl[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + 16 * rg + g + 8 * h;
-    tg[h] = row < n ? tgt[row] : -1;
-    m[h] = -INFINITY;
-    l[h] = 0.f;
-    tl[h] = 0.f;
-  }
-
-  for (int c0 = 0; c0 < v; c0 += kCols) {
-    __syncthreads();  // the previous tile and partials are no longer read
-    load_bf16<D, kCols>(Es, e, c0, v);
-    __syncthreads();
-    float s[2][4];
-    score_bf16<D>(s, Xs, Es, rg, cg, g, t);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int h = q >> 1;
-        const int col = c0 + 16 * cg + 8 * nt + 2 * t + (q & 1);
-        if (col >= v) {
-          s[nt][q] = -INFINITY;
-        } else if (col == tg[h]) {
-          tl[h] += s[nt][q];  // the one target column: exact
-        }
-        mx[h] = fmaxf(mx[h], s[nt][q]);
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = quad_max(mx[h]);
-      if (t == 0) part_max[cg][16 * rg + g + 8 * h] = mx[h];
-    }
-    __syncthreads();
-    float m_new[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 16 * rg + g + 8 * h;
-      // Column c0 of every tile is in range, so m_new is finite.
-      m_new[h] = fmaxf(m[h], fmaxf(fmaxf(part_max[0][r], part_max[1][r]),
-                                   fmaxf(part_max[2][r], part_max[3][r])));
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) sum[q >> 1] += expf(s[nt][q] - m_new[q >> 1]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] = quad_sum(sum[h]);
-      if (t == 0) part_sum[cg][16 * rg + g + 8 * h] = sum[h];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 16 * rg + g + 8 * h;
-      l[h] = l[h] * expf(m[h] - m_new[h]) +
-             ((part_sum[0][r] + part_sum[1][r]) +
-              (part_sum[2][r] + part_sum[3][r]));
-      m[h] = m_new[h];
-    }
-  }
-
-  // The target logit: one column group holds it, the others add zeros.
-  __syncthreads();
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    tl[h] = quad_sum(tl[h]);
-    if (t == 0) part_sum[cg][16 * rg + g + 8 * h] = tl[h];
-  }
-  __syncthreads();
-  if (cg == 0 && t == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 16 * rg + g + 8 * h;
-      const int row = row0 + r;
-      if (row >= n) continue;
-      lse[row] = m[h] + logf(l[h]);
-      tlogit[row] = (part_sum[0][r] + part_sum[1][r]) +
-                    (part_sum[2][r] + part_sum[3][r]);
-    }
   }
 }
 
@@ -786,6 +608,254 @@ xent_bwd_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
+// ---- bf16, B5: the forward on wgmma over a TMA ring -----------------------
+//
+// A CTA of three warpgroups owns 128 resident rows of x, which one TMA
+// load per 64-column panel brings at the start: N / 128 CTAs (256 at the
+// flagship shape), so E crosses from L2 into shared memory N / 128 times
+// (8.4 GB a launch there). Each of the two consumer warpgroups owns 64 of
+// the rows; the producer warpgroup, its registers dropped to 40 by
+// setmaxnreg so that the consumers may hold 232, streams E through a ring
+// of kFwdStages stages guarded by mbarriers. A stage is a K-chunk of a
+// score tile: 128 rows of E (the tile's score columns) by 64 columns of D
+// (16 KB, one 128-byte swizzled panel), so a tile takes D / 64 stages.
+// Both consumers read every stage, and it is refilled once all eight of
+// their warps have released it.
+//
+// Shared memory at D 512: the resident rows 128 x 512 x 2 = 128 KB, the
+// ring 6 x 16 KB = 96 KB and 1 KB of slack to align the tiles for the
+// swizzle: 225 KB of the 227 KB a block may use, one CTA an SM. (A whole
+// [64 x 512] tile a stage would leave room for one stage only.)
+//
+// A consumer computes its [64 x 128] fp32 score tile S = x . E_tile^T with
+// wgmma m64n128k16, both operands K-major in shared memory, four per
+// K-chunk, one commit group per K-chunk. It keeps two score tiles in
+// registers (2 x 64 a thread, and a copy of the older one): after it
+// issues K-chunk k of tile j it waits until only the last kLag groups
+// run and releases the stage of chunk k - kLag; after chunk kLag - 1 it
+// folds tile j - 1 into its rows' running state while those kLag chunks
+// of tile j run on the tensor cores. The fold reads a copy of tile j -
+// 1's accumulator taken before tile j's first product issues, and a tile
+// ends with no product running (the last kLag stages are released then):
+// a fold on the accumulator itself, or products running where the code's
+// paths join, make ptxas serialize every wgmma (C7515). (FlashAttention-3's ping-pong, the two
+// consumers taking turns, would make the lagging one hold a whole tile
+// of stages: D / 64 = 8 at D 512, more than the ring has.) Folding a tile:
+// columns at or past V (TMA fills E's rows past V with zeros, a score of
+// 0) become -inf; the target logit is added where the tile holds it; then
+// each thread updates its own running max and sum over the 32 columns of
+// each of its two rows (no shuffle and no barrier inside the loop), the
+// max kept as m = max(s) log2 e, rounded once, and each score's term taken
+// as 2^(s log2 e - m) by one fma and one ex2. At the end the four lanes of
+// a row combine theirs: m = max m_t, l = sum l_t 2^(m_t - m), and lse =
+// m ln 2 + log(l). Rows past N compute on zeros and write nothing.
+
+constexpr int kFwdRows = 128;   // resident rows of a CTA (64 a consumer)
+constexpr int kFwdCols = 128;   // score columns of a tile (rows of E)
+constexpr int kFwdStages = 6;   // K-chunks of E in flight
+constexpr int kFwdLag = 3;      // K-chunk products left running at a fold
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct FwdShape {
+  static constexpr int kChunks = D / 64;             // K-chunks of a tile
+  static constexpr int kPanelBytes = kFwdRows * 128;  // x: 128 rows x 64
+  static constexpr int kChunkBytes = kFwdCols * 128;  // E: 128 rows x 64
+  static constexpr int kLag = kFwdLag < kChunks ? kFwdLag : kChunks;
+  static constexpr int kConsumers = 256;
+  static constexpr int kConsumerWarps = kConsumers / 32;  // release a stage
+  static constexpr int kThreads = kConsumers + 128;  // and the producer's
+  static constexpr int kSmem = 1024 + kChunks * kPanelBytes +
+                               kFwdStages * kChunkBytes;
+};
+
+template <int D>
+__global__ void __launch_bounds__(FwdShape<D>::kThreads, 1)
+xent_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_e,
+                     const int* __restrict__ tgt, float* __restrict__ lse,
+                     float* __restrict__ tlogit, int n, int v) {
+  using L = FwdShape<D>;
+  constexpr int S = kFwdStages;
+  extern __shared__ uint8_t fwd_smem[];
+  // bars: [0] the resident rows, then S "full" and S "empty" barriers.
+  __shared__ __align__(8) uint64_t bars[1 + 2 * S];
+  const uint32_t sa = (smem_u32(fwd_smem) + 1023u) & ~1023u;  // x panels
+  const uint32_t sb = sa + L::kChunks * L::kPanelBytes;         // the ring
+  const uint32_t bar_x = smem_u32(bars);
+  const uint32_t full = bar_x + 8u;
+  const uint32_t empty = full + 8u * S;
+
+  const int tid = threadIdx.x;
+  // Uniform across the warp by a shuffle, or ptxas serializes the wgmmas
+  // (C7520).
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int row0 = blockIdx.x * kFwdRows;
+  const int n_tiles = (v + kFwdCols - 1) / kFwdCols;
+
+  if (tid == 0) {
+    mbar_init(bar_x, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8u * s, 1);
+      mbar_init(empty + 8u * s, L::kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers are initialized before any use
+
+  if (wg == 2) {
+    // The producer warpgroup: one lane issues every load. Stage s takes
+    // chunk q once every consumer warp has released chunk q - S.
+    setmaxnreg_dec<40>();
+    if (tid == L::kConsumers) {
+      mbar_expect_tx(bar_x, L::kChunks * L::kPanelBytes);
+      for (int p = 0; p < L::kChunks; ++p)
+        tma_load_2d(sa + p * L::kPanelBytes, &map_x, bar_x, 64 * p, row0);
+      int s = 0, phase = 0;
+      for (int j = 0; j < n_tiles; ++j)
+        for (int k = 0; k < L::kChunks; ++k) {
+          if (j * L::kChunks + k >= S) mbar_wait(empty + 8u * s, phase ^ 1);
+          mbar_expect_tx(full + 8u * s, L::kChunkBytes);
+          tma_load_2d(sb + s * L::kChunkBytes, &map_e, full + 8u * s, 64 * k,
+                      j * kFwdCols);
+          if (++s == S) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+    }
+    __syncwarp();
+  } else {
+    setmaxnreg_inc<232>();
+    const int lt = tid & 127;
+    const int lane = tid & 31;
+    const int r0 = 16 * (lt >> 5) + (lane >> 2);  // rows r0, r0 + 8
+    const int t4 = lane & 3;
+    const int rows = row0 + 64 * wg;  // the warpgroup's first row
+    int tg[2];
+    float m[2], l[2], tl[2];  // the thread's max (x log2 e), sum, target logit
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = rows + r0 + 8 * h;
+      tg[h] = row < n ? tgt[row] : -1;
+      m[h] = -INFINITY;
+      l[h] = 0.f;
+      tl[h] = 0.f;
+    }
+    // Element i of a wgmma accumulator sits at tile row r0 + 8 ((i / 2) %
+    // 2) and column 8 (i / 4) + 2 t4 + i % 2.
+    float acc0[64], acc1[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+    // Its rows of every panel of x, as a wgmma descriptor.
+    const uint64_t da = smem_desc(sa + 64 * wg * 128, 16, 1024, 1);
+
+    // Tile j's scores, in sc, into the running state of the thread's
+    // columns of its two rows.
+    auto fold = [&](float (&sc)[64], int j) {
+      const int c0 = j * kFwdCols + 2 * t4;
+      if ((j + 1) * kFwdCols > v) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          if (c0 + 8 * (i >> 2) + (i & 1) >= v) sc[i] = -INFINITY;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int tc = tg[h] - c0;  // the target's column in this tile
+        if (tc >= 0 && tc < kFwdCols) {
+#pragma unroll
+          for (int c = 0; c < 16; ++c)
+#pragma unroll
+            for (int k = 0; k < 2; ++k)
+              if (8 * c + k == tc) tl[h] += sc[4 * c + 2 * h + k];  // exact
+        }
+        float mx = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < 16; ++c)
+          mx = fmaxf(mx, fmaxf(sc[4 * c + 2 * h], sc[4 * c + 2 * h + 1]));
+        // m is kept as max * log2 e, rounded once, so that a tile that
+        // leaves it unchanged rescales l by exactly 1. It is -inf only
+        // while every column the thread has seen is past V.
+        const float m_new = fmaxf(m[h], mx * kLog2e);
+        const float base = m_new == -INFINITY ? 0.f : m_new;
+        float sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int c = 0; c < 16; ++c)
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            sum[k] += ex2(fmaf(sc[4 * c + 2 * h + k], kLog2e, -base));
+        l[h] = l[h] * ex2(m[h] - base) + (sum[0] + sum[1]);
+        m[h] = m_new;
+      }
+    };
+
+    int s = 0, phase = 0, rs = 0;  // the next chunk's stage; the release's
+    auto release = [&] {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8u * rs);
+      if (++rs == S) rs = 0;
+    };
+    // Tile j into cur, K-chunk by K-chunk, while tile j - 1 is folded
+    // from a copy of prev taken before tile j's first product issues.
+    // ptxas serializes the wgmmas (C7515) if the fold touches prev's
+    // registers while tile j's products run, or if products still run
+    // where the loop's paths join; so a step ends with none running.
+    auto step = [&](float (&cur)[64], const float (&prev)[64], int j) {
+      float held[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) held[i] = prev[i];
+#pragma unroll
+      for (int k = 0; k < L::kChunks; ++k) {
+        mbar_wait(full + 8u * s, phase);
+        fence_regs(cur);
+        wgmma_fence();
+        const uint64_t db = smem_desc(sb + s * L::kChunkBytes, 16, 1024, 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // a descriptor counts 16 bytes
+          wgmma_ss_n128(cur, da + (k * L::kPanelBytes + kk * 32) / 16,
+                        db + 2 * kk, k > 0 || kk > 0);
+        wgmma_commit();
+        fence_regs(cur);
+        wgmma_wait<L::kLag>();
+        if (k >= L::kLag) release();  // chunk k - kLag is read
+        if (++s == S) {
+          s = 0;
+          phase ^= 1;
+        }
+        if (k == L::kLag - 1 && j > 0) fold(held, j - 1);
+      }
+      wgmma_wait<0>();
+      fence_regs(cur);
+      for (int k = 0; k < L::kLag; ++k) release();
+    };
+
+    mbar_wait(bar_x, 0);
+    for (int j = 0; j < n_tiles; j += 2) {
+      step(acc0, acc1, j);
+      if (j + 1 < n_tiles) step(acc1, acc0, j + 1);
+    }
+    if (n_tiles & 1) {
+      fold(acc0, n_tiles - 1);
+    } else {
+      fold(acc1, n_tiles - 1);
+    }
+
+    // The four lanes of a row combine their states; column 0 is the
+    // first lane's, so m is finite. lse = m ln 2 + log(l), m in log2 units.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mr = quad_max(m[h]);
+      const float sum = quad_sum(l[h] * ex2(m[h] - mr));
+      const float t = quad_sum(tl[h]);
+      const int row = rows + r0 + 8 * h;
+      if (t4 == 0 && row < n) {
+        lse[row] = mr * kLn2 + logf(sum);
+        tlogit[row] = t;
+      }
+    }
+  }
+}
+
 // ---- launchers ---------------------------------------------------------------
 
 constexpr int f32_bytes(int d, bool ds) {
@@ -793,30 +863,7 @@ constexpr int f32_bytes(int d, bool ds) {
          static_cast<int>(sizeof(float));
 }
 
-constexpr int bf16_bytes(int d) {
-  return (kRows + kCols) * (d + 8) * static_cast<int>(sizeof(bf16));
-}
-
 int blocks(int rows) { return (rows + kRows - 1) / kRows; }
-
-template <int D>
-int fwd(int dtype_code, const void* x, const void* e, const int* tgt,
-        float* lse, float* tlogit, int n, int v, cudaStream_t stream) {
-  if (dtype_code == 0) {
-    const int smem = f32_bytes(D, false);
-    if (int rc = launch_setup(xent_fwd_f32_kernel<D>, smem)) return rc;
-    xent_fwd_f32_kernel<D><<<blocks(n), kThreads, smem, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(e), tgt, lse,
-        tlogit, n, v);
-  } else {
-    const int smem = bf16_bytes(D);
-    if (int rc = launch_setup(xent_fwd_bf16_kernel<D>, smem)) return rc;
-    xent_fwd_bf16_kernel<D><<<blocks(n), kThreads, smem, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(e), tgt, lse,
-        tlogit, n, v);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The tensor map of a bf16 [rows, D] array in boxes of `box_rows` rows by
 // one 64-column panel, 128-byte swizzled; rows past `rows` read as zeros.
@@ -851,6 +898,36 @@ int encode_vec_map(CUtensorMap* map, const void* ptr, int n,
       fn(map, type, 1, const_cast<void*>(ptr), dims, strides, box, elem,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
          CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// The bf16 forward: one CTA a 128-row resident block.
+template <int D>
+int fwd_bf16(const bf16* x, const bf16* e, const int* tgt, float* lse,
+             float* tlogit, int n, int v, cudaStream_t stream) {
+  using L = FwdShape<D>;
+  CUtensorMap map_x, map_e;
+  if (int rc = encode_rows_map<D>(&map_x, x, n, kFwdRows)) return rc;
+  if (int rc = encode_rows_map<D>(&map_e, e, v, kFwdCols)) return rc;
+  const auto kernel = xent_fwd_bf16_kernel<D>;
+  if (int rc = launch_setup(kernel, L::kSmem)) return rc;
+  kernel<<<(n + kFwdRows - 1) / kFwdRows, L::kThreads, L::kSmem, stream>>>(
+      map_x, map_e, tgt, lse, tlogit, n, v);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int fwd(int dtype_code, const void* x, const void* e, const int* tgt,
+        float* lse, float* tlogit, int n, int v, cudaStream_t stream) {
+  if (dtype_code == 1)
+    return fwd_bf16<D>(static_cast<const bf16*>(x),
+                       static_cast<const bf16*>(e), tgt, lse, tlogit, n, v,
+                       stream);
+  const int smem = f32_bytes(D, false);
+  if (int rc = launch_setup(xent_fwd_f32_kernel<D>, smem)) return rc;
+  xent_fwd_f32_kernel<D><<<blocks(n), kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(e), tgt, lse,
+      tlogit, n, v);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The bf16 backward: one CTA a 64-row resident block.

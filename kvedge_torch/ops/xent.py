@@ -8,7 +8,11 @@ kernels (``_fwd_kernel``, ``_dx_kernel``, ``_de_kernel``) sit behind a
 first use, ``ops/_build.py``) sit behind :class:`_FusedXent`. Neither
 pass writes an ``[N, V]`` tensor: the forward keeps an online max and sum
 over the vocabulary and extracts the target logit as its tile streams
-past; the backward recomputes the probabilities from the saved LSE.
+past; the backward recomputes the probabilities from the saved LSE. In
+bf16 all three run on wgmma over TMA-fed mbarrier rings: the forward with
+128 resident rows a CTA (two consumer warpgroups of 64) and E streamed in
+K-chunks of 128 rows by 64 columns, the backward with 64 resident rows
+and D split between two consumer warpgroups.
 
 Each kernel wrapper (:func:`xent_forward`, :func:`xent_backward_dx`,
 :func:`xent_backward_de`) launches its kernel on a CUDA tensor or
@@ -37,8 +41,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _WIDTHS = (64, 128, 256, 512)
 
 # The reference's block preferences (its TPU tiling). The CUDA kernels
-# tile by their own (32 or 64 resident rows, 64-row streamed tiles), so
-# these blocks are not theirs; the pickers are kept so that what the
+# tile by their own (bf16: 128 resident rows and 128-row K-chunks of E in
+# the forward, 64 and 64-row tiles in the backward; fp32: 32 and 64),
+# so these blocks are not theirs; the pickers are kept so that what the
 # reference refuses is refused here too.
 _VOCAB_BLOCKS = (1280, 1024, 512, 256, 128)
 _ROW_BLOCKS = (1024, 512, 256, 128, 64, 32, 16, 8)

@@ -1,40 +1,59 @@
-"""Time the bf16 fused cross-entropy backward (B6 dx, B7 dE) against other
-versions of its source, and against the library's backward.
+"""Time the bf16 fused cross-entropy forward (B5) and backward (B6 dx,
+B7 dE) against other versions of their source, and against the
+library's forward and backward.
 
-    python -m kvedge_torch.tools.xent_bwd_variants [OTHER.cu ...]
+    python -m kvedge_torch.tools.xent_bwd_variants [--forward | --backward]
+        [OTHER.cu ...]
 
 Needs one CUDA card and ``nvcc``. Builds the shipped ``csrc/xent.cu``,
-its variants (string edits of it: each streamed tile shared by a cluster
-of 2 or 4 CTAs through TMA multicast, a deeper ring, another L2
-promotion) and each ``OTHER.cu`` named on the command line (an earlier
-version of the source, say ``git show HEAD~1:kvedge_torch/ops/csrc/xent.cu``,
-with the ``hopper.cuh`` of its commit beside it where the current one no
-longer builds it) beside them under ``build/kvedge_torch/``; a version
-that does not build is reported and left out. The shipped layout splits
-D between the two consumer warpgroups for the score product as well and
-sums the fp32 partials; the other layout of the design, each warpgroup
-computing half of the score columns over all of D and sharing ds through
-a bf16 tile, is such an older version. Each version's dx and dE passes
-are first held to the plain backward at N 1032, V 32000 and at N 200,
-V 1000 (D 512 and 256, bf16: dx within two bf16 ulps and dE within one
-of their largest entry) and run twice, which must agree bit for bit; one
-that fails or does not launch (a ring too deep for shared memory) is
-reported and not timed.
-A diagnostic drops part of the work (the score product, the gradient
-product, the exponentials, the exchange of the score partials) to show
-its share of the time: its output is wrong, and it is timed all the same.
-``diag_timeline`` writes a record per CTA (flash_fwd_variants.timeline):
-CTAs an SM, the SM clock, and the share of time consumer warps 0-2 waited
-on mbarriers.
+its variants (string edits of it) and each ``OTHER.cu`` named on the
+command line (an earlier version of the source, say ``git show
+HEAD~1:kvedge_torch/ops/csrc/xent.cu``, with the ``hopper.cuh`` of its
+commit beside it where the current one no longer builds it) beside them
+under ``build/kvedge_torch/``; a version that does not build is reported
+and left out. ``--forward`` takes the forward's versions only,
+``--backward`` the backward's; by default both.
+
+Forward versions: a ring of 4 stages for 6; 1, 2 or 4 K-chunk products
+left running while the last tile is folded for 3; the fold after the
+tile's products instead of beside them; the fold on the accumulator
+itself instead of a copy (ptxas then serializes the wgmmas); clusters of
+2 CTAs sharing each K-chunk by TMA multicast. Each is first held to
+the plain forward at N 1032, 200, 136 and 8 (V 32000, 1000, 330, 640;
+D 512, 256, 128, 64: lse and the target logit within 1e-5 relative and
+1e-4 absolute) and run twice, which must agree bit for bit. Diagnostics
+drop the score product, the exponentials or the fold.
+
+Backward versions: each streamed tile shared by a cluster of 2 or 4 CTAs
+through TMA multicast, a deeper ring, another L2 promotion. The shipped
+layout splits D between the two consumer warpgroups for the score
+product as well and sums the fp32 partials; the other layout of the
+design, each warpgroup computing half of the score columns over all of D
+and sharing ds through a bf16 tile, is such an older version. Each
+version's dx and dE passes are first held to the plain backward at N
+1032, V 32000 and at N 200, V 1000 (D 512 and 256, bf16: dx within two
+bf16 ulps and dE within one of their largest entry) and run twice, which
+must agree bit for bit; one that fails or does not launch (a ring too
+deep for shared memory) is reported and not timed. Diagnostics drop the
+score product, the gradient product, the exponentials, the exchange of
+the score partials.
+
+A diagnostic's output is wrong by construction; it is timed all the
+same, to show the share of the time of what it drops.
+``diag_timeline`` (backward) and ``fwd_diag_timeline`` write a record
+per CTA (flash_fwd_variants.timeline): CTAs an SM, the SM clock, and the
+share of time consumer warps 0-2 waited on mbarriers.
 
 Then, at the flagship training shape (N 32768, V 32000, D 512, bf16),
-every version's two passes and the library's backward (``autograd.grad``
-through ``F.cross_entropy(torch.mm(x, E^T).float(), t)``, whose forward
-ran once outside the clock: dx and dE in one call) are timed in turns by
-CUDA-graph replay (10 calls captured in one graph, CUDA events around a
-replay, per call, the median of 5 replays), two rounds. Each round prints
-one JSON line: the times and, per version, ``(dx + dE) / library``. The
-card's name and power limit are on the first line.
+every version and the library's pass are timed in turns by CUDA-graph
+replay (10 calls captured in one graph, CUDA events around a replay, per
+call, the median of 5 replays), two rounds. The library's forward is a
+bf16 ``torch.mm`` upcast to fp32 logits, then ``F.cross_entropy``; its
+backward is ``autograd.grad`` through that, whose forward ran once
+outside the clock (dx and dE in one call). Each round prints one JSON
+line: the times and, per version, its ratio to the library (the
+backward's (dx + dE) / library). The card's name and power limit are on
+the first line.
 """
 
 from __future__ import annotations
@@ -185,9 +204,10 @@ CHECKS = ((1032, 32000, 512), (200, 1000, 256))
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def inputs(n, v, d, seed):
+def inputs(n, v, d, seed, lse=True):
     """x, E (bf16), int32 targets (every other one in the last vocab
-    tile), g in [0.5, 1.5] and the forward's lse, on the card."""
+    tile), g in [0.5, 1.5] and, with ``lse``, the shipped forward's lse,
+    on the card."""
     gen = torch.Generator().manual_seed(seed)
     x = torch.randn((n, d), generator=gen).to(torch.bfloat16).cuda()
     e = (torch.randn((v, d), generator=gen) * 0.02).to(torch.bfloat16).cuda()
@@ -195,8 +215,7 @@ def inputs(n, v, d, seed):
     tg[1::2] = v - 1 - torch.arange(n)[1::2] % (v % 64 or 64)
     tg = tg.cuda()
     g = (torch.rand(n, generator=gen) + 0.5).cuda()
-    lse, _ = xe.xent_forward(x, e, tg)
-    return x, e, tg, g, lse
+    return x, e, tg, g, xe.xent_forward(x, e, tg)[0] if lse else None
 
 
 def passes(lib, x, e, tg, g, lse):
@@ -258,22 +277,190 @@ def library_backward(x, e, tg):
             stream)
 
 
-def main() -> None:
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(smi, flush=True)
-    every = {**VARIANTS, **DIAGNOSTICS,
-             **{pathlib.Path(a).stem: pathlib.Path(a) for a in sys.argv[1:]}}
-    with concurrent.futures.ThreadPoolExecutor(len(every)) as ex:
-        futures = {n: ex.submit(build, n, e, "xent") for n, e in every.items()}
-    libs = {}
-    for name, fut in futures.items():
+# ---- the forward (B5) ------------------------------------------------------
+
+_FWD_END = "        tlogit[row] = t;\n      }\n    }\n  }\n"
+_FWD_FOLD = "        if (k == L::kLag - 1 && j > 0) fold(held, j - 1);\n"
+_FWD_STEP_END = ("      wgmma_wait<0>();\n      fence_regs(cur);\n"
+                 "      for (int k = 0; k < L::kLag; ++k) release();\n")
+_FWD_COPY = ("      float held[64];\n#pragma unroll\n"
+             "      for (int i = 0; i < 64; ++i) held[i] = prev[i];\n")
+
+
+def fwd_cluster_edits(c: int):
+    """The shipped forward with clusters of ``c`` CTAs owning neighbouring
+    row blocks: each loads 128 / c rows of every K-chunk of E and
+    multicasts them to all, and a stage is refilled once every consumer
+    warp of the cluster has released it."""
+    return (
+        ("// The warpgroup's registers a thread drop to (dec) or rise to (inc) N;\n",
+         _CLUSTER_HELPERS + "// The warpgroup's registers a thread drop to "
+         "(dec) or rise to (inc) N;\n"),
+        ("constexpr int kFwdStages = 6;   // K-chunks of E in flight\n",
+         "constexpr int kFwdStages = 6;   // K-chunks of E in flight\n"
+         f"constexpr int kFwdCluster = {c};\n"),
+        ("mbar_init(empty + 8u * s, L::kConsumerWarps);",
+         "mbar_init(empty + 8u * s, L::kConsumerWarps * kFwdCluster);"),
+        ("  __syncthreads();  // the barriers are initialized before any use\n",
+         "  cluster_sync();\n"),
+        ("          tma_load_2d(sb + s * L::kChunkBytes, &map_e, full + 8u * s, 64 * k,\n"
+         "                      j * kFwdCols);\n",
+         "          constexpr int kSlice = kFwdCols / kFwdCluster;\n"
+         "          const int rank = static_cast<int>(cluster_rank());\n"
+         "          tma_load_2d_multicast(\n"
+         "              sb + s * L::kChunkBytes + rank * kSlice * 128, &map_e,\n"
+         "              full + 8u * s, 64 * k, j * kFwdCols + rank * kSlice,\n"
+         "              (1u << kFwdCluster) - 1);\n"),
+        ("      if (lane == 0) mbar_arrive(empty + 8u * rs);\n",
+         "      if (lane == 0)\n"
+         "        for (int r = 0; r < kFwdCluster; ++r)\n"
+         "          mbar_arrive_cluster(empty + 8u * rs, r);\n"),
+        (_FWD_END, _FWD_END + "  __syncwarp();\n  cluster_sync();\n"),
+        ("  if (int rc = encode_rows_map<D>(&map_e, e, v, kFwdCols)) return rc;",
+         "  if (int rc = encode_rows_map<D>(&map_e, e, v, kFwdCols / kFwdCluster))\n"
+         "    return rc;"),
+        ("  kernel<<<(n + kFwdRows - 1) / kFwdRows, L::kThreads, L::kSmem, stream>>>(\n"
+         "      map_x, map_e, tgt, lse, tlogit, n, v);\n",
+         "  const int clusters = (n + kFwdRows * kFwdCluster - 1) /\n"
+         "                       (kFwdRows * kFwdCluster);\n"
+         "  cudaLaunchConfig_t cfg = {};\n"
+         "  cfg.gridDim = dim3(clusters * kFwdCluster);\n"
+         "  cfg.blockDim = dim3(L::kThreads);\n"
+         "  cfg.dynamicSmemBytes = L::kSmem;\n"
+         "  cfg.stream = stream;\n"
+         "  cudaLaunchAttribute attr[1];\n"
+         "  attr[0].id = cudaLaunchAttributeClusterDimension;\n"
+         "  attr[0].val.clusterDim.x = kFwdCluster;\n"
+         "  attr[0].val.clusterDim.y = 1;\n"
+         "  attr[0].val.clusterDim.z = 1;\n"
+         "  cfg.attrs = attr;\n"
+         "  cfg.numAttrs = 1;\n"
+         "  if (int rc = static_cast<int>(cudaLaunchKernelEx(\n"
+         "          &cfg, kernel, map_x, map_e, tgt, lse, tlogit, n, v)))\n"
+         "    return rc;\n"),
+    )
+
+
+# name -> edits of the shipped source, as VARIANTS.
+FWD_VARIANTS = {
+    "fwd_stages4": (("constexpr int kFwdStages = 6;",
+                     "constexpr int kFwdStages = 4;"),),
+    "fwd_lag1": (("constexpr int kFwdLag = 3;", "constexpr int kFwdLag = 1;"),),
+    "fwd_lag2": (("constexpr int kFwdLag = 3;", "constexpr int kFwdLag = 2;"),),
+    "fwd_lag4": (("constexpr int kFwdLag = 3;", "constexpr int kFwdLag = 4;"),),
+    # The fold after tile j's products instead of beside them.
+    "fwd_fold_after": ((_FWD_FOLD, ""),
+                       (_FWD_STEP_END,
+                        _FWD_STEP_END + "      if (j > 0) fold(held, j - 1);\n")),
+    # The fold on the accumulator itself, not on a copy: ptxas serializes
+    # the wgmmas (C7515).
+    "fwd_fold_in_place": (
+        ("const float (&prev)[64], int j) {", "float (&prev)[64], int j) {"),
+        (_FWD_COPY, ""), (_FWD_FOLD, _FWD_FOLD.replace("held", "prev"))),
+    "fwd_cluster2": fwd_cluster_edits(2),
+    # A record per CTA; the outputs stay right.
+    "fwd_diag_timeline": timeline_edits(
+        ("  const int n_tiles = (v + kFwdCols - 1) / kFwdCols;\n", ""),
+        end_mark=_FWD_END),
+}
+FWD_DIAGNOSTICS = {
+    "fwd_diag_no_scores": (("""#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // a descriptor counts 16 bytes
+          wgmma_ss_n128(cur, da + (k * L::kPanelBytes + kk * 32) / 16,
+                        db + 2 * kk, k > 0 || kk > 0);
+""", ""),),
+    "fwd_diag_no_exp": (("sum[k] += ex2(fmaf(sc[4 * c + 2 * h + k], kLog2e, -base));",
+                         "sum[k] += fmaf(sc[4 * c + 2 * h + k], kLog2e, -base);"),),
+    "fwd_diag_no_fold": ((_FWD_FOLD, ""),),
+}
+FWD_CHECKS = ((1032, 32000, 512), (200, 1000, 256), (136, 330, 128),
+              (8, 640, 64))
+
+
+def forward_call(lib, x, e, tg):
+    """(run the forward of a built library, its outputs (lse, tlogit))."""
+    fn = lib.kvedge_xent_fwd
+    fn.argtypes = [_I] + [_P] * 5 + [_I] * 3 + [_P]
+    (n, d), v = x.shape, e.shape[0]
+    lse = torch.empty(n, dtype=torch.float32, device=x.device)
+    tl = torch.empty_like(lse)
+    ptrs = [t.data_ptr() for t in (x, e, tg, lse, tl)]
+
+    def call(outputs=(lse, tl)):  # the outputs live as long as the call
+        rc = fn(1, *ptrs, n, v, d, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, f"forward launch failed: {rc}"
+    return call, (lse, tl)
+
+
+def check_forward(lib) -> dict:
+    """One version's lse and target logit against the plain forward at
+    each of ``FWD_CHECKS`` (1e-5 relative, 1e-4 absolute), and two runs
+    against each other."""
+    errs, agrees, same = {}, True, True
+    for n, v, d in FWD_CHECKS:
+        x, e, tg, _, _ = inputs(n, v, d, seed=n + v, lse=False)
+        call, got = forward_call(lib, x, e, tg)
+        call()
+        first = [t.clone() for t in got]
+        call()
+        torch.cuda.synchronize()
+        want = xe.xent_forward_reference(x, e, tg)
+        for name, a, w in zip(("lse", "tlogit"), got, want):
+            errs[f"{name}_{n}_{v}_{d}"] = float((a - w).abs().max())
+            agrees = agrees and torch.allclose(a, w, rtol=1e-5, atol=1e-4)
+        same = same and all(torch.equal(a, b) for a, b in zip(first, got))
+    return {"agrees": agrees, "bitwise_deterministic": same,
+            "max_abs_err": errs}
+
+
+def library_forward(x, e, tg):
+    """The library's forward: one bf16 ``torch.mm``, its logits upcast,
+    then ``F.cross_entropy`` per row."""
+    t = tg.long()
+    return lambda: F.cross_entropy(torch.mm(x, e.t()).float(), t,
+                                   reduction="none")
+
+
+def forward_rounds(libs, smi) -> None:
+    """Check every forward version, then time them in turns with the
+    library's forward, two rounds."""
+    x, e, tg, _, _ = inputs(N, V, D, seed=78, lse=False)
+    calls = {}
+    for name, lib in libs.items():
         try:
-            libs[name] = fut.result()
-        except Exception as exc:  # noqa: BLE001 - report it, time the rest
-            print(json.dumps({"variant": name, "built": False,
-                              "error": str(exc)[-2000:]}), flush=True)
+            doc = check_forward(lib)
+        except AssertionError as exc:  # a launch refused: report it
+            print(json.dumps({"forward": name, "launched": False,
+                              "error": str(exc)}), flush=True)
+            continue
+        print(json.dumps({"forward": name, **doc,
+                          "diagnostic": name in FWD_DIAGNOSTICS}), flush=True)
+        if (doc["agrees"] and doc["bitwise_deterministic"]) or (
+                name in FWD_DIAGNOSTICS):
+            calls[name] = forward_call(lib, x, e, tg)[0]
+    if "fwd_diag_timeline" in calls:
+        call = calls.pop("fwd_diag_timeline")
+        print(json.dumps({"timeline": {
+            "fwd": timeline(libs["fwd_diag_timeline"], call, -(-N // 128))},
+            "card": smi}), flush=True)
+    lib_fwd = library_forward(x, e, tg)
+    for rnd in range(2):
+        row = {"round": rnd, "library_fwd_ms": graph_ms(lib_fwd)}
+        for name, call in calls.items():
+            row[f"{name}_fwd_ms"] = graph_ms(call)
+        row["library_fwd_ms_after"] = graph_ms(lib_fwd)
+        lib_ms = (row["library_fwd_ms"] + row["library_fwd_ms_after"]) / 2
+        row["xent_forward_ratio"] = {
+            name: row[f"{name}_fwd_ms"] / lib_ms
+            for name in calls if name not in FWD_DIAGNOSTICS}
+        print(json.dumps({**row, "card": smi}), flush=True)
+
+
+# ---- the backward (B6, B7) ---------------------------------------------------
+
+def backward_rounds(libs, smi) -> None:
+    """Check every backward version, then time them in turns with the
+    library's backward, two rounds."""
     x, e, tg, g, lse = inputs(N, V, D, seed=78)
     calls = {}
     for name, lib in libs.items():
@@ -309,6 +496,41 @@ def main() -> None:
             name: (row[f"{name}_dx_ms"] + row[f"{name}_de_ms"]) / lib_ms
             for name in calls if name not in DIAGNOSTICS}
         print(json.dumps({**row, "card": smi}), flush=True)
+
+
+def main() -> None:
+    args = sys.argv[1:]
+    which = ({"fwd"} if "--forward" in args else set()) | (
+        {"bwd"} if "--backward" in args else set()) or {"fwd", "bwd"}
+    others = {pathlib.Path(a).stem: pathlib.Path(a) for a in args
+              if not a.startswith("--")}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    every = {"shipped": (), **others}
+    if "bwd" in which:
+        every.update({**VARIANTS, **DIAGNOSTICS})
+    if "fwd" in which:
+        every.update({**FWD_VARIANTS, **FWD_DIAGNOSTICS})
+    with concurrent.futures.ThreadPoolExecutor(len(every)) as ex:
+        futures = {n: ex.submit(build, n, e, "xent") for n, e in every.items()}
+    libs = {}
+    for name, fut in futures.items():
+        try:
+            libs[name] = fut.result()
+        except Exception as exc:  # noqa: BLE001 - report it, time the rest
+            print(json.dumps({"variant": name, "built": False,
+                              "error": str(exc)[-2000:]}), flush=True)
+    shared = ("shipped", *others)
+    if "fwd" in which:
+        forward_rounds({n: lib for n, lib in libs.items()
+                        if n in shared or n in FWD_VARIANTS
+                        or n in FWD_DIAGNOSTICS}, smi)
+    if "bwd" in which:
+        backward_rounds({n: lib for n, lib in libs.items()
+                         if n in shared or n in VARIANTS
+                         or n in DIAGNOSTICS}, smi)
 
 
 if __name__ == "__main__":

@@ -18,8 +18,10 @@ each with its reason:
 * the swapped train step's loss within 1e-5 of the stock step's at fp32,
   the reference's bound.
 
-The CUDA kernel runs only on the card: the ``cuda``-marked test holds it
-to its plain version there and skips on a machine without one
+The CUDA kernel runs only on the card: the ``cuda``-marked tests hold it
+to its plain version there (also at ragged row counts, widths off the
+16-byte vector or past the registers' budget, and misaligned views) and
+skip on a machine without one
 (``python -m pytest --noconftest -m cuda tests/test_torch_rmsnorm.py``).
 """
 
@@ -82,6 +84,36 @@ def test_forward_matches_reference(reference, shape, dtype):
     else:
         np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=0)
         assert differ <= got.size // 500
+
+
+# The kernel's own edges: the swapped step's [2048, 512]; N not a
+# multiple of the rows a CTA takes (8 warps x 4 rows at D 512 bf16); D not
+# a multiple of a 16-byte vector (100, odd 129, 7); D past the rows' register
+# budget, taken in segments (2304 bf16, 4100 fp32).
+KERNEL_SHAPES = [(2048, 512), (33, 512), (1001, 256), (40, 100), (5, 129),
+                 (3, 7), (9, 2304), (4, 4100)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", KERNEL_SHAPES)
+def test_plain_forward_matches_reference_at_kernel_shapes(reference, shape,
+                                                           dtype):
+    """The plain forward the kernel is held to, against the reference's
+    ``rmsnorm_fused`` (interpret-mode Pallas, or its jnp fallback where N
+    is not a multiple of 8), at the shapes the kernel's edges meet; the
+    tolerances of ``test_forward_matches_reference``."""
+    x, gain = _inputs(sum(shape), shape)
+    want = np.asarray(reference.rmsnorm_fused(
+        jnp.asarray(x, getattr(jnp, dtype)), jnp.asarray(gain)), np.float32)
+    got = trms.rmsnorm_reference(torch.from_numpy(x).to(TDT[dtype]),
+                                 torch.from_numpy(gain))
+    assert got.dtype == TDT[dtype] and got.shape == shape
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=0)
+        assert int(np.sum(got != want)) <= got.size // 500
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -182,3 +214,32 @@ def test_cuda_kernel_matches_plain_version(cuda_device, shape, dtype):
                                    rtol=2.0 ** -7, atol=0)
     with pytest.raises(ValueError, match="gain must be fp32"):
         trms.rmsnorm_forward(tx.reshape(-1, shape[-1]), tg.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", KERNEL_SHAPES)
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_cuda_kernel_ragged_rows_widths_and_misaligned_views(
+        cuda_device, shape, dtype, misaligned):
+    """The kernel at the rows a CTA does not divide, widths off the 16-byte
+    vector, widths taken in segments, and a view one element past an
+    aligned address (the scalar loads): one bf16 ulp, fp32 1e-6 relative,
+    rows and columns past the edge unwritten."""
+    x, gain = _inputs(sum(shape) + misaligned, shape)
+    n, d = shape
+    buf = torch.empty(n * d + 1, dtype=TDT[dtype], device=cuda_device)
+    tx = buf[int(misaligned):int(misaligned) + n * d].view(n, d)
+    tx.copy_(torch.from_numpy(x).to(cuda_device, TDT[dtype]))
+    assert (tx.data_ptr() % 16 != 0) == misaligned
+    tg = torch.from_numpy(gain).to(cuda_device)
+    before = trms.rmsnorm_forward.launches
+    got = trms.rmsnorm_forward(tx, tg)
+    torch.cuda.synchronize()
+    assert trms.rmsnorm_forward.launches == before + 1
+    want = trms.rmsnorm_reference(tx, tg)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=2.0 ** -7, atol=0)

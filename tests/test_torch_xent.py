@@ -21,9 +21,11 @@ block boundaries. Tolerances, each with its reason:
   gradient within 1e-4 at fp32 (as ``test_torch_training.py`` holds the
   naive head); at bf16 the loss within 2e-2.
 
-The CUDA kernels run only on the card: the ``cuda``-marked test holds
-each of them to its plain version there and skips on a machine without
-one (``python -m pytest --noconftest -m cuda tests/test_torch_xent.py``).
+The CUDA kernels run only on the card: the ``cuda``-marked tests hold
+each of them to its plain version there (the bf16 forward also at ragged
+N and V, targets on its tiles' edges, logits in the hundreds, two runs
+bit for bit) and skip on a machine without one
+(``python -m pytest --noconftest -m cuda tests/test_torch_xent.py``).
 """
 
 import dataclasses
@@ -139,6 +141,46 @@ def test_plain_forward_matches_reference_kernel(reference, dtype):
                        tx.xent_backward_dx_reference(tx_, te, tt, lse, g))
     assert torch.equal(tx.xent_backward_de(tx_, te, tt, lse, g),
                        tx.xent_backward_de_reference(tx_, te, tt, lse, g))
+
+
+def _edge_targets(rng, n, v):
+    """int32 targets, most of them on a column at an edge of the bf16
+    forward's 128-column tiles: the first and last column, the first and
+    last of the second tile, the last tile's first and last; the rest at
+    random."""
+    last = (v - 1) // 128 * 128
+    edges = np.array([0, v - 1, min(127, v - 1), min(128, v - 1),
+                      min(255, v - 1), last, v - 1 - (v > 1)], np.int64)
+    t = rng.integers(0, v, n)
+    t[: 2 * n // 3] = edges[np.arange(2 * n // 3) % len(edges)]
+    return t.astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,v,d", [(8, 128, 64), (136, 384, 128),
+                                   (1032, 128, 64), (72, 1152, 256)])
+def test_plain_forward_matches_reference_kernel_at_ragged_rows(
+        reference, n, v, d, dtype):
+    """The plain forward the bf16 kernel is held to, against
+    ``_xent_fwd_raw`` in interpret mode, at the shapes its masks cover: N
+    below, at and past a multiple of the kernel's 128 resident rows (8,
+    136, 1032), one tile of vocab and an odd count of tiles (1152: 9), the
+    targets on the tiles' first and last columns; lse and the target logit
+    within 2e-5, as the reference's fused-vs-naive bound."""
+    rng = np.random.default_rng(n + v + d)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    emb = (rng.standard_normal((v, d)) * 0.05).astype(np.float32)
+    targets = _edge_targets(rng, n, v)
+    jxx = jnp.asarray(x, getattr(jnp, dtype))
+    want_lse, want_t = reference._xent_fwd_raw(
+        jxx, jnp.asarray(emb).astype(jxx.dtype), jnp.asarray(targets),
+        bn=reference.pick_row_block(n, 512), bv=reference.pick_vocab_block(v),
+        interpret=True)
+    lse, tlogit = tx.xent_forward_reference(
+        torch.from_numpy(x).to(TDT[dtype]),
+        torch.from_numpy(emb).to(TDT[dtype]), torch.from_numpy(targets))
+    _close(lse, want_lse, 2e-5, 2e-5, f"lse {n} {v} {d} {dtype}")
+    _close(tlogit, want_t, 2e-5, 2e-5, f"target logit {n} {v} {d} {dtype}")
 
 
 def test_extreme_logits_stay_finite_and_match(reference):
@@ -500,3 +542,40 @@ def test_cuda_backward_ragged_shapes_and_last_vocab_tile(cuda_device, n, v,
         _close(got, want, 0.0, atol, f"cuda ragged {name}")
     assert torch.equal(dx, tx.xent_backward_dx(x, e, t, lse, g))
     assert torch.equal(de, tx.xent_backward_de(x, e, t, lse, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
+@pytest.mark.parametrize("n,v,scale", [
+    (8, 200, 0.05), (1032, 330, 0.05), (130, 128, 0.05), (8, 1000, 0.05),
+    (1032, 32000, 0.05), (136, 640, 0.05 * 400), (1032, 1000, 0.05 * 400)])
+def test_cuda_bf16_forward_ragged_shapes_and_tile_edges(cuda_device, n, v,
+                                                        scale, d):
+    """The bf16 forward (128 resident rows a CTA, 128-column score tiles)
+    at N and V that are not multiples of either, V of one tile and of an
+    odd and an even count, targets on the first and last column of the
+    first, second and last (partial) tile, and logits in the hundreds
+    (``scale`` 20): lse and the target logit apart, each within 1e-5
+    relative and 1e-4 absolute of the plain forward (the same fp32
+    products summed in another order, and exp taken on ex2), 1e-4 and
+    1e-3 with logits in the hundreds (the reference's bound there);
+    finite; two runs bit-identical."""
+    rng = np.random.default_rng(3 * n + v + d)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    e = torch.from_numpy((rng.standard_normal((v, d)) * scale).astype(
+        np.float32))
+    x, e = (t.to(cuda_device, torch.bfloat16) for t in (x, e))
+    t = torch.from_numpy(_edge_targets(rng, n, v)).to(cuda_device)
+    before = tx.xent_forward.launches
+    lse, tlogit = tx.xent_forward(x, e, t)
+    lse2, tlogit2 = tx.xent_forward(x, e, t)
+    torch.cuda.synchronize()
+    assert tx.xent_forward.launches == before + 2
+    assert torch.equal(lse, lse2) and torch.equal(tlogit, tlogit2)
+    assert torch.isfinite(lse).all() and torch.isfinite(tlogit).all()
+    want_lse, want_t = tx.xent_forward_reference(x, e, t)
+    if scale > 1:
+        assert float(want_lse.abs().max()) > 100
+    rtol, atol = (1e-4, 1e-3) if scale > 1 else (1e-5, 1e-4)
+    _close(lse, want_lse.cpu().numpy(), rtol, atol, "cuda bf16 lse")
+    _close(tlogit, want_t.cpu().numpy(), rtol, atol, "cuda bf16 tlogit")
