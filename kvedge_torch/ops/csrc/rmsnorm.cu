@@ -18,24 +18,25 @@
 // 3.35 TB/s; its 4 N D operations are nothing beside that. Bound by the
 // bytes, so the design keeps many bytes in flight and touches each once.
 //
-// Design. A warp takes ROWS rows at a time and holds them in registers:
-// lane l reads vectors l, l + 32, .. (NV of them) of each row, 16 bytes
+// Design. A warp takes one row at a time and holds it in registers:
+// lane l reads vectors l, l + 32, .. (NV of them) of the row, 16 bytes
 // each (8 bf16 or 4 fp32 values; scalars when D or an address does not
-// allow it), neighbouring lanes on neighbouring addresses, all ROWS x NV
-// loads issued before the first square is summed. The sum of squares
-// reduces across the warp with shuffles, and y is written from the same
+// allow it), neighbouring lanes on neighbouring addresses, all NV loads
+// issued before the first square is summed. The sum of squares reduces
+// across the warp with shuffles, and y is written from the same
 // registers: x is read once, as ld.global.nc.L1::no_allocate (read-only,
 // not kept in L1). y is stored plainly, so that it stays in L2 for the
-// product that reads it next. ROWS and NV come from D (at most 32
-// registers of row data a lane): at [*, 512] bf16 NV = 2 and ROWS = 4,
-// 128 bytes in flight a lane; at [*, 512] fp32 NV = 4 and ROWS = 2. A row
-// wider than 32 NV vectors is taken in segments of that width, its
-// earlier segments read a second time. The gain, rounded to the dtype,
-// is read once a warp and kept in registers. CTAs of 8 warps; the grid
-// is as many CTAs as the rows need, capped at what the SMs hold at once,
-// and each warp walks the row groups with that stride, so a small N
-// (the swapped step's [2048, 512]) spreads over as many SMs as it can
-// and a large one runs in waves of full SMs.
+// product that reads it next (evict-first stores measured no faster).
+// NV comes from D, at most 8 vectors (32 registers) a lane: 2 at [*, 512]
+// bf16, 4 at [*, 512] fp32. A row wider than 32 NV vectors is taken in
+// segments of that width, its earlier segments read a second time. The
+// gain, rounded to the dtype, is read once a warp and kept in registers
+// across the rows it walks. CTAs of 8 warps; the grid is as many CTAs as
+// the rows need, capped at what the SMs hold at once, and each warp walks
+// the rows with that stride, so a small N (the swapped step's [2048,
+// 512]) spreads over as many SMs as it can and a large one runs in waves
+// of full SMs. (Several rows a warp, for more bytes in flight a lane,
+// measured no faster at [32768, 512] and slower at [2048, 512]: PERF.md.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,91 +107,79 @@ __device__ __forceinline__ void load_gain(T (&gd)[NV][VEC],
     }
 }
 
-template <typename T, int VEC, int NV, int ROWS>
+template <typename T, int VEC, int NV>
 __global__ void __launch_bounds__(32 * kWarps)
 rmsnorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gain,
                    T* __restrict__ y, int n, int d) {
   constexpr int kSpan = 32 * VEC * NV;  // the columns a warp holds of a row
   const int lane = threadIdx.x & 31;
-  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int stride = gridDim.x * kWarps * ROWS;
+  const int stride = gridDim.x * kWarps;
   const int segs = (d + kSpan - 1) / kSpan;  // 1 unless D is past the budget
 
   T gd[NV][VEC];
   load_gain<T, VEC, NV>(gd, gain, 0, lane, d);
-  Chunk<T, VEC> v[ROWS][NV];
+  Chunk<T, VEC> v[NV];
 
-  // Rows r0 .. r0 + ROWS - 1 (those below n) of segment seg into v.
-  auto load = [&](int r0, int seg) {
+  // Segment seg of the row into v.
+  auto load = [&](const T* xr, int seg) {
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r)
+    for (int j = 0; j < NV; ++j) {
+      const int c = seg * kSpan + (32 * j + lane) * VEC;
+      if (c < d)
+        v[j] = load_x<T, VEC>(xr + c);
+      else
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) v[j].v[k] = from_float<T>(0.f);
+    }
+  };
+
+  // Whole warps walk the rows, so the shuffles below stay full.
+  for (int row = blockIdx.x * kWarps + (threadIdx.x >> 5); row < n;
+       row += stride) {
+    const T* xr = x + static_cast<size_t>(row) * d;
+    T* yr = y + static_cast<size_t>(row) * d;
+    float ss = 0.f;
+    for (int seg = 0; seg < segs; ++seg) {
+      load(xr, seg);
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float f = to_float(v[j].v[k]);
+          ss += __fmul_rn(f, f);  // the square rounded, not fused
+        }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    const float scale = rsqrtf(ss / static_cast<float>(d) + kEps);
+    const float sc = to_float(from_float<T>(scale));  // the scale in the dtype
+    // The last segment is still in v; earlier ones are read again.
+    for (int seg = segs - 1; seg >= 0; --seg) {
+      if (seg != segs - 1) load(xr, seg);
+      if (segs > 1) load_gain<T, VEC, NV>(gd, gain, seg * kSpan, lane, d);
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         const int c = seg * kSpan + (32 * j + lane) * VEC;
-        if (r0 + r < n && c < d)
-          v[r][j] = load_x<T, VEC>(x + static_cast<size_t>(r0 + r) * d + c);
-        else
+        if (c >= d) continue;
+        Chunk<T, VEC> out;
 #pragma unroll
-          for (int k = 0; k < VEC; ++k) v[r][j].v[k] = from_float<T>(0.f);
-      }
-  };
-
-  // Whole warps walk the row groups, so the shuffles below stay full.
-  for (int r0 = warp * ROWS; r0 < n; r0 += stride) {
-    float ss[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) ss[r] = 0.f;
-    for (int seg = 0; seg < segs; ++seg) {
-      load(r0, seg);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int j = 0; j < NV; ++j)
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) {
-            const float f = to_float(v[r][j].v[k]);
-            ss[r] += __fmul_rn(f, f);  // the square rounded, not fused
-          }
-    }
-    float sc[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        ss[r] += __shfl_xor_sync(0xffffffffu, ss[r], off);
-      const float scale = rsqrtf(ss[r] / static_cast<float>(d) + kEps);
-      sc[r] = to_float(from_float<T>(scale));  // the scale in the dtype
-    }
-    // The last segment is still in v; earlier ones are read again.
-    for (int seg = segs - 1; seg >= 0; --seg) {
-      if (seg != segs - 1) load(r0, seg);
-      if (segs > 1) load_gain<T, VEC, NV>(gd, gain, seg * kSpan, lane, d);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-        for (int j = 0; j < NV; ++j) {
-          const int c = seg * kSpan + (32 * j + lane) * VEC;
-          if (r0 + r >= n || c >= d) continue;
-          Chunk<T, VEC> out;
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) {
-            const float xs = to_float(
-                from_float<T>(__fmul_rn(to_float(v[r][j].v[k]), sc[r])));
-            out.v[k] = from_float<T>(__fmul_rn(xs, to_float(gd[j][k])));
-          }
-          store_y<T, VEC>(y + static_cast<size_t>(r0 + r) * d + c, out);
+        for (int k = 0; k < VEC; ++k) {
+          const float xs =
+              to_float(from_float<T>(__fmul_rn(to_float(v[j].v[k]), sc)));
+          out.v[k] = from_float<T>(__fmul_rn(xs, to_float(gd[j][k])));
         }
+        store_y<T, VEC>(yr + c, out);
+      }
     }
   }
 }
 
-// NV 16-byte vectors a lane per row; ROWS rows a warp at a time, at most
-// 8 vectors (32 registers) of row data a lane.
+// NV 16-byte vectors a lane per row, at most 8 (32 registers).
 template <typename T, int VEC, int NV>
 int launch(const void* x, const float* gain, void* y, int n, int d,
            cudaStream_t stream) {
-  constexpr int kRowsAtOnce = NV >= 8 ? 1 : (8 / NV > 4 ? 4 : 8 / NV);
-  const auto kernel = rmsnorm_fwd_kernel<T, VEC, NV, kRowsAtOnce>;
+  const auto kernel = rmsnorm_fwd_kernel<T, VEC, NV>;
   static int per_sm = 0;  // CTAs an SM holds at once
   if (per_sm == 0) {
     if (int rc = static_cast<int>(
@@ -203,10 +192,8 @@ int launch(const void* x, const float* gain, void* y, int n, int d,
   if (int rc = static_cast<int>(cudaDeviceGetAttribute(
           &sms, cudaDevAttrMultiProcessorCount, dev)))
     return rc;
-  const long long groups = (n + kRowsAtOnce - 1) / kRowsAtOnce;
-  const long long want = (groups + kWarps - 1) / kWarps;
-  const int grid = static_cast<int>(
-      want < static_cast<long long>(sms) * per_sm ? want : sms * per_sm);
+  const int want = (n + kWarps - 1) / kWarps;
+  const int grid = want < sms * per_sm ? want : sms * per_sm;
   kernel<<<grid, 32 * kWarps, 0, stream>>>(
       static_cast<const T*>(x), gain, static_cast<T*>(y), n, d);
   return static_cast<int>(cudaGetLastError());

@@ -630,30 +630,33 @@ xent_bwd_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
 // A consumer computes its [64 x 128] fp32 score tile S = x . E_tile^T with
 // wgmma m64n128k16, both operands K-major in shared memory, four per
 // K-chunk, one commit group per K-chunk. It keeps two score tiles in
-// registers (2 x 64 a thread, and a copy of the older one): after it
-// issues K-chunk k of tile j it waits until only the last kLag groups
-// run and releases the stage of chunk k - kLag; after chunk kLag - 1 it
-// folds tile j - 1 into its rows' running state while those kLag chunks
-// of tile j run on the tensor cores. The fold reads a copy of tile j -
-// 1's accumulator taken before tile j's first product issues, and a tile
-// ends with no product running (the last kLag stages are released then):
-// a fold on the accumulator itself, or products running where the code's
-// paths join, make ptxas serialize every wgmma (C7515). (FlashAttention-3's ping-pong, the two
-// consumers taking turns, would make the lagging one hold a whole tile
-// of stages: D / 64 = 8 at D 512, more than the ring has.) Folding a tile:
-// columns at or past V (TMA fills E's rows past V with zeros, a score of
-// 0) become -inf; the target logit is added where the tile holds it; then
-// each thread updates its own running max and sum over the 32 columns of
-// each of its two rows (no shuffle and no barrier inside the loop), the
-// max kept as m = max(s) log2 e, rounded once, and each score's term taken
-// as 2^(s log2 e - m) by one fma and one ex2. At the end the four lanes of
-// a row combine theirs: m = max m_t, l = sum l_t 2^(m_t - m), and lse =
-// m ln 2 + log(l). Rows past N compute on zeros and write nothing.
+// registers (2 x 64 a thread) and a copy of the older one (64 more):
+// after it issues K-chunk k of tile j it waits until only the last kLag
+// groups run and releases the stage of chunk k - kLag, and after chunk
+// kLag - 1 it folds tile j - 1 into its rows' running state while the
+// tensor cores run tile j. The fold reads the copy, taken before tile j's
+// first product issues, and a tile ends with no product running (its
+// last kLag stages are released then): a fold on the accumulator itself,
+// or products running where the code's paths join, make ptxas serialize
+// every wgmma (C7515). kLag is 1: 2 and 3 measured no faster and hold
+// more stages. FlashAttention-3's ping-pong, the two consumers taking
+// turns, would make the lagging one hold a whole tile of stages (D / 64
+// = 8 at D 512), more than the ring has.
+//
+// Folding a tile: columns at or past V (TMA fills E's rows past V with
+// zeros, a score of 0) become -inf; the target logit is added where the
+// tile holds it; then each thread updates its own running max and sum
+// over the 32 columns of each of its two rows (no shuffle and no barrier
+// inside the loop), the max kept as m = max(s) log2 e, rounded once, and
+// each score's term taken as 2^(s log2 e - m) by one fma and one ex2. At
+// the end the four lanes of a row combine theirs: m = max m_t, l = sum
+// l_t 2^(m_t - m), and lse = m ln 2 + log(l). Rows past N compute on
+// zeros and write nothing.
 
 constexpr int kFwdRows = 128;   // resident rows of a CTA (64 a consumer)
 constexpr int kFwdCols = 128;   // score columns of a tile (rows of E)
 constexpr int kFwdStages = 6;   // K-chunks of E in flight
-constexpr int kFwdLag = 3;      // K-chunk products left running at a fold
+constexpr int kFwdLag = 1;      // K-chunk products left running at a fold
 constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>

@@ -6,11 +6,11 @@ The counterpart of the JAX package's ``ops/rmsnorm.py``, the reference's
 RMSNorm-fusion experiment: ``rmsnorm_fused`` is a drop-in for
 ``models.transformer._rmsnorm`` (the bench tool swaps it in for a train
 step). The forward is ``csrc/rmsnorm.cu`` (built at first use,
-``ops/_build.py``) at ``_rmsnorm``'s rounding points: a warp holds a few
-rows in registers at a time (four at D 512 bf16, two at D 512 fp32), reads
-x once in 16-byte vectors and keeps the dtype-rounded gain in registers
-across the rows it walks; the grid is capped at what the SMs hold at
-once. The backward is the reference's analytic VJP in plain torch.
+``ops/_build.py``) at ``_rmsnorm``'s rounding points: a warp holds a row
+in registers, reads x once in 16-byte vectors and keeps the dtype-rounded
+gain in registers across the rows it walks; the grid is capped at what
+the SMs hold at once. The backward is the reference's analytic VJP in
+plain torch.
 
 :func:`rmsnorm_forward` launches the kernel on a CUDA tensor or raises,
 and computes the plain version only for a CPU tensor; nothing falls

@@ -4,8 +4,9 @@ against ``F.rms_norm``.
     python -m kvedge_torch.tools.rmsnorm_versions [OTHER.cu ...]
 
 Needs one CUDA card and ``nvcc``. Builds the shipped ``csrc/rmsnorm.cu``,
-its variants (string edits of it: streaming stores, one row a warp at a
-time, a grid not capped at the SMs' occupancy, loads kept in L1) and each
+its variants (string edits of it: streaming stores, a grid not capped at
+the SMs' occupancy, loads kept in L1, at most 32 registers a thread,
+CTAs of 4 warps) and each
 ``OTHER.cu`` named on the command line (an earlier version of the source,
 say ``git show HEAD~1:kvedge_torch/ops/csrc/rmsnorm.cu``) beside them
 under ``build/kvedge_torch/``; a version that does not build is reported
@@ -17,9 +18,10 @@ Then at the flagship's [32768, 512] bf16 and at the swapped fp32 step's
 [2048, 512], every version and ``F.rms_norm`` (its weight in x's dtype)
 are timed in turns by CUDA-graph replay (10 calls captured in one graph,
 CUDA events around a replay, per call, the median of 5 replays), two
-rounds. Each round prints one JSON line with the times and each
-version's ratio to ``F.rms_norm``; the card's name and power limit are
-on the first line.
+rounds, beside ``y.copy_(x)`` (the same bytes read and written with no
+arithmetic, the practical floor). Each round prints one JSON line with
+the times and each version's ratio to ``F.rms_norm``; the card's name
+and power limit are on the first line.
 """
 
 from __future__ import annotations
@@ -42,15 +44,15 @@ VARIANTS = {
     "shipped": (),
     "stream_stores": ((
         "    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(&c);",
-        "    __stcs(reinterpret_cast<uint4*>(p),\n"
-        "           *reinterpret_cast<const uint4*>(&c));"),),
-    "one_row": ((
-        "  constexpr int kRowsAtOnce = NV >= 8 ? 1 : (8 / NV > 4 ? 4 : 8 / NV);",
-        "  constexpr int kRowsAtOnce = 1;"),),
+        "    __stcs(reinterpret_cast<uint4*>(p), *reinterpret_cast<const uint4*>(&c));"),),
     "uncapped_grid": ((
-        "      want < static_cast<long long>(sms) * per_sm ? want : sms * per_sm);",
-        "      want);"),),
+        "  const int grid = want < sms * per_sm ? want : sms * per_sm;",
+        "  const int grid = want;"),),
     "l1_loads": (("ld.global.nc.L1::no_allocate.v4.u32", "ld.global.nc.v4.u32"),),
+    # At most 32 registers a thread: 8 CTAs, 64 warps an SM.
+    "occupancy8": (("__global__ void __launch_bounds__(32 * kWarps)\n",
+                    "__global__ void __launch_bounds__(32 * kWarps, 8)\n"),),
+    "warps4": (("constexpr int kWarps = 8;", "constexpr int kWarps = 4;"),),
 }
 CHECKS = (((32768, 512), torch.bfloat16), ((33, 512), torch.bfloat16),
           ((2048, 512), torch.float32), ((7, 100), torch.float32))
@@ -70,6 +72,7 @@ def forward_call(lib, x, gain):
     """(run a built library's forward on x, its output)."""
     fn = lib.kvedge_rmsnorm_fwd
     fn.argtypes = [_I, _P, _P, _P, _I, _I, _P]
+    fn.restype = ctypes.c_int
     n, d = x.shape
     y = torch.empty_like(x)
     code = 1 if x.dtype == torch.bfloat16 else 0
@@ -126,13 +129,15 @@ def main() -> None:
         w = gain.to(dtype)
         lib_call = (lambda x=x, w=w:  # noqa: E731
                     F.rms_norm(x, (x.shape[1],), w, 1e-6))
+        y = torch.empty_like(x)
+        copy = (lambda x=x, y=y: y.copy_(x))  # noqa: E731
         cases.append((f"{shape[0]}x{shape[1]}_{str(dtype)[6:]}", lib_call,
-                      {n: forward_call(lib, x, gain)[0]
-                       for n, lib in libs.items()}))
+                      copy, {n: forward_call(lib, x, gain)[0]
+                             for n, lib in libs.items()}))
     for rnd in range(2):
-        for label, lib_call, calls in cases:
+        for label, lib_call, copy, calls in cases:
             row = {"round": rnd, "shape": label,
-                   "library_ms": graph_ms(lib_call)}
+                   "library_ms": graph_ms(lib_call), "copy_ms": graph_ms(copy)}
             for name, call in calls.items():
                 row[f"{name}_ms"] = graph_ms(call)
             row["library_ms_after"] = graph_ms(lib_call)

@@ -14,8 +14,8 @@ under ``build/kvedge_torch/``; a version that does not build is reported
 and left out. ``--forward`` takes the forward's versions only,
 ``--backward`` the backward's; by default both.
 
-Forward versions: a ring of 4 stages for 6; 1, 2 or 4 K-chunk products
-left running while the last tile is folded for 3; the fold after the
+Forward versions: a ring of 4 stages for 6; 2 or 3 K-chunk products
+left running while the last tile is folded for 1; the fold after the
 tile's products instead of beside them; the fold on the accumulator
 itself instead of a copy (ptxas then serializes the wgmmas); clusters of
 2 CTAs sharing each K-chunk by TMA multicast. Each is first held to
@@ -345,9 +345,8 @@ def fwd_cluster_edits(c: int):
 FWD_VARIANTS = {
     "fwd_stages4": (("constexpr int kFwdStages = 6;",
                      "constexpr int kFwdStages = 4;"),),
-    "fwd_lag1": (("constexpr int kFwdLag = 3;", "constexpr int kFwdLag = 1;"),),
-    "fwd_lag2": (("constexpr int kFwdLag = 3;", "constexpr int kFwdLag = 2;"),),
-    "fwd_lag4": (("constexpr int kFwdLag = 3;", "constexpr int kFwdLag = 4;"),),
+    "fwd_lag2": (("constexpr int kFwdLag = 1;", "constexpr int kFwdLag = 2;"),),
+    "fwd_lag3": (("constexpr int kFwdLag = 1;", "constexpr int kFwdLag = 3;"),),
     # The fold after tile j's products instead of beside them.
     "fwd_fold_after": ((_FWD_FOLD, ""),
                        (_FWD_STEP_END,
@@ -381,6 +380,7 @@ def forward_call(lib, x, e, tg):
     """(run the forward of a built library, its outputs (lse, tlogit))."""
     fn = lib.kvedge_xent_fwd
     fn.argtypes = [_I] + [_P] * 5 + [_I] * 3 + [_P]
+    fn.restype = ctypes.c_int
     (n, d), v = x.shape, e.shape[0]
     lse = torch.empty(n, dtype=torch.float32, device=x.device)
     tl = torch.empty_like(lse)
