@@ -19,34 +19,53 @@ imports nothing of JAX. Phases, each printing one JSON line:
             rtol=atol=1e-5 for fp32, 1e-2 for bf16 and int8. The plain
             version is itself held to a float64 recomputation of the same
             rounding chain.
-4. serve    the port's entry point (``kvedge_torch.runtime.serve``) on
-            127.0.0.1 at the flagship preset (vocab 32000, d_model 512,
-            8 heads, 8 layers, d_ff 2048, bf16, numpy-seeded weights),
-            max_seq 2048, 4 slots, page 16, prefill chunk 64, window 64;
-            9 concurrent POST /generate requests (prompts 8..1500 tokens,
-            n_new 64..128, one two-row request, two seeded sampled ones).
-            Launch counts are zeroed just before this burst and read just
-            after it. Checks: response shape, launches >= n_layers x
-            decode steps, a sampled request resubmitted alone returns the
-            same tokens, the two-row request streamed as ndjson returns
-            its buffered tokens, and at fp32 the kernel path returns the tokens of
-            the plain ``paged_attention="gather"`` path and of the naive
-            forward pass.
-5. timings  CUDA-event times at the serve phase's decode shapes (L2
+4. windows  decode windows as captured CUDA graphs at the flagship width
+            (the serve phase's model, numpy-seeded), bf16 and fp32, 4
+            slots (one admitted but inactive), page 16, W in {1, 8, 64},
+            greedy and sampled (top_p 0.9), per-row caps [W, W/2, W/4]
+            and a stop token taken from the same window's unstopped run:
+            each W twice, the second on the device carry. The replayed
+            graph must equal the same windows run eagerly bit for bit:
+            the [W + 2, slots] blocks (tokens, fin, stop_at), host and
+            device lengths, and both pools. Reports graphs captured,
+            capture seconds and B1 launches per replay (n_layers x W).
+5. serve    the port's entry point (``kvedge_torch.runtime.serve``,
+            ``[payload] serving = "paged"``) on 127.0.0.1 at the flagship
+            preset (vocab 32000, d_model 512, 8 heads, 8 layers, d_ff
+            2048, bf16, numpy-seeded weights), max_seq 2048, 4 slots, page
+            16, prefill chunk 64, window 64; 9 concurrent POST /generate
+            requests (prompts 8..1500 tokens, n_new 64..128, one two-row
+            request, two seeded sampled ones), once with ``serving_overlap
+            = "auto"`` (the main path) and once with "off", each after a
+            greedy and a sampled warm-up request that capture its window
+            graphs. Launch counts are zeroed just before each burst and
+            read just after it. Checks: response shape, launches >=
+            n_layers x decode steps, the two bursts' tokens identical, more
+            than zero windows dispatched at depth 1 (while another was in
+            flight) with the overlap on, a sampled request resubmitted
+            alone returns the same tokens, the two-row request streamed as
+            ndjson returns its buffered tokens; one request profiled with
+            the overlap on (device idle share); at fp32 the kernel path
+            returns the tokens of the plain ``paged_attention="gather"``
+            path and of the naive forward pass.
+6. contiguous  the fp32 greedy requests of the serve phase through
+            ``serving = "contiguous"`` (``models/decode.generate``) return
+            the paged backend's tokens.
+7. timings  CUDA-event times at the serve phase's decode shapes (L2
             flushed before each launch): the kernel, its plain version,
             ``F.scaled_dot_product_attention`` over the gathered K/V as a
             library yardstick the port never calls, the kernel's ratio to
             it, the byte bound; the same at page 128, one row at live
             4096; and the serve burst's decode tokens/s and request
             latency p50/p99.
-6. flash_kernel  the three flash kernels (B2 forward, B3 dq, B4 dk/dv)
+8. flash_kernel  the three flash kernels (B2 forward, B3 dq, B4 dk/dv)
             against their plain PyTorch versions: bf16 and fp32, Dh 32 and
             64 at T in {8, 40, 64, 136, 512, 2048}, Dh 128 at T in {40,
             136, 512}, and bf16 at Dh 32, 64 and 128 at T 192 and 576 (odd
             tile counts), BH in {1, 16}; O and LSE
             within rtol=atol=1e-5 (fp32) / 1e-2 (bf16), gradients within
             2e-4 / 3e-2; the backward run twice must be bit-identical.
-7. train    the port's ``train`` payload (``run_train_payload``) at the
+9. train    the port's ``train`` payload (``run_train_payload``) at the
             flagship preset, bf16, ``attention = "flash"``, remat, seq 512,
             batch 64, 30 steps, a checkpoint every 10, over a 2M-token
             order-1 Markov corpus written with numpy (512 ids of the
@@ -56,16 +75,16 @@ imports nothing of JAX. Phases, each printing one JSON line:
             least 1 nat below the first, B2 launched 2 x n_layers per step
             (remat recomputes the forward) and B3/B4 n_layers per step,
             train-progress.json at step 30.
-8. resume   checkpoints after step 10 deleted, the payload rerun to 30:
+10. resume   checkpoints after step 10 deleted, the payload rerun to 30:
             it resumes from 10 and steps 11-30 match within 1e-3 in loss.
-9. flash_vs_naive  from the same fp32 weights at seq 512, batch 4: loss
+11. flash_vs_naive  from the same fp32 weights at seq 512, batch 4: loss
             within 1e-4 and every gradient within 5e-3; at bf16 the first
             5 train-step losses within 2e-2.
-10. eval_serve  ``run_eval_payload`` prints its ``[kvedge-eval]`` line
+12. eval_serve  ``run_eval_payload`` prints its ``[kvedge-eval]`` line
             with a loss below the first training loss; ``serve`` restores
             the checkpoint and two greedy requests return the naive
             forward's argmax tokens over the restored params at fp32.
-11. xent_kernel  the three fused cross-entropy kernels (B5 forward, B6
+13. xent_kernel  the three fused cross-entropy kernels (B5 forward, B6
             dx, B7 dE) against their plain PyTorch versions: bf16 and fp32,
             V in {128, 640, 32000}, D in {64, 128, 512}, N in {8, 64,
             1032}, targets pinned to every vocab tile, plus an embedding
@@ -80,14 +99,14 @@ imports nothing of JAX. Phases, each printing one JSON line:
             would fail its bound. The backward run twice must be
             bit-identical; through ``fused_xent``, ids -1, V and V + 7 give
             the plain version's NaN mask.
-12. rmsnorm the RMSNorm kernel (B8) against ``_rmsnorm`` at [32768, 512],
+14. rmsnorm the RMSNorm kernel (B8) against ``_rmsnorm`` at [32768, 512],
             [3, 64], [5, 128] and [2, 8, 256], bf16 (one bf16 ulp, rtol
             2^-7) and fp32 (rtol 1e-6), with the count of elements that
             differ at all; then one flagship fp32 train step (flash, remat,
             batch 4, seq 512) with ``_rmsnorm`` swapped for
             ``rmsnorm_fused``, restored afterwards: loss within 1e-5 of the
             stock step's, B8 launched 4 x n_layers + 1 = 33 times.
-13. train_fused  the flagship trained through ``training.run_training``
+15. train_fused  the flagship trained through ``training.run_training``
             with ``fused_xent``, bf16, flash, remat, seq 512, batch 64, 30
             steps over the train phase's corpus. Launch counts are zeroed
             just before and read just after: B5, B6 and B7 once per step,
@@ -95,7 +114,7 @@ imports nothing of JAX. Phases, each printing one JSON line:
             From the same fp32 weights at batch 4, fused against the
             materialized logits: loss within 1e-4, every gradient within
             5e-3; the first 5 bf16 steps within 2e-2.
-14. train_timings  at the train shape: each flash kernel (BH 512, T 512,
+16. train_timings  at the train shape: each flash kernel (BH 512, T 512,
             Dh 64, bf16), each xent kernel (N 32768, V 32000, D 512, bf16)
             and B8 ([32768, 512] bf16, and the swapped fp32 step's
             [2048, 512]): ms (a CUDA-graph replay, so the
@@ -118,7 +137,7 @@ imports nothing of JAX. Phases, each printing one JSON line:
             with a cotangent g in [0.5, 1.5]. The train step with and without
             ``fused_xent``: ms, tokens/s, MFU, the device idle share over 3
             profiled steps and the peak device memory of one step.
-15. kernels  one line listing every ported kernel.
+17. kernels  one line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check
 exits non-zero before it. Without a card, or without the repository
@@ -424,9 +443,114 @@ def run_burst(url, reqs):
     return out, lat, time.perf_counter() - t0
 
 
-def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
-                preset="flagship", max_seq=2048):
-    cfg = ServeConfig(preset=preset, max_seq=max_seq, serving_slots=4,
+def phase_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
+                  row_key_data, device="cuda", preset="flagship",
+                  max_seq=2048):
+    """Decode windows as replayed CUDA graphs against the same windows run
+    eagerly, bit for bit, at the serve phase's model width."""
+
+    class EagerCache(kvc.PagedKVCache):
+        def _run_device_window(self, params, n_steps, sampled):
+            return kvc.run_window(params, self.state, self.cfg, self._in,
+                                  n_steps, sampled)
+
+    rng = np.random.default_rng(31)
+    lives = (37, 300, 5, 64)  # slot 3 is admitted but never active
+    active = np.array([True, True, True, False])
+    smask = np.array([False, True, True, False])
+    temps = np.array([1.0, 0.8, 1.1, 1.0], np.float32)
+    top_ps = np.array([1.0, 0.9, 0.9, 1.0], np.float32)
+    key_data = np.stack([row_key_data(21, s) for s in range(4)])
+    docs = []
+    for dtype in ("bfloat16", "float32"):
+        cfg = ServeConfig(preset=preset, max_seq=max_seq).model_config(dtype)
+        params = params_from_numpy(ttr.init_params(0, cfg), cfg, device)
+        prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lives]
+        caches, pend = [], None
+        for cls in (kvc.PagedKVCache, EagerCache, EagerCache):
+            cache = cls(cfg, slots=4, pages=128, page_size=16, device=device)
+            first = []
+            for slot, prompt in enumerate(prompts):
+                cache.admit(slot, len(prompt))
+                first.append(int(cache.prefill(params, slot, prompt).argmax()))
+            caches.append(cache)
+            check(pend is None or first == pend,
+                  "prefill differs between two caches")
+            pend = first
+        graph, eager, probe = caches
+        pend = np.asarray(pend, np.int64)
+        compared, base = 0, np.array([1, 5, 9, 0], np.int64)
+        for sampled in (False, True):
+            for w in (1, 8, 64):
+                caps = np.array([w, max(1, w // 2), w // 4, w])
+
+                def run(cache, tokens, stops, base=base):
+                    if sampled:
+                        return cache.dispatch_window_sampled(
+                            params, tokens, w, active, key_data, base, temps,
+                            top_ps, smask, steps_left=caps,
+                            stop_tokens=stops)
+                    return cache.dispatch_window(params, tokens, w,
+                                                 active=active,
+                                                 steps_left=caps,
+                                                 stop_tokens=stops)
+
+                # Slot 0's stop: its token half-way through the unstopped
+                # run of the same two windows (the probe cache).
+                p1 = probe.harvest_window(run(probe, pend, None))
+                probe.harvest_window(run(probe, None, None, base + w))
+                stops = np.full(4, -1, np.int64)
+                stops[0] = int(p1[w // 2, 0]) if w > 1 else -1
+                blocks = []
+                for cache in (graph, eager):
+                    h1 = run(cache, pend, stops)
+                    h2 = run(cache, None, stops, base + w)  # on the carry
+                    blocks.append((cache.harvest_window(h1),
+                                   cache.harvest_window(h2)))
+                (g1, g2), (e1, e2) = blocks
+                same = (np.array_equal(g1, e1) and np.array_equal(g2, e2)
+                        and graph._host_lengths == eager._host_lengths
+                        and torch.equal(graph.state.lengths,
+                                        eager.state.lengths)
+                        and torch.equal(graph.state.pool_k,
+                                        eager.state.pool_k)
+                        and torch.equal(graph.state.pool_v,
+                                        eager.state.pool_v))
+                check(same, f"{dtype} {'sampled' if sampled else 'greedy'} "
+                      f"W={w}: the graph window differs from the eager one")
+                check(w == 1 or 0 < g1[w + 1, 0] <= w // 2 + 1,
+                      f"W={w}: slot 0's stop did not hit mid-window")
+                compared += 2
+                pend = g2[w - 1].astype(np.int64)
+                base = base + 2 * w
+        stats = graph.graph_stats()
+        # A CPU rehearsal runs the windows eagerly: no graph, no kernel.
+        want = {f"{kind}/{w}": cfg.n_layers * w
+                for kind in ("greedy", "sampled") for w in (1, 8, 64)
+                if device == "cuda"}
+        ok = stats["b1_launches_per_replay"] == want
+        docs.append({"dtype": dtype, "windows_compared": compared,
+                     "graph_equals_eager": True, **stats,
+                     "b1_launches_ok": ok})
+        check(ok, f"B1 launches per replay {stats} != {want}")
+        del caches, graph, eager, probe, params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    doc = {"phase": "windows", "model": preset, "slots": 4, "page": 16,
+           "lives": lives, "windows": [1, 8, 64], "per_dtype": docs,
+           "ok": True}
+    emit(doc)
+    return doc
+
+
+def serve_burst(torch, np, pa, serve, ServeConfig, overlap, device, preset,
+                max_seq):
+    """One serve runtime with ``serving_overlap = overlap``: warm-up
+    requests that capture its window graphs, then the burst with B1's
+    count zeroed just before and read just after. Returns (the burst's
+    doc, its responses, the runtime, still open)."""
+    cfg = ServeConfig(preset=preset, max_seq=max_seq, payload_serving="paged",
+                      serving_overlap=overlap, serving_slots=4,
                       serving_page_size=16, serving_prefill_chunk=64,
                       serving_window=64, state_dir=SEEDED_STATE_DIR)
     rt = serve.ServeRuntime(cfg, device=device, dtype="bfloat16", seed=0,
@@ -434,8 +558,12 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
     try:
         vocab, layers = rt.tcfg.vocab, rt.tcfg.n_layers
         url = f"http://127.0.0.1:{rt.port}/generate"
-        check(post(url, {"tokens": [[1, 2, 3]], "n_new": 4})[0] == 200,
-              "warm-up request")
+        # n_new 128: windows of 64, 32, ..., 1, greedy and then sampled.
+        for warm in ({"tokens": [[1, 2, 3]], "n_new": 128},
+                     {"tokens": [[4, 5, 6]], "n_new": 128,
+                      "temperature": 0.7, "top_p": 0.9, "seed": 1}):
+            check(post(url, warm)[0] == 200, "warm-up request")
+        graphs = rt.server._cache.graph_stats()
         reqs = serve_requests(np, vocab)
         stats0 = rt.server.stats()
         pa.paged_decode_attention.launches = 0
@@ -448,8 +576,63 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
         for (code, doc), req in zip(results, reqs):
             check(code == 200, f"HTTP {code}: {doc}")
             check_response(doc, req, vocab)
-        check(steps > 0 and launches >= layers * steps,
+        check(steps > 0 and launches >= (layers * steps if device == "cuda"
+                                         else 0),
               f"{launches} kernel launches < {layers} x {steps} steps")
+        gen_tokens = sum(r["n_new"] * len(r["tokens"]) for r in reqs)
+        lat_sorted = sorted(lat)
+        doc = {
+            "phase": "serve", "model": preset, "dtype": "bfloat16",
+            "serving_overlap": overlap,
+            "requests": len(reqs), "rows": sum(len(r["tokens"]) for r in reqs),
+            "generated_tokens": gen_tokens, "decode_steps": steps,
+            "windows": stats["windows"] - stats0["windows"],
+            "windows_at_depth1": (stats["overlap_depth1_windows"]
+                                  - stats0["overlap_depth1_windows"]),
+            "kernel_launches": launches,
+            "decode_s": decode_s, "prefill_s": prefill_s,
+            "ms_per_decode_step": decode_s / steps * 1e3,
+            "launches_per_step": launches / steps, "wall_s": wall,
+            "decode_tokens_per_s": gen_tokens / wall,
+            "latency_p50_s": float(np.percentile(lat_sorted, 50)),
+            "latency_p99_s": float(np.percentile(lat_sorted, 99)),
+            "latencies_s": lat,
+            "graphs_after_warmup": graphs,
+            "graphs_after_burst": rt.server._cache.graph_stats(),
+            "ok": True,
+        }
+        return doc, results, rt
+    except BaseException:
+        rt.close()
+        raise
+
+
+def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
+                preset="flagship", max_seq=2048):
+    # The overlap off first, so the main path's burst (the overlap on)
+    # runs last and its runtime serves the checks and the profile.
+    off_doc, off_results, rt = serve_burst(torch, np, pa, serve, ServeConfig,
+                                           "off", device, preset, max_seq)
+    rt.close()
+    serve_doc, results, rt = serve_burst(torch, np, pa, serve, ServeConfig,
+                                         "auto", device, preset, max_seq)
+    launches = serve_doc["kernel_launches"]
+    try:
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        reqs = serve_requests(np, rt.tcfg.vocab)
+        same = [a[1]["tokens"] for a in results] == \
+            [b[1]["tokens"] for b in off_results]
+        serve_doc["tokens_equal_overlap_off"] = same
+        serve_doc["overlap_off"] = {k: off_doc[k] for k in (
+            "decode_tokens_per_s", "latency_p50_s", "latency_p99_s",
+            "ms_per_decode_step", "decode_steps", "windows",
+            "windows_at_depth1", "kernel_launches", "launches_per_step",
+            "wall_s", "decode_s", "prefill_s", "latencies_s")}
+        emit(serve_doc)
+        check(same, "the burst's tokens differ between serving_overlap "
+              "'auto' and 'off'")
+        check(serve_doc["windows_at_depth1"] > 0,
+              "no window was dispatched while another was in flight")
         again = post(url, reqs[-1])
         check(again[0] == 200 and again[1]["tokens"] ==
               results[-1][1]["tokens"], "sampled request not reproducible")
@@ -458,23 +641,6 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
               streamed[-1]["tokens"] == results[6][1]["tokens"] and
               len(streamed) - 1 == reqs[6]["n_new"] * 2,
               "streamed request differs from its buffered answer")
-        gen_tokens = sum(r["n_new"] * len(r["tokens"]) for r in reqs)
-        lat_sorted = sorted(lat)
-        serve_doc = {
-            "phase": "serve", "model": preset, "dtype": "bfloat16",
-            "requests": len(reqs), "rows": sum(len(r["tokens"]) for r in reqs),
-            "generated_tokens": gen_tokens, "decode_steps": steps,
-            "windows": stats["windows"] - stats0["windows"],
-            "kernel_launches": launches,
-            "decode_s": decode_s, "prefill_s": prefill_s,
-            "ms_per_decode_step": decode_s / steps * 1e3,
-            "launches_per_step": launches / steps, "wall_s": wall,
-            "decode_tokens_per_s": gen_tokens / wall,
-            "latency_p50_s": float(np.percentile(lat_sorted, 50)),
-            "latency_p99_s": float(np.percentile(lat_sorted, 99)),
-            "latencies_s": lat, "ok": True,
-        }
-        emit(serve_doc)
         emit(profile_request(torch, url, dict(reqs[3], n_new=65)))
         # Decode shapes of the burst for the timing phase: the first four
         # single-row requests half-way through their generation.
@@ -483,15 +649,19 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
         rt.close()
 
     # fp32: the kernel path against the plain gather path and against
-    # the naive forward pass, on the burst's greedy single-row requests.
+    # the naive forward pass, on the burst's greedy single-row requests;
+    # then the contiguous backend against the paged one.
     greedy = [dict(r, n_new=24) for r in reqs[:6]]
     tokens = {}
     counts = {}
-    for mode in ("auto", "gather"):
-        cfg32 = ServeConfig(preset=preset, max_seq=max_seq, serving_slots=4,
-                            serving_page_size=16, serving_prefill_chunk=64,
-                            serving_window=64, payload_paged_attention=mode,
-                            state_dir=SEEDED_STATE_DIR)
+    for mode in ("auto", "gather", "contiguous"):
+        cfg32 = ServeConfig(
+            preset=preset, max_seq=max_seq,
+            payload_serving="contiguous" if mode == "contiguous" else "paged",
+            serving_slots=4, serving_page_size=16, serving_prefill_chunk=64,
+            serving_window=64,
+            payload_paged_attention="gather" if mode == "gather" else "",
+            state_dir=SEEDED_STATE_DIR)
         rt = serve.ServeRuntime(cfg32, device=device, dtype="float32",
                                 seed=0)
         try:
@@ -507,11 +677,12 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
                 t.start()
             for t in threads:
                 t.join(timeout=900)
+            check(all(d is not None for d in out), "an fp32 request failed")
             tokens[mode] = [d["tokens"] for d in out]
             counts[mode] = pa.paged_decode_attention.launches
             if mode == "auto":
                 seq = torch.tensor(tokens[mode][1], device=device)
-                logits = forward(rt.server._params, seq, rt.tcfg)
+                logits = forward(rt.weights, seq, rt.tcfg)
                 n_p = len(greedy[1]["tokens"][0])
                 want = logits[0, n_p - 1:-1].argmax(-1).tolist()
                 forward_ok = tokens[mode][1][0][n_p:] == want
@@ -528,6 +699,14 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
     check(forward_ok, "fp32 kernel tokens differ from forward's argmax")
     check(counts["auto"] > 0 and counts["gather"] == 0,
           f"launch counts auto={counts['auto']} gather={counts['gather']}")
+    contiguous_same = tokens["contiguous"] == tokens["auto"]
+    emit({"phase": "contiguous", "requests": len(greedy), "dtype": "float32",
+          "n_new": 24, "contiguous_equals_paged": contiguous_same,
+          "kernel_launches": counts["contiguous"],
+          "ok": contiguous_same and counts["contiguous"] == 0})
+    check(contiguous_same, "fp32 contiguous tokens differ from the paged "
+          "backend's")
+    check(counts["contiguous"] == 0, "the contiguous backend launched B1")
     return serve_doc, lives, launches
 
 
@@ -928,7 +1107,8 @@ def phase_eval_serve(torch, np, tr, serve, forward, params_from_numpy, cfg,
     check(math.isfinite(ev.loss) and ev.loss < first_loss,
           f"eval loss {ev.loss} not below the first training loss "
           f"{first_loss}")
-    rt = serve.ServeRuntime(dataclasses.replace(cfg, payload="serve"),
+    rt = serve.ServeRuntime(dataclasses.replace(cfg, payload="serve",
+                                                payload_serving="paged"),
                             device=device, dtype="float32", host="127.0.0.1",
                             port=0)
     try:
@@ -1744,6 +1924,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         from kvedge_torch.data.feeder import open_feeder, write_corpus
+        from kvedge_torch.models import kvcache as kvc
         from kvedge_torch.models import training
         from kvedge_torch.models import transformer as ttr
         from kvedge_torch.models.transformer import forward
@@ -1792,6 +1973,10 @@ def main() -> int:
 
         phase = "kernel"
         _, worst = phase_kernel_vs_plain(torch, pa)
+
+        phase = "windows"
+        phase_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
+                      serve.row_key_data)
 
         phase = "serve"
         serve_doc, lives, launches = phase_serve(torch, np, pa, serve,
@@ -1845,7 +2030,9 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "ratio_to_library": t["ratio_to_library"],
             "status": "redesigned (thread-block cluster split, scores "
-                      "in shared memory, cp.async K/V)", "ok": True,
+                      "in shared memory, cp.async K/V); on the serve path "
+                      "launched inside replayed CUDA graphs, counted per "
+                      "replay", "ok": True,
         }]
         for kname, line in (("flash_fwd", 98), ("flash_bwd_dq", 234),
                             ("flash_bwd_dkv", 273)):

@@ -6,10 +6,12 @@
     eval   --config x.toml [--preset P] [--device cuda|cpu] [--dtype D]
 
 Each runs on the CUDA card unless ``--device cpu`` is given, and raises
-when there is no card. ``serve`` runs until interrupted; ``train`` and
-``eval`` print their result as one JSON line and exit 0 when it is ok,
-1 when it is not. ``[payload] kind`` in the TOML does not pick the
-command: the subcommand does.
+when there is no card. ``serve`` decodes through the backend that
+``[payload] serving`` names ("" = contiguous, or "paged", whose decode
+loop ``[payload] serving_overlap`` picks) and runs until interrupted;
+``train`` and ``eval`` print their result as one JSON line and exit 0
+when it is ok, 1 when it is not. ``[payload] kind`` in the TOML does
+not pick the command: the subcommand does.
 """
 
 from __future__ import annotations
@@ -45,6 +47,9 @@ def _serve(args) -> int:
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
     print(json.dumps({"serving": f"http://{cfg.status_bind}:{runtime.port}",
+                      "backend": "paged" if runtime.paged else "contiguous",
+                      "overlap": cfg.serving_overlap if runtime.paged
+                      else None,
                       "device": str(runtime.device),
                       "device_check": runtime.device_check.to_dict(),
                       "restored_step": runtime.restored_step,

@@ -1,0 +1,161 @@
+"""Contiguous decode: prefill and decode over one ``[L, B, S, K, Dh]`` cache.
+
+The counterpart of the JAX package's ``models/decode.py``: the serve
+payload's contiguous backend (``[payload] serving = ""`` or
+``"contiguous"``) and the oracle the paged cache is held to. Every row
+of a batch sits at the same position, so ragged batches are the paged
+cache's job. The math is the paged path's: the same ``_rmsnorm``,
+``_rotary``, grouped attention with its rounding chain
+(``ops/paged_attention.gather_attention``), ``mlp`` and ``tied_readout``,
+so paged == contiguous holds token for token.
+
+Differences that are the port's, not the reference's: the cache is
+written in place (the reference donates it to a jitted step), its
+``length`` is a Python int (the host knows it), and :func:`generate` is
+a Python loop of eager steps (the reference's ``lax.scan``). It has no
+kernel of its own: the reference's contiguous path has no Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from kvedge_torch.models.config import TransformerConfig
+from kvedge_torch.models.sampling import (
+    as_key_tensor,
+    row_sample_keys,
+    sample_token,
+)
+from kvedge_torch.models.transformer import (
+    _rmsnorm,
+    _rotary,
+    mlp,
+    split_qkv,
+    stacked_layer_params,
+    tied_readout,
+    torch_dtype,
+)
+from kvedge_torch.ops.paged_attention import gather_attention
+from kvedge_torch.runtime.devicecheck import resolve_device
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Contiguous KV cache: one ``[L, B, S, K, Dh]`` slab per projection;
+    ``length`` valid positions, the same for every row."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int = 0
+
+    @property
+    def max_seq(self) -> int:
+        return self.k.shape[2]
+
+
+def init_cache(cfg: TransformerConfig, batch: int,
+               max_seq: int | None = None,
+               device: torch.device | str | None = None) -> KVCache:
+    """A zeroed cache on ``device`` (the card unless "cpu" is asked for)."""
+    cfg.validate()
+    shape = (cfg.n_layers, batch, max_seq or cfg.max_seq, cfg.kv_heads,
+             cfg.d_head)
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                   v=torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def _attend_layer(cfg: TransformerConfig, x, layer_params, k_slab, v_slab,
+                  pos: int):
+    """One decoder block against the cache. x ``[B, Q, D]`` new positions
+    starting at ``pos``; k_slab/v_slab ``[B, S, K, Dh]`` this layer's
+    cache, written in place. Prefill (Q = prompt, pos = 0) and decode
+    (Q = 1) alike; every query sees the slab's positions up to its own."""
+    w_qkv, w_out, w_up, w_down, ln_attn, ln_mlp = layer_params
+    batch, q_len, _ = x.shape
+    h, dh = cfg.n_heads, cfg.d_head
+    dtype = x.dtype
+    q, k, v = split_qkv(cfg, _rmsnorm(x, ln_attn) @ w_qkv.to(dtype))
+    positions = pos + torch.arange(q_len, device=x.device)
+    q = _rotary(q, positions)
+    k = _rotary(k, positions)
+    k_slab[:, pos:pos + q_len] = k
+    v_slab[:, pos:pos + q_len] = v
+    attended = gather_attention(q, k_slab, v_slab,
+                                positions[None].expand(batch, q_len))
+    x = x + attended.reshape(batch, q_len, h * dh) @ w_out.to(dtype)
+    return mlp(x, w_up, w_down, ln_mlp)
+
+
+def _run_layers(cfg: TransformerConfig, params: dict, x, cache: KVCache,
+                pos: int, all_positions: bool = False):
+    """The layer stack over the cache; returns (logits, cache advanced to
+    ``pos + Q``). ``all_positions`` reads logits at every query position
+    (``[B, Q, V]``), otherwise only the last (``[B, V]``)."""
+    stacked = stacked_layer_params(params, cfg)
+    for layer in range(cfg.n_layers):
+        x = _attend_layer(cfg, x, tuple(p[layer] for p in stacked),
+                          cache.k[layer], cache.v[layer], pos)
+    cache = dataclasses.replace(cache, length=pos + x.shape[1])
+    x = _rmsnorm(x, params["ln_final"])
+    logits = tied_readout(x if all_positions else x[:, -1],
+                          params["embedding"])
+    return logits, cache
+
+
+@torch.no_grad()
+def prefill(params: dict, tokens: torch.Tensor, cache: KVCache,
+            cfg: TransformerConfig):
+    """Feed a ``[B, T]`` prompt into an empty cache; returns
+    (last-position logits ``[B, V]`` fp32, the filled cache)."""
+    x = params["embedding"][tokens].to(torch_dtype(cfg.dtype))
+    return _run_layers(cfg, params, x, cache, 0)
+
+
+@torch.no_grad()
+def decode_step(params: dict, cache: KVCache, tokens: torch.Tensor,
+                cfg: TransformerConfig):
+    """One decode step: ``[B]`` tokens at position ``cache.length``;
+    returns (logits ``[B, V]`` fp32, the cache advanced by one)."""
+    x = params["embedding"][tokens][:, None].to(torch_dtype(cfg.dtype))
+    return _run_layers(cfg, params, x, cache, cache.length)
+
+
+@torch.no_grad()
+def generate(params: dict, prompt, cfg: TransformerConfig, n_new: int,
+             sampling=None, sampled: bool = False,
+             device: torch.device | str | None = None) -> torch.Tensor:
+    """Decode ``n_new`` tokens after a ``[B, T]`` prompt; returns
+    ``[B, T + n_new]`` int64 on ``device`` (the card unless "cpu" is asked
+    for; ``params`` live there).
+
+    Greedy by default. With ``sampled=True``, ``sampling`` is
+    ``(seed_keys [B, 2] raw uint32 key data, temperature, top_p)``: token
+    ``t`` of row ``r`` samples from the nucleus-filtered logits with key
+    ``fold_in(seed_keys[r], t)``. Prefill, then ``n_new - 1`` cached
+    steps; the last token comes from the last step's logits."""
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(prompt, dtype=torch.int64).to(dev)
+    batch, prompt_len = prompt.shape
+    cache = init_cache(cfg, batch, max_seq=prompt_len + n_new, device=dev)
+    logits, cache = prefill(params, prompt, cache, cfg)
+    if sampled:
+        seed_keys, temperature, top_p = sampling
+        seed_keys = as_key_tensor(seed_keys, dev)
+
+    def pick(logits, step: int) -> torch.Tensor:
+        if not sampled:
+            return torch.argmax(logits, dim=-1)
+        return sample_token(logits, row_sample_keys(seed_keys, step),
+                            temperature, top_p)
+
+    out = [prompt]
+    for step in range(n_new - 1):
+        token = pick(logits, step)
+        out.append(token[:, None])
+        logits, cache = decode_step(params, cache, token, cfg)
+    out.append(pick(logits, n_new - 1)[:, None])
+    return torch.cat(out, dim=1)

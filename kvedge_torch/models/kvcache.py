@@ -5,21 +5,30 @@ serving slice. K/V live in pages of a pool ``[L, P, page, K, Dh]``; each
 sequence owns an ordered block table of page ids. The host class
 :class:`PagedKVCache` keeps the reference's method names and semantics
 (``admit``/``grow``/``grow_to``/``release``, ``prefill_chunk``, ``step``,
-``step_tokens``, ``step_window``, ``step_window_sampled``); the device
-functions below it keep its math.
+``step_tokens``, ``step_window``, ``step_window_sampled``, and the
+pipelined ``dispatch_window``/``dispatch_window_sampled``/
+``harvest_window``/``drop_carry``); the device functions below it keep
+its math.
 
 Differences that are the port's, not the reference's:
 
 * The reference's programs donate the pools and return new ones; the
-  port writes K/V into the pools IN PLACE.
-* The reference routes inactive rows' scatters out of bounds and drops
-  them (``mode="drop"``). Torch has no drop mode, so the port scatters
-  only the rows the host marks active (an index tensor built once per
-  step or window): an inactive row never writes anywhere, in particular
-  never into page 0, which a zeroed table row would alias.
-* A window of W decode steps is a Python loop of the step; the greedy
-  (or sampled) pick feeds back on the device, and the host reads the
-  ``[W, slots]`` tokens once at the end.
+  port writes K/V, tables and lengths IN PLACE, so the tensors keep
+  their addresses for the CUDA graphs that read them.
+* The reference routes a non-live row's scatter out of bounds and drops
+  it (``mode="drop"``). Torch has no drop mode, so the pools hold one
+  page more than the pool size: page P, the SINK, which no table ever
+  names. A row that is not live this step writes its K/V (and int8
+  scales) there, with shapes that do not depend on which rows are live.
+  ``state.pool_k``/``pool_v`` (and the scale slabs) are the ``[:, :P]``
+  views, so the sink is invisible outside this module.
+* A decode window of W steps is :func:`run_window`: W steps with the
+  greedy (or sampled) pick fed back on the device, per-row step caps,
+  and the ``[fin, stop_at]`` bookkeeping rows, as the reference's capped
+  scans (``_paged_decode_window_capped_impl`` and its sampled twin). On
+  CUDA it runs as a captured CUDA graph, one per (greedy | sampled, W),
+  replayed on every dispatch; on the CPU, which the caller must ask
+  for, it runs eagerly.
 * Single-query decode attention goes through ``ops/paged_attention.py``
   when ``cfg.paged_attention`` picks the kernel ("auto" on CUDA, or
   "kernel"); prefill keeps the plain gather math on every device, as the
@@ -29,12 +38,13 @@ Differences that are the port's, not the reference's:
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from kvedge_torch.models.config import TransformerConfig
-from kvedge_torch.models.sampling import as_key_tensor, fold_in, sample_token
+from kvedge_torch.models.sampling import fold_in, sample_token
 from kvedge_torch.models.transformer import (
     _rmsnorm,
     _rotary,
@@ -49,21 +59,47 @@ from kvedge_torch.ops.paged_attention import (
     gather_pages,
     paged_decode_attention,
 )
+from kvedge_torch.runtime.devicecheck import resolve_device
 
 
 @dataclasses.dataclass
 class PagedState:
     """Device-side paged cache state (host policy lives in
-    :class:`PagedKVCache`). ``scale_k``/``scale_v`` (``[L, P, page, K]``
-    fp32) exist only for an int8 pool: one scale per token row and kv
-    head, with the pools holding ``round(x / scale)`` int8."""
+    :class:`PagedKVCache`). The pools hold P + 1 pages: page P is the
+    sink that non-live rows write to. ``scale_k_full``/``scale_v_full``
+    (``[L, P + 1, page, K]`` fp32) exist only for an int8 pool: one scale
+    per token row and kv head, with the pools holding ``round(x /
+    scale)`` int8."""
 
-    pool_k: torch.Tensor    # [L, P, page, K, Dh]
-    pool_v: torch.Tensor    # [L, P, page, K, Dh]
-    tables: torch.Tensor    # [B, max_pages] int32 page ids
-    lengths: torch.Tensor   # [B] int32 valid positions per sequence
-    scale_k: torch.Tensor | None = None
-    scale_v: torch.Tensor | None = None
+    pool_k_full: torch.Tensor   # [L, P + 1, page, K, Dh]
+    pool_v_full: torch.Tensor   # [L, P + 1, page, K, Dh]
+    tables: torch.Tensor        # [B, max_pages] int32 page ids
+    lengths: torch.Tensor       # [B] int32 valid positions per sequence
+    scale_k_full: torch.Tensor | None = None
+    scale_v_full: torch.Tensor | None = None
+
+    @property
+    def sink(self) -> int:
+        return self.pool_k_full.shape[1] - 1
+
+    @property
+    def pool_k(self) -> torch.Tensor:
+        """The P pages a table may name, ``[L, P, page, K, Dh]``."""
+        return self.pool_k_full[:, :self.sink]
+
+    @property
+    def pool_v(self) -> torch.Tensor:
+        return self.pool_v_full[:, :self.sink]
+
+    @property
+    def scale_k(self) -> torch.Tensor | None:
+        return (None if self.scale_k_full is None
+                else self.scale_k_full[:, :self.sink])
+
+    @property
+    def scale_v(self) -> torch.Tensor | None:
+        return (None if self.scale_v_full is None
+                else self.scale_v_full[:, :self.sink])
 
 
 _KV_QMAX = 127.0
@@ -94,37 +130,43 @@ def _use_paged_kernel(cfg: TransformerConfig, device: torch.device) -> bool:
 
 def _write_rows(pool, scales, page_idx, offset, rows_kv):
     """Write token rows ``rows_kv [N, K, Dh]`` at ``(page_idx, offset)``
-    of ``pool [P, page, K, Dh]`` in place, quantizing for an int8 pool."""
+    of ``pool [P + 1, page, K, Dh]`` in place, quantizing for an int8
+    pool."""
     if scales is not None:
         rows_kv, row_scale = _kv_quantize(rows_kv)
         scales[page_idx, offset] = row_scale
     pool[page_idx, offset] = rows_kv
 
 
-def _scatter_token(pool, scales, tables, lengths, kv_new, rows):
-    """Write one ``[B, K, Dh]`` token row per sequence listed in ``rows``
-    (int64 indices) at position ``lengths[b]`` of its pages: page
-    ``tables[b, lengths[b] // page]``, offset ``lengths[b] % page``.
-    Rows not listed write nothing."""
+def _scatter_token(pool, scales, tables, lengths, kv_new, live):
+    """Write one ``[B, K, Dh]`` token row per sequence at position
+    ``lengths[b]`` of its pages (page ``tables[b, lengths[b] // page]``,
+    offset ``lengths[b] % page``) for the rows ``live`` marks; the other
+    rows write to the sink page. Fixed shapes whatever ``live`` holds."""
     page = pool.shape[1]
-    pos = lengths[rows].long()
-    page_idx = tables[rows, pos // page].long()
-    _write_rows(pool, scales, page_idx, pos % page, kv_new[rows])
+    sink = pool.shape[0] - 1
+    pos = lengths.long()
+    col = torch.clamp_max(pos // page, tables.shape[1] - 1)
+    page_idx = torch.gather(tables, 1, col[:, None])[:, 0].long()
+    page_idx = torch.where(live, page_idx, sink)
+    _write_rows(pool, scales, page_idx, pos % page, kv_new)
 
 
 def _paged_attend_layer(cfg: TransformerConfig, state: PagedState, x,
                         layer_params, layer: int, q_positions, slot=None,
-                        rows=None):
+                        live=None):
     """One block over the paged cache. x ``[B, Q, D]``; q_positions
     ``[B, Q]`` absolute positions of the new tokens. ``slot`` set = the
     prefill of one sequence (B == 1, Q tokens); otherwise a decode step
-    (Q == 1) whose K/V are written for ``rows`` only."""
+    (Q == 1) whose K/V are written for the ``live`` rows only."""
     w_qkv, w_out, w_up, w_down, ln_attn, ln_mlp = layer_params
     batch, q_len, _ = x.shape
     h, dh = cfg.n_heads, cfg.d_head
-    pool_k, pool_v = state.pool_k[layer], state.pool_v[layer]
-    scale_k = state.scale_k[layer] if state.scale_k is not None else None
-    scale_v = state.scale_v[layer] if state.scale_v is not None else None
+    pool_k, pool_v = state.pool_k_full[layer], state.pool_v_full[layer]
+    scale_k = (state.scale_k_full[layer]
+               if state.scale_k_full is not None else None)
+    scale_v = (state.scale_v_full[layer]
+               if state.scale_v_full is not None else None)
 
     q, k, v = split_qkv(cfg, _rmsnorm(x, ln_attn) @ w_qkv)
     # Decode rows each carry their own position; a prefill shares one.
@@ -134,8 +176,8 @@ def _paged_attend_layer(cfg: TransformerConfig, state: PagedState, x,
 
     if slot is None:
         tables = state.tables
-        _scatter_token(pool_k, scale_k, tables, state.lengths, k[:, 0], rows)
-        _scatter_token(pool_v, scale_v, tables, state.lengths, v[:, 0], rows)
+        _scatter_token(pool_k, scale_k, tables, state.lengths, k[:, 0], live)
+        _scatter_token(pool_v, scale_v, tables, state.lengths, v[:, 0], live)
     else:
         tables = state.tables[slot][None]
         pos = q_positions[0].long()
@@ -157,12 +199,12 @@ def _paged_attend_layer(cfg: TransformerConfig, state: PagedState, x,
     return mlp(x, w_up, w_down, ln_mlp)
 
 
-def _run_paged(cfg, params, state, x, q_positions, slot=None, rows=None):
+def _run_paged(cfg, params, state, x, q_positions, slot=None, live=None):
     stacked = stacked_layer_params(params, cfg)
     for layer in range(cfg.n_layers):
         x = _paged_attend_layer(cfg, state, x,
                                 tuple(p[layer] for p in stacked), layer,
-                                q_positions, slot, rows)
+                                q_positions, slot, live)
     x = _rmsnorm(x, params["ln_final"])
     return tied_readout(x[:, -1], params["embedding"])
 
@@ -180,30 +222,126 @@ def _paged_prefill(params: dict, state: PagedState, tokens, slot: int,
 
 @torch.no_grad()
 def _decode_step_core(params: dict, state: PagedState, tokens,
-                      cfg: TransformerConfig, rows, active) -> torch.Tensor:
+                      cfg: TransformerConfig, live) -> torch.Tensor:
     """One batched decode step: ``tokens [B]`` in, logits ``[B, V]`` out.
-    ``rows`` (int64 indices) are the rows whose K/V are written and
-    whose lengths advance; ``active`` is the same set as a ``[B]`` bool.
-    Shared by the single step and the windows, so the two agree token
-    for token."""
+    ``live`` ``[B]`` bool marks the rows whose K/V are written and whose
+    lengths advance (in place). Shared by the single step and the
+    windows, so the two agree token for token."""
     x = params["embedding"][tokens][:, None]
     logits = _run_paged(cfg, params, state, x, state.lengths[:, None],
-                        rows=rows)
-    state.lengths += active.to(state.lengths.dtype)
+                        live=live)
+    state.lengths += live.to(state.lengths.dtype)
     return logits
+
+
+@dataclasses.dataclass
+class WindowInputs:
+    """The per-row inputs of one decode window, ``[B]`` tensors on the
+    cache's device (``key_data`` ``[B, 2]``: raw uint32 key data held in
+    int64). A CUDA graph reads them at their addresses, so they are
+    written in place."""
+
+    tokens: torch.Tensor        # int64, the pending token of each row
+    active: torch.Tensor        # bool, rows the window decodes
+    steps_left: torch.Tensor    # int64, each row's step cap
+    stop_tokens: torch.Tensor   # int64, -1 = no stop
+    key_data: torch.Tensor      # int64 [B, 2]
+    base_steps: torch.Tensor    # int64, a sampled row's token index
+    temps: torch.Tensor         # float32
+    top_ps: torch.Tensor        # float32
+    sampled_mask: torch.Tensor  # bool
+
+    @classmethod
+    def zeros(cls, slots: int, device: torch.device) -> "WindowInputs":
+        def z(dtype, *shape):
+            return torch.zeros((slots, *shape), dtype=dtype, device=device)
+
+        return cls(tokens=z(torch.int64), active=z(torch.bool),
+                   steps_left=z(torch.int64), stop_tokens=z(torch.int64),
+                   key_data=z(torch.int64, 2), base_steps=z(torch.int64),
+                   temps=z(torch.float32), top_ps=z(torch.float32),
+                   sampled_mask=z(torch.bool))
+
+
+@torch.no_grad()
+def run_window(params: dict, state: PagedState, cfg: TransformerConfig,
+               inp: WindowInputs, n_steps: int,
+               sampled: bool) -> torch.Tensor:
+    """``n_steps`` decode steps with per-row caps and stop bookkeeping;
+    returns ``[n_steps + 2, B]`` int32: the produced tokens, then ``fin``
+    (0 = window-capped, 1 = froze on its cap, 2 = stop token hit) and
+    ``stop_at`` (the first 1-based live step whose token is the row's
+    stop, 0 = none).
+
+    Row b is live at step i when ``active[b] & (i < steps_left[b])``. A
+    row that is not live re-emits its token, keeps its length and writes
+    to the sink page, so a window dispatched ahead of the host's
+    bookkeeping never writes past a row's budget. A stop hit does not
+    freeze the row: its remaining steps stay inside the granted cap and
+    the host truncates at ``stop_at``. With ``sampled``, EVERY row draws
+    ``fold_in(key_data[b], base_steps[b] + i)`` through the nucleus
+    filter and ``sampled_mask`` selects between the draw and the argmax,
+    so the shapes do not depend on the mix."""
+    toks = inp.tokens
+    stop_at = torch.zeros_like(inp.tokens)
+    temps, top_ps = inp.temps[:, None], inp.top_ps[:, None]
+    rows = []
+    for i in range(n_steps):
+        live = inp.active & (inp.steps_left > i)
+        logits = _decode_step_core(params, state, toks, cfg, live)
+        nxt = torch.argmax(logits, dim=-1)
+        if sampled:
+            drawn = sample_token(logits,
+                                 fold_in(inp.key_data, inp.base_steps + i),
+                                 temps, top_ps)
+            nxt = torch.where(inp.sampled_mask, drawn, nxt)
+        nxt = torch.where(live, nxt, toks)
+        hit = live & (stop_at == 0) & (nxt == inp.stop_tokens)
+        stop_at = torch.where(hit, i + 1, stop_at)
+        rows.append(nxt)
+        toks = nxt
+    capped = (inp.active & (inp.steps_left <= n_steps)).long()
+    fin = torch.where(stop_at > 0, 2, capped)
+    return torch.stack(rows + [fin, stop_at]).to(torch.int32)
+
+
+def _host_ids(tokens) -> np.ndarray:
+    """Token ids (a list, an array or a tensor anywhere) as int64 numpy."""
+    if isinstance(tokens, torch.Tensor):
+        tokens = tokens.cpu()
+    return np.asarray(tokens, np.int64)
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: "torch.cuda.CUDAGraph"
+    out: torch.Tensor   # the static [W + 2, B] output
+    b1_launches: int    # B1 launches one replay makes
+
+
+@dataclasses.dataclass
+class _WindowHandle:
+    """A dispatched window: its block on the host once ``event`` fired
+    (``event`` is None on the CPU, where the block is already there)."""
+
+    n_steps: int
+    block: torch.Tensor
+    event: "torch.cuda.Event | None"
 
 
 class PagedKVCache:
     """Host-side pool manager wrapping a :class:`PagedState`.
 
     ``slots`` is the batch dim of every step. Unused slots keep length 0
-    and write nothing. Every page has one owner (this slice shares no
-    pages), so a page is either on the free list or in one slot's table.
+    and write only to the sink page. Every page has one owner (this
+    slice shares no pages), so a page is either on the free list or in
+    one slot's table. ``device`` is the card unless "cpu" is asked for.
     """
 
     def __init__(self, cfg: TransformerConfig, *, slots: int, pages: int,
                  page_size: int = 16, max_pages_per_seq: int | None = None,
-                 kv_dtype: str = "", device: torch.device | str = "cpu"):
+                 kv_dtype: str = "",
+                 device: torch.device | str | None = None):
         cfg.validate()
         if kv_dtype not in ("", "int8"):
             raise ValueError(
@@ -213,7 +351,7 @@ class PagedKVCache:
         if slots < 1 or pages < 1 or page_size < 1:
             raise ValueError("slots, pages and page_size must be >= 1")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.slots = slots
         self.num_pages = pages
         self.page_size = page_size
@@ -222,7 +360,9 @@ class PagedKVCache:
         )
         self.kv_quantized = kv_dtype == "int8"
         dtype = torch.int8 if self.kv_quantized else torch_dtype(cfg.dtype)
-        shape = (cfg.n_layers, pages, page_size, cfg.kv_heads, cfg.d_head)
+        # One page past the pool: the sink (see the module docstring).
+        shape = (cfg.n_layers, pages + 1, page_size, cfg.kv_heads,
+                 cfg.d_head)
 
         def scale():
             return (torch.zeros(shape[:-1], dtype=torch.float32,
@@ -230,20 +370,35 @@ class PagedKVCache:
                     if self.kv_quantized else None)
 
         self.state = PagedState(
-            pool_k=torch.zeros(shape, dtype=dtype, device=self.device),
-            pool_v=torch.zeros(shape, dtype=dtype, device=self.device),
+            pool_k_full=torch.zeros(shape, dtype=dtype, device=self.device),
+            pool_v_full=torch.zeros(shape, dtype=dtype, device=self.device),
             tables=torch.zeros((slots, self.max_pages_per_seq),
                                dtype=torch.int32, device=self.device),
             lengths=torch.zeros((slots,), dtype=torch.int32,
                                 device=self.device),
-            scale_k=scale(),
-            scale_v=scale(),
+            scale_k_full=scale(),
+            scale_v_full=scale(),
         )
         self._free: list[int] = list(range(pages))[::-1]  # pop() -> lowest
         self._pages_of: dict[int, list[int]] = {}
         self._host_tables = [[0] * self.max_pages_per_seq
                              for _ in range(slots)]
         self._host_lengths = [0] * slots
+        # The windows' inputs, written in place before each dispatch;
+        # _idle_in (every row inactive) drives a graph's warm-up run,
+        # which then writes only to the sink page.
+        self._in = WindowInputs.zeros(slots, self.device)
+        self._idle_in = WindowInputs.zeros(slots, self.device)
+        # Host bytes of the last upload into each input buffer: rows that
+        # repeat from window to window are not uploaded again.
+        self._memo: dict[str, bytes] = {}
+        # (static [W + 2, B] output, W) of the latest dispatch: the
+        # device-resident carry that tokens=None reads.
+        self._carry: tuple[torch.Tensor, int] | None = None
+        self._graphs: dict[tuple[bool, int], _Graph] = {}
+        self._graph_params: dict | None = None
+        self._capture_stream = None
+        self._capture_s = 0.0
 
     # ---- control plane (host) -------------------------------------------
 
@@ -329,13 +484,23 @@ class PagedKVCache:
         self._host_lengths[slot] = 0
         self._sync()
 
+    def _put(self, dst: torch.Tensor, host) -> None:
+        """Copy host data into ``dst`` in place without waiting for the
+        device: on CUDA through pinned memory, which the host allocator
+        keeps until the copy has run, so the copy queues behind whatever
+        window is in flight instead of waiting for it."""
+        src = torch.as_tensor(host)
+        if dst.is_cuda:
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=True)
+
     def _sync(self) -> None:
-        """Upload the host tables and lengths (after admit/grow/release)."""
-        self.state.tables = torch.tensor(self._host_tables, dtype=torch.int32,
-                                         device=self.device)
-        self.state.lengths = torch.tensor(self._host_lengths,
-                                          dtype=torch.int32,
-                                          device=self.device)
+        """Upload the host tables and lengths (after admit/grow/release)
+        into the device tensors, in place."""
+        self._put(self.state.tables,
+                  np.asarray(self._host_tables, np.int32))
+        self._put(self.state.lengths,
+                  np.asarray(self._host_lengths, np.int32))
 
     # ---- device work -----------------------------------------------------
 
@@ -365,10 +530,14 @@ class PagedKVCache:
                               offset)
 
     def _tokens(self, tokens) -> torch.Tensor:
-        if isinstance(tokens, torch.Tensor):
-            return tokens.to(device=self.device, dtype=torch.int64)
-        return torch.as_tensor(np.asarray(tokens, np.int64),
-                               device=self.device)
+        """Token ids as an int64 tensor on the cache's device, uploaded
+        without waiting for the device."""
+        if isinstance(tokens, torch.Tensor) and tokens.device == self.device:
+            return tokens.to(torch.int64)
+        host = _host_ids(tokens)
+        out = torch.empty(host.shape, dtype=torch.int64, device=self.device)
+        self._put(out, host)
+        return out
 
     def _step_slots(self, active) -> list[int]:
         """Admitted slots this step advances: every admitted slot, or
@@ -378,31 +547,27 @@ class PagedKVCache:
             return sorted(self._pages_of)
         return [s for s in sorted(self._pages_of) if active[s]]
 
-    def _prepare(self, active, n_steps: int):
-        """Grow every stepping slot by ``n_steps`` tokens and build the
-        device row set: (slots, rows int64, active bool)."""
-        slots = self._step_slots(active)
-        grew = False
-        for slot in slots:
-            grew |= self.grow_to(slot, n_steps)
-        if grew:
-            self._sync()
+    def _row_mask(self, slots) -> np.ndarray:
         mask = np.zeros((self.slots,), bool)
         mask[slots] = True
-        rows = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
-        return slots, rows, torch.as_tensor(mask, device=self.device)
-
-    def _advance(self, slots, n_steps: int) -> None:
-        for slot in slots:
-            self._host_lengths[slot] += n_steps
+        return mask
 
     def step(self, params: dict, tokens, active=None) -> torch.Tensor:
         """One batched decode step; ``tokens [slots]``; returns logits
         ``[slots, V]`` (inactive rows' logits are garbage)."""
-        slots, rows, mask = self._prepare(active, 1)
+        slots = self._step_slots(active)
+        grew = False
+        for slot in slots:
+            grew |= self.grow(slot)
+        if grew:
+            self._sync()
+        live = torch.empty((self.slots,), dtype=torch.bool,
+                           device=self.device)
+        self._put(live, self._row_mask(slots))
         logits = _decode_step_core(params, self.state, self._tokens(tokens),
-                                   self.cfg, rows, mask)
-        self._advance(slots, 1)
+                                   self.cfg, live)
+        for slot in slots:
+            self._host_lengths[slot] += 1
         return logits
 
     def step_tokens(self, params: dict, tokens, active=None) -> torch.Tensor:
@@ -412,18 +577,12 @@ class PagedKVCache:
     def step_window(self, params: dict, tokens, n_steps: int,
                     active=None) -> torch.Tensor:
         """``n_steps`` greedy steps with the argmax fed back on the
-        device; returns tokens ``[n_steps, slots]`` (row i was produced
-        by feeding row i - 1; row 0 fed ``tokens``)."""
-        slots, rows, mask = self._prepare(active, n_steps)
-        toks = self._tokens(tokens)
-        produced = []
-        for _ in range(n_steps):
-            logits = _decode_step_core(params, self.state, toks, self.cfg,
-                                       rows, mask)
-            toks = torch.argmax(logits, dim=-1)
-            produced.append(toks)
-        self._advance(slots, n_steps)
-        return torch.stack(produced)
+        device; returns tokens ``[n_steps, slots]`` int64 on the host (row
+        i was produced by feeding row i - 1; row 0 fed ``tokens``). The
+        capped window with every row's cap at ``n_steps``."""
+        block = self.harvest_window(
+            self.dispatch_window(params, tokens, n_steps, active))
+        return torch.from_numpy(block[:n_steps].astype(np.int64))
 
     def step_window_sampled(self, params: dict, tokens, n_steps: int, active,
                             key_data, base_steps, temps, top_ps,
@@ -432,28 +591,187 @@ class PagedKVCache:
         at step i draws with ``fold_in(key_data[b], base_steps[b] + i)``
         through the nucleus filter; greedy rows take the argmax. All
         per-row inputs are host arrays of length ``slots``."""
-        slots, rows, mask = self._prepare(active, n_steps)
-        smask = np.asarray(sampled_mask, bool)
-        srows_np = np.flatnonzero(smask)
-        srows = torch.as_tensor(srows_np, device=self.device)
-        keys = as_key_tensor(np.asarray(key_data)[srows_np], self.device)
-        base = torch.as_tensor(np.asarray(base_steps, np.int64)[srows_np],
-                               device=self.device)
-        temps_t = torch.as_tensor(np.asarray(temps, np.float32)[srows_np],
-                                  device=self.device)[:, None]
-        top_p_t = torch.as_tensor(np.asarray(top_ps, np.float32)[srows_np],
-                                  device=self.device)[:, None]
-        toks = self._tokens(tokens)
-        produced = []
-        for i in range(n_steps):
-            logits = _decode_step_core(params, self.state, toks, self.cfg,
-                                       rows, mask)
-            nxt = torch.argmax(logits, dim=-1)
-            if srows_np.size:
-                nxt[srows] = sample_token(logits[srows],
-                                          fold_in(keys, base + i),
-                                          temps_t, top_p_t)
-            toks = nxt
-            produced.append(toks)
-        self._advance(slots, n_steps)
-        return torch.stack(produced)
+        block = self.harvest_window(self.dispatch_window_sampled(
+            params, tokens, n_steps, active, key_data, base_steps, temps,
+            top_ps, sampled_mask))
+        return torch.from_numpy(block[:n_steps].astype(np.int64))
+
+    # ---- overlapped (double-buffered) windows ---------------------------
+
+    def _window_caps(self, n_steps: int, steps_left) -> np.ndarray:
+        if steps_left is None:
+            return np.full((self.slots,), n_steps, np.int64)
+        caps = np.minimum(np.asarray(steps_left, np.int64), n_steps)
+        return np.maximum(caps, 0)
+
+    def dispatch_window(self, params, tokens, n_steps: int, active=None,
+                        steps_left=None, stop_tokens=None) -> _WindowHandle:
+        """Enqueue a greedy decode window WITHOUT waiting for its result;
+        :meth:`harvest_window` reads it. The device runs windows in
+        order, so a second dispatch may be enqueued before the first is
+        harvested; ``tokens=None`` feeds the previous dispatch's final
+        token row (the device-resident carry).
+
+        ``steps_left`` [slots] is each row's remaining decode budget
+        (None = no cap): row b advances ``min(n_steps, steps_left[b])``
+        steps and then freezes on the device (:func:`run_window`). Pages
+        and host lengths advance by each row's TRUE advance, never the
+        full window. ``stop_tokens`` [slots] (None = no stops) rides the
+        window as per-row stop detection; the harvested block carries the
+        ``[fin, stop_at]`` rows."""
+        return self._dispatch(params, tokens, n_steps, active, steps_left,
+                              stop_tokens, None)
+
+    def dispatch_window_sampled(self, params, tokens, n_steps: int,
+                                active, key_data, base_steps, temps,
+                                top_ps, sampled_mask, steps_left=None,
+                                stop_tokens=None) -> _WindowHandle:
+        """Mixed greedy/sampled :meth:`dispatch_window` (same carry,
+        cap, growth and stop discipline; sampling inputs as in
+        :meth:`step_window_sampled`)."""
+        sampling = {
+            "key_data": np.asarray(key_data, np.uint32).astype(np.int64),
+            "base_steps": np.asarray(base_steps, np.int64),
+            "temps": np.asarray(temps, np.float32),
+            "top_ps": np.asarray(top_ps, np.float32),
+            "sampled_mask": np.asarray(sampled_mask, bool),
+        }
+        return self._dispatch(params, tokens, n_steps, active, steps_left,
+                              stop_tokens, sampling)
+
+    def _dispatch(self, params, tokens, n_steps, active, steps_left,
+                  stop_tokens, sampling) -> _WindowHandle:
+        if n_steps < 1:
+            raise ValueError("a window runs n_steps >= 1 steps")
+        if tokens is None and self._carry is None:
+            raise PagedCacheError(
+                "no window in flight to carry tokens from — the first "
+                "window of a pipeline must pass explicit tokens"
+            )
+        slots = self._step_slots(active)
+        caps = self._window_caps(n_steps, steps_left)
+        grew = False
+        for slot in slots:
+            if caps[slot] > 0:
+                grew |= self.grow_to(slot, int(caps[slot]))
+        if grew:
+            self._sync()
+        if stop_tokens is None:
+            stop_tokens = np.full((self.slots,), -1, np.int64)
+        handle = self._device_window_dispatch(
+            params, tokens, n_steps, self._row_mask(slots), caps,
+            np.asarray(stop_tokens, np.int64), sampling)
+        for slot in slots:
+            self._host_lengths[slot] += int(caps[slot])
+        return handle
+
+    def harvest_window(self, handle: _WindowHandle) -> np.ndarray:
+        """The dispatched window's ``[n_steps + 2, slots]`` int32 block:
+        the produced tokens plus the ``[fin, stop_at]`` rows. Waits for
+        that window only — ideally while a later one already runs."""
+        if handle.event is not None:
+            handle.event.synchronize()
+        return handle.block.numpy().copy()
+
+    def drop_carry(self) -> None:
+        """Forget the device-resident carry (a pipeline restarts from host
+        tokens) and the upload memo."""
+        self._carry = None
+        self._memo.clear()
+
+    def _upload(self, name: str, host: np.ndarray) -> None:
+        """Write one window input in place, unless it holds these bytes
+        already."""
+        key = host.tobytes()
+        if self._memo.get(name) == key:
+            return
+        self._put(getattr(self._in, name), host)
+        self._memo[name] = key
+
+    def _device_window_dispatch(self, params, tokens, n_steps: int,
+                                active, caps, stop_tokens,
+                                sampling) -> _WindowHandle:
+        """Device seam: write the window's inputs, run it, and enqueue the
+        copy of its block to the host (no wait)."""
+        if tokens is None:
+            carry_out, carry_n = self._carry
+            self._in.tokens.copy_(carry_out[carry_n - 1])
+        else:
+            self._put(self._in.tokens, _host_ids(tokens))
+        self._upload("active", active)
+        self._upload("steps_left", caps)
+        self._upload("stop_tokens", stop_tokens)
+        for name, host in (sampling or {}).items():
+            self._upload(name, host)
+        out = self._run_device_window(params, n_steps, sampling is not None)
+        self._carry = (out, n_steps)
+        if out.is_cuda:
+            # Both in-flight windows of one W share the graph's static
+            # output: copy this one's out before the next replay.
+            block = out.to("cpu", non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            return _WindowHandle(n_steps, block, event)
+        return _WindowHandle(n_steps, out, None)
+
+    def _run_device_window(self, params, n_steps: int,
+                           sampled: bool) -> torch.Tensor:
+        """Device seam: one window over the current inputs, returning its
+        ``[n_steps + 2, slots]`` block on the device. On CUDA it ALWAYS
+        replays the window's captured graph (capturing it at first use; a
+        failed capture raises); on the CPU it runs eagerly."""
+        if self.device.type != "cuda":
+            return run_window(params, self.state, self.cfg, self._in,
+                              n_steps, sampled)
+        if params is not self._graph_params:
+            # A graph holds the addresses of the params it was captured
+            # with.
+            self._graphs.clear()
+            self._graph_params = params
+        graph = self._graphs.get((sampled, n_steps))
+        if graph is None:
+            graph = self._capture(params, n_steps, sampled)
+            self._graphs[(sampled, n_steps)] = graph
+        graph.graph.replay()
+        paged_decode_attention.launches += graph.b1_launches
+        return graph.out
+
+    def _capture(self, params, n_steps: int, sampled: bool) -> _Graph:
+        """Capture :func:`run_window` at ``n_steps`` as a CUDA graph. The
+        same window runs once eagerly first on the capture stream, every
+        row idle (so it writes only to the sink page), to warm kernel
+        builds, library handles and the allocator. The caller holds the
+        lock every other device launch takes, so nothing else launches
+        during the capture."""
+        t0 = time.perf_counter()
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            run_window(params, self.state, self.cfg, self._idle_in, n_steps,
+                       sampled)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        before = paged_decode_attention.launches
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            out = run_window(params, self.state, self.cfg, self._in,
+                             n_steps, sampled)
+        # The capture launched nothing: its count moves to each replay.
+        captured = paged_decode_attention.launches - before
+        paged_decode_attention.launches = before
+        self._capture_s += time.perf_counter() - t0
+        return _Graph(graph, out, captured)
+
+    def graph_stats(self) -> dict:
+        """Captured window graphs: their count, the seconds spent
+        capturing them (warm-up runs included) and the B1 launches each
+        replay makes, by "greedy/W" or "sampled/W"."""
+        return {
+            "graphs": len(self._graphs),
+            "capture_s": self._capture_s,
+            "b1_launches_per_replay": {
+                f"{'sampled' if s else 'greedy'}/{w}": g.b1_launches
+                for (s, w), g in sorted(self._graphs.items())},
+        }

@@ -92,9 +92,12 @@ def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
     bits = random_bits(key, n)
     float_bits = (bits >> 9) | 0x3F800000  # mantissa fill, exponent of 1.0
     floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    # fp32 bounds as Python floats holding those fp32 values exactly: the
+    # arithmetic stays fp32 and nothing is copied from the host (a
+    # captured CUDA graph may run this).
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(lo))
+    return torch.clamp_min(floats * span + lo, lo)
 
 
 def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
@@ -124,10 +127,9 @@ def nucleus_filter(logits: torch.Tensor, temperature, top_p) -> torch.Tensor:
     probs = torch.softmax(sorted_logits, dim=-1)
     cumulative = torch.cumsum(probs, dim=-1)
     keep = (cumulative - probs) < top_p
-    inf = torch.tensor(float("inf"), device=logits.device)
-    threshold = torch.where(keep, sorted_logits, inf).amin(dim=-1,
-                                                           keepdim=True)
-    return torch.where(scaled >= threshold, scaled, -inf)
+    threshold = torch.where(keep, sorted_logits, float("inf")).amin(
+        dim=-1, keepdim=True)
+    return torch.where(scaled >= threshold, scaled, float("-inf"))
 
 
 def sample_token(logits: torch.Tensor, keys: torch.Tensor, temperature,

@@ -13,11 +13,15 @@ done or its stop token is produced.
 What this slice carries: ``submit``, ``submit_stream``/``StreamHandle``,
 ``cancel``, ``close(drain)``, FIFO admission, chunked prefill, the
 SERIAL window loop (``_loop_once``) with power-of-two windows
-(``_window_steps``), greedy and seeded nucleus sampling with the
-reference's key schedule, and host-side stop-token truncation. What it
-leaves out (the reference's later rungs): speculative decoding, the
-overlap pipeline, the prefix cache, preemption and swap, the journal
-and recovery, the SLO engine, tracing and bucketing.
+(``_window_steps``), the OVERLAPPED loop (``_loop_once_overlap``, the
+``overlap`` knob: window N+1 is enqueued on the device-resident carry
+before window N is harvested, each row capped at its own budget on the
+device), greedy and seeded nucleus sampling with the reference's key
+schedule, and stop tokens (truncated on the host in the serial loop,
+found on the device in the overlapped one). What it leaves out (the
+reference's later rungs): speculative decoding, the prefix cache,
+preemption and swap, the journal and recovery, the SLO engine, tracing,
+autotune and bucketing.
 
 Greedy decode is token-for-token the port's ``forward`` argmax, and the
 tokens of a request do not depend on what else is in flight: the paged
@@ -72,6 +76,11 @@ class _Request:
     error: Exception | None = None
     stream: "queue.SimpleQueue | None" = None
     cancelled: bool = False
+    # Steps dispatched to the device and not yet harvested (the overlap
+    # pipeline), and a stop already emitted whose finish waits for a
+    # boundary because a window in flight still touches the slot.
+    inflight: int = 0
+    stopped: bool = False
 
     def pick(self, logits_row: torch.Tensor, step: int) -> int:
         """Next token from a ``[V]`` logits row, greedy or sampled with
@@ -114,17 +123,24 @@ class PagedGenerationServer:
 
     ``submit`` blocks the calling thread until its tokens are ready (the
     HTTP handler model); one background thread runs the decode loop.
-    ``window`` caps the decode steps one device window runs.
+    ``window`` caps the decode steps one device window runs. ``overlap``
+    "auto" and "on" run the double-buffered loop, "off" the serial one;
+    the tokens are the same. ``device`` is the card unless "cpu" is
+    asked for.
     """
 
     def __init__(self, params: dict, cfg: TransformerConfig, *,
                  slots: int = 4, pages: int = 64, page_size: int = 16,
                  prefill_chunk: int = 0, window: int = 64,
-                 kv_dtype: str = "", device: torch.device | str = "cpu"):
+                 kv_dtype: str = "", overlap: str = "auto",
+                 device: torch.device | str | None = None):
         if not isinstance(window, int) or window < 1:
             raise ValueError("window must be an int >= 1")
         if prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0 (0 = whole prompt)")
+        if overlap not in ("auto", "on", "off"):
+            raise ValueError("overlap must be 'auto', 'on' or 'off'")
+        self._overlap_on = overlap != "off"
         self._params = params
         self._cfg = cfg
         self._window = window
@@ -149,12 +165,22 @@ class PagedGenerationServer:
         # the tokens and requests that finished normally.
         self._decode_steps = 0
         self._windows = 0
+        # The overlap pipeline: the one dispatched, unharvested window
+        # ({"window": W, "parts": [(slot, req, adv)], "handle": ...}),
+        # the windows harvested, those dispatched while another was in
+        # flight (depth 1), and the stop finishes waiting for a boundary.
+        self._inflight: dict | None = None
+        self._overlap_windows = 0
+        self._depth1_windows = 0
+        self._stops_pending = 0
         self._done_total = 0
         self._tokens_done_total = 0
         self._stop_finishes = 0
         # Host-clock seconds spent in prefill chunks (to the first-token
-        # pick) and in decode windows/steps (to the tokens' host copy);
-        # both end in a device sync, so they include the device's time.
+        # pick) and in decode windows/steps (serial: to the tokens' host
+        # copy; overlapped: the loop's iterations that dispatch or
+        # harvest, under the lock); both end in a device sync, so they
+        # include the device's time.
         self._prefill_s = 0.0
         self._decode_s = 0.0
         self._thread = threading.Thread(target=self._loop,
@@ -225,6 +251,9 @@ class PagedGenerationServer:
                 "waiting": len(self._waiting),
                 "decode_steps": self._decode_steps,
                 "windows": self._windows,
+                "overlap": 1 if self._overlap_on else 0,
+                "overlap_windows": self._overlap_windows,
+                "overlap_depth1_windows": self._depth1_windows,
                 "requests_done": self._done_total,
                 "tokens_done": self._tokens_done_total,
                 "stop_finishes": self._stop_finishes,
@@ -374,21 +403,46 @@ class PagedGenerationServer:
         if req.stream is not None:
             req.stream.put(token)
 
+    @staticmethod
+    def _emit_many(req: _Request, tokens: list) -> None:
+        """Bulk :meth:`_emit`: a harvested row's tokens in one extend."""
+        req.generated.extend(tokens)
+        if req.stream is not None:
+            for token in tokens:
+                req.stream.put(token)
+
     def _note_finish_candidate_locked(self, slot: int, req: _Request) -> None:
         """Register a slot whose pending token completes the request
         (budget filled or stop token) for the boundary sweep."""
-        if (len(req.generated) + 1 >= req.n_new
+        if (req.stopped or len(req.generated) + 1 >= req.n_new
                 or req.next_token == req.stop_token):
             self._finish_ready.add(slot)
 
+    def _finish_stopped_locked(self, slot: int, req: _Request) -> None:
+        """Complete a stop-terminated row (its stream already ends in the
+        stop token). If the window in flight still touches the slot, its
+        pages are still being written on the device: mark the row
+        stopped, force a boundary, and let the sweep finish it there."""
+        self._stop_finishes += 1
+        rec = self._inflight
+        if rec is not None and any(s == slot for s, _, _ in rec["parts"]):
+            req.stopped = True
+            self._finish_ready.add(slot)
+            self._stops_pending += 1
+            return
+        self._finish_request_locked(slot, req)
+
     def _sweep_finished_locked(self) -> None:
         """A request whose pending token completes its budget, or IS its
-        stop token, needs no step: emit it and finish before the batch."""
+        stop token, needs no step: emit it and finish before the batch. A
+        deferred stop finish (``req.stopped``) completes here too."""
         for slot in sorted(self._finish_ready):
             req = self._active.get(slot)
             if req is None or req.cancelled:
                 continue
-            if len(req.generated) + 1 >= req.n_new:
+            if req.stopped:
+                self._finish_request_locked(slot, req)
+            elif len(req.generated) + 1 >= req.n_new:
                 self._emit(req, req.next_token)
                 self._finish_request_locked(slot, req)
             elif req.next_token == req.stop_token:
@@ -396,6 +450,8 @@ class PagedGenerationServer:
                 self._stop_finishes += 1
                 self._finish_request_locked(slot, req)
         self._finish_ready.clear()
+        # This sweep is the boundary the pending stops asked for.
+        self._stops_pending = 0
 
     def _sweep_cancelled_locked(self) -> None:
         for slot in list(self._active):
@@ -480,7 +536,9 @@ class PagedGenerationServer:
         return out
 
     def _loop(self) -> None:
-        while self._loop_once() != "exit":
+        step = (self._loop_once_overlap if self._overlap_on
+                else self._loop_once)
+        while step() != "exit":
             # Yield the interpreter lock with the work lock released, so
             # admission waiters can take it between windows.
             time.sleep(0)
@@ -555,3 +613,205 @@ class PagedGenerationServer:
                 self._poison_locked(e)
                 return "exit"
         return "ran"
+
+    # ---- the overlapped decode loop --------------------------------------
+
+    def _loop_once_overlap(self) -> str:
+        """One iteration of the double-buffered decode loop.
+
+        At a boundary (no window in flight) it reconciles as the serial
+        loop does (cancel sweep, finish sweep) and DISPATCHES a window
+        without harvesting it. With a window in flight it first enqueues
+        the next window on the device-resident carry (no host round trip
+        between the two: the overlap), then harvests the previous one
+        while the next runs. Whenever exactness needs a boundary (a
+        cancel, a newcomer, a stop finish waiting for its slot) it
+        harvests WITHOUT dispatching, so the next iteration reconciles.
+        Each row's device-side cap freezes it at its true budget, so a
+        window dispatched ahead of the host never writes past it.
+        """
+        with self._work:
+            while (not self._active and self._inflight is None
+                   and not self._closed
+                   and not (self._draining and not self._prefilling)):
+                self._work.wait()
+            if (self._draining and not self._active
+                    and self._inflight is None and not self._prefilling):
+                return "exit"
+            if self._closed:
+                # Hard close: abandon the in-flight window unread (the
+                # device finishes it harmlessly) and fail the waiters.
+                rec, self._inflight = self._inflight, None
+                if rec is not None:
+                    for _, req, adv in rec["parts"]:
+                        req.inflight -= adv
+                self._fail_active_locked(ServerClosed(
+                    "server shut down mid-request"))
+                return "exit"
+            t0 = time.perf_counter()
+            try:
+                if self._inflight is None:
+                    self._sweep_cancelled_locked()
+                    self._sweep_finished_locked()
+                    if not self._active:
+                        return "ran"
+                    self._inflight = self._dispatch_window_locked(first=True)
+                else:
+                    prev, self._inflight = self._inflight, None
+                    try:
+                        if not self._boundary_wanted_locked(prev):
+                            # Enqueue N+1 on the carry BEFORE reading N:
+                            # the device starts N+1 the moment N retires.
+                            self._inflight = self._dispatch_window_locked(
+                                first=False)
+                        self._harvest_locked(prev)
+                    except Exception:
+                        # prev was not reconciled: restore its in-flight
+                        # accounting and wait it out, then poison below.
+                        self._drain_rec_locked(prev)
+                        raise
+                self._decode_s += time.perf_counter() - t0
+            except Exception as e:  # poison: fail every waiter loudly
+                # Drain the window in flight first, so nothing queued on
+                # the device still writes the pool being torn down.
+                self._drain_inflight_locked()
+                self._poison_locked(e)
+                return "exit"
+        return "ran"
+
+    def _boundary_wanted_locked(self, prev: dict) -> bool:
+        """Fall back to a boundary instead of dispatching the next
+        window? Yes when a cancel must be honored, when a slot is active
+        that the in-flight window never dispatched (a newcomer: it joins
+        at a boundary, where its first token is host-known; the carry
+        row of a slot that sat out is garbage), or when stop finishes
+        wait for one."""
+        dispatched = {slot for slot, _, _ in prev["parts"]}
+        for slot, req in self._active.items():
+            if req.cancelled or slot not in dispatched:
+                return True
+        return self._stops_pending > 0
+
+    def _dispatch_window_locked(self, first: bool) -> dict | None:
+        """Enqueue one capped window for every active slot with budget
+        left (lock held); returns the in-flight record, or None when no
+        slot can advance.
+
+        ``first``: the boundary dispatch (host-known pending tokens), or
+        the overlapped one (``tokens=None``: the cache feeds the previous
+        window's last token row from the device). A row's cap is
+        ``n_new - len(generated) - inflight - 1``: its committed position
+        plus the pending token, which the finish check emits without a
+        step. The widest cap sets the window (floored to a power of two,
+        the serial path's graph set); rows with less freeze on the
+        device."""
+        parts = []
+        for slot, req in self._active.items():
+            cap = req.n_new - len(req.generated) - req.inflight - 1
+            if cap > 0 and not req.stopped:
+                parts.append((slot, req, cap))
+            elif req.inflight == 0:
+                # Bounds a missed finish registration at one iteration.
+                self._finish_ready.add(slot)
+        if not parts:
+            return None
+        w = min(self._window, max(cap for _, _, cap in parts))
+        if w > 1:
+            w = 1 << (w.bit_length() - 1)
+        n = self._cache.slots
+        tokens = np.zeros((n,), np.int64)
+        mask = np.zeros((n,), bool)
+        steps_left = np.zeros((n,), np.int64)
+        stop_tokens = np.full((n,), -1, np.int64)
+        recs = []
+        for slot, req, cap in parts:
+            adv = min(w, cap)
+            tokens[slot] = req.next_token
+            mask[slot] = True
+            steps_left[slot] = adv
+            stop_tokens[slot] = req.stop_token
+            recs.append((slot, req, adv))
+        samplers = {slot: req for slot, req, _ in parts
+                    if req.sampling is not None}
+        tok_arg = tokens if first else None
+        if samplers:
+            key_data = np.zeros((n, 2), np.uint32)
+            base_steps = np.zeros((n,), np.int64)
+            temps = np.ones((n,), np.float32)
+            top_ps = np.ones((n,), np.float32)
+            smask = np.zeros((n,), bool)
+            for slot, req in samplers.items():
+                key_data[slot] = req.sampling[0]
+                # The serial schedule's len(generated) + 1 with the
+                # unharvested advance folded in: token t still draws
+                # with fold_in(seed, t) however the windows fall.
+                base_steps[slot] = len(req.generated) + req.inflight + 1
+                temps[slot] = req.sampling[1]
+                top_ps[slot] = req.sampling[2]
+                smask[slot] = True
+            handle = self._cache.dispatch_window_sampled(
+                self._params, tok_arg, w, mask, key_data, base_steps,
+                temps, top_ps, smask, steps_left=steps_left,
+                stop_tokens=stop_tokens)
+        else:
+            handle = self._cache.dispatch_window(
+                self._params, tok_arg, w, active=mask,
+                steps_left=steps_left, stop_tokens=stop_tokens)
+        for _, req, adv in recs:
+            req.inflight += adv
+        self._decode_steps += w
+        self._windows += 1
+        if not first:
+            self._depth1_windows += 1
+        return {"window": w, "parts": recs, "handle": handle}
+
+    def _harvest_locked(self, rec: dict) -> None:
+        """Read an in-flight window's block and reconcile (lock held):
+        emission, stop and budget finishes, the new pending token. Each
+        row's stream truncates at its dispatch-time cap (``adv``): past
+        it the row was frozen and its entries repeat its last token."""
+        produced = self._cache.harvest_window(rec["handle"])
+        rec["counted"] = True
+        for _, req, adv in rec["parts"]:
+            req.inflight -= adv
+        stop_row = produced[rec["window"] + 1]
+        for slot, req, adv in rec["parts"]:
+            if self._active.get(slot) is not req or req.stopped:
+                continue
+            stop_at = int(stop_row[slot])
+            if stop_at > 0 and not req.cancelled:
+                # The pending token, then everything up to AND including
+                # the stop token; the steps after it are discarded.
+                room = req.n_new - len(req.generated)
+                seq = [req.next_token] + produced[:stop_at, slot].tolist()
+                self._emit_many(req, seq[:room])
+                self._finish_stopped_locked(slot, req)
+                continue
+            toks = produced[:adv, slot].tolist()
+            self._emit_many(req, [req.next_token] + toks[:-1])
+            req.next_token = toks[-1]
+            if len(req.generated) + 1 >= req.n_new and not req.cancelled:
+                # A saturated pipeline may never reach a boundary, so a
+                # filled budget completes here; a cancel is left to the
+                # boundary's sweep, as the serial loop orders them.
+                self._emit(req, req.next_token)
+                self._finish_request_locked(slot, req)
+        self._overlap_windows += 1
+
+    def _drain_rec_locked(self, rec: dict | None) -> None:
+        """Unwind one in-flight record on the failure path: restore the
+        in-flight counts and wait until the device has retired the
+        window."""
+        if rec is None:
+            return
+        if not rec.get("counted"):
+            for _, req, adv in rec["parts"]:
+                req.inflight -= adv
+        try:
+            self._cache.harvest_window(rec["handle"])
+        except Exception:  # the pool is being poisoned anyway
+            pass
+
+    def _drain_inflight_locked(self) -> None:
+        rec, self._inflight = self._inflight, None
+        self._drain_rec_locked(rec)

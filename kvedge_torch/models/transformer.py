@@ -39,6 +39,7 @@ semantics: ids in ``[-V, 0)`` wrap, ids outside ``[-V, V)`` give NaN.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -116,6 +117,15 @@ def _rmsnorm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
     return (x * scale.to(x.dtype)) * gain.to(x.dtype)
 
 
+@functools.cache
+def _rotary_step(half: int) -> float:
+    """``log(10000) / half`` in fp32, as a Python float holding that fp32
+    value exactly: computed once on the host, so a rotary step inside a
+    captured CUDA graph copies nothing from the host."""
+    log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32))
+    return float(log_base / half)
+
+
 def _rotary(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """Rotary embedding over the head dim of x ``[B, T, H, Dh]``.
 
@@ -123,10 +133,9 @@ def _rotary(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     decode row at its own position)."""
     dh = x.shape[-1]
     half = dh // 2
-    log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32))
     freqs = torch.exp(
         -torch.arange(0, half, dtype=torch.float32, device=x.device)
-        * (log_base.to(x.device) / half)
+        * _rotary_step(half)
     )
     angles = positions.to(torch.float32)[..., None] * freqs  # [.., T, half]
     cos = torch.cos(angles).to(x.dtype)

@@ -8,15 +8,16 @@ same names and defaults, for the subset the ported payloads run:
     [payload]  kind ("serve" | "train" | "eval"), seq (the model's
                max_seq and the training sequence length), attention
                ("" = "naive" | "flash"), corpus, eval_corpus, steps,
-               batch, checkpoint_every; for serving: serving ("paged"),
-               paged_attention, serving_slots, serving_page_size,
-               serving_pages, serving_prefill_chunk, serving_window,
-               serving_kv_dtype
+               batch, checkpoint_every; for serving: serving ("" =
+               "contiguous" | "paged"), paged_attention, serving_slots,
+               serving_page_size, serving_pages, serving_prefill_chunk,
+               serving_window, serving_kv_dtype, serving_overlap
+               ("auto" | "on" | "off")
     [status]   port, bind
 
 Any other section or key is REFUSED with its name, not ignored: a knob
-the port does not implement (speculation, the overlap pipeline, the
-prefix cache, ...) would otherwise silently change nothing.
+the port does not implement (speculation, the prefix cache, the
+scheduler, ...) would otherwise silently change nothing.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ _PAYLOAD_KEYS = {
     "serving_prefill_chunk": "serving_prefill_chunk",
     "serving_window": "serving_window",
     "serving_kv_dtype": "serving_kv_dtype",
+    "serving_overlap": "serving_overlap",
 }
 _STATUS_KEYS = {"port": "status_port", "bind": "status_bind"}
 
@@ -74,7 +76,9 @@ class RuntimeConfig:
     n_layers: int = 0
     d_ff: int = 0
     payload: str = "serve"
-    payload_serving: str = "paged"
+    # "" = "contiguous": one request at a time through models/decode.py;
+    # "paged" = the continuous-batching server over the page pool.
+    payload_serving: str = ""
     max_seq: int = 128  # [payload] seq (the reference's train_seq default)
     payload_attention: str = ""  # "" = "naive"
     train_corpus: str = ""
@@ -90,6 +94,10 @@ class RuntimeConfig:
     serving_prefill_chunk: int = 64
     serving_window: int = 64
     serving_kv_dtype: str = ""
+    # The paged server's double-buffered decode loop: "auto" and "on"
+    # enqueue window N+1 on the device-resident carry before window N is
+    # harvested; "off" keeps the serial loop. Tokens are the same.
+    serving_overlap: str = "auto"
     status_port: int = 8476
     status_bind: str = "0.0.0.0"
 
@@ -172,10 +180,13 @@ class RuntimeConfig:
                 raise RuntimeConfigError(
                     f"[payload] {name.removeprefix('train_')} must be "
                     "positive")
-        if self.payload_serving not in ("", "paged"):
+        if self.payload_serving not in ("", "contiguous", "paged"):
             raise RuntimeConfigError(
-                f"[payload] serving = {self.payload_serving!r}: the PyTorch "
-                "port serves through the paged backend only")
+                "[payload] serving must be '', 'contiguous', or 'paged', "
+                f"got {self.payload_serving!r}")
+        if self.serving_overlap not in ("auto", "on", "off"):
+            raise RuntimeConfigError(
+                "[payload] serving_overlap must be 'auto', 'on' or 'off'")
         if self.payload_paged_attention not in ("", "auto", "kernel",
                                                 "gather"):
             raise RuntimeConfigError(

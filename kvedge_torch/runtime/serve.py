@@ -1,19 +1,25 @@
-"""The ``serve`` payload: ``POST /generate`` over the paged server.
+"""The ``serve`` payload: ``POST /generate`` over the paged server or the
+contiguous backend.
 
 The counterpart of the JAX package's ``run_serve_payload`` /
 ``_build_serve`` (``runtime/workload.py``) and of the ``/generate``
-route of its status server, for one single-host paged pool. The request
-contract is the reference's::
+route of its status server, on one host. ``[payload] serving = "paged"``
+serves through the continuous-batching server over one page pool (its
+``serving_overlap`` knob picks the decode loop); ``""`` or
+``"contiguous"`` decodes one request at a time through
+``models/decode.generate``, all its rows as one batch, and refuses
+``stream``, ``priority`` and ``deadline_ms`` as the reference does. The
+request contract is the reference's::
 
     {"tokens": [[int, ...], ...], "n_new": int,
      "temperature": float = 0, "top_p": float = 1, "seed": int = 0}
     -> {"tokens": [[prompt + generated], ...], "n_new": N,
         "restored_step": step | null}
 
-Each row of a request is its own request into the shared page pool,
-submitted concurrently so rows (and other clients' rows) ride the same
-batched decode window. Token ids wrap modulo the vocabulary. Sampling
-(``temperature > 0``) is seeded: row r's key is
+On the paged backend each row of a request is its own request into the
+shared page pool, submitted concurrently so rows (and other clients'
+rows) ride the same batched decode window. Token ids wrap modulo the
+vocabulary. Sampling (``temperature > 0``) is seeded: row r's key is
 ``fold_in(PRNGKey(seed), r)``, so the same request returns the same
 tokens. Errors map as the reference's: 400 for a malformed body, 503
 when capacity does not free up (or the server is closing), 500 for a
@@ -43,6 +49,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from kvedge_torch.models.config import TransformerConfig
+from kvedge_torch.models.decode import generate
 from kvedge_torch.models.sampling import as_key_tensor, fold_in, prng_key
 from kvedge_torch.models.serving import (
     PagedGenerationServer,
@@ -191,8 +198,9 @@ def row_key_data(seed: int, row: int) -> np.ndarray:
 
 
 class ServeRuntime:
-    """The serving data path: device check, weights, the paged server,
-    ``serve_fn`` and (with ``port`` set) the HTTP listener.
+    """The serving data path: device check, weights, the paged server
+    (``server``; None on the contiguous backend), ``serve_fn`` and (with
+    ``port`` set) the HTTP listener.
 
     ``device`` is the card unless "cpu" is asked for; ``params`` is a
     numpy param tree (the reference's layout) or None for the latest
@@ -214,15 +222,22 @@ class ServeRuntime:
         if params is None:
             self.restored_step, params = restore_latest_params(
                 cfg, self.tcfg, seed)
-        weights = params_from_numpy(params, self.tcfg, self.device)
+        self.weights = params_from_numpy(params, self.tcfg, self.device)
         slots, pages, page_size, _ = _serving_pool_dims(cfg, self.tcfg)
         self.max_rows = _serve_max_rows(cfg, self.tcfg)
-        self.server = PagedGenerationServer(
-            weights, self.tcfg, slots=slots, pages=pages,
-            page_size=page_size, prefill_chunk=cfg.serving_prefill_chunk,
-            window=cfg.serving_window, kv_dtype=cfg.serving_kv_dtype,
-            device=self.device,
-        )
+        self.paged = cfg.payload_serving == "paged"
+        self.server = None
+        # The contiguous backend decodes one request at a time.
+        self._generate_lock = threading.Lock()
+        self._closed = False
+        if self.paged:
+            self.server = PagedGenerationServer(
+                self.weights, self.tcfg, slots=slots, pages=pages,
+                page_size=page_size,
+                prefill_chunk=cfg.serving_prefill_chunk,
+                window=cfg.serving_window, kv_dtype=cfg.serving_kv_dtype,
+                overlap=cfg.serving_overlap, device=self.device,
+            )
         # Rows submit together on a bounded pool (2 x slots workers):
         # excess rows queue here instead of spawning threads.
         self._rows = concurrent.futures.ThreadPoolExecutor(
@@ -236,14 +251,23 @@ class ServeRuntime:
     def port(self) -> int:
         return self.httpd.server_address[1]
 
+    @property
+    def healthy(self) -> bool:
+        if self.server is not None:
+            return self.server.healthy
+        return not self._closed
+
     def serve_fn(self, doc: dict) -> dict:
         """One ``POST /generate`` body -> the response document, or for
         ``"stream": true`` a document whose ``"_stream"`` iterates the
         newline-delimited JSON records (one ``{"row": r, "token": t}``
         per token, then ``{"done": true, ...}``)."""
-        (tokens, n_new, temperature, top_p, seed, stream, _spec, priority,
+        (tokens, n_new, temperature, top_p, seed, stream, spec, priority,
          deadline_ms) = _parse_generate_request(
-            doc, self.tcfg, max_rows=self.max_rows, paged=True)
+            doc, self.tcfg, max_rows=self.max_rows, paged=self.paged)
+        if not self.paged:
+            return self._serve_contiguous(tokens, n_new, temperature, top_p,
+                                          seed, spec)
         if priority not in _CLASSES:
             raise ValueError(f"unknown priority class {priority!r} "
                              f"(known: {list(_CLASSES)})")
@@ -265,6 +289,32 @@ class ServeRuntime:
                                          sampling=row_sampling(i))
 
         self._fan_out(len(prompts), one_row)
+        return {"tokens": rows, "n_new": n_new,
+                "restored_step": self.restored_step}
+
+    def _serve_contiguous(self, tokens, n_new: int, temperature: float,
+                          top_p: float, seed: int, spec: int) -> dict:
+        """One request through ``generate``: its rows as one batch, row r
+        sampling with ``fold_in(PRNGKey(seed), r)`` when ``temperature >
+        0``."""
+        if spec:
+            raise ValueError(
+                "per-request 'speculative' decoding is not implemented by "
+                "the PyTorch port")
+        prompt = [[t % self.tcfg.vocab for t in row] for row in tokens]
+        sampled = temperature > 0.0
+        sampling = None
+        if sampled:
+            keys = np.stack([row_key_data(seed, i)
+                             for i in range(len(prompt))])
+            sampling = (keys, temperature, top_p)
+        with self._generate_lock:
+            if self._closed:
+                raise GenerateUnavailable("server is shut down")
+            out = generate(self.weights, prompt, self.tcfg, n_new,
+                           sampling=sampling, sampled=sampled,
+                           device=self.device)
+            rows = out.cpu().tolist()
         return {"tokens": rows, "n_new": n_new,
                 "restored_step": self.restored_step}
 
@@ -371,7 +421,7 @@ class ServeRuntime:
 
             def do_GET(self):
                 if self.path == "/healthz":
-                    ok = runtime.server.healthy
+                    ok = runtime.healthy
                     self._send(200 if ok else 503,
                                {"status": "ok" if ok else "degraded"})
                 else:
@@ -440,6 +490,9 @@ class ServeRuntime:
             self.httpd.shutdown()
             self.httpd.server_close()
             self._http_thread.join(timeout=30)
-        self.server.close(drain=drain)
+        if self.server is not None:
+            self.server.close(drain=drain)
+        with self._generate_lock:
+            self._closed = True
         self._rows.shutdown(wait=True)
 

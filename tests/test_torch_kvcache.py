@@ -83,7 +83,8 @@ def _drive(cache, params, prompts, *, jax_side, chunk=4, steps=3, window=4):
 def test_cache_matches_reference_fp32(n_kv_heads, page_size):
     jcfg, tcfg, jparams, tparams = _setup(n_kv_heads)
     jc = JaxCache(jcfg, slots=3, pages=24, page_size=page_size)
-    tc = PagedKVCache(tcfg, slots=3, pages=24, page_size=page_size)
+    tc = PagedKVCache(tcfg, slots=3, pages=24, page_size=page_size,
+                      device="cpu")
     jl, jt = _drive(jc, jparams, _prompts(), jax_side=True)
     tl, tt = _drive(tc, tparams, _prompts(), jax_side=False)
     print(f"max abs logit err {np.abs(tl - jl).max():.3e}")
@@ -95,7 +96,8 @@ def test_cache_matches_reference_fp32(n_kv_heads, page_size):
 def test_int8_pool_matches_reference_at_bf16_tolerance():
     jcfg, tcfg, jparams, tparams = _setup(2)
     jc = JaxCache(jcfg, slots=3, pages=24, page_size=4, kv_dtype="int8")
-    tc = PagedKVCache(tcfg, slots=3, pages=24, page_size=4, kv_dtype="int8")
+    tc = PagedKVCache(tcfg, slots=3, pages=24, page_size=4, kv_dtype="int8",
+                      device="cpu")
     assert tc.state.pool_k.dtype == torch.int8
     jl, _ = _drive(jc, jparams, _prompts(), jax_side=True, window=2)
     tl, _ = _drive(tc, tparams, _prompts(), jax_side=False, window=2)
@@ -104,7 +106,8 @@ def test_int8_pool_matches_reference_at_bf16_tolerance():
 
 
 def _greedy(cfg, params, prompts, n_new, window):
-    cache = PagedKVCache(cfg, slots=len(prompts), pages=40, page_size=4)
+    cache = PagedKVCache(cfg, slots=len(prompts), pages=40, page_size=4,
+                         device="cpu")
     pend = []
     for s, p in enumerate(prompts):
         cache.admit(s, len(p))
@@ -146,7 +149,7 @@ def test_paged_decode_equals_forward_argmax_fp32():
 
 def test_host_bookkeeping_and_errors():
     _, tcfg, _, tparams = _setup(2)
-    cache = PagedKVCache(tcfg, slots=2, pages=5, page_size=4)
+    cache = PagedKVCache(tcfg, slots=2, pages=5, page_size=4, device="cpu")
     cache.admit(0, 9)  # 3 pages
     assert cache.free_pages() == 2 and cache.slot_pages(0) == [0, 1, 2]
     assert cache.grow_to(0, 3) is False  # 9 + 3 fits in 3 pages
@@ -164,14 +167,14 @@ def test_host_bookkeeping_and_errors():
         cache.release(0)
     with pytest.raises(ValueError):
         PagedKVCache(dataclasses.replace(tcfg), slots=1, pages=1,
-                     kv_dtype="fp8")
+                     kv_dtype="fp8", device="cpu")
 
 
 def test_inactive_rows_write_nothing():
     """A slot marked inactive (its chunked prefill still landing) keeps
     its pages untouched, and an empty slot never writes page 0."""
     _, tcfg, _, tparams = _setup(2)
-    cache = PagedKVCache(tcfg, slots=3, pages=12, page_size=4)
+    cache = PagedKVCache(tcfg, slots=3, pages=12, page_size=4, device="cpu")
     cache.admit(1, 5)
     cache.prefill(tparams, 1, [1, 2, 3, 4, 5])
     cache.admit(2, 6)  # admitted, not prefilled, not active

@@ -34,6 +34,8 @@ from kvedge_tpu.runtime.workload import (
     _parse_generate_request as jax_parse,
 )
 from kvedge_torch.models.config import TransformerConfig
+from kvedge_torch.models.decode import generate, init_cache
+from kvedge_torch.models.kvcache import PagedKVCache
 from kvedge_torch.models.serving import (
     PagedGenerationServer,
     RequestCancelled,
@@ -101,7 +103,8 @@ def test_server_tokens_match_reference_server(models):
                         prefill_chunk=4, prefix_cache=False, overlap="off",
                         window=4)
     tserver = PagedGenerationServer(tparams, tcfg, slots=2, pages=24,
-                                    page_size=4, prefill_chunk=4, window=4)
+                                    page_size=4, prefill_chunk=4, window=4,
+                                    device="cpu")
     try:
         def jsub(prompt, n_new, s):
             sampling = None
@@ -136,7 +139,8 @@ def test_server_tokens_match_reference_server(models):
 def test_greedy_server_equals_forward_argmax(models):
     _, tcfg, _, tparams = models
     server = PagedGenerationServer(tparams, tcfg, slots=2, pages=24,
-                                   page_size=4, prefill_chunk=3, window=8)
+                                   page_size=4, prefill_chunk=3, window=8,
+                                   device="cpu")
     try:
         prompt = [7, 1, 2, 99, 4]
         out = server.submit(prompt, 10)
@@ -151,7 +155,8 @@ def test_stop_token_cancel_drain_and_busy(models):
     _, tcfg, _, tparams = models
     long_cfg = dataclasses.replace(tcfg, max_seq=1024)
     server = PagedGenerationServer(tparams, long_cfg, slots=1, pages=300,
-                                   page_size=4, prefill_chunk=4, window=2)
+                                   page_size=4, prefill_chunk=4, window=2,
+                                   device="cpu")
     try:
         full = server.submit([3, 4, 5], 12)
         gen = full[3:]
@@ -234,7 +239,7 @@ def _post(url, doc):
 
 def test_http_round_trip_on_cpu(tmp_path):
     cfg = ServeConfig(preset="probe", n_layers=1, max_seq=64,
-                      serving_slots=2, serving_prefill_chunk=8,
+                      payload_serving="paged", serving_slots=2, serving_prefill_chunk=8,
                       serving_window=4, state_dir=str(tmp_path))
     rt = ServeRuntime(cfg, device="cpu", dtype="float32", seed=3,
                       host="127.0.0.1", port=0)
@@ -276,12 +281,27 @@ def test_http_round_trip_on_cpu(tmp_path):
         rt.close()
 
 
-def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
+def test_entry_points_need_a_card_unless_cpu_is_asked(models, monkeypatch):
+    _, tcfg, _, tparams = models
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeRuntime(ServeConfig(preset="probe"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["serve", "--preset", "probe", "--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVCache(tcfg, slots=1, pages=4, page_size=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedGenerationServer(tparams, tcfg, slots=1, pages=4, page_size=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(tparams, [[1, 2]], tcfg, n_new=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(tcfg, 1)
+    # Asked for, the CPU runs all of them.
+    PagedKVCache(tcfg, slots=1, pages=4, page_size=4, device="cpu")
+    PagedGenerationServer(tparams, tcfg, slots=1, pages=4, page_size=4,
+                          device="cpu").close()
+    assert generate(tparams, [[1, 2]], tcfg, n_new=2,
+                    device="cpu").shape == (1, 4)
 
 
 def test_config_reads_the_reference_toml_names_and_refuses_the_rest():
@@ -296,12 +316,25 @@ def test_config_reads_the_reference_toml_names_and_refuses_the_rest():
         (32000, 512, 8, 2048)
     assert tcfg.paged_attention == "gather" and cfg.status_port == 9000
     assert ServeConfig().model_config().paged_attention == "auto"
+    # [payload] serving reads as the reference's: "" is the contiguous
+    # backend, the default; serving_overlap defaults to "auto".
+    assert ServeConfig().payload_serving == "" and \
+        ServeConfig().serving_overlap == "auto"
+    assert cfg.payload_serving == "paged" and cfg.serving_overlap == "auto"
+    for value in ("", "contiguous", "paged"):
+        assert ServeConfig.parse(
+            f'[payload]\nserving = "{value}"\n').payload_serving == value
+    for value in ("auto", "on", "off"):
+        assert ServeConfig.parse(
+            f'[payload]\nserving_overlap = "{value}"\n'
+        ).serving_overlap == value
     for text, match in [
         ('[payload]\nserving_speculative = 4\n', "serving_speculative"),
         ('[payload]\nserving_window = "auto"\n', "serving_window"),
         ('[mesh]\naxes = {data = 1}\n', "mesh"),
         ('[model]\npreset = "huge"\n', "preset"),
-        ('[payload]\nserving = "contiguous"\n', "paged"),
+        ('[payload]\nserving = "ragged"\n', "serving must be"),
+        ('[payload]\nserving_overlap = "sometimes"\n', "serving_overlap"),
         ('[payload]\nserving_kv_dtype = "fp8"\n', "kv_dtype"),
         ('[model]\nn_heads = 3\n', "invalid"),
         ('[payload\n', "TOML"),
@@ -318,6 +351,7 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
         "import kvedge_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(\n"
         "    kvedge_torch.__path__, 'kvedge_torch.')]\n"
+        "assert 'kvedge_torch.models.decode' in mods, mods\n"
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in\n"
@@ -330,4 +364,4 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
                           env={"PATH": "/usr/bin:/bin",
                                "PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 13
+    assert int(proc.stdout.strip()) >= 14

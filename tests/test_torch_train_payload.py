@@ -182,7 +182,7 @@ def test_a_rerun_past_its_target_resumes_and_returns(trained):
 def test_serve_restores_the_trained_checkpoint(trained):
     tmp, toml, _, _ = trained
     cfg = dataclasses.replace(RuntimeConfig.parse(toml.read_text()),
-                              payload="serve")
+                              payload="serve", payload_serving="paged")
     rt = ServeRuntime(cfg, device="cpu", dtype="float32")
     try:
         assert rt.restored_step == STEPS
