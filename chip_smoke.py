@@ -20,7 +20,8 @@ imports nothing of JAX. Phases, each printing one JSON line:
             version is itself held to a float64 recomputation of the same
             rounding chain.
 4. windows  decode windows as captured CUDA graphs at the flagship width
-            (the serve phase's model, numpy-seeded), bf16 and fp32, 4
+            (the serve phase's model, numpy-seeded, its depth cut to 2
+            layers to make room for the spec phases), bf16 and fp32, 4
             slots (one admitted but inactive), page 16, W in {1, 8, 64},
             greedy and sampled (top_p 0.9), per-row caps [W, W/2, W/4]
             and a stop token taken from the same window's unstopped run:
@@ -45,12 +46,42 @@ imports nothing of JAX. Phases, each printing one JSON line:
             flight) with the overlap on, a sampled request resubmitted
             alone returns the same tokens, the two-row request streamed as
             ndjson returns its buffered tokens; one request profiled with
-            the overlap on (device idle share); at fp32 the kernel path
-            returns the tokens of the plain ``paged_attention="gather"``
-            path and of the naive forward pass.
+            the overlap on (device idle share); at fp32 (the model's depth
+            cut to 2 layers) the kernel path returns the tokens of the
+            plain ``paged_attention="gather"`` path and of the naive
+            forward pass.
 6. contiguous  the fp32 greedy requests of the serve phase through
             ``serving = "contiguous"`` (``models/decode.generate``) return
-            the paged backend's tokens.
+            the paged backend's tokens (2 layers, as serve_fp32).
+6a. spec_windows  spec windows (``kvcache.run_spec_window``: n-gram
+            drafts, a verify pass, acceptance, the context append) as
+            captured CUDA graphs at the flagship width (2 layers), bf16
+            and fp32, 4 slots (one inactive), page 16, K 4, prompts of a
+            repeated span so drafts accept, greedy and sampled (one
+            sampled row), 1 and 8 passes, each twice with the second on
+            the device spec carry: emitted, counts, pending, the drafting
+            context and its lengths, host and device lengths and both
+            pools equal the same windows run eagerly bit for bit.
+6b. spec    the serve payload with ``serving_speculative = 4`` and
+            ``serving_spec_window = 8`` (overlap "auto", the serve phase's
+            model and pool): the boot probe's decision
+            (``resolve_speculation``), a greedy + sampled warm-up, then
+            the serve phase's 9 requests and two greedy prompts of a
+            repeated span (11 requests, 12 rows) over HTTP, every kernel
+            count zeroed just before and read just after (the verify
+            pass runs the gather, as the reference's; B1 runs only in
+            plain windows). Checks: responses, spec windows > 0, spec windows
+            dispatched at depth 1 > 0, no fallback. Prints decode
+            tokens/s, p50/p99, tokens emitted a pass, ms a pass, the
+            graphs and their capture seconds. At bf16 the greedy rows'
+            agreement with greedy decode through the gather path and
+            through B1 (and the first position where they part, with the
+            naive forward's logit gap there), the sampled rows' with
+            speculation off; at fp32 (n_new cut to 32) spec tokens equal
+            plain greedy tokens and sampled tokens are unchanged by
+            speculation; ``generate_speculative`` equals ``generate`` at
+            fp32 for K 1, 4 and 8 (rate printed); ``torch.argmax`` picks
+            the first maximum at a constructed tie on the card.
 7. timings  CUDA-event times at the serve phase's decode shapes (L2
             flushed before each launch): the kernel, its plain version,
             ``F.scaled_dot_product_attention`` over the gathered K/V as a
@@ -137,7 +168,8 @@ imports nothing of JAX. Phases, each printing one JSON line:
             with a cotangent g in [0.5, 1.5]. The train step with and without
             ``fused_xent``: ms, tokens/s, MFU, the device idle share over 3
             profiled steps and the peak device memory of one step.
-17. kernels  one line listing every ported kernel.
+17. kernels  one line listing every ported kernel, after a line with
+            the seconds each phase took.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check
 exits non-zero before it. Without a card, or without the repository
@@ -166,6 +198,11 @@ CARD: dict = {}  # the nvidia-smi name and power limit, once read
 # The serve phases' state directory: inside the checkout, and empty, so
 # they serve the numpy-seeded weights (no checkpoint to restore).
 SEEDED_STATE_DIR = os.path.join(HERE, "build", "chip_smoke_seeded")
+# The graph == eager phases (windows, spec_windows) and the fp32 path
+# comparisons of the serve phase (serve_fp32, contiguous) run the
+# flagship's width at this depth: what they compare does not depend on
+# it, and the cut buys the time the spec phases take.
+WINDOW_LAYERS = 2
 
 
 class CheckFailed(RuntimeError):
@@ -445,9 +482,10 @@ def run_burst(url, reqs):
 
 def phase_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
                   row_key_data, device="cuda", preset="flagship",
-                  max_seq=2048):
+                  max_seq=2048, n_layers=WINDOW_LAYERS):
     """Decode windows as replayed CUDA graphs against the same windows run
-    eagerly, bit for bit, at the serve phase's model width."""
+    eagerly, bit for bit, at the serve phase's model width (its depth cut
+    to ``n_layers``)."""
 
     class EagerCache(kvc.PagedKVCache):
         def _run_device_window(self, params, n_steps, sampled):
@@ -463,7 +501,8 @@ def phase_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
     key_data = np.stack([row_key_data(21, s) for s in range(4)])
     docs = []
     for dtype in ("bfloat16", "float32"):
-        cfg = ServeConfig(preset=preset, max_seq=max_seq).model_config(dtype)
+        cfg = ServeConfig(preset=preset, max_seq=max_seq,
+                          n_layers=n_layers).model_config(dtype)
         params = params_from_numpy(ttr.init_params(0, cfg), cfg, device)
         prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lives]
         caches, pend = [], None
@@ -536,7 +575,8 @@ def phase_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
         del caches, graph, eager, probe, params
         if device == "cuda":
             torch.cuda.empty_cache()
-    doc = {"phase": "windows", "model": preset, "slots": 4, "page": 16,
+    doc = {"phase": "windows", "model": preset, "n_layers": n_layers,
+           "slots": 4, "page": 16,
            "lives": lives, "windows": [1, 8, 64], "per_dtype": docs,
            "ok": True}
     emit(doc)
@@ -659,7 +699,7 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
             preset=preset, max_seq=max_seq,
             payload_serving="contiguous" if mode == "contiguous" else "paged",
             serving_slots=4, serving_page_size=16, serving_prefill_chunk=64,
-            serving_window=64,
+            serving_window=64, n_layers=WINDOW_LAYERS,
             payload_paged_attention="gather" if mode == "gather" else "",
             state_dir=SEEDED_STATE_DIR)
         rt = serve.ServeRuntime(cfg32, device=device, dtype="float32",
@@ -690,6 +730,7 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
             rt.close()
     same = tokens["auto"] == tokens["gather"]
     emit({"phase": "serve_fp32", "requests": len(greedy),
+          "n_layers": WINDOW_LAYERS,
           "kernel_launches": counts["auto"],
           "gather_launches": counts["gather"],
           "kernel_equals_gather": same, "kernel_equals_forward": forward_ok,
@@ -701,6 +742,7 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
           f"launch counts auto={counts['auto']} gather={counts['gather']}")
     contiguous_same = tokens["contiguous"] == tokens["auto"]
     emit({"phase": "contiguous", "requests": len(greedy), "dtype": "float32",
+          "n_layers": WINDOW_LAYERS,
           "n_new": 24, "contiguous_equals_paged": contiguous_same,
           "kernel_launches": counts["contiguous"],
           "ok": contiguous_same and counts["contiguous"] == 0})
@@ -708,6 +750,370 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
           "backend's")
     check(counts["contiguous"] == 0, "the contiguous backend launched B1")
     return serve_doc, lives, launches
+
+
+# ---- phase 6b: spec -----------------------------------------------------
+
+SPEC_K = 4       # serving_speculative of the spec phase
+SPEC_W = 8       # serving_spec_window of the spec phase
+
+
+def spec_requests(np, vocab):
+    """The serve phase's 9 requests and two greedy prompts built from a
+    repeated span, whose drafts can accept."""
+    reqs = serve_requests(np, vocab)
+    rng = np.random.default_rng(77)
+    for span, times, n_new in ((24, 6, 96), (40, 10, 128)):
+        ids = rng.integers(0, vocab, span).tolist()
+        reqs.append({"tokens": [ids * times], "n_new": n_new})
+    return reqs
+
+
+def phase_spec_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
+                       row_key_data, device="cuda", preset="flagship",
+                       max_seq=2048, n_layers=WINDOW_LAYERS):
+    """Spec windows as replayed CUDA graphs against the same windows run
+    eagerly, bit for bit, at the serve phase's model width (its depth cut
+    to ``n_layers``)."""
+
+    class EagerCache(kvc.PagedKVCache):
+        def _run_device_spec_window(self, params, n_passes, k_len, sampled):
+            return kvc.run_spec_window(params, self.state, self.cfg,
+                                       self._spec_in, n_passes, k_len,
+                                       sampled)
+
+    rng = np.random.default_rng(41)
+    lives = (37, 300, 5, 64)  # slot 3 is admitted but never active
+    active = np.array([True, True, True, False])
+    smask = np.array([False, True, False, False])
+    temps = np.array([1.0, 0.8, 1.0, 1.0], np.float32)
+    top_ps = np.array([1.0, 0.9, 1.0, 1.0], np.float32)
+    key_data = np.stack([row_key_data(23, s) for s in range(4)])
+    s_ctx = max_seq + SPEC_K + 2
+    docs = []
+    for dtype in ("bfloat16", "float32"):
+        cfg = ServeConfig(preset=preset, max_seq=max_seq,
+                          n_layers=n_layers).model_config(dtype)
+        params = params_from_numpy(ttr.init_params(0, cfg), cfg, device)
+        # Repeated spans, so the device drafter's drafts accept.
+        prompts = [(rng.integers(0, cfg.vocab, 8).tolist() * n)[:n]
+                   for n in lives]
+        caches, pend = [], None
+        for cls in (kvc.PagedKVCache, EagerCache):
+            cache = cls(cfg, slots=4, pages=160, page_size=16, device=device)
+            first = []
+            for slot, prompt in enumerate(prompts):
+                cache.admit(slot, len(prompt))
+                first.append(int(cache.prefill(params, slot, prompt).argmax()))
+            caches.append(cache)
+            check(pend is None or first == pend,
+                  "prefill differs between two caches")
+            pend = first
+        graph, eager = caches
+        pend = np.asarray(pend, np.int64)
+        ctx = np.zeros((4, s_ctx), np.int64)
+        ctx_len = np.zeros(4, np.int64)
+        for slot, prompt in enumerate(prompts):
+            ctx[slot, :len(prompt) + 1] = prompt + [int(pend[slot])]
+            ctx_len[slot] = len(prompt) + 1
+        compared, accepted, base = 0, 0, np.array([1, 5, 9, 0], np.int64)
+        for sampled in (False, True):
+            for n in (1, 8):
+                budgets = np.where(active, [6 * n, 3 * n, 40 * n, 0], 0)
+                sampling = ((key_data, base, temps, top_ps, smask)
+                            if sampled else None)
+                outs = []
+                for cache in (graph, eager):
+                    h1 = cache.dispatch_spec_window(
+                        params, pend, n, SPEC_K, budgets, active=active,
+                        ctx=ctx, ctx_len=ctx_len, sampling=sampling)
+                    nxt = None if not sampled else (
+                        key_data, base + h1.caps, temps, top_ps, smask)
+                    h2 = cache.dispatch_spec_window(  # on the carry
+                        params, None, n, SPEC_K, budgets, active=active,
+                        sampling=nxt)
+                    outs.append(cache.harvest_spec_window(h1)
+                                + cache.harvest_spec_window(h2))
+                (g, e) = outs
+                same = (all(np.array_equal(a, b) for a, b in zip(g, e))
+                        and graph._host_lengths == eager._host_lengths
+                        and torch.equal(graph._spec_in.ctx[:, :s_ctx],
+                                        eager._spec_in.ctx[:, :s_ctx])
+                        and torch.equal(graph._spec_in.ctx_len,
+                                        eager._spec_in.ctx_len)
+                        and torch.equal(graph.state.lengths,
+                                        eager.state.lengths)
+                        and torch.equal(graph.state.pool_k,
+                                        eager.state.pool_k)
+                        and torch.equal(graph.state.pool_v,
+                                        eager.state.pool_v))
+                check(same, f"{dtype} {'sampled' if sampled else 'greedy'} "
+                      f"n_passes={n}: the spec graph differs from the eager "
+                      "window")
+                compared += 2
+                accepted += int(g[1].sum() + g[4].sum()
+                                - (g[1] > 0).sum() - (g[4] > 0).sum())
+                # The next windows start from where these left off.
+                pend = g[5].astype(np.int64)
+                ctx = graph._spec_in.ctx[:, :s_ctx].cpu().numpy().copy()
+                ctx_len = graph._spec_in.ctx_len.cpu().numpy().copy()
+                for cache in (graph, eager):
+                    cache.drop_carry()
+                base = base + 2 * n
+        stats = graph.graph_stats()
+        docs.append({"dtype": dtype, "windows_compared": compared,
+                     "graph_equals_eager": True,
+                     "drafts_accepted": accepted,
+                     "spec_graphs": stats["spec_graphs"],
+                     "spec_capture_s": stats["spec_capture_s"],
+                     "spec_b1_launches_per_replay":
+                         stats["spec_b1_launches_per_replay"]})
+        check(device != "cuda" or stats["spec_graphs"] == 4,
+              f"spec graphs {stats}")
+        del caches, graph, eager, params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    doc = {"phase": "spec_windows", "model": preset, "n_layers": n_layers,
+           "slots": 4, "page": 16,
+           "draft_len": SPEC_K, "n_passes": [1, 8], "lives": lives,
+           "per_dtype": docs, "ok": True}
+    emit(doc)
+    return doc
+
+
+def spec_cfg(ServeConfig, preset, max_seq, **kw):
+    base = dict(preset=preset, max_seq=max_seq, payload_serving="paged",
+                serving_slots=4, serving_page_size=16,
+                serving_prefill_chunk=64, serving_window=64,
+                state_dir=SEEDED_STATE_DIR)
+    return ServeConfig(**{**base, **kw})
+
+
+def serve_all(serve, cfg, device, dtype, reqs):
+    """Every request through ``serve_fn`` on one runtime, concurrently;
+    returns (their token rows, the server's stats)."""
+    rt = serve.ServeRuntime(cfg, device=device, dtype=dtype, seed=0)
+    try:
+        out = [None] * len(reqs)
+
+        def one(i):
+            out[i] = rt.serve_fn(reqs[i])
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        check(all(d is not None for d in out), f"a {dtype} request failed")
+        return [d["tokens"] for d in out], rt.server.stats()
+    finally:
+        rt.close()
+
+
+def token_agreement(reqs, got, want, greedy_only=True):
+    """Share of generated positions of the (greedy) rows where ``got``
+    equals ``want``, and the first row and position where they part."""
+    same = total = 0
+    first = None
+    for i, req in enumerate(reqs):
+        if greedy_only and req.get("temperature", 0.0) > 0.0:
+            continue
+        for r, p in enumerate(req["tokens"]):
+            a, b = got[i][r][len(p):], want[i][r][len(p):]
+            total += len(a)
+            same += sum(x == y for x, y in zip(a, b))
+            diff = [j for j, (x, y) in enumerate(zip(a, b)) if x != y]
+            if diff and first is None:
+                first = {"request": i, "row": r, "position": diff[0],
+                         "got": a[diff[0]], "want": b[diff[0]]}
+    return same / max(total, 1), first
+
+
+def logit_gap(torch, forward, params, tcfg, seq, a, b, device):
+    """The naive forward's logit of token ``a`` minus that of ``b`` after
+    ``seq``: how near a tie the place where two paths part is."""
+    logits = forward(params, torch.tensor([seq], device=device), tcfg)
+    row = logits[0, -1].float()
+    top2 = torch.topk(row, 2).values.tolist()
+    return {"gap": float(row[a] - row[b]), "top2_gap": top2[0] - top2[1]}
+
+
+def phase_spec(torch, np, kfns, ttr, serve, spec_mod, decode,
+               ServeConfig, forward, params_from_numpy, device="cuda",
+               preset="flagship", max_seq=2048):
+    """Server-wide speculation on the paged backend (speculative 4, spec
+    windows of 8, the overlap on) at flagship width, the contiguous
+    backend's generate_speculative, and argmax's first-maximum tie rule
+    on the card."""
+    # argmax at a constructed tie: the first maximum, as jnp.argmax.
+    tie = torch.zeros((3, 32000), device=device)
+    tie[0, [5, 70, 31999]] = 2.0
+    tie[1, [0, 31999]] = 1.0
+    check(torch.argmax(tie, dim=-1).tolist() == [5, 0, 0],
+          "argmax does not pick the first maximum")
+
+    cfg = spec_cfg(ServeConfig, preset, max_seq, serving_overlap="auto",
+                   serving_speculative=SPEC_K, serving_spec_window=SPEC_W)
+    clock = {"start": time.perf_counter()}
+    t0 = time.perf_counter()
+    rt = serve.ServeRuntime(cfg, device=device, dtype="bfloat16", seed=0,
+                            host="127.0.0.1", port=0)
+    boot_s = time.perf_counter() - t0
+    try:
+        vocab = rt.tcfg.vocab
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        # Warm-up: a greedy and a sampled request together (spec windows,
+        # greedy and mixed), then the sampled one alone (plain sampled
+        # windows, W 64 down to 1).
+        warm = [{"tokens": [[1, 2, 3, 1, 2, 3]], "n_new": 48},
+                {"tokens": [[4, 5, 6]], "n_new": 128, "temperature": 0.7,
+                 "top_p": 0.9, "seed": 1}]
+        done, _, _ = run_burst(url, warm)
+        check(all(code == 200 for code, _ in done), "spec warm-up request")
+        reqs = spec_requests(np, vocab)
+        stats0 = rt.server.stats()
+        graphs0 = rt.server._cache.graph_stats()
+        zero_counts(kfns)
+        results, lat, wall = run_burst(url, reqs)
+        launches = counts(kfns)
+        stats = rt.server.stats()
+        graphs = rt.server._cache.graph_stats()
+        for (code, doc), req in zip(results, reqs):
+            check(code == 200, f"HTTP {code}: {doc}")
+            check_response(doc, req, vocab)
+        spec_tokens = [doc["tokens"] for _, doc in results]
+
+        def delta(key):
+            return stats[key] - stats0[key]
+
+        passes = delta("spec_passes")
+        gen_tokens = sum(r["n_new"] * len(r["tokens"]) for r in reqs)
+        decode_s = delta("decode_s")
+        doc = {
+            "phase": "spec", "model": preset, "dtype": "bfloat16",
+            "draft_len": SPEC_K, "spec_window": SPEC_W,
+            "serving_overlap": "auto", "requests": len(reqs),
+            "rows": sum(len(r["tokens"]) for r in reqs),
+            "generated_tokens": gen_tokens, "wall_s": wall,
+            "decode_tokens_per_s": gen_tokens / wall,
+            "latency_p50_s": float(np.percentile(lat, 50)),
+            "latency_p99_s": float(np.percentile(lat, 99)),
+            "latencies_s": lat,
+            "spec_passes": passes,
+            "spec_emitted_per_pass": stats["spec_emitted_per_pass"],
+            "decode_s": decode_s, "prefill_s": delta("prefill_s"),
+            "ms_per_pass": decode_s / max(passes, 1) * 1e3,
+            "spec_windows": delta("spec_windows_total"),
+            "spec_windows_at_depth1": delta("spec_windows_depth1"),
+            "windows_at_depth1": delta("overlap_depth1_windows"),
+            "plain_windows": delta("windows"),
+            "spec_window_fallbacks": stats["spec_window_fallbacks"],
+            "spec_decision": stats["spec_decision"],
+            "boot_s": boot_s,
+            # The verify pass runs the gather, as the reference's: B1
+            # launches only in plain windows (an all-sampled batch).
+            "kernel_launches": launches,
+            "graphs_after_warmup": graphs0, "graphs_after_burst": graphs,
+        }
+        check(doc["spec_windows"] > 0, "no spec window ran in the burst")
+        check(doc["spec_windows_at_depth1"] > 0,
+              "no spec window was dispatched while another was in flight")
+        check(sum(stats["spec_window_fallbacks"].values()) == 0,
+              f"fallbacks {stats['spec_window_fallbacks']}")
+    finally:
+        rt.close()
+    clock["burst"] = time.perf_counter()
+
+    # bf16: the agreement of the spec burst's greedy rows with greedy
+    # decode through the gather path (the attention code the verify pass
+    # runs) and through B1; the sampled rows with speculation off.
+    refs = {}
+    for name, kw in (("gather", dict(payload_paged_attention="gather")),
+                     ("b1", {})):
+        refs[name], _ = serve_all(
+            serve, spec_cfg(ServeConfig, preset, max_seq, serving_window=8,
+                            **kw), device, "bfloat16", reqs)
+    agree = {}
+    for name in ("gather", "b1"):
+        share, first = token_agreement(reqs, spec_tokens, refs[name])
+        if first is not None:
+            i, r = first["request"], first["row"]
+            seq = spec_tokens[i][r][:len(reqs[i]["tokens"][r])
+                                    + first["position"]]
+            tcfg = ServeConfig(preset=preset, max_seq=max_seq).model_config(
+                "bfloat16")
+            params = params_from_numpy(ttr.init_params(0, tcfg), tcfg,
+                                       device)
+            first.update(logit_gap(torch, forward, params, tcfg, seq,
+                                   first["got"], first["want"], device))
+            del params
+        agree[name] = {"greedy_token_agreement": share,
+                       "first_divergence": first}
+    sampled_share, _ = token_agreement(
+        [r for r in reqs if r.get("temperature", 0.0) > 0.0],
+        [t for t, r in zip(spec_tokens, reqs)
+         if r.get("temperature", 0.0) > 0.0],
+        [t for t, r in zip(refs["b1"], reqs)
+         if r.get("temperature", 0.0) > 0.0], greedy_only=False)
+    doc["bf16_agreement"] = {**agree,
+                             "sampled_equal_spec_off_share": sampled_share}
+    clock["bf16_refs"] = time.perf_counter()
+
+    # fp32: spec tokens == plain greedy tokens, and the sampled requests'
+    # tokens are the same with speculation on and off (n_new cut to 32).
+    short = [dict(r, n_new=min(r["n_new"], 32)) for r in reqs]
+    fp32_spec, fp32_stats = serve_all(
+        serve, spec_cfg(ServeConfig, preset, max_seq, serving_window=8,
+                        serving_speculative=SPEC_K,
+                        serving_spec_window=SPEC_W), device, "float32",
+        short)
+    fp32_plain, _ = serve_all(
+        serve, spec_cfg(ServeConfig, preset, max_seq, serving_window=8),
+        device, "float32", short)
+    greedy_same = all(a == b for a, b, r in zip(fp32_spec, fp32_plain, short)
+                      if r.get("temperature", 0.0) == 0.0)
+    sampled_same = all(a == b for a, b, r in zip(fp32_spec, fp32_plain,
+                                                 short)
+                       if r.get("temperature", 0.0) > 0.0)
+    doc["fp32"] = {"requests": len(short), "n_new_cap": 32,
+                   "spec_equals_greedy": greedy_same,
+                   "sampled_unchanged_by_speculation": sampled_same,
+                   "spec_windows": fp32_stats.get("spec_windows_total", 0),
+                   "spec_emitted_per_pass":
+                       fp32_stats.get("spec_emitted_per_pass")}
+    clock["fp32"] = time.perf_counter()
+
+    # The contiguous backend: generate_speculative == generate at fp32.
+    tcfg = ServeConfig(preset=preset, max_seq=max_seq).model_config(
+        "float32")
+    params = params_from_numpy(ttr.init_params(0, tcfg), tcfg, device)
+    contiguous = []
+    for prompt in (reqs[-2]["tokens"][0], reqs[-1]["tokens"][0],
+                   reqs[1]["tokens"][0]):
+        want = decode.generate(params, [prompt], tcfg, 32,
+                               device=device).tolist()
+        for k in (1, 4, 8):
+            got, rate = spec_mod.generate_speculative(
+                params, [prompt], tcfg, 32, draft_len=k, device=device)
+            contiguous.append({"prompt_len": len(prompt), "draft_len": k,
+                               "rate": rate, "equal": got.tolist() == want})
+    del params
+    doc["contiguous_fp32"] = contiguous
+    clock["contiguous"] = time.perf_counter()
+    marks = list(clock.items())
+    doc["seconds"] = {name: t - prev for (_, prev), (name, t)
+                      in zip(marks, marks[1:])}
+    doc["ok"] = (greedy_same and sampled_same
+                 and all(c["equal"] for c in contiguous))
+    emit(doc)
+    check(greedy_same, "fp32 spec tokens differ from plain greedy tokens")
+    check(sampled_same, "fp32 sampled tokens change with speculation")
+    check(all(c["equal"] for c in contiguous),
+          "fp32 generate_speculative differs from generate")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return doc
 
 
 def profile_request(torch, url, req):
@@ -1924,7 +2330,9 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         from kvedge_torch.data.feeder import open_feeder, write_corpus
+        from kvedge_torch.models import decode
         from kvedge_torch.models import kvcache as kvc
+        from kvedge_torch.models import speculative as spec_mod
         from kvedge_torch.models import training
         from kvedge_torch.models import transformer as ttr
         from kvedge_torch.models.transformer import forward
@@ -1944,7 +2352,18 @@ def main() -> int:
         return 2
 
     kfns = kernel_wrappers(pa, fa, xe, rn)
-    phase = "device"
+    # Seconds each phase took, printed before the kernels line.
+    seconds: dict = {}
+    clock: list = [time.perf_counter(), None]
+
+    def enter(name: str) -> str:
+        now = time.perf_counter()
+        if clock[1] is not None:
+            seconds[clock[1]] = now - clock[0]
+        clock[:] = [now, name]
+        return name
+
+    phase = enter("device")
     try:
         resolve_device("cuda")
         smi = nvidia_smi()
@@ -1956,7 +2375,7 @@ def main() -> int:
               "nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "ok": True})
 
-        phase = "build"
+        phase = enter("build")
         t0 = time.perf_counter()
         sources = sorted(f[:-3] for f in os.listdir(_build.CSRC)
                          if f.endswith(".cu"))
@@ -1971,54 +2390,62 @@ def main() -> int:
                                      for s in sources},
               "ptxas_registers": ptxas, "ok": True})
 
-        phase = "kernel"
+        phase = enter("kernel")
         _, worst = phase_kernel_vs_plain(torch, pa)
 
-        phase = "windows"
+        phase = enter("windows")
         phase_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
                       serve.row_key_data)
 
-        phase = "serve"
+        phase = enter("serve")
         serve_doc, lives, launches = phase_serve(torch, np, pa, serve,
                                                  ServeConfig, forward)
 
-        phase = "timings"
+        phase = enter("spec_windows")
+        phase_spec_windows(torch, np, kvc, ttr, params_from_numpy,
+                           ServeConfig, serve.row_key_data)
+
+        phase = enter("spec")
+        phase_spec(torch, np, kfns, ttr, serve, spec_mod, decode,
+                   ServeConfig, forward, params_from_numpy)
+
+        phase = enter("timings")
         t = phase_timings(torch, pa, lives, serve_doc)
 
-        phase = "flash_kernel"
+        phase = enter("flash_kernel")
         _, flash_worst = phase_flash_vs_plain(torch, fa)
 
-        phase = "train"
+        phase = enter("train")
         cfg, first, train_launches = phase_train(np, kfns, tr, RuntimeConfig,
                                                  write_corpus)
 
-        phase = "resume"
+        phase = enter("resume")
         phase_resume(tr, cfg, first)
 
         tcfg_flag = cfg.model_config("bfloat16")
-        phase = "flash_vs_naive"
+        phase = enter("flash_vs_naive")
         phase_flash_vs_naive(torch, np, training, ttr, tcfg_flag)
 
-        phase = "eval_serve"
+        phase = enter("eval_serve")
         phase_eval_serve(torch, np, tr, serve, forward, params_from_numpy, cfg,
                          first.losses[0])
 
-        phase = "xent_kernel"
+        phase = enter("xent_kernel")
         _, xent_worst = phase_xent_vs_plain(torch, xe)
 
-        phase = "rmsnorm"
+        phase = enter("rmsnorm")
         rms_worst, rms_launches = phase_rmsnorm(torch, np, kfns, rn, training,
                                                 ttr, tcfg_flag)
 
-        phase = "train_fused"
+        phase = enter("train_fused")
         _, fused_launches = phase_train_fused(torch, np, kfns, training, tr,
                                               ttr, open_feeder, tcfg_flag)
 
-        phase = "train_timings"
+        phase = enter("train_timings")
         tt = phase_train_timings(torch, np, fa, xe, rn, training, ttr,
                                  tcfg_flag)
 
-        phase = "kernels"
+        phase = enter("kernels")
         kernels = [{
             "name": "paged_decode", "route": "cuda",
             "source": "kvedge_torch/ops/csrc/paged_decode.cu",
@@ -2106,6 +2533,9 @@ def main() -> int:
                     "a producer warpgroup; library_ms is the library's "
                     "whole backward, dx and dE, and ratio_to_library "
                     "(dx + dE) / library_ms)")
+        enter("end")
+        emit({"phase": "phase_seconds", "seconds": seconds,
+              "total_s": sum(seconds.values()), "ok": True})
         print(json.dumps({"kernels": kernels, "card": smi}), flush=True)
     except Exception as e:  # the run failed: say where, print no result
         emit({"phase": phase, "ok": False,

@@ -8,7 +8,10 @@
 Each runs on the CUDA card unless ``--device cpu`` is given, and raises
 when there is no card. ``serve`` decodes through the backend that
 ``[payload] serving`` names ("" = contiguous, or "paged", whose decode
-loop ``[payload] serving_overlap`` picks) and runs until interrupted;
+loop ``[payload] serving_overlap`` picks and whose speculation
+``serving_speculative``, ``serving_spec_window`` and
+``serving_spec_sampled_window`` set; a draft length > 0 prints the boot
+probe's decision) and runs until interrupted;
 ``train`` and ``eval`` print their result as one JSON line and exit 0
 when it is ok, 1 when it is not. ``[payload] kind`` in the TOML does
 not pick the command: the subcommand does.
@@ -53,6 +56,7 @@ def _serve(args) -> int:
                       "device": str(runtime.device),
                       "device_check": runtime.device_check.to_dict(),
                       "restored_step": runtime.restored_step,
+                      "spec_decision": runtime.spec_decision,
                       "model": dataclasses.asdict(runtime.tcfg)}),
           flush=True)
     stop.wait()

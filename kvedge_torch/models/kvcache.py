@@ -5,10 +5,11 @@ serving slice. K/V live in pages of a pool ``[L, P, page, K, Dh]``; each
 sequence owns an ordered block table of page ids. The host class
 :class:`PagedKVCache` keeps the reference's method names and semantics
 (``admit``/``grow``/``grow_to``/``release``, ``prefill_chunk``, ``step``,
-``step_tokens``, ``step_window``, ``step_window_sampled``, and the
+``step_tokens``, ``step_window``, ``step_window_sampled``, the
 pipelined ``dispatch_window``/``dispatch_window_sampled``/
-``harvest_window``/``drop_carry``); the device functions below it keep
-its math.
+``harvest_window``/``drop_carry``, and speculative decoding:
+``step_spec``, ``spec_window_caps``, ``dispatch_spec_window``/
+``harvest_spec_window``); the device functions below it keep its math.
 
 Differences that are the port's, not the reference's:
 
@@ -29,10 +30,17 @@ Differences that are the port's, not the reference's:
   CUDA it runs as a captured CUDA graph, one per (greedy | sampled, W),
   replayed on every dispatch; on the CPU, which the caller must ask
   for, it runs eagerly.
+* A spec window of P passes is :func:`run_spec_window` (the reference's
+  ``_paged_spec_window_impl`` and its sampled twin): on CUDA a captured
+  graph per (greedy | sampled, P, K). Its pending tokens and drafting
+  contexts stay in the window's input tensors between windows (the
+  spec carry); the context carries one sink column for the appends the
+  reference drops.
 * Single-query decode attention goes through ``ops/paged_attention.py``
   when ``cfg.paged_attention`` picks the kernel ("auto" on CUDA, or
-  "kernel"); prefill keeps the plain gather math on every device, as the
-  reference keeps its einsum path there.
+  "kernel"); prefill and the speculative verify pass (1 + K queries a
+  row) keep the plain gather math on every device, as the reference
+  keeps its einsum path there.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ import torch
 
 from kvedge_torch.models.config import TransformerConfig
 from kvedge_torch.models.sampling import fold_in, sample_token
+from kvedge_torch.models.speculative import _propose_ngram
 from kvedge_torch.models.transformer import (
     _rmsnorm,
     _rotary,
@@ -154,11 +163,14 @@ def _scatter_token(pool, scales, tables, lengths, kv_new, live):
 
 def _paged_attend_layer(cfg: TransformerConfig, state: PagedState, x,
                         layer_params, layer: int, q_positions, slot=None,
-                        live=None):
+                        live=None, write_mask=None):
     """One block over the paged cache. x ``[B, Q, D]``; q_positions
     ``[B, Q]`` absolute positions of the new tokens. ``slot`` set = the
-    prefill of one sequence (B == 1, Q tokens); otherwise a decode step
-    (Q == 1) whose K/V are written for the ``live`` rows only."""
+    prefill of one sequence (B == 1, Q tokens); otherwise a batched pass
+    (a decode step, Q == 1, or a speculative verify pass, Q == 1 + K)
+    whose token i of row b is written at position ``lengths[b] + i`` when
+    ``live[b] & write_mask[b, i]`` (``write_mask`` None = every offset),
+    and to the sink page otherwise."""
     w_qkv, w_out, w_up, w_down, ln_attn, ln_mlp = layer_params
     batch, q_len, _ = x.shape
     h, dh = cfg.n_heads, cfg.d_head
@@ -175,9 +187,15 @@ def _paged_attend_layer(cfg: TransformerConfig, state: PagedState, x,
     k = _rotary(k, positions)
 
     if slot is None:
+        # One scatter per query offset, each landing before the gather
+        # below reads the pages (the mask is on absolute positions).
         tables = state.tables
-        _scatter_token(pool_k, scale_k, tables, state.lengths, k[:, 0], live)
-        _scatter_token(pool_v, scale_v, tables, state.lengths, v[:, 0], live)
+        for i in range(q_len):
+            w_live = live if write_mask is None else live & write_mask[:, i]
+            _scatter_token(pool_k, scale_k, tables, state.lengths + i,
+                           k[:, i], w_live)
+            _scatter_token(pool_v, scale_v, tables, state.lengths + i,
+                           v[:, i], w_live)
     else:
         tables = state.tables[slot][None]
         pos = q_positions[0].long()
@@ -199,14 +217,19 @@ def _paged_attend_layer(cfg: TransformerConfig, state: PagedState, x,
     return mlp(x, w_up, w_down, ln_mlp)
 
 
-def _run_paged(cfg, params, state, x, q_positions, slot=None, live=None):
+def _run_paged(cfg, params, state, x, q_positions, slot=None, live=None,
+               all_positions: bool = False, write_mask=None):
+    """The layer stack over the paged cache; logits at the last query
+    position ``[B, V]``, or at every one ``[B, Q, V]`` with
+    ``all_positions``."""
     stacked = stacked_layer_params(params, cfg)
     for layer in range(cfg.n_layers):
         x = _paged_attend_layer(cfg, state, x,
                                 tuple(p[layer] for p in stacked), layer,
-                                q_positions, slot, live)
+                                q_positions, slot, live, write_mask)
     x = _rmsnorm(x, params["ln_final"])
-    return tied_readout(x[:, -1], params["embedding"])
+    return tied_readout(x if all_positions else x[:, -1],
+                        params["embedding"])
 
 
 @torch.no_grad()
@@ -305,6 +328,148 @@ def run_window(params: dict, state: PagedState, cfg: TransformerConfig,
     return torch.stack(rows + [fin, stop_at]).to(torch.int32)
 
 
+@torch.no_grad()
+def _spec_verify_core(params: dict, state: PagedState, tokens,
+                      cfg: TransformerConfig, active, spec_mask):
+    """One batched speculative verify pass over the paged cache.
+
+    ``tokens [B, 1+K]``: each row's pending token, then K drafts. One
+    forward over the 1+K query positions scores every draft (``y[b, i]``
+    is the greedy token after row b's prefix extended by ``tokens[b,
+    :i+1]``) and writes the K/V of all 1+K tokens; acceptance is the
+    leading agreement, the contiguous decoder's rule, so the emitted
+    tokens are plain greedy decode's. A row outside ``spec_mask`` (a
+    sampled row) rides with acceptance 0 and its draft offsets write to
+    the sink page, so it needs no slack pages.
+
+    Returns ``(emitted [B, K+1], accepted [B], logits0 [B, V])``: row
+    b's first ``accepted[b]`` emitted entries are its accepted drafts and
+    entry ``accepted[b]`` the bonus token (the model's argmax after
+    them); ``logits0`` are the pending position's logits. ``lengths``
+    advance in place by ``1 + accepted`` on the ``active`` rows: the
+    pending token's K/V and the accepted drafts'. The bonus token's K/V
+    is the next pass's first write, as in plain decode. No host read:
+    it runs inside a captured graph."""
+    k_len = tokens.shape[1] - 1
+    x = params["embedding"][tokens]  # [B, 1+K, D]
+    offsets = torch.arange(1 + k_len, device=tokens.device)
+    q_positions = state.lengths[:, None] + offsets[None]
+    # Offset 0 (the pending token) always writes; draft offsets only for
+    # the rows that can accept them.
+    write_mask = spec_mask[:, None] | (offsets == 0)[None]
+    logits = _run_paged(cfg, params, state, x, q_positions, live=active,
+                        all_positions=True, write_mask=write_mask)
+    y = torch.argmax(logits, dim=-1)  # [B, 1+K]
+    draft = tokens[:, 1:]
+    agree = torch.cumprod((draft == y[:, :k_len]).long(), dim=1)
+    accepted = agree.sum(dim=1) * spec_mask.long()
+    emitted = torch.where(offsets[None] < accepted[:, None],
+                          torch.cat([draft, y[:, -1:]], dim=1),
+                          torch.gather(y, 1, accepted[:, None]))
+    state.lengths += (active.long() * (1 + accepted)).to(state.lengths.dtype)
+    return emitted, accepted, logits[:, 0]
+
+
+@dataclasses.dataclass
+class SpecWindowInputs:
+    """The inputs of one spec window, tensors on the cache's device that
+    a CUDA graph reads at their addresses, so they are written in place.
+    ``pending``, ``ctx`` and ``ctx_len`` are also the window's carry: it
+    writes its final pending tokens and drafting contexts back, and the
+    next window on the carry reads them there. ``ctx`` carries one sink
+    column past the context, ``[B, S_ctx + 1]``: an append that must not
+    land goes there, and nothing reads it."""
+
+    pending: torch.Tensor       # int64 [B]
+    active: torch.Tensor        # bool [B]
+    budgets: torch.Tensor       # int64 [B], each row's emission budget
+    ctx: torch.Tensor           # int64 [B, S_ctx + 1]
+    ctx_len: torch.Tensor       # int64 [B]
+    key_data: torch.Tensor      # int64 [B, 2]
+    base_steps: torch.Tensor    # int64 [B]
+    temps: torch.Tensor         # float32 [B]
+    top_ps: torch.Tensor        # float32 [B]
+    sampled_mask: torch.Tensor  # bool [B]
+
+    @classmethod
+    def zeros(cls, slots: int, s_ctx: int,
+              device: torch.device) -> "SpecWindowInputs":
+        def z(dtype, *shape):
+            return torch.zeros((slots, *shape), dtype=dtype, device=device)
+
+        return cls(pending=z(torch.int64), active=z(torch.bool),
+                   budgets=z(torch.int64), ctx=z(torch.int64, s_ctx + 1),
+                   ctx_len=z(torch.int64), key_data=z(torch.int64, 2),
+                   base_steps=z(torch.int64), temps=z(torch.float32),
+                   top_ps=z(torch.float32), sampled_mask=z(torch.bool))
+
+
+@torch.no_grad()
+def run_spec_window(params: dict, state: PagedState, cfg: TransformerConfig,
+                    inp: SpecWindowInputs, n_passes: int, k_len: int,
+                    sampled: bool):
+    """``n_passes`` speculative draft + verify passes on the device; the
+    counterpart of the reference's ``_paged_spec_window_impl`` and, with
+    ``sampled``, of ``_paged_spec_window_sampled_impl``.
+
+    Each pass drafts K tokens per row with :func:`_propose_ngram` over
+    the row's context, verifies them through :func:`_spec_verify_core`,
+    feeds the bonus token on as the next pending token and appends the
+    pass's accepted drafts and bonus to the context. Row b is live while
+    ``active[b]`` and its remaining budget (``budgets[b]`` less what it
+    emitted) is positive; a frozen row keeps its length, pending token
+    and context and writes only to the sink page and the sink column.
+    The last live pass may overshoot the budget by up to K; the host
+    truncates. With ``sampled``, EVERY row draws ``fold_in(key_data[b],
+    base_steps[b] + i)`` from the pending position's logits and
+    ``sampled_mask`` selects: a sampled row verifies with acceptance 0
+    and advances one token a pass.
+
+    Returns ``(emitted [n_passes, B, K+1], counts [n_passes, B], pending
+    [B])`` where ``counts[p, b] = 1 + accepted`` on a live pass (0
+    frozen): row b's pass-p tokens are its pending token, then
+    ``emitted[p, b, :counts[p, b] - 1]``; ``emitted[p, b, counts[p, b]
+    - 1]`` is the next pending. ``inp.pending``, ``inp.ctx`` and
+    ``inp.ctx_len`` hold the carry afterwards."""
+    s_ctx = inp.ctx.shape[1] - 1
+    ctx = inp.ctx
+    pending, ctx_len, rem = inp.pending, inp.ctx_len, inp.budgets
+    idx = torch.arange(k_len + 1, device=ctx.device)[None]
+    if sampled:
+        temps, top_ps = inp.temps[:, None], inp.top_ps[:, None]
+    emitted_rows, count_rows = [], []
+    for i in range(n_passes):
+        live = inp.active & (rem > 0)
+        spec_live = live & ~inp.sampled_mask if sampled else live
+        draft = _propose_ngram(ctx[:, :s_ctx], ctx_len, k_len)
+        toks = torch.cat([pending[:, None], draft], dim=1)
+        emitted, accepted, logits0 = _spec_verify_core(
+            params, state, toks, cfg, live, spec_live)
+        count = live.long() * (1 + accepted)
+        bonus = torch.gather(emitted, 1, accepted[:, None])[:, 0]
+        if sampled:
+            drawn = sample_token(logits0,
+                                 fold_in(inp.key_data, inp.base_steps + i),
+                                 temps, top_ps)
+            bonus = torch.where(inp.sampled_mask, drawn, bonus)
+            emitted = torch.where(inp.sampled_mask[:, None], bonus[:, None],
+                                  emitted)
+        pending = torch.where(live, bonus, pending)
+        # Append the pass's accepted drafts and bonus (emitted entries
+        # past ``accepted`` repeat the bonus); what must not land goes to
+        # the sink column, as the reference's mode="drop".
+        pos = ctx_len[:, None] + idx
+        ok = live[:, None] & (idx <= accepted[:, None]) & (pos < s_ctx)
+        ctx.scatter_(1, torch.where(ok, pos, s_ctx), emitted)
+        ctx_len = ctx_len + count
+        rem = rem - count
+        emitted_rows.append(emitted)
+        count_rows.append(count)
+    inp.pending.copy_(pending)
+    inp.ctx_len.copy_(ctx_len)
+    return torch.stack(emitted_rows), torch.stack(count_rows), pending
+
+
 def _host_ids(tokens) -> np.ndarray:
     """Token ids (a list, an array or a tensor anywhere) as int64 numpy."""
     if isinstance(tokens, torch.Tensor):
@@ -315,7 +480,9 @@ def _host_ids(tokens) -> np.ndarray:
 @dataclasses.dataclass
 class _Graph:
     graph: "torch.cuda.CUDAGraph"
-    out: torch.Tensor   # the static [W + 2, B] output
+    # The static output: [W + 2, B] for a window, (emitted, counts,
+    # pending) for a spec window.
+    out: "torch.Tensor | tuple"
     b1_launches: int    # B1 launches one replay makes
 
 
@@ -326,6 +493,19 @@ class _WindowHandle:
 
     n_steps: int
     block: torch.Tensor
+    event: "torch.cuda.Event | None"
+
+
+@dataclasses.dataclass
+class _SpecHandle:
+    """A dispatched spec window: its outputs on the host once ``event``
+    fired (``event`` is None on the CPU), and the worst-case advance
+    per slot its dispatch reserved (:meth:`PagedKVCache.spec_window_caps`)."""
+
+    caps: np.ndarray
+    emitted: torch.Tensor
+    counts: torch.Tensor
+    pending: torch.Tensor
     event: "torch.cuda.Event | None"
 
 
@@ -399,6 +579,20 @@ class PagedKVCache:
         self._graph_params: dict | None = None
         self._capture_stream = None
         self._capture_s = 0.0
+        # Spec windows: their inputs (allocated at the first dispatch,
+        # whose context width they take), the device carry (pending,
+        # ctx, ctx_len: views of those inputs) of the latest dispatch,
+        # their graphs by (sampled, n_passes, K), and the worst-case
+        # tokens per slot that dispatched, unharvested spec windows
+        # advance. While any are in flight the DEVICE lengths of their
+        # slots run ahead of the host's by acceptance counts the host
+        # learns at harvest, so _sync keeps them.
+        self._spec_in: SpecWindowInputs | None = None
+        self._spec_idle_in: SpecWindowInputs | None = None
+        self._spec_carry: tuple | None = None
+        self._spec_unharvested = [0] * slots
+        self._spec_graphs: dict[tuple[bool, int, int], _Graph] = {}
+        self._spec_capture_s = 0.0
 
     # ---- control plane (host) -------------------------------------------
 
@@ -482,7 +676,14 @@ class PagedKVCache:
         self._free.extend(self._pages_of.pop(slot))
         self._host_tables[slot] = [0] * self.max_pages_per_seq
         self._host_lengths[slot] = 0
+        # Its device length drops to 0 even while other slots' spec
+        # windows are in flight (_sync keeps only unharvested slots').
+        self._spec_unharvested[slot] = 0
         self._sync()
+
+    def spec_pending(self) -> bool:
+        """Any dispatched, unharvested spec window's reservation?"""
+        return any(self._spec_unharvested)
 
     def _put(self, dst: torch.Tensor, host) -> None:
         """Copy host data into ``dst`` in place without waiting for the
@@ -496,11 +697,22 @@ class PagedKVCache:
 
     def _sync(self) -> None:
         """Upload the host tables and lengths (after admit/grow/release)
-        into the device tensors, in place."""
+        into the device tensors, in place. A slot with a spec window in
+        flight keeps its device length: the window advances it by counts
+        the host learns only at harvest (the merge runs in stream order,
+        after the windows already queued)."""
         self._put(self.state.tables,
                   np.asarray(self._host_tables, np.int32))
-        self._put(self.state.lengths,
-                  np.asarray(self._host_lengths, np.int32))
+        lengths = np.asarray(self._host_lengths, np.int32)
+        if not any(self._spec_unharvested):
+            self._put(self.state.lengths, lengths)
+            return
+        host = torch.empty_like(self.state.lengths)
+        keep = torch.empty(self.state.lengths.shape, dtype=torch.bool,
+                           device=self.device)
+        self._put(host, lengths)
+        self._put(keep, np.asarray(self._spec_unharvested) > 0)
+        self.state.lengths.copy_(torch.where(keep, self.state.lengths, host))
 
     # ---- device work -----------------------------------------------------
 
@@ -596,6 +808,42 @@ class PagedKVCache:
             top_ps, sampled_mask))
         return torch.from_numpy(block[:n_steps].astype(np.int64))
 
+    def step_spec(self, params: dict, tokens, active, spec_mask):
+        """One speculative verify pass (:func:`_spec_verify_core`), run
+        eagerly: the per-pass path.
+
+        ``tokens [slots, 1+K]``; ``spec_mask [slots]`` marks the rows
+        whose drafts may accept (greedy rows; sampled rows ride with
+        acceptance 0 and their draft offsets written to the sink). A
+        greedy row grows pages for the worst case, all K drafts accepted
+        (the server reserves a speculative request's slack at
+        admission); a sampled row grows one position, as a plain step.
+        Returns ``(emitted [slots, K+1] np.int64, accepted [slots]
+        np.int64, logits0 [slots, V] on the device)``."""
+        slots = self._step_slots(active)
+        spec_np = np.asarray(spec_mask, bool)
+        host_tokens = _host_ids(tokens)
+        k_len = host_tokens.shape[1] - 1
+        grew = False
+        for slot in slots:
+            grew |= self.grow_to(slot, (k_len + 1) if spec_np[slot] else 1)
+        if grew:
+            self._sync()
+        live = torch.empty((self.slots,), dtype=torch.bool,
+                           device=self.device)
+        self._put(live, self._row_mask(slots))
+        spec = torch.empty((self.slots,), dtype=torch.bool,
+                           device=self.device)
+        self._put(spec, spec_np)
+        emitted, accepted, logits0 = _spec_verify_core(
+            params, self.state, self._tokens(host_tokens), self.cfg, live,
+            spec)
+        host = torch.cat([emitted, accepted[:, None]], dim=1).cpu().numpy()
+        emitted_np, accepted_np = host[:, :-1], host[:, -1]
+        for slot in slots:
+            self._host_lengths[slot] += 1 + int(accepted_np[slot])
+        return emitted_np, accepted_np, logits0
+
     # ---- overlapped (double-buffered) windows ---------------------------
 
     def _window_caps(self, n_steps: int, steps_left) -> np.ndarray:
@@ -674,19 +922,27 @@ class PagedKVCache:
         return handle.block.numpy().copy()
 
     def drop_carry(self) -> None:
-        """Forget the device-resident carry (a pipeline restarts from host
-        tokens) and the upload memo."""
+        """Forget the device-resident carries, plain and spec (a pipeline
+        restarts from host tokens), every unharvested spec reservation
+        (the host lengths are authoritative again) and the upload
+        memo."""
         self._carry = None
+        self._spec_carry = None
+        self._spec_unharvested = [0] * self.slots
         self._memo.clear()
 
-    def _upload(self, name: str, host: np.ndarray) -> None:
-        """Write one window input in place, unless it holds these bytes
-        already."""
+    def _upload(self, name: str, host: np.ndarray,
+                inputs: "WindowInputs | SpecWindowInputs | None" = None
+                ) -> None:
+        """Write one window input in place (into ``inputs``, the plain
+        window's by default), unless it holds these bytes already."""
+        inputs = self._in if inputs is None else inputs
         key = host.tobytes()
-        if self._memo.get(name) == key:
+        memo = (id(inputs), name)
+        if self._memo.get(memo) == key:
             return
-        self._put(getattr(self._in, name), host)
-        self._memo[name] = key
+        self._put(getattr(inputs, name), host)
+        self._memo[memo] = key
 
     def _device_window_dispatch(self, params, tokens, n_steps: int,
                                 active, caps, stop_tokens,
@@ -723,55 +979,241 @@ class PagedKVCache:
         if self.device.type != "cuda":
             return run_window(params, self.state, self.cfg, self._in,
                               n_steps, sampled)
+        return self._replay(self._graphs, (sampled, n_steps), params,
+                            lambda inp: run_window(
+                                params, self.state, self.cfg, inp, n_steps,
+                                sampled),
+                            self._in, self._idle_in)
+
+    def _replay(self, graphs: dict, key, params, run, inputs, idle):
+        """Replay the graph ``graphs[key]`` of ``run(inputs)``, capturing
+        it first if it is not there; returns its static output."""
         if params is not self._graph_params:
             # A graph holds the addresses of the params it was captured
             # with.
             self._graphs.clear()
+            self._spec_graphs.clear()
             self._graph_params = params
-        graph = self._graphs.get((sampled, n_steps))
+        graph = graphs.get(key)
         if graph is None:
-            graph = self._capture(params, n_steps, sampled)
-            self._graphs[(sampled, n_steps)] = graph
+            t0 = time.perf_counter()
+            graph = self._capture(run, inputs, idle)
+            seconds = time.perf_counter() - t0
+            if graphs is self._spec_graphs:
+                self._spec_capture_s += seconds
+            else:
+                self._capture_s += seconds
+            graphs[key] = graph
         graph.graph.replay()
         paged_decode_attention.launches += graph.b1_launches
         return graph.out
 
-    def _capture(self, params, n_steps: int, sampled: bool) -> _Graph:
-        """Capture :func:`run_window` at ``n_steps`` as a CUDA graph. The
-        same window runs once eagerly first on the capture stream, every
-        row idle (so it writes only to the sink page), to warm kernel
-        builds, library handles and the allocator. The caller holds the
-        lock every other device launch takes, so nothing else launches
-        during the capture."""
-        t0 = time.perf_counter()
+    def _capture(self, run, inputs, idle) -> _Graph:
+        """Capture ``run(inputs)`` as a CUDA graph. It runs once eagerly
+        first on the capture stream over ``idle`` (every row inactive, so
+        it writes only to the sink page), to warm kernel builds, library
+        handles and the allocator. The caller holds the lock every other
+        device launch takes, so nothing else launches during the
+        capture."""
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
         stream = self._capture_stream
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
-            run_window(params, self.state, self.cfg, self._idle_in, n_steps,
-                       sampled)
+            run(idle)
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         before = paged_decode_attention.launches
         with torch.cuda.graph(graph, stream=stream,
                               capture_error_mode="thread_local"):
-            out = run_window(params, self.state, self.cfg, self._in,
-                             n_steps, sampled)
+            out = run(inputs)
         # The capture launched nothing: its count moves to each replay.
         captured = paged_decode_attention.launches - before
         paged_decode_attention.launches = before
-        self._capture_s += time.perf_counter() - t0
         return _Graph(graph, out, captured)
 
+    # ---- speculative windows (device-resident draft + verify passes) ----
+
+    @staticmethod
+    def spec_window_caps(n_passes: int, k_len: int, budgets,
+                         sampled_mask=None) -> np.ndarray:
+        """Worst-case token advance per slot of ONE spec window: a row
+        runs passes while its budget is positive, each advancing 1 +
+        accepted <= 1 + K, so the last pass may overshoot the budget by
+        up to K. Pages and ``_spec_unharvested`` reserve this bound; the
+        true advance is known at harvest. A sampled row advances exactly
+        one token a live pass, so its cap is exact: ``min(budget,
+        n_passes)`` (the server prices the next window's ``base_steps``
+        off it)."""
+        budgets_np = np.maximum(np.asarray(budgets, np.int64), 0)
+        caps = np.minimum(budgets_np + k_len, n_passes * (k_len + 1))
+        if sampled_mask is not None:
+            caps = np.where(np.asarray(sampled_mask, bool),
+                            np.minimum(budgets_np, n_passes), caps)
+        return np.where(budgets_np > 0, caps, 0).astype(np.int32)
+
+    def dispatch_spec_window(self, params, tokens, n_passes: int,
+                             k_len: int, budgets, active=None, ctx=None,
+                             ctx_len=None, sampling=None) -> _SpecHandle:
+        """Enqueue ``n_passes`` speculative draft + verify passes
+        (:func:`run_spec_window`) WITHOUT waiting for their result;
+        :meth:`harvest_spec_window` reads it. ``budgets[b] > 0`` marks
+        the participants.
+
+        The first window of a pipeline passes ``tokens [slots]`` (each
+        row's pending token) and its drafting context ``ctx [slots,
+        S_ctx]`` / ``ctx_len [slots]`` (prompt + generated + pending);
+        later ones pass ``tokens=None`` and ride the device carry, so
+        pending tokens and contexts never visit the host between windows.
+        ``sampling = (key_data, base_steps, temps, top_ps, sampled_mask)``
+        runs the mixed greedy/sampled window. Pages and
+        ``_spec_unharvested`` reserve the worst case
+        (:meth:`spec_window_caps`); host lengths advance at harvest, by
+        the true counts."""
+        if n_passes < 1 or k_len < 1:
+            raise ValueError("a spec window runs n_passes >= 1 passes of "
+                             "k_len >= 1 drafts")
+        slots = self._step_slots(active)
+        sampled_mask = sampling[4] if sampling is not None else None
+        caps = self.spec_window_caps(n_passes, k_len, budgets, sampled_mask)
+        budgets_np = np.maximum(np.asarray(budgets, np.int64), 0)
+        grew = False
+        for slot in slots:
+            if caps[slot] > 0:
+                grew |= self.grow_to(
+                    slot, self._spec_unharvested[slot] + int(caps[slot]))
+        if grew:
+            self._sync()
+        if tokens is None:
+            if self._spec_carry is None:
+                raise PagedCacheError(
+                    "no spec window in flight to carry from — the first "
+                    "spec window of a pipeline must pass explicit tokens "
+                    "and drafting context"
+                )
+        elif ctx is None or ctx_len is None:
+            raise PagedCacheError(
+                "a spec window dispatched from host tokens needs its "
+                "drafting context (ctx, ctx_len)"
+            )
+        handle = self._device_spec_window(
+            params, tokens, n_passes, k_len, self._row_mask(slots),
+            budgets_np, ctx, ctx_len, sampling, caps)
+        for slot in slots:
+            if caps[slot] > 0:
+                self._spec_unharvested[slot] += int(caps[slot])
+        return handle
+
+    def _spec_inputs(self, s_ctx: int) -> SpecWindowInputs:
+        """The spec windows' inputs for a context of ``s_ctx`` columns
+        (one more, the sink): allocated at the first dispatch, and again
+        (dropping the spec graphs that read the old ones) if the width
+        changes."""
+        if self._spec_in is None or self._spec_in.ctx.shape[1] != s_ctx + 1:
+            self._spec_in = SpecWindowInputs.zeros(self.slots, s_ctx,
+                                                   self.device)
+            self._spec_idle_in = SpecWindowInputs.zeros(self.slots, s_ctx,
+                                                        self.device)
+            self._spec_graphs.clear()
+            self._spec_carry = None
+            self._memo.clear()
+        return self._spec_in
+
+    def _device_spec_window(self, params, tokens, n_passes: int,
+                            k_len: int, active, budgets, ctx, ctx_len,
+                            sampling, caps) -> _SpecHandle:
+        """Device seam: write the spec window's inputs (from the host, or
+        nothing but budgets and sampling rows on the carry), run it, and
+        enqueue the copy of its outputs to the host (no wait)."""
+        if tokens is None:
+            inp = self._spec_in
+        else:
+            host_ctx = _host_ids(ctx)
+            inp = self._spec_inputs(host_ctx.shape[1])
+            # The sink column rides along as zeros.
+            padded = np.zeros((self.slots, host_ctx.shape[1] + 1), np.int64)
+            padded[:, :-1] = host_ctx
+            self._put(inp.pending, _host_ids(tokens))
+            self._put(inp.ctx, padded)
+            self._put(inp.ctx_len, _host_ids(ctx_len))
+        self._upload("active", np.asarray(active, bool), inp)
+        self._upload("budgets", np.asarray(budgets, np.int64), inp)
+        if sampling is not None:
+            key_data, base_steps, temps, top_ps, sampled_mask = sampling
+            for name, host in (
+                    ("key_data",
+                     np.asarray(key_data, np.uint32).astype(np.int64)),
+                    ("base_steps", np.asarray(base_steps, np.int64)),
+                    ("temps", np.asarray(temps, np.float32)),
+                    ("top_ps", np.asarray(top_ps, np.float32)),
+                    ("sampled_mask", np.asarray(sampled_mask, bool))):
+                self._upload(name, host, inp)
+        emitted, counts, pending = self._run_device_spec_window(
+            params, n_passes, k_len, sampling is not None)
+        self._spec_carry = (inp.pending, inp.ctx, inp.ctx_len)
+        if emitted.is_cuda:
+            # Two windows in flight share the graph's static outputs:
+            # copy this one's before the next replay.
+            outs = [t.to("cpu", non_blocking=True)
+                    for t in (emitted, counts, pending)]
+            event = torch.cuda.Event()
+            event.record()
+            return _SpecHandle(caps, *outs, event)
+        return _SpecHandle(caps, emitted, counts, pending, None)
+
+    def _run_device_spec_window(self, params, n_passes: int, k_len: int,
+                                sampled: bool):
+        """Device seam: one spec window over the current spec inputs,
+        returning ``(emitted, counts, pending)`` on the device. On CUDA
+        it ALWAYS replays the captured graph of (greedy | sampled,
+        n_passes, K), capturing it at first use (a failed capture
+        raises); on the CPU it runs eagerly."""
+        if self.device.type != "cuda":
+            return run_spec_window(params, self.state, self.cfg,
+                                   self._spec_in, n_passes, k_len, sampled)
+        return self._replay(self._spec_graphs, (sampled, n_passes, k_len),
+                            params,
+                            lambda inp: run_spec_window(
+                                params, self.state, self.cfg, inp,
+                                n_passes, k_len, sampled),
+                            self._spec_in, self._spec_idle_in)
+
+    def harvest_spec_window(self, handle: _SpecHandle):
+        """Wait for a dispatched spec window and settle what its dispatch
+        could only bound: host lengths advance by each slot's true
+        advance (the sum of its counts) and the worst-case reservation is
+        returned. Returns ``(emitted [n_passes, slots, K+1], counts
+        [n_passes, slots], pending [slots])`` as numpy."""
+        if handle.event is not None:
+            handle.event.synchronize()
+        emitted = handle.emitted.numpy().copy()
+        counts = handle.counts.numpy().copy()
+        pending = handle.pending.numpy().copy()
+        caps = handle.caps
+        for slot in range(len(caps)):
+            # A slot released (and perhaps re-admitted) while its window
+            # was in flight had its reservation zeroed already; settling
+            # here would resurrect it.
+            if (caps[slot] > 0 and slot in self._pages_of
+                    and self._spec_unharvested[slot] >= int(caps[slot])):
+                self._host_lengths[slot] += int(counts[:, slot].sum())
+                self._spec_unharvested[slot] -= int(caps[slot])
+        return emitted, counts, pending
+
     def graph_stats(self) -> dict:
-        """Captured window graphs: their count, the seconds spent
+        """Captured graphs: the plain windows' count, the seconds spent
         capturing them (warm-up runs included) and the B1 launches each
-        replay makes, by "greedy/W" or "sampled/W"."""
+        replay makes, by "greedy/W" or "sampled/W"; the spec windows'
+        apart, by "greedy/P/K" or "sampled/P/K"."""
         return {
             "graphs": len(self._graphs),
             "capture_s": self._capture_s,
             "b1_launches_per_replay": {
                 f"{'sampled' if s else 'greedy'}/{w}": g.b1_launches
                 for (s, w), g in sorted(self._graphs.items())},
+            "spec_graphs": len(self._spec_graphs),
+            "spec_capture_s": self._spec_capture_s,
+            "spec_b1_launches_per_replay": {
+                f"{'sampled' if s else 'greedy'}/{p}/{k}": g.b1_launches
+                for (s, p, k), g in sorted(self._spec_graphs.items())},
         }

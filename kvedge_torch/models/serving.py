@@ -17,11 +17,14 @@ SERIAL window loop (``_loop_once``) with power-of-two windows
 ``overlap`` knob: window N+1 is enqueued on the device-resident carry
 before window N is harvested, each row capped at its own budget on the
 device), greedy and seeded nucleus sampling with the reference's key
-schedule, and stop tokens (truncated on the host in the serial loop,
-found on the device in the overlapped one). What it leaves out (the
-reference's later rungs): speculative decoding, the prefix cache,
-preemption and swap, the journal and recovery, the SLO engine, tracing,
-autotune and bucketing.
+schedule, stop tokens (truncated on the host in the serial loop, found
+on the device in the overlapped one), and server-wide speculative
+decoding (``speculative``: per verify pass at boundaries, or as
+device-resident spec windows in the overlap pipeline with
+``spec_window``; the ``resolve_speculation`` boot probe). What it leaves
+out (the reference's later rungs): the prefix cache, preemption and
+swap, the journal and recovery, the SLO engine, tracing, autotune and
+bucketing.
 
 Greedy decode is token-for-token the port's ``forward`` argmax, and the
 tokens of a request do not depend on what else is in flight: the paged
@@ -125,14 +128,20 @@ class PagedGenerationServer:
     HTTP handler model); one background thread runs the decode loop.
     ``window`` caps the decode steps one device window runs. ``overlap``
     "auto" and "on" run the double-buffered loop, "off" the serial one;
-    the tokens are the same. ``device`` is the card unless "cpu" is
-    asked for.
+    the tokens are the same. ``speculative`` K > 0 advances greedy
+    requests by verify passes of K prompt-lookup drafts (the same tokens
+    as plain greedy decode); ``spec_window`` W > 0 runs W passes as one
+    device-resident spec window in the overlap pipeline, and
+    ``spec_sampled_window`` keeps a batch with sampled co-tenants on
+    those windows. ``device`` is the card unless "cpu" is asked for.
     """
 
     def __init__(self, params: dict, cfg: TransformerConfig, *,
                  slots: int = 4, pages: int = 64, page_size: int = 16,
-                 prefill_chunk: int = 0, window: int = 64,
-                 kv_dtype: str = "", overlap: str = "auto",
+                 prefill_chunk: int = 0, speculative: int = 0,
+                 spec_window: int = 0, spec_sampled_window: bool = True,
+                 window: int = 64, kv_dtype: str = "",
+                 overlap: str = "auto",
                  device: torch.device | str | None = None):
         if not isinstance(window, int) or window < 1:
             raise ValueError("window must be an int >= 1")
@@ -145,9 +154,44 @@ class PagedGenerationServer:
         self._cfg = cfg
         self._window = window
         self._prefill_chunk = prefill_chunk
+        # Speculative mode: greedy slots advance by verify passes of K
+        # drafts, sampled slots ride one token a pass. A GREEDY request's
+        # page budget carries K slack positions (a verify pass writes K/V
+        # at length..length+K even when nothing accepts); sampled
+        # requests reserve none, their draft offsets writing to the sink.
+        self._spec = int(speculative)
+        self._spec_passes = 0
+        self._spec_emitted = 0      # tokens emitted by greedy slots
+        self._spec_slot_passes = 0  # greedy-slot participations
+        if spec_window < 0:
+            raise ValueError("spec_window must be >= 0")
+        if spec_window > 0 and self._spec <= 0:
+            raise ValueError(
+                "spec_window needs speculative mode (speculative > 0)"
+            )
+        self._spec_window = int(spec_window)
+        self._spec_windows = 0
+        self._spec_depth1_windows = 0
+        self._spec_sampled_window = bool(spec_sampled_window)
+        # Spec windows configured but a boundary ran the per-pass path
+        # anyway, by cause: "sampled" = a mixed batch with the sampled
+        # window off; "spec_off" = speculation disabled with a spec
+        # window in flight; "overlap_off" = the serial loop is running.
+        self._spec_window_fallbacks = {
+            "sampled": 0, "spec_off": 0, "overlap_off": 0,
+        }
+        # Drafting-context capacity of a spec window: prompt + generated
+        # + pending never exceeds max_seq + 1, and the device appends at
+        # most K past the budget before freezing.
+        self._spec_ctx_cap = int(cfg.max_seq) + int(speculative) + 2
+        # The boot probe's decision (resolve_speculation), kept after an
+        # auto fallback zeroed _spec.
+        self._spec_decision: dict | None = None
+        # The table widens by the draft slack, so a full-length (prompt +
+        # n_new == max_seq) greedy request still admits.
         self._cache = PagedKVCache(
             cfg, slots=slots, pages=pages, page_size=page_size,
-            max_pages_per_seq=-(-cfg.max_seq // page_size),
+            max_pages_per_seq=-(-(cfg.max_seq + self._spec) // page_size),
             kv_dtype=kv_dtype, device=device,
         )
         self._pages_total = pages
@@ -260,12 +304,169 @@ class PagedGenerationServer:
                 "prefill_s": self._prefill_s,
                 "decode_s": self._decode_s,
                 "page_accounting": self._cache.page_accounting(),
+                "spec_window_fallbacks": dict(self._spec_window_fallbacks),
+                **self._spec_stats_locked(),
             }
+
+    def _spec_stats_locked(self) -> dict:
+        out: dict = {}
+        if self._spec:
+            # Tokens a greedy slot emits per verify pass it rides (1.0 =
+            # speculation never paid; K + 1 = every draft accepted),
+            # normalized by slot participations, not passes.
+            out["spec_draft_len"] = self._spec
+            out["spec_passes"] = self._spec_passes
+            out["spec_emitted_per_pass"] = round(
+                self._spec_emitted / self._spec_slot_passes, 3
+            ) if self._spec_slot_passes else 0.0
+        if self._spec_window:
+            out["spec_window"] = self._spec_window
+            out["spec_windows_total"] = self._spec_windows
+            out["spec_windows_depth1"] = self._spec_depth1_windows
+            out["spec_window_sampled"] = 1 if self._spec_sampled_window else 0
+        if self._spec_decision is not None:
+            out["spec_decision"] = dict(self._spec_decision)
+        return out
+
+    # ---- speculative-mode economics --------------------------------------
+
+    def resolve_speculation(self, auto: bool,
+                            timings: dict | None = None) -> dict:
+        """Decide, before traffic arrives, whether speculative mode can
+        pay on this card: the wall cost of one K-draft verify pass and of
+        one ``window``-step decode window at full batch, each with its
+        host round trip (measured, or ``timings``), compare speculation's
+        BEST case, every draft accepted, ``(K + 1) / verify_s``, with the
+        windows' ``window / window_s``. When windows dominate, ``auto``
+        turns speculation off; otherwise the operator's explicit choice
+        stays, with a warning. Returns the decision, also under
+        ``stats()["spec_decision"]``."""
+        if self._spec <= 0:
+            raise RuntimeError("resolve_speculation needs spec mode on")
+        t = timings or self._probe_spec_timings()
+        return self._apply_spec_decision(auto, t)
+
+    def disable_speculation(self, reason: str) -> dict:
+        """Turn speculation off without probing, recording why."""
+        with self._work:
+            self._spec = 0
+        decision = {"mode": f"windowed ({reason})",
+                    "windows_dominate": None}
+        self._spec_decision = decision
+        return decision
+
+    def _apply_spec_decision(self, auto: bool, t: dict) -> dict:
+        k = self._spec
+        window = t.get("probed_window", self._window)
+        spec_best = (k + 1) / t["verify_s"]
+        windowed = window / t["window_s"]
+        fallback = windowed > spec_best
+        decision = {
+            "verify_ms": round(t["verify_s"] * 1e3, 2),
+            "window_ms": round(t["window_s"] * 1e3, 2),
+            "window": window,
+            "draft_len": k,
+            "spec_best_tokens_per_sec": round(spec_best, 1),
+            "windowed_tokens_per_sec": round(windowed, 1),
+            "windows_dominate": fallback,
+            "mode": ("windowed (auto fallback)" if fallback and auto
+                     else "speculative" if not fallback
+                     else "speculative (operator override)"),
+        }
+        if self._spec_window > 0 and "spec_window_s" in t:
+            # A sampled co-tenant advances one token a pass either way:
+            # W host round trips per W tokens (per pass) against one
+            # spec window.
+            w = self._spec_window
+            legacy = 1 / t["verify_s"]
+            windowed_sampled = w / t["spec_window_s"]
+            decision["spec_window_ms"] = round(t["spec_window_s"] * 1e3, 2)
+            decision["sampled_cotenant_legacy_tokens_per_sec"] = round(
+                legacy, 1)
+            decision["sampled_cotenant_windowed_tokens_per_sec"] = round(
+                windowed_sampled, 1)
+            decision["sampled_window_pays"] = windowed_sampled >= legacy
+        if fallback:
+            action = ("falling back to windowed decode" if auto else
+                      "serving_speculative is set explicitly — keeping "
+                      "it; expect slower greedy traffic")
+            print("[kvedge-serve] WARNING: windowed decode dominates "
+                  f"speculation's best case on this card ({windowed:.0f} "
+                  f"vs {spec_best:.0f} tok/s best-case per slot); "
+                  f"{action}", flush=True)
+            if auto:
+                with self._work:
+                    self._spec = 0
+        self._spec_decision = decision
+        return decision
+
+    def _probe_spec_timings(self) -> dict:
+        """Time one verify pass, one decode window and (with
+        ``spec_window``) one spec window on the live cache: slot 0, a
+        one-token prompt admitted and released around each run, the
+        first run of each untimed (it builds and, on the card, captures
+        the programs real traffic then reuses)."""
+        k = self._spec
+        n = self._cache.slots
+        probe_tokens = np.zeros((n, 1 + k), np.int64)
+        step_tokens = np.zeros((n,), np.int64)
+        active = np.zeros((n,), bool)
+        active[0] = True
+        spec_mask = active.copy()
+        # A window the serving loop can run: it floors to a power of two.
+        window = min(self._window, self._cfg.max_seq - 1 - k)
+        if window > 1:
+            window = 1 << (window.bit_length() - 1)
+        with self._work:
+            def timed(op) -> float:
+                self._cache.admit(0, 1)
+                self._cache.prefill(self._params, 0, [0])
+                start = time.perf_counter()
+                op()
+                elapsed = time.perf_counter() - start
+                self._cache.release(0)
+                return elapsed
+
+            def verify():
+                self._cache.step_spec(self._params, probe_tokens,
+                                      active=active, spec_mask=spec_mask)
+
+            def run_window():
+                self._cache.step_window(self._params, step_tokens, window,
+                                        active=active)
+
+            def run_spec_window():
+                budgets = np.zeros((n,), np.int64)
+                budgets[0] = self._spec_window
+                ctx = np.zeros((n, self._spec_ctx_cap), np.int64)
+                ctx_len = np.zeros((n,), np.int64)
+                ctx_len[0] = 2  # the prefilled token and the pending one
+                handle = self._cache.dispatch_spec_window(
+                    self._params, step_tokens, self._spec_window, k,
+                    budgets, ctx=ctx, ctx_len=ctx_len)
+                self._cache.harvest_spec_window(handle)
+                self._cache.drop_carry()
+
+            timed(verify)
+            timed(run_window)
+            verify_s = min(timed(verify) for _ in range(2))
+            window_s = min(timed(run_window) for _ in range(2))
+            out = {"verify_s": verify_s, "window_s": window_s,
+                   "probed_window": window}
+            if self._spec_window > 0:
+                timed(run_spec_window)
+                out["spec_window_s"] = min(
+                    timed(run_spec_window) for _ in range(2))
+        return out
 
     # ---- admission and prefill -------------------------------------------
 
-    def _pages_needed(self, total: int) -> int:
-        return -(-total // self._cache.page_size)
+    def _pages_needed(self, total: int, slack: bool) -> int:
+        """Worst-case pages of a ``total``-token request; ``slack``
+        (greedy requests in spec mode) adds the K draft positions a
+        verify pass writes whatever it accepts."""
+        pad = self._spec if slack else 0
+        return -(-(total + pad) // self._cache.page_size)
 
     def _refusal(self) -> Exception:
         if self._poison is not None:
@@ -284,7 +485,13 @@ class PagedGenerationServer:
                 f"prompt ({len(prompt)}) + n_new ({n_new}) exceeds the "
                 f"model's max_seq ({self._cfg.max_seq})"
             )
-        pages_needed = self._pages_needed(total)
+        pages_needed = self._pages_needed(
+            total, self._spec > 0 and sampling is None)
+        if pages_needed > self._cache.max_pages_per_seq:
+            raise ValueError(
+                f"request needs {pages_needed} pages > max_pages_per_seq "
+                f"= {self._cache.max_pages_per_seq}"
+            )
         if pages_needed > self._pages_total:
             raise ValueError(
                 f"request needs {pages_needed} pages > pool size "
@@ -495,7 +702,12 @@ class PagedGenerationServer:
             return 1
         return 1 << (w.bit_length() - 1)
 
-    def _sampled_window(self, tokens, window: int, mask, samplers):
+    def _sampling_rows(self, samplers: dict) -> tuple:
+        """A window's sampling inputs ``(key_data, base_steps, temps,
+        top_ps, sampled_mask)``, one row per slot. ``base_steps`` is the
+        serial schedule's ``len(generated) + 1`` with the unharvested
+        advance folded in, so token t draws with ``fold_in(seed, t)``
+        however the windows fall."""
         n = self._cache.slots
         key_data = np.zeros((n, 2), np.uint32)
         base_steps = np.zeros((n,), np.int64)
@@ -504,36 +716,114 @@ class PagedGenerationServer:
         smask = np.zeros((n,), bool)
         for slot, req in samplers.items():
             key_data[slot] = req.sampling[0]
-            base_steps[slot] = len(req.generated) + 1
+            base_steps[slot] = len(req.generated) + req.inflight + 1
             temps[slot] = req.sampling[1]
             top_ps[slot] = req.sampling[2]
             smask[slot] = True
+        return key_data, base_steps, temps, top_ps, smask
+
+    def _sampled_window(self, tokens, window: int, mask, samplers):
         return self._cache.step_window_sampled(
-            self._params, tokens, window, mask, key_data, base_steps,
-            temps, top_ps, smask,
-        )
+            self._params, tokens, window, mask,
+            *self._sampling_rows(samplers))
 
     def _next_tokens(self, logits: torch.Tensor) -> dict[int, int]:
         """Every active slot's next token from one step's logits."""
         greedy = torch.argmax(logits, dim=-1).cpu().numpy()
         out = {slot: int(greedy[slot]) for slot in self._active}
-        samplers = {slot: req for slot, req in self._active.items()
-                    if req.sampling is not None}
-        if samplers:
-            slots = sorted(samplers)
-            dev = logits.device
-            keys = as_key_tensor(
-                np.stack([samplers[s].sampling[0] for s in slots]), dev)
-            steps = torch.as_tensor(
-                [len(samplers[s].generated) + 1 for s in slots], device=dev)
-            temps = torch.as_tensor([samplers[s].sampling[1] for s in slots],
-                                    dtype=torch.float32, device=dev)[:, None]
-            top_ps = torch.as_tensor([samplers[s].sampling[2] for s in slots],
-                                     dtype=torch.float32, device=dev)[:, None]
-            picked = sample_token(logits[slots], fold_in(keys, steps), temps,
-                                  top_ps).cpu().numpy()
-            out.update({s: int(picked[i]) for i, s in enumerate(slots)})
+        out.update(self._sample_slots(logits, {
+            slot: req for slot, req in self._active.items()
+            if req.sampling is not None}))
         return out
+
+    @staticmethod
+    def _sample_slots(logits: torch.Tensor, samplers: dict) -> dict[int, int]:
+        """Sampled slots' tokens from ``[slots, V]`` logits, token index
+        ``len(generated) + 1`` (the cross-backend key schedule)."""
+        if not samplers:
+            return {}
+        slots = sorted(samplers)
+        dev = logits.device
+        keys = as_key_tensor(
+            np.stack([samplers[s].sampling[0] for s in slots]), dev)
+        steps = torch.as_tensor(
+            [len(samplers[s].generated) + 1 for s in slots], device=dev)
+        temps = torch.as_tensor([samplers[s].sampling[1] for s in slots],
+                                dtype=torch.float32, device=dev)[:, None]
+        top_ps = torch.as_tensor([samplers[s].sampling[2] for s in slots],
+                                 dtype=torch.float32, device=dev)[:, None]
+        picked = sample_token(logits[slots], fold_in(keys, steps), temps,
+                              top_ps).cpu().numpy()
+        return {s: int(picked[i]) for i, s in enumerate(slots)}
+
+    @staticmethod
+    def _draft(req: _Request, k: int) -> list[int]:
+        """K prompt-lookup drafts for a greedy request: the host's mirror
+        of the n-gram proposer (the host owns every emitted token). Any
+        draft is legal; verification makes the output
+        draft-independent."""
+        ctx = req.prompt + req.generated + [req.next_token]
+        g0, g1 = ctx[-2] if len(ctx) > 1 else ctx[-1], ctx[-1]
+        for p in range(len(ctx) - 3, -1, -1):
+            if ctx[p] == g0 and ctx[p + 1] == g1:
+                start = max(0, min(p + 2, len(ctx) - k))
+                cand = ctx[start:start + k]
+                return cand + [g1] * (k - len(cand))
+        return [g1] * k
+
+    def _spec_pass(self) -> None:
+        """One speculative verify pass for the active batch (lock held).
+        Greedy slots emit their pending token plus up to K accepted
+        drafts and a bonus, truncated at the budget and at a stop token;
+        sampled slots advance one token drawn from the pass's
+        pending-position logits, the per-step path's key schedule."""
+        k = self._spec
+        n = self._cache.slots
+        tokens = np.zeros((n, k + 1), np.int64)
+        mask = np.zeros((n,), bool)
+        spec_mask = np.zeros((n,), bool)
+        for slot, req in self._active.items():
+            tokens[slot, 0] = req.next_token
+            mask[slot] = True
+            if req.sampling is None:
+                spec_mask[slot] = True
+                tokens[slot, 1:] = self._draft(req, k)
+        emitted, accepted, logits0 = self._cache.step_spec(
+            self._params, tokens, active=mask, spec_mask=spec_mask)
+        sampled_next = self._sample_slots(logits0, {
+            slot: req for slot, req in self._active.items()
+            if req.sampling is not None})
+        self._spec_passes += 1
+        for slot in list(self._active):
+            req = self._active[slot]
+            if req.sampling is not None:
+                self._emit(req, req.next_token)
+                req.next_token = sampled_next[slot]
+                self._note_finish_candidate_locked(slot, req)
+                continue
+            a = int(accepted[slot])
+            room = req.n_new - len(req.generated)
+            seq = [req.next_token] + [int(t) for t in emitted[slot, :a]]
+            emit_n, stopped = 0, False
+            for t in seq[:room]:
+                self._emit(req, t)
+                emit_n += 1
+                if t == req.stop_token:
+                    stopped = True
+                    break
+            self._spec_emitted += emit_n
+            self._spec_slot_passes += 1
+            if stopped:
+                # Passes run at boundaries only (nothing in flight): the
+                # stop finish never needs the deferred path.
+                self._stop_finishes += 1
+                self._finish_request_locked(slot, req)
+            elif len(req.generated) >= req.n_new:
+                self._finish_request_locked(slot, req)
+            else:
+                # The bonus token becomes pending.
+                req.next_token = int(emitted[slot, a])
+                self._note_finish_candidate_locked(slot, req)
 
     def _loop(self) -> None:
         step = (self._loop_once_overlap if self._overlap_on
@@ -559,6 +849,19 @@ class PagedGenerationServer:
                 self._sweep_cancelled_locked()
                 self._sweep_finished_locked()
                 if not self._active:
+                    return "ran"
+                if (self._spec > 0
+                        and any(req.sampling is None
+                                for req in self._active.values())):
+                    # Greedy slots advance by verify passes; sampled
+                    # slots ride one token a pass. An all-sampled batch
+                    # takes the plain step below.
+                    if self._spec_window > 0:
+                        # Spec windows ride the overlap pipeline.
+                        self._spec_window_fallbacks["overlap_off"] += 1
+                    t0 = time.perf_counter()
+                    self._spec_pass()
+                    self._decode_s += time.perf_counter() - t0
                     return "ran"
                 # Every active slot's pending token through ONE batched
                 # step; a half-prefilled slot is admitted but not active.
@@ -655,16 +958,36 @@ class PagedGenerationServer:
                     self._sweep_finished_locked()
                     if not self._active:
                         return "ran"
-                    self._inflight = self._dispatch_window_locked(first=True)
+                    self._boundary_dispatch_locked()
                 else:
                     prev, self._inflight = self._inflight, None
+                    spec = prev.get("kind") in ("spec", "spec_sampled")
                     try:
                         if not self._boundary_wanted_locked(prev):
                             # Enqueue N+1 on the carry BEFORE reading N:
                             # the device starts N+1 the moment N retires.
-                            self._inflight = self._dispatch_window_locked(
-                                first=False)
-                        self._harvest_locked(prev)
+                            # It rides the carry kind of N (plain and
+                            # spec carries are separate device state); a
+                            # kind change joins at a boundary.
+                            if not spec:
+                                self._inflight = (
+                                    self._dispatch_window_locked(
+                                        first=False))
+                            elif self._spec > 0 and self._spec_window > 0:
+                                # Both spec kinds share the spec carry: a
+                                # mixed pipeline whose sampled rows
+                                # finished goes on as plain "spec".
+                                self._inflight = (
+                                    self._dispatch_spec_window_locked(
+                                        first=False))
+                            else:
+                                # Speculation went off with a spec window
+                                # in flight: collapse to a boundary.
+                                self._spec_window_fallbacks["spec_off"] += 1
+                        if spec:
+                            self._harvest_spec_window_locked(prev)
+                        else:
+                            self._harvest_locked(prev)
                     except Exception:
                         # prev was not reconciled: restore its in-flight
                         # accounting and wait it out, then poison below.
@@ -678,6 +1001,29 @@ class PagedGenerationServer:
                 self._poison_locked(e)
                 return "exit"
         return "ran"
+
+    def _boundary_dispatch_locked(self) -> None:
+        """The boundary's decode work (nothing in flight): a spec window
+        when speculation is on with a greedy slot (and, with sampled
+        co-tenants, ``spec_sampled_window``), else a per-pass verify
+        (counted as a fallback when spec windows are configured), or a
+        plain window for an all-sampled batch or speculation off."""
+        if self._spec > 0 and any(req.sampling is None
+                                  for req in self._active.values()):
+            all_greedy = all(req.sampling is None
+                             for req in self._active.values())
+            if self._spec_window > 0 and (all_greedy
+                                          or self._spec_sampled_window):
+                self._inflight = self._dispatch_spec_window_locked(
+                    first=True)
+                return
+            if self._spec_window > 0:
+                self._spec_window_fallbacks["sampled"] += 1
+            # Per-pass speculation drafts from the host's tokens, so its
+            # passes run at boundaries and never overlap.
+            self._spec_pass()
+            return
+        self._inflight = self._dispatch_window_locked(first=True)
 
     def _boundary_wanted_locked(self, prev: dict) -> bool:
         """Fall back to a boundary instead of dispatching the next
@@ -735,23 +1081,9 @@ class PagedGenerationServer:
                     if req.sampling is not None}
         tok_arg = tokens if first else None
         if samplers:
-            key_data = np.zeros((n, 2), np.uint32)
-            base_steps = np.zeros((n,), np.int64)
-            temps = np.ones((n,), np.float32)
-            top_ps = np.ones((n,), np.float32)
-            smask = np.zeros((n,), bool)
-            for slot, req in samplers.items():
-                key_data[slot] = req.sampling[0]
-                # The serial schedule's len(generated) + 1 with the
-                # unharvested advance folded in: token t still draws
-                # with fold_in(seed, t) however the windows fall.
-                base_steps[slot] = len(req.generated) + req.inflight + 1
-                temps[slot] = req.sampling[1]
-                top_ps[slot] = req.sampling[2]
-                smask[slot] = True
             handle = self._cache.dispatch_window_sampled(
-                self._params, tok_arg, w, mask, key_data, base_steps,
-                temps, top_ps, smask, steps_left=steps_left,
+                self._params, tok_arg, w, mask,
+                *self._sampling_rows(samplers), steps_left=steps_left,
                 stop_tokens=stop_tokens)
         else:
             handle = self._cache.dispatch_window(
@@ -798,6 +1130,115 @@ class PagedGenerationServer:
                 self._finish_request_locked(slot, req)
         self._overlap_windows += 1
 
+    def _dispatch_spec_window_locked(self, first: bool) -> dict | None:
+        """Enqueue one spec window, ``spec_window`` draft + verify passes,
+        for every active slot with budget left (lock held); returns the
+        in-flight record (kind "spec", or "spec_sampled" when a sampled
+        row rides), or None when no slot can advance.
+
+        ``first``: the boundary dispatch (host-known pending tokens and
+        each row's drafting context, prompt + generated + pending), or
+        the overlapped one on the device spec carry. A row's budget is
+        ``n_new - len(generated) - inflight``: the window consumes the
+        pending token (each pass emits it), so there is no ``- 1``. Its
+        ``inflight`` advances by the cache's worst-case cap; the true
+        advance lands at harvest, truncated at the budget. A sampled row
+        advances exactly one token a live pass, so ``base_steps =
+        len(generated) + inflight + 1`` keeps the per-pass key schedule
+        across pipelined windows."""
+        k = self._spec
+        w = self._spec_window
+        n = self._cache.slots
+        budgets = np.zeros((n,), np.int64)
+        parts = []
+        for slot, req in self._active.items():
+            room = req.n_new - len(req.generated) - req.inflight
+            if room > 0 and not req.stopped:
+                budgets[slot] = room
+                parts.append((slot, req))
+            elif req.inflight == 0:
+                # Bounds a missed finish registration at one iteration.
+                self._finish_ready.add(slot)
+        if not parts:
+            return None
+        samplers = {slot: req for slot, req in parts
+                    if req.sampling is not None}
+        sampling = self._sampling_rows(samplers) if samplers else None
+        if first:
+            ctx = np.zeros((n, self._spec_ctx_cap), np.int64)
+            ctx_len = np.zeros((n,), np.int64)
+            tokens = np.zeros((n,), np.int64)
+            for slot, req in parts:
+                seq = req.prompt + req.generated + [req.next_token]
+                ctx[slot, :len(seq)] = seq
+                ctx_len[slot] = len(seq)
+                tokens[slot] = req.next_token
+            handle = self._cache.dispatch_spec_window(
+                self._params, tokens, w, k, budgets, ctx=ctx,
+                ctx_len=ctx_len, sampling=sampling)
+        else:
+            handle = self._cache.dispatch_spec_window(
+                self._params, None, w, k, budgets, sampling=sampling)
+            self._spec_depth1_windows += 1
+            self._depth1_windows += 1
+        recs = []
+        for slot, req in parts:
+            cap = int(handle.caps[slot])
+            req.inflight += cap
+            recs.append((slot, req, cap))
+        return {"kind": "spec_sampled" if samplers else "spec",
+                "window": w, "parts": recs, "handle": handle}
+
+    def _harvest_spec_window_locked(self, rec: dict) -> None:
+        """Read an in-flight spec window and reconcile (lock held). Each
+        row replays its pending-token chain: pass p emits the pending
+        token and the accepted drafts (``counts[p] - 1`` entries of the
+        emitted row, whose entry ``counts[p] - 1`` is the next pending),
+        truncated at the row's budget and at its stop token."""
+        emitted, counts, _ = self._cache.harvest_spec_window(rec["handle"])
+        rec["counted"] = True
+        for _, req, cap in rec["parts"]:
+            req.inflight -= cap
+        self._spec_passes += rec["window"]
+        for slot, req, cap in rec["parts"]:
+            if self._active.get(slot) is not req or req.stopped:
+                continue
+            stopped = False
+            counts_col = counts[:, slot].tolist()
+            for p in range(rec["window"]):
+                c = counts_col[p]
+                if c == 0:
+                    # A frozen pass: the row's budget ran out on the
+                    # device.
+                    continue
+                room = max(req.n_new - len(req.generated), 0)
+                row = emitted[p, slot, :c].tolist()
+                seq = ([req.next_token] + row[:-1])[:room]
+                if req.stop_token in seq:
+                    # Later passes decoded past the stop: discarded.
+                    seq = seq[:seq.index(req.stop_token) + 1]
+                    stopped = True
+                self._emit_many(req, seq)
+                req.next_token = row[-1]
+                if req.sampling is None:
+                    # Greedy acceleration only: sampled rows ride one
+                    # token a pass by construction.
+                    self._spec_emitted += len(seq)
+                    self._spec_slot_passes += 1
+                if stopped:
+                    break
+            if stopped and not req.cancelled:
+                self._finish_stopped_locked(slot, req)
+            elif len(req.generated) >= req.n_new and not req.cancelled:
+                # Inline finish, as in the plain harvest: a saturated
+                # pipeline may never reach a boundary.
+                self._finish_request_locked(slot, req)
+            else:
+                # The carried pending may itself be the stop token.
+                self._note_finish_candidate_locked(slot, req)
+        self._spec_windows += 1
+        self._overlap_windows += 1
+
     def _drain_rec_locked(self, rec: dict | None) -> None:
         """Unwind one in-flight record on the failure path: restore the
         in-flight counts and wait until the device has retired the
@@ -808,7 +1249,10 @@ class PagedGenerationServer:
             for _, req, adv in rec["parts"]:
                 req.inflight -= adv
         try:
-            self._cache.harvest_window(rec["handle"])
+            if rec.get("kind") in ("spec", "spec_sampled"):
+                self._cache.harvest_spec_window(rec["handle"])
+            else:
+                self._cache.harvest_window(rec["handle"])
         except Exception:  # the pool is being poisoned anyway
             pass
 

@@ -12,12 +12,14 @@ same names and defaults, for the subset the ported payloads run:
                "contiguous" | "paged"), paged_attention, serving_slots,
                serving_page_size, serving_pages, serving_prefill_chunk,
                serving_window, serving_kv_dtype, serving_overlap
-               ("auto" | "on" | "off")
+               ("auto" | "on" | "off"), serving_speculative (a draft
+               length 0..16 or "auto"), serving_spec_window (0..64),
+               serving_spec_sampled_window (bool)
     [status]   port, bind
 
 Any other section or key is REFUSED with its name, not ignored: a knob
-the port does not implement (speculation, the prefix cache, the
-scheduler, ...) would otherwise silently change nothing.
+the port does not implement (the prefix cache, the scheduler, ...) would
+otherwise silently change nothing.
 """
 
 from __future__ import annotations
@@ -57,6 +59,9 @@ _PAYLOAD_KEYS = {
     "serving_window": "serving_window",
     "serving_kv_dtype": "serving_kv_dtype",
     "serving_overlap": "serving_overlap",
+    "serving_speculative": "serving_speculative",
+    "serving_spec_window": "serving_spec_window",
+    "serving_spec_sampled_window": "serving_spec_sampled_window",
 }
 _STATUS_KEYS = {"port": "status_port", "bind": "status_bind"}
 
@@ -98,6 +103,21 @@ class RuntimeConfig:
     # enqueue window N+1 on the device-resident carry before window N is
     # harvested; "off" keeps the serial loop. Tokens are the same.
     serving_overlap: str = "auto"
+    # Server-wide speculative decoding on the paged backend: the draft
+    # length K (0 = off) or "auto", which sizes the pools for K = 4 and
+    # lets the boot probe (``resolve_speculation``) turn speculation off
+    # when plain windows beat its best case. Greedy requests reserve K
+    # slack positions; sampled ones reserve none.
+    serving_speculative: int | str = 0
+    # W > 0 runs W draft+verify passes as one device-resident spec
+    # window (a captured CUDA graph on the card) inside the overlap
+    # pipeline; 0 = one verify pass per host round trip. Needs
+    # speculation.
+    serving_spec_window: int = 0
+    # Keep a batch with sampled co-tenants on the spec windows (sampled
+    # rows advance one token a pass, drawn on the device); false sends
+    # such a batch to the per-pass path, counted as a fallback.
+    serving_spec_sampled_window: bool = True
     status_port: int = 8476
     status_bind: str = "0.0.0.0"
 
@@ -187,6 +207,26 @@ class RuntimeConfig:
         if self.serving_overlap not in ("auto", "on", "off"):
             raise RuntimeConfigError(
                 "[payload] serving_overlap must be 'auto', 'on' or 'off'")
+        if self.serving_speculative != "auto" and not (
+                isinstance(self.serving_speculative, int)
+                and not isinstance(self.serving_speculative, bool)
+                and 0 <= self.serving_speculative <= 16):
+            raise RuntimeConfigError(
+                "[payload] serving_speculative (draft length) must be "
+                "in [0, 16] (0 = off) or 'auto'")
+        if (not isinstance(self.serving_spec_window, int)
+                or isinstance(self.serving_spec_window, bool)
+                or not 0 <= self.serving_spec_window <= 64):
+            raise RuntimeConfigError(
+                "[payload] serving_spec_window must be in [0, 64] "
+                "(0 = one spec pass per dispatch)")
+        if self.serving_spec_window > 0 and self.serving_speculative == 0:
+            raise RuntimeConfigError(
+                "[payload] serving_spec_window > 0 needs speculative "
+                "decoding (serving_speculative 'auto' or > 0)")
+        if not isinstance(self.serving_spec_sampled_window, bool):
+            raise RuntimeConfigError(
+                "[payload] serving_spec_sampled_window must be a boolean")
         if self.payload_paged_attention not in ("", "auto", "kernel",
                                                 "gather"):
             raise RuntimeConfigError(
@@ -225,6 +265,16 @@ class RuntimeConfig:
             raise RuntimeConfigError(
                 f"[model] configuration is invalid: {e}") from e
         return tcfg
+
+
+def _spec_draft_len(cfg: RuntimeConfig) -> int:
+    """The draft length ``serving_speculative`` resolves to before the
+    boot probe: "auto" sizes the pools for draft 4 (the probe may still
+    turn speculation off at boot; sizing for it keeps the pool
+    independent of the probe's outcome)."""
+    if cfg.serving_speculative == "auto":
+        return 4
+    return cfg.serving_speculative
 
 
 # The serving slice's name for the same parsed config.

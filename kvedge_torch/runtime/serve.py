@@ -7,14 +7,23 @@ route of its status server, on one host. ``[payload] serving = "paged"``
 serves through the continuous-batching server over one page pool (its
 ``serving_overlap`` knob picks the decode loop); ``""`` or
 ``"contiguous"`` decodes one request at a time through
-``models/decode.generate``, all its rows as one batch, and refuses
-``stream``, ``priority`` and ``deadline_ms`` as the reference does. The
+``models/decode.generate``, all its rows as one batch (or, for a
+one-row greedy request with ``"speculative": K``, through
+``models/speculative.generate_speculative``), and refuses ``stream``,
+``priority`` and ``deadline_ms`` as the reference does. The paged
+backend speculates server-wide instead (``serving_speculative``,
+``serving_spec_window``, ``serving_spec_sampled_window``): a draft
+length > 0 runs the boot probe (``resolve_speculation``), which turns
+speculation off under "auto" when plain windows beat its best case. The
 request contract is the reference's::
 
     {"tokens": [[int, ...], ...], "n_new": int,
-     "temperature": float = 0, "top_p": float = 1, "seed": int = 0}
+     "temperature": float = 0, "top_p": float = 1, "seed": int = 0,
+     "speculative": int = 0}
     -> {"tokens": [[prompt + generated], ...], "n_new": N,
         "restored_step": step | null}
+       (+ "accepted_per_step": the mean tokens a verify pass emitted,
+        for a speculative request)
 
 On the paged backend each row of a request is its own request into the
 shared page pool, submitted concurrently so rows (and other clients'
@@ -51,13 +60,14 @@ import numpy as np
 from kvedge_torch.models.config import TransformerConfig
 from kvedge_torch.models.decode import generate
 from kvedge_torch.models.sampling import as_key_tensor, fold_in, prng_key
+from kvedge_torch.models.speculative import generate_speculative
 from kvedge_torch.models.serving import (
     PagedGenerationServer,
     ServerBusy,
     ServerClosed,
 )
 from kvedge_torch.models.weights import params_from_numpy
-from kvedge_torch.runtime.config import ServeConfig
+from kvedge_torch.runtime.config import ServeConfig, _spec_draft_len
 from kvedge_torch.runtime.devicecheck import resolve_device, run_device_check
 from kvedge_torch.runtime.train import restore_latest_params
 
@@ -74,9 +84,11 @@ class GenerateUnavailable(RuntimeError):
 def _serving_pool_dims(cfg: ServeConfig, tcfg: TransformerConfig
                        ) -> tuple[int, int, int, int]:
     """``(slots, pages, page_size, max_pages_per_seq)``. ``serving_pages
-    = 0`` sizes the pool so every slot can hold a max_seq request."""
+    = 0`` sizes the pool so every slot can hold a max_seq request plus
+    the draft slack a verify pass writes past a greedy request's
+    budget."""
     slots, page_size = cfg.serving_slots, cfg.serving_page_size
-    mpps = -(-tcfg.max_seq // page_size)
+    mpps = -(-(tcfg.max_seq + _spec_draft_len(cfg)) // page_size)
     pages = cfg.serving_pages or slots * mpps
     return slots, pages, page_size, mpps
 
@@ -227,6 +239,8 @@ class ServeRuntime:
         self.max_rows = _serve_max_rows(cfg, self.tcfg)
         self.paged = cfg.payload_serving == "paged"
         self.server = None
+        self.spec_decision = None
+        spec_draft = _spec_draft_len(cfg)
         # The contiguous backend decodes one request at a time.
         self._generate_lock = threading.Lock()
         self._closed = False
@@ -237,7 +251,23 @@ class ServeRuntime:
                 prefill_chunk=cfg.serving_prefill_chunk,
                 window=cfg.serving_window, kv_dtype=cfg.serving_kv_dtype,
                 overlap=cfg.serving_overlap, device=self.device,
+                speculative=spec_draft,
+                spec_window=(cfg.serving_spec_window if spec_draft > 0
+                             else 0),
+                spec_sampled_window=cfg.serving_spec_sampled_window,
             )
+            if spec_draft > 0:
+                # Measure this card's verify pass and window before
+                # traffic: "auto" turns speculation off when windows beat
+                # its best case, an explicit K keeps it with a warning.
+                self.spec_decision = self.server.resolve_speculation(
+                    auto=cfg.serving_speculative == "auto")
+                print(f"[kvedge-serve] speculative mode: "
+                      f"{self.spec_decision['mode']} (best-case "
+                      f"{self.spec_decision['spec_best_tokens_per_sec']}/s "
+                      f"vs windowed "
+                      f"{self.spec_decision['windowed_tokens_per_sec']}/s "
+                      f"per slot)", flush=True)
         # Rows submit together on a bounded pool (2 x slots workers):
         # excess rows queue here instead of spawning threads.
         self._rows = concurrent.futures.ThreadPoolExecutor(
@@ -296,12 +326,22 @@ class ServeRuntime:
                           top_p: float, seed: int, spec: int) -> dict:
         """One request through ``generate``: its rows as one batch, row r
         sampling with ``fold_in(PRNGKey(seed), r)`` when ``temperature >
-        0``."""
-        if spec:
-            raise ValueError(
-                "per-request 'speculative' decoding is not implemented by "
-                "the PyTorch port")
+        0``; with ``spec`` (one greedy row, as the parser guarantees),
+        through ``generate_speculative`` at draft length ``spec``."""
         prompt = [[t % self.tcfg.vocab for t in row] for row in tokens]
+        if spec:
+            with self._generate_lock:
+                if self._closed:
+                    raise GenerateUnavailable("server is shut down")
+                out, rate = generate_speculative(
+                    self.weights, prompt, self.tcfg, n_new, draft_len=spec,
+                    device=self.device)
+                rows = out.cpu().tolist()
+            # The mean tokens emitted per verify pass (1.0 = speculation
+            # never paid; spec + 1 = every draft accepted).
+            return {"tokens": rows, "n_new": n_new,
+                    "restored_step": self.restored_step,
+                    "accepted_per_step": round(rate, 3)}
         sampled = temperature > 0.0
         sampling = None
         if sampled:

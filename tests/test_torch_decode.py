@@ -167,10 +167,17 @@ def test_serve_contiguous_backend_matches_paged(tmp_path):
             want = paged.serve_fn(req)
             assert got["tokens"] == want["tokens"]
             assert got["restored_step"] == want["restored_step"] is None
+        # A one-row greedy request with "speculative" decodes through
+        # generate_speculative: the same tokens.
+        req = {"tokens": [[5, 9, 2, 7, 5, 9]], "n_new": 7}
+        spec = contiguous.serve_fn(dict(req, speculative=2))
+        assert spec["tokens"] == paged.serve_fn(req)["tokens"]
+        assert spec["accepted_per_step"] >= 1.0
         for bad, match in (({"stream": True}, "stream"),
                            ({"priority": "batch"}, "priority"),
                            ({"deadline_ms": 50}, "priority"),
-                           ({"speculative": 2}, "speculative")):
+                           ({"speculative": 2, "temperature": 0.5},
+                            "speculative")):
             with pytest.raises(ValueError, match=match):
                 contiguous.serve_fn({"tokens": [[1, 2]], "n_new": 2, **bad})
         assert contiguous.healthy

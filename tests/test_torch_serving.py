@@ -329,7 +329,8 @@ def test_config_reads_the_reference_toml_names_and_refuses_the_rest():
             f'[payload]\nserving_overlap = "{value}"\n'
         ).serving_overlap == value
     for text, match in [
-        ('[payload]\nserving_speculative = 4\n', "serving_speculative"),
+        ('[payload]\nserving_prefix_cache = true\n',
+         "serving_prefix_cache"),
         ('[payload]\nserving_window = "auto"\n', "serving_window"),
         ('[mesh]\naxes = {data = 1}\n', "mesh"),
         ('[model]\npreset = "huge"\n', "preset"),
@@ -352,6 +353,7 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
         "mods = [m.name for m in pkgutil.walk_packages(\n"
         "    kvedge_torch.__path__, 'kvedge_torch.')]\n"
         "assert 'kvedge_torch.models.decode' in mods, mods\n"
+        "assert 'kvedge_torch.models.speculative' in mods, mods\n"
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in\n"
@@ -364,4 +366,4 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
                           env={"PATH": "/usr/bin:/bin",
                                "PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 14
+    assert int(proc.stdout.strip()) >= 15
