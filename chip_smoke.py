@@ -39,7 +39,9 @@ imports nothing of JAX. Phases, each printing one JSON line:
             request, two seeded sampled ones), once with ``serving_overlap
             = "auto"`` (the main path) and once with "off", each after a
             greedy and a sampled warm-up request that capture its window
-            graphs. Launch counts are zeroed just before each burst and
+            graphs, the prefix cache off (it resubmits requests and
+            compares bf16 tokens; phase 6c measures the cache). Launch
+            counts are zeroed just before each burst and
             read just after it. Checks: response shape, launches >=
             n_layers x decode steps, the two bursts' tokens identical, more
             than zero windows dispatched at depth 1 (while another was in
@@ -81,7 +83,44 @@ imports nothing of JAX. Phases, each printing one JSON line:
             plain greedy tokens and sampled tokens are unchanged by
             speculation; ``generate_speculative`` equals ``generate`` at
             fp32 for K 1, 4 and 8 (rate printed); ``torch.argmax`` picks
-            the first maximum at a constructed tie on the card.
+            the first maximum at a constructed tie on the card. Every
+            server of the phase runs with the prefix cache off.
+6c. prefix  the serve payload at the flagship width (bf16, 4 slots, page
+            16, prefill chunk 64, window 16, overlap "auto", 512 pages)
+            with ``serving_prefix_cache = true``: a warm-up, a request of
+            a 1000-token system prompt + 24 tokens (it registers 64
+            pages), a burst of 8 concurrent requests of the prompt (two
+            cut to 990) plus distinct 24-300-token suffixes, each
+            diverging inside a partial page (copy on write), and a
+            multi-turn follow-up (the first request's prompt + its
+            generated tokens + 30), B1's count zeroed just before the
+            first and read just after the follow-up. Checks: hits,
+            tokens saved and COW copies >= 1, B1 launches >= n_layers x
+            decode steps, no reservation left. Prints ``prefill_s``,
+            the burst's wall and decode tokens/s with the cache on and
+            off (the same traffic on a runtime with the cache off), the
+            bf16 token agreement on vs off (the first divergence with
+            the naive forward's logit gap there); at fp32 and 2 layers
+            (n_new <= 32) the cache on returns the cache off's tokens (a
+            hard check); a host-tier round trip (2 layers, fp32, 96
+            pages, ``serving_prefix_host_mb = 2048``): an unrelated
+            1000-token prompt demotes the first request's entries, and a
+            request of its prompt + 10 tokens promotes one back, hits and
+            returns the cache off's tokens.
+6d. contention  the scheduler under contention at the flagship width
+            (bf16, window 16, 96 pages, the prefix cache off, swap budget
+            64 MB): two batch requests (prompts of 600, n_new 160; 48
+            pages each, the whole pool) streamed over HTTP, then an
+            interactive one (prompt 200, n_new 64) once both have 4
+            tokens: it preempts the later-admitted batch row by swapping
+            its pages to host memory, finishes, and the row resumes.
+            Checks: preemptions >= 1, resumes == preemptions, every
+            request's tokens equal its run alone on the same server bit
+            for bit, B1 launches >= n_layers x decode steps; repeated at
+            int8 (2 layers) and with spec windows (K 4, windows of 8).
+            Prints the swap-outs' and swap-ins' pages, bytes, ms and
+            GB/s (the device drained around each), and the interactive
+            request's latency preempting and with the swap budget at 0.
 7. timings  CUDA-event times at the serve phase's decode shapes (L2
             flushed before each launch): the kernel, its plain version,
             ``F.scaled_dot_product_attention`` over the gathered K/V as a
@@ -584,15 +623,20 @@ def phase_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
 
 
 def serve_burst(torch, np, pa, serve, ServeConfig, overlap, device, preset,
-                max_seq):
+                max_seq, prefix_cache=False):
     """One serve runtime with ``serving_overlap = overlap``: warm-up
     requests that capture its window graphs, then the burst with B1's
     count zeroed just before and read just after. Returns (the burst's
     doc, its responses, the runtime, still open)."""
+    # The serve phase keeps the prefix cache off: it resubmits requests
+    # and compares bf16 tokens, which a suffix-only prefill may round
+    # apart (the prefix phase measures the cache; tools/serve_ab.py times
+    # this burst with it on).
     cfg = ServeConfig(preset=preset, max_seq=max_seq, payload_serving="paged",
                       serving_overlap=overlap, serving_slots=4,
                       serving_page_size=16, serving_prefill_chunk=64,
-                      serving_window=64, state_dir=SEEDED_STATE_DIR)
+                      serving_window=64, serving_prefix_cache=prefix_cache,
+                      state_dir=SEEDED_STATE_DIR)
     rt = serve.ServeRuntime(cfg, device=device, dtype="bfloat16", seed=0,
                             host="127.0.0.1", port=0)
     try:
@@ -701,7 +745,7 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
             serving_slots=4, serving_page_size=16, serving_prefill_chunk=64,
             serving_window=64, n_layers=WINDOW_LAYERS,
             payload_paged_attention="gather" if mode == "gather" else "",
-            state_dir=SEEDED_STATE_DIR)
+            serving_prefix_cache=False, state_dir=SEEDED_STATE_DIR)
         rt = serve.ServeRuntime(cfg32, device=device, dtype="float32",
                                 seed=0)
         try:
@@ -885,7 +929,7 @@ def spec_cfg(ServeConfig, preset, max_seq, **kw):
     base = dict(preset=preset, max_seq=max_seq, payload_serving="paged",
                 serving_slots=4, serving_page_size=16,
                 serving_prefill_chunk=64, serving_window=64,
-                state_dir=SEEDED_STATE_DIR)
+                serving_prefix_cache=False, state_dir=SEEDED_STATE_DIR)
     return ServeConfig(**{**base, **kw})
 
 
@@ -1111,6 +1155,407 @@ def phase_spec(torch, np, kfns, ttr, serve, spec_mod, decode,
     check(sampled_same, "fp32 sampled tokens change with speculation")
     check(all(c["equal"] for c in contiguous),
           "fp32 generate_speculative differs from generate")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return doc
+
+
+# ---- phases 6c and 6d: prefix and contention ----------------------------
+
+SHARE_WINDOW = 16    # serving_window of the prefix and contention phases
+
+
+def share_cfg(ServeConfig, preset, max_seq, **kw):
+    base = dict(preset=preset, max_seq=max_seq, payload_serving="paged",
+                serving_slots=4, serving_page_size=16,
+                serving_prefill_chunk=64, serving_window=SHARE_WINDOW,
+                serving_overlap="auto", state_dir=SEEDED_STATE_DIR)
+    return ServeConfig(**{**base, **kw})
+
+
+def prefix_traffic(np, vocab):
+    """A 1000-token system prompt S: the first request (S + 24 tokens,
+    64 full pages), then 8 concurrent requests of S (two cut to 990
+    tokens) plus distinct 24-300-token suffixes, each diverging inside a
+    partial page of the first request's, and a request that host-tier
+    runs reuse (S + the first's 24 tokens + 10 more)."""
+    rng = np.random.default_rng(4242)
+    system = rng.integers(0, vocab, 1000).tolist()
+    user = rng.integers(0, vocab, 24).tolist()
+    first = {"tokens": [system + user], "n_new": 64}
+    burst = [{"tokens": [system[:cut] + rng.integers(0, vocab, n).tolist()],
+              "n_new": 64}
+             for cut, n in ((1000, 24), (1000, 60), (990, 100), (1000, 150),
+                            (1000, 200), (990, 250), (1000, 300), (1000, 40))]
+    again = {"tokens": [system + user + rng.integers(0, vocab, 10).tolist()],
+             "n_new": 16}
+    unrelated = {"tokens": [rng.integers(0, vocab, 1000).tolist()],
+                 "n_new": 16}
+    return first, burst, again, unrelated
+
+
+def cut_new(req, n_new):
+    return dict(req, n_new=min(req["n_new"], n_new)) if n_new else req
+
+
+def warm_up(url, n_new=32):
+    """A greedy request whose windows (W 16 down to 1) capture the
+    runtime's greedy graphs."""
+    check(post(url, {"tokens": [[1, 2, 3]], "n_new": n_new})[0] == 200,
+          "warm-up request")
+
+
+def run_prefix_traffic(np, pa, serve, cfg, device, dtype, n_new=0):
+    """One runtime: a warm-up, then the first request, the burst and the
+    multi-turn follow-up (the first's prompt + its generated tokens + 30
+    more) over HTTP, B1's count zeroed just before the first and read
+    just after the follow-up. Returns the requests, their token rows and
+    the run's numbers."""
+    rt = serve.ServeRuntime(cfg, device=device, dtype=dtype, seed=0,
+                            host="127.0.0.1", port=0)
+    try:
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        vocab, layers = rt.tcfg.vocab, rt.tcfg.n_layers
+        warm_up(url)
+        first, burst, again, _ = prefix_traffic(np, vocab)
+        first = cut_new(first, n_new)
+        burst = [cut_new(r, n_new) for r in burst]
+        stats0 = rt.server.stats()
+        pa.paged_decode_attention.launches = 0
+        t0 = time.perf_counter()
+        code, doc1 = post(url, first)
+        check(code == 200, f"first request: HTTP {code}: {doc1}")
+        first_s = time.perf_counter() - t0
+        results, lat, wall = run_burst(url, burst)
+        for (code, doc), req in zip(results, burst):
+            check(code == 200, f"HTTP {code}: {doc}")
+            check_response(doc, req, vocab)
+        follow = cut_new({"tokens": [doc1["tokens"][0] + list(
+            range(100, 130))], "n_new": 64}, n_new)
+        t1 = time.perf_counter()
+        code, doc3 = post(url, follow)
+        check(code == 200, f"follow-up: HTTP {code}: {doc3}")
+        follow_s = time.perf_counter() - t1
+        launches = pa.paged_decode_attention.launches
+        main = rt.server.stats()
+        code, doc4 = post(url, again)
+        check(code == 200, f"HTTP {code}: {doc4}")
+        stats = rt.server.stats()
+        graphs = rt.server._cache.graph_stats()
+    finally:
+        rt.close()
+    steps = main["decode_steps"] - stats0["decode_steps"]
+    check(steps > 0 and launches >= (layers * steps if device == "cuda"
+                                     else 0),
+          f"{launches} B1 launches < {layers} x {steps} decode steps")
+    gen = sum(r["n_new"] for r in burst)
+    reqs = [first] + burst + [follow, again]
+    tokens = [doc1["tokens"]] + [d["tokens"] for _, d in results] + \
+        [doc3["tokens"], doc4["tokens"]]
+    keys = ("prefix_hits", "prefix_lookups", "prefix_tokens_saved",
+            "prefix_cow_copies", "prefix_entries", "prefix_bytes_saved")
+    numbers = {
+        "n_layers": layers, "dtype": dtype,
+        "first_request_s": first_s, "burst_wall_s": wall,
+        "burst_decode_tokens_per_s": gen / wall,
+        "burst_latency_p50_s": float(np.percentile(lat, 50)),
+        "burst_latency_p99_s": float(np.percentile(lat, 99)),
+        "follow_up_s": follow_s,
+        "prefill_s": main["prefill_s"] - stats0["prefill_s"],
+        "decode_s": main["decode_s"] - stats0["decode_s"],
+        "decode_steps": steps, "b1_launches": launches,
+        "graphs": graphs["graphs"], "capture_s": graphs["capture_s"],
+        **{k: stats[k] - stats0[k] for k in keys if k != "prefix_entries"},
+        "prefix_entries": stats["prefix_entries"],
+        "reserved_pages_after": stats["reserved_pages"],
+    }
+    return reqs, tokens, numbers
+
+
+def phase_prefix(torch, np, pa, ttr, serve, ServeConfig, forward,
+                 params_from_numpy, device="cuda", preset="flagship",
+                 max_seq=2048):
+    """The prefix cache through the serve payload at the flagship width:
+    a shared system prompt, a burst diverging inside its partial page
+    (copy on write), a multi-turn follow-up; the same with the cache
+    off; fp32 cache on == off at 2 layers; a host-tier demote -> promote
+    round trip."""
+    doc = {"phase": "prefix", "model": preset, "pages": 512,
+           "window": SHARE_WINDOW}
+    runs = {}
+    for cache in (True, False):
+        runs[cache] = run_prefix_traffic(
+            np, pa, serve, share_cfg(ServeConfig, preset, max_seq,
+                                     serving_pages=512,
+                                     serving_prefix_cache=cache),
+            device, "bfloat16")
+    (reqs, on_tokens, on), (off_reqs, off_tokens, off) = runs[True], \
+        runs[False]
+    doc["cache_on"], doc["cache_off"] = on, off
+    check(on["prefix_hits"] >= 1 and on["prefix_tokens_saved"] >= 1
+          and on["prefix_cow_copies"] >= 1,
+          f"prefix counters {on}")
+    check(off["prefix_hits"] == 0, "the cache off still hit")
+    check(on["reserved_pages_after"] == off["reserved_pages_after"] == 0,
+          "pages still reserved after the traffic")
+    share, first = token_agreement(reqs, on_tokens, off_tokens)
+    if first is not None:
+        i, r = first["request"], first["row"]
+        seq = on_tokens[i][r][:len(reqs[i]["tokens"][r])
+                              + first["position"]]
+        tcfg = ServeConfig(preset=preset, max_seq=max_seq).model_config(
+            "bfloat16")
+        params = params_from_numpy(ttr.init_params(0, tcfg), tcfg, device)
+        first.update(logit_gap(torch, forward, params, tcfg, seq,
+                               first["got"], first["want"], device))
+        del params
+    doc["bf16_on_vs_off"] = {"token_agreement": share,
+                             "first_divergence": first}
+
+    # fp32 at 2 layers: the cache on returns the cache off's tokens.
+    fp32 = {}
+    for cache in (True, False):
+        fp32[cache] = run_prefix_traffic(
+            np, pa, serve, share_cfg(ServeConfig, preset, max_seq,
+                                     serving_pages=512, n_layers=2,
+                                     serving_prefix_cache=cache),
+            device, "float32", n_new=32)
+    fp32_same = fp32[True][1] == fp32[False][1]
+    doc["fp32"] = {"n_layers": 2, "n_new_cap": 32,
+                   "cache_on_equals_off": fp32_same,
+                   **{k: fp32[True][2][k] for k in (
+                       "prefix_hits", "prefix_tokens_saved",
+                       "prefix_cow_copies", "prefill_s")},
+                   "prefill_s_cache_off": fp32[False][2]["prefill_s"]}
+    check(fp32_same, "fp32 tokens differ between the prefix cache on "
+          "and off")
+
+    # The host tier: a pool of 96 pages at 2 layers, fp32. The first
+    # request registers S; an unrelated 1000-token prompt evicts it to
+    # the host; S + the first's tokens + 10 promotes it back and hits.
+    cfg = share_cfg(ServeConfig, preset, max_seq, serving_pages=96,
+                    n_layers=2, serving_prefix_host_mb=2048)
+    rt = serve.ServeRuntime(cfg, device=device, dtype="float32", seed=0,
+                            host="127.0.0.1", port=0)
+    try:
+        first, _, again, unrelated = prefix_traffic(np, rt.tcfg.vocab)
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        for req in (first, unrelated):
+            check(post(url, req)[0] == 200, "host-tier request")
+        mid = rt.server.stats()
+        code, promoted = post(url, again)
+        check(code == 200, f"host-tier request: HTTP {code}")
+        st = rt.server.stats()
+    finally:
+        rt.close()
+    want = fp32[False][1][-1]  # ``again`` on the fp32 cache-off run
+    host = {"demotions": mid["prefix_demotions"],
+            "host_entries": mid["prefix_host_entries"],
+            "host_bytes": mid["prefix_host_bytes"],
+            "evictions": mid["prefix_evictions"],
+            "promotions": st["prefix_promotions"],
+            "hits_on_promotion": st["prefix_hits"] - mid["prefix_hits"],
+            "tokens_saved_on_promotion": (st["prefix_tokens_saved"]
+                                          - mid["prefix_tokens_saved"]),
+            "tokens_equal_cache_off": promoted["tokens"] == want}
+    doc["host_tier"] = host
+    check(host["demotions"] >= 1 and host["promotions"] >= 1
+          and host["hits_on_promotion"] == 1,
+          f"host tier round trip {host}")
+    check(host["tokens_equal_cache_off"],
+          "the promoted entry's tokens differ from the cache off's (fp32)")
+    doc["ok"] = True
+    emit(doc)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return doc
+
+
+def stream_request(url, doc, progress, timeout=600):
+    """A streamed request's records, ``progress(count)`` called after
+    each token as it arrives."""
+    req = urllib.request.Request(
+        url, data=json.dumps(dict(doc, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    recs = []
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for line in r:
+            recs.append(json.loads(line))
+            if "token" in recs[-1]:
+                progress(len(recs))
+    return recs
+
+
+def contention_requests(np, vocab):
+    rng = np.random.default_rng(99)
+    batch = [{"tokens": [rng.integers(0, vocab, n).tolist()], "n_new": 160,
+              "priority": "batch"} for n in (600, 600)]
+    inter = {"tokens": [rng.integers(0, vocab, 200).tolist()], "n_new": 64}
+    return batch, inter
+
+
+def timed_swaps(torch, cache, device):
+    """Wrap the cache's swap calls to time them (the device drained
+    before and after each) and count their bytes."""
+    log = {"out": [], "in": []}
+    swapout, swapin = cache.swapout_pages, cache.swapin_pages
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def out(ids):
+        sync()
+        t0 = time.perf_counter()
+        arrays = swapout(ids)
+        sync()
+        log["out"].append((len(ids), sum(a.nbytes for a in arrays),
+                           time.perf_counter() - t0))
+        return arrays
+
+    def back(ids, arrays):
+        sync()
+        t0 = time.perf_counter()
+        swapin(ids, arrays)
+        sync()
+        log["in"].append((len(ids), sum(a.nbytes for a in arrays),
+                          time.perf_counter() - t0))
+
+    cache.swapout_pages, cache.swapin_pages = out, back
+    return log
+
+
+def contended_run(np, torch, pa, serve, cfg, device, dtype, alone=True):
+    """Two batch requests (prompts of 600, n_new 160: 48 pages each)
+    streamed together over a pool they reserve whole, then an interactive request
+    (prompt 200, n_new 64) once both have decoded 4 tokens; then each
+    request alone on the same server. Returns the run's numbers."""
+    rt = serve.ServeRuntime(cfg, device=device, dtype=dtype, seed=0,
+                            host="127.0.0.1", port=0)
+    try:
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        layers = rt.tcfg.n_layers
+        warm_up(url)
+        swaps = timed_swaps(torch, rt.server._cache, device)
+        batch, inter = contention_requests(np, rt.tcfg.vocab)
+        stats0 = rt.server.stats()
+        seen = [threading.Event() for _ in batch]
+        recs: list = [None] * len(batch)
+
+        def one(i):
+            def progress(n, i=i):
+                if n >= 4:
+                    seen[i].set()
+            try:
+                recs[i] = stream_request(url, batch[i], progress)
+            finally:
+                seen[i].set()
+
+        pa.paged_decode_attention.launches = 0
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(batch))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for ev in seen:
+            check(ev.wait(300), "a batch stream never started")
+        t1 = time.perf_counter()
+        code, inter_doc = post(url, inter)
+        inter_s = time.perf_counter() - t1
+        check(code == 200, f"interactive request: HTTP {code}: {inter_doc}")
+        for t in threads:
+            t.join(timeout=600)
+            check(not t.is_alive(), "a batch stream never ended")
+        wall = time.perf_counter() - t0
+        launches = pa.paged_decode_attention.launches
+        stats = rt.server.stats()
+        got = []
+        for r in recs:
+            check(bool(r) and r[-1].get("done") is True,
+                  f"batch stream ended {r[-1:] if r else r}")
+            got.append(r[-1]["tokens"])
+        got.append(inter_doc["tokens"])
+        alone_tokens = []
+        if alone:
+            for req in batch + [inter]:
+                code, d = post(url, req)
+                check(code == 200, f"request alone: HTTP {code}")
+                alone_tokens.append(d["tokens"])
+    finally:
+        rt.close()
+
+    def delta(key):
+        return stats[key] - stats0[key]
+
+    steps = delta("decode_steps")
+    out = {"n_layers": layers, "dtype": dtype,
+           "kv_dtype": cfg.serving_kv_dtype or dtype,
+           "speculative": cfg.serving_speculative,
+           "spec_window": cfg.serving_spec_window,
+           "swap_budget_mb": cfg.serving_sched_swap_budget_mb,
+           "preemptions": delta("sched_preemptions_total"),
+           "resumes": delta("sched_resumes_total"),
+           "swapped_out_after": stats["sched_swapped_out"],
+           "interactive_latency_s": inter_s, "wall_s": wall,
+           "decode_steps": steps, "b1_launches": launches,
+           "spec_windows": delta("spec_windows_total")
+           if "spec_windows_total" in stats else 0,
+           "swap_out": [{"pages": n, "bytes": b, "ms": t * 1e3,
+                         "gb_per_s": b / t / 1e9}
+                        for n, b, t in swaps["out"]],
+           "swap_in": [{"pages": n, "bytes": b, "ms": t * 1e3,
+                        "gb_per_s": b / t / 1e9}
+                       for n, b, t in swaps["in"]]}
+    if alone:
+        out["equal_to_alone"] = [a == b for a, b in zip(got, alone_tokens)]
+    if not cfg.serving_spec_window:
+        check(steps > 0 and launches >= (layers * steps if device == "cuda"
+                                         else 0),
+              f"{launches} B1 launches < {layers} x {steps} decode steps")
+    return out
+
+
+def phase_contention(torch, np, pa, serve, ServeConfig, device="cuda",
+                     preset="flagship", max_seq=2048):
+    """The admission scheduler under contention at the flagship width:
+    an interactive request preempts the later-admitted batch row by
+    swapping its KV pages to host memory, finishes, and the row resumes;
+    every request equals its run alone bit for bit, at bf16, at int8 (2
+    layers) and with spec windows (K 4, windows of 8); and the
+    interactive latency with the swap budget at 0."""
+    base = dict(serving_pages=96, serving_prefix_cache=False,
+                serving_sched_swap_budget_mb=64)
+    doc = {"phase": "contention", "model": preset, "pages": 96,
+           "window": SHARE_WINDOW}
+    for name, kw, dtype in (
+            ("bf16", {}, "bfloat16"),
+            ("int8", dict(n_layers=2, serving_kv_dtype="int8"), "bfloat16"),
+            ("spec", dict(serving_speculative=SPEC_K,
+                          serving_spec_window=SPEC_W), "bfloat16")):
+        run = contended_run(np, torch, pa, serve,
+                            share_cfg(ServeConfig, preset, max_seq,
+                                      **{**base, **kw}), device, dtype)
+        doc[name] = run
+        check(run["preemptions"] >= 1, f"{name}: no preemption")
+        check(run["resumes"] == run["preemptions"]
+              and run["swapped_out_after"] == 0,
+              f"{name}: resumes {run['resumes']} != preemptions "
+              f"{run['preemptions']}")
+        check(all(run["equal_to_alone"]),
+              f"{name}: a request differs from its run alone "
+              f"{run['equal_to_alone']}")
+    budget0 = contended_run(np, torch, pa, serve,
+                            share_cfg(ServeConfig, preset, max_seq,
+                                      **{**base,
+                                         "serving_sched_swap_budget_mb": 0}),
+                            device, "bfloat16", alone=False)
+    doc["swap_budget_0"] = budget0
+    check(budget0["preemptions"] == 0, "preempted with no swap budget")
+    doc["interactive_latency_s"] = {
+        "preempting": doc["bf16"]["interactive_latency_s"],
+        "swap_budget_0": budget0["interactive_latency_s"]}
+    doc["ok"] = True
+    emit(doc)
     if device == "cuda":
         torch.cuda.empty_cache()
     return doc
@@ -2409,6 +2854,13 @@ def main() -> int:
         phase_spec(torch, np, kfns, ttr, serve, spec_mod, decode,
                    ServeConfig, forward, params_from_numpy)
 
+        phase = enter("prefix")
+        prefix_doc = phase_prefix(torch, np, pa, ttr, serve, ServeConfig,
+                                  forward, params_from_numpy)
+
+        phase = enter("contention")
+        contention_doc = phase_contention(torch, np, pa, serve, ServeConfig)
+
         phase = enter("timings")
         t = phase_timings(torch, pa, lives, serve_doc)
 
@@ -2456,6 +2908,8 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "ratio_to_library": t["ratio_to_library"],
+            "launches_prefix": prefix_doc["cache_on"]["b1_launches"],
+            "launches_contention": contention_doc["bf16"]["b1_launches"],
             "status": "redesigned (thread-block cluster split, scores "
                       "in shared memory, cp.async K/V); on the serve path "
                       "launched inside replayed CUDA graphs, counted per "

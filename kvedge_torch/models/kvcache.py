@@ -2,9 +2,14 @@
 
 The counterpart of the JAX package's ``models/kvcache.py`` for the
 serving slice. K/V live in pages of a pool ``[L, P, page, K, Dh]``; each
-sequence owns an ordered block table of page ids. The host class
-:class:`PagedKVCache` keeps the reference's method names and semantics
-(``admit``/``grow``/``grow_to``/``release``, ``prefill_chunk``, ``step``,
+sequence holds an ordered block table of page ids, and a page may be
+held by several tables and by the server's prefix registry at once
+(reference counts). The host class :class:`PagedKVCache` keeps the
+reference's method names and semantics (``admit`` with shared pages,
+``grow``/``grow_to`` under ``pressure_relief``, ``release``,
+``retain_pages``/``release_pages``, the page copies ``cow_page``,
+``swapout_pages``/``swapin_pages``, ``snapshot_pages``/``read_pages``/
+``write_pages``, ``prefill_chunk``, ``step``,
 ``step_tokens``, ``step_window``, ``step_window_sampled``, the
 pipelined ``dispatch_window``/``dispatch_window_sampled``/
 ``harvest_window``/``drop_carry``, and speculative decoding:
@@ -36,6 +41,11 @@ Differences that are the port's, not the reference's:
   contexts stay in the window's input tensors between windows (the
   spec carry); the context carries one sink column for the appends the
   reference drops.
+* The page copies (COW, swap, snapshots) are ``index_select`` /
+  ``index_copy_`` over the ``[L, P + 1, ...]`` slabs on the current
+  stream, so they run in stream order with the window graphs replayed
+  there; a swap-out lands in pinned host tensors. The reference's are
+  plain ``jnp`` indexing outside any kernel too.
 * Single-query decode attention goes through ``ops/paged_attention.py``
   when ``cfg.paged_attention`` picks the kernel ("auto" on CUDA, or
   "kernel"); prefill and the speculative verify pass (1 + K queries a
@@ -513,9 +523,13 @@ class PagedKVCache:
     """Host-side pool manager wrapping a :class:`PagedState`.
 
     ``slots`` is the batch dim of every step. Unused slots keep length 0
-    and write only to the sink page. Every page has one owner (this
-    slice shares no pages), so a page is either on the free list or in
-    one slot's table. ``device`` is the card unless "cpu" is asked for.
+    and write only to the sink page. A page is on the free list (count
+    0) or referenced by slot tables and registry pins (its count); the
+    free list is the reference's (``list(range(P))[::-1]``, ``pop()``,
+    an append when a count reaches 0), so one sequence of operations
+    hands out the same page ids in both packages. The sink is never on
+    the free list, counted, shared, swapped or copied. ``device`` is the
+    card unless "cpu" is asked for.
     """
 
     def __init__(self, cfg: TransformerConfig, *, slots: int, pages: int,
@@ -564,6 +578,13 @@ class PagedKVCache:
         self._host_tables = [[0] * self.max_pages_per_seq
                              for _ in range(slots)]
         self._host_lengths = [0] * slots
+        # Page reference counts: slot tables and registry pins
+        # (retain_pages); a page returns to the free list at 0.
+        self._refs = [0] * pages
+        # The server's callback for an allocation that finds the free
+        # list short: registry pins sit outside every reservation, so
+        # pressure_relief(needed) -> bool reclaims them first.
+        self.pressure_relief = None
         # The windows' inputs, written in place before each dispatch;
         # _idle_in (every row inactive) drives a graph's warm-up run,
         # which then writes only to the sink page.
@@ -599,44 +620,134 @@ class PagedKVCache:
     def free_pages(self) -> int:
         return len(self._free)
 
+    def quiescent(self) -> bool:
+        """No device carry (plain or spec) and no unharvested spec
+        reservation: nothing in flight reads the host state."""
+        return (self._carry is None and self._spec_carry is None
+                and not any(self._spec_unharvested))
+
+    def rows_in_use(self) -> int:
+        """1 + the highest admitted slot (0 when empty)."""
+        return max(self._pages_of, default=-1) + 1
+
     def page_accounting(self) -> dict:
-        """Full-pool page census: conservation holds iff
-        ``free + live == pages_total`` with no duplicate free entries and
-        no page both free and owned."""
+        """Full-pool page census: every page is on the free list (count
+        0) or referenced (``live``). Conservation holds iff ``free + live
+        == pages_total`` with no duplicate free entries, no negative
+        count and no page both free and referenced."""
         free_set = set(self._free)
-        owned = [p for pages in self._pages_of.values() for p in pages]
         return {
             "free": len(self._free),
-            "live": len(set(owned)),
+            "live": sum(1 for r in self._refs if r > 0),
             "pages_total": self.num_pages,
+            "spec_unharvested": sum(self._spec_unharvested),
             "free_dup": len(self._free) - len(free_set),
-            "owned_dup": len(owned) - len(set(owned)),
-            "free_live": len(free_set.intersection(owned)),
+            "neg_refs": sum(1 for r in self._refs if r < 0),
+            "free_live": sum(1 for p in free_set if self._refs[p] > 0),
+        }
+
+    def occupancy(self) -> dict:
+        """Pool occupancy gauges; ``hbm_bytes_used`` prices live pages
+        at the pool's per-page K+V bytes (scale slabs included for an
+        int8 pool), the P pages only."""
+        live = self.num_pages - len(self._free)
+        st = self.state
+        page_bytes = sum(
+            t.nbytes // self.num_pages
+            for t in (st.pool_k, st.pool_v, st.scale_k, st.scale_v)
+            if t is not None)
+        return {
+            "pages_total": self.num_pages,
+            "pages_live": live,
+            "pages_free": len(self._free),
+            "slots_admitted": len(self._pages_of),
+            "bucket": self.slots,
+            "hbm_bytes_used": live * page_bytes,
         }
 
     def is_admitted(self, slot: int) -> bool:
         return slot in self._pages_of
 
     def slot_pages(self, slot: int) -> list[int]:
+        """A copy of the slot's page list (registry pins must not alias
+        the live allocation list)."""
         return list(self._pages_of[slot])
 
-    def admit(self, slot: int, prompt_len: int) -> None:
-        """Reserve the pages of a ``prompt_len``-token prompt in ``slot``."""
+    def slot_length(self, slot: int) -> int:
+        """The slot's committed host length: positions ``[0, length)``
+        hold the K/V of prompt + generated (spec drafts write only at or
+        past it), which makes finish-time registration exact."""
+        if slot not in self._pages_of:
+            raise PagedCacheError(f"slot {slot} is not admitted")
+        return self._host_lengths[slot]
+
+    def page_refcount(self, page: int) -> int:
+        return self._refs[page]
+
+    def retain_pages(self, pages: list[int]) -> None:
+        """Take an extra reference on ``pages`` (the prefix registry's
+        pins)."""
+        for page in pages:
+            if self._refs[page] < 1:
+                raise PagedCacheError(
+                    f"page {page} is free — cannot retain K/V that no "
+                    "longer exists"
+                )
+            self._refs[page] += 1
+
+    def release_pages(self, pages: list[int]) -> None:
+        """Drop a reference taken with :meth:`retain_pages`."""
+        for page in pages:
+            self._unref(page)
+
+    def _unref(self, page: int) -> None:
+        self._refs[page] -= 1
+        if self._refs[page] < 0:
+            raise PagedCacheError(f"page {page} over-released")
+        if self._refs[page] == 0:
+            self._free.append(page)
+
+    def _relieved(self, needed: int) -> bool:
+        """At least ``needed`` free pages, after asking the server's
+        ``pressure_relief`` when the free list is short."""
+        return needed <= len(self._free) or bool(
+            self.pressure_relief and self.pressure_relief(needed))
+
+    def _take_page(self) -> int:
+        page = self._free.pop()
+        self._refs[page] += 1
+        return page
+
+    def admit(self, slot: int, prompt_len: int,
+              shared_pages: tuple[int, ...] = ()) -> None:
+        """Reserve the pages of a ``prompt_len``-token prompt in
+        ``slot``. ``shared_pages`` (prefix sharing) start the table on
+        already-written, read-only pages holding the prompt's cached
+        prefix (counts bumped; prefill starts past them); only the rest
+        comes from the free list."""
         if slot in self._pages_of:
             raise PagedCacheError(f"slot {slot} already admitted")
         if not 0 <= slot < self.slots:
             raise PagedCacheError(f"slot {slot} outside 0..{self.slots - 1}")
-        needed = -(-prompt_len // self.page_size) or 1
-        if needed > self.max_pages_per_seq:
+        total = -(-prompt_len // self.page_size) or 1
+        needed = total - len(shared_pages)
+        if needed < 0:
             raise PagedCacheError(
-                f"prompt of {prompt_len} needs {needed} pages > "
+                f"{len(shared_pages)} shared pages exceed the prompt's "
+                f"{total}-page footprint"
+            )
+        if total > self.max_pages_per_seq:
+            raise PagedCacheError(
+                f"prompt of {prompt_len} needs {total} pages > "
                 f"max_pages_per_seq={self.max_pages_per_seq}"
             )
-        if needed > len(self._free):
+        if not self._relieved(needed):
             raise PagedCacheError(
                 f"pool exhausted: need {needed} pages, {len(self._free)} free"
             )
-        pages = [self._free.pop() for _ in range(needed)]
+        self.retain_pages(list(shared_pages))
+        pages = list(shared_pages) + [self._take_page()
+                                      for _ in range(needed)]
         self._pages_of[slot] = pages
         row = self._host_tables[slot]
         for i, page in enumerate(pages):
@@ -651,8 +762,10 @@ class PagedKVCache:
 
     def grow_to(self, slot: int, n: int) -> bool:
         """Ensure the slot can hold ``n`` more tokens, allocating pages as
-        needed (inside the request's admission-time reservation). True
-        iff any page was allocated (caller must :meth:`_sync`)."""
+        needed (inside the request's admission-time reservation, reclaiming
+        registry pins through ``pressure_relief`` when the free list is
+        short). True iff any page was allocated (caller must
+        :meth:`_sync`)."""
         if slot not in self._pages_of:
             raise PagedCacheError(f"slot {slot} is not admitted")
         length = self._host_lengths[slot]
@@ -661,25 +774,34 @@ class PagedKVCache:
         while length + n > len(pages) * self.page_size:
             if len(pages) == self.max_pages_per_seq:
                 raise PagedCacheError(f"slot {slot} hit max_pages_per_seq")
-            if not self._free:
+            if not self._relieved(1):
                 raise PagedCacheError("pool exhausted mid-decode")
-            page = self._free.pop()
+            page = self._take_page()
             pages.append(page)
             self._host_tables[slot][len(pages) - 1] = page
             grew = True
         return grew
 
     def release(self, slot: int) -> None:
-        """Finish a sequence: its pages return to the free list."""
+        """Finish a sequence: drop its references (a page frees at 0)."""
         if slot not in self._pages_of:
             raise PagedCacheError(f"slot {slot} is not admitted")
-        self._free.extend(self._pages_of.pop(slot))
+        for page in self._pages_of.pop(slot):
+            self._unref(page)
         self._host_tables[slot] = [0] * self.max_pages_per_seq
         self._host_lengths[slot] = 0
         # Its device length drops to 0 even while other slots' spec
         # windows are in flight (_sync keeps only unharvested slots').
         self._spec_unharvested[slot] = 0
         self._sync()
+
+    def allocate_pinned_page(self) -> int:
+        """One page off the free list at count 1, owned by the caller
+        (a registry pin no slot's reservation covers). Never invokes
+        pressure relief."""
+        if not self._free:
+            raise PagedCacheError("pool exhausted: no page to pin")
+        return self._take_page()
 
     def spec_pending(self) -> bool:
         """Any dispatched, unharvested spec window's reservation?"""
@@ -713,6 +835,134 @@ class PagedKVCache:
         self._put(host, lengths)
         self._put(keep, np.asarray(self._spec_unharvested) > 0)
         self.state.lengths.copy_(torch.where(keep, self.state.lengths, host))
+
+    # ---- page copies (prefix sharing, swap, snapshots) -----------------
+
+    def _slabs(self) -> list[torch.Tensor]:
+        """The ``[L, P + 1, ...]`` slabs a page lives in: K and V, and the
+        scale slabs of an int8 pool."""
+        st = self.state
+        out = [st.pool_k_full, st.pool_v_full]
+        if st.scale_k_full is not None:
+            out += [st.scale_k_full, st.scale_v_full]
+        return out
+
+    def _page_index(self, ids) -> torch.Tensor:
+        ids = [int(p) for p in ids]
+        if any(not 0 <= p < self.num_pages for p in ids):
+            raise PagedCacheError(
+                f"page ids {ids} outside 0..{self.num_pages - 1}")
+        out = torch.empty((len(ids),), dtype=torch.int64, device=self.device)
+        self._put(out, np.asarray(ids, np.int64))
+        return out
+
+    def snapshot_pages(self, ids: list[int]) -> tuple:
+        """Device copies of pages ``ids`` AS STORED: ``(k, v)`` of
+        ``[L, n, page, K, Dh]``, plus the fp32 scale slabs ``[L, n,
+        page, K]`` for an int8 pool (a 4-tuple)."""
+        idx = self._page_index(ids)
+        return tuple(t.index_select(1, idx) for t in self._slabs())
+
+    @staticmethod
+    def snapshot_to_host(snapshot) -> tuple:
+        """Host fp32 ``(k, v)`` from a :meth:`snapshot_pages` tuple,
+        dequantized on the host for an int8 one."""
+        if len(snapshot) == 2:
+            return tuple(t.cpu().float() for t in snapshot)
+        k, v, sk, sv = (t.cpu() for t in snapshot)
+        return (k.float() * sk[..., None].float(),
+                v.float() * sv[..., None].float())
+
+    def read_pages(self, ids: list[int]) -> tuple:
+        """Host fp32 ``(k, v)`` of pages ``ids`` (dequantized for an int8
+        pool)."""
+        return self.snapshot_to_host(self.snapshot_pages(ids))
+
+    def write_pages(self, ids: list[int], k_vals, v_vals) -> None:
+        """Write unquantized K/V ``[L, n, page, K, Dh]`` into pages
+        ``ids`` (an int8 pool quantizes them per row); the caller owns
+        the pages' counts."""
+        idx = self._page_index(ids)
+        vals = [torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
+                for v in (k_vals, v_vals)]
+        st = self.state
+        if self.kv_quantized:
+            (k_q, k_s), (v_q, v_s) = (_kv_quantize(v) for v in vals)
+            for dst, src in ((st.pool_k_full, k_q), (st.pool_v_full, v_q),
+                             (st.scale_k_full, k_s), (st.scale_v_full, v_s)):
+                dst.index_copy_(1, idx, src)
+            return
+        for dst, src in ((st.pool_k_full, vals[0]), (st.pool_v_full, vals[1])):
+            dst.index_copy_(1, idx, src.to(dst.dtype))
+
+    def swapout_pages(self, ids: list[int]) -> tuple:
+        """Host copies of pages ``ids`` EXACTLY as the pool stores them
+        (``(k, v)``, or a 4-tuple with the int8 pool's scale slabs): the
+        preemption snapshot, and the prefix host tier's record. On CUDA
+        the gather queues behind the work already on the stream (the
+        only writers of these pages) and lands in pinned host tensors;
+        the call returns once they are there."""
+        snap = self.snapshot_pages(ids)
+        if self.device.type != "cuda":
+            return snap  # index_select made fresh tensors
+        out = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in snap)
+        for dst, src in zip(out, snap):
+            dst.copy_(src, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        event.synchronize()
+        return out
+
+    def swapin_pages(self, ids: list[int], arrays: tuple) -> None:
+        """Write a :meth:`swapout_pages` snapshot back into pages ``ids``
+        (the caller owns their counts), verbatim: no dtype conversion in
+        either direction."""
+        want = 4 if self.kv_quantized else 2
+        if len(arrays) != want:
+            raise PagedCacheError(
+                f"swap snapshot carries {len(arrays)} arrays; this "
+                f"pool needs {want} "
+                "(kv_dtype mismatch between swap-out and swap-in?)"
+            )
+        idx = self._page_index(ids)
+        for dst, src in zip(self._slabs(), arrays):
+            src = torch.as_tensor(src)
+            if src.dtype != dst.dtype:
+                raise PagedCacheError(
+                    f"swap snapshot holds {src.dtype}, the pool "
+                    f"{dst.dtype}")
+            dst.index_copy_(1, idx, src.to(self.device, non_blocking=True))
+
+    def cow_page(self, slot: int, index: int) -> int | None:
+        """Copy-on-write for table position ``index`` of ``slot``: when
+        the page there is shared (count > 1), copy it into a fresh page
+        on the device and point only this slot's table at the copy, so
+        the slot's writes cannot reach the other holders. Returns the
+        new page id, or None when the slot holds the page alone. The
+        copy is one ``index_copy_`` a slab on the current stream, before
+        any later graph replay; no byte crosses the host."""
+        if slot not in self._pages_of:
+            raise PagedCacheError(f"slot {slot} is not admitted")
+        pages = self._pages_of[slot]
+        if not 0 <= index < len(pages):
+            raise PagedCacheError(
+                f"slot {slot} holds {len(pages)} pages — no index {index}"
+            )
+        src = pages[index]
+        if self._refs[src] <= 1:
+            return None
+        if not self._relieved(1):
+            raise PagedCacheError("pool exhausted: no page for COW copy")
+        dst = self._take_page()
+        idx = self._page_index([src, dst])
+        for slab in self._slabs():
+            slab.index_copy_(1, idx[1:], slab.index_select(1, idx[:1]))
+        pages[index] = dst
+        self._host_tables[slot][index] = dst
+        self._unref(src)
+        self._sync()
+        return dst
 
     # ---- device work -----------------------------------------------------
 

@@ -11,7 +11,13 @@ else is in flight, and releases its slot and pages when its budget is
 done or its stop token is produced.
 
 What this slice carries: ``submit``, ``submit_stream``/``StreamHandle``,
-``cancel``, ``close(drain)``, FIFO admission, chunked prefill, the
+``cancel``, ``close(drain)``, admission through the scheduler
+(``models/scheduler.py``: priority classes, ticketed parking, shedding
+by queue watermarks and by the page low watermark, preemption by KV
+swap with resume at the high watermark), the prefix cache (a radix
+trie over page-sized blocks, partial-page matches copied on write, a
+host tier for evicted entries, leases that bill a shared page once),
+chunked prefill, the
 SERIAL window loop (``_loop_once``) with power-of-two windows
 (``_window_steps``), the OVERLAPPED loop (``_loop_once_overlap``, the
 ``overlap`` knob: window N+1 is enqueued on the device-resident carry
@@ -22,19 +28,20 @@ on the device in the overlapped one), and server-wide speculative
 decoding (``speculative``: per verify pass at boundaries, or as
 device-resident spec windows in the overlap pipeline with
 ``spec_window``; the ``resolve_speculation`` boot probe). What it leaves
-out (the reference's later rungs): the prefix cache, preemption and
-swap, the journal and recovery, the SLO engine, tracing, autotune and
+out (the reference's later rungs): prefix persistence, the journal,
+checkpoints and recovery, the SLO engine, tracing, autotune and
 bucketing.
 
 Greedy decode is token-for-token the port's ``forward`` argmax, and the
 tokens of a request do not depend on what else is in flight: the paged
 attention masks each row to its own positions, and token t of a sampled
-request draws with ``fold_in(row_key, t)`` whatever the batch holds.
+request draws with ``fold_in(row_key, t)`` whatever the batch holds. A
+swap moves pool bytes verbatim and a resumed request keeps its host
+tokens, so preemption changes no token either.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import heapq
 import queue
@@ -47,12 +54,23 @@ import torch
 from kvedge_torch.models.config import TransformerConfig
 from kvedge_torch.models.kvcache import PagedKVCache
 from kvedge_torch.models.sampling import as_key_tensor, fold_in, sample_token
+from kvedge_torch.models.scheduler import AdmissionScheduler
 
 _STREAM_DONE = object()
 
 
 class ServerBusy(RuntimeError):
     """No slot/page capacity became available within the timeout."""
+
+
+class ServerOverloaded(ServerBusy):
+    """Shed at admission by the scheduler's watermarks, BEFORE parking;
+    ``retry_after_s`` (when measurable) is the measured queue wait."""
+
+    def __init__(self, msg: str, retry_after_s: float | None = None):
+        super().__init__(msg)
+        if retry_after_s is not None:
+            self.retry_after_s = retry_after_s
 
 
 class ServerClosed(RuntimeError):
@@ -73,7 +91,15 @@ class _Request:
     # Generation ends the moment this token is produced (it is emitted
     # as the final token); -1 never matches a produced id.
     stop_token: int = -1
+    # The PRIVATE reservation; the full shared prefix pages the table
+    # starts on are billed by leases (_lease_take_locked).
     pages_reserved: int = 0
+    shared_pages: tuple = ()
+    # Scheduler: the priority class, the admission ticket (kept across a
+    # preemption) and the admission sequence victims are ordered by.
+    pclass: str = "interactive"
+    ticket_no: int = -1
+    admit_seq: int = -1
     generated: list[int] = dataclasses.field(default_factory=list)
     done: threading.Event = dataclasses.field(default_factory=threading.Event)
     error: Exception | None = None
@@ -133,15 +159,27 @@ class PagedGenerationServer:
     as plain greedy decode); ``spec_window`` W > 0 runs W passes as one
     device-resident spec window in the overlap pipeline, and
     ``spec_sampled_window`` keeps a batch with sampled co-tenants on
-    those windows. ``device`` is the card unless "cpu" is asked for.
+    those windows. ``prefix_cache`` shares the K/V pages of cached
+    prompt prefixes (``prefix_host_mb`` > 0 keeps evicted entries in a
+    host tier); ``sched_*`` and ``page_*_watermark`` set the admission
+    scheduler's policy, shedding and preemption by swap, as the
+    reference's. ``device`` is the card unless "cpu" is asked for.
     """
 
     def __init__(self, params: dict, cfg: TransformerConfig, *,
                  slots: int = 4, pages: int = 64, page_size: int = 16,
-                 prefill_chunk: int = 0, speculative: int = 0,
+                 prefill_chunk: int = 0, prefix_cache: bool = True,
+                 speculative: int = 0,
                  spec_window: int = 0, spec_sampled_window: bool = True,
                  window: int = 64, kv_dtype: str = "",
-                 overlap: str = "auto",
+                 overlap: str = "auto", sched_policy: str = "strict",
+                 sched_weights: dict | None = None,
+                 sched_max_queue_depth: int = 0,
+                 sched_max_queue_wait_s: float = 0.0,
+                 sched_swap_budget_mb: int = 0,
+                 page_low_watermark: float = 0.0,
+                 page_high_watermark: float = 0.0,
+                 prefix_host_mb: int = 0,
                  device: torch.device | str | None = None):
         if not isinstance(window, int) or window < 1:
             raise ValueError("window must be an int >= 1")
@@ -194,11 +232,68 @@ class PagedGenerationServer:
             max_pages_per_seq=-(-(cfg.max_seq + self._spec) // page_size),
             kv_dtype=kv_dtype, device=device,
         )
+        # Free-page watermarks (fractions of the pool, 0 = off): below
+        # ``low`` unreserved headroom a non-top-class arrival sheds;
+        # a swapped-out request resumes only at ``high`` or better.
+        for name, v in (("page_low_watermark", page_low_watermark),
+                        ("page_high_watermark", page_high_watermark)):
+            if not 0.0 <= v < 1.0:
+                raise ValueError(f"{name} must be in [0, 1), got {v}")
+        if page_low_watermark and page_high_watermark \
+                and page_low_watermark > page_high_watermark:
+            raise ValueError(
+                "page_low_watermark must be <= page_high_watermark"
+            )
+        self._page_low_wm = float(page_low_watermark)
+        self._page_high_wm = float(page_high_watermark)
+        # The prefix registry: a radix trie over page-sized token blocks.
+        # Node 0 is the root; a node holds its out-edges {block: child},
+        # an optional pool entry {"pages", "last_used"} and an optional
+        # host-tier record. Node ids are never reused.
+        self._prefix_enabled = bool(prefix_cache)
+        self._prefix_nodes: dict[int, dict] = {
+            0: {"parent": None, "edges": {}, "entry": None, "host": None},
+        }
+        self._prefix_entry_nodes: dict[int, dict] = {}  # id -> entry
+        self._prefix_next_id = 1
+        self._prefix_hits = 0
+        self._prefix_lookups = 0
+        self._prefix_tokens_saved = 0
+        self._prefix_cow_copies = 0
+        if prefix_host_mb < 0:
+            raise ValueError("prefix_host_mb must be >= 0")
+        self._prefix_host_budget = int(prefix_host_mb) << 20
+        self._prefix_host_nodes: dict[int, dict] = {}  # id -> record
+        self._prefix_host_bytes = 0
+        self._prefix_demotions = 0
+        self._prefix_promotions = 0
+        # Evictions by cause, the reference's keys ("revive" stays 0:
+        # the port has no recovery yet).
+        self._prefix_evictions = {
+            "admission": 0, "pressure": 0, "revive": 0,
+            "host_lru": 0, "host_over": 0,
+        }
+        # Leases: one reservation unit per distinct shared prefix page a
+        # live request's table starts on, freed with its last sharer.
+        self._lease: dict[int, int] = {}
+        # Registry pins sit outside every reservation: an allocation that
+        # finds the free list short reclaims them first.
+        self._cache.pressure_relief = self._relieve_pool_pressure_locked
         self._pages_total = pages
         self._reserved = 0  # worst-case pages of every admitted request
-        self._work = threading.Condition(threading.Lock())
+        self._lock = threading.Lock()
+        self._work = threading.Condition(self._lock)
+        # The admission scheduler shares the server's one lock: each
+        # parked ticket waits on its own condition over it.
+        self._sched = AdmissionScheduler(
+            self._lock, policy=sched_policy, weights=sched_weights,
+            max_queue_depth=sched_max_queue_depth,
+            max_queue_wait_s=sched_max_queue_wait_s,
+            swap_budget_mb=sched_swap_budget_mb,
+        )
+        # Host bytes one swapped-out page costs (filled lazily).
+        self._swap_page_bytes: int | None = None
         self._free_slots = list(range(slots))  # a heap: lowest slot first
-        self._waiting: collections.deque = collections.deque()  # FIFO
         self._active: dict[int, _Request] = {}
         self._finish_ready: set[int] = set()
         self._prefilling = 0
@@ -236,14 +331,21 @@ class PagedGenerationServer:
 
     def submit(self, prompt: list[int], n_new: int, timeout: float = 120.0,
                sampling: tuple | None = None,
+               priority: str = "interactive",
+               deadline_ms: int | None = None,
                stop_token: int | None = None) -> list[int]:
         """Blocking generate: the prompt plus UP TO ``n_new`` generated
         tokens. Greedy unless ``sampling = (key_data, temperature,
         top_p)``, with ``key_data`` the raw uint32 ``[2]`` data of the
-        row's seed key. Raises :class:`ServerBusy` when capacity does not
-        free up within ``timeout``, ValueError for requests that can
-        never fit."""
+        row's seed key. ``priority`` names the scheduling class
+        (``interactive``/``batch``); ``deadline_ms`` bounds the admission
+        wait tighter than ``timeout`` and lets the scheduler shed the
+        request up front when its measured queue wait cannot meet it.
+        Raises :class:`ServerBusy` when capacity does not free up in time
+        (:class:`ServerOverloaded` when shed), ValueError for requests
+        that can never fit."""
         req = self._start(prompt, n_new, timeout, sampling, stream=False,
+                          priority=priority, deadline_ms=deadline_ms,
                           stop_token=stop_token)
         req.done.wait()
         if req.error is not None:
@@ -252,17 +354,31 @@ class PagedGenerationServer:
 
     def submit_stream(self, prompt: list[int], n_new: int,
                       timeout: float = 120.0, sampling: tuple | None = None,
+                      priority: str = "interactive",
+                      deadline_ms: int | None = None,
                       stop_token: int | None = None) -> StreamHandle:
         """Streaming generate: an iterator over the generated tokens as
-        they land, with ``cancel()``."""
+        they land, with ``cancel()``; admission as :meth:`submit`."""
         req = self._start(prompt, n_new, timeout, sampling, stream=True,
+                          priority=priority, deadline_ms=deadline_ms,
                           stop_token=stop_token)
         return StreamHandle(self, req)
 
     def cancel(self, req: _Request) -> None:
-        """Drop a request at the next boundary (idempotent)."""
+        """Drop a request at the next boundary (idempotent). A request
+        swapped out holds no slot: its host snapshot is freed here and
+        its waiter fails at once."""
         with self._work:
             req.cancelled = True
+            if self._sched.drop_swapped_locked(req) is not None:
+                req.error = RequestCancelled(
+                    "request cancelled while swapped out")
+                if req.stream is not None:
+                    req.stream.put(req.error)
+                req.done.set()
+            # A parked ticket waits on its own condition: wake them all
+            # so the cancelled one dequeues itself.
+            self._sched.wake_all_locked()
             self._work.notify_all()
 
     def close(self, drain: bool = False) -> None:
@@ -274,10 +390,15 @@ class PagedGenerationServer:
                 self._draining = True
             else:
                 self._closed = True
+            # Parked tickets wait on their own conditions.
+            self._sched.wake_all_locked()
             self._work.notify_all()
         self._thread.join(timeout=600 if drain else 60)
         with self._work:
             self._closed = True
+            # Swapped-out requests the exited loop never resumed.
+            self._fail_swapped_closed_locked()
+            self._sched.wake_all_locked()
             self._work.notify_all()
 
     @property
@@ -290,9 +411,11 @@ class PagedGenerationServer:
             return {
                 "slots": self._cache.slots,
                 "pages_total": self._pages_total,
-                "pages_reserved": self._reserved,
+                "reserved_pages": self._reserved,
+                "page_low_watermark": self._page_low_wm,
+                "page_high_watermark": self._page_high_wm,
                 "active": len(self._active),
-                "waiting": len(self._waiting),
+                "waiting": self._sched.depth_locked(),
                 "decode_steps": self._decode_steps,
                 "windows": self._windows,
                 "overlap": 1 if self._overlap_on else 0,
@@ -305,8 +428,26 @@ class PagedGenerationServer:
                 "decode_s": self._decode_s,
                 "page_accounting": self._cache.page_accounting(),
                 "spec_window_fallbacks": dict(self._spec_window_fallbacks),
+                **self._prefix_stats_locked(),
+                **self._sched.stats_locked(),
                 **self._spec_stats_locked(),
             }
+
+    def _prefix_stats_locked(self) -> dict:
+        return {
+            "prefix_entries": len(self._prefix_entry_nodes),
+            "prefix_hits": self._prefix_hits,
+            "prefix_lookups": self._prefix_lookups,
+            "prefix_tokens_saved": self._prefix_tokens_saved,
+            "prefix_bytes_saved": self._prefix_tokens_saved * (
+                self._page_bytes_locked() // self._cache.page_size),
+            "prefix_cow_copies": self._prefix_cow_copies,
+            "prefix_host_entries": len(self._prefix_host_nodes),
+            "prefix_host_bytes": self._prefix_host_bytes,
+            "prefix_demotions": self._prefix_demotions,
+            "prefix_promotions": self._prefix_promotions,
+            "prefix_evictions": dict(self._prefix_evictions),
+        }
 
     def _spec_stats_locked(self) -> dict:
         out: dict = {}
@@ -474,11 +615,16 @@ class PagedGenerationServer:
         return ServerClosed("server is shut down")
 
     def _start(self, prompt, n_new: int, timeout: float, sampling,
-               stream: bool, stop_token: int | None) -> _Request:
+               stream: bool, priority: str = "interactive",
+               deadline_ms: int | None = None,
+               stop_token: int | None = None) -> _Request:
         if not prompt or n_new < 1:
             raise ValueError("need a non-empty prompt and n_new >= 1")
         if stop_token is not None and stop_token < 0:
             raise ValueError("stop_token must be >= 0 (or None)")
+        self._sched.rank(priority)  # unknown classes fail fast
+        if deadline_ms is not None and deadline_ms < 1:
+            raise ValueError("deadline_ms must be >= 1")
         total = len(prompt) + n_new
         if total > self._cfg.max_seq:
             raise ValueError(
@@ -506,13 +652,46 @@ class PagedGenerationServer:
             stop_token=-1 if stop_token is None else int(stop_token),
             pages_reserved=pages_needed,
             stream=queue.SimpleQueue() if stream else None,
+            pclass=priority,
         )
         deadline = time.monotonic() + timeout
+        if deadline_ms is not None:
+            deadline = min(deadline, time.monotonic() + deadline_ms / 1000.0)
         with self._work:
             if self._closed or self._draining:
                 raise self._refusal()
-            # FIFO admission: only the head of the queue takes capacity.
-            self._waiting.append(req)
+            # Shed BEFORE parking: by the queue watermarks, then by the
+            # page low watermark at the arrival's marginal price (its
+            # private budget plus the lease units its shared prefix
+            # pages would newly pin).
+            shed = self._sched.shed_check_locked(priority, deadline_ms)
+            if shed is None:
+                self._prefix_lookups += 1
+                _, shared0, st0, _ = self._prefix_lookup(req.prompt)
+                shed = self._page_shed_locked(
+                    priority,
+                    self._admission_price_locked(pages_needed, shared0, st0))
+            if shed is not None:
+                hint = shed["retry_after_s"]
+                raise ServerOverloaded(
+                    f"request shed: {shed['reason']}; "
+                    f"{self._capacity_text_locked()}; queue depth "
+                    f"[{self._sched.depth_text_locked()}]"
+                    + (f"; retry after ~{hint:.1f}s" if hint is not None
+                       else ""),
+                    retry_after_s=hint,
+                )
+            # Ticketed admission: park on a per-class FIFO ticket and wait
+            # on the ticket's own condition; only the policy head takes
+            # capacity, and the decode loop may preempt a lower class for
+            # it at a boundary.
+            ticket = self._sched.enqueue_locked(req, priority, pages_needed)
+            req.ticket_no = ticket.no
+            if (not self._free_slots
+                    or self._reserved + pages_needed > self._pages_total):
+                # Actually parking: wake the decode loop so its next
+                # boundary can consider a preemption for this ticket.
+                self._work.notify_all()
             try:
                 while True:
                     if self._closed or self._draining:
@@ -521,39 +700,84 @@ class PagedGenerationServer:
                         raise RequestCancelled(
                             "request cancelled while queued for admission"
                         )
-                    if (self._waiting[0] is req and self._free_slots
-                            and self._reserved + pages_needed
-                            <= self._pages_total):
+                    # Re-priced each wake (the trie changes while the
+                    # ticket parks). A prefix-hot ticket may pass a head
+                    # starved for capacity, within the bypass cap.
+                    _, shared_w, st_w, _ = self._prefix_lookup(req.prompt)
+                    price = self._admission_price_locked(
+                        pages_needed, shared_w, st_w)
+                    ticket.hot = st_w > 0
+                    head = self._sched.head_locked()
+                    at_head = head is ticket
+                    if not at_head and ticket.hot:
+                        at_head = (
+                            head is not None
+                            and (not self._free_slots
+                                 or self._reserved + head.pages_needed
+                                 > self._pages_total)
+                            and self._sched.bypass_ok_locked(ticket)
+                        )
+                    if (at_head and self._free_slots
+                            and self._reserved + price <= self._pages_total):
                         break
                     remaining = deadline - time.monotonic()
                     if remaining <= 0:
                         raise ServerBusy(
-                            f"no capacity within the timeout "
-                            f"({len(self._active)} requests in flight, "
-                            f"{self._pages_total - self._reserved}/"
-                            f"{self._pages_total} pages unreserved, "
-                            f"{len(self._waiting)} queued)"
+                            "no page capacity within the timeout "
+                            f"({len(self._active)} requests in flight; "
+                            f"{self._capacity_text_locked()}; queue depth "
+                            f"[{self._sched.depth_text_locked()}])"
                         )
-                    self._work.wait(timeout=remaining)
+                    ticket.cond.wait(timeout=remaining)
+                self._sched.admit_locked(ticket)
+                ticket = None  # admitted: the finally must not remove it
             finally:
-                self._waiting.remove(req)
-                self._work.notify_all()  # the next head re-checks
+                if ticket is not None:
+                    self._sched.remove_locked(ticket)
+            req.admit_seq = self._sched.next_admit_seq_locked()
             slot = heapq.heappop(self._free_slots)
-            self._reserved += pages_needed
+            # Start the table on the cached prefix's read-only pages
+            # (promoting a deeper host-tier match first, best effort),
+            # evict registry pins (never the donor) until the free list
+            # covers the private budget, and COW a shared partial page
+            # before the suffix prefill writes into it.
+            donor, shared, shared_tokens, host_node = \
+                self._prefix_lookup(req.prompt)
+            if host_node is not None:
+                got = self._promote_host_locked(host_node, {donor})
+                if got is not None:
+                    donor, shared, shared_tokens = got
+            page = self._cache.page_size
+            partial = shared_tokens % page != 0
+            shared_full = tuple(shared[:-1] if partial else shared)
+            private = pages_needed - len(shared_full)
+            self._reserved += private
+            self._lease_take_locked(shared_full)
+            req.pages_reserved = private
+            req.shared_pages = shared_full
             try:
-                self._cache.admit(slot, len(req.prompt))
+                self._evict_prefixes_for(private, {donor})
+                self._cache.admit(slot, len(req.prompt), shared)
+                if partial and self._cache.cow_page(
+                        slot, len(shared) - 1) is not None:
+                    self._prefix_cow_copies += 1
             except Exception:
-                self._release_locked(slot, pages_needed)
+                self._release_locked(slot, private, req.shared_pages)
+                req.shared_pages = ()
                 raise
             self._prefilling += 1
-        # Chunked prefill, the lock held per chunk: the decode loop runs
-        # windows for in-flight requests between chunks (this slot is not
-        # active yet, so they never touch it).
+            if shared_tokens:
+                self._prefix_hits += 1
+                self._prefix_tokens_saved += shared_tokens
+        # Chunked prefill from the first token past the cached prefix,
+        # the lock held per chunk: the decode loop runs windows for
+        # in-flight requests between chunks (this slot is not active
+        # yet, so they never touch it).
         chunk = self._prefill_chunk or len(req.prompt)
         activated = False
         try:
             logits = None
-            off = 0
+            off = shared_tokens
             while off < len(req.prompt):
                 piece = req.prompt[off:off + chunk]
                 with self._work:
@@ -577,29 +801,328 @@ class PagedGenerationServer:
                 self._note_finish_candidate_locked(slot, req)
                 self._prefilling -= 1
                 activated = True
+                # The prefilled prompt's page-aligned prefixes are now
+                # reusable K/V: pin and register them.
+                self._register_prefixes(req.prompt,
+                                        self._cache.slot_pages(slot))
                 self._work.notify_all()  # wake the decode loop
         except Exception:
             with self._work:
                 if not activated:
                     self._prefilling -= 1
-                    self._release_locked(slot, req.pages_reserved)
+                    self._release_locked(slot, req.pages_reserved,
+                                         req.shared_pages)
+                    req.shared_pages = ()
             raise
         return req
 
+    # ---- capacity semantics ----------------------------------------------
+
+    def _capacity_text_locked(self) -> str:
+        """Page-capacity terms for refusal messages."""
+        free = self._pages_total - self._reserved
+        return f"{free}/{self._pages_total} pages unreserved"
+
+    def _page_shed_locked(self, priority: str,
+                          pages_needed: int) -> dict | None:
+        """Low-watermark page shed: None (park) or a shed record in the
+        scheduler's shape. The top class never page-sheds: preemption
+        frees pages for it."""
+        if not self._page_low_wm or self._sched.rank(priority) == 0:
+            return None
+        free_after = self._pages_total - self._reserved - pages_needed
+        if free_after >= self._page_low_wm * self._pages_total:
+            return None
+        self._sched.shed += 1
+        return {
+            "reason": (
+                f"free-page headroom below the low watermark "
+                f"({free_after} of {self._pages_total} pages would "
+                f"stay unreserved, watermark {self._page_low_wm:.0%})"
+            ),
+            "retry_after_s": None,
+        }
+
+    def _resume_pages_ok_locked(self, pages_needed: int) -> bool:
+        """High-watermark resume gate: swap back in only when that leaves
+        free-page headroom at or above the high watermark (hysteresis
+        against preempt/resume thrash)."""
+        if not self._page_high_wm:
+            return True
+        free_after = self._pages_total - self._reserved - pages_needed
+        return free_after >= self._page_high_wm * self._pages_total
+
+    # ---- the prefix registry (lock held for every method here) ----------
+
+    def _prefix_lookup(self, prompt: list[int]):
+        """``(donor_node, pages, shared_tokens, host_node)`` of the best
+        cached prefix, capped at ``len(prompt) - 1`` so at least one
+        token prefills and yields the first logits. Whole page-sized
+        blocks walk the trie; from the deepest node a PARTIAL last block
+        is matched against the children's entries by their longest
+        common prefix (the admission then copies that page on write).
+        ``host_node`` is the deepest host-tier entry strictly deeper
+        than the match."""
+        if not self._prefix_enabled:
+            return None, (), 0, None
+        page = self._cache.page_size
+        node, depth = 0, 0
+        best = (None, (), 0)
+        host = None
+        for k in range(1, (len(prompt) - 1) // page + 1):
+            block = tuple(prompt[(k - 1) * page:k * page])
+            child = self._prefix_nodes[node]["edges"].get(block)
+            if child is None:
+                break
+            node, depth = child, k
+            rec = self._prefix_nodes[node]
+            if rec["entry"] is not None:
+                rec["entry"]["last_used"] = time.monotonic()
+                best = (node, tuple(rec["entry"]["pages"]), k * page)
+            if rec["host"] is not None:
+                host = (node, k)
+        cap = len(prompt) - 1 - depth * page
+        if cap > 0:
+            tail = prompt[depth * page:(depth + 1) * page]
+            best_ov = 0
+            for block, child in self._prefix_nodes[node]["edges"].items():
+                entry = self._prefix_nodes[child]["entry"]
+                if entry is None:
+                    continue
+                ov = 0
+                for a, b in zip(tail, block):
+                    if a != b:
+                        break
+                    ov += 1
+                ov = min(ov, cap)
+                if ov > best_ov:
+                    best_ov = ov
+                    entry["last_used"] = time.monotonic()
+                    best = (child, tuple(entry["pages"][:depth + 1]),
+                            depth * page + ov)
+        host_node = None
+        if host is not None and host[1] * page > best[2]:
+            host_node = host[0]
+        return best[0], best[1], best[2], host_node
+
+    def _admission_price_locked(self, pages_needed: int, shared,
+                                shared_tokens: int) -> int:
+        """The marginal page cost of an arrival whose lookup matched
+        ``shared``: its private budget (a COW copy counts as private)
+        plus one lease unit per full shared page no live request leases
+        yet."""
+        page = self._cache.page_size
+        full = (shared[:-1] if shared and shared_tokens % page else shared)
+        new_leases = sum(1 for p in full if p not in self._lease)
+        return pages_needed - len(full) + new_leases
+
+    def _trie_child(self, node: int, block: tuple) -> int:
+        """The trie child for ``block`` under ``node``, created if
+        absent."""
+        child = self._prefix_nodes[node]["edges"].get(block)
+        if child is None:
+            child = self._prefix_next_id
+            self._prefix_next_id += 1
+            self._prefix_nodes[node]["edges"][block] = child
+            self._prefix_nodes[child] = {
+                "parent": (node, block), "edges": {}, "entry": None,
+                "host": None,
+            }
+        return child
+
+    def _node_tokens(self, node: int) -> list[int]:
+        """A trie node's full token path."""
+        blocks = []
+        cur = node
+        while cur != 0:
+            parent_id, block = self._prefix_nodes[cur]["parent"]
+            blocks.append(block)
+            cur = parent_id
+        return [t for block in reversed(blocks) for t in block]
+
+    def _register_prefixes(self, prompt: list[int],
+                           pages: list[int]) -> None:
+        """Pin every page-aligned prefix of committed tokens. Only full
+        pages covered by ``prompt`` register; later writes land past
+        them (a shared partial page is copied before its first write),
+        so registered pages are immutable."""
+        if not self._prefix_enabled:
+            return
+        page = self._cache.page_size
+        node = 0
+        for k in range(1, len(prompt) // page + 1):
+            block = tuple(prompt[(k - 1) * page:k * page])
+            node = self._trie_child(node, block)
+            if self._prefix_nodes[node]["entry"] is None:
+                held = list(pages[:k])
+                self._cache.retain_pages(held)
+                entry = {"pages": held, "last_used": time.monotonic()}
+                self._prefix_nodes[node]["entry"] = entry
+                self._prefix_entry_nodes[node] = entry
+                if self._prefix_nodes[node]["host"] is not None:
+                    # The live pages supersede the host copy (the bytes
+                    # are the same); keeping both would bill twice.
+                    self._drop_host_record_locked(node)
+
+    def _prune_prefix_upward(self, node: int) -> None:
+        """Drop edge-less, entry-less, host-less nodes upward."""
+        cur = node
+        while cur != 0:
+            rec = self._prefix_nodes[cur]
+            if (rec["entry"] is not None or rec["host"] is not None
+                    or rec["edges"]):
+                break
+            pid, block = rec["parent"]
+            del self._prefix_nodes[cur]
+            del self._prefix_nodes[pid]["edges"][block]
+            cur = pid
+
+    def _evict_prefix_node(self, node: int, cause: str) -> None:
+        """Unpin one pool entry, demoting its bytes to the host tier when
+        the budget allows, and prune upward; ``cause`` feeds the
+        eviction counters."""
+        entry = self._prefix_entry_nodes.pop(node)
+        self._prefix_evictions[cause] += 1
+        rec = self._prefix_nodes[node]
+        rec["entry"] = None
+        if self._prefix_host_budget and rec["host"] is None:
+            self._demote_prefix_locked(node, entry)
+        self._cache.release_pages(entry["pages"])
+        self._prune_prefix_upward(node)
+
+    def _demote_prefix_locked(self, node: int, entry: dict) -> None:
+        """Move an evicted entry's pages to the host tier as the verbatim
+        swap-out bytes. An oversize record drops; host-LRU eviction makes
+        room otherwise. Best effort: a failing copy drops the entry."""
+        try:
+            arrays = self._cache.swapout_pages(entry["pages"])
+        except Exception:
+            return
+        nbytes = sum(a.nbytes for a in arrays)
+        if nbytes > self._prefix_host_budget:
+            self._prefix_evictions["host_over"] += 1
+            return
+        while self._prefix_host_bytes + nbytes > self._prefix_host_budget:
+            lru = min(self._prefix_host_nodes,
+                      key=lambda n: self._prefix_host_nodes[n]["last_used"])
+            self._prefix_evictions["host_lru"] += 1
+            self._drop_host_record_locked(lru)
+        rec = {"arrays": arrays, "nbytes": nbytes,
+               "npages": len(entry["pages"]),
+               "last_used": entry["last_used"]}
+        self._prefix_nodes[node]["host"] = rec
+        self._prefix_host_nodes[node] = rec
+        self._prefix_host_bytes += nbytes
+        self._prefix_demotions += 1
+
+    def _drop_host_record_locked(self, node: int) -> None:
+        """Forget a host-tier record and un-bill its bytes."""
+        rec = self._prefix_host_nodes.pop(node)
+        self._prefix_host_bytes -= rec["nbytes"]
+        self._prefix_nodes[node]["host"] = None
+        self._prune_prefix_upward(node)
+
+    def _promote_host_locked(self, node: int, keep) -> tuple | None:
+        """Swap a host-tier entry back into fresh pinned pages at an
+        admission hit. Returns ``(node, pages, shared_tokens)``, or None
+        when the free list cannot cover it after an LRU sweep of colder
+        entries (never ``keep``): promotion never fails an admission."""
+        rec = self._prefix_host_nodes.get(node)
+        if rec is None:
+            return None
+        n = rec["npages"]
+        self._evict_prefixes_for(n, keep)
+        if (self._prefix_host_nodes.get(node) is not rec
+                or self._cache.free_pages() < n):
+            # The sweep's own demotions may have pushed this record out
+            # of the host budget (host LRU).
+            return None
+        pages = [self._cache.allocate_pinned_page() for _ in range(n)]
+        try:
+            self._cache.swapin_pages(pages, rec["arrays"])
+        except Exception:
+            self._cache.release_pages(pages)
+            raise
+        entry = {"pages": pages, "last_used": time.monotonic()}
+        self._prefix_nodes[node]["entry"] = entry
+        self._prefix_entry_nodes[node] = entry
+        self._prefix_nodes[node]["host"] = None
+        self._prefix_host_nodes.pop(node)
+        self._prefix_host_bytes -= rec["nbytes"]
+        self._prefix_promotions += 1
+        return node, tuple(pages), n * self._cache.page_size
+
+    def _evict_prefixes_for(self, needed_free: int, keep=()) -> None:
+        """Evict LRU registry entries (never one in ``keep``) until the
+        free list covers ``needed_free`` pages."""
+        while (self._cache.free_pages() < needed_free
+               and any(n not in keep for n in self._prefix_entry_nodes)):
+            victim = min(
+                (n for n in self._prefix_entry_nodes if n not in keep),
+                key=lambda n: self._prefix_entry_nodes[n]["last_used"],
+            )
+            self._evict_prefix_node(victim, "admission")
+
+    def _relieve_pool_pressure_locked(self, needed: int = 1) -> bool:
+        """The cache's callback when an allocation (admit, grow, COW)
+        finds the free list short: evict LRU registry pins (demoting to
+        the host tier when configured). True iff ``needed`` pages are
+        free now."""
+        while (self._prefix_entry_nodes
+               and self._cache.free_pages() < needed):
+            victim = min(
+                self._prefix_entry_nodes,
+                key=lambda n: self._prefix_entry_nodes[n]["last_used"],
+            )
+            self._evict_prefix_node(victim, "pressure")
+        return self._cache.free_pages() >= needed
+
     # ---- finishing -------------------------------------------------------
 
-    def _release_locked(self, slot: int, pages: int) -> None:
+    def _lease_take_locked(self, pages) -> None:
+        """One lease per shared page: the FIRST sharer books its
+        reservation unit, later sharers ride it."""
+        for p in pages:
+            n = self._lease.get(p, 0)
+            self._lease[p] = n + 1
+            if n == 0:
+                self._reserved += 1
+
+    def _lease_drop_locked(self, pages) -> None:
+        """A page's reservation unit frees with its LAST live sharer."""
+        for p in pages:
+            n = self._lease[p] - 1
+            if n:
+                self._lease[p] = n
+            else:
+                del self._lease[p]
+                self._reserved -= 1
+
+    def _release_locked(self, slot: int, pages: int,
+                        shared: tuple = ()) -> None:
+        """Return a slot, its PRIVATE reservation ``pages`` and the leases
+        of its ``shared`` prefix pages; wake the policy head."""
         if self._cache.is_admitted(slot):
             self._cache.release(slot)
         heapq.heappush(self._free_slots, slot)
         self._reserved -= pages
+        self._lease_drop_locked(shared)
+        self._sched.wake_head_locked()
         self._work.notify_all()
 
     def _finish_request_locked(self, slot: int, req: _Request) -> None:
         del self._active[slot]
         self._done_total += 1
         self._tokens_done_total += len(req.generated)
-        self._release_locked(slot, req.pages_reserved)
+        if self._prefix_enabled:
+            # Multi-turn reuse: the slot's committed K/V (prompt AND
+            # generated) registers before the release drops its pages,
+            # clamped to the committed length so drafts and a deferred
+            # stop's scribbles are never pinned.
+            tokens = (req.prompt + req.generated)[
+                :self._cache.slot_length(slot)]
+            self._register_prefixes(tokens, self._cache.slot_pages(slot))
+        self._release_locked(slot, req.pages_reserved, req.shared_pages)
         if req.stream is not None:
             req.stream.put(_STREAM_DONE)
         req.done.set()
@@ -666,7 +1189,7 @@ class PagedGenerationServer:
             if not req.cancelled:
                 continue
             del self._active[slot]
-            self._release_locked(slot, req.pages_reserved)
+            self._release_locked(slot, req.pages_reserved, req.shared_pages)
             req.error = RequestCancelled("request cancelled mid-decode")
             if req.stream is not None:
                 req.stream.put(req.error)
@@ -685,8 +1208,16 @@ class PagedGenerationServer:
         refuses new work: the pool state is no longer trustworthy."""
         self._poison = cause
         self._closed = True
-        self._fail_active_locked(ServerClosed(
-            f"serving pool poisoned by {cause!r}"))
+        error = ServerClosed(f"serving pool poisoned by {cause!r}")
+        self._fail_active_locked(error)
+        # A swapped-out request's pool is gone too.
+        for entry in self._sched.take_swapped_locked():
+            entry.arrays = ()
+            entry.req.error = error
+            if entry.req.stream is not None:
+                entry.req.stream.put(error)
+            entry.req.done.set()
+        self._sched.wake_all_locked()
         self._work.notify_all()
 
     # ---- the decode loop -------------------------------------------------
@@ -825,6 +1356,146 @@ class PagedGenerationServer:
                 req.next_token = int(emitted[slot, a])
                 self._note_finish_candidate_locked(slot, req)
 
+    # ---- scheduler boundary hooks ----------------------------------------
+
+    def _sched_attention_locked(self, *,
+                                ignore_inflight: bool = False) -> bool:
+        """Does the decode loop need a non-overlapped boundary for the
+        scheduler? True when the policy head could RESUME now, or is
+        starved and a preemptable victim exists. ``ignore_inflight`` is
+        the pipeline-collapse probe: every row still carries in-flight
+        window tokens, which the harvest a collapse implies reconciles,
+        so a victim is judged as it will be at the boundary."""
+        head = self._sched.head_locked()
+        if head is None:
+            return False
+        if (self._free_slots
+                and self._reserved + head.pages_needed <= self._pages_total):
+            return head.resume
+        return (self._sched.preemption_enabled
+                and self._pick_victim_locked(
+                    head, ignore_inflight=ignore_inflight) is not None)
+
+    def _swap_cost_locked(self, req: _Request, *,
+                          include_inflight: bool = False) -> int:
+        """Host bytes ``req``'s swap snapshot would take, priced before
+        the gather (``include_inflight``: as of the next boundary)."""
+        n_tokens = len(req.prompt) + len(req.generated)
+        if include_inflight:
+            n_tokens += req.inflight
+        n_pages = -(-n_tokens // self._cache.page_size)
+        return n_pages * self._page_bytes_locked()
+
+    def _page_bytes_locked(self) -> int:
+        """Host bytes one page takes (K + V, and the int8 pool's scale
+        slabs), priced from the P-page views, which leave out the sink."""
+        if self._swap_page_bytes is None:
+            st = self._cache.state
+            per = st.pool_k.nbytes + st.pool_v.nbytes
+            if st.scale_k is not None:
+                per += st.scale_k.nbytes + st.scale_v.nbytes
+            self._swap_page_bytes = -(-per // self._cache.num_pages)
+        return self._swap_page_bytes
+
+    def _pick_victim_locked(self, head, *,
+                            ignore_inflight: bool = False) -> int | None:
+        """The slot to preempt for ``head``, or None: a STRICTLY lower
+        class active request, the lowest class first, then the LATEST
+        admitted (least progress lost), whose snapshot fits the host
+        budget. A row with in-flight window or spec-window tokens is
+        never a victim (unless ``ignore_inflight``, the collapse probe)."""
+        head_rank = self._sched.rank(head.pclass)
+        best_slot, best_key = None, None
+        for slot, req in self._active.items():
+            if req.cancelled or (req.inflight and not ignore_inflight):
+                continue
+            rank = self._sched.rank(req.pclass)
+            if rank <= head_rank:
+                continue
+            if not self._sched.swap_fits_locked(self._swap_cost_locked(
+                    req, include_inflight=ignore_inflight)):
+                continue
+            key = (rank, req.admit_seq)
+            if best_key is None or key > best_key:
+                best_slot, best_key = slot, key
+        return best_slot
+
+    def _maybe_resume_locked(self) -> None:
+        """Re-admit swapped-out requests while the policy head is a
+        resume entry that fits (boundary only): the reservation first,
+        then ``admit`` and the verbatim swap-in. The host-held
+        ``next_token``/``generated`` and the positional key schedule
+        make the resumed stream the never-preempted one."""
+        while True:
+            head = self._sched.head_locked()
+            if (head is None or not head.resume
+                    or not self._free_slots
+                    or self._reserved + head.pages_needed > self._pages_total
+                    or not self._resume_pages_ok_locked(head.pages_needed)):
+                return
+            arrays = head.arrays
+            self._sched.pop_resume_locked(head)
+            req = head.req
+            slot = heapq.heappop(self._free_slots)
+            self._reserved += head.pages_needed
+            # Active BEFORE the device calls: if the swap-in faults, the
+            # poison path owns this waiter like any other.
+            self._active[slot] = req
+            self._note_finish_candidate_locked(slot, req)
+            self._cache.admit(slot, head.saved_len)
+            self._cache.swapin_pages(self._cache.slot_pages(slot), arrays)
+
+    def _maybe_preempt_locked(self) -> None:
+        """Swap out lower-class victims while the policy head is starved
+        (boundary only, nothing in flight): the victim's live pages,
+        ``ceil(len / page)`` of them as stored, go to host memory, its
+        slot and reservation free, and a resume entry under its ORIGINAL
+        ticket re-enters the queue. A spec window's unharvested
+        reservation blocks it."""
+        if not self._sched.preemption_enabled or self._cache.spec_pending():
+            return
+        while True:
+            head = self._sched.head_locked()
+            if head is None:
+                return
+            if (self._free_slots
+                    and self._reserved + head.pages_needed
+                    <= self._pages_total):
+                self._sched.wake_head_locked()
+                return
+            victim = self._pick_victim_locked(head)
+            if victim is None:
+                return
+            req = self._active[victim]
+            saved_len = len(req.prompt) + len(req.generated)
+            n_pages = -(-saved_len // self._cache.page_size)
+            # Pages grown past the live length hold no committed K/V.
+            ids = self._cache.slot_pages(victim)[:n_pages]
+            arrays = self._cache.swapout_pages(ids)
+            del self._active[victim]
+            # The snapshot copied the shared prefix pages too: the victim
+            # becomes self-contained, its leases dissolve and the resume
+            # reserves its full footprint.
+            full = req.pages_reserved + len(req.shared_pages)
+            self._release_locked(victim, req.pages_reserved,
+                                 req.shared_pages)
+            req.pages_reserved = full
+            req.shared_pages = ()
+            self._sched.record_swapout_locked(
+                req, req.pclass, req.ticket_no, full, saved_len, arrays)
+
+    def _fail_swapped_closed_locked(self) -> None:
+        """A hard close reaches the swap set as the active set: fail each
+        swapped-out waiter and free its host snapshot."""
+        for entry in self._sched.take_swapped_locked():
+            entry.arrays = ()
+            entry.req.error = ServerClosed(
+                "server shut down mid-request (swapped out)")
+            if entry.req.stream is not None:
+                entry.req.stream.put(entry.req.error)
+            entry.req.done.set()
+        self._sched.wake_all_locked()
+
     def _loop(self) -> None:
         step = (self._loop_once_overlap if self._overlap_on
                 else self._loop_once)
@@ -837,17 +1508,24 @@ class PagedGenerationServer:
         """One decode-loop iteration under the lock ("exit" ends it)."""
         with self._work:
             while (not self._active and not self._closed
+                   and not self._sched_attention_locked()
                    and not (self._draining and not self._prefilling)):
                 self._work.wait()
             if self._closed:
                 self._fail_active_locked(ServerClosed(
                     "server shut down mid-request"))
+                self._fail_swapped_closed_locked()
                 return "exit"
-            if self._draining and not self._active and not self._prefilling:
+            if (self._draining and not self._active and not self._prefilling
+                    and not self._sched.resume_pending_locked()):
                 return "exit"
             try:
                 self._sweep_cancelled_locked()
                 self._sweep_finished_locked()
+                # Scheduler boundary: resume swapped-out requests into
+                # freed capacity, then preempt for a starved head.
+                self._maybe_resume_locked()
+                self._maybe_preempt_locked()
                 if not self._active:
                     return "ran"
                 if (self._spec > 0
@@ -936,10 +1614,12 @@ class PagedGenerationServer:
         with self._work:
             while (not self._active and self._inflight is None
                    and not self._closed
+                   and not self._sched_attention_locked()
                    and not (self._draining and not self._prefilling)):
                 self._work.wait()
             if (self._draining and not self._active
-                    and self._inflight is None and not self._prefilling):
+                    and self._inflight is None and not self._prefilling
+                    and not self._sched.resume_pending_locked()):
                 return "exit"
             if self._closed:
                 # Hard close: abandon the in-flight window unread (the
@@ -950,12 +1630,17 @@ class PagedGenerationServer:
                         req.inflight -= adv
                 self._fail_active_locked(ServerClosed(
                     "server shut down mid-request"))
+                self._fail_swapped_closed_locked()
                 return "exit"
             t0 = time.perf_counter()
             try:
                 if self._inflight is None:
                     self._sweep_cancelled_locked()
                     self._sweep_finished_locked()
+                    # Preemption and resume join only here: nothing is in
+                    # flight and every row's tokens are reconciled.
+                    self._maybe_resume_locked()
+                    self._maybe_preempt_locked()
                     if not self._active:
                         return "ran"
                     self._boundary_dispatch_locked()
@@ -1030,13 +1715,15 @@ class PagedGenerationServer:
         window? Yes when a cancel must be honored, when a slot is active
         that the in-flight window never dispatched (a newcomer: it joins
         at a boundary, where its first token is host-known; the carry
-        row of a slot that sat out is garbage), or when stop finishes
-        wait for one."""
+        row of a slot that sat out is garbage), when stop finishes wait
+        for one, or when the scheduler's head could resume or has a
+        victim to preempt (the swap joins at a boundary)."""
         dispatched = {slot for slot, _, _ in prev["parts"]}
         for slot, req in self._active.items():
             if req.cancelled or slot not in dispatched:
                 return True
-        return self._stops_pending > 0
+        return (self._stops_pending > 0
+                or self._sched_attention_locked(ignore_inflight=True))
 
     def _dispatch_window_locked(self, first: bool) -> dict | None:
         """Enqueue one capped window for every active slot with budget

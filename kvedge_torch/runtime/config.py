@@ -14,12 +14,22 @@ same names and defaults, for the subset the ported payloads run:
                serving_window, serving_kv_dtype, serving_overlap
                ("auto" | "on" | "off"), serving_speculative (a draft
                length 0..16 or "auto"), serving_spec_window (0..64),
-               serving_spec_sampled_window (bool)
+               serving_spec_sampled_window (bool); the prefix cache:
+               serving_prefix_cache (bool, default true),
+               serving_prefix_host_mb, serving_prefix_persist (false
+               only: persistence is not ported); the admission
+               scheduler: serving_sched_policy ("strict" | "weighted" |
+               "fifo"), serving_sched_weights ("class=weight,..."),
+               serving_sched_max_queue_depth,
+               serving_sched_max_queue_wait_s,
+               serving_sched_swap_budget_mb, serving_page_low_watermark,
+               serving_page_high_watermark
     [status]   port, bind
 
 Any other section or key is REFUSED with its name, not ignored: a knob
-the port does not implement (the prefix cache, the scheduler, ...) would
-otherwise silently change nothing.
+the port does not implement (buckets, the journal, the SLO engine,
+tracing, the window autotune, ...) would otherwise silently change
+nothing.
 """
 
 from __future__ import annotations
@@ -62,7 +72,21 @@ _PAYLOAD_KEYS = {
     "serving_speculative": "serving_speculative",
     "serving_spec_window": "serving_spec_window",
     "serving_spec_sampled_window": "serving_spec_sampled_window",
+    "serving_prefix_cache": "serving_prefix_cache",
+    "serving_prefix_host_mb": "serving_prefix_host_mb",
+    "serving_prefix_persist": "serving_prefix_persist",
+    "serving_sched_policy": "serving_sched_policy",
+    "serving_sched_weights": "serving_sched_weights",
+    "serving_sched_max_queue_depth": "serving_sched_max_queue_depth",
+    "serving_sched_max_queue_wait_s": "serving_sched_max_queue_wait_s",
+    "serving_sched_swap_budget_mb": "serving_sched_swap_budget_mb",
+    "serving_page_low_watermark": "serving_page_low_watermark",
+    "serving_page_high_watermark": "serving_page_high_watermark",
 }
+# Fractions and seconds: a TOML integer reads as the float, as the
+# reference's float() does.
+_FLOAT_FIELDS = ("serving_sched_max_queue_wait_s",
+                 "serving_page_low_watermark", "serving_page_high_watermark")
 _STATUS_KEYS = {"port": "status_port", "bind": "status_bind"}
 
 
@@ -118,6 +142,32 @@ class RuntimeConfig:
     # rows advance one token a pass, drawn on the device); false sends
     # such a batch to the per-pass path, counted as a fallback.
     serving_spec_sampled_window: bool = True
+    # The prefix cache: completed prompts (and finished requests'
+    # generated tokens) register their page-aligned prefixes; a later
+    # prompt sharing one starts on those read-only pages, copies a shared
+    # partial page on write and prefills only its suffix. Evicted entries
+    # go to a host tier of serving_prefix_host_mb MB (0 = dropped).
+    serving_prefix_cache: bool = True
+    serving_prefix_host_mb: int = 0
+    # Prefix persistence across restarts is not ported: only false is
+    # accepted (the reference defaults it to true; the serve payload
+    # says so at boot).
+    serving_prefix_persist: bool = False
+    # The admission scheduler: "strict" admits the best class first
+    # (FIFO within one), "weighted" shares by serving_sched_weights,
+    # "fifo" ignores classes. The queue watermarks shed at submit (0 =
+    # off); a swap budget > 0 lets an interactive request preempt a batch
+    # one by swapping its KV pages to host memory.
+    serving_sched_policy: str = "strict"
+    serving_sched_weights: str = "interactive=4,batch=1"
+    serving_sched_max_queue_depth: int = 0
+    serving_sched_max_queue_wait_s: float = 0.0
+    serving_sched_swap_budget_mb: int = 0
+    # Free-page watermarks (fractions of the pool, 0 = off): below
+    # ``low`` unreserved headroom a batch arrival sheds; a swapped-out
+    # request resumes only at ``high`` or better.
+    serving_page_low_watermark: float = 0.0
+    serving_page_high_watermark: float = 0.0
     status_port: int = 8476
     status_bind: str = "0.0.0.0"
 
@@ -152,12 +202,103 @@ class RuntimeConfig:
                     f"PyTorch port; it reads {sorted(known)}"
                 )
             for key, value in table.items():
+                if (known[key] in _FLOAT_FIELDS and isinstance(value, int)
+                        and not isinstance(value, bool)):
+                    value = float(value)
                 fields[known[key]] = value
         cfg = cls(**fields)
         cfg.validate()
         return cfg
 
+    def sched_weights_dict(self) -> dict[str, float]:
+        """``serving_sched_weights`` ("class=weight,...") as a dict;
+        ValueError on a malformed entry or a weight <= 0."""
+        out: dict[str, float] = {}
+        for part in self.serving_sched_weights.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            name, sep, val = part.partition("=")
+            name = name.strip()
+            if not sep or not name:
+                raise ValueError(f"expected 'class=weight', got {part!r}")
+            weight = float(val.strip())
+            if weight <= 0:
+                raise ValueError(
+                    f"weight for {name!r} must be > 0, got {weight}")
+            out[name] = weight
+        return out
+
     def validate(self) -> None:
+        for name in ("serving_prefix_host_mb",
+                     "serving_sched_max_queue_depth",
+                     "serving_sched_swap_budget_mb"):
+            value = getattr(self, name)
+            if not isinstance(value, int) or isinstance(value, bool):
+                raise RuntimeConfigError(
+                    f"[payload] {name} must be an integer, got {value!r}")
+        for name in ("serving_sched_max_queue_wait_s",
+                     "serving_page_low_watermark",
+                     "serving_page_high_watermark"):
+            value = getattr(self, name)
+            if not isinstance(value, (int, float)) or isinstance(value,
+                                                                 bool):
+                raise RuntimeConfigError(
+                    f"[payload] {name} must be a number, got {value!r}")
+        for name in ("serving_sched_policy", "serving_sched_weights"):
+            if not isinstance(getattr(self, name), str):
+                raise RuntimeConfigError(
+                    f"[payload] {name} must be a string, got "
+                    f"{getattr(self, name)!r}")
+        for name in ("serving_page_low_watermark",
+                     "serving_page_high_watermark"):
+            if not 0.0 <= getattr(self, name) < 1.0:
+                raise RuntimeConfigError(
+                    f"[payload] {name} must be a fraction in [0, 1) "
+                    "(0 = off)")
+        if (self.serving_page_low_watermark
+                and self.serving_page_high_watermark
+                and self.serving_page_low_watermark
+                > self.serving_page_high_watermark):
+            raise RuntimeConfigError(
+                "[payload] serving_page_low_watermark must be <= "
+                "serving_page_high_watermark")
+        if not isinstance(self.serving_prefix_cache, bool):
+            raise RuntimeConfigError(
+                "[payload] serving_prefix_cache must be a boolean")
+        if not isinstance(self.serving_prefix_persist, bool):
+            raise RuntimeConfigError(
+                "[payload] serving_prefix_persist must be a boolean")
+        if self.serving_prefix_persist:
+            raise RuntimeConfigError(
+                "[payload] serving_prefix_persist = true is not supported "
+                "by the PyTorch port: prefix persistence is not ported "
+                "yet; set it to false")
+        if self.serving_prefix_host_mb < 0:
+            raise RuntimeConfigError(
+                "[payload] serving_prefix_host_mb must be >= 0 "
+                "(0 disables the host residency tier)")
+        if self.serving_sched_policy not in ("fifo", "strict", "weighted"):
+            raise RuntimeConfigError(
+                "[payload] serving_sched_policy must be 'fifo', "
+                "'strict' or 'weighted'")
+        try:
+            self.sched_weights_dict()
+        except ValueError as e:
+            raise RuntimeConfigError(
+                f"[payload] serving_sched_weights: {e}") from None
+        if self.serving_sched_max_queue_depth < 0:
+            raise RuntimeConfigError(
+                "[payload] serving_sched_max_queue_depth must be >= 0 "
+                "(0 = no depth watermark)")
+        if self.serving_sched_max_queue_wait_s < 0:
+            raise RuntimeConfigError(
+                "[payload] serving_sched_max_queue_wait_s must be >= 0 "
+                "(0 = no wait watermark)")
+        if self.serving_sched_swap_budget_mb < 0:
+            raise RuntimeConfigError(
+                "[payload] serving_sched_swap_budget_mb must be >= 0 "
+                "(0 = preemptive swap off)")
         for name in ("vocab", "d_model", "n_heads", "n_kv_heads", "n_layers",
                      "d_ff", "max_seq", "serving_slots", "serving_page_size",
                      "serving_pages", "serving_prefill_chunk",

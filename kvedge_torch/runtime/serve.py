@@ -10,7 +10,12 @@ serves through the continuous-batching server over one page pool (its
 ``models/decode.generate``, all its rows as one batch (or, for a
 one-row greedy request with ``"speculative": K``, through
 ``models/speculative.generate_speculative``), and refuses ``stream``,
-``priority`` and ``deadline_ms`` as the reference does. The paged
+``priority`` and ``deadline_ms`` as the reference does. On the paged
+backend ``priority`` (a class of the scheduler's, ``interactive`` by
+default) and ``deadline_ms`` go to the server's admission scheduler,
+which the ``serving_sched_*`` and ``serving_page_*_watermark`` knobs
+set, beside the prefix cache (``serving_prefix_cache``,
+``serving_prefix_host_mb``). The paged
 backend speculates server-wide instead (``serving_speculative``,
 ``serving_spec_window``, ``serving_spec_sampled_window``): a draft
 length > 0 runs the boot probe (``resolve_speculation``), which turns
@@ -27,12 +32,14 @@ request contract is the reference's::
 
 On the paged backend each row of a request is its own request into the
 shared page pool, submitted concurrently so rows (and other clients'
-rows) ride the same batched decode window. Token ids wrap modulo the
+rows) ride the same batched decode window, with the request's
+``priority`` and ``deadline_ms``. Token ids wrap modulo the
 vocabulary. Sampling (``temperature > 0``) is seeded: row r's key is
 ``fold_in(PRNGKey(seed), r)``, so the same request returns the same
-tokens. Errors map as the reference's: 400 for a malformed body, 503
-when capacity does not free up (or the server is closing), 500 for a
-failure. ``"stream": true`` answers newline-delimited JSON instead: one
+tokens. Errors map as the reference's: 400 for a malformed body or an
+unknown priority class, 503 when capacity does not free up, when the
+scheduler sheds the request (the refusal's text, with its retry hint)
+or when the server is closing, 500 for a failure. ``"stream": true`` answers newline-delimited JSON instead: one
 ``{"row": r, "token": t}`` record per token as it lands, rows
 interleaved, then ``{"done": true, "tokens": ..., "n_new": N,
 "restored_step": null}``; a failure after the 200 is a final
@@ -74,7 +81,6 @@ from kvedge_torch.runtime.train import restore_latest_params
 # Request-body ceiling: a token grid is small; anything bigger is refused
 # before json.loads.
 _MAX_GENERATE_BODY = 1 << 20
-_CLASSES = ("interactive", "batch")
 
 
 class GenerateUnavailable(RuntimeError):
@@ -249,13 +255,28 @@ class ServeRuntime:
                 self.weights, self.tcfg, slots=slots, pages=pages,
                 page_size=page_size,
                 prefill_chunk=cfg.serving_prefill_chunk,
+                prefix_cache=cfg.serving_prefix_cache,
+                prefix_host_mb=cfg.serving_prefix_host_mb,
                 window=cfg.serving_window, kv_dtype=cfg.serving_kv_dtype,
                 overlap=cfg.serving_overlap, device=self.device,
+                sched_policy=cfg.serving_sched_policy,
+                sched_weights=cfg.sched_weights_dict(),
+                sched_max_queue_depth=cfg.serving_sched_max_queue_depth,
+                sched_max_queue_wait_s=cfg.serving_sched_max_queue_wait_s,
+                sched_swap_budget_mb=cfg.serving_sched_swap_budget_mb,
+                page_low_watermark=cfg.serving_page_low_watermark,
+                page_high_watermark=cfg.serving_page_high_watermark,
                 speculative=spec_draft,
                 spec_window=(cfg.serving_spec_window if spec_draft > 0
                              else 0),
                 spec_sampled_window=cfg.serving_spec_sampled_window,
             )
+            if cfg.serving_prefix_cache:
+                print("[kvedge-serve] prefix persistence is not ported "
+                      "yet: the prefix cache starts empty and is not "
+                      "saved at shutdown (the reference's "
+                      "serving_prefix_persist defaults to true)",
+                      flush=True)
             if spec_draft > 0:
                 # Measure this card's verify pass and window before
                 # traffic: "auto" turns speculation off when windows beat
@@ -298,10 +319,7 @@ class ServeRuntime:
         if not self.paged:
             return self._serve_contiguous(tokens, n_new, temperature, top_p,
                                           seed, spec)
-        if priority not in _CLASSES:
-            raise ValueError(f"unknown priority class {priority!r} "
-                             f"(known: {list(_CLASSES)})")
-        timeout = 120.0 if deadline_ms is None else deadline_ms / 1000.0
+        timeout = 120.0
         prompts = [[t % self.tcfg.vocab for t in row] for row in tokens]
 
         def row_sampling(i: int):
@@ -311,12 +329,15 @@ class ServeRuntime:
 
         if stream:
             return {"_stream": self._stream(prompts, n_new, timeout,
-                                            row_sampling)}
+                                            row_sampling, priority,
+                                            deadline_ms)}
         rows: list = [None] * len(prompts)
 
         def one_row(i: int) -> None:
             rows[i] = self.server.submit(prompts[i], n_new, timeout=timeout,
-                                         sampling=row_sampling(i))
+                                         sampling=row_sampling(i),
+                                         priority=priority,
+                                         deadline_ms=deadline_ms)
 
         self._fan_out(len(prompts), one_row)
         return {"tokens": rows, "n_new": n_new,
@@ -362,7 +383,8 @@ class ServeRuntime:
         """Run ``fn(i)`` for every row on the bounded row pool, rows
         together so they ride the same decode windows; then raise the
         first real fault (500), else the first capacity or lifecycle
-        refusal as :class:`GenerateUnavailable` (503)."""
+        refusal (a shed included) as :class:`GenerateUnavailable` (503),
+        with its retry hint when it carries one."""
         errors: list = [None] * n_rows
 
         def guarded(i: int) -> None:
@@ -379,9 +401,15 @@ class ServeRuntime:
             if e is not None and e not in retriable:
                 raise e
         if retriable:
-            raise GenerateUnavailable(str(retriable[0])) from retriable[0]
+            e = retriable[0]
+            retry_after = getattr(e, "retry_after_s", None)
+            hint = ("" if retry_after is None
+                    else f" (retry after ~{retry_after:g}s)")
+            raise GenerateUnavailable(f"{e}{hint}") from e
 
-    def _stream(self, prompts, n_new: int, timeout: float, row_sampling):
+    def _stream(self, prompts, n_new: int, timeout: float, row_sampling,
+                priority: str = "interactive",
+                deadline_ms: int | None = None):
         """Admit every row and wait for its first token HERE, so a refusal
         is still a clean 503 before the 200 is committed; then return the
         generator that merges the rows' tokens as they land."""
@@ -391,7 +419,9 @@ class ServeRuntime:
         def prime(i: int) -> None:
             src = self.server.submit_stream(prompts[i], n_new,
                                             timeout=timeout,
-                                            sampling=row_sampling(i))
+                                            sampling=row_sampling(i),
+                                            priority=priority,
+                                            deadline_ms=deadline_ms)
             sources[i] = src
             firsts[i] = next(src)
 

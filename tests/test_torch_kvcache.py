@@ -160,7 +160,7 @@ def test_host_bookkeeping_and_errors():
         cache.admit(1, 9)
     acct = cache.page_accounting()
     assert acct["free"] + acct["live"] == acct["pages_total"]
-    assert acct["free_dup"] == acct["free_live"] == acct["owned_dup"] == 0
+    assert acct["free_dup"] == acct["free_live"] == acct["neg_refs"] == 0
     cache.release(0)
     assert cache.free_pages() == 5 and not cache.is_admitted(0)
     with pytest.raises(PagedCacheError):

@@ -104,7 +104,7 @@ def test_server_tokens_match_reference_server(models):
                         window=4)
     tserver = PagedGenerationServer(tparams, tcfg, slots=2, pages=24,
                                     page_size=4, prefill_chunk=4, window=4,
-                                    device="cpu")
+                                    prefix_cache=False, device="cpu")
     try:
         def jsub(prompt, n_new, s):
             sampling = None
@@ -329,8 +329,8 @@ def test_config_reads_the_reference_toml_names_and_refuses_the_rest():
             f'[payload]\nserving_overlap = "{value}"\n'
         ).serving_overlap == value
     for text, match in [
-        ('[payload]\nserving_prefix_cache = true\n',
-         "serving_prefix_cache"),
+        ('[payload]\nserving_prefix_persist = true\n',
+         "serving_prefix_persist"),
         ('[payload]\nserving_window = "auto"\n', "serving_window"),
         ('[mesh]\naxes = {data = 1}\n', "mesh"),
         ('[model]\npreset = "huge"\n', "preset"),

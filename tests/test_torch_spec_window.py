@@ -336,7 +336,8 @@ def test_server_tokens_do_not_depend_on_speculation(models, plain_burst, kw):
     ``generate``'s."""
     _, tcfg, _, tparams = models
     server = PagedGenerationServer(tparams, tcfg, slots=3, pages=64,
-                                   page_size=4, window=4, device="cpu", **kw)
+                                   page_size=4, window=4, prefix_cache=False,
+                                   device="cpu", **kw)
     try:
         got = _burst(server)
         stats = server.stats()
