@@ -40,9 +40,16 @@ imports nothing of JAX. Phases, each printing one JSON line:
             = "auto"`` (the main path) and once with "off", each after a
             greedy and a sampled warm-up request that capture its window
             graphs, the prefix cache off (it resubmits requests and
-            compares bf16 tokens; phase 6c measures the cache). Launch
+            compares bf16 tokens; phase 6c measures the cache), every
+            prefill chunk a replayed graph of its (bucket, length). The
+            burst's admission order is fixed: each request is sent once
+            the rows before it hold admission tickets. Launch
             counts are zeroed just before each burst and
-            read just after it. Checks: response shape, launches >=
+            read just after it. ``ms_per_decode_step`` is the device's
+            (CUDA events around each window replay; the serial loop's
+            single steps run eagerly and are not timed), the host spans
+            beside it (``prefill_s``, ``decode_s``) under their own
+            names. Checks: response shape, launches >=
             n_layers x decode steps, the two bursts' tokens identical, more
             than zero windows dispatched at depth 1 (while another was in
             flight) with the overlap on, a sampled request resubmitted
@@ -121,6 +128,38 @@ imports nothing of JAX. Phases, each printing one JSON line:
             Prints the swap-outs' and swap-ins' pages, bytes, ms and
             GB/s (the device drained around each), and the interactive
             request's latency preempting and with the swap budget at 0.
+6e. prefill_graphs  prefill chunks as replayed CUDA graphs at the
+            flagship width (8 layers): chunks (slot, offset, length) (0,
+            0, 64), (0, 64, 37), (1, 0, 990) and the off-grid suffix (1,
+            990, 40), at bf16, fp32 and over an int8 pool: each chunk's
+            logits, both pools and the scale slabs equal the same chunks
+            run eagerly bit for bit; then two threads prefill 48-token
+            chunks into two slots while a 64-step window is in flight,
+            both replays before either pick (a barrier), and each first
+            token must equal its run alone.
+6f. buckets  ``serving_min_bucket = 1`` at 16 slots, window 16: a
+            solo request, 16 concurrent ones in a fixed admission order,
+            a drain request after which the bucket must be back at 1;
+            steps up and down counted; the same traffic pinned to 16
+            rows. fp32 (2 layers): bucketed tokens == pinned (a hard
+            check); bf16 (8 layers): the agreement, printed; the solo
+            request's device ms a decode step at bucket 1 and pinned 16;
+            graphs, capture seconds and B1 launches per replay for each
+            bucket (n_layers a step at every one); the kernels ``x @ w``
+            launches at M = 1..16. Each runtime first passes the burst
+            and the drain on shifted token ids (capturing every
+            bucket's graphs), then runs the measured burst. Then a pool
+            pinned to 16 rows whose ``serving_hbm_budget_mb`` buys one
+            worst-case request (16 MiB, 128 fp32 pages at 2 layers):
+            the burst's reservations must exceed it (admissions wait on
+            pages; their queue waits printed) and the tokens equal the
+            pinned run's.
+6g. persist  the serve payload with the prefix cache and
+            ``serving_prefix_persist`` on (fp32, 8 layers, 512 pages, a
+            state directory of its own): a 1024-token request cold, a
+            timed dump, close; a fresh runtime re-pins the file at boot
+            (timed): entries dumped == loaded, the same request is a hit
+            with the cold tokens; the file's bytes.
 7. timings  CUDA-event times at the serve phase's decode shapes (L2
             flushed before each launch): the kernel, its plain version,
             ``F.scaled_dot_product_attention`` over the gathered K/V as a
@@ -499,7 +538,12 @@ def check_response(doc, req, vocab):
               "token ids in range")
 
 
-def run_burst(url, reqs):
+def run_burst(url, reqs, queued=None):
+    """POST every request of ``reqs`` from a thread of its own; returns
+    (responses, latencies, wall). With ``queued`` (a callable reading the
+    server's count of requests that took an admission ticket), request i
+    is sent only once every row before it holds a ticket, so the rows
+    reach the scheduler, which admits in ticket order, in list order."""
     out = [None] * len(reqs)
     lat = [0.0] * len(reqs)
 
@@ -511,8 +555,15 @@ def run_burst(url, reqs):
     threads = [threading.Thread(target=one, args=(i,))
                for i in range(len(reqs))]
     t0 = time.perf_counter()
-    for t in threads:
+    base = queued() if queued is not None else 0
+    rows = 0
+    for t, req in zip(threads, reqs):
         t.start()
+        rows += len(req["tokens"])
+        while queued is not None and queued() < base + rows:
+            check(t.is_alive() or queued() >= base + rows,
+                  "a request ended before it was queued")
+            time.sleep(0.0005)
     for t in threads:
         t.join(timeout=900)
         check(not t.is_alive(), "a request never returned")
@@ -625,9 +676,10 @@ def phase_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
 def serve_burst(torch, np, pa, serve, ServeConfig, overlap, device, preset,
                 max_seq, prefix_cache=False):
     """One serve runtime with ``serving_overlap = overlap``: warm-up
-    requests that capture its window graphs, then the burst with B1's
-    count zeroed just before and read just after. Returns (the burst's
-    doc, its responses, the runtime, still open)."""
+    requests that capture its window graphs, a first burst that captures
+    the prefill graphs of its chunk lengths, then the measured burst with
+    B1's count zeroed just before and read just after. Returns (the
+    measured burst's doc, its responses, the runtime, still open)."""
     # The serve phase keeps the prefix cache off: it resubmits requests
     # and compares bf16 tokens, which a suffix-only prefill may round
     # apart (the prefix phase measures the cache; tools/serve_ab.py times
@@ -636,6 +688,7 @@ def serve_burst(torch, np, pa, serve, ServeConfig, overlap, device, preset,
                       serving_overlap=overlap, serving_slots=4,
                       serving_page_size=16, serving_prefill_chunk=64,
                       serving_window=64, serving_prefix_cache=prefix_cache,
+                      serving_prefix_persist=False,
                       state_dir=SEEDED_STATE_DIR)
     rt = serve.ServeRuntime(cfg, device=device, dtype="bfloat16", seed=0,
                             host="127.0.0.1", port=0)
@@ -649,14 +702,49 @@ def serve_burst(torch, np, pa, serve, ServeConfig, overlap, device, preset,
             check(post(url, warm)[0] == 200, "warm-up request")
         graphs = rt.server._cache.graph_stats()
         reqs = serve_requests(np, vocab)
-        stats0 = rt.server.stats()
-        pa.paged_decode_attention.launches = 0
-        results, lat, wall = run_burst(url, reqs)
-        launches = pa.paged_decode_attention.launches
-        stats = rt.server.stats()
+
+        def measured(burst):
+            stats0 = rt.server.stats()
+            pa.paged_decode_attention.launches = 0
+            # A fixed admission order: each request is sent once the rows
+            # before it hold their tickets (the two-row request's rows
+            # queue together, in either order).
+            results, lat, wall = run_burst(
+                url, burst, queued=lambda: rt.server.requests_queued)
+            launches = pa.paged_decode_attention.launches
+            if device == "cuda":
+                torch.cuda.synchronize()
+            return results, lat, wall, launches, stats0, rt.server.stats()
+
+        # The first burst, the requests with every token id shifted (the
+        # same lengths, no prefix shared with the measured burst), meets
+        # chunk lengths the warm-ups did not and captures their prefill
+        # graphs, with the server lock held; the measured burst replays
+        # them all.
+        first = measured([{**r, "tokens": [[(t + 104729) % vocab
+                                            for t in row]
+                                           for row in r["tokens"]]}
+                          for r in reqs])
+        graphs_first = rt.server._cache.graph_stats()
+        results, lat, wall, launches, stats0, stats = measured(reqs)
+        f0, f1 = first[4], first[5]
+        first_doc = {
+            "wall_s": first[2],
+            "decode_tokens_per_s": sum(r["n_new"] * len(r["tokens"])
+                                       for r in reqs) / first[2],
+            "prefill_s": f1["prefill_s"] - f0["prefill_s"],
+            "prefill_device_s": (f1["prefill_device_s"]
+                                 - f0["prefill_device_s"]),
+            "prefill_graphs_captured": (graphs_first["prefill_graphs"]
+                                        - graphs["prefill_graphs"]),
+            "prefill_capture_s": (graphs_first["prefill_capture_s"]
+                                  - graphs["prefill_capture_s"]),
+        }
         steps = stats["decode_steps"] - stats0["decode_steps"]
         decode_s = stats["decode_s"] - stats0["decode_s"]
         prefill_s = stats["prefill_s"] - stats0["prefill_s"]
+        decode_dev = stats["decode_device_s"] - stats0["decode_device_s"]
+        prefill_dev = stats["prefill_device_s"] - stats0["prefill_device_s"]
         for (code, doc), req in zip(results, reqs):
             check(code == 200, f"HTTP {code}: {doc}")
             check_response(doc, req, vocab)
@@ -674,13 +762,23 @@ def serve_burst(torch, np, pa, serve, ServeConfig, overlap, device, preset,
             "windows_at_depth1": (stats["overlap_depth1_windows"]
                                   - stats0["overlap_depth1_windows"]),
             "kernel_launches": launches,
+            "admission_order": "fixed: each request sent once the rows "
+                               "before it hold admission tickets",
+            # Host spans: prefill_s holds each chunk's call and the first
+            # token's pick (its wait on the device too); decode_s the
+            # loop's dispatch-to-harvest iterations.
             "decode_s": decode_s, "prefill_s": prefill_s,
-            "ms_per_decode_step": decode_s / steps * 1e3,
+            # Device seconds in window and prefill-chunk graph replays
+            # (CUDA events around each).
+            "decode_device_s": decode_dev, "prefill_device_s": prefill_dev,
+            "ms_per_decode_step": decode_dev / steps * 1e3,
+            "host_ms_per_decode_step": decode_s / steps * 1e3,
             "launches_per_step": launches / steps, "wall_s": wall,
             "decode_tokens_per_s": gen_tokens / wall,
             "latency_p50_s": float(np.percentile(lat_sorted, 50)),
             "latency_p99_s": float(np.percentile(lat_sorted, 99)),
             "latencies_s": lat,
+            "first_burst": first_doc,
             "graphs_after_warmup": graphs,
             "graphs_after_burst": rt.server._cache.graph_stats(),
             "ok": True,
@@ -709,9 +807,11 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
         serve_doc["tokens_equal_overlap_off"] = same
         serve_doc["overlap_off"] = {k: off_doc[k] for k in (
             "decode_tokens_per_s", "latency_p50_s", "latency_p99_s",
-            "ms_per_decode_step", "decode_steps", "windows",
-            "windows_at_depth1", "kernel_launches", "launches_per_step",
-            "wall_s", "decode_s", "prefill_s", "latencies_s")}
+            "ms_per_decode_step", "host_ms_per_decode_step",
+            "decode_steps", "windows", "windows_at_depth1",
+            "kernel_launches", "launches_per_step", "wall_s", "decode_s",
+            "prefill_s", "decode_device_s", "prefill_device_s",
+            "latencies_s", "first_burst")}
         emit(serve_doc)
         check(same, "the burst's tokens differ between serving_overlap "
               "'auto' and 'off'")
@@ -929,7 +1029,8 @@ def spec_cfg(ServeConfig, preset, max_seq, **kw):
     base = dict(preset=preset, max_seq=max_seq, payload_serving="paged",
                 serving_slots=4, serving_page_size=16,
                 serving_prefill_chunk=64, serving_window=64,
-                serving_prefix_cache=False, state_dir=SEEDED_STATE_DIR)
+                serving_prefix_cache=False, serving_prefix_persist=False,
+                state_dir=SEEDED_STATE_DIR)
     return ServeConfig(**{**base, **kw})
 
 
@@ -1169,7 +1270,8 @@ def share_cfg(ServeConfig, preset, max_seq, **kw):
     base = dict(preset=preset, max_seq=max_seq, payload_serving="paged",
                 serving_slots=4, serving_page_size=16,
                 serving_prefill_chunk=64, serving_window=SHARE_WINDOW,
-                serving_overlap="auto", state_dir=SEEDED_STATE_DIR)
+                serving_overlap="auto", serving_prefix_persist=False,
+                state_dir=SEEDED_STATE_DIR)
     return ServeConfig(**{**base, **kw})
 
 
@@ -1262,6 +1364,8 @@ def run_prefix_traffic(np, pa, serve, cfg, device, dtype, n_new=0):
         "burst_latency_p99_s": float(np.percentile(lat, 99)),
         "follow_up_s": follow_s,
         "prefill_s": main["prefill_s"] - stats0["prefill_s"],
+        "prefill_device_s": (main["prefill_device_s"]
+                             - stats0["prefill_device_s"]),
         "decode_s": main["decode_s"] - stats0["decode_s"],
         "decode_steps": steps, "b1_launches": launches,
         "graphs": graphs["graphs"], "capture_s": graphs["capture_s"],
@@ -1558,6 +1662,456 @@ def phase_contention(torch, np, pa, serve, ServeConfig, device="cuda",
     emit(doc)
     if device == "cuda":
         torch.cuda.empty_cache()
+    return doc
+
+
+# ---- phase 6e: prefill_graphs -------------------------------------------
+
+def phase_prefill_graphs(torch, np, kvc, ttr, params_from_numpy,
+                         ServeConfig, device="cuda", preset="flagship",
+                         max_seq=2048, n_layers=8):
+    """Prefill chunks as replayed CUDA graphs against the same chunks run
+    eagerly, bit for bit (logits and pools), at bf16, fp32 and over an
+    int8 pool with its scale slabs; then two threads prefilling chunks of
+    one length into two slots while a window is in flight, each picking
+    its first token in a later lock hold: each must get its run alone's
+    token (the graph's static logits are shared by every chunk of that
+    length)."""
+
+    class EagerCache(kvc.PagedKVCache):
+        def prefill_chunk(self, params, slot, tokens, offset):
+            ids = torch.as_tensor(np.asarray(tokens, np.int64),
+                                  device=self.device)
+            return kvc._paged_prefill(params, self.state, ids, slot,
+                                      self.cfg, offset)
+
+    rng = np.random.default_rng(51)
+    # (slot, offset, length): a 64-token chunk on the grid, the prompt's
+    # remainder, then a 990-token chunk and an off-grid suffix at 990 (a
+    # prefix hit's: two prompts of the prefix phase are cut there).
+    lens = {0: 101, 1: 1030}
+    chunks = ((0, 0, 64), (0, 64, 37), (1, 0, 990), (1, 990, 40))
+    docs = []
+    for dtype, kv_dtype in (("bfloat16", ""), ("float32", ""),
+                            ("bfloat16", "int8")):
+        cfg = ServeConfig(preset=preset, max_seq=max_seq,
+                          n_layers=n_layers).model_config(dtype)
+        params = params_from_numpy(ttr.init_params(0, cfg), cfg, device)
+        prompts = {s: rng.integers(0, cfg.vocab, n).tolist()
+                   for s, n in lens.items()}
+        caches = []
+        for cls in (kvc.PagedKVCache, EagerCache):
+            cache = cls(cfg, slots=4, pages=96, page_size=16,
+                        kv_dtype=kv_dtype, device=device)
+            for s, n in lens.items():
+                cache.admit(s, n)
+            caches.append(cache)
+        graph, eager = caches
+        for s, off, n in chunks:
+            ids = prompts[s][off:off + n]
+            got = graph.prefill_chunk(params, s, ids, off)
+            want = eager.prefill_chunk(params, s, ids, off)
+            same = torch.equal(got, want) and all(
+                torch.equal(a, b) for a, b in zip(graph._slabs(),
+                                                  eager._slabs()))
+            check(same, f"{dtype} {kv_dtype or 'pool'} chunk ({s}, {off}, "
+                  f"{n}): the graph prefill differs from the eager one")
+        stats = graph.graph_stats()
+        # A CPU rehearsal runs the chunks eagerly: no graph.
+        want_lengths = (sorted({n for _, _, n in chunks})
+                        if device == "cuda" else [])
+        check(stats["prefill_lengths"] == want_lengths,
+              f"prefill graphs {stats['prefill_lengths']}")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        docs.append({"dtype": dtype, "kv_dtype": kv_dtype or dtype,
+                     "chunks_compared": len(chunks),
+                     "graph_equals_eager": True,
+                     "prefill_graphs": stats["prefill_graphs"],
+                     "prefill_capture_s": stats["prefill_capture_s"],
+                     "prefill_lengths": stats["prefill_lengths"],
+                     "prefill_device_s": graph.device_seconds()["prefill"]})
+        del caches, graph, eager, params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    # The shared static output: slot 0 decodes a window in flight while
+    # two threads prefill 48-token prompts into slots 1 and 2; both
+    # replays run before either pick (a barrier), so a chunk's logits
+    # read from the graph's buffer would be the other thread's.
+    cfg = ServeConfig(preset=preset, max_seq=max_seq,
+                      n_layers=n_layers).model_config("bfloat16")
+    params = params_from_numpy(ttr.init_params(0, cfg), cfg, device)
+    ids = {s: rng.integers(0, cfg.vocab, 48).tolist() for s in (1, 2)}
+    lead = rng.integers(0, cfg.vocab, 101).tolist()
+    alone = {}
+    for s in (1, 2):
+        cache = kvc.PagedKVCache(cfg, slots=4, pages=96, page_size=16,
+                                 device=device)
+        cache.admit(s, 48)
+        alone[s] = int(cache.prefill_chunk(params, s, ids[s], 0).argmax())
+        del cache
+    cache = kvc.PagedKVCache(cfg, slots=4, pages=96, page_size=16,
+                             device=device)
+    cache.admit(0, len(lead))
+    pend = np.zeros(4, np.int64)
+    pend[0] = int(cache.prefill_chunk(params, 0, lead, 0).argmax())
+    for s in (1, 2):
+        cache.admit(s, 48)
+    active = np.array([True, False, False, False])
+    lock = threading.Lock()
+    barrier = threading.Barrier(2)
+    got, errors = {}, []
+
+    with lock:
+        handle = cache.dispatch_window(params, pend, 64, active=active)
+
+    def one(s):
+        try:
+            with lock:
+                logits = cache.prefill_chunk(params, s, ids[s], 0)
+            barrier.wait(timeout=120)
+            with lock:
+                got[s] = int(logits.argmax())
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(s,)) for s in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    block = cache.harvest_window(handle)
+    check(not errors, f"race threads failed: {errors}")
+    race = {"first_tokens": got, "alone": alone,
+            "window_in_flight_steps": int(block.shape[0] - 2),
+            "equal_to_alone": got == alone}
+    check(got == alone, f"same-length chunks from two threads: {race}")
+    doc = {"phase": "prefill_graphs", "model": preset, "n_layers": n_layers,
+           "chunks": chunks, "per_dtype": docs, "race": race, "ok": True}
+    emit(doc)
+    del cache, params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return doc
+
+
+# ---- phase 6f: buckets --------------------------------------------------
+
+BUCKET_SLOTS = 16
+
+
+def bucket_requests(np, vocab):
+    """One request, then 16 concurrent ones (prompts 8-400, n_new 24-96),
+    then a request that drains the batch back to one row."""
+    rng = np.random.default_rng(1616)
+
+    def req(n, m):
+        return {"tokens": [rng.integers(0, vocab, n).tolist()], "n_new": m}
+
+    solo = req(100, 64)
+    burst = [req(n, m) for n, m in zip(
+        (8, 40, 400, 120, 64, 300, 17, 250, 90, 33, 200, 150, 64, 380, 5,
+         128), (64, 32, 48, 96, 24, 64, 80, 40, 56, 72, 32, 48, 96, 24, 64,
+                40))]
+    drain = req(40, 48)
+    return solo, burst, drain
+
+
+def bucket_run(np, torch, serve, cfg, device, dtype, monitor=False):
+    """One runtime: a warm-up, the solo request, a first pass of the
+    burst and the drain on shifted token ids (capturing each bucket's
+    graphs), then the 16-request burst in a fixed admission order and
+    the drain request, after which the bucket must step back to its
+    smallest. Returns the tokens and the run's numbers (the solo
+    request's device ms a decode step, steps up and down, graphs and
+    capture seconds per bucket; with ``monitor``, the most requests seen
+    waiting for admission while a slot was free during the measured
+    burst)."""
+    rt = serve.ServeRuntime(cfg, device=device, dtype=dtype, seed=0,
+                            host="127.0.0.1", port=0)
+    try:
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        solo, burst, drain = bucket_requests(np, rt.tcfg.vocab)
+        warm_up(url)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        s0 = rt.server.stats()
+        code, d_solo = post(url, solo)
+        check(code == 200, f"solo request: HTTP {code}")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        s_solo = rt.server.stats()
+
+        # A first pass of the burst and the drain, every token id shifted
+        # (the same lengths): it steps through every bucket and captures
+        # its graphs; the measured burst then replays them.
+        def shifted(req):
+            return {**req, "tokens": [[(t + 104729) % rt.tcfg.vocab
+                                       for t in row]
+                                      for row in req["tokens"]]}
+
+        cold = run_burst(url, [shifted(r) for r in burst],
+                         queued=lambda: rt.server.requests_queued)
+        check(all(code == 200 for code, _ in cold[0]), "a request failed")
+        check(post(url, shifted(drain))[0] == 200, "drain request")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        s1 = rt.server.stats()
+        g1 = rt.server._cache.graph_stats()
+        waits = []
+        stop = threading.Event()
+
+        def watch():
+            while not stop.wait(0.005):
+                st = rt.server.stats()
+                if st["waiting"] and st["active"] < cfg.serving_slots:
+                    waits.append(st["waiting"])
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        if monitor:
+            watcher.start()
+        results, lat, wall = run_burst(
+            url, burst, queued=lambda: rt.server.requests_queued)
+        stop.set()
+        if monitor:
+            watcher.join()
+        s2 = rt.server.stats()
+        g2 = rt.server._cache.graph_stats()
+        code, d_drain = post(url, drain)
+        check(code == 200, f"drain request: HTTP {code}")
+        deadline = time.monotonic() + 30
+        while rt.server._cache.bucket > rt.server._cache.bucket_for(0):
+            check(time.monotonic() < deadline, "the bucket never stepped "
+                  "back down after the burst drained")
+            time.sleep(0.01)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        st = rt.server.stats()
+        graphs = rt.server._cache.graph_stats()
+        pages_total = st["pages_total"]
+    finally:
+        rt.close()
+    for (code, doc), req in zip(results, burst):
+        check(code == 200, f"HTTP {code}: {doc}")
+        check_response(doc, req, rt.tcfg.vocab)
+    steps = s_solo["decode_steps"] - s0["decode_steps"]
+    tokens = [d_solo["tokens"]] + [d["tokens"] for _, d in results] + \
+        [d_drain["tokens"]]
+    return tokens, {
+        "dtype": dtype, "n_layers": rt.tcfg.n_layers,
+        "min_bucket": cfg.serving_min_bucket, "pages_total": pages_total,
+        "solo_decode_steps": steps,
+        "solo_device_ms_per_decode_step": (
+            (s_solo["decode_device_s"] - s0["decode_device_s"])
+            / steps * 1e3),
+        "first_burst_wall_s": cold[2],
+        "burst_wall_s": wall,
+        # Graphs the measured burst still had to capture: a (bucket,
+        # length) or (bucket, W) the first pass did not meet.
+        "burst_captures": {
+            k: g2[k] - g1[k] for k in ("graphs", "capture_s",
+                                       "prefill_graphs",
+                                       "prefill_capture_s")},
+        "burst_decode_tokens_per_s": sum(r["n_new"] for r in burst) / wall,
+        "burst_latency_p50_s": float(np.percentile(lat, 50)),
+        "burst_latency_p99_s": float(np.percentile(lat, 99)),
+        "burst_device_ms_per_decode_step": (
+            (s2["decode_device_s"] - s1["decode_device_s"])
+            / max(1, s2["decode_steps"] - s1["decode_steps"]) * 1e3),
+        "bucket_steps_up": st["bucket_steps_up"],
+        "bucket_steps_down": st["bucket_steps_down"],
+        "bucket_after_drain": st["bucket"],
+        "max_waiting_with_a_free_slot": max(waits, default=0),
+        # The measured burst's admission waits, by the scheduler's
+        # histogram edges (ms).
+        "burst_queue_waits": {
+            "edges_ms": s2["sched_queue_wait_ms_interactive"]["edges"],
+            "counts": [b - a for a, b in zip(
+                s1["sched_queue_wait_ms_interactive"]["counts"],
+                s2["sched_queue_wait_ms_interactive"]["counts"])]},
+        "graphs": {k: graphs[k] for k in (
+            "graphs", "capture_s", "prefill_graphs", "prefill_capture_s",
+            "prefill_lengths")},
+        "per_bucket": graphs["per_bucket"],
+    }
+
+
+def matmul_kernels(torch, device, d_model, dtype_name, ms):
+    """The kernels ``x @ w`` launches for x [M, d_model] at each M of
+    ``ms`` (the decode's products at a bucket's rows), by profiled name."""
+    dt = getattr(torch, dtype_name)
+    w = torch.randn(d_model, 3 * d_model, device=device, dtype=dt)
+    stream = torch.cuda.Stream()
+    out = {}
+    for m in ms:
+        x = torch.randn(m, d_model, device=device, dtype=dt)
+        out[m] = device_kernels(torch, lambda x=x: x @ w, stream)
+    return out
+
+
+def phase_buckets(torch, np, pa, serve, ServeConfig, device="cuda",
+                  preset="flagship", max_seq=2048):
+    """The bucketed device batch at 16 slots, ``serving_min_bucket = 1``,
+    window 16: one request, 16 concurrent ones, a drain; against the
+    same traffic pinned to 16 rows, at fp32 (2 layers: a hard check,
+    tokens equal) and bf16 (8 layers: the token agreement, printed);
+    the solo request's device ms a decode step at bucket 1 against
+    pinned 16; graphs and capture seconds per bucket, with B1's
+    launches per replay (n_layers a step at every bucket); then a pool
+    sized by ``serving_hbm_budget_mb`` to one worst-case request, where
+    admission waits on pages (fp32, 2 layers, pinned to 16 rows, tokens
+    equal the pinned run's)."""
+    doc = {"phase": "buckets", "model": preset, "slots": BUCKET_SLOTS,
+           "window": SHARE_WINDOW}
+    runs = {}
+    for dtype, layers in (("float32", WINDOW_LAYERS), ("bfloat16", 8)):
+        for min_bucket in (1, 0):
+            cfg = share_cfg(ServeConfig, preset, max_seq,
+                            serving_slots=BUCKET_SLOTS, n_layers=layers,
+                            serving_min_bucket=min_bucket,
+                            serving_prefix_cache=False)
+            runs[(dtype, min_bucket)] = bucket_run(np, torch, serve, cfg,
+                                                   device, dtype)
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    for (dtype, mb), (_, run) in runs.items():
+        doc[f"{dtype}_{'bucketed' if mb else 'pinned'}"] = run
+        layers = run["n_layers"]
+        for b, per in run["per_bucket"].items():
+            want = {k: layers * int(k.split("/")[1])
+                    for k in per.get("b1_launches_per_replay", {})
+                    if device == "cuda"}
+            check(per.get("b1_launches_per_replay", {}) ==
+                  (want if device == "cuda" else {}),
+                  f"{dtype} bucket {b}: B1 launches per replay "
+                  f"{per.get('b1_launches_per_replay')}")
+        if mb:
+            check(run["bucket_steps_up"] >= 1 and
+                  run["bucket_steps_down"] >= 1 and
+                  run["bucket_after_drain"] == 1,
+                  f"{dtype}: bucket steps {run['bucket_steps_up']} up, "
+                  f"{run['bucket_steps_down']} down, "
+                  f"{run['bucket_after_drain']} after the drain")
+        else:
+            check(run["bucket_steps_up"] == run["bucket_steps_down"] == 0,
+                  f"{dtype}: a pinned pool stepped its bucket")
+    vocab = ServeConfig(preset=preset, max_seq=max_seq).model_config().vocab
+    solo, burst, drain = bucket_requests(np, vocab)
+    reqs = [solo] + burst + [drain]
+    fp32_same = runs[("float32", 1)][0] == runs[("float32", 0)][0]
+    share, first = token_agreement(reqs, runs[("bfloat16", 1)][0],
+                                   runs[("bfloat16", 0)][0])
+    doc["fp32_bucketed_equals_pinned"] = fp32_same
+    doc["bf16_bucketed_vs_pinned"] = {"token_agreement": share,
+                                      "first_divergence": first}
+    doc["device_ms_per_decode_step"] = {
+        f"{dtype}_{name}": runs[(dtype, mb)][1][
+            "solo_device_ms_per_decode_step"]
+        for dtype in ("float32", "bfloat16")
+        for name, mb in (("bucket_1", 1), ("pinned_16", 0))}
+    if device == "cuda":
+        doc["matmul_kernels_by_rows"] = {
+            name: matmul_kernels(torch, device, 512, name, (1, 2, 4, 8, 16))
+            for name in ("float32", "bfloat16")}
+    # The budget: one worst-case request's pages (16 MiB, 128 fp32 pages
+    # of 2 layers at 128 KiB), pinned to 16 rows so that no wait is a
+    # bucket step's: the burst's reservations need more pages than that.
+    cfg = share_cfg(ServeConfig, preset, max_seq, serving_slots=BUCKET_SLOTS,
+                    n_layers=WINDOW_LAYERS, serving_prefix_cache=False)
+    tcfg = cfg.model_config("float32")
+    page = cfg.serving_page_size
+    budget_mb = -(-(-(-max_seq // page)) * serve._serving_page_bytes(
+        cfg, tcfg) // 2**20)
+    cfg = share_cfg(ServeConfig, preset, max_seq, serving_slots=BUCKET_SLOTS,
+                    n_layers=WINDOW_LAYERS, serving_prefix_cache=False,
+                    serving_hbm_budget_mb=budget_mb)
+    tokens, budget = bucket_run(np, torch, serve, cfg, device, "float32",
+                                monitor=True)
+    budget["hbm_budget_mb"] = budget_mb
+    budget["burst_pages_needed"] = sum(
+        -(-(len(r["tokens"][0]) + r["n_new"]) // page) for r in burst)
+    budget["tokens_equal_pinned"] = tokens == runs[("float32", 0)][0]
+    doc["hbm_budget"] = budget
+    over = budget["burst_pages_needed"] > budget["pages_total"]
+    doc["ok"] = fp32_same and over and budget["tokens_equal_pinned"]
+    emit(doc)
+    check(fp32_same, "fp32 tokens differ between the bucketed and the "
+          "pinned pool")
+    check(over, f"the burst's {budget['burst_pages_needed']} pages fit the "
+          f"budget's {budget['pages_total']}: nothing had to wait")
+    check(budget["tokens_equal_pinned"],
+          "fp32 tokens of the budgeted pool differ from the pinned one's")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return doc
+
+
+# ---- phase 6g: persist --------------------------------------------------
+
+PERSIST_DIR = os.path.join(HERE, "build", "chip_smoke_persist")
+
+
+def phase_persist(torch, np, serve, ServeConfig, device="cuda",
+                  preset="flagship", max_seq=2048):
+    """Prefix persistence through the serve payload at the flagship width
+    (fp32, 8 layers, 512 pages, the cache and persistence on): a runtime
+    serves a 1024-token request cold, dumps its registry (timed) and
+    closes; a fresh runtime re-pins the file at boot (timed), and the
+    same request is then a hit with the cold tokens."""
+    import shutil
+
+    shutil.rmtree(PERSIST_DIR, ignore_errors=True)
+    os.makedirs(PERSIST_DIR)
+    cfg = share_cfg(ServeConfig, preset, max_seq, serving_pages=512,
+                    serving_prefix_persist=True, state_dir=PERSIST_DIR)
+    rt = serve.ServeRuntime(cfg, device=device, dtype="float32", seed=0,
+                            host="127.0.0.1", port=0)
+    try:
+        first, _, _, _ = prefix_traffic(np, rt.tcfg.vocab)
+        layers = rt.tcfg.n_layers
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        code, cold = post(url, first)
+        check(code == 200, f"cold request: HTTP {code}")
+        t0 = time.perf_counter()
+        dumped = rt.server.dump_prefix_cache(rt.prefix_path,
+                                             rt.prefix_fingerprint)
+        dump_ms = (time.perf_counter() - t0) * 1e3
+        entries = rt.server.stats()["prefix_entries"]
+    finally:
+        rt.close()
+    size = os.path.getsize(os.path.join(PERSIST_DIR, "prefix-cache.npz"))
+    rt = serve.ServeRuntime(cfg, device=device, dtype="float32", seed=0,
+                            host="127.0.0.1", port=0)
+    try:
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        load = dict(rt.prefix_load)
+        t0 = time.perf_counter()
+        code, warm = post(url, first)
+        warm_s = time.perf_counter() - t0
+        check(code == 200, f"warm request: HTTP {code}")
+        st = rt.server.stats()
+    finally:
+        rt.close()
+    doc = {"phase": "persist", "model": preset, "dtype": "float32",
+           "n_layers": layers, "prompt": len(first["tokens"][0]),
+           "entries_dumped": dumped, "entries_live": entries,
+           "file_bytes": size, "dump_ms": dump_ms,
+           "entries_loaded": load["entries"],
+           "load_ms": load["seconds"] * 1e3,
+           "warm_request_s": warm_s, "prefix_hits": st["prefix_hits"],
+           "prefix_tokens_saved": st["prefix_tokens_saved"],
+           "tokens_equal_cold": warm["tokens"] == cold["tokens"]}
+    doc["ok"] = (dumped > 0 and dumped == entries == load["entries"]
+                 and st["prefix_hits"] == 1 and doc["tokens_equal_cold"])
+    emit(doc)
+    check(dumped > 0 and dumped == entries == load["entries"],
+          f"entries dumped {dumped}, live {entries}, loaded "
+          f"{load['entries']}")
+    check(st["prefix_hits"] == 1, "the first request after the load "
+          "missed the cache")
+    check(doc["tokens_equal_cold"], "the warm request's tokens differ from "
+          "the cold ones (fp32)")
     return doc
 
 
@@ -2842,6 +3396,10 @@ def main() -> int:
         phase_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
                       serve.row_key_data)
 
+        phase = enter("prefill_graphs")
+        phase_prefill_graphs(torch, np, kvc, ttr, params_from_numpy,
+                             ServeConfig)
+
         phase = enter("serve")
         serve_doc, lives, launches = phase_serve(torch, np, pa, serve,
                                                  ServeConfig, forward)
@@ -2860,6 +3418,12 @@ def main() -> int:
 
         phase = enter("contention")
         contention_doc = phase_contention(torch, np, pa, serve, ServeConfig)
+
+        phase = enter("buckets")
+        phase_buckets(torch, np, pa, serve, ServeConfig)
+
+        phase = enter("persist")
+        phase_persist(torch, np, serve, ServeConfig)
 
         phase = enter("timings")
         t = phase_timings(torch, pa, lives, serve_doc)

@@ -28,19 +28,31 @@ Differences that are the port's, not the reference's:
   scales) there, with shapes that do not depend on which rows are live.
   ``state.pool_k``/``pool_v`` (and the scale slabs) are the ``[:, :P]``
   views, so the sink is invisible outside this module.
+* The device batch dim is a bucket (``min_bucket``, ``bucket_for``,
+  ``set_bucket``, the reference's ladder). The reference rebuilds its
+  bucket-sized tables and lengths at each resize; the port allocates
+  them, and every window input, once at ``[slots, ...]`` and runs a
+  bucket over their ``[:bucket]`` views, which share the storage: a
+  resize moves nothing on the device and only chooses which graphs
+  replay.
 * A decode window of W steps is :func:`run_window`: W steps with the
   greedy (or sampled) pick fed back on the device, per-row step caps,
   and the ``[fin, stop_at]`` bookkeeping rows, as the reference's capped
   scans (``_paged_decode_window_capped_impl`` and its sampled twin). On
-  CUDA it runs as a captured CUDA graph, one per (greedy | sampled, W),
-  replayed on every dispatch; on the CPU, which the caller must ask
-  for, it runs eagerly.
+  CUDA it runs as a captured CUDA graph, one per (bucket, greedy |
+  sampled, W), replayed on every dispatch; on the CPU, which the caller
+  must ask for, it runs eagerly.
 * A spec window of P passes is :func:`run_spec_window` (the reference's
   ``_paged_spec_window_impl`` and its sampled twin): on CUDA a captured
-  graph per (greedy | sampled, P, K). Its pending tokens and drafting
-  contexts stay in the window's input tensors between windows (the
-  spec carry); the context carries one sink column for the appends the
-  reference drops.
+  graph per (bucket, greedy | sampled, P, K). Its pending tokens and
+  drafting contexts stay in the window's input tensors between windows
+  (the spec carry); the context carries one sink column for the appends
+  the reference drops.
+* A prefill chunk of C tokens is :func:`run_prefill`, with its tokens,
+  slot and offset in the device tensors of :class:`PrefillInputs` (the
+  reference traces slot and offset, so it compiles one program per
+  chunk length): on CUDA a captured graph per (bucket, C), the prefill
+  graphs sharing one memory pool; on the CPU it runs eagerly.
 * The page copies (COW, swap, snapshots) are ``index_select`` /
   ``index_copy_`` over the ``[L, P + 1, ...]`` slabs on the current
   stream, so they run in stream order with the window graphs replayed
@@ -56,6 +68,7 @@ Differences that are the port's, not the reference's:
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 
 import numpy as np
@@ -207,7 +220,8 @@ def _paged_attend_layer(cfg: TransformerConfig, state: PagedState, x,
             _scatter_token(pool_v, scale_v, tables, state.lengths + i,
                            v[:, i], w_live)
     else:
-        tables = state.tables[slot][None]
+        # slot is a 0-d device tensor: no host value steers the gather.
+        tables = state.tables.index_select(0, slot.reshape(1))
         pos = q_positions[0].long()
         page_idx = tables[0, pos // pool_k.shape[1]].long()
         offset = pos % pool_k.shape[1]
@@ -242,15 +256,48 @@ def _run_paged(cfg, params, state, x, q_positions, slot=None, live=None,
                         params["embedding"])
 
 
+@dataclasses.dataclass
+class PrefillInputs:
+    """The inputs of one prefill chunk of C tokens, tensors on the
+    cache's device that a CUDA graph reads at their addresses (written
+    in place before each replay). The table row comes from the state's
+    bucket view, indexed on the device by ``slot``."""
+
+    tokens: torch.Tensor    # int64 [C]
+    slot: torch.Tensor      # int64, 0-d
+    offset: torch.Tensor    # int64, 0-d: the chunk's first position
+
+    @classmethod
+    def zeros(cls, length: int, device: torch.device) -> "PrefillInputs":
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.int64, device=device)
+
+        return cls(tokens=z(length), slot=z(), offset=z())
+
+
 @torch.no_grad()
-def _paged_prefill(params: dict, state: PagedState, tokens, slot: int,
-                   cfg: TransformerConfig, offset: int = 0) -> torch.Tensor:
-    """Prefill ``tokens [T]`` into ``slot`` at positions offset..;
-    returns the last position's logits ``[V]``."""
-    x = params["embedding"][tokens][None]
-    q_positions = (offset + torch.arange(tokens.shape[0],
-                                         device=tokens.device))[None]
-    return _run_paged(cfg, params, state, x, q_positions, slot=slot)[0]
+def run_prefill(params: dict, state: PagedState, cfg: TransformerConfig,
+                inp: PrefillInputs) -> torch.Tensor:
+    """Prefill ``inp.tokens`` into row ``inp.slot`` at positions
+    ``inp.offset``..; returns the last position's logits ``[V]``. No host
+    value enters the body, so one captured graph serves every slot and
+    offset of a chunk length (the reference's ``_paged_prefill_impl``)."""
+    x = params["embedding"][inp.tokens][None]
+    q_positions = (inp.offset + torch.arange(inp.tokens.shape[0],
+                                             device=inp.tokens.device))[None]
+    return _run_paged(cfg, params, state, x, q_positions, slot=inp.slot)[0]
+
+
+def _paged_prefill(params: dict, state: PagedState, tokens, slot,
+                   cfg: TransformerConfig, offset=0) -> torch.Tensor:
+    """Prefill ``tokens [T]`` into ``slot`` at positions offset.. (ints
+    or 0-d tensors), eagerly through :func:`run_prefill`; returns the
+    last position's logits ``[V]``."""
+    dev = tokens.device
+    return run_prefill(params, state, cfg, PrefillInputs(
+        tokens=tokens,
+        slot=torch.as_tensor(slot, dtype=torch.int64, device=dev),
+        offset=torch.as_tensor(offset, dtype=torch.int64, device=dev)))
 
 
 @torch.no_grad()
@@ -487,13 +534,23 @@ def _host_ids(tokens) -> np.ndarray:
     return np.asarray(tokens, np.int64)
 
 
+def _rows(inputs, n: int):
+    """The first ``n`` rows of a ``[slots, ...]`` inputs record: views
+    over the same storage, so a graph captured over them reads (and a
+    spec window's carry writes) the full record's first rows."""
+    return dataclasses.replace(inputs, **{
+        f.name: getattr(inputs, f.name)[:n]
+        for f in dataclasses.fields(inputs)})
+
+
 @dataclasses.dataclass
 class _Graph:
     graph: "torch.cuda.CUDAGraph"
     # The static output: [W + 2, B] for a window, (emitted, counts,
-    # pending) for a spec window.
+    # pending) for a spec window, [V] logits for a prefill chunk.
     out: "torch.Tensor | tuple"
     b1_launches: int    # B1 launches one replay makes
+    capture_s: float    # the capture's seconds, its warm-up run included
 
 
 @dataclasses.dataclass
@@ -530,11 +587,17 @@ class PagedKVCache:
     hands out the same page ids in both packages. The sink is never on
     the free list, counted, shared, swapped or copied. ``device`` is the
     card unless "cpu" is asked for.
+
+    The device batch dim is ``bucket``: a power of two from
+    ``min_bucket`` up, capped at ``slots`` (``min_bucket = 0`` pins it
+    to ``slots``). Host bookkeeping and the arrays the caller passes are
+    ``slots``-sized; a step, window or prefill runs over the bucket's
+    first rows, and its outputs carry ``bucket`` rows.
     """
 
     def __init__(self, cfg: TransformerConfig, *, slots: int, pages: int,
                  page_size: int = 16, max_pages_per_seq: int | None = None,
-                 kv_dtype: str = "",
+                 kv_dtype: str = "", min_bucket: int = 0,
                  device: torch.device | str | None = None):
         cfg.validate()
         if kv_dtype not in ("", "int8"):
@@ -544,9 +607,14 @@ class PagedKVCache:
             )
         if slots < 1 or pages < 1 or page_size < 1:
             raise ValueError("slots, pages and page_size must be >= 1")
+        if min_bucket < 0:
+            raise ValueError(f"min_bucket must be >= 0, got {min_bucket}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.slots = slots
+        self.min_bucket = min(min_bucket, slots) if min_bucket else 0
+        self.bucket = self.bucket_for(0)
+        self.bucket_steps = {"up": 0, "down": 0}
         self.num_pages = pages
         self.page_size = page_size
         self.max_pages_per_seq = (
@@ -563,13 +631,17 @@ class PagedKVCache:
                                 device=self.device)
                     if self.kv_quantized else None)
 
+        # Tables and lengths at [slots, ...]; the state holds their
+        # bucket's [:bucket] views.
+        self._tables_full = torch.zeros((slots, self.max_pages_per_seq),
+                                        dtype=torch.int32, device=self.device)
+        self._lengths_full = torch.zeros((slots,), dtype=torch.int32,
+                                         device=self.device)
         self.state = PagedState(
             pool_k_full=torch.zeros(shape, dtype=dtype, device=self.device),
             pool_v_full=torch.zeros(shape, dtype=dtype, device=self.device),
-            tables=torch.zeros((slots, self.max_pages_per_seq),
-                               dtype=torch.int32, device=self.device),
-            lengths=torch.zeros((slots,), dtype=torch.int32,
-                                device=self.device),
+            tables=self._tables_full[:self.bucket],
+            lengths=self._lengths_full[:self.bucket],
             scale_k_full=scale(),
             scale_v_full=scale(),
         )
@@ -596,10 +668,23 @@ class PagedKVCache:
         # (static [W + 2, B] output, W) of the latest dispatch: the
         # device-resident carry that tokens=None reads.
         self._carry: tuple[torch.Tensor, int] | None = None
-        self._graphs: dict[tuple[bool, int], _Graph] = {}
+        # Captured graphs, each keyed by its bucket first: windows by
+        # (bucket, sampled, W), spec windows by (bucket, sampled, P, K),
+        # prefill chunks by (bucket, C).
+        self._graphs: dict[tuple[int, bool, int], _Graph] = {}
         self._graph_params: dict | None = None
         self._capture_stream = None
-        self._capture_s = 0.0
+        # Prefill chunks: static inputs per chunk length, and one memory
+        # pool for all their graphs (they never run concurrently, and
+        # each replay's logits are copied out before the next replay).
+        self._prefill_in: dict[int, PrefillInputs] = {}
+        self._prefill_graphs: dict[tuple[int, int], _Graph] = {}
+        self._prefill_pool = None
+        # Device seconds of graph replays, from CUDA events around each
+        # ("decode": windows and spec windows; "prefill": chunks), and
+        # the event pairs not yet read.
+        self._device_s = {"decode": 0.0, "prefill": 0.0}
+        self._timing: list = []
         # Spec windows: their inputs (allocated at the first dispatch,
         # whose context width they take), the device carry (pending,
         # ctx, ctx_len: views of those inputs) of the latest dispatch,
@@ -612,8 +697,63 @@ class PagedKVCache:
         self._spec_idle_in: SpecWindowInputs | None = None
         self._spec_carry: tuple | None = None
         self._spec_unharvested = [0] * slots
-        self._spec_graphs: dict[tuple[bool, int, int], _Graph] = {}
-        self._spec_capture_s = 0.0
+        self._spec_graphs: dict[tuple[int, bool, int, int], _Graph] = {}
+
+    # ---- bucketed device batch dim ---------------------------------------
+
+    def bucket_for(self, n: int) -> int:
+        """The smallest bucket that holds ``n`` rows: powers of two from
+        ``min_bucket`` up, capped at ``slots`` (the top bucket is
+        ``slots`` itself even when that is not a power of two). With
+        bucketing disabled the only bucket is ``slots``."""
+        if not self.min_bucket:
+            return self.slots
+        b = self.min_bucket
+        while b < n and b < self.slots:
+            b *= 2
+        return min(b, self.slots)
+
+    def set_bucket(self, n: int) -> None:
+        """Resize the device batch dim to bucket ``n``, at a quiescent
+        point (the serving loop collapses its pipeline to a boundary
+        first). Nothing moves on the device: the state takes the
+        ``[:n]`` views of the tables and lengths, and the next dispatch
+        replays bucket ``n``'s graphs. Any device carry is dropped (the
+        pipeline restarts from host tokens)."""
+        if n == self.bucket:
+            return
+        if not self.min_bucket:
+            raise PagedCacheError(
+                "bucketing is disabled on this cache (min_bucket=0); "
+                "the device batch dim is pinned to slots"
+            )
+        if n != self.bucket_for(n) or n < self.min_bucket or n > self.slots:
+            raise PagedCacheError(
+                f"bucket {n} is not on this cache's ladder "
+                f"(powers of two from {self.min_bucket} capped at "
+                f"{self.slots})"
+            )
+        if any(self._spec_unharvested):
+            raise PagedCacheError(
+                "cannot resize the device batch dim with spec windows "
+                "in flight — harvest them first (device lengths are "
+                "data-dependent until then)"
+            )
+        top = max(self._pages_of, default=-1)
+        if top >= n:
+            raise PagedCacheError(
+                f"slot {top} is admitted but bucket {n} holds rows "
+                f"0..{n - 1} — release or migrate it first"
+            )
+        # The upload memo too: a smaller bucket's uploads rewrote rows
+        # a larger bucket's memo would vouch for.
+        self.drop_carry()
+        self.bucket_steps["up" if n > self.bucket else "down"] += 1
+        self.bucket = n
+        self.state = dataclasses.replace(
+            self.state, tables=self._tables_full[:n],
+            lengths=self._lengths_full[:n])
+        self._sync()
 
     # ---- control plane (host) -------------------------------------------
 
@@ -661,7 +801,7 @@ class PagedKVCache:
             "pages_live": live,
             "pages_free": len(self._free),
             "slots_admitted": len(self._pages_of),
-            "bucket": self.slots,
+            "bucket": self.bucket,
             "hbm_bytes_used": live * page_bytes,
         }
 
@@ -729,6 +869,11 @@ class PagedKVCache:
             raise PagedCacheError(f"slot {slot} already admitted")
         if not 0 <= slot < self.slots:
             raise PagedCacheError(f"slot {slot} outside 0..{self.slots - 1}")
+        if slot >= self.bucket:
+            raise PagedCacheError(
+                f"slot {slot} is outside the current device bucket "
+                f"({self.bucket} rows) — step the bucket up first"
+            )
         total = -(-prompt_len // self.page_size) or 1
         needed = total - len(shared_pages)
         if needed < 0:
@@ -823,18 +968,18 @@ class PagedKVCache:
         flight keeps its device length: the window advances it by counts
         the host learns only at harvest (the merge runs in stream order,
         after the windows already queued)."""
-        self._put(self.state.tables,
+        self._put(self._tables_full,
                   np.asarray(self._host_tables, np.int32))
         lengths = np.asarray(self._host_lengths, np.int32)
+        full = self._lengths_full
         if not any(self._spec_unharvested):
-            self._put(self.state.lengths, lengths)
+            self._put(full, lengths)
             return
-        host = torch.empty_like(self.state.lengths)
-        keep = torch.empty(self.state.lengths.shape, dtype=torch.bool,
-                           device=self.device)
+        host = torch.empty_like(full)
+        keep = torch.empty(full.shape, dtype=torch.bool, device=self.device)
         self._put(host, lengths)
         self._put(keep, np.asarray(self._spec_unharvested) > 0)
-        self.state.lengths.copy_(torch.where(keep, self.state.lengths, host))
+        full.copy_(torch.where(keep, full, host))
 
     # ---- page copies (prefix sharing, swap, snapshots) -----------------
 
@@ -980,16 +1125,46 @@ class PagedKVCache:
     def prefill_chunk(self, params: dict, slot: int, tokens,
                       offset: int) -> torch.Tensor:
         """Feed ``tokens`` into ``slot`` at absolute position ``offset``;
-        returns the chunk's last-position logits ``[V]``."""
-        tokens = self._tokens(tokens)
+        returns the chunk's last-position logits ``[V]``, a tensor of the
+        caller's own (a later chunk does not overwrite it).
+
+        On CUDA it ALWAYS replays the graph of (bucket, chunk length),
+        capturing it at first use (a failed capture raises); the tokens,
+        slot and offset are uploaded into that length's
+        :class:`PrefillInputs` first. On the CPU it runs eagerly."""
+        if isinstance(tokens, torch.Tensor):
+            tokens = tokens.to(self.device, torch.int64)
+        else:
+            tokens = _host_ids(tokens)
         n = tokens.shape[0]
         if offset + n > self._host_lengths[slot]:
             raise PagedCacheError(
                 f"chunk [{offset}, {offset + n}) exceeds slot {slot}'s "
                 f"admitted length {self._host_lengths[slot]}"
             )
-        return _paged_prefill(params, self.state, tokens, slot, self.cfg,
-                              offset)
+        if self.device.type != "cuda":
+            return _paged_prefill(params, self.state, self._tokens(tokens),
+                                  slot, self.cfg, offset)
+        inp = self._prefill_in.get(n)
+        if inp is None:
+            inp = self._prefill_in[n] = PrefillInputs.zeros(n, self.device)
+        # Every upload, never memoized: it is three small copies.
+        if isinstance(tokens, torch.Tensor):
+            inp.tokens.copy_(tokens)
+        else:
+            self._put(inp.tokens, tokens)
+        self._put(inp.slot, np.asarray(slot, np.int64))
+        self._put(inp.offset, np.asarray(offset, np.int64))
+        # The warm-up run before a capture is this chunk itself: it
+        # writes the very K/V the replay writes again, so running the
+        # chunk twice changes nothing.
+        out = self._replay(
+            self._prefill_graphs, (self.bucket, n), params,
+            lambda i: run_prefill(params, self.state, self.cfg, i),
+            inp, inp, "prefill")
+        # Every chunk of this length (another request's too) replays
+        # into the same static logits: copy them out, in stream order.
+        return out.clone()
 
     def _tokens(self, tokens) -> torch.Tensor:
         """Token ids as an int64 tensor on the cache's device, uploaded
@@ -1016,18 +1191,18 @@ class PagedKVCache:
 
     def step(self, params: dict, tokens, active=None) -> torch.Tensor:
         """One batched decode step; ``tokens [slots]``; returns logits
-        ``[slots, V]`` (inactive rows' logits are garbage)."""
+        ``[bucket, V]`` (inactive rows' logits are garbage)."""
         slots = self._step_slots(active)
         grew = False
         for slot in slots:
             grew |= self.grow(slot)
         if grew:
             self._sync()
-        live = torch.empty((self.slots,), dtype=torch.bool,
-                           device=self.device)
-        self._put(live, self._row_mask(slots))
-        logits = _decode_step_core(params, self.state, self._tokens(tokens),
-                                   self.cfg, live)
+        b = self.bucket
+        live = torch.empty((b,), dtype=torch.bool, device=self.device)
+        self._put(live, self._row_mask(slots)[:b])
+        logits = _decode_step_core(params, self.state,
+                                   self._tokens(tokens)[:b], self.cfg, live)
         for slot in slots:
             self._host_lengths[slot] += 1
         return logits
@@ -1039,7 +1214,7 @@ class PagedKVCache:
     def step_window(self, params: dict, tokens, n_steps: int,
                     active=None) -> torch.Tensor:
         """``n_steps`` greedy steps with the argmax fed back on the
-        device; returns tokens ``[n_steps, slots]`` int64 on the host (row
+        device; returns tokens ``[n_steps, bucket]`` int64 on the host (row
         i was produced by feeding row i - 1; row 0 fed ``tokens``). The
         capped window with every row's cap at ``n_steps``."""
         block = self.harvest_window(
@@ -1068,8 +1243,8 @@ class PagedKVCache:
         greedy row grows pages for the worst case, all K drafts accepted
         (the server reserves a speculative request's slack at
         admission); a sampled row grows one position, as a plain step.
-        Returns ``(emitted [slots, K+1] np.int64, accepted [slots]
-        np.int64, logits0 [slots, V] on the device)``."""
+        Returns ``(emitted [bucket, K+1] np.int64, accepted [bucket]
+        np.int64, logits0 [bucket, V] on the device)``."""
         slots = self._step_slots(active)
         spec_np = np.asarray(spec_mask, bool)
         host_tokens = _host_ids(tokens)
@@ -1079,15 +1254,14 @@ class PagedKVCache:
             grew |= self.grow_to(slot, (k_len + 1) if spec_np[slot] else 1)
         if grew:
             self._sync()
-        live = torch.empty((self.slots,), dtype=torch.bool,
-                           device=self.device)
-        self._put(live, self._row_mask(slots))
-        spec = torch.empty((self.slots,), dtype=torch.bool,
-                           device=self.device)
-        self._put(spec, spec_np)
+        b = self.bucket
+        live = torch.empty((b,), dtype=torch.bool, device=self.device)
+        self._put(live, self._row_mask(slots)[:b])
+        spec = torch.empty((b,), dtype=torch.bool, device=self.device)
+        self._put(spec, spec_np[:b])
         emitted, accepted, logits0 = _spec_verify_core(
-            params, self.state, self._tokens(host_tokens), self.cfg, live,
-            spec)
+            params, self.state, self._tokens(host_tokens[:b]), self.cfg,
+            live, spec)
         host = torch.cat([emitted, accepted[:, None]], dim=1).cpu().numpy()
         emitted_np, accepted_np = host[:, :-1], host[:, -1]
         for slot in slots:
@@ -1164,7 +1338,7 @@ class PagedKVCache:
         return handle
 
     def harvest_window(self, handle: _WindowHandle) -> np.ndarray:
-        """The dispatched window's ``[n_steps + 2, slots]`` int32 block:
+        """The dispatched window's ``[n_steps + 2, bucket]`` int32 block:
         the produced tokens plus the ``[fin, stop_at]`` rows. Waits for
         that window only — ideally while a later one already runs."""
         if handle.event is not None:
@@ -1201,7 +1375,7 @@ class PagedKVCache:
         copy of its block to the host (no wait)."""
         if tokens is None:
             carry_out, carry_n = self._carry
-            self._in.tokens.copy_(carry_out[carry_n - 1])
+            self._in.tokens[:self.bucket].copy_(carry_out[carry_n - 1])
         else:
             self._put(self._in.tokens, _host_ids(tokens))
         self._upload("active", active)
@@ -1223,48 +1397,80 @@ class PagedKVCache:
     def _run_device_window(self, params, n_steps: int,
                            sampled: bool) -> torch.Tensor:
         """Device seam: one window over the current inputs, returning its
-        ``[n_steps + 2, slots]`` block on the device. On CUDA it ALWAYS
-        replays the window's captured graph (capturing it at first use; a
-        failed capture raises); on the CPU it runs eagerly."""
+        ``[n_steps + 2, bucket]`` block on the device. On CUDA it ALWAYS
+        replays the captured graph of (bucket, greedy | sampled, W)
+        (capturing it at first use; a failed capture raises); on the CPU
+        it runs eagerly."""
+        b = self.bucket
         if self.device.type != "cuda":
-            return run_window(params, self.state, self.cfg, self._in,
-                              n_steps, sampled)
-        return self._replay(self._graphs, (sampled, n_steps), params,
+            return run_window(params, self.state, self.cfg,
+                              _rows(self._in, b), n_steps, sampled)
+        return self._replay(self._graphs, (b, sampled, n_steps), params,
                             lambda inp: run_window(
                                 params, self.state, self.cfg, inp, n_steps,
                                 sampled),
-                            self._in, self._idle_in)
+                            _rows(self._in, b), _rows(self._idle_in, b),
+                            "decode")
 
-    def _replay(self, graphs: dict, key, params, run, inputs, idle):
+    def _replay(self, graphs: dict, key, params, run, inputs, idle,
+                kind: str):
         """Replay the graph ``graphs[key]`` of ``run(inputs)``, capturing
-        it first if it is not there; returns its static output."""
+        it first if it is not there, between two CUDA events whose
+        interval adds to the ``kind`` device seconds; returns its static
+        output."""
         if params is not self._graph_params:
             # A graph holds the addresses of the params it was captured
             # with.
             self._graphs.clear()
             self._spec_graphs.clear()
+            self._prefill_graphs.clear()
             self._graph_params = params
         graph = graphs.get(key)
         if graph is None:
-            t0 = time.perf_counter()
-            graph = self._capture(run, inputs, idle)
-            seconds = time.perf_counter() - t0
-            if graphs is self._spec_graphs:
-                self._spec_capture_s += seconds
-            else:
-                self._capture_s += seconds
+            graph = self._capture(run, inputs, idle,
+                                  graphs is self._prefill_graphs)
             graphs[key] = graph
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         graph.graph.replay()
+        end.record()
+        self._timing.append((kind, start, end))
+        self._settle_timing(block=False)
         paged_decode_attention.launches += graph.b1_launches
         return graph.out
 
-    def _capture(self, run, inputs, idle) -> _Graph:
+    def _settle_timing(self, block: bool) -> None:
+        """Add the intervals of the replays the device has finished (all
+        of them, waiting, with ``block``) to the device seconds."""
+        while self._timing:
+            kind, start, end = self._timing[0]
+            if block:
+                end.synchronize()
+            elif not end.query():
+                return
+            self._device_s[kind] += start.elapsed_time(end) / 1e3
+            self._timing.pop(0)
+
+    def device_seconds(self, wait: bool = True) -> dict:
+        """Device seconds of the graph replays so far: ``{"decode":
+        windows and spec windows, "prefill": chunks}``, waiting for the
+        replays in flight (without ``wait``, those still running are left
+        for a later call). Eager runs (the CPU, a single step, a per-pass
+        verify) add nothing."""
+        self._settle_timing(block=wait)
+        return dict(self._device_s)
+
+    def _capture(self, run, inputs, idle, prefill: bool = False) -> _Graph:
         """Capture ``run(inputs)`` as a CUDA graph. It runs once eagerly
         first on the capture stream over ``idle`` (every row inactive, so
-        it writes only to the sink page), to warm kernel builds, library
+        it writes only to the sink page; a prefill chunk's own inputs,
+        whose writes the replay repeats), to warm kernel builds, library
         handles and the allocator. The caller holds the lock every other
         device launch takes, so nothing else launches during the
-        capture."""
+        capture. A prefill graph allocates from the prefill graphs'
+        shared pool."""
+        t0 = time.perf_counter()
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
         stream = self._capture_stream
@@ -1272,15 +1478,30 @@ class PagedKVCache:
         with torch.cuda.stream(stream):
             run(idle)
         torch.cuda.current_stream(self.device).wait_stream(stream)
+        pool = None
+        if prefill:
+            if self._prefill_pool is None:
+                self._prefill_pool = torch.cuda.graph_pool_handle()
+            pool = self._prefill_pool
         graph = torch.cuda.CUDAGraph()
         before = paged_decode_attention.launches
-        with torch.cuda.graph(graph, stream=stream,
-                              capture_error_mode="thread_local"):
-            out = run(inputs)
+        # No cyclic garbage collection during the capture: a graph held
+        # in a reference cycle (a closed server and its cache hold each
+        # other) would be destroyed there, which CUDA refuses while a
+        # stream captures, and the capture is invalidated.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                out = run(inputs)
+        finally:
+            if collecting:
+                gc.enable()
         # The capture launched nothing: its count moves to each replay.
         captured = paged_decode_attention.launches - before
         paged_decode_attention.launches = before
-        return _Graph(graph, out, captured)
+        return _Graph(graph, out, captured, time.perf_counter() - t0)
 
     # ---- speculative windows (device-resident draft + verify passes) ----
 
@@ -1400,7 +1621,8 @@ class PagedKVCache:
                 self._upload(name, host, inp)
         emitted, counts, pending = self._run_device_spec_window(
             params, n_passes, k_len, sampling is not None)
-        self._spec_carry = (inp.pending, inp.ctx, inp.ctx_len)
+        b = self.bucket
+        self._spec_carry = (inp.pending[:b], inp.ctx[:b], inp.ctx_len[:b])
         if emitted.is_cuda:
             # Two windows in flight share the graph's static outputs:
             # copy this one's before the next replay.
@@ -1416,24 +1638,27 @@ class PagedKVCache:
         """Device seam: one spec window over the current spec inputs,
         returning ``(emitted, counts, pending)`` on the device. On CUDA
         it ALWAYS replays the captured graph of (greedy | sampled,
-        n_passes, K), capturing it at first use (a failed capture
-        raises); on the CPU it runs eagerly."""
+        n_passes, K) at this bucket, capturing it at first use (a
+        failed capture raises); on the CPU it runs eagerly."""
+        b = self.bucket
         if self.device.type != "cuda":
             return run_spec_window(params, self.state, self.cfg,
-                                   self._spec_in, n_passes, k_len, sampled)
-        return self._replay(self._spec_graphs, (sampled, n_passes, k_len),
-                            params,
+                                   _rows(self._spec_in, b), n_passes, k_len,
+                                   sampled)
+        return self._replay(self._spec_graphs,
+                            (b, sampled, n_passes, k_len), params,
                             lambda inp: run_spec_window(
                                 params, self.state, self.cfg, inp,
                                 n_passes, k_len, sampled),
-                            self._spec_in, self._spec_idle_in)
+                            _rows(self._spec_in, b),
+                            _rows(self._spec_idle_in, b), "decode")
 
     def harvest_spec_window(self, handle: _SpecHandle):
         """Wait for a dispatched spec window and settle what its dispatch
         could only bound: host lengths advance by each slot's true
         advance (the sum of its counts) and the worst-case reservation is
-        returned. Returns ``(emitted [n_passes, slots, K+1], counts
-        [n_passes, slots], pending [slots])`` as numpy."""
+        returned. Returns ``(emitted [n_passes, bucket, K+1], counts
+        [n_passes, bucket], pending [bucket])`` as numpy."""
         if handle.event is not None:
             handle.event.synchronize()
         emitted = handle.emitted.numpy().copy()
@@ -1453,17 +1678,44 @@ class PagedKVCache:
     def graph_stats(self) -> dict:
         """Captured graphs: the plain windows' count, the seconds spent
         capturing them (warm-up runs included) and the B1 launches each
-        replay makes, by "greedy/W" or "sampled/W"; the spec windows'
-        apart, by "greedy/P/K" or "sampled/P/K"."""
+        replay makes, by "greedy/W" or "sampled/W" (the same at every
+        bucket); the spec windows' apart, by "greedy/P/K" or
+        "sampled/P/K"; the prefill chunks' apart, with the chunk lengths
+        captured; and each bucket's graphs and capture seconds, by
+        kind, under ``per_bucket``."""
+        def kind(sampled):
+            return "sampled" if sampled else "greedy"
+
+        def seconds(graphs):
+            return sum(g.capture_s for g in graphs.values())
+
+        per_bucket: dict = {}
+        for label, graphs in (("window", self._graphs),
+                              ("spec", self._spec_graphs),
+                              ("prefill", self._prefill_graphs)):
+            for key, g in graphs.items():
+                doc = per_bucket.setdefault(key[0], {
+                    f"{k}_{f}": 0 for k in ("window", "spec", "prefill")
+                    for f in ("graphs", "capture_s")})
+                doc[f"{label}_graphs"] += 1
+                doc[f"{label}_capture_s"] += g.capture_s
+                if label != "prefill":
+                    doc.setdefault("b1_launches_per_replay", {})[
+                        "/".join(str(k) for k in (kind(key[1]), *key[2:]))
+                    ] = g.b1_launches
         return {
             "graphs": len(self._graphs),
-            "capture_s": self._capture_s,
+            "capture_s": seconds(self._graphs),
             "b1_launches_per_replay": {
-                f"{'sampled' if s else 'greedy'}/{w}": g.b1_launches
-                for (s, w), g in sorted(self._graphs.items())},
+                f"{kind(s)}/{w}": g.b1_launches
+                for (_, s, w), g in sorted(self._graphs.items())},
             "spec_graphs": len(self._spec_graphs),
-            "spec_capture_s": self._spec_capture_s,
+            "spec_capture_s": seconds(self._spec_graphs),
             "spec_b1_launches_per_replay": {
-                f"{'sampled' if s else 'greedy'}/{p}/{k}": g.b1_launches
-                for (s, p, k), g in sorted(self._spec_graphs.items())},
+                f"{kind(s)}/{p}/{k}": g.b1_launches
+                for (_, s, p, k), g in sorted(self._spec_graphs.items())},
+            "prefill_graphs": len(self._prefill_graphs),
+            "prefill_capture_s": seconds(self._prefill_graphs),
+            "prefill_lengths": sorted({n for _, n in self._prefill_graphs}),
+            "per_bucket": {b: per_bucket[b] for b in sorted(per_bucket)},
         }

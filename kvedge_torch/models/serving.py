@@ -16,8 +16,14 @@ What this slice carries: ``submit``, ``submit_stream``/``StreamHandle``,
 by queue watermarks and by the page low watermark, preemption by KV
 swap with resume at the high watermark), the prefix cache (a radix
 trie over page-sized blocks, partial-page matches copied on write, a
-host tier for evicted entries, leases that bill a shared page once),
-chunked prefill, the
+host tier for evicted entries, leases that bill a shared page once)
+and its persistence across restarts (``dump_prefix_cache``,
+``load_prefix_cache``, ``start_prefix_persistence``: an ``.npz`` the
+JAX package's server reads and writes too), chunked prefill (on the
+card each chunk a replayed CUDA graph), the bucketed device batch
+(``min_bucket``: the batch dim steps along a power-of-two ladder at
+quiescent boundaries, ``_ensure_bucket_locked`` /
+``_maybe_step_bucket_locked``), the
 SERIAL window loop (``_loop_once``) with power-of-two windows
 (``_window_steps``), the OVERLAPPED loop (``_loop_once_overlap``, the
 ``overlap`` knob: window N+1 is enqueued on the device-resident carry
@@ -28,9 +34,9 @@ on the device in the overlapped one), and server-wide speculative
 decoding (``speculative``: per verify pass at boundaries, or as
 device-resident spec windows in the overlap pipeline with
 ``spec_window``; the ``resolve_speculation`` boot probe). What it leaves
-out (the reference's later rungs): prefix persistence, the journal,
-checkpoints and recovery, the SLO engine, tracing, autotune and
-bucketing.
+out (the reference's later rungs): the journal, checkpoints and
+recovery (and with them the degraded pool's emergency dump), the SLO
+engine, tracing and autotune.
 
 Greedy decode is token-for-token the port's ``forward`` argmax, and the
 tokens of a request do not depend on what else is in flight: the paged
@@ -44,6 +50,8 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
+import json
+import os
 import queue
 import threading
 import time
@@ -163,7 +171,10 @@ class PagedGenerationServer:
     prompt prefixes (``prefix_host_mb`` > 0 keeps evicted entries in a
     host tier); ``sched_*`` and ``page_*_watermark`` set the admission
     scheduler's policy, shedding and preemption by swap, as the
-    reference's. ``device`` is the card unless "cpu" is asked for.
+    reference's. ``min_bucket`` > 0 runs the device batch dim at a
+    bucket of the cache's ladder that follows the occupied slots (0
+    pins it to ``slots``). ``device`` is the card unless "cpu" is asked
+    for.
     """
 
     def __init__(self, params: dict, cfg: TransformerConfig, *,
@@ -179,7 +190,7 @@ class PagedGenerationServer:
                  sched_swap_budget_mb: int = 0,
                  page_low_watermark: float = 0.0,
                  page_high_watermark: float = 0.0,
-                 prefix_host_mb: int = 0,
+                 prefix_host_mb: int = 0, min_bucket: int = 0,
                  device: torch.device | str | None = None):
         if not isinstance(window, int) or window < 1:
             raise ValueError("window must be an int >= 1")
@@ -230,8 +241,11 @@ class PagedGenerationServer:
         self._cache = PagedKVCache(
             cfg, slots=slots, pages=pages, page_size=page_size,
             max_pages_per_seq=-(-(cfg.max_seq + self._spec) // page_size),
-            kv_dtype=kv_dtype, device=device,
+            kv_dtype=kv_dtype, min_bucket=min_bucket, device=device,
         )
+        # An admission parked on a free slot above the bucket: the decode
+        # loop steps the bucket up at its next boundary.
+        self._bucket_step_wanted = False
         # Free-page watermarks (fractions of the pool, 0 = off): below
         # ``low`` unreserved headroom a non-top-class arrival sheds;
         # a swapped-out request resumes only at ``high`` or better.
@@ -260,6 +274,13 @@ class PagedGenerationServer:
         self._prefix_lookups = 0
         self._prefix_tokens_saved = 0
         self._prefix_cow_copies = 0
+        # Entries registered so far: the periodic dump's dirty counter.
+        self._prefix_registrations = 0
+        self._persist_stop: threading.Event | None = None
+        self._persist_thread: threading.Thread | None = None
+        # One dump at a time: the periodic thread's and a caller's share
+        # the temporary file.
+        self._dump_lock = threading.Lock()
         if prefix_host_mb < 0:
             raise ValueError("prefix_host_mb must be >= 0")
         self._prefix_host_budget = int(prefix_host_mb) << 20
@@ -313,13 +334,19 @@ class PagedGenerationServer:
         self._depth1_windows = 0
         self._stops_pending = 0
         self._done_total = 0
+        # Requests that took an admission ticket: a plain int, read
+        # without the lock by a client that orders its submissions.
+        self.requests_queued = 0
         self._tokens_done_total = 0
         self._stop_finishes = 0
-        # Host-clock seconds spent in prefill chunks (to the first-token
-        # pick) and in decode windows/steps (serial: to the tokens' host
-        # copy; overlapped: the loop's iterations that dispatch or
-        # harvest, under the lock); both end in a device sync, so they
-        # include the device's time.
+        # Host-clock seconds (the device's own are the cache's
+        # device_seconds()): ``_prefill_s`` spans each chunk's call and
+        # the first token's pick, so it holds the chunks' launches (or
+        # replays) and the pick's wait for the device, which also waits
+        # out any window queued ahead of the chunk; ``_decode_s`` spans
+        # decode windows and steps (serial: to the tokens' host copy;
+        # overlapped: the loop's iterations that dispatch or harvest,
+        # under the lock).
         self._prefill_s = 0.0
         self._decode_s = 0.0
         self._thread = threading.Thread(target=self._loop,
@@ -384,7 +411,12 @@ class PagedGenerationServer:
     def close(self, drain: bool = False) -> None:
         """Shut down. A hard close fails in-flight requests with
         :class:`ServerClosed`; ``drain=True`` refuses new submits at once
-        but lets every admitted request decode out its budget first."""
+        but lets every admitted request decode out its budget first. The
+        periodic prefix dump stops first; the registry and the pool
+        outlive the close, so a dump after it still reads them."""
+        if self._persist_stop is not None:
+            self._persist_stop.set()
+            self._persist_thread.join(timeout=60)
         with self._work:
             if drain:
                 self._draining = True
@@ -407,9 +439,22 @@ class PagedGenerationServer:
         return not self._closed
 
     def stats(self) -> dict:
+        """Counters and gauges. ``prefill_s`` / ``decode_s`` are host
+        spans (see ``__init__``); ``prefill_device_s`` /
+        ``decode_device_s`` are the device's seconds in prefill-chunk
+        replays and in window and spec-window replays, from CUDA events
+        around each (0 on the CPU, and for a single step or per-pass
+        verify, which run eagerly)."""
         with self._work:
+            # Never waits on the device under the lock: a replay still
+            # running counts at a later call.
+            device_s = self._cache.device_seconds(wait=False)
             return {
                 "slots": self._cache.slots,
+                "bucket": self._cache.bucket,
+                "bucket_min": self._cache.min_bucket,
+                "bucket_steps_up": self._cache.bucket_steps["up"],
+                "bucket_steps_down": self._cache.bucket_steps["down"],
                 "pages_total": self._pages_total,
                 "reserved_pages": self._reserved,
                 "page_low_watermark": self._page_low_wm,
@@ -426,6 +471,8 @@ class PagedGenerationServer:
                 "stop_finishes": self._stop_finishes,
                 "prefill_s": self._prefill_s,
                 "decode_s": self._decode_s,
+                "prefill_device_s": device_s["prefill"],
+                "decode_device_s": device_s["decode"],
                 "page_accounting": self._cache.page_accounting(),
                 "spec_window_fallbacks": dict(self._spec_window_fallbacks),
                 **self._prefix_stats_locked(),
@@ -687,6 +734,7 @@ class PagedGenerationServer:
             # it at a boundary.
             ticket = self._sched.enqueue_locked(req, priority, pages_needed)
             req.ticket_no = ticket.no
+            self.requests_queued += 1
             if (not self._free_slots
                     or self._reserved + pages_needed > self._pages_total):
                 # Actually parking: wake the decode loop so its next
@@ -718,7 +766,8 @@ class PagedGenerationServer:
                             and self._sched.bypass_ok_locked(ticket)
                         )
                     if (at_head and self._free_slots
-                            and self._reserved + price <= self._pages_total):
+                            and self._reserved + price <= self._pages_total
+                            and self._ensure_bucket_locked()):
                         break
                     remaining = deadline - time.monotonic()
                     if remaining <= 0:
@@ -787,6 +836,9 @@ class PagedGenerationServer:
                         raise RequestCancelled("request cancelled during "
                                                "prefill")
                     t0 = time.perf_counter()
+                    # The chunk's logits are this request's own (the cache
+                    # copies them out of the graph's static output), so
+                    # the pick below may take another lock hold.
                     logits = self._cache.prefill_chunk(self._params, slot,
                                                        piece, off)
                     self._prefill_s += time.perf_counter() - t0
@@ -821,7 +873,8 @@ class PagedGenerationServer:
     def _capacity_text_locked(self) -> str:
         """Page-capacity terms for refusal messages."""
         free = self._pages_total - self._reserved
-        return f"{free}/{self._pages_total} pages unreserved"
+        return (f"{free}/{self._pages_total} pages unreserved, "
+                f"bucket {self._cache.bucket}/{self._cache.slots} rows")
 
     def _page_shed_locked(self, priority: str,
                           pages_needed: int) -> dict | None:
@@ -851,6 +904,50 @@ class PagedGenerationServer:
             return True
         free_after = self._pages_total - self._reserved - pages_needed
         return free_after >= self._page_high_wm * self._pages_total
+
+    def _ensure_bucket_locked(self) -> bool:
+        """Admission's bucket clause: True iff a free slot inside the
+        current device bucket exists. When every free slot lies above
+        the bucket, resize at once if nothing is in flight (the serial
+        loop, or an idle pipeline); otherwise flag the step-up for the
+        decode loop's next boundary and keep the caller parked (the
+        resize wakes it)."""
+        if self._free_slots and self._free_slots[0] < self._cache.bucket:
+            return True
+        if not self._free_slots:
+            return False
+        # With nothing dispatched the resize is safe here: the loop's
+        # next dispatch at a boundary feeds host tokens, so the carry
+        # set_bucket drops was dead anyway.
+        if self._inflight is None and not self._cache.spec_pending():
+            self._cache.set_bucket(
+                self._cache.bucket_for(self._free_slots[0] + 1))
+            return True
+        self._bucket_step_wanted = True
+        self._work.notify_all()
+        return False
+
+    def _maybe_step_bucket_locked(self) -> None:
+        """Resize the device batch dim at a boundary: UP when an
+        admission parked on a row above the bucket, DOWN when the
+        occupied slots have drained out of the bucket's top half and
+        nothing is queued. Nothing in flight; a no-op with bucketing
+        off."""
+        if not self._cache.min_bucket or self._inflight is not None:
+            return
+        if self._cache.spec_pending():
+            return
+        bucket = self._cache.bucket
+        want = self._cache.rows_in_use()
+        if self._bucket_step_wanted and self._free_slots:
+            want = max(want, self._free_slots[0] + 1)
+        self._bucket_step_wanted = False
+        target = self._cache.bucket_for(want)
+        if target > bucket or (target < bucket
+                               and self._sched.head_locked() is None):
+            self._cache.set_bucket(target)
+            self._sched.wake_head_locked()
+            self._work.notify_all()
 
     # ---- the prefix registry (lock held for every method here) ----------
 
@@ -959,10 +1056,34 @@ class PagedGenerationServer:
                 entry = {"pages": held, "last_used": time.monotonic()}
                 self._prefix_nodes[node]["entry"] = entry
                 self._prefix_entry_nodes[node] = entry
+                self._prefix_registrations += 1
                 if self._prefix_nodes[node]["host"] is not None:
                     # The live pages supersede the host copy (the bytes
                     # are the same); keeping both would bill twice.
                     self._drop_host_record_locked(node)
+
+    def _insert_prefix_entry(self, tokens: list[int], pages) -> int:
+        """Attach ONE registry entry holding ``pages`` at the trie node
+        for ``tokens`` (whole blocks), creating path nodes as needed.
+        The caller's page references (``allocate_pinned_page``, or a
+        retain) BECOME the entry's pin. When the node already has an
+        entry, that one stays and the caller's references are released.
+        Returns the node id."""
+        page = self._cache.page_size
+        node = 0
+        for k in range(1, len(tokens) // page + 1):
+            node = self._trie_child(
+                node, tuple(tokens[(k - 1) * page:k * page]))
+        if self._prefix_nodes[node]["entry"] is not None:
+            self._cache.release_pages(pages)
+            return node
+        entry = {"pages": list(pages), "last_used": time.monotonic()}
+        self._prefix_nodes[node]["entry"] = entry
+        self._prefix_entry_nodes[node] = entry
+        self._prefix_registrations += 1
+        if self._prefix_nodes[node]["host"] is not None:
+            self._drop_host_record_locked(node)
+        return node
 
     def _prune_prefix_upward(self, node: int) -> None:
         """Drop edge-less, entry-less, host-less nodes upward."""
@@ -1050,6 +1171,7 @@ class PagedGenerationServer:
         self._prefix_host_nodes.pop(node)
         self._prefix_host_bytes -= rec["nbytes"]
         self._prefix_promotions += 1
+        self._prefix_registrations += 1
         return node, tuple(pages), n * self._cache.page_size
 
     def _evict_prefixes_for(self, needed_free: int, keep=()) -> None:
@@ -1076,6 +1198,131 @@ class PagedGenerationServer:
             )
             self._evict_prefix_node(victim, "pressure")
         return self._cache.free_pages() >= needed
+
+    # ---- prefix persistence ----------------------------------------------
+
+    # The registry outlives the pod: dump writes the tokens and K/V of
+    # every pool-resident entry to an .npz (a JSON doc and fp32 K/V, no
+    # framework in it, so the JAX package's server reads it too, and
+    # writes what this one reads); load re-pins them into a fresh
+    # server. K/V are valid only for the params that made them: the
+    # caller's fingerprint names them, and a file with another one is
+    # ignored.
+
+    def dump_prefix_cache(self, path: str, fingerprint: str) -> int:
+        """Write the registry's pool-resident entries to ``path``. Returns
+        the entries written (0 = none registered, no file touched). Only
+        the pages' device gather runs under the lock; the copy to the
+        host (as stored: int8 and its scales for an int8 pool) and the
+        dequantization to fp32 run outside it, and the file lands by an
+        atomic ``os.replace``."""
+        with self._work:
+            entries = [
+                {"tokens": self._node_tokens(node),
+                 "pages": list(entry["pages"])}
+                for node, entry in self._prefix_entry_nodes.items()
+            ]
+            if not entries:
+                return 0
+            page_ids = sorted({p for e in entries for p in e["pages"]})
+            snapshot = self._cache.snapshot_pages(page_ids)
+        pool_k, pool_v = (t.numpy() for t in
+                          self._cache.snapshot_to_host(snapshot))
+        doc = {"fingerprint": fingerprint,
+               "page_size": self._cache.page_size,
+               "entries": entries, "page_ids": page_ids}
+        tmp = f"{path}.tmp"
+        with self._dump_lock:
+            with open(tmp, "wb") as f:
+                np.savez(f, doc=np.frombuffer(json.dumps(doc).encode(),
+                                              np.uint8),
+                         pool_k=pool_k, pool_v=pool_v)
+            os.replace(tmp, path)
+        return len(entries)
+
+    def load_prefix_cache(self, path: str, fingerprint: str) -> int:
+        """Re-pin a dumped registry into this fresh server; returns the
+        entries loaded. 0, with the reason printed, when the file is
+        absent, unreadable or stale (another fingerprint or page size),
+        or the registry already holds entries (boot time only). Entries
+        load ancestors first, so nested prefixes share pages as they did
+        live, with one reference per entry per page; an entry whose new
+        pages the free list cannot cover is skipped, later ones still
+        load, and nothing is evicted."""
+        if not os.path.exists(path):
+            return 0
+        try:
+            with np.load(path) as data:
+                # The doc first: a stale file's K/V are never read.
+                doc = json.loads(bytes(data["doc"]).decode())
+                if (doc.get("fingerprint") != fingerprint
+                        or doc.get("page_size") != self._cache.page_size):
+                    print(f"[kvedge-serve] ignoring stale prefix cache "
+                          f"{path} (fingerprint/page-size changed)",
+                          flush=True)
+                    return 0
+                pool_k, pool_v = data["pool_k"], data["pool_v"]
+        except Exception as e:  # a torn or foreign file: start cold
+            print(f"[kvedge-serve] ignoring unreadable prefix cache "
+                  f"{path}: {e!r}", flush=True)
+            return 0
+        old_pos = {p: i for i, p in enumerate(doc["page_ids"])}
+        loaded = 0
+        with self._work:
+            if (not self._prefix_enabled or self._closed
+                    or self._prefix_entry_nodes):
+                return 0
+            remap: dict[int, int] = {}
+            writes: list[tuple[int, int]] = []  # (new id, dump position)
+            for e in sorted(doc["entries"], key=lambda e: len(e["tokens"])):
+                fresh = {p for p in e["pages"] if p not in remap}
+                if len(fresh) > self._cache.free_pages():
+                    continue
+                for p in sorted(fresh):
+                    new = self._cache.allocate_pinned_page()
+                    remap[p] = new
+                    writes.append((new, old_pos[p]))
+                # A fresh page's count 1 is this entry's pin; a page an
+                # earlier entry loaded takes one more.
+                self._cache.retain_pages(
+                    [remap[p] for p in e["pages"] if p not in fresh])
+                self._insert_prefix_entry(
+                    e["tokens"], [remap[p] for p in e["pages"]])
+                loaded += 1
+            if writes:
+                pos = [i for _, i in writes]
+                self._cache.write_pages([w for w, _ in writes],
+                                        pool_k[:, pos], pool_v[:, pos])
+        return loaded
+
+    def start_prefix_persistence(self, path: str, fingerprint: str,
+                                 interval: float = 30.0) -> None:
+        """Dump the registry to ``path`` every ``interval`` seconds while
+        entries have registered since the last dump, so a pod killed
+        without a drain keeps its warm prefixes. A daemon thread, which
+        holds the server lock only inside each dump; :meth:`close` stops
+        it. Once per server."""
+        if self._persist_stop is not None:
+            raise RuntimeError("prefix persistence already started")
+        self._persist_stop = threading.Event()
+
+        def loop() -> None:
+            dumped_at = 0
+            while not self._persist_stop.wait(interval):
+                with self._work:
+                    registered = self._prefix_registrations
+                if registered == dumped_at:
+                    continue
+                try:
+                    self.dump_prefix_cache(path, fingerprint)
+                    dumped_at = registered
+                except Exception as e:  # a dump never stops serving
+                    print(f"[kvedge-serve] periodic prefix-cache dump "
+                          f"failed: {e!r}", flush=True)
+
+        self._persist_thread = threading.Thread(
+            target=loop, name="kvedge-torch-prefix-persist", daemon=True)
+        self._persist_thread.start()
 
     # ---- finishing -------------------------------------------------------
 
@@ -1433,6 +1680,16 @@ class PagedGenerationServer:
                     or self._reserved + head.pages_needed > self._pages_total
                     or not self._resume_pages_ok_locked(head.pages_needed)):
                 return
+            if self._free_slots[0] >= self._cache.bucket:
+                # The resume row lies above the bucket: step up now when
+                # nothing is in flight, else at the next boundary.
+                if (self._inflight is None
+                        and not self._cache.spec_pending()):
+                    self._cache.set_bucket(
+                        self._cache.bucket_for(self._free_slots[0] + 1))
+                else:
+                    self._bucket_step_wanted = True
+                    return
             arrays = head.arrays
             self._sched.pop_resume_locked(head)
             req = head.req
@@ -1526,6 +1783,7 @@ class PagedGenerationServer:
                 # freed capacity, then preempt for a starved head.
                 self._maybe_resume_locked()
                 self._maybe_preempt_locked()
+                self._maybe_step_bucket_locked()
                 if not self._active:
                     return "ran"
                 if (self._spec > 0
@@ -1641,6 +1899,7 @@ class PagedGenerationServer:
                     # flight and every row's tokens are reconciled.
                     self._maybe_resume_locked()
                     self._maybe_preempt_locked()
+                    self._maybe_step_bucket_locked()
                     if not self._active:
                         return "ran"
                     self._boundary_dispatch_locked()
@@ -1716,13 +1975,15 @@ class PagedGenerationServer:
         that the in-flight window never dispatched (a newcomer: it joins
         at a boundary, where its first token is host-known; the carry
         row of a slot that sat out is garbage), when stop finishes wait
-        for one, or when the scheduler's head could resume or has a
-        victim to preempt (the swap joins at a boundary)."""
+        for one, when the scheduler's head could resume or has a victim
+        to preempt (the swap joins at a boundary), or when a bucket step
+        waits (the batch dim resizes with nothing in flight)."""
         dispatched = {slot for slot, _, _ in prev["parts"]}
         for slot, req in self._active.items():
             if req.cancelled or slot not in dispatched:
                 return True
-        return (self._stops_pending > 0
+        return (self._bucket_step_wanted
+                or self._stops_pending > 0
                 or self._sched_attention_locked(ignore_inflight=True))
 
     def _dispatch_window_locked(self, first: bool) -> dict | None:

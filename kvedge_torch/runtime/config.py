@@ -10,14 +10,19 @@ same names and defaults, for the subset the ported payloads run:
                ("" = "naive" | "flash"), corpus, eval_corpus, steps,
                batch, checkpoint_every; for serving: serving ("" =
                "contiguous" | "paged"), paged_attention, serving_slots,
-               serving_page_size, serving_pages, serving_prefill_chunk,
-               serving_window, serving_kv_dtype, serving_overlap
-               ("auto" | "on" | "off"), serving_speculative (a draft
-               length 0..16 or "auto"), serving_spec_window (0..64),
-               serving_spec_sampled_window (bool); the prefix cache:
-               serving_prefix_cache (bool, default true),
-               serving_prefix_host_mb, serving_prefix_persist (false
-               only: persistence is not ported); the admission
+               serving_page_size, serving_pages, serving_hbm_budget_mb
+               (the pool sized from a byte budget instead of
+               serving_pages), serving_min_bucket (the device batch
+               dim's smallest bucket, 0 = pinned to serving_slots),
+               serving_prefill_chunk, serving_window, serving_kv_dtype,
+               serving_overlap ("auto" | "on" | "off"),
+               serving_speculative (a draft length 0..16 or "auto"),
+               serving_spec_window (0..64), serving_spec_sampled_window
+               (bool); the prefix cache: serving_prefix_cache (bool,
+               default true), serving_prefix_host_mb,
+               serving_prefix_persist (bool, default true: the registry
+               is reloaded from <state_dir>/prefix-cache.npz at boot and
+               dumped there every 30 s and at shutdown); the admission
                scheduler: serving_sched_policy ("strict" | "weighted" |
                "fifo"), serving_sched_weights ("class=weight,..."),
                serving_sched_max_queue_depth,
@@ -27,9 +32,8 @@ same names and defaults, for the subset the ported payloads run:
     [status]   port, bind
 
 Any other section or key is REFUSED with its name, not ignored: a knob
-the port does not implement (buckets, the journal, the SLO engine,
-tracing, the window autotune, ...) would otherwise silently change
-nothing.
+the port does not implement (the journal, the SLO engine, tracing,
+the window autotune, ...) would otherwise silently change nothing.
 """
 
 from __future__ import annotations
@@ -65,6 +69,8 @@ _PAYLOAD_KEYS = {
     "serving_slots": "serving_slots",
     "serving_page_size": "serving_page_size",
     "serving_pages": "serving_pages",
+    "serving_hbm_budget_mb": "serving_hbm_budget_mb",
+    "serving_min_bucket": "serving_min_bucket",
     "serving_prefill_chunk": "serving_prefill_chunk",
     "serving_window": "serving_window",
     "serving_kv_dtype": "serving_kv_dtype",
@@ -120,6 +126,13 @@ class RuntimeConfig:
     serving_slots: int = 4
     serving_page_size: int = 16
     serving_pages: int = 0  # 0 = every slot can hold a max_seq request
+    # The pool sized from a byte budget (MiB, 0 = off) instead: pages =
+    # budget // the bytes one page costs. Exclusive with serving_pages.
+    serving_hbm_budget_mb: int = 0
+    # The device batch dim runs at a power-of-two bucket from this one
+    # up, capped at serving_slots, stepping with the occupied slots at
+    # quiescent boundaries (0 = pinned to serving_slots).
+    serving_min_bucket: int = 0
     serving_prefill_chunk: int = 64
     serving_window: int = 64
     serving_kv_dtype: str = ""
@@ -149,10 +162,11 @@ class RuntimeConfig:
     # go to a host tier of serving_prefix_host_mb MB (0 = dropped).
     serving_prefix_cache: bool = True
     serving_prefix_host_mb: int = 0
-    # Prefix persistence across restarts is not ported: only false is
-    # accepted (the reference defaults it to true; the serve payload
-    # says so at boot).
-    serving_prefix_persist: bool = False
+    # Prefix persistence across restarts (with the prefix cache on and a
+    # state_dir): <state_dir>/prefix-cache.npz re-pins at boot, is
+    # dumped every 30 s while entries register, and once more after
+    # shutdown.
+    serving_prefix_persist: bool = True
     # The admission scheduler: "strict" admits the best class first
     # (FIFO within one), "weighted" shares by serving_sched_weights,
     # "fifo" ignores classes. The queue watermarks shed at submit (0 =
@@ -269,11 +283,6 @@ class RuntimeConfig:
         if not isinstance(self.serving_prefix_persist, bool):
             raise RuntimeConfigError(
                 "[payload] serving_prefix_persist must be a boolean")
-        if self.serving_prefix_persist:
-            raise RuntimeConfigError(
-                "[payload] serving_prefix_persist = true is not supported "
-                "by the PyTorch port: prefix persistence is not ported "
-                "yet; set it to false")
         if self.serving_prefix_host_mb < 0:
             raise RuntimeConfigError(
                 "[payload] serving_prefix_host_mb must be >= 0 "
@@ -309,6 +318,24 @@ class RuntimeConfig:
                     or value < 0:
                 raise RuntimeConfigError(
                     f"{name} must be a non-negative integer, got {value!r}")
+        for name in ("serving_hbm_budget_mb", "serving_min_bucket"):
+            value = getattr(self, name)
+            if not isinstance(value, int) or isinstance(value, bool):
+                raise RuntimeConfigError(
+                    f"[payload] {name} must be an integer, got {value!r}")
+        if self.serving_hbm_budget_mb < 0:
+            raise RuntimeConfigError(
+                "[payload] serving_hbm_budget_mb must be >= 0 "
+                "(0 = off; size the pool by serving_pages instead)")
+        if self.serving_hbm_budget_mb > 0 and self.serving_pages > 0:
+            raise RuntimeConfigError(
+                "[payload] serving_hbm_budget_mb and serving_pages are "
+                "mutually exclusive — two sources of truth for one "
+                "page pool; set one and leave the other 0")
+        if self.serving_min_bucket < 0:
+            raise RuntimeConfigError(
+                "[payload] serving_min_bucket must be >= 0 (0 = off: "
+                "the device batch dim is pinned to serving_slots)")
         for name in ("state_dir", "checkpoint_dir", "train_corpus",
                      "eval_corpus", "payload_attention"):
             if not isinstance(getattr(self, name), str):

@@ -15,7 +15,12 @@ backend ``priority`` (a class of the scheduler's, ``interactive`` by
 default) and ``deadline_ms`` go to the server's admission scheduler,
 which the ``serving_sched_*`` and ``serving_page_*_watermark`` knobs
 set, beside the prefix cache (``serving_prefix_cache``,
-``serving_prefix_host_mb``). The paged
+``serving_prefix_host_mb``; with ``serving_prefix_persist`` and a
+state directory its registry reloads from
+``<state_dir>/prefix-cache.npz`` at boot and is dumped there every 30 s
+and after shutdown) and the bucketed batch (``serving_min_bucket``);
+the pool holds ``serving_pages`` pages, or as many as
+``serving_hbm_budget_mb`` buys. The paged
 backend speculates server-wide instead (``serving_speculative``,
 ``serving_spec_window``, ``serving_spec_sampled_window``): a draft
 length > 0 runs the boot probe (``resolve_speculation``), which turns
@@ -58,8 +63,10 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import os
 import queue
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -73,8 +80,13 @@ from kvedge_torch.models.serving import (
     ServerBusy,
     ServerClosed,
 )
+from kvedge_torch.models.transformer import torch_dtype
 from kvedge_torch.models.weights import params_from_numpy
-from kvedge_torch.runtime.config import ServeConfig, _spec_draft_len
+from kvedge_torch.runtime.config import (
+    RuntimeConfigError,
+    ServeConfig,
+    _spec_draft_len,
+)
 from kvedge_torch.runtime.devicecheck import resolve_device, run_device_check
 from kvedge_torch.runtime.train import restore_latest_params
 
@@ -87,21 +99,53 @@ class GenerateUnavailable(RuntimeError):
     """Capacity or lifecycle refusal: the client should retry (503)."""
 
 
+def _serving_page_bytes(cfg: ServeConfig, tcfg: TransformerConfig) -> int:
+    """Device bytes ONE pool page costs: the K and V slabs of every
+    layer (``[n_layers, page_size, kv_heads, d_head]`` each) at the
+    pool's dtype, plus the two fp32 scale slabs of an int8 pool; what
+    ``PagedKVCache`` allocates a page, the reference's arithmetic."""
+    itemsize = (1 if cfg.serving_kv_dtype == "int8"
+                else torch_dtype(tcfg.dtype).itemsize)
+    row = tcfg.n_layers * cfg.serving_page_size * tcfg.kv_heads
+    per_page = row * tcfg.d_head * itemsize * 2  # K + V
+    if cfg.serving_kv_dtype == "int8":
+        per_page += row * 4 * 2  # fp32 scale_k + scale_v
+    return per_page
+
+
 def _serving_pool_dims(cfg: ServeConfig, tcfg: TransformerConfig
                        ) -> tuple[int, int, int, int]:
-    """``(slots, pages, page_size, max_pages_per_seq)``. ``serving_pages
+    """``(slots, pages, page_size, max_pages_per_seq)``, the reference's
+    derivation, so both packages admit the same traffic. ``serving_pages
     = 0`` sizes the pool so every slot can hold a max_seq request plus
-    the draft slack a verify pass writes past a greedy request's
-    budget."""
+    the draft slack a verify pass writes past a greedy request's budget.
+    ``serving_hbm_budget_mb`` sizes it from a byte budget instead: the
+    pages the budget buys at :func:`_serving_page_bytes`, floored; fewer
+    than ``slots`` worst-case requests is deliberate oversubscription
+    (admission waits on pages), fewer than ONE fails here. The port's
+    pool holds one page more than these, the sink non-live rows write
+    to, so it takes one page's bytes past the budget."""
     slots, page_size = cfg.serving_slots, cfg.serving_page_size
     mpps = -(-(tcfg.max_seq + _spec_draft_len(cfg)) // page_size)
-    pages = cfg.serving_pages or slots * mpps
+    if cfg.serving_hbm_budget_mb:
+        pages = ((cfg.serving_hbm_budget_mb * 2**20)
+                 // _serving_page_bytes(cfg, tcfg))
+        if pages < mpps:
+            raise RuntimeConfigError(
+                f"serving_hbm_budget_mb = {cfg.serving_hbm_budget_mb} "
+                f"buys {pages} pages, but one worst-case request needs "
+                f"{mpps} (max_seq {tcfg.max_seq} + draft slack at page "
+                f"size {page_size}); raise the budget or shrink max_seq"
+            )
+    else:
+        pages = cfg.serving_pages or slots * mpps
     return slots, pages, page_size, mpps
 
 
 def _serve_max_rows(cfg: ServeConfig, tcfg: TransformerConfig) -> int:
     """Row ceiling of one request: 4 waves of the pool's worst-case
-    concurrency."""
+    concurrency (the full-length requests the pages hold at once,
+    capped at the slots)."""
     slots, pages, _, mpps = _serving_pool_dims(cfg, tcfg)
     return 4 * max(1, min(slots, pages // mpps))
 
@@ -246,6 +290,12 @@ class ServeRuntime:
         self.paged = cfg.payload_serving == "paged"
         self.server = None
         self.spec_decision = None
+        # The prefix registry's file and the fingerprint of the weights
+        # its K/V belong to (None: persistence off).
+        self.prefix_path = None
+        self.prefix_fingerprint = None
+        # The boot-time load: {"entries": n, "seconds": s}.
+        self.prefix_load = None
         spec_draft = _spec_draft_len(cfg)
         # The contiguous backend decodes one request at a time.
         self._generate_lock = threading.Lock()
@@ -270,13 +320,8 @@ class ServeRuntime:
                 spec_window=(cfg.serving_spec_window if spec_draft > 0
                              else 0),
                 spec_sampled_window=cfg.serving_spec_sampled_window,
+                min_bucket=cfg.serving_min_bucket,
             )
-            if cfg.serving_prefix_cache:
-                print("[kvedge-serve] prefix persistence is not ported "
-                      "yet: the prefix cache starts empty and is not "
-                      "saved at shutdown (the reference's "
-                      "serving_prefix_persist defaults to true)",
-                      flush=True)
             if spec_draft > 0:
                 # Measure this card's verify pass and window before
                 # traffic: "auto" turns speculation off when windows beat
@@ -289,6 +334,9 @@ class ServeRuntime:
                       f"vs windowed "
                       f"{self.spec_decision['windowed_tokens_per_sec']}/s "
                       f"per slot)", flush=True)
+            if (cfg.serving_prefix_persist and cfg.serving_prefix_cache
+                    and cfg.state_dir):
+                self._start_prefix_persistence()
         # Rows submit together on a bounded pool (2 x slots workers):
         # excess rows queue here instead of spawning threads.
         self._rows = concurrent.futures.ThreadPoolExecutor(
@@ -297,6 +345,28 @@ class ServeRuntime:
         self._http_thread = None
         if port is not None:
             self._start_http(host or cfg.status_bind, port)
+
+    def _start_prefix_persistence(self) -> None:
+        """Re-pin the previous run's prefix registry, then dump it every
+        30 s while it changes (the reference's wiring and fingerprint:
+        the checkpoint step and the model's geometry and dtype)."""
+        t = self.tcfg
+        self.prefix_path = os.path.join(self.cfg.state_dir,
+                                        "prefix-cache.npz")
+        self.prefix_fingerprint = (
+            f"step={self.restored_step} {t.vocab}v {t.d_model}d "
+            f"{t.n_heads}h {t.kv_heads}kv {t.n_layers}L {t.d_ff}ff "
+            f"{t.max_seq}T {t.dtype}")
+        t0 = time.perf_counter()
+        n = self.server.load_prefix_cache(self.prefix_path,
+                                          self.prefix_fingerprint)
+        self.prefix_load = {"entries": n,
+                            "seconds": time.perf_counter() - t0}
+        if n:
+            print(f"[kvedge-serve] re-pinned {n} prefix-cache entries "
+                  f"from {self.prefix_path}", flush=True)
+        self.server.start_prefix_persistence(
+            self.prefix_path, self.prefix_fingerprint, interval=30.0)
 
     @property
     def port(self) -> int:
@@ -562,6 +632,15 @@ class ServeRuntime:
             self._http_thread.join(timeout=30)
         if self.server is not None:
             self.server.close(drain=drain)
+            if self.prefix_path:
+                # After the close: a drain's late finishes register too,
+                # and the registry and pool outlive it. Best effort.
+                try:
+                    self.server.dump_prefix_cache(self.prefix_path,
+                                                  self.prefix_fingerprint)
+                except Exception as e:
+                    print(f"[kvedge-serve] prefix-cache dump failed: "
+                          f"{e!r}", flush=True)
         with self._generate_lock:
             self._closed = True
         self._rows.shutdown(wait=True)

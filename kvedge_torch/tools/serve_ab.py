@@ -10,7 +10,8 @@ parent to cancel drift), a fresh process in that directory boots the
 serve runtime of ``chip_smoke.serve_burst`` (flagship, bf16, 4 slots,
 page 16, window 64, the warm-ups that capture its graphs), runs the
 serve phase's burst of 9 requests, then ``--bursts`` more on the same
-runtime, and prints one JSON line: per burst the decode tokens/s, wall,
+runtime, in a fixed admission order where the tree's ``run_burst``
+takes one, and prints one JSON line: per burst the decode tokens/s, wall,
 ``prefill_s``, ``decode_s``, decode steps and the prefix counters,
 beside the card's name and power limit. Needs one CUDA card.
 
@@ -44,6 +45,7 @@ cs.CARD["card"] = cs.nvidia_smi()
 kw = ({"prefix_cache": True}
       if "prefix_cache" in inspect.signature(cs.serve_burst).parameters
       else {})
+ordered = "queued" in inspect.signature(cs.run_burst).parameters
 doc, _, rt = cs.serve_burst(torch, np, pa, serve, ServeConfig, overlap,
                             "cuda", "flagship", 2048, **kw)
 PREFIX = ("prefix_hits", "prefix_tokens_saved", "prefix_entries",
@@ -62,7 +64,9 @@ try:
         reqs = [{**r, "tokens": [[(t + 7919 * b) % vocab for t in row]
                                  for row in r["tokens"]]} for r in base]
         s0 = rt.server.stats()
-        res, _, wall = cs.run_burst(url, reqs)
+        res, _, wall = cs.run_burst(
+            url, reqs, **({"queued": lambda: rt.server.requests_queued}
+                          if ordered else {}))
         s1 = rt.server.stats()
         cs.check(all(code == 200 for code, _ in res), "a burst request failed")
         out.append({"tokens_per_s": gen / wall, "wall_s": wall,

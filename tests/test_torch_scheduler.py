@@ -364,7 +364,6 @@ def test_a_shed_is_a_503_with_the_refusal_text(tmp_path, capsys):
     rt = ServeRuntime(cfg, device="cpu", dtype="float32", seed=3,
                       host="127.0.0.1", port=0)
     try:
-        assert "prefix persistence is not ported" in capsys.readouterr().out
         url = f"http://127.0.0.1:{rt.port}/generate"
         body = {"tokens": [[1, 2, 3]], "n_new": 40}
         code, doc = _post(url, dict(body, priority="batch"))
@@ -438,8 +437,9 @@ def test_new_keys_fail_as_the_reference(text, match):
 
 def test_prefix_persistence_and_other_left_out_knobs_are_refused():
     assert JaxConfig.parse("").serving_prefix_persist is True
-    for text, match in (("serving_prefix_persist = true\n", "not ported"),
-                        ("serving_min_bucket = 4\n", "serving_min_bucket"),
+    assert ServeConfig.parse("").serving_prefix_persist is True
+    for text, match in (("serving_hbm_budget_mb = 64\nserving_pages = 32\n",
+                         "mutually exclusive"),
                         ("serving_checkpoint_every = 2\n",
                          "serving_checkpoint_every"),
                         ("serving_slo = true\n", "serving_slo"),
