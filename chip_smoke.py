@@ -160,6 +160,46 @@ imports nothing of JAX. Phases, each printing one JSON line:
             timed dump, close; a fresh runtime re-pins the file at boot
             (timed): entries dumped == loaded, the same request is a hit
             with the cold tokens; the file's bytes.
+6h. recovery  degraded mode, revive and the recovery supervisor through
+            the serve payload (``serving_checkpoint_every = 16``, the
+            supervisor on), with faults armed on the live cache
+            (``kvedge_torch.testing.servingfaults``): (a) the serve
+            phase's traffic at 8 layers, bf16, overlap "auto" (two of its
+            requests streamed), after a burst that captures its chunk
+            lengths and a clean burst at checkpoints 0 and at 16 (f: their
+            tokens/s, and the ms and gathered bytes of each checkpoint); a
+            raise at a window dispatch, then in a second burst at a
+            harvest, each at the first such seam once a request is
+            journaled. B1's count is zeroed before the two fault bursts
+            and read after them. Gates: every request ends restored (or
+            untouched) or with a typed 503 / stream error of a poisoned
+            pool, each stream's tokens arrive exactly once, the
+            supervisor heals (recovery seconds and requests restored
+            printed), the pool is at its idle fixpoint, every graph held
+            when the revive began is still stored under its key, the same
+            object, once the restored rows have decoded (a revive that
+            dropped or recaptured one fails), and over the whole burst
+            ``graph_stats()`` shows no graph and no capture second added;
+            the bf16 responses' agreement with the clean burst printed.
+            At 2 layers fp32 with the prefix cache on, after a burst that
+            captures its chunk lengths, every completed request equals
+            its run alone bit for bit and the registry's pages are
+            counted at rest. (b) after a clean contention burst, a raise
+            at its swap-out (the preemption) and at its swap-in (the
+            resume), 2 layers: healed, the idle fixpoint, and a request
+            after the heal served by the graphs held at the revive.
+            (c) a poisoned pool's emergency prefix dump is intact, a
+            fresh server loads all its entries and the healed one re-pins
+            them. (d) a revive whose params re-restore returns other
+            weights: the served tensors keep their addresses and graphs,
+            and a request's tokens equal a fresh runtime's on those
+            weights. (e) in a child process (``--sticky-child``), a seam
+            launching an out-of-range ``index_select`` (a device-side
+            assert): the supervisor ends terminal within its 2 attempts,
+            no heal recorded, the prefix file intact, the child done
+            inside its limit. (g) a window capture made to fail by a host
+            sync inside it: no graph stored, the caller's stream current,
+            and the next dispatch captures and equals eager bit for bit.
 7. timings  CUDA-event times at the serve phase's decode shapes (L2
             flushed before each launch): the kernel, its plain version,
             ``F.scaled_dot_product_attention`` over the gathered K/V as a
@@ -2115,6 +2155,755 @@ def phase_persist(torch, np, serve, ServeConfig, device="cuda",
     return doc
 
 
+# ---- phase 6h: recovery -------------------------------------------------
+
+RECOVERY_DIR = os.path.join(HERE, "build", "chip_smoke_recovery")
+RECOVERY_CKPT = 16      # serving_checkpoint_every of the recovery phase
+FAULT_BURSTS = 4        # bursts a fault may take to find its seam
+STICKY_LIMIT_S = 240    # the sticky-fault child's wall limit
+
+
+def fire_when(sf, server, seams, ready):
+    """A FaultPlan that raises at the first crossing of ``seams`` at which
+    ``ready(server)`` holds (read under the server lock, which every
+    decode-loop seam holds)."""
+
+    class FireWhen(sf.FaultPlan):
+        def at_seam(self, label):
+            if (self.fired_on is None and label.startswith(self.seams)
+                    and ready(server)):
+                with self._lock:
+                    self.fire_at = self.count
+            super().at_seam(label)
+
+    return FireWhen(0, kinds=("raise",), fire_window=(10**9, 10**9 + 1),
+                    seams=seams)
+
+
+def recovery_cfg(ServeConfig, state_dir, **kw):
+    base = dict(preset="flagship", max_seq=2048, payload_serving="paged",
+                serving_overlap="auto", serving_slots=4,
+                serving_page_size=16, serving_prefill_chunk=64,
+                serving_window=64, serving_prefix_cache=False,
+                serving_prefix_persist=False,
+                serving_checkpoint_every=RECOVERY_CKPT,
+                serving_recovery_attempts=2, state_dir=state_dir)
+    return ServeConfig(**{**base, **kw})
+
+
+def fresh_dir(name):
+    import shutil
+
+    path = os.path.join(RECOVERY_DIR, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def idle_fixpoint(server) -> dict:
+    """The pool's books at rest: nothing active, reserved, leased, queued
+    or journaled, and every page free but the prefix registry's."""
+    st = server.stats()
+    acct = server._cache.page_accounting()
+    with server._lock:
+        pinned = {p for e in server._prefix_entry_nodes.values()
+                  for p in e["pages"]}
+        leased = len(server._lease)
+    ok = (st["active"] == 0 and st["reserved_pages"] == 0
+          and st["journal_entries"] == 0 and st["sched_swapped_out"] == 0
+          and leased == 0 and acct["live"] == len(pinned)
+          and acct["free"] + acct["live"] == acct["pages_total"]
+          and not (acct["free_dup"] or acct["neg_refs"]
+                   or acct["free_live"]))
+    return {"ok": ok, "free": acct["free"], "live": acct["live"],
+            "registry_pages": len(pinned), "pages_total": acct["pages_total"]}
+
+
+def graph_objects(cache) -> dict:
+    """Every captured graph under its (family, key)."""
+    return {(name, key): g
+            for name, graphs in (("window", cache._graphs),
+                                 ("spec", cache._spec_graphs),
+                                 ("prefill", cache._prefill_graphs))
+            for key, g in graphs.items()}
+
+
+def graph_counts(cache) -> dict:
+    g = cache.graph_stats()
+    return {k: g[k] for k in ("graphs", "capture_s", "spec_graphs",
+                              "spec_capture_s", "prefill_graphs",
+                              "prefill_capture_s")}
+
+
+def fault_burst(url, reqs, streamed, streams_first=False):
+    """Every request of ``reqs`` from a thread of its own, those indexed
+    in ``streamed`` as ndjson streams (``streams_first``: the others start
+    once every stream has 4 tokens). Returns per request ``(kind, tokens
+    or error, streamed rows)``: "ok" with the rows, "typed" for a 503 of a
+    poisoned pool, anything else as "bad"."""
+    out = [None] * len(reqs)
+    seen = {i: threading.Event() for i in streamed}
+
+    def one(i):
+        req = reqs[i]
+        if i in streamed:
+            def progress(n, i=i):
+                if n >= 4:
+                    seen[i].set()
+            try:
+                recs = stream_request(url, req, progress)
+            except urllib.error.HTTPError as e:
+                seen[i].set()
+                doc = json.loads(e.read())
+                out[i] = (("typed" if e.code == 503 and "poisoned"
+                           in doc.get("error", "") else "bad"), doc, None)
+                return
+            seen[i].set()
+            rows = [[] for _ in req["tokens"]]
+            for rec in recs:
+                if "token" in rec:
+                    rows[rec["row"]].append(rec["token"])
+            last = recs[-1] if recs else {}
+            if last.get("done") is True:
+                out[i] = ("ok", last["tokens"], rows)
+            else:
+                err = last.get("error", "")
+                out[i] = ("typed" if "PoolPoisoned" in err else "bad",
+                          err, rows)
+            return
+        code, doc = post(url, req)
+        if code == 200:
+            out[i] = ("ok", doc["tokens"], None)
+        elif code == 503 and "poisoned" in doc.get("error", ""):
+            out[i] = ("typed", doc.get("retry_after_s"), None)
+        else:
+            out[i] = ("bad", doc, None)
+
+    threads = {i: threading.Thread(target=one, args=(i,))
+               for i in range(len(reqs))}
+    order = (sorted(streamed) + [i for i in threads if i not in streamed]
+             if streams_first else list(threads))
+    for i in order:
+        if streams_first and i not in streamed:
+            for ev in seen.values():
+                ev.wait(300)
+        threads[i].start()
+        time.sleep(0.01)
+    for t in threads.values():
+        t.join(timeout=600)
+        check(not t.is_alive(), "a request never returned")
+    for ev in seen.values():
+        ev.set()
+    return out
+
+
+def judge_burst(results, reqs, vocab) -> dict:
+    """Every request ends restored (or untouched) or typed; each stream's
+    tokens arrive exactly once: the streamed rows ARE the generated part
+    of the final answer, with no token repeated or missing."""
+    typed = restored_or_ok = 0
+    for (kind, body, rows), req in zip(results, reqs):
+        check(kind != "bad", f"a request ended untyped: {body}")
+        if kind == "typed":
+            typed += 1
+            if rows is not None:
+                check(all(len(r) <= req["n_new"] for r in rows),
+                      "a failed stream over-emitted")
+            continue
+        restored_or_ok += 1
+        check_response({"tokens": body, "n_new": req["n_new"],
+                        "restored_step": None}, req, vocab)
+        if rows is not None:
+            check([p + r for p, r in zip(req["tokens"], rows)] == body,
+                  "a stream's tokens were not delivered exactly once")
+    return {"typed": typed, "completed": restored_or_ok}
+
+
+def settle(sup, dying) -> str:
+    """The supervisor's state once it has acted on the poison: it learns
+    of it on the dying decode thread, after the waiters failed, so that
+    thread's exit comes first."""
+    dying.join(timeout=120)
+    check(not dying.is_alive(), "the poisoned decode loop never exited")
+    state = sup.wait_settled(timeout=120)
+    if sup._worker is not None:
+        sup._worker.join(timeout=120)
+    return state
+
+
+def run_fault(sf, rt, url, reqs, streamed, seams, ready=None,
+              streams_first=False, whole_burst=False, after=None):
+    """Arm a plan on the live runtime's cache, run the burst (again, up to
+    FAULT_BURSTS times, while the fault has not fired), wait for the
+    supervisor to heal, then run ``after(url)`` if given. Every graph
+    held when the revive began must still be stored under its key, the
+    same object, once the restored rows (and ``after``) have decoded: a
+    revive that dropped or recaptured one fails. With ``whole_burst``
+    (every length captured before) no graph may be added over the whole
+    burst either. Returns the burst's results and numbers."""
+    server, sup = rt.server, rt.supervisor
+    ready = ready or (lambda s: len(s._journal) >= 1)
+    plan = fire_when(sf, server, seams, ready)
+    sf.FaultyCache.arm(server._cache, plan)
+    st0 = server.stats()
+    sup0 = sup.stats()
+    graphs0 = graph_counts(server._cache)
+    held = {}
+    revive = server.revive
+
+    def watched_revive(**kw):
+        # References, so a dropped graph's id is never reused.
+        held.update(graph_objects(server._cache))
+        return revive(**kw)
+
+    server.revive = watched_revive
+    dying = server._thread
+    # The seam may find no request journaled yet (checkpoints come every
+    # RECOVERY_CKPT quiescent boundaries, once or twice a burst): such a
+    # burst serves every request, and the next one runs.
+    for bursts in range(1, FAULT_BURSTS + 1):
+        results = fault_burst(url, reqs, streamed, streams_first)
+        if plan.fired_on is not None:
+            break
+        check(all(kind == "ok" for kind, _, _ in results),
+              "a burst the fault missed failed a request")
+    check(plan.fired_on is not None,
+          f"the {seams} fault never fired in {FAULT_BURSTS} bursts")
+    settled = settle(sup, dying)
+    del server.revive
+    check(settled == "healthy", f"the supervisor settled {settled}")
+    sf.FaultyCache.arm(server._cache, None)
+    if after is not None:
+        after(url)
+    st = server.stats()
+    sups = sup.stats()
+    fix = idle_fixpoint(server)
+    check(fix["ok"], f"the pool is not at its idle fixpoint: {fix}")
+    graphs = graph_counts(server._cache)
+    now = graph_objects(server._cache)
+    kept = [k for k, g in held.items() if now.get(k) is g]
+    check(sups["recoveries_total"] == sup0["recoveries_total"] + 1,
+          "no recovery was recorded")
+    check(held and len(kept) == len(held), f"the revive dropped or "
+          f"recaptured {len(held) - len(kept)} of {len(held)} graphs")
+    check(graphs == graphs0 or not whole_burst, f"graphs were added over "
+          f"the burst: {graphs0} -> {graphs}")
+    return results, {
+        "fired_on": plan.fired_on, "bursts": bursts,
+        "seam_crossings": plan.count,
+        "restored": st["journal_restores_total"]
+        - st0["journal_restores_total"],
+        "checkpoints": st["checkpoints_total"] - st0["checkpoints_total"],
+        "recovery_s": sups["last_recovery_s"],
+        "recovery_attempts": sups["recovery_attempts_total"]
+        - sup0["recovery_attempts_total"],
+        "idle_fixpoint": fix, "graphs_held_at_revive": len(held),
+        "graphs_kept_after_revive": len(kept),
+        "graphs_added_after_revive": len(set(now) - set(held)),
+        "graphs_unchanged_over_burst": graphs == graphs0, "graphs": graphs}
+
+
+def timed_checkpoints(server, cache):
+    """Time the server's boundary checkpoints that journaled something,
+    with the bytes their swap-out gathered."""
+    log = []
+    check_fn, swapout = server._maybe_checkpoint_locked, cache.swapout_pages
+    gathered = [0]
+
+    def gather(ids):
+        arrays = swapout(ids)
+        gathered[0] += sum(a.nbytes for a in arrays)
+        return arrays
+
+    def timed():
+        n0, gathered[0] = server._checkpoints_total, 0
+        t0 = time.perf_counter()
+        check_fn()
+        if server._checkpoints_total != n0:
+            log.append((time.perf_counter() - t0, gathered[0],
+                        server._checkpoints_total - n0))
+
+    server._maybe_checkpoint_locked = timed
+    cache.swapout_pages = gather
+
+    def undo():
+        del server._maybe_checkpoint_locked
+        del cache.swapout_pages
+    return log, undo
+
+
+def recovery_main_path(np, pa, serve, sf, ServeConfig):
+    """Parts a and f: the serve phase's traffic at 8 layers, bf16, overlap
+    "auto", checkpoints every 16 boundaries, the supervisor on. A clean
+    burst with checkpoints off and one at 16 (their cost), then a fault at
+    a window dispatch and one at a harvest, each mid-burst once a request
+    is journaled; B1 counted over the two fault bursts."""
+    state = fresh_dir("main")
+    rt = serve.ServeRuntime(recovery_cfg(ServeConfig, state), device="cuda",
+                            dtype="bfloat16", seed=0, host="127.0.0.1",
+                            port=0)
+    try:
+        server, vocab = rt.server, rt.tcfg.vocab
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        for warm in ({"tokens": [[1, 2, 3]], "n_new": 128},
+                     {"tokens": [[4, 5, 6]], "n_new": 128,
+                      "temperature": 0.7, "top_p": 0.9, "seed": 1}):
+            check(post(url, warm)[0] == 200, "warm-up request")
+        reqs = serve_requests(np, vocab)
+        gen = sum(r["n_new"] * len(r["tokens"]) for r in reqs)
+        # Capture every chunk length first (shifted ids, the same lengths).
+        burst, _, _ = run_burst(url, [
+            {**r, "tokens": [[(t + 104729) % vocab for t in row]
+                             for row in r["tokens"]]} for r in reqs],
+            queued=lambda: server.requests_queued)
+        check(all(c == 200 for c, _ in burst), "the capture burst failed")
+        cost = {}
+        clean = None
+        for every in (0, RECOVERY_CKPT):
+            server._checkpoint_every = every
+            log, undo = timed_checkpoints(server, server._cache)
+            res, _, wall = run_burst(url, reqs,
+                                     queued=lambda: server.requests_queued)
+            undo()
+            check(all(c == 200 for c, _ in res), "a clean burst failed")
+            if clean is None:
+                clean = [d["tokens"] for _, d in res]
+            cost[every] = {
+                "decode_tokens_per_s": gen / wall, "wall_s": wall,
+                "checkpoints": len(log),
+                "entries_journaled": sum(n for _, _, n in log),
+                "ms_per_checkpoint": (sum(t for t, _, _ in log) / len(log)
+                                      * 1e3) if log else None,
+                "bytes_per_checkpoint": (sum(b for _, b, _ in log)
+                                         / len(log)) if log else None}
+        pa.paged_decode_attention.launches = 0
+        runs = {}
+        streamed = {1, 6}   # a single-row and the two-row request
+        for name, seams in (("windowp", ("windowp", "wsamplep")),
+                            ("wharvest", ("wharvest",))):
+            results, run = run_fault(sf, rt, url, reqs, streamed, seams,
+                                     whole_burst=True)
+            run.update(judge_burst(results, reqs, vocab))
+            got = [body for kind, body, _ in results if kind == "ok"]
+            want = [c for (kind, _, _), c in zip(results, clean)
+                    if kind == "ok"]
+            same = sum(a == b for a, b in zip(got, want))
+            run["responses_equal_clean"] = f"{same}/{len(got)}"
+            run["token_agreement"] = token_agreement(
+                [r for (k, _, _), r in zip(results, reqs) if k == "ok"],
+                got, want, greedy_only=False)
+            check(run["restored"] >= 1, f"{name}: nothing was restored")
+            runs[name] = run
+        launches = pa.paged_decode_attention.launches
+        layers = rt.tcfg.n_layers
+        check(launches >= layers, f"B1 launched {launches} times over the "
+              "fault bursts")
+        failure = json.load(open(os.path.join(state, "last-failure.json")))
+        check(failure["type"] == "PoolPoisoned" and failure["retryable"],
+              f"failure record {failure}")
+        return {"model": "flagship", "n_layers": layers,
+                "dtype": "bfloat16", "checkpoint_every": RECOVERY_CKPT,
+                "requests": len(reqs), "generated_tokens": gen,
+                "faults": runs, "checkpoint_cost": cost,
+                "b1_launches": launches}
+    finally:
+        rt.close()
+
+
+def recovery_fp32(np, serve, sf, ServeConfig):
+    """Part a at 2 layers, fp32, the prefix cache on: a fault at a harvest
+    mid-burst; every restored request equals its run alone bit for bit,
+    and the idle fixpoint counts the registry's pages."""
+    state = fresh_dir("fp32")
+    rt = serve.ServeRuntime(
+        recovery_cfg(ServeConfig, state, n_layers=2,
+                     serving_prefix_cache=True), device="cuda",
+        dtype="float32", seed=0, host="127.0.0.1", port=0)
+    try:
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        vocab = rt.tcfg.vocab
+        reqs = [dict(r, n_new=min(r["n_new"], 96))
+                for r in serve_requests(np, vocab)]
+        check(post(url, {"tokens": [[1, 2, 3]], "n_new": 128})[0] == 200,
+              "warm-up request")
+        # Capture the burst's chunk lengths first (shifted ids).
+        burst, _, _ = run_burst(url, [
+            {**r, "tokens": [[(t + 104729) % vocab for t in row]
+                             for row in r["tokens"]]} for r in reqs],
+            queued=lambda: rt.server.requests_queued)
+        check(all(c == 200 for c, _ in burst), "the capture burst failed")
+        results, run = run_fault(sf, rt, url, reqs, {1, 6},
+                                 ("wharvest",))
+        run.update(judge_burst(results, reqs, vocab))
+        check(run["restored"] >= 1, "fp32: nothing was restored")
+        equal = []
+        for (kind, body, _), req in zip(results, reqs):
+            if kind != "ok":
+                continue
+            code, alone = post(url, req)
+            check(code == 200, "a request alone failed")
+            equal.append(alone["tokens"] == body)
+        run["equal_to_alone"] = equal
+        check(all(equal), f"fp32: a request differs from its run alone "
+              f"{equal}")
+        run["idle_after_alone"] = idle_fixpoint(rt.server)
+        check(run["idle_after_alone"]["ok"]
+              and run["idle_after_alone"]["registry_pages"] > 0,
+              "fp32: the registry's pages are not counted at rest")
+        return run
+    finally:
+        rt.close()
+
+
+def recovery_swaps(np, serve, sf, ServeConfig):
+    """Part b: a fault at the contention phase's swap-out (the preemption)
+    and at its swap-in (the resume), 2 layers, bf16, 96 pages, a swap
+    budget; the supervisor heals each and the pool is at its idle
+    fixpoint, and a request afterwards is served."""
+    state = fresh_dir("swaps")
+    cfg = recovery_cfg(ServeConfig, state, n_layers=2, serving_pages=96,
+                       serving_window=SHARE_WINDOW, serving_checkpoint_every=0,
+                       serving_sched_swap_budget_mb=64)
+    rt = serve.ServeRuntime(cfg, device="cuda", dtype="bfloat16", seed=0,
+                            host="127.0.0.1", port=0)
+    out = {}
+    try:
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        warm_up(url)
+        batch, inter = contention_requests(np, rt.tcfg.vocab)
+        # Capture the contention traffic's lengths first, no fault armed.
+        clean = fault_burst(url, batch + [inter], {0, 1},
+                            streams_first=True)
+        check(all(kind == "ok" for kind, _, _ in clean),
+              "the contention capture burst failed")
+
+        def after(url):
+            code, _ = post(url, cut_new(inter, 16))
+            check(code == 200, f"{seam}: a request after the heal failed")
+
+        for seam in ("swapout", "swapin"):
+            results, run = run_fault(sf, rt, url, batch + [inter],
+                                     {0, 1}, (seam,),
+                                     ready=lambda s: True,
+                                     streams_first=True, after=after)
+            run.update(judge_burst(results, batch + [inter], rt.tcfg.vocab))
+            check(run["typed"] >= 1, f"{seam}: no request saw the poison")
+            out[seam] = run
+        return out
+    finally:
+        rt.close()
+
+
+def recovery_dump_and_weights(np, serve, sf, ServeConfig, ttr,
+                              params_from_numpy):
+    """Parts c and d, 2 layers, bf16, the prefix cache and persistence on:
+    the emergency dump of a poisoned pool is intact and a fresh server
+    loads every entry of it; then a revive whose params re-restore
+    returns other weights: they are copied into the served tensors (the
+    same addresses, the same graphs), and a request's tokens equal a fresh
+    runtime's on those weights."""
+    import shutil
+
+    from kvedge_torch.models.serving import PagedGenerationServer
+
+    state = fresh_dir("dump")
+    cfg = recovery_cfg(ServeConfig, state, n_layers=2, serving_pages=256,
+                       serving_prefix_cache=True, serving_prefix_persist=True,
+                       serving_checkpoint_every=0)
+    rt = serve.ServeRuntime(cfg, device="cuda", dtype="bfloat16", seed=0,
+                            host="127.0.0.1", port=0)
+    try:
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        server, vocab = rt.server, rt.tcfg.vocab
+        first, _, _, _ = prefix_traffic(np, vocab)
+        check(post(url, first)[0] == 200, "the prefix request failed")
+        entries = server.stats()["prefix_entries"]
+        probe = {"tokens": [[7, 8, 9, 10]], "n_new": 48}
+        plan = fire_when(sf, server, ("wharvest",), lambda s: True)
+        sf.FaultyCache.arm(server._cache, plan)
+        dying = server._thread
+        code, doc = post(url, probe)
+        check(code == 503 and "retry_after_s" in doc,
+              f"the poisoned request: HTTP {code} {doc}")
+        dying.join(timeout=120)
+        path = rt.prefix_path
+        intact = sf.prefix_file_intact(path)
+        copy = os.path.join(state, "emergency-copy.npz")
+        shutil.copyfile(path, copy)
+        with np.load(copy) as data:
+            dumped = len(json.loads(bytes(data["doc"]).decode())["entries"])
+        fresh = PagedGenerationServer(
+            rt.weights, rt.tcfg, slots=4, pages=256, page_size=16,
+            device="cuda")
+        try:
+            loaded = fresh.load_prefix_cache(copy, rt.prefix_fingerprint)
+        finally:
+            fresh.close()
+        check(settle(rt.supervisor, dying) == "healthy",
+              "the dump run did not heal")
+        sf.FaultyCache.arm(server._cache, None)
+        repinned = server.stats()["prefix_entries"]
+        dump = {"entries_registered": entries, "entries_dumped": dumped,
+                "file_intact": intact, "entries_loaded_fresh": loaded,
+                "entries_repinned": repinned}
+        check(intact and dumped >= entries > 0 and loaded == dumped
+              and repinned == dumped, f"emergency dump {dump}")
+
+        # Part d: other weights through the re-restore, copied in place.
+        other_np = ttr.init_params(1, rt.tcfg)
+        other = params_from_numpy(other_np, rt.tcfg, "cpu")
+        ptrs = {k: v.data_ptr() for k, v in server._params.items()}
+        graphs0 = graph_counts(server._cache)
+        rt.supervisor.restore_params = lambda: other
+        rt.supervisor.prefix_path = ""   # its K/V belong to the old weights
+        plan = fire_when(sf, server, ("wharvest",), lambda s: True)
+        sf.FaultyCache.arm(server._cache, plan)
+        dying = server._thread
+        check(post(url, probe)[0] == 503, "the second fault did not poison")
+        check(settle(rt.supervisor, dying) == "healthy",
+              "the weights run did not heal")
+        sf.FaultyCache.arm(server._cache, None)
+        code, got = post(url, probe)
+        check(code == 200, "a request on the new weights failed")
+        same_ptrs = {k: v.data_ptr()
+                     for k, v in server._params.items()} == ptrs
+        graphs = graph_counts(server._cache)
+    finally:
+        rt.close()
+    cfg_other = recovery_cfg(ServeConfig, fresh_dir("weights"), n_layers=2,
+                             serving_pages=256, serving_checkpoint_every=0)
+    rt = serve.ServeRuntime(cfg_other, device="cuda", dtype="bfloat16",
+                            params=other_np, host="127.0.0.1", port=0)
+    try:
+        code, want = post(f"http://127.0.0.1:{rt.port}/generate", probe)
+        check(code == 200, "the fresh runtime's request failed")
+    finally:
+        rt.close()
+    weights = {"same_addresses": same_ptrs, "graphs_unchanged":
+               graphs == graphs0,
+               "tokens_equal_fresh": got["tokens"] == want["tokens"]}
+    check(same_ptrs and weights["tokens_equal_fresh"],
+          f"the re-restored weights are not the ones served: {weights}")
+    check(weights["graphs_unchanged"], f"graphs changed: {graphs0} -> "
+          f"{graphs}")
+    return dump, weights
+
+
+def sticky_child() -> int:
+    """``chip_smoke.py --sticky-child``: the serve payload (2 layers,
+    bf16, the prefix cache and persistence on, the supervisor on) with a
+    fault seam that launches an out-of-range ``index_select`` on the card
+    mid-decode: a device-side assert, which breaks the CUDA context for
+    good. Prints one JSON line: the supervisor's end state, its attempts
+    and heals, the request's error, and whether the prefix file is
+    intact. Exits by ``os._exit`` (a broken context may hang teardown)."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from kvedge_torch.runtime import serve
+    from kvedge_torch.runtime.config import ServeConfig
+    from kvedge_torch.testing import servingfaults as sf
+
+    t0 = time.perf_counter()
+    state = fresh_dir("sticky")
+    cfg = recovery_cfg(ServeConfig, state, n_layers=2, max_seq=512,
+                       serving_pages=128, serving_prefix_cache=True,
+                       serving_prefix_persist=True,
+                       serving_checkpoint_every=0)
+    rt = serve.ServeRuntime(cfg, device="cuda", dtype="bfloat16", seed=0)
+    out = {"phase": "recovery_sticky_child"}
+    try:
+        rt.serve_fn({"tokens": [list(range(1, 40))], "n_new": 8})
+        server = rt.server
+
+        class Sticky(sf.FaultPlan):
+            def at_seam(self, label):
+                with self._lock:
+                    i = self.count
+                    self.count += 1
+                    fire = label.startswith("wharvest") and \
+                        self.fired_on is None and i >= 2
+                    if fire:
+                        self.fired_on = label
+                    self.trace.append(f"[{i}] {label}"
+                                      + (" <- sticky" if fire else ""))
+                if fire:
+                    x = torch.zeros(4, device="cuda")
+                    bad = torch.full((1,), 1 << 20, dtype=torch.int64,
+                                     device="cuda")
+                    torch.index_select(x, 0, bad)  # the device asserts
+
+        plan = Sticky(0, kinds=("raise",))
+        sf.FaultyCache.arm(server._cache, plan)
+        dying = server._thread
+        try:
+            rt.serve_fn({"tokens": [[5, 6, 7]], "n_new": 64})
+            out["request_error"] = None
+        except Exception as e:
+            out["request_error"] = type(e).__name__
+            out["request_error_text"] = str(e)[:200]
+        dying.join(timeout=STICKY_LIMIT_S / 4)
+        state_end = rt.supervisor.wait_settled(timeout=STICKY_LIMIT_S / 4)
+        if rt.supervisor._worker is not None:
+            rt.supervisor._worker.join(timeout=STICKY_LIMIT_S / 4)
+        from kvedge_torch.runtime import heartbeat
+
+        events = heartbeat.read_init_events(state)
+        out.update({
+            "fired_on": plan.fired_on,
+            "supervisor_state": state_end,
+            "degraded": server.degraded,
+            **rt.supervisor.stats(),
+            "healed_events": sum(e.get("outcome") == "healed"
+                                 for e in events),
+            "failed_events": sum(e.get("outcome") == "failed"
+                                 for e in events),
+            "prefix_file_intact": sf.prefix_file_intact(rt.prefix_path),
+            "seconds": time.perf_counter() - t0})
+    except Exception as e:  # reported to the parent, which gates
+        out["error"] = f"{type(e).__name__}: {e}"
+    print(json.dumps(out), flush=True)
+    os._exit(0)
+
+
+def recovery_sticky() -> dict:
+    """Part e: the sticky fault in a child process; the parent gates on
+    its JSON line."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--sticky-child"],
+            capture_output=True, text=True, timeout=STICKY_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        raise CheckFailed(f"the sticky-fault child outlived its "
+                          f"{STICKY_LIMIT_S} s limit")
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith('{"phase": "recovery_sticky_child"')]
+    check(proc.returncode == 0 and lines,
+          f"sticky child exited {proc.returncode}: {proc.stderr[-2000:]}")
+    doc = json.loads(lines[-1])
+    doc["wall_s"] = time.perf_counter() - t0
+    doc["limit_s"] = STICKY_LIMIT_S
+    check("error" not in doc, f"sticky child: {doc.get('error')}")
+    check(doc["fired_on"] is not None, "the sticky fault never fired")
+    check(doc["supervisor_state"] == "terminal", f"sticky child ended "
+          f"{doc['supervisor_state']}, not terminal")
+    check(doc["recoveries_total"] == 0 and doc["healed_events"] == 0,
+          "a heal was recorded on a broken device")
+    check(1 <= doc["recovery_attempts_total"] <= 2,
+          f"{doc['recovery_attempts_total']} attempts, budget 2")
+    check(doc["request_error"] is not None, "the request did not fail")
+    check(doc["prefix_file_intact"], "the prefix file is torn")
+    return doc
+
+
+def recovery_failed_capture(torch, np, kvc, ttr, params_from_numpy,
+                            ServeConfig):
+    """Part g: a window whose capture is made to fail by a host sync
+    inside the captured region (this phase's own seam). No graph is
+    stored, the caller's stream is current again and B1's count is
+    untouched; the next dispatch captures and its window, host lengths
+    and pools equal the same window run eagerly, bit for bit."""
+
+    class Syncing(kvc.PagedKVCache):
+        fail = False
+
+        def _run_device_window(self, params, n_steps, sampled):
+            if not self.fail:
+                return super()._run_device_window(params, n_steps, sampled)
+            b = self.bucket
+
+            def run(inp):
+                out = kvc.run_window(params, self.state, self.cfg, inp,
+                                     n_steps, sampled)
+                out.sum().item()   # a host sync: refused while capturing
+                return out
+
+            return self._replay(self._graphs, (b, sampled, n_steps), params,
+                                run, kvc._rows(self._in, b),
+                                kvc._rows(self._idle_in, b), "decode")
+
+    class Eager(kvc.PagedKVCache):
+        def _run_device_window(self, params, n_steps, sampled):
+            return kvc.run_window(params, self.state, self.cfg, self._in,
+                                  n_steps, sampled)
+
+    cfg = ServeConfig(preset="flagship", max_seq=512,
+                      n_layers=WINDOW_LAYERS).model_config("float32")
+    params = params_from_numpy(ttr.init_params(0, cfg), cfg, "cuda")
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab, 37).tolist()
+    caches = []
+    for cls in (Syncing, Eager):
+        cache = cls(cfg, slots=2, pages=16, page_size=16, device="cuda")
+        cache.admit(0, len(prompt))
+        logits = cache.prefill(params, 0, prompt)
+        caches.append((cache, int(logits.argmax())))
+    (cache, tok), (eager, tok_e) = caches
+    check(tok == tok_e, "the prefill logits differ")
+    tokens = np.array([tok, 0], np.int64)
+    active = np.array([True, False])
+    stream0 = torch.cuda.current_stream()
+    cache.fail = True
+    failed = None
+    try:
+        cache.dispatch_window(params, tokens, 8, active=active)
+    except Exception as e:
+        failed = type(e).__name__
+    check(failed is not None, "the capture with a host sync did not fail")
+    stored = cache.graph_stats()["graphs"]
+    stream_ok = torch.cuda.current_stream() == stream0
+    check(stored == 0 and stream_ok,
+          f"a failed capture left state behind: graphs {stored}, the "
+          f"caller's stream current {stream_ok}")
+    check(cache._host_lengths[0] == len(prompt),
+          "the failed dispatch advanced the host length")
+    cache.fail = False
+    block = cache.harvest_window(cache.dispatch_window(params, tokens, 8,
+                                                       active=active))
+    want = eager.harvest_window(eager.dispatch_window(params, tokens, 8,
+                                                      active=active))
+    torch.cuda.synchronize()
+    same = (np.array_equal(block, want)
+            and cache._host_lengths == eager._host_lengths
+            and torch.equal(cache.state.pool_k, eager.state.pool_k)
+            and torch.equal(cache.state.pool_v, eager.state.pool_v))
+    captured = cache.graph_stats()["graphs"]
+    check(captured == 1 and same, f"after the failed capture: graphs "
+          f"{captured}, replay == eager {same}")
+    return {"error": failed, "graphs_after_failure": stored,
+            "stream_restored": stream_ok, "graphs_after_retry": captured,
+            "retry_equals_eager": same}
+
+
+def phase_recovery(torch, np, pa, kvc, ttr, serve, ServeConfig,
+                   params_from_numpy):
+    """Degraded mode, revive and the supervisor on the card (parts a-g of
+    the module docstring); one JSON line, its parts' walls inside."""
+    from kvedge_torch.testing import servingfaults as sf
+
+    walls = {}
+    doc = {"phase": "recovery"}
+    for name, fn in (
+            ("failed_capture", lambda: recovery_failed_capture(
+                torch, np, kvc, ttr, params_from_numpy, ServeConfig)),
+            ("main_path", lambda: recovery_main_path(
+                np, pa, serve, sf, ServeConfig)),
+            ("fp32", lambda: recovery_fp32(np, serve, sf, ServeConfig)),
+            ("swaps", lambda: recovery_swaps(np, serve, sf, ServeConfig)),
+            ("dump_and_weights", lambda: recovery_dump_and_weights(
+                np, serve, sf, ServeConfig, ttr, params_from_numpy)),
+            ("sticky", recovery_sticky)):
+        t0 = time.perf_counter()
+        doc[name] = fn()
+        walls[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    doc["dump"], doc["weights"] = doc.pop("dump_and_weights")
+    doc["part_seconds"] = walls
+    doc["ok"] = True
+    emit(doc)
+    return doc
+
+
 def profile_request(torch, url, req):
     """One request under torch.profiler: the device's busy share of the
     request's wall time and the kernels that take it."""
@@ -3425,6 +4214,10 @@ def main() -> int:
         phase = enter("persist")
         phase_persist(torch, np, serve, ServeConfig)
 
+        phase = enter("recovery")
+        recovery_doc = phase_recovery(torch, np, pa, kvc, ttr, serve,
+                                      ServeConfig, params_from_numpy)
+
         phase = enter("timings")
         t = phase_timings(torch, pa, lives, serve_doc)
 
@@ -3474,6 +4267,7 @@ def main() -> int:
             "ratio_to_library": t["ratio_to_library"],
             "launches_prefix": prefix_doc["cache_on"]["b1_launches"],
             "launches_contention": contention_doc["bf16"]["b1_launches"],
+            "launches_recovery": recovery_doc["main_path"]["b1_launches"],
             "status": "redesigned (thread-block cluster split, scores "
                       "in shared memory, cp.async K/V); on the serve path "
                       "launched inside replayed CUDA graphs, counted per "
@@ -3567,4 +4361,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--sticky-child"]:
+        sticky_child()
     sys.exit(main())

@@ -1142,6 +1142,13 @@ class PagedKVCache:
                 f"chunk [{offset}, {offset + n}) exceeds slot {slot}'s "
                 f"admitted length {self._host_lengths[slot]}"
             )
+        return self._device_prefill_chunk(params, slot, tokens, offset)
+
+    def _device_prefill_chunk(self, params: dict, slot: int, tokens,
+                              offset: int) -> torch.Tensor:
+        """Device seam of :meth:`prefill_chunk` (``tokens`` already a
+        device tensor or host ids, the chunk's bounds checked)."""
+        n = tokens.shape[0]
         if self.device.type != "cuda":
             return _paged_prefill(params, self.state, self._tokens(tokens),
                                   slot, self.cfg, offset)
@@ -1345,6 +1352,14 @@ class PagedKVCache:
             handle.event.synchronize()
         return handle.block.numpy().copy()
 
+    def wait_device(self) -> None:
+        """Block until the device has finished everything queued on any
+        stream (the capture stream included). On CUDA a device left
+        unusable by an earlier fault (an illegal address, a device-side
+        assert) raises here."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def drop_carry(self) -> None:
         """Forget the device-resident carries, plain and spec (a pipeline
         restarts from host tokens), every unharvested spec reservation
@@ -1491,10 +1506,19 @@ class PagedKVCache:
         # stream captures, and the capture is invalidated.
         collecting = gc.isenabled()
         gc.disable()
+        caller_stream = torch.cuda.current_stream(self.device)
         try:
             with torch.cuda.graph(graph, pool=pool, stream=stream,
                                   capture_error_mode="thread_local"):
                 out = run(inputs)
+        except BaseException:
+            # A failed capture stores no graph (the caller keeps nothing)
+            # and its B1 count is dropped; when the capture's end itself
+            # raises, torch leaves the capture stream current: restore
+            # the caller's.
+            paged_decode_attention.launches = before
+            torch.cuda.set_stream(caller_stream)
+            raise
         finally:
             if collecting:
                 gc.enable()

@@ -33,10 +33,15 @@ schedule, stop tokens (truncated on the host in the serial loop, found
 on the device in the overlapped one), and server-wide speculative
 decoding (``speculative``: per verify pass at boundaries, or as
 device-resident spec windows in the overlap pipeline with
-``spec_window``; the ``resolve_speculation`` boot probe). What it leaves
-out (the reference's later rungs): the journal, checkpoints and
-recovery (and with them the degraded pool's emergency dump), the SLO
-engine, tracing and autotune.
+``spec_window``; the ``resolve_speculation`` boot probe), and degraded
+mode: a decode failure poisons the pool with a typed failure
+(``runtime/failures.py``), requests checkpointed into the journal
+(``checkpoint_every``, ``runtime/journal.py``) park instead of failing,
+the prefix registry is dumped on the way down, and :meth:`revive`
+restarts the pool in place, captured graphs and all, with the journaled
+requests resumed bit for bit (``runtime/recovery.py`` drives it). What
+it leaves out (the reference's later rungs): the SLO engine, tracing
+and autotune.
 
 Greedy decode is token-for-token the port's ``forward`` argmax, and the
 tokens of a request do not depend on what else is in flight: the paged
@@ -63,6 +68,13 @@ from kvedge_torch.models.config import TransformerConfig
 from kvedge_torch.models.kvcache import PagedKVCache
 from kvedge_torch.models.sampling import as_key_tensor, fold_in, sample_token
 from kvedge_torch.models.scheduler import AdmissionScheduler
+from kvedge_torch.runtime.failures import (
+    PageAccountingError,
+    PoolPoisoned,
+    ServingFailure,
+    classify_failure,
+)
+from kvedge_torch.runtime.journal import JournalEntry, RequestJournal
 
 _STREAM_DONE = object()
 
@@ -82,7 +94,8 @@ class ServerOverloaded(ServerBusy):
 
 
 class ServerClosed(RuntimeError):
-    """The server was shut down (or its pool was poisoned)."""
+    """The server was shut down (a poisoned pool refuses with
+    :class:`~kvedge_torch.runtime.failures.PoolPoisoned` instead)."""
 
 
 class RequestCancelled(RuntimeError):
@@ -103,6 +116,8 @@ class _Request:
     # starts on are billed by leases (_lease_take_locked).
     pages_reserved: int = 0
     shared_pages: tuple = ()
+    # The trie node at the full-shared depth: the journal shadow's key.
+    prefix_node: int | None = None
     # Scheduler: the priority class, the admission ticket (kept across a
     # preemption) and the admission sequence victims are ordered by.
     pclass: str = "interactive"
@@ -118,6 +133,10 @@ class _Request:
     # boundary because a window in flight still touches the slot.
     inflight: int = 0
     stopped: bool = False
+    # Exactly-once delivery after a journal restore rewound ``generated``
+    # to its checkpoint: tokens at indices below this were streamed
+    # already, and the replay records them without streaming them again.
+    stream_resume_at: int = 0
 
     def pick(self, logits_row: torch.Tensor, step: int) -> int:
         """Next token from a ``[V]`` logits row, greedy or sampled with
@@ -173,8 +192,13 @@ class PagedGenerationServer:
     scheduler's policy, shedding and preemption by swap, as the
     reference's. ``min_bucket`` > 0 runs the device batch dim at a
     bucket of the cache's ladder that follows the occupied slots (0
-    pins it to ``slots``). ``device`` is the card unless "cpu" is asked
-    for.
+    pins it to ``slots``). ``checkpoint_every`` > 0 journals every live
+    request's resumable state each that many quiescent boundaries
+    (within ``journal_budget_mb``, 0 = unbounded), so a poison parks
+    them for :meth:`revive` instead of failing them; ``retry_after_s``
+    is a poisoned pool's static retry hint; ``debug_pages`` audits the
+    page books at every boundary. ``device`` is the card unless "cpu"
+    is asked for.
     """
 
     def __init__(self, params: dict, cfg: TransformerConfig, *,
@@ -191,6 +215,9 @@ class PagedGenerationServer:
                  page_low_watermark: float = 0.0,
                  page_high_watermark: float = 0.0,
                  prefix_host_mb: int = 0, min_bucket: int = 0,
+                 retry_after_s: float | None = None,
+                 checkpoint_every: int = 0, journal_budget_mb: int = 0,
+                 debug_pages: bool = False,
                  device: torch.device | str | None = None):
         if not isinstance(window, int) or window < 1:
             raise ValueError("window must be an int >= 1")
@@ -288,8 +315,7 @@ class PagedGenerationServer:
         self._prefix_host_bytes = 0
         self._prefix_demotions = 0
         self._prefix_promotions = 0
-        # Evictions by cause, the reference's keys ("revive" stays 0:
-        # the port has no recovery yet).
+        # Evictions by cause, the reference's keys.
         self._prefix_evictions = {
             "admission": 0, "pressure": 0, "revive": 0,
             "host_lru": 0, "host_over": 0,
@@ -297,6 +323,10 @@ class PagedGenerationServer:
         # Leases: one reservation unit per distinct shared prefix page a
         # live request's table starts on, freed with its last sharer.
         self._lease: dict[int, int] = {}
+        # The journal's shadow store: trie node id -> the shared prefix
+        # pages' swap-out bytes, refcounted by the entries that cite
+        # them, billed once against the journal budget.
+        self._prefix_shadow: dict[int, dict] = {}
         # Registry pins sit outside every reservation: an allocation that
         # finds the free list short reclaims them first.
         self._cache.pressure_relief = self._relieve_pool_pressure_locked
@@ -320,7 +350,38 @@ class PagedGenerationServer:
         self._prefilling = 0
         self._closed = False
         self._draining = False
-        self._poison: Exception | None = None
+        # Degraded mode: the typed failure that poisoned the pool, and
+        # its reason, read lock-free by /healthz. ``on_degraded(reason,
+        # failure)`` is called once, outside the lock, when the pool
+        # poisons; ``retry_after_hint`` () -> float | None (the recovery
+        # supervisor's measured estimate) overrides ``retry_after_s``.
+        self._poison: ServingFailure | None = None
+        self._degraded_reason: str | None = None
+        self.on_degraded = None
+        self._retry_after_s = retry_after_s
+        self.retry_after_hint = None
+        # Boundary checkpoints into the journal (0 = off). The clock
+        # advances per boundary and per harvested window; an overdue one
+        # collapses the overlap pipeline to a boundary.
+        if checkpoint_every < 0:
+            raise ValueError("checkpoint_every must be >= 0")
+        if journal_budget_mb < 0:
+            raise ValueError("journal_budget_mb must be >= 0")
+        self._checkpoint_every = int(checkpoint_every)
+        self._journal = RequestJournal(
+            max_bytes=journal_budget_mb * (1 << 20))
+        self._journal.on_drop = self._journal_drop_locked
+        self._ckpt_clock = 0
+        self._checkpoints_total = 0
+        self._checkpoint_skipped = 0
+        self._checkpoints_unchanged = 0
+        self._journal_restores = 0
+        self._debug_pages = bool(debug_pages)
+        # The bucket at poison time, which revive restores.
+        self._prebucket = 0
+        # The persistence file, for the emergency dump of a poisoned pool.
+        self._persist_path: str | None = None
+        self._persist_fp: str | None = None
         # Counters (read by stats()): decode steps and windows run, and
         # the tokens and requests that finished normally.
         self._decode_steps = 0
@@ -393,11 +454,15 @@ class PagedGenerationServer:
 
     def cancel(self, req: _Request) -> None:
         """Drop a request at the next boundary (idempotent). A request
-        swapped out holds no slot: its host snapshot is freed here and
-        its waiter fails at once."""
+        swapped out, or parked in a poisoned pool's journal, holds no
+        slot: its host snapshot is freed here and its waiter fails at
+        once."""
         with self._work:
             req.cancelled = True
-            if self._sched.drop_swapped_locked(req) is not None:
+            dropped = self._sched.drop_swapped_locked(req) is not None
+            if not dropped and req not in self._active.values():
+                dropped = self._journal.pop(req) is not None
+            if dropped:
                 req.error = RequestCancelled(
                     "request cancelled while swapped out")
                 if req.stream is not None:
@@ -430,6 +495,12 @@ class PagedGenerationServer:
             self._closed = True
             # Swapped-out requests the exited loop never resumed.
             self._fail_swapped_closed_locked()
+            # A closed pool is never revived: journaled survivors of a
+            # poison fail with it (retryable, hint attached).
+            if len(self._journal):
+                self._fail_journal_locked(
+                    self._poison if self._poison is not None
+                    else ServerClosed("server is shut down"))
             self._sched.wake_all_locked()
             self._work.notify_all()
 
@@ -437,6 +508,41 @@ class PagedGenerationServer:
     def healthy(self) -> bool:
         """False once the server is closed or its pool poisoned."""
         return not self._closed
+
+    @property
+    def degraded(self) -> str | None:
+        """The degraded-mode reason, or None while healthy. Lock-free:
+        /healthz must answer whatever holds the server lock."""
+        return self._degraded_reason
+
+    def capacity_probe(self) -> dict:
+        """Lock-free capacity snapshot for /healthz (values may be one
+        boundary stale). ``pages_free`` is UNRESERVED pages, the
+        admission resource."""
+        return {
+            "pages_free": max(self._pages_total - self._reserved, 0),
+            "pages_total": self._pages_total,
+            "bucket": self._cache.bucket,
+        }
+
+    def load_params(self, params: dict) -> None:
+        """Copy ``params`` (name -> tensor) into the server's weights IN
+        PLACE, between two decode-loop iterations: every captured graph
+        reads the tensors it was captured with, so rebinding would leave
+        them on the old weights. Refuses a tree whose keys, shapes or
+        dtypes differ from the served one."""
+        if set(params) != set(self._params):
+            raise ValueError(f"param keys {sorted(params)} != served "
+                             f"{sorted(self._params)}")
+        for name, dst in self._params.items():
+            src = params[name]
+            if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"param {name!r} is {src.dtype} {tuple(src.shape)}, "
+                    f"the served one {dst.dtype} {tuple(dst.shape)}")
+        with self._work, torch.no_grad():
+            for name, dst in self._params.items():
+                dst.copy_(params[name])
 
     def stats(self) -> dict:
         """Counters and gauges. ``prefill_s`` / ``decode_s`` are host
@@ -476,9 +582,27 @@ class PagedGenerationServer:
                 "page_accounting": self._cache.page_accounting(),
                 "spec_window_fallbacks": dict(self._spec_window_fallbacks),
                 **self._prefix_stats_locked(),
+                **self._recovery_stats_locked(),
                 **self._sched.stats_locked(),
                 **self._spec_stats_locked(),
             }
+
+    def _recovery_stats_locked(self) -> dict:
+        out = {
+            "degraded": 1 if self._degraded_reason else 0,
+            "checkpoint_every": self._checkpoint_every,
+            "journal_entries": len(self._journal),
+            "journal_bytes": self._journal.nbytes,
+            "journal_shadow_nodes": len(self._prefix_shadow),
+            "journal_shadow_bytes": self._journal.extra_bytes,
+            "checkpoints_total": self._checkpoints_total,
+            "checkpoint_skipped_total": self._checkpoint_skipped,
+            "checkpoint_unchanged_total": self._checkpoints_unchanged,
+            "journal_restores_total": self._journal_restores,
+        }
+        if self._degraded_reason:
+            out["degraded_reason"] = self._degraded_reason
+        return out
 
     def _prefix_stats_locked(self) -> dict:
         return {
@@ -657,9 +781,30 @@ class PagedGenerationServer:
         return -(-(total + pad) // self._cache.page_size)
 
     def _refusal(self) -> Exception:
+        """The refusal a new or interrupted request gets (lock held): a
+        poisoned pool answers the typed, retryable :class:`PoolPoisoned`
+        with a retry-after hint (the supervisor's measured one, else
+        ``retry_after_s``, else the taxonomy's default)."""
         if self._poison is not None:
-            return ServerClosed(f"serving pool poisoned by {self._poison!r}")
-        return ServerClosed("server is shut down")
+            hint = None
+            if self.retry_after_hint is not None:
+                try:
+                    hint = self.retry_after_hint()
+                except Exception:
+                    hint = None
+            if hint is None:
+                hint = self._retry_after_s
+            e = PoolPoisoned(
+                f"serving pool is poisoned ({self._degraded_reason}); "
+                f"queue depth [{self._sched.depth_text_locked()}]; "
+                f"retry against the recovered or rescheduled pod",
+                **({} if hint is None else {"retry_after_s": hint}),
+            )
+            e.__cause__ = self._poison
+            return e
+        return ServerClosed(
+            "server is draining" if self._draining
+            else "server is shut down")
 
     def _start(self, prompt, n_new: int, timeout: float, sampling,
                stream: bool, priority: str = "interactive",
@@ -804,6 +949,11 @@ class PagedGenerationServer:
             self._lease_take_locked(shared_full)
             req.pages_reserved = private
             req.shared_pages = shared_full
+            if shared_full:
+                # The journal shadow's key: for a partial (COW) match the
+                # donor is one level deeper than the shared path.
+                req.prefix_node = (self._prefix_nodes[donor]["parent"][0]
+                                   if partial else donor)
             try:
                 self._evict_prefixes_for(private, {donor})
                 self._cache.admit(slot, len(req.prompt), shared)
@@ -813,6 +963,7 @@ class PagedGenerationServer:
             except Exception:
                 self._release_locked(slot, private, req.shared_pages)
                 req.shared_pages = ()
+                req.prefix_node = None
                 raise
             self._prefilling += 1
             if shared_tokens:
@@ -858,13 +1009,18 @@ class PagedGenerationServer:
                 self._register_prefixes(req.prompt,
                                         self._cache.slot_pages(slot))
                 self._work.notify_all()  # wake the decode loop
-        except Exception:
+        except Exception as e:
             with self._work:
                 if not activated:
                     self._prefilling -= 1
                     self._release_locked(slot, req.pages_reserved,
                                          req.shared_pages)
                     req.shared_pages = ()
+                    req.prefix_node = None
+                if isinstance(e, ServingFailure) and not e.retryable:
+                    # A terminal failure on the submit path kills the
+                    # pool for everyone: poison co-tenants now.
+                    self._poison_locked(e)
             raise
         return req
 
@@ -1305,6 +1461,8 @@ class PagedGenerationServer:
         if self._persist_stop is not None:
             raise RuntimeError("prefix persistence already started")
         self._persist_stop = threading.Event()
+        # Also the target of a poisoned pool's emergency dump.
+        self._persist_path, self._persist_fp = path, fingerprint
 
         def loop() -> None:
             dumped_at = 0
@@ -1359,6 +1517,7 @@ class PagedGenerationServer:
 
     def _finish_request_locked(self, slot: int, req: _Request) -> None:
         del self._active[slot]
+        self._journal.pop(req)  # a finished request never resumes
         self._done_total += 1
         self._tokens_done_total += len(req.generated)
         if self._prefix_enabled:
@@ -1376,16 +1535,25 @@ class PagedGenerationServer:
 
     @staticmethod
     def _emit(req: _Request, token: int) -> None:
+        """Record a generated token and stream it. After a journal
+        restore, indices below ``stream_resume_at`` are the replay of
+        tokens the consumer already has: recorded, not streamed again."""
+        idx = len(req.generated)
         req.generated.append(token)
-        if req.stream is not None:
+        if req.stream is not None and idx >= req.stream_resume_at:
             req.stream.put(token)
 
     @staticmethod
     def _emit_many(req: _Request, tokens: list) -> None:
-        """Bulk :meth:`_emit`: a harvested row's tokens in one extend."""
+        """Bulk :meth:`_emit`: a harvested row's tokens in one extend,
+        with the same exactly-once watermark."""
+        if not tokens:
+            return
+        idx = len(req.generated)
         req.generated.extend(tokens)
         if req.stream is not None:
-            for token in tokens:
+            skip = req.stream_resume_at - idx
+            for token in (tokens[skip:] if skip > 0 else tokens):
                 req.stream.put(token)
 
     def _note_finish_candidate_locked(self, slot: int, req: _Request) -> None:
@@ -1436,6 +1604,7 @@ class PagedGenerationServer:
             if not req.cancelled:
                 continue
             del self._active[slot]
+            self._journal.pop(req)  # a cancelled request never resumes
             self._release_locked(slot, req.pages_reserved, req.shared_pages)
             req.error = RequestCancelled("request cancelled mid-decode")
             if req.stream is not None:
@@ -1450,22 +1619,452 @@ class PagedGenerationServer:
             req.done.set()
         self._active.clear()
 
-    def _poison_locked(self, cause: Exception) -> None:
-        """A decode failure fails every in-flight request loudly and
-        refuses new work: the pool state is no longer trustworthy."""
-        self._poison = cause
-        self._closed = True
-        error = ServerClosed(f"serving pool poisoned by {cause!r}")
-        self._fail_active_locked(error)
-        # A swapped-out request's pool is gone too.
+    # ---- degraded mode: poison, checkpoints, revive ---------------------
+
+    def _poison_locked(self, failure: ServingFailure) -> None:
+        """Poison the pool (lock held): a request with a journal
+        checkpoint parks (its waiter stays blocked, its stream quiet)
+        for :meth:`revive`; every other in-flight waiter gets the typed
+        failure; the degraded flag flips for stats and /healthz; and
+        admission waiters wake into :meth:`_refusal`. The exiting decode
+        loop runs :meth:`_degrade` outside the lock."""
+        if self._poison is None:
+            self._poison = failure
+            self._degraded_reason = f"{type(failure).__name__}: {failure}"
+            self._prebucket = self._cache.bucket
+        for req in self._active.values():
+            if self._divert_to_journal_locked(req):
+                continue
+            req.error = failure
+            if req.stream is not None:
+                req.stream.put(failure)
+            req.done.set()
+        self._active.clear()
+        # A swapped-out request's host snapshot is a ready checkpoint
+        # under its original ticket: with checkpoints on it moves into
+        # the journal, otherwise it fails like an active one.
         for entry in self._sched.take_swapped_locked():
-            entry.arrays = ()
-            entry.req.error = error
+            if self._journal_swapped_locked(entry):
+                continue
+            entry.req.error = failure
             if entry.req.stream is not None:
-                entry.req.stream.put(error)
+                entry.req.stream.put(failure)
             entry.req.done.set()
+        self._closed = True
         self._sched.wake_all_locked()
         self._work.notify_all()
+
+    def _degrade(self) -> None:
+        """Run once by the exiting decode loop, OUTSIDE the lock: dump the
+        prefix registry if the pool is still readable (a device left
+        unusable raises before the temporary file is opened, so the dump
+        is skipped, never torn), then call the ``on_degraded`` observer."""
+        if self._persist_path is not None and self._prefix_entry_nodes:
+            try:
+                n = self.dump_prefix_cache(self._persist_path,
+                                           self._persist_fp)
+                print(f"[kvedge-serve] degraded: emergency prefix dump "
+                      f"wrote {n} entries", flush=True)
+            except Exception as e:
+                print(f"[kvedge-serve] degraded: emergency prefix dump "
+                      f"skipped ({e!r})", flush=True)
+        cb = self.on_degraded
+        if cb is not None:
+            try:
+                cb(self._degraded_reason, self._poison)
+            except Exception as e:  # observers never re-poison teardown
+                print(f"[kvedge-serve] on_degraded observer failed: "
+                      f"{e!r}", flush=True)
+
+    def _maybe_checkpoint_locked(self) -> None:
+        """Quiescent-boundary durability hook (lock held, nothing in
+        flight): audit the page books when asked, then every
+        ``checkpoint_every`` clock ticks journal each live request's
+        resumable state. A request whose (gen_len, next_token) match its
+        standing entry keeps it (decode only appends). Every page the
+        boundary needs rides ONE ``swapout_pages`` call, sliced per entry
+        into tensors of its own, so each entry counts the bytes it
+        holds; ``saved_len`` covers the committed positions and the
+        pending token is kept on the host, the preempt/resume contract."""
+        if self._debug_pages:
+            self._audit_pages_locked()
+        if not self._checkpoint_every:
+            return
+        self._ckpt_clock += 1
+        if self._ckpt_clock < self._checkpoint_every:
+            return
+        self._ckpt_clock = 0
+        if not self._active:
+            return
+        jobs = []       # (req, saved_len, shared pages, node, own span)
+        all_ids: list[int] = []
+        new_shadow_spans: dict = {}   # node -> (start, n)
+        for slot, req in self._active.items():
+            if req.cancelled:
+                continue
+            saved_len = len(req.prompt) + len(req.generated)
+            prev = self._journal.get(req)
+            if (prev is not None
+                    and prev.gen_len == len(req.generated)
+                    and prev.next_token == req.next_token):
+                self._checkpoints_unchanged += 1
+                continue
+            n_pages = -(-saved_len // self._cache.page_size)
+            ids = self._cache.slot_pages(slot)[:n_pages]
+            sh_n = len(req.shared_pages)
+            shared = req.prefix_node is not None and sh_n
+            own_ids = ids[sh_n:] if shared else ids
+            own_span = (len(all_ids), len(own_ids))
+            all_ids.extend(own_ids)
+            node = None
+            if shared:
+                node = req.prefix_node
+                if (node not in self._prefix_shadow
+                        and node not in new_shadow_spans):
+                    new_shadow_spans[node] = (len(all_ids), sh_n)
+                    all_ids.extend(ids[:sh_n])
+            jobs.append((req, saved_len, sh_n if shared else 0, node,
+                         own_span))
+        if not jobs:
+            return
+        batch = self._cache.swapout_pages(all_ids) if all_ids else None
+
+        def _slice(span):
+            # [L, n_pages, ...] slabs: pages on axis 1. A copy, so the
+            # entry does not pin the whole batch.
+            start, n = span
+            return tuple(a[:, start:start + n].clone() for a in batch)
+
+        new_shadows = {node: _slice(span)
+                       for node, span in new_shadow_spans.items()}
+        for req, saved_len, sh_n, node, own_span in jobs:
+            own = _slice(own_span)
+            if node is not None:
+                ok = self._checkpoint_shared_locked(
+                    req, saved_len, sh_n, own, new_shadows.get(node))
+            else:
+                entry = JournalEntry(
+                    req=req, pclass=req.pclass, ticket_no=req.ticket_no,
+                    admit_seq=req.admit_seq,
+                    pages_reserved=req.pages_reserved,
+                    saved_len=saved_len, gen_len=len(req.generated),
+                    next_token=req.next_token, emitted=len(req.generated),
+                    arrays=own, nbytes=sum(a.nbytes for a in own),
+                )
+                ok = self._journal.put(req, entry)
+            if ok:
+                self._checkpoints_total += 1
+            else:
+                # Budget-refused: the request keeps its older entry, or
+                # none.
+                self._checkpoint_skipped += 1
+
+    def _checkpoint_shared_locked(self, req: _Request, saved_len: int,
+                                  sh_n: int, own: tuple,
+                                  sh_arrays: tuple | None) -> bool:
+        """Checkpoint a request whose table starts on cached-prefix pages
+        (lock held): the entry holds the request's OWN page bytes and a
+        reference into a per-node shadow snapshot of the shared ones,
+        taken once and refcounted across every entry citing it. Refs
+        bump BEFORE ``put``, so the ``on_drop`` of a replaced entry
+        citing the same node nets out."""
+        node = req.prefix_node
+        shadow = self._prefix_shadow.get(node)
+        extra = 0
+        if shadow is None:
+            if sh_arrays is None:
+                return False
+            extra = sum(a.nbytes for a in sh_arrays)
+            shadow = {"arrays": sh_arrays, "nbytes": extra, "refs": 0,
+                      "npages": sh_n}
+            self._prefix_shadow[node] = shadow
+        shadow["refs"] += 1
+        entry = JournalEntry(
+            req=req, pclass=req.pclass, ticket_no=req.ticket_no,
+            admit_seq=req.admit_seq, pages_reserved=req.pages_reserved,
+            saved_len=saved_len, gen_len=len(req.generated),
+            next_token=req.next_token, emitted=len(req.generated),
+            arrays=own, nbytes=sum(a.nbytes for a in own),
+            prefix_node=node, prefix_pages_n=sh_n,
+            prefix_tokens=sh_n * self._cache.page_size,
+        )
+        if self._journal.put(req, entry, extra=extra):
+            if extra:
+                self._journal.adjust_extra(extra)
+            return True
+        shadow["refs"] -= 1
+        if shadow["refs"] <= 0:
+            # Created for this refused entry: unwind it, never billed.
+            del self._prefix_shadow[node]
+        return False
+
+    def _journal_drop_locked(self, entry) -> None:
+        """The journal's ``on_drop`` (lock held): the last entry citing a
+        shadow snapshot releases its bytes from the budget."""
+        node = entry.prefix_node
+        if node is None:
+            return
+        shadow = self._prefix_shadow.get(node)
+        if shadow is None:
+            return
+        shadow["refs"] -= 1
+        if shadow["refs"] <= 0:
+            del self._prefix_shadow[node]
+            self._journal.adjust_extra(-shadow["nbytes"])
+
+    def _audit_pages_locked(self) -> None:
+        """Page conservation at a quiescent boundary (lock held): free +
+        live == pages_total with clean books, else the typed
+        :class:`PageAccountingError`, which the loop's failure path
+        poisons the pool with."""
+        acct = self._cache.page_accounting()
+        if (acct["free"] + acct["live"] == acct["pages_total"]
+                and not acct["free_dup"] and not acct["neg_refs"]
+                and not acct["free_live"]):
+            return
+        raise PageAccountingError(
+            f"page conservation violated at a quiescent boundary: "
+            f"free={acct['free']} live={acct['live']} "
+            f"total={acct['pages_total']} dup_free={acct['free_dup']} "
+            f"neg_refs={acct['neg_refs']} "
+            f"free_but_live={acct['free_live']}")
+
+    def _divert_to_journal_locked(self, req: _Request) -> bool:
+        """Poison-path diversion (lock held): True when ``req`` has a
+        checkpoint to resume from. Every token in ``generated`` now was
+        delivered already: the replay must not stream below that."""
+        if req.cancelled:
+            return False
+        entry = self._journal.get(req)
+        if entry is None:
+            return False
+        entry.emitted = max(entry.emitted, len(req.generated))
+        return True
+
+    def _journal_swapped_locked(self, entry) -> bool:
+        """Move a swapped-out request's snapshot into the journal at
+        poison time (lock held). False (the caller fails the request)
+        when checkpoints are off, the request was cancelled, or the
+        budget refuses the bytes."""
+        if not self._checkpoint_every or entry.req.cancelled:
+            entry.arrays = ()
+            return False
+        req = entry.req
+        je = JournalEntry(
+            req=req, pclass=entry.pclass, ticket_no=entry.no,
+            admit_seq=req.admit_seq, pages_reserved=entry.pages_needed,
+            saved_len=entry.saved_len, gen_len=len(req.generated),
+            next_token=req.next_token, emitted=len(req.generated),
+            arrays=entry.arrays, nbytes=entry.nbytes,
+        )
+        if not self._journal.put(req, je):
+            self._checkpoint_skipped += 1
+            entry.arrays = ()
+            return False
+        self._checkpoints_total += 1
+        return True
+
+    def _fail_journal_locked(self, err: Exception) -> None:
+        """Fail every journaled waiter (lock held): the close of a pool
+        that will never be revived."""
+        for entry in self._journal.take_all():
+            self._journal_drop_locked(entry)
+            req = entry.req
+            if req.done.is_set():
+                continue
+            req.error = err
+            if req.stream is not None:
+                req.stream.put(err)
+            req.done.set()
+
+    def revive(self, *, prefill_wait_s: float = 30.0) -> int:
+        """Warm-restart a poisoned pool in place; returns the number of
+        journaled requests re-admitted. Raises RuntimeError when the pool
+        is not poisoned or its decode loop is still running.
+
+        It first waits for the device to finish everything queued (every
+        stream, the capture stream too): a window dispatched before the
+        failure may still be writing the pool. A device left unusable (a
+        sticky CUDA error) raises here, typed, before anything changes.
+        Then the scrub: registry pins are evicted (their K/V are suspect;
+        the emergency dump reloads them), every admitted slot released,
+        the books reset. NOTHING is reallocated: the pools, tables,
+        lengths and inputs keep their addresses, the carry and the upload
+        memo are dropped, and the pre-poison bucket is set again, so
+        every captured graph replays as before. Journaled requests then
+        re-admit (:meth:`_restore_journal_locked`), transactionally."""
+        self._thread.join(timeout=5.0)
+        if self._thread.is_alive():
+            raise RuntimeError("decode loop still running; cannot revive")
+        deadline = time.monotonic() + prefill_wait_s
+        with self._work:
+            if self._poison is None:
+                raise RuntimeError("pool is not poisoned; nothing to revive")
+            # Prefills caught mid-flight fail on their next cache call;
+            # wait them out so none lands tokens into the reset pool.
+            while self._prefilling > 0:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise RuntimeError(
+                        f"{self._prefilling} prefill(s) still in flight "
+                        f"after {prefill_wait_s:g}s; cannot revive")
+                self._work.wait(timeout=left)
+            try:
+                self._cache.wait_device()
+            except Exception as e:
+                raise PoolPoisoned(
+                    f"the device is unusable after "
+                    f"{self._degraded_reason}: {type(e).__name__}: {e}"
+                ) from e
+            for node in list(self._prefix_entry_nodes):
+                # Never demoted: device K/V are suspect after a poison.
+                # The host tier and the journal's shadows are host bytes
+                # taken before the failure.
+                self._evict_prefix_node(node, "revive")
+            for slot in range(self._cache.slots):
+                if self._cache.is_admitted(slot):
+                    self._cache.release(slot)
+            self._free_slots = list(range(self._cache.slots))
+            self._reserved = 0
+            self._lease.clear()
+            self._bucket_step_wanted = False
+            self._active.clear()
+            self._inflight = None
+            self._finish_ready.clear()
+            self._stops_pending = 0
+            self._cache.drop_carry()
+            if self._cache.min_bucket:
+                # The pre-poison bucket (floored at what the journal
+                # needs): its graphs were captured already.
+                rung = self._prebucket or self._cache.bucket_for(0)
+                rung = max(rung, self._cache.bucket_for(len(self._journal)))
+                self._cache.set_bucket(rung)
+            self._sched.reset_locked()
+            restored = self._restore_journal_locked()
+            self._poison = None
+            self._degraded_reason = None
+            self._closed = False
+            self._draining = False
+            self._thread = threading.Thread(target=self._loop,
+                                            name="kvedge-torch-serve",
+                                            daemon=True)
+            self._thread.start()
+            self._work.notify_all()
+        return restored
+
+    def _rewind_locked(self, req: _Request, entry) -> None:
+        """Rewind ``req`` to its checkpoint (idempotent): ``generated``
+        truncates to the checkpointed length, the pending token restores,
+        and the delivered watermark arms :meth:`_emit`'s replay
+        suppression. A stop found after the checkpoint is replay state."""
+        req.stream_resume_at = max(req.stream_resume_at, entry.emitted)
+        del req.generated[entry.gen_len:]
+        req.next_token = entry.next_token
+        req.inflight = 0
+        req.stopped = False
+
+    def _restore_journal_locked(self) -> int:
+        """Re-admit every journaled request into the scrubbed pool (lock
+        held, no decode loop yet): each rewinds to its checkpoint and
+        takes a fresh slot with its page bytes swapped back in. A prefix
+        reference re-materializes its shadow ONCE per node: the first
+        restorer swaps it into freshly pinned pages and re-registers the
+        entry, later citers lease those pages. A fault re-journals
+        everything (restored rows too; the rewind is idempotent) and
+        leaves the pool poisoned for the next attempt. Entries beyond
+        the free slots go back to the swap set under their tickets."""
+        entries = self._journal.take_all()
+        all_drained = list(entries)
+        node_pages: dict[int, tuple] = {}
+        restored: list[tuple[int, JournalEntry]] = []
+        try:
+            while entries:
+                entry = entries[0]
+                req = entry.req
+                if req.cancelled or req.done.is_set():
+                    entries.pop(0)
+                    continue
+                if not self._free_slots:
+                    break
+                self._rewind_locked(req, entry)
+                req.pages_reserved = entry.pages_reserved
+                req.ticket_no = entry.ticket_no
+                req.admit_seq = entry.admit_seq
+                req.shared_pages = ()
+                req.prefix_node = None
+                slot = heapq.heappop(self._free_slots)
+                self._reserved += entry.pages_reserved
+                self._active[slot] = req
+                # Listed BEFORE the device calls, so a fault unwinds it.
+                restored.append((slot, entry))
+                sh_n = entry.prefix_pages_n
+                if entry.prefix_node is not None and sh_n:
+                    node = entry.prefix_node
+                    pins = node_pages.get(node)
+                    if pins is None:
+                        shadow = self._prefix_shadow[node]
+                        fresh = [self._cache.allocate_pinned_page()
+                                 for _ in range(sh_n)]
+                        try:
+                            self._cache.swapin_pages(fresh,
+                                                     shadow["arrays"])
+                        except Exception:
+                            self._cache.release_pages(fresh)
+                            raise
+                        self._insert_prefix_entry(
+                            req.prompt[:entry.prefix_tokens], fresh)
+                        pins = node_pages[node] = tuple(fresh)
+                    self._cache.admit(slot, entry.saved_len, pins)
+                    self._cache.swapin_pages(
+                        self._cache.slot_pages(slot)[sh_n:], entry.arrays)
+                    self._lease_take_locked(pins)
+                    req.shared_pages = pins
+                    req.prefix_node = node
+                else:
+                    self._cache.admit(slot, entry.saved_len)
+                    self._cache.swapin_pages(self._cache.slot_pages(slot),
+                                             entry.arrays)
+                self._note_finish_candidate_locked(slot, req)
+                entries.pop(0)
+        except Exception:
+            for slot, entry in restored:
+                self._active.pop(slot, None)
+                self._release_locked(slot, entry.pages_reserved,
+                                     entry.req.shared_pages)
+                entry.req.shared_pages = ()
+                entry.req.prefix_node = None
+            for _, entry in restored:
+                self._journal.put(entry.req, entry)
+            for entry in entries:
+                self._journal.put(entry.req, entry)
+            raise
+        # Overflow back to the swap set (host bookkeeping only): the loop
+        # resumes them at boundaries like preempted victims. A prefix
+        # reference becomes the full snapshot (shadow + own pages).
+        requeued = 0
+        for entry in entries:
+            req = entry.req
+            self._rewind_locked(req, entry)
+            arrays = entry.arrays
+            pages_needed = entry.pages_reserved
+            if entry.prefix_node is not None and entry.prefix_pages_n:
+                shadow = self._prefix_shadow[entry.prefix_node]
+                arrays = tuple(torch.cat([s, o], dim=1) for s, o in
+                               zip(shadow["arrays"], entry.arrays))
+                pages_needed += entry.prefix_pages_n
+            req.pages_reserved = pages_needed
+            req.shared_pages = ()
+            req.prefix_node = None
+            self._sched.record_swapout_locked(
+                req, entry.pclass, entry.ticket_no, pages_needed,
+                entry.saved_len, arrays, restore=True)
+            requeued += 1
+        # Committed: settle every drained entry's shadow reference.
+        for entry in all_drained:
+            if entry.prefix_node is not None:
+                self._journal_drop_locked(entry)
+        self._journal_restores += len(restored) + requeued
+        return len(restored) + requeued
 
     # ---- the decode loop -------------------------------------------------
 
@@ -1738,6 +2337,7 @@ class PagedGenerationServer:
                                  req.shared_pages)
             req.pages_reserved = full
             req.shared_pages = ()
+            req.prefix_node = None
             self._sched.record_swapout_locked(
                 req, req.pclass, req.ticket_no, full, saved_len, arrays)
 
@@ -1760,6 +2360,8 @@ class PagedGenerationServer:
             # Yield the interpreter lock with the work lock released, so
             # admission waiters can take it between windows.
             time.sleep(0)
+        if self._poison is not None:
+            self._degrade()  # outside the lock, the loop has exited
 
     def _loop_once(self) -> str:
         """One decode-loop iteration under the lock ("exit" ends it)."""
@@ -1784,6 +2386,7 @@ class PagedGenerationServer:
                 self._maybe_resume_locked()
                 self._maybe_preempt_locked()
                 self._maybe_step_bucket_locked()
+                self._maybe_checkpoint_locked()
                 if not self._active:
                     return "ran"
                 if (self._spec > 0
@@ -1848,8 +2451,8 @@ class PagedGenerationServer:
                     self._emit(req, req.next_token)
                     req.next_token = next_tokens[slot]
                     self._note_finish_candidate_locked(slot, req)
-            except Exception as e:  # poison: fail every waiter loudly
-                self._poison_locked(e)
+            except Exception as e:  # poison: typed, journaled requests park
+                self._poison_locked(classify_failure(e))
                 return "exit"
         return "ran"
 
@@ -1900,6 +2503,9 @@ class PagedGenerationServer:
                     self._maybe_resume_locked()
                     self._maybe_preempt_locked()
                     self._maybe_step_bucket_locked()
+                    # Checkpoints share the boundary: the swap-out bytes
+                    # must cover a reconciled, nothing-in-flight state.
+                    self._maybe_checkpoint_locked()
                     if not self._active:
                         return "ran"
                     self._boundary_dispatch_locked()
@@ -1938,11 +2544,11 @@ class PagedGenerationServer:
                         self._drain_rec_locked(prev)
                         raise
                 self._decode_s += time.perf_counter() - t0
-            except Exception as e:  # poison: fail every waiter loudly
+            except Exception as e:  # poison: typed, journaled requests park
                 # Drain the window in flight first, so nothing queued on
                 # the device still writes the pool being torn down.
                 self._drain_inflight_locked()
-                self._poison_locked(e)
+                self._poison_locked(classify_failure(e))
                 return "exit"
         return "ran"
 
@@ -1977,13 +2583,17 @@ class PagedGenerationServer:
         row of a slot that sat out is garbage), when stop finishes wait
         for one, when the scheduler's head could resume or has a victim
         to preempt (the swap joins at a boundary), or when a bucket step
-        waits (the batch dim resizes with nothing in flight)."""
+        waits (the batch dim resizes with nothing in flight), or when the
+        checkpoint clock is due (a saturated pipeline would otherwise
+        never reach the boundary a checkpoint rides)."""
         dispatched = {slot for slot, _, _ in prev["parts"]}
         for slot, req in self._active.items():
             if req.cancelled or slot not in dispatched:
                 return True
         return (self._bucket_step_wanted
                 or self._stops_pending > 0
+                or (self._checkpoint_every > 0
+                    and self._ckpt_clock >= self._checkpoint_every)
                 or self._sched_attention_locked(ignore_inflight=True))
 
     def _dispatch_window_locked(self, first: bool) -> dict | None:
@@ -2052,6 +2662,7 @@ class PagedGenerationServer:
         it the row was frozen and its entries repeat its last token."""
         produced = self._cache.harvest_window(rec["handle"])
         rec["counted"] = True
+        self._ckpt_clock += 1  # a window of progress at risk
         for _, req, adv in rec["parts"]:
             req.inflight -= adv
         stop_row = produced[rec["window"] + 1]
@@ -2145,6 +2756,7 @@ class PagedGenerationServer:
         truncated at the row's budget and at its stop token."""
         emitted, counts, _ = self._cache.harvest_spec_window(rec["handle"])
         rec["counted"] = True
+        self._ckpt_clock += 1  # a window of progress at risk
         for _, req, cap in rec["parts"]:
             req.inflight -= cap
         self._spec_passes += rec["window"]

@@ -28,12 +28,18 @@ same names and defaults, for the subset the ported payloads run:
                serving_sched_max_queue_depth,
                serving_sched_max_queue_wait_s,
                serving_sched_swap_budget_mb, serving_page_low_watermark,
-               serving_page_high_watermark
+               serving_page_high_watermark; degraded mode and recovery:
+               serving_retry_after_s (a poisoned pool's retry hint),
+               serving_recovery_attempts (the supervisor's attempts, 0 =
+               a poison is terminal), serving_checkpoint_every (journal
+               in-flight requests every N boundaries, 0 = off),
+               serving_debug_pages (audit the page books at every
+               boundary)
     [status]   port, bind
 
 Any other section or key is REFUSED with its name, not ignored: a knob
-the port does not implement (the journal, the SLO engine, tracing,
-the window autotune, ...) would otherwise silently change nothing.
+the port does not implement (the SLO engine, tracing, the window
+autotune, ...) would otherwise silently change nothing.
 """
 
 from __future__ import annotations
@@ -88,11 +94,16 @@ _PAYLOAD_KEYS = {
     "serving_sched_swap_budget_mb": "serving_sched_swap_budget_mb",
     "serving_page_low_watermark": "serving_page_low_watermark",
     "serving_page_high_watermark": "serving_page_high_watermark",
+    "serving_retry_after_s": "serving_retry_after_s",
+    "serving_recovery_attempts": "serving_recovery_attempts",
+    "serving_checkpoint_every": "serving_checkpoint_every",
+    "serving_debug_pages": "serving_debug_pages",
 }
 # Fractions and seconds: a TOML integer reads as the float, as the
 # reference's float() does.
 _FLOAT_FIELDS = ("serving_sched_max_queue_wait_s",
-                 "serving_page_low_watermark", "serving_page_high_watermark")
+                 "serving_page_low_watermark", "serving_page_high_watermark",
+                 "serving_retry_after_s")
 _STATUS_KEYS = {"port": "status_port", "bind": "status_bind"}
 
 
@@ -182,6 +193,18 @@ class RuntimeConfig:
     # request resumes only at ``high`` or better.
     serving_page_low_watermark: float = 0.0
     serving_page_high_watermark: float = 0.0
+    # Seconds a client refused by a poisoned pool should wait; while the
+    # recovery supervisor heals, its measured recovery time instead.
+    serving_retry_after_s: float = 30.0
+    # Heal attempts (warm restart, backoff between them) before a poison
+    # escalates to the terminal 503; 0 = no supervisor.
+    serving_recovery_attempts: int = 2
+    # Journal every live request every N quiescent boundaries so a
+    # poisoned pool resumes it after the heal (0 = off: a poison fails
+    # the requests in flight).
+    serving_checkpoint_every: int = 0
+    # Audit free + live == pages_total at every quiescent boundary.
+    serving_debug_pages: bool = False
     status_port: int = 8476
     status_bind: str = "0.0.0.0"
 
@@ -246,14 +269,17 @@ class RuntimeConfig:
     def validate(self) -> None:
         for name in ("serving_prefix_host_mb",
                      "serving_sched_max_queue_depth",
-                     "serving_sched_swap_budget_mb"):
+                     "serving_sched_swap_budget_mb",
+                     "serving_recovery_attempts",
+                     "serving_checkpoint_every"):
             value = getattr(self, name)
             if not isinstance(value, int) or isinstance(value, bool):
                 raise RuntimeConfigError(
                     f"[payload] {name} must be an integer, got {value!r}")
         for name in ("serving_sched_max_queue_wait_s",
                      "serving_page_low_watermark",
-                     "serving_page_high_watermark"):
+                     "serving_page_high_watermark",
+                     "serving_retry_after_s"):
             value = getattr(self, name)
             if not isinstance(value, (int, float)) or isinstance(value,
                                                                  bool):
@@ -283,6 +309,21 @@ class RuntimeConfig:
         if not isinstance(self.serving_prefix_persist, bool):
             raise RuntimeConfigError(
                 "[payload] serving_prefix_persist must be a boolean")
+        if self.serving_retry_after_s <= 0:
+            raise RuntimeConfigError(
+                "[payload] serving_retry_after_s must be > 0 "
+                "(seconds a refused client should wait before retrying)")
+        if self.serving_recovery_attempts < 0:
+            raise RuntimeConfigError(
+                "[payload] serving_recovery_attempts must be >= 0 "
+                "(0 = no in-process recovery; degrade is terminal)")
+        if self.serving_checkpoint_every < 0:
+            raise RuntimeConfigError(
+                "[payload] serving_checkpoint_every must be >= 0 "
+                "(0 = off: no in-flight checkpointing)")
+        if not isinstance(self.serving_debug_pages, bool):
+            raise RuntimeConfigError(
+                "[payload] serving_debug_pages must be a boolean")
         if self.serving_prefix_host_mb < 0:
             raise RuntimeConfigError(
                 "[payload] serving_prefix_host_mb must be >= 0 "

@@ -20,7 +20,15 @@ state directory its registry reloads from
 ``<state_dir>/prefix-cache.npz`` at boot and is dumped there every 30 s
 and after shutdown) and the bucketed batch (``serving_min_bucket``);
 the pool holds ``serving_pages`` pages, or as many as
-``serving_hbm_budget_mb`` buys. The paged
+``serving_hbm_budget_mb`` buys. A decode failure poisons the paged pool
+(``runtime/failures.py``): it writes ``<state_dir>/last-failure.json``
+and, with ``serving_recovery_attempts`` > 0 (2 by default), the recovery
+supervisor (``runtime/recovery.py``) revives the pool in place, with the
+requests ``serving_checkpoint_every`` journaled resumed; meanwhile
+``/healthz`` answers 503 with ``recovering: true`` and a retry hint,
+and after escalation (or with no supervisor) with ``terminal: true``;
+a poisoned pool refuses ``/generate`` with a 503 carrying
+``retry_after_s``. The paged
 backend speculates server-wide instead (``serving_speculative``,
 ``serving_spec_window``, ``serving_spec_sampled_window``): a draft
 length > 0 runs the boot probe (``resolve_speculation``), which turns
@@ -43,8 +51,9 @@ vocabulary. Sampling (``temperature > 0``) is seeded: row r's key is
 ``fold_in(PRNGKey(seed), r)``, so the same request returns the same
 tokens. Errors map as the reference's: 400 for a malformed body or an
 unknown priority class, 503 when capacity does not free up, when the
-scheduler sheds the request (the refusal's text, with its retry hint)
-or when the server is closing, 500 for a failure. ``"stream": true`` answers newline-delimited JSON instead: one
+scheduler sheds the request (the refusal's text, with its retry hint),
+when the pool is poisoned (a retryable failure; ``retry_after_s`` in the
+body) or when the server is closing, 500 for a failure. ``"stream": true`` answers newline-delimited JSON instead: one
 ``{"row": r, "token": t}`` record per token as it lands, rows
 interleaved, then ``{"done": true, "tokens": ..., "n_new": N,
 "restored_step": null}``; a failure after the 200 is a final
@@ -82,12 +91,20 @@ from kvedge_torch.models.serving import (
 )
 from kvedge_torch.models.transformer import torch_dtype
 from kvedge_torch.models.weights import params_from_numpy
+from kvedge_torch.runtime import heartbeat
 from kvedge_torch.runtime.config import (
     RuntimeConfigError,
     ServeConfig,
     _spec_draft_len,
 )
 from kvedge_torch.runtime.devicecheck import resolve_device, run_device_check
+from kvedge_torch.runtime.failures import ServingFailure
+from kvedge_torch.runtime.recovery import (
+    RECOVERING,
+    RecoveryPolicy,
+    RecoverySupervisor,
+    sweep_stranded_tmp,
+)
 from kvedge_torch.runtime.train import restore_latest_params
 
 # Request-body ceiling: a token grid is small; anything bigger is refused
@@ -96,7 +113,12 @@ _MAX_GENERATE_BODY = 1 << 20
 
 
 class GenerateUnavailable(RuntimeError):
-    """Capacity or lifecycle refusal: the client should retry (503)."""
+    """Capacity or lifecycle refusal: the client should retry (503),
+    after ``retry_after_s`` when the refusal carried a hint."""
+
+    def __init__(self, msg: str, retry_after_s: float | None = None):
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
 
 
 def _serving_page_bytes(cfg: ServeConfig, tcfg: TransformerConfig) -> int:
@@ -267,7 +289,10 @@ class ServeRuntime:
     ``device`` is the card unless "cpu" is asked for; ``params`` is a
     numpy param tree (the reference's layout) or None for the latest
     checkpoint's params, or weights made from ``seed`` when there is no
-    checkpoint; ``dtype`` is the compute dtype.
+    checkpoint; ``dtype`` is the compute dtype. ``supervisor`` is the
+    paged pool's :class:`RecoverySupervisor` (None with
+    ``serving_recovery_attempts = 0`` or the contiguous backend); its
+    warm restart re-restores the params served, copied in place.
     """
 
     def __init__(self, cfg: ServeConfig, *, device=None,
@@ -280,7 +305,15 @@ class ServeRuntime:
                                f"{self.device_check.error}")
         self.cfg = cfg
         self.tcfg = cfg.model_config(dtype)
+        # Atomic-write leftovers of a killed predecessor, before anything
+        # writes to the state directory.
+        swept = sweep_stranded_tmp(cfg.state_dir)
+        if swept:
+            print(f"[kvedge-serve] swept {len(swept)} stranded tmp "
+                  f"file(s) from the state dir: {', '.join(swept)}",
+                  flush=True)
         self.restored_step = None
+        given = params
         if params is None:
             self.restored_step, params = restore_latest_params(
                 cfg, self.tcfg, seed)
@@ -289,6 +322,7 @@ class ServeRuntime:
         self.max_rows = _serve_max_rows(cfg, self.tcfg)
         self.paged = cfg.payload_serving == "paged"
         self.server = None
+        self.supervisor = None
         self.spec_decision = None
         # The prefix registry's file and the fingerprint of the weights
         # its K/V belong to (None: persistence off).
@@ -321,7 +355,12 @@ class ServeRuntime:
                              else 0),
                 spec_sampled_window=cfg.serving_spec_sampled_window,
                 min_bucket=cfg.serving_min_bucket,
+                retry_after_s=cfg.serving_retry_after_s,
+                checkpoint_every=cfg.serving_checkpoint_every,
+                debug_pages=cfg.serving_debug_pages,
             )
+            if cfg.state_dir:
+                self.server.on_degraded = self._record_failure
             if spec_draft > 0:
                 # Measure this card's verify pass and window before
                 # traffic: "auto" turns speculation off when windows beat
@@ -337,6 +376,26 @@ class ServeRuntime:
             if (cfg.serving_prefix_persist and cfg.serving_prefix_cache
                     and cfg.state_dir):
                 self._start_prefix_persistence()
+            if cfg.serving_recovery_attempts > 0:
+                # Chained after the failure record: a poison is recorded,
+                # then healed, and escalates to the terminal 503 only when
+                # the attempts or the crash-loop breaker say so.
+                tcfg = self.tcfg
+
+                def restore_params():
+                    tree = (given if given is not None else
+                            restore_latest_params(cfg, tcfg, seed)[1])
+                    return params_from_numpy(tree, tcfg, "cpu")
+
+                self.supervisor = RecoverySupervisor(
+                    self.server,
+                    policy=RecoveryPolicy(
+                        max_attempts=cfg.serving_recovery_attempts),
+                    state_dir=cfg.state_dir,
+                    prefix_path=self.prefix_path or "",
+                    prefix_fingerprint=self.prefix_fingerprint or "",
+                    restore_params=restore_params,
+                ).attach()
         # Rows submit together on a bounded pool (2 x slots workers):
         # excess rows queue here instead of spawning threads.
         self._rows = concurrent.futures.ThreadPoolExecutor(
@@ -367,6 +426,40 @@ class ServeRuntime:
                   f"from {self.prefix_path}", flush=True)
         self.server.start_prefix_persistence(
             self.prefix_path, self.prefix_fingerprint, interval=30.0)
+
+    def _record_failure(self, reason, failure) -> None:
+        """The paged pool's ``on_degraded`` observer: the post-mortem
+        ``<state_dir>/last-failure.json``, which outlives the pod."""
+        heartbeat.write_failure_record(self.cfg.state_dir, {
+            "payload": "serve", "backend": "paged",
+            "type": type(failure).__name__, "reason": reason,
+            "retryable": bool(getattr(failure, "retryable", False)),
+        })
+
+    def health(self) -> tuple[int, dict]:
+        """``GET /healthz``: 200 ``{"status": "ok"}``, or 503 with the
+        reference's detail. A poisoned pool under recovery is NOT
+        terminal (``recovering``, a retry hint, the capacity probe);
+        with no supervisor, or after its escalation, it is."""
+        if self.healthy:
+            return 200, {"status": "ok"}
+        doc: dict = {"status": "degraded"}
+        reason = self.server.degraded if self.server is not None else None
+        if reason is None:
+            return 503, doc
+        rec = (self.supervisor.health() if self.supervisor is not None
+               else None)
+        if rec is not None and rec["state"] == RECOVERING:
+            doc.update({"reason": reason, "terminal": False,
+                        "recovering": True,
+                        "retry_after_s": (
+                            rec["retry_after_s"]
+                            if rec.get("retry_after_s") is not None
+                            else self.cfg.serving_retry_after_s)})
+            doc.update(self.server.capacity_probe())
+        else:
+            doc.update({"reason": reason, "terminal": True})
+        return 503, doc
 
     @property
     def port(self) -> int:
@@ -453,8 +546,9 @@ class ServeRuntime:
         """Run ``fn(i)`` for every row on the bounded row pool, rows
         together so they ride the same decode windows; then raise the
         first real fault (500), else the first capacity or lifecycle
-        refusal (a shed included) as :class:`GenerateUnavailable` (503),
-        with its retry hint when it carries one."""
+        refusal (a shed and a poisoned pool's retryable failure included)
+        as :class:`GenerateUnavailable` (503), with its retry hint when it
+        carries one."""
         errors: list = [None] * n_rows
 
         def guarded(i: int) -> None:
@@ -466,7 +560,8 @@ class ServeRuntime:
         for fut in [self._rows.submit(guarded, i) for i in range(n_rows)]:
             fut.result()
         retriable = [e for e in errors
-                     if isinstance(e, (ServerBusy, ServerClosed))]
+                     if isinstance(e, (ServerBusy, ServerClosed))
+                     or (isinstance(e, ServingFailure) and e.retryable)]
         for e in errors:
             if e is not None and e not in retriable:
                 raise e
@@ -475,7 +570,7 @@ class ServeRuntime:
             retry_after = getattr(e, "retry_after_s", None)
             hint = ("" if retry_after is None
                     else f" (retry after ~{retry_after:g}s)")
-            raise GenerateUnavailable(f"{e}{hint}") from e
+            raise GenerateUnavailable(f"{e}{hint}", retry_after) from e
 
     def _stream(self, prompts, n_new: int, timeout: float, row_sampling,
                 priority: str = "interactive",
@@ -561,9 +656,7 @@ class ServeRuntime:
 
             def do_GET(self):
                 if self.path == "/healthz":
-                    ok = runtime.healthy
-                    self._send(200 if ok else 503,
-                               {"status": "ok" if ok else "degraded"})
+                    self._send(*runtime.health())
                 else:
                     self._send(404, {"error": f"no route {self.path}"})
 
@@ -592,7 +685,10 @@ class ServeRuntime:
                 except ValueError as e:
                     self._send(400, {"error": str(e)})
                 except GenerateUnavailable as e:
-                    self._send(503, {"error": str(e)})
+                    body = {"error": str(e)}
+                    if e.retry_after_s is not None:
+                        body["retry_after_s"] = e.retry_after_s
+                    self._send(503, body)
                 except Exception as e:  # generation failed; stay serving
                     self._send(500, {"error": f"generate failed: {e!r}"})
                 else:
@@ -626,6 +722,8 @@ class ServeRuntime:
         self._http_thread.start()
 
     def close(self, drain: bool = False) -> None:
+        if self.supervisor is not None:
+            self.supervisor.stop()
         if self.httpd is not None:
             self.httpd.shutdown()
             self.httpd.server_close()

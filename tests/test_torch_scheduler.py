@@ -440,11 +440,11 @@ def test_prefix_persistence_and_other_left_out_knobs_are_refused():
     assert ServeConfig.parse("").serving_prefix_persist is True
     for text, match in (("serving_hbm_budget_mb = 64\nserving_pages = 32\n",
                          "mutually exclusive"),
-                        ("serving_checkpoint_every = 2\n",
-                         "serving_checkpoint_every"),
+                        ("serving_occupancy_ring = 64\n",
+                         "serving_occupancy_ring"),
                         ("serving_slo = true\n", "serving_slo"),
-                        ("serving_retry_after_s = 30.0\n",
-                         "serving_retry_after_s"),
+                        ("serving_debug_locks = true\n",
+                         "serving_debug_locks"),
                         ("serving_trace = 'on'\n", "serving_trace")):
         with pytest.raises(RuntimeConfigError, match=match):
             ServeConfig.parse("[payload]\n" + text)

@@ -329,8 +329,7 @@ def test_config_reads_the_reference_toml_names_and_refuses_the_rest():
             f'[payload]\nserving_overlap = "{value}"\n'
         ).serving_overlap == value
     for text, match in [
-        ('[payload]\nserving_checkpoint_every = 2\n',
-         "serving_checkpoint_every"),
+        ('[payload]\nserving_bundle = true\n', "serving_bundle"),
         ('[payload]\nserving_window = "auto"\n', "serving_window"),
         ('[mesh]\naxes = {data = 1}\n', "mesh"),
         ('[model]\npreset = "huge"\n', "preset"),
