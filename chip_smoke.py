@@ -200,6 +200,32 @@ imports nothing of JAX. Phases, each printing one JSON line:
             inside its limit. (g) a window capture made to fail by a host
             sync inside it: no graph stored, the caller's stream current,
             and the next dispatch captures and equals eager bit for bit.
+6i. observability  request ids, the flight recorder, /status, /metrics,
+            /trace, /slo, /debug/bundle, the window autotune, the
+            reconnect log and debug locks, at the flagship width (8
+            layers, bf16, the serve phase's pool and requests): one
+            runtime with ``serving_trace = "on"``, ``serving_slo``,
+            ``serving_bundle``, ``serving_occupancy_ring = 256`` and
+            ``serving_checkpoint_every = 16`` runs the burst (B1 counted
+            over it) and the same burst with those planes switched off on
+            the live server (its tracer, SLO engine, ring and checkpoint
+            cadence set to None / 0): the tokens must be equal; tokens/s
+            on against off printed, not gated. A /metrics scrape (its ms
+            printed) passes a strict Prometheus text-format check and
+            carries the TTFT, ITL, queue and device-window histograms;
+            /trace is valid Chrome trace-event JSON with spans for every
+            request id of the burst; /slo and /debug/bundle answer. TTFT
+            and ITL p50 of the burst from the histograms. A streamed
+            request dropped after 3 tokens mid-burst and reconnected
+            (``X-Request-Id``, ``emitted_offset = 3``) stitches to its
+            clean tokens, once clean and once across a window-dispatch
+            fault healed by the supervisor (checkpoints at every boundary
+            for that part). A runtime with ``serving_window = "auto"``
+            (bounds 1..256) runs the burst twice: its greedy tokens equal
+            window 64's; the controller's pick, R and t, and the window
+            graphs and capture seconds it added are printed. At 2 layers
+            a burst with ``serving_debug_locks = true`` returns the tokens
+            of the plain locks.
 7. timings  CUDA-event times at the serve phase's decode shapes (L2
             flushed before each launch): the kernel, its plain version,
             ``F.scaled_dot_product_attention`` over the gathered K/V as a
@@ -2904,6 +2930,393 @@ def phase_recovery(torch, np, pa, kvc, ttr, serve, ServeConfig,
     return doc
 
 
+OBS_RING = 256          # serving_occupancy_ring of the observability phase
+OBS_CKPT = 16           # serving_checkpoint_every of the observability phase
+OBS_DROP_AT = 3         # tokens a dropped stream reads before it closes
+OBS_DIR = os.path.join(HERE, "build", "chip_smoke_observability")
+
+
+def obs_cfg(ServeConfig, state_dir, **kw):
+    base = dict(preset="flagship", max_seq=2048, payload_serving="paged",
+                serving_overlap="auto", serving_slots=4,
+                serving_page_size=16, serving_prefill_chunk=64,
+                serving_window=64, serving_prefix_cache=False,
+                serving_prefix_persist=False, state_dir=state_dir)
+    return ServeConfig(**{**base, **kw})
+
+
+_PROM_SAMPLE = None
+
+
+def prometheus_families(text: str) -> dict:
+    """Strict Prometheus text-format check of a /metrics body: unique
+    HELP and TYPE per family, every sample under a declared family,
+    counters ending in _total, histograms with cumulative ``le`` buckets
+    ending at +Inf and a matching _count and a _sum. Returns {family:
+    type}."""
+    import re
+
+    global _PROM_SAMPLE
+    if _PROM_SAMPLE is None:
+        _PROM_SAMPLE = re.compile(
+            r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$")
+    helps, types, samples = set(), {}, {}
+    for line in text.splitlines():
+        if not line.strip():
+            continue
+        if line.startswith("# HELP "):
+            name = line.split(" ")[2]
+            check(name not in helps, f"duplicate HELP {name}")
+            helps.add(name)
+        elif line.startswith("# TYPE "):
+            _, _, name, mtype = line.split(" ")
+            check(name in helps and name not in types, f"TYPE {name}")
+            check(mtype in ("gauge", "counter", "histogram"), line)
+            types[name] = mtype
+        else:
+            m = _PROM_SAMPLE.match(line)
+            check(m is not None, f"unparseable sample {line!r}")
+            name, labels, value = m.groups()
+            float(value)
+            family = name
+            for suffix in ("_bucket", "_sum", "_count"):
+                if (name.endswith(suffix) and types.get(
+                        name[:-len(suffix)]) == "histogram"):
+                    family = name[:-len(suffix)]
+            check(family in types, f"sample {name} without a TYPE")
+            samples.setdefault(family, []).append((name, labels,
+                                                   float(value)))
+    for name, mtype in types.items():
+        check(bool(samples.get(name)), f"family {name} has no samples")
+        if mtype == "counter":
+            check(name.endswith("_total"), f"counter {name}")
+        if mtype == "histogram":
+            rows = samples[name]
+            cum = [v for n, _, v in rows if n == name + "_bucket"]
+            check(cum == sorted(cum) and rows[-3][1] == '{le="+Inf"}',
+                  f"histogram {name} buckets")
+            check([v for n, _, v in rows if n == name + "_count"]
+                  == [cum[-1]], f"histogram {name} count")
+            check(any(n == name + "_sum" for n, _, _ in rows),
+                  f"histogram {name} sum")
+    return types
+
+
+def get_json(url, timeout=120):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def hist_p50(slo_mod, after, before):
+    """The p50 of a histogram's growth between two stats snapshots."""
+    delta = slo_mod.hist_delta(after, before)
+    if delta is None or delta["count"] <= 0:
+        return None
+    return slo_mod.hist_quantile(delta, 0.5)
+
+
+def drop_after(port, doc, rid, k, timeout=600):
+    """POST ``doc`` streamed with ``X-Request-Id: rid``, read its first
+    ``k`` token records, then close the connection. Returns them."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request("POST", "/generate", json.dumps(dict(doc, stream=True)),
+                 {"Content-Type": "application/json", "X-Request-Id": rid})
+    resp = conn.getresponse()
+    check(resp.status == 200, f"dropped stream: HTTP {resp.status}")
+    check(resp.getheader("X-Request-Id") == rid, "the request id echo")
+    got = []
+    while len(got) < k:
+        rec = json.loads(resp.fp.readline())
+        check("token" in rec, f"dropped stream record {rec}")
+        got.append(rec["token"])
+    conn.close()
+    return got
+
+
+def reconnect(url, rid, k):
+    """The streamed reconnect of ``rid`` at ``emitted_offset = k``: the
+    tokens past k, from its records."""
+    req = urllib.request.Request(
+        url, data=json.dumps({"emitted_offset": k, "stream": True}).encode(),
+        headers={"Content-Type": "application/json", "X-Request-Id": rid})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        recs = [json.loads(ln) for ln in r.read().splitlines()]
+    check(recs and recs[-1].get("done") is True
+          and recs[-1]["resumed_at"] == [k], f"reconnect end {recs[-1:]}")
+    return [r["token"] for r in recs if "token" in r]
+
+
+def obs_reconnect(rt, url, reqs, clean, idx, sf=None):
+    """Request ``idx`` of the burst streamed, dropped after OBS_DROP_AT
+    tokens while the others run, then reconnected: the stitch must equal
+    its clean tokens. With ``sf``, a window-dispatch fault fires once the
+    request is journaled (checkpoints at every boundary for the part) and
+    the supervisor heals the pool before the reconnect."""
+    server, sup = rt.server, rt.supervisor
+    rid = f"obs-drop-{'fault' if sf else 'clean'}"
+    plan = None
+    if sf is not None:
+        server._checkpoint_every = 1
+
+        def journaled(s):
+            return any(r.rid == rid and s._journal.get(r) is not None
+                       for r in s._active.values())
+
+        plan = fire_when(sf, server, ("windowp", "wsamplep"), journaled)
+        sf.FaultyCache.arm(server._cache, plan)
+        dying = server._thread
+    others = [i for i in range(len(reqs)) if i != idx]
+    out = {}
+    try:
+        def one(i):
+            out[i] = post(url, reqs[i])
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in others]
+        for th in threads:
+            th.start()
+        head = drop_after(rt.port, reqs[idx], rid, OBS_DROP_AT)
+        for th in threads:
+            th.join(timeout=600)
+            check(not th.is_alive(), "a request never returned")
+        fired = None
+        if sf is not None:
+            fired = plan.fired_on
+            check(fired is not None, "the window-dispatch fault never fired")
+            state = settle(sup, dying)
+            check(state == "healthy", f"the supervisor settled {state}")
+        tail = reconnect(url, rid, OBS_DROP_AT)
+    finally:
+        if sf is not None:
+            sf.FaultyCache.arm(server._cache, None)
+            server._checkpoint_every = OBS_CKPT
+    prompt = reqs[idx]["tokens"][0]
+    want = clean[idx][0][len(prompt):]
+    stitched = head + tail
+    check(stitched == want, f"reconnect ({rid}) stitched "
+          f"{len(stitched)} tokens, first difference at "
+          f"{next((i for i, (a, b) in enumerate(zip(stitched, want)) if a != b), min(len(stitched), len(want)))}")
+    if sf is None:
+        check(all(out[i][0] == 200 for i in others),
+              "a request of the clean reconnect burst failed")
+    return {"request": idx, "dropped_after": OBS_DROP_AT,
+            "reconnected_tokens": len(tail), "stitched_equal_clean": True,
+            "fault_fired_on": fired,
+            "other_requests_200": sum(out[i][0] == 200 for i in others),
+            "other_requests": len(others)}
+
+
+def phase_observability(torch, np, pa, serve, ServeConfig, device="cuda",
+                        preset="flagship", max_seq=2048, layers_small=2):
+    """Phase 6i of the module docstring; one JSON line."""
+    import shutil
+
+    from kvedge_torch.runtime import slo as slo_mod
+    from kvedge_torch.testing import servingfaults as sf
+
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    os.makedirs(OBS_DIR)
+    walls = {}
+    t_part = time.perf_counter()
+    doc = {"phase": "observability", "model": preset, "dtype": "bfloat16"}
+    state = os.path.join(OBS_DIR, "on")
+    rt = serve.ServeRuntime(
+        obs_cfg(ServeConfig, state, preset=preset, max_seq=max_seq,
+                serving_trace="on", serving_slo=True, serving_bundle=True,
+                serving_occupancy_ring=OBS_RING,
+                serving_checkpoint_every=OBS_CKPT),
+        device=device, dtype="bfloat16", seed=0, host="127.0.0.1", port=0)
+    try:
+        server, vocab = rt.server, rt.tcfg.vocab
+        base = f"http://127.0.0.1:{rt.port}"
+        url = base + "/generate"
+        for warm in ({"tokens": [[1, 2, 3]], "n_new": 128},
+                     {"tokens": [[4, 5, 6]], "n_new": 128,
+                      "temperature": 0.7, "top_p": 0.9, "seed": 1}):
+            check(post(url, warm)[0] == 200, "warm-up request")
+        reqs = serve_requests(np, vocab)
+        gen = sum(r["n_new"] * len(r["tokens"]) for r in reqs)
+        shifted = [{**r, "tokens": [[(t + 104729) % vocab for t in row]
+                                    for row in r["tokens"]]} for r in reqs]
+        res, _, _ = run_burst(url, shifted,
+                              queued=lambda: server.requests_queued)
+        check(all(c == 200 for c, _ in res), "the capture burst failed")
+        walls["warm_up"] = time.perf_counter() - t_part
+
+        def burst():
+            st0 = server.stats()
+            results, lat, wall = run_burst(
+                url, reqs, queued=lambda: server.requests_queued)
+            for (code, body), req in zip(results, reqs):
+                check(code == 200, f"HTTP {code}: {body}")
+                check_response(body, req, vocab)
+            return results, wall, st0, server.stats()
+
+        pa.paged_decode_attention.launches = 0
+        on, wall_on, st0, st1 = burst()
+        launches = pa.paged_decode_attention.launches
+        # The same burst with the planes off on the live server: the None
+        # checks their knobs' off state is.
+        planes = (server.tracer, server._sched.tracer, server._slo,
+                  server._occ_ring, server._checkpoint_every)
+        server.tracer = server._sched.tracer = None
+        server._slo = server._occ_ring = None
+        server._checkpoint_every = 0
+        try:
+            off, wall_off, _, _ = burst()
+        finally:
+            (server.tracer, server._sched.tracer, server._slo,
+             server._occ_ring, server._checkpoint_every) = planes
+        check([b["tokens"] for _, b in on] == [b["tokens"] for _, b in off],
+              "the burst's tokens differ with the observability knobs on")
+        check(launches >= (rt.tcfg.n_layers if device == "cuda" else 0),
+              f"B1 launched {launches} times")
+        rids = [b["request_id"] for _, b in on]
+        doc["burst"] = {
+            "requests": len(reqs), "generated_tokens": gen,
+            "b1_launches": launches,
+            "tokens_per_s_knobs_on": gen / wall_on,
+            "tokens_per_s_knobs_off": gen / wall_off,
+            "on_over_off": wall_off / wall_on,
+            "ttft_p50_ms": hist_p50(slo_mod, st1["ttft_ms"], st0["ttft_ms"]),
+            "itl_p50_ms": hist_p50(slo_mod, st1["itl_ms"], st0["itl_ms"]),
+            "queue_p50_ms": hist_p50(slo_mod, st1["queue_ms"],
+                                     st0["queue_ms"]),
+            "device_window_p50_ms": hist_p50(
+                slo_mod, st1["window_device_ms"], st0["window_device_ms"]),
+            "checkpoints": st1["checkpoints_total"] - st0["checkpoints_total"],
+            "tokens_equal_knobs_off": True}
+        walls["bursts"] = time.perf_counter() - t_part - sum(walls.values())
+
+        # The HTTP surface.
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(base + "/metrics", timeout=120) as r:
+            text = r.read().decode()
+        scrape_ms = (time.perf_counter() - t0) * 1e3
+        families = prometheus_families(text)
+        for family in ("kvedge_serve_ttft_ms", "kvedge_serve_itl_ms",
+                       "kvedge_serve_queue_ms",
+                       "kvedge_serve_device_ms_window"):
+            check(families.get(family) == "histogram", f"{family} missing")
+        t0 = time.perf_counter()
+        code, trace = get_json(base + "/trace")
+        trace_ms = (time.perf_counter() - t0) * 1e3
+        check(code == 200, "/trace")
+        tracks = {ev["tid"]: ev["args"]["name"]
+                  for ev in trace["traceEvents"] if ev["ph"] == "M"}
+        spans = [ev for ev in trace["traceEvents"] if ev["ph"] in ("X", "i")]
+        check(all(tracks.get(ev["tid"]) == ev["cat"] for ev in spans),
+              "a trace event off its category's track")
+        traced = {ev.get("args", {}).get("rid") for ev in spans}
+        missing = [r for r in rids if r not in traced]
+        check(not missing, f"no span for request ids {missing}")
+        code, slo_doc = get_json(base + "/slo")
+        check(code == 200 and slo_doc["snapshots_total"] >= 1, "/slo")
+        code, bundle = get_json(base + "/debug/bundle")
+        check(code == 200 and bundle["bundle_version"] == 1
+              and bundle["degraded"] == 0
+              and len(bundle["config_fingerprint"]) == 12, "/debug/bundle")
+        code, status = get_json(base + "/status")
+        check(code == 200 and status["ok"]
+              and status["serving"]["requests_total"] >= len(reqs),
+              "/status")
+        doc["http"] = {
+            "metrics_scrape_ms": scrape_ms, "metrics_bytes": len(text),
+            "metric_families": len(families), "trace_ms": trace_ms,
+            "trace_events": len(trace["traceEvents"]),
+            "trace_dropped": trace["otherData"]["dropped"],
+            "slo_alert": slo_doc["alert"],
+            "slo_snapshots": slo_doc["snapshots_total"],
+            "bundle_bytes": len(json.dumps(bundle)),
+            "bundle_fingerprint": bundle["config_fingerprint"]}
+        walls["http"] = time.perf_counter() - t_part - sum(walls.values())
+
+        clean = [b["tokens"] for _, b in on]
+        doc["reconnect_clean"] = obs_reconnect(rt, url, reqs, clean, 3)
+        doc["reconnect_fault"] = obs_reconnect(rt, url, reqs, clean, 3, sf)
+        walls["reconnect"] = time.perf_counter() - t_part - sum(walls.values())
+    finally:
+        rt.close()
+    torch.cuda.empty_cache()
+
+    # serving_window = "auto": the controller's picks, and the captures
+    # they cost.
+    rt = serve.ServeRuntime(
+        obs_cfg(ServeConfig, os.path.join(OBS_DIR, "auto"), preset=preset,
+                max_seq=max_seq, serving_window="auto",
+                serving_window_min=1, serving_window_max=256),
+        device=device, dtype="bfloat16", seed=0, host="127.0.0.1", port=0)
+    try:
+        server = rt.server
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        g0 = server._cache.graph_stats()
+        auto = []
+        for _ in range(2):
+            res, _, wall = run_burst(url, reqs,
+                                     queued=lambda: server.requests_queued)
+            check(all(c == 200 for c, _ in res), "an auto-window burst failed")
+            auto.append((res, wall))
+        g1 = server._cache.graph_stats()
+        st = server.stats()
+        greedy = [i for i, r in enumerate(reqs) if not r.get("temperature")]
+        check(all(auto[1][0][i][1]["tokens"] == clean[i] for i in greedy),
+              "auto-window greedy tokens differ from window 64's")
+        sampled_equal = all(auto[1][0][i][1]["tokens"] == clean[i]
+                            for i in range(len(reqs)))
+        per_bucket = g1.get("per_bucket", {})
+        doc["autotune"] = {
+            "window": st["autotune_window"], "r_ms": st["autotune_r_ms"],
+            "t_ms": st["autotune_t_ms"], "updates": st["autotune_updates"],
+            "window_graphs_added": g1["graphs"] - g0["graphs"],
+            "window_capture_s_added": g1["capture_s"] - g0["capture_s"],
+            "prefill_graphs_added": (g1["prefill_graphs"]
+                                     - g0["prefill_graphs"]),
+            "graphs_per_bucket": per_bucket,
+            "first_burst_tokens_per_s": gen / auto[0][1],
+            "second_burst_tokens_per_s": gen / auto[1][1],
+            "greedy_equal_window_64": True,
+            "sampled_equal_window_64": sampled_equal}
+        print(f"[chip_smoke] autotune: pick W={st['autotune_window']} "
+              f"R={st['autotune_r_ms']} ms t={st['autotune_t_ms']} ms; "
+              f"{g1['graphs'] - g0['graphs']} window graphs in "
+              f"{g1['capture_s'] - g0['capture_s']:.2f} s", flush=True)
+        walls["autotune"] = time.perf_counter() - t_part - sum(walls.values())
+    finally:
+        rt.close()
+    torch.cuda.empty_cache()
+
+    # serving_debug_locks at 2 layers: the same burst's tokens with the
+    # asserting locks and the plain ones.
+    small = [{**r, "n_new": min(r["n_new"], 32)} for r in reqs[:6]]
+    toks = {}
+    for debug in (True, False):
+        rt = serve.ServeRuntime(
+            obs_cfg(ServeConfig, os.path.join(OBS_DIR, f"locks{int(debug)}"),
+                    preset=preset, max_seq=max_seq, n_layers=layers_small,
+                    serving_debug_locks=debug),
+            device=device, dtype="bfloat16", seed=0, host="127.0.0.1",
+            port=0)
+        try:
+            res, _, _ = run_burst(
+                f"http://127.0.0.1:{rt.port}/generate", small,
+                queued=lambda: rt.server.requests_queued)
+            check(all(c == 200 for c, _ in res),
+                  f"a debug_locks={debug} request failed")
+            toks[debug] = [b["tokens"] for _, b in res]
+        finally:
+            rt.close()
+    check(toks[True] == toks[False],
+          "debug locks changed the tokens")
+    doc["debug_locks"] = {"n_layers": layers_small, "requests": len(small),
+                          "tokens_equal_plain_locks": True}
+    walls["debug_locks"] = time.perf_counter() - t_part - sum(walls.values())
+    doc["part_seconds"] = walls
+    doc["ok"] = True
+    emit(doc)
+    return doc
+
+
 def profile_request(torch, url, req):
     """One request under torch.profiler: the device's busy share of the
     request's wall time and the kernels that take it."""
@@ -4218,6 +4631,9 @@ def main() -> int:
         recovery_doc = phase_recovery(torch, np, pa, kvc, ttr, serve,
                                       ServeConfig, params_from_numpy)
 
+        phase = enter("observability")
+        obs_doc = phase_observability(torch, np, pa, serve, ServeConfig)
+
         phase = enter("timings")
         t = phase_timings(torch, pa, lives, serve_doc)
 
@@ -4268,6 +4684,7 @@ def main() -> int:
             "launches_prefix": prefix_doc["cache_on"]["b1_launches"],
             "launches_contention": contention_doc["bf16"]["b1_launches"],
             "launches_recovery": recovery_doc["main_path"]["b1_launches"],
+            "launches_observability": obs_doc["burst"]["b1_launches"],
             "status": "redesigned (thread-block cluster split, scores "
                       "in shared memory, cp.async K/V); on the serve path "
                       "launched inside replayed CUDA graphs, counted per "

@@ -556,11 +556,16 @@ class _Graph:
 @dataclasses.dataclass
 class _WindowHandle:
     """A dispatched window: its block on the host once ``event`` fired
-    (``event`` is None on the CPU, where the block is already there)."""
+    (``event`` is None on the CPU, where the block is already there).
+    ``timing`` is the (start, end) CUDA event pair around its graph
+    replay; ``host_ms`` the host time of an eager CPU run
+    (:meth:`PagedKVCache.window_device_ms` reads one of them)."""
 
     n_steps: int
     block: torch.Tensor
     event: "torch.cuda.Event | None"
+    timing: tuple | None = None
+    host_ms: float | None = None
 
 
 @dataclasses.dataclass
@@ -574,6 +579,8 @@ class _SpecHandle:
     counts: torch.Tensor
     pending: torch.Tensor
     event: "torch.cuda.Event | None"
+    timing: tuple | None = None
+    host_ms: float | None = None
 
 
 class PagedKVCache:
@@ -685,6 +692,12 @@ class PagedKVCache:
         # the event pairs not yet read.
         self._device_s = {"decode": 0.0, "prefill": 0.0}
         self._timing: list = []
+        # The event pair of the latest replay: the window or spec window
+        # being dispatched takes it into its handle.
+        self._last_timing: tuple | None = None
+        # The device ms of the window or spec window harvested last
+        # (window_device_ms), for the server's histogram and controller.
+        self.last_window_ms: float | None = None
         # Spec windows: their inputs (allocated at the first dispatch,
         # whose context width they take), the device carry (pending,
         # ctx, ctx_len: views of those inputs) of the latest dispatch,
@@ -1350,6 +1363,7 @@ class PagedKVCache:
         that window only — ideally while a later one already runs."""
         if handle.event is not None:
             handle.event.synchronize()
+        self.last_window_ms = self.window_device_ms(handle)
         return handle.block.numpy().copy()
 
     def wait_device(self) -> None:
@@ -1398,7 +1412,10 @@ class PagedKVCache:
         self._upload("stop_tokens", stop_tokens)
         for name, host in (sampling or {}).items():
             self._upload(name, host)
+        self._last_timing = None
+        t0 = time.perf_counter()
         out = self._run_device_window(params, n_steps, sampling is not None)
+        run_ms = (time.perf_counter() - t0) * 1e3
         self._carry = (out, n_steps)
         if out.is_cuda:
             # Both in-flight windows of one W share the graph's static
@@ -1406,8 +1423,8 @@ class PagedKVCache:
             block = out.to("cpu", non_blocking=True)
             event = torch.cuda.Event()
             event.record()
-            return _WindowHandle(n_steps, block, event)
-        return _WindowHandle(n_steps, out, None)
+            return _WindowHandle(n_steps, block, event, self._last_timing)
+        return _WindowHandle(n_steps, out, None, host_ms=run_ms)
 
     def _run_device_window(self, params, n_steps: int,
                            sampled: bool) -> torch.Tensor:
@@ -1451,6 +1468,7 @@ class PagedKVCache:
         graph.graph.replay()
         end.record()
         self._timing.append((kind, start, end))
+        self._last_timing = (start, end)
         self._settle_timing(block=False)
         paged_decode_attention.launches += graph.b1_launches
         return graph.out
@@ -1466,6 +1484,20 @@ class PagedKVCache:
                 return
             self._device_s[kind] += start.elapsed_time(end) / 1e3
             self._timing.pop(0)
+
+    @staticmethod
+    def window_device_ms(handle: "_WindowHandle | _SpecHandle"
+                         ) -> float | None:
+        """A harvested window's device milliseconds, with no sync of its
+        own: on the card the interval of the CUDA events around its graph
+        replay, which has retired once the harvest waited (None while it
+        has not, or for a window run outside a graph); on the CPU, where
+        the window runs eagerly inside its dispatch, the host time of
+        that run."""
+        if handle.timing is not None:
+            start, end = handle.timing
+            return start.elapsed_time(end) if end.query() else None
+        return handle.host_ms
 
     def device_seconds(self, wait: bool = True) -> dict:
         """Device seconds of the graph replays so far: ``{"decode":
@@ -1643,8 +1675,11 @@ class PagedKVCache:
                     ("top_ps", np.asarray(top_ps, np.float32)),
                     ("sampled_mask", np.asarray(sampled_mask, bool))):
                 self._upload(name, host, inp)
+        self._last_timing = None
+        t0 = time.perf_counter()
         emitted, counts, pending = self._run_device_spec_window(
             params, n_passes, k_len, sampling is not None)
+        run_ms = (time.perf_counter() - t0) * 1e3
         b = self.bucket
         self._spec_carry = (inp.pending[:b], inp.ctx[:b], inp.ctx_len[:b])
         if emitted.is_cuda:
@@ -1654,8 +1689,9 @@ class PagedKVCache:
                     for t in (emitted, counts, pending)]
             event = torch.cuda.Event()
             event.record()
-            return _SpecHandle(caps, *outs, event)
-        return _SpecHandle(caps, emitted, counts, pending, None)
+            return _SpecHandle(caps, *outs, event, self._last_timing)
+        return _SpecHandle(caps, emitted, counts, pending, None,
+                           host_ms=run_ms)
 
     def _run_device_spec_window(self, params, n_passes: int, k_len: int,
                                 sampled: bool):
@@ -1685,6 +1721,7 @@ class PagedKVCache:
         [n_passes, bucket], pending [bucket])`` as numpy."""
         if handle.event is not None:
             handle.event.synchronize()
+        self.last_window_ms = self.window_device_ms(handle)
         emitted = handle.emitted.numpy().copy()
         counts = handle.counts.numpy().copy()
         pending = handle.pending.numpy().copy()

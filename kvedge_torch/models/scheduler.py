@@ -5,7 +5,8 @@ The port's copy of the JAX package's ``kvedge_tpu/models/scheduler.py``
 for these pointers: the serving layer is ``kvedge_torch/models/
 serving.py``, the swap is its ``PagedKVCache.swapout_pages``, and the
 SERVING.md rungs named below are the JAX package's document. Its
-``tracer`` stays None in the port, which has no tracer yet.
+``tracer`` is the server's flight recorder (``runtime/tracing.py``) or
+None.
 
 SERVING.md rung 17. The serving layer (models/serving.py) used to admit
 through a bare ``Condition.notify_all`` wait: admission order was

@@ -39,9 +39,18 @@ mode: a decode failure poisons the pool with a typed failure
 (``checkpoint_every``, ``runtime/journal.py``) park instead of failing,
 the prefix registry is dumped on the way down, and :meth:`revive`
 restarts the pool in place, captured graphs and all, with the journaled
-requests resumed bit for bit (``runtime/recovery.py`` drives it). What
-it leaves out (the reference's later rungs): the SLO engine, tracing
-and autotune.
+requests resumed bit for bit (``runtime/recovery.py`` drives it), and
+the observability and control plane: request ids and the flight
+recorder (``tracer``, ``runtime/tracing.py``: request spans at submit,
+queue, prefill, decode, fabric spans for every window and boundary,
+checkpoint, poison and revive), always-on stage histograms (TTFT, queue,
+decode, ITL, window device time, round trip and host time), the SLO
+engine and the occupancy ring fed at quiescent boundaries
+(``runtime/slo.py``; ``slo_shed`` gates the scheduler's burn-rate shed),
+the flight bundle (:meth:`flight_bundle`), the online window controller
+(``window="auto"``, ``runtime/autotune.py``) and ownership-asserting
+locks (``debug_locks``, ``runtime/debuglock.py``). With each of these
+off, its feature is a ``None`` check and the tokens are unchanged.
 
 Greedy decode is token-for-token the port's ``forward`` argmax, and the
 tokens of a request do not depend on what else is in flight: the paged
@@ -54,7 +63,9 @@ tokens, so preemption changes no token either.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import heapq
+import itertools
 import json
 import os
 import queue
@@ -67,7 +78,12 @@ import torch
 from kvedge_torch.models.config import TransformerConfig
 from kvedge_torch.models.kvcache import PagedKVCache
 from kvedge_torch.models.sampling import as_key_tensor, fold_in, sample_token
-from kvedge_torch.models.scheduler import AdmissionScheduler
+from kvedge_torch.models.scheduler import AdmissionScheduler, _Hist
+from kvedge_torch.runtime.autotune import WindowController
+from kvedge_torch.runtime.debuglock import (
+    DebugLock,
+    instrument_locked_methods,
+)
 from kvedge_torch.runtime.failures import (
     PageAccountingError,
     PoolPoisoned,
@@ -75,6 +91,7 @@ from kvedge_torch.runtime.failures import (
     classify_failure,
 )
 from kvedge_torch.runtime.journal import JournalEntry, RequestJournal
+from kvedge_torch.runtime.slo import OccupancyRing, SloEngine
 
 _STREAM_DONE = object()
 
@@ -137,6 +154,15 @@ class _Request:
     # to its checkpoint: tokens at indices below this were streamed
     # already, and the replay records them without streaming them again.
     stream_resume_at: int = 0
+    # The request id (``X-Request-Id`` at the HTTP surface) and the
+    # tracer's sampling decision for it, made once at submit. The stage
+    # stamps are host ``perf_counter`` seconds, taken with tracing off
+    # too: submit, slot admission, and the first token's pick (TTFT).
+    rid: str = ""
+    trace: bool = False
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_first: float = 0.0
 
     def pick(self, logits_row: torch.Tensor, step: int) -> int:
         """Next token from a ``[V]`` logits row, greedy or sampled with
@@ -197,8 +223,14 @@ class PagedGenerationServer:
     (within ``journal_budget_mb``, 0 = unbounded), so a poison parks
     them for :meth:`revive` instead of failing them; ``retry_after_s``
     is a poisoned pool's static retry hint; ``debug_pages`` audits the
-    page books at every boundary. ``device`` is the card unless "cpu"
-    is asked for.
+    page books at every boundary. ``window="auto"`` hands the window cap
+    to the online controller, within ``[window_min, window_max]``;
+    ``tracer`` is a :class:`~kvedge_torch.runtime.tracing.Tracer` or
+    None; ``slo`` (:class:`~kvedge_torch.runtime.slo.SloObjectives` or
+    None) runs the SLO engine, and ``slo_shed`` lets its alert shed
+    non-top classes; ``occupancy_ring`` > 0 keeps that many boundary
+    occupancy samples; ``debug_locks`` asserts lock ownership at every
+    ``*_locked`` call. ``device`` is the card unless "cpu" is asked for.
     """
 
     def __init__(self, params: dict, cfg: TransformerConfig, *,
@@ -217,18 +249,33 @@ class PagedGenerationServer:
                  prefix_host_mb: int = 0, min_bucket: int = 0,
                  retry_after_s: float | None = None,
                  checkpoint_every: int = 0, journal_budget_mb: int = 0,
-                 debug_pages: bool = False,
+                 debug_pages: bool = False, window_min: int = 1,
+                 window_max: int = 256, tracer=None,
+                 debug_locks: bool = False, slo=None,
+                 slo_shed: bool = False, occupancy_ring: int = 0,
                  device: torch.device | str | None = None):
-        if not isinstance(window, int) or window < 1:
-            raise ValueError("window must be an int >= 1")
+        # The online window controller (window="auto"): plain data,
+        # mutated under the lock at each harvest, never recreated, so
+        # what it learned rides through revive().
+        self._autotune = None
+        if window == "auto":
+            self._autotune = WindowController(lo=window_min, hi=window_max)
+            window = self._autotune.window()
+        elif (isinstance(window, (str, bool)) or not isinstance(window, int)
+                or window < 1):
+            raise ValueError("window must be an int >= 1 or 'auto'")
         if prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0 (0 = whole prompt)")
         if overlap not in ("auto", "on", "off"):
             raise ValueError("overlap must be 'auto', 'on' or 'off'")
+        self._overlap = overlap
         self._overlap_on = overlap != "off"
         self._params = params
         self._cfg = cfg
         self._window = window
+        # The flight recorder, or None (off: every site checks it). Plain
+        # host state, so it survives revive() unchanged.
+        self.tracer = tracer
         self._prefill_chunk = prefill_chunk
         # Speculative mode: greedy slots advance by verify passes of K
         # drafts, sampled slots ride one token a pass. A GREEDY request's
@@ -246,6 +293,9 @@ class PagedGenerationServer:
                 "spec_window needs speculative mode (speculative > 0)"
             )
         self._spec_window = int(spec_window)
+        # The controller's spec-depth ceiling: with window="auto" the
+        # spec window floats in [1, cap] at true boundaries.
+        self._spec_window_cap = int(spec_window)
         self._spec_windows = 0
         self._spec_depth1_windows = 0
         self._spec_sampled_window = bool(spec_sampled_window)
@@ -305,9 +355,9 @@ class PagedGenerationServer:
         self._prefix_registrations = 0
         self._persist_stop: threading.Event | None = None
         self._persist_thread: threading.Thread | None = None
-        # One dump at a time: the periodic thread's and a caller's share
-        # the temporary file.
-        self._dump_lock = threading.Lock()
+        # Each dump writes a temporary file of its own (this counter names
+        # it), so the periodic dump and a caller's never share one.
+        self._dump_seq = itertools.count()
         if prefix_host_mb < 0:
             raise ValueError("prefix_host_mb must be >= 0")
         self._prefix_host_budget = int(prefix_host_mb) << 20
@@ -332,16 +382,37 @@ class PagedGenerationServer:
         self._cache.pressure_relief = self._relieve_pool_pressure_locked
         self._pages_total = pages
         self._reserved = 0  # worst-case pages of every admitted request
-        self._lock = threading.Lock()
+        # debug_locks: a lock that asserts its owner at every *_locked
+        # call and every wait / notify; a plain Lock otherwise.
+        self._lock = DebugLock() if debug_locks else threading.Lock()
         self._work = threading.Condition(self._lock)
         # The admission scheduler shares the server's one lock: each
-        # parked ticket waits on its own condition over it.
+        # parked ticket waits on its own condition over it. It records
+        # its enqueue, queue and shed events into the same tracer.
         self._sched = AdmissionScheduler(
             self._lock, policy=sched_policy, weights=sched_weights,
             max_queue_depth=sched_max_queue_depth,
             max_queue_wait_s=sched_max_queue_wait_s,
             swap_budget_mb=sched_swap_budget_mb,
+            tracer=tracer,
         )
+        # The SLO engine, fed one snapshot of the cumulative histograms
+        # and counters per quiescent boundary; with slo_shed its alert
+        # becomes the scheduler's burn-rate shed input.
+        self._slo = None
+        if slo is not None:
+            self._slo = SloEngine(slo)
+            if slo_shed:
+                self._sched.burn_input = self._slo.alert
+        elif slo_shed:
+            raise ValueError("slo_shed needs SLO objectives (slo=...)")
+        # Occupancy samples at quiescent boundaries (0 = off); with
+        # tracing on they are the Chrome counter tracks of GET /trace.
+        self._occ_ring = None
+        if occupancy_ring:
+            self._occ_ring = OccupancyRing(occupancy_ring)
+            if tracer is not None:
+                tracer.counter_source = self._occ_ring.chrome_counters
         # Host bytes one swapped-out page costs (filled lazily).
         self._swap_page_bytes: int | None = None
         self._free_slots = list(range(slots))  # a heap: lowest slot first
@@ -370,7 +441,6 @@ class PagedGenerationServer:
         self._checkpoint_every = int(checkpoint_every)
         self._journal = RequestJournal(
             max_bytes=journal_budget_mb * (1 << 20))
-        self._journal.on_drop = self._journal_drop_locked
         self._ckpt_clock = 0
         self._checkpoints_total = 0
         self._checkpoint_skipped = 0
@@ -410,6 +480,45 @@ class PagedGenerationServer:
         # under the lock).
         self._prefill_s = 0.0
         self._decode_s = 0.0
+        # Histograms (ms, the reference's edges), always on. Clocks:
+        # ``_hist_rtt`` (dispatch to harvest), ``_hist_host`` (a
+        # harvest's bookkeeping), and the request stages ``_hist_ttft``
+        # (submit to the first token's pick), ``_hist_queue`` (submit to
+        # admission), ``_hist_decode`` (admission to finish) and
+        # ``_hist_itl`` (first token to finish over tokens - 1) are host
+        # ``perf_counter`` spans. ``_hist_device`` is device time: on the
+        # card the CUDA events around each window's graph replay, read
+        # once its harvest has waited (never a sync of its own); on the
+        # CPU, where a window runs eagerly inside its dispatch, the host
+        # time of that run; for an eager step or verify pass, the host
+        # time of the blocking call, as the reference's serial path.
+        self._hist_rtt = _Hist((1.0, 2.0, 5.0, 10.0, 20.0, 50.0,
+                                100.0, 200.0, 500.0, 1000.0, 2000.0))
+        self._hist_host = _Hist((0.1, 0.2, 0.5, 1.0, 2.0, 5.0, 10.0,
+                                 20.0, 50.0, 100.0))
+        self._hist_depth = _Hist((0.0, 1.0))
+        stage_edges = (1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0,
+                       500.0, 1000.0, 2000.0, 5000.0, 10000.0, 30000.0,
+                       60000.0, 120000.0, 240000.0, 480000.0, 960000.0)
+        self._hist_ttft = _Hist(stage_edges)
+        self._hist_queue = _Hist(stage_edges)
+        self._hist_decode = _Hist(stage_edges)
+        self._hist_device = _Hist((1.0, 2.0, 5.0, 10.0, 20.0, 50.0,
+                                   100.0, 200.0, 500.0, 1000.0, 2000.0))
+        self._hist_itl = _Hist((0.5, 1.0, 2.0, 5.0, 10.0, 20.0, 50.0,
+                                100.0, 200.0, 500.0))
+        # Tokens one request realized from one spec window.
+        self._hist_spec_tokens = _Hist(
+            (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0))
+        if debug_locks:
+            # Every *_locked method of the server and of the scheduler
+            # sharing its lock asserts ownership, wrapped before the
+            # decode thread exists.
+            instrument_locked_methods(self, self._lock)
+            instrument_locked_methods(self._sched, self._lock)
+        # After the instrumentation: the journal's drop observer is the
+        # (checked) bound method; every journal call holds the lock.
+        self._journal.on_drop = self._journal_drop_locked
         self._thread = threading.Thread(target=self._loop,
                                         name="kvedge-torch-serve",
                                         daemon=True)
@@ -421,7 +530,8 @@ class PagedGenerationServer:
                sampling: tuple | None = None,
                priority: str = "interactive",
                deadline_ms: int | None = None,
-               stop_token: int | None = None) -> list[int]:
+               stop_token: int | None = None,
+               request_id: str = "") -> list[int]:
         """Blocking generate: the prompt plus UP TO ``n_new`` generated
         tokens. Greedy unless ``sampling = (key_data, temperature,
         top_p)``, with ``key_data`` the raw uint32 ``[2]`` data of the
@@ -429,12 +539,12 @@ class PagedGenerationServer:
         (``interactive``/``batch``); ``deadline_ms`` bounds the admission
         wait tighter than ``timeout`` and lets the scheduler shed the
         request up front when its measured queue wait cannot meet it.
-        Raises :class:`ServerBusy` when capacity does not free up in time
+        ``request_id`` keys the request's spans in the tracer. Raises :class:`ServerBusy` when capacity does not free up in time
         (:class:`ServerOverloaded` when shed), ValueError for requests
         that can never fit."""
         req = self._start(prompt, n_new, timeout, sampling, stream=False,
                           priority=priority, deadline_ms=deadline_ms,
-                          stop_token=stop_token)
+                          stop_token=stop_token, request_id=request_id)
         req.done.wait()
         if req.error is not None:
             raise req.error
@@ -444,12 +554,13 @@ class PagedGenerationServer:
                       timeout: float = 120.0, sampling: tuple | None = None,
                       priority: str = "interactive",
                       deadline_ms: int | None = None,
-                      stop_token: int | None = None) -> StreamHandle:
+                      stop_token: int | None = None,
+                      request_id: str = "") -> StreamHandle:
         """Streaming generate: an iterator over the generated tokens as
         they land, with ``cancel()``; admission as :meth:`submit`."""
         req = self._start(prompt, n_new, timeout, sampling, stream=True,
                           priority=priority, deadline_ms=deadline_ms,
-                          stop_token=stop_token)
+                          stop_token=stop_token, request_id=request_id)
         return StreamHandle(self, req)
 
     def cancel(self, req: _Request) -> None:
@@ -545,47 +656,209 @@ class PagedGenerationServer:
                 dst.copy_(params[name])
 
     def stats(self) -> dict:
-        """Counters and gauges. ``prefill_s`` / ``decode_s`` are host
-        spans (see ``__init__``); ``prefill_device_s`` /
-        ``decode_device_s`` are the device's seconds in prefill-chunk
-        replays and in window and spec-window replays, from CUDA events
-        around each (0 on the CPU, and for a single step or per-pass
-        verify, which run eagerly)."""
+        """Counters, gauges and histogram snapshots: the reference's keys
+        (what ``runtime/status.py`` renders as ``/metrics``) and the
+        port's own. ``prefill_s`` / ``decode_s`` are host spans (see
+        ``__init__``); ``prefill_device_s`` / ``decode_device_s`` are the
+        device's seconds in prefill-chunk replays and in window and
+        spec-window replays, from CUDA events around each (0 on the CPU,
+        and for a single step or per-pass verify, which run eagerly).
+        Only the raw copies run under the lock; the tracer, SLO and
+        occupancy merges read ring copies after it is released."""
         with self._work:
-            # Never waits on the device under the lock: a replay still
-            # running counts at a later call.
-            device_s = self._cache.device_seconds(wait=False)
-            return {
-                "slots": self._cache.slots,
-                "bucket": self._cache.bucket,
-                "bucket_min": self._cache.min_bucket,
-                "bucket_steps_up": self._cache.bucket_steps["up"],
-                "bucket_steps_down": self._cache.bucket_steps["down"],
-                "pages_total": self._pages_total,
-                "reserved_pages": self._reserved,
-                "page_low_watermark": self._page_low_wm,
-                "page_high_watermark": self._page_high_wm,
-                "active": len(self._active),
-                "waiting": self._sched.depth_locked(),
-                "decode_steps": self._decode_steps,
-                "windows": self._windows,
-                "overlap": 1 if self._overlap_on else 0,
-                "overlap_windows": self._overlap_windows,
-                "overlap_depth1_windows": self._depth1_windows,
-                "requests_done": self._done_total,
-                "tokens_done": self._tokens_done_total,
-                "stop_finishes": self._stop_finishes,
-                "prefill_s": self._prefill_s,
-                "decode_s": self._decode_s,
-                "prefill_device_s": device_s["prefill"],
-                "decode_device_s": device_s["decode"],
-                "page_accounting": self._cache.page_accounting(),
-                "spec_window_fallbacks": dict(self._spec_window_fallbacks),
-                **self._prefix_stats_locked(),
-                **self._recovery_stats_locked(),
-                **self._sched.stats_locked(),
-                **self._spec_stats_locked(),
+            out = self._stats_core_locked()
+        self._stats_merge_unlocked(out)
+        return out
+
+    def _stats_locked(self) -> dict:
+        """:meth:`stats` under ONE lock hold (the flight bundle's, so its
+        metrics, SLO state and page books agree)."""
+        out = self._stats_core_locked()
+        self._stats_merge_unlocked(out)
+        return out
+
+    def _stats_core_locked(self) -> dict:
+        # Never waits on the device under the lock: a replay still
+        # running counts at a later call.
+        device_s = self._cache.device_seconds(wait=False)
+        out = {
+            "degraded": 1 if self._degraded_reason else 0,
+            "in_flight": len(self._active),
+            "free_slots": len(self._free_slots),
+            "free_pages": self._cache.free_pages(),
+            "slots_total": self._cache.slots,
+            "bucket": self._cache.bucket,
+            "bucket_min": self._cache.min_bucket,
+            "bucket_steps_up": self._cache.bucket_steps["up"],
+            "bucket_steps_down": self._cache.bucket_steps["down"],
+            "pages_total": self._pages_total,
+            "reserved_pages": self._reserved,
+            "page_low_watermark": self._page_low_wm,
+            "page_high_watermark": self._page_high_wm,
+            "window": self._window,
+            "kv_dtype": ("int8" if self._cache.kv_quantized
+                         else str(self._cfg.dtype)),
+            "active": len(self._active),
+            "waiting": self._sched.depth_locked(),
+            "decode_steps": self._decode_steps,
+            "windows": self._windows,
+            "overlap": 1 if self._overlap_on else 0,
+            "overlap_windows": self._overlap_windows,
+            "overlap_windows_total": self._overlap_windows,
+            "overlap_inflight_depth": 1 if self._inflight is not None else 0,
+            "overlap_depth1_windows": self._depth1_windows,
+            "window_dispatch_harvest_ms": self._hist_rtt.snapshot(),
+            "window_host_ms": self._hist_host.snapshot(),
+            "window_device_ms": self._hist_device.snapshot(),
+            "window_inflight_depth": self._hist_depth.snapshot(),
+            "ttft_ms": self._hist_ttft.snapshot(),
+            "queue_ms": self._hist_queue.snapshot(),
+            "decode_ms": self._hist_decode.snapshot(),
+            "itl_ms": self._hist_itl.snapshot(),
+            "requests_done": self._done_total,
+            "requests_done_total": self._done_total,
+            "tokens_done_total": self._tokens_done_total,
+            "stop_finishes": self._stop_finishes,
+            "stop_finishes_total": self._stop_finishes,
+            "prefill_s": self._prefill_s,
+            "decode_s": self._decode_s,
+            "prefill_device_s": device_s["prefill"],
+            "decode_device_s": device_s["decode"],
+            "page_accounting": self._cache.page_accounting(),
+            "spec_window_fallbacks": dict(self._spec_window_fallbacks),
+            **self._prefix_stats_locked(),
+            **self._recovery_stats_locked(),
+            **self._sched.stats_locked(),
+            **self._spec_stats_locked(),
+        }
+        if self._autotune is not None:
+            # The pick and its EWMA inputs: the pick is the smallest power
+            # of two with window * t >= R.
+            snap = self._autotune.snapshot()
+            out["autotune_window"] = snap["window"]
+            out["autotune_r_ms"] = round(snap["r_ms"], 3)
+            out["autotune_t_ms"] = round(snap["t_ms"], 4)
+            out["autotune_updates"] = snap["updates"]
+            if self._spec_window_cap:
+                out["autotune_spec_window"] = self._spec_window
+        return out
+
+    def _stats_merge_unlocked(self, out: dict) -> None:
+        """Merge the lock-free planes (the tracer, the SLO engine and the
+        occupancy ring read ring copies) into a stats snapshot; callable
+        with or without the lock."""
+        if self.tracer is not None:
+            out.update(self.tracer.stats())
+        if self._slo is not None:
+            out.update(self._slo.metrics())
+        if self._occ_ring is not None:
+            out["occupancy_samples_total"] = self._occ_ring.samples_total
+            last = self._occ_ring.last()
+            if last:
+                for k, v in last.items():
+                    out["occupancy_" + k] = v
+
+    # ---- the SLO engine and the flight bundle ----------------------------
+
+    def slo_doc(self) -> dict | None:
+        """The ``GET /slo`` document, or None when the engine is off."""
+        if self._slo is None:
+            return None
+        return self._slo.doc()
+
+    def _config_doc_locked(self) -> dict:
+        """The serving shape the bundle fingerprints: the reference's
+        keys and spellings, so one set of knobs gives one fingerprint
+        in both packages."""
+        return {
+            "slots": self._cache.slots,
+            "pages_total": self._pages_total,
+            "page_size": self._cache.page_size,
+            "window": self._window,
+            "overlap": self._overlap,
+            "speculative": self._spec,
+            "spec_window": self._spec_window,
+            "spec_sampled_window": int(self._spec_sampled_window),
+            "prefill_chunk": self._prefill_chunk,
+            "prefix_cache": int(self._prefix_enabled),
+            "checkpoint_every": self._checkpoint_every,
+            "page_low_watermark": self._page_low_wm,
+            "page_high_watermark": self._page_high_wm,
+            "kv_dtype": ("int8" if self._cache.kv_quantized
+                         else str(self._cfg.dtype)),
+            "slo": (dataclasses.asdict(self._slo.objectives)
+                    if self._slo is not None else None),
+        }
+
+    def flight_bundle(self) -> dict:
+        """The post-mortem bundle: metrics, SLO state, the occupancy tail,
+        the journal's summary, the page books, the config and its
+        fingerprint, and the trace tail. Everything but the trace tail
+        comes from ONE lock hold, so the parts agree; it reads only host
+        books, so a poisoned pool answers too."""
+        with self._work:
+            doc = {
+                "bundle_version": 1,
+                "reason": self._degraded_reason,
+                "degraded": 1 if self._degraded_reason else 0,
+                "metrics": self._stats_locked(),
+                "slo": (self._slo.doc() if self._slo is not None
+                        else None),
+                "occupancy_tail": (self._occ_ring.tail()
+                                   if self._occ_ring is not None else []),
+                "journal": {
+                    "entries": len(self._journal),
+                    "bytes": self._journal.nbytes,
+                    "extra_bytes": self._journal.extra_bytes,
+                    "budget_bytes": self._journal.max_bytes,
+                },
+                "config": self._config_doc_locked(),
             }
+            try:
+                doc["page_accounting"] = self._cache.page_accounting()
+            except Exception:
+                # A torn-down cache must not take the post-mortem with it.
+                doc["page_accounting"] = None
+        doc["config_fingerprint"] = hashlib.sha256(
+            json.dumps(doc["config"], sort_keys=True).encode("utf-8")
+        ).hexdigest()[:12]
+        # Outside the lock: the tracer's ring is lock-free.
+        doc["trace_tail"] = (self.tracer.last_events()
+                             if self.tracer is not None else [])
+        return doc
+
+    def _occupancy_fields_locked(self) -> dict:
+        """One occupancy sample: the cache's pool gauges and the server's
+        residency gauges, all attribute reads."""
+        fields = {
+            "slots_active": len(self._active),
+            "reserved_pages": self._reserved,
+            "prefix_entries": len(self._prefix_entry_nodes),
+            "prefix_host_bytes": self._prefix_host_bytes,
+            "journal_bytes": self._journal.nbytes,
+            "queue_depth": self._sched.depth_locked(),
+        }
+        fields.update(self._cache.occupancy())
+        return fields
+
+    def _observe_boundary_locked(self) -> None:
+        """The quiescent-boundary feed: one SLO snapshot (throttled in the
+        engine) and one occupancy sample. No device work, nothing
+        emitted: with both off it is one check."""
+        if self._slo is None and self._occ_ring is None:
+            return
+        now = time.perf_counter()
+        if self._slo is not None:
+            self._slo.observe(now, {
+                "ttft_ms": self._hist_ttft.snapshot(),
+                "itl_ms": self._hist_itl.snapshot(),
+                "queue_ms": self._hist_queue.snapshot(),
+                "tokens_total": self._tokens_done_total,
+                "done_total": self._done_total,
+                "shed_total": self._sched.shed,
+            })
+        if self._occ_ring is not None:
+            self._occ_ring.sample(now, self._occupancy_fields_locked())
 
     def _recovery_stats_locked(self) -> dict:
         out = {
@@ -636,6 +909,8 @@ class PagedGenerationServer:
             out["spec_windows_total"] = self._spec_windows
             out["spec_windows_depth1"] = self._spec_depth1_windows
             out["spec_window_sampled"] = 1 if self._spec_sampled_window else 0
+            out["spec_window_emitted_tokens"] = (
+                self._hist_spec_tokens.snapshot())
         if self._spec_decision is not None:
             out["spec_decision"] = dict(self._spec_decision)
         return out
@@ -809,7 +1084,8 @@ class PagedGenerationServer:
     def _start(self, prompt, n_new: int, timeout: float, sampling,
                stream: bool, priority: str = "interactive",
                deadline_ms: int | None = None,
-               stop_token: int | None = None) -> _Request:
+               stop_token: int | None = None,
+               request_id: str = "") -> _Request:
         if not prompt or n_new < 1:
             raise ValueError("need a non-empty prompt and n_new >= 1")
         if stop_token is not None and stop_token < 0:
@@ -845,6 +1121,11 @@ class PagedGenerationServer:
             pages_reserved=pages_needed,
             stream=queue.SimpleQueue() if stream else None,
             pclass=priority,
+            rid=request_id,
+            # Sampled once here: every span of the request shares fate.
+            trace=(self.tracer is not None
+                   and self.tracer.sampled(request_id)),
+            t_submit=time.perf_counter(),
         )
         deadline = time.monotonic() + timeout
         if deadline_ms is not None:
@@ -856,7 +1137,8 @@ class PagedGenerationServer:
             # page low watermark at the arrival's marginal price (its
             # private budget plus the lease units its shared prefix
             # pages would newly pin).
-            shed = self._sched.shed_check_locked(priority, deadline_ms)
+            shed = self._sched.shed_check_locked(priority, deadline_ms,
+                                                 rid=request_id)
             if shed is None:
                 self._prefix_lookups += 1
                 _, shared0, st0, _ = self._prefix_lookup(req.prompt)
@@ -929,6 +1211,8 @@ class PagedGenerationServer:
                 if ticket is not None:
                     self._sched.remove_locked(ticket)
             req.admit_seq = self._sched.next_admit_seq_locked()
+            req.t_admit = time.perf_counter()
+            self._hist_queue.observe((req.t_admit - req.t_submit) * 1e3)
             slot = heapq.heappop(self._free_slots)
             # Start the table on the cached prefix's read-only pages
             # (promoting a deeper host-tier match first, best effort),
@@ -975,6 +1259,7 @@ class PagedGenerationServer:
         # yet, so they never touch it).
         chunk = self._prefill_chunk or len(req.prompt)
         activated = False
+        t_prefill = time.perf_counter()
         try:
             logits = None
             off = shared_tokens
@@ -999,7 +1284,18 @@ class PagedGenerationServer:
                     raise self._refusal()
                 t0 = time.perf_counter()
                 req.next_token = req.pick(logits, 0)
-                self._prefill_s += time.perf_counter() - t0
+                t_first = time.perf_counter()
+                self._prefill_s += t_first - t0
+                # Time to first token: submit to the pick of the first
+                # token (its emission rides the next loop iteration).
+                req.t_first = t_first
+                self._hist_ttft.observe((t_first - req.t_submit) * 1e3)
+                if req.trace:
+                    self.tracer.span(
+                        "prefill", "serve", t_prefill, t_first, rid=req.rid,
+                        args={"prompt": len(req.prompt),
+                              "shared": shared_tokens,
+                              "class": req.pclass})
                 self._active[slot] = req
                 self._note_finish_candidate_locked(slot, req)
                 self._prefilling -= 1
@@ -1369,9 +1665,10 @@ class PagedGenerationServer:
         """Write the registry's pool-resident entries to ``path``. Returns
         the entries written (0 = none registered, no file touched). Only
         the pages' device gather runs under the lock; the copy to the
-        host (as stored: int8 and its scales for an int8 pool) and the
-        dequantization to fp32 run outside it, and the file lands by an
-        atomic ``os.replace``."""
+        host (as stored: int8 and its scales for an int8 pool), the
+        dequantization to fp32 and the file's write run outside it, and
+        the file lands by an atomic ``os.replace`` of a temporary of its
+        own."""
         with self._work:
             entries = [
                 {"tokens": self._node_tokens(node),
@@ -1387,13 +1684,20 @@ class PagedGenerationServer:
         doc = {"fingerprint": fingerprint,
                "page_size": self._cache.page_size,
                "entries": entries, "page_ids": page_ids}
-        tmp = f"{path}.tmp"
-        with self._dump_lock:
+        # A temporary of this dump's own (the periodic dump and the one
+        # after close may overlap), written under no lock and moved in
+        # whole; a failed write removes it.
+        tmp = f"{path}.{os.getpid()}-{next(self._dump_seq)}.tmp"
+        try:
             with open(tmp, "wb") as f:
                 np.savez(f, doc=np.frombuffer(json.dumps(doc).encode(),
                                               np.uint8),
                          pool_k=pool_k, pool_v=pool_v)
             os.replace(tmp, path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise
         return len(entries)
 
     def load_prefix_cache(self, path: str, fingerprint: str) -> int:
@@ -1516,10 +1820,24 @@ class PagedGenerationServer:
         self._work.notify_all()
 
     def _finish_request_locked(self, slot: int, req: _Request) -> None:
-        del self._active[slot]
-        self._journal.pop(req)  # a finished request never resumes
+        """The one exit of a normal finish: the decode and ITL
+        histograms, the completion counters, the decode span, the
+        multi-turn registration and the release."""
+        t1 = time.perf_counter()
+        if req.t_admit:
+            self._hist_decode.observe((t1 - req.t_admit) * 1e3)
         self._done_total += 1
         self._tokens_done_total += len(req.generated)
+        if req.t_first and len(req.generated) > 1:
+            self._hist_itl.observe(
+                (t1 - req.t_first) * 1e3 / (len(req.generated) - 1))
+        if req.trace:
+            self.tracer.span("decode", "serve", req.t_admit or t1, t1,
+                             rid=req.rid,
+                             args={"tokens": len(req.generated),
+                                   "class": req.pclass})
+        del self._active[slot]
+        self._journal.pop(req)  # a finished request never resumes
         if self._prefix_enabled:
             # Multi-turn reuse: the slot's committed K/V (prompt AND
             # generated) registers before the release drops its pages,
@@ -1632,9 +1950,12 @@ class PagedGenerationServer:
             self._poison = failure
             self._degraded_reason = f"{type(failure).__name__}: {failure}"
             self._prebucket = self._cache.bucket
+        survivors = failed = 0
         for req in self._active.values():
             if self._divert_to_journal_locked(req):
+                survivors += 1
                 continue
+            failed += 1
             req.error = failure
             if req.stream is not None:
                 req.stream.put(failure)
@@ -1645,11 +1966,19 @@ class PagedGenerationServer:
         # the journal, otherwise it fails like an active one.
         for entry in self._sched.take_swapped_locked():
             if self._journal_swapped_locked(entry):
+                survivors += 1
                 continue
+            failed += 1
             entry.req.error = failure
             if entry.req.stream is not None:
                 entry.req.stream.put(failure)
             entry.req.done.set()
+        if self.tracer is not None:
+            # The instant the post-mortem's trace tail is anchored on.
+            self.tracer.event("poison", "failure",
+                              args={"type": type(failure).__name__,
+                                    "failed": failed,
+                                    "journaled": survivors})
         self._closed = True
         self._sched.wake_all_locked()
         self._work.notify_all()
@@ -1696,6 +2025,7 @@ class PagedGenerationServer:
         self._ckpt_clock = 0
         if not self._active:
             return
+        t0 = time.perf_counter()
         jobs = []       # (req, saved_len, shared pages, node, own span)
         all_ids: list[int] = []
         new_shadow_spans: dict = {}   # node -> (start, n)
@@ -1758,6 +2088,11 @@ class PagedGenerationServer:
                 # Budget-refused: the request keeps its older entry, or
                 # none.
                 self._checkpoint_skipped += 1
+        if self.tracer is not None:
+            self.tracer.span("checkpoint", "serve", t0,
+                             args={"live": len(self._active),
+                                   "entries": len(self._journal),
+                                   "bytes": self._journal.nbytes})
 
     def _checkpoint_shared_locked(self, req: _Request, saved_len: int,
                                   sh_n: int, own: tuple,
@@ -1949,6 +2284,11 @@ class PagedGenerationServer:
                                             name="kvedge-torch-serve",
                                             daemon=True)
             self._thread.start()
+            if self.tracer is not None:
+                # Same recorder, same timeline: the revive lands next to
+                # the poison it heals.
+                self.tracer.event("revive", "serve",
+                                  args={"restored": restored})
             self._work.notify_all()
         return restored
 
@@ -1977,6 +2317,7 @@ class PagedGenerationServer:
         all_drained = list(entries)
         node_pages: dict[int, tuple] = {}
         restored: list[tuple[int, JournalEntry]] = []
+        t0 = time.perf_counter()
         try:
             while entries:
                 entry = entries[0]
@@ -2064,6 +2405,10 @@ class PagedGenerationServer:
             if entry.prefix_node is not None:
                 self._journal_drop_locked(entry)
         self._journal_restores += len(restored) + requeued
+        if self.tracer is not None and (restored or requeued):
+            self.tracer.span("journal-restore", "serve", t0,
+                             args={"restored": len(restored),
+                                   "requeued": requeued})
         return len(restored) + requeued
 
     # ---- the decode loop -------------------------------------------------
@@ -2359,6 +2704,7 @@ class PagedGenerationServer:
         while step() != "exit":
             # Yield the interpreter lock with the work lock released, so
             # admission waiters can take it between windows.
+            # locklint: allow[sleep-under-lock] deliberate GIL yield with the lock RELEASED — breaks the decode loop's lock convoy so expired admission waiters win the reacquisition race (rung 17 fair handoff; removing it starves ServerBusy)
             time.sleep(0)
         if self._poison is not None:
             self._degrade()  # outside the lock, the loop has exited
@@ -2387,6 +2733,7 @@ class PagedGenerationServer:
                 self._maybe_preempt_locked()
                 self._maybe_step_bucket_locked()
                 self._maybe_checkpoint_locked()
+                self._observe_boundary_locked()
                 if not self._active:
                     return "ran"
                 if (self._spec > 0
@@ -2423,9 +2770,21 @@ class PagedGenerationServer:
                         produced = self._cache.step_window(
                             self._params, tokens, window, active=mask)
                     produced = produced.cpu().numpy()
-                    self._decode_s += time.perf_counter() - t0
+                    t1 = time.perf_counter()
+                    self._decode_s += t1 - t0
                     self._decode_steps += window
                     self._windows += 1
+                    # The window's device time (see __init__): serial,
+                    # so nothing else was queued on the device.
+                    device_ms = self._cache.last_window_ms
+                    self._hist_device.observe(
+                        (t1 - t0) * 1e3 if device_ms is None else device_ms)
+                    if self.tracer is not None:
+                        # A fabric span: every window records it.
+                        self.tracer.span("window", "serve", t0, t1,
+                                         args={"w": window,
+                                               "rows": len(self._active),
+                                               "depth": 0})
                     for slot, req in list(self._active.items()):
                         self._emit(req, req.next_token)
                         finished = False
@@ -2445,8 +2804,15 @@ class PagedGenerationServer:
                     return "ran"
                 logits = self._cache.step(self._params, tokens, active=mask)
                 next_tokens = self._next_tokens(logits)
-                self._decode_s += time.perf_counter() - t0
+                t1 = time.perf_counter()
+                self._decode_s += t1 - t0
                 self._decode_steps += 1
+                # An eager step: the blocking call's host time (the
+                # tokens' read waits for the device).
+                self._hist_device.observe((t1 - t0) * 1e3)
+                if self.tracer is not None:
+                    self.tracer.span("step", "serve", t0, t1,
+                                     args={"rows": len(self._active)})
                 for slot, req in self._active.items():
                     self._emit(req, req.next_token)
                     req.next_token = next_tokens[slot]
@@ -2506,6 +2872,7 @@ class PagedGenerationServer:
                     # Checkpoints share the boundary: the swap-out bytes
                     # must cover a reconciled, nothing-in-flight state.
                     self._maybe_checkpoint_locked()
+                    self._observe_boundary_locked()
                     if not self._active:
                         return "ran"
                     self._boundary_dispatch_locked()
@@ -2534,6 +2901,11 @@ class PagedGenerationServer:
                                 # Speculation went off with a spec window
                                 # in flight: collapse to a boundary.
                                 self._spec_window_fallbacks["spec_off"] += 1
+                        elif self.tracer is not None:
+                            # The pipeline collapses so a cancel, a
+                            # newcomer or a swap joins reconciled.
+                            self.tracer.event("boundary", "serve",
+                                              args={"reason": "reconcile"})
                         if spec:
                             self._harvest_spec_window_locked(prev)
                         else:
@@ -2653,14 +3025,21 @@ class PagedGenerationServer:
         self._windows += 1
         if not first:
             self._depth1_windows += 1
-        return {"window": w, "parts": recs, "handle": handle}
+        self._hist_depth.observe(0.0 if first else 1.0)
+        return {"window": w, "parts": recs, "handle": handle,
+                "depth": 0 if first else 1, "t0": time.perf_counter()}
 
     def _harvest_locked(self, rec: dict) -> None:
         """Read an in-flight window's block and reconcile (lock held):
         emission, stop and budget finishes, the new pending token. Each
         row's stream truncates at its dispatch-time cap (``adv``): past
         it the row was frozen and its entries repeat its last token."""
+        t_force = time.perf_counter()
         produced = self._cache.harvest_window(rec["handle"])
+        t_harvest = time.perf_counter()
+        device_ms = self._observe_harvest_locked(rec, "window", t_force,
+                                                 t_harvest)
+        t_host = time.perf_counter()
         rec["counted"] = True
         self._ckpt_clock += 1  # a window of progress at risk
         for _, req, adv in rec["parts"]:
@@ -2688,6 +3067,33 @@ class PagedGenerationServer:
                 self._emit(req, req.next_token)
                 self._finish_request_locked(slot, req)
         self._overlap_windows += 1
+        host_ms = (time.perf_counter() - t_host) * 1e3
+        self._hist_host.observe(host_ms)
+        if self._autotune is not None and device_ms is not None:
+            # This window's split into the controller; its pick serves
+            # the NEXT dispatch (the carry is one token row, whatever W).
+            self._autotune.observe(
+                rtt_ms=(t_harvest - rec["t0"]) * 1e3, device_ms=device_ms,
+                host_ms=host_ms, window=rec["window"])
+            self._window = self._autotune.window()
+
+    def _observe_harvest_locked(self, rec: dict, name: str, t_force: float,
+                                t_harvest: float) -> float | None:
+        """A harvested window's device, round-trip and span records;
+        returns its device ms (None when not measurable, see
+        ``PagedKVCache.window_device_ms``). The round trip is host
+        ``perf_counter`` from dispatch to the harvest's return."""
+        device_ms = self._cache.last_window_ms
+        if device_ms is not None:
+            self._hist_device.observe(device_ms)
+        self._hist_rtt.observe((t_harvest - rec["t0"]) * 1e3)
+        if self.tracer is not None:
+            # Dispatch to harvest, with the depth it was dispatched at.
+            self.tracer.span(name, "serve", rec["t0"], t_harvest,
+                             args={"w": rec["window"],
+                                   "rows": len(rec["parts"]),
+                                   "depth": rec.get("depth", 0)})
+        return device_ms
 
     def _dispatch_spec_window_locked(self, first: bool) -> dict | None:
         """Enqueue one spec window, ``spec_window`` draft + verify passes,
@@ -2745,8 +3151,10 @@ class PagedGenerationServer:
             cap = int(handle.caps[slot])
             req.inflight += cap
             recs.append((slot, req, cap))
+        self._hist_depth.observe(0.0 if first else 1.0)
         return {"kind": "spec_sampled" if samplers else "spec",
-                "window": w, "parts": recs, "handle": handle}
+                "window": w, "parts": recs, "handle": handle,
+                "depth": 0 if first else 1, "t0": time.perf_counter()}
 
     def _harvest_spec_window_locked(self, rec: dict) -> None:
         """Read an in-flight spec window and reconcile (lock held). Each
@@ -2754,7 +3162,12 @@ class PagedGenerationServer:
         token and the accepted drafts (``counts[p] - 1`` entries of the
         emitted row, whose entry ``counts[p] - 1`` is the next pending),
         truncated at the row's budget and at its stop token."""
+        t_force = time.perf_counter()
         emitted, counts, _ = self._cache.harvest_spec_window(rec["handle"])
+        t_harvest = time.perf_counter()
+        device_ms = self._observe_harvest_locked(rec, "spec-window", t_force,
+                                                 t_harvest)
+        t_host = time.perf_counter()
         rec["counted"] = True
         self._ckpt_clock += 1  # a window of progress at risk
         for _, req, cap in rec["parts"]:
@@ -2763,6 +3176,7 @@ class PagedGenerationServer:
         for slot, req, cap in rec["parts"]:
             if self._active.get(slot) is not req or req.stopped:
                 continue
+            before = len(req.generated)
             stopped = False
             counts_col = counts[:, slot].tolist()
             for p in range(rec["window"]):
@@ -2787,6 +3201,7 @@ class PagedGenerationServer:
                     self._spec_slot_passes += 1
                 if stopped:
                     break
+            self._hist_spec_tokens.observe(float(len(req.generated) - before))
             if stopped and not req.cancelled:
                 self._finish_stopped_locked(slot, req)
             elif len(req.generated) >= req.n_new and not req.cancelled:
@@ -2798,6 +3213,20 @@ class PagedGenerationServer:
                 self._note_finish_candidate_locked(slot, req)
         self._spec_windows += 1
         self._overlap_windows += 1
+        host_ms = (time.perf_counter() - t_host) * 1e3
+        self._hist_host.observe(host_ms)
+        if self._autotune is not None and device_ms is not None:
+            # The spec-depth channel keeps its own (R, t): a verify pass
+            # costs another device time than a step. Its pick applies
+            # only at a true boundary (the next spec dispatch rebuilds
+            # from host tokens), never above the configured depth.
+            self._autotune.observe(
+                rtt_ms=(t_harvest - rec["t0"]) * 1e3, device_ms=device_ms,
+                host_ms=host_ms, window=rec["window"], channel="spec")
+            if self._inflight is None and self._spec_window_cap > 0:
+                pick = self._autotune.window(
+                    "spec", default=self._spec_window_cap)
+                self._spec_window = max(1, min(self._spec_window_cap, pick))
 
     def _drain_rec_locked(self, rec: dict | None) -> None:
         """Unwind one in-flight record on the failure path: restore the

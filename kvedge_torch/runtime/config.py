@@ -34,12 +34,28 @@ same names and defaults, for the subset the ported payloads run:
                a poison is terminal), serving_checkpoint_every (journal
                in-flight requests every N boundaries, 0 = off),
                serving_debug_pages (audit the page books at every
-               boundary)
-    [status]   port, bind
+               boundary); observability and control: serving_window
+               may be "auto" (the online controller picks a power of
+               two in [serving_window_min, serving_window_max] at each
+               harvest), serving_trace ("off" | "on" | a sample rate in
+               (0, 1]: the flight recorder behind GET /trace),
+               serving_slo with serving_slo_target, serving_slo_ttft_ms,
+               serving_slo_itl_ms, serving_slo_queue_ms,
+               serving_slo_fast_s, serving_slo_slow_s and
+               serving_slo_shed (the SLO engine behind GET /slo and its
+               burn-gated shed), serving_occupancy_ring (boundary
+               occupancy samples, 0 = off), serving_bundle (the flight
+               bundle behind GET /debug/bundle, also written beside
+               last-failure.json at a poison), serving_debug_locks
+               (ownership-asserting server locks)
+    [status]   port, bind, token (the bearer token POST routes require;
+               "" = open)
 
 Any other section or key is REFUSED with its name, not ignored: a knob
-the port does not implement (the SLO engine, tracing, the window
-autotune, ...) would otherwise silently change nothing.
+the port does not implement would otherwise silently change nothing.
+Still unported, and so refused by name: ``[model] n_experts`` here, and
+``attention = "ring" | "ulysses"``, ``remat_policy = "dots"`` and
+``pipeline_stages`` by the model's config (``models/config.py``).
 """
 
 from __future__ import annotations
@@ -98,13 +114,31 @@ _PAYLOAD_KEYS = {
     "serving_recovery_attempts": "serving_recovery_attempts",
     "serving_checkpoint_every": "serving_checkpoint_every",
     "serving_debug_pages": "serving_debug_pages",
+    "serving_window_min": "serving_window_min",
+    "serving_window_max": "serving_window_max",
+    "serving_trace": "serving_trace",
+    "serving_debug_locks": "serving_debug_locks",
+    "serving_slo": "serving_slo",
+    "serving_slo_target": "serving_slo_target",
+    "serving_slo_ttft_ms": "serving_slo_ttft_ms",
+    "serving_slo_itl_ms": "serving_slo_itl_ms",
+    "serving_slo_queue_ms": "serving_slo_queue_ms",
+    "serving_slo_fast_s": "serving_slo_fast_s",
+    "serving_slo_slow_s": "serving_slo_slow_s",
+    "serving_slo_shed": "serving_slo_shed",
+    "serving_bundle": "serving_bundle",
+    "serving_occupancy_ring": "serving_occupancy_ring",
 }
 # Fractions and seconds: a TOML integer reads as the float, as the
 # reference's float() does.
 _FLOAT_FIELDS = ("serving_sched_max_queue_wait_s",
                  "serving_page_low_watermark", "serving_page_high_watermark",
-                 "serving_retry_after_s")
-_STATUS_KEYS = {"port": "status_port", "bind": "status_bind"}
+                 "serving_retry_after_s", "serving_slo_target",
+                 "serving_slo_ttft_ms", "serving_slo_itl_ms",
+                 "serving_slo_queue_ms", "serving_slo_fast_s",
+                 "serving_slo_slow_s")
+_STATUS_KEYS = {"port": "status_port", "bind": "status_bind",
+                "token": "status_token"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +179,13 @@ class RuntimeConfig:
     # quiescent boundaries (0 = pinned to serving_slots).
     serving_min_bucket: int = 0
     serving_prefill_chunk: int = 64
-    serving_window: int = 64
+    # The decode window cap in steps, or "auto": the online controller
+    # (runtime/autotune.py) picks the smallest power of two in
+    # [serving_window_min, serving_window_max] whose device time covers
+    # the host's turnaround, at every harvest. Tokens are the same.
+    serving_window: int | str = 64
+    serving_window_min: int = 1
+    serving_window_max: int = 256
     serving_kv_dtype: str = ""
     # The paged server's double-buffered decode loop: "auto" and "on"
     # enqueue window N+1 on the device-resident carry before window N is
@@ -205,8 +245,31 @@ class RuntimeConfig:
     serving_checkpoint_every: int = 0
     # Audit free + live == pages_total at every quiescent boundary.
     serving_debug_pages: bool = False
+    # The flight recorder (runtime/tracing.py): "off", "on" or a
+    # per-request sample rate in (0, 1]; GET /trace exports it.
+    serving_trace: str | float = "off"
+    # Ownership-asserting server locks (runtime/debuglock.py).
+    serving_debug_locks: bool = False
+    # The SLO engine (runtime/slo.py, GET /slo): a compliance target,
+    # p99 objectives in ms, the fast and slow burn windows, and the
+    # burn-gated shed of non-top classes while the alert fires.
+    serving_slo: bool = False
+    serving_slo_target: float = 0.99
+    serving_slo_ttft_ms: float = 1000.0
+    serving_slo_itl_ms: float = 250.0
+    serving_slo_queue_ms: float = 1000.0
+    serving_slo_fast_s: float = 60.0
+    serving_slo_slow_s: float = 600.0
+    serving_slo_shed: bool = False
+    # The flight bundle (GET /debug/bundle, and flight-bundle.json
+    # beside last-failure.json at a poison).
+    serving_bundle: bool = False
+    # Occupancy samples kept at quiescent boundaries (0 = off).
+    serving_occupancy_ring: int = 0
     status_port: int = 8476
     status_bind: str = "0.0.0.0"
+    # Bearer token every POST route requires ("" = open).
+    status_token: str = ""
 
     @classmethod
     def parse(cls, text: str) -> "RuntimeConfig":
@@ -349,10 +412,11 @@ class RuntimeConfig:
             raise RuntimeConfigError(
                 "[payload] serving_sched_swap_budget_mb must be >= 0 "
                 "(0 = preemptive swap off)")
+        self._validate_observability()
         for name in ("vocab", "d_model", "n_heads", "n_kv_heads", "n_layers",
                      "d_ff", "max_seq", "serving_slots", "serving_page_size",
                      "serving_pages", "serving_prefill_chunk",
-                     "serving_window", "status_port", "train_steps",
+                     "status_port", "train_steps",
                      "train_batch", "train_checkpoint_every"):
             value = getattr(self, name)
             if not isinstance(value, int) or isinstance(value, bool) \
@@ -445,12 +509,93 @@ class RuntimeConfig:
             raise RuntimeConfigError(
                 "[payload] serving_kv_dtype must be '' or 'int8', got "
                 f"{self.serving_kv_dtype!r}")
-        for name in ("serving_slots", "serving_page_size", "serving_window"):
+        for name in ("serving_slots", "serving_page_size"):
             if getattr(self, name) < 1:
                 raise RuntimeConfigError(f"[payload] {name} must be >= 1")
         if self.max_seq < 2:
             raise RuntimeConfigError(
                 f"[payload] seq = {self.max_seq} is too small to serve")
+
+    def _validate_observability(self) -> None:
+        """The window, tracing, lock, SLO, bundle and occupancy knobs,
+        with the reference's ranges and messages."""
+        if self.serving_window != "auto" and not (
+                isinstance(self.serving_window, int)
+                and not isinstance(self.serving_window, bool)
+                and 1 <= self.serving_window <= 1024):
+            raise RuntimeConfigError(
+                "[payload] serving_window must be in [1, 1024] "
+                "(1 = per-step dispatch) or 'auto' (online "
+                "controller)")
+        for name in ("serving_window_min", "serving_window_max",
+                     "serving_occupancy_ring"):
+            value = getattr(self, name)
+            if not isinstance(value, int) or isinstance(value, bool):
+                raise RuntimeConfigError(
+                    f"[payload] {name} must be an integer, got {value!r}")
+        for name in ("serving_window_min", "serving_window_max"):
+            if not 1 <= getattr(self, name) <= 1024:
+                raise RuntimeConfigError(
+                    f"[payload] {name} must be in [1, 1024]")
+        if self.serving_window_min > self.serving_window_max:
+            raise RuntimeConfigError(
+                "[payload] serving_window_min must be <= "
+                "serving_window_max (controller bounds)")
+        trace = self.serving_trace
+        if isinstance(trace, bool):
+            raise RuntimeConfigError(
+                "[payload] serving_trace must be 'off', 'on' or a sample "
+                "rate in (0, 1] — not a boolean")
+        if isinstance(trace, str):
+            if trace not in ("off", "on"):
+                raise RuntimeConfigError(
+                    "[payload] serving_trace must be 'off', 'on' or a "
+                    f"sample rate in (0, 1], got {trace!r}")
+        elif (not isinstance(trace, (int, float))
+                or not 0.0 < trace <= 1.0):
+            raise RuntimeConfigError(
+                "[payload] serving_trace sample rate must be in "
+                f"(0, 1], got {trace!r}")
+        for name in ("serving_debug_locks", "serving_slo",
+                     "serving_slo_shed", "serving_bundle"):
+            if not isinstance(getattr(self, name), bool):
+                raise RuntimeConfigError(
+                    f"[payload] {name} must be a boolean")
+        for name in ("serving_slo_target", "serving_slo_ttft_ms",
+                     "serving_slo_itl_ms", "serving_slo_queue_ms",
+                     "serving_slo_fast_s", "serving_slo_slow_s"):
+            value = getattr(self, name)
+            if not isinstance(value, (int, float)) or isinstance(value,
+                                                                 bool):
+                raise RuntimeConfigError(
+                    f"[payload] {name} must be a number, got {value!r}")
+        if not 0.0 < self.serving_slo_target < 1.0:
+            raise RuntimeConfigError(
+                "[payload] serving_slo_target must be in (0, 1) "
+                f"(got {self.serving_slo_target!r}; the error budget "
+                "is 1 - target)")
+        for name in ("serving_slo_ttft_ms", "serving_slo_itl_ms",
+                     "serving_slo_queue_ms"):
+            if getattr(self, name) <= 0.0:
+                raise RuntimeConfigError(
+                    f"[payload] {name} must be > 0 (an objective in "
+                    "milliseconds)")
+        if not 0.0 < self.serving_slo_fast_s <= self.serving_slo_slow_s:
+            raise RuntimeConfigError(
+                "[payload] serving_slo windows must satisfy "
+                "0 < serving_slo_fast_s <= serving_slo_slow_s "
+                f"(got fast={self.serving_slo_fast_s!r}, "
+                f"slow={self.serving_slo_slow_s!r})")
+        if self.serving_slo_shed and not self.serving_slo:
+            raise RuntimeConfigError(
+                "[payload] serving_slo_shed requires serving_slo = "
+                "true (the burn-rate input comes from the SLO engine)")
+        if self.serving_occupancy_ring < 0:
+            raise RuntimeConfigError(
+                "[payload] serving_occupancy_ring must be >= 0 "
+                "(0 = off; otherwise the ring depth in samples)")
+        if not isinstance(self.status_token, str):
+            raise RuntimeConfigError("[status] token must be a string")
 
     def model_config(self, dtype: str = "bfloat16") -> TransformerConfig:
         """The model of every payload: the preset with explicit fields on

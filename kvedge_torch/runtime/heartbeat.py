@@ -5,8 +5,9 @@ The port's copy of the part of the JAX package's
 unchanged but for this docstring: ``init-events.jsonl`` (the lifecycle
 log the recovery supervisor's crash-loop breaker reads, and appends its
 outcomes to), the heartbeat's ``boot_count`` that stamps each record,
-and ``last-failure.json``, the post-mortem of the last serving failure,
-written when the pool poisons. The port writes no heartbeat of its own
+``last-failure.json``, the post-mortem of the last serving failure,
+written when the pool poisons, and ``flight-bundle.json``, the serving
+flight bundle written beside it when ``serving_bundle`` is on. The port writes no heartbeat of its own
 yet (the reference's boot path does): ``read_heartbeat`` returns None
 and records carry ``boot_count`` 0 unless a heartbeat file is there.
 Every write is tmp + ``os.replace`` or a one-line append.
@@ -131,3 +132,34 @@ def write_failure_record(state_dir: str, doc: dict) -> dict:
 def read_failure_record(state_dir: str) -> dict | None:
     """The last persisted failure, or None (absent/corrupt/never failed)."""
     return _read_json_doc(os.path.join(state_dir, FAILURE_FILE))
+
+
+# Flight-recorder bundle (SERVING.md rung 25): the full post-mortem
+# document — metrics snapshot, SLO/burn state, occupancy timeline
+# tail, journal summary, page books, config fingerprint, trace tail —
+# written next to last-failure.json when [payload] serving_bundle is
+# on. The failure record stays the small human-first summary; the
+# bundle is the machine-complete one a tool (or the chaos harness's
+# completeness invariant) consumes.
+BUNDLE_FILE = "flight-bundle.json"
+
+
+def write_flight_bundle(state_dir: str, doc: dict) -> dict:
+    """Atomically persist a flight-recorder bundle, stamped with ts
+    and the current boot_count like the failure record it rides with."""
+    os.makedirs(state_dir, exist_ok=True)
+    record = dict(doc)
+    record["ts"] = time.time()
+    record["boot_count"] = int(
+        (read_heartbeat(state_dir) or {}).get("boot_count", 0)
+    )
+    _write_json_atomic(
+        os.path.join(state_dir, BUNDLE_FILE), record,
+        indent=2, sort_keys=True,
+    )
+    return record
+
+
+def read_flight_bundle(state_dir: str) -> dict | None:
+    """The last persisted bundle, or None (absent/corrupt/knob off)."""
+    return _read_json_doc(os.path.join(state_dir, BUNDLE_FILE))

@@ -1,12 +1,13 @@
 """The recovery half of the serving failure contract: heal in process.
 
 The port's copy of the JAX package's ``kvedge_tpu/runtime/recovery.py``
-with two changes: step 4's params re-restore copies the checkpoint's
+with one change: step 4's params re-restore copies the checkpoint's
 weights INTO the server's tensors (``PagedGenerationServer.load_params``)
 instead of rebinding them, because every captured CUDA graph holds the
-addresses of the tensors it was captured with; and recovery instants go
-to no flight recorder (the port has no tracing yet). The single-host
-cache has no ``reform``, so step 2 is skipped as in the reference.
+addresses of the tensors it was captured with. Recovery instants land
+in the server's flight recorder (``server.tracer``) when tracing is on.
+The single-host cache has no ``reform``, so step 2 is skipped as in the
+reference.
 
 runtime/failures.py is the *detection* half — typed taxonomy, a pool
 that poisons instead of deadlocking. This module closes the loop with a
@@ -259,8 +260,13 @@ class RecoverySupervisor:
                 and event.get("outcome") in ("failed", "escalated"))
 
     def _trace_event(self, name: str, detail: str = "") -> None:
-        """A recovery instant for the flight recorder: a no-op until the
-        port has tracing."""
+        """Land a recovery instant in the server's flight recorder
+        (runtime/tracing.py) so heal attempts and outcomes sit in the
+        same timeline as the failure that started them."""
+        tr = getattr(self.server, "tracer", None)
+        if tr is not None:
+            tr.event(name, "recovery",
+                     args={"detail": detail[:160]} if detail else None)
 
     def _record(self, outcome: str, detail: str = "") -> None:
         """Append one recovery event to init-events.jsonl (best-effort;

@@ -60,9 +60,30 @@ interleaved, then ``{"done": true, "tokens": ..., "n_new": N,
 ``{"error": ...}`` record, and a client that disconnects cancels its
 rows.
 
+Every response carries ``request_id``: the caller's ``X-Request-Id``
+(``"_request_id"`` in the body), cleaned, or one minted here; it keys
+the request's spans in the flight recorder (``serving_trace``). With
+``serving_checkpoint_every`` > 0 on the paged backend a delivery log
+(``_ResumeLog``) keeps each request's tokens: a client that disconnects
+DETACHES instead of cancelling, and a ``POST /generate`` body with
+``"emitted_offset"`` (an int, or one per row) and the original request
+id reconnects, buffered or streamed, to exactly the tokens past its
+offsets (``resumed_at`` names them), across a poison and revive too; an
+unknown or evicted id is a 400, and so is ``emitted_offset`` with
+checkpoints off. The request counters (``requests_total``, completed,
+rejected = 400, unavailable = 503, errors = 500, tokens, latency) join
+the server's and the supervisor's stats under ``/status``'s
+``serving`` and in ``/metrics``; ``serving_trace``, ``serving_slo`` and
+``serving_bundle`` turn on ``GET /trace``, ``GET /slo`` and ``GET
+/debug/bundle`` (each a 404 while off), and at a poison
+``last-failure.json`` carries the recorder's tail and, with the bundle
+on, ``flight-bundle.json`` lands beside it. ``serving_window = "auto"``,
+``serving_occupancy_ring`` and ``serving_debug_locks`` reach the
+server; ``[status] token`` gates the POST routes.
+
 ``ServeRuntime`` builds everything (device check, weights, the server,
-the HTTP listener); ``python -m kvedge_torch serve`` (``cli.py``) runs
-it until interrupted. The weights are the params of the latest
+the HTTP surface of ``runtime/status.py``); ``python -m kvedge_torch
+serve`` (``cli.py``) runs it until interrupted. The weights are the params of the latest
 checkpoint that ``train`` wrote under the state directory
 (``restored_step`` in every response names its step), as the
 reference's serve restores them, or else the seeded numpy init.
@@ -70,13 +91,12 @@ reference's serve restores them, or else the seeded numpy init.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
-import json
 import os
 import queue
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
@@ -105,20 +125,14 @@ from kvedge_torch.runtime.recovery import (
     RecoverySupervisor,
     sweep_stranded_tmp,
 )
+from kvedge_torch.runtime.slo import SloObjectives
+from kvedge_torch.runtime.status import GenerateUnavailable, StatusServer
+from kvedge_torch.runtime.tracing import (
+    Tracer,
+    clean_request_id,
+    new_request_id,
+)
 from kvedge_torch.runtime.train import restore_latest_params
-
-# Request-body ceiling: a token grid is small; anything bigger is refused
-# before json.loads.
-_MAX_GENERATE_BODY = 1 << 20
-
-
-class GenerateUnavailable(RuntimeError):
-    """Capacity or lifecycle refusal: the client should retry (503),
-    after ``retry_after_s`` when the refusal carried a hint."""
-
-    def __init__(self, msg: str, retry_after_s: float | None = None):
-        super().__init__(msg)
-        self.retry_after_s = retry_after_s
 
 
 def _serving_page_bytes(cfg: ServeConfig, tcfg: TransformerConfig) -> int:
@@ -281,10 +295,113 @@ def row_key_data(seed: int, row: int) -> np.ndarray:
     return key.numpy().astype(np.uint32)
 
 
+class _ServeCounters:
+    """The serve payload's request accounting, the reference's counter
+    vocabulary and outcome buckets: ``ValueError`` -> rejected (400),
+    :class:`GenerateUnavailable` and retryable serving failures ->
+    unavailable (503), anything else -> errors (500)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.data = {
+            "requests_total": 0,
+            "completed_total": 0,
+            "rejected_total": 0,
+            "unavailable_total": 0,
+            "errors_total": 0,
+            "tokens_generated_total": 0,
+            "last_latency_ms": 0.0,
+            "latency_ms_sum": 0.0,
+        }
+
+    def count(self, key: str, n: int = 1) -> None:
+        with self._lock:
+            self.data[key] += n
+
+    def count_outcome(self, exc: Exception) -> None:
+        if isinstance(exc, GenerateUnavailable) or (
+                isinstance(exc, ServingFailure) and exc.retryable):
+            self.count("unavailable_total")
+        elif isinstance(exc, ValueError):
+            self.count("rejected_total")
+        else:
+            self.count("errors_total")
+
+    def finish(self, start: float) -> None:
+        ms = (time.perf_counter() - start) * 1000.0
+        with self._lock:
+            self.data["completed_total"] += 1
+            self.data["last_latency_ms"] = ms
+            self.data["latency_ms_sum"] += ms
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self.data)
+
+
+class _ResumeLog:
+    """The delivery log behind client reconnects (the reference's): every
+    generated token the serve path hands a request's consumer, keyed by
+    request id, so a client that lost its connection reconnects with its
+    ``X-Request-Id`` and an ``emitted_offset`` and gets exactly the tokens
+    it has not seen, whether the request still decodes, waits in the
+    journal across a revive, or finished. The ``max_entries`` most
+    recently opened requests are kept; an evicted id is unknown. Pumps
+    write and reconnects read under one condition."""
+
+    def __init__(self, max_entries: int = 64):
+        self.cond = threading.Condition()
+        self.max_entries = int(max_entries)
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+
+    def open(self, rid: str, n_rows: int, n_new: int) -> dict:
+        """Register ``rid``, replacing any earlier use of the id."""
+        with self.cond:
+            rec = {"rows": [[] for _ in range(n_rows)], "live": n_rows,
+                   "n_new": n_new, "done": False, "error": None}
+            self._entries.pop(rid, None)
+            self._entries[rid] = rec
+            while len(self._entries) > self.max_entries:
+                self._entries.popitem(last=False)
+            return rec
+
+    def get(self, rid: str) -> dict | None:
+        with self.cond:
+            return self._entries.get(rid)
+
+    def append(self, rid: str, row: int, token: int) -> None:
+        with self.cond:
+            rec = self._entries.get(rid)
+            if rec is not None:
+                rec["rows"][row].append(token)
+                self.cond.notify_all()
+
+    def row_done(self, rid: str) -> None:
+        """One row finished; the record is done when all rows are."""
+        with self.cond:
+            rec = self._entries.get(rid)
+            if rec is not None:
+                rec["live"] -= 1
+                if rec["live"] <= 0:
+                    rec["done"] = True
+                self.cond.notify_all()
+
+    def finish(self, rid: str, error: Exception | None = None) -> None:
+        """Mark ``rid`` complete (the first error recorded wins)."""
+        with self.cond:
+            rec = self._entries.get(rid)
+            if rec is not None:
+                if error is not None and rec["error"] is None:
+                    rec["error"] = error
+                rec["done"] = True
+                self.cond.notify_all()
+
+
 class ServeRuntime:
     """The serving data path: device check, weights, the paged server
     (``server``; None on the contiguous backend), ``serve_fn`` and (with
-    ``port`` set) the HTTP listener.
+    ``port`` set) the HTTP surface (``http``, a
+    :class:`~kvedge_torch.runtime.status.StatusServer`).
 
     ``device`` is the card unless "cpu" is asked for; ``params`` is a
     numpy param tree (the reference's layout) or None for the latest
@@ -293,6 +410,9 @@ class ServeRuntime:
     paged pool's :class:`RecoverySupervisor` (None with
     ``serving_recovery_attempts = 0`` or the contiguous backend); its
     warm restart re-restores the params served, copied in place.
+    ``tracer`` is the flight recorder (None with ``serving_trace`` off)
+    and ``resume_log`` the reconnect log (None unless checkpoints are on
+    on the paged backend).
     """
 
     def __init__(self, cfg: ServeConfig, *, device=None,
@@ -305,6 +425,7 @@ class ServeRuntime:
                                f"{self.device_check.error}")
         self.cfg = cfg
         self.tcfg = cfg.model_config(dtype)
+        self.started_at = time.time()
         # Atomic-write leftovers of a killed predecessor, before anything
         # writes to the state directory.
         swept = sweep_stranded_tmp(cfg.state_dir)
@@ -324,6 +445,12 @@ class ServeRuntime:
         self.server = None
         self.supervisor = None
         self.spec_decision = None
+        # One flight recorder for the pool, shared with its scheduler and
+        # the supervisor; None is the off state.
+        self.tracer = Tracer.from_knob(cfg.serving_trace) if self.paged \
+            else None
+        self.resume_log = None
+        self._counters = _ServeCounters()
         # The prefix registry's file and the fingerprint of the weights
         # its K/V belong to (None: persistence off).
         self.prefix_path = None
@@ -335,13 +462,25 @@ class ServeRuntime:
         self._generate_lock = threading.Lock()
         self._closed = False
         if self.paged:
+            slo = None
+            if cfg.serving_slo:
+                slo = SloObjectives(
+                    target=cfg.serving_slo_target,
+                    ttft_ms=cfg.serving_slo_ttft_ms,
+                    itl_ms=cfg.serving_slo_itl_ms,
+                    queue_ms=cfg.serving_slo_queue_ms,
+                    fast_window_s=cfg.serving_slo_fast_s,
+                    slow_window_s=cfg.serving_slo_slow_s)
             self.server = PagedGenerationServer(
                 self.weights, self.tcfg, slots=slots, pages=pages,
                 page_size=page_size,
                 prefill_chunk=cfg.serving_prefill_chunk,
                 prefix_cache=cfg.serving_prefix_cache,
                 prefix_host_mb=cfg.serving_prefix_host_mb,
-                window=cfg.serving_window, kv_dtype=cfg.serving_kv_dtype,
+                window=cfg.serving_window,
+                window_min=cfg.serving_window_min,
+                window_max=cfg.serving_window_max,
+                kv_dtype=cfg.serving_kv_dtype,
                 overlap=cfg.serving_overlap, device=self.device,
                 sched_policy=cfg.serving_sched_policy,
                 sched_weights=cfg.sched_weights_dict(),
@@ -358,6 +497,10 @@ class ServeRuntime:
                 retry_after_s=cfg.serving_retry_after_s,
                 checkpoint_every=cfg.serving_checkpoint_every,
                 debug_pages=cfg.serving_debug_pages,
+                tracer=self.tracer,
+                debug_locks=cfg.serving_debug_locks,
+                slo=slo, slo_shed=cfg.serving_slo_shed,
+                occupancy_ring=cfg.serving_occupancy_ring,
             )
             if cfg.state_dir:
                 self.server.on_degraded = self._record_failure
@@ -396,14 +539,24 @@ class ServeRuntime:
                     prefix_fingerprint=self.prefix_fingerprint or "",
                     restore_params=restore_params,
                 ).attach()
+            if cfg.serving_checkpoint_every > 0:
+                # Reconnects only where a disconnect can detach: with
+                # checkpoints off a disconnect still cancels its rows.
+                self.resume_log = _ResumeLog()
         # Rows submit together on a bounded pool (2 x slots workers):
         # excess rows queue here instead of spawning threads.
         self._rows = concurrent.futures.ThreadPoolExecutor(
             max_workers=2 * slots, thread_name_prefix="kvedge-torch-row")
-        self.httpd = None
-        self._http_thread = None
+        self.http = None
         if port is not None:
-            self._start_http(host or cfg.status_bind, port)
+            self.http = StatusServer(
+                host or cfg.status_bind, port, snapshot=self.snapshot,
+                healthy=lambda: self.healthy,
+                health_detail=lambda: self.health()[1],
+                token=cfg.status_token, generator=self.serve_fn,
+                trace_doc=self.trace_doc, slo_doc=self.slo_doc,
+                bundle_doc=self.bundle_doc)
+            self.http.start()
 
     def _start_prefix_persistence(self) -> None:
         """Re-pin the previous run's prefix registry, then dump it every
@@ -429,12 +582,25 @@ class ServeRuntime:
 
     def _record_failure(self, reason, failure) -> None:
         """The paged pool's ``on_degraded`` observer: the post-mortem
-        ``<state_dir>/last-failure.json``, which outlives the pod."""
-        heartbeat.write_failure_record(self.cfg.state_dir, {
+        ``<state_dir>/last-failure.json``, which outlives the pod, with
+        the flight recorder's tail when tracing is on; with
+        ``serving_bundle``, the flight bundle beside it, best effort (a
+        bundle that fails never masks the record)."""
+        record = {
             "payload": "serve", "backend": "paged",
             "type": type(failure).__name__, "reason": reason,
             "retryable": bool(getattr(failure, "retryable", False)),
-        })
+        }
+        if self.tracer is not None:
+            record["trace"] = self.tracer.last_events()
+        heartbeat.write_failure_record(self.cfg.state_dir, record)
+        if self.cfg.serving_bundle:
+            try:
+                heartbeat.write_flight_bundle(self.cfg.state_dir,
+                                              self.server.flight_bundle())
+            except Exception as e:
+                print(f"[kvedge-serve] flight bundle not written: {e!r}",
+                      flush=True)
 
     def health(self) -> tuple[int, dict]:
         """``GET /healthz``: 200 ``{"status": "ok"}``, or 503 with the
@@ -463,7 +629,55 @@ class ServeRuntime:
 
     @property
     def port(self) -> int:
-        return self.httpd.server_address[1]
+        return self.http.port
+
+    def stats(self) -> dict:
+        """The ``serving`` document: the request counters, the backend,
+        and on the paged one the server's and the supervisor's stats."""
+        out = self._counters.snapshot()
+        out["backend"] = "paged" if self.paged else "contiguous"
+        if self.server is not None:
+            out.update(self.server.stats())
+        if self.supervisor is not None:
+            out.update(self.supervisor.stats())
+        return out
+
+    def snapshot(self) -> dict:
+        """The ``GET /status`` document (and ``/metrics``' source)."""
+        state_dir = self.cfg.state_dir
+        last = heartbeat.read_heartbeat(state_dir) or {}
+        return {
+            "name": "kvedge-torch",
+            "ok": self.device_check.ok and self.healthy,
+            "payload": "serve",
+            "check": self.device_check.to_dict(),
+            "boot_count": int(last.get("boot_count", 0)),
+            "uptime_s": round(time.time() - self.started_at, 3),
+            "heartbeat_seq": last.get("seq", 0),
+            "heartbeat_age_s": (round(time.time() - last["ts"], 3)
+                                if "ts" in last else None),
+            "init_events": heartbeat.read_init_events(state_dir),
+            "serving": self.stats(),
+            "last_failure": heartbeat.read_failure_record(state_dir),
+        }
+
+    def trace_doc(self) -> dict | None:
+        """``GET /trace``: Chrome trace-event JSON, None with tracing off."""
+        return (self.tracer.export_chrome() if self.tracer is not None
+                else None)
+
+    def slo_doc(self) -> dict | None:
+        """``GET /slo``: the SLO engine's document, None while it is off."""
+        if self.server is None or not self.cfg.serving_slo:
+            return None
+        return self.server.slo_doc()
+
+    def bundle_doc(self) -> dict | None:
+        """``GET /debug/bundle``: the flight bundle, None while
+        ``serving_bundle`` is off."""
+        if self.server is None or not self.cfg.serving_bundle:
+            return None
+        return self.server.flight_bundle()
 
     @property
     def healthy(self) -> bool:
@@ -475,13 +689,62 @@ class ServeRuntime:
         """One ``POST /generate`` body -> the response document, or for
         ``"stream": true`` a document whose ``"_stream"`` iterates the
         newline-delimited JSON records (one ``{"row": r, "token": t}``
-        per token, then ``{"done": true, ...}``)."""
+        per token, then ``{"done": true, ...}``). Counted: every call is
+        a request, its outcome lands in one bucket, and a streamed one
+        completes when its last record went out."""
+        self._counters.count("requests_total")
+        start = time.perf_counter()
+        try:
+            result = self._serve(doc)
+        except Exception as e:
+            self._counters.count_outcome(e)
+            raise
+        stream = result.get("_stream")
+        if stream is None:
+            self._counters.count("tokens_generated_total",
+                                 result["n_new"] * len(result["tokens"]))
+            self._counters.finish(start)
+            return result
+        counters = self._counters
+
+        def counted():
+            try:
+                for item in stream:
+                    if "token" in item:
+                        counters.count("tokens_generated_total")
+                    yield item
+            except GeneratorExit:
+                # The client is gone: the inner stream cancels (or
+                # detaches) its rows; no completion is recorded.
+                stream.close()
+                raise
+            except Exception as e:
+                counters.count_outcome(e)
+                raise
+            counters.finish(start)
+
+        return {**result, "_stream": counted()}
+
+    def _serve(self, doc: dict) -> dict:
+        if "emitted_offset" in doc:
+            # A reconnect, not a new request: the original submission
+            # pinned every other field.
+            if self.resume_log is None:
+                raise ValueError(
+                    "'emitted_offset' reconnect requires the paged "
+                    "backend with [payload] serving_checkpoint_every > 0")
+            return self._resume(doc)
         (tokens, n_new, temperature, top_p, seed, stream, spec, priority,
          deadline_ms) = _parse_generate_request(
             doc, self.tcfg, max_rows=self.max_rows, paged=self.paged)
+        # The caller's id, cleaned, or one minted here (so programmatic
+        # callers get one too): echoed in every response.
+        rid = clean_request_id(doc.get("_request_id")) or new_request_id()
         if not self.paged:
-            return self._serve_contiguous(tokens, n_new, temperature, top_p,
-                                          seed, spec)
+            out = self._serve_contiguous(tokens, n_new, temperature, top_p,
+                                         seed, spec)
+            out["request_id"] = rid
+            return out
         timeout = 120.0
         prompts = [[t % self.tcfg.vocab for t in row] for row in tokens]
 
@@ -493,18 +756,111 @@ class ServeRuntime:
         if stream:
             return {"_stream": self._stream(prompts, n_new, timeout,
                                             row_sampling, priority,
-                                            deadline_ms)}
+                                            deadline_ms, rid),
+                    "request_id": rid}
         rows: list = [None] * len(prompts)
 
         def one_row(i: int) -> None:
             rows[i] = self.server.submit(prompts[i], n_new, timeout=timeout,
                                          sampling=row_sampling(i),
                                          priority=priority,
-                                         deadline_ms=deadline_ms)
+                                         deadline_ms=deadline_ms,
+                                         request_id=rid)
 
-        self._fan_out(len(prompts), one_row)
+        log = self.resume_log
+        # A buffered request registers too: its submitter waits through a
+        # revive, so a client whose connection died re-asks with
+        # emitted_offset 0 and collects the tokens.
+        if log is not None:
+            log.open(rid, len(prompts), n_new)
+        try:
+            self._fan_out(len(prompts), one_row)
+        except Exception as e:
+            if log is not None:
+                log.finish(rid, error=e)
+            raise
+        if log is not None:
+            for i, row in enumerate(rows):
+                for token in row[len(prompts[i]):]:
+                    log.append(rid, i, token)
+            log.finish(rid)
         return {"tokens": rows, "n_new": n_new,
-                "restored_step": self.restored_step}
+                "restored_step": self.restored_step, "request_id": rid}
+
+    def _resume(self, doc: dict) -> dict:
+        """The reconnect: the original request id and ``emitted_offset``
+        (an int, or one per row) re-attach to an issued request and
+        deliver exactly the tokens past the offsets, from the delivery
+        log its pumps keep feeding while the client is away. Buffered, it
+        waits the request out; streamed, it drains the log and follows it
+        live. Nothing new is submitted."""
+        log = self.resume_log
+        rid = clean_request_id(doc.get("_request_id"))
+        if not rid:
+            raise ValueError("reconnect needs the original request id "
+                             "(X-Request-Id header or '_request_id')")
+        rec = log.get(rid)
+        if rec is None:
+            raise ValueError(
+                f"unknown or expired request id {rid!r}: nothing to "
+                f"resume (the delivery log keeps the {log.max_entries} "
+                "most recent requests)")
+        n_rows = len(rec["rows"])
+        raw = doc.get("emitted_offset")
+        offs = raw if isinstance(raw, list) else [raw] * n_rows
+        if (len(offs) != n_rows
+                or not all(isinstance(o, int) and not isinstance(o, bool)
+                           and 0 <= o <= rec["n_new"] for o in offs)):
+            raise ValueError(
+                "'emitted_offset' must be an integer (or one per row, "
+                f"{n_rows} here) in [0, n_new={rec['n_new']}] — the count "
+                "of generated tokens already received for the row")
+        stream = doc.get("stream", False)
+        if not isinstance(stream, bool):
+            raise ValueError("'stream' must be a boolean")
+        if not stream:
+            with log.cond:
+                while not rec["done"]:
+                    log.cond.wait()
+                if rec["error"] is not None:
+                    raise rec["error"]
+                suffix = [list(row[o:]) for row, o in zip(rec["rows"], offs)]
+            return {"tokens": suffix, "n_new": rec["n_new"],
+                    "restored_step": self.restored_step,
+                    "request_id": rid, "resumed_at": list(offs)}
+        restored_step = self.restored_step
+
+        def replay():
+            # Tokens are read under the log's condition and yielded
+            # outside it: the HTTP write never holds the pumps back.
+            cursor = list(offs)
+            while True:
+                out = []
+                with log.cond:
+                    while True:
+                        for i in range(n_rows):
+                            row = rec["rows"][i]
+                            if cursor[i] < len(row):
+                                out.extend((i, t) for t in row[cursor[i]:])
+                                cursor[i] = len(row)
+                        if out or rec["done"]:
+                            done, err = rec["done"], rec["error"]
+                            break
+                        log.cond.wait()
+                for i, t in out:
+                    yield {"row": i, "token": t}
+                if done:
+                    if err is not None:
+                        raise err
+                    yield {"done": True,
+                           "tokens": [list(r[o:]) for r, o
+                                      in zip(rec["rows"], offs)],
+                           "n_new": rec["n_new"],
+                           "restored_step": restored_step,
+                           "request_id": rid, "resumed_at": list(offs)}
+                    return
+
+        return {"_stream": replay(), "request_id": rid}
 
     def _serve_contiguous(self, tokens, n_new: int, temperature: float,
                           top_p: float, seed: int, spec: int) -> dict:
@@ -574,10 +930,11 @@ class ServeRuntime:
 
     def _stream(self, prompts, n_new: int, timeout: float, row_sampling,
                 priority: str = "interactive",
-                deadline_ms: int | None = None):
+                deadline_ms: int | None = None, rid: str = ""):
         """Admit every row and wait for its first token HERE, so a refusal
-        is still a clean 503 before the 200 is committed; then return the
-        generator that merges the rows' tokens as they land."""
+        is still a clean 503 before the 200 is committed; then register
+        the request for reconnects (before any token leaves) and return
+        the generator that merges the rows' tokens as they land."""
         sources: list = [None] * len(prompts)
         firsts: list = [None] * len(prompts)
 
@@ -586,7 +943,8 @@ class ServeRuntime:
                                             timeout=timeout,
                                             sampling=row_sampling(i),
                                             priority=priority,
-                                            deadline_ms=deadline_ms)
+                                            deadline_ms=deadline_ms,
+                                            request_id=rid)
             sources[i] = src
             firsts[i] = next(src)
 
@@ -597,23 +955,35 @@ class ServeRuntime:
                 if src is not None:
                     src.cancel()
             raise
-        return self._merge(prompts, n_new, sources, firsts)
+        if self.resume_log is not None:
+            self.resume_log.open(rid, len(prompts), n_new)
+        return self._merge(prompts, n_new, sources, firsts, rid)
 
-    def _merge(self, prompts, n_new: int, sources, firsts):
+    def _merge(self, prompts, n_new: int, sources, firsts, rid: str = ""):
         done = object()
         out_q: queue.SimpleQueue = queue.SimpleQueue()
+        log = self.resume_log
 
         def pump(i: int) -> None:
             # One pump per row: the streams block on the decode loop, so
             # a round-robin reader would stall every row behind the
-            # slowest.
+            # slowest. Pumps feed the delivery log directly, so a merger
+            # gone with its client never stops it.
             try:
                 out_q.put((i, firsts[i]))
+                if log is not None:
+                    log.append(rid, i, firsts[i])
                 for token in sources[i]:
                     out_q.put((i, token))
+                    if log is not None:
+                        log.append(rid, i, token)
                 out_q.put((i, done))
+                if log is not None:
+                    log.row_done(rid)
             except Exception as e:  # handed to the merger, which raises
                 out_q.put((i, e))
+                if log is not None:
+                    log.finish(rid, error=e)
 
         for i in range(len(prompts)):
             self._rows.submit(pump, i)
@@ -626,108 +996,30 @@ class ServeRuntime:
                     live -= 1
                     continue
                 if isinstance(item, Exception):
+                    item.stream_row = i  # the HTTP error record names it
                     raise item
                 generated[i].append(item)
                 yield {"row": i, "token": item}
         except GeneratorExit:
-            # The client is gone: free every row's slot and pages at the
-            # next decode boundary instead of decoding out the budgets.
-            for src in sources:
-                src.cancel()
+            # The client is gone. Without the delivery log, free every
+            # row's slot and pages at the next decode boundary instead of
+            # decoding out the budgets; with it the rows DETACH: they
+            # decode on, the pumps keep logging, and the client
+            # reconnects with emitted_offset.
+            if log is None:
+                for src in sources:
+                    src.cancel()
             raise
         yield {"done": True,
                "tokens": [p + g for p, g in zip(prompts, generated)],
-               "n_new": n_new, "restored_step": self.restored_step}
-
-    def _start_http(self, host: str, port: int) -> None:
-        runtime = self
-
-        class Handler(BaseHTTPRequestHandler):
-            def log_message(self, *args):  # keep the server quiet
-                pass
-
-            def _send(self, code: int, doc: dict) -> None:
-                body = json.dumps(doc).encode()
-                self.send_response(code)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
-
-            def do_GET(self):
-                if self.path == "/healthz":
-                    self._send(*runtime.health())
-                else:
-                    self._send(404, {"error": f"no route {self.path}"})
-
-            def do_POST(self):
-                if self.path != "/generate":
-                    self._send(404, {"error": f"no route {self.path}"})
-                    return
-                try:
-                    length = int(self.headers.get("Content-Length", "0"))
-                except ValueError:
-                    length = 0
-                if not 0 < length <= _MAX_GENERATE_BODY:
-                    self._send(400, {"error": "POST /generate needs a JSON "
-                                     f"body (1..{_MAX_GENERATE_BODY} bytes)"})
-                    return
-                try:
-                    doc = json.loads(self.rfile.read(length))
-                except (json.JSONDecodeError, UnicodeDecodeError) as e:
-                    self._send(400, {"error": f"invalid JSON body: {e}"})
-                    return
-                if not isinstance(doc, dict):
-                    self._send(400, {"error": "body must be a JSON object"})
-                    return
-                try:
-                    result = runtime.serve_fn(doc)
-                except ValueError as e:
-                    self._send(400, {"error": str(e)})
-                except GenerateUnavailable as e:
-                    body = {"error": str(e)}
-                    if e.retry_after_s is not None:
-                        body["retry_after_s"] = e.retry_after_s
-                    self._send(503, body)
-                except Exception as e:  # generation failed; stay serving
-                    self._send(500, {"error": f"generate failed: {e!r}"})
-                else:
-                    if "_stream" in result:
-                        self._send_stream(result["_stream"])
-                    else:
-                        self._send(200, result)
-
-            def _send_stream(self, stream) -> None:
-                # ndjson, the end of the body delimited by the connection
-                # closing; a failure after the 200 is a final error line.
-                self.send_response(200)
-                self.send_header("Content-Type", "application/x-ndjson")
-                self.end_headers()
-                self.close_connection = True
-                try:
-                    for item in stream:
-                        self.wfile.write((json.dumps(item) + "\n").encode())
-                        self.wfile.flush()
-                except (BrokenPipeError, ConnectionResetError):
-                    stream.close()  # cancels the rows
-                except Exception as e:  # reported in-band, stay serving
-                    self.wfile.write((json.dumps(
-                        {"error": f"generate failed: {e!r}"}) + "\n").encode())
-
-        self.httpd = ThreadingHTTPServer((host, port), Handler)
-        self.httpd.daemon_threads = True
-        self._http_thread = threading.Thread(
-            target=self.httpd.serve_forever, name="kvedge-torch-http",
-            daemon=True)
-        self._http_thread.start()
+               "n_new": n_new, "restored_step": self.restored_step,
+               "request_id": rid}
 
     def close(self, drain: bool = False) -> None:
         if self.supervisor is not None:
             self.supervisor.stop()
-        if self.httpd is not None:
-            self.httpd.shutdown()
-            self.httpd.server_close()
-            self._http_thread.join(timeout=30)
+        if self.http is not None:
+            self.http.shutdown()
         if self.server is not None:
             self.server.close(drain=drain)
             if self.prefix_path:

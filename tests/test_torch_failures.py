@@ -68,10 +68,11 @@ def test_heartbeat_subset_is_the_reference_functions():
 
 
 def test_recovery_copy_differs_only_in_params_and_tracing():
-    """Every function of the supervisor module is the reference's, but
-    ``_trace_event`` (no flight recorder) and ``_attempt_once``, whose
-    step 4 copies the params in place instead of rebinding them."""
-    changed = {"_trace_event", "_attempt_once"}
+    """Every function of the supervisor module is the reference's,
+    ``_trace_event`` (the flight recorder's recovery instants) included,
+    but ``_attempt_once``, whose step 4 copies the params in place
+    instead of rebinding them."""
+    changed = {"_attempt_once"}
     assert trec.RecoveryPolicy() == trec.RecoveryPolicy(
         **vars(jrec.RecoveryPolicy()))
     assert (inspect.getsource(trec.sweep_stranded_tmp)

@@ -16,6 +16,7 @@
   ``serving_prefix_persist = true`` is refused.
 """
 
+import dataclasses
 import json
 import threading
 import time
@@ -438,13 +439,24 @@ def test_new_keys_fail_as_the_reference(text, match):
 def test_prefix_persistence_and_other_left_out_knobs_are_refused():
     assert JaxConfig.parse("").serving_prefix_persist is True
     assert ServeConfig.parse("").serving_prefix_persist is True
-    for text, match in (("serving_hbm_budget_mb = 64\nserving_pages = 32\n",
-                         "mutually exclusive"),
-                        ("serving_occupancy_ring = 64\n",
-                         "serving_occupancy_ring"),
-                        ("serving_slo = true\n", "serving_slo"),
-                        ("serving_debug_locks = true\n",
-                         "serving_debug_locks"),
-                        ("serving_trace = 'on'\n", "serving_trace")):
+    # The observability knobs are read now, with the reference's values;
+    # what is still unported is refused by name.
+    text = ("[payload]\nserving_occupancy_ring = 64\nserving_slo = true\n"
+            "serving_debug_locks = true\nserving_trace = 'on'\n")
+    ours, theirs = ServeConfig.parse(text), JaxConfig.parse(text)
+    for name in ("serving_occupancy_ring", "serving_slo",
+                 "serving_debug_locks", "serving_trace"):
+        assert getattr(ours, name) == getattr(theirs, name), name
+    for text, match in (("[payload]\nserving_hbm_budget_mb = 64\n"
+                         "serving_pages = 32\n", "mutually exclusive"),
+                        ("[model]\nn_experts = 4\n", "n_experts"),
+                        ("[payload]\nattention = 'ring'\n", "ring"),
+                        ("[payload]\nattention = 'ulysses'\n", "ulysses")):
         with pytest.raises(RuntimeConfigError, match=match):
-            ServeConfig.parse("[payload]\n" + text)
+            ServeConfig.parse(text).model_config()
+    for field, match in (("remat_policy", "dots"),
+                         ("pipeline_stages", "pipeline_stages")):
+        value = "dots" if field == "remat_policy" else 2
+        with pytest.raises(ValueError, match=match):
+            dataclasses.replace(TransformerConfig(**KW),
+                                **{field: value}).validate()

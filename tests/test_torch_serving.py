@@ -257,6 +257,9 @@ def test_http_round_trip_on_cpu(tmp_path):
                    "top_p": 0.95, "seed": 17}
         code, a = _post(base + "/generate", sampled)
         code2, b = _post(base + "/generate", sampled)
+        # Each response carries its own minted request id; the rest of
+        # a seeded sampled request repeats exactly.
+        assert a.pop("request_id") != b.pop("request_id")
         assert code == code2 == 200 and a == b
         assert _post(base + "/generate", {"tokens": [[1]], "n_new": 0})[0] \
             == 400
@@ -328,9 +331,13 @@ def test_config_reads_the_reference_toml_names_and_refuses_the_rest():
         assert ServeConfig.parse(
             f'[payload]\nserving_overlap = "{value}"\n'
         ).serving_overlap == value
+    assert ServeConfig.parse('[payload]\nserving_bundle = true\n'
+                             ).serving_bundle is True
+    assert ServeConfig.parse('[payload]\nserving_window = "auto"\n'
+                             ).serving_window == "auto"
     for text, match in [
-        ('[payload]\nserving_bundle = true\n', "serving_bundle"),
-        ('[payload]\nserving_window = "auto"\n', "serving_window"),
+        ('[payload]\nserving_bundle = 1\n', "serving_bundle"),
+        ('[payload]\nserving_window = "fast"\n', "serving_window"),
         ('[mesh]\naxes = {data = 1}\n', "mesh"),
         ('[model]\npreset = "huge"\n', "preset"),
         ('[payload]\nserving = "ragged"\n', "serving must be"),
@@ -353,6 +360,8 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
         "    kvedge_torch.__path__, 'kvedge_torch.')]\n"
         "assert 'kvedge_torch.models.decode' in mods, mods\n"
         "assert 'kvedge_torch.models.speculative' in mods, mods\n"
+        "for new in ('tracing', 'slo', 'autotune', 'debuglock', 'status'):\n"
+        "    assert 'kvedge_torch.runtime.' + new in mods, mods\n"
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in\n"
