@@ -129,7 +129,8 @@ imports nothing of JAX. Phases, each printing one JSON line:
             GB/s (the device drained around each), and the interactive
             request's latency preempting and with the swap budget at 0.
 6e. prefill_graphs  prefill chunks as replayed CUDA graphs at the
-            flagship width (8 layers): chunks (slot, offset, length) (0,
+            flagship width (its depth cut to 2 layers, as phase 4's, to
+            make room for the moe phase): chunks (slot, offset, length) (0,
             0, 64), (0, 64, 37), (1, 0, 990) and the off-grid suffix (1,
             990, 40), at bf16, fp32 and over an int8 pool: each chunk's
             logits, both pools and the scale slabs equal the same chunks
@@ -202,8 +203,9 @@ imports nothing of JAX. Phases, each printing one JSON line:
             and the next dispatch captures and equals eager bit for bit.
 6i. observability  request ids, the flight recorder, /status, /metrics,
             /trace, /slo, /debug/bundle, the window autotune, the
-            reconnect log and debug locks, at the flagship width (8
-            layers, bf16, the serve phase's pool and requests): one
+            reconnect log and debug locks, at the flagship width (bf16,
+            the serve phase's pool and requests; its depth cut to 2
+            layers, as phase 4's, to make room for the moe phase): one
             runtime with ``serving_trace = "on"``, ``serving_slo``,
             ``serving_bundle``, ``serving_occupancy_ring = 256`` and
             ``serving_checkpoint_every = 16`` runs the burst (B1 counted
@@ -226,6 +228,33 @@ imports nothing of JAX. Phases, each printing one JSON line:
             graphs and capture seconds it added are printed. At 2 layers
             a burst with ``serving_debug_locks = true`` returns the tokens
             of the plain locks.
+6j. moe     the MoE flagship: the flagship preset with ``[model] experts
+            = 8, expert_top_k = 2`` (the derived drop-free capacity
+            factor 4.0; numpy-seeded weights, the router fp32). moe_windows,
+            moe_spec_windows and moe_prefill_graphs: phases 4, 6a and 6e
+            on it at 2 layers, graphs == eager bit for bit. moe_serve:
+            the serve phase's burst, pool and warm-ups through the serve
+            payload from a fresh state directory, overlap "off" then
+            "auto" (B1 counted over each measured burst, >= n_layers x
+            decode steps; response shape; the two bursts' tokens equal);
+            tokens/s, ms a decode step, ``prefill_s`` and TTFT / ITL p50
+            (the server's histograms) beside the dense burst's; one
+            request profiled, with the routed-FFN block's share of its
+            device time estimated from the block's own graph-replay
+            times; at fp32 and 2 layers the kernel path's tokens equal
+            the gather path's, the contiguous backend's, the naive
+            forward's argmax and ``serving_speculative = 4``'s
+            (moe_fp32). moe_train: 30 steps at batch 8, seq 512 (bf16,
+            flash, ``fused_xent``) through ``training.run_training`` under
+            remat "full" and then "dots" over one Markov corpus, kernel
+            counts zeroed before each run: the loss falls >= 1 nat, the
+            dots losses equal the full ones bit for bit, B2-B7 launched
+            as in train_fused; two backward passes of one batch give
+            bit-identical gradients; step ms, peak memory and MFU (from
+            the active parameters: embedding, attention, router and
+            top_k experts a layer) for full against dots; the dots run's
+            checkpoint served at fp32 answers two requests with the
+            teacher-forced argmax, with no divergence warning.
 7. timings  CUDA-event times at the serve phase's decode shapes (L2
             flushed before each launch): the kernel, its plain version,
             ``F.scaled_dot_product_attention`` over the gathered K/V as a
@@ -638,10 +667,12 @@ def run_burst(url, reqs, queued=None):
 
 def phase_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
                   row_key_data, device="cuda", preset="flagship",
-                  max_seq=2048, n_layers=WINDOW_LAYERS):
+                  max_seq=2048, n_layers=WINDOW_LAYERS, model=None,
+                  name="windows"):
     """Decode windows as replayed CUDA graphs against the same windows run
     eagerly, bit for bit, at the serve phase's model width (its depth cut
-    to ``n_layers``)."""
+    to ``n_layers``; ``model`` adds ``[model]`` fields, as the moe phase
+    does, which emits the doc as ``name``)."""
 
     class EagerCache(kvc.PagedKVCache):
         def _run_device_window(self, params, n_steps, sampled):
@@ -657,8 +688,8 @@ def phase_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
     key_data = np.stack([row_key_data(21, s) for s in range(4)])
     docs = []
     for dtype in ("bfloat16", "float32"):
-        cfg = ServeConfig(preset=preset, max_seq=max_seq,
-                          n_layers=n_layers).model_config(dtype)
+        cfg = ServeConfig(preset=preset, max_seq=max_seq, n_layers=n_layers,
+                          **(model or {})).model_config(dtype)
         params = params_from_numpy(ttr.init_params(0, cfg), cfg, device)
         prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lives]
         caches, pend = [], None
@@ -731,7 +762,8 @@ def phase_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
         del caches, graph, eager, probe, params
         if device == "cuda":
             torch.cuda.empty_cache()
-    doc = {"phase": "windows", "model": preset, "n_layers": n_layers,
+    doc = {"phase": name, "model": preset, **(model or {}),
+           "n_layers": n_layers,
            "slots": 4, "page": 16,
            "lives": lives, "windows": [1, 8, 64], "per_dtype": docs,
            "ok": True}
@@ -740,12 +772,16 @@ def phase_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
 
 
 def serve_burst(torch, np, pa, serve, ServeConfig, overlap, device, preset,
-                max_seq, prefix_cache=False):
+                max_seq, prefix_cache=False, state_dir=SEEDED_STATE_DIR,
+                model=None):
     """One serve runtime with ``serving_overlap = overlap``: warm-up
     requests that capture its window graphs, a first burst that captures
     the prefill graphs of its chunk lengths, then the measured burst with
-    B1's count zeroed just before and read just after. Returns (the
-    measured burst's doc, its responses, the runtime, still open)."""
+    B1's count zeroed just before and read just after. ``model`` adds
+    ``[model]`` fields (the moe phase's experts). Returns (the measured
+    burst's doc, its responses, the runtime, still open)."""
+    from kvedge_torch.runtime import slo as slo_mod
+
     # The serve phase keeps the prefix cache off: it resubmits requests
     # and compares bf16 tokens, which a suffix-only prefill may round
     # apart (the prefix phase measures the cache; tools/serve_ab.py times
@@ -755,7 +791,7 @@ def serve_burst(torch, np, pa, serve, ServeConfig, overlap, device, preset,
                       serving_page_size=16, serving_prefill_chunk=64,
                       serving_window=64, serving_prefix_cache=prefix_cache,
                       serving_prefix_persist=False,
-                      state_dir=SEEDED_STATE_DIR)
+                      state_dir=state_dir, **(model or {}))
     rt = serve.ServeRuntime(cfg, device=device, dtype="bfloat16", seed=0,
                             host="127.0.0.1", port=0)
     try:
@@ -844,6 +880,11 @@ def serve_burst(torch, np, pa, serve, ServeConfig, overlap, device, preset,
             "latency_p50_s": float(np.percentile(lat_sorted, 50)),
             "latency_p99_s": float(np.percentile(lat_sorted, 99)),
             "latencies_s": lat,
+            # p50s interpolated inside the server's histogram buckets.
+            "ttft_p50_ms": hist_p50(slo_mod, stats["ttft_ms"],
+                                    stats0["ttft_ms"]),
+            "itl_p50_ms": hist_p50(slo_mod, stats["itl_ms"],
+                                   stats0["itl_ms"]),
             "first_burst": first_doc,
             "graphs_after_warmup": graphs,
             "graphs_after_burst": rt.server._cache.graph_stats(),
@@ -853,6 +894,56 @@ def serve_burst(torch, np, pa, serve, ServeConfig, overlap, device, preset,
     except BaseException:
         rt.close()
         raise
+
+
+def fp32_paths(torch, pa, serve, ServeConfig, forward, greedy, device,
+               preset, max_seq, modes=("auto", "gather", "contiguous"),
+               model=None, state_dir=SEEDED_STATE_DIR):
+    """The ``greedy`` requests at fp32, the depth cut to WINDOW_LAYERS,
+    concurrently through one serve runtime per mode: "auto" (the paged
+    server on B1), "gather" (its plain path), "contiguous" (the
+    contiguous backend) and "spec" (the paged server with
+    ``serving_speculative = SPEC_K``, its verify passes on the gather).
+    Returns (tokens by mode, B1 launches by mode, whether the
+    "auto" tokens of request 1 equal the naive forward's argmax)."""
+    tokens, counts, forward_ok = {}, {}, None
+    for mode in modes:
+        cfg32 = ServeConfig(
+            preset=preset, max_seq=max_seq,
+            payload_serving="contiguous" if mode == "contiguous" else "paged",
+            serving_slots=4, serving_page_size=16, serving_prefill_chunk=64,
+            serving_window=64, n_layers=WINDOW_LAYERS,
+            payload_paged_attention="gather" if mode == "gather" else "",
+            serving_speculative=SPEC_K if mode == "spec" else 0,
+            serving_prefix_cache=False, state_dir=state_dir,
+            **(model or {}))
+        rt = serve.ServeRuntime(cfg32, device=device, dtype="float32",
+                                seed=0)
+        try:
+            pa.paged_decode_attention.launches = 0
+            out = [None] * len(greedy)
+
+            def one(i, rt=rt, out=out):
+                out[i] = rt.serve_fn(greedy[i])
+
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(len(greedy))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            check(all(d is not None for d in out), "an fp32 request failed")
+            tokens[mode] = [d["tokens"] for d in out]
+            counts[mode] = pa.paged_decode_attention.launches
+            if mode == "auto":
+                seq = torch.tensor(tokens[mode][1], device=device)
+                logits = forward(rt.weights, seq, rt.tcfg)
+                n_p = len(greedy[1]["tokens"][0])
+                want = logits[0, n_p - 1:-1].argmax(-1).tolist()
+                forward_ok = tokens[mode][1][0][n_p:] == want
+        finally:
+            rt.close()
+    return tokens, counts, forward_ok
 
 
 def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
@@ -902,42 +993,9 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
     # the naive forward pass, on the burst's greedy single-row requests;
     # then the contiguous backend against the paged one.
     greedy = [dict(r, n_new=24) for r in reqs[:6]]
-    tokens = {}
-    counts = {}
-    for mode in ("auto", "gather", "contiguous"):
-        cfg32 = ServeConfig(
-            preset=preset, max_seq=max_seq,
-            payload_serving="contiguous" if mode == "contiguous" else "paged",
-            serving_slots=4, serving_page_size=16, serving_prefill_chunk=64,
-            serving_window=64, n_layers=WINDOW_LAYERS,
-            payload_paged_attention="gather" if mode == "gather" else "",
-            serving_prefix_cache=False, state_dir=SEEDED_STATE_DIR)
-        rt = serve.ServeRuntime(cfg32, device=device, dtype="float32",
-                                seed=0)
-        try:
-            pa.paged_decode_attention.launches = 0
-            out = [None] * len(greedy)
-
-            def one(i, rt=rt, out=out):
-                out[i] = rt.serve_fn(greedy[i])
-
-            threads = [threading.Thread(target=one, args=(i,))
-                       for i in range(len(greedy))]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=900)
-            check(all(d is not None for d in out), "an fp32 request failed")
-            tokens[mode] = [d["tokens"] for d in out]
-            counts[mode] = pa.paged_decode_attention.launches
-            if mode == "auto":
-                seq = torch.tensor(tokens[mode][1], device=device)
-                logits = forward(rt.weights, seq, rt.tcfg)
-                n_p = len(greedy[1]["tokens"][0])
-                want = logits[0, n_p - 1:-1].argmax(-1).tolist()
-                forward_ok = tokens[mode][1][0][n_p:] == want
-        finally:
-            rt.close()
+    tokens, counts, forward_ok = fp32_paths(torch, pa, serve, ServeConfig,
+                                            forward, greedy, device, preset,
+                                            max_seq)
     same = tokens["auto"] == tokens["gather"]
     emit({"phase": "serve_fp32", "requests": len(greedy),
           "n_layers": WINDOW_LAYERS,
@@ -981,10 +1039,11 @@ def spec_requests(np, vocab):
 
 def phase_spec_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
                        row_key_data, device="cuda", preset="flagship",
-                       max_seq=2048, n_layers=WINDOW_LAYERS):
+                       max_seq=2048, n_layers=WINDOW_LAYERS, model=None,
+                       name="spec_windows"):
     """Spec windows as replayed CUDA graphs against the same windows run
     eagerly, bit for bit, at the serve phase's model width (its depth cut
-    to ``n_layers``)."""
+    to ``n_layers``; ``model`` and ``name`` as in ``phase_windows``)."""
 
     class EagerCache(kvc.PagedKVCache):
         def _run_device_spec_window(self, params, n_passes, k_len, sampled):
@@ -1002,8 +1061,8 @@ def phase_spec_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
     s_ctx = max_seq + SPEC_K + 2
     docs = []
     for dtype in ("bfloat16", "float32"):
-        cfg = ServeConfig(preset=preset, max_seq=max_seq,
-                          n_layers=n_layers).model_config(dtype)
+        cfg = ServeConfig(preset=preset, max_seq=max_seq, n_layers=n_layers,
+                          **(model or {})).model_config(dtype)
         params = params_from_numpy(ttr.init_params(0, cfg), cfg, device)
         # Repeated spans, so the device drafter's drafts accept.
         prompts = [(rng.integers(0, cfg.vocab, 8).tolist() * n)[:n]
@@ -1083,7 +1142,8 @@ def phase_spec_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
         del caches, graph, eager, params
         if device == "cuda":
             torch.cuda.empty_cache()
-    doc = {"phase": "spec_windows", "model": preset, "n_layers": n_layers,
+    doc = {"phase": name, "model": preset, **(model or {}),
+           "n_layers": n_layers,
            "slots": 4, "page": 16,
            "draft_len": SPEC_K, "n_passes": [1, 8], "lives": lives,
            "per_dtype": docs, "ok": True}
@@ -1735,14 +1795,15 @@ def phase_contention(torch, np, pa, serve, ServeConfig, device="cuda",
 
 def phase_prefill_graphs(torch, np, kvc, ttr, params_from_numpy,
                          ServeConfig, device="cuda", preset="flagship",
-                         max_seq=2048, n_layers=8):
+                         max_seq=2048, n_layers=8, model=None,
+                         name="prefill_graphs"):
     """Prefill chunks as replayed CUDA graphs against the same chunks run
     eagerly, bit for bit (logits and pools), at bf16, fp32 and over an
     int8 pool with its scale slabs; then two threads prefilling chunks of
     one length into two slots while a window is in flight, each picking
     its first token in a later lock hold: each must get its run alone's
     token (the graph's static logits are shared by every chunk of that
-    length)."""
+    length). ``model`` and ``name`` as in ``phase_windows``."""
 
     class EagerCache(kvc.PagedKVCache):
         def prefill_chunk(self, params, slot, tokens, offset):
@@ -1760,8 +1821,8 @@ def phase_prefill_graphs(torch, np, kvc, ttr, params_from_numpy,
     docs = []
     for dtype, kv_dtype in (("bfloat16", ""), ("float32", ""),
                             ("bfloat16", "int8")):
-        cfg = ServeConfig(preset=preset, max_seq=max_seq,
-                          n_layers=n_layers).model_config(dtype)
+        cfg = ServeConfig(preset=preset, max_seq=max_seq, n_layers=n_layers,
+                          **(model or {})).model_config(dtype)
         params = params_from_numpy(ttr.init_params(0, cfg), cfg, device)
         prompts = {s: rng.integers(0, cfg.vocab, n).tolist()
                    for s, n in lens.items()}
@@ -1805,8 +1866,8 @@ def phase_prefill_graphs(torch, np, kvc, ttr, params_from_numpy,
     # two threads prefill 48-token prompts into slots 1 and 2; both
     # replays run before either pick (a barrier), so a chunk's logits
     # read from the graph's buffer would be the other thread's.
-    cfg = ServeConfig(preset=preset, max_seq=max_seq,
-                      n_layers=n_layers).model_config("bfloat16")
+    cfg = ServeConfig(preset=preset, max_seq=max_seq, n_layers=n_layers,
+                      **(model or {})).model_config("bfloat16")
     params = params_from_numpy(ttr.init_params(0, cfg), cfg, device)
     ids = {s: rng.integers(0, cfg.vocab, 48).tolist() for s in (1, 2)}
     lead = rng.integers(0, cfg.vocab, 101).tolist()
@@ -1853,7 +1914,8 @@ def phase_prefill_graphs(torch, np, kvc, ttr, params_from_numpy,
             "window_in_flight_steps": int(block.shape[0] - 2),
             "equal_to_alone": got == alone}
     check(got == alone, f"same-length chunks from two threads: {race}")
-    doc = {"phase": "prefill_graphs", "model": preset, "n_layers": n_layers,
+    doc = {"phase": name, "model": preset, **(model or {}),
+           "n_layers": n_layers,
            "chunks": chunks, "per_dtype": docs, "race": race, "ok": True}
     emit(doc)
     del cache, params
@@ -3108,7 +3170,8 @@ def obs_reconnect(rt, url, reqs, clean, idx, sf=None):
 
 
 def phase_observability(torch, np, pa, serve, ServeConfig, device="cuda",
-                        preset="flagship", max_seq=2048, layers_small=2):
+                        preset="flagship", max_seq=2048, n_layers=8,
+                        layers_small=2):
     """Phase 6i of the module docstring; one JSON line."""
     import shutil
 
@@ -3119,10 +3182,12 @@ def phase_observability(torch, np, pa, serve, ServeConfig, device="cuda",
     os.makedirs(OBS_DIR)
     walls = {}
     t_part = time.perf_counter()
-    doc = {"phase": "observability", "model": preset, "dtype": "bfloat16"}
+    doc = {"phase": "observability", "model": preset, "dtype": "bfloat16",
+           "n_layers": n_layers}
     state = os.path.join(OBS_DIR, "on")
     rt = serve.ServeRuntime(
         obs_cfg(ServeConfig, state, preset=preset, max_seq=max_seq,
+                n_layers=n_layers,
                 serving_trace="on", serving_slo=True, serving_bundle=True,
                 serving_occupancy_ring=OBS_RING,
                 serving_checkpoint_every=OBS_CKPT),
@@ -3244,7 +3309,7 @@ def phase_observability(torch, np, pa, serve, ServeConfig, device="cuda",
     # they cost.
     rt = serve.ServeRuntime(
         obs_cfg(ServeConfig, os.path.join(OBS_DIR, "auto"), preset=preset,
-                max_seq=max_seq, serving_window="auto",
+                max_seq=max_seq, n_layers=n_layers, serving_window="auto",
                 serving_window_min=1, serving_window_max=256),
         device=device, dtype="bfloat16", seed=0, host="127.0.0.1", port=0)
     try:
@@ -3857,7 +3922,8 @@ def flash_bound(bh, seq, dh, itemsize, matmuls, in_tensors, out_tensors,
 def measure_step(torch, np, training, ttr, cfg, batch_rows, seq):
     """One train step's ms (host clock over 5 synchronized steps after 2
     warm-up), the device busy and idle share over 3 profiled steps, and
-    the peak device memory of one step, at fresh weights."""
+    the peak device memory of one step, at fresh weights. Model FLOPs
+    count the ``active_params`` (all of them for a dense model)."""
     from torch.profiler import ProfilerActivity, profile
 
     params = training.master_params(ttr.init_params(5, cfg), cfg, "cuda")
@@ -3893,7 +3959,7 @@ def measure_step(torch, np, training, ttr, cfg, batch_rows, seq):
     h, dh = cfg.n_heads, cfg.d_head
     attn_flops = 3 * 2 * 2 * batch_rows * h * (seq * (seq + 1) // 2) * dh \
         * cfg.n_layers
-    model_flops = 6 * cfg.param_count * tokens + attn_flops
+    model_flops = 6 * active_params(cfg) * tokens + attn_flops
     del params, opt
     return {"step_ms": step_ms, "tokens_per_step": tokens,
             "train_tokens_per_s": tokens / step_ms * 1e3,
@@ -4516,6 +4582,296 @@ def phase_train_fused(torch, np, kfns, training, tr, ttr, open_feeder,
     return result, launches
 
 
+# ---- phase: moe ----------------------------------------------------------
+
+# The slice's full-width MoE: the flagship with 8 experts, top-2 (the
+# derived drop-free capacity factor is 8 / 2 = 4.0).
+MOE = dict(experts=8, expert_top_k=2)
+MOE_DIR = os.path.join(HERE, "build", "chip_smoke_moe")
+MOE_TRAIN = dict(batch=8, seq=512, steps=30, corpus_tokens=400_000)
+
+
+def active_params(tcfg) -> int:
+    """Parameters one token's forward pass multiplies by: the embedding,
+    attention and norms, and per layer the router and ``expert_top_k``
+    experts (``param_count`` counts all E experts)."""
+    d, f = tcfg.d_model, tcfg.d_ff
+    h, kv, dh = tcfg.n_heads, tcfg.kv_heads, tcfg.d_head
+    per_layer = d * (h + 2 * kv) * dh + h * dh * d + 2 * d
+    if tcfg.n_experts:
+        per_layer += d * tcfg.n_experts + tcfg.expert_top_k * 2 * d * f
+    else:
+        per_layer += 2 * d * f
+    return tcfg.vocab * d + tcfg.n_layers * per_layer + d
+
+
+def moe_dir(name):
+    import shutil
+
+    path = os.path.join(MOE_DIR, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def routed_block_ms(torch, tcfg, weights, rows, q_len):
+    """Device ms of one layer's routed-FFN block at ``[rows, q_len, D]``
+    in the compute dtype (graph replay, ``graph_ms``)."""
+    from kvedge_torch.models.moe import routed_ffn_block
+
+    x = torch.randn(rows, q_len, tcfg.d_model, device="cuda").to(
+        weights["w_up_experts"].dtype)
+    args = (weights["router"][0], weights["w_up_experts"][0],
+            weights["w_down_experts"][0])
+    with torch.no_grad():
+        return graph_ms(torch, lambda: routed_ffn_block(
+            x, *args, top_k=tcfg.expert_top_k))
+
+
+def moe_serve(torch, np, pa, serve, ServeConfig, forward, dense_doc,
+              device="cuda", preset="flagship", max_seq=2048):
+    """The serve phase's burst on the MoE flagship (bf16, 8 layers), the
+    overlap off and "auto", from a fresh state directory; one profiled
+    request; then the fp32 paths at WINDOW_LAYERS, spec included."""
+    state_dir = moe_dir("serve")
+    off_doc, off_results, rt = serve_burst(torch, np, pa, serve, ServeConfig,
+                                           "off", device, preset, max_seq,
+                                           state_dir=state_dir, model=MOE)
+    rt.close()
+    doc, results, rt = serve_burst(torch, np, pa, serve, ServeConfig, "auto",
+                                   device, preset, max_seq,
+                                   state_dir=state_dir, model=MOE)
+    try:
+        check(rt.tcfg.n_experts == MOE["experts"]
+              and rt.tcfg.expert_top_k == MOE["expert_top_k"]
+              and rt.tcfg.expert_capacity_factor == 4.0,
+              f"the served model is not the MoE flagship: {rt.tcfg}")
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        reqs = serve_requests(np, rt.tcfg.vocab)
+        same = [a[1]["tokens"] for a in results] == \
+            [b[1]["tokens"] for b in off_results]
+        routed = None
+        if device == "cuda":  # a CPU rehearsal has no device time
+            prof = profile_request(torch, url, dict(reqs[3], n_new=65))
+            chunks = math.ceil(len(reqs[3]["tokens"][0]) / 64)
+            t_step = routed_block_ms(torch, rt.tcfg, rt.weights,
+                                     rt.server._cache.bucket, 1)
+            t_chunk = routed_block_ms(torch, rt.tcfg, rt.weights, 1, 64)
+            routed_ms = rt.tcfg.n_layers * (64 * t_step + chunks * t_chunk)
+            routed = {
+                "profile": prof,
+                "block_ms_decode_step": t_step,
+                "block_ms_prefill_chunk_64": t_chunk,
+                "estimated_ms": routed_ms,
+                "device_share": (routed_ms / prof["device_busy_ms"]
+                                 if prof["device_busy_ms"] else None),
+                "estimate": "n_layers x (64 decode steps x the block's "
+                            "graph-replay ms at [bucket, 1, D] + prompt "
+                            "chunks x its ms at [1, 64, D]) over the "
+                            "profiled request's device busy ms"}
+    finally:
+        rt.close()
+    keys = ("decode_tokens_per_s", "ms_per_decode_step", "decode_device_s",
+            "prefill_s", "ttft_p50_ms", "itl_p50_ms", "latency_p50_s",
+            "decode_steps", "kernel_launches", "wall_s")
+    serve_doc = {
+        "phase": "moe_serve", "model": preset, **MOE, "dtype": "bfloat16",
+        **{k: doc[k] for k in keys}, "windows": doc["windows"],
+        "windows_at_depth1": doc["windows_at_depth1"],
+        "launches_per_step": doc["launches_per_step"],
+        "tokens_equal_overlap_off": same,
+        "overlap_off": {k: off_doc[k] for k in keys},
+        "dense": {k: dense_doc.get(k) for k in keys},
+        "graphs_after_burst": doc["graphs_after_burst"],
+        "first_burst": doc["first_burst"],
+        "routed_ffn": routed, "ok": same}
+    emit(serve_doc)
+    check(same, "the MoE burst's tokens differ between serving_overlap "
+          "'auto' and 'off'")
+
+    # fp32, depth cut: kernel == gather == contiguous == forward == spec.
+    greedy = [dict(r, n_new=24) for r in reqs[:6]]
+    tokens, counts, forward_ok = fp32_paths(
+        torch, pa, serve, ServeConfig, forward, greedy, device, preset,
+        max_seq, modes=("auto", "gather", "contiguous", "spec"), model=MOE,
+        state_dir=moe_dir("fp32"))
+    agree = {mode: tokens[mode] == tokens["auto"]
+             for mode in ("gather", "contiguous", "spec")}
+    # B1 runs in the kernel path's windows (a CPU rehearsal launches
+    # none); a verify pass runs the gather, as the reference's.
+    launched = (counts["auto"] > 0 or device != "cuda") and \
+        counts["gather"] == 0 and counts["contiguous"] == 0
+    emit({"phase": "moe_fp32", "model": preset, **MOE,
+          "n_layers": WINDOW_LAYERS, "requests": len(greedy), "n_new": 24,
+          "kernel_equals": agree, "kernel_equals_forward": forward_ok,
+          "kernel_launches": counts, "spec_k": SPEC_K,
+          "ok": all(agree.values()) and forward_ok and launched})
+    for mode, ok in agree.items():
+        check(ok, f"MoE fp32 {mode} tokens differ from the kernel path's")
+    check(forward_ok, "MoE fp32 kernel tokens differ from forward's argmax")
+    check(launched, f"MoE fp32 B1 launches {counts}")
+    return serve_doc
+
+
+def moe_train(torch, np, kfns, training, tr, ttr, serve, forward,
+              params_from_numpy, RuntimeConfig, open_feeder, write_corpus,
+              device="cuda", preset="flagship"):
+    """The MoE flagship trained 30 steps (bf16, flash, fused_xent) under
+    remat "full" and then "dots" from one corpus: the loss falls, the
+    losses are equal bit for bit, two backward passes give the same
+    gradients, each step is timed; then the dots run's checkpoint is
+    served at fp32 and answers with the teacher-forced argmax."""
+    import dataclasses
+    import warnings
+
+    base = moe_dir("train")
+    corpus = os.path.join(base, "markov.bin")
+    steps, rows, seq = MOE_TRAIN["steps"], MOE_TRAIN["batch"], \
+        MOE_TRAIN["seq"]
+    rcfg = RuntimeConfig(
+        preset=preset, payload="train", train_corpus=corpus, max_seq=seq,
+        train_batch=rows, train_steps=steps, train_checkpoint_every=steps,
+        payload_attention="flash", **MOE)
+    tcfg = dataclasses.replace(rcfg.model_config("bfloat16"), fused_xent=True)
+    markov_corpus(np, corpus, write_corpus, tcfg.vocab,
+                  MOE_TRAIN["corpus_tokens"])
+    layers = tcfg.n_layers
+    want = expect_counts(kfns, device, flash_fwd=2 * layers * steps,
+                         flash_bwd_dq=layers * steps,
+                         flash_bwd_dkv=layers * steps, xent_fwd=steps,
+                         xent_bwd_dx=steps, xent_bwd_de=steps)
+    runs = {}
+    for policy in ("full", "dots"):
+        cfg = dataclasses.replace(tcfg, remat_policy=policy)
+        feeder = open_feeder(corpus, batch=rows, seq=seq)
+        zero_counts(kfns)
+        t0 = time.perf_counter()
+        result = training.run_training(
+            cfg, os.path.join(base, policy), steps,
+            tr._batches(feeder, cfg.vocab, device), checkpoint_every=steps,
+            device=device)
+        runs[policy] = {"losses": result.losses,
+                        "elapsed_s": time.perf_counter() - t0,
+                        "launches": counts(kfns)}
+    losses = runs["full"]["losses"]
+    tail = sum(losses[-5:]) / 5
+    finite = len(losses) == steps and all(math.isfinite(x) for x in losses)
+    dots_equal = runs["dots"]["losses"] == losses
+    launches_ok = all(r["launches"] == want for r in runs.values())
+
+    # Two backward passes of one batch from the same weights.
+    params = training.master_params(ttr.init_params(7, tcfg), tcfg, device)
+    keys = sorted(params)
+    batch = torch.from_numpy(np.random.default_rng(17).integers(
+        0, tcfg.vocab, (rows, seq + 1))).to(device)
+    grads = []
+    for _ in range(2):
+        loss = ttr.loss_fn(params, batch, tcfg)
+        grads.append(torch.autograd.grad(loss, [params[k] for k in keys]))
+    grads_equal = {k: bool(torch.equal(a, b))
+                   for k, a, b in zip(keys, *grads)}
+    del params, grads
+
+    timing = {policy: measure_step(
+        torch, np, training, ttr, dataclasses.replace(tcfg,
+                                                      remat_policy=policy),
+        rows, seq) for policy in ("full", "dots") if device == "cuda"}
+    for t in timing.values():
+        t.pop("top_kernels")
+
+    # The dots run's checkpoint, served at fp32.
+    scfg = dataclasses.replace(rcfg, state_dir=os.path.join(base, "dots"),
+                               payload="serve", payload_serving="paged",
+                               serving_prefix_cache=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        rt = serve.ServeRuntime(scfg, device=device, dtype="float32",
+                                host="127.0.0.1", port=0)
+    try:
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        corpus_ids = np.fromfile(corpus, dtype=np.int32, offset=16)
+        served = []
+        for start, n in ((1000, 24), (3210, 40)):
+            prompt = corpus_ids[start:start + n].tolist()
+            code, doc = post(url, {"tokens": [prompt], "n_new": 16})
+            check(code == 200, f"MoE serve after train: HTTP {code}: {doc}")
+            seq_ids = list(prompt)
+            for _ in range(16):
+                logits = forward(rt.weights,
+                                 torch.tensor([seq_ids], device=device),
+                                 rt.tcfg)
+                seq_ids.append(int(logits[0, -1].argmax()))
+            served.append(doc["tokens"] == [seq_ids]
+                          and doc["restored_step"] == steps)
+    finally:
+        rt.close()
+    ok = (finite and tail <= losses[0] - 1.0 and dots_equal and launches_ok
+          and all(grads_equal.values()) and all(served))
+    doc = {"phase": "moe_train", "model": preset, **MOE, **MOE_TRAIN,
+          "dtype": "bfloat16", "attention": "flash", "fused_xent": True,
+          "capacity_factor": tcfg.expert_capacity_factor,
+          "params": tcfg.param_count, "active_params": active_params(tcfg),
+          "losses": losses, "first_loss": losses[0], "last5_mean": tail,
+          "dots_losses_equal_full": dots_equal,
+          "elapsed_s": {p: r["elapsed_s"] for p, r in runs.items()},
+          "launches": runs["dots"]["launches"], "expected_launches": want,
+          "grads_bitwise_equal": grads_equal, "step": timing,
+          "mfu_formula": "(6 active_params tokens + 6 x causal attention "
+                         "matmul FLOPs of the forward's 2) / step / 989 "
+                         "TFLOP/s",
+          "served_equals_forward": served, "ok": ok}
+    emit(doc)
+    check(finite, f"MoE train losses {losses}")
+    check(tail <= losses[0] - 1.0,
+          f"MoE loss fell only {losses[0] - tail} nats in {steps} steps")
+    check(dots_equal, "MoE losses under remat 'dots' differ from 'full'")
+    check(launches_ok, f"MoE kernel launches {runs} != {want}")
+    check(all(grads_equal.values()),
+          f"two MoE backward passes differ: {grads_equal}")
+    check(all(served), "served MoE tokens differ from the teacher-forced "
+          "argmax")
+    return doc
+
+
+def phase_moe(torch, np, pa, kfns, kvc, ttr, training, tr, serve,
+              ServeConfig, RuntimeConfig, forward, params_from_numpy,
+              open_feeder, write_corpus, row_key_data, dense_doc,
+              device="cuda", preset="flagship", max_seq=2048):
+    """The MoE flagship (``MOE``) through the main path: window, spec
+    window and prefill-chunk graphs against eager at WINDOW_LAYERS, the
+    serve burst against the dense one, the fp32 paths, and a
+    train-then-serve round."""
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        now = time.perf_counter()
+        seconds[name] = now - t0
+        t0 = now
+
+    for fn, name in ((phase_windows, "moe_windows"),
+                     (phase_spec_windows, "moe_spec_windows")):
+        fn(torch, np, kvc, ttr, params_from_numpy, ServeConfig, row_key_data,
+           device=device, preset=preset, max_seq=max_seq, model=MOE,
+           name=name)
+        lap(name)
+    phase_prefill_graphs(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
+                         device=device, preset=preset, max_seq=max_seq,
+                         n_layers=WINDOW_LAYERS, model=MOE,
+                         name="moe_prefill_graphs")
+    lap("moe_prefill_graphs")
+    serve_doc = moe_serve(torch, np, pa, serve, ServeConfig, forward,
+                          dense_doc, device, preset, max_seq)
+    lap("moe_serve_and_fp32")
+    train_doc = moe_train(torch, np, kfns, training, tr, ttr, serve, forward,
+                          params_from_numpy, RuntimeConfig, open_feeder,
+                          write_corpus, device, preset)
+    lap("moe_train")
+    emit({"phase": "moe_seconds", "seconds": seconds,
+          "total_s": sum(seconds.values()), "ok": True})
+    return serve_doc, train_doc
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4600,7 +4956,7 @@ def main() -> int:
 
         phase = enter("prefill_graphs")
         phase_prefill_graphs(torch, np, kvc, ttr, params_from_numpy,
-                             ServeConfig)
+                             ServeConfig, n_layers=WINDOW_LAYERS)
 
         phase = enter("serve")
         serve_doc, lives, launches = phase_serve(torch, np, pa, serve,
@@ -4632,7 +4988,14 @@ def main() -> int:
                                       ServeConfig, params_from_numpy)
 
         phase = enter("observability")
-        obs_doc = phase_observability(torch, np, pa, serve, ServeConfig)
+        obs_doc = phase_observability(torch, np, pa, serve, ServeConfig,
+                                      n_layers=WINDOW_LAYERS)
+
+        phase = enter("moe")
+        moe_serve_doc, moe_train_doc = phase_moe(
+            torch, np, pa, kfns, kvc, ttr, training, tr, serve, ServeConfig,
+            RuntimeConfig, forward, params_from_numpy, open_feeder,
+            write_corpus, serve.row_key_data, serve_doc)
 
         phase = enter("timings")
         t = phase_timings(torch, pa, lives, serve_doc)
@@ -4685,6 +5048,7 @@ def main() -> int:
             "launches_contention": contention_doc["bf16"]["b1_launches"],
             "launches_recovery": recovery_doc["main_path"]["b1_launches"],
             "launches_observability": obs_doc["burst"]["b1_launches"],
+            "launches_moe": moe_serve_doc["kernel_launches"],
             "status": "redesigned (thread-block cluster split, scores "
                       "in shared memory, cp.async K/V); on the serve path "
                       "launched inside replayed CUDA graphs, counted per "
@@ -4698,6 +5062,7 @@ def main() -> int:
                 "source": "kvedge_torch/ops/csrc/flash_attention.cu",
                 "replaces": f"kvedge_tpu/ops/attention.py:{line}",
                 "launches": train_launches[kname],
+                "launches_moe": moe_train_doc["launches"][kname],
                 "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
                 "worst_case_err": flash_worst[kname],
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -4731,6 +5096,7 @@ def main() -> int:
                           f"{'rmsnorm' if kname == 'rmsnorm' else 'xent'}.cu",
                 "replaces": f"kvedge_tpu/ops/{where}",
                 "launches": launched[kname],
+                "launches_moe": moe_train_doc["launches"][kname],
                 "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
                 "worst_case_err": worst_err[kname],
                 "ms": k["ms"], "plain_ms": k["plain_ms"],

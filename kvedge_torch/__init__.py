@@ -11,7 +11,13 @@ reference. This package ports the reference's main path slice by slice:
   per-layer remat, optax-ordered AdamW, the port's own checkpoints
   (which ``serve`` restores), and ``attention = "flash"`` as an autograd
   function over three hand-written CUDA kernels, the flash forward and
-  its dq and dk/dv backward passes (``ops/csrc/flash_attention.cu``).
+  its dq and dk/dv backward passes (``ops/csrc/flash_attention.cu``);
+* later slices: the fused cross-entropy head and the other kernels of
+  the reference, windows and prefill chunks as CUDA graphs,
+  speculation, the prefix cache, the scheduler, recovery and
+  observability, mixture-of-experts models in serving and training
+  (``[model] experts``, ``models/moe.py``) and ``remat_policy =
+  "dots"``. ``ROADMAP.md`` lists what is still to port.
 
 Ground rules, kept by every module here:
 

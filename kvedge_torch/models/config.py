@@ -1,21 +1,28 @@
 """Model shape: the port's own copy of ``TransformerConfig`` and ``PRESETS``.
 
-The fields, ``d_head``, ``kv_heads`` and ``validate`` follow the JAX
-package's ``models/transformer.py`` for the fields the serving and
-training slices use, with the same validation messages. What the port
-does not run yet is refused with a clear error rather than ignored:
-sequence-parallel attention (``"ring"``, ``"ulysses"``),
-``remat_policy="dots"``, MoE (``n_experts``) and pipelining
-(``pipeline_stages``) — ROADMAP Queue A lists each.
+The fields, ``d_head``, ``kv_heads``, ``param_count`` and ``validate``
+follow the JAX package's ``models/transformer.py`` for the fields the
+serving and training slices use, with the same validation messages.
+What the port does not run yet is refused with a clear error rather
+than ignored: sequence-parallel attention (``"ring"``, ``"ulysses"``)
+and pipelining (``pipeline_stages``) — ROADMAP Queue A lists each.
+
+``n_experts > 0`` makes every layer's FFN a mixture of switch-routed
+experts (``models/moe.py``): top-``expert_top_k`` routing, a capacity of
+``ceil(k * tokens / E * expert_capacity_factor)`` slots an expert in
+training, dropless per-token routing in serving, and the router's
+load-balancing loss added to the training loss at ``moe_aux_weight``.
 
 ``attention`` picks the training and full-sequence attention:
 ``"naive"`` materializes the ``[T, T]`` scores in plain torch;
 ``"flash"`` runs the hand-written flash kernels (``ops/attention.py``).
 ``remat`` recomputes each layer in backward (``torch.utils.checkpoint``)
-instead of saving its activations; ``remat_policy="full"`` is the only
-policy. ``fused_xent`` trains through the hand-written fused
-cross-entropy kernels (``ops/xent.py``): no ``[B*T, V]`` logits tensor
-exists in either pass.
+instead of saving its activations: ``remat_policy="full"`` saves nothing
+of the layer, ``"dots"`` saves the outputs of its non-batched products
+and recomputes the rest (the reference's
+``dots_with_no_batch_dims_saveable``). ``fused_xent`` trains through
+the hand-written fused cross-entropy kernels (``ops/xent.py``): no
+``[B*T, V]`` logits tensor exists in either pass.
 
 ``paged_attention`` has CUDA semantics here. "auto" means the
 hand-written paged-decode kernel (``ops/paged_attention.py``) for every
@@ -50,8 +57,17 @@ class TransformerConfig:
     remat_policy: str = "full"
     attention: str = "naive"
     fused_xent: bool = False
-    # Refused unless left at their defaults (not ported yet).
+    # Mixture-of-experts FFN (module doc): 0 = dense.
     n_experts: int = 0
+    # Per-expert slot headroom in training: capacity = ceil(k * tokens /
+    # E * factor); dispatches past it are dropped.
+    expert_capacity_factor: float = 1.25
+    # Experts per token: 1 = Switch (raw gate), 2 = GShard (the pair's
+    # gates normalised; first choices take capacity first).
+    expert_top_k: int = 1
+    # Weight of the router's load-balancing loss in the training loss.
+    moe_aux_weight: float = 0.01
+    # Refused unless left at its default (not ported yet).
     pipeline_stages: int = 0
 
     @property
@@ -69,7 +85,11 @@ class TransformerConfig:
         """Exact parameter count of the tree ``init_params`` builds."""
         d, f, L, v = self.d_model, self.d_ff, self.n_layers, self.vocab
         h, kv, dh = self.n_heads, self.kv_heads, self.d_head
-        per_layer = d * (h + 2 * kv) * dh + h * dh * d + 2 * d + 2 * d * f
+        per_layer = d * (h + 2 * kv) * dh + h * dh * d + 2 * d
+        if self.n_experts:
+            per_layer += d * self.n_experts * (1 + 2 * f)  # router + experts
+        else:
+            per_layer += 2 * d * f
         return v * d + L * per_layer + d
 
     def validate(self) -> None:
@@ -97,19 +117,23 @@ class TransformerConfig:
             raise ValueError(
                 f"attention={self.attention!r} is sequence-parallel and not "
                 "ported to PyTorch yet (use 'naive' or 'flash')")
+        if self.n_experts < 0:
+            raise ValueError("n_experts must be >= 0 (0 = dense FFN)")
+        if self.n_experts and self.expert_capacity_factor <= 0:
+            raise ValueError("expert_capacity_factor must be > 0")
+        if self.n_experts:
+            if self.expert_top_k not in (1, 2):
+                raise ValueError("expert_top_k must be 1 or 2")
+            if self.expert_top_k > self.n_experts:
+                raise ValueError(
+                    f"expert_top_k {self.expert_top_k} needs at least "
+                    f"that many experts (n_experts={self.n_experts})"
+                )
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(
                 f"remat_policy must be 'full' or 'dots', got "
                 f"{self.remat_policy!r}"
             )
-        if self.remat_policy == "dots":
-            raise ValueError(
-                "remat_policy='dots' is not ported to PyTorch yet (use "
-                "'full')")
-        if self.n_experts:
-            raise ValueError(
-                f"n_experts={self.n_experts}: MoE layers are not ported to "
-                "PyTorch yet (dense FFN only)")
         if self.pipeline_stages:
             raise ValueError(
                 f"pipeline_stages={self.pipeline_stages}: pipelining is not "

@@ -6,8 +6,9 @@ payload's contiguous backend (``[payload] serving = ""`` or
 of a batch sits at the same position, so ragged batches are the paged
 cache's job. The math is the paged path's: the same ``_rmsnorm``,
 ``_rotary``, grouped attention with its rounding chain
-(``ops/paged_attention.gather_attention``), ``mlp`` and ``tied_readout``,
-so paged == contiguous holds token for token.
+(``ops/paged_attention.gather_attention``), ``block_mlp`` (the dense
+FFN, or the dropless routed experts of an MoE model) and
+``tied_readout``, so paged == contiguous holds token for token.
 
 Differences that are the port's, not the reference's: the cache is
 written in place (the reference donates it to a jitted step), its
@@ -23,6 +24,7 @@ import dataclasses
 import torch
 
 from kvedge_torch.models.config import TransformerConfig
+from kvedge_torch.models.moe import warn_if_train_serve_divergence
 from kvedge_torch.models.sampling import (
     as_key_tensor,
     row_sample_keys,
@@ -31,7 +33,7 @@ from kvedge_torch.models.sampling import (
 from kvedge_torch.models.transformer import (
     _rmsnorm,
     _rotary,
-    mlp,
+    block_mlp,
     split_qkv,
     stacked_layer_params,
     tied_readout,
@@ -58,8 +60,11 @@ class KVCache:
 def init_cache(cfg: TransformerConfig, batch: int,
                max_seq: int | None = None,
                device: torch.device | str | None = None) -> KVCache:
-    """A zeroed cache on ``device`` (the card unless "cpu" is asked for)."""
+    """A zeroed cache on ``device`` (the card unless "cpu" is asked for).
+    Warns when an MoE model's training capacity can bind
+    (``moe.warn_if_train_serve_divergence``)."""
     cfg.validate()
+    warn_if_train_serve_divergence(cfg)
     shape = (cfg.n_layers, batch, max_seq or cfg.max_seq, cfg.kv_heads,
              cfg.d_head)
     dev = resolve_device(device)
@@ -74,7 +79,7 @@ def _attend_layer(cfg: TransformerConfig, x, layer_params, k_slab, v_slab,
     starting at ``pos``; k_slab/v_slab ``[B, S, K, Dh]`` this layer's
     cache, written in place. Prefill (Q = prompt, pos = 0) and decode
     (Q = 1) alike; every query sees the slab's positions up to its own."""
-    w_qkv, w_out, w_up, w_down, ln_attn, ln_mlp = layer_params
+    w_qkv, w_out, ln_attn = layer_params[0], layer_params[1], layer_params[-2]
     batch, q_len, _ = x.shape
     h, dh = cfg.n_heads, cfg.d_head
     dtype = x.dtype
@@ -87,7 +92,7 @@ def _attend_layer(cfg: TransformerConfig, x, layer_params, k_slab, v_slab,
     attended = gather_attention(q, k_slab, v_slab,
                                 positions[None].expand(batch, q_len))
     x = x + attended.reshape(batch, q_len, h * dh) @ w_out.to(dtype)
-    return mlp(x, w_up, w_down, ln_mlp)
+    return block_mlp(cfg, x, layer_params)
 
 
 def _run_layers(cfg: TransformerConfig, params: dict, x, cache: KVCache,

@@ -53,6 +53,10 @@ Differences that are the port's, not the reference's:
   reference traces slot and offset, so it compiles one program per
   chunk length): on CUDA a captured graph per (bucket, C), the prefill
   graphs sharing one memory pool; on the CPU it runs eagerly.
+* An MoE model's MLP half is ``moe.routed_ffn_block`` in every pass
+  (prefill chunks, decode steps, verify passes): dropless routing with
+  fixed shapes and no host value, so the same graphs capture it under
+  the same keys.
 * The page copies (COW, swap, snapshots) are ``index_select`` /
   ``index_copy_`` over the ``[L, P + 1, ...]`` slabs on the current
   stream, so they run in stream order with the window graphs replayed
@@ -75,12 +79,13 @@ import numpy as np
 import torch
 
 from kvedge_torch.models.config import TransformerConfig
+from kvedge_torch.models.moe import warn_if_train_serve_divergence
 from kvedge_torch.models.sampling import fold_in, sample_token
 from kvedge_torch.models.speculative import _propose_ngram
 from kvedge_torch.models.transformer import (
     _rmsnorm,
     _rotary,
-    mlp,
+    block_mlp,
     split_qkv,
     stacked_layer_params,
     tied_readout,
@@ -194,7 +199,7 @@ def _paged_attend_layer(cfg: TransformerConfig, state: PagedState, x,
     whose token i of row b is written at position ``lengths[b] + i`` when
     ``live[b] & write_mask[b, i]`` (``write_mask`` None = every offset),
     and to the sink page otherwise."""
-    w_qkv, w_out, w_up, w_down, ln_attn, ln_mlp = layer_params
+    w_qkv, w_out, ln_attn = layer_params[0], layer_params[1], layer_params[-2]
     batch, q_len, _ = x.shape
     h, dh = cfg.n_heads, cfg.d_head
     pool_k, pool_v = state.pool_k_full[layer], state.pool_v_full[layer]
@@ -238,7 +243,7 @@ def _paged_attend_layer(cfg: TransformerConfig, state: PagedState, x,
         gv = gather_pages(pool_v, scale_v, tables, x.dtype)
         att = gather_attention(q, gk, gv, q_positions)
     x = x + att.reshape(batch, q_len, h * dh) @ w_out
-    return mlp(x, w_up, w_down, ln_mlp)
+    return block_mlp(cfg, x, layer_params)
 
 
 def _run_paged(cfg, params, state, x, q_positions, slot=None, live=None,
@@ -607,6 +612,7 @@ class PagedKVCache:
                  kv_dtype: str = "", min_bucket: int = 0,
                  device: torch.device | str | None = None):
         cfg.validate()
+        warn_if_train_serve_divergence(cfg)
         if kv_dtype not in ("", "int8"):
             raise ValueError(
                 f"kv_dtype must be '' (the compute dtype) or 'int8', "

@@ -1,0 +1,192 @@
+"""Mixture-of-experts FFN: the port's copy of the JAX package's
+``models/moe.py``, on one device (no ``expert`` mesh axis).
+
+* **Top-k routing (k = 1 Switch, k = 2 GShard) with a static capacity
+  in training.** Each expert has ``C = ceil(k * tokens / E * factor)``
+  slots; a dispatch routed past its expert's capacity is dropped (its
+  FFN output is zero and the residual carries the token). First choices
+  claim slots before any second choice. Top-1 gates with the raw router
+  probability, top-2 normalises the pair.
+* **Dispatch by index, not by one-hots.** The reference builds a
+  ``[k*N, E, C]`` one-hot dispatch tensor and contracts it with einsums;
+  at the drop-free capacity ``C`` grows with ``N``, so that tensor grows
+  as ``N**2``. The port computes the same function from the cumsum
+  positions: a slot's token is gathered, the experts run as two batched
+  products over ``[E, C, D]``, and each dispatch gathers its slot's
+  output back. Every gather is an ``aten::index``, whose backward
+  accumulates with a sort on the card (deterministic), and the rows a
+  mask zeroes carry zero gradients.
+* **The router in fp32**: ``x.float() @ router.float()`` and a softmax
+  in fp32 (the weight bridge leaves ``router`` fp32); the experts' two
+  products run in the compute dtype.
+* **Ties go to the lower expert index**, as ``lax.top_k`` breaks them:
+  top-1 is ``argmax`` (the first maximum), top-2 takes ``argmax`` again
+  with the first choice masked out.
+* **Serving routes droplessly**: :func:`moe_ffn_dropless` gathers each
+  token's expert weights (``[N, D, F]`` a choice). Its shapes are fixed
+  and no host value steers it, so decode windows, spec windows and
+  prefill chunks capture it in their CUDA graphs; past
+  ``_GATHER_MAX_TOKENS`` tokens :func:`routed_ffn_block` runs the same
+  gather over fixed chunks of 64 with a padded tail.
+
+The router's load-balancing loss (Switch eq. 4 over *first* choices
+before capacity: ``E * sum_e f_e * P_e``, 1.0 when routing is uniform)
+is returned beside the output and added to the training loss.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+
+import torch
+import torch.nn.functional as F
+
+from kvedge_torch.models.transformer import gelu
+
+
+def warn_if_train_serve_divergence(cfg) -> None:
+    """Warn when cached serving can silently disagree with training.
+
+    Serving routes droplessly; training drops dispatches past capacity.
+    A token's top-k choices are distinct experts, so an expert's demand
+    is at most ``n_tokens`` and ``expert_capacity_factor * expert_top_k
+    >= n_experts`` guarantees zero training drops; below that a model
+    trained with drops and served dropless can diverge, so the serving
+    boundary (cache construction) warns."""
+    if (cfg.n_experts
+            and cfg.expert_capacity_factor * cfg.expert_top_k
+            < cfg.n_experts):
+        warnings.warn(
+            f"MoE serving with expert_capacity_factor="
+            f"{cfg.expert_capacity_factor} * expert_top_k="
+            f"{cfg.expert_top_k} < n_experts={cfg.n_experts}: training "
+            "may have dropped dispatches that dropless serving will "
+            "route, so cached decode can disagree with the "
+            "teacher-forced forward pass. Train with "
+            "expert_capacity_factor >= n_experts / expert_top_k for "
+            "exact train/serve agreement (models/moe.py).",
+            RuntimeWarning, stacklevel=3,
+        )
+
+
+def expert_capacity(n_tokens: int, n_experts: int,
+                    capacity_factor: float) -> int:
+    """Per-expert slot count: ceil(tokens/E * factor), at least 1."""
+    return max(1, math.ceil(n_tokens * capacity_factor / n_experts))
+
+
+def _route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """The routing decision shared by training and serving: (probs
+    ``[N, E]`` fp32, idx ``[N, k]`` int64, gates ``[N, k]`` fp32)."""
+    probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+    first = torch.argmax(probs, dim=-1)
+    if top_k == 1:
+        idx = first[:, None]
+    else:
+        experts = torch.arange(probs.shape[-1], device=probs.device)
+        rest = probs.masked_fill(experts == first[:, None], -math.inf)
+        idx = torch.stack([first, torch.argmax(rest, dim=-1)], dim=-1)
+    picked = torch.gather(probs, -1, idx)
+    gates = picked if top_k == 1 else picked / picked.sum(-1, keepdim=True)
+    return probs, idx, gates
+
+
+def moe_ffn(x: torch.Tensor, router_w, w_up, w_down, *,
+            capacity_factor: float, top_k: int = 1):
+    """Top-k (k = 1 or 2) MoE feed-forward with capacity, the training
+    path. x ``[N, D]``; router_w ``[D, E]``; w_up ``[E, D, F]``; w_down
+    ``[E, F, D]``. Returns ``(out [N, D], aux_loss fp32 scalar)``.
+
+    Dispatch row r of the ``k * N`` rows is choice ``r // N`` of token
+    ``r % N`` (all first choices before any second), and its position
+    in its expert is the count of earlier rows routed there: rows at
+    position ``>= C`` are dropped, as the reference's cumsum drops
+    them."""
+    n_tokens, d = x.shape
+    n_experts = router_w.shape[-1]
+    capacity = expert_capacity(top_k * n_tokens, n_experts, capacity_factor)
+    n_slots = n_experts * capacity
+    dtype = x.dtype
+
+    probs, idx, gates = _route(x, router_w, top_k)
+    expert = idx.t().reshape(-1)                               # [kN]
+    position = torch.cumsum(F.one_hot(expert, n_experts), dim=0).gather(
+        1, expert[:, None])[:, 0] - 1
+    kept = position < capacity
+    slot = expert * capacity + position
+
+    # The dispatch row that fills each slot (k*N for an empty slot); a
+    # dropped row writes the spare entry n_slots, which is cut off.
+    rows = torch.arange(top_k * n_tokens, device=x.device)
+    src = torch.full((n_slots + 1,), top_k * n_tokens, dtype=torch.long,
+                     device=x.device)
+    src.scatter_(0, torch.where(kept, slot, n_slots), rows)
+    src = src[:n_slots]
+    filled = (src < top_k * n_tokens)[:, None]
+    expert_in = torch.where(filled, x[src % n_tokens], 0)
+    hidden = gelu(torch.bmm(expert_in.reshape(n_experts, capacity, d),
+                            w_up.to(dtype)))
+    expert_out = torch.bmm(hidden, w_down.to(dtype)).reshape(n_slots, d)
+
+    # Each dispatch reads its slot's output back, times its gate in the
+    # compute dtype; the k products sum in fp32 and round once (the
+    # reference's combine einsum).
+    back = torch.where(kept[:, None], expert_out[torch.where(kept, slot, 0)],
+                       0).reshape(top_k, n_tokens, d).float()
+    gate = gates.t().to(dtype).float()[:, :, None]             # [k, N, 1]
+    out = (gate * back).sum(0).to(dtype)
+
+    # Load balancing over the pre-capacity FIRST choices.
+    fraction = F.one_hot(idx[:, 0], n_experts).float().mean(0)
+    aux_loss = n_experts * torch.sum(fraction * probs.mean(0))
+    return out, aux_loss
+
+
+def moe_ffn_dropless(x: torch.Tensor, router_w, w_up, w_down, *,
+                     top_k: int = 1) -> torch.Tensor:
+    """Per-token routed FFN without capacity, the serving path: x
+    ``[N, D]`` -> ``[N, D]``. Each token runs through its top-k experts
+    by a gather of their weights (``[N, D, F]`` a choice), combined with
+    :func:`_route`'s gates: each choice's output times its gate in the
+    compute dtype, choice 0 plus choice 1. Agrees with the training
+    path when training capacity never bound
+    (:func:`warn_if_train_serve_divergence`)."""
+    _, idx, gates = _route(x, router_w, top_k)
+    dtype = x.dtype
+    out = None
+    for choice in range(top_k):
+        e = idx[:, choice]
+        up = torch.bmm(x[:, None, :], w_up[e].to(dtype))[:, 0]
+        contrib = torch.bmm(gelu(up)[:, None, :], w_down[e].to(dtype))[:, 0]
+        contrib = contrib * gates[:, choice, None].to(dtype)
+        out = contrib if out is None else out + contrib
+    return out
+
+
+# The per-token weight gather holds [chunk, D, F] copies of the weights:
+# right at decode (a few rows) but about N/E times the layer's weights
+# for a long prefill. Past this many tokens the serving block runs the
+# same gather over fixed chunks, so memory stays at one chunk's copies
+# and routing stays per token (matmul rounding may differ between chunk
+# shapes, as between the gather and the training dispatch).
+_GATHER_MAX_TOKENS = 64
+
+
+def routed_ffn_block(normed: torch.Tensor, router_w, w_up, w_down, *,
+                     top_k: int = 1) -> torch.Tensor:
+    """The serving layers' MoE block, ``[B, Q, D]`` in and out; shared by
+    contiguous decode and the paged cache so the two cannot drift. Past
+    ``_GATHER_MAX_TOKENS`` tokens, a Python loop over fixed chunks of
+    that many rows, the last padded with zero rows."""
+    batch, q_len, d = normed.shape
+    n_tokens = batch * q_len
+    flat = normed.reshape(n_tokens, d)
+    if n_tokens <= _GATHER_MAX_TOKENS:
+        out = moe_ffn_dropless(flat, router_w, w_up, w_down, top_k=top_k)
+    else:
+        padded = F.pad(flat, (0, 0, 0, -n_tokens % _GATHER_MAX_TOKENS))
+        out = torch.cat([
+            moe_ffn_dropless(chunk, router_w, w_up, w_down, top_k=top_k)
+            for chunk in padded.split(_GATHER_MAX_TOKENS)])[:n_tokens]
+    return out.reshape(batch, q_len, d)

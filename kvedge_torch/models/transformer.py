@@ -28,7 +28,16 @@ the tests hold the port to the JAX package token for token at fp32:
 
 ``forward`` is the no-grad naive oracle the serving paths are held to;
 ``forward_hidden`` and ``loss_fn`` are the training path, with per-layer
-remat (``torch.utils.checkpoint``) when ``cfg.remat``. With
+remat (``torch.utils.checkpoint``) when ``cfg.remat``: under
+``remat_policy="dots"`` a selective-checkpoint policy saves the outputs
+of the layer's non-batched products (``aten.mm`` / ``aten.addmm``, what
+``x @ w`` lowers to) and recomputes the rest (batched products, the
+flash autograd function, elementwise ops), the counterpart of
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``. With
+``cfg.n_experts`` each layer's FFN is the capacity-routed MoE of
+``models/moe.py``; the layers' mean load-balancing loss is added to the
+training loss at ``cfg.moe_aux_weight``, and the serving blocks
+(:func:`block_mlp`) route droplessly. With
 ``cfg.fused_xent`` the loss head is the fused cross-entropy kernels
 (``ops/xent.py``) over the hidden rows, outside the checkpointed layers;
 otherwise it is ``tied_readout`` and a logsumexp over the fp32 logits.
@@ -45,7 +54,11 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from kvedge_torch.models.config import TransformerConfig
 from kvedge_torch.ops.attention import flash_attention, pick_block
@@ -83,16 +96,23 @@ def init_params(seed: int, cfg: TransformerConfig) -> dict[str, np.ndarray]:
         return (rng.standard_normal(shape, dtype=np.float32)
                 * np.float32(scale))
 
-    return {
+    params = {
         "embedding": normal((cfg.vocab, d), 0.02),
         "w_qkv": normal((layers, d, (h + 2 * kv) * dh), d ** -0.5),
         "w_out": normal((layers, h * dh, d), (h * dh) ** -0.5),
         "ln_attn": np.ones((layers, d), np.float32),
         "ln_mlp": np.ones((layers, d), np.float32),
         "ln_final": np.ones((d,), np.float32),
-        "w_up": normal((layers, d, f), d ** -0.5),
-        "w_down": normal((layers, f, d), f ** -0.5),
     }
+    if cfg.n_experts:
+        e = cfg.n_experts
+        params["router"] = normal((layers, d, e), d ** -0.5)
+        params["w_up_experts"] = normal((layers, e, d, f), d ** -0.5)
+        params["w_down_experts"] = normal((layers, e, f, d), f ** -0.5)
+    else:
+        params["w_up"] = normal((layers, d, f), d ** -0.5)
+        params["w_down"] = normal((layers, f, d), f ** -0.5)
+    return params
 
 
 def tied_readout(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
@@ -103,7 +123,17 @@ def tied_readout(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
 
 
 def stacked_layer_params(params: dict, cfg: TransformerConfig) -> tuple:
-    """The per-layer tensors in the order the layer bodies unpack them."""
+    """The per-layer tensors in the order the layer bodies unpack them,
+    switched on ``cfg.n_experts``: ``(w_qkv, w_out, w_up, w_down,
+    ln_attn, ln_mlp)``, or ``(w_qkv, w_out, router, w_up_experts,
+    w_down_experts, ln_attn, ln_mlp)``. Every body reads the attention
+    weights from the front and the norm gains from the back."""
+    if cfg.n_experts:
+        return (
+            params["w_qkv"], params["w_out"], params["router"],
+            params["w_up_experts"], params["w_down_experts"],
+            params["ln_attn"], params["ln_mlp"],
+        )
     return (
         params["w_qkv"], params["w_out"], params["w_up"], params["w_down"],
         params["ln_attn"], params["ln_mlp"],
@@ -179,15 +209,33 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(x: torch.Tensor, w_up, w_down, ln_mlp) -> torch.Tensor:
-    """The MLP half of a block, residual included."""
+    """The dense MLP half of a block, residual included."""
     normed = _rmsnorm(x, ln_mlp)
     return x + gelu(normed @ w_up.to(x.dtype)) @ w_down.to(x.dtype)
 
 
-def _layer(cfg: TransformerConfig, x: torch.Tensor, layer_params) -> torch.Tensor:
-    """One pre-norm block, naive or flash causal attention; x ``[B, T, D]``."""
-    w_qkv, w_out, w_up, w_down, ln_attn, ln_mlp = layer_params
-    batch, seq, _ = x.shape
+def block_mlp(cfg: TransformerConfig, x: torch.Tensor,
+              layer_params) -> torch.Tensor:
+    """The MLP half of a serving block (contiguous or paged decode),
+    residual included: the dense :func:`mlp`, or with ``cfg.n_experts``
+    the dropless routed experts (``moe.routed_ffn_block``)."""
+    if not cfg.n_experts:
+        _, _, w_up, w_down, _, ln_mlp = layer_params
+        return mlp(x, w_up, w_down, ln_mlp)
+    from kvedge_torch.models.moe import routed_ffn_block
+
+    _, _, router, w_up, w_down, _, ln_mlp = layer_params
+    return x + routed_ffn_block(_rmsnorm(x, ln_mlp), router, w_up, w_down,
+                                top_k=cfg.expert_top_k)
+
+
+def _layer(cfg: TransformerConfig, x: torch.Tensor, layer_params):
+    """One pre-norm block, naive or flash causal attention; x ``[B, T, D]``.
+    Returns ``(x, aux)``: ``aux`` is the MoE router's load-balancing
+    loss for this layer (fp32 0.0 for a dense FFN)."""
+    w_qkv, w_out, ln_attn, ln_mlp = (layer_params[0], layer_params[1],
+                                     layer_params[-2], layer_params[-1])
+    batch, seq, d = x.shape
     h, kv, dh = cfg.n_heads, cfg.kv_heads, cfg.d_head
     dtype = x.dtype
 
@@ -216,7 +264,18 @@ def _layer(cfg: TransformerConfig, x: torch.Tensor, layer_params) -> torch.Tenso
         weights = torch.softmax(scores.float(), dim=-1).to(dtype)
         attended = torch.einsum("bhqk,bkhd->bqhd", weights, v)
     x = x + attended.reshape(batch, seq, h * dh) @ w_out.to(dtype)
-    return mlp(x, w_up, w_down, ln_mlp)
+
+    if not cfg.n_experts:
+        _, _, w_up, w_down, _, _ = layer_params
+        return mlp(x, w_up, w_down, ln_mlp), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+    from kvedge_torch.models.moe import moe_ffn
+
+    _, _, router, w_up, w_down, _, _ = layer_params
+    out, aux = moe_ffn(
+        _rmsnorm(x, ln_mlp).reshape(batch * seq, d), router, w_up, w_down,
+        capacity_factor=cfg.expert_capacity_factor, top_k=cfg.expert_top_k)
+    return x + out.reshape(batch, seq, d), aux
 
 
 def forward(params: dict, tokens: torch.Tensor,
@@ -225,37 +284,69 @@ def forward(params: dict, tokens: torch.Tensor,
 
     The naive-attention forward pass, whatever ``cfg.attention`` says:
     the in-port oracle that paged decode is held to (paged greedy tokens
-    == this pass's argmax)."""
+    == this pass's argmax). An MoE model routes with capacity here, as
+    the reference's ``forward`` does."""
     cfg = dataclasses.replace(cfg, attention="naive")
     x = params["embedding"][tokens]
     stacked = stacked_layer_params(params, cfg)
     with torch.no_grad():
         for layer in range(cfg.n_layers):
-            x = _layer(cfg, x, tuple(p[layer] for p in stacked))
+            x, _ = _layer(cfg, x, tuple(p[layer] for p in stacked))
         x = _rmsnorm(x, params["ln_final"])
         return tied_readout(x, params["embedding"])
 
 
+# The non-batched products "dots" remat saves: what ``x @ w`` lowers to.
+_SAVED_PRODUCTS = frozenset({torch.ops.aten.mm.default,
+                             torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def forward_hidden(params: dict, tokens: torch.Tensor,
-                   cfg: TransformerConfig) -> torch.Tensor:
-    """tokens ``[B, T]`` int -> hidden ``[B, T, D]`` in the compute dtype:
-    the stack up to and including the final RMSNorm, differentiable.
+                   cfg: TransformerConfig):
+    """tokens ``[B, T]`` int -> ``(hidden [B, T, D], aux)``: the stack up
+    to and including the final RMSNorm in the compute dtype,
+    differentiable, and the mean of the layers' MoE load-balancing
+    losses (fp32; 0.0 for a dense FFN).
 
     With ``cfg.remat`` and grad enabled, each layer runs under
-    ``torch.utils.checkpoint`` (non-reentrant): its activations are
-    recomputed in backward instead of saved, so the flash forward kernel
-    runs twice per layer and step."""
+    ``torch.utils.checkpoint`` (non-reentrant): ``remat_policy="full"``
+    recomputes all of it in backward, so the flash forward kernel runs
+    twice per layer and step; ``"dots"`` keeps the non-batched
+    products' outputs (module doc)."""
     dtype = torch_dtype(cfg.dtype)
     x = params["embedding"][tokens].to(dtype)
     stacked = stacked_layer_params(params, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
+    extra = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
+    aux = []
     for layer in range(cfg.n_layers):
         layer_params = tuple(p[layer] for p in stacked)
         if remat:
-            x = checkpoint(_layer, cfg, x, layer_params, use_reentrant=False)
+            x, layer_aux = checkpoint(_layer, cfg, x, layer_params,
+                                      use_reentrant=False, **extra)
         else:
-            x = _layer(cfg, x, layer_params)
-    return _rmsnorm(x, params["ln_final"])
+            x, layer_aux = _layer(cfg, x, layer_params)
+        aux.append(layer_aux)
+    return _rmsnorm(x, params["ln_final"]), torch.stack(aux).mean()
+
+
+def forward_with_aux(params: dict, tokens: torch.Tensor,
+                     cfg: TransformerConfig):
+    """tokens ``[B, T]`` int -> ``(logits [B, T, V] fp32, aux fp32)``:
+    :func:`forward_hidden` with the weight-tied readout on top, in
+    ``cfg.attention`` and with grad as the caller has it."""
+    hidden, aux = forward_hidden(params, tokens, cfg)
+    return tied_readout(hidden, params["embedding"]), aux
 
 
 def take_target_logit(logits: torch.Tensor,
@@ -276,22 +367,27 @@ def _fused_xent_loss(params: dict, inputs: torch.Tensor,
     rows ``[B*T, D]`` go straight into :func:`fused_xent`, so the
     ``[B, T, V]`` logits never exist in either pass. The reference's
     mesh branches (tensor-parallel refusal, data-parallel ``shard_map``)
-    do not apply: the port runs on one device."""
-    hidden = forward_hidden(params, inputs, cfg)
+    do not apply: the port runs on one device. Returns ``(ce, aux)``."""
+    hidden, aux = forward_hidden(params, inputs, cfg)
     b, t, d = hidden.shape
     per_row = fused_xent(hidden.reshape(b * t, d), params["embedding"],
                          targets.reshape(b * t))
-    return torch.mean(per_row)
+    return torch.mean(per_row), aux
 
 
 def loss_fn(params: dict, batch: torch.Tensor,
             cfg: TransformerConfig) -> torch.Tensor:
     """Next-token cross-entropy, fp32: batch ``[B, T+1]`` int, targets
-    shifted by one; ``mean(logsumexp(logits) - logits[target])``."""
+    shifted by one; ``mean(logsumexp(logits) - logits[target])``, plus
+    ``moe_aux_weight`` times the layers' mean load-balancing loss for an
+    MoE model."""
     inputs, targets = batch[:, :-1], batch[:, 1:]
     if cfg.fused_xent:
-        return _fused_xent_loss(params, inputs, targets, cfg)
-    logits = tied_readout(forward_hidden(params, inputs, cfg),
-                          params["embedding"])
-    return torch.mean(torch.logsumexp(logits, dim=-1)
-                      - take_target_logit(logits, targets))
+        ce, aux = _fused_xent_loss(params, inputs, targets, cfg)
+    else:
+        logits, aux = forward_with_aux(params, inputs, cfg)
+        ce = torch.mean(torch.logsumexp(logits, dim=-1)
+                        - take_target_logit(logits, targets))
+    if cfg.n_experts:
+        ce = ce + cfg.moe_aux_weight * aux
+    return ce

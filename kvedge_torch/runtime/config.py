@@ -4,7 +4,10 @@ The same TOML document as the JAX package's runtime config, with the
 same names and defaults, for the subset the ported payloads run:
 
     [runtime]  state_dir, checkpoint_dir
-    [model]    preset, vocab, d_model, n_heads, n_kv_heads, n_layers, d_ff
+    [model]    preset, vocab, d_model, n_heads, n_kv_heads, n_layers, d_ff,
+               experts (the MoE expert count, 0 = dense), expert_top_k
+               (0 = 1; 2 = GShard top-2), expert_capacity_factor (0 =
+               the drop-free experts / top_k)
     [payload]  kind ("serve" | "train" | "eval"), seq (the model's
                max_seq and the training sequence length), attention
                ("" = "naive" | "flash"), corpus, eval_corpus, steps,
@@ -52,10 +55,12 @@ same names and defaults, for the subset the ported payloads run:
                "" = open)
 
 Any other section or key is REFUSED with its name, not ignored: a knob
-the port does not implement would otherwise silently change nothing.
-Still unported, and so refused by name: ``[model] n_experts`` here, and
-``attention = "ring" | "ulysses"``, ``remat_policy = "dots"`` and
-``pipeline_stages`` by the model's config (``models/config.py``).
+the port does not implement would otherwise silently change nothing
+(``[model] n_experts`` among them: the key is ``experts``). Still
+unported, and so refused by the model's config (``models/config.py``):
+``attention = "ring" | "ulysses"`` and pipelining. The reference's
+``expert`` mesh axis does not exist on one device, so ``experts`` is
+never derived from a mesh.
 """
 
 from __future__ import annotations
@@ -75,7 +80,8 @@ DEFAULT_STATE_DIR = "/var/lib/kvedge/state"
 _VALID_ATTENTION = ("", "naive", "flash", "ring", "ulysses")
 _RUNTIME_KEYS = {"state_dir": "state_dir", "checkpoint_dir": "checkpoint_dir"}
 _MODEL_KEYS = ("preset", "vocab", "d_model", "n_heads", "n_kv_heads",
-               "n_layers", "d_ff")
+               "n_layers", "d_ff", "experts", "expert_top_k",
+               "expert_capacity_factor")
 # TOML key -> RuntimeConfig field.
 _PAYLOAD_KEYS = {
     "kind": "payload",
@@ -131,7 +137,7 @@ _PAYLOAD_KEYS = {
 }
 # Fractions and seconds: a TOML integer reads as the float, as the
 # reference's float() does.
-_FLOAT_FIELDS = ("serving_sched_max_queue_wait_s",
+_FLOAT_FIELDS = ("expert_capacity_factor", "serving_sched_max_queue_wait_s",
                  "serving_page_low_watermark", "serving_page_high_watermark",
                  "serving_retry_after_s", "serving_slo_target",
                  "serving_slo_ttft_ms", "serving_slo_itl_ms",
@@ -155,6 +161,12 @@ class RuntimeConfig:
     n_kv_heads: int = 0
     n_layers: int = 0
     d_ff: int = 0
+    # Mixture of experts: the expert count (0 = dense), experts a token
+    # (0 = 1) and the training capacity factor (0.0 = drop-free,
+    # experts / top_k).
+    experts: int = 0
+    expert_top_k: int = 0
+    expert_capacity_factor: float = 0.0
     payload: str = "serve"
     # "" = "contiguous": one request at a time through models/decode.py;
     # "paged" = the continuous-batching server over the page pool.
@@ -450,6 +462,7 @@ class RuntimeConfig:
             raise RuntimeConfigError(
                 f"[model] preset must be one of {sorted(PRESETS)}, got "
                 f"{self.preset!r}")
+        self._validate_experts()
         if self.payload not in ("serve", "train", "eval"):
             raise RuntimeConfigError(
                 f"[payload] kind = {self.payload!r}: the PyTorch port runs "
@@ -597,10 +610,48 @@ class RuntimeConfig:
         if not isinstance(self.status_token, str):
             raise RuntimeConfigError("[status] token must be a string")
 
+    def _validate_experts(self) -> None:
+        """The reference parser's checks of the MoE knobs, with its
+        messages."""
+        for name in ("experts", "expert_top_k"):
+            value = getattr(self, name)
+            if not isinstance(value, int) or isinstance(value, bool) \
+                    or value < 0:
+                raise RuntimeConfigError(
+                    f"[model] {name} must be a non-negative int "
+                    "(0 = from the preset)")
+        if (not isinstance(self.expert_capacity_factor, (int, float))
+                or isinstance(self.expert_capacity_factor, bool)):
+            raise RuntimeConfigError(
+                "[model] expert_capacity_factor must be a number, got "
+                f"{self.expert_capacity_factor!r}")
+        if self.expert_capacity_factor < 0:
+            raise RuntimeConfigError(
+                "[model] expert_capacity_factor must be >= 0 "
+                "(0 = drop-free capacity)")
+        if self.expert_top_k not in (0, 1, 2):
+            raise RuntimeConfigError(
+                "[model] expert_top_k must be 1 or 2 (0 = default 1)")
+
     def model_config(self, dtype: str = "bfloat16") -> TransformerConfig:
         """The model of every payload: the preset with explicit fields on
-        top, ``seq`` as its max_seq, and ``[payload] attention``."""
+        top, ``seq`` as its max_seq, and ``[payload] attention``. The MoE
+        fields are derived as the reference's ``derive_model_config``
+        derives them with no ``expert`` mesh axis: ``experts`` as given,
+        top_k ``expert_top_k or 1``, the capacity factor
+        ``expert_capacity_factor or experts / top_k`` (provably
+        drop-free, so training and dropless serving compute the same
+        function), and MoE knobs on a dense model refused."""
         base = PRESETS[self.preset or "probe"]
+        if not self.experts and (self.expert_top_k
+                                 or self.expert_capacity_factor):
+            raise RuntimeConfigError(
+                "[model] expert_top_k/expert_capacity_factor are set but "
+                "the model is dense (no [model] experts and no 'expert' "
+                "mesh axis) — set experts = N or drop the MoE knobs")
+        top_k = self.expert_top_k or 1
+        capacity = (self.expert_capacity_factor
+                    or max(self.experts, 1) / top_k)
         tcfg = TransformerConfig(
             vocab=self.vocab or base["vocab"],
             d_model=self.d_model or base["d_model"],
@@ -612,6 +663,9 @@ class RuntimeConfig:
             dtype=dtype,
             paged_attention=self.payload_paged_attention or "auto",
             attention=self.payload_attention or "naive",
+            n_experts=self.experts,
+            expert_top_k=top_k,
+            expert_capacity_factor=float(capacity),
         )
         try:
             tcfg.validate()

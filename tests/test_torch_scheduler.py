@@ -454,9 +454,15 @@ def test_prefix_persistence_and_other_left_out_knobs_are_refused():
                         ("[payload]\nattention = 'ulysses'\n", "ulysses")):
         with pytest.raises(RuntimeConfigError, match=match):
             ServeConfig.parse(text).model_config()
-    for field, match in (("remat_policy", "dots"),
-                         ("pipeline_stages", "pipeline_stages")):
-        value = "dots" if field == "remat_policy" else 2
+    # remat_policy "dots" and MoE are ported: accepted, with the
+    # reference's refusals of invalid MoE values; pipelining is not.
+    dataclasses.replace(TransformerConfig(**KW), remat_policy="dots",
+                        n_experts=4, expert_top_k=2).validate()
+    for change, match in ((dict(pipeline_stages=2), "pipeline_stages"),
+                          (dict(n_experts=-1), "n_experts"),
+                          (dict(n_experts=4, expert_capacity_factor=0.0),
+                           "capacity"),
+                          (dict(n_experts=4, expert_top_k=3), "top_k"),
+                          (dict(n_experts=1, expert_top_k=2), "top_k")):
         with pytest.raises(ValueError, match=match):
-            dataclasses.replace(TransformerConfig(**KW),
-                                **{field: value}).validate()
+            dataclasses.replace(TransformerConfig(**KW), **change).validate()

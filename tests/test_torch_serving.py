@@ -360,6 +360,7 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
         "    kvedge_torch.__path__, 'kvedge_torch.')]\n"
         "assert 'kvedge_torch.models.decode' in mods, mods\n"
         "assert 'kvedge_torch.models.speculative' in mods, mods\n"
+        "assert 'kvedge_torch.models.moe' in mods, mods\n"
         "for new in ('tracing', 'slo', 'autotune', 'debuglock', 'status'):\n"
         "    assert 'kvedge_torch.runtime.' + new in mods, mods\n"
         "for m in mods + ['chip_smoke']:\n"

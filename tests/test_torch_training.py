@@ -187,22 +187,80 @@ def test_config_refuses_what_the_port_does_not_run():
         (dict(attention="ring"), "sequence-parallel"),
         (dict(attention="ulysses"), "sequence-parallel"),
         (dict(attention="local"), "must be 'naive', 'flash'"),
-        (dict(remat_policy="dots"), "dots"),
         (dict(remat_policy="some"), "must be 'full' or 'dots'"),
-        (dict(n_experts=4), "MoE"),
+        (dict(n_experts=-1), "n_experts must be >= 0"),
+        (dict(n_experts=4, expert_capacity_factor=0.0), "capacity"),
+        (dict(n_experts=4, expert_top_k=3), "top_k"),
+        (dict(n_experts=1, expert_top_k=2), "top_k"),
         (dict(pipeline_stages=2), "pipelining"),
     ]:
         with pytest.raises(ValueError, match=match):
             dataclasses.replace(cfg, **change).validate()
-    # fused_xent is ported: it validates, as in the reference.
-    dataclasses.replace(cfg, fused_xent=True).validate()
+    # fused_xent, remat_policy="dots" and MoE are ported: they validate,
+    # as in the reference.
+    for change in (dict(fused_xent=True), dict(remat_policy="dots"),
+                   dict(n_experts=4), dict(n_experts=4, expert_top_k=2)):
+        dataclasses.replace(cfg, **change).validate()
     # The reference's messages for the values it also refuses.
-    for change in (dict(attention="local"), dict(remat_policy="some")):
+    for change in (dict(attention="local"), dict(remat_policy="some"),
+                   dict(n_experts=-1),
+                   dict(n_experts=4, expert_capacity_factor=0.0),
+                   dict(n_experts=4, expert_top_k=3),
+                   dict(n_experts=1, expert_top_k=2)):
         with pytest.raises(ValueError) as theirs:
             dataclasses.replace(jtr.TransformerConfig(), **change).validate()
         with pytest.raises(ValueError) as ours:
             dataclasses.replace(cfg, **change).validate()
         assert str(ours.value) == str(theirs.value)
+
+
+@pytest.mark.parametrize("attention,n_experts", [
+    ("naive", 0), ("flash", 0), ("flash", 4)], ids=["naive", "flash",
+                                                   "flash-moe"])
+def test_dots_remat_equals_full_bitwise_and_matches_reference(attention,
+                                                              n_experts):
+    """``remat_policy="dots"`` keeps the non-batched products and
+    recomputes the rest: the same loss and gradients as ``"full"`` bit
+    for bit, and the reference's ``dots`` gradients within 1e-4."""
+    moe = dict(n_experts=n_experts, expert_top_k=2,
+               expert_capacity_factor=1.0) if n_experts else {}
+    jcfg, full = _cfgs(attention)
+    jcfg = dataclasses.replace(jcfg, remat_policy="dots", **moe)
+    full = dataclasses.replace(full, **moe)
+    dots = dataclasses.replace(full, remat_policy="dots")
+    jparams, _ = _weights(jcfg, full, seed=3)
+    batch = _batch(4, seq=40)
+    (l_full, g_full), (l_dots, g_dots) = (
+        _grads(ttrain.master_params(
+            {k: np.asarray(v) for k, v in jparams.items()}, c, "cpu"),
+            batch, c)
+        for c in (full, dots))
+    assert torch.equal(l_full, l_dots)
+    for key in g_full:
+        assert torch.equal(g_full[key], g_dots[key]), key
+    want_loss, want = jax.value_and_grad(jtr.loss_fn)(
+        jparams, jnp.asarray(batch), jcfg)
+    np.testing.assert_allclose(float(l_dots), float(want_loss), rtol=1e-5,
+                               atol=1e-5)
+    for key in g_dots:
+        np.testing.assert_allclose(g_dots[key].numpy(),
+                                   np.asarray(want[key]), rtol=1e-4,
+                                   atol=1e-4, err_msg=key)
+
+
+def test_dots_remat_saves_the_products_and_recomputes_the_rest():
+    """The policy's decisions: ``aten.mm`` / ``aten.addmm`` saved, a
+    batched product and an elementwise op recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    assert ttr._dots_policy(None, aten.mm.default) == \
+        CheckpointPolicy.MUST_SAVE
+    assert ttr._dots_policy(None, aten.addmm.default) == \
+        CheckpointPolicy.MUST_SAVE
+    for op in (aten.bmm.default, aten.mul.Tensor, aten.gelu.default):
+        assert ttr._dots_policy(None, op) == \
+            CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _tree(cfg, value):
