@@ -17,7 +17,11 @@ reference. This package ports the reference's main path slice by slice:
   speculation, the prefix cache, the scheduler, recovery and
   observability, mixture-of-experts models in serving and training
   (``[model] experts``, ``models/moe.py``) and ``remat_policy =
-  "dots"``. ``ROADMAP.md`` lists what is still to port.
+  "dots"``, and the runtime's boot contract: ``kvedge-runtime boot``
+  from a ``#kvedge-boot-config`` document (``bootstrap/``), heartbeats
+  with ``boot_count``, the probe payloads, ``/profile`` on
+  ``torch.profiler`` and the health probe (``runtime/boot.py``).
+  ``ROADMAP.md`` lists what is still to port.
 
 Ground rules, kept by every module here:
 

@@ -626,6 +626,15 @@ class PagedGenerationServer:
         /healthz must answer whatever holds the server lock."""
         return self._degraded_reason
 
+    def device_quiet(self):
+        """The server's work lock, as a context manager: while it is held
+        no device work of the decode loop runs (every window, prefill
+        chunk, swap, capture and harvest runs under it). The profiler's
+        two toggles (``runtime/profiling.py``) run under it: a launch
+        racing a CUPTI toggle can deadlock the process. The dump's host
+        copy (``dump_prefix_cache``) runs outside it."""
+        return self._work
+
     def capacity_probe(self) -> dict:
         """Lock-free capacity snapshot for /healthz (values may be one
         boundary stale). ``pages_free`` is UNRESERVED pages, the

@@ -1,1 +1,2 @@
-"""Serving config, device probe and the serve payload."""
+"""The runtime: config, boot and heartbeats, the device probe, the
+payloads, the status server and the profiler."""

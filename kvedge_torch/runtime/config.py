@@ -3,12 +3,23 @@
 The same TOML document as the JAX package's runtime config, with the
 same names and defaults, for the subset the ported payloads run:
 
-    [runtime]  state_dir, checkpoint_dir
+    [runtime]  name, state_dir, checkpoint_dir, heartbeat_interval_s
+    [tpu]      platform (the device check's expected platform: "gpu",
+               the port's default, or "cpu"), expected_chips (0 = any);
+               the section keeps the reference's name so that one TOML
+               parses in both packages
+    [mesh]     axes, only where the mesh resolves to one device (every
+               axis 0 or 1, as the default {data = 0, model = 1})
+    [distributed]  num_processes = 1 only (coordinator_address,
+               coordinator_port and process_id are checked and have
+               nothing to join on one host)
     [model]    preset, vocab, d_model, n_heads, n_kv_heads, n_layers, d_ff,
                experts (the MoE expert count, 0 = dense), expert_top_k
                (0 = 1; 2 = GShard top-2), expert_capacity_factor (0 =
-               the drop-free experts / top_k)
-    [payload]  kind ("serve" | "train" | "eval"), seq (the model's
+               the drop-free experts / top_k), pipeline_schedule ("" only)
+    [payload]  kind ("devicecheck", the default, | "transformer-probe" |
+               "inference-probe" | "train" | "eval" | "serve" | "none"),
+               seq (the model's
                max_seq and the training sequence length), attention
                ("" = "naive" | "flash"), corpus, eval_corpus, steps,
                batch, checkpoint_every; for serving: serving ("" =
@@ -56,16 +67,22 @@ same names and defaults, for the subset the ported payloads run:
 
 Any other section or key is REFUSED with its name, not ignored: a knob
 the port does not implement would otherwise silently change nothing
-(``[model] n_experts`` among them: the key is ``experts``). Still
-unported, and so refused by the model's config (``models/config.py``):
-``attention = "ring" | "ulysses"`` and pipelining. The reference's
-``expert`` mesh axis does not exist on one device, so ``experts`` is
-never derived from a mesh.
+(``[model] n_experts`` among them: the key is ``experts``). A mesh of
+more than one device, ``pipeline_schedule`` and pipelining (ROADMAP
+Queue A item 9) and ``num_processes`` > 1 (item 10) are refused by
+name; ``attention = "ring" | "ulysses"`` is refused by the model's
+config (``models/config.py``). The reference's ``expert`` mesh axis
+resolves to one device here, so ``experts`` is never derived from a
+mesh. :meth:`RuntimeConfig.to_toml` writes the canonical document
+and :meth:`RuntimeConfig.apply` materializes it, as
+``kvedge-bootstrap apply`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import tomllib
 from typing import Mapping
 
@@ -76,12 +93,21 @@ class RuntimeConfigError(ValueError):
     pass
 
 
+DEFAULT_CONFIG_PATH = "/etc/kvedge/config.toml"
 DEFAULT_STATE_DIR = "/var/lib/kvedge/state"
+_VALID_PAYLOADS = (
+    "devicecheck", "transformer-probe", "inference-probe", "train", "eval",
+    "serve", "none",
+)
 _VALID_ATTENTION = ("", "naive", "flash", "ring", "ulysses")
-_RUNTIME_KEYS = {"state_dir": "state_dir", "checkpoint_dir": "checkpoint_dir"}
+_RUNTIME_KEYS = {"name": "name", "state_dir": "state_dir",
+                 "checkpoint_dir": "checkpoint_dir",
+                 "heartbeat_interval_s": "heartbeat_interval_s"}
+_TPU_KEYS = {"platform": "expected_platform",
+             "expected_chips": "expected_chips"}
 _MODEL_KEYS = ("preset", "vocab", "d_model", "n_heads", "n_kv_heads",
                "n_layers", "d_ff", "experts", "expert_top_k",
-               "expert_capacity_factor")
+               "expert_capacity_factor", "pipeline_schedule")
 # TOML key -> RuntimeConfig field.
 _PAYLOAD_KEYS = {
     "kind": "payload",
@@ -137,7 +163,8 @@ _PAYLOAD_KEYS = {
 }
 # Fractions and seconds: a TOML integer reads as the float, as the
 # reference's float() does.
-_FLOAT_FIELDS = ("expert_capacity_factor", "serving_sched_max_queue_wait_s",
+_FLOAT_FIELDS = ("heartbeat_interval_s", "expert_capacity_factor",
+                 "serving_sched_max_queue_wait_s",
                  "serving_page_low_watermark", "serving_page_high_watermark",
                  "serving_retry_after_s", "serving_slo_target",
                  "serving_slo_ttft_ms", "serving_slo_itl_ms",
@@ -145,15 +172,100 @@ _FLOAT_FIELDS = ("expert_capacity_factor", "serving_sched_max_queue_wait_s",
                  "serving_slo_slow_s")
 _STATUS_KEYS = {"port": "status_port", "bind": "status_bind",
                 "token": "status_token"}
+_DISTRIBUTED_KEYS = ("num_processes", "coordinator_address",
+                     "coordinator_port", "process_id")
+
+
+def _toml_str(value: str) -> str:
+    """Quote a string as a TOML basic string (JSON escaping is TOML-valid)."""
+    return json.dumps(value, ensure_ascii=True)
+
+
+def _toml_bool(value: bool) -> str:
+    return "true" if value else "false"
+
+
+def _mesh_axes(table) -> tuple[tuple[str, int], ...]:
+    """``[mesh] axes`` with the reference's checks and messages, then the
+    port's: every axis 0 (inferred) or 1, so the mesh resolves to the
+    one device the port runs on."""
+    if not isinstance(table, Mapping):
+        raise RuntimeConfigError("[mesh] axes must be a table")
+    if not table:
+        raise RuntimeConfigError("[mesh] axes must be a non-empty table")
+    axes = tuple((str(axis), size) for axis, size in table.items())
+    for axis, size in axes:
+        if not axis:
+            raise RuntimeConfigError("mesh axis names must be non-empty")
+        if not isinstance(size, int) or isinstance(size, bool) or size < 0:
+            raise RuntimeConfigError(
+                f"mesh axis {axis!r} size must be a non-negative int")
+    if sum(1 for _, size in axes if size == 0) > 1:
+        raise RuntimeConfigError("at most one mesh axis may be 0 (inferred)")
+    wide = {axis: size for axis, size in axes if size > 1}
+    if wide:
+        raise RuntimeConfigError(
+            f"[mesh] axes {dict(axes)} span more than one device "
+            f"({wide}); the PyTorch port runs on one device until "
+            "parallelism is ported (ROADMAP Queue A item 9)")
+    return axes
+
+
+def _distributed(table) -> int:
+    """``[distributed]`` with the reference's checks; the port joins no
+    cluster, so ``num_processes`` must be 1. Returns it."""
+    if not isinstance(table, Mapping):
+        raise RuntimeConfigError("[distributed] must be a table")
+    bad = sorted(set(table) - set(_DISTRIBUTED_KEYS))
+    if bad:
+        raise RuntimeConfigError(
+            f"[distributed] key(s) {bad} are not supported by the "
+            f"PyTorch port; it reads {sorted(_DISTRIBUTED_KEYS)}")
+    n = table.get("num_processes", 1)
+    port = table.get("coordinator_port", 8478)
+    pid = table.get("process_id", -1)
+    for key, value in (("num_processes", n), ("coordinator_port", port),
+                       ("process_id", pid)):
+        if not isinstance(value, int) or isinstance(value, bool):
+            raise RuntimeConfigError(
+                f"[distributed] {key} must be an integer, got {value!r}")
+    if not isinstance(table.get("coordinator_address", ""), str):
+        raise RuntimeConfigError(
+            "[distributed] coordinator_address must be a string")
+    if n < 1:
+        raise RuntimeConfigError("[distributed] num_processes must be >= 1")
+    if n != 1:
+        raise RuntimeConfigError(
+            f"[distributed] num_processes = {n}: the PyTorch port runs "
+            "one process on one host until multi-host serving is ported "
+            "(ROADMAP Queue A item 10)")
+    if not 0 < port < 65536:
+        raise RuntimeConfigError("[distributed] coordinator_port out of range")
+    if pid < -1 or pid >= n:
+        raise RuntimeConfigError(
+            f"[distributed] process_id {pid} not in [-1, {n})")
+    return n
 
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """Validated runtime config (the parsed form of the TOML)."""
 
+    name: str = "kvedge-tpu"
     state_dir: str = DEFAULT_STATE_DIR
     # "" = <state_dir>/checkpoints (runtime/checkpoint.py).
     checkpoint_dir: str = ""
+    # Seconds between heartbeats (runtime/heartbeat.py HeartbeatWriter).
+    heartbeat_interval_s: float = 10.0
+    # [tpu] platform and expected_chips: what the device check expects
+    # ("gpu" on the card, "cpu" when the CPU is asked for; 0 chips =
+    # whatever is visible).
+    expected_platform: str = "gpu"
+    expected_chips: int = 0
+    # [mesh] axes as (name, size) pairs, each size 0 (inferred) or 1.
+    mesh_axes: tuple = (("data", 0), ("model", 1))
+    # [distributed] num_processes: 1, one host.
+    num_processes: int = 1
     preset: str = ""  # "" = "probe"
     vocab: int = 0    # 0 = from the preset, for every shape field
     d_model: int = 0
@@ -167,7 +279,9 @@ class RuntimeConfig:
     experts: int = 0
     expert_top_k: int = 0
     expert_capacity_factor: float = 0.0
-    payload: str = "serve"
+    # Pipelining needs a stage axis over more than one device: "" only.
+    pipeline_schedule: str = ""
+    payload: str = "devicecheck"
     # "" = "contiguous": one request at a time through models/decode.py;
     # "paged" = the continuous-batching server over the page pool.
     payload_serving: str = ""
@@ -293,14 +407,29 @@ class RuntimeConfig:
 
     @classmethod
     def from_mapping(cls, doc: Mapping) -> "RuntimeConfig":
-        unknown = sorted(set(doc) - {"runtime", "model", "payload", "status"})
+        unknown = sorted(set(doc) - {"runtime", "tpu", "mesh", "model",
+                                     "distributed", "payload", "status"})
         if unknown:
             raise RuntimeConfigError(
                 f"section(s) {unknown} are not read by the PyTorch port "
-                "(it reads [runtime], [model], [payload] and [status] only)"
+                "(it reads [runtime], [tpu], [mesh], [model], "
+                "[distributed], [payload] and [status] only)"
             )
         fields: dict = {}
+        mesh = doc.get("mesh", {})
+        if not isinstance(mesh, Mapping):
+            raise RuntimeConfigError("[mesh] must be a table")
+        bad = sorted(set(mesh) - {"axes"})
+        if bad:
+            raise RuntimeConfigError(
+                f"[mesh] key(s) {bad} are not supported by the PyTorch "
+                "port; it reads ['axes']")
+        if "axes" in mesh:
+            fields["mesh_axes"] = _mesh_axes(mesh["axes"])
+        if "distributed" in doc:
+            fields["num_processes"] = _distributed(doc["distributed"])
         for section, known in (("runtime", _RUNTIME_KEYS),
+                               ("tpu", _TPU_KEYS),
                                ("model", {k: k for k in _MODEL_KEYS}),
                                ("payload", _PAYLOAD_KEYS),
                                ("status", _STATUS_KEYS)):
@@ -342,6 +471,26 @@ class RuntimeConfig:
         return out
 
     def validate(self) -> None:
+        if not isinstance(self.name, str) or not self.name:
+            raise RuntimeConfigError("[runtime] name must be non-empty")
+        if (not isinstance(self.heartbeat_interval_s, (int, float))
+                or isinstance(self.heartbeat_interval_s, bool)
+                or self.heartbeat_interval_s <= 0):
+            raise RuntimeConfigError(
+                "[runtime] heartbeat_interval_s must be > 0")
+        if not isinstance(self.expected_platform, str):
+            raise RuntimeConfigError("[tpu] platform must be a string")
+        if (not isinstance(self.expected_chips, int)
+                or isinstance(self.expected_chips, bool)
+                or self.expected_chips < 0):
+            raise RuntimeConfigError("[tpu] expected_chips must be >= 0")
+        _mesh_axes(dict(self.mesh_axes))
+        _distributed({"num_processes": self.num_processes})
+        if self.pipeline_schedule != "":
+            raise RuntimeConfigError(
+                f"[model] pipeline_schedule = {self.pipeline_schedule!r}: "
+                "pipelining needs a 'stage' mesh axis over more than one "
+                "device (ROADMAP Queue A item 9)")
         for name in ("serving_prefix_host_mb",
                      "serving_sched_max_queue_depth",
                      "serving_sched_swap_budget_mb",
@@ -435,6 +584,8 @@ class RuntimeConfig:
                     or value < 0:
                 raise RuntimeConfigError(
                     f"{name} must be a non-negative integer, got {value!r}")
+        if self.status_port >= 65536:
+            raise RuntimeConfigError("[status] port out of range")
         for name in ("serving_hbm_budget_mb", "serving_min_bucket"):
             value = getattr(self, name)
             if not isinstance(value, int) or isinstance(value, bool):
@@ -463,10 +614,10 @@ class RuntimeConfig:
                 f"[model] preset must be one of {sorted(PRESETS)}, got "
                 f"{self.preset!r}")
         self._validate_experts()
-        if self.payload not in ("serve", "train", "eval"):
+        if self.payload not in _VALID_PAYLOADS:
             raise RuntimeConfigError(
-                f"[payload] kind = {self.payload!r}: the PyTorch port runs "
-                "the 'serve', 'train' and 'eval' payloads")
+                f"[payload] kind must be one of {_VALID_PAYLOADS}, "
+                f"got {self.payload!r}")
         if self.payload_attention not in _VALID_ATTENTION:
             raise RuntimeConfigError(
                 f"[payload] attention must be one of {_VALID_ATTENTION}, "
@@ -673,6 +824,72 @@ class RuntimeConfig:
             raise RuntimeConfigError(
                 f"[model] configuration is invalid: {e}") from e
         return tcfg
+
+
+    def to_toml(self) -> str:
+        """Serialize back to TOML, the document ``apply`` writes: the
+        reference's sections, keys and order, strings as TOML basic
+        strings (JSON escaping), so the document re-parses to this
+        config in either package."""
+        s = _toml_str
+
+        def scalar(value) -> str:
+            return s(value) if isinstance(value, str) else str(value)
+
+        axes = ", ".join(f"{s(name)} = {size}" for name, size in
+                         self.mesh_axes)
+        lines = [
+            "[runtime]",
+            f"name = {s(self.name)}",
+            f"state_dir = {s(self.state_dir)}",
+            f"checkpoint_dir = {s(self.checkpoint_dir)}",
+            f"heartbeat_interval_s = {float(self.heartbeat_interval_s)}",
+            "", "[tpu]",
+            f"platform = {s(self.expected_platform)}",
+            f"expected_chips = {self.expected_chips}",
+            "", "[mesh]",
+            f"axes = {{ {axes} }}",
+            "", "[model]",
+            f"preset = {s(self.preset)}",
+        ]
+        lines += [f"{k} = {getattr(self, k)}" for k in (
+            "vocab", "d_model", "n_heads", "n_kv_heads", "n_layers", "d_ff",
+            "experts", "expert_top_k")]
+        lines += [
+            "expert_capacity_factor = "
+            f"{float(self.expert_capacity_factor)}",
+            f"pipeline_schedule = {s(self.pipeline_schedule)}",
+            "", "[distributed]",
+            f"num_processes = {self.num_processes}",
+            "", "[status]",
+            f"port = {self.status_port}",
+            f"bind = {s(self.status_bind)}",
+            f"token = {s(self.status_token)}",
+            "", "[payload]",
+        ]
+        for key, field in _PAYLOAD_KEYS.items():
+            value = getattr(self, field)
+            if isinstance(value, bool):
+                lines.append(f"{key} = {_toml_bool(value)}")
+            elif field in _FLOAT_FIELDS:
+                lines.append(f"{key} = {float(value)}")
+            else:
+                lines.append(f"{key} = {scalar(value)}")
+        return "\n".join(lines) + "\n"
+
+    def apply(self, config_path: str = DEFAULT_CONFIG_PATH) -> str:
+        """Materialize the validated config, as ``kvedge-bootstrap
+        apply`` does: the canonical TOML at ``config_path`` (tmp +
+        ``os.replace``) and the state directory, so that a runtime boot
+        finds both."""
+        self.validate()
+        os.makedirs(os.path.dirname(config_path) or ".", exist_ok=True)
+        os.makedirs(self.state_dir, exist_ok=True)
+        tmp = config_path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as fh:
+            fh.write(self.to_toml())
+        os.replace(tmp, config_path)
+        return config_path
 
 
 def _spec_draft_len(cfg: RuntimeConfig) -> int:

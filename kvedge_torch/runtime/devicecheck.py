@@ -1,4 +1,4 @@
-"""Device resolution and the device probe.
+"""Device resolution and the device probe (the ``devicecheck`` payload).
 
 Every entry point of the port runs on the CUDA card unless the caller
 asks for the CPU (``device="cpu"``); with no card and no explicit CPU
@@ -15,6 +15,7 @@ import time
 
 import torch
 
+PROBE_ROWS = 16
 PROBE_DIM = 128
 
 
@@ -41,24 +42,47 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceCheckResult:
+    """What a payload reports to boot, ``/status`` and the heartbeat: the
+    reference's keys (``mesh_axes`` and ``mesh_shape`` of the one-device
+    mesh, ``probe_ms``, ``probe_checksum``) and the port's
+    ``probe_max_err``, the matmul probe's distance from the CPU."""
+
     ok: bool
     platform: str
     device_count: int
     device_kinds: tuple[str, ...]
+    mesh_axes: tuple[str, ...]
+    mesh_shape: tuple[int, ...]
     probe_ms: float
-    probe_max_err: float
+    probe_checksum: float
+    probe_max_err: float = 0.0
     error: str = ""
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self) | {
-            "device_kinds": list(self.device_kinds)}
+            "device_kinds": list(self.device_kinds),
+            "mesh_axes": list(self.mesh_axes),
+            "mesh_shape": list(self.mesh_shape),
+        }
 
 
-def run_device_check(device: str | torch.device | None = None
+def _failure(platform: str, count: int, kinds, error: str
+             ) -> DeviceCheckResult:
+    return DeviceCheckResult(
+        ok=False, platform=platform, device_count=count,
+        device_kinds=tuple(kinds), mesh_axes=(), mesh_shape=(),
+        probe_ms=0.0, probe_checksum=0.0, error=error,
+    )
+
+
+def run_device_check(cfg=None, device: str | torch.device | None = None
                      ) -> DeviceCheckResult:
     """Probe the device: platform, count, names, and one bf16 matmul
-    checked against the same product on the CPU. Raises when the card
-    is missing (see :func:`resolve_device`)."""
+    checked against the same product on the CPU. With a runtime config,
+    its ``[tpu] platform`` and ``expected_chips`` are held to what is
+    visible, with the reference's messages, and its ``[mesh]`` (one
+    device, config.py) is reported. Raises when the card is missing (see
+    :func:`resolve_device`)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         count = torch.cuda.device_count()
@@ -67,8 +91,20 @@ def run_device_check(device: str | torch.device | None = None
         platform = "gpu"
     else:
         count, kinds, platform = 1, ("cpu",), "cpu"
+    axes: tuple = ()
+    if cfg is not None:
+        if cfg.expected_platform and platform != cfg.expected_platform:
+            return _failure(
+                platform, count, kinds,
+                f"expected platform {cfg.expected_platform!r}, "
+                f"got {platform!r}")
+        if cfg.expected_chips and count != cfg.expected_chips:
+            return _failure(
+                platform, count, kinds,
+                f"expected {cfg.expected_chips} chips, {count} visible")
+        axes = tuple(cfg.mesh_axes)
     gen = torch.Generator().manual_seed(0)
-    x = torch.randn(16, PROBE_DIM, generator=gen).to(torch.bfloat16)
+    x = torch.randn(PROBE_ROWS, PROBE_DIM, generator=gen).to(torch.bfloat16)
     w = torch.randn(PROBE_DIM, PROBE_DIM, generator=gen).to(torch.bfloat16)
     want = x.float() @ w.float()
     t0 = time.perf_counter()
@@ -79,6 +115,10 @@ def run_device_check(device: str | torch.device | None = None
     ok = bool(torch.isfinite(got).all()) and err < 0.5
     return DeviceCheckResult(
         ok=ok, platform=platform, device_count=count, device_kinds=kinds,
-        probe_ms=probe_ms, probe_max_err=err,
+        # The mesh the port runs on: every axis resolves to 1 device.
+        mesh_axes=tuple(name for name, _ in axes),
+        mesh_shape=tuple(1 for _ in axes),
+        probe_ms=probe_ms, probe_checksum=float(got.sum()),
+        probe_max_err=err,
         error="" if ok else f"matmul probe disagrees with the CPU by {err}",
     )

@@ -1,23 +1,29 @@
-"""The state directory's lifecycle files that recovery reads and writes.
+"""Durable heartbeats and lifecycle files in the state directory.
 
-The port's copy of the part of the JAX package's
-``kvedge_tpu/runtime/heartbeat.py`` that serving recovery needs,
-unchanged but for this docstring: ``init-events.jsonl`` (the lifecycle
-log the recovery supervisor's crash-loop breaker reads, and appends its
-outcomes to), the heartbeat's ``boot_count`` that stamps each record,
-``last-failure.json``, the post-mortem of the last serving failure,
-written when the pool poisons, and ``flight-bundle.json``, the serving
-flight bundle written beside it when ``serving_bundle`` is on. The port writes no heartbeat of its own
-yet (the reference's boot path does): ``read_heartbeat`` returns None
-and records carry ``boot_count`` 0 unless a heartbeat file is there.
-Every write is tmp + ``os.replace`` or a one-line append.
+The port's copy of the JAX package's ``kvedge_tpu/runtime/heartbeat.py``
+(its training-progress file lives in ``runtime/train.py``), unchanged
+but for this docstring. The runtime (``runtime/boot.py``) writes
+``heartbeat.json`` through :class:`HeartbeatWriter`, each record
+carrying a ``seq`` that keeps counting and the ``boot_count`` that
+:func:`next_boot_count` advances once a boot: after a reschedule onto
+the same volume the new runtime's heartbeat shows ``boot_count``
+incremented, not reset. The file name and schema are the reference's,
+so a state directory the JAX runtime booted in goes on counting under
+the port, and the reverse. Beside it: ``init-events.jsonl`` (the
+lifecycle log the native PID-1 supervisor and the recovery supervisor
+append to), ``last-failure.json``, the post-mortem of the last serving
+failure, and ``flight-bundle.json``, the serving flight bundle written
+beside it when ``serving_bundle`` is on. Every write is tmp +
+``os.replace`` or a one-line append.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 import time
+from typing import Callable
 
 HEARTBEAT_FILE = "heartbeat.json"
 
@@ -163,3 +169,49 @@ def write_flight_bundle(state_dir: str, doc: dict) -> dict:
 def read_flight_bundle(state_dir: str) -> dict | None:
     """The last persisted bundle, or None (absent/corrupt/knob off)."""
     return _read_json_doc(os.path.join(state_dir, BUNDLE_FILE))
+
+
+def write_heartbeat(state_dir: str, payload: dict) -> dict:
+    """Atomically write a heartbeat, advancing seq and preserving boot_count."""
+    os.makedirs(state_dir, exist_ok=True)
+    previous = read_heartbeat(state_dir) or {}
+    doc = dict(payload)
+    doc["ts"] = time.time()
+    doc["seq"] = int(previous.get("seq", 0)) + 1
+    doc.setdefault("boot_count", int(previous.get("boot_count", 0)))
+    _write_json_atomic(
+        os.path.join(state_dir, HEARTBEAT_FILE), doc,
+        indent=2, sort_keys=True,
+    )
+    return doc
+
+
+def next_boot_count(state_dir: str) -> int:
+    """The boot counter for a (re)starting runtime: persisted count + 1."""
+    previous = read_heartbeat(state_dir) or {}
+    return int(previous.get("boot_count", 0)) + 1
+
+
+class HeartbeatWriter(threading.Thread):
+    """Background heartbeat loop; ``build`` supplies each record's payload."""
+
+    def __init__(self, state_dir: str, interval_s: float,
+                 build: Callable[[], dict]):
+        super().__init__(name="kvedge-heartbeat", daemon=True)
+        self._state_dir = state_dir
+        self._interval_s = interval_s
+        self._build = build
+        self._stop = threading.Event()
+        self.last: dict | None = None
+
+    def beat_once(self) -> dict:
+        self.last = write_heartbeat(self._state_dir, self._build())
+        return self.last
+
+    def run(self) -> None:
+        while not self._stop.is_set():
+            self.beat_once()
+            self._stop.wait(self._interval_s)
+
+    def stop(self) -> None:
+        self._stop.set()

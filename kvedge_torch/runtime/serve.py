@@ -81,9 +81,14 @@ on, ``flight-bundle.json`` lands beside it. ``serving_window = "auto"``,
 ``serving_occupancy_ring`` and ``serving_debug_locks`` reach the
 server; ``[status] token`` gates the POST routes.
 
-``ServeRuntime`` builds everything (device check, weights, the server,
-the HTTP surface of ``runtime/status.py``); ``python -m kvedge_torch
-serve`` (``cli.py``) runs it until interrupted. The weights are the params of the latest
+``ServeRuntime`` builds everything (device check, weights, the server
+and, given a ``port``, an HTTP surface of ``runtime/status.py`` of its
+own); :func:`run_serve_payload` is the ``serve`` payload the runtime
+boots (``runtime/boot.py``): the device check against the config, a
+``ServeRuntime`` with no HTTP surface, one self-check generation, and
+the ``serve_fn`` the runtime's status server routes ``POST /generate``
+through. ``python -m kvedge_torch serve`` (``cli.py``) and
+``kvedge-runtime boot`` run it until stopped. The weights are the params of the latest
 checkpoint that ``train`` wrote under the state directory
 (``restored_step`` in every response names its step), as the
 reference's serve restores them, or else the seeded numpy init.
@@ -93,6 +98,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import dataclasses
 import os
 import queue
 import threading
@@ -117,10 +123,13 @@ from kvedge_torch.runtime.config import (
     ServeConfig,
     _spec_draft_len,
 )
-from kvedge_torch.runtime.devicecheck import resolve_device, run_device_check
+from kvedge_torch.runtime.devicecheck import (
+    DeviceCheckResult,
+    resolve_device,
+    run_device_check,
+)
 from kvedge_torch.runtime.failures import ServingFailure
 from kvedge_torch.runtime.recovery import (
-    RECOVERING,
     RecoveryPolicy,
     RecoverySupervisor,
     sweep_stranded_tmp,
@@ -417,9 +426,11 @@ class ServeRuntime:
 
     def __init__(self, cfg: ServeConfig, *, device=None,
                  dtype: str = "bfloat16", seed: int = 0, params=None,
-                 host: str | None = None, port: int | None = None):
+                 host: str | None = None, port: int | None = None,
+                 device_check: DeviceCheckResult | None = None):
         self.device = resolve_device(device)
-        self.device_check = run_device_check(self.device)
+        self.device_check = (device_check if device_check is not None
+                             else run_device_check(device=self.device))
         if not self.device_check.ok:
             raise RuntimeError(f"device check failed: "
                                f"{self.device_check.error}")
@@ -549,13 +560,21 @@ class ServeRuntime:
             max_workers=2 * slots, thread_name_prefix="kvedge-torch-row")
         self.http = None
         if port is not None:
+            # The runtime handle's documents and routes (runtime/boot.py),
+            # over this runtime's payload function; no profiler.
+            from kvedge_torch.runtime import boot
+
+            fn = self.payload_fn()
             self.http = StatusServer(
-                host or cfg.status_bind, port, snapshot=self.snapshot,
-                healthy=lambda: self.healthy,
-                health_detail=lambda: self.health()[1],
-                token=cfg.status_token, generator=self.serve_fn,
-                trace_doc=self.trace_doc, slo_doc=self.slo_doc,
-                bundle_doc=self.bundle_doc)
+                host or cfg.status_bind, port,
+                snapshot=lambda: boot.runtime_snapshot(
+                    cfg, self.device_check, fn, payload="serve",
+                    boot_count=int((heartbeat.read_heartbeat(
+                        cfg.state_dir) or {}).get("boot_count", 0)),
+                    started_at=self.started_at),
+                token=cfg.status_token,
+                **boot.serve_routes(cfg, lambda: fn,
+                                    lambda: self.device_check))
             self.http.start()
 
     def _start_prefix_persistence(self) -> None:
@@ -602,31 +621,6 @@ class ServeRuntime:
                 print(f"[kvedge-serve] flight bundle not written: {e!r}",
                       flush=True)
 
-    def health(self) -> tuple[int, dict]:
-        """``GET /healthz``: 200 ``{"status": "ok"}``, or 503 with the
-        reference's detail. A poisoned pool under recovery is NOT
-        terminal (``recovering``, a retry hint, the capacity probe);
-        with no supervisor, or after its escalation, it is."""
-        if self.healthy:
-            return 200, {"status": "ok"}
-        doc: dict = {"status": "degraded"}
-        reason = self.server.degraded if self.server is not None else None
-        if reason is None:
-            return 503, doc
-        rec = (self.supervisor.health() if self.supervisor is not None
-               else None)
-        if rec is not None and rec["state"] == RECOVERING:
-            doc.update({"reason": reason, "terminal": False,
-                        "recovering": True,
-                        "retry_after_s": (
-                            rec["retry_after_s"]
-                            if rec.get("retry_after_s") is not None
-                            else self.cfg.serving_retry_after_s)})
-            doc.update(self.server.capacity_probe())
-        else:
-            doc.update({"reason": reason, "terminal": True})
-        return 503, doc
-
     @property
     def port(self) -> int:
         return self.http.port
@@ -640,44 +634,47 @@ class ServeRuntime:
             out.update(self.server.stats())
         if self.supervisor is not None:
             out.update(self.supervisor.stats())
+        if self.prefix_load is not None:
+            out["prefix_load"] = dict(self.prefix_load)
         return out
 
-    def snapshot(self) -> dict:
-        """The ``GET /status`` document (and ``/metrics``' source)."""
-        state_dir = self.cfg.state_dir
-        last = heartbeat.read_heartbeat(state_dir) or {}
-        return {
-            "name": "kvedge-torch",
-            "ok": self.device_check.ok and self.healthy,
-            "payload": "serve",
-            "check": self.device_check.to_dict(),
-            "boot_count": int(last.get("boot_count", 0)),
-            "uptime_s": round(time.time() - self.started_at, 3),
-            "heartbeat_seq": last.get("seq", 0),
-            "heartbeat_age_s": (round(time.time() - last["ts"], 3)
-                                if "ts" in last else None),
-            "init_events": heartbeat.read_init_events(state_dir),
-            "serving": self.stats(),
-            "last_failure": heartbeat.read_failure_record(state_dir),
-        }
+    def payload_fn(self):
+        """``serve_fn`` as the ``serve`` payload hands it to the runtime,
+        carrying what its HTTP layer reads lock-free: ``stats``,
+        ``tracer``, ``degraded``, ``capacity`` (paged), ``slo`` and
+        ``bundle`` (None while their knob is off), ``recovery`` (with a
+        supervisor) and ``close``; and the port's ``device_quiet`` (the
+        profiler's toggles run under it) and ``runtime``, this
+        runtime."""
+        def serve_fn(doc: dict) -> dict:
+            return self.serve_fn(doc)
 
-    def trace_doc(self) -> dict | None:
-        """``GET /trace``: Chrome trace-event JSON, None with tracing off."""
-        return (self.tracer.export_chrome() if self.tracer is not None
-                else None)
+        server, cfg = self.server, self.cfg
+        serve_fn.runtime = self
+        serve_fn.stats = self.stats
+        serve_fn.tracer = self.tracer
+        serve_fn.degraded = ((lambda: server.degraded) if server is not None
+                             else (lambda: None))
+        if server is not None:
+            serve_fn.capacity = server.capacity_probe
+        serve_fn.slo = (server.slo_doc
+                        if server is not None and cfg.serving_slo else None)
+        serve_fn.bundle = (server.flight_bundle
+                           if server is not None and cfg.serving_bundle
+                           else None)
+        if self.supervisor is not None:
+            serve_fn.recovery = self.supervisor.health
+        serve_fn.close = self.close
+        serve_fn.device_quiet = self.device_quiet
+        return serve_fn
 
-    def slo_doc(self) -> dict | None:
-        """``GET /slo``: the SLO engine's document, None while it is off."""
-        if self.server is None or not self.cfg.serving_slo:
-            return None
-        return self.server.slo_doc()
-
-    def bundle_doc(self) -> dict | None:
-        """``GET /debug/bundle``: the flight bundle, None while
-        ``serving_bundle`` is off."""
-        if self.server is None or not self.cfg.serving_bundle:
-            return None
-        return self.server.flight_bundle()
+    def device_quiet(self):
+        """A context manager under which this runtime launches no device
+        work: the paged server's work lock, or the contiguous backend's
+        one-request lock."""
+        if self.server is not None:
+            return self.server.device_quiet()
+        return self._generate_lock
 
     @property
     def healthy(self) -> bool:
@@ -1035,3 +1032,34 @@ class ServeRuntime:
             self._closed = True
         self._rows.shutdown(wait=True)
 
+
+def run_serve_payload(cfg: ServeConfig, device=None, dtype: str = "bfloat16",
+                      seed: int = 0):
+    """The ``serve`` payload: ``(DeviceCheckResult, serve_fn)``.
+
+    The reference's ``run_serve_payload`` contract: the device check
+    against the config first (a failed check returns with no
+    ``serve_fn``), then the runtime, then one tiny greedy generation
+    through the uncounted path, proving the weights and the decode path
+    (and capturing its graphs) before the endpoint goes live; its time
+    and token sum are the check's ``probe_ms`` and ``probe_checksum``.
+    ``serve_fn`` is :meth:`ServeRuntime.payload_fn`'s."""
+    base = run_device_check(cfg, device)
+    if not base.ok:
+        return base, None
+    rt = ServeRuntime(cfg, device=device, dtype=dtype, seed=seed,
+                      device_check=base)
+    try:
+        max_seq = rt.tcfg.max_seq
+        probe_prompt = list(range(1, min(4, max_seq - 1) + 1))
+        probe_new = min(2, max_seq - len(probe_prompt))
+        start = time.perf_counter()
+        probe = rt._serve({"tokens": [probe_prompt], "n_new": probe_new})
+        elapsed_ms = (time.perf_counter() - start) * 1000.0
+    except BaseException:
+        rt.close()
+        raise
+    return dataclasses.replace(
+        base, probe_ms=elapsed_ms,
+        probe_checksum=float(sum(probe["tokens"][0])),
+    ), rt.payload_fn()

@@ -17,9 +17,13 @@ on one host. Routes:
 * ``POST /generate`` (the serve payload; a caller's ``X-Request-Id``
   rides in as ``"_request_id"`` and the response echoes the request id
   in its body and header);
-* ``POST /profile`` and ``GET /profile/traces`` answer 503 "profiler not
-  available" and ``GET /profile`` 405, as the reference's do with no
-  profiler wired (the port's profiler is still to come).
+* ``POST /profile?seconds=N`` (a ``torch.profiler`` capture into
+  ``<state_dir>/traces/``, ``runtime/profiling.py``: 200 with its
+  summary, 400 for a bad ``seconds``, 409 while another capture runs,
+  503 while the runtime boots) and ``GET /profile/traces`` (the
+  captures on disk) through the ``profiler`` and ``profile_traces`` the
+  runtime wires (``runtime/boot.py``); without them both answer 503
+  "profiler not available". ``GET /profile`` is a 405.
 
 A non-empty ``token`` (``[status] token``) gates every POST route behind
 ``Authorization: Bearer <token>``, 401 otherwise; the GET surface is
@@ -33,9 +37,10 @@ import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
 from kvedge_torch import __version__
+from kvedge_torch.runtime.profiling import CaptureBusy, CaptureUnavailable
 
 
 class GenerateUnavailable(RuntimeError):
@@ -595,15 +600,19 @@ class StatusServer:
     ``ValueError`` is a 400, :class:`GenerateUnavailable` a 503, anything
     else a 500; a result with ``"_stream"`` streams newline-delimited
     JSON); ``trace_doc``, ``slo_doc`` and ``bundle_doc`` answer their
-    routes, None meaning the feature is off (404). ``token`` gates POST.
+    routes, None meaning the feature is off (404); ``profiler(seconds)``
+    answers ``POST /profile`` and ``profile_traces`` ``GET
+    /profile/traces``. ``token`` gates POST.
     """
 
     def __init__(self, bind: str, port: int, snapshot: Callable[[], dict],
                  healthy: Callable[[], bool] | None = None,
+                 profiler: Callable[[float], dict] | None = None,
                  token: str = "",
                  generator: Callable[[dict], dict] | None = None,
                  health_detail: Callable[[], dict | None] | None = None,
                  trace_doc: Callable[[], dict | None] | None = None,
+                 profile_traces: Callable[[], list] | None = None,
                  slo_doc: Callable[[], dict | None] | None = None,
                  bundle_doc: Callable[[], dict | None] | None = None):
         outer = self
@@ -611,6 +620,8 @@ class StatusServer:
         self._healthy = healthy or (
             lambda: bool(snapshot().get("ok", False)))
         self._health_detail = health_detail
+        self._profiler = profiler
+        self._profile_traces = profile_traces
         self._token = token
         self._generator = generator
         # The documents that exist only while their feature is on: the
@@ -657,7 +668,10 @@ class StatusServer:
                     healthy = outer._healthy()
                     doc = {"status": "ok" if healthy else "degraded"}
                     if not healthy and outer._health_detail is not None:
-                        doc.update(outer._health_detail() or {})
+                        try:
+                            doc.update(outer._health_detail() or {})
+                        except Exception:
+                            pass  # detail is best-effort; 503 already says it
                     self._send(200 if healthy else 503, doc)
                 elif path == "/status":
                     self._send(200, outer._snapshot())
@@ -671,7 +685,11 @@ class StatusServer:
                     else:
                         self._send(200, doc)
                 elif path == "/profile/traces":
-                    self._send(503, {"error": "profiler not available"})
+                    if outer._profile_traces is None:
+                        self._send(503, {"error": "profiler not available"})
+                    else:
+                        self._send(200,
+                                   {"traces": outer._profile_traces()})
                 elif path == "/profile":
                     self._send(405, {
                         "error": "use POST /profile?seconds=N to capture"})
@@ -691,7 +709,8 @@ class StatusServer:
                     outer._token.encode("utf-8"))
 
             def do_POST(self):
-                path = urlsplit(self.path).path
+                url = urlsplit(self.path)
+                path = url.path
                 if path not in ("/profile", "/generate"):
                     self._send(404, {"error": f"no route {path}"})
                     return
@@ -702,10 +721,26 @@ class StatusServer:
                                        "token>"},
                         extra_headers={"WWW-Authenticate": "Bearer"})
                     return
-                if path == "/profile":
+                if path == "/generate":
+                    self._handle_generate()
+                    return
+                if outer._profiler is None:
                     self._send(503, {"error": "profiler not available"})
                     return
-                self._handle_generate()
+                try:
+                    seconds = float(
+                        parse_qs(url.query).get("seconds", ["3"])[0])
+                except ValueError:
+                    self._send(400, {"error": "seconds must be a number"})
+                    return
+                try:
+                    self._send(200, outer._profiler(seconds))
+                except CaptureBusy as e:
+                    self._send(409, {"error": str(e)})
+                except CaptureUnavailable as e:
+                    self._send(503, {"error": str(e)})
+                except Exception as e:  # capture failed; stay serving
+                    self._send(500, {"error": f"capture failed: {e!r}"})
 
             def _handle_generate(self):
                 if outer._generator is None:

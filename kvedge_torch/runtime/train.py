@@ -39,7 +39,11 @@ from kvedge_torch.models.transformer import init_params, loss_fn
 from kvedge_torch.models.weights import expected_shapes
 from kvedge_torch.runtime.checkpoint import StateCheckpointer
 from kvedge_torch.runtime.config import RuntimeConfig
-from kvedge_torch.runtime.devicecheck import resolve_device, run_device_check
+from kvedge_torch.runtime.devicecheck import (
+    DeviceCheckResult,
+    resolve_device,
+    run_device_check,
+)
 
 TRAIN_PROGRESS_FILE = "train-progress.json"
 
@@ -98,10 +102,15 @@ def restore_latest_params(cfg: RuntimeConfig, tcfg, seed: int = 0):
 
 
 def run_train_payload(cfg: RuntimeConfig, device=None,
-                      dtype: str = "bfloat16") -> PayloadResult:
-    """The ``train`` payload (module doc)."""
+                      dtype: str = "bfloat16",
+                      check: DeviceCheckResult | None = None
+                      ) -> PayloadResult:
+    """The ``train`` payload (module doc). ``check`` is the device check
+    the caller already made (boot makes it against the config); None
+    makes one here."""
     dev = resolve_device(device)
-    check = run_device_check(dev)
+    if check is None:
+        check = run_device_check(device=dev)
     if not check.ok:
         return PayloadResult(ok=False, error=check.error)
     if not cfg.train_corpus:
@@ -157,10 +166,15 @@ def run_train_payload(cfg: RuntimeConfig, device=None,
 
 
 def run_eval_payload(cfg: RuntimeConfig, device=None,
-                     dtype: str = "bfloat16") -> PayloadResult:
-    """The ``eval`` payload (module doc)."""
+                     dtype: str = "bfloat16",
+                     check: DeviceCheckResult | None = None
+                     ) -> PayloadResult:
+    """The ``eval`` payload (module doc). ``check`` is the device check
+    the caller already made (boot makes it against the config); None
+    makes one here."""
     dev = resolve_device(device)
-    check = run_device_check(dev)
+    if check is None:
+        check = run_device_check(device=dev)
     if not check.ok:
         return PayloadResult(ok=False, error=check.error)
     if not (cfg.eval_corpus or cfg.train_corpus):

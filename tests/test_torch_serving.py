@@ -338,7 +338,7 @@ def test_config_reads_the_reference_toml_names_and_refuses_the_rest():
     for text, match in [
         ('[payload]\nserving_bundle = 1\n', "serving_bundle"),
         ('[payload]\nserving_window = "fast"\n', "serving_window"),
-        ('[mesh]\naxes = {data = 1}\n', "mesh"),
+        ('[mesh]\naxes = {data = 2}\n', "mesh"),
         ('[model]\npreset = "huge"\n', "preset"),
         ('[payload]\nserving = "ragged"\n', "serving must be"),
         ('[payload]\nserving_overlap = "sometimes"\n', "serving_overlap"),
@@ -361,8 +361,11 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
         "assert 'kvedge_torch.models.decode' in mods, mods\n"
         "assert 'kvedge_torch.models.speculative' in mods, mods\n"
         "assert 'kvedge_torch.models.moe' in mods, mods\n"
-        "for new in ('tracing', 'slo', 'autotune', 'debuglock', 'status'):\n"
+        "for new in ('tracing', 'slo', 'autotune', 'debuglock', 'status',\n"
+        "            'boot', 'probes', 'profiling', 'healthcheck'):\n"
         "    assert 'kvedge_torch.runtime.' + new in mods, mods\n"
+        "for new in ('bootdoc', 'mount', 'commands', 'entrypoint'):\n"
+        "    assert 'kvedge_torch.bootstrap.' + new in mods, mods\n"
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in\n"

@@ -91,19 +91,36 @@ def test_config_reads_the_reference_names_and_defaults():
 @pytest.mark.parametrize("text,match", [
     ('[payload]\nkind = "train"\ncorpus = "c"\nlearning_rate = 1.0\n',
      "learning_rate"),
-    ('[runtime]\nheartbeat_interval_s = 5.0\n', "heartbeat_interval_s"),
+    # A zero heartbeat interval (the key is read since the port boots as
+    # the reference does; 5.0 parses, see the test below).
+    ('[runtime]\nheartbeat_interval_s = 0.0\n',
+     "heartbeat_interval_s must be > 0"),
     ('[payload]\nkind = "train"\n', "requires corpus"),
     ('[payload]\nkind = "eval"\n', "requires corpus"),
-    ('[payload]\nkind = "probe"\n', "'serve', 'train' and 'eval'"),
+    # The reference's kinds and message.
+    ('[payload]\nkind = "probe"\n', "kind must be one of"),
     ('[payload]\nattention = "sparse"\n', "attention must be one of"),
     ('[payload]\nsteps = 0\ncorpus = "c"\n', "steps must be positive"),
     ('[payload]\nbatch = -1\n', "train_batch"),
     ('[runtime]\nstate_dir = 3\n', "state_dir"),
-    ('[tpu]\nplatform = "tpu"\n', "tpu"),
+    # [tpu] is read (platform and expected_chips); any other key of it
+    # is refused by name.
+    ('[tpu]\nplatform = "tpu"\nchips = 4\n', "tpu"),
 ])
 def test_config_refuses_unknown_keys_and_bad_values(text, match):
     with pytest.raises(RuntimeConfigError, match=match):
         RuntimeConfig.parse(text)
+
+
+@pytest.mark.parametrize("text,field,want", [
+    ('[runtime]\nheartbeat_interval_s = 5.0\n', "heartbeat_interval_s", 5.0),
+    ('[tpu]\nplatform = "tpu"\n', "expected_platform", "tpu"),
+    ('[tpu]\nexpected_chips = 2\n', "expected_chips", 2),
+])
+def test_config_reads_the_boot_keys_it_once_refused(text, field, want):
+    """Keys the port refused before it booted as the reference does; a
+    platform or chip count the card cannot give degrades the boot."""
+    assert getattr(RuntimeConfig.parse(text), field) == want
 
 
 def test_ring_attention_is_refused_at_the_model():
@@ -124,6 +141,9 @@ def _toml(tmp, **payload) -> pathlib.Path:
              "vocab = 128", "d_model = 64", "n_heads = 4", "n_layers = 2",
              "d_ff = 128", "[payload]"]
     lines += [f"{k} = {json.dumps(v)}" for k, v in fields.items()]
+    # Every entry point starts the runtime and its status server: an
+    # ephemeral port, so no two runs contend for the default one.
+    lines += ["[status]", "port = 0", 'bind = "127.0.0.1"']
     path = tmp / "x.toml"
     path.write_text("\n".join(lines) + "\n")
     return path
