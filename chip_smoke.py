@@ -228,11 +228,14 @@ imports nothing of JAX. Phases, each printing one JSON line:
             graphs and capture seconds it added are printed. At 2 layers
             a burst with ``serving_debug_locks = true`` returns the tokens
             of the plain locks.
-6j. boot    the runtime booted as a deployment boots it: the chart's
-            boot document through ``python -m
-            kvedge_torch.bootstrap.entrypoint`` in a child process
-            (bootcmd locate, runcmd ``kvedge-bootstrap apply`` then
-            ``kvedge-runtime boot``), the serve payload at the serve
+6j. boot    the runtime booted as a deployment boots it: the port's
+            chart rendered (``kvedge_torch.render``) for the phase's
+            TOML, its Secrets projected to the mount paths the rendered
+            Deployment names and its state PVC to a backing directory,
+            the container command after kvedge-init's ``--`` (``python
+            -m kvedge_torch.bootstrap.entrypoint``) run in a child
+            process (bootcmd locate, runcmd ``kvedge-bootstrap apply``
+            then ``kvedge-runtime boot``), the serve payload at the serve
             phase's settings (flagship, bf16, paged, max_seq 2048, 4
             slots, page 16, chunk 64, window 64, the prefix cache and
             its persistence on) on a fresh state directory, a 1 s
@@ -250,7 +253,10 @@ imports nothing of JAX. Phases, each printing one JSON line:
             ``paged_decode_kernel``, listed by GET /profile/traces,
             the fourth request's tokens unchanged and /healthz 200
             after it; a stray x.tmp, SIGTERM (exit 0, the registry
-            dumped), a second child on the same volume: boot_count 2,
+            dumped; the first child's peak RSS, VmHWM, at most the
+            rendered memory request, and the Deployment asking for
+            ``nvidia.com/gpu: 1``), a second child from the same render
+            on the same volume (the reschedule): boot_count 2,
             x.tmp swept, the registry re-pinned, the 1025-token prompt
             a hit with the first child's tokens; in process, the
             transformer probe at the flagship with ``attention =
@@ -4619,7 +4625,6 @@ def phase_train_fused(torch, np, kfns, training, tr, ttr, open_feeder,
 # ---- phase: boot ---------------------------------------------------------
 
 BOOT_DIR = os.path.join(HERE, "build", "chip_smoke_boot")
-BOOT_SERIAL = "KV9TPU3EDGE7R412"   # the chart's config-volume serial
 BOOT_TOKEN = "chip-smoke-boot"     # [status] token: POST needs the bearer
 BOOT_HEARTBEAT_S = 1.0
 BOOT_BUDGET_S = 120.0
@@ -4674,34 +4679,81 @@ def boot_toml(state_dir, port, device, preset, max_seq) -> str:
         f'port = {port}\nbind = "127.0.0.1"\ntoken = "{BOOT_TOKEN}"\n')
 
 
-def boot_document(root, toml, device) -> str:
-    """The chart's boot document (kvedge_tpu/render/bootconfig.py's
-    layout) and the config volume under ``root``; returns the
-    document's path."""
-    volume = os.path.join(root, "mnt", "disks", BOOT_SERIAL)
-    secret = os.path.join(root, "mnt", "boot-secret")
-    os.makedirs(volume)
-    os.makedirs(secret)
-    with open(os.path.join(volume, "userdata"), "w") as fh:
-        fh.write(toml)
-    boot_cmd = "kvedge-runtime boot --config /etc/kvedge/config.toml"
+def quantity_bytes(q: str) -> int:
+    """A Kubernetes memory quantity ("4096M", "6Gi", "5000000") in
+    bytes."""
+    suffixes = {"Ki": 2**10, "Mi": 2**20, "Gi": 2**30, "Ti": 2**40,
+                "K": 10**3, "M": 10**6, "G": 10**9, "T": 10**12}
+    for suffix, scale in suffixes.items():
+        if q.endswith(suffix) and q[:-len(suffix)].isdigit():
+            return int(q[:-len(suffix)]) * scale
+    return int(q)
+
+
+def boot_render(root, pvc_root, toml, device) -> dict:
+    """The port's chart rendered for the boot TOML
+    (``kvedge_torch.render``), projected under ``root`` as a kubelet
+    projects the rendered pod (as the port's fake cluster's ``boot_pod``
+    does): each Secret's base64 ``data`` to the mount path the rendered
+    Deployment names, the state PVC to a backing directory under
+    ``pvc_root`` linked at its mount path. Returns the child's argv (the
+    container command after kvedge-init's ``--``, ``python`` as this
+    interpreter, ``--boot-config`` rebased, ``--root``), the container's
+    env, its resources and the render's seconds. On the CPU the
+    projected document's runtime boot gets ``--device cpu``, as the fake
+    cluster adds it; a rendered pod runs on the card."""
+    import base64
+
+    from kvedge_torch.config.values import DEFAULT_VALUES
+    from kvedge_torch.render import render_all
+
+    t0 = time.perf_counter()
+    chart = render_all(DEFAULT_VALUES.replace(jaxRuntimeConfig=toml))
+    render_s = time.perf_counter() - t0
+    by_kind = {doc["kind"]: doc for doc in chart.manifests.values()
+               if doc["kind"] in ("Deployment", "PersistentVolumeClaim")}
+    secrets = {doc["metadata"]["name"]: doc
+               for doc in chart.manifests.values() if doc["kind"] == "Secret"}
+    pod = by_kind["Deployment"]["spec"]["template"]["spec"]
+    (container,) = pod["containers"]
+    volumes = {v["name"]: v for v in pod["volumes"]}
+
+    def rebase(path):
+        return os.path.join(root, path.lstrip("/"))
+
+    for mount in container["volumeMounts"]:
+        vol = volumes[mount["name"]]
+        target = rebase(mount["mountPath"])
+        if "secret" in vol:
+            os.makedirs(target)
+            data = secrets[vol["secret"]["secretName"]]["data"]
+            for key, b64 in data.items():
+                with open(os.path.join(target, key), "wb") as fh:
+                    fh.write(base64.b64decode(b64))
+        else:
+            claim = vol["persistentVolumeClaim"]["claimName"]
+            check(claim == by_kind["PersistentVolumeClaim"]["metadata"]
+                  ["name"], f"the Deployment mounts an unrendered {claim}")
+            backing = os.path.join(pvc_root, claim)
+            os.makedirs(backing)
+            os.makedirs(os.path.dirname(target), exist_ok=True)
+            os.symlink(backing, target)
+    command = container["command"]
+    argv = command[command.index("--") + 1:]
+    check(argv[:3] == ["python", "-m", "kvedge_torch.bootstrap.entrypoint"],
+          f"the rendered container runs {argv}")
+    argv[0] = sys.executable
+    at = argv.index("--boot-config") + 1
+    doc = argv[at] = rebase(argv[at])
     if device == "cpu":
-        boot_cmd += " --device cpu"
-    doc = os.path.join(secret, "userdata")
-    with open(doc, "w") as fh:
-        fh.write(
-            "#kvedge-boot-config\n"
-            "hostname: kvedgetpuvm\n"
-            "ssh_authorized_keys:\n"
-            '  - ""\n'
-            "bootcmd:\n"
-            f'  - "kvedge-bootstrap locate --serial {BOOT_SERIAL}'
-            ' --search-root /mnt/disks --link /mnt/app-secret"\n'
-            "runcmd:\n"
-            '  - "kvedge-bootstrap apply --source /mnt/app-secret/userdata'
-            ' --target /etc/kvedge/config.toml"\n'
-            f'  - "{boot_cmd}"\n')
-    return doc
+        with open(doc) as fh:
+            text = fh.read()
+        with open(doc, "w") as fh:
+            fh.write(text.replace("kvedge-runtime boot ",
+                                  "kvedge-runtime boot --device cpu "))
+    return {"argv": argv + ["--root", root],
+            "env": {e["name"]: e["value"] for e in container.get("env", [])},
+            "resources": container["resources"], "render_s": render_s}
 
 
 def boot_subdir(name) -> str:
@@ -4721,20 +4773,49 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def boot_child(root, doc, log_path):
-    """``python -m kvedge_torch.bootstrap.entrypoint`` on the document,
-    as the image's entrypoint runs it; output to ``log_path``."""
+def boot_child(pod, log_path):
+    """The rendered pod's entrypoint (``boot_render``'s argv and env) in
+    a child process, output to ``log_path``."""
     log = open(log_path, "ab")
     try:
         return subprocess.Popen(
-            [sys.executable, "-m", "kvedge_torch.bootstrap.entrypoint",
-             "--boot-config", doc, "--root", root],
-            cwd=HERE, stdout=log, stderr=subprocess.STDOUT,
+            pod["argv"], cwd=HERE, stdout=log, stderr=subprocess.STDOUT,
             # A child still alive when the phase ends gets SIGABRT first:
             # its threads' stacks land in the log.
-            env=dict(os.environ, PYTHONPATH=HERE, PYTHONFAULTHANDLER="1"))
+            env=dict(os.environ, **pod["env"], PYTHONPATH=HERE,
+                     PYTHONFAULTHANDLER="1"))
     finally:
         log.close()
+
+
+class PeakRss(threading.Thread):
+    """Reads a process's ``/proc/<pid>/status`` every 50 ms until it
+    exits: ``vmhwm`` is the last ``VmHWM`` (its peak resident set),
+    ``vmrss`` the largest ``VmRSS`` seen and ``last`` the latest (bytes;
+    None where the kernel reports no such line), ``keys`` the lines the
+    file has."""
+
+    def __init__(self, pid):
+        super().__init__(daemon=True)
+        self.path = f"/proc/{pid}/status"
+        self.vmhwm = self.vmrss = self.last = None
+        self.keys: list = []
+
+    def run(self):
+        while True:
+            try:
+                with open(self.path) as fh:
+                    fields = dict(line.split(":", 1) for line in fh
+                                  if ":" in line)
+            except OSError:
+                return
+            self.keys = sorted(set(self.keys) | set(fields))
+            if "VmHWM" in fields:
+                self.vmhwm = int(fields["VmHWM"].split()[0]) * 1024
+            if "VmRSS" in fields:
+                self.last = int(fields["VmRSS"].split()[0]) * 1024
+                self.vmrss = max(self.vmrss or 0, self.last)
+            time.sleep(0.05)
 
 
 def get_any(url, timeout=30):
@@ -4918,26 +4999,40 @@ def phase_boot(torch, np, kfns, serve, boot_mod, hc, RuntimeConfig,
     port = free_port()
     state_in_pod = "/var/lib/kvedge/state"
     state_dir = os.path.join(root, state_in_pod.lstrip("/"))
-    doc_path = boot_document(
-        root, boot_toml(state_in_pod, port, device, preset, max_seq), device)
+    pod = boot_render(root, os.path.join(BOOT_DIR, "pvc"),
+                      boot_toml(state_in_pod, port, device, preset, max_seq),
+                      device)
     log_path = os.path.join(BOOT_DIR, "child.log")
     base = f"http://127.0.0.1:{port}"
-    out: dict = {"phase": "boot", "model": preset, "max_seq": max_seq}
-    # Seconds each gate took, so an over-budget phase says where.
+    out: dict = {"phase": "boot", "model": preset, "max_seq": max_seq,
+                 "render_s": pod["render_s"]}
+    request = pod["resources"]["requests"]["memory"]
+    out["memory_request"] = request
+    out["gpu_limits"] = pod["resources"]["limits"]
+    check(pod["resources"]["limits"] == {"nvidia.com/gpu": 1},
+          f"the rendered Deployment asks for {pod['resources']['limits']}")
+    # Seconds each gate took, so an over-budget phase says where, and the
+    # first child's resident set as each of its gates ended.
     gate_s = out["gate_s"] = {}
+    gate_rss = out["gate_rss_bytes"] = {}
     t_gate = [time.perf_counter()]
+    peak = None
 
     def gate_done(name):
         now = time.perf_counter()
         gate_s[name] = now - t_gate[0]
         t_gate[0] = now
+        if peak is not None and peak.is_alive():
+            gate_rss[name] = peak.last
 
     children = []
     try:
         # Gate 1: booting first, then healthy.
         t_child = time.perf_counter()
-        child = boot_child(root, doc_path, log_path)
+        child = boot_child(pod, log_path)
         children.append(child)
+        peak = PeakRss(child.pid)
+        peak.start()
         out["first"] = wait_booting(base, child, log_path)
         ok, detail = hc.wait_healthy(base + "/healthz", deadline_s=90.0,
                                      interval_s=0.1)
@@ -5086,10 +5181,31 @@ def phase_boot(torch, np, kfns, serve, boot_mod, hc, RuntimeConfig,
         out["sigterm_exit_s"] = time.perf_counter() - t0
         out["sigterm_rc"] = child.returncode
         check(child.returncode == 0, f"the child exited {child.returncode}")
+        # The first child's peak resident set, its shutdown's dump
+        # included, against the rendered memory request: the larger of
+        # VmHWM, where /proc reports it, and the largest VmRSS sampled.
+        # (Not the reaped child's ru_maxrss: the kernel carries the
+        # forking parent's resident set over into it at exec.)
+        peak.join(timeout=10)
+        out["rss"] = {"vmhwm_bytes": peak.vmhwm, "vmrss_max_bytes":
+                      peak.vmrss, "proc_status_keys": [
+                          k for k in peak.keys if k.startswith("Vm")]}
+        peak_bytes = max((b for b in (peak.vmhwm, peak.vmrss)
+                          if b is not None), default=None)
+        check(peak_bytes is not None, f"no VmHWM or VmRSS in "
+              f"/proc/{child.pid}/status: {peak.keys}")
+        out["peak_rss_bytes"] = peak_bytes
+        out["peak_rss_gib"] = peak_bytes / 2**30
+        out["memory_request_bytes"] = quantity_bytes(request)
+        print(json.dumps({"boot_rss": out["rss"], "gate_rss_bytes":
+                          gate_rss, "memory_request": request}), flush=True)
+        check(peak_bytes <= out["memory_request_bytes"],
+              f"the child's peak RSS {peak_bytes} B exceeds the rendered "
+              f"memory request {request}")
         check(os.path.exists(os.path.join(state_dir, "prefix-cache.npz")),
               "no prefix-cache.npz after SIGTERM")
         t_child = time.perf_counter()
-        child = boot_child(root, doc_path, log_path)
+        child = boot_child(pod, log_path)
         children.append(child)
         ok, detail = hc.wait_healthy(base + "/healthz", deadline_s=90.0,
                                      interval_s=0.1)

@@ -20,7 +20,9 @@ reference. This package ports the reference's main path slice by slice:
   "dots"``, and the runtime's boot contract: ``kvedge-runtime boot``
   from a ``#kvedge-boot-config`` document (``bootstrap/``), heartbeats
   with ``boot_count``, the probe payloads, ``/profile`` on
-  ``torch.profiler`` and the health probe (``runtime/boot.py``).
+  ``torch.profiler`` and the health probe (``runtime/boot.py``), and
+  the GPU deployment: the renderer (``render/``), its chart and image
+  (``deployment/gpu/``) and the fake cluster (``testing/``).
   ``ROADMAP.md`` lists what is still to port.
 
 Ground rules, kept by every module here:

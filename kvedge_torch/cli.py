@@ -1,10 +1,23 @@
-"""``python -m kvedge_torch serve|train|eval|boot``: the port's entry points.
+"""``python -m kvedge_torch serve|train|eval|boot|render|notes|version|package``:
+the port's entry points.
 
-    serve  [--config x.toml] [--preset P] [--max-seq N] [--port P]
-           [--bind H] [--device cuda|cpu] [--seed S] [--dtype D]
-    train  --config x.toml [--preset P] [--device cuda|cpu] [--dtype D]
-    eval   --config x.toml [--preset P] [--device cuda|cpu] [--dtype D]
-    boot   --config x.toml [--once] [--device cuda|cpu]
+    serve   [--config x.toml] [--preset P] [--max-seq N] [--port P]
+            [--bind H] [--device cuda|cpu] [--seed S] [--dtype D]
+    train   --config x.toml [--preset P] [--device cuda|cpu] [--dtype D]
+    eval    --config x.toml [--preset P] [--device cuda|cpu] [--dtype D]
+    boot    --config x.toml [--once] [--device cuda|cpu]
+    render  [--set K=V ...] [--set-file K=PATH ...] [--output-dir D]
+    notes   [--set K=V ...] [--set-file K=PATH ...]
+    version
+    package [--chart-dir D] [--out-dir D]
+
+``render``, ``notes``, ``version`` and ``package`` are the JAX package's
+deployment commands (``kvedge_tpu/cli.py``) over the port's GPU chart:
+``render`` writes the manifest set for ``kubectl apply -f`` (to stdout,
+or one file a manifest under ``--output-dir``) and prints the NOTES;
+``package`` writes ``deployment/gpu/helm`` (by default) as a
+byte-reproducible ``<name>-<version>.tgz`` that honours its
+``.helmignore``. They touch no device and import no torch.
 
 Every one starts the runtime (``runtime/boot.start_runtime``): the
 status server, the heartbeats with this boot's ``boot_count`` in the
@@ -31,7 +44,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import pathlib
 import signal
+import sys
 
 from kvedge_torch.runtime.config import RuntimeConfig
 
@@ -105,6 +120,122 @@ def _boot(args) -> int:
     return 0
 
 
+def _add_value_flags(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--set", dest="sets", action="append", default=[],
+        metavar="KEY=VALUE",
+        help="override a chart value (helm --set analogue)")
+    parser.add_argument(
+        "--set-file", dest="set_files", action="append", default=[],
+        metavar="KEY=PATH",
+        help="set a chart value from a file (helm --set-file analogue)")
+
+
+def _resolve_values(args):
+    from kvedge_torch.config.values import (
+        DEFAULT_VALUES,
+        parse_set_file_flag,
+        parse_set_flag,
+    )
+
+    values = DEFAULT_VALUES
+    for assignment in args.sets:
+        values = parse_set_flag(values, assignment)
+    for assignment in args.set_files:
+        values = parse_set_file_flag(values, assignment)
+    return values
+
+
+def _render(args) -> int:
+    from kvedge_torch.render import render_all, to_multidoc_yaml, to_yaml
+
+    chart = render_all(_resolve_values(args))
+    if args.output_dir:
+        out = pathlib.Path(args.output_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        for filename, doc in chart.ordered():
+            (out / filename).write_text(to_yaml(doc))
+        print(f"wrote {len(chart.manifests)} manifests to {out}",
+              file=sys.stderr)
+    else:
+        print(to_multidoc_yaml([doc for _, doc in chart.ordered()]), end="")
+    print(chart.notes, file=sys.stderr)
+    return 0
+
+
+def _notes(args) -> int:
+    from kvedge_torch.render.manifests import render_notes
+
+    print(render_notes(_resolve_values(args)), end="")
+    return 0
+
+
+def _version(args) -> int:
+    from kvedge_torch.version import CHART_NAME, CHART_VERSION
+
+    print(f"{CHART_NAME} {CHART_VERSION}")
+    return 0
+
+
+def _package(args) -> int:
+    """Package a Helm chart as ``<name>-<version>.tgz`` (helm package
+    analogue): ``Chart.yaml``'s name and version, every file of the tree
+    but those ``.helmignore`` excludes (the dead prepopulated-volume
+    template among them), and a byte-reproducible archive (zero mtimes
+    in the tar and in the gzip header)."""
+    import gzip
+    import io
+    import tarfile
+
+    import yaml
+
+    from kvedge_torch.render.helmlite import (
+        helmignore_matches,
+        load_helmignore,
+    )
+
+    chart_dir = pathlib.Path(args.chart_dir)
+    chart_yaml = chart_dir / "Chart.yaml"
+    if not chart_yaml.is_file():
+        raise ValueError(f"{chart_dir} has no Chart.yaml")
+    meta = yaml.safe_load(chart_yaml.read_text())
+    try:
+        name, version = meta["name"], str(meta["version"])
+    except (TypeError, KeyError):
+        raise ValueError(f"{chart_yaml} must declare name and version")
+    patterns = load_helmignore(chart_dir)
+    out_dir = pathlib.Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out_path = out_dir / f"{name}-{version}.tgz"
+
+    members = []
+    for path in sorted(chart_dir.rglob("*")):
+        if not path.is_file():
+            continue
+        rel = path.relative_to(chart_dir).as_posix()
+        if rel != ".helmignore" and helmignore_matches(rel, patterns):
+            continue
+        members.append((rel, path.read_bytes()))
+
+    with open(out_path, "wb") as raw:
+        with gzip.GzipFile(fileobj=raw, mode="wb", mtime=0) as gz:
+            with tarfile.open(fileobj=gz, mode="w") as tar:
+                for rel, data in members:
+                    info = tarfile.TarInfo(f"{name}/{rel}")
+                    info.size = len(data)
+                    info.mtime = 0
+                    info.mode = 0o644
+                    tar.addfile(info, io.BytesIO(data))
+    print(f"wrote {out_path}", file=sys.stderr)
+    return 0
+
+
+GPU_CHART = pathlib.Path(__file__).resolve().parent.parent / "deployment" / \
+    "gpu" / "helm"
+DEPLOY_COMMANDS = {"render": _render, "notes": _notes, "version": _version,
+                   "package": _package}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m kvedge_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -130,7 +261,27 @@ def main(argv=None) -> int:
                        default="bfloat16")
     for p in (sp, tp, ep, bp):
         p.add_argument("--device", choices=("cuda", "cpu"), default=None)
+    rp = sub.add_parser("render", help="render the GPU chart's manifest "
+                        "set (helm template/install analogue)")
+    _add_value_flags(rp)
+    rp.add_argument("--output-dir",
+                    help="write manifests here instead of stdout")
+    np_ = sub.add_parser("notes", help="print post-install usage notes")
+    _add_value_flags(np_)
+    sub.add_parser("version", help="print chart/app version")
+    pp = sub.add_parser("package", help="package a Helm chart as "
+                        "<name>-<version>.tgz (honours .helmignore)")
+    pp.add_argument("--chart-dir", default=str(GPU_CHART),
+                    help="chart directory (default: the GPU chart)")
+    pp.add_argument("--out-dir", default=".",
+                    help="where to write the .tgz (default: cwd)")
     args = ap.parse_args(argv)
+    if args.cmd in DEPLOY_COMMANDS:
+        try:
+            return DEPLOY_COMMANDS[args.cmd](args)
+        except (ValueError, OSError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
     if args.cmd == "boot":
         return _boot(args)
     return _serve(args) if args.cmd == "serve" else _payload(args)

@@ -564,20 +564,23 @@ class _WindowHandle:
     (``event`` is None on the CPU, where the block is already there).
     ``timing`` is the (start, end) CUDA event pair around its graph
     replay; ``host_ms`` the host time of an eager CPU run
-    (:meth:`PagedKVCache.window_device_ms` reads one of them)."""
+    (:meth:`PagedKVCache.window_device_ms` reads one of them).
+    ``captured`` is true when its dispatch captured the graph first."""
 
     n_steps: int
     block: torch.Tensor
     event: "torch.cuda.Event | None"
     timing: tuple | None = None
     host_ms: float | None = None
+    captured: bool = False
 
 
 @dataclasses.dataclass
 class _SpecHandle:
     """A dispatched spec window: its outputs on the host once ``event``
     fired (``event`` is None on the CPU), and the worst-case advance
-    per slot its dispatch reserved (:meth:`PagedKVCache.spec_window_caps`)."""
+    per slot its dispatch reserved (:meth:`PagedKVCache.spec_window_caps`);
+    ``captured`` as for :class:`_WindowHandle`."""
 
     caps: np.ndarray
     emitted: torch.Tensor
@@ -586,6 +589,7 @@ class _SpecHandle:
     event: "torch.cuda.Event | None"
     timing: tuple | None = None
     host_ms: float | None = None
+    captured: bool = False
 
 
 class PagedKVCache:
@@ -701,6 +705,9 @@ class PagedKVCache:
         # The event pair of the latest replay: the window or spec window
         # being dispatched takes it into its handle.
         self._last_timing: tuple | None = None
+        # Whether that dispatch captured its graph first (the server
+        # keeps such a window's round trip from the window controller).
+        self._last_captured = False
         # The device ms of the window or spec window harvested last
         # (window_device_ms), for the server's histogram and controller.
         self.last_window_ms: float | None = None
@@ -1419,6 +1426,7 @@ class PagedKVCache:
         for name, host in (sampling or {}).items():
             self._upload(name, host)
         self._last_timing = None
+        self._last_captured = False
         t0 = time.perf_counter()
         out = self._run_device_window(params, n_steps, sampling is not None)
         run_ms = (time.perf_counter() - t0) * 1e3
@@ -1429,7 +1437,8 @@ class PagedKVCache:
             block = out.to("cpu", non_blocking=True)
             event = torch.cuda.Event()
             event.record()
-            return _WindowHandle(n_steps, block, event, self._last_timing)
+            return _WindowHandle(n_steps, block, event, self._last_timing,
+                                 captured=self._last_captured)
         return _WindowHandle(n_steps, out, None, host_ms=run_ms)
 
     def _run_device_window(self, params, n_steps: int,
@@ -1468,6 +1477,7 @@ class PagedKVCache:
             graph = self._capture(run, inputs, idle,
                                   graphs is self._prefill_graphs)
             graphs[key] = graph
+            self._last_captured = True
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1682,6 +1692,7 @@ class PagedKVCache:
                     ("sampled_mask", np.asarray(sampled_mask, bool))):
                 self._upload(name, host, inp)
         self._last_timing = None
+        self._last_captured = False
         t0 = time.perf_counter()
         emitted, counts, pending = self._run_device_spec_window(
             params, n_passes, k_len, sampling is not None)
@@ -1695,7 +1706,8 @@ class PagedKVCache:
                     for t in (emitted, counts, pending)]
             event = torch.cuda.Event()
             event.record()
-            return _SpecHandle(caps, *outs, event, self._last_timing)
+            return _SpecHandle(caps, *outs, event, self._last_timing,
+                               captured=self._last_captured)
         return _SpecHandle(caps, emitted, counts, pending, None,
                            host_ms=run_ms)
 

@@ -258,6 +258,10 @@ class PagedGenerationServer:
         # mutated under the lock at each harvest, never recreated, so
         # what it learned rides through revive().
         self._autotune = None
+        # Harvested windows kept from the controller because a graph
+        # capture ran inside their round trip (1-2 s under the lock on
+        # the card, which would read as a huge R).
+        self._autotune_skipped_captures = 0
         if window == "auto":
             self._autotune = WindowController(lo=window_min, hi=window_max)
             window = self._autotune.window()
@@ -748,6 +752,8 @@ class PagedGenerationServer:
             out["autotune_r_ms"] = round(snap["r_ms"], 3)
             out["autotune_t_ms"] = round(snap["t_ms"], 4)
             out["autotune_updates"] = snap["updates"]
+            out["autotune_skipped_captures"] = (
+                self._autotune_skipped_captures)
             if self._spec_window_cap:
                 out["autotune_spec_window"] = self._spec_window
         return out
@@ -2910,6 +2916,10 @@ class PagedGenerationServer:
                                 # Speculation went off with a spec window
                                 # in flight: collapse to a boundary.
                                 self._spec_window_fallbacks["spec_off"] += 1
+                            if (self._inflight is not None
+                                    and self._inflight["captured"]):
+                                # N's round trip now spans N+1's capture.
+                                prev["captured"] = True
                         elif self.tracer is not None:
                             # The pipeline collapses so a cancel, a
                             # newcomer or a swap joins reconciled.
@@ -3036,7 +3046,8 @@ class PagedGenerationServer:
             self._depth1_windows += 1
         self._hist_depth.observe(0.0 if first else 1.0)
         return {"window": w, "parts": recs, "handle": handle,
-                "depth": 0 if first else 1, "t0": time.perf_counter()}
+                "depth": 0 if first else 1, "t0": time.perf_counter(),
+                "captured": handle.captured}
 
     def _harvest_locked(self, rec: dict) -> None:
         """Read an in-flight window's block and reconcile (lock held):
@@ -3078,13 +3089,24 @@ class PagedGenerationServer:
         self._overlap_windows += 1
         host_ms = (time.perf_counter() - t_host) * 1e3
         self._hist_host.observe(host_ms)
-        if self._autotune is not None and device_ms is not None:
+        if (self._autotune is not None and device_ms is not None
+                and not self._autotune_skips_locked(rec)):
             # This window's split into the controller; its pick serves
             # the NEXT dispatch (the carry is one token row, whatever W).
             self._autotune.observe(
                 rtt_ms=(t_harvest - rec["t0"]) * 1e3, device_ms=device_ms,
                 host_ms=host_ms, window=rec["window"])
             self._window = self._autotune.window()
+
+    def _autotune_skips_locked(self, rec: dict) -> bool:
+        """True (and counted) when the controller must not learn from
+        this harvested window: a graph capture ran inside its round trip,
+        its own dispatch's or the next window's, dispatched while it
+        flew."""
+        if not rec["captured"]:
+            return False
+        self._autotune_skipped_captures += 1
+        return True
 
     def _observe_harvest_locked(self, rec: dict, name: str, t_force: float,
                                 t_harvest: float) -> float | None:
@@ -3163,7 +3185,8 @@ class PagedGenerationServer:
         self._hist_depth.observe(0.0 if first else 1.0)
         return {"kind": "spec_sampled" if samplers else "spec",
                 "window": w, "parts": recs, "handle": handle,
-                "depth": 0 if first else 1, "t0": time.perf_counter()}
+                "depth": 0 if first else 1, "t0": time.perf_counter(),
+                "captured": handle.captured}
 
     def _harvest_spec_window_locked(self, rec: dict) -> None:
         """Read an in-flight spec window and reconcile (lock held). Each
@@ -3224,7 +3247,8 @@ class PagedGenerationServer:
         self._overlap_windows += 1
         host_ms = (time.perf_counter() - t_host) * 1e3
         self._hist_host.observe(host_ms)
-        if self._autotune is not None and device_ms is not None:
+        if (self._autotune is not None and device_ms is not None
+                and not self._autotune_skips_locked(rec)):
             # The spec-depth channel keeps its own (R, t): a verify pass
             # costs another device time than a step. Its pick applies
             # only at a true boundary (the next spec dispatch rebuilds

@@ -1,0 +1,489 @@
+"""Build the GPU chart's Kubernetes manifests as plain dicts.
+
+The port's copy of ``kvedge_tpu/render/manifests.py``. Each function
+mirrors one reference template; the rendered set is the JAX package's
+single-host set under ``torch-gpu-*`` keys:
+
+==============================================  ================================
+kvedge-torch manifest                           reference template
+==============================================  ================================
+``torch-gpu-runtime.yaml`` (Deployment)         ``aziot-edge-vm.yaml`` (VM)
+``torch-gpu-state-volume.yaml`` (PVC)           ``aziot-edge-data-volume-container.yaml``
+``torch-gpu-state-volume-prepopulated.yaml``    ``aziot-edge-data-volume-disk.yaml``
+  (dead alternative, excluded by .helmignore)     (dead alternative, excluded)
+``torch-gpu-runtime-config-secret.yaml``        ``aziot-edge-runtime-config-secret.yaml``
+``torch-gpu-boot-config-secret.yaml``           ``aziot-edge-vm-cloud-init-secret.yaml``
+``torch-gpu-runtime-service.yaml``              ``aziot-edge-vm-service.yaml``
+  (conditional)
+``torch-gpu-healthz-test.yaml``                 — (the reference verifies by
+  (conditional ``helm test`` hook Pod)            hand, its ``NOTES.txt:8-12``)
+==============================================  ================================
+
+What is TPU-specific changes, and nothing else: the image
+(:data:`RUNTIME_IMAGE`, built by ``deployment/gpu/Dockerfile``), the node
+selector (``nvidia.com/gpu.product``, the label NVIDIA's GPU feature
+discovery sets), the device request (one ``nvidia.com/gpu``), the pod's
+memory request (:data:`POD_MEMORY`), and the modules the containers run
+(``kvedge_torch.bootstrap.entrypoint``,
+``kvedge_torch.runtime.healthcheck``). The multi-host variant (a
+StatefulSet and its headless service) is not rendered: the port runs one
+process on one host, and asking for it raises.
+
+The KubeVirt VM becomes a ``Deployment`` with ``replicas: 1`` and
+``strategy: Recreate`` holding a ReadWriteOnce state PVC: on node failure the
+controller reschedules the pod and the PVC re-attaches — the same resilience
+story (and the same node-bound-PVC caveat) as the reference's VM + DataVolume
+(``README.md:88-89``). ``Recreate`` guarantees at most one pod holds the RWO
+volume, as only one VM held the reference's boot disk.
+"""
+
+from __future__ import annotations
+
+import base64
+import dataclasses
+
+from kvedge_torch.config.values import MULTIHOST, ChartValues
+from kvedge_torch.render import bootconfig
+from kvedge_torch.render.names import (
+    DOMAIN_LABEL,
+    OS_LABEL,
+    common_labels,
+    resource_name,
+)
+from kvedge_torch.runtime.config import RuntimeConfig
+from kvedge_torch.runtime.heartbeat import INIT_EVENTS_FILE
+from kvedge_torch.version import APP_VERSION, CHART_NAME
+
+# The prebuilt GPU runtime image: PyTorch for CUDA, the port and its
+# kernels built for sm_90a. Built by deployment/gpu/Dockerfile.
+RUNTIME_IMAGE = f"kvedgedev/torch-gpu-runtime:{APP_VERSION}"
+
+# GPU node-selector key (NVIDIA GPU feature discovery's product label);
+# the value comes from values.tpuAccelerator.
+GPU_PRODUCT_SELECTOR = "nvidia.com/gpu.product"
+
+# Hardcoded pod resources, mirroring the reference's fixed VM size:
+# 4 cores (aziot-edge-vm.yaml:18) and one GPU. The memory request covers
+# the serve payload's peak resident set at the flagship's full width:
+# 6.35 GiB (the largest VmRSS sampled, 6,820,671,488 B) on an NVIDIA H100
+# 80GB HBM3 at a 700 W power limit, in chip_smoke.py's boot phase, which
+# gates it; 8Gi leaves ~26% above it.
+POD_CPU = "4"
+POD_MEMORY = "8Gi"
+GPU_RESOURCE = "nvidia.com/gpu"
+GPU_COUNT = 1
+
+STATE_MOUNT = "/var/lib/kvedge/state"
+# Native PID-1 supervisor (native/kvedge-init.cc), built into the image.
+# Its event log lives on the state volume so supervision history survives
+# rescheduling; the status server surfaces it at /status. The filename is
+# owned by the runtime module that reads it back.
+INIT_BIN = "/opt/kvedge/bin/kvedge-init"
+INIT_EVENTS_PATH = f"{STATE_MOUNT}/{INIT_EVENTS_FILE}"
+SSH_PORT = 22
+# Default status port is owned by RuntimeConfig; the rendered containerPort /
+# Service / NOTES follow the operator's [status] port when a runtime config
+# is provided (see status_port()), so the two can't drift.
+STATUS_PORT = RuntimeConfig.status_port
+
+
+def parsed_runtime_config(values: ChartValues) -> RuntimeConfig:
+    """The runtime config the opaque TOML value declares (defaults if empty).
+
+    Parsing it at render time also validates it: a config the port's
+    runtime would refuse fails the render, not the booted pod.
+    """
+    if not values.jaxRuntimeConfig:
+        return RuntimeConfig()
+    return RuntimeConfig.parse(values.jaxRuntimeConfig)
+
+
+def status_port(values: ChartValues) -> int:
+    """The status port the manifests must expose."""
+    port = parsed_runtime_config(values).status_port
+    if port == 0:
+        raise ValueError(
+            "[status] port 0 (ephemeral) is only valid for local runs; "
+            "manifests need a concrete port to expose"
+        )
+    return port
+
+
+def _b64(text: str) -> str:
+    return base64.b64encode(text.encode("utf-8")).decode("ascii")
+
+
+def state_volume(values: ChartValues) -> dict:
+    """State PVC — the DataVolume analogue.
+
+    Reference: ``aziot-edge-data-volume-container.yaml``. Pods boot from
+    the OCI image instead of a disk, so the PVC holds only durable runtime
+    *state* (heartbeats, checkpoints, the prefix registry); it is
+    dynamically provisioned from the cluster's default storage class.
+    """
+    name = resource_name(values.nameOverride)
+    return {
+        "apiVersion": "v1",
+        "kind": "PersistentVolumeClaim",
+        "metadata": {
+            "name": f"{name}-runtime-dv",
+            "labels": common_labels(),
+        },
+        "spec": {
+            "accessModes": ["ReadWriteOnce"],
+            "resources": {"requests": {"storage": values.tpuRuntimeDiskSize}},
+        },
+    }
+
+
+def state_volume_prepopulated(values: ChartValues) -> dict:
+    """Dead alternative to :func:`state_volume` — excluded from packaging.
+
+    Reference: ``aziot-edge-data-volume-disk.yaml``, excluded by its
+    ``.helmignore:24``. The analogue: a PVC of the same name prepopulated
+    from a volume snapshot, likewise excluded by
+    ``deployment/gpu/helm/.helmignore`` and by :func:`render_all`.
+    """
+    doc = state_volume(values)
+    doc["spec"]["dataSourceRef"] = {
+        "apiGroup": "snapshot.storage.k8s.io",
+        "kind": "VolumeSnapshot",
+        "name": "torch-gpu-runtime-state-seed",
+    }
+    return doc
+
+
+def runtime_config_secret(values: ChartValues) -> dict:
+    """Opaque runtime-config Secret.
+
+    Reference: ``aziot-edge-runtime-config-secret.yaml`` — the user's
+    config.toml base64'd under the key ``userdata``.
+    """
+    name = resource_name(values.nameOverride)
+    return {
+        "apiVersion": "v1",
+        "kind": "Secret",
+        "metadata": {"name": f"{name}-runtime-jaxconfig"},
+        "data": {"userdata": _b64(values.jaxRuntimeConfig)},
+    }
+
+
+def boot_config_secret(values: ChartValues) -> dict:
+    """Boot-config Secret — the cloud-init Secret analogue.
+
+    Reference: ``aziot-edge-vm-cloud-init-secret.yaml``, named through the
+    name helper (see :mod:`kvedge_torch.render.names`).
+    """
+    name = resource_name(values.nameOverride)
+    return {
+        "apiVersion": "v1",
+        "kind": "Secret",
+        "metadata": {"name": f"{name}-runtime-bootconfig"},
+        "data": {"userdata": _b64(bootconfig.boot_config_document(values))},
+    }
+
+
+def runtime_deployment(values: ChartValues) -> dict:
+    """The core resource: the GPU runtime Deployment — the VM analogue.
+
+    Reference: ``aziot-edge-vm.yaml``. Correspondences:
+
+    * ``running: true`` (:9) -> ``replicas: 1`` + ``strategy: Recreate``;
+    * 4 cores / q35 (:18,:37) -> cpu 4 requests, the memory the serve
+      payload peaks at, and one GPU;
+    * bootdisk -> DataVolume (:46-48) -> the state PVC mount;
+    * serial-tagged config disk -> Secret (:25-28,:49-51) -> the config
+      Secret mounted under ``/mnt/disks/<serial>``;
+    * cloudInitNoCloud cdrom (:29-31,:52-57) -> the boot-config Secret
+      mounted at ``/mnt/boot-secret``, consumed by the entrypoint;
+    * masquerade NIC + static MAC (:32-35) -> GPU-product node selector
+      (the stable hardware identity) + pod networking;
+    * ``kubevirt.io/domain`` label (:14) -> ``kvedge.dev/domain``.
+    """
+    name = resource_name(values.nameOverride)
+    port = status_port(values)
+    pod_labels = dict(common_labels())
+    pod_labels[DOMAIN_LABEL] = f"{name}-runtime"
+    return {
+        "apiVersion": "apps/v1",
+        "kind": "Deployment",
+        "metadata": {
+            "labels": {OS_LABEL: "linux"},
+            "name": f"{name}-runtime",
+        },
+        "spec": {
+            "replicas": 1,
+            "strategy": {"type": "Recreate"},
+            "selector": {"matchLabels": {DOMAIN_LABEL: f"{name}-runtime"}},
+            "template": {
+                "metadata": {"labels": pod_labels},
+                "spec": {
+                    "hostname": bootconfig.RUNTIME_HOSTNAME,
+                    "nodeSelector": {
+                        GPU_PRODUCT_SELECTOR: values.tpuAccelerator
+                    },
+                    "containers": [
+                        {
+                            "name": "runtime",
+                            "image": RUNTIME_IMAGE,
+                            "command": [
+                                INIT_BIN,
+                                "--events",
+                                INIT_EVENTS_PATH,
+                                "--",
+                                "python",
+                                "-m",
+                                "kvedge_torch.bootstrap.entrypoint",
+                                "--boot-config",
+                                f"{bootconfig.BOOT_SECRET_MOUNT}/userdata",
+                            ],
+                            "ports": [
+                                {"containerPort": SSH_PORT, "name": "ssh"},
+                                {"containerPort": port, "name": "status"},
+                            ],
+                            # Single-host topology, re-stated to the
+                            # runtime so boot refuses a TOML declaring
+                            # [distributed] num_processes > 1.
+                            "env": [
+                                {
+                                    "name": "KVEDGE_EXPECTED_PROCESSES",
+                                    "value": "1",
+                                },
+                            ],
+                            "resources": {
+                                "requests": {
+                                    "cpu": POD_CPU,
+                                    "memory": POD_MEMORY,
+                                },
+                                "limits": {GPU_RESOURCE: GPU_COUNT},
+                            },
+                            # Probes target /version (server-alive), NOT
+                            # /healthz: a degraded runtime must stay
+                            # reachable for debugging, so kubelet must
+                            # neither kill it nor pull it from the service
+                            # endpoints. /healthz (503 when degraded) is
+                            # for external monitors.
+                            "livenessProbe": {
+                                "httpGet": {
+                                    "path": "/version",
+                                    "port": "status",
+                                },
+                                # A cold pod's first graph captures are
+                                # slow.
+                                "initialDelaySeconds": 120,
+                                "periodSeconds": 10,
+                            },
+                            "readinessProbe": {
+                                "httpGet": {
+                                    "path": "/version",
+                                    "port": "status",
+                                },
+                                "initialDelaySeconds": 5,
+                                "periodSeconds": 10,
+                            },
+                            "volumeMounts": [
+                                {
+                                    "name": "statedisk",
+                                    "mountPath": STATE_MOUNT,
+                                },
+                                {
+                                    "name": "jaxconfigdisk",
+                                    "mountPath": (
+                                        f"{bootconfig.DISKS_ROOT}/"
+                                        f"{bootconfig.CONFIG_SERIAL}"
+                                    ),
+                                    "readOnly": True,
+                                },
+                                {
+                                    "name": "bootconfigdisk",
+                                    "mountPath": bootconfig.BOOT_SECRET_MOUNT,
+                                    "readOnly": True,
+                                },
+                            ],
+                        }
+                    ],
+                    "volumes": [
+                        {
+                            "name": "statedisk",
+                            "persistentVolumeClaim": {
+                                "claimName": f"{name}-runtime-dv"
+                            },
+                        },
+                        {
+                            "name": "jaxconfigdisk",
+                            "secret": {
+                                "secretName": f"{name}-runtime-jaxconfig"
+                            },
+                        },
+                        {
+                            "name": "bootconfigdisk",
+                            "secret": {
+                                "secretName": f"{name}-runtime-bootconfig"
+                            },
+                        },
+                    ],
+                },
+            },
+        },
+    }
+
+
+def runtime_statefulset(values: ChartValues) -> dict:
+    """The JAX package's multi-host StatefulSet: not rendered here."""
+    raise ValueError(f"runtime_statefulset: {MULTIHOST}")
+
+
+def hosts_service(values: ChartValues) -> dict:
+    """The JAX package's multi-host headless service: not rendered here."""
+    raise ValueError(f"hosts_service: {MULTIHOST}")
+
+
+def access_service(values: ChartValues) -> dict | None:
+    """Conditional LoadBalancer for external SSH + status access.
+
+    Reference: ``aziot-edge-vm-service.yaml`` — rendered only when the
+    enable flag is true (:1), LoadBalancer on TCP 22 (:13-17), selecting the
+    runtime pod by domain label (:10-11), ``externalTrafficPolicy: Cluster``
+    (:9). The status port rides alongside SSH.
+    """
+    if not values.tpuRuntimeEnableExternalSsh:
+        return None
+    name = resource_name(values.nameOverride)
+    port = status_port(values)
+    return {
+        "apiVersion": "v1",
+        "kind": "Service",
+        "metadata": {
+            "labels": common_labels(),
+            "name": f"{name}-runtime-ssh-service",
+        },
+        "spec": {
+            "externalTrafficPolicy": "Cluster",
+            "selector": {DOMAIN_LABEL: f"{name}-runtime"},
+            "ports": [
+                {
+                    "name": "ssh",
+                    "protocol": "TCP",
+                    "port": SSH_PORT,
+                    "targetPort": SSH_PORT,
+                },
+                {
+                    "name": "status",
+                    "protocol": "TCP",
+                    "port": port,
+                    "targetPort": port,
+                },
+            ],
+            "type": "LoadBalancer",
+        },
+    }
+
+
+def healthz_test_pod(values: ChartValues) -> dict | None:
+    """``helm test`` hook Pod: polls the runtime's /healthz in-cluster.
+
+    Runs the image's :mod:`kvedge_torch.runtime.healthcheck` against the
+    access Service's stable in-cluster DNS name. With the Service
+    disabled there is no stable DNS target, so no hook renders (``helm
+    test`` then reports no tests, the reference's "verify by hand"
+    posture).
+    """
+    if not values.tpuRuntimeEnableExternalSsh:
+        return None
+    name = resource_name(values.nameOverride)
+    port = status_port(values)
+    return {
+        "apiVersion": "v1",
+        "kind": "Pod",
+        "metadata": {
+            "labels": common_labels(),
+            "annotations": {
+                "helm.sh/hook": "test",
+                "helm.sh/hook-delete-policy":
+                    "before-hook-creation,hook-succeeded",
+            },
+            "name": f"{name}-runtime-healthz-test",
+        },
+        "spec": {
+            "restartPolicy": "Never",
+            "containers": [
+                {
+                    "name": "healthz",
+                    "image": RUNTIME_IMAGE,
+                    "command": [
+                        "python",
+                        "-m",
+                        "kvedge_torch.runtime.healthcheck",
+                        f"http://{name}-runtime-ssh-service:{port}/healthz",
+                        "--deadline",
+                        "240",
+                    ],
+                }
+            ],
+        },
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderedChart:
+    """The rendered manifest set, keyed by output filename."""
+
+    manifests: dict[str, dict]
+    notes: str
+
+    def ordered(self) -> list[tuple[str, dict]]:
+        return sorted(self.manifests.items())
+
+
+def render_notes(values: ChartValues) -> str:
+    """Post-install usage text (reference: ``templates/NOTES.txt``)."""
+    name = resource_name(values.nameOverride)
+    return (
+        f"You have installed release {APP_VERSION} of {CHART_NAME}.\n"
+        "\n"
+        "To check the status of the newly created PyTorch GPU runtime, "
+        "try:\n"
+        f"kubectl get deployment {name}-runtime\n"
+        "\n"
+        "To query the runtime status endpoint (once the pod is running):\n"
+        f"curl http://$(kubectl get service {name}-runtime-ssh-service "
+        "--output jsonpath='{.status.loadBalancer.ingress[0].ip}')"
+        f":{status_port(values)}/status\n"
+        "\n"
+        "To connect to the runtime pod over SSH:\n"
+        f"ssh kvedge@$(kubectl get service {name}-runtime-ssh-service "
+        "--output jsonpath='{.status.loadBalancer.ingress[0].ip}')\n"
+    ) + (
+        "\n"
+        "To verify the runtime from inside the cluster:\n"
+        "helm test <release-name>\n"
+        if healthz_test_pod(values) is not None else ""
+    )
+
+
+def render_all(values: ChartValues, include_dead: bool = False) -> RenderedChart:
+    """Render the full manifest set.
+
+    ``include_dead=False`` mirrors the packaging exclusion of the
+    prepopulated-volume alternative (reference ``.helmignore:23-24``): the
+    dead template exists in the chart source but is never rendered; if it
+    were, its name would collide with the live state volume.
+    """
+    values.validate()
+    manifests: dict[str, dict] = {
+        "torch-gpu-runtime-config-secret.yaml": runtime_config_secret(values),
+        "torch-gpu-boot-config-secret.yaml": boot_config_secret(values),
+        "torch-gpu-runtime.yaml": runtime_deployment(values),
+        "torch-gpu-state-volume.yaml": state_volume(values),
+    }
+    if include_dead:
+        manifests["torch-gpu-state-volume-prepopulated.yaml"] = (
+            state_volume_prepopulated(values)
+        )
+    service = access_service(values)
+    if service is not None:
+        manifests["torch-gpu-runtime-service.yaml"] = service
+    test_pod = healthz_test_pod(values)
+    if test_pod is not None:
+        manifests["torch-gpu-healthz-test.yaml"] = test_pod
+    return RenderedChart(manifests=manifests, notes=render_notes(values))

@@ -580,7 +580,9 @@ class ServeRuntime:
     def _start_prefix_persistence(self) -> None:
         """Re-pin the previous run's prefix registry, then dump it every
         30 s while it changes (the reference's wiring and fingerprint:
-        the checkpoint step and the model's geometry and dtype)."""
+        the checkpoint step and the model's geometry and dtype; an MoE
+        model's adds its experts and top-k, so a dense file at the same
+        step is stale for it)."""
         t = self.tcfg
         self.prefix_path = os.path.join(self.cfg.state_dir,
                                         "prefix-cache.npz")
@@ -588,6 +590,8 @@ class ServeRuntime:
             f"step={self.restored_step} {t.vocab}v {t.d_model}d "
             f"{t.n_heads}h {t.kv_heads}kv {t.n_layers}L {t.d_ff}ff "
             f"{t.max_seq}T {t.dtype}")
+        if t.n_experts > 0:
+            self.prefix_fingerprint += f" {t.n_experts}e{t.expert_top_k}k"
         t0 = time.perf_counter()
         n = self.server.load_prefix_cache(self.prefix_path,
                                           self.prefix_fingerprint)

@@ -47,6 +47,7 @@ import numpy as np
 
 from kvedge_torch.models.kvcache import PagedKVCache
 from kvedge_torch.runtime.failures import ServingFailure
+from kvedge_torch.testing.faults import InvariantViolation
 
 __all__ = [
     "FaultPlan",
@@ -57,17 +58,6 @@ __all__ = [
     "ServingFaultSchedule",
     "prefix_file_intact",
 ]
-
-
-class InvariantViolation(AssertionError):
-    """An invariant failed; ``trace`` replays the schedule that broke it
-    (a copy of ``kvedge_tpu/testing/faults.py``'s)."""
-
-    def __init__(self, message: str, trace: list[str]):
-        super().__init__(
-            message + "\nschedule trace:\n  " + "\n  ".join(trace)
-        )
-        self.trace = trace
 
 
 class InjectedFault(RuntimeError):

@@ -116,3 +116,74 @@ def test_auto_window_returns_the_fixed_windows_tokens(tmodel, shape):
         assert st["autotune_t_ms"] > 0
     if shape.get("spec_window"):
         assert 1 <= st["autotune_spec_window"] <= 4
+
+
+def _mark_captured(cache, which):
+    """Wrap the cache's dispatch seams so the dispatches whose ordinal
+    ``which`` accepts come back marked as having captured their graph
+    (the CPU runs eagerly and never captures)."""
+    seen = {"n": 0}
+
+    def wrap(fn):
+        def marked(*args, **kwargs):
+            handle = fn(*args, **kwargs)
+            handle.captured = which(seen["n"])
+            seen["n"] += 1
+            return handle
+        return marked
+
+    cache._device_window_dispatch = wrap(cache._device_window_dispatch)
+    cache._device_spec_window = wrap(cache._device_spec_window)
+
+
+@pytest.mark.parametrize("shape", [
+    dict(overlap="on"), dict(overlap="on", speculative=2, spec_window=4)],
+    ids=["overlap", "spec-windows"])
+def test_a_captured_window_never_reaches_the_controller(tmodel, shape):
+    """Greedy traffic whose windows' round trips span a graph capture:
+    each such window is counted in ``autotune_skipped_captures`` and
+    leaves the controller's R, t and update count as they were (the
+    plain channel, or the spec channel with spec windows); the tokens
+    are the fixed window's."""
+    tcfg, params = tmodel
+    channel = "spec" if shape.get("spec_window") else "decode"
+    fixed, _ = _serve(tmodel, window=64, greedy_only=True, **shape)
+
+    def run(which):
+        server = PagedGenerationServer(
+            params, tcfg, slots=2, pages=48, page_size=4, device="cpu",
+            window="auto", window_min=1, window_max=64, **shape)
+        recs = []
+
+        def spy(dispatch):
+            def recorded(first):
+                rec = dispatch(first)
+                if rec is not None:
+                    recs.append(rec)
+                return rec
+            return recorded
+
+        server._dispatch_window_locked = spy(server._dispatch_window_locked)
+        server._dispatch_spec_window_locked = spy(
+            server._dispatch_spec_window_locked)
+        try:
+            before = server._autotune.snapshot(channel)
+            _mark_captured(server._cache, which)
+            out = [server.submit(p, n) for p, n, _ in TRAFFIC]
+            return (out, before, server._autotune.snapshot(channel),
+                    server.stats(), recs)
+        finally:
+            server.close()
+
+    out, before, after, st, recs = run(lambda i: True)
+    assert out == fixed
+    assert after == before and after["updates"] == 0
+    assert st["autotune_skipped_captures"] == len(recs) >= len(TRAFFIC)
+    out, _, after, st, recs = run(lambda i: i == 1)
+    assert out == fixed
+    # The marked window, and the one in flight while it was dispatched
+    # (window 0: its round trip spans the capture), are skipped; the
+    # rest teach the controller.
+    assert recs[1]["depth"] == 1
+    assert st["autotune_skipped_captures"] == 2
+    assert after["updates"] == len(recs) - 2

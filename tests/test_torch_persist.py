@@ -346,3 +346,100 @@ def test_serve_payload_reloads_its_prefixes_across_restarts(tmp_path,
     finally:
         off.close()
     assert not path.exists()
+
+
+PAYLOAD_TOML = """[runtime]
+state_dir = "{state}"
+[tpu]
+platform = "cpu"
+[model]
+preset = "probe"
+n_layers = 1
+{moe}[payload]
+kind = "serve"
+serving = "paged"
+seq = 64
+serving_slots = 2
+serving_page_size = 4
+serving_prefill_chunk = 8
+[status]
+port = 0
+bind = "127.0.0.1"
+"""
+
+
+def _payload_toml(state, moe=""):
+    return PAYLOAD_TOML.format(state=state, moe=moe)
+
+
+@pytest.fixture(scope="module")
+def jax_dense_file(tmp_path_factory):
+    """A ``prefix-cache.npz`` that the JAX package's serve payload dumped
+    at close, with the fingerprint that payload wrote into it."""
+    from kvedge_tpu.config.runtime_config import RuntimeConfig as JaxConfig
+    from kvedge_tpu.runtime.workload import run_serve_payload
+
+    state = tmp_path_factory.mktemp("jax-serve")
+    check, serve_fn = run_serve_payload(
+        JaxConfig.parse(_payload_toml(state)))
+    assert check.ok, check.error
+    try:
+        serve_fn({"tokens": [BASE], "n_new": 4})
+    finally:
+        serve_fn.close()
+    path = state / "prefix-cache.npz"
+    return path, _read(path)[0]["fingerprint"]
+
+
+def _fresh_state(tmp_path, name, seed_file=None):
+    state = tmp_path / name
+    state.mkdir()
+    if seed_file is not None:
+        (state / "prefix-cache.npz").write_bytes(seed_file.read_bytes())
+    return state
+
+
+def test_dense_fingerprint_is_the_reference_string_and_files_cross(
+        jax_dense_file, tmp_path):
+    """A dense serve payload's fingerprint is byte for byte the one the
+    JAX package writes, so its file re-pins in the port."""
+    path, jax_fp = jax_dense_file
+    state = _fresh_state(tmp_path, "dense", path)
+    rt = ServeRuntime(ServeConfig.parse(_payload_toml(state)),
+                      device="cpu", dtype="bfloat16")
+    try:
+        assert rt.prefix_fingerprint == jax_fp
+        assert rt.prefix_load["entries"] >= 1
+    finally:
+        rt.close()
+
+
+def test_moe_fingerprint_names_its_experts_and_refuses_a_dense_file(
+        jax_dense_file, tmp_path, capsys):
+    """An MoE model's fingerprint is the dense string plus its experts
+    and top-k, so a dense file at the same step and geometry (the
+    JAX package's, or the port's own) loads 0 entries into it. MoE
+    files no longer cross to the JAX package, whose string names no
+    experts."""
+    path, jax_fp = jax_dense_file
+    moe = "experts = 4\nexpert_top_k = 2\n"
+    dense_state = _fresh_state(tmp_path, "port-dense")
+    rt = ServeRuntime(ServeConfig.parse(_payload_toml(dense_state)),
+                      device="cpu", dtype="bfloat16")
+    try:
+        rt.serve_fn({"tokens": [BASE], "n_new": 4})
+    finally:
+        rt.close()
+    port_file = dense_state / "prefix-cache.npz"
+    assert _read(port_file)[0]["entries"]
+    for name, seed in (("from-jax", path), ("from-port", port_file)):
+        state = _fresh_state(tmp_path, name, seed)
+        rt = ServeRuntime(ServeConfig.parse(_payload_toml(state, moe)),
+                          device="cpu", dtype="bfloat16")
+        try:
+            assert rt.prefix_fingerprint == jax_fp + " 4e2k"
+            assert rt.prefix_load["entries"] == 0
+            assert rt.server.stats()["prefix_entries"] <= 1
+        finally:
+            rt.close()
+    assert "fingerprint/page-size changed" in capsys.readouterr().out

@@ -1,0 +1,360 @@
+"""The port's GPU render (``kvedge_torch/render``) against the JAX
+package's renderer for the same values.
+
+Each case renders both packages from the same values, with a runtime TOML
+(``[tpu] platform = "gpu"``) that both ``RuntimeConfig``s parse. The JAX
+render's manifest keys are renamed (``jax-tpu-*`` -> ``torch-gpu-*``),
+then :func:`allowed` — the table of every difference the port is allowed,
+a JSON path in one manifest -> the port's value — is written into it, and
+the result must equal the port's render whole: a difference the table
+does not list fails. The NOTES are held the same way. Then the pieces:
+the name helper, the Go JSON encoder, the values' validation (the GPU
+label, ``tpuNumHosts = 2`` refused by name), the boot document and the
+copies that must stay verbatim.
+"""
+
+import base64
+import copy
+import inspect
+
+import pytest
+
+from kvedge_tpu.config import values as jvalues
+from kvedge_tpu.render import bootconfig as jbootconfig
+from kvedge_tpu.render import emit as jemit
+from kvedge_tpu.render import helmlite as jhelmlite
+from kvedge_tpu.render import names as jnames
+from kvedge_tpu.render import render_all as jax_render_all
+from kvedge_tpu.render.manifests import render_notes as jax_render_notes
+from kvedge_tpu.utils.gojson import go_json as jax_go_json
+from kvedge_tpu import version as jversion
+from kvedge_tpu.bootstrap import bootdoc as jbootdoc
+from kvedge_torch.bootstrap import bootdoc
+from kvedge_torch.config import values
+from kvedge_torch.config.values import DEFAULT_VALUES, ChartValues
+from kvedge_torch.render import bootconfig, emit, helmlite, manifests, names
+from kvedge_torch.render import render_all
+from kvedge_torch.render.manifests import render_notes
+from kvedge_torch.utils.gojson import go_json
+from kvedge_torch import version
+
+GPU_TOML = '[runtime]\nname = "edge-gpu"\n[tpu]\nplatform = "gpu"\n'
+PORT_TOML = GPU_TOML + "[status]\nport = 9100\n"
+
+CASES = {
+    "default": {"jaxRuntimeConfig": GPU_TOML},
+    "custom-port": {"jaxRuntimeConfig": PORT_TOML},
+    "ssh-off": {"jaxRuntimeConfig": GPU_TOML,
+                "tpuRuntimeEnableExternalSsh": False},
+    "name-override": {"jaxRuntimeConfig": GPU_TOML, "nameOverride": "my-edge",
+                      "publicSshKey": "ssh-ed25519 AAAA ops&infra<dev>@host"},
+}
+
+# The boot document's three comment lines about the image: the only
+# lines in which the two packages' documents differ.
+JAX_IMAGE_COMMENT = (
+    "# Once the pod is started the following commands apply the injected\n"
+    "# runtime config and boot the JAX runtime. The runtime image ships\n"
+    "# with jax[tpu] preinstalled, so there is no package-install step.\n")
+PORT_IMAGE_COMMENT = (
+    "# Once the pod is started the following commands apply the injected\n"
+    "# runtime config and boot the PyTorch runtime on the GPU. The image\n"
+    "# ships PyTorch for CUDA and the built kernels: no install step.\n")
+
+DEP = "torch-gpu-runtime.yaml"
+PVC = "torch-gpu-state-volume.yaml"
+CFG = "torch-gpu-runtime-config-secret.yaml"
+BOOT = "torch-gpu-boot-config-secret.yaml"
+SVC = "torch-gpu-runtime-service.yaml"
+HZ = "torch-gpu-healthz-test.yaml"
+POD = ("spec", "template", "spec")
+CTR = POD + ("containers", 0)
+DOMAIN = "kvedge.dev/domain"
+
+
+def _b64(text):
+    return base64.b64encode(text.encode()).decode()
+
+
+def _unb64(text):
+    return base64.b64decode(text).decode()
+
+
+def allowed(v: ChartValues, jax_doc: str) -> dict:
+    """Every difference the port's render may have from the JAX
+    package's for values ``v``: ``{(manifest, path): the port's value}``.
+    ``jax_doc`` is the JAX boot document, whose comment lines change."""
+    name = v.nameOverride or "kvedge-torch"   # the port's chart name
+    rt = f"{name}-runtime"
+    table = {
+        # The GPU node label, the image, the modules the containers run,
+        # the device request and the memory request.
+        (DEP, POD + ("nodeSelector",)): {
+            "nvidia.com/gpu.product": "NVIDIA-H100-80GB-HBM3"},
+        (DEP, CTR + ("image",)): "kvedgedev/torch-gpu-runtime:0.1.0",
+        (DEP, CTR + ("command", 6)): "kvedge_torch.bootstrap.entrypoint",
+        (DEP, CTR + ("resources", "requests", "memory")): "8Gi",
+        (DEP, CTR + ("resources", "limits")): {"nvidia.com/gpu": 1},
+        (BOOT, ("data", "userdata")): _b64(
+            jax_doc.replace(JAX_IMAGE_COMMENT, PORT_IMAGE_COMMENT)),
+        # The default name prefix is the chart's name, kvedge-torch.
+        (DEP, ("metadata", "name")): rt,
+        (DEP, ("spec", "selector", "matchLabels", DOMAIN)): rt,
+        (DEP, ("spec", "template", "metadata", "labels", DOMAIN)): rt,
+        (DEP, POD + ("volumes", 0, "persistentVolumeClaim",
+                     "claimName")): f"{rt}-dv",
+        (DEP, POD + ("volumes", 1, "secret", "secretName")):
+            f"{rt}-jaxconfig",
+        (DEP, POD + ("volumes", 2, "secret", "secretName")):
+            f"{rt}-bootconfig",
+        (PVC, ("metadata", "name")): f"{rt}-dv",
+        (CFG, ("metadata", "name")): f"{rt}-jaxconfig",
+        (BOOT, ("metadata", "name")): f"{rt}-bootconfig",
+    }
+    if v.tpuRuntimeEnableExternalSsh:
+        port = manifests.status_port(v)
+        table.update({
+            (SVC, ("metadata", "name")): f"{rt}-ssh-service",
+            (SVC, ("spec", "selector", DOMAIN)): rt,
+            (HZ, ("metadata", "name")): f"{rt}-healthz-test",
+            (HZ, ("spec", "containers", 0, "image")):
+                "kvedgedev/torch-gpu-runtime:0.1.0",
+            (HZ, ("spec", "containers", 0, "command", 2)):
+                "kvedge_torch.runtime.healthcheck",
+            (HZ, ("spec", "containers", 0, "command", 3)):
+                f"http://{rt}-ssh-service:{port}/healthz",
+        })
+    return table
+
+
+def _set(doc, path, value):
+    for key in path[:-1]:
+        doc = doc[key]
+    doc[path[-1]]  # the path must exist in the JAX render
+    doc[path[-1]] = value
+
+
+def _renders(overrides):
+    theirs = jax_render_all(jvalues.DEFAULT_VALUES.replace(**overrides))
+    ours = render_all(DEFAULT_VALUES.replace(**overrides))
+    return theirs, ours
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_render_is_the_jax_render_but_for_the_listed_differences(case):
+    overrides = CASES[case]
+    theirs, ours = _renders(overrides)
+    expected = {key.replace("jax-tpu-", "torch-gpu-", 1): copy.deepcopy(doc)
+                for key, doc in theirs.manifests.items()}
+    jax_doc = _unb64(
+        theirs.manifests["jax-tpu-boot-config-secret.yaml"]["data"]["userdata"])
+    assert jax_doc.count(JAX_IMAGE_COMMENT) == 1
+    for (key, path), value in allowed(
+            DEFAULT_VALUES.replace(**overrides), jax_doc).items():
+        _set(expected[key], path, value)
+    assert sorted(expected) == sorted(ours.manifests)
+    for key in expected:
+        assert ours.manifests[key] == expected[key], key
+    # The runtime TOML travels unchanged.
+    assert _unb64(ours.manifests[CFG]["data"]["userdata"]) == \
+        overrides["jaxRuntimeConfig"]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_notes_are_the_jax_notes_but_for_the_chart_and_runtime(case):
+    overrides = CASES[case]
+    v = DEFAULT_VALUES.replace(**overrides)
+    theirs = jax_render_notes(jvalues.DEFAULT_VALUES.replace(**overrides))
+    if not v.nameOverride:
+        theirs = theirs.replace("kvedge-tpu-runtime", "kvedge-torch-runtime")
+    theirs = theirs.replace("of kvedge-tpu.", "of kvedge-torch.").replace(
+        "JAX TPU runtime", "PyTorch GPU runtime")
+    assert render_notes(v) == theirs
+    assert render_all(v).notes == theirs
+
+
+def test_rendered_set_and_the_gpu_request():
+    chart = render_all(DEFAULT_VALUES)
+    assert set(chart.manifests) == {DEP, PVC, CFG, BOOT, SVC, HZ}
+    ctr = chart.manifests[DEP]["spec"]["template"]["spec"]["containers"][0]
+    assert ctr["resources"]["limits"] == {"nvidia.com/gpu": 1}
+    assert ctr["command"][4:7] == ["python", "-m",
+                                   "kvedge_torch.bootstrap.entrypoint"]
+    off = render_all(DEFAULT_VALUES.replace(tpuRuntimeEnableExternalSsh=False))
+    assert set(off.manifests) == {DEP, PVC, CFG, BOOT}
+    full = render_all(DEFAULT_VALUES, include_dead=True)
+    dead = full.manifests["torch-gpu-state-volume-prepopulated.yaml"]
+    assert dead["metadata"]["name"] == full.manifests[PVC]["metadata"]["name"]
+
+
+def test_render_validates_the_runtime_toml_with_the_ports_parser():
+    with pytest.raises(ValueError, match="port 0"):
+        render_all(DEFAULT_VALUES.replace(
+            jaxRuntimeConfig="[status]\nport = 0\n"))
+    with pytest.raises(ValueError, match="num_processes = 2"):
+        render_all(DEFAULT_VALUES.replace(
+            jaxRuntimeConfig="[distributed]\nnum_processes = 2\n"))
+    with pytest.raises(ValueError, match="n_experts"):
+        render_all(DEFAULT_VALUES.replace(
+            jaxRuntimeConfig="[model]\nn_experts = 4\n"))
+
+
+# ---- names, JSON, version ------------------------------------------------
+
+
+@pytest.mark.parametrize("override", [
+    "", "my-edge", "a" * 39 + "-", "a" * 40 + "-x", "b" * 38 + "--",
+    "edge-", "x" * 60])
+def test_resource_name_has_the_reference_semantics(override):
+    for chart in ("kvedge-tpu", "kvedge-torch", "c" * 39 + "-"):
+        assert names.resource_name(override, chart_name=chart) == \
+            jnames.resource_name(override, chart_name=chart)
+    expected = jnames.resource_name(override, chart_name="kvedge-torch")
+    assert names.resource_name(override) == expected
+    assert names.common_labels() == jnames.common_labels()
+    assert (names.DOMAIN_LABEL, names.OS_LABEL) == \
+        (jnames.DOMAIN_LABEL, jnames.OS_LABEL)
+
+
+def test_resource_name_trims_one_dash_only():
+    assert names.resource_name("a" * 38 + "--") == "a" * 38 + "-"
+    assert names.resource_name("") == "kvedge-torch"
+
+
+@pytest.mark.parametrize("text", [
+    "", "ssh-ed25519 AAAA op@host", "a&b<c>d", 'quote " and \\ back',
+    "tab\tnew\nline", "unicode é ☃", "<script>&amp;</script>"])
+def test_go_json_equals_the_reference(text):
+    assert go_json(text) == jax_go_json(text)
+    assert go_json({"k": [text, 1, True, None]}) == \
+        jax_go_json({"k": [text, 1, True, None]})
+
+
+def test_version_and_the_verbatim_copies():
+    assert version.CHART_NAME == "kvedge-torch"
+    assert (version.CHART_VERSION, version.APP_VERSION) == \
+        (jversion.CHART_VERSION, jversion.APP_VERSION)
+    assert "GPU" in version.CHART_DESCRIPTION
+    assert "gpu" in version.CHART_KEYWORDS
+    assert inspect.getsource(emit) == inspect.getsource(jemit)
+    ours = inspect.getsource(helmlite).replace("kvedge_torch.", "kvedge_tpu.")
+    assert ours == inspect.getsource(jhelmlite)
+    assert inspect.getsource(values.parse_set_flag) == \
+        inspect.getsource(jvalues.parse_set_flag)
+    assert inspect.getsource(values.parse_set_file_flag) == \
+        inspect.getsource(jvalues.parse_set_file_flag)
+
+
+# ---- values --------------------------------------------------------------
+
+
+def test_values_keep_the_reference_fields():
+    import dataclasses
+
+    ours = [(f.name, f.type) for f in dataclasses.fields(ChartValues)]
+    theirs = [(f.name, f.type)
+              for f in dataclasses.fields(jvalues.ChartValues)]
+    assert ours == theirs
+    for f in dataclasses.fields(ChartValues):
+        if f.name != "tpuAccelerator":
+            assert getattr(DEFAULT_VALUES, f.name) == \
+                getattr(jvalues.DEFAULT_VALUES, f.name)
+    assert DEFAULT_VALUES.tpuAccelerator == "NVIDIA-H100-80GB-HBM3"
+
+
+@pytest.mark.parametrize("label", [
+    "NVIDIA-H100-80GB-HBM3", "NVIDIA-H100-PCIe", "NVIDIA-A100-SXM4-80GB",
+    "Tesla-T4", "a", "tpu-v5-lite-podslice", "x.y_z-1", "A" * 63])
+def test_gpu_labels_pass(label):
+    assert DEFAULT_VALUES.replace(tpuAccelerator=label).tpuAccelerator == label
+    render_all(DEFAULT_VALUES.replace(tpuAccelerator=label))
+
+
+@pytest.mark.parametrize("label", [
+    "", "-NVIDIA", "NVIDIA-", "has space", "a/b", "A" * 64, "x:y", ".x"])
+def test_bad_labels_refused(label):
+    with pytest.raises(ValueError, match="node-label value"):
+        DEFAULT_VALUES.replace(tpuAccelerator=label)
+
+
+def test_the_tpu_check_would_refuse_the_gpu_label():
+    with pytest.raises(ValueError):
+        jvalues.DEFAULT_VALUES.replace(
+            tpuAccelerator=DEFAULT_VALUES.tpuAccelerator)
+
+
+@pytest.mark.parametrize("field,value,match", [
+    ("nameOverride", "My-Edge", "resource-name prefix"),
+    ("nameOverride", "edge_1", "resource-name prefix"),
+    ("tpuRuntimeDiskSize", "4GB", "quantity"),
+    ("tpuRuntimeDiskSize", "0Gi", "quantity"),
+    ("tpuRuntimeEnableExternalSsh", "yes", "bool"),
+    ("tpuNumHosts", 0, "positive integer"),
+    ("tpuNumHosts", True, "positive integer")])
+def test_values_validation_matches_the_reference(field, value, match):
+    with pytest.raises(ValueError, match=match):
+        DEFAULT_VALUES.replace(**{field: value})
+    with pytest.raises(ValueError, match=match):
+        jvalues.DEFAULT_VALUES.replace(**{field: value})
+
+
+def test_multi_host_is_refused_by_name():
+    with pytest.raises(ValueError, match="ROADMAP Queue A items 7-8"):
+        DEFAULT_VALUES.replace(tpuNumHosts=2)
+    with pytest.raises(ValueError, match="tpuNumHosts = 2"):
+        values.parse_set_flag(DEFAULT_VALUES, "tpuNumHosts=2")
+    with pytest.raises(ValueError, match="ROADMAP Queue A items 7-8"):
+        render_all(ChartValues(tpuNumHosts=2))
+    for fn in (manifests.runtime_statefulset, manifests.hosts_service):
+        with pytest.raises(ValueError, match="one GPU host"):
+            fn(DEFAULT_VALUES)
+
+
+@pytest.mark.parametrize("assignment", [
+    "nope=1", "tpuRuntimeEnableExternalSsh=maybe", "tpuNumHosts=x",
+    "publicSshKey", "nameOverride=Bad"])
+def test_set_flag_errors_are_the_references(assignment):
+    with pytest.raises(ValueError) as ours:
+        values.parse_set_flag(DEFAULT_VALUES, assignment)
+    with pytest.raises(ValueError) as theirs:
+        jvalues.parse_set_flag(jvalues.DEFAULT_VALUES, assignment)
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_set_flags_drive_both_renders(tmp_path):
+    path = tmp_path / "config.toml"
+    path.write_text(PORT_TOML)
+    ours, theirs = DEFAULT_VALUES, jvalues.DEFAULT_VALUES
+    for assignment in ("nameOverride=edge-a", "tpuRuntimeDiskSize=32Gi",
+                       "tpuRuntimeEnableExternalSsh=False"):
+        ours = values.parse_set_flag(ours, assignment)
+        theirs = jvalues.parse_set_flag(theirs, assignment)
+    ours = values.parse_set_file_flag(ours, f"jaxRuntimeConfig={path}")
+    theirs = jvalues.parse_set_file_flag(theirs, f"jaxRuntimeConfig={path}")
+    for field in ("nameOverride", "tpuRuntimeDiskSize",
+                  "tpuRuntimeEnableExternalSsh", "jaxRuntimeConfig"):
+        assert getattr(ours, field) == getattr(theirs, field)
+    with pytest.raises(ValueError, match="cannot be set from a file"):
+        values.parse_set_file_flag(
+            ours, f"tpuRuntimeEnableExternalSsh={path}")
+
+
+# ---- the boot document ---------------------------------------------------
+
+
+@pytest.mark.parametrize("key", ["", "ssh-ed25519 AAAA me@host",
+                                 "ssh-rsa K a&b<c>d", 'k: "#x"'])
+def test_boot_document_is_the_references_but_for_the_image_comment(key):
+    ours = bootconfig.boot_config_document(
+        DEFAULT_VALUES.replace(publicSshKey=key))
+    theirs = jbootconfig.boot_config_document(
+        jvalues.DEFAULT_VALUES.replace(publicSshKey=key))
+    assert ours == theirs.replace(JAX_IMAGE_COMMENT, PORT_IMAGE_COMMENT)
+    assert ours != theirs
+    for parse in (bootdoc.parse_boot_document,
+                  jbootdoc.parse_boot_document):
+        assert parse(ours) == parse(theirs)
+    for name in ("CONFIG_SERIAL", "DISKS_ROOT", "APP_SECRET_MOUNT",
+                 "BOOT_SECRET_MOUNT", "RUNTIME_HOSTNAME", "HEADER"):
+        assert getattr(bootconfig, name) == getattr(jbootconfig, name)
+    assert '"kvedge-runtime boot --config /etc/kvedge/config.toml"' in ours

@@ -366,6 +366,11 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
         "    assert 'kvedge_torch.runtime.' + new in mods, mods\n"
         "for new in ('bootdoc', 'mount', 'commands', 'entrypoint'):\n"
         "    assert 'kvedge_torch.bootstrap.' + new in mods, mods\n"
+        "for new in ('version', 'utils.gojson', 'config.values',\n"
+        "            'render.names', 'render.bootconfig', 'render.emit',\n"
+        "            'render.helmlite', 'render.manifests',\n"
+        "            'testing.fakecluster', 'testing.faults'):\n"
+        "    assert 'kvedge_torch.' + new in mods, mods\n"
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in\n"
