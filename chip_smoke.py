@@ -31,7 +31,10 @@ imports nothing of JAX. Phases, each printing one JSON line:
             device lengths, and both pools. Reports graphs captured,
             capture seconds and B1 launches per replay (n_layers x W).
 5. serve    the port's entry point (``kvedge_torch.runtime.serve``,
-            ``[payload] serving = "paged"``) on 127.0.0.1 at the flagship
+            ``[payload] serving = "paged"``; ``serve.boot_serve``
+            boots it through ``start_runtime``, its heartbeat carrying the
+            boot's ``boot_count`` and ``/profile`` answering, both gated)
+            on 127.0.0.1 at the flagship
             preset (vocab 32000, d_model 512, 8 heads, 8 layers, d_ff
             2048, bf16, numpy-seeded weights), max_seq 2048, 4 slots, page
             16, prefill chunk 64, window 64; 9 concurrent POST /generate
@@ -294,6 +297,20 @@ imports nothing of JAX. Phases, each printing one JSON line:
             top_k experts a layer) for full against dots; the dots run's
             checkpoint served at fp32 answers two requests with the
             teacher-forced argmax, with no divergence warning.
+6l. chaos   seeded multi-fault campaigns (``testing/chaos.py``) over the
+            port's server at the flagship width cut to 2 layers, bf16, 3
+            slots, page 16: the reference's pinned SERIAL shape (seed 17)
+            and OVERLAP shape (seed 3), 2 rounds of 3 concurrent requests
+            (n_new 32, some streamed), a seeded raise or delay armed each
+            round and fired at a crossing with a journaled row in
+            flight, every poison revived; after each round page
+            conservation, no stuck ticket, monotone stream offsets,
+            tokens equal to the same server config's fault-free tokens
+            (each prompt alone), a complete flight bundle. Gates: at
+            least one revive and one restored request a shape. Prints
+            revives, restores, the seam each round fired on and the
+            seconds (budget 60 s, reported). It runs after
+            observability, before boot.
 7. timings  CUDA-event times at the serve phase's decode shapes (L2
             flushed before each launch): the kernel, its plain version,
             ``F.scaled_dot_product_attention`` over the gathered K/V as a
@@ -317,7 +334,11 @@ imports nothing of JAX. Phases, each printing one JSON line:
             0.5 ln V of ln V, every loss finite, the mean of the last 5 at
             least 1 nat below the first, B2 launched 2 x n_layers per step
             (remat recomputes the forward) and B3/B4 n_layers per step,
-            train-progress.json at step 30.
+            train-progress.json at step 30, the payload's corpus opened
+            as the native feeder (``data/feeder.TokenFeeder``, built from
+            ``native/kvedge-feed.cc``); its first batches equal
+            ``PyTokenFeeder``'s, and each feeder's batches/s at the train
+            shape is printed.
 10. resume   checkpoints after step 10 deleted, the payload rerun to 30:
             it resumes from 10 and steps 11-30 match within 1e-3 in loss.
 11. flash_vs_naive  from the same fp32 weights at seq 512, batch 4: loss
@@ -351,7 +372,8 @@ imports nothing of JAX. Phases, each printing one JSON line:
             stock step's, B8 launched 4 x n_layers + 1 = 33 times.
 15. train_fused  the flagship trained through ``training.run_training``
             with ``fused_xent``, bf16, flash, remat, seq 512, batch 64, 30
-            steps over the train phase's corpus. Launch counts are zeroed
+            steps over the train phase's corpus through the native
+            feeder (gated). Launch counts are zeroed
             just before and read just after: B5, B6 and B7 once per step,
             B2-B4 as in the train phase. The loss falls at least 1 nat.
             From the same fp32 weights at batch 4, fused against the
@@ -811,6 +833,26 @@ def phase_windows(torch, np, kvc, ttr, params_from_numpy, ServeConfig,
     return doc
 
 
+def booted_runtime(rt) -> dict:
+    """``serve.boot_serve`` is the runtime booted through
+    ``start_runtime``: its state directory's heartbeat carries this
+    boot's ``boot_count``, and ``/profile`` answers (the captures on
+    disk, and a malformed window refused, so nothing is captured)."""
+    from kvedge_torch.runtime import heartbeat
+
+    beat = heartbeat.read_heartbeat(rt.cfg.state_dir) or {}
+    base = f"http://127.0.0.1:{rt.port}"
+    code, traces = get_json(base + "/profile/traces")
+    bad, _ = post(base + "/profile?seconds=x", {})
+    check(beat.get("boot_count") == rt.handle.boot_count >= 1,
+          f"heartbeat {beat} for boot {rt.handle.boot_count}")
+    check(code == 200 and "traces" in traces, f"/profile/traces: {code}")
+    check(bad == 400, f"POST /profile?seconds=x: {bad}")
+    return {"boot_count": beat["boot_count"],
+            "heartbeat_seq": beat.get("seq"),
+            "profile_traces": len(traces["traces"])}
+
+
 def serve_burst(torch, np, pa, serve, ServeConfig, overlap, device, preset,
                 max_seq, prefix_cache=False, state_dir=SEEDED_STATE_DIR,
                 model=None):
@@ -832,9 +874,10 @@ def serve_burst(torch, np, pa, serve, ServeConfig, overlap, device, preset,
                       serving_window=64, serving_prefix_cache=prefix_cache,
                       serving_prefix_persist=False,
                       state_dir=state_dir, **(model or {}))
-    rt = serve.ServeRuntime(cfg, device=device, dtype="bfloat16", seed=0,
-                            host="127.0.0.1", port=0)
+    rt = serve.boot_serve(cfg, device=device, dtype="bfloat16", seed=0,
+                          host="127.0.0.1", port=0)
     try:
+        booted = booted_runtime(rt)
         vocab, layers = rt.tcfg.vocab, rt.tcfg.n_layers
         url = f"http://127.0.0.1:{rt.port}/generate"
         # n_new 128: windows of 64, 32, ..., 1, greedy and then sampled.
@@ -915,6 +958,9 @@ def serve_burst(torch, np, pa, serve, ServeConfig, overlap, device, preset,
             "decode_device_s": decode_dev, "prefill_device_s": prefill_dev,
             "ms_per_decode_step": decode_dev / steps * 1e3,
             "host_ms_per_decode_step": decode_s / steps * 1e3,
+            # Rows a decode step carried on average: how full the slots
+            # ran, which tokens/s follows at a fixed ms a step.
+            "tokens_per_decode_step": gen_tokens / steps,
             "launches_per_step": launches / steps, "wall_s": wall,
             "decode_tokens_per_s": gen_tokens / wall,
             "latency_p50_s": float(np.percentile(lat_sorted, 50)),
@@ -928,6 +974,7 @@ def serve_burst(torch, np, pa, serve, ServeConfig, overlap, device, preset,
             "first_burst": first_doc,
             "graphs_after_warmup": graphs,
             "graphs_after_burst": rt.server._cache.graph_stats(),
+            "booted": booted,
             "ok": True,
         }
         return doc, results, rt
@@ -1005,7 +1052,7 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
         serve_doc["overlap_off"] = {k: off_doc[k] for k in (
             "decode_tokens_per_s", "latency_p50_s", "latency_p99_s",
             "ms_per_decode_step", "host_ms_per_decode_step",
-            "decode_steps", "windows", "windows_at_depth1",
+            "tokens_per_decode_step", "decode_steps", "windows", "windows_at_depth1",
             "kernel_launches", "launches_per_step", "wall_s", "decode_s",
             "prefill_s", "decode_device_s", "prefill_device_s",
             "latencies_s", "first_burst")}
@@ -1268,8 +1315,8 @@ def phase_spec(torch, np, kfns, ttr, serve, spec_mod, decode,
                    serving_speculative=SPEC_K, serving_spec_window=SPEC_W)
     clock = {"start": time.perf_counter()}
     t0 = time.perf_counter()
-    rt = serve.ServeRuntime(cfg, device=device, dtype="bfloat16", seed=0,
-                            host="127.0.0.1", port=0)
+    rt = serve.boot_serve(cfg, device=device, dtype="bfloat16", seed=0,
+                          host="127.0.0.1", port=0)
     boot_s = time.perf_counter() - t0
     try:
         vocab = rt.tcfg.vocab
@@ -1479,8 +1526,8 @@ def run_prefix_traffic(np, pa, serve, cfg, device, dtype, n_new=0):
     more) over HTTP, B1's count zeroed just before the first and read
     just after the follow-up. Returns the requests, their token rows and
     the run's numbers."""
-    rt = serve.ServeRuntime(cfg, device=device, dtype=dtype, seed=0,
-                            host="127.0.0.1", port=0)
+    rt = serve.boot_serve(cfg, device=device, dtype=dtype, seed=0,
+                          host="127.0.0.1", port=0)
     try:
         url = f"http://127.0.0.1:{rt.port}/generate"
         vocab, layers = rt.tcfg.vocab, rt.tcfg.n_layers
@@ -1605,8 +1652,8 @@ def phase_prefix(torch, np, pa, ttr, serve, ServeConfig, forward,
     # the host; S + the first's tokens + 10 promotes it back and hits.
     cfg = share_cfg(ServeConfig, preset, max_seq, serving_pages=96,
                     n_layers=2, serving_prefix_host_mb=2048)
-    rt = serve.ServeRuntime(cfg, device=device, dtype="float32", seed=0,
-                            host="127.0.0.1", port=0)
+    rt = serve.boot_serve(cfg, device=device, dtype="float32", seed=0,
+                          host="127.0.0.1", port=0)
     try:
         first, _, again, unrelated = prefix_traffic(np, rt.tcfg.vocab)
         url = f"http://127.0.0.1:{rt.port}/generate"
@@ -1700,8 +1747,8 @@ def contended_run(np, torch, pa, serve, cfg, device, dtype, alone=True):
     streamed together over a pool they reserve whole, then an interactive request
     (prompt 200, n_new 64) once both have decoded 4 tokens; then each
     request alone on the same server. Returns the run's numbers."""
-    rt = serve.ServeRuntime(cfg, device=device, dtype=dtype, seed=0,
-                            host="127.0.0.1", port=0)
+    rt = serve.boot_serve(cfg, device=device, dtype=dtype, seed=0,
+                          host="127.0.0.1", port=0)
     try:
         url = f"http://127.0.0.1:{rt.port}/generate"
         layers = rt.tcfg.n_layers
@@ -1996,8 +2043,8 @@ def bucket_run(np, torch, serve, cfg, device, dtype, monitor=False):
     capture seconds per bucket; with ``monitor``, the most requests seen
     waiting for admission while a slot was free during the measured
     burst)."""
-    rt = serve.ServeRuntime(cfg, device=device, dtype=dtype, seed=0,
-                            host="127.0.0.1", port=0)
+    rt = serve.boot_serve(cfg, device=device, dtype=dtype, seed=0,
+                          host="127.0.0.1", port=0)
     try:
         url = f"http://127.0.0.1:{rt.port}/generate"
         solo, burst, drain = bucket_requests(np, rt.tcfg.vocab)
@@ -2233,8 +2280,8 @@ def phase_persist(torch, np, serve, ServeConfig, device="cuda",
     os.makedirs(PERSIST_DIR)
     cfg = share_cfg(ServeConfig, preset, max_seq, serving_pages=512,
                     serving_prefix_persist=True, state_dir=PERSIST_DIR)
-    rt = serve.ServeRuntime(cfg, device=device, dtype="float32", seed=0,
-                            host="127.0.0.1", port=0)
+    rt = serve.boot_serve(cfg, device=device, dtype="float32", seed=0,
+                          host="127.0.0.1", port=0)
     try:
         first, _, _, _ = prefix_traffic(np, rt.tcfg.vocab)
         layers = rt.tcfg.n_layers
@@ -2249,8 +2296,8 @@ def phase_persist(torch, np, serve, ServeConfig, device="cuda",
     finally:
         rt.close()
     size = os.path.getsize(os.path.join(PERSIST_DIR, "prefix-cache.npz"))
-    rt = serve.ServeRuntime(cfg, device=device, dtype="float32", seed=0,
-                            host="127.0.0.1", port=0)
+    rt = serve.boot_serve(cfg, device=device, dtype="float32", seed=0,
+                          host="127.0.0.1", port=0)
     try:
         url = f"http://127.0.0.1:{rt.port}/generate"
         load = dict(rt.prefix_load)
@@ -2567,9 +2614,9 @@ def recovery_main_path(np, pa, serve, sf, ServeConfig):
     a window dispatch and one at a harvest, each mid-burst once a request
     is journaled; B1 counted over the two fault bursts."""
     state = fresh_dir("main")
-    rt = serve.ServeRuntime(recovery_cfg(ServeConfig, state), device="cuda",
-                            dtype="bfloat16", seed=0, host="127.0.0.1",
-                            port=0)
+    rt = serve.boot_serve(recovery_cfg(ServeConfig, state), device="cuda",
+                          dtype="bfloat16", seed=0, host="127.0.0.1",
+                          port=0)
     try:
         server, vocab = rt.server, rt.tcfg.vocab
         url = f"http://127.0.0.1:{rt.port}/generate"
@@ -2643,7 +2690,7 @@ def recovery_fp32(np, serve, sf, ServeConfig):
     mid-burst; every restored request equals its run alone bit for bit,
     and the idle fixpoint counts the registry's pages."""
     state = fresh_dir("fp32")
-    rt = serve.ServeRuntime(
+    rt = serve.boot_serve(
         recovery_cfg(ServeConfig, state, n_layers=2,
                      serving_prefix_cache=True), device="cuda",
         dtype="float32", seed=0, host="127.0.0.1", port=0)
@@ -2692,8 +2739,8 @@ def recovery_swaps(np, serve, sf, ServeConfig):
     cfg = recovery_cfg(ServeConfig, state, n_layers=2, serving_pages=96,
                        serving_window=SHARE_WINDOW, serving_checkpoint_every=0,
                        serving_sched_swap_budget_mb=64)
-    rt = serve.ServeRuntime(cfg, device="cuda", dtype="bfloat16", seed=0,
-                            host="127.0.0.1", port=0)
+    rt = serve.boot_serve(cfg, device="cuda", dtype="bfloat16", seed=0,
+                          host="127.0.0.1", port=0)
     out = {}
     try:
         url = f"http://127.0.0.1:{rt.port}/generate"
@@ -2738,8 +2785,8 @@ def recovery_dump_and_weights(np, serve, sf, ServeConfig, ttr,
     cfg = recovery_cfg(ServeConfig, state, n_layers=2, serving_pages=256,
                        serving_prefix_cache=True, serving_prefix_persist=True,
                        serving_checkpoint_every=0)
-    rt = serve.ServeRuntime(cfg, device="cuda", dtype="bfloat16", seed=0,
-                            host="127.0.0.1", port=0)
+    rt = serve.boot_serve(cfg, device="cuda", dtype="bfloat16", seed=0,
+                          host="127.0.0.1", port=0)
     try:
         url = f"http://127.0.0.1:{rt.port}/generate"
         server, vocab = rt.server, rt.tcfg.vocab
@@ -2800,8 +2847,8 @@ def recovery_dump_and_weights(np, serve, sf, ServeConfig, ttr,
         rt.close()
     cfg_other = recovery_cfg(ServeConfig, fresh_dir("weights"), n_layers=2,
                              serving_pages=256, serving_checkpoint_every=0)
-    rt = serve.ServeRuntime(cfg_other, device="cuda", dtype="bfloat16",
-                            params=other_np, host="127.0.0.1", port=0)
+    rt = serve.boot_serve(cfg_other, device="cuda", dtype="bfloat16",
+                          params=other_np, host="127.0.0.1", port=0)
     try:
         code, want = post(f"http://127.0.0.1:{rt.port}/generate", probe)
         check(code == 200, "the fresh runtime's request failed")
@@ -3225,7 +3272,7 @@ def phase_observability(torch, np, pa, serve, ServeConfig, device="cuda",
     doc = {"phase": "observability", "model": preset, "dtype": "bfloat16",
            "n_layers": n_layers}
     state = os.path.join(OBS_DIR, "on")
-    rt = serve.ServeRuntime(
+    rt = serve.boot_serve(
         obs_cfg(ServeConfig, state, preset=preset, max_seq=max_seq,
                 n_layers=n_layers,
                 serving_trace="on", serving_slo=True, serving_bundle=True,
@@ -3347,7 +3394,7 @@ def phase_observability(torch, np, pa, serve, ServeConfig, device="cuda",
 
     # serving_window = "auto": the controller's picks, and the captures
     # they cost.
-    rt = serve.ServeRuntime(
+    rt = serve.boot_serve(
         obs_cfg(ServeConfig, os.path.join(OBS_DIR, "auto"), preset=preset,
                 max_seq=max_seq, n_layers=n_layers, serving_window="auto",
                 serving_window_min=1, serving_window_max=256),
@@ -3396,7 +3443,7 @@ def phase_observability(torch, np, pa, serve, ServeConfig, device="cuda",
     small = [{**r, "n_new": min(r["n_new"], 32)} for r in reqs[:6]]
     toks = {}
     for debug in (True, False):
-        rt = serve.ServeRuntime(
+        rt = serve.boot_serve(
             obs_cfg(ServeConfig, os.path.join(OBS_DIR, f"locks{int(debug)}"),
                     preset=preset, max_seq=max_seq, n_layers=layers_small,
                     serving_debug_locks=debug),
@@ -3418,6 +3465,78 @@ def phase_observability(torch, np, pa, serve, ServeConfig, device="cuda",
     walls["debug_locks"] = time.perf_counter() - t_part - sum(walls.values())
     doc["part_seconds"] = walls
     doc["ok"] = True
+    emit(doc)
+    return doc
+
+
+# ---- phase 6j: chaos ----------------------------------------------------
+
+# The reference's pinned shapes (tests/test_chaos.py) and, for each, its
+# pinned seed whose two plans hold a "raise": the campaign must poison.
+CHAOS_SHAPES = (
+    ("serial", 17, dict(checkpoint_every=1, overlap="off", window=2,
+                        speculative=0, spec_window=0)),
+    ("overlap", 3, dict(checkpoint_every=1, overlap="on", window=2,
+                        speculative=0, spec_window=0)),
+)
+CHAOS_RUN = dict(rounds=2, requests_per_round=3, n_new=32, slots=3,
+                 pages=24, page_size=16)
+CHAOS_BUDGET_S = 60.0
+
+
+def phase_chaos(torch, np, chaos, serving, ttr, params_from_numpy,
+                ServeConfig, device="cuda", preset="flagship",
+                n_layers=WINDOW_LAYERS):
+    """Seeded multi-fault campaigns (``testing/chaos.py``) over the port's
+    server at the flagship width (its depth cut to ``n_layers``), bf16,
+    on the reference's pinned SERIAL and OVERLAP shapes: 2 rounds of 3
+    concurrent requests (n_new 32), a seeded fault armed each round,
+    every poison revived, every invariant checked after each round. The
+    fault-free oracle is the same server configuration with no fault,
+    each prompt alone: the device batch is pinned at the slots, so a
+    row's bf16 tokens do not depend on its neighbours."""
+    t_phase = time.perf_counter()
+    tcfg = ServeConfig(preset=preset, max_seq=64,
+                       n_layers=n_layers).model_config("bfloat16")
+    params = params_from_numpy(ttr.init_params(0, tcfg), tcfg, device)
+    shapes = {}
+    for name, seed, shape in CHAOS_SHAPES:
+        t0 = time.perf_counter()
+        oracle_server = serving.PagedGenerationServer(
+            params, tcfg, slots=CHAOS_RUN["slots"],
+            pages=CHAOS_RUN["pages"], page_size=CHAOS_RUN["page_size"],
+            prefix_cache=False, device=device, **shape)
+        memo: dict = {}
+
+        def oracle(prompt, n, server=oracle_server, memo=memo):
+            key = (tuple(prompt), n)
+            if key not in memo:
+                memo[key] = server.submit(prompt, n)
+            return memo[key]
+
+        try:
+            res = chaos.run_chaos_campaign(
+                params, tcfg, seed, config=shape, oracle=oracle,
+                join_timeout_s=CHAOS_BUDGET_S, device=device, **CHAOS_RUN)
+        finally:
+            oracle_server.close()
+        shapes[name] = {
+            "seed": seed, "config": res.config, "fired": res.fired,
+            "plans": [ln for ln in res.trace if ln.startswith("[plan]")],
+            "revives": res.revives, "restored": res.restored_total,
+            "completed": res.completed, "failed": res.failed,
+            "seconds": time.perf_counter() - t0}
+        check(res.revives >= 1, f"chaos {name}: no poison revived "
+                                f"({res.fired})")
+        check(res.restored_total >= 1, f"chaos {name}: nothing restored")
+        check(res.completed + res.failed
+              == CHAOS_RUN["rounds"] * CHAOS_RUN["requests_per_round"],
+              f"chaos {name}: {res.completed} + {res.failed} requests")
+    seconds = time.perf_counter() - t_phase
+    doc = {"phase": "chaos", "model": preset, "n_layers": n_layers,
+           "dtype": "bfloat16", **CHAOS_RUN, "shapes": shapes,
+           "seconds": seconds, "within_budget": seconds <= CHAOS_BUDGET_S,
+           "ok": True}
     emit(doc)
     return doc
 
@@ -3649,8 +3768,51 @@ def expect_counts(kfns, device, **launches) -> dict:
             for name in kfns}
 
 
-def phase_train(np, kfns, tr, RuntimeConfig, write_corpus, device="cuda"):
-    """The port's train payload at flagship width, bf16, flash, remat."""
+FEEDER_WINDOW_S = 2.0   # seconds of each timed window of a feeder
+FEEDER_WINDOWS = 3      # windows per feeder; the rate is their median
+
+
+def feeder_rates(np, feed_mod, corpus) -> dict:
+    """The native feeder against ``PyTokenFeeder`` on the same corpus at
+    the train shape: the first batches equal, then batches/s of each,
+    the median of ``FEEDER_WINDOWS`` windows of at least
+    ``FEEDER_WINDOW_S`` each, after 5 warm-up batches. A window this
+    long drains the native ring (``depth`` 4) within its first
+    milliseconds, so it times the worker thread, not the prefilled
+    ring."""
+    shape = dict(batch=TRAIN["batch"], seq=TRAIN["seq"])
+    with feed_mod.TokenFeeder(corpus, **shape) as native, \
+            feed_mod.PyTokenFeeder(corpus, **shape) as plain:
+        for i in range(5):
+            check(np.array_equal(next(native), next(plain)),
+                  f"native feeder batch {i} != PyTokenFeeder's")
+    out = {"window_s": FEEDER_WINDOW_S, **shape}
+    for name, cls in (("native", feed_mod.TokenFeeder),
+                      ("numpy", feed_mod.PyTokenFeeder)):
+        windows = []
+        with cls(corpus, **shape) as feeder:
+            for _ in range(5):
+                next(feeder)
+            for _ in range(FEEDER_WINDOWS):
+                n, t0 = 0, time.perf_counter()
+                while True:
+                    next(feeder)
+                    n += 1
+                    dt = time.perf_counter() - t0
+                    if dt >= FEEDER_WINDOW_S:
+                        break
+                windows.append(n / dt)
+        out[f"{name}_windows_batches_per_s"] = windows
+        out[f"{name}_batches_per_s"] = float(np.median(windows))
+    out["native_over_numpy"] = (out["native_batches_per_s"]
+                                / out["numpy_batches_per_s"])
+    return out
+
+
+def phase_train(np, kfns, tr, RuntimeConfig, feed_mod, device="cuda"):
+    """The port's train payload at flagship width, bf16, flash, remat,
+    over the native feeder (gated), whose rate is held against the numpy
+    feeder's."""
     import shutil
 
     shutil.rmtree(STATE_DIR, ignore_errors=True)
@@ -3664,12 +3826,28 @@ def phase_train(np, kfns, tr, RuntimeConfig, write_corpus, device="cuda"):
         train_checkpoint_every=TRAIN["checkpoint_every"],
         payload_attention="flash")
     tcfg = cfg.model_config("bfloat16")
-    markov_corpus(np, corpus, write_corpus, tcfg.vocab, TRAIN["corpus_tokens"])
+    markov_corpus(np, corpus, feed_mod.write_corpus, tcfg.vocab,
+                  TRAIN["corpus_tokens"])
     corpus_s = time.perf_counter() - t0
+    opened = []
+    real_open = tr.open_feeder
+
+    def recording_open(*args, **kw):
+        opened.append(real_open(*args, **kw))
+        return opened[-1]
+
+    tr.open_feeder = recording_open
     zero_counts(kfns)
-    result = tr.run_train_payload(cfg, device=device, dtype="bfloat16")
+    try:
+        result = tr.run_train_payload(cfg, device=device, dtype="bfloat16")
+    finally:
+        tr.open_feeder = real_open
     launches = counts(kfns)
     check(result.ok, f"train payload failed: {result.error}")
+    feeders = [type(f).__name__ for f in opened]
+    check(feeders == ["TokenFeeder"],
+          f"the train payload opened {feeders}, not the native feeder")
+    rates = feeder_rates(np, feed_mod, corpus)
     losses = result.losses
     ln_v = math.log(tcfg.vocab)
     steps, layers = TRAIN["steps"], tcfg.n_layers
@@ -3680,7 +3858,7 @@ def phase_train(np, kfns, tr, RuntimeConfig, write_corpus, device="cuda"):
            "corpus_s": corpus_s, "losses": losses,
            "first_loss": losses[0], "last5_mean": tail, "ln_vocab": ln_v,
            "launches": launches, "elapsed_s": result.elapsed_ms / 1e3,
-           "progress": progress,
+           "progress": progress, "feeders": feeders, "feeder_rates": rates,
            "checkpoints": sorted(os.listdir(os.path.join(STATE_DIR,
                                                           "checkpoints")))}
     finite = len(losses) == steps and all(math.isfinite(x) for x in losses)
@@ -3819,10 +3997,10 @@ def phase_eval_serve(torch, np, tr, serve, forward, params_from_numpy, cfg,
     check(math.isfinite(ev.loss) and ev.loss < first_loss,
           f"eval loss {ev.loss} not below the first training loss "
           f"{first_loss}")
-    rt = serve.ServeRuntime(dataclasses.replace(cfg, payload="serve",
+    rt = serve.boot_serve(dataclasses.replace(cfg, payload="serve",
                                                 payload_serving="paged"),
-                            device=device, dtype="float32", host="127.0.0.1",
-                            port=0)
+                          device=device, dtype="float32", host="127.0.0.1",
+                          port=0)
     try:
         url = f"http://127.0.0.1:{rt.port}/generate"
         _, tree = tr.restore_latest_params(cfg, rt.tcfg)
@@ -4582,6 +4760,9 @@ def phase_train_fused(torch, np, kfns, training, tr, ttr, open_feeder,
     shutil.rmtree(FUSED_DIR, ignore_errors=True)
     feeder = open_feeder(os.path.join(STATE_DIR, "markov.bin"),
                          batch=TRAIN["batch"], seq=TRAIN["seq"])
+    check(type(feeder).__name__ == "TokenFeeder",
+          f"open_feeder returned {type(feeder).__name__}, not the native "
+          "feeder")
     steps, layers = TRAIN["steps"], cfg.n_layers
     zero_counts(kfns)
     t0 = time.perf_counter()
@@ -4600,8 +4781,10 @@ def phase_train_fused(torch, np, kfns, training, tr, ttr, open_feeder,
     finite = len(losses) == steps and all(math.isfinite(x) for x in losses)
     ok = (finite and abs(losses[0] - ln_v) <= 0.5 * ln_v
           and tail <= losses[0] - 1.0 and launches == want)
+    feeder.close()
     emit({"phase": "train_fused", "dtype": "bfloat16", "attention": "flash",
           "remat": cfg.remat, "fused_xent": True, **TRAIN,
+          "feeder": type(feeder).__name__,
           "losses": losses, "first_loss": losses[0], "last5_mean": tail,
           "ln_vocab": ln_v, "elapsed_s": elapsed, "launches": launches,
           "expected_launches": want, "ok": ok})
@@ -5463,8 +5646,8 @@ def moe_train(torch, np, kfns, training, tr, ttr, serve, forward,
                                serving_prefix_cache=False)
     with warnings.catch_warnings():
         warnings.simplefilter("error", RuntimeWarning)
-        rt = serve.ServeRuntime(scfg, device=device, dtype="float32",
-                                host="127.0.0.1", port=0)
+        rt = serve.boot_serve(scfg, device=device, dtype="float32",
+                              host="127.0.0.1", port=0)
     try:
         url = f"http://127.0.0.1:{rt.port}/generate"
         corpus_ids = np.fromfile(corpus, dtype=np.int32, offset=16)
@@ -5564,9 +5747,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     try:
+        from kvedge_torch.data import feeder as feed_mod
         from kvedge_torch.data.feeder import open_feeder, write_corpus
         from kvedge_torch.models import decode
         from kvedge_torch.models import kvcache as kvc
+        from kvedge_torch.models import serving as serving_mod
         from kvedge_torch.models import speculative as spec_mod
         from kvedge_torch.models import training
         from kvedge_torch.models import transformer as ttr
@@ -5583,6 +5768,7 @@ def main() -> int:
         from kvedge_torch.runtime import train as tr
         from kvedge_torch.runtime.config import RuntimeConfig, ServeConfig
         from kvedge_torch.runtime.devicecheck import resolve_device
+        from kvedge_torch.testing import chaos as chaos_mod
     except ImportError as e:
         print(f"chip_smoke: the kvedge_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -5671,6 +5857,10 @@ def main() -> int:
         obs_doc = phase_observability(torch, np, pa, serve, ServeConfig,
                                       n_layers=WINDOW_LAYERS)
 
+        phase = enter("chaos")
+        phase_chaos(torch, np, chaos_mod, serving_mod, ttr,
+                    params_from_numpy, ServeConfig)
+
         phase = enter("boot")
         boot_doc = phase_boot(torch, np, kfns, serve, boot_mod, hc,
                               RuntimeConfig)
@@ -5689,7 +5879,7 @@ def main() -> int:
 
         phase = enter("train")
         cfg, first, train_launches = phase_train(np, kfns, tr, RuntimeConfig,
-                                                 write_corpus)
+                                                 feed_mod)
 
         phase = enter("resume")
         phase_resume(tr, cfg, first)

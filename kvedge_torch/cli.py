@@ -1,18 +1,24 @@
-"""``python -m kvedge_torch serve|train|eval|boot|render|notes|version|package``:
-the port's entry points.
+"""``python -m kvedge_torch
+serve|train|eval|boot|corpus|render|notes|version|package``: the port's
+entry points.
 
     serve   [--config x.toml] [--preset P] [--max-seq N] [--port P]
             [--bind H] [--device cuda|cpu] [--seed S] [--dtype D]
     train   --config x.toml [--preset P] [--device cuda|cpu] [--dtype D]
     eval    --config x.toml [--preset P] [--device cuda|cpu] [--dtype D]
     boot    --config x.toml [--once] [--device cuda|cpu]
+    corpus  --out PATH (--from-tokens FILE | --random N [--vocab V]
+            [--seed S]) [--holdout F]
     render  [--set K=V ...] [--set-file K=PATH ...] [--output-dir D]
     notes   [--set K=V ...] [--set-file K=PATH ...]
     version
     package [--chart-dir D] [--out-dir D]
 
-``render``, ``notes``, ``version`` and ``package`` are the JAX package's
-deployment commands (``kvedge_tpu/cli.py``) over the port's GPU chart:
+``corpus`` writes a KVFEED01 token corpus for the ``train`` payload, as
+the JAX package's ``corpus`` command does (the same sources, split,
+checks and messages, byte-identical files). ``render``, ``notes``,
+``version`` and ``package`` are the JAX package's deployment commands
+(``kvedge_tpu/cli.py``) over the port's GPU chart:
 ``render`` writes the manifest set for ``kubectl apply -f`` (to stdout,
 or one file a manifest under ``--output-dir``) and prints the NOTES;
 ``package`` writes ``deployment/gpu/helm`` (by default) as a
@@ -230,10 +236,87 @@ def _package(args) -> int:
     return 0
 
 
+def _corpus(args) -> int:
+    """Write a KVFEED01 token corpus for the ``train`` payload.
+
+    Sources, exactly one of: ``--from-tokens`` (a text file of integer
+    token ids, whitespace/newline separated — the format any external
+    tokenizer can emit) or ``--random N`` (a seeded synthetic corpus for
+    smoke tests and demos).
+
+    ``--holdout F`` (0 < F < 1) splits the stream's TAIL fraction into a
+    second file ``<out>.eval`` — the held-out split for the ``eval``
+    payload (``[payload] eval_corpus``). A sequential tail split, not a
+    shuffle: the corpus is a token stream, and shuffling would leak
+    training n-grams across the boundary.
+    """
+    import numpy as np
+
+    from kvedge_torch.data.feeder import read_corpus_header, write_corpus
+
+    if (args.from_tokens is None) == (args.random is None):
+        raise ValueError(
+            "exactly one of --from-tokens or --random is required"
+        )
+    if args.from_tokens is not None:
+        # Whitespace/newline separated, no rectangularity requirement.
+        try:
+            words = pathlib.Path(args.from_tokens).read_text().split()
+            # Python ints first: a huge id must become the friendly
+            # error below, not an OverflowError from numpy.
+            ids = [int(w) for w in words]
+        except ValueError as e:
+            raise ValueError(f"--from-tokens must contain integers: {e}")
+        if not ids:
+            raise ValueError(
+                f"--from-tokens file {args.from_tokens} contains no "
+                "tokens; an empty corpus would only fail later at pod "
+                "boot"
+            )
+        if min(ids) < 0 or max(ids) > 2**31 - 1:
+            raise ValueError("token ids must fit in int32 and be >= 0")
+        tokens = np.array(ids, dtype=np.int32)
+    else:
+        if args.random <= 0:
+            raise ValueError("--random needs a positive token count")
+        rng = np.random.default_rng(args.seed)
+        tokens = rng.integers(0, args.vocab, size=args.random,
+                              dtype=np.int32)
+    if args.holdout is not None:
+        if not 0.0 < args.holdout < 1.0:
+            raise ValueError("--holdout must be a fraction in (0, 1)")
+        n_eval = int(len(tokens) * args.holdout)
+        # A split too small to feed even one seq=128 eval batch row would
+        # only fail later at pod boot (the feeder needs seq+1 tokens).
+        if n_eval < 129 or len(tokens) - n_eval < 129:
+            raise ValueError(
+                f"--holdout {args.holdout} of {len(tokens)} tokens "
+                f"leaves a split of {min(n_eval, len(tokens) - n_eval)} "
+                "tokens — too small to feed one default-seq (128) batch "
+                "row at pod boot; use more tokens or a different fraction"
+            )
+        eval_path = f"{args.out}.eval"
+        write_corpus(args.out, tokens[:-n_eval])
+        write_corpus(eval_path, tokens[-n_eval:])
+        print(
+            f"wrote {read_corpus_header(args.out)} tokens to {args.out} "
+            f"and {read_corpus_header(eval_path)} held-out tokens to "
+            f"{eval_path} (set [payload] eval_corpus to it)",
+            file=sys.stderr,
+        )
+        return 0
+    write_corpus(args.out, tokens)
+    print(
+        f"wrote {read_corpus_header(args.out)} tokens to {args.out}",
+        file=sys.stderr,
+    )
+    return 0
+
+
 GPU_CHART = pathlib.Path(__file__).resolve().parent.parent / "deployment" / \
     "gpu" / "helm"
 DEPLOY_COMMANDS = {"render": _render, "notes": _notes, "version": _version,
-                   "package": _package}
+                   "package": _package, "corpus": _corpus}
 
 
 def main(argv=None) -> int:
@@ -275,6 +358,23 @@ def main(argv=None) -> int:
                     help="chart directory (default: the GPU chart)")
     pp.add_argument("--out-dir", default=".",
                     help="where to write the .tgz (default: cwd)")
+    cp = sub.add_parser("corpus", help="write a KVFEED01 token corpus "
+                        "for the `train` payload")
+    cp.add_argument("--out", required=True, help="output corpus path")
+    cp.add_argument("--from-tokens",
+                    help="text file of integer token ids (whitespace "
+                         "separated)")
+    cp.add_argument("--random", type=int,
+                    help="generate N random tokens instead (seeded; "
+                         "smoke tests/demos)")
+    cp.add_argument("--vocab", type=int, default=512,
+                    help="vocab for --random (default 512, the train "
+                         "payload's model vocab)")
+    cp.add_argument("--seed", type=int, default=0)
+    cp.add_argument("--holdout", type=float,
+                    help="split this tail fraction (0 < F < 1) into "
+                         "<out>.eval — the held-out corpus for the `eval` "
+                         "payload")
     args = ap.parse_args(argv)
     if args.cmd in DEPLOY_COMMANDS:
         try:

@@ -2466,6 +2466,7 @@ class PagedGenerationServer:
 
     def _next_tokens(self, logits: torch.Tensor) -> dict[int, int]:
         """Every active slot's next token from one step's logits."""
+        # locklint: allow[device-sync-under-lock] the serial loop's step: its tokens are the next step's input and the books this lock guards wait on them (the reference reads them under its lock too)
         greedy = torch.argmax(logits, dim=-1).cpu().numpy()
         out = {slot: int(greedy[slot]) for slot in self._active}
         out.update(self._sample_slots(logits, {
@@ -2489,6 +2490,7 @@ class PagedGenerationServer:
                                 dtype=torch.float32, device=dev)[:, None]
         top_ps = torch.as_tensor([samplers[s].sampling[2] for s in slots],
                                  dtype=torch.float32, device=dev)[:, None]
+        # locklint: allow[device-sync-under-lock] as _next_tokens: the step's sampled tokens, read where the loop needs them
         picked = sample_token(logits[slots], fold_in(keys, steps), temps,
                               top_ps).cpu().numpy()
         return {s: int(picked[i]) for i, s in enumerate(slots)}
@@ -2784,6 +2786,7 @@ class PagedGenerationServer:
                     else:
                         produced = self._cache.step_window(
                             self._params, tokens, window, active=mask)
+                    # locklint: allow[device-sync-under-lock] the serial loop's window: the batch holds still under the lock until its tokens are read, by design (boundary-only admission)
                     produced = produced.cpu().numpy()
                     t1 = time.perf_counter()
                     self._decode_s += t1 - t0
@@ -3073,10 +3076,12 @@ class PagedGenerationServer:
                 # The pending token, then everything up to AND including
                 # the stop token; the steps after it are discarded.
                 room = req.n_new - len(req.generated)
+                # locklint: allow[device-sync-under-lock] numpy: harvest_window returned the block on the host
                 seq = [req.next_token] + produced[:stop_at, slot].tolist()
                 self._emit_many(req, seq[:room])
                 self._finish_stopped_locked(slot, req)
                 continue
+            # locklint: allow[device-sync-under-lock] numpy: harvest_window returned the block on the host
             toks = produced[:adv, slot].tolist()
             self._emit_many(req, [req.next_token] + toks[:-1])
             req.next_token = toks[-1]
@@ -3210,6 +3215,7 @@ class PagedGenerationServer:
                 continue
             before = len(req.generated)
             stopped = False
+            # locklint: allow[device-sync-under-lock] numpy: harvest_spec_window returned the counts on the host
             counts_col = counts[:, slot].tolist()
             for p in range(rec["window"]):
                 c = counts_col[p]
@@ -3218,6 +3224,7 @@ class PagedGenerationServer:
                     # device.
                     continue
                 room = max(req.n_new - len(req.generated), 0)
+                # locklint: allow[device-sync-under-lock] numpy: harvest_spec_window returned the tokens on the host
                 row = emitted[p, slot, :c].tolist()
                 seq = ([req.next_token] + row[:-1])[:room]
                 if req.stop_token in seq:

@@ -67,10 +67,40 @@ class RuntimeHandle:
         return self.server.port
 
     def snapshot(self) -> dict:
-        return runtime_snapshot(self.cfg, self.check, self.serve_fn,
-                                payload=self.cfg.payload,
-                                boot_count=self.boot_count,
-                                started_at=self.started_at)
+        """The ``GET /status`` document (and ``/metrics``' source): the
+        reference's ``RuntimeHandle.snapshot()`` keys."""
+        last = heartbeat.read_heartbeat(self.cfg.state_dir) or {}
+        return {
+            "name": self.cfg.name,
+            "ok": self.check.ok,
+            "payload": self.cfg.payload,
+            "check": self.check.to_dict(),
+            "boot_count": self.boot_count,
+            "uptime_s": round(time.time() - self.started_at, 3),
+            "heartbeat_seq": last.get("seq", 0),
+            "heartbeat_age_s": (
+                round(time.time() - last["ts"], 3) if "ts" in last else None
+            ),
+            # One process on one host: the reference's inactive state.
+            "distributed": {"active": False, "num_processes": 1,
+                            "process_id": 0, "coordinator": ""},
+            # Supervision history from the native PID-1 supervisor and the
+            # recovery supervisor, across pod generations.
+            "init_events": heartbeat.read_init_events(self.cfg.state_dir),
+            # Live (or last-known) train-payload progress; None unless a
+            # train payload has written it.
+            "train_progress": read_train_progress(self.cfg.state_dir),
+            # Serving request/pool stats; None unless the serve payload is
+            # live.
+            "serving": (
+                self.serve_fn.stats()
+                if getattr(self.serve_fn, "stats", None) is not None
+                else None
+            ),
+            # Post-mortem of the last serving failure, on the state volume,
+            # so a replacement pod reports why its predecessor died.
+            "last_failure": heartbeat.read_failure_record(self.cfg.state_dir),
+        }
 
     def shutdown(self) -> None:
         self.writer.stop()
@@ -80,46 +110,6 @@ class RuntimeHandle:
         closer = getattr(self.serve_fn, "close", None)
         if closer is not None:
             closer()
-
-
-def runtime_snapshot(cfg: RuntimeConfig, check: DeviceCheckResult,
-                     serve_fn, *, payload: str, boot_count: int,
-                     started_at: float) -> dict:
-    """The ``GET /status`` document (and ``/metrics``' source): the
-    reference's ``RuntimeHandle.snapshot()`` keys, for the runtime's
-    handle and for ``ServeRuntime``'s own HTTP surface alike."""
-    last = heartbeat.read_heartbeat(cfg.state_dir) or {}
-    return {
-        "name": cfg.name,
-        "ok": check.ok,
-        "payload": payload,
-        "check": check.to_dict(),
-        "boot_count": boot_count,
-        "uptime_s": round(time.time() - started_at, 3),
-        "heartbeat_seq": last.get("seq", 0),
-        "heartbeat_age_s": (
-            round(time.time() - last["ts"], 3) if "ts" in last else None
-        ),
-        # One process on one host: the reference's inactive state.
-        "distributed": {"active": False, "num_processes": 1,
-                        "process_id": 0, "coordinator": ""},
-        # Supervision history from the native PID-1 supervisor and the
-        # recovery supervisor, across pod generations.
-        "init_events": heartbeat.read_init_events(cfg.state_dir),
-        # Live (or last-known) train-payload progress; None unless a
-        # train payload has written it.
-        "train_progress": read_train_progress(cfg.state_dir),
-        # Serving request/pool stats; None unless the serve payload is
-        # live.
-        "serving": (
-            serve_fn.stats()
-            if getattr(serve_fn, "stats", None) is not None
-            else None
-        ),
-        # Post-mortem of the last serving failure, on the state volume,
-        # so a replacement pod reports why its predecessor died.
-        "last_failure": heartbeat.read_failure_record(cfg.state_dir),
-    }
 
 
 def serve_routes(cfg: RuntimeConfig,
@@ -262,7 +252,7 @@ def _payload_check(base: DeviceCheckResult, result) -> DeviceCheckResult:
 
 
 def _run_payload(cfg: RuntimeConfig, handle: "RuntimeHandle", device=None,
-                 dtype: str = "bfloat16", seed: int = 0
+                 dtype: str = "bfloat16", seed: int = 0, params=None
                  ) -> DeviceCheckResult:
     if cfg.payload == "none":
         return DeviceCheckResult(
@@ -291,8 +281,8 @@ def _run_payload(cfg: RuntimeConfig, handle: "RuntimeHandle", device=None,
         if cfg.payload == "serve":
             from kvedge_torch.runtime import serve
 
-            check, serve_fn = serve.run_serve_payload(cfg, device, dtype,
-                                                      seed)
+            check, serve_fn = serve.run_serve_payload(
+                cfg, device, dtype, seed, params=params)
             handle.serve_fn = serve_fn
             return check
         return run_device_check(cfg, device)
@@ -301,7 +291,7 @@ def _run_payload(cfg: RuntimeConfig, handle: "RuntimeHandle", device=None,
 
 
 def start_runtime(cfg: RuntimeConfig, device=None, dtype: str = "bfloat16",
-                  seed: int = 0) -> RuntimeHandle:
+                  seed: int = 0, *, params=None) -> RuntimeHandle:
     """Start the status server, run the boot work, keep the heartbeat going.
 
     The status server starts FIRST, serving the ``booting`` state,
@@ -310,7 +300,9 @@ def start_runtime(cfg: RuntimeConfig, device=None, dtype: str = "bfloat16",
     afterwards, kubelet's liveness probe (which targets /version) would
     kill and restart the pod mid-boot. ``device`` is the card unless
     "cpu" is asked for; ``dtype`` the payloads' compute dtype; ``seed``
-    the serve payload's weights when there is no checkpoint.
+    the serve payload's weights when there is no checkpoint, and
+    ``params`` a numpy tree it serves instead of the checkpoint's
+    (``serve.boot_serve`` boots through here).
     """
     started_at = time.time()
     boot_count = heartbeat.next_boot_count(cfg.state_dir)
@@ -392,7 +384,8 @@ def start_runtime(cfg: RuntimeConfig, device=None, dtype: str = "bfloat16",
         except RuntimeConfigError as e:
             handle.check = _degraded(str(e))
         else:
-            handle.check = _run_payload(cfg, handle, device, dtype, seed)
+            handle.check = _run_payload(cfg, handle, device, dtype, seed,
+                                        params)
     boot_complete.set()  # safe to profile from handler threads now
     writer.beat_once()  # refresh: the booting heartbeat is now stale
     return handle

@@ -81,14 +81,19 @@ on, ``flight-bundle.json`` lands beside it. ``serving_window = "auto"``,
 ``serving_occupancy_ring`` and ``serving_debug_locks`` reach the
 server; ``[status] token`` gates the POST routes.
 
-``ServeRuntime`` builds everything (device check, weights, the server
-and, given a ``port``, an HTTP surface of ``runtime/status.py`` of its
-own); :func:`run_serve_payload` is the ``serve`` payload the runtime
+``ServeRuntime`` builds the data path (device check, weights, the
+server); :func:`run_serve_payload` is the ``serve`` payload the runtime
 boots (``runtime/boot.py``): the device check against the config, a
-``ServeRuntime`` with no HTTP surface, one self-check generation, and
-the ``serve_fn`` the runtime's status server routes ``POST /generate``
-through. ``python -m kvedge_torch serve`` (``cli.py``) and
-``kvedge-runtime boot`` run it until stopped. The weights are the params of the latest
+``ServeRuntime``, one self-check generation, and the ``serve_fn`` the
+runtime's status server routes ``POST /generate`` through.
+:func:`boot_serve` boots that runtime: ``start_runtime`` with a
+``serve`` payload on a given port, which starts the status server,
+writes the heartbeats (with this boot's ``boot_count``), runs the
+payload and serves ``/profile``; it returns the payload's
+``ServeRuntime``, with ``http`` the runtime's status server and
+``handle`` its ``RuntimeHandle``. ``python -m
+kvedge_torch serve`` (``cli.py``) and ``kvedge-runtime boot`` run it
+until stopped. The weights are the params of the latest
 checkpoint that ``train`` wrote under the state directory
 (``restored_step`` in every response names its step), as the
 reference's serve restores them, or else the seeded numpy init.
@@ -132,10 +137,9 @@ from kvedge_torch.runtime.failures import ServingFailure
 from kvedge_torch.runtime.recovery import (
     RecoveryPolicy,
     RecoverySupervisor,
-    sweep_stranded_tmp,
 )
 from kvedge_torch.runtime.slo import SloObjectives
-from kvedge_torch.runtime.status import GenerateUnavailable, StatusServer
+from kvedge_torch.runtime.status import GenerateUnavailable
 from kvedge_torch.runtime.tracing import (
     Tracer,
     clean_request_id,
@@ -408,9 +412,7 @@ class _ResumeLog:
 
 class ServeRuntime:
     """The serving data path: device check, weights, the paged server
-    (``server``; None on the contiguous backend), ``serve_fn`` and (with
-    ``port`` set) the HTTP surface (``http``, a
-    :class:`~kvedge_torch.runtime.status.StatusServer`).
+    (``server``; None on the contiguous backend) and ``serve_fn``.
 
     ``device`` is the card unless "cpu" is asked for; ``params`` is a
     numpy param tree (the reference's layout) or None for the latest
@@ -421,12 +423,13 @@ class ServeRuntime:
     warm restart re-restores the params served, copied in place.
     ``tracer`` is the flight recorder (None with ``serving_trace`` off)
     and ``resume_log`` the reconnect log (None unless checkpoints are on
-    on the paged backend).
+    on the paged backend). ``http`` and ``handle`` are the status
+    server and :class:`~kvedge_torch.runtime.boot.RuntimeHandle` of a
+    runtime that :func:`boot_serve` booted, else None.
     """
 
     def __init__(self, cfg: ServeConfig, *, device=None,
                  dtype: str = "bfloat16", seed: int = 0, params=None,
-                 host: str | None = None, port: int | None = None,
                  device_check: DeviceCheckResult | None = None):
         self.device = resolve_device(device)
         self.device_check = (device_check if device_check is not None
@@ -437,13 +440,6 @@ class ServeRuntime:
         self.cfg = cfg
         self.tcfg = cfg.model_config(dtype)
         self.started_at = time.time()
-        # Atomic-write leftovers of a killed predecessor, before anything
-        # writes to the state directory.
-        swept = sweep_stranded_tmp(cfg.state_dir)
-        if swept:
-            print(f"[kvedge-serve] swept {len(swept)} stranded tmp "
-                  f"file(s) from the state dir: {', '.join(swept)}",
-                  flush=True)
         self.restored_step = None
         given = params
         if params is None:
@@ -559,23 +555,7 @@ class ServeRuntime:
         self._rows = concurrent.futures.ThreadPoolExecutor(
             max_workers=2 * slots, thread_name_prefix="kvedge-torch-row")
         self.http = None
-        if port is not None:
-            # The runtime handle's documents and routes (runtime/boot.py),
-            # over this runtime's payload function; no profiler.
-            from kvedge_torch.runtime import boot
-
-            fn = self.payload_fn()
-            self.http = StatusServer(
-                host or cfg.status_bind, port,
-                snapshot=lambda: boot.runtime_snapshot(
-                    cfg, self.device_check, fn, payload="serve",
-                    boot_count=int((heartbeat.read_heartbeat(
-                        cfg.state_dir) or {}).get("boot_count", 0)),
-                    started_at=self.started_at),
-                token=cfg.status_token,
-                **boot.serve_routes(cfg, lambda: fn,
-                                    lambda: self.device_check))
-            self.http.start()
+        self.handle = None
 
     def _start_prefix_persistence(self) -> None:
         """Re-pin the previous run's prefix registry, then dump it every
@@ -877,7 +857,9 @@ class ServeRuntime:
                 out, rate = generate_speculative(
                     self.weights, prompt, self.tcfg, n_new, draft_len=spec,
                     device=self.device)
-                rows = out.cpu().tolist()
+                # locklint: allow[device-sync-under-lock] the copy is device work, which this lock (device_quiet) holds off while the profiler toggles
+                out = out.cpu()
+            rows = out.tolist()
             # The mean tokens emitted per verify pass (1.0 = speculation
             # never paid; spec + 1 = every draft accepted).
             return {"tokens": rows, "n_new": n_new,
@@ -895,7 +877,9 @@ class ServeRuntime:
             out = generate(self.weights, prompt, self.tcfg, n_new,
                            sampling=sampling, sampled=sampled,
                            device=self.device)
-            rows = out.cpu().tolist()
+            # locklint: allow[device-sync-under-lock] the copy is device work, which this lock (device_quiet) holds off while the profiler toggles
+            out = out.cpu()
+        rows = out.tolist()
         return {"tokens": rows, "n_new": n_new,
                 "restored_step": self.restored_step}
 
@@ -1017,10 +1001,16 @@ class ServeRuntime:
                "request_id": rid}
 
     def close(self, drain: bool = False) -> None:
+        handle, self.handle = self.handle, None
+        if handle is not None:
+            # A booted runtime closes as its runtime shuts down: the
+            # heartbeats, the status server, then this runtime through
+            # serve_fn.close, back here with the handle gone (undrained,
+            # as the runtime's shutdown closes its payload).
+            handle.shutdown()
+            return
         if self.supervisor is not None:
             self.supervisor.stop()
-        if self.http is not None:
-            self.http.shutdown()
         if self.server is not None:
             self.server.close(drain=drain)
             if self.prefix_path:
@@ -1038,21 +1028,23 @@ class ServeRuntime:
 
 
 def run_serve_payload(cfg: ServeConfig, device=None, dtype: str = "bfloat16",
-                      seed: int = 0):
+                      seed: int = 0, *, params=None):
     """The ``serve`` payload: ``(DeviceCheckResult, serve_fn)``.
 
     The reference's ``run_serve_payload`` contract: the device check
     against the config first (a failed check returns with no
-    ``serve_fn``), then the runtime, then one tiny greedy generation
-    through the uncounted path, proving the weights and the decode path
-    (and capturing its graphs) before the endpoint goes live; its time
-    and token sum are the check's ``probe_ms`` and ``probe_checksum``.
-    ``serve_fn`` is :meth:`ServeRuntime.payload_fn`'s."""
+    ``serve_fn``), then the runtime (over
+    ``params``, a numpy tree, when given), then one tiny greedy
+    generation through the uncounted path, proving the weights and the
+    decode path (and capturing its graphs) before the endpoint goes
+    live; its time and token sum are the check's ``probe_ms`` and
+    ``probe_checksum``. ``serve_fn`` is
+    :meth:`ServeRuntime.payload_fn`'s."""
     base = run_device_check(cfg, device)
     if not base.ok:
         return base, None
     rt = ServeRuntime(cfg, device=device, dtype=dtype, seed=seed,
-                      device_check=base)
+                      params=params, device_check=base)
     try:
         max_seq = rt.tcfg.max_seq
         probe_prompt = list(range(1, min(4, max_seq - 1) + 1))
@@ -1067,3 +1059,32 @@ def run_serve_payload(cfg: ServeConfig, device=None, dtype: str = "bfloat16",
         base, probe_ms=elapsed_ms,
         probe_checksum=float(sum(probe["tokens"][0])),
     ), rt.payload_fn()
+
+
+def boot_serve(cfg: ServeConfig, *, port: int, host: str | None = None,
+               device=None, dtype: str = "bfloat16", seed: int = 0,
+               params=None) -> ServeRuntime:
+    """The serve runtime booted through ``start_runtime`` with a
+    ``serve`` payload on ``host``:``port`` (``[status] bind`` when
+    None), over ``params`` (a numpy tree) when given. The device check
+    is the config's, with the CPU expected when the CPU is asked for, as
+    ``--device cpu`` does. Returns the payload's :class:`ServeRuntime`,
+    its heartbeats running until :meth:`ServeRuntime.close`; raises,
+    with the runtime shut down, when the payload did not come up."""
+    from kvedge_torch.runtime.boot import start_runtime
+
+    device = resolve_device(device)
+    overrides = {"payload": "serve", "status_port": port,
+                 "status_bind": host or cfg.status_bind}
+    if device.type == "cpu":
+        overrides["expected_platform"] = "cpu"
+    handle = start_runtime(dataclasses.replace(cfg, **overrides),
+                           device=device, dtype=dtype, seed=seed,
+                           params=params)
+    rt = getattr(handle.serve_fn, "runtime", None)
+    if rt is None:
+        handle.shutdown()
+        raise RuntimeError(f"serve payload failed: {handle.check.error}")
+    rt.handle, rt.http = handle, handle.server
+    handle.writer.start()
+    return rt

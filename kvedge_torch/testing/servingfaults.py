@@ -28,10 +28,11 @@ To drive a fault on the CPU::
     FaultyCache.arm(server._cache, plan)
 
 :meth:`FaultyCache.arm` puts a plan on any live cache, one a runtime
-built too. The plan's single-host kind is ``"raise"``: the reference's
-``"hang"`` and ``"delay"`` kinds and its ``heal_at`` outage window
-model a lost multi-host follower, and come with the multi-host
-transport's injector.
+built too. The plan's single-host kinds are ``"raise"`` and
+``"delay"`` (the seam sleeps ``delay_s``, then proceeds): the
+reference's ``"hang"`` kind and its ``heal_at`` outage window model a
+lost multi-host follower, and come with the multi-host transport's
+injector.
 """
 
 from __future__ import annotations
@@ -67,31 +68,38 @@ class InjectedFault(RuntimeError):
 
 
 class FaultPlan:
-    """A seeded decision of WHEN a device op fails.
+    """A seeded decision of WHAT fails and WHEN.
 
     The plan counts every seam crossing (a device op on a
-    :class:`FaultyCache`) and fires ONCE, at the drawn index: the seam
-    raises :class:`InjectedFault` (a device op failing loudly), and
-    every seam after it succeeds. ``kinds`` is drawn from as the
-    reference draws it, so a seed picks the reference's ``fire_at``.
+    :class:`FaultyCache`) and fires ONCE, at the drawn index: with
+    ``"raise"`` the seam raises :class:`InjectedFault` (a device op
+    failing loudly), with ``"delay"`` it sleeps ``delay_s`` and
+    proceeds (a slow op); every seam after it succeeds. ``kinds`` is
+    drawn from as the reference draws it, so a seed picks the
+    reference's kind and ``fire_at``.
 
     ``seams`` (the port's addition) restricts the count to the crossings
     whose label starts with one of its prefixes (``("windowp",)`` fires
-    at the ``fire_at``-th window dispatch); every crossing still lands
-    in ``trace``.
+    at the ``fire_at``-th window dispatch). A subclass may count by its
+    own rule: :meth:`weight` (a crossing of weight w takes w counts)
+    and :meth:`may_fire` (the plan fires at the first crossing it
+    allows once the count has passed ``fire_at``). Every crossing still
+    lands in ``trace``.
     """
 
     def __init__(self, seed: int, *, kinds=("raise",),
                  fire_window: tuple[int, int] = (1, 12),
-                 seams: tuple[str, ...] | None = None):
-        if set(kinds) != {"raise"}:
-            raise ValueError(f"fault kinds {kinds!r}: only 'raise' is "
-                             "single-host; the others wait for the "
+                 seams: tuple[str, ...] | None = None,
+                 delay_s: float = 0.0):
+        if not set(kinds) <= {"raise", "delay"}:
+            raise ValueError(f"fault kinds {kinds!r}: 'raise' and 'delay' "
+                             "are single-host; 'hang' waits for the "
                              "multi-host injector")
         rng = random.Random(seed)
         self.kind = rng.choice(list(kinds))
         self.fire_at = rng.randrange(*fire_window)
         self.seams = seams
+        self.delay_s = delay_s
         self.count = 0
         self.fired_on: str | None = None
         self.trace: list[str] = [
@@ -99,22 +107,38 @@ class FaultPlan:
         ]
         self._lock = threading.Lock()
 
+    def weight(self, label: str) -> int:
+        """The counts this crossing of ``label`` takes toward
+        ``fire_at``: 1, or 0 outside ``seams``."""
+        return int(self.seams is None or label.startswith(self.seams))
+
+    def may_fire(self, label: str) -> bool:
+        """Whether the plan may fire at this crossing of ``label``: not
+        outside ``seams``."""
+        return self.seams is None or label.startswith(self.seams)
+
     def at_seam(self, label: str) -> None:
         """Called by the injectors at every seam crossing."""
+        w = self.weight(label)
+        may = self.may_fire(label)
         with self._lock:
-            if self.seams is not None and not label.startswith(self.seams):
+            if w <= 0 and not may:
                 self.trace.append(f"[-] {label}")
                 return
             i = self.count
-            self.count += 1
-            fire = i == self.fire_at and self.fired_on is None
+            self.count += max(w, 0)
+            fire = (may and self.count > self.fire_at
+                    and self.fired_on is None)
             if fire:
                 self.fired_on = label
             self.trace.append(
-                f"[{i}] {label}" + (" <- raise" if fire else "")
+                f"[{i}] {label}" + (f" <- {self.kind}" if fire else "")
             )
-        if fire:
+        if not fire:
+            return
+        if self.kind == "raise":
             raise InjectedFault(f"injected raise at seam {i} ({label})")
+        time.sleep(self.delay_s)
 
 
 class FaultyCache(PagedKVCache):

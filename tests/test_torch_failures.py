@@ -197,7 +197,8 @@ def test_fault_plan_draws_the_reference_kind_and_index(seed):
     assert ours.trace[0] == theirs.trace[0]
 
 
-@pytest.mark.parametrize("kinds", [("hang",), ("raise", "delay")])
+# "delay" is single-host (the chaos campaign draws it), "hang" is not.
+@pytest.mark.parametrize("kinds", [("hang",), ("raise", "hang")])
 def test_fault_plan_refuses_the_multi_host_kinds(kinds):
     with pytest.raises(ValueError, match="multi-host"):
         tfaults.FaultPlan(0, kinds=kinds)

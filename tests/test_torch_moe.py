@@ -55,7 +55,7 @@ from kvedge_torch.models.serving import PagedGenerationServer
 from kvedge_torch.models.weights import params_from_numpy
 from kvedge_torch.runtime import train as tpay
 from kvedge_torch.runtime.config import RuntimeConfigError, ServeConfig
-from kvedge_torch.runtime.serve import ServeRuntime
+from kvedge_torch.runtime.serve import boot_serve
 
 torch.set_num_threads(2)
 
@@ -601,9 +601,9 @@ def test_generate_route_matches_the_reference_serve_payload(tmp_path):
         serve_fn.close()
     cfg = dataclasses.replace(ServeConfig.parse(text), max_seq=64,
                               state_dir=str(tmp_path / "port"))
-    rt = ServeRuntime(cfg, device="cpu", dtype="float32",
-                      params={k: np.asarray(v) for k, v in jparams.items()},
-                      host="127.0.0.1", port=0)
+    rt = boot_serve(cfg, device="cpu", dtype="float32",
+                    params={k: np.asarray(v) for k, v in jparams.items()},
+                    host="127.0.0.1", port=0)
     try:
         assert rt.tcfg.n_experts == 4 and rt.tcfg.expert_top_k == 2
         got = _post(f"http://127.0.0.1:{rt.port}/generate", body)
@@ -636,8 +636,8 @@ def test_train_checkpoint_resume_then_serve_matches_teacher_forcing(tmp_path):
                                     payload_serving="paged")
     with warnings.catch_warnings():
         warnings.simplefilter("error", RuntimeWarning)
-        rt = ServeRuntime(serve_cfg, device="cpu", dtype="float32",
-                          host="127.0.0.1", port=0)
+        rt = boot_serve(serve_cfg, device="cpu", dtype="float32",
+                        host="127.0.0.1", port=0)
     try:
         got = _post(f"http://127.0.0.1:{rt.port}/generate",
                     {"tokens": [[3, 1, 4]], "n_new": 3})

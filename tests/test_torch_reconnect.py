@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from kvedge_torch.runtime.config import ServeConfig
-from kvedge_torch.runtime.serve import ServeRuntime
+from kvedge_torch.runtime.serve import boot_serve
 from kvedge_torch.testing.servingfaults import FaultPlan, FaultyCache
 
 torch.set_num_threads(2)
@@ -46,8 +46,8 @@ def _cfg(tmp_path, **kw):
 
 
 def _runtime(tmp_path, **kw):
-    return ServeRuntime(_cfg(tmp_path, **kw), device="cpu",
-                        dtype="float32", host="127.0.0.1", port=0)
+    return boot_serve(_cfg(tmp_path, **kw), device="cpu",
+                      dtype="float32", host="127.0.0.1", port=0)
 
 
 def _request(rt, method, path, doc=None, headers=None):
@@ -255,9 +255,13 @@ def test_optional_routes_404_when_off_and_profile_unwired(tmp_path):
                            ("/debug/bundle", "serving_bundle")):
             code, body = _get(rt, path)
             assert code == 404 and knob in json.loads(body)["error"]
-        assert _get(rt, "/profile/traces")[0] == 503
+        # The runtime serves /profile since boot_serve boots
+        # through start_runtime: no capture on disk yet, GET is a 405
+        # and a malformed window a 400 (nothing is captured).
+        code, body = _get(rt, "/profile/traces")
+        assert code == 200 and json.loads(body) == {"traces": []}
         assert _get(rt, "/profile")[0] == 405
-        assert _request(rt, "POST", "/profile", {})[0] == 503
+        assert _request(rt, "POST", "/profile?seconds=x", {})[0] == 400
         assert _get(rt, "/nope")[0] == 404
     finally:
         rt.close()
@@ -275,8 +279,10 @@ def test_bearer_token_gates_post_only(tmp_path):
                              {"Authorization": "Bearer s3cret"})
         assert code == 200
         assert _request(rt, "POST", "/profile", {})[0] == 401
-        assert _request(rt, "POST", "/profile", {},
-                        {"Authorization": "Bearer s3cret"})[0] == 503
+        # Past the gate the runtime's profiler answers (a malformed
+        # window: a 400, nothing captured).
+        assert _request(rt, "POST", "/profile?seconds=x", {},
+                        {"Authorization": "Bearer s3cret"})[0] == 400
         for path in ("/healthz", "/status", "/metrics"):
             assert _get(rt, path)[0] == 200, path
         # The refused POSTs never reached the serving backend.

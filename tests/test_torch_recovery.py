@@ -58,7 +58,7 @@ from kvedge_torch.runtime.recovery import (
     RecoveryPolicy,
     RecoverySupervisor,
 )
-from kvedge_torch.runtime.serve import ServeRuntime
+from kvedge_torch.runtime.serve import boot_serve
 from kvedge_torch.testing.servingfaults import (
     FaultPlan,
     FaultyCache,
@@ -853,8 +853,8 @@ def _runtime(tmp_path, attempts):
                       serving_recovery_attempts=attempts,
                       serving_retry_after_s=9.0,
                       state_dir=str(tmp_path))
-    return ServeRuntime(cfg, device="cpu", dtype="float32",
-                        host="127.0.0.1", port=0)
+    return boot_serve(cfg, device="cpu", dtype="float32",
+                      host="127.0.0.1", port=0)
 
 
 def test_healthz_recovering_then_healthy_and_the_503_hint(tmp_path):

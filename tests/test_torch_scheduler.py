@@ -44,7 +44,7 @@ from kvedge_torch.models.serving import (
 )
 from kvedge_torch.models.weights import params_from_numpy
 from kvedge_torch.runtime.config import RuntimeConfigError, ServeConfig
-from kvedge_torch.runtime.serve import ServeRuntime
+from kvedge_torch.runtime.serve import boot_serve
 
 torch.set_num_threads(2)
 
@@ -362,8 +362,8 @@ def test_a_shed_is_a_503_with_the_refusal_text(tmp_path, capsys):
                       payload_serving="paged", serving_slots=1,
                       serving_pages=4, serving_page_low_watermark=0.5,
                       state_dir=str(tmp_path))
-    rt = ServeRuntime(cfg, device="cpu", dtype="float32", seed=3,
-                      host="127.0.0.1", port=0)
+    rt = boot_serve(cfg, device="cpu", dtype="float32", seed=3,
+                    host="127.0.0.1", port=0)
     try:
         url = f"http://127.0.0.1:{rt.port}/generate"
         body = {"tokens": [[1, 2, 3]], "n_new": 40}

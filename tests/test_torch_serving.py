@@ -10,6 +10,11 @@
   ``device="cpu"``; the entry
   points raise without a card unless the CPU is asked for; the package
   imports with ``jax`` and ``kvedge_tpu`` blocked.
+* ``boot_serve(port=0)`` is the runtime booted through
+  ``start_runtime``: its heartbeat's ``boot_count`` goes 1 -> 2 over two
+  runtimes on one state directory, ``/status`` and ``/healthz`` are
+  ``start_runtime``'s for the same config, and ``/profile`` captures;
+  ``StatusServer`` is built in ``runtime/boot.py`` only.
 """
 
 import dataclasses
@@ -48,6 +53,7 @@ from kvedge_torch.runtime.config import RuntimeConfigError, ServeConfig
 from kvedge_torch.cli import main
 from kvedge_torch.runtime.serve import (
     ServeRuntime,
+    boot_serve,
     _parse_generate_request,
     row_key_data,
 )
@@ -241,8 +247,8 @@ def test_http_round_trip_on_cpu(tmp_path):
     cfg = ServeConfig(preset="probe", n_layers=1, max_seq=64,
                       payload_serving="paged", serving_slots=2, serving_prefill_chunk=8,
                       serving_window=4, state_dir=str(tmp_path))
-    rt = ServeRuntime(cfg, device="cpu", dtype="float32", seed=3,
-                      host="127.0.0.1", port=0)
+    rt = boot_serve(cfg, device="cpu", dtype="float32", seed=3,
+                    host="127.0.0.1", port=0)
     try:
         base = f"http://127.0.0.1:{rt.port}"
         with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
@@ -369,7 +375,9 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
         "for new in ('version', 'utils.gojson', 'config.values',\n"
         "            'render.names', 'render.bootconfig', 'render.emit',\n"
         "            'render.helmlite', 'render.manifests',\n"
-        "            'testing.fakecluster', 'testing.faults'):\n"
+        "            'testing.fakecluster', 'testing.faults',\n"
+        "            'analysis', 'analysis.locklint', 'testing.chaos',\n"
+        "            'data.feeder'):\n"
         "    assert 'kvedge_torch.' + new in mods, mods\n"
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
@@ -384,3 +392,101 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
                                "PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 15
+
+
+def _booted_cfg(state_dir, **kw):
+    return ServeConfig(preset="probe", n_layers=1, max_seq=64,
+                       payload_serving="paged", serving_slots=2,
+                       serving_prefill_chunk=8, serving_window=4,
+                       state_dir=str(state_dir), **kw)
+
+
+def _get(url):
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_serve_runtime_with_a_port_boots_and_counts_boots(tmp_path):
+    beats = []
+    for want in (1, 2):
+        rt = boot_serve(_booted_cfg(tmp_path), device="cpu",
+                        dtype="float32", seed=3, host="127.0.0.1", port=0)
+        try:
+            assert rt.handle.boot_count == want
+            assert rt.http is rt.handle.server and rt.port > 0
+            beat = json.loads((tmp_path / "heartbeat.json").read_text())
+            assert beat["boot_count"] == want and beat["payload"] == "serve"
+            beats.append(beat["seq"])
+            code, doc = _post(f"http://127.0.0.1:{rt.port}/generate",
+                              {"tokens": [[1, 2, 3]], "n_new": 4})
+            assert code == 200 and len(doc["tokens"][0]) == 7
+            assert rt.stats()["requests_total"] == 1
+            assert rt.payload_fn().runtime is rt
+        finally:
+            rt.close()
+        # Closed: the status server is down.
+        with pytest.raises(OSError):
+            urllib.request.urlopen(f"http://127.0.0.1:{rt.port}/version",
+                                   timeout=5)
+    assert beats[1] > beats[0]
+
+
+def test_booted_status_and_healthz_are_start_runtimes(tmp_path):
+    from kvedge_torch.runtime.boot import start_runtime
+
+    volatile = {"uptime_s", "heartbeat_seq", "heartbeat_age_s",
+                "boot_count", "init_events"}
+    docs = []
+    for name in ("serve_runtime", "start_runtime"):
+        cfg = _booted_cfg(tmp_path / name)
+        if name == "serve_runtime":
+            rt = boot_serve(cfg, device="cpu", dtype="float32", seed=3,
+                            host="127.0.0.1", port=0)
+            port, close = rt.port, rt.close
+        else:
+            handle = start_runtime(dataclasses.replace(
+                cfg, payload="serve", status_port=0, status_bind="127.0.0.1",
+                expected_platform="cpu"), device="cpu", dtype="float32",
+                seed=3)
+            port, close = handle.status_port, handle.shutdown
+        try:
+            base = f"http://127.0.0.1:{port}"
+            health = _get(base + "/healthz")
+            code, status = _get(base + "/status")
+            assert code == 200 and status["payload"] == "serve"
+            status = {k: v for k, v in status.items() if k not in volatile}
+            status["check"].pop("probe_ms")
+            serving = status.pop("serving")
+            docs.append((health, status, sorted(serving),
+                         serving["requests_total"]))
+        finally:
+            close()
+    assert docs[0] == docs[1]
+    assert docs[0][0] == (200, {"status": "ok"})
+
+
+def test_booted_runtime_serves_profile(tmp_path):
+    rt = boot_serve(_booted_cfg(tmp_path), device="cpu", dtype="float32",
+                    seed=3, host="127.0.0.1", port=0)
+    try:
+        base = f"http://127.0.0.1:{rt.port}"
+        assert _get(base + "/profile/traces") == (200, {"traces": []})
+        code, doc = _post(base + "/profile?seconds=0.05", {})
+        assert code == 200, doc
+        code, listed = _get(base + "/profile/traces")
+        assert code == 200 and len(listed["traces"]) == 1
+        code, doc = _post(base + "/generate",
+                          {"tokens": [[4, 5]], "n_new": 3})
+        assert code == 200 and len(doc["tokens"][0]) == 5
+    finally:
+        rt.close()
+
+
+def test_status_server_is_built_in_boot_only():
+    hits = sorted(
+        str(p.relative_to(REPO)) for p in (REPO / "kvedge_torch").rglob("*.py")
+        if "StatusServer(" in p.read_text())
+    assert hits == ["kvedge_torch/runtime/boot.py"]

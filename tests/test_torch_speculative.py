@@ -46,7 +46,7 @@ from kvedge_torch.runtime.config import (
     RuntimeConfigError,
     _spec_draft_len,
 )
-from kvedge_torch.runtime.serve import ServeRuntime
+from kvedge_torch.runtime.serve import ServeRuntime, boot_serve
 
 torch.set_num_threads(2)
 
@@ -201,8 +201,8 @@ def test_serve_speculative_request_flag(tmp_path):
     400s."""
     cfg = RuntimeConfig(preset="probe", n_layers=2, max_seq=32,
                         state_dir=str(tmp_path))
-    rt = ServeRuntime(cfg, device="cpu", dtype="float32", seed=4,
-                      host="127.0.0.1", port=0)
+    rt = boot_serve(cfg, device="cpu", dtype="float32", seed=4,
+                    host="127.0.0.1", port=0)
     try:
         url = f"http://127.0.0.1:{rt.port}/generate"
         body = {"tokens": [[3, 1, 4, 1, 3, 1]], "n_new": 8}

@@ -34,7 +34,6 @@ import numpy as np
 import pytest
 import torch
 
-from kvedge_tpu.analysis import locklint
 from kvedge_tpu.models import transformer as jtr
 from kvedge_tpu.models.serving import PagedGenerationServer as JaxServer
 from kvedge_tpu.runtime import autotune as jautotune
@@ -42,6 +41,7 @@ from kvedge_tpu.runtime import debuglock as jdebuglock
 from kvedge_tpu.runtime import slo as jslo
 from kvedge_tpu.runtime import status as jstatus
 from kvedge_tpu.runtime import tracing as jtracing
+from kvedge_torch.analysis import locklint
 from kvedge_torch.models.config import TransformerConfig
 from kvedge_torch.models.serving import PagedGenerationServer
 from kvedge_torch.models.weights import params_from_numpy
