@@ -402,7 +402,33 @@ imports nothing of JAX. Phases, each printing one JSON line:
             with a cotangent g in [0.5, 1.5]. The train step with and without
             ``fused_xent``: ms, tokens/s, MFU, the device idle share over 3
             profiled steps and the peak device memory of one step.
-17. kernels  one line listing every ported kernel, after a line with
+17. mesh     the train payload on the mesh in a one-rank NCCL world
+            (``parallel/distributed.init_world("nccl", 1, 0, ...)``, the
+            only world the one card can form): the flagship, bf16, seq 512,
+            batch 64, 10 steps over the train phase's corpus, three ways:
+            ``[mesh] axes = { data = 0, seq = 1 }`` with ring attention,
+            the same with Ulysses, and ``{ data = 0, model = 1 }`` with
+            flash (B2-B4 inside the mesh step, counted). Each is held step
+            by step to the same payload run first with no world (no
+            collective), within 1e-3 in loss (the embedding's scatter-add
+            backward is not bit-deterministic on CUDA). The ring and
+            Ulysses world runs are also held to attention that shares no
+            code with them: their losses to the no-world flash payload's
+            within 2e-3 (both keep fp32 scores, but flash rounds its
+            probabilities to bf16 before the value product and has its
+            own backward; such roundings moved correct attentions at most
+            1.8e-4 apart on the card), beside the no-world naive
+            payload's distance to flash; and, in the
+            world, ring and Ulysses against naive from the same fp32
+            weights at seq 512, batch 4 with phase 11's tolerances (loss
+            1e-4, every gradient 5e-3, 5 bf16 train steps 2e-2). Step ms
+            and peak memory of every run are printed beside the card. The
+            flash
+            run's checkpoint, written through the gathered path, is then
+            served by a single-process ``serve`` at fp32, and two greedy
+            requests must return the naive forward's argmax over the
+            weights the mesh run held in memory.
+18. kernels  one line listing every ported kernel, after a line with
             the seconds each phase took.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check
@@ -3907,13 +3933,15 @@ def phase_resume(tr, cfg, first, device="cuda"):
 
 
 def agreement(torch, np, training, ttr, cfgs, tree_seed, batch_seed,
-              step_seed, device="cuda"):
+              step_seed, device="cuda", meshes=None):
     """Two variants of one model, ``cfgs`` = {name: config}, from the same
     weights: the fp32 loss and every gradient at seq 512, batch 4, then
-    5 bf16 train steps each. Returns the phase's fields and whether the
-    gradients agree within 5e-3."""
+    5 bf16 train steps each; a variant named in ``meshes`` runs on that
+    mesh. Returns the phase's fields and whether the gradients agree
+    within 5e-3."""
     import dataclasses
 
+    meshes = meshes or {}
     (name_a, cfg_a), (name_b, _) = cfgs.items()
     rng = np.random.default_rng(batch_seed)
     batch = torch.from_numpy(rng.integers(
@@ -3922,15 +3950,17 @@ def agreement(torch, np, training, ttr, cfgs, tree_seed, batch_seed,
     out, bf16 = {}, {}
     for name, cfg in cfgs.items():
         cfg = dataclasses.replace(cfg, dtype="float32")
-        params = training.master_params(tree, cfg, device)
+        on = {"mesh": meshes[name]} if name in meshes else {}
+        params = training.master_params(tree, cfg, device, **on)
         keys = sorted(params)
-        loss = ttr.loss_fn(params, batch, cfg)
+        loss = ttr.loss_fn(params, batch, cfg, **on)
         grads = torch.autograd.grad(loss, [params[k] for k in keys])
         out[name] = (float(loss.detach()), dict(zip(keys, grads)))
     for name, cfg in cfgs.items():
         cfg = dataclasses.replace(cfg, dtype="bfloat16")
-        params = training.master_params(tree, cfg, device)
-        init, step = training.make_train_step(cfg, device)
+        on = {"mesh": meshes[name]} if name in meshes else {}
+        params = training.master_params(tree, cfg, device, **on)
+        init, step = training.make_train_step(cfg, device, **on)
         opt = init(params)
         losses = []
         for i in range(5):
@@ -5733,6 +5763,188 @@ def phase_moe(torch, np, pa, kfns, kvc, ttr, training, tr, serve,
     return serve_doc, train_doc
 
 
+# ---- phase 17: the mesh --------------------------------------------------
+
+MESH_STEPS = 10
+MESH_TOL = 1e-3
+# Ring and Ulysses payloads against the no-world flash payload. Both
+# keep fp32 scores from bf16 q and k; flash rounds its probabilities to
+# bf16 before the value product and has a backward of its own, and over
+# 10 bf16 steps such roundings moved correct attentions' losses apart by
+# at most 1.8e-4 on this card (flash against naive in phase 11; ring and
+# Ulysses against flash 5.4e-5 and 3.4e-5). Ten times that.
+MESH_ATTN_TOL = 2e-3
+MESH_DIR = os.path.join(HERE, "build", "chip_smoke_mesh")
+# (name, [mesh] axes, [payload] attention)
+MESH_RUNS = (("ring", (("data", 0), ("seq", 1)), "ring"),
+             ("ulysses", (("data", 0), ("seq", 1)), "ulysses"),
+             ("flash", (("data", 0), ("model", 1)), "flash"))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_cfg(RuntimeConfig, corpus, name, axes, attention, where):
+    return RuntimeConfig(
+        state_dir=os.path.join(MESH_DIR, f"{name}-{where}"),
+        preset=TRAIN["preset"], payload="train", train_corpus=corpus,
+        max_seq=TRAIN["seq"], train_batch=TRAIN["batch"],
+        train_steps=MESH_STEPS, train_checkpoint_every=MESH_STEPS,
+        payload_attention=attention, mesh_axes=axes)
+
+
+def mesh_run(torch, tr, kfns, cfg, device) -> dict:
+    """One train payload: its losses, step ms, peak memory and launches."""
+    zero_counts(kfns)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    result = tr.run_train_payload(cfg, device=device, dtype="bfloat16")
+    check(result.ok, f"mesh train payload failed: {result.error}")
+    return {"losses": result.losses,
+            "step_ms": result.elapsed_ms / MESH_STEPS,
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if device == "cuda" else None),
+            "launches": counts(kfns)}
+
+
+def phase_mesh(torch, np, kfns, tr, dist_mod, serve, forward,
+               params_from_numpy, RuntimeConfig, corpus, training, ttr,
+               tcfg_flag, device="cuda"):
+    """The train payload on the mesh in a one-rank NCCL world against the
+    same payload with no world, and ring and Ulysses against attention
+    that shares no code with them (module doc, phase 17)."""
+    import shutil
+
+    from kvedge_torch.parallel.mesh import build_mesh
+    from kvedge_torch.runtime.config import MeshSpec
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    plain = {name: mesh_run(torch, tr, kfns, mesh_cfg(
+        RuntimeConfig, corpus, name, axes, attention, "plain"), device)
+             for name, axes, attention in
+             (*MESH_RUNS, ("naive", (("data", 0),), "naive"))}
+    backend = "nccl" if device == "cuda" else "gloo"
+    dist_mod.init_world(backend, 1, 0, f"127.0.0.1:{free_port()}",
+                        torch.device(device, 0) if device == "cuda"
+                        else "cpu")
+    captured: list = []
+    real = tr.run_training
+
+    def recording(*args, **kw):
+        captured.append(real(*args, **kw))
+        return captured[-1]
+
+    tr.run_training = recording
+    try:
+        world = {"backend": torch.distributed.get_backend(),
+                 "size": torch.distributed.get_world_size()}
+        meshed = {name: mesh_run(torch, tr, kfns, mesh_cfg(
+            RuntimeConfig, corpus, name, axes, attention, "mesh"), device)
+                  for name, axes, attention in MESH_RUNS}
+        seq_mesh = build_mesh(MeshSpec(axes=MESH_RUNS[0][1]))
+        agree = {}
+        for name in ("ring", "ulysses"):
+            cfgs = {att: dataclasses.replace(tcfg_flag, attention=att)
+                    for att in ("naive", name)}
+            agree[name] = agreement(torch, np, training, ttr, cfgs, 3, 11,
+                                    40, device, meshes={name: seq_mesh})
+    finally:
+        tr.run_training = real
+        dist_mod.shutdown_world()
+    layers = mesh_cfg(RuntimeConfig, corpus, *MESH_RUNS[2][:2], "flash",
+                      "plain").model_config("bfloat16").n_layers
+    def loss_diff(a, b):
+        return (max(abs(x - y) for x, y in zip(a, b))
+                if len(a) == len(b) == MESH_STEPS else float("inf"))
+
+    flash_plain = plain["flash"]["losses"]
+    runs = {}
+    for name, _, _ in MESH_RUNS:
+        a, b = meshed[name]["losses"], plain[name]["losses"]
+        diff = loss_diff(a, b)
+        want = expect_counts(
+            kfns, device, **({"flash_fwd": 2 * layers * MESH_STEPS,
+                              "flash_bwd_dq": layers * MESH_STEPS,
+                              "flash_bwd_dkv": layers * MESH_STEPS}
+                             if name == "flash" else {}))
+        runs[name] = {"mesh": meshed[name], "plain": plain[name],
+                      "max_loss_diff": diff, "expected_launches": want,
+                      "finite": all(math.isfinite(x) for x in a + b)}
+        if name != "flash":
+            runs[name]["max_loss_diff_to_flash"] = loss_diff(a, flash_plain)
+    naive_to_flash = loss_diff(plain["naive"]["losses"], flash_plain)
+    # The flash mesh run's checkpoint (written through the gathered path)
+    # in a single-process serve, against the weights it held in memory.
+    flash_cfg = mesh_cfg(RuntimeConfig, corpus, "flash", MESH_RUNS[2][1],
+                         "flash", "mesh")
+    held = {k: v.detach().cpu().numpy()
+            for k, v in captured[-1].params.items()}
+    rt = serve.boot_serve(dataclasses.replace(flash_cfg, payload="serve",
+                                              payload_serving="paged"),
+                          device=device, dtype="float32", host="127.0.0.1",
+                          port=0)
+    try:
+        url = f"http://127.0.0.1:{rt.port}/generate"
+        weights = params_from_numpy(held, rt.tcfg, device)
+        tokens = np.fromfile(corpus, dtype=np.int32, offset=16)
+        same = []
+        for start, n in ((500, 24), (2100, 40)):
+            prompt = (tokens[start:start + n] % rt.tcfg.vocab).tolist()
+            code, doc = post(url, {"tokens": [prompt], "n_new": 16})
+            check(code == 200, f"serve after mesh train: HTTP {code}: {doc}")
+            seq = list(prompt)
+            for _ in range(16):
+                logits = forward(weights, torch.tensor([seq], device=device),
+                                 rt.tcfg)
+                seq.append(int(logits[0, -1].argmax()))
+            same.append(doc["tokens"] == [seq])
+        restored = rt.restored_step
+    finally:
+        rt.close()
+    ok = (world["size"] == 1
+          and all(r["finite"] and r["max_loss_diff"] <= MESH_TOL
+                  and r["mesh"]["launches"] == r["expected_launches"]
+                  and r.get("max_loss_diff_to_flash", 0.0) <= MESH_ATTN_TOL
+                  for r in runs.values())
+          and all(doc["ok"] for doc, _ in agree.values())
+          and restored == MESH_STEPS and all(same))
+    emit({"phase": "mesh", "world": world, "card": CARD.get("card"),
+          "steps": MESH_STEPS, "tol": MESH_TOL,
+          "tol_to_flash": MESH_ATTN_TOL, "runs": runs,
+          "naive_plain": plain["naive"],
+          "naive_max_loss_diff_to_flash": naive_to_flash,
+          "agreement_vs_naive": {n: doc for n, (doc, _) in agree.items()},
+          "serve_restored_step": restored, "served_equals_held": same,
+          "note": "ring and ulysses materialize fp32 [B, H, T, T] scores "
+                  "(plain torch, as the reference's einsums), so their "
+                  "steps are slower than flash's", "ok": ok})
+    check(world == {"backend": backend, "size": 1}, f"world {world}")
+    for name, r in runs.items():
+        check(r["finite"], f"mesh {name}: non-finite losses")
+        check(r["max_loss_diff"] <= MESH_TOL,
+              f"mesh {name}: losses differ from the plain run by "
+              f"{r['max_loss_diff']}")
+        check(r.get("max_loss_diff_to_flash", 0.0) <= MESH_ATTN_TOL,
+              f"mesh {name}: losses differ from the no-world flash "
+              f"payload's by {r.get('max_loss_diff_to_flash')}")
+        check(r["mesh"]["launches"] == r["expected_launches"],
+              f"mesh {name}: launches {r['mesh']['launches']} != "
+              f"{r['expected_launches']}")
+    for name, (doc, grads_ok) in agree.items():
+        check_agreement(f"mesh_{name}_vs_naive", doc, grads_ok,
+                        f"{name} vs naive")
+    check(restored == MESH_STEPS, f"serve restored step {restored}")
+    check(all(same), "served tokens differ from the held weights' argmax")
+    return runs
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -5762,6 +5974,7 @@ def main() -> int:
         from kvedge_torch.ops import paged_attention as pa
         from kvedge_torch.ops import rmsnorm as rn
         from kvedge_torch.ops import xent as xe
+        from kvedge_torch.parallel import distributed as dist_mod
         from kvedge_torch.runtime import boot as boot_mod
         from kvedge_torch.runtime import healthcheck as hc
         from kvedge_torch.runtime import serve
@@ -5907,6 +6120,11 @@ def main() -> int:
         tt = phase_train_timings(torch, np, fa, xe, rn, training, ttr,
                                  tcfg_flag)
 
+        phase = enter("mesh")
+        mesh_runs = phase_mesh(torch, np, kfns, tr, dist_mod, serve, forward,
+                               params_from_numpy, RuntimeConfig,
+                               cfg.train_corpus, training, ttr, tcfg_flag)
+
         phase = enter("kernels")
         kernels = [{
             "name": "paged_decode", "route": "cuda",
@@ -5938,6 +6156,8 @@ def main() -> int:
                 "replaces": f"kvedge_tpu/ops/attention.py:{line}",
                 "launches": train_launches[kname],
                 "launches_moe": moe_train_doc["launches"][kname],
+                "launches_mesh": mesh_runs["flash"]["mesh"]["launches"][
+                    kname],
                 "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
                 "worst_case_err": flash_worst[kname],
                 "ms": k["ms"], "plain_ms": k["plain_ms"],

@@ -4,8 +4,7 @@ The fields, ``d_head``, ``kv_heads``, ``param_count`` and ``validate``
 follow the JAX package's ``models/transformer.py`` for the fields the
 serving and training slices use, with the same validation messages.
 What the port does not run yet is refused with a clear error rather
-than ignored: sequence-parallel attention (``"ring"``, ``"ulysses"``)
-and pipelining (``pipeline_stages``) — ROADMAP Queue A lists each.
+than ignored: pipelining (``pipeline_stages``, ROADMAP Queue A item 7).
 
 ``n_experts > 0`` makes every layer's FFN a mixture of switch-routed
 experts (``models/moe.py``): top-``expert_top_k`` routing, a capacity of
@@ -15,7 +14,10 @@ load-balancing loss added to the training loss at ``moe_aux_weight``.
 
 ``attention`` picks the training and full-sequence attention:
 ``"naive"`` materializes the ``[T, T]`` scores in plain torch;
-``"flash"`` runs the hand-written flash kernels (``ops/attention.py``).
+``"flash"`` runs the hand-written flash kernels (``ops/attention.py``);
+``"ring"`` and ``"ulysses"`` shard the sequence over the mesh's ``seq``
+axis (``parallel/ringattention.py``, ``parallel/ulysses.py``) and need
+the mesh passed to the forward and the train step.
 ``remat`` recomputes each layer in backward (``torch.utils.checkpoint``)
 instead of saving its activations: ``remat_policy="full"`` saves nothing
 of the layer, ``"dots"`` saves the outputs of its non-batched products
@@ -113,10 +115,6 @@ class TransformerConfig:
                 "attention must be 'naive', 'flash', 'ring', or "
                 f"'ulysses', got {self.attention!r}"
             )
-        if self.attention in ("ring", "ulysses"):
-            raise ValueError(
-                f"attention={self.attention!r} is sequence-parallel and not "
-                "ported to PyTorch yet (use 'naive' or 'flash')")
         if self.n_experts < 0:
             raise ValueError("n_experts must be >= 0 (0 = dense FFN)")
         if self.n_experts and self.expert_capacity_factor <= 0:
@@ -137,7 +135,7 @@ class TransformerConfig:
         if self.pipeline_stages:
             raise ValueError(
                 f"pipeline_stages={self.pipeline_stages}: pipelining is not "
-                "ported to PyTorch yet")
+                "ported to PyTorch yet (ROADMAP Queue A item 7)")
 
 
 # Named model shapes, the same table as the JAX package's: "probe" is

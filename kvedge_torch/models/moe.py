@@ -1,5 +1,5 @@
 """Mixture-of-experts FFN: the port's copy of the JAX package's
-``models/moe.py``, on one device (no ``expert`` mesh axis).
+``models/moe.py``, without the ``expert`` mesh axis.
 
 * **Top-k routing (k = 1 Switch, k = 2 GShard) with a static capacity
   in training.** Each expert has ``C = ceil(k * tokens / E * factor)``
@@ -32,6 +32,17 @@
 The router's load-balancing loss (Switch eq. 4 over *first* choices
 before capacity: ``E * sum_e f_e * P_e``, 1.0 when routing is uniform)
 is returned beside the output and added to the training loss.
+
+Under a mesh (``parallel/mesh.py``) a rank holds a ``[B/dp, T/sp]``
+block of the tokens, and the training path keeps the reference's global
+semantics, where XLA partitions one global computation: the capacity
+comes from the global token count, a dispatch's position in its expert
+is its place in the global order (the ranks' expert choices are
+gathered over the ``data`` and ``seq`` groups), and the load-balancing
+statistics are sums over those groups. A rank's experts run only its own
+kept rows, in slots of ``min(capacity, local tokens)`` an expert. A
+``model`` axis splits each expert's FFN as the dense one (f before the
+up product, g after the down product).
 """
 
 from __future__ import annotations
@@ -43,6 +54,13 @@ import torch
 import torch.nn.functional as F
 
 from kvedge_torch.models.transformer import gelu
+from kvedge_torch.parallel.mesh import NO_MESH
+from kvedge_torch.parallel.sharding import (
+    all_gather_tokens,
+    all_reduce_tokens,
+    copy_to_model,
+    reduce_from_model,
+)
 
 
 def warn_if_train_serve_divergence(cfg) -> None:
@@ -92,8 +110,26 @@ def _route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
     return probs, idx, gates
 
 
+def _global_positions(expert: torch.Tensor, top_k: int, n_experts: int,
+                      mesh, block):
+    """(position of each local dispatch row in its expert in the GLOBAL
+    order, the global token count): the ranks' ``[B/dp, T/sp, k]``
+    choices are gathered into ``[B, T, k]`` and numbered in the
+    reference's order (choice-major, then row, then position)."""
+    bl, tl = block
+    local = expert.reshape(top_k, bl, tl).permute(1, 2, 0)
+    full = all_gather_tokens(local, mesh)                      # [B, T, k]
+    order = full.permute(2, 0, 1).reshape(-1)
+    position = torch.cumsum(F.one_hot(order, n_experts), dim=0).gather(
+        1, order[:, None])[:, 0] - 1
+    mine = position.reshape(top_k, *full.shape[:2]).narrow(
+        1, mesh.index("data") * bl, bl).narrow(2, mesh.index("seq") * tl, tl)
+    return mine.reshape(-1), full.shape[0] * full.shape[1]
+
+
 def moe_ffn(x: torch.Tensor, router_w, w_up, w_down, *,
-            capacity_factor: float, top_k: int = 1):
+            capacity_factor: float, top_k: int = 1, mesh=NO_MESH,
+            block=None):
     """Top-k (k = 1 or 2) MoE feed-forward with capacity, the training
     path. x ``[N, D]``; router_w ``[D, E]``; w_up ``[E, D, F]``; w_down
     ``[E, F, D]``. Returns ``(out [N, D], aux_loss fp32 scalar)``.
@@ -102,18 +138,26 @@ def moe_ffn(x: torch.Tensor, router_w, w_up, w_down, *,
     ``r % N`` (all first choices before any second), and its position
     in its expert is the count of earlier rows routed there: rows at
     position ``>= C`` are dropped, as the reference's cumsum drops
-    them."""
+    them. x is the rank's ``block = (B/dp, T/sp)`` of tokens of the
+    mesh, row-major (one row of N tokens when ``block`` is None), and
+    positions and statistics are global (module doc)."""
     n_tokens, d = x.shape
     n_experts = router_w.shape[-1]
-    capacity = expert_capacity(top_k * n_tokens, n_experts, capacity_factor)
-    n_slots = n_experts * capacity
     dtype = x.dtype
 
     probs, idx, gates = _route(x, router_w, top_k)
     expert = idx.t().reshape(-1)                               # [kN]
     position = torch.cumsum(F.one_hot(expert, n_experts), dim=0).gather(
         1, expert[:, None])[:, 0] - 1
-    kept = position < capacity
+    # Kept rows are a prefix of each expert's local rows (the local order
+    # is the global order's), so their local positions fit in
+    # min(capacity, N) slots.
+    global_position, n_global = _global_positions(
+        expert, top_k, n_experts, mesh, block or (1, n_tokens))
+    capacity = expert_capacity(top_k * n_global, n_experts, capacity_factor)
+    kept = global_position < capacity
+    capacity = min(capacity, n_tokens)
+    n_slots = n_experts * capacity
     slot = expert * capacity + position
 
     # The dispatch row that fills each slot (k*N for an empty slot); a
@@ -124,10 +168,12 @@ def moe_ffn(x: torch.Tensor, router_w, w_up, w_down, *,
     src.scatter_(0, torch.where(kept, slot, n_slots), rows)
     src = src[:n_slots]
     filled = (src < top_k * n_tokens)[:, None]
-    expert_in = torch.where(filled, x[src % n_tokens], 0)
+    expert_in = torch.where(filled, copy_to_model(x, mesh)[src % n_tokens],
+                            0)
     hidden = gelu(torch.bmm(expert_in.reshape(n_experts, capacity, d),
                             w_up.to(dtype)))
     expert_out = torch.bmm(hidden, w_down.to(dtype)).reshape(n_slots, d)
+    expert_out = reduce_from_model(expert_out, mesh)
 
     # Each dispatch reads its slot's output back, times its gate in the
     # compute dtype; the k products sum in fp32 and round once (the
@@ -138,8 +184,11 @@ def moe_ffn(x: torch.Tensor, router_w, w_up, w_down, *,
     out = (gate * back).sum(0).to(dtype)
 
     # Load balancing over the pre-capacity FIRST choices.
-    fraction = F.one_hot(idx[:, 0], n_experts).float().mean(0)
-    aux_loss = n_experts * torch.sum(fraction * probs.mean(0))
+    stats = all_reduce_tokens(torch.cat([
+        F.one_hot(idx[:, 0], n_experts).float().sum(0),
+        probs.sum(0)]), mesh) / n_global
+    fraction, mean_probs = stats[:n_experts], stats[n_experts:]
+    aux_loss = n_experts * torch.sum(fraction * mean_probs)
     return out, aux_loss
 
 

@@ -16,6 +16,13 @@ params, so they agree only to rounding, and this keeps optax's order):
 
 with b1 0.9, b2 0.999, eps 1e-8, eps_root 0, and decay on every leaf (no
 mask). The update is applied in place under ``no_grad``.
+
+Every function runs on a mesh (``parallel/mesh.py``; :data:`NO_MESH`,
+one plain process, by default): each rank holds its slices of the
+params and moments; the train step takes its share of the loss
+(``transformer.loss_fn``), sums the gradients over the ``data`` and
+``seq`` groups (``parallel/sharding.reduce_grads``) and runs the same
+elementwise AdamW on its slices. The reported loss is the global one.
 """
 
 from __future__ import annotations
@@ -26,8 +33,10 @@ from typing import Callable, Iterable
 import torch
 
 from kvedge_torch.models.config import TransformerConfig
-from kvedge_torch.models.transformer import init_params, loss_fn
+from kvedge_torch.models.transformer import global_loss, init_params, loss_fn
 from kvedge_torch.models.weights import expected_shapes, params_from_numpy
+from kvedge_torch.parallel.mesh import NO_MESH
+from kvedge_torch.parallel.sharding import reduce_grads, shard_params
 from kvedge_torch.runtime.checkpoint import StateCheckpointer
 from kvedge_torch.runtime.devicecheck import resolve_device
 
@@ -74,29 +83,44 @@ def adamw_update(params: dict, grads: dict, opt_state: dict) -> None:
         p.add_((update + WEIGHT_DECAY * p) * -LEARNING_RATE)
 
 
-def make_train_step(cfg: TransformerConfig, device=None):
+def loss_and_grads(params: dict, batch: torch.Tensor,
+                   cfg: TransformerConfig, mesh=NO_MESH):
+    """``(loss, grads)``: the global loss and this rank's slices of its
+    gradient, summed over the ``data`` and ``seq`` ranks (module doc);
+    ``batch`` is this rank's data rows."""
+    keys = list(params)
+    share = loss_fn(params, batch, cfg, mesh)
+    grads = reduce_grads(
+        torch.autograd.grad(share, [params[k] for k in keys]), mesh)
+    return global_loss(share.detach(), mesh), dict(zip(keys, grads))
+
+
+def make_train_step(cfg: TransformerConfig, device=None, mesh=NO_MESH):
     """``(init_opt_state, train_step)``: ``train_step(params, opt_state,
     batch) -> (params, opt_state, loss)`` takes fp32 master params
     (``requires_grad``) and a ``[B, T+1]`` int batch, and updates params
-    and optimizer state in place (the reference donates both)."""
+    and optimizer state in place (the reference donates both). Params
+    and moments are this rank's slices of the mesh and the batch its
+    data rows (module doc); ring and Ulysses attention need a ``seq``
+    axis."""
     cfg.validate()
     dev = resolve_device(device)
 
     def train_step(params: dict, opt_state: dict, batch):
-        batch = torch.as_tensor(batch).to(dev, torch.long)
-        keys = list(params)
-        loss = loss_fn(params, batch, cfg)
-        grads = torch.autograd.grad(loss, [params[k] for k in keys])
-        adamw_update(params, dict(zip(keys, grads)), opt_state)
-        return params, opt_state, loss.detach()
+        loss, grads = loss_and_grads(
+            params, torch.as_tensor(batch).to(dev, torch.long), cfg, mesh)
+        adamw_update(params, grads, opt_state)
+        return params, opt_state, loss
 
     return init_opt_state, train_step
 
 
-def master_params(tree: dict, cfg: TransformerConfig, device) -> dict:
-    """A numpy param tree -> fp32 leaf tensors on ``device`` that require
-    grad."""
-    params = params_from_numpy(tree, cfg, device, dtype=torch.float32)
+def master_params(tree: dict, cfg: TransformerConfig, device,
+                  mesh=NO_MESH) -> dict:
+    """A numpy param tree -> this rank's slices of it as fp32 leaf
+    tensors on ``device`` that require grad."""
+    params = shard_params(
+        mesh, params_from_numpy(tree, cfg, device, dtype=torch.float32), cfg)
     return {k: p.requires_grad_(True) for k, p in params.items()}
 
 
@@ -118,6 +142,7 @@ def run_training(
     on_step: Callable | None = None,
     checkpoint_dir: str = "",
     device=None,
+    mesh=NO_MESH,
 ) -> TrainResult:
     """Train to ``num_steps`` total, resuming from the latest checkpoint.
 
@@ -126,17 +151,19 @@ def run_training(
     the last checkpoint left off and returns at once when the target was
     reached. ``on_step(step, loss)`` runs after every step; a checkpoint
     is saved every ``checkpoint_every`` steps and at the last one. Fresh
-    params come from the port's numpy ``init_params(seed)``. The
-    reference's ``optimizer``, ``prepare`` and ``mesh`` arguments belong
-    to its sharded paths, which the port does not run yet.
+    params come from the port's numpy ``init_params(seed)``. Each rank
+    of the mesh trains its slices (``make_train_step``) and checkpoints
+    are the global tree: gathered onto and written by rank 0, read whole
+    and cut at a restore (``runtime/checkpoint.py``). The reference's
+    ``optimizer`` and ``prepare`` arguments have no counterpart.
     """
     dev = resolve_device(device)
-    init_opt, train_step = make_train_step(cfg, dev)
+    init_opt, train_step = make_train_step(cfg, dev, mesh)
     step, resumed_from = 0, None
     template = {"params": expected_shapes(cfg),
                 "opt_state": opt_state_template(cfg)}
     ckpt = StateCheckpointer(state_dir, checkpoint_dir=checkpoint_dir)
-    restored = ckpt.restore_latest(template, device=dev)
+    restored = ckpt.restore_global(template, mesh, cfg, device=dev)
     if restored is not None:
         step, tree = restored
         resumed_from = step
@@ -144,7 +171,7 @@ def run_training(
                   for k, p in tree["params"].items()}
         opt_state = tree["opt_state"]
     else:
-        params = master_params(init_params(seed, cfg), cfg, dev)
+        params = master_params(init_params(seed, cfg), cfg, dev, mesh)
         opt_state = init_opt(params)
 
     losses: list[float] = []
@@ -157,6 +184,7 @@ def run_training(
         if on_step is not None:
             on_step(step, losses[-1])
         if step % checkpoint_every == 0 or step == num_steps:
-            ckpt.save(step, {"params": params, "opt_state": opt_state})
+            ckpt.save_global(step, {"params": params, "opt_state": opt_state},
+                             mesh, cfg)
     return TrainResult(step=step, params=params, losses=losses,
                        resumed_from=resumed_from)

@@ -63,6 +63,14 @@ from torch.utils.checkpoint import (
 from kvedge_torch.models.config import TransformerConfig
 from kvedge_torch.ops.attention import flash_attention, pick_block
 from kvedge_torch.ops.xent import fused_xent, wrap_targets
+from kvedge_torch.parallel.mesh import NO_MESH
+from kvedge_torch.parallel.sharding import (
+    all_reduce_tokens,
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+    token_ranks,
+)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -178,10 +186,12 @@ def _rotary(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def split_qkv(cfg: TransformerConfig, qkv: torch.Tensor):
-    """Split a fused ``[..., (H+2K)*Dh]`` projection into q/k/v heads."""
+def split_qkv(cfg: TransformerConfig, qkv: torch.Tensor, tp: int = 1):
+    """Split a fused ``[..., (H+2K)*Dh]`` projection into q/k/v heads;
+    under a ``model`` axis of ``tp`` the projection holds this rank's
+    ``H/tp`` and ``K/tp`` heads (``parallel/sharding.py``)."""
     *lead, _ = qkv.shape
-    h, kv, dh = cfg.n_heads, cfg.kv_heads, cfg.d_head
+    h, kv, dh = cfg.n_heads // tp, cfg.kv_heads // tp, cfg.d_head
     q = qkv[..., : h * dh].reshape(*lead, h, dh)
     k = qkv[..., h * dh:(h + kv) * dh].reshape(*lead, kv, dh)
     v = qkv[..., (h + kv) * dh:].reshape(*lead, kv, dh)
@@ -208,10 +218,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(x: torch.Tensor, w_up, w_down, ln_mlp) -> torch.Tensor:
-    """The dense MLP half of a block, residual included."""
-    normed = _rmsnorm(x, ln_mlp)
-    return x + gelu(normed @ w_up.to(x.dtype)) @ w_down.to(x.dtype)
+def mlp(x: torch.Tensor, w_up, w_down, ln_mlp,
+        mesh=NO_MESH) -> torch.Tensor:
+    """The dense MLP half of a block, residual included; under a
+    ``model`` axis column- then row-parallel (f and g)."""
+    normed = copy_to_model(_rmsnorm(x, ln_mlp), mesh)
+    return x + reduce_from_model(
+        gelu(normed @ w_up.to(x.dtype)) @ w_down.to(x.dtype), mesh)
 
 
 def block_mlp(cfg: TransformerConfig, x: torch.Tensor,
@@ -229,25 +242,58 @@ def block_mlp(cfg: TransformerConfig, x: torch.Tensor,
                                 top_k=cfg.expert_top_k)
 
 
-def _layer(cfg: TransformerConfig, x: torch.Tensor, layer_params):
-    """One pre-norm block, naive or flash causal attention; x ``[B, T, D]``.
-    Returns ``(x, aux)``: ``aux`` is the MoE router's load-balancing
-    loss for this layer (fp32 0.0 for a dense FFN)."""
+def _layer(cfg: TransformerConfig, x: torch.Tensor, layer_params,
+           mesh=NO_MESH):
+    """One pre-norm block; x ``[B, T, D]``. Returns ``(x, aux)``: ``aux``
+    is the MoE router's load-balancing loss for this layer (fp32 0.0 for
+    a dense FFN).
+
+    x is this rank's ``[B/dp, T/sp, D]`` block of the mesh
+    (``parallel/mesh.py``; the whole batch under :data:`NO_MESH`): rotary
+    positions are offset by the seq rank times the local T, the layer
+    holds ``H/tp`` heads under a ``model`` axis (the Megatron f before
+    each column-parallel product, g after each row-parallel one), and
+    ``"ring"`` and ``"ulysses"`` attend across the ``seq`` group; they
+    need a mesh with that axis, as the reference's need a mesh."""
     w_qkv, w_out, ln_attn, ln_mlp = (layer_params[0], layer_params[1],
                                      layer_params[-2], layer_params[-1])
     batch, seq, d = x.shape
-    h, kv, dh = cfg.n_heads, cfg.kv_heads, cfg.d_head
+    tp = mesh.size("model")
+    h, kv, dh = cfg.n_heads // tp, cfg.kv_heads // tp, cfg.d_head
     dtype = x.dtype
 
-    q, k, v = split_qkv(cfg, _rmsnorm(x, ln_attn) @ w_qkv.to(dtype))
-    positions = torch.arange(seq, device=x.device)
+    normed = copy_to_model(_rmsnorm(x, ln_attn), mesh)
+    q, k, v = split_qkv(cfg, normed @ w_qkv.to(dtype), tp)
+    # seq is the LOCAL chunk length; chunks are contiguous in sequence
+    # order, so global positions offset by the seq index.
+    positions = mesh.index("seq") * seq + torch.arange(seq, device=x.device)
     q = _rotary(q, positions)
     k = _rotary(k, positions)
     if kv != h:
         # Head h reads kv head h // group (split_qkv's kv-major layout).
         k = torch.repeat_interleave(k, h // kv, dim=2)
         v = torch.repeat_interleave(v, h // kv, dim=2)
-    if cfg.attention == "flash":
+    if cfg.attention in ("ring", "ulysses"):
+        if "seq" not in mesh.axis_names:
+            raise ValueError(
+                f"attention={cfg.attention!r} needs a mesh with a 'seq' "
+                "axis passed to forward()/make_train_step()"
+            )
+        if cfg.attention == "ring":
+            from kvedge_torch.parallel.ringattention import (
+                ring_attention_local as attend,
+            )
+        else:
+            from kvedge_torch.parallel.ulysses import (
+                ulysses_attention_local as attend,
+            )
+        attended = attend(q, k, v, mesh)
+    elif mesh.size("seq") > 1:
+        raise ValueError(
+            f"attention={cfg.attention!r} would attend within each 'seq' "
+            "rank's chunk only; a 'seq' axis needs attention = \"ring\" "
+            "or \"ulysses\"")
+    elif cfg.attention == "flash":
         # [B, T, H, Dh] -> [B*H, T, Dh], the reference's heads_to_programs.
         def heads_to_programs(t):
             return t.transpose(1, 2).reshape(batch * h, seq, dh)
@@ -263,18 +309,20 @@ def _layer(cfg: TransformerConfig, x: torch.Tensor, layer_params):
         scores = scores.masked_fill(~causal, torch.finfo(dtype).min)
         weights = torch.softmax(scores.float(), dim=-1).to(dtype)
         attended = torch.einsum("bhqk,bkhd->bqhd", weights, v)
-    x = x + attended.reshape(batch, seq, h * dh) @ w_out.to(dtype)
+    x = x + reduce_from_model(
+        attended.reshape(batch, seq, h * dh) @ w_out.to(dtype), mesh)
 
     if not cfg.n_experts:
         _, _, w_up, w_down, _, _ = layer_params
-        return mlp(x, w_up, w_down, ln_mlp), torch.zeros(
+        return mlp(x, w_up, w_down, ln_mlp, mesh), torch.zeros(
             (), dtype=torch.float32, device=x.device)
     from kvedge_torch.models.moe import moe_ffn
 
     _, _, router, w_up, w_down, _, _ = layer_params
     out, aux = moe_ffn(
         _rmsnorm(x, ln_mlp).reshape(batch * seq, d), router, w_up, w_down,
-        capacity_factor=cfg.expert_capacity_factor, top_k=cfg.expert_top_k)
+        capacity_factor=cfg.expert_capacity_factor, top_k=cfg.expert_top_k,
+        mesh=mesh, block=(batch, seq))
     return x + out.reshape(batch, seq, d), aux
 
 
@@ -312,7 +360,7 @@ def _dots_context():
 
 
 def forward_hidden(params: dict, tokens: torch.Tensor,
-                   cfg: TransformerConfig):
+                   cfg: TransformerConfig, mesh=NO_MESH):
     """tokens ``[B, T]`` int -> ``(hidden [B, T, D], aux)``: the stack up
     to and including the final RMSNorm in the compute dtype,
     differentiable, and the mean of the layers' MoE load-balancing
@@ -322,9 +370,11 @@ def forward_hidden(params: dict, tokens: torch.Tensor,
     ``torch.utils.checkpoint`` (non-reentrant): ``remat_policy="full"``
     recomputes all of it in backward, so the flash forward kernel runs
     twice per layer and step; ``"dots"`` keeps the non-batched
-    products' outputs (module doc)."""
+    products' outputs (module doc). Tokens are this rank's block of the
+    mesh, and the feature-sharded embedding's lookup is gathered over
+    the ``model`` group."""
     dtype = torch_dtype(cfg.dtype)
-    x = params["embedding"][tokens].to(dtype)
+    x = gather_from_model(params["embedding"][tokens], mesh).to(dtype)
     stacked = stacked_layer_params(params, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     extra = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
@@ -332,21 +382,31 @@ def forward_hidden(params: dict, tokens: torch.Tensor,
     for layer in range(cfg.n_layers):
         layer_params = tuple(p[layer] for p in stacked)
         if remat:
-            x, layer_aux = checkpoint(_layer, cfg, x, layer_params,
+            x, layer_aux = checkpoint(_layer, cfg, x, layer_params, mesh,
                                       use_reentrant=False, **extra)
         else:
-            x, layer_aux = _layer(cfg, x, layer_params)
+            x, layer_aux = _layer(cfg, x, layer_params, mesh)
         aux.append(layer_aux)
     return _rmsnorm(x, params["ln_final"]), torch.stack(aux).mean()
 
 
+def readout(x: torch.Tensor, embedding: torch.Tensor, mesh=NO_MESH):
+    """:func:`tied_readout`; under a ``model`` axis the embedding is this
+    rank's feature slice: f, the slice of x times it, then g over the
+    partial logits (``parallel/sharding.py``)."""
+    width = embedding.shape[-1]
+    part = copy_to_model(x, mesh).narrow(-1, mesh.index("model") * width,
+                                         width)
+    return reduce_from_model(tied_readout(part, embedding), mesh)
+
+
 def forward_with_aux(params: dict, tokens: torch.Tensor,
-                     cfg: TransformerConfig):
+                     cfg: TransformerConfig, mesh=NO_MESH):
     """tokens ``[B, T]`` int -> ``(logits [B, T, V] fp32, aux fp32)``:
     :func:`forward_hidden` with the weight-tied readout on top, in
     ``cfg.attention`` and with grad as the caller has it."""
-    hidden, aux = forward_hidden(params, tokens, cfg)
-    return tied_readout(hidden, params["embedding"]), aux
+    hidden, aux = forward_hidden(params, tokens, cfg, mesh)
+    return readout(hidden, params["embedding"], mesh), aux
 
 
 def take_target_logit(logits: torch.Tensor,
@@ -362,32 +422,68 @@ def take_target_logit(logits: torch.Tensor,
 
 def _fused_xent_loss(params: dict, inputs: torch.Tensor,
                      targets: torch.Tensor,
-                     cfg: TransformerConfig) -> torch.Tensor:
+                     cfg: TransformerConfig, mesh=NO_MESH):
     """The training cross-entropy through the fused kernels: the hidden
     rows ``[B*T, D]`` go straight into :func:`fused_xent`, so the
-    ``[B, T, V]`` logits never exist in either pass. The reference's
-    mesh branches (tensor-parallel refusal, data-parallel ``shard_map``)
-    do not apply: the port runs on one device. Returns ``(ce, aux)``."""
-    hidden, aux = forward_hidden(params, inputs, cfg)
+    ``[B, T, V]`` logits never exist in either pass. Returns
+    ``(per_row, aux)``. A ``model`` axis above 1 is refused with the
+    reference's message; under ``data`` and ``seq`` axes each rank's
+    rows are its own block."""
+    if mesh.size("model") > 1:
+        raise ValueError(
+            "fused_xent does not compose with tensor parallelism "
+            "('model' axis > 1): the D contraction would need a psum "
+            "before the online softmax; disable fused_xent"
+        )
+    hidden, aux = forward_hidden(params, inputs, cfg, mesh)
     b, t, d = hidden.shape
     per_row = fused_xent(hidden.reshape(b * t, d), params["embedding"],
                          targets.reshape(b * t))
-    return torch.mean(per_row), aux
+    return per_row, aux
+
+
+def _seq_chunk(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's contiguous chunk of ``[B, T]`` along the seq axis."""
+    sp = mesh.size("seq")
+    if x.shape[1] % sp:
+        raise ValueError(
+            f"sequence length {x.shape[1]} must divide by the 'seq' axis "
+            f"size {sp}"
+        )
+    width = x.shape[1] // sp
+    return x.narrow(1, mesh.index("seq") * width, width)
 
 
 def loss_fn(params: dict, batch: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
+            cfg: TransformerConfig, mesh=NO_MESH) -> torch.Tensor:
     """Next-token cross-entropy, fp32: batch ``[B, T+1]`` int, targets
     shifted by one; ``mean(logsumexp(logits) - logits[target])``, plus
     ``moe_aux_weight`` times the layers' mean load-balancing loss for an
-    MoE model."""
+    MoE model.
+
+    ``batch`` is this rank's data rows, and the rank takes its seq chunk
+    of inputs and targets. It returns its share of the loss: its tokens'
+    summed cross-entropy over the GLOBAL token count, plus the (globally
+    computed) aux term over the data x seq ranks, so that the shares
+    summed over those ranks are the loss and their gradients, summed
+    likewise, the loss's gradient (``make_train_step``). Under
+    :data:`NO_MESH` the share is the loss."""
     inputs, targets = batch[:, :-1], batch[:, 1:]
+    inputs, targets = _seq_chunk(inputs, mesh), _seq_chunk(targets, mesh)
     if cfg.fused_xent:
-        ce, aux = _fused_xent_loss(params, inputs, targets, cfg)
+        per_row, aux = _fused_xent_loss(params, inputs, targets, cfg, mesh)
     else:
-        logits, aux = forward_with_aux(params, inputs, cfg)
-        ce = torch.mean(torch.logsumexp(logits, dim=-1)
-                        - take_target_logit(logits, targets))
+        logits, aux = forward_with_aux(params, inputs, cfg, mesh)
+        per_row = (torch.logsumexp(logits, dim=-1)
+                   - take_target_logit(logits, targets))
+    share = token_ranks(mesh)
+    ce = per_row.sum() / (per_row.numel() * share)
     if cfg.n_experts:
-        ce = ce + cfg.moe_aux_weight * aux
+        ce = ce + cfg.moe_aux_weight * aux / share
     return ce
+
+
+def global_loss(share: torch.Tensor, mesh=NO_MESH) -> torch.Tensor:
+    """The loss from :func:`loss_fn`'s per-rank share: the sum over the
+    data x seq ranks (the share itself without a group)."""
+    return all_reduce_tokens(share, mesh)

@@ -461,6 +461,17 @@ def render_notes(values: ChartValues) -> str:
     )
 
 
+def _check_single_host(values: ChartValues) -> None:
+    """Fail the render when the TOML declares a world the one-host chart
+    cannot run (the reference's ``_check_multihost_consistency`` at
+    ``tpuNumHosts=1``; this chart renders no StatefulSet)."""
+    procs = parsed_runtime_config(values).num_processes
+    if procs > 1:
+        raise ValueError(
+            f"runtime config declares [distributed] num_processes = {procs} "
+            f"but tpuNumHosts=1: {MULTIHOST}")
+
+
 def render_all(values: ChartValues, include_dead: bool = False) -> RenderedChart:
     """Render the full manifest set.
 
@@ -470,6 +481,7 @@ def render_all(values: ChartValues, include_dead: bool = False) -> RenderedChart
     were, its name would collide with the live state volume.
     """
     values.validate()
+    _check_single_host(values)
     manifests: dict[str, dict] = {
         "torch-gpu-runtime-config-secret.yaml": runtime_config_secret(values),
         "torch-gpu-boot-config-secret.yaml": boot_config_secret(values),

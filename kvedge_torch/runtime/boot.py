@@ -6,12 +6,12 @@ what ``kvedge-runtime boot`` (the last ``runcmd`` of the boot document,
 reference's order: the status server first, answering in the
 ``booting`` state; the sweep of stranded tmp files; a heartbeat (with
 this boot's ``boot_count``) before the server answers; the topology
-check; the payload; a second heartbeat. A payload that fails or raises
+check; the join of the world (``parallel/distributed.maybe_initialize``,
+a no-op at ``[distributed] num_processes = 1``); the payload; a second
+heartbeat. A payload that fails or raises, or a join that fails,
 degrades the runtime (``/status`` answers, ``/healthz`` is 503 with the
-reason) instead of crashing it. ``POST /profile`` is refused until the
-payload has run. The port runs on one device and joins no cluster:
-``[distributed] num_processes`` is 1 (``config.py``), so the
-reference's multi-host join has nothing to do here.
+reason) instead of crashing it; ``/status``'s ``distributed`` is the
+joined state. ``POST /profile`` is refused until the payload has run.
 
 :func:`boot` never returns in a pod: it beats every
 ``heartbeat_interval_s`` on the main thread until SIGTERM or SIGINT,
@@ -30,6 +30,11 @@ import threading
 import time
 from typing import Callable
 
+from kvedge_torch.parallel.distributed import (
+    DistributedState,
+    maybe_initialize,
+    shutdown_world,
+)
 from kvedge_torch.runtime import heartbeat, recovery
 from kvedge_torch.runtime.config import RuntimeConfig, RuntimeConfigError
 from kvedge_torch.runtime.devicecheck import (
@@ -61,6 +66,8 @@ class RuntimeHandle:
     serve_fn: Callable[[dict], dict] | None = None
     # The train and eval payloads' own result (train.PayloadResult).
     result: object = None
+    # The world this runtime joined at boot (inactive on one host).
+    distributed: DistributedState = DistributedState(active=False)
 
     @property
     def status_port(self) -> int:
@@ -81,9 +88,7 @@ class RuntimeHandle:
             "heartbeat_age_s": (
                 round(time.time() - last["ts"], 3) if "ts" in last else None
             ),
-            # One process on one host: the reference's inactive state.
-            "distributed": {"active": False, "num_processes": 1,
-                            "process_id": 0, "coordinator": ""},
+            "distributed": self.distributed.to_dict(),
             # Supervision history from the native PID-1 supervisor and the
             # recovery supervisor, across pod generations.
             "init_events": heartbeat.read_init_events(self.cfg.state_dir),
@@ -110,6 +115,8 @@ class RuntimeHandle:
         closer = getattr(self.serve_fn, "close", None)
         if closer is not None:
             closer()
+        if self.distributed.active:
+            shutdown_world()
 
 
 def serve_routes(cfg: RuntimeConfig,
@@ -378,14 +385,25 @@ def start_runtime(cfg: RuntimeConfig, device=None, dtype: str = "bfloat16",
     else:
         try:
             # A config built in code skipped the parser: what it refuses
-            # (a mesh over more than one device, num_processes > 1, ...)
-            # degrades the runtime here, with the same message.
+            # (a stage axis, serve across processes, ...) degrades the
+            # runtime here, with the same message.
             cfg.validate()
         except RuntimeConfigError as e:
             handle.check = _degraded(str(e))
         else:
-            handle.check = _run_payload(cfg, handle, device, dtype, seed,
-                                        params)
+            # Join the world BEFORE the payload, so the payload's mesh
+            # spans it. A failed join degrades the pod (status stays
+            # queryable) instead of crash-looping it.
+            try:
+                handle.distributed = maybe_initialize(cfg.distributed,
+                                                      device=device)
+            except Exception as e:
+                handle.check = _degraded(
+                    f"multi-host join failed "
+                    f"(num_processes={cfg.num_processes}): {e!r}")
+            else:
+                handle.check = _run_payload(cfg, handle, device, dtype,
+                                            seed, params)
     boot_complete.set()  # safe to profile from handler threads now
     writer.beat_once()  # refresh: the booting heartbeat is now stale
     return handle

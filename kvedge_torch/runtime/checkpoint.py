@@ -14,8 +14,18 @@ step; the newest 3 are kept. Files load with
 ``torch.load(weights_only=True)``: tensors and plain containers only.
 A restore template whose keys or shapes differ from what was saved is
 refused with the reference's message, never loaded into a different
-architecture. Restoring a JAX-written orbax tree is not ported
-(ROADMAP Queue A).
+architecture.
+
+A checkpoint is always the GLOBAL tree, as the reference's orbax
+checkpoint is. Under a mesh (``parallel/mesh.py``) :meth:`save_global`
+gathers the fp32 params and moments over rank 0's ``model`` group onto
+rank 0 alone, leaf by leaf, rank 0 writes them as above, and every rank
+then waits at a barrier;
+:meth:`restore_global` reads the full tree on every rank and cuts the
+rank's slices. So a checkpoint written by a world of N restores in a
+world of M, and in the single-process ``serve`` payload, unchanged.
+``tools/orbax_torch.py`` converts between this layout and the JAX
+package's orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -148,6 +158,39 @@ class StateCheckpointer:
                             f"restore template ({key})")
             tree[key] = unflatten(flat)
         return tree
+
+    def save_global(self, step: int, tree: dict, mesh, cfg) -> None:
+        """:meth:`save` of the global tree from every rank's slices (a
+        collective: every rank calls it; module doc). Only the ranks of
+        rank 0's ``model`` group (every other coordinate 0) gather; the
+        rest wait at the barrier."""
+        import torch.distributed as dist
+
+        from kvedge_torch.parallel.sharding import gather_tree
+
+        if not mesh.distributed:
+            self.save(step, {k: gather_tree(mesh, v, cfg)
+                             for k, v in tree.items()})
+            return
+        if all(mesh.index(axis) == 0 for axis in mesh.axis_names
+               if axis != "model"):
+            full = {k: gather_tree(mesh, v, cfg, dst=0)
+                    for k, v in tree.items()}
+            if dist.get_rank() == 0:
+                self.save(step, full)
+        dist.barrier()
+
+    def restore_global(self, template: dict, mesh, cfg, **kw
+                       ) -> tuple[int, dict] | None:
+        """:meth:`restore_latest` of the global tree (``template`` is the
+        full one), cut to this rank's slices."""
+        from kvedge_torch.parallel.sharding import shard_tree
+
+        restored = self.restore_latest(template, **kw)
+        if restored is None:
+            return None
+        step, tree = restored
+        return step, {k: shard_tree(mesh, v, cfg) for k, v in tree.items()}
 
     def restore_latest(self, template: dict, **kw) -> tuple[int, dict] | None:
         """(step, tree) of the newest checkpoint, or None when there is

@@ -8,11 +8,13 @@ same names and defaults, for the subset the ported payloads run:
                the port's default, or "cpu"), expected_chips (0 = any);
                the section keeps the reference's name so that one TOML
                parses in both packages
-    [mesh]     axes, only where the mesh resolves to one device (every
-               axis 0 or 1, as the default {data = 0, model = 1})
-    [distributed]  num_processes = 1 only (coordinator_address,
-               coordinator_port and process_id are checked and have
-               nothing to join on one host)
+    [mesh]     axes over the world of processes, one card each: data,
+               model and seq may span more than one device (the
+               reference's MeshSpec rules resolve an axis of 0); a
+               stage or expert axis above 1 is refused
+    [distributed]  num_processes, coordinator_address,
+               coordinator_port, process_id (the reference's spec;
+               parallel/distributed.py joins the world at boot)
     [model]    preset, vocab, d_model, n_heads, n_kv_heads, n_layers, d_ff,
                experts (the MoE expert count, 0 = dense), expert_top_k
                (0 = 1; 2 = GShard top-2), expert_capacity_factor (0 =
@@ -67,13 +69,16 @@ same names and defaults, for the subset the ported payloads run:
 
 Any other section or key is REFUSED with its name, not ignored: a knob
 the port does not implement would otherwise silently change nothing
-(``[model] n_experts`` among them: the key is ``experts``). A mesh of
-more than one device, ``pipeline_schedule`` and pipelining (ROADMAP
-Queue A item 9) and ``num_processes`` > 1 (item 10) are refused by
-name; ``attention = "ring" | "ulysses"`` is refused by the model's
-config (``models/config.py``). The reference's ``expert`` mesh axis
-resolves to one device here, so ``experts`` is never derived from a
-mesh. :meth:`RuntimeConfig.to_toml` writes the canonical document
+(``[model] n_experts`` among them: the key is ``experts``). Still
+refused by name: a ``stage`` or ``expert`` mesh axis above 1,
+``pipeline_schedule`` and pipelining, and a mesh over several cards in
+one process (ROADMAP Queue A item 7); the ``serve`` and
+``inference-probe`` payloads over more than one device (item 8). The
+mesh resolves against ``num_processes`` (the port runs one card a
+process), and :meth:`RuntimeConfig.model_config` derives the model from
+it as the reference's ``derive_model_config`` does: a ``seq`` axis
+means ring attention unless ``[payload] attention`` names Ulysses.
+:meth:`RuntimeConfig.to_toml` writes the canonical document
 and :meth:`RuntimeConfig.apply` materializes it, as
 ``kvedge-bootstrap apply`` does.
 """
@@ -185,35 +190,118 @@ def _toml_bool(value: bool) -> str:
     return "true" if value else "false"
 
 
+# The axes the port shards over, and those it refuses above 1 (ROADMAP
+# Queue A item 7: the pipelines and the expert-parallel MoE).
+_MESH_AXES = ("data", "model", "seq")
+_REFUSED_AXES = ("stage", "expert")
+
+
+class MeshConfigError(RuntimeConfigError):
+    """The operator's mesh cannot run this payload (the reference's
+    ``runtime/workload.py`` error of the same name)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """The reference's ``MeshSpec``: axis names and sizes in mesh order,
+    a size of 0 inferred from the device count (at most one)."""
+
+    axes: tuple[tuple[str, int], ...] = (("data", 0), ("model", 1))
+
+    def validate(self) -> None:
+        if not self.axes:
+            raise RuntimeConfigError("[mesh] axes must be a non-empty table")
+        for axis, size in self.axes:
+            if not axis:
+                raise RuntimeConfigError("mesh axis names must be non-empty")
+            if not isinstance(size, int) or isinstance(size, bool) \
+                    or size < 0:
+                raise RuntimeConfigError(
+                    f"mesh axis {axis!r} size must be a non-negative int")
+        names = self.axis_names()
+        if len(set(names)) != len(names):
+            raise RuntimeConfigError(f"duplicate mesh axis names in {names}")
+        if sum(1 for _, size in self.axes if size == 0) > 1:
+            raise RuntimeConfigError(
+                "at most one mesh axis may be 0 (inferred)")
+
+    def axis_names(self) -> tuple[str, ...]:
+        return tuple(name for name, _ in self.axes)
+
+    def resolved_shape(self, n_devices: int) -> tuple[int, ...]:
+        """Concrete mesh shape for ``n_devices``, inferring any zero axis."""
+        sizes = [size for _, size in self.axes]
+        self.validate()
+        zeros = [i for i, s in enumerate(sizes) if s == 0]
+        fixed = 1
+        for s in sizes:
+            if s:
+                fixed *= s
+        if zeros:
+            if n_devices % fixed:
+                raise RuntimeConfigError(
+                    f"{n_devices} devices not divisible by fixed axes "
+                    f"({fixed})")
+            sizes[zeros[0]] = n_devices // fixed
+        elif fixed != n_devices:
+            raise RuntimeConfigError(
+                f"mesh {dict(self.axes)} wants {fixed} devices, have "
+                f"{n_devices}")
+        return tuple(sizes)
+
+    def axis_sizes(self, n_devices: int) -> dict[str, int]:
+        return dict(zip(self.axis_names(), self.resolved_shape(n_devices)))
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributedSpec:
+    """The reference's ``DistributedSpec``: the world the runtime joins at
+    boot (``parallel/distributed.py``). ``num_processes == 1`` joins
+    nothing; ``-1`` / ``""`` mean "infer from the pod's identity"."""
+
+    num_processes: int = 1
+    coordinator_address: str = ""  # "" = infer; "host" or "host:port"
+    coordinator_port: int = 8478
+    process_id: int = -1  # -1 = infer
+
+    def validate(self) -> None:
+        if self.num_processes < 1:
+            raise RuntimeConfigError(
+                "[distributed] num_processes must be >= 1")
+        if not (0 < self.coordinator_port < 65536):
+            raise RuntimeConfigError(
+                "[distributed] coordinator_port out of range")
+        if self.process_id < -1 or self.process_id >= self.num_processes:
+            raise RuntimeConfigError(
+                f"[distributed] process_id {self.process_id} not in "
+                f"[-1, {self.num_processes})")
+
+
 def _mesh_axes(table) -> tuple[tuple[str, int], ...]:
-    """``[mesh] axes`` with the reference's checks and messages, then the
-    port's: every axis 0 (inferred) or 1, so the mesh resolves to the
-    one device the port runs on."""
+    """``[mesh] axes`` with the reference's checks and messages (the
+    port's refusals of resolved axes are ``_validate_world``'s)."""
     if not isinstance(table, Mapping):
         raise RuntimeConfigError("[mesh] axes must be a table")
-    if not table:
-        raise RuntimeConfigError("[mesh] axes must be a non-empty table")
     axes = tuple((str(axis), size) for axis, size in table.items())
-    for axis, size in axes:
-        if not axis:
-            raise RuntimeConfigError("mesh axis names must be non-empty")
-        if not isinstance(size, int) or isinstance(size, bool) or size < 0:
-            raise RuntimeConfigError(
-                f"mesh axis {axis!r} size must be a non-negative int")
-    if sum(1 for _, size in axes if size == 0) > 1:
-        raise RuntimeConfigError("at most one mesh axis may be 0 (inferred)")
-    wide = {axis: size for axis, size in axes if size > 1}
-    if wide:
-        raise RuntimeConfigError(
-            f"[mesh] axes {dict(axes)} span more than one device "
-            f"({wide}); the PyTorch port runs on one device until "
-            "parallelism is ported (ROADMAP Queue A item 9)")
+    MeshSpec(axes).validate()
     return axes
 
 
-def _distributed(table) -> int:
-    """``[distributed]`` with the reference's checks; the port joins no
-    cluster, so ``num_processes`` must be 1. Returns it."""
+def _refuse_axis(axis: str, size: int) -> None:
+    if axis in _REFUSED_AXES:
+        what = ("pipelining" if axis == "stage"
+                else "the expert-parallel MoE")
+        raise RuntimeConfigError(
+            f"[mesh] axis {axis!r} = {size}: {what} is not ported to "
+            "PyTorch yet (ROADMAP Queue A item 7)")
+    raise RuntimeConfigError(
+        f"[mesh] axis {axis!r} = {size}: the PyTorch port shards over "
+        f"{list(_MESH_AXES)} only")
+
+
+def _distributed(table) -> dict:
+    """``[distributed]`` with the reference's checks; returns the
+    :class:`RuntimeConfig` fields it sets."""
     if not isinstance(table, Mapping):
         raise RuntimeConfigError("[distributed] must be a table")
     bad = sorted(set(table) - set(_DISTRIBUTED_KEYS))
@@ -221,30 +309,19 @@ def _distributed(table) -> int:
         raise RuntimeConfigError(
             f"[distributed] key(s) {bad} are not supported by the "
             f"PyTorch port; it reads {sorted(_DISTRIBUTED_KEYS)}")
-    n = table.get("num_processes", 1)
-    port = table.get("coordinator_port", 8478)
-    pid = table.get("process_id", -1)
-    for key, value in (("num_processes", n), ("coordinator_port", port),
-                       ("process_id", pid)):
+    spec = DistributedSpec()
+    fields = {key: table.get(key, getattr(spec, key))
+              for key in _DISTRIBUTED_KEYS}
+    for key in ("num_processes", "coordinator_port", "process_id"):
+        value = fields[key]
         if not isinstance(value, int) or isinstance(value, bool):
             raise RuntimeConfigError(
                 f"[distributed] {key} must be an integer, got {value!r}")
-    if not isinstance(table.get("coordinator_address", ""), str):
+    if not isinstance(fields["coordinator_address"], str):
         raise RuntimeConfigError(
             "[distributed] coordinator_address must be a string")
-    if n < 1:
-        raise RuntimeConfigError("[distributed] num_processes must be >= 1")
-    if n != 1:
-        raise RuntimeConfigError(
-            f"[distributed] num_processes = {n}: the PyTorch port runs "
-            "one process on one host until multi-host serving is ported "
-            "(ROADMAP Queue A item 10)")
-    if not 0 < port < 65536:
-        raise RuntimeConfigError("[distributed] coordinator_port out of range")
-    if pid < -1 or pid >= n:
-        raise RuntimeConfigError(
-            f"[distributed] process_id {pid} not in [-1, {n})")
-    return n
+    DistributedSpec(**fields).validate()
+    return fields
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,10 +339,13 @@ class RuntimeConfig:
     # whatever is visible).
     expected_platform: str = "gpu"
     expected_chips: int = 0
-    # [mesh] axes as (name, size) pairs, each size 0 (inferred) or 1.
+    # [mesh] axes as (name, size) pairs (0 = inferred from the world).
     mesh_axes: tuple = (("data", 0), ("model", 1))
-    # [distributed] num_processes: 1, one host.
+    # [distributed]: the world of processes, one card each.
     num_processes: int = 1
+    coordinator_address: str = ""
+    coordinator_port: int = 8478
+    process_id: int = -1
     preset: str = ""  # "" = "probe"
     vocab: int = 0    # 0 = from the preset, for every shape field
     d_model: int = 0
@@ -427,7 +507,7 @@ class RuntimeConfig:
         if "axes" in mesh:
             fields["mesh_axes"] = _mesh_axes(mesh["axes"])
         if "distributed" in doc:
-            fields["num_processes"] = _distributed(doc["distributed"])
+            fields.update(_distributed(doc["distributed"]))
         for section, known in (("runtime", _RUNTIME_KEYS),
                                ("tpu", _TPU_KEYS),
                                ("model", {k: k for k in _MODEL_KEYS}),
@@ -485,12 +565,13 @@ class RuntimeConfig:
                 or self.expected_chips < 0):
             raise RuntimeConfigError("[tpu] expected_chips must be >= 0")
         _mesh_axes(dict(self.mesh_axes))
-        _distributed({"num_processes": self.num_processes})
+        _distributed({k: getattr(self, k) for k in _DISTRIBUTED_KEYS})
+        self._validate_world()
         if self.pipeline_schedule != "":
             raise RuntimeConfigError(
                 f"[model] pipeline_schedule = {self.pipeline_schedule!r}: "
                 "pipelining needs a 'stage' mesh axis over more than one "
-                "device (ROADMAP Queue A item 9)")
+                "device (ROADMAP Queue A item 7)")
         for name in ("serving_prefix_host_mb",
                      "serving_sched_max_queue_depth",
                      "serving_sched_swap_budget_mb",
@@ -761,6 +842,44 @@ class RuntimeConfig:
         if not isinstance(self.status_token, str):
             raise RuntimeConfigError("[status] token must be a string")
 
+    @property
+    def mesh(self) -> MeshSpec:
+        return MeshSpec(axes=tuple(self.mesh_axes))
+
+    @property
+    def distributed(self) -> DistributedSpec:
+        return DistributedSpec(**{k: getattr(self, k)
+                                  for k in _DISTRIBUTED_KEYS})
+
+    def axis_sizes(self) -> dict[str, int]:
+        """The mesh resolved against the world (one card a process)."""
+        return self.mesh.axis_sizes(self.num_processes)
+
+    def _validate_world(self) -> None:
+        """The mesh against the world: one card a process, so the mesh
+        resolves against ``num_processes``; no ``stage`` or ``expert``
+        axis above 1; ``serve`` and ``inference-probe`` on one device."""
+        wanted = 1
+        for _, size in self.mesh_axes:
+            wanted *= size or 1
+        if self.num_processes == 1 and wanted > 1:
+            raise RuntimeConfigError(
+                f"[mesh] axes {dict(self.mesh_axes)} want {wanted} devices "
+                "in one process; the PyTorch port runs one card a process "
+                "([distributed] num_processes), and several cards in one "
+                "process are not ported yet (ROADMAP Queue A item 7)")
+        for axis, size in self.axis_sizes().items():
+            if size > 1 and axis not in _MESH_AXES:
+                _refuse_axis(axis, size)
+        if self.num_processes > 1 and self.payload in ("serve",
+                                                       "inference-probe"):
+            raise RuntimeConfigError(
+                f"[payload] kind = {self.payload!r} over "
+                f"{self.num_processes} devices: multi-host serving is not "
+                "ported to PyTorch yet (ROADMAP Queue A item 8); the port "
+                "runs 'devicecheck', 'transformer-probe', 'train' and "
+                "'eval' across processes")
+
     def _validate_experts(self) -> None:
         """The reference parser's checks of the MoE knobs, with its
         messages."""
@@ -785,18 +904,52 @@ class RuntimeConfig:
                 "[model] expert_top_k must be 1 or 2 (0 = default 1)")
 
     def model_config(self, dtype: str = "bfloat16") -> TransformerConfig:
-        """The model of every payload: the preset with explicit fields on
-        top, ``seq`` as its max_seq, and ``[payload] attention``. The MoE
-        fields are derived as the reference's ``derive_model_config``
-        derives them with no ``expert`` mesh axis: ``experts`` as given,
-        top_k ``expert_top_k or 1``, the capacity factor
-        ``expert_capacity_factor or experts / top_k`` (provably
-        drop-free, so training and dropless serving compute the same
-        function), and MoE knobs on a dense model refused."""
+        """The model of every payload, derived from ``[model]`` and the
+        mesh as the reference's ``derive_model_config`` derives it, with
+        its messages (:class:`MeshConfigError`):
+
+        * the preset with explicit fields on top, ``seq`` as max_seq;
+        * a ``seq`` axis means ring attention, or the strategy
+          ``[payload] attention`` names; one that would leave the axis
+          holding replicas is refused, and so is a sequence-parallel
+          strategy without a ``seq`` axis;
+        * a preset's head count rises to the ``model`` axis, and for
+          Ulysses rounds up to a multiple of seq x model; an explicit
+          ``n_heads`` that Ulysses cannot split is refused;
+        * the MoE fields with no ``expert`` axis: ``experts`` as given,
+          top_k ``expert_top_k or 1``, the capacity factor
+          ``expert_capacity_factor or experts / top_k`` (provably
+          drop-free, so training and dropless serving compute the same
+          function), and MoE knobs on a dense model refused;
+        * the port's own rule for a ``model`` axis: it shards whole heads
+          and K/V heads (``parallel/sharding.check_shardable``)."""
+        axis_sizes = self.axis_sizes()
+        model_axis = axis_sizes.get("model", 1)
+        sp = axis_sizes.get("seq", 1)
+        attention = self.payload_attention or ("ring" if sp > 1 else "naive")
+        if sp > 1 and attention not in ("ring", "ulysses"):
+            raise MeshConfigError(
+                f"mesh declares a 'seq' axis but [payload] attention = "
+                f"{attention!r} would silently ignore it (the axis devices "
+                "would hold replicas); use attention = \"ring\"/\"ulysses\" "
+                "or drop the seq axis")
+        if "seq" not in axis_sizes and attention in ("ring", "ulysses"):
+            raise MeshConfigError(
+                f"[payload] attention = {attention!r} is sequence-parallel "
+                "and needs a 'seq' axis in the mesh")
         base = PRESETS[self.preset or "probe"]
+        n_heads = self.n_heads or max(base["n_heads"], model_axis)
+        group = sp * model_axis
+        if attention == "ulysses" and n_heads % group:
+            if self.n_heads:
+                raise MeshConfigError(
+                    f"[model] n_heads = {self.n_heads} cannot run ulysses "
+                    f"attention on this mesh: the head count must divide by "
+                    f"seq x model = {group}")
+            n_heads = group * -(-n_heads // group)  # round up, preset-derived
         if not self.experts and (self.expert_top_k
                                  or self.expert_capacity_factor):
-            raise RuntimeConfigError(
+            raise MeshConfigError(
                 "[model] expert_top_k/expert_capacity_factor are set but "
                 "the model is dense (no [model] experts and no 'expert' "
                 "mesh axis) — set experts = N or drop the MoE knobs")
@@ -806,25 +959,28 @@ class RuntimeConfig:
         tcfg = TransformerConfig(
             vocab=self.vocab or base["vocab"],
             d_model=self.d_model or base["d_model"],
-            n_heads=self.n_heads or base["n_heads"],
+            n_heads=n_heads,
             n_kv_heads=self.n_kv_heads or base["n_kv_heads"],
             n_layers=self.n_layers or base["n_layers"],
             d_ff=self.d_ff or base["d_ff"],
             max_seq=self.max_seq,
             dtype=dtype,
             paged_attention=self.payload_paged_attention or "auto",
-            attention=self.payload_attention or "naive",
+            attention=attention,
             n_experts=self.experts,
             expert_top_k=top_k,
             expert_capacity_factor=float(capacity),
         )
         try:
             tcfg.validate()
+            if model_axis > 1:
+                from kvedge_torch.parallel.sharding import check_shardable
+
+                check_shardable(tcfg, model_axis)
         except ValueError as e:
-            raise RuntimeConfigError(
+            raise MeshConfigError(
                 f"[model] configuration is invalid: {e}") from e
         return tcfg
-
 
     def to_toml(self) -> str:
         """Serialize back to TOML, the document ``apply`` writes: the
@@ -861,6 +1017,9 @@ class RuntimeConfig:
             f"pipeline_schedule = {s(self.pipeline_schedule)}",
             "", "[distributed]",
             f"num_processes = {self.num_processes}",
+            f"coordinator_address = {s(self.coordinator_address)}",
+            f"coordinator_port = {self.coordinator_port}",
+            f"process_id = {self.process_id}",
             "", "[status]",
             f"port = {self.status_port}",
             f"bind = {s(self.status_bind)}",

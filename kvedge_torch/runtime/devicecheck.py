@@ -43,9 +43,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class DeviceCheckResult:
     """What a payload reports to boot, ``/status`` and the heartbeat: the
-    reference's keys (``mesh_axes`` and ``mesh_shape`` of the one-device
-    mesh, ``probe_ms``, ``probe_checksum``) and the port's
-    ``probe_max_err``, the matmul probe's distance from the CPU."""
+    reference's keys (``mesh_axes`` and ``mesh_shape`` of the mesh
+    resolved over the world, ``probe_ms``, ``probe_checksum``) and the
+    port's ``probe_max_err``, the matmul probe's distance from the
+    CPU."""
 
     ok: bool
     platform: str
@@ -80,18 +81,26 @@ def run_device_check(cfg=None, device: str | torch.device | None = None
     """Probe the device: platform, count, names, and one bf16 matmul
     checked against the same product on the CPU. With a runtime config,
     its ``[tpu] platform`` and ``expected_chips`` are held to what is
-    visible, with the reference's messages, and its ``[mesh]`` (one
-    device, config.py) is reported. Raises when the card is missing (see
+    visible, with the reference's messages, and its ``[mesh]`` resolved
+    over the joined world (one card a process: the device count is the
+    world's size) is reported. Raises when the card is missing (see
     :func:`resolve_device`)."""
+    from kvedge_torch.parallel.distributed import world_size
+
     dev = resolve_device(device)
-    if dev.type == "cuda":
+    world = world_size()
+    if world > 1:
+        kinds = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                 else "cpu",)
+        count, platform = world, "gpu" if dev.type == "cuda" else "cpu"
+    elif dev.type == "cuda":
         count = torch.cuda.device_count()
         kinds = tuple(sorted({torch.cuda.get_device_name(i)
                               for i in range(count)}))
         platform = "gpu"
     else:
         count, kinds, platform = 1, ("cpu",), "cpu"
-    axes: tuple = ()
+    axes, shape = (), ()
     if cfg is not None:
         if cfg.expected_platform and platform != cfg.expected_platform:
             return _failure(
@@ -102,7 +111,17 @@ def run_device_check(cfg=None, device: str | torch.device | None = None
             return _failure(
                 platform, count, kinds,
                 f"expected {cfg.expected_chips} chips, {count} visible")
-        axes = tuple(cfg.mesh_axes)
+        axes = cfg.mesh.axis_names()
+        try:
+            shape = cfg.mesh.resolved_shape(world)
+        except ValueError as e:
+            return _failure(platform, count, kinds,
+                            f"mesh resolution failed: {e}")
+        if world != cfg.num_processes:
+            return _failure(
+                platform, count, kinds,
+                f"[distributed] num_processes = {cfg.num_processes}, but "
+                f"this process is in a world of {world}")
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(PROBE_ROWS, PROBE_DIM, generator=gen).to(torch.bfloat16)
     w = torch.randn(PROBE_DIM, PROBE_DIM, generator=gen).to(torch.bfloat16)
@@ -115,9 +134,7 @@ def run_device_check(cfg=None, device: str | torch.device | None = None
     ok = bool(torch.isfinite(got).all()) and err < 0.5
     return DeviceCheckResult(
         ok=ok, platform=platform, device_count=count, device_kinds=kinds,
-        # The mesh the port runs on: every axis resolves to 1 device.
-        mesh_axes=tuple(name for name, _ in axes),
-        mesh_shape=tuple(1 for _ in axes),
+        mesh_axes=axes, mesh_shape=shape,
         probe_ms=probe_ms, probe_checksum=float(got.sum()),
         probe_max_err=err,
         error="" if ok else f"matmul probe disagrees with the CPU by {err}",

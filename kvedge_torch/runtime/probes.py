@@ -16,6 +16,12 @@ constants and checks, on one device:
   forward pass over the tokens so far; ``probe_checksum`` carries the
   sum of the tokens.
 
+Across processes the transformer probe runs on the mesh of ``[mesh]``
+over the world (``parallel/mesh.py``), with the model derived from it:
+the batch is ``PROBE_BATCH_PER_DEVICE`` rows a device, each rank
+training on its data rows, seq chunk and model slices. The inference
+probe runs on one device (multi-host serving is ROADMAP Queue A item 8).
+
 Both return a :class:`DeviceCheckResult` with ``probe_ms``; a failure is
 a result with ``ok`` false and the reference's message, never a raise.
 Weights come from the port's numpy ``init_params(0)`` and the tokens
@@ -71,8 +77,8 @@ def run_transformer_probe(cfg: RuntimeConfig, device=None,
                           dtype: str = "bfloat16", *, params=None,
                           tokens=None) -> DeviceCheckResult:
     """One train step of the ``[model]`` config (module doc). ``tokens``
-    is a ``[B, PROBE_SEQ + 1]`` batch (default ``PROBE_BATCH_PER_DEVICE``
-    rows from ``default_rng(0)``)."""
+    is a global ``[B, PROBE_SEQ + 1]`` batch (default
+    ``PROBE_BATCH_PER_DEVICE`` rows a device from ``default_rng(0)``)."""
     # The matmul device check runs first: fail fast on visibility problems
     # with a cheaper, clearer error before building a model.
     base = run_device_check(cfg, device)
@@ -89,15 +95,21 @@ def run_transformer_probe(cfg: RuntimeConfig, device=None,
         # message, not a generic "probe failed" traceback.
         return dataclasses.replace(base, ok=False, error=str(e))
     try:
+        from kvedge_torch.parallel.mesh import build_mesh
+        from kvedge_torch.parallel.sharding import shard_batch
+
         dev = resolve_device(device)
+        mesh = build_mesh(cfg.mesh)
         tree = params if params is not None else init_params(0, tcfg)
-        weights = master_params(tree, tcfg, dev)
-        init_opt, train_step = make_train_step(tcfg, dev)
+        weights = master_params(tree, tcfg, dev, mesh)
+        init_opt, train_step = make_train_step(tcfg, dev, mesh)
         opt_state = init_opt(weights)
         if tokens is None:
             tokens = np.random.default_rng(0).integers(
-                0, tcfg.vocab, (PROBE_BATCH_PER_DEVICE, PROBE_SEQ + 1))
-        batch = torch.as_tensor(np.array(tokens), dtype=torch.long)
+                0, tcfg.vocab,
+                (PROBE_BATCH_PER_DEVICE * base.device_count, PROBE_SEQ + 1))
+        batch = shard_batch(mesh, torch.as_tensor(np.array(tokens),
+                                                  dtype=torch.long))
         start = time.perf_counter()
         _, _, loss = train_step(weights, opt_state, batch.to(dev))
         loss = float(loss)

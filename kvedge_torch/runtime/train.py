@@ -18,9 +18,19 @@ The counterparts of the JAX package's ``run_train_payload`` and
   ppl=...``.
 
 Batch tokens fold into the vocabulary (``% vocab``), as the reference's
-do. The reference's data-axis and multi-host prechecks have nothing to
-check on one device. Both payloads run on the card unless the CPU is
-asked for, and raise without one.
+do. Both payloads run on the card unless the CPU is asked for, and
+raise without one.
+
+Across processes (``[distributed]``, joined at boot by
+``parallel/distributed.py``) both run on the mesh of ``[mesh]`` over the
+world (``parallel/mesh.py``), with the model derived from it
+(``RuntimeConfig.model_config``) and the reference's feed geometry
+(:func:`feed_geometry`): the global batch divides by the ``data`` axis,
+each rank reads its ``batch / data`` rows at ``data_index * rows``
+through the feeder's ``global_batch`` and ``shard_offset`` (ranks that
+share a data index read the same rows), and a world of more than one
+process needs ``[runtime] checkpoint_dir`` on storage every rank
+reaches. Checkpoints are the global tree (``runtime/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -35,10 +45,11 @@ import torch
 
 from kvedge_torch.data.feeder import open_feeder
 from kvedge_torch.models.training import master_params, run_training
-from kvedge_torch.models.transformer import init_params, loss_fn
+from kvedge_torch.models.transformer import global_loss, init_params, loss_fn
 from kvedge_torch.models.weights import expected_shapes
+from kvedge_torch.parallel.mesh import build_mesh
 from kvedge_torch.runtime.checkpoint import StateCheckpointer
-from kvedge_torch.runtime.config import RuntimeConfig
+from kvedge_torch.runtime.config import MeshConfigError, RuntimeConfig
 from kvedge_torch.runtime.devicecheck import (
     DeviceCheckResult,
     resolve_device,
@@ -88,6 +99,23 @@ def _batches(feeder, vocab: int, device):
         yield torch.from_numpy(batch % vocab).to(device, torch.long)
 
 
+def feed_geometry(cfg: RuntimeConfig, mesh, kind: str):
+    """``(error | None, (rows, shard_offset))``: the reference's
+    ``_feed_geometry`` prechecks, with its messages, for the mesh this
+    rank runs (module doc)."""
+    data = mesh.size("data")
+    if cfg.train_batch % data:
+        return (f"[payload] batch = {cfg.train_batch} must divide by the "
+                f"mesh's data axis size ({data}) — it is the global "
+                "batch, sharded across data-parallel devices"), None
+    if cfg.num_processes > 1 and not cfg.checkpoint_dir:
+        return (f"multi-host {kind} needs [runtime] checkpoint_dir on "
+                "shared storage (a shared-filesystem mount): per-host "
+                "PVCs cannot hold a slice-wide checkpoint"), None
+    rows = cfg.train_batch // data
+    return None, (rows, mesh.index("data") * rows)
+
+
 def restore_latest_params(cfg: RuntimeConfig, tcfg, seed: int = 0):
     """(step | None, numpy param tree) from the latest checkpoint, or
     (None, the fresh ``init_params(seed)``) when there is none. The
@@ -117,13 +145,23 @@ def run_train_payload(cfg: RuntimeConfig, device=None,
         return PayloadResult(
             ok=False, error="[payload] kind = 'train' requires corpus = "
             "'<path>' (a KVFEED01 token file, typically on the state volume)")
-    tcfg = cfg.model_config(dtype)
+    try:
+        tcfg = cfg.model_config(dtype)
+    except MeshConfigError as e:
+        return PayloadResult(ok=False, error=str(e))
+    mesh = build_mesh(cfg.mesh)
+    error, geometry = feed_geometry(cfg, mesh, "train")
+    if error is not None:
+        return PayloadResult(ok=False, error=error)
+    rows, offset = geometry
     try:
         # The feeder starts at the batch the restored step consumes next.
         resume_step = StateCheckpointer(
             cfg.state_dir, checkpoint_dir=cfg.checkpoint_dir).latest_step() or 0
-        feeder = open_feeder(cfg.train_corpus, batch=cfg.train_batch,
-                             seq=cfg.max_seq, start_batch=resume_step)
+        feeder = open_feeder(cfg.train_corpus, batch=rows,
+                             seq=cfg.max_seq, start_batch=resume_step,
+                             global_batch=cfg.train_batch,
+                             shard_offset=offset)
         last_write = 0.0
 
         def on_step(step: int, loss: float) -> None:
@@ -149,7 +187,7 @@ def run_train_payload(cfg: RuntimeConfig, device=None,
             tcfg, cfg.state_dir, num_steps=cfg.train_steps,
             batches=_batches(feeder, tcfg.vocab, dev),
             checkpoint_every=cfg.train_checkpoint_every, on_step=on_step,
-            checkpoint_dir=cfg.checkpoint_dir, device=dev)
+            checkpoint_dir=cfg.checkpoint_dir, device=dev, mesh=mesh)
         elapsed_ms = (time.perf_counter() - start) * 1000.0
     except Exception as e:  # reported in the result, as the reference does
         return PayloadResult(ok=False, error=f"train payload failed: {e!r}")
@@ -184,8 +222,16 @@ def run_eval_payload(cfg: RuntimeConfig, device=None,
             "eval_corpus is the held-out split)")
     try:
         tcfg = cfg.model_config(dtype)
+    except MeshConfigError as e:
+        return PayloadResult(ok=False, error=str(e))
+    mesh = build_mesh(cfg.mesh)
+    error, geometry = feed_geometry(cfg, mesh, "eval")
+    if error is not None:
+        return PayloadResult(ok=False, error=error)
+    rows, offset = geometry
+    try:
         step, tree = restore_latest_params(cfg, tcfg)
-        params = master_params(tree, tcfg, dev)
+        params = master_params(tree, tcfg, dev, mesh)
         held_out = bool(cfg.eval_corpus)
         if not held_out:
             print(
@@ -195,13 +241,16 @@ def run_eval_payload(cfg: RuntimeConfig, device=None,
                 flush=True,
             )
         feeder = open_feeder(cfg.eval_corpus or cfg.train_corpus,
-                             batch=cfg.train_batch, seq=cfg.max_seq)
+                             batch=rows, seq=cfg.max_seq,
+                             global_batch=cfg.train_batch,
+                             shard_offset=offset)
         batches = _batches(feeder, tcfg.vocab, dev)
         start = time.perf_counter()
         total = 0.0
         with torch.no_grad():
             for _ in range(cfg.train_steps):
-                total += float(loss_fn(params, next(batches), tcfg))
+                total += float(global_loss(
+                    loss_fn(params, next(batches), tcfg, mesh), mesh))
         mean_loss = total / cfg.train_steps
         elapsed_ms = (time.perf_counter() - start) * 1000.0
         print(

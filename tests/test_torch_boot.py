@@ -19,8 +19,9 @@ run it here:
   inference probe's tokens equal the JAX package's ``generate`` on the
   same weights and prompt.
 * The JAX package's default TOML parses in the port once ``[tpu]
-  platform`` is set, to the same values; what is still refused is
-  refused by name with its ROADMAP Queue A item.
+  platform`` is set, to the same values; meshes over several processes
+  parse as the reference's do; what is still refused is refused by name
+  with its ROADMAP Queue A item.
 """
 
 import dataclasses
@@ -272,9 +273,9 @@ def test_degraded_states_answer_as_the_reference(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("fields,message", [
-    ({"mesh_axes": (("data", 2), ("model", 1))},
-     r"span more than one device .* Queue A item 9"),
-    ({"num_processes": 2}, r"num_processes = 2: .* Queue A item 10"),
+    ({"mesh_axes": (("data", 2), ("model", 1)), "num_processes": 2},
+     r"kind = 'serve' over 2 devices: .* Queue A item 8"),
+    ({"num_processes": 2}, r"kind = 'serve' over 2 devices: .* Queue A item 8"),
 ], ids=["mesh", "num_processes"])
 def test_a_config_the_parser_refuses_degrades_the_boot(tmp_path, fields,
                                                        message):
@@ -552,13 +553,20 @@ def test_status_token_round_trips_through_config_toml():
 
 @pytest.mark.parametrize("text,match", [
     ('[mesh]\naxes = { data = 2, model = 1 }\n',
-     r"more than one device.*Queue A item 9"),
+     r"several cards in one process.*Queue A item 7"),
     ('[mesh]\naxes = { data = 0, seq = 0 }\n', "at most one mesh axis"),
     ('[mesh]\nshape = [1]\n', r"\['shape'\]"),
-    ('[distributed]\nnum_processes = 2\n', r"num_processes = 2.*item 10"),
+    ('[distributed]\nnum_processes = 2\n[payload]\nkind = "serve"\n',
+     r"kind = 'serve' over 2 devices.*item 8"),
     ('[distributed]\nprocess_id = 3\n', "process_id 3 not in"),
     ('[distributed]\nhosts = 2\n', r"\['hosts'\]"),
-    ('[model]\npipeline_schedule = "1f1b"\n', r"pipelining.*item 9"),
+    ('[model]\npipeline_schedule = "1f1b"\n', r"pipelining.*item 7"),
+    ('[mesh]\naxes = { data = 0, stage = 2 }\n[distributed]\n'
+     'num_processes = 4\n', r"'stage' = 2: pipelining.*item 7"),
+    ('[mesh]\naxes = { expert = 0 }\n[distributed]\nnum_processes = 2\n',
+     r"'expert' = 2: the expert-parallel MoE.*item 7"),
+    ('[distributed]\nnum_processes = 2\n[payload]\n'
+     'kind = "inference-probe"\n', r"'inference-probe' over 2.*item 8"),
     ('[model]\nn_experts = 4\n', r"\['n_experts'\]"),
     ('[tpu]\ncores = 4\n', r"\[tpu\] key\(s\) \['cores'\]"),
     ('[runtime]\nheartbeat_interval_s = 0\n', "heartbeat_interval_s"),
@@ -570,6 +578,29 @@ def test_status_token_round_trips_through_config_toml():
 def test_still_refused_by_name(text, match):
     with pytest.raises(RuntimeConfigError, match=match):
         RuntimeConfig.parse(text)
+
+
+@pytest.mark.parametrize("text,shape", [
+    ('[mesh]\naxes = { data = 2, model = 1 }\n[distributed]\n'
+     'num_processes = 2\n', (2, 1)),
+    ('[mesh]\naxes = { data = 0, seq = 2 }\n[distributed]\n'
+     'num_processes = 4\n[payload]\nkind = "train"\ncorpus = "c.bin"\n',
+     (2, 2)),
+    ('[mesh]\naxes = { data = 1, model = 2, seq = 2 }\n[distributed]\n'
+     'num_processes = 4\n[payload]\nkind = "transformer-probe"\n'
+     'attention = "ulysses"\n', (1, 2, 2)),
+    ('[distributed]\nnum_processes = 2\n[payload]\nkind = "eval"\n'
+     'corpus = "c.bin"\n', (2, 1)),
+], ids=["data-model", "data-seq", "model-seq", "default-axes"])
+def test_meshes_over_the_world_are_accepted(text, shape):
+    """The lifted refusals: a mesh over several processes and
+    ``num_processes > 1`` parse, resolve against the world as the
+    reference's ``MeshSpec`` does, and round-trip through the TOML."""
+    cfg = RuntimeConfig.parse(text)
+    assert tuple(cfg.axis_sizes().values()) == shape
+    assert cfg.mesh.resolved_shape(cfg.num_processes) == \
+        JaxConfig.parse(text).mesh.resolved_shape(cfg.num_processes)
+    assert RuntimeConfig.parse(cfg.to_toml()) == cfg
 
 
 def test_one_device_meshes_are_accepted():

@@ -377,7 +377,10 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
         "            'render.helmlite', 'render.manifests',\n"
         "            'testing.fakecluster', 'testing.faults',\n"
         "            'analysis', 'analysis.locklint', 'testing.chaos',\n"
-        "            'data.feeder'):\n"
+        "            'data.feeder', 'parallel', 'parallel.distributed',\n"
+        "            'parallel.mesh', 'parallel.sharding',\n"
+        "            'parallel.ringattention', 'parallel.ulysses',\n"
+        "            'testing.world', 'testing.parallelcases'):\n"
         "    assert 'kvedge_torch.' + new in mods, mods\n"
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"

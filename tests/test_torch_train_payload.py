@@ -226,7 +226,7 @@ def test_a_diverged_run_fails_the_payload(tmp_path, monkeypatch):
 
     real = training.loss_fn
     monkeypatch.setattr(training, "loss_fn",
-                        lambda p, b, c: real(p, b, c) * float("nan"))
+                        lambda p, b, c, m=None: real(p, b, c, m) * float("nan"))
     cfg = RuntimeConfig.parse(_toml(tmp_path, steps=2).read_text())
     result = tpay.run_train_payload(cfg, device="cpu", dtype="float32")
     assert not result.ok and result.error.startswith("training diverged")

@@ -184,8 +184,6 @@ def test_flash_and_naive_agree_inside_the_port():
 def test_config_refuses_what_the_port_does_not_run():
     _, cfg = _cfgs()
     for change, match in [
-        (dict(attention="ring"), "sequence-parallel"),
-        (dict(attention="ulysses"), "sequence-parallel"),
         (dict(attention="local"), "must be 'naive', 'flash'"),
         (dict(remat_policy="some"), "must be 'full' or 'dots'"),
         (dict(n_experts=-1), "n_experts must be >= 0"),
@@ -196,10 +194,11 @@ def test_config_refuses_what_the_port_does_not_run():
     ]:
         with pytest.raises(ValueError, match=match):
             dataclasses.replace(cfg, **change).validate()
-    # fused_xent, remat_policy="dots" and MoE are ported: they validate,
-    # as in the reference.
+    # fused_xent, remat_policy="dots", MoE and the sequence-parallel
+    # attentions are ported: they validate, as in the reference.
     for change in (dict(fused_xent=True), dict(remat_policy="dots"),
-                   dict(n_experts=4), dict(n_experts=4, expert_top_k=2)):
+                   dict(n_experts=4), dict(n_experts=4, expert_top_k=2),
+                   dict(attention="ring"), dict(attention="ulysses")):
         dataclasses.replace(cfg, **change).validate()
     # The reference's messages for the values it also refuses.
     for change in (dict(attention="local"), dict(remat_policy="some"),
