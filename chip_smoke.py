@@ -427,7 +427,32 @@ imports nothing of JAX. Phases, each printing one JSON line:
             run's checkpoint, written through the gathered path, is then
             served by a single-process ``serve`` at fp32, and two greedy
             requests must return the naive forward's argmax over the
-            weights the mesh run held in memory.
+            weights the mesh run held in memory. The world stays up for
+            the slice phase.
+17a. slice  the multi-process serve's slice in that one-rank NCCL world
+            (``runtime/sliceserve.py``; a mesh ``{ data = 0, model = 1
+            }``, so every all-reduce of the model axis runs through NCCL,
+            inside the window and prefill graphs too): the leader's
+            runtime (``serve.ServeRuntime`` with a ``SlicePagedKVCache``,
+            backend ``multihost-paged``), every device op broadcast on
+            the control plane's gloo group and run on the op thread.
+            bf16 at 8 layers, the serve phase's weights, knobs and 9
+            requests in its admission order, after its warm-ups and a
+            burst on shifted ids: tokens equal the serve phase's, B1's
+            count (zeroed just before the burst, read just after) > 0
+            and every window graph launching it (``graph_stats()``); the
+            ops by kind with their broadcast ms, the coalesced frames,
+            the slice's tokens/s beside the serve phase's. fp32 at 2
+            layers: the serve phase's fp32 requests through a slice whose
+            broadcasts are recorded, tokens equal serve_fp32's; the
+            record replayed by ``follow_paged`` on a second cache on the
+            card leaves its pools' P pages, tables, lengths and carry
+            equal to the leader's bit for bit. A ``FaultySliceTransport``
+            hang at a broadcast of a warm fp32 slice raises
+            ``SliceFollowerLost`` within its 2 s budget; the recovery
+            supervisor re-forms the op stream (the first barrier hangs
+            too, the second passes) and the same request returns the
+            same tokens. The phase's seconds.
 18. kernels  one line listing every ported kernel, after a line with
             the seconds each phase took.
 
@@ -1099,6 +1124,11 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
         # Decode shapes of the burst for the timing phase: the first four
         # single-row requests half-way through their generation.
         lives = [len(r["tokens"][0]) + r["n_new"] // 2 for r in reqs[:4]]
+        # The plain server's answers, which the slice phase's are held to.
+        plain = {"bf16": [d["tokens"] for _, d in results],
+                 **{k: serve_doc[k] for k in (
+                     "decode_tokens_per_s", "ms_per_decode_step",
+                     "host_ms_per_decode_step", "tokens_per_decode_step")}}
     finally:
         rt.close()
 
@@ -1109,6 +1139,7 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
     tokens, counts, forward_ok = fp32_paths(torch, pa, serve, ServeConfig,
                                             forward, greedy, device, preset,
                                             max_seq)
+    plain.update(fp32=tokens["auto"], fp32_requests=greedy)
     same = tokens["auto"] == tokens["gather"]
     emit({"phase": "serve_fp32", "requests": len(greedy),
           "n_layers": WINDOW_LAYERS,
@@ -1130,7 +1161,7 @@ def phase_serve(torch, np, pa, serve, ServeConfig, forward, device="cuda",
     check(contiguous_same, "fp32 contiguous tokens differ from the paged "
           "backend's")
     check(counts["contiguous"] == 0, "the contiguous backend launched B1")
-    return serve_doc, lives, launches
+    return serve_doc, lives, launches, plain
 
 
 # ---- phase 6b: spec -----------------------------------------------------
@@ -5842,6 +5873,8 @@ def phase_mesh(torch, np, kfns, tr, dist_mod, serve, forward,
         return captured[-1]
 
     tr.run_training = recording
+    # The world stays up for the slice phase (one world a process); main
+    # leaves it after that phase.
     try:
         world = {"backend": torch.distributed.get_backend(),
                  "size": torch.distributed.get_world_size()}
@@ -5857,7 +5890,6 @@ def phase_mesh(torch, np, kfns, tr, dist_mod, serve, forward,
                                     40, device, meshes={name: seq_mesh})
     finally:
         tr.run_training = real
-        dist_mod.shutdown_world()
     layers = mesh_cfg(RuntimeConfig, corpus, *MESH_RUNS[2][:2], "flash",
                       "plain").model_config("bfloat16").n_layers
     def loss_diff(a, b):
@@ -5945,6 +5977,270 @@ def phase_mesh(torch, np, kfns, tr, dist_mod, serve, forward,
     return runs
 
 
+SLICE_BUDGETS = dict(steady_s=2.0, compile_s=120.0)   # the fault's op budgets
+SLICE_FAST = dict(backoff_base_s=0.1, backoff_cap_s=0.2, jitter=0.0,
+                  barrier_budget_s=2.0, teardown_budget_s=60.0)
+
+
+def slice_runtime(np, serve, sliceserve, ServeConfig, mesh, weights, cfg,
+                  dtype, device, **kw):
+    """The multi-process serve's leader runtime (``serve.ServeRuntime``
+    with a ``SlicePagedKVCache``), in this process's world."""
+    tcfg = cfg.model_config(dtype)
+    slots, pages, page_size, mpps = serve._serving_pool_dims(cfg, tcfg)
+    cache = sliceserve.SlicePagedKVCache(
+        tcfg, slots=slots, pages=pages, page_size=page_size, mesh=mesh,
+        max_pages_per_seq=mpps, device=device, **kw)
+    return serve.ServeRuntime(cfg, device=device, dtype=dtype,
+                              leader=serve._Leader(mesh, weights, None,
+                                                   cache=cache))
+
+
+def direct_burst(rt, reqs):
+    """``reqs`` through ``rt.serve_fn``, each from a thread of its own,
+    request i sent once the rows before it hold admission tickets (the
+    serve phase's order); returns (token rows by request, wall s)."""
+    out = [None] * len(reqs)
+
+    def one(i):
+        out[i] = rt.serve_fn(reqs[i])["tokens"]
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(reqs))]
+    t0 = time.perf_counter()
+    base, rows = rt.server.requests_queued, 0
+    for t, req in zip(threads, reqs):
+        t.start()
+        rows += len(req["tokens"])
+        while rt.server.requests_queued < base + rows:
+            check(t.is_alive() or rt.server.requests_queued >= base + rows,
+                  "a request ended before it was queued")
+            time.sleep(0.0005)
+    for t in threads:
+        t.join(timeout=600)
+        check(not t.is_alive(), "a slice request never returned")
+    check(all(o is not None for o in out), "a slice request failed")
+    return out, time.perf_counter() - t0
+
+
+def phase_slice(torch, np, pa, kfns, serve, sliceserve, serving, sf,
+                recovery, ServeConfig, plain, device="cuda",
+                preset="flagship", max_seq=2048):
+    """The multi-process serve's slice in the one-rank NCCL world the mesh
+    phase formed (module doc, phase 17a)."""
+    from kvedge_torch.models.transformer import init_params
+    from kvedge_torch.models.weights import sharded_params
+    from kvedge_torch.parallel.mesh import build_mesh
+    from kvedge_torch.runtime.config import MeshSpec
+    from kvedge_torch.runtime.failures import OpBudgets, SliceFollowerLost
+
+    t_phase = time.perf_counter()
+    mesh = build_mesh(MeshSpec(axes=(("data", 0), ("model", 1))))
+    check(mesh.distributed and mesh.size("model") == 1,
+          f"slice mesh {mesh.sizes} outside a world")
+
+    def cfg_of(n_layers=0, **kw):
+        return ServeConfig(preset=preset, max_seq=max_seq,
+                           payload_serving="paged", serving_slots=4,
+                           serving_page_size=16, serving_prefill_chunk=64,
+                           serving_window=64, serving_prefix_cache=False,
+                           serving_prefix_persist=False, n_layers=n_layers,
+                           state_dir=SEEDED_STATE_DIR, **kw)
+
+    def weights_of(cfg, dtype):
+        tcfg = cfg.model_config(dtype)
+        return sharded_params(init_params(0, tcfg), tcfg, device, mesh)
+
+    # bf16 at 8 layers: the serve phase's 9 requests, the serve runtime's
+    # knobs, the weights it served; warm-ups capture the window graphs, a
+    # burst on shifted ids the prefill graphs, then the measured burst.
+    cfg = cfg_of()
+    rt = slice_runtime(np, serve, sliceserve, ServeConfig, mesh,
+                       weights_of(cfg, "bfloat16"), cfg, "bfloat16", device)
+    try:
+        cache = rt.server._cache
+        vocab = rt.tcfg.vocab
+        for warm in ({"tokens": [[1, 2, 3]], "n_new": 128},
+                     {"tokens": [[4, 5, 6]], "n_new": 128,
+                      "temperature": 0.7, "top_p": 0.9, "seed": 1}):
+            rt.serve_fn(warm)
+        reqs = serve_requests(np, vocab)
+        direct_burst(rt, [{**r, "tokens": [[(t + 104729) % vocab
+                                            for t in row]
+                                           for row in r["tokens"]]}
+                          for r in reqs])
+        stats0 = rt.server.stats()
+        bill0 = {k: list(v) for k, v in cache.op_broadcast_ms.items()}
+        zero_counts(kfns)
+        got, wall = direct_burst(rt, reqs)
+        slice_launches = counts(kfns)
+        stats = rt.server.stats()
+        steps = stats["decode_steps"] - stats0["decode_steps"]
+        burst = {
+            "decode_steps": steps,
+            "ms_per_decode_step": (stats["decode_device_s"]
+                                   - stats0["decode_device_s"]) / steps * 1e3,
+            "host_ms_per_decode_step": (stats["decode_s"]
+                                        - stats0["decode_s"]) / steps * 1e3,
+            "tokens_per_decode_step": sum(
+                r["n_new"] * len(r["tokens"]) for r in reqs) / steps,
+            "prefill_s": stats["prefill_s"] - stats0["prefill_s"],
+            "ops_by_kind": {
+                k: {"ops": v[0] - bill0.get(k, [0, 0.0])[0],
+                    "ms": v[1] - bill0.get(k, [0, 0.0])[1]}
+                for k, v in sorted(cache.op_broadcast_ms.items())}}
+        graphs = cache.graph_stats()
+        bill = {k: {"ops": v[0], "ms": v[1]}
+                for k, v in sorted(cache.op_broadcast_ms.items())}
+        frames = {"coalesced_flushes": cache.coalesced_flushes,
+                  "coalesced_ops": cache.coalesced_ops}
+        backend = rt.stats()["backend"]
+    finally:
+        rt.close()
+    gen = sum(r["n_new"] * len(r["tokens"]) for r in reqs)
+    bf16 = {"n_layers": rt.tcfg.n_layers, "tokens_equal_plain":
+            got == plain["bf16"], "wall_s": wall,
+            "decode_tokens_per_s": gen / wall, "measured_burst": burst,
+            "plain": {k: v for k, v in plain.items()
+                      if k not in ("bf16", "fp32", "fp32_requests")},
+            "b1_launches": slice_launches["paged_decode"],
+            "launches": slice_launches,
+            "b1_launches_per_replay": graphs["b1_launches_per_replay"],
+            "graphs": graphs["graphs"], "capture_s": graphs["capture_s"],
+            "prefill_graphs": graphs["prefill_graphs"],
+            "backend": backend, "ops_by_kind_all": bill, **frames}
+
+    # fp32 at 2 layers: the serve phase's fp32 requests through a slice
+    # whose broadcasts are recorded, then the record replayed by the
+    # follower loop on a second cache on this card.
+    cfg32 = cfg_of(WINDOW_LAYERS)
+    w32 = weights_of(cfg32, "float32")
+    rt = slice_runtime(np, serve, sliceserve, ServeConfig, mesh, w32, cfg32,
+                       "float32", device)
+    log = []
+    lead = rt.server._cache
+    real = lead._bcast
+
+    def recording(tree):
+        log.append(real(tree))
+        return log[-1]
+
+    lead._bcast = recording
+    try:
+        got32, _ = direct_burst(rt, plain["fp32_requests"])
+        with rt.server.device_quiet():
+            lead._flush_ops()
+            carry = None if lead._carry is None else \
+                lead._carry[0].cpu().clone()
+    finally:
+        rt.close()  # its STOP ends the record
+    follower = sliceserve.SlicePagedKVCache(
+        rt.tcfg, slots=lead.slots, pages=lead.num_pages,
+        page_size=lead.page_size, mesh=mesh,
+        max_pages_per_seq=lead.max_pages_per_seq, device=device)
+    replay = iter(log)
+    follower._bcast = lambda tree: next(replay)
+    t0 = time.perf_counter()
+    sliceserve.follow_paged(follower, w32)
+    follower.wait_device()
+    replay_s = time.perf_counter() - t0
+    # The pools' P pages; not the sink page past them, which every
+    # non-live row writes in one index_put whose duplicate indices land
+    # in no fixed order on CUDA, and which nothing reads.
+    same_state = {
+        name: bool(torch.equal(getattr(follower.state, name),
+                               getattr(lead.state, name)))
+        for name in ("pool_k", "pool_v")}
+    same_state["tables"] = bool(torch.equal(follower._tables_full,
+                                            lead._tables_full))
+    same_state["lengths"] = bool(torch.equal(follower._lengths_full,
+                                             lead._lengths_full))
+    same_state["carry"] = (carry is None) == (follower._carry is None) and (
+        carry is None or bool(torch.equal(follower._carry[0].cpu(), carry)))
+    kinds = sorted({sliceserve._OP_NAMES[int(t[0])] for t in log
+                    if isinstance(t, np.ndarray) and t.shape == (4,)
+                    and t.dtype == np.int64})
+    fp32 = {"n_layers": WINDOW_LAYERS,
+            "tokens_equal_plain": got32 == plain["fp32"],
+            "replay": {"broadcasts": len(log), "header_kinds": kinds,
+                       "seconds": replay_s,
+                       "follower_graphs": follower.graph_stats()["graphs"],
+                       "bit_exact": same_state}}
+
+    # A lost follower: a hang at a broadcast of a warm fp32 slice, the
+    # supervisor re-forms the op stream and revives, the same tokens.
+    heal_cfg = cfg_of(WINDOW_LAYERS)
+    tcfg32 = heal_cfg.model_config("float32")
+    slots, pages, page_size, mpps = serve._serving_pool_dims(heal_cfg,
+                                                             tcfg32)
+    cache = sliceserve.SlicePagedKVCache(
+        tcfg32, slots=slots, pages=pages, page_size=page_size, mesh=mesh,
+        max_pages_per_seq=mpps, device=device,
+        op_budgets=OpBudgets(**SLICE_BUDGETS))
+    server = serving.PagedGenerationServer(w32, tcfg32, cache=cache,
+                                           prefix_cache=False, window=64)
+    prompt = plain["fp32_requests"][0]["tokens"][0]
+    n_new = plain["fp32_requests"][0]["n_new"]
+    plan = sf.FaultPlan(seed=3, kinds=("hang",), fire_window=(2, 3),
+                        heal_at=4)
+    try:
+        want = server.submit(prompt, n_new)
+        sf.FaultySliceTransport(cache, plan)
+        sup = recovery.RecoverySupervisor(server, policy=recovery.
+                                          RecoveryPolicy(max_attempts=3,
+                                                         **SLICE_FAST),
+                                          seed=5).attach()
+        dying = server._thread
+        t0 = time.perf_counter()
+        try:
+            server.submit(prompt, n_new)
+            lost = None
+        except Exception as e:  # the typed failure the hang must raise
+            lost = type(e).__name__
+        detect_s = time.perf_counter() - t0
+        dying.join(timeout=60)
+        state = sup.wait_settled(timeout=120.0)
+        healed = server.submit(prompt, n_new) if state == "healthy" else None
+        heal = {"failure": lost, "detect_s": detect_s, "state": state,
+                "recoveries": sup.stats()["recoveries_total"],
+                "attempts": sup.stats()["recovery_attempts_total"],
+                "last_recovery_s": sup.stats()["last_recovery_s"],
+                "tokens_equal": healed == want,
+                "tokens_equal_plain": [want] == plain["fp32"][0],
+                "trace": plan.trace[:8]}
+    finally:
+        server.close()
+        plan.close()
+    seconds = time.perf_counter() - t_phase
+    # B1 runs on the card only (a CPU rehearsal takes the plain version).
+    b1_ok = device != "cuda" or (
+        bf16["b1_launches"] > 0 and bool(bf16["b1_launches_per_replay"])
+        and all(v > 0 for v in bf16["b1_launches_per_replay"].values()))
+    ok = (bf16["tokens_equal_plain"] and b1_ok
+          and fp32["tokens_equal_plain"]
+          and all(same_state.values())
+          and heal["failure"] == SliceFollowerLost.__name__
+          and heal["state"] == "healthy" and heal["tokens_equal"]
+          and heal["tokens_equal_plain"])
+    emit({"phase": "slice", "world": {
+              "backend": torch.distributed.get_backend(),
+              "size": torch.distributed.get_world_size()},
+          "mesh": mesh.sizes, "model": preset, "bf16": bf16, "fp32": fp32,
+          "heal": heal, "seconds": seconds, "ok": ok})
+    check(bf16["tokens_equal_plain"],
+          "slice bf16 tokens differ from the plain server's")
+    check(b1_ok, f"B1 not launched on the slice's path: {bf16['launches']}, "
+                 f"per replay {bf16['b1_launches_per_replay']}")
+    check(fp32["tokens_equal_plain"],
+          "slice fp32 tokens differ from the plain server's")
+    check(all(same_state.values()), f"follower replay differs: {same_state}")
+    check(heal["failure"] == SliceFollowerLost.__name__,
+          f"a hang at a broadcast raised {heal['failure']}")
+    check(heal["state"] == "healthy" and heal["tokens_equal"]
+          and heal["tokens_equal_plain"], f"slice heal: {heal}")
+    return bf16
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -5977,11 +6273,14 @@ def main() -> int:
         from kvedge_torch.parallel import distributed as dist_mod
         from kvedge_torch.runtime import boot as boot_mod
         from kvedge_torch.runtime import healthcheck as hc
+        from kvedge_torch.runtime import recovery
         from kvedge_torch.runtime import serve
+        from kvedge_torch.runtime import sliceserve
         from kvedge_torch.runtime import train as tr
         from kvedge_torch.runtime.config import RuntimeConfig, ServeConfig
         from kvedge_torch.runtime.devicecheck import resolve_device
         from kvedge_torch.testing import chaos as chaos_mod
+        from kvedge_torch.testing import servingfaults as sf
     except ImportError as e:
         print(f"chip_smoke: the kvedge_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -6038,8 +6337,8 @@ def main() -> int:
                              ServeConfig, n_layers=WINDOW_LAYERS)
 
         phase = enter("serve")
-        serve_doc, lives, launches = phase_serve(torch, np, pa, serve,
-                                                 ServeConfig, forward)
+        serve_doc, lives, launches, plain = phase_serve(
+            torch, np, pa, serve, ServeConfig, forward)
 
         phase = enter("spec_windows")
         phase_spec_windows(torch, np, kvc, ttr, params_from_numpy,
@@ -6121,9 +6420,17 @@ def main() -> int:
                                  tcfg_flag)
 
         phase = enter("mesh")
-        mesh_runs = phase_mesh(torch, np, kfns, tr, dist_mod, serve, forward,
-                               params_from_numpy, RuntimeConfig,
-                               cfg.train_corpus, training, ttr, tcfg_flag)
+        try:
+            mesh_runs = phase_mesh(torch, np, kfns, tr, dist_mod, serve,
+                                   forward, params_from_numpy, RuntimeConfig,
+                                   cfg.train_corpus, training, ttr,
+                                   tcfg_flag)
+            phase = enter("slice")
+            slice_doc = phase_slice(torch, np, pa, kfns, serve, sliceserve,
+                                    serving_mod, sf, recovery, ServeConfig,
+                                    plain)
+        finally:
+            dist_mod.shutdown_world()
 
         phase = enter("kernels")
         kernels = [{
@@ -6142,6 +6449,7 @@ def main() -> int:
             "launches_observability": obs_doc["burst"]["b1_launches"],
             "launches_moe": moe_serve_doc["kernel_launches"],
             "launches_boot": boot_doc["b1_launches_three"],
+            "launches_slice": slice_doc["b1_launches"],
             "status": "redesigned (thread-block cluster split, scores "
                       "in shared memory, cp.async K/V); on the serve path "
                       "launched inside replayed CUDA graphs, counted per "

@@ -15,10 +15,8 @@ kvedge-tpu                            kvedge-torch
                                         ``NVIDIA-H100-80GB-HBM3``. Checked by
                                         Kubernetes' label-value rule (it has
                                         capitals, which the TPU check refuses)
-``tpuNumHosts`` (N > 1 renders a      refused above 1: the port runs one
-  StatefulSet over a slice)             process on one host until multi-host
-                                        serving is ported (ROADMAP Queue A
-                                        items 7-8)
+``tpuNumHosts`` (N > 1 renders a      the same: N > 1 renders a StatefulSet
+  StatefulSet over a slice)             of N pods, one GPU each
 ====================================  =========================================
 
 ``jaxRuntimeConfig`` keeps its name: it carries the runtime TOML, which
@@ -36,13 +34,6 @@ _NAME_RE = re.compile(r"^[a-z0-9]([a-z0-9-]*[a-z0-9])?$")
 # Kubernetes label values: at most 63 characters, alphanumerics at both
 # ends, '-', '_' and '.' between.
 _LABEL_VALUE_RE = re.compile(r"^[A-Za-z0-9]([A-Za-z0-9_.-]{0,61}[A-Za-z0-9])?$")
-
-MULTIHOST = (
-    "the PyTorch port's chart renders one GPU host; multi-host "
-    "deployments wait for the parallel strategies and multi-host serving "
-    "(ROADMAP Queue A items 7-8)"
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class ChartValues:
@@ -68,7 +59,8 @@ class ChartValues:
     # to, as the nvidia.com/gpu.product node label names it
     # (reference: macAddress, values.yaml:17).
     tpuAccelerator: str = "NVIDIA-H100-80GB-HBM3"
-    # Hosts: 1 only (a single-replica Deployment on one GPU).
+    # Hosts, one GPU each: 1 renders the Deployment, N > 1 a StatefulSet
+    # of N pods (reference: the JAX chart's tpuNumHosts).
     tpuNumHosts: int = 1
 
     def validate(self) -> None:
@@ -100,8 +92,6 @@ class ChartValues:
                 f"tpuNumHosts must be a positive integer, got "
                 f"{self.tpuNumHosts!r}"
             )
-        if self.tpuNumHosts != 1:
-            raise ValueError(f"tpuNumHosts = {self.tpuNumHosts}: {MULTIHOST}")
 
     def replace(self, **kwargs) -> "ChartValues":
         values = dataclasses.replace(self, **kwargs)

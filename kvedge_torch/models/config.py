@@ -4,7 +4,7 @@ The fields, ``d_head``, ``kv_heads``, ``param_count`` and ``validate``
 follow the JAX package's ``models/transformer.py`` for the fields the
 serving and training slices use, with the same validation messages.
 What the port does not run yet is refused with a clear error rather
-than ignored: pipelining (``pipeline_stages``, ROADMAP Queue A item 7).
+than ignored: pipelining (``pipeline_stages``, ROADMAP Queue A item 7b).
 
 ``n_experts > 0`` makes every layer's FFN a mixture of switch-routed
 experts (``models/moe.py``): top-``expert_top_k`` routing, a capacity of
@@ -135,7 +135,7 @@ class TransformerConfig:
         if self.pipeline_stages:
             raise ValueError(
                 f"pipeline_stages={self.pipeline_stages}: pipelining is not "
-                "ported to PyTorch yet (ROADMAP Queue A item 7)")
+                "ported to PyTorch yet (ROADMAP Queue A item 7b)")
 
 
 # Named model shapes, the same table as the JAX package's: "probe" is

@@ -15,6 +15,13 @@ written in place (the reference donates it to a jitted step), its
 ``length`` is a Python int (the host knows it), and :func:`generate` is
 a Python loop of eager steps (the reference's ``lax.scan``). It has no
 kernel of its own: the reference's contiguous path has no Pallas kernel.
+
+Every function takes the rank's ``mesh`` (:data:`NO_MESH` by default):
+under a ``model`` axis of tp the params are the rank's slices, the cache
+holds its ``K/tp`` K/V heads, and each block runs its local heads with
+the Megatron f and g around the sharded products, as the paged cache's
+blocks do; the logits come out replicated. The multi-process ``serve``
+payload's contiguous backend runs :func:`generate` so on every rank.
 """
 
 from __future__ import annotations
@@ -34,12 +41,19 @@ from kvedge_torch.models.transformer import (
     _rmsnorm,
     _rotary,
     block_mlp,
+    readout,
     split_qkv,
     stacked_layer_params,
-    tied_readout,
     torch_dtype,
 )
 from kvedge_torch.ops.paged_attention import gather_attention
+from kvedge_torch.parallel.mesh import NO_MESH
+from kvedge_torch.parallel.sharding import (
+    check_shardable,
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+)
 from kvedge_torch.runtime.devicecheck import resolve_device
 
 
@@ -59,13 +73,18 @@ class KVCache:
 
 def init_cache(cfg: TransformerConfig, batch: int,
                max_seq: int | None = None,
-               device: torch.device | str | None = None) -> KVCache:
-    """A zeroed cache on ``device`` (the card unless "cpu" is asked for).
-    Warns when an MoE model's training capacity can bind
+               device: torch.device | str | None = None,
+               mesh=NO_MESH) -> KVCache:
+    """A zeroed cache on ``device`` (the card unless "cpu" is asked for),
+    with this rank's K/V heads under a ``model`` axis. Warns when an MoE
+    model's training capacity can bind
     (``moe.warn_if_train_serve_divergence``)."""
     cfg.validate()
     warn_if_train_serve_divergence(cfg)
-    shape = (cfg.n_layers, batch, max_seq or cfg.max_seq, cfg.kv_heads,
+    tp = mesh.size("model")
+    if tp > 1:
+        check_shardable(cfg, tp)
+    shape = (cfg.n_layers, batch, max_seq or cfg.max_seq, cfg.kv_heads // tp,
              cfg.d_head)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
@@ -74,16 +93,18 @@ def init_cache(cfg: TransformerConfig, batch: int,
 
 
 def _attend_layer(cfg: TransformerConfig, x, layer_params, k_slab, v_slab,
-                  pos: int):
+                  pos: int, mesh=NO_MESH):
     """One decoder block against the cache. x ``[B, Q, D]`` new positions
     starting at ``pos``; k_slab/v_slab ``[B, S, K, Dh]`` this layer's
     cache, written in place. Prefill (Q = prompt, pos = 0) and decode
     (Q = 1) alike; every query sees the slab's positions up to its own."""
     w_qkv, w_out, ln_attn = layer_params[0], layer_params[1], layer_params[-2]
     batch, q_len, _ = x.shape
-    h, dh = cfg.n_heads, cfg.d_head
+    tp = mesh.size("model")
+    h, dh = cfg.n_heads // tp, cfg.d_head
     dtype = x.dtype
-    q, k, v = split_qkv(cfg, _rmsnorm(x, ln_attn) @ w_qkv.to(dtype))
+    q, k, v = split_qkv(
+        cfg, copy_to_model(_rmsnorm(x, ln_attn), mesh) @ w_qkv.to(dtype), tp)
     positions = pos + torch.arange(q_len, device=x.device)
     q = _rotary(q, positions)
     k = _rotary(k, positions)
@@ -91,48 +112,52 @@ def _attend_layer(cfg: TransformerConfig, x, layer_params, k_slab, v_slab,
     v_slab[:, pos:pos + q_len] = v
     attended = gather_attention(q, k_slab, v_slab,
                                 positions[None].expand(batch, q_len))
-    x = x + attended.reshape(batch, q_len, h * dh) @ w_out.to(dtype)
-    return block_mlp(cfg, x, layer_params)
+    x = x + reduce_from_model(
+        attended.reshape(batch, q_len, h * dh) @ w_out.to(dtype), mesh)
+    return block_mlp(cfg, x, layer_params, mesh)
 
 
 def _run_layers(cfg: TransformerConfig, params: dict, x, cache: KVCache,
-                pos: int, all_positions: bool = False):
+                pos: int, all_positions: bool = False, mesh=NO_MESH):
     """The layer stack over the cache; returns (logits, cache advanced to
     ``pos + Q``). ``all_positions`` reads logits at every query position
     (``[B, Q, V]``), otherwise only the last (``[B, V]``)."""
     stacked = stacked_layer_params(params, cfg)
     for layer in range(cfg.n_layers):
         x = _attend_layer(cfg, x, tuple(p[layer] for p in stacked),
-                          cache.k[layer], cache.v[layer], pos)
+                          cache.k[layer], cache.v[layer], pos, mesh)
     cache = dataclasses.replace(cache, length=pos + x.shape[1])
     x = _rmsnorm(x, params["ln_final"])
-    logits = tied_readout(x if all_positions else x[:, -1],
-                          params["embedding"])
+    logits = readout(x if all_positions else x[:, -1], params["embedding"],
+                     mesh)
     return logits, cache
 
 
 @torch.no_grad()
 def prefill(params: dict, tokens: torch.Tensor, cache: KVCache,
-            cfg: TransformerConfig):
+            cfg: TransformerConfig, mesh=NO_MESH):
     """Feed a ``[B, T]`` prompt into an empty cache; returns
     (last-position logits ``[B, V]`` fp32, the filled cache)."""
-    x = params["embedding"][tokens].to(torch_dtype(cfg.dtype))
-    return _run_layers(cfg, params, x, cache, 0)
+    x = gather_from_model(params["embedding"][tokens], mesh).to(
+        torch_dtype(cfg.dtype))
+    return _run_layers(cfg, params, x, cache, 0, mesh=mesh)
 
 
 @torch.no_grad()
 def decode_step(params: dict, cache: KVCache, tokens: torch.Tensor,
-                cfg: TransformerConfig):
+                cfg: TransformerConfig, mesh=NO_MESH):
     """One decode step: ``[B]`` tokens at position ``cache.length``;
     returns (logits ``[B, V]`` fp32, the cache advanced by one)."""
-    x = params["embedding"][tokens][:, None].to(torch_dtype(cfg.dtype))
-    return _run_layers(cfg, params, x, cache, cache.length)
+    x = gather_from_model(params["embedding"][tokens], mesh)[:, None].to(
+        torch_dtype(cfg.dtype))
+    return _run_layers(cfg, params, x, cache, cache.length, mesh=mesh)
 
 
 @torch.no_grad()
 def generate(params: dict, prompt, cfg: TransformerConfig, n_new: int,
              sampling=None, sampled: bool = False,
-             device: torch.device | str | None = None) -> torch.Tensor:
+             device: torch.device | str | None = None,
+             mesh=NO_MESH) -> torch.Tensor:
     """Decode ``n_new`` tokens after a ``[B, T]`` prompt; returns
     ``[B, T + n_new]`` int64 on ``device`` (the card unless "cpu" is asked
     for; ``params`` live there).
@@ -145,8 +170,9 @@ def generate(params: dict, prompt, cfg: TransformerConfig, n_new: int,
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt, dtype=torch.int64).to(dev)
     batch, prompt_len = prompt.shape
-    cache = init_cache(cfg, batch, max_seq=prompt_len + n_new, device=dev)
-    logits, cache = prefill(params, prompt, cache, cfg)
+    cache = init_cache(cfg, batch, max_seq=prompt_len + n_new, device=dev,
+                       mesh=mesh)
+    logits, cache = prefill(params, prompt, cache, cfg, mesh)
     if sampled:
         seed_keys, temperature, top_p = sampling
         seed_keys = as_key_tensor(seed_keys, dev)
@@ -161,6 +187,6 @@ def generate(params: dict, prompt, cfg: TransformerConfig, n_new: int,
     for step in range(n_new - 1):
         token = pick(logits, step)
         out.append(token[:, None])
-        logits, cache = decode_step(params, cache, token, cfg)
+        logits, cache = decode_step(params, cache, token, cfg, mesh)
     out.append(pick(logits, n_new - 1)[:, None])
     return torch.cat(out, dim=1)

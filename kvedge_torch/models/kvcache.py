@@ -86,15 +86,22 @@ from kvedge_torch.models.transformer import (
     _rmsnorm,
     _rotary,
     block_mlp,
+    readout,
     split_qkv,
     stacked_layer_params,
-    tied_readout,
     torch_dtype,
 )
 from kvedge_torch.ops.paged_attention import (
     gather_attention,
     gather_pages,
     paged_decode_attention,
+)
+from kvedge_torch.parallel.mesh import NO_MESH
+from kvedge_torch.parallel.sharding import (
+    check_shardable,
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
 )
 from kvedge_torch.runtime.devicecheck import resolve_device
 
@@ -191,24 +198,33 @@ def _scatter_token(pool, scales, tables, lengths, kv_new, live):
 
 def _paged_attend_layer(cfg: TransformerConfig, state: PagedState, x,
                         layer_params, layer: int, q_positions, slot=None,
-                        live=None, write_mask=None):
+                        live=None, write_mask=None, mesh=NO_MESH):
     """One block over the paged cache. x ``[B, Q, D]``; q_positions
     ``[B, Q]`` absolute positions of the new tokens. ``slot`` set = the
     prefill of one sequence (B == 1, Q tokens); otherwise a batched pass
     (a decode step, Q == 1, or a speculative verify pass, Q == 1 + K)
     whose token i of row b is written at position ``lengths[b] + i`` when
     ``live[b] & write_mask[b, i]`` (``write_mask`` None = every offset),
-    and to the sink page otherwise."""
+    and to the sink page otherwise.
+
+    Under a ``model`` axis of tp the layer holds this rank's ``H/tp`` q
+    heads and ``K/tp`` K/V heads (``parallel/sharding.py``), and so do
+    the pools: f before the column-parallel products, g after the
+    row-parallel ones, and single-query attention on the local heads
+    (B1 on the card, the GQA group unchanged). :data:`NO_MESH` skips
+    every collective."""
     w_qkv, w_out, ln_attn = layer_params[0], layer_params[1], layer_params[-2]
     batch, q_len, _ = x.shape
-    h, dh = cfg.n_heads, cfg.d_head
+    tp = mesh.size("model")
+    h, dh = cfg.n_heads // tp, cfg.d_head
     pool_k, pool_v = state.pool_k_full[layer], state.pool_v_full[layer]
     scale_k = (state.scale_k_full[layer]
                if state.scale_k_full is not None else None)
     scale_v = (state.scale_v_full[layer]
                if state.scale_v_full is not None else None)
 
-    q, k, v = split_qkv(cfg, _rmsnorm(x, ln_attn) @ w_qkv)
+    q, k, v = split_qkv(
+        cfg, copy_to_model(_rmsnorm(x, ln_attn), mesh) @ w_qkv, tp)
     # Decode rows each carry their own position; a prefill shares one.
     positions = q_positions if slot is None else q_positions[0]
     q = _rotary(q, positions)
@@ -242,23 +258,31 @@ def _paged_attend_layer(cfg: TransformerConfig, state: PagedState, x,
         gk = gather_pages(pool_k, scale_k, tables, x.dtype)
         gv = gather_pages(pool_v, scale_v, tables, x.dtype)
         att = gather_attention(q, gk, gv, q_positions)
-    x = x + att.reshape(batch, q_len, h * dh) @ w_out
-    return block_mlp(cfg, x, layer_params)
+    x = x + reduce_from_model(att.reshape(batch, q_len, h * dh) @ w_out,
+                              mesh)
+    return block_mlp(cfg, x, layer_params, mesh)
 
 
 def _run_paged(cfg, params, state, x, q_positions, slot=None, live=None,
-               all_positions: bool = False, write_mask=None):
+               all_positions: bool = False, write_mask=None, mesh=NO_MESH):
     """The layer stack over the paged cache; logits at the last query
     position ``[B, V]``, or at every one ``[B, Q, V]`` with
-    ``all_positions``."""
+    ``all_positions``; replicated on every model rank (the readout's
+    partial logits are summed over ``model``)."""
     stacked = stacked_layer_params(params, cfg)
     for layer in range(cfg.n_layers):
         x = _paged_attend_layer(cfg, state, x,
                                 tuple(p[layer] for p in stacked), layer,
-                                q_positions, slot, live, write_mask)
+                                q_positions, slot, live, write_mask, mesh)
     x = _rmsnorm(x, params["ln_final"])
-    return tied_readout(x if all_positions else x[:, -1],
-                        params["embedding"])
+    return readout(x if all_positions else x[:, -1], params["embedding"],
+                   mesh)
+
+
+def _embed(params: dict, tokens, mesh):
+    """The embedding rows of ``tokens``, gathered over ``model`` from the
+    feature-sharded table (identity without a model group)."""
+    return gather_from_model(params["embedding"][tokens], mesh)
 
 
 @dataclasses.dataclass
@@ -282,19 +306,21 @@ class PrefillInputs:
 
 @torch.no_grad()
 def run_prefill(params: dict, state: PagedState, cfg: TransformerConfig,
-                inp: PrefillInputs) -> torch.Tensor:
+                inp: PrefillInputs, mesh=NO_MESH) -> torch.Tensor:
     """Prefill ``inp.tokens`` into row ``inp.slot`` at positions
     ``inp.offset``..; returns the last position's logits ``[V]``. No host
     value enters the body, so one captured graph serves every slot and
     offset of a chunk length (the reference's ``_paged_prefill_impl``)."""
-    x = params["embedding"][inp.tokens][None]
+    x = _embed(params, inp.tokens, mesh)[None]
     q_positions = (inp.offset + torch.arange(inp.tokens.shape[0],
                                              device=inp.tokens.device))[None]
-    return _run_paged(cfg, params, state, x, q_positions, slot=inp.slot)[0]
+    return _run_paged(cfg, params, state, x, q_positions, slot=inp.slot,
+                      mesh=mesh)[0]
 
 
 def _paged_prefill(params: dict, state: PagedState, tokens, slot,
-                   cfg: TransformerConfig, offset=0) -> torch.Tensor:
+                   cfg: TransformerConfig, offset=0,
+                   mesh=NO_MESH) -> torch.Tensor:
     """Prefill ``tokens [T]`` into ``slot`` at positions offset.. (ints
     or 0-d tensors), eagerly through :func:`run_prefill`; returns the
     last position's logits ``[V]``."""
@@ -302,19 +328,21 @@ def _paged_prefill(params: dict, state: PagedState, tokens, slot,
     return run_prefill(params, state, cfg, PrefillInputs(
         tokens=tokens,
         slot=torch.as_tensor(slot, dtype=torch.int64, device=dev),
-        offset=torch.as_tensor(offset, dtype=torch.int64, device=dev)))
+        offset=torch.as_tensor(offset, dtype=torch.int64, device=dev)),
+        mesh)
 
 
 @torch.no_grad()
 def _decode_step_core(params: dict, state: PagedState, tokens,
-                      cfg: TransformerConfig, live) -> torch.Tensor:
+                      cfg: TransformerConfig, live,
+                      mesh=NO_MESH) -> torch.Tensor:
     """One batched decode step: ``tokens [B]`` in, logits ``[B, V]`` out.
     ``live`` ``[B]`` bool marks the rows whose K/V are written and whose
     lengths advance (in place). Shared by the single step and the
     windows, so the two agree token for token."""
-    x = params["embedding"][tokens][:, None]
+    x = _embed(params, tokens, mesh)[:, None]
     logits = _run_paged(cfg, params, state, x, state.lengths[:, None],
-                        live=live)
+                        live=live, mesh=mesh)
     state.lengths += live.to(state.lengths.dtype)
     return logits
 
@@ -351,7 +379,7 @@ class WindowInputs:
 @torch.no_grad()
 def run_window(params: dict, state: PagedState, cfg: TransformerConfig,
                inp: WindowInputs, n_steps: int,
-               sampled: bool) -> torch.Tensor:
+               sampled: bool, mesh=NO_MESH) -> torch.Tensor:
     """``n_steps`` decode steps with per-row caps and stop bookkeeping;
     returns ``[n_steps + 2, B]`` int32: the produced tokens, then ``fin``
     (0 = window-capped, 1 = froze on its cap, 2 = stop token hit) and
@@ -373,7 +401,7 @@ def run_window(params: dict, state: PagedState, cfg: TransformerConfig,
     rows = []
     for i in range(n_steps):
         live = inp.active & (inp.steps_left > i)
-        logits = _decode_step_core(params, state, toks, cfg, live)
+        logits = _decode_step_core(params, state, toks, cfg, live, mesh)
         nxt = torch.argmax(logits, dim=-1)
         if sampled:
             drawn = sample_token(logits,
@@ -392,7 +420,8 @@ def run_window(params: dict, state: PagedState, cfg: TransformerConfig,
 
 @torch.no_grad()
 def _spec_verify_core(params: dict, state: PagedState, tokens,
-                      cfg: TransformerConfig, active, spec_mask):
+                      cfg: TransformerConfig, active, spec_mask,
+                      mesh=NO_MESH):
     """One batched speculative verify pass over the paged cache.
 
     ``tokens [B, 1+K]``: each row's pending token, then K drafts. One
@@ -413,14 +442,14 @@ def _spec_verify_core(params: dict, state: PagedState, tokens,
     is the next pass's first write, as in plain decode. No host read:
     it runs inside a captured graph."""
     k_len = tokens.shape[1] - 1
-    x = params["embedding"][tokens]  # [B, 1+K, D]
+    x = _embed(params, tokens, mesh)  # [B, 1+K, D]
     offsets = torch.arange(1 + k_len, device=tokens.device)
     q_positions = state.lengths[:, None] + offsets[None]
     # Offset 0 (the pending token) always writes; draft offsets only for
     # the rows that can accept them.
     write_mask = spec_mask[:, None] | (offsets == 0)[None]
     logits = _run_paged(cfg, params, state, x, q_positions, live=active,
-                        all_positions=True, write_mask=write_mask)
+                        all_positions=True, write_mask=write_mask, mesh=mesh)
     y = torch.argmax(logits, dim=-1)  # [B, 1+K]
     draft = tokens[:, 1:]
     agree = torch.cumprod((draft == y[:, :k_len]).long(), dim=1)
@@ -469,7 +498,7 @@ class SpecWindowInputs:
 @torch.no_grad()
 def run_spec_window(params: dict, state: PagedState, cfg: TransformerConfig,
                     inp: SpecWindowInputs, n_passes: int, k_len: int,
-                    sampled: bool):
+                    sampled: bool, mesh=NO_MESH):
     """``n_passes`` speculative draft + verify passes on the device; the
     counterpart of the reference's ``_paged_spec_window_impl`` and, with
     ``sampled``, of ``_paged_spec_window_sampled_impl``.
@@ -506,7 +535,7 @@ def run_spec_window(params: dict, state: PagedState, cfg: TransformerConfig,
         draft = _propose_ngram(ctx[:, :s_ctx], ctx_len, k_len)
         toks = torch.cat([pending[:, None], draft], dim=1)
         emitted, accepted, logits0 = _spec_verify_core(
-            params, state, toks, cfg, live, spec_live)
+            params, state, toks, cfg, live, spec_live, mesh)
         count = live.long() * (1 + accepted)
         bonus = torch.gather(emitted, 1, accepted[:, None])[:, 0]
         if sampled:
@@ -609,12 +638,19 @@ class PagedKVCache:
     to ``slots``). Host bookkeeping and the arrays the caller passes are
     ``slots``-sized; a step, window or prefill runs over the bucket's
     first rows, and its outputs carry ``bucket`` rows.
+
+    ``mesh`` (:data:`~kvedge_torch.parallel.mesh.NO_MESH` by default) is
+    the rank's mesh when the cache serves a model sharded over
+    ``model``: the pools hold this rank's ``K/tp`` K/V heads (and int8
+    scales) and every device function runs the rank's shard with the
+    model-axis collectives (:func:`_paged_attend_layer`). Params are
+    then the rank's slices (``parallel/sharding.shard_params``).
     """
 
     def __init__(self, cfg: TransformerConfig, *, slots: int, pages: int,
                  page_size: int = 16, max_pages_per_seq: int | None = None,
                  kv_dtype: str = "", min_bucket: int = 0,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, mesh=NO_MESH):
         cfg.validate()
         warn_if_train_serve_divergence(cfg)
         if kv_dtype not in ("", "int8"):
@@ -626,7 +662,11 @@ class PagedKVCache:
             raise ValueError("slots, pages and page_size must be >= 1")
         if min_bucket < 0:
             raise ValueError(f"min_bucket must be >= 0, got {min_bucket}")
+        tp = mesh.size("model")
+        if tp > 1:
+            check_shardable(cfg, tp)
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.slots = slots
         self.min_bucket = min(min_bucket, slots) if min_bucket else 0
@@ -639,8 +679,9 @@ class PagedKVCache:
         )
         self.kv_quantized = kv_dtype == "int8"
         dtype = torch.int8 if self.kv_quantized else torch_dtype(cfg.dtype)
-        # One page past the pool: the sink (see the module docstring).
-        shape = (cfg.n_layers, pages + 1, page_size, cfg.kv_heads,
+        # One page past the pool: the sink (see the module docstring);
+        # this rank's K/V heads under a model axis.
+        shape = (cfg.n_layers, pages + 1, page_size, cfg.kv_heads // tp,
                  cfg.d_head)
 
         def scale():
@@ -990,22 +1031,28 @@ class PagedKVCache:
 
     def _sync(self) -> None:
         """Upload the host tables and lengths (after admit/grow/release)
-        into the device tensors, in place. A slot with a spec window in
-        flight keeps its device length: the window advances it by counts
-        the host learns only at harvest (the merge runs in stream order,
-        after the windows already queued)."""
-        self._put(self._tables_full,
-                  np.asarray(self._host_tables, np.int32))
-        lengths = np.asarray(self._host_lengths, np.int32)
+        into the device tensors, in place (:meth:`_apply_sync`)."""
+        self._apply_sync(np.asarray(self._host_tables, np.int32),
+                         np.asarray(self._host_lengths, np.int32),
+                         np.asarray(self._spec_unharvested) > 0)
+
+    def _apply_sync(self, tables: np.ndarray, lengths: np.ndarray,
+                    keep: np.ndarray) -> None:
+        """Device seam of :meth:`_sync`. A slot ``keep`` marks (a spec
+        window in flight) keeps its device length: the window advances
+        it by counts the host learns only at harvest (the merge runs in
+        stream order, after the windows already queued)."""
+        self._put(self._tables_full, tables)
         full = self._lengths_full
-        if not any(self._spec_unharvested):
+        if not keep.any():
             self._put(full, lengths)
             return
         host = torch.empty_like(full)
-        keep = torch.empty(full.shape, dtype=torch.bool, device=self.device)
+        keep_dev = torch.empty(full.shape, dtype=torch.bool,
+                               device=self.device)
         self._put(host, lengths)
-        self._put(keep, np.asarray(self._spec_unharvested) > 0)
-        full.copy_(torch.where(keep, full, host))
+        self._put(keep_dev, keep)
+        full.copy_(torch.where(keep_dev, full, host))
 
     # ---- page copies (prefix sharing, swap, snapshots) -----------------
 
@@ -1073,7 +1120,11 @@ class PagedKVCache:
         the gather queues behind the work already on the stream (the
         only writers of these pages) and lands in pinned host tensors;
         the call returns once they are there."""
-        snap = self.snapshot_pages(ids)
+        return self._host_copy(self.snapshot_pages(ids))
+
+    def _host_copy(self, snap: tuple) -> tuple:
+        """Host copies of device snapshot tensors, waited for (pinned on
+        CUDA)."""
         if self.device.type != "cuda":
             return snap  # index_select made fresh tensors
         out = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -1126,14 +1177,19 @@ class PagedKVCache:
         if not self._relieved(1):
             raise PagedCacheError("pool exhausted: no page for COW copy")
         dst = self._take_page()
-        idx = self._page_index([src, dst])
-        for slab in self._slabs():
-            slab.index_copy_(1, idx[1:], slab.index_select(1, idx[:1]))
+        self._device_cow(src, dst)
         pages[index] = dst
         self._host_tables[slot][index] = dst
         self._unref(src)
         self._sync()
         return dst
+
+    def _device_cow(self, src: int, dst: int) -> None:
+        """Device seam of :meth:`cow_page`: page ``src`` copied into
+        ``dst`` in every slab."""
+        idx = self._page_index([src, dst])
+        for slab in self._slabs():
+            slab.index_copy_(1, idx[1:], slab.index_select(1, idx[:1]))
 
     # ---- device work -----------------------------------------------------
 
@@ -1177,7 +1233,7 @@ class PagedKVCache:
         n = tokens.shape[0]
         if self.device.type != "cuda":
             return _paged_prefill(params, self.state, self._tokens(tokens),
-                                  slot, self.cfg, offset)
+                                  slot, self.cfg, offset, self.mesh)
         inp = self._prefill_in.get(n)
         if inp is None:
             inp = self._prefill_in[n] = PrefillInputs.zeros(n, self.device)
@@ -1193,7 +1249,7 @@ class PagedKVCache:
         # chunk twice changes nothing.
         out = self._replay(
             self._prefill_graphs, (self.bucket, n), params,
-            lambda i: run_prefill(params, self.state, self.cfg, i),
+            lambda i: run_prefill(params, self.state, self.cfg, i, self.mesh),
             inp, inp, "prefill")
         # Every chunk of this length (another request's too) replays
         # into the same static logits: copy them out, in stream order.
@@ -1231,14 +1287,20 @@ class PagedKVCache:
             grew |= self.grow(slot)
         if grew:
             self._sync()
-        b = self.bucket
-        live = torch.empty((b,), dtype=torch.bool, device=self.device)
-        self._put(live, self._row_mask(slots)[:b])
-        logits = _decode_step_core(params, self.state,
-                                   self._tokens(tokens)[:b], self.cfg, live)
+        logits = self._device_step(params, tokens, self._row_mask(slots))
         for slot in slots:
             self._host_lengths[slot] += 1
         return logits
+
+    def _device_step(self, params: dict, tokens, mask: np.ndarray
+                     ) -> torch.Tensor:
+        """Device seam of :meth:`step`: one eager decode step of the
+        bucket's rows, ``mask [slots]`` the live ones."""
+        b = self.bucket
+        live = torch.empty((b,), dtype=torch.bool, device=self.device)
+        self._put(live, mask[:b])
+        return _decode_step_core(params, self.state, self._tokens(tokens)[:b],
+                                 self.cfg, live, self.mesh)
 
     def step_tokens(self, params: dict, tokens, active=None) -> torch.Tensor:
         """One batched GREEDY step returning next tokens ``[slots]``."""
@@ -1287,19 +1349,26 @@ class PagedKVCache:
             grew |= self.grow_to(slot, (k_len + 1) if spec_np[slot] else 1)
         if grew:
             self._sync()
-        b = self.bucket
-        live = torch.empty((b,), dtype=torch.bool, device=self.device)
-        self._put(live, self._row_mask(slots)[:b])
-        spec = torch.empty((b,), dtype=torch.bool, device=self.device)
-        self._put(spec, spec_np[:b])
-        emitted, accepted, logits0 = _spec_verify_core(
-            params, self.state, self._tokens(host_tokens[:b]), self.cfg,
-            live, spec)
-        host = torch.cat([emitted, accepted[:, None]], dim=1).cpu().numpy()
-        emitted_np, accepted_np = host[:, :-1], host[:, -1]
+        emitted_np, accepted_np, logits0 = self._device_spec(
+            params, host_tokens, self._row_mask(slots), spec_np)
         for slot in slots:
             self._host_lengths[slot] += 1 + int(accepted_np[slot])
         return emitted_np, accepted_np, logits0
+
+    def _device_spec(self, params: dict, tokens: np.ndarray,
+                     mask: np.ndarray, spec_mask: np.ndarray):
+        """Device seam of :meth:`step_spec`: the verify pass over the
+        bucket's rows, its emitted tokens and acceptances read back."""
+        b = self.bucket
+        live = torch.empty((b,), dtype=torch.bool, device=self.device)
+        self._put(live, mask[:b])
+        spec = torch.empty((b,), dtype=torch.bool, device=self.device)
+        self._put(spec, spec_mask[:b])
+        emitted, accepted, logits0 = _spec_verify_core(
+            params, self.state, self._tokens(tokens[:b]), self.cfg,
+            live, spec, self.mesh)
+        host = torch.cat([emitted, accepted[:, None]], dim=1).cpu().numpy()
+        return host[:, :-1], host[:, -1], logits0
 
     # ---- overlapped (double-buffered) windows ---------------------------
 
@@ -1451,11 +1520,12 @@ class PagedKVCache:
         b = self.bucket
         if self.device.type != "cuda":
             return run_window(params, self.state, self.cfg,
-                              _rows(self._in, b), n_steps, sampled)
+                              _rows(self._in, b), n_steps, sampled,
+                              self.mesh)
         return self._replay(self._graphs, (b, sampled, n_steps), params,
                             lambda inp: run_window(
                                 params, self.state, self.cfg, inp, n_steps,
-                                sampled),
+                                sampled, self.mesh),
                             _rows(self._in, b), _rows(self._idle_in, b),
                             "decode")
 
@@ -1722,12 +1792,12 @@ class PagedKVCache:
         if self.device.type != "cuda":
             return run_spec_window(params, self.state, self.cfg,
                                    _rows(self._spec_in, b), n_passes, k_len,
-                                   sampled)
+                                   sampled, self.mesh)
         return self._replay(self._spec_graphs,
                             (b, sampled, n_passes, k_len), params,
                             lambda inp: run_spec_window(
                                 params, self.state, self.cfg, inp,
-                                n_passes, k_len, sampled),
+                                n_passes, k_len, sampled, self.mesh),
                             _rows(self._spec_in, b),
                             _rows(self._spec_idle_in, b), "decode")
 

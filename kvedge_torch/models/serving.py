@@ -231,6 +231,13 @@ class PagedGenerationServer:
     non-top classes; ``occupancy_ring`` > 0 keeps that many boundary
     occupancy samples; ``debug_locks`` asserts lock ownership at every
     ``*_locked`` call. ``device`` is the card unless "cpu" is asked for.
+    ``cache`` hands in a built cache instead (its slots, pages and page
+    size override the knobs): the multi-process ``serve`` payload's
+    ``runtime/sliceserve.SlicePagedKVCache``, whose device seams
+    broadcast each op to the other ranks. Every cache call already
+    serializes on the server's one lock, the total order the slice's op
+    stream needs; ``close()`` calls the cache's ``stop`` (the followers'
+    release) when it has one.
     """
 
     def __init__(self, params: dict, cfg: TransformerConfig, *,
@@ -253,7 +260,7 @@ class PagedGenerationServer:
                  window_max: int = 256, tracer=None,
                  debug_locks: bool = False, slo=None,
                  slo_shed: bool = False, occupancy_ring: int = 0,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, cache=None):
         # The online window controller (window="auto"): plain data,
         # mutated under the lock at each harvest, never recreated, so
         # what it learned rides through revive().
@@ -318,12 +325,19 @@ class PagedGenerationServer:
         # auto fallback zeroed _spec.
         self._spec_decision: dict | None = None
         # The table widens by the draft slack, so a full-length (prompt +
-        # n_new == max_seq) greedy request still admits.
-        self._cache = PagedKVCache(
-            cfg, slots=slots, pages=pages, page_size=page_size,
-            max_pages_per_seq=-(-(cfg.max_seq + self._spec) // page_size),
-            kv_dtype=kv_dtype, min_bucket=min_bucket, device=device,
-        )
+        # n_new == max_seq) greedy request still admits; a cache handed
+        # in was sized by the same rule (runtime/serve._serving_pool_dims).
+        if cache is not None:
+            slots, pages = cache.slots, cache.num_pages
+            page_size = cache.page_size
+            self._cache = cache
+        else:
+            self._cache = PagedKVCache(
+                cfg, slots=slots, pages=pages, page_size=page_size,
+                max_pages_per_seq=-(-(cfg.max_seq + self._spec)
+                                    // page_size),
+                kv_dtype=kv_dtype, min_bucket=min_bucket, device=device,
+            )
         # An admission parked on a free slot above the bucket: the decode
         # loop steps the bucket up at its next boundary.
         self._bucket_step_wanted = False
@@ -384,6 +398,10 @@ class PagedGenerationServer:
         # Registry pins sit outside every reservation: an allocation that
         # finds the free list short reclaims them first.
         self._cache.pressure_relief = self._relieve_pool_pressure_locked
+        if tracer is not None:
+            # A slice cache stamps its per-op broadcast spans into the
+            # same recorder; a single-host cache ignores the attribute.
+            self._cache.tracer = tracer
         self._pages_total = pages
         self._reserved = 0  # worst-case pages of every admitted request
         # debug_locks: a lock that asserts its owner at every *_locked
@@ -618,6 +636,15 @@ class PagedGenerationServer:
                     else ServerClosed("server is shut down"))
             self._sched.wake_all_locked()
             self._work.notify_all()
+        # A slice cache releases its followers here, under the lock: the
+        # stop serializes after any request thread's cache call, and its
+        # idempotence flag is check-then-act atomic. Skipped while the
+        # decode loop is still alive (a step wedged outside the op
+        # runner): close() stays bounded.
+        stop = getattr(self._cache, "stop", None)
+        if stop is not None and not self._thread.is_alive():
+            with self._work:
+                stop()
 
     @property
     def healthy(self) -> bool:
@@ -772,6 +799,11 @@ class PagedGenerationServer:
             if last:
                 for k, v in last.items():
                     out["occupancy_" + k] = v
+        op_ms = getattr(self._cache, "op_broadcast_ms", None)
+        if op_ms:
+            # A slice cache's broadcast bill: op kind -> [frames, ms].
+            out["slice_op_ms"] = {k: list(v)
+                                  for k, v in dict(op_ms).items()}
 
     # ---- the SLO engine and the flight bundle ----------------------------
 

@@ -228,18 +228,23 @@ def mlp(x: torch.Tensor, w_up, w_down, ln_mlp,
 
 
 def block_mlp(cfg: TransformerConfig, x: torch.Tensor,
-              layer_params) -> torch.Tensor:
+              layer_params, mesh=NO_MESH) -> torch.Tensor:
     """The MLP half of a serving block (contiguous or paged decode),
     residual included: the dense :func:`mlp`, or with ``cfg.n_experts``
-    the dropless routed experts (``moe.routed_ffn_block``)."""
+    the dropless routed experts (``moe.routed_ffn_block``). Under a
+    ``model`` axis the layer holds this rank's F slice of every expert:
+    f before the block, g over its gated outputs (the gates are linear
+    in them)."""
     if not cfg.n_experts:
         _, _, w_up, w_down, _, ln_mlp = layer_params
-        return mlp(x, w_up, w_down, ln_mlp)
+        return mlp(x, w_up, w_down, ln_mlp, mesh)
     from kvedge_torch.models.moe import routed_ffn_block
 
     _, _, router, w_up, w_down, _, ln_mlp = layer_params
-    return x + routed_ffn_block(_rmsnorm(x, ln_mlp), router, w_up, w_down,
-                                top_k=cfg.expert_top_k)
+    normed = copy_to_model(_rmsnorm(x, ln_mlp), mesh)
+    return x + reduce_from_model(
+        routed_ffn_block(normed, router, w_up, w_down,
+                         top_k=cfg.expert_top_k), mesh)
 
 
 def _layer(cfg: TransformerConfig, x: torch.Tensor, layer_params,

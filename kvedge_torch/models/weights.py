@@ -77,3 +77,17 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig,
             device=device,
             dtype=torch.float32 if key in _FP32_KEYS else dtype)
     return out
+
+
+def sharded_params(tree: dict, cfg: TransformerConfig,
+                   device: torch.device | str, mesh) -> dict:
+    """:func:`params_from_numpy` of the full ``tree``, cut to this rank's
+    slices under ``mesh`` (``parallel/sharding.shard_params``; the whole
+    tree without a ``model`` axis), each slice a tensor of its own on
+    ``device``: the serving weights of one rank of a model-sharded
+    slice."""
+    from kvedge_torch.parallel.sharding import shard_params
+
+    full = params_from_numpy(tree, cfg, "cpu")
+    return {k: v.contiguous().to(device)
+            for k, v in shard_params(mesh, full, cfg).items()}

@@ -7,7 +7,7 @@ boot, ``mesh`` lays its ranks out over the ``data``, ``model`` and
 ``seq`` axes, ``sharding`` cuts the param tree and writes the
 collectives XLA inserts in the reference, and ``ringattention`` and
 ``ulysses`` attend across the ``seq`` group. The reference's pipelines
-(``pipeline_layers``) are not ported yet (ROADMAP Queue A item 7).
+(``pipeline_layers``) are not ported yet (ROADMAP Queue A item 7b).
 """
 
 from kvedge_torch.parallel.mesh import build_mesh, local_mesh

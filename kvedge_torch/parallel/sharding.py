@@ -54,7 +54,7 @@ PARAM_RULES: dict[str, tuple] = {
     "ln_mlp": (),                        # [L, D]
     "ln_final": (),                      # [D]
     # Mixture of experts: the expert dim shards over ``expert`` (refused
-    # above 1 by the config, ROADMAP Queue A item 7); within an expert the
+    # above 1 by the config, ROADMAP Queue A item 7b); within an expert the
     # FFN is column/row-parallel on ``model``.
     "router": (),                        # [L, D, E] — replicated
     "w_up_experts": (None, "expert", None, "model"),    # [L, E, D, F]

@@ -19,15 +19,21 @@ kvedge-torch manifest                           reference template
   (conditional ``helm test`` hook Pod)            hand, its ``NOTES.txt:8-12``)
 ==============================================  ================================
 
+With ``tpuNumHosts`` N > 1 the JAX package's multi-host set renders in
+the same way: ``torch-gpu-runtime-multihost.yaml`` (a StatefulSet of N
+pods, one GPU each) and ``torch-gpu-hosts-service.yaml`` (its headless
+service) replace the Deployment and its PVC, and
+``torch-gpu-healthz-test-multihost.yaml`` targets pod 0; the config
+TOML's ``[distributed] num_processes`` must equal N, or the render
+fails.
+
 What is TPU-specific changes, and nothing else: the image
 (:data:`RUNTIME_IMAGE`, built by ``deployment/gpu/Dockerfile``), the node
 selector (``nvidia.com/gpu.product``, the label NVIDIA's GPU feature
 discovery sets), the device request (one ``nvidia.com/gpu``), the pod's
 memory request (:data:`POD_MEMORY`), and the modules the containers run
 (``kvedge_torch.bootstrap.entrypoint``,
-``kvedge_torch.runtime.healthcheck``). The multi-host variant (a
-StatefulSet and its headless service) is not rendered: the port runs one
-process on one host, and asking for it raises.
+``kvedge_torch.runtime.healthcheck``).
 
 The KubeVirt VM becomes a ``Deployment`` with ``replicas: 1`` and
 ``strategy: Recreate`` holding a ReadWriteOnce state PVC: on node failure the
@@ -42,7 +48,7 @@ from __future__ import annotations
 import base64
 import dataclasses
 
-from kvedge_torch.config.values import MULTIHOST, ChartValues
+from kvedge_torch.config.values import ChartValues
 from kvedge_torch.render import bootconfig
 from kvedge_torch.render.names import (
     DOMAIN_LABEL,
@@ -328,14 +334,96 @@ def runtime_deployment(values: ChartValues) -> dict:
     }
 
 
-def runtime_statefulset(values: ChartValues) -> dict:
-    """The JAX package's multi-host StatefulSet: not rendered here."""
-    raise ValueError(f"runtime_statefulset: {MULTIHOST}")
-
-
 def hosts_service(values: ChartValues) -> dict:
-    """The JAX package's multi-host headless service: not rendered here."""
-    raise ValueError(f"hosts_service: {MULTIHOST}")
+    """Headless Service giving the multi-host pods stable per-ordinal DNS
+    (the reference's): pod N is ``<name>-runtime-N.<name>-runtime-hosts``
+    before readiness, so the coordinator (pod 0) resolves while every
+    pod is still blocked joining the process group, hence
+    ``publishNotReadyAddresses: true``. The port follows the config's
+    ``[distributed] coordinator_port`` (the Helm chart pins the
+    default)."""
+    name = resource_name(values.nameOverride)
+    coordinator_port = parsed_runtime_config(values).coordinator_port
+    return {
+        "apiVersion": "v1",
+        "kind": "Service",
+        "metadata": {
+            "labels": common_labels(),
+            "name": f"{name}-runtime-hosts",
+        },
+        "spec": {
+            "clusterIP": "None",
+            "publishNotReadyAddresses": True,
+            "selector": {DOMAIN_LABEL: f"{name}-runtime"},
+            "ports": [
+                {
+                    "name": "coordinator",
+                    "protocol": "TCP",
+                    "port": coordinator_port,
+                }
+            ],
+        },
+    }
+
+
+def runtime_statefulset(values: ChartValues) -> dict:
+    """Multi-host variant of the runtime: one pod, one GPU, per host.
+
+    The pod template of :func:`runtime_deployment` with the reference's
+    multi-host deltas:
+
+    * ``kind: StatefulSet`` with ``replicas = tpuNumHosts`` and
+      ``podManagementPolicy: Parallel``: ``init_process_group`` blocks
+      until every rank joins, so the pods start together;
+    * no ``hostname:`` override: the pods' hostnames
+      ``<name>-runtime-<ordinal>`` are the identity
+      ``parallel/distributed.py`` infers the process id from;
+    * ``KVEDGE_COORDINATOR`` pointing at pod 0's stable headless-DNS name
+      (the runtime appends ``[distributed] coordinator_port``) and
+      ``KVEDGE_EXPECTED_PROCESSES`` the chart's topology, which boot holds
+      the TOML to;
+    * per-host state PVCs from ``volumeClaimTemplates`` (a ReadWriteOnce
+      volume cannot span hosts); checkpoints a multi-process ``serve``
+      restores go to a ``checkpoint_dir`` on shared storage.
+    """
+    name = resource_name(values.nameOverride)
+    doc = runtime_deployment(values)
+    doc["kind"] = "StatefulSet"
+    # No strategy (a Deployment concept: each ordinal owns its claim); the
+    # keys in the chart template's order, so both emit the same bytes.
+    dep = doc["spec"]
+    spec = doc["spec"] = {
+        "replicas": values.tpuNumHosts,
+        "serviceName": f"{name}-runtime-hosts",
+        "podManagementPolicy": "Parallel",
+        "selector": dep["selector"],
+        "template": dep["template"],
+    }
+    pod = spec["template"]["spec"]
+    del pod["hostname"]
+    pod["containers"][0]["env"] = [
+        {
+            "name": "KVEDGE_COORDINATOR",
+            "value": f"{name}-runtime-0.{name}-runtime-hosts",
+        },
+        {
+            "name": "KVEDGE_EXPECTED_PROCESSES",
+            "value": str(values.tpuNumHosts),
+        },
+    ]
+    pod["volumes"] = [v for v in pod["volumes"] if v["name"] != "statedisk"]
+    spec["volumeClaimTemplates"] = [
+        {
+            "metadata": {"name": "statedisk"},
+            "spec": {
+                "accessModes": ["ReadWriteOnce"],
+                "resources": {
+                    "requests": {"storage": values.tpuRuntimeDiskSize}
+                },
+            },
+        }
+    ]
+    return doc
 
 
 def access_service(values: ChartValues) -> dict | None:
@@ -383,15 +471,20 @@ def healthz_test_pod(values: ChartValues) -> dict | None:
     """``helm test`` hook Pod: polls the runtime's /healthz in-cluster.
 
     Runs the image's :mod:`kvedge_torch.runtime.healthcheck` against the
-    access Service's stable in-cluster DNS name. With the Service
-    disabled there is no stable DNS target, so no hook renders (``helm
-    test`` then reports no tests, the reference's "verify by hand"
-    posture).
+    runtime's stable in-cluster DNS name: pod 0's headless name when
+    ``tpuNumHosts > 1``, the access Service's otherwise. A single-host
+    install with the Service disabled has no stable DNS target, so no
+    hook renders (``helm test`` then reports no tests, the reference's
+    "verify by hand" posture).
     """
-    if not values.tpuRuntimeEnableExternalSsh:
-        return None
     name = resource_name(values.nameOverride)
     port = status_port(values)
+    if values.tpuNumHosts > 1:
+        host = f"{name}-runtime-0.{name}-runtime-hosts"
+    elif values.tpuRuntimeEnableExternalSsh:
+        host = f"{name}-runtime-ssh-service"
+    else:
+        return None
     return {
         "apiVersion": "v1",
         "kind": "Pod",
@@ -414,7 +507,7 @@ def healthz_test_pod(values: ChartValues) -> dict | None:
                         "python",
                         "-m",
                         "kvedge_torch.runtime.healthcheck",
-                        f"http://{name}-runtime-ssh-service:{port}/healthz",
+                        f"http://{host}:{port}/healthz",
                         "--deadline",
                         "240",
                     ],
@@ -438,12 +531,13 @@ class RenderedChart:
 def render_notes(values: ChartValues) -> str:
     """Post-install usage text (reference: ``templates/NOTES.txt``)."""
     name = resource_name(values.nameOverride)
+    workload = "deployment" if values.tpuNumHosts == 1 else "statefulset"
     return (
         f"You have installed release {APP_VERSION} of {CHART_NAME}.\n"
         "\n"
         "To check the status of the newly created PyTorch GPU runtime, "
         "try:\n"
-        f"kubectl get deployment {name}-runtime\n"
+        f"kubectl get {workload} {name}-runtime\n"
         "\n"
         "To query the runtime status endpoint (once the pod is running):\n"
         f"curl http://$(kubectl get service {name}-runtime-ssh-service "
@@ -461,15 +555,22 @@ def render_notes(values: ChartValues) -> str:
     )
 
 
-def _check_single_host(values: ChartValues) -> None:
-    """Fail the render when the TOML declares a world the one-host chart
-    cannot run (the reference's ``_check_multihost_consistency`` at
-    ``tpuNumHosts=1``; this chart renders no StatefulSet)."""
+def _check_multihost_consistency(values: ChartValues) -> None:
+    """Fail the render when the chart's shape and the TOML's topology
+    disagree (the reference's check and messages): the runtime would
+    find out only at boot, its pods blocking in the join."""
     procs = parsed_runtime_config(values).num_processes
-    if procs > 1:
+    if values.tpuNumHosts > 1 and procs != values.tpuNumHosts:
         raise ValueError(
-            f"runtime config declares [distributed] num_processes = {procs} "
-            f"but tpuNumHosts=1: {MULTIHOST}")
+            f"tpuNumHosts={values.tpuNumHosts} but the runtime config "
+            f"declares [distributed] num_processes={procs}; the "
+            "StatefulSet replica count and the process group must match "
+            "(set num_processes in the config TOML)")
+    if values.tpuNumHosts == 1 and procs > 1:
+        raise ValueError(
+            f"runtime config declares [distributed] num_processes={procs} "
+            f"but tpuNumHosts=1; set --set tpuNumHosts={procs} to render "
+            "the multi-host StatefulSet")
 
 
 def render_all(values: ChartValues, include_dead: bool = False) -> RenderedChart:
@@ -481,13 +582,18 @@ def render_all(values: ChartValues, include_dead: bool = False) -> RenderedChart
     were, its name would collide with the live state volume.
     """
     values.validate()
-    _check_single_host(values)
+    _check_multihost_consistency(values)
     manifests: dict[str, dict] = {
         "torch-gpu-runtime-config-secret.yaml": runtime_config_secret(values),
         "torch-gpu-boot-config-secret.yaml": boot_config_secret(values),
-        "torch-gpu-runtime.yaml": runtime_deployment(values),
-        "torch-gpu-state-volume.yaml": state_volume(values),
     }
+    if values.tpuNumHosts == 1:
+        manifests["torch-gpu-runtime.yaml"] = runtime_deployment(values)
+        manifests["torch-gpu-state-volume.yaml"] = state_volume(values)
+    else:
+        manifests["torch-gpu-runtime-multihost.yaml"] = (
+            runtime_statefulset(values))
+        manifests["torch-gpu-hosts-service.yaml"] = hosts_service(values)
     if include_dead:
         manifests["torch-gpu-state-volume-prepopulated.yaml"] = (
             state_volume_prepopulated(values)
@@ -497,5 +603,7 @@ def render_all(values: ChartValues, include_dead: bool = False) -> RenderedChart
         manifests["torch-gpu-runtime-service.yaml"] = service
     test_pod = healthz_test_pod(values)
     if test_pod is not None:
-        manifests["torch-gpu-healthz-test.yaml"] = test_pod
+        key = ("torch-gpu-healthz-test.yaml" if values.tpuNumHosts == 1
+               else "torch-gpu-healthz-test-multihost.yaml")
+        manifests[key] = test_pod
     return RenderedChart(manifests=manifests, notes=render_notes(values))

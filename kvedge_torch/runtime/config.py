@@ -72,9 +72,10 @@ the port does not implement would otherwise silently change nothing
 (``[model] n_experts`` among them: the key is ``experts``). Still
 refused by name: a ``stage`` or ``expert`` mesh axis above 1,
 ``pipeline_schedule`` and pipelining, and a mesh over several cards in
-one process (ROADMAP Queue A item 7); the ``serve`` and
-``inference-probe`` payloads over more than one device (item 8). The
-mesh resolves against ``num_processes`` (the port runs one card a
+one process (ROADMAP Queue A item 7b), and the ``serve`` and
+``inference-probe`` payloads over a ``seq`` axis (sequence parallelism
+is the training layout; serving shards over ``data`` and ``model``).
+The mesh resolves against ``num_processes`` (the port runs one card a
 process), and :meth:`RuntimeConfig.model_config` derives the model from
 it as the reference's ``derive_model_config`` does: a ``seq`` axis
 means ring attention unless ``[payload] attention`` names Ulysses.
@@ -191,7 +192,7 @@ def _toml_bool(value: bool) -> str:
 
 
 # The axes the port shards over, and those it refuses above 1 (ROADMAP
-# Queue A item 7: the pipelines and the expert-parallel MoE).
+# Queue A item 7b: the pipelines and the expert-parallel MoE).
 _MESH_AXES = ("data", "model", "seq")
 _REFUSED_AXES = ("stage", "expert")
 
@@ -293,7 +294,7 @@ def _refuse_axis(axis: str, size: int) -> None:
                 else "the expert-parallel MoE")
         raise RuntimeConfigError(
             f"[mesh] axis {axis!r} = {size}: {what} is not ported to "
-            "PyTorch yet (ROADMAP Queue A item 7)")
+            "PyTorch yet (ROADMAP Queue A item 7b)")
     raise RuntimeConfigError(
         f"[mesh] axis {axis!r} = {size}: the PyTorch port shards over "
         f"{list(_MESH_AXES)} only")
@@ -571,7 +572,7 @@ class RuntimeConfig:
             raise RuntimeConfigError(
                 f"[model] pipeline_schedule = {self.pipeline_schedule!r}: "
                 "pipelining needs a 'stage' mesh axis over more than one "
-                "device (ROADMAP Queue A item 7)")
+                "device (ROADMAP Queue A item 7b)")
         for name in ("serving_prefix_host_mb",
                      "serving_sched_max_queue_depth",
                      "serving_sched_swap_budget_mb",
@@ -858,7 +859,8 @@ class RuntimeConfig:
     def _validate_world(self) -> None:
         """The mesh against the world: one card a process, so the mesh
         resolves against ``num_processes``; no ``stage`` or ``expert``
-        axis above 1; ``serve`` and ``inference-probe`` on one device."""
+        axis above 1; ``serve`` and ``inference-probe`` on no ``seq``
+        axis."""
         wanted = 1
         for _, size in self.mesh_axes:
             wanted *= size or 1
@@ -867,18 +869,16 @@ class RuntimeConfig:
                 f"[mesh] axes {dict(self.mesh_axes)} want {wanted} devices "
                 "in one process; the PyTorch port runs one card a process "
                 "([distributed] num_processes), and several cards in one "
-                "process are not ported yet (ROADMAP Queue A item 7)")
+                "process are not ported yet (ROADMAP Queue A item 7b)")
         for axis, size in self.axis_sizes().items():
             if size > 1 and axis not in _MESH_AXES:
                 _refuse_axis(axis, size)
-        if self.num_processes > 1 and self.payload in ("serve",
-                                                       "inference-probe"):
+        if (self.payload in ("serve", "inference-probe")
+                and self.axis_sizes().get("seq", 1) > 1):
             raise RuntimeConfigError(
-                f"[payload] kind = {self.payload!r} over "
-                f"{self.num_processes} devices: multi-host serving is not "
-                "ported to PyTorch yet (ROADMAP Queue A item 8); the port "
-                "runs 'devicecheck', 'transformer-probe', 'train' and "
-                "'eval' across processes")
+                f"[payload] kind = {self.payload!r} over a 'seq' axis of "
+                f"{self.axis_sizes()['seq']}: sequence parallelism is the "
+                "training layout; serving shards over 'data' and 'model'")
 
     def _validate_experts(self) -> None:
         """The reference parser's checks of the MoE knobs, with its

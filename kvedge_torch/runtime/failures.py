@@ -7,10 +7,10 @@ port: the serving layer is ``kvedge_torch/models/serving.py``, the
 recovery half ``kvedge_torch/runtime/recovery.py``, the fault harness
 ``kvedge_torch/testing/servingfaults.py``, and the HTTP layer
 ``kvedge_torch/runtime/serve.py``. "XLA compilation" in the comments
-below is, on the card, the first capture of a CUDA graph. The port has
-no multi-host serving yet, so nothing calls :class:`DeadlineRunner`
-(the reference's single-host path does not either); it is copied with
-its module.
+below is, on the card, the first capture of a CUDA graph. The
+multi-process slice (``runtime/sliceserve.py``) runs every leader op
+through :class:`DeadlineRunner` with :class:`SliceFollowerLost` as its
+failure; the single-host path does not use it, as in the reference.
 
 The serving stack's failure story used to stop at "slice-fatal, by
 policy": a follower wedged in a collective left the leader blocked

@@ -20,7 +20,11 @@ Across processes the transformer probe runs on the mesh of ``[mesh]``
 over the world (``parallel/mesh.py``), with the model derived from it:
 the batch is ``PROBE_BATCH_PER_DEVICE`` rows a device, each rank
 training on its data rows, seq chunk and model slices. The inference
-probe runs on one device (multi-host serving is ROADMAP Queue A item 8).
+probe decodes there too, through the model-sharded contiguous decode
+(``models/decode.generate(mesh=)``) on the rank's slices of the probe
+model, held against the full model's teacher-forced forward pass; a
+``model`` axis that does not divide the probe's heads fails the probe
+with its message.
 
 Both return a :class:`DeviceCheckResult` with ``probe_ms``; a failure is
 a result with ``ok`` false and the reference's message, never a raise.
@@ -145,11 +149,16 @@ def run_inference_probe(cfg: RuntimeConfig, device=None,
     from kvedge_torch.models.transformer import forward, init_params
     from kvedge_torch.models.weights import params_from_numpy
 
+    from kvedge_torch.models.weights import sharded_params
+    from kvedge_torch.parallel.mesh import build_mesh
+
     tcfg = inference_probe_config(dtype)
     try:
         dev = resolve_device(device)
+        mesh = build_mesh(cfg.mesh)
         tree = params if params is not None else init_params(0, tcfg)
         weights = params_from_numpy(tree, tcfg, dev)
+        local = sharded_params(tree, tcfg, dev, mesh)
         if prompt is None:
             prompt = np.random.default_rng(1).integers(
                 0, tcfg.vocab, (2, PROBE_PROMPT))
@@ -157,8 +166,8 @@ def run_inference_probe(cfg: RuntimeConfig, device=None,
                                  device=dev)
         with torch.no_grad():
             start = time.perf_counter()
-            out = generate(weights, prompt, tcfg, n_new=PROBE_NEW_TOKENS,
-                           device=dev)
+            out = generate(local, prompt, tcfg, n_new=PROBE_NEW_TOKENS,
+                           device=dev, mesh=mesh)
             out_host = out.cpu()  # waits for the device
             elapsed_ms = (time.perf_counter() - start) * 1000.0
 

@@ -6,8 +6,11 @@ weights INTO the server's tensors (``PagedGenerationServer.load_params``)
 instead of rebinding them, because every captured CUDA graph holds the
 addresses of the tensors it was captured with. Recovery instants land
 in the server's flight recorder (``server.tracer``) when tracing is on.
-The single-host cache has no ``reform``, so step 2 is skipped as in the
-reference.
+Step 2 runs for a multi-process slice's cache
+(``runtime/sliceserve.SlicePagedKVCache.reform``); the single-host cache
+has no ``reform``, so it is skipped there, as in the reference. A
+slice's warm restart keeps its params (the serve wiring passes no
+``restore_params``), as the reference's does.
 
 runtime/failures.py is the *detection* half — typed taxonomy, a pool
 that poisons instead of deadlocking. This module closes the loop with a
@@ -20,7 +23,8 @@ supervisor that owns an explicit state machine for the serving pool:
 On a poisoning failure the supervisor, on its own worker thread:
 
 1. **tears down** the dead decode loop — joins the exited thread;
-2. **reforms the slice** (slice caches only; none in the port yet);
+2. **reforms the slice** (slice caches only): a fresh op stream and a
+   deadline-bounded barrier SYNC the rejoined followers replay;
 3. **warm-restarts** the pool: :meth:`PagedGenerationServer.revive`
    waits for the device, clears the poison and restarts the decode loop
    over a scrubbed pool with its journaled requests re-admitted, then

@@ -81,6 +81,14 @@ on, ``flight-bundle.json`` lands beside it. ``serving_window = "auto"``,
 ``serving_occupancy_ring`` and ``serving_debug_locks`` reach the
 server; ``[status] token`` gates the POST routes.
 
+Across processes (``[distributed] num_processes > 1``) the payload is
+the reference's leader-serves: every rank holds its ``[mesh]`` slices of
+the same weights; rank 0 serves, over a
+``runtime/sliceserve.SlicePagedKVCache`` whose device ops every rank
+replays (paged) or by relaying each request to every rank's
+model-sharded ``generate`` (contiguous); the others answer 503 naming
+the leader (:func:`_join_slice`).
+
 ``ServeRuntime`` builds the data path (device check, weights, the
 server); :func:`run_serve_payload` is the ``serve`` payload the runtime
 boots (``runtime/boot.py``): the device check against the config, a
@@ -121,7 +129,9 @@ from kvedge_torch.models.serving import (
     ServerClosed,
 )
 from kvedge_torch.models.transformer import torch_dtype
-from kvedge_torch.models.weights import params_from_numpy
+from kvedge_torch.models.weights import params_from_numpy, sharded_params
+from kvedge_torch.parallel.distributed import world_size
+from kvedge_torch.parallel.mesh import NO_MESH
 from kvedge_torch.runtime import heartbeat
 from kvedge_torch.runtime.config import (
     RuntimeConfigError,
@@ -410,6 +420,76 @@ class _ResumeLog:
                 self.cond.notify_all()
 
 
+@dataclasses.dataclass
+class _Leader:
+    """What a multi-process ``serve`` hands the leader's runtime: this
+    rank's mesh and weight slices, the restored step, and the transport
+    to the followers (a :class:`~kvedge_torch.runtime.sliceserve.
+    SlicePagedKVCache` for the paged backend, a :class:`_ContiguousRelay`
+    for the contiguous one)."""
+
+    mesh: object
+    weights: dict
+    restored_step: int | None
+    cache: object = None
+    relay: object = None
+
+
+class _ContiguousRelay:
+    """The contiguous leader-serves protocol, the reference's: per
+    request a fixed-shape header ``ints = [op, rows, prompt_len, n_new,
+    sampled, seed]``, ``floats = [temperature, top_p]`` (op 0 = stop),
+    then the ``[rows, prompt_len]`` token rows; every rank then runs the
+    same model-sharded ``generate``. Requests serialize on the leader's
+    one-request lock, so every rank issues its collectives in the same
+    order."""
+
+    def __init__(self, plane):
+        self.plane = plane
+        self.stopped = False
+
+    @staticmethod
+    def zero_header():
+        return np.zeros(6, np.int64), np.zeros(2, np.float32)
+
+    def send(self, rows: np.ndarray, n_new: int, temperature: float,
+             top_p: float, seed: int) -> tuple:
+        """Broadcast one request; returns it as the followers received
+        it (:meth:`received`), which the leader decodes from too."""
+        ints = np.array([1, rows.shape[0], rows.shape[1], n_new,
+                         int(temperature > 0.0), seed], np.int64)
+        ints, floats = self.plane.bcast(
+            (ints, np.array([temperature, top_p], np.float32)))
+        return self.received(ints, floats, self.plane.bcast(
+            np.ascontiguousarray(rows, np.int64)))
+
+    @staticmethod
+    def received(ints, floats, rows) -> tuple:
+        """``(rows, n_new, temperature, top_p, seed)`` of a header and
+        its rows."""
+        return (rows, int(ints[3]), float(floats[0]), float(floats[1]),
+                int(ints[5]))
+
+    def stop(self) -> None:
+        if not self.stopped:
+            self.stopped = True
+            self.plane.bcast(self.zero_header())
+
+
+def _generate_rows(weights, tcfg, device, mesh, rows, n_new: int,
+                   temperature: float, top_p: float, seed: int):
+    """``generate`` over ``rows`` (on every rank of a multi-process
+    contiguous serve, on its slices), row r sampling with
+    ``fold_in(PRNGKey(seed), r)`` when ``temperature > 0``."""
+    sampled = temperature > 0.0
+    sampling = None
+    if sampled:
+        keys = np.stack([row_key_data(seed, i) for i in range(len(rows))])
+        sampling = (keys, temperature, top_p)
+    return generate(weights, rows, tcfg, n_new, sampling=sampling,
+                    sampled=sampled, device=device, mesh=mesh)
+
+
 class ServeRuntime:
     """The serving data path: device check, weights, the paged server
     (``server``; None on the contiguous backend) and ``serve_fn``.
@@ -425,12 +505,17 @@ class ServeRuntime:
     and ``resume_log`` the reconnect log (None unless checkpoints are on
     on the paged backend). ``http`` and ``handle`` are the status
     server and :class:`~kvedge_torch.runtime.boot.RuntimeHandle` of a
-    runtime that :func:`boot_serve` booted, else None.
+    runtime that :func:`boot_serve` booted, else None. ``leader`` makes
+    it the leader (rank 0) of a multi-process ``serve``
+    (:func:`run_serve_payload`): its weights are the rank's slices, and
+    its device work reaches the followers through the slice cache or the
+    contiguous relay.
     """
 
     def __init__(self, cfg: ServeConfig, *, device=None,
                  dtype: str = "bfloat16", seed: int = 0, params=None,
-                 device_check: DeviceCheckResult | None = None):
+                 device_check: DeviceCheckResult | None = None,
+                 leader: _Leader | None = None):
         self.device = resolve_device(device)
         self.device_check = (device_check if device_check is not None
                              else run_device_check(device=self.device))
@@ -441,11 +526,17 @@ class ServeRuntime:
         self.tcfg = cfg.model_config(dtype)
         self.started_at = time.time()
         self.restored_step = None
+        self.leader = leader
+        self.mesh = NO_MESH if leader is None else leader.mesh
         given = params
-        if params is None:
-            self.restored_step, params = restore_latest_params(
-                cfg, self.tcfg, seed)
-        self.weights = params_from_numpy(params, self.tcfg, self.device)
+        if leader is not None:
+            self.restored_step, self.weights = (leader.restored_step,
+                                                leader.weights)
+        else:
+            if params is None:
+                self.restored_step, params = restore_latest_params(
+                    cfg, self.tcfg, seed)
+            self.weights = params_from_numpy(params, self.tcfg, self.device)
         slots, pages, page_size, _ = _serving_pool_dims(cfg, self.tcfg)
         self.max_rows = _serve_max_rows(cfg, self.tcfg)
         self.paged = cfg.payload_serving == "paged"
@@ -508,10 +599,25 @@ class ServeRuntime:
                 debug_locks=cfg.serving_debug_locks,
                 slo=slo, slo_shed=cfg.serving_slo_shed,
                 occupancy_ring=cfg.serving_occupancy_ring,
+                cache=None if leader is None else leader.cache,
             )
             if cfg.state_dir:
                 self.server.on_degraded = self._record_failure
-            if spec_draft > 0:
+            if spec_draft > 0 and leader is not None:
+                # The boot probe's ops would enter the slice's op stream
+                # before the traffic: "auto" resolves unmeasured to
+                # windows, an explicit K runs speculation (the
+                # reference's rule on a slice).
+                if cfg.serving_speculative == "auto":
+                    self.spec_decision = self.server.disable_speculation(
+                        "auto unmeasured on a slice")
+                else:
+                    self.spec_decision = {
+                        "mode": f"speculative K={spec_draft} (unmeasured "
+                                "on a slice)", "windows_dominate": None}
+                print(f"[kvedge-serve] speculative mode: "
+                      f"{self.spec_decision['mode']}", flush=True)
+            elif spec_draft > 0:
                 # Measure this card's verify pass and window before
                 # traffic: "auto" turns speculation off when windows beat
                 # its best case, an explicit K keeps it with a warning.
@@ -524,7 +630,8 @@ class ServeRuntime:
                       f"{self.spec_decision['windowed_tokens_per_sec']}/s "
                       f"per slot)", flush=True)
             if (cfg.serving_prefix_persist and cfg.serving_prefix_cache
-                    and cfg.state_dir):
+                    and cfg.state_dir and leader is None):
+                # Single-host only: a slice cache refuses the dump.
                 self._start_prefix_persistence()
             if cfg.serving_recovery_attempts > 0:
                 # Chained after the failure record: a poison is recorded,
@@ -537,6 +644,9 @@ class ServeRuntime:
                             restore_latest_params(cfg, tcfg, seed)[1])
                     return params_from_numpy(tree, tcfg, "cpu")
 
+                # A slice's warm restart keeps its params: a restore is
+                # the whole slice's work, not the supervisor's thread's.
+
                 self.supervisor = RecoverySupervisor(
                     self.server,
                     policy=RecoveryPolicy(
@@ -544,7 +654,8 @@ class ServeRuntime:
                     state_dir=cfg.state_dir,
                     prefix_path=self.prefix_path or "",
                     prefix_fingerprint=self.prefix_fingerprint or "",
-                    restore_params=restore_params,
+                    restore_params=(restore_params if leader is None
+                                    else None),
                 ).attach()
             if cfg.serving_checkpoint_every > 0:
                 # Reconnects only where a disconnect can detach: with
@@ -614,6 +725,9 @@ class ServeRuntime:
         and on the paged one the server's and the supervisor's stats."""
         out = self._counters.snapshot()
         out["backend"] = "paged" if self.paged else "contiguous"
+        if self.leader is not None:
+            out["backend"] = "multihost-" + out["backend"]
+            out["processes"] = world_size()
         if self.server is not None:
             out.update(self.server.stats())
         if self.supervisor is not None:
@@ -850,6 +964,11 @@ class ServeRuntime:
         0``; with ``spec`` (one greedy row, as the parser guarantees),
         through ``generate_speculative`` at draft length ``spec``."""
         prompt = [[t % self.tcfg.vocab for t in row] for row in tokens]
+        relay = None if self.leader is None else self.leader.relay
+        if spec and relay is not None:
+            raise ValueError(
+                "'speculative' is not supported on a multi-host serve "
+                "deployment (single-host contiguous only)")
         if spec:
             with self._generate_lock:
                 if self._closed:
@@ -865,18 +984,17 @@ class ServeRuntime:
             return {"tokens": rows, "n_new": n_new,
                     "restored_step": self.restored_step,
                     "accepted_per_step": round(rate, 3)}
-        sampled = temperature > 0.0
-        sampling = None
-        if sampled:
-            keys = np.stack([row_key_data(seed, i)
-                             for i in range(len(prompt))])
-            sampling = (keys, temperature, top_p)
+        request = (prompt, n_new, temperature, top_p, seed)
         with self._generate_lock:
             if self._closed:
                 raise GenerateUnavailable("server is shut down")
-            out = generate(self.weights, prompt, self.tcfg, n_new,
-                           sampling=sampling, sampled=sampled,
-                           device=self.device)
+            if relay is not None:
+                # Every rank runs the same generate on its slices, from
+                # the request as the followers received it.
+                request = relay.send(np.asarray(prompt, np.int64),
+                                     *request[1:])
+            out = _generate_rows(self.weights, self.tcfg, self.device,
+                                 self.mesh, *request)
             # locklint: allow[device-sync-under-lock] the copy is device work, which this lock (device_quiet) holds off while the profiler toggles
             out = out.cpu()
         rows = out.tolist()
@@ -1024,6 +1142,8 @@ class ServeRuntime:
                           f"{e!r}", flush=True)
         with self._generate_lock:
             self._closed = True
+            if self.leader is not None and self.leader.relay is not None:
+                self.leader.relay.stop()  # the followers leave their loop
         self._rows.shutdown(wait=True)
 
 
@@ -1039,12 +1159,21 @@ def run_serve_payload(cfg: ServeConfig, device=None, dtype: str = "bfloat16",
     decode path (and capturing its graphs) before the endpoint goes
     live; its time and token sum are the check's ``probe_ms`` and
     ``probe_checksum``. ``serve_fn`` is
-    :meth:`ServeRuntime.payload_fn`'s."""
+    :meth:`ServeRuntime.payload_fn`'s. With ``[distributed]
+    num_processes > 1`` every rank joins the slice (:func:`_join_slice`):
+    rank 0's runtime serves (its probe crosses the whole slice), the
+    others return a follower ``serve_fn`` that answers 503."""
     base = run_device_check(cfg, device)
     if not base.ok:
         return base, None
+    leader = None
+    if cfg.num_processes > 1:
+        leader, follower_fn = _join_slice(cfg, device, dtype, seed, params)
+        if follower_fn is not None:
+            return dataclasses.replace(base, probe_ms=0.0,
+                                       probe_checksum=0.0), follower_fn
     rt = ServeRuntime(cfg, device=device, dtype=dtype, seed=seed,
-                      params=params, device_check=base)
+                      params=params, device_check=base, leader=leader)
     try:
         max_seq = rt.tcfg.max_seq
         probe_prompt = list(range(1, min(4, max_seq - 1) + 1))
@@ -1059,6 +1188,101 @@ def run_serve_payload(cfg: ServeConfig, device=None, dtype: str = "bfloat16",
         base, probe_ms=elapsed_ms,
         probe_checksum=float(sum(probe["tokens"][0])),
     ), rt.payload_fn()
+
+
+def _join_slice(cfg: ServeConfig, device, dtype: str, seed: int, params):
+    """The multi-process ``serve`` (the reference's leader-serves, over the
+    world ``init_world`` joined): every rank restores the same weights
+    (``params``, or the latest checkpoint on the shared
+    ``checkpoint_dir``), cuts its slices for the mesh of ``[mesh]`` and
+    builds its transport at the same point of the collective order.
+    Returns ``(leader, None)`` on rank 0, whose runtime serves
+    ``/generate``; ``(None, follower_fn)`` elsewhere, where a thread
+    replays the leader's stream and this pod's ``/generate`` answers 503
+    naming the leader. A follower's replay that fails re-enters the loop
+    ``serving_recovery_attempts`` times (the leader's reformation barrier
+    is its first op then); when they are spent the process exits with
+    code 13, so the StatefulSet restarts the slice."""
+    from kvedge_torch.parallel.distributed import rank
+    from kvedge_torch.parallel.mesh import build_mesh
+    from kvedge_torch.runtime.sliceserve import (
+        ControlPlane,
+        SlicePagedKVCache,
+        follow_paged,
+    )
+
+    if params is None and not cfg.checkpoint_dir:
+        raise RuntimeConfigError(
+            "multi-host serve needs [runtime] checkpoint_dir on shared "
+            "storage: every process restores the same checkpoint")
+    dev = resolve_device(device)
+    tcfg = cfg.model_config(dtype)
+    restored_step, tree = ((None, params) if params is not None
+                           else restore_latest_params(cfg, tcfg, seed))
+    mesh = build_mesh(cfg.mesh)
+    weights = sharded_params(tree, tcfg, dev, mesh)
+    paged = cfg.payload_serving == "paged"
+    if paged:
+        slots, pages, page_size, mpps = _serving_pool_dims(cfg, tcfg)
+        cache = SlicePagedKVCache(
+            tcfg, slots=slots, pages=pages, page_size=page_size, mesh=mesh,
+            max_pages_per_seq=mpps, kv_dtype=cfg.serving_kv_dtype,
+            device=dev)
+        plane = cache._plane
+    else:
+        cache, plane = None, ControlPlane()
+    me = rank()
+    if me == 0:
+        return _Leader(mesh, weights, restored_step, cache=cache,
+                       relay=None if paged else _ContiguousRelay(plane)), None
+
+    def follow_contiguous():
+        while True:
+            ints, floats = plane.bcast(_ContiguousRelay.zero_header())
+            if int(ints[0]) == 0:
+                return
+            rows = plane.bcast(np.zeros((int(ints[1]), int(ints[2])),
+                                        np.int64))
+            _generate_rows(weights, tcfg, dev, mesh,
+                           *_ContiguousRelay.received(ints, floats, rows))
+
+    def follow():
+        rejoins = max(0, int(cfg.serving_recovery_attempts)) if paged else 0
+        tries = 0
+        while True:
+            try:
+                if paged:
+                    follow_paged(cache, weights)
+                else:
+                    follow_contiguous()
+                return  # the leader's STOP: the end of serve
+            except Exception as e:
+                tries += 1
+                if tries > rejoins:
+                    print(f"[kvedge-serve] follower {me} died "
+                          f"({tries - 1} rejoin(s) spent): {e!r}",
+                          flush=True)
+                    os._exit(13)
+                print(f"[kvedge-serve] follower {me} dropped from the op "
+                      f"stream ({e!r}); rejoining ({tries}/{rejoins})",
+                      flush=True)
+
+    thread = threading.Thread(target=follow, name="kvedge-serve-follow",
+                              daemon=True)
+    thread.start()
+
+    def follower_fn(doc: dict) -> dict:
+        raise GenerateUnavailable(
+            f"this pod is follower process {me}; generation is served by "
+            "the leader (process 0: the Service routes to ordinal 0)")
+
+    backend = "multihost-paged-follower" if paged else "multihost-follower"
+    follower_fn.stats = lambda: {"backend": backend,
+                                 "processes": cfg.num_processes}
+    follower_fn.close = lambda drain=False: None
+    follower_fn.join = thread.join
+    follower_fn.cache = cache
+    return None, follower_fn
 
 
 def boot_serve(cfg: ServeConfig, *, port: int, host: str | None = None,

@@ -2,8 +2,10 @@
 ``faults``: a deterministic in-process simulation of the Kubernetes
 controllers the GPU chart depends on, able to run the real
 ``kvedge_torch`` entrypoint against per-PVC backing directories) and
-seeded fault injection at the serving path's device seams
-(``servingfaults``)."""
+seeded fault injection at the serving path's device seams and a slice's
+broadcasts (``servingfaults``), and the gloo worlds of CPU ranks the
+parallel and slice cases run in (``world``, ``parallelcases``,
+``slicecases``)."""
 
 from kvedge_torch.testing.fakecluster import FakeCluster, FakeNode
 from kvedge_torch.testing.faults import (
@@ -14,6 +16,7 @@ from kvedge_torch.testing.faults import (
 from kvedge_torch.testing.servingfaults import (
     FaultPlan,
     FaultyCache,
+    FaultySliceTransport,
     InjectedFault,
     ServingFaultResult,
     ServingFaultSchedule,
@@ -27,6 +30,7 @@ __all__ = [
     "FaultSchedule",
     "FaultScheduleResult",
     "FaultyCache",
+    "FaultySliceTransport",
     "InjectedFault",
     "InvariantViolation",
     "ServingFaultResult",

@@ -1,9 +1,9 @@
 """A deterministic fake Kubernetes for testing the GPU chart's control flow.
 
 The port's copy of ``kvedge_tpu/testing/fakecluster.py``: the same
-controllers over the port's manifests, less the StatefulSet controller
-(the port's chart renders no StatefulSet, so one is an unsupported
-kind). ``boot_pod`` runs the ``kvedge_torch`` entrypoint, on the CPU.
+controllers over the port's manifests, the multi-host chart's
+StatefulSet included. ``boot_pod`` runs the ``kvedge_torch`` entrypoint,
+on the CPU.
 
 Simulates exactly the controller behavior the rendered manifests rely on
 (SURVEY.md §3.1 steps 3-5, translated from KubeVirt/CDI to pods/PVCs):
@@ -15,6 +15,14 @@ Simulates exactly the controller behavior the rendered manifests rely on
   detachable storage class (the ``README.md:88`` StorageOS mitigation).
 * **Deployment controller** — keeps one pod existing per single-replica
   Recreate Deployment; never runs two pods concurrently.
+* **StatefulSet controller** — the multi-host chart variant: ``replicas``
+  pods with STABLE ordinal names (``<name>-<ordinal>``, the identity
+  ``parallel/distributed.py`` infers the process id from), each owning a
+  per-ordinal PVC stamped from ``volumeClaimTemplates``
+  (``<template>-<pod>``, the K8s naming rule). A killed pod is recreated
+  under the same name and re-attaches the SAME per-ordinal claim —
+  per-host state identity across generations, which is the property the
+  StatefulSet exists for.
 * **Scheduler** — places pending pods on nodes matching ``nodeSelector``
   with the mounted PVC attachable there; otherwise the pod stays Pending
   with a reason.
@@ -48,10 +56,13 @@ class FakeNode:
 class FakePod:
     name: str
     spec: dict
-    owner: str  # deployment name
+    owner: str  # deployment / statefulset name
     node: str | None = None
     phase: str = "Pending"  # Pending | Running | Terminated
     reason: str = ""
+    # Incremented each time the controller recreates this (stable-named)
+    # pod — StatefulSet generations share a name, unlike Deployment pods.
+    generation: int = 1
 
 
 @dataclasses.dataclass
@@ -74,6 +85,7 @@ class FakeCluster:
         self.secrets: dict[str, dict] = {}
         self.pvcs: dict[str, FakePVC] = {}
         self.deployments: dict[str, dict] = {}
+        self.statefulsets: dict[str, dict] = {}
         self.services: dict[str, dict] = {}
         self.pods: dict[str, FakePod] = {}
         # helm-hook manifests (the chart's `helm test` healthz Pod): real
@@ -114,6 +126,8 @@ class FakeCluster:
                     self.pvcs[name] = FakePVC(name=name, spec=doc["spec"])
             elif kind == "Deployment":
                 self.deployments[name] = doc
+            elif kind == "StatefulSet":
+                self.statefulsets[name] = doc
             elif kind == "Service":
                 self.services[name] = doc
             else:
@@ -124,6 +138,7 @@ class FakeCluster:
     def step(self) -> None:
         """One reconcile pass of every controller. Deterministic."""
         self._reconcile_deployments()
+        self._reconcile_statefulsets()
         self._schedule_pods()
 
     def converge(self, max_steps: int = 10) -> None:
@@ -168,6 +183,39 @@ class FakeCluster:
                     owner=name,
                 )
                 self.pods[pod.name] = pod
+
+    def _reconcile_statefulsets(self) -> None:
+        for name, sts in self.statefulsets.items():
+            spec = sts["spec"]
+            replicas = spec.get("replicas", 1)
+            templates = spec.get("volumeClaimTemplates", [])
+            for ordinal in range(replicas):
+                pod_name = f"{name}-{ordinal}"
+                existing = self.pods.get(pod_name)
+                if existing is not None and existing.phase != "Terminated":
+                    continue
+                # Stamp the per-ordinal claims (K8s names them
+                # <template>-<pod>); they persist across pod generations —
+                # that persistence IS the StatefulSet contract under test.
+                pod_template = json.loads(json.dumps(spec["template"]))
+                pod_spec = pod_template["spec"]
+                for tpl in templates:
+                    claim = f"{tpl['metadata']['name']}-{pod_name}"
+                    if claim not in self.pvcs:
+                        self.pvcs[claim] = FakePVC(
+                            name=claim, spec=tpl["spec"]
+                        )
+                    pod_spec.setdefault("volumes", []).append({
+                        "name": tpl["metadata"]["name"],
+                        "persistentVolumeClaim": {"claimName": claim},
+                    })
+                self._validate_pod_refs(pod_spec)
+                self.pods[pod_name] = FakePod(
+                    name=pod_name,
+                    spec=pod_template,
+                    owner=name,
+                    generation=(existing.generation + 1) if existing else 1,
+                )
 
     def _validate_pod_refs(self, pod_spec: dict) -> None:
         for vol in pod_spec.get("volumes", []):
@@ -266,6 +314,15 @@ class FakeCluster:
         return [
             p for p in self.pods.values()
             if p.owner == deployment and p.phase == "Pending"
+        ]
+
+    def sts_pods(self, statefulset: str) -> list[FakePod]:
+        """The StatefulSet's pods, by ordinal."""
+        replicas = self.statefulsets[statefulset]["spec"].get("replicas", 1)
+        return [
+            self.pods[f"{statefulset}-{i}"]
+            for i in range(replicas)
+            if f"{statefulset}-{i}" in self.pods
         ]
 
     def service_endpoints(self, service: str) -> list[str]:

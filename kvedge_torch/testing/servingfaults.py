@@ -4,9 +4,10 @@ The port's counterpart of the JAX package's
 ``kvedge_tpu/testing/servingfaults.py``, over the port's own device
 seams: faults fire at the boundaries where a device op fails — a
 prefill chunk, a step, a window's dispatch or harvest, a spec window's,
-a swap — while concurrent requests are in flight, and the harness then
-asserts the recovery contract the taxonomy (``runtime/failures.py``)
-promises:
+a swap — or where a multi-process slice's broadcast stalls
+(:class:`FaultySliceTransport`), while concurrent requests are in
+flight, and the harness then asserts the recovery contract the taxonomy
+(``runtime/failures.py``) promises:
 
 * **Every request terminates** — tokens or a typed error, never a hang.
 * **No token is emitted twice** and no stream over-emits its budget.
@@ -28,11 +29,11 @@ To drive a fault on the CPU::
     FaultyCache.arm(server._cache, plan)
 
 :meth:`FaultyCache.arm` puts a plan on any live cache, one a runtime
-built too. The plan's single-host kinds are ``"raise"`` and
-``"delay"`` (the seam sleeps ``delay_s``, then proceeds): the
-reference's ``"hang"`` kind and its ``heal_at`` outage window model a
-lost multi-host follower, and come with the multi-host transport's
-injector.
+built too. The plan's kinds are the reference's: ``"raise"``,
+``"delay"`` (the seam sleeps ``delay_s``, then proceeds) and ``"hang"``
+(the seam parks like a lost follower's collective); ``heal_at`` turns a
+plan into an outage window. :class:`FaultySliceTransport` puts a plan on
+a ``runtime/sliceserve.SlicePagedKVCache``'s broadcasts.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from kvedge_torch.testing.faults import InvariantViolation
 __all__ = [
     "FaultPlan",
     "FaultyCache",
+    "FaultySliceTransport",
     "InjectedFault",
     "InvariantViolation",
     "ServingFaultResult",
@@ -71,12 +73,22 @@ class FaultPlan:
     """A seeded decision of WHAT fails and WHEN.
 
     The plan counts every seam crossing (a device op on a
-    :class:`FaultyCache`) and fires ONCE, at the drawn index: with
-    ``"raise"`` the seam raises :class:`InjectedFault` (a device op
-    failing loudly), with ``"delay"`` it sleeps ``delay_s`` and
-    proceeds (a slow op); every seam after it succeeds. ``kinds`` is
-    drawn from as the reference draws it, so a seed picks the
-    reference's kind and ``fire_at``.
+    :class:`FaultyCache`, a broadcast on a :class:`FaultySliceTransport`)
+    and fires ONCE, at the drawn index: with ``"raise"`` the seam raises
+    :class:`InjectedFault` (a device op failing loudly), with ``"delay"``
+    it sleeps ``delay_s`` and proceeds (a slow op or a stalled
+    broadcast), with ``"hang"`` it parks until :meth:`close` (a dead
+    follower: only the deadline watchdog can see it) and then raises, so
+    an orphaned op thread never mutates the pools behind a pool that
+    already poisoned. Every seam after it succeeds. ``kinds`` is drawn
+    from as the reference draws it, so a seed picks the reference's kind
+    and ``fire_at``.
+
+    ``heal_at`` switches to the reference's **outage-window** semantics
+    for recovery schedules: every seam crossing in ``[fire_at,
+    heal_at)`` fires (the follower is gone, not glitching), and from
+    ``heal_at`` on they succeed (the follower rejoined). A ``heal_at``
+    beyond any reachable count models a follower that never returns.
 
     ``seams`` (the port's addition) restricts the count to the crossings
     whose label starts with one of its prefixes (``("windowp",)`` fires
@@ -90,21 +102,23 @@ class FaultPlan:
     def __init__(self, seed: int, *, kinds=("raise",),
                  fire_window: tuple[int, int] = (1, 12),
                  seams: tuple[str, ...] | None = None,
-                 delay_s: float = 0.0):
-        if not set(kinds) <= {"raise", "delay"}:
-            raise ValueError(f"fault kinds {kinds!r}: 'raise' and 'delay' "
-                             "are single-host; 'hang' waits for the "
-                             "multi-host injector")
+                 delay_s: float = 0.0, heal_at: int | None = None):
+        if not set(kinds) <= {"raise", "delay", "hang"}:
+            raise ValueError(f"fault kinds {kinds!r}: the kinds are "
+                             "'raise', 'delay' and 'hang'")
         rng = random.Random(seed)
         self.kind = rng.choice(list(kinds))
         self.fire_at = rng.randrange(*fire_window)
+        self.heal_at = heal_at
         self.seams = seams
         self.delay_s = delay_s
         self.count = 0
         self.fired_on: str | None = None
         self.trace: list[str] = [
             f"[plan] seed={seed} kind={self.kind} fire_at={self.fire_at}"
+            + (f" heal_at={heal_at}" if heal_at is not None else "")
         ]
+        self._release = threading.Event()
         self._lock = threading.Lock()
 
     def weight(self, label: str) -> int:
@@ -127,9 +141,12 @@ class FaultPlan:
                 return
             i = self.count
             self.count += max(w, 0)
-            fire = (may and self.count > self.fire_at
-                    and self.fired_on is None)
-            if fire:
+            if self.heal_at is None:
+                fire = (may and self.count > self.fire_at
+                        and self.fired_on is None)
+            else:
+                fire = may and self.fire_at <= i < self.heal_at
+            if fire and self.fired_on is None:
                 self.fired_on = label
             self.trace.append(
                 f"[{i}] {label}" + (f" <- {self.kind}" if fire else "")
@@ -138,7 +155,18 @@ class FaultPlan:
             return
         if self.kind == "raise":
             raise InjectedFault(f"injected raise at seam {i} ({label})")
+        if self.kind == "hang":
+            # Park like a dead follower's collective. The watchdog
+            # orphans this thread; the bounded wait is the harness's own
+            # leak guard, not part of the simulation.
+            self._release.wait(timeout=120.0)
+            raise InjectedFault(
+                f"injected hang at seam {i} ({label}) released")
         time.sleep(self.delay_s)
+
+    def close(self) -> None:
+        """Release any parked seam (end-of-run cleanup)."""
+        self._release.set()
 
 
 class FaultyCache(PagedKVCache):
@@ -216,6 +244,30 @@ class FaultyCache(PagedKVCache):
     def harvest_spec_window(self, handle):
         self._seam("specwharvest")
         return super().harvest_spec_window(handle)
+
+
+class FaultySliceTransport:
+    """Route a ``SlicePagedKVCache``'s broadcasts through a plan (the
+    reference's injector): an instance-level patch of ``cache._bcast``,
+    so the seam fires on the deadline runner's op thread, where a real
+    broadcast to a lost follower would block. A ``"hang"`` plan is the
+    dead-follower wedge: the watchdog orphans the op and raises
+    ``SliceFollowerLost``."""
+
+    def __init__(self, cache, plan: FaultPlan):
+        self._cache = cache
+        self._orig = cache._bcast
+        self.plan = plan
+        cache._bcast = self._bcast
+
+    def _bcast(self, tree):
+        self.plan.at_seam("bcast")
+        return self._orig(tree)
+
+    def heal(self) -> None:
+        """Unhook: the cache's real transport again (a fire-once plan's
+        "the follower is back"; ``heal_at`` plans heal by themselves)."""
+        self._cache._bcast = self._orig
 
 
 def prefix_file_intact(path: str) -> bool:
@@ -322,6 +374,7 @@ class ServingFaultSchedule:
 
         for i, sub in enumerate(subs):
             if not sub.finished.wait(timeout=self.join_timeout_s):
+                self.plan.close()  # free any parked seam before raising
                 self._fail(
                     f"request {i} never terminated within "
                     f"{self.join_timeout_s:g}s — wedged waiter"
@@ -332,6 +385,7 @@ class ServingFaultSchedule:
         start = time.monotonic()
         self.server.close()
         close_s = time.monotonic() - start
+        self.plan.close()
         if close_s > self.join_timeout_s:
             self._fail(f"close() took {close_s:.1f}s — unbounded teardown")
         if self.server._thread.is_alive():

@@ -273,9 +273,10 @@ def test_degraded_states_answer_as_the_reference(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("fields,message", [
-    ({"mesh_axes": (("data", 2), ("model", 1)), "num_processes": 2},
-     r"kind = 'serve' over 2 devices: .* Queue A item 8"),
-    ({"num_processes": 2}, r"kind = 'serve' over 2 devices: .* Queue A item 8"),
+    ({"mesh_axes": (("data", 1), ("seq", 2)), "num_processes": 2},
+     r"kind = 'serve' over a 'seq' axis of 2"),
+    ({"mesh_axes": (("expert", 0),), "num_processes": 2},
+     r"'expert' = 2: the expert-parallel MoE .* Queue A item 7b"),
 ], ids=["mesh", "num_processes"])
 def test_a_config_the_parser_refuses_degrades_the_boot(tmp_path, fields,
                                                        message):
@@ -556,8 +557,8 @@ def test_status_token_round_trips_through_config_toml():
      r"several cards in one process.*Queue A item 7"),
     ('[mesh]\naxes = { data = 0, seq = 0 }\n', "at most one mesh axis"),
     ('[mesh]\nshape = [1]\n', r"\['shape'\]"),
-    ('[distributed]\nnum_processes = 2\n[payload]\nkind = "serve"\n',
-     r"kind = 'serve' over 2 devices.*item 8"),
+    ('[mesh]\naxes = { seq = 0 }\n[distributed]\nnum_processes = 2\n'
+     '[payload]\nkind = "serve"\n', r"kind = 'serve' over a 'seq' axis"),
     ('[distributed]\nprocess_id = 3\n', "process_id 3 not in"),
     ('[distributed]\nhosts = 2\n', r"\['hosts'\]"),
     ('[model]\npipeline_schedule = "1f1b"\n', r"pipelining.*item 7"),
@@ -565,8 +566,9 @@ def test_status_token_round_trips_through_config_toml():
      'num_processes = 4\n', r"'stage' = 2: pipelining.*item 7"),
     ('[mesh]\naxes = { expert = 0 }\n[distributed]\nnum_processes = 2\n',
      r"'expert' = 2: the expert-parallel MoE.*item 7"),
-    ('[distributed]\nnum_processes = 2\n[payload]\n'
-     'kind = "inference-probe"\n', r"'inference-probe' over 2.*item 8"),
+    ('[mesh]\naxes = { data = 1, seq = 2 }\n[distributed]\n'
+     'num_processes = 2\n[payload]\nkind = "inference-probe"\n',
+     r"'inference-probe' over a 'seq' axis"),
     ('[model]\nn_experts = 4\n', r"\['n_experts'\]"),
     ('[tpu]\ncores = 4\n', r"\[tpu\] key\(s\) \['cores'\]"),
     ('[runtime]\nheartbeat_interval_s = 0\n', "heartbeat_interval_s"),

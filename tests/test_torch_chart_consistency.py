@@ -1,9 +1,10 @@
 """The GPU chart (``deployment/gpu/helm``) renders, through the port's
 helmlite, the same objects as the port's renderer: the cases of
 ``tests/test_chart_consistency.py`` over the port's chart, its helmlite
-and its renderer. The multi-host cases have no counterpart (the port's
-values refuse ``tpuNumHosts > 1``); the node-label cases add GPU product
-values, capitals and ones YAML would read as a number or a bool."""
+and its renderer, the multi-host ones (a StatefulSet and its headless
+service in place of the Deployment and its PVC) included; the
+node-label cases add GPU product values, capitals and ones YAML would
+read as a number or a bool."""
 
 import base64
 import pathlib
@@ -32,6 +33,13 @@ VALUE_MATRIX = [
     {"tpuAccelerator": "true"},
     {"jaxRuntimeConfig": '[tpu]\nplatform = "gpu"\n',
      "tpuAccelerator": "NVIDIA-H100-PCIe"},
+    # Multi-host: the StatefulSet, the headless service and the pod-0
+    # helm test hook in BOTH renderers, with the access Service on or off.
+    {"tpuNumHosts": 4,
+     "jaxRuntimeConfig": "[distributed]\nnum_processes = 4\n"},
+    {"tpuNumHosts": 2, "tpuRuntimeEnableExternalSsh": False,
+     "nameOverride": "slice-a",
+     "jaxRuntimeConfig": "[distributed]\nnum_processes = 2\n"},
 ]
 SECRETS = ("torch-gpu-boot-config-secret.yaml",
            "torch-gpu-runtime-config-secret.yaml")
@@ -75,7 +83,11 @@ def test_boot_config_secret_byte_identical(chart, overrides):
 
 
 @pytest.mark.parametrize("overrides", [
-    {}, {"tpuRuntimeEnableExternalSsh": False}, {"nameOverride": "my-edge"}])
+    {}, {"tpuRuntimeEnableExternalSsh": False}, {"nameOverride": "my-edge"},
+    {"tpuNumHosts": 4,
+     "jaxRuntimeConfig": "[distributed]\nnum_processes = 4\n"},
+    {"tpuNumHosts": 2, "tpuRuntimeEnableExternalSsh": False,
+     "jaxRuntimeConfig": "[distributed]\nnum_processes = 2\n"}])
 def test_notes_match(chart, overrides):
     rendered = chart.render(overrides)
     assert rendered["NOTES.txt"] == render_notes(

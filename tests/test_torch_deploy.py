@@ -72,7 +72,8 @@ def test_notes_version_and_errors(capsys):
     assert main(["version"]) == 0
     assert capsys.readouterr().out == "kvedge-torch 0.1.0\n"
     assert main(["render", "--set", "tpuNumHosts=2"]) == 1
-    assert "ROADMAP Queue A items 7-8" in capsys.readouterr().err
+    assert ("tpuNumHosts=2 but the runtime config declares [distributed] "
+            "num_processes=1") in capsys.readouterr().err
     assert main(["notes", "--set", "nope=1"]) == 1
     assert "unknown value 'nope'" in capsys.readouterr().err
 
@@ -151,7 +152,7 @@ def test_missing_secret_duplicate_pvc_and_unsupported_kinds():
         _cluster().apply(
             render_all(DEFAULT_VALUES, include_dead=True).manifests)
     with pytest.raises(FakeClusterError, match="unsupported kind"):
-        _cluster().apply([{"kind": "StatefulSet",
+        _cluster().apply([{"kind": "DaemonSet",
                            "metadata": {"name": "x"}}])
 
 
@@ -362,3 +363,96 @@ def test_dockerfile_sources_entrypoint_and_tag():
     assert [arg for word, arg in steps if word == "FROM"] == [
         "${BASE} AS native-build", "${BASE}"]
     assert "jax" not in DOCKERFILE.read_text().lower()
+
+
+# ---- the multi-host StatefulSet (tests/test_resilience.py's cases) -------
+#
+# Stable ordinal pods, per-ordinal claims from the claim templates, the
+# coordinator pod's death, a follower's death with a node-bound claim, and
+# real entrypoint boots that keep each ordinal's boot_count on its own
+# volume. A world cannot form inside one test process, so the join is
+# stubbed here; the real joins are tests/test_torch_slice_world.py's.
+
+STS = "kvedge-torch-runtime"
+
+
+def _multihost_values():
+    toml = ('[runtime]\nname = "resilience-slice"\n[tpu]\nplatform = "cpu"\n'
+            "[distributed]\nnum_processes = 4\n"
+            f'[status]\nport = {_free_port()}\nbind = "127.0.0.1"\n')
+    return DEFAULT_VALUES.replace(tpuNumHosts=4, jaxRuntimeConfig=toml)
+
+
+def _stub_join(monkeypatch):
+    from kvedge_torch.parallel.distributed import DistributedState
+    from kvedge_torch.runtime import boot as boot_mod
+
+    monkeypatch.setattr(
+        boot_mod, "maybe_initialize",
+        lambda spec, **kw: DistributedState(
+            active=True, num_processes=spec.num_processes, process_id=0,
+            coordinator="stubbed:0"))
+
+
+def test_statefulset_creates_ordinal_pods_with_own_claims(tmp_path):
+    cluster = _cluster(tmp_path)
+    cluster.apply(render_all(_multihost_values()).manifests)
+    cluster.converge()
+    pods = cluster.sts_pods(STS)
+    assert [p.name for p in pods] == [f"{STS}-{i}" for i in range(4)]
+    assert all(p.phase == "Running" for p in pods)
+    for i in range(4):
+        claim = f"statedisk-{STS}-{i}"
+        assert cluster.pvcs[claim].bound_node is not None
+    assert len(cluster.service_endpoints(f"{STS}-hosts")) == 4
+
+
+def test_coordinator_pod_death_keeps_ordinal_state(tmp_path, monkeypatch):
+    """The node of pod 0 (the coordinator) dies: the pod comes back under
+    the same name on the same claim, its boot_count goes to 2, a
+    follower's stays at 1."""
+    _stub_join(monkeypatch)
+    cluster = _cluster(tmp_path, resilient_storage=True)
+    cluster.apply(render_all(_multihost_values()).manifests)
+    cluster.converge()
+    coord, follower = cluster.pods[f"{STS}-0"], cluster.pods[f"{STS}-1"]
+    assert cluster.boot_pod(coord, str(tmp_path / "fs-coord-1")) == 0
+    assert cluster.boot_pod(follower, str(tmp_path / "fs-follower-1")) == 0
+    backing = tmp_path / "pvc-backing"
+
+    def beat(i):
+        return json.loads(
+            (backing / f"statedisk-{STS}-{i}" / "heartbeat.json").read_text())
+
+    assert beat(0)["boot_count"] == 1
+    cluster.kill_node(coord.node)
+    cluster.converge()
+    coord2 = cluster.pods[f"{STS}-0"]
+    assert coord2.generation == coord.generation + 1
+    assert coord2.phase == "Running" and coord2.node != coord.node
+    assert cluster.boot_pod(coord2, str(tmp_path / "fs-coord-2")) == 0
+    assert beat(0)["boot_count"] == 2
+    assert beat(1)["boot_count"] == 1
+
+
+def test_follower_death_with_node_bound_claim_blocks_like_reference(
+        tmp_path):
+    """A follower's node-bound claim keeps its replacement Pending until
+    the node returns; the pods on other nodes keep running."""
+    cluster = _cluster(tmp_path)
+    cluster.apply(render_all(_multihost_values()).manifests)
+    cluster.converge()
+    dead_node = cluster.pods[f"{STS}-2"].node
+    survivors = [p.name for p in cluster.sts_pods(STS)
+                 if p.node != dead_node]
+    cluster.kill_node(dead_node)
+    cluster.converge()
+    replacement = cluster.pods[f"{STS}-2"]
+    assert replacement.phase == "Pending"
+    assert "bound to node" in replacement.reason
+    for name in survivors:
+        assert cluster.pods[name].phase == "Running"
+    cluster.revive_node(dead_node)
+    cluster.converge()
+    assert cluster.pods[f"{STS}-2"].phase == "Running"
+    assert cluster.pods[f"{STS}-2"].node == dead_node

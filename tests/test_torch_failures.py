@@ -197,11 +197,17 @@ def test_fault_plan_draws_the_reference_kind_and_index(seed):
     assert ours.trace[0] == theirs.trace[0]
 
 
-# "delay" is single-host (the chaos campaign draws it), "hang" is not.
+# The multi-host kind "hang" (a lost follower) is the reference's since
+# the slice's transport injector: it draws the reference's decision, and
+# a kind neither package has is refused.
 @pytest.mark.parametrize("kinds", [("hang",), ("raise", "hang")])
 def test_fault_plan_refuses_the_multi_host_kinds(kinds):
-    with pytest.raises(ValueError, match="multi-host"):
-        tfaults.FaultPlan(0, kinds=kinds)
+    ours = tfaults.FaultPlan(0, kinds=kinds, heal_at=9)
+    theirs = jfaults.FaultPlan(0, kinds=kinds, heal_at=9)
+    assert (ours.kind, ours.fire_at) == (theirs.kind, theirs.fire_at)
+    assert ours.trace[0] == theirs.trace[0]
+    with pytest.raises(ValueError, match="kinds"):
+        tfaults.FaultPlan(0, kinds=kinds + ("melt",))
 
 
 def test_fault_plan_seams_filter_counts_only_matching_labels():

@@ -9,8 +9,9 @@ a JSON path in one manifest -> the port's value — is written into it, and
 the result must equal the port's render whole: a difference the table
 does not list fails. The NOTES are held the same way. Then the pieces:
 the name helper, the Go JSON encoder, the values' validation (the GPU
-label, ``tpuNumHosts = 2`` refused by name), the boot document and the
-copies that must stay verbatim.
+label), the multi-host set (a StatefulSet of one-GPU pods, its headless
+service, the topology check), the boot document and the copies that
+must stay verbatim.
 """
 
 import base64
@@ -40,6 +41,7 @@ from kvedge_torch import version
 
 GPU_TOML = '[runtime]\nname = "edge-gpu"\n[tpu]\nplatform = "gpu"\n'
 PORT_TOML = GPU_TOML + "[status]\nport = 9100\n"
+MULTI_TOML = "[distributed]\nnum_processes = 2\n"
 
 CASES = {
     "default": {"jaxRuntimeConfig": GPU_TOML},
@@ -48,6 +50,11 @@ CASES = {
                 "tpuRuntimeEnableExternalSsh": False},
     "name-override": {"jaxRuntimeConfig": GPU_TOML, "nameOverride": "my-edge",
                       "publicSshKey": "ssh-ed25519 AAAA ops&infra<dev>@host"},
+    "multihost": {"jaxRuntimeConfig": GPU_TOML + MULTI_TOML,
+                  "tpuNumHosts": 2},
+    "multihost-ssh-off": {"jaxRuntimeConfig": GPU_TOML + MULTI_TOML,
+                          "tpuNumHosts": 2,
+                          "tpuRuntimeEnableExternalSsh": False},
 }
 
 # The boot document's three comment lines about the image: the only
@@ -67,6 +74,9 @@ CFG = "torch-gpu-runtime-config-secret.yaml"
 BOOT = "torch-gpu-boot-config-secret.yaml"
 SVC = "torch-gpu-runtime-service.yaml"
 HZ = "torch-gpu-healthz-test.yaml"
+STS = "torch-gpu-runtime-multihost.yaml"
+HOSTS = "torch-gpu-hosts-service.yaml"
+HZM = "torch-gpu-healthz-test-multihost.yaml"
 POD = ("spec", "template", "spec")
 CTR = POD + ("containers", 0)
 DOMAIN = "kvedge.dev/domain"
@@ -86,43 +96,62 @@ def allowed(v: ChartValues, jax_doc: str) -> dict:
     ``jax_doc`` is the JAX boot document, whose comment lines change."""
     name = v.nameOverride or "kvedge-torch"   # the port's chart name
     rt = f"{name}-runtime"
+    multi = v.tpuNumHosts > 1
+    # The workload: the Deployment and its PVC, or the StatefulSet
+    # (whose volumes lose the state claim to its claim templates).
+    work, first = (STS, 0) if multi else (DEP, 1)
     table = {
         # The GPU node label, the image, the modules the containers run,
         # the device request and the memory request.
-        (DEP, POD + ("nodeSelector",)): {
+        (work, POD + ("nodeSelector",)): {
             "nvidia.com/gpu.product": "NVIDIA-H100-80GB-HBM3"},
-        (DEP, CTR + ("image",)): "kvedgedev/torch-gpu-runtime:0.1.0",
-        (DEP, CTR + ("command", 6)): "kvedge_torch.bootstrap.entrypoint",
-        (DEP, CTR + ("resources", "requests", "memory")): "8Gi",
-        (DEP, CTR + ("resources", "limits")): {"nvidia.com/gpu": 1},
+        (work, CTR + ("image",)): "kvedgedev/torch-gpu-runtime:0.1.0",
+        (work, CTR + ("command", 6)): "kvedge_torch.bootstrap.entrypoint",
+        (work, CTR + ("resources", "requests", "memory")): "8Gi",
+        (work, CTR + ("resources", "limits")): {"nvidia.com/gpu": 1},
         (BOOT, ("data", "userdata")): _b64(
             jax_doc.replace(JAX_IMAGE_COMMENT, PORT_IMAGE_COMMENT)),
         # The default name prefix is the chart's name, kvedge-torch.
-        (DEP, ("metadata", "name")): rt,
-        (DEP, ("spec", "selector", "matchLabels", DOMAIN)): rt,
-        (DEP, ("spec", "template", "metadata", "labels", DOMAIN)): rt,
-        (DEP, POD + ("volumes", 0, "persistentVolumeClaim",
-                     "claimName")): f"{rt}-dv",
-        (DEP, POD + ("volumes", 1, "secret", "secretName")):
+        (work, ("metadata", "name")): rt,
+        (work, ("spec", "selector", "matchLabels", DOMAIN)): rt,
+        (work, ("spec", "template", "metadata", "labels", DOMAIN)): rt,
+        (work, POD + ("volumes", first, "secret", "secretName")):
             f"{rt}-jaxconfig",
-        (DEP, POD + ("volumes", 2, "secret", "secretName")):
+        (work, POD + ("volumes", first + 1, "secret", "secretName")):
             f"{rt}-bootconfig",
-        (PVC, ("metadata", "name")): f"{rt}-dv",
         (CFG, ("metadata", "name")): f"{rt}-jaxconfig",
         (BOOT, ("metadata", "name")): f"{rt}-bootconfig",
     }
+    if multi:
+        table.update({
+            (STS, ("spec", "serviceName")): f"{rt}-hosts",
+            (STS, CTR + ("env", 0, "value")): f"{rt}-0.{rt}-hosts",
+            (HOSTS, ("metadata", "name")): f"{rt}-hosts",
+            (HOSTS, ("spec", "selector", DOMAIN)): rt,
+        })
+    else:
+        table.update({
+            (DEP, POD + ("volumes", 0, "persistentVolumeClaim",
+                         "claimName")): f"{rt}-dv",
+            (PVC, ("metadata", "name")): f"{rt}-dv",
+        })
+    port = manifests.status_port(v)
     if v.tpuRuntimeEnableExternalSsh:
-        port = manifests.status_port(v)
         table.update({
             (SVC, ("metadata", "name")): f"{rt}-ssh-service",
             (SVC, ("spec", "selector", DOMAIN)): rt,
-            (HZ, ("metadata", "name")): f"{rt}-healthz-test",
-            (HZ, ("spec", "containers", 0, "image")):
+        })
+    if multi or v.tpuRuntimeEnableExternalSsh:
+        hz, host = (HZM, f"{rt}-0.{rt}-hosts") if multi else (
+            HZ, f"{rt}-ssh-service")
+        table.update({
+            (hz, ("metadata", "name")): f"{rt}-healthz-test",
+            (hz, ("spec", "containers", 0, "image")):
                 "kvedgedev/torch-gpu-runtime:0.1.0",
-            (HZ, ("spec", "containers", 0, "command", 2)):
+            (hz, ("spec", "containers", 0, "command", 2)):
                 "kvedge_torch.runtime.healthcheck",
-            (HZ, ("spec", "containers", 0, "command", 3)):
-                f"http://{rt}-ssh-service:{port}/healthz",
+            (hz, ("spec", "containers", 0, "command", 3)):
+                f"http://{host}:{port}/healthz",
         })
     return table
 
@@ -191,7 +220,7 @@ def test_render_validates_the_runtime_toml_with_the_ports_parser():
     with pytest.raises(ValueError, match="port 0"):
         render_all(DEFAULT_VALUES.replace(
             jaxRuntimeConfig="[status]\nport = 0\n"))
-    with pytest.raises(ValueError, match="num_processes = 2"):
+    with pytest.raises(ValueError, match="num_processes=2 but tpuNumHosts=1"):
         render_all(DEFAULT_VALUES.replace(
             jaxRuntimeConfig="[distributed]\nnum_processes = 2\n"))
     with pytest.raises(ValueError, match="n_experts"):
@@ -298,16 +327,67 @@ def test_values_validation_matches_the_reference(field, value, match):
         jvalues.DEFAULT_VALUES.replace(**{field: value})
 
 
-def test_multi_host_is_refused_by_name():
-    with pytest.raises(ValueError, match="ROADMAP Queue A items 7-8"):
+MULTIHOST = DEFAULT_VALUES.replace(tpuNumHosts=4, jaxRuntimeConfig=(
+    "[distributed]\nnum_processes = 4\n"))
+
+
+def test_multihost_render_swaps_workload_and_adds_hosts_service():
+    chart = render_all(MULTIHOST)
+    assert set(chart.manifests) == {STS, HOSTS, CFG, BOOT, SVC, HZM}
+    spec = chart.manifests[STS]["spec"]
+    assert chart.manifests[STS]["kind"] == "StatefulSet"
+    assert (spec["replicas"], spec["podManagementPolicy"],
+            spec["serviceName"]) == (4, "Parallel", "kvedge-torch-runtime-hosts")
+    pod = spec["template"]["spec"]
+    # The ordinal hostname is the identity the runtime's process id comes
+    # from: no hostname override.
+    assert "hostname" not in pod
+    ctr = pod["containers"][0]
+    env = {e["name"]: e["value"] for e in ctr["env"]}
+    assert env == {
+        "KVEDGE_COORDINATOR":
+            "kvedge-torch-runtime-0.kvedge-torch-runtime-hosts",
+        "KVEDGE_EXPECTED_PROCESSES": "4"}
+    assert ctr["resources"]["limits"] == {"nvidia.com/gpu": 1}
+    assert [v["name"] for v in pod["volumes"]] == ["jaxconfigdisk",
+                                                   "bootconfigdisk"]
+    claim = spec["volumeClaimTemplates"][0]
+    assert claim["metadata"]["name"] == "statedisk"
+    assert claim["spec"]["resources"]["requests"]["storage"] == "4Gi"
+    assert values.parse_set_flag(DEFAULT_VALUES, "tpuNumHosts=2") == \
         DEFAULT_VALUES.replace(tpuNumHosts=2)
-    with pytest.raises(ValueError, match="tpuNumHosts = 2"):
-        values.parse_set_flag(DEFAULT_VALUES, "tpuNumHosts=2")
-    with pytest.raises(ValueError, match="ROADMAP Queue A items 7-8"):
-        render_all(ChartValues(tpuNumHosts=2))
-    for fn in (manifests.runtime_statefulset, manifests.hosts_service):
-        with pytest.raises(ValueError, match="one GPU host"):
-            fn(DEFAULT_VALUES)
+
+
+def test_multihost_hosts_service_is_headless_and_follows_the_port():
+    svc = render_all(MULTIHOST).manifests[HOSTS]["spec"]
+    assert (svc["clusterIP"], svc["publishNotReadyAddresses"],
+            svc["ports"][0]["port"]) == ("None", True, 8478)
+    chart = render_all(DEFAULT_VALUES.replace(
+        tpuNumHosts=2, jaxRuntimeConfig=(
+            "[distributed]\nnum_processes = 2\ncoordinator_port = 9100\n")))
+    assert chart.manifests[HOSTS]["spec"]["ports"][0]["port"] == 9100
+
+
+@pytest.mark.parametrize("hosts,toml", [
+    (4, "[distributed]\nnum_processes = 2\n"), (4, ""),
+    (1, "[distributed]\nnum_processes = 4\n")])
+def test_multihost_topology_mismatch_fails_at_render(hosts, toml):
+    """The chart's shape and the TOML's world must agree, both ways, as
+    the reference's renderer holds them (its messages)."""
+    v = DEFAULT_VALUES.replace(tpuNumHosts=hosts, jaxRuntimeConfig=toml)
+    with pytest.raises(ValueError) as ours:
+        render_all(v)
+    with pytest.raises(ValueError) as theirs:
+        jax_render_all(jvalues.DEFAULT_VALUES.replace(
+            tpuNumHosts=hosts, jaxRuntimeConfig=toml))
+    assert str(ours.value) == str(theirs.value).replace(
+        "the JAX process group", "the process group")
+
+
+def test_multihost_notes_name_statefulset():
+    notes = render_notes(MULTIHOST)
+    assert "kubectl get statefulset kvedge-torch-runtime" in notes
+    assert "deployment" not in notes and "helm test" in notes
 
 
 @pytest.mark.parametrize("assignment", [

@@ -368,7 +368,8 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
         "assert 'kvedge_torch.models.speculative' in mods, mods\n"
         "assert 'kvedge_torch.models.moe' in mods, mods\n"
         "for new in ('tracing', 'slo', 'autotune', 'debuglock', 'status',\n"
-        "            'boot', 'probes', 'profiling', 'healthcheck'):\n"
+        "            'boot', 'probes', 'profiling', 'healthcheck',\n"
+        "            'sliceserve'):\n"
         "    assert 'kvedge_torch.runtime.' + new in mods, mods\n"
         "for new in ('bootdoc', 'mount', 'commands', 'entrypoint'):\n"
         "    assert 'kvedge_torch.bootstrap.' + new in mods, mods\n"
@@ -380,7 +381,8 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
         "            'data.feeder', 'parallel', 'parallel.distributed',\n"
         "            'parallel.mesh', 'parallel.sharding',\n"
         "            'parallel.ringattention', 'parallel.ulysses',\n"
-        "            'testing.world', 'testing.parallelcases'):\n"
+        "            'testing.world', 'testing.parallelcases',\n"
+        "            'testing.slicecases', 'testing.servingfaults'):\n"
         "    assert 'kvedge_torch.' + new in mods, mods\n"
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
