@@ -428,7 +428,7 @@ imports nothing of JAX. Phases, each printing one JSON line:
             served by a single-process ``serve`` at fp32, and two greedy
             requests must return the naive forward's argmax over the
             weights the mesh run held in memory. The world stays up for
-            the slice phase.
+            the pipeline and slice phases.
 17a. slice  the multi-process serve's slice in that one-rank NCCL world
             (``runtime/sliceserve.py``; a mesh ``{ data = 0, model = 1
             }``, so every all-reduce of the model axis runs through NCCL,
@@ -453,6 +453,31 @@ imports nothing of JAX. Phases, each printing one JSON line:
             supervisor re-forms the op stream (the first barrier hangs
             too, the second passes) and the same request returns the
             same tokens. The phase's seconds.
+17b. pipeline  (run after mesh, before slice) the pipelines in that
+            one-rank NCCL world, on a mesh ``{ data = 0, stage = 1 }``:
+            the model config names 2 stages, so
+            the train step (``models/training.make_train_step``, the
+            payload's) takes the schedule, and the stage axis of 1 runs
+            every layer on this rank, M = 4 microbatches; numpy-seeded
+            weights at the flagship width, batches from the train
+            phase's corpus. (a) GPipe (``parallel/pipeline.py``) against
+            the same steps with ``pipeline_stages = 0``: bf16, 8 layers,
+            flash, ``fused_xent``, remat, seq 512, batch 64, 10 steps,
+            losses within 1e-2, B2 launched 2 x n_layers x M a step,
+            B3/B4 n_layers x M, B5-B7 once (counts zeroed just before
+            the GPipe run, read just after); fp32, 2 layers, naive
+            attention, the plain head, within 1e-5. (b) 1F1B
+            (``parallel/pipeline1f1b.py``, through the train step and
+            called directly) against GPipe at fp32, 2 layers, flash, the
+            plain head, batch 16: loss within 1e-5, every gradient
+            within a relative 1e-4, B2 2 x n_layers x M and B3/B4
+            n_layers x M. (c) Peak device memory of one step of each at
+            bf16, 8 layers, the plain head, batch 64 (gated 1F1B <=
+            GPipe) and each one's step ms. (d) The MoE flagship (8
+            experts, top 2) on ``{ data = 0, expert = 1 }``: 4 steps at
+            8 x 512 equal the same steps on the same mesh with no
+            process group within 1e-3 (phase 17's bound). Budget 45 s,
+            reported.
 18. kernels  one line listing every ported kernel, after a line with
             the seconds each phase took.
 
@@ -5873,8 +5898,8 @@ def phase_mesh(torch, np, kfns, tr, dist_mod, serve, forward,
         return captured[-1]
 
     tr.run_training = recording
-    # The world stays up for the slice phase (one world a process); main
-    # leaves it after that phase.
+    # The world stays up for the pipeline and slice phases (one world a
+    # process); main leaves it after the slice phase.
     try:
         world = {"backend": torch.distributed.get_backend(),
                  "size": torch.distributed.get_world_size()}
@@ -5975,6 +6000,210 @@ def phase_mesh(torch, np, kfns, tr, dist_mod, serve, forward,
     check(restored == MESH_STEPS, f"serve restored step {restored}")
     check(all(same), "served tokens differ from the held weights' argmax")
     return runs
+
+
+# ---- phase 17b: the pipelines --------------------------------------------
+
+# The flagship schedules in the one-rank world: M microbatches over a
+# stage axis of 1 (every layer on this rank), the model config naming 2
+# stages so that the train step takes the schedule.
+PIPE = dict(batch=64, seq=512, steps=10, micro=4, fp32_layers=2,
+            grad_batch=16, moe_batch=8, moe_steps=4)
+# GPipe's bf16 losses against the unpipelined step's over 10 steps: the
+# microbatches' products run on 16-row blocks where the step's run on 64
+# (other cuBLAS tilings), and their gradients sum in fp32 across the 4;
+# such roundings moved flash against naive at most 1.8e-4 (phase 11).
+PIPE_BF16_TOL = 1e-2
+PIPE_FP32_TOL = 1e-5      # GPipe's fp32 losses against the plain step's
+PIPE_1F1B_LOSS_TOL = 1e-5  # 1F1B against GPipe: tests/test_pipeline1f1b.py
+PIPE_1F1B_GRAD_REL = 1e-4
+PIPE_BUDGET_S = 45.0
+
+
+def pipe_batches(np, torch, corpus, vocab, rows, seq, n, device):
+    """``n`` batches of ``rows`` windows of ``seq + 1`` corpus tokens."""
+    tokens = np.fromfile(corpus, dtype=np.int32, offset=16) % vocab
+    span = rows * (seq + 1)
+    return [torch.from_numpy(tokens[i * span:(i + 1) * span].reshape(
+        rows, seq + 1).astype(np.int64)).to(device) for i in range(n)]
+
+
+def pipe_steps(torch, training, cfg, mesh, batches, tree, device):
+    """Train steps from ``tree``: (losses, {"step_ms": a step after the
+    first, until its loss is read; "enqueue_ms": until the step returns,
+    before that read: near step_ms when the host, not the card, sets
+    the pace})."""
+    params = training.master_params(tree, cfg, device, mesh)
+    init, step = training.make_train_step(cfg, device, mesh)
+    opt = init(params)
+    losses, times, enqueue = [], [], []
+    for batch in batches:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        enqueue.append((time.perf_counter() - t0) * 1000.0)
+        losses.append(float(loss))
+        times.append((time.perf_counter() - t0) * 1000.0)
+    n = max(len(times) - 1, 1)
+    return losses, {"step_ms": sum(times[1:]) / n,
+                    "enqueue_ms": sum(enqueue[1:]) / n}
+
+
+def pipe_grads(torch, training, cfg, mesh, tree, batch, device):
+    """One ``loss_and_grads`` from ``tree``: (loss, grads, peak GiB)."""
+    params = training.master_params(tree, cfg, device, mesh)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    loss, grads = training.loss_and_grads(params, batch, cfg, mesh)
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if device == "cuda" else None)
+    return float(loss), grads, peak
+
+
+def phase_pipeline(torch, np, kfns, training, ttr, RuntimeConfig, corpus,
+                   device="cuda", preset="flagship"):
+    """GPipe and 1F1B in the one-rank world (module doc, phase 17b)."""
+    import dataclasses
+
+    from kvedge_torch.parallel.mesh import Mesh, build_mesh
+    from kvedge_torch.parallel.pipeline1f1b import (
+        pipeline_1f1b_loss_and_grads,
+    )
+    from kvedge_torch.runtime.config import MeshSpec
+
+    start = time.perf_counter()
+    mesh = build_mesh(MeshSpec(axes=(("data", 0), ("stage", 1))))
+    base = RuntimeConfig(preset=preset, max_seq=PIPE["seq"],
+                         payload_attention="flash").model_config("bfloat16")
+    layers = base.n_layers
+    piped = dict(pipeline_stages=2, pipeline_microbatches=PIPE["micro"])
+    m = PIPE["micro"]
+    batches = pipe_batches(np, torch, corpus, base.vocab, PIPE["batch"],
+                           PIPE["seq"], PIPE["steps"], device)
+    runs = {}
+    # (a) GPipe against the unpipelined step: bf16 at the flagship depth
+    # (flash, fused_xent, remat), then fp32 at 2 layers, naive attention.
+    for name, over, tol in (
+            ("bf16", dict(fused_xent=True), PIPE_BF16_TOL),
+            ("fp32", dict(dtype="float32", attention="naive",
+                          n_layers=PIPE["fp32_layers"]), PIPE_FP32_TOL)):
+        cfg = dataclasses.replace(base, **over)
+        tree = ttr.init_params(5, cfg)
+        plain, plain_t = pipe_steps(torch, training, cfg, mesh,
+                                     batches, tree, device)
+        zero_counts(kfns)
+        gp, gp_t = pipe_steps(torch, training, dataclasses.replace(
+            cfg, **piped), mesh, batches, tree, device)
+        launched = counts(kfns)
+        n = cfg.n_layers * m * PIPE["steps"]
+        flash = ({"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+                 if cfg.attention == "flash" else {})
+        xent = ({k: PIPE["steps"] for k in ("xent_fwd", "xent_bwd_dx",
+                                            "xent_bwd_de")}
+                if cfg.fused_xent else {})
+        want = expect_counts(kfns, device, **flash, **xent)
+        diff = max(abs(a - b) for a, b in zip(gp, plain))
+        runs[name] = {"layers": cfg.n_layers, "attention": cfg.attention,
+                      "plain_losses": plain, "gpipe_losses": gp,
+                      "max_loss_diff": diff, "tol": tol,
+                      "plain": plain_t, "gpipe": gp_t,
+                      "launches": launched, "expected_launches": want,
+                      "ok": (diff <= tol and launched == want
+                             and all(math.isfinite(x) for x in gp + plain))}
+    # (b) 1F1B against GPipe: the plain head at fp32, 2 layers, flash.
+    cfg = dataclasses.replace(base, dtype="float32",
+                              n_layers=PIPE["fp32_layers"], **piped)
+    tree = ttr.init_params(6, cfg)
+    batch = batches[0][:PIPE["grad_batch"]]
+    zero_counts(kfns)
+    loss_f, grads_f, _ = pipe_grads(
+        torch, training, dataclasses.replace(cfg, pipeline_schedule="1f1b"),
+        mesh, tree, batch, device)
+    launched_f = counts(kfns)
+    loss_g, grads_g, _ = pipe_grads(torch, training, cfg, mesh, tree, batch,
+                                    device)
+    n = cfg.n_layers * m
+    want_f = expect_counts(kfns, device, flash_fwd=2 * n, flash_bwd_dq=n,
+                           flash_bwd_dkv=n)
+    rel = {k: float((grads_f[k] - g).abs().max() / (g.abs().max() + 1e-12))
+           for k, g in grads_g.items()}
+    sched = {"loss_1f1b": loss_f, "loss_gpipe": loss_g,
+             "loss_diff": abs(loss_f - loss_g), "grad_rel_err": rel,
+             "launches": launched_f, "expected_launches": want_f,
+             "tol": {"loss": PIPE_1F1B_LOSS_TOL,
+                     "grad_rel": PIPE_1F1B_GRAD_REL}}
+    sched["ok"] = (sched["loss_diff"] < PIPE_1F1B_LOSS_TOL
+                   and max(rel.values()) < PIPE_1F1B_GRAD_REL
+                   and launched_f == want_f)
+    # The direct call gives the train step's own numbers.
+    direct, _ = pipeline_1f1b_loss_and_grads(
+        training.master_params(tree, cfg, device, mesh), batch,
+        dataclasses.replace(cfg, pipeline_schedule="1f1b"), mesh)
+    sched["direct_loss_equal"] = float(direct) == loss_f
+    # (c) Peak memory at bf16 and the flagship depth, the plain head.
+    cfg = dataclasses.replace(base, **piped)
+    tree = ttr.init_params(7, cfg)
+    peaks, step_ms = {}, {}
+    for schedule in ("gpipe", "1f1b"):
+        c = dataclasses.replace(cfg, pipeline_schedule=schedule)
+        pipe_grads(torch, training, c, mesh, tree, batches[1], device)
+        _, _, peaks[schedule] = pipe_grads(torch, training, c, mesh, tree,
+                                           batches[1], device)
+        _, step_ms[schedule] = pipe_steps(torch, training, c, mesh,
+                                          batches[:4], tree, device)
+    memory = {"peak_gib": peaks, "step_ms": step_ms, "batch": PIPE["batch"],
+              "ok": device != "cuda" or peaks["1f1b"] <= peaks["gpipe"]}
+    # (d) The MoE flagship on an expert axis of 1 in the world against the
+    # same steps with no world (no collective).
+    rcfg = RuntimeConfig(preset=preset, max_seq=PIPE["seq"],
+                         payload_attention="flash", experts=8,
+                         expert_top_k=2)
+    moe_cfg = dataclasses.replace(rcfg.model_config("bfloat16"),
+                                  fused_xent=True)
+    moe_mesh = build_mesh(MeshSpec(axes=(("data", 0), ("expert", 1))))
+    free = Mesh(moe_mesh.axis_names, moe_mesh.shape, moe_mesh.coords)
+    tree = ttr.init_params(8, moe_cfg)
+    moe_batches = [b[:PIPE["moe_batch"]] for b in batches[:PIPE["moe_steps"]]]
+    world, world_t = pipe_steps(torch, training, moe_cfg, moe_mesh,
+                                 moe_batches, tree, device)
+    alone, alone_t = pipe_steps(torch, training, moe_cfg, free,
+                                 moe_batches, tree, device)
+    moe_diff = max(abs(a - b) for a, b in zip(world, alone))
+    moe = {"experts": moe_cfg.n_experts, "top_k": moe_cfg.expert_top_k,
+           "world_losses": world, "no_world_losses": alone,
+           "max_loss_diff": moe_diff, "tol": MESH_TOL,
+           "world": world_t, "no_world": alone_t,
+           "ok": moe_diff <= MESH_TOL}
+    seconds = time.perf_counter() - start
+    ok = (all(r["ok"] for r in runs.values()) and sched["ok"]
+          and sched["direct_loss_equal"] and memory["ok"] and moe["ok"])
+    doc = {"phase": "pipeline", "mesh": dict(zip(mesh.axis_names,
+                                                 mesh.shape)),
+           "microbatches": m, "gpipe_vs_plain": runs, "1f1b_vs_gpipe": sched,
+           "memory": memory, "moe_expert_axis": moe, "seconds": seconds,
+           "budget_s": PIPE_BUDGET_S,
+           "within_budget": seconds <= PIPE_BUDGET_S, "ok": ok}
+    emit(doc)
+    for name, r in runs.items():
+        check(r["max_loss_diff"] <= r["tol"],
+              f"pipeline {name}: GPipe losses differ from the plain step's "
+              f"by {r['max_loss_diff']}")
+        check(r["launches"] == r["expected_launches"],
+              f"pipeline {name}: launches {r['launches']} != "
+              f"{r['expected_launches']}")
+    check(sched["loss_diff"] < PIPE_1F1B_LOSS_TOL,
+          f"1F1B loss differs from GPipe's by {sched['loss_diff']}")
+    check(max(rel.values()) < PIPE_1F1B_GRAD_REL,
+          f"1F1B gradients differ from GPipe's: {rel}")
+    check(launched_f == want_f, f"1F1B launches {launched_f} != {want_f}")
+    check(sched["direct_loss_equal"], "1F1B's direct call differs")
+    check(memory["ok"], f"1F1B peak memory above GPipe's: {peaks}")
+    check(moe["ok"], f"MoE on the expert axis differs from no world by "
+          f"{moe_diff}")
+    return {"launches": runs["bf16"]["launches"],
+            "launches_1f1b": launched_f, "doc": doc}
 
 
 SLICE_BUDGETS = dict(steady_s=2.0, compile_s=120.0)   # the fault's op budgets
@@ -6425,6 +6654,9 @@ def main() -> int:
                                    forward, params_from_numpy, RuntimeConfig,
                                    cfg.train_corpus, training, ttr,
                                    tcfg_flag)
+            phase = enter("pipeline")
+            pipe = phase_pipeline(torch, np, kfns, training, ttr,
+                                  RuntimeConfig, cfg.train_corpus)
             phase = enter("slice")
             slice_doc = phase_slice(torch, np, pa, kfns, serve, sliceserve,
                                     serving_mod, sf, recovery, ServeConfig,
@@ -6466,6 +6698,8 @@ def main() -> int:
                 "launches_moe": moe_train_doc["launches"][kname],
                 "launches_mesh": mesh_runs["flash"]["mesh"]["launches"][
                     kname],
+                "launches_pipeline": {"gpipe": pipe["launches"][kname],
+                                      "1f1b": pipe["launches_1f1b"][kname]},
                 "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
                 "worst_case_err": flash_worst[kname],
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -6500,6 +6734,8 @@ def main() -> int:
                 "replaces": f"kvedge_tpu/ops/{where}",
                 "launches": launched[kname],
                 "launches_moe": moe_train_doc["launches"][kname],
+                **({"launches_pipeline": {"gpipe": pipe["launches"][kname]}}
+                   if kname != "rmsnorm" else {}),
                 "max_abs_err": k["max_abs_err"], "max_err": k["max_abs_err"],
                 "worst_case_err": worst_err[kname],
                 "ms": k["ms"], "plain_ms": k["plain_ms"],

@@ -3,8 +3,15 @@
 The fields, ``d_head``, ``kv_heads``, ``param_count`` and ``validate``
 follow the JAX package's ``models/transformer.py`` for the fields the
 serving and training slices use, with the same validation messages.
-What the port does not run yet is refused with a clear error rather
-than ignored: pipelining (``pipeline_stages``, ROADMAP Queue A item 7b).
+``pipeline_stages > 1`` shards the layer stack over a ``stage`` mesh
+axis (``L/S`` whole layers a stage) and trains through a pipeline
+schedule: ``"gpipe"`` (``parallel/pipeline.py``, the forward schedule
+with its backward run in reverse) or ``"1f1b"``
+(``parallel/pipeline1f1b.py``, one fused forward and backward schedule
+with a stash of at most ``2S`` stage inputs), over
+``pipeline_microbatches`` microbatches (0 = one a stage). 1F1B refuses
+MoE layers, sequence-parallel attention and ``fused_xent`` at
+validation, with the reference's messages.
 
 ``n_experts > 0`` makes every layer's FFN a mixture of switch-routed
 experts (``models/moe.py``): top-``expert_top_k`` routing, a capacity of
@@ -69,8 +76,14 @@ class TransformerConfig:
     expert_top_k: int = 1
     # Weight of the router's load-balancing loss in the training loss.
     moe_aux_weight: float = 0.01
-    # Refused unless left at its default (not ported yet).
+    # Pipelining (module doc): 0 = off; with S > 1 the layer stack
+    # shards over a ``stage`` mesh axis.
     pipeline_stages: int = 0
+    # Microbatches a step under pipelining; 0 = one a stage. More shrink
+    # the bubble (M / (M + S - 1)).
+    pipeline_microbatches: int = 0
+    # "gpipe" or "1f1b" (module doc); training only.
+    pipeline_schedule: str = "gpipe"
 
     @property
     def d_head(self) -> int:
@@ -93,6 +106,16 @@ class TransformerConfig:
         else:
             per_layer += 2 * d * f
         return v * d + L * per_layer + d
+
+    @property
+    def needs_mesh(self) -> bool:
+        """True when the mesh is required by the forward and the train
+        step: sequence-parallel attention, MoE layers, the pipelines and
+        the fused cross-entropy (the reference's rule; every model
+        function of the port takes a mesh, ``NO_MESH`` by default)."""
+        return (self.attention in ("ring", "ulysses")
+                or self.n_experts > 0 or self.pipeline_stages > 1
+                or self.fused_xent)
 
     def validate(self) -> None:
         if self.d_model % self.n_heads:
@@ -132,10 +155,41 @@ class TransformerConfig:
                 f"remat_policy must be 'full' or 'dots', got "
                 f"{self.remat_policy!r}"
             )
-        if self.pipeline_stages:
+        if self.pipeline_stages < 0:
+            raise ValueError("pipeline_stages must be >= 0 (0 = off)")
+        if self.pipeline_microbatches < 0:
             raise ValueError(
-                f"pipeline_stages={self.pipeline_stages}: pipelining is not "
-                "ported to PyTorch yet (ROADMAP Queue A item 7b)")
+                "pipeline_microbatches must be >= 0 (0 = one per stage)"
+            )
+        if (self.pipeline_stages > 1
+                and self.n_layers % self.pipeline_stages):
+            raise ValueError(
+                f"n_layers {self.n_layers} must divide by "
+                f"pipeline_stages {self.pipeline_stages}"
+            )
+        if self.pipeline_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(
+                "pipeline_schedule must be 'gpipe' or '1f1b', got "
+                f"{self.pipeline_schedule!r}"
+            )
+        if self.pipeline_schedule == "1f1b":
+            if self.n_experts:
+                raise ValueError(
+                    "pipeline_schedule='1f1b' does not support MoE "
+                    "layers (use 'gpipe')"
+                )
+            if self.attention in ("ring", "ulysses"):
+                raise ValueError(
+                    "pipeline_schedule='1f1b' does not compose with "
+                    "sequence-parallel attention (use 'gpipe')"
+                )
+            if self.fused_xent:
+                raise ValueError(
+                    "pipeline_schedule='1f1b' computes its loss head "
+                    "inside the pipeline's manual region, where the "
+                    "Pallas fused-xent kernel cannot run (use 'gpipe' "
+                    "or disable fused_xent)"
+                )
 
 
 # Named model shapes, the same table as the JAX package's: "probe" is

@@ -1,5 +1,5 @@
 """Mixture-of-experts FFN: the port's copy of the JAX package's
-``models/moe.py``, without the ``expert`` mesh axis.
+``models/moe.py``, with its ``expert`` mesh axis.
 
 * **Top-k routing (k = 1 Switch, k = 2 GShard) with a static capacity
   in training.** Each expert has ``C = ceil(k * tokens / E * factor)``
@@ -43,6 +43,23 @@ statistics are sums over those groups. A rank's experts run only its own
 kept rows, in slots of ``min(capacity, local tokens)`` an expert. A
 ``model`` axis splits each expert's FFN as the dense one (f before the
 up product, g after the down product).
+
+An ``expert`` axis of ``ep`` gives a rank ``E/ep`` whole experts
+(``parallel/sharding.py``). The batch is not sharded on it, so every
+rank of an expert group routes the same tokens to the same slots; the
+reference's all-to-alls are XLA's, and the port writes its own for the
+same function: *f* over ``expert`` on the tokens (identity forward,
+all-reduce backward, since a rank's input gradient holds only its
+experts' share), this rank's experts run their ``[E/ep, C, D]`` slots,
+and their outputs are all-gathered over ``expert`` (backward: this
+rank's slice). Routing, gates and combine are computed alike on every
+expert rank, so the router's, the norms' and attention's gradients are
+equal there and are not summed over ``expert``.
+
+Under the pipelines (``parallel/pipeline.py``) a layer is given the mesh
+without ``data`` and ``seq`` (``Mesh.without``): capacity, positions and
+the load-balancing statistics bind on this rank's microbatch block, as
+in the reference, whose pipeline makes those axes manual.
 """
 
 from __future__ import annotations
@@ -58,7 +75,9 @@ from kvedge_torch.parallel.mesh import NO_MESH
 from kvedge_torch.parallel.sharding import (
     all_gather_tokens,
     all_reduce_tokens,
+    copy_to_experts,
     copy_to_model,
+    gather_from_experts,
     reduce_from_model,
 )
 
@@ -166,14 +185,19 @@ def moe_ffn(x: torch.Tensor, router_w, w_up, w_down, *,
     src = torch.full((n_slots + 1,), top_k * n_tokens, dtype=torch.long,
                      device=x.device)
     src.scatter_(0, torch.where(kept, slot, n_slots), rows)
-    src = src[:n_slots]
+    # This rank runs its E/ep experts' slots (all of them without an
+    # expert axis); their outputs are gathered over the expert group.
+    local = n_experts // mesh.size("expert")
+    src = src[:n_slots].reshape(n_experts, capacity).narrow(
+        0, mesh.index("expert") * local, local).reshape(-1)
     filled = (src < top_k * n_tokens)[:, None]
-    expert_in = torch.where(filled, copy_to_model(x, mesh)[src % n_tokens],
-                            0)
-    hidden = gelu(torch.bmm(expert_in.reshape(n_experts, capacity, d),
+    tokens = copy_to_experts(copy_to_model(x, mesh), mesh)
+    expert_in = torch.where(filled, tokens[src % n_tokens], 0)
+    hidden = gelu(torch.bmm(expert_in.reshape(local, capacity, d),
                             w_up.to(dtype)))
-    expert_out = torch.bmm(hidden, w_down.to(dtype)).reshape(n_slots, d)
-    expert_out = reduce_from_model(expert_out, mesh)
+    expert_out = reduce_from_model(torch.bmm(hidden, w_down.to(dtype)),
+                                   mesh)
+    expert_out = gather_from_experts(expert_out, mesh).reshape(n_slots, d)
 
     # Each dispatch reads its slot's output back, times its gate in the
     # compute dtype; the k products sum in fp32 and round once (the

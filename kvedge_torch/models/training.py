@@ -23,6 +23,10 @@ params and moments; the train step takes its share of the loss
 (``transformer.loss_fn``), sums the gradients over the ``data`` and
 ``seq`` groups (``parallel/sharding.reduce_grads``) and runs the same
 elementwise AdamW on its slices. The reported loss is the global one.
+Under a ``stage`` axis (``pipeline_stages > 1``) the step trains
+through the config's pipeline schedule: GPipe inside ``loss_fn``, or
+1F1B, which builds its own backward (``make_train_step`` routes it, as
+the reference's does).
 """
 
 from __future__ import annotations
@@ -87,7 +91,18 @@ def loss_and_grads(params: dict, batch: torch.Tensor,
                    cfg: TransformerConfig, mesh=NO_MESH):
     """``(loss, grads)``: the global loss and this rank's slices of its
     gradient, summed over the ``data`` and ``seq`` ranks (module doc);
-    ``batch`` is this rank's data rows."""
+    ``batch`` is this rank's data rows. ``pipeline_stages > 1`` with
+    ``pipeline_schedule = "1f1b"`` runs the 1F1B schedule
+    (``parallel/pipeline1f1b.py``); GPipe is ``loss_fn``'s own
+    pipeline (``parallel/pipeline.py``)."""
+    if cfg.pipeline_stages > 1 and cfg.pipeline_schedule == "1f1b":
+        # The fused schedule builds the backward itself: autodiff cannot
+        # produce a 1F1B schedule from a forward (parallel/pipeline1f1b).
+        from kvedge_torch.parallel.pipeline1f1b import (
+            pipeline_1f1b_loss_and_grads,
+        )
+
+        return pipeline_1f1b_loss_and_grads(params, batch, cfg, mesh)
     keys = list(params)
     share = loss_fn(params, batch, cfg, mesh)
     grads = reduce_grads(

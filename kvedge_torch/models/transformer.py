@@ -248,7 +248,7 @@ def block_mlp(cfg: TransformerConfig, x: torch.Tensor,
 
 
 def _layer(cfg: TransformerConfig, x: torch.Tensor, layer_params,
-           mesh=NO_MESH):
+           mesh=NO_MESH, pipelined: bool = False):
     """One pre-norm block; x ``[B, T, D]``. Returns ``(x, aux)``: ``aux``
     is the MoE router's load-balancing loss for this layer (fp32 0.0 for
     a dense FFN).
@@ -259,7 +259,10 @@ def _layer(cfg: TransformerConfig, x: torch.Tensor, layer_params,
     holds ``H/tp`` heads under a ``model`` axis (the Megatron f before
     each column-parallel product, g after each row-parallel one), and
     ``"ring"`` and ``"ulysses"`` attend across the ``seq`` group; they
-    need a mesh with that axis, as the reference's need a mesh."""
+    need a mesh with that axis, as the reference's need a mesh.
+    ``pipelined`` (a stage body of ``parallel/pipeline.py``): x is one
+    microbatch's block, and an MoE layer binds capacity, positions and
+    its balance statistics on it alone (``moe.py`` module doc)."""
     w_qkv, w_out, ln_attn, ln_mlp = (layer_params[0], layer_params[1],
                                      layer_params[-2], layer_params[-1])
     batch, seq, d = x.shape
@@ -327,7 +330,8 @@ def _layer(cfg: TransformerConfig, x: torch.Tensor, layer_params,
     out, aux = moe_ffn(
         _rmsnorm(x, ln_mlp).reshape(batch * seq, d), router, w_up, w_down,
         capacity_factor=cfg.expert_capacity_factor, top_k=cfg.expert_top_k,
-        mesh=mesh, block=(batch, seq))
+        mesh=mesh.without("data", "seq") if pipelined else mesh,
+        block=(batch, seq))
     return x + out.reshape(batch, seq, d), aux
 
 
@@ -377,12 +381,35 @@ def forward_hidden(params: dict, tokens: torch.Tensor,
     twice per layer and step; ``"dots"`` keeps the non-batched
     products' outputs (module doc). Tokens are this rank's block of the
     mesh, and the feature-sharded embedding's lookup is gathered over
-    the ``model`` group."""
+    the ``model`` group.
+
+    With ``cfg.pipeline_stages > 1`` the stack is this rank's ``L/S``
+    layers, run by the GPipe schedule over the mesh's ``stage`` axis
+    (``parallel/pipeline.py``): hidden and aux come out the same on
+    every stage, and the loss heads run on them unchanged."""
     dtype = torch_dtype(cfg.dtype)
     x = gather_from_model(params["embedding"][tokens], mesh).to(dtype)
     stacked = stacked_layer_params(params, cfg)
+    policy = _dots_context if cfg.remat_policy == "dots" else None
+    if cfg.pipeline_stages > 1:
+        if not mesh.axis_names:
+            raise ValueError(
+                "pipeline_stages > 1 needs a mesh with a 'stage' axis "
+                "passed to forward()/make_train_step()"
+            )
+        from kvedge_torch.parallel.pipeline import pipeline_layers
+
+        seq_axis = ("seq" if cfg.attention in ("ring", "ulysses")
+                    and "seq" in mesh.axis_names else None)
+        x, aux = pipeline_layers(
+            x, stacked,
+            lambda carry, lp: _layer(cfg, carry, lp, mesh, pipelined=True),
+            mesh, n_layers=cfg.n_layers, seq_axis=seq_axis,
+            n_microbatches=cfg.pipeline_microbatches, remat=cfg.remat,
+            remat_policy=policy)
+        return _rmsnorm(x, params["ln_final"]), aux
     remat = cfg.remat and torch.is_grad_enabled()
-    extra = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
+    extra = {"context_fn": policy} if policy is not None else {}
     aux = []
     for layer in range(cfg.n_layers):
         layer_params = tuple(p[layer] for p in stacked)

@@ -3,14 +3,17 @@
 ``parallel/``.
 
 The port runs one card a process. ``distributed`` joins the world at
-boot, ``mesh`` lays its ranks out over the ``data``, ``model`` and
-``seq`` axes, ``sharding`` cuts the param tree and writes the
-collectives XLA inserts in the reference, and ``ringattention`` and
-``ulysses`` attend across the ``seq`` group. The reference's pipelines
-(``pipeline_layers``) are not ported yet (ROADMAP Queue A item 7b).
+boot, ``mesh`` lays its ranks out over the ``data``, ``model``, ``seq``,
+``stage`` and ``expert`` axes, ``sharding`` cuts the param tree and
+writes the collectives XLA inserts in the reference, ``ringattention``
+and ``ulysses`` attend across the ``seq`` group, and ``pipeline``
+(GPipe, :func:`pipeline_layers`) and ``pipeline1f1b`` run the layer
+stack over the ``stage`` group. Several cards in one process are not
+ported yet (ROADMAP Queue A item 7c).
 """
 
 from kvedge_torch.parallel.mesh import build_mesh, local_mesh
+from kvedge_torch.parallel.pipeline import pipeline_layers
 from kvedge_torch.parallel.ringattention import (
     ring_attention,
     sequence_sharding,
@@ -33,6 +36,7 @@ __all__ = [
     "gather_params",
     "local_mesh",
     "param_specs",
+    "pipeline_layers",
     "ring_attention",
     "sequence_sharding",
     "shard_batch",

@@ -5,12 +5,16 @@ The port runs one card a process, so a mesh's devices are the world's
 ranks. :func:`build_mesh` resolves the ``[mesh]`` axes against the world
 size with the reference's ``MeshSpec`` rules and lays the ranks out with
 ``torch.distributed.device_mesh.init_device_mesh`` under the axis names:
-each axis gets its process group, and each rank knows its coordinate on
-every axis. Without a process group (one plain process) every axis is 1
-and there is no group: every collective is skipped, so the model runs
-the single-device computation through the same code. In a world of one
-rank (``init_world`` with one process) the axes are all 1 too, but the
-groups exist, so the collectives run through the backend.
+each axis gets its process group (``data``, ``model``, ``seq``,
+``stage`` and ``expert`` alike), and each rank knows its coordinate on
+every axis and, for point-to-point hand-offs along an axis (the
+pipeline's stages), the global ranks of its two neighbours
+(:meth:`Mesh.neighbours`). Without a process group (one plain process)
+every axis is 1 and there is no group: every collective is skipped, so
+the model runs the single-device computation through the same code. In
+a world of one rank (``init_world`` with one process) the axes are all
+1 too, but the groups exist, so the collectives run through the
+backend.
 :data:`NO_MESH`, a mesh with no axes, is the default of every model
 function that takes a mesh.
 """
@@ -57,6 +61,31 @@ class Mesh:
     @property
     def distributed(self) -> bool:
         return self.groups is not None
+
+    def neighbours(self, axis: str) -> tuple[int | None, int | None]:
+        """The global ranks of the previous and the next member along
+        ``axis`` (None past either end, and without a group): a stage's
+        two neighbours for the pipeline's point-to-point hand-offs."""
+        group = self.group(axis)
+        if group is None:
+            return None, None
+        import torch.distributed as dist
+
+        i, n = self.index(axis), self.size(axis)
+        return (dist.get_global_rank(group, i - 1) if i > 0 else None,
+                dist.get_global_rank(group, i + 1) if i < n - 1 else None)
+
+    def without(self, *axes: str) -> "Mesh":
+        """This mesh without ``axes``: code given it treats this rank's
+        block of those axes as the whole (the pipeline's MoE layers bind
+        capacity on their own microbatch's tokens)."""
+        keep = [i for i, name in enumerate(self.axis_names)
+                if name not in axes]
+        return Mesh(tuple(self.axis_names[i] for i in keep),
+                    tuple(self.shape[i] for i in keep),
+                    tuple(self.coords[i] for i in keep),
+                    None if self.groups is None
+                    else tuple(self.groups[i] for i in keep))
 
 
 # One plain process and no [mesh]: every axis 1, no group.

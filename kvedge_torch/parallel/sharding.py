@@ -1,5 +1,5 @@
 """Partition rules for the flagship transformer over a data x model x seq
-mesh, and the collectives that complete them.
+x stage x expert mesh, and the collectives that complete them.
 
 The counterpart of the JAX package's ``parallel/sharding.py``. The rules
 (:data:`PARAM_RULES`, :func:`param_specs`, :func:`batch_spec`) are the
@@ -8,7 +8,10 @@ replicated on that dim): Megatron tensor parallelism shards the
 column-parallel kernels (``w_qkv``, ``w_up``) on their output features
 and the row-parallel ones (``w_out``, ``w_down``) on their input
 features over ``model``; the embedding is feature-sharded; norms and the
-router are replicated. The batch shards on ``data``.
+router are replicated; a ``stage`` axis cuts every layer-stacked param's
+leading ``L`` into whole layers, and an ``expert`` axis cuts the expert
+weights' ``E`` into whole experts. The batch shards on ``data`` only:
+every rank of a ``stage`` or ``expert`` group holds the same rows.
 
 The reference leaves the collectives to XLA's partitioner. The port
 writes them, as ``torch.autograd.Function``s on the ``model`` group:
@@ -26,12 +29,16 @@ writes them, as ``torch.autograd.Function``s on the ``model`` group:
   (replicated) gradient.
 
 The tied readout is *f*, this rank's feature slice times its embedding
-shard, then *g* over the partial logits. Every parameter's gradient is
-summed over the ``data`` and ``seq`` groups (:func:`reduce_grads`); the
-loss is the mean over the global tokens (``models/transformer.loss_fn``).
+shard, then *g* over the partial logits. The MoE layer's collectives on
+the ``expert`` group are ``models/moe.py``'s. Every parameter's
+gradient is summed over the ``data`` and ``seq`` groups, never over
+``expert``, and over ``stage`` only where some stages lack it
+(:func:`reduce_grads`); the loss is the mean over the global tokens
+(``models/transformer.loss_fn``).
 
 :func:`shard_params` cuts a rank's slices out of a full numpy or torch
-tree and :func:`gather_params` rebuilds the full tree. The fused
+tree and :func:`gather_params` rebuilds the full tree over the
+``model``, ``expert`` and ``stage`` groups. The fused
 ``w_qkv`` columns are ``[q heads | k heads | v heads]``, which a
 contiguous cut would not split at head boundaries (XLA reshards when it
 slices them); the port cuts each of the three segments by whole heads,
@@ -53,9 +60,8 @@ PARAM_RULES: dict[str, tuple] = {
     "ln_attn": (),                       # [L, D] — replicated
     "ln_mlp": (),                        # [L, D]
     "ln_final": (),                      # [D]
-    # Mixture of experts: the expert dim shards over ``expert`` (refused
-    # above 1 by the config, ROADMAP Queue A item 7b); within an expert the
-    # FFN is column/row-parallel on ``model``.
+    # Mixture of experts: the expert dim shards over ``expert``; within
+    # an expert the FFN is column/row-parallel on ``model``.
     "router": (),                        # [L, D, E] — replicated
     "w_up_experts": (None, "expert", None, "model"),    # [L, E, D, F]
     "w_down_experts": (None, "expert", "model", None),  # [L, E, F, D]
@@ -108,9 +114,14 @@ def check_shardable(cfg, tp: int) -> None:
                 "the port shards whole heads, K/V heads and features")
 
 
-def _model_dims(params: dict, mesh) -> dict:
-    """Each param's dim sharded on ``model`` (None when replicated)."""
-    return {name: spec.index("model") if "model" in spec else None
+# The axes a param is cut on, in the order a gather rebuilds them.
+_CUT_AXES = ("model", "expert", "stage")
+
+
+def _cut_dims(params: dict, mesh) -> dict:
+    """Each param's ``{axis: dim}`` of the cut axes its spec names."""
+    return {name: {axis: spec.index(axis) for axis in _CUT_AXES
+                   if axis in spec}
             for name, spec in param_specs(params, mesh).items()}
 
 
@@ -134,28 +145,39 @@ def _cat(parts, dim):
     return np.concatenate(parts, axis=dim)
 
 
-def _cut(name, x, dim, tp, r, cfg):
-    segs = _segments(name, cfg, x.shape[dim])
-    return _cat([_split(seg, [seg.shape[dim] // tp] * tp, dim)[r]
+def _cut(name, x, dim, n, r, cfg, axis):
+    """Slice ``r`` of ``n`` of ``x`` along ``dim``: by whole heads of
+    each w_qkv segment on ``model``, contiguous otherwise (whole layers
+    on ``stage``, whole experts on ``expert``)."""
+    segs = _segments(name, cfg, x.shape[dim]) if axis == "model" else [
+        x.shape[dim]]
+    return _cat([_split(seg, [seg.shape[dim] // n] * n, dim)[r]
                  for seg in _split(x, segs, dim)], dim)
 
 
-def _join(name, parts, dim, tp, cfg):
-    """Inverse of :func:`_cut` over the ranks' slices in model order."""
-    segs = [s // tp for s in _segments(name, cfg,
-                                       parts[0].shape[dim] * tp)]
+def _join(name, parts, dim, n, cfg, axis):
+    """Inverse of :func:`_cut` over the ranks' slices in axis order."""
+    width = parts[0].shape[dim] * n
+    segs = [s // n for s in (_segments(name, cfg, width)
+                             if axis == "model" else [width])]
     pieces = [_split(p, segs, dim) for p in parts]
-    return _cat([_cat([pieces[r][j] for r in range(tp)], dim)
+    return _cat([_cat([pieces[r][j] for r in range(n)], dim)
                  for j in range(len(segs))], dim)
 
 
 def shard_params(mesh, params: dict, cfg) -> dict:
-    """This rank's slices of a full param tree (numpy or torch leaves)."""
-    tp, r = mesh.size("model"), mesh.index("model")
-    dims = _model_dims(params, mesh)
-    return {name: x if dims[name] is None or tp == 1
-            else _cut(name, x, dims[name], tp, r, cfg)
-            for name, x in params.items()}
+    """This rank's slices of a full param tree (numpy or torch leaves):
+    cut on ``model`` (whole heads and feature blocks), ``expert`` (whole
+    experts) and ``stage`` (whole layers) where the mesh has them."""
+    dims = _cut_dims(params, mesh)
+    out = {}
+    for name, x in params.items():
+        for axis, dim in dims[name].items():
+            if mesh.size(axis) > 1:
+                x = _cut(name, x, dim, mesh.size(axis), mesh.index(axis),
+                         cfg, axis)
+        out[name] = x
+    return out
 
 
 def shard_tree(mesh, tree: dict, cfg) -> dict:
@@ -169,33 +191,43 @@ def shard_tree(mesh, tree: dict, cfg) -> dict:
 
 def gather_params(mesh, params: dict, cfg, *, dst: int | None = None
                   ) -> dict:
-    """The full tree from every rank's slices over the ``model`` group (a
-    collective: every rank of the group calls it). Leaves are detached;
-    replicated ones are returned as they are. By default an all-gather
-    gives every rank the tree; with ``dst`` (the global rank of a member
-    of this rank's group) the sharded leaves are gathered onto that rank
-    alone, one leaf at a time and each joined on the host, so no rank
-    holds the full tree on its device; the others get None for them."""
+    """The full tree from every rank's slices over the ``model``,
+    ``expert`` and ``stage`` groups, in that order (a collective: every
+    rank of the groups calls it). Leaves are detached; replicated ones
+    are returned as they are. By default all-gathers give every rank the
+    tree. With ``dst`` (the global rank at coordinate 0 of every cut
+    axis of this rank's block) each leaf is gathered, one axis after
+    another, onto the group's first member, joined on the host and (for
+    the next axis) sent back to the device, so no rank holds the full
+    tree on its device: a rank whose coordinate on an axis is not 0
+    sends its slice and takes no part in the later axes' gathers, and
+    every rank but ``dst`` gets None for the cut leaves."""
     import torch.distributed as dist
 
-    tp, group = mesh.size("model"), mesh.group("model")
-    dims = _model_dims(params, mesh)
+    dims = _cut_dims(params, mesh)
     out = {}
     for name, x in params.items():
         x = x.detach()
-        dim = dims[name]
-        if dim is None or tp == 1 or group is None:
-            out[name] = x
-        elif dst is None:
-            parts = [torch.empty_like(x) for _ in range(tp)]
-            dist.all_gather(parts, x.contiguous(), group=group)
-            out[name] = _join(name, parts, dim, tp, cfg)
-        else:
-            mine = dist.get_rank() == dst
-            parts = [torch.empty_like(x) for _ in range(tp)] if mine else None
-            dist.gather(x.contiguous(), parts, dst=dst, group=group)
-            out[name] = (_join(name, [p.cpu() for p in parts], dim, tp, cfg)
-                         if mine else None)
+        device = x.device
+        for axis, dim in dims[name].items():
+            n, group = mesh.size(axis), mesh.group(axis)
+            if n == 1 or group is None:
+                continue
+            if x is None:
+                break
+            if dst is None:
+                parts = [torch.empty_like(x) for _ in range(n)]
+                dist.all_gather(parts, x.contiguous(), group=group)
+                x = _join(name, parts, dim, n, cfg, axis)
+                continue
+            x = x.to(device)  # a leaf joined on the host, for the next axis
+            first = dist.get_global_rank(group, 0)
+            mine = dist.get_rank() == first
+            parts = [torch.empty_like(x) for _ in range(n)] if mine else None
+            dist.gather(x.contiguous(), parts, dst=first, group=group)
+            x = (_join(name, [p.cpu() for p in parts], dim, n, cfg, axis)
+                 if mine else None)
+        out[name] = x
     return out
 
 
@@ -242,21 +274,21 @@ class _ReduceFromModel(torch.autograd.Function):
 
 
 class _GatherFromModel(torch.autograd.Function):
-    """All-gather along the last dim; backward keeps this rank's slice."""
+    """All-gather along ``dim``; backward keeps this rank's slice."""
 
     @staticmethod
-    def forward(ctx, x, group, tp, r):
+    def forward(ctx, x, group, n, r, dim):
         import torch.distributed as dist
 
-        ctx.r, ctx.width = r, x.shape[-1]
-        parts = [torch.empty_like(x) for _ in range(tp)]
+        ctx.r, ctx.width, ctx.dim = r, x.shape[dim], dim
+        parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, -1)
+        return torch.cat(parts, dim)
 
     @staticmethod
     def backward(ctx, grad):
-        return (grad.narrow(-1, ctx.r * ctx.width, ctx.width).contiguous(),
-                None, None, None)
+        return (grad.narrow(ctx.dim, ctx.r * ctx.width,
+                            ctx.width).contiguous(), None, None, None, None)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -295,7 +327,25 @@ def gather_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
     if group is None:
         return x
     return _GatherFromModel.apply(x, group, mesh.size("model"),
-                                  mesh.index("model"))
+                                  mesh.index("model"), -1)
+
+
+def copy_to_experts(x: torch.Tensor, mesh) -> torch.Tensor:
+    """*f* over the ``expert`` group: identity forward, all-reduce
+    backward (each expert rank's input gradient holds only its own
+    experts' share)."""
+    group = mesh.group("expert")
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def gather_from_experts(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The expert ranks' ``[E/ep, ...]`` outputs all-gathered into
+    ``[E, ...]``; backward keeps this rank's experts' slice."""
+    group = mesh.group("expert")
+    if group is None:
+        return x
+    return _GatherFromModel.apply(x, group, mesh.size("expert"),
+                                  mesh.index("expert"), 0)
 
 
 def token_groups(mesh) -> tuple:
@@ -315,15 +365,35 @@ def token_ranks(mesh) -> int:
     return mesh.size("data") * mesh.size("seq")
 
 
-def reduce_grads(grads: list, mesh) -> list:
+def reduce_grads(grads: list, mesh, stage_summed=()) -> list:
     """Sum every gradient over the ``data`` and ``seq`` groups, as one
-    fp32 buffer a group."""
+    fp32 buffer a group; the gradients flagged in ``stage_summed`` (one
+    bool a gradient) are summed over the ``stage`` group as well.
+
+    Three kinds of gradient meet here (module doc): a rank's slice of a
+    layer-stacked param is its stage's alone, and an expert's weights
+    its expert rank's alone, so neither is summed over ``stage`` or
+    ``expert``; the router, norms and attention see the same tokens and
+    the same combined outputs on every expert rank, so their gradients
+    are equal there and are not summed over ``expert`` either; a
+    gradient that only some stages compute (1F1B's loss head on the last
+    stage, the embedding's lookup on the first) is summed over
+    ``stage``, which GPipe never needs: its head runs on every stage
+    alike and its input cotangent reaches every stage
+    (``parallel/pipeline.py``)."""
     groups = token_groups(mesh)
-    if not groups:
+    stage = mesh.group("stage") if any(stage_summed) else None
+    if not groups and stage is None:
         return list(grads)
     flat = torch.cat([g.reshape(-1).float() for g in grads])
     for group in groups:
         _all_reduce(flat, group)
+    if stage is not None:
+        mask = torch.cat([torch.full((g.numel(),), bool(f), device=g.device)
+                          for g, f in zip(grads, stage_summed)])
+        part = torch.where(mask, flat, 0)
+        _all_reduce(part, stage)
+        flat = torch.where(mask, part, flat)
     out, at = [], 0
     for g in grads:
         out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
@@ -358,13 +428,11 @@ def shard_batch(mesh, batch):
 def abstract_shard_tree(mesh, shapes: dict, cfg) -> dict:
     """The shapes of this rank's slices of a ``{name: shape}`` tree (a
     restore template of what :func:`shard_params` cuts)."""
-    tp = mesh.size("model")
-    dims = _model_dims(shapes, mesh)
+    dims = _cut_dims(shapes, mesh)
     out = {}
     for name, shape in shapes.items():
-        dim = dims[name]
-        shape = tuple(shape)
-        if dim is not None and tp > 1:
-            shape = shape[:dim] + (shape[dim] // tp,) + shape[dim + 1:]
-        out[name] = shape
+        shape = list(shape)
+        for axis, dim in dims[name].items():
+            shape[dim] //= mesh.size(axis)
+        out[name] = tuple(shape)
     return out

@@ -18,8 +18,9 @@ architecture.
 
 A checkpoint is always the GLOBAL tree, as the reference's orbax
 checkpoint is. Under a mesh (``parallel/mesh.py``) :meth:`save_global`
-gathers the fp32 params and moments over rank 0's ``model`` group onto
-rank 0 alone, leaf by leaf, rank 0 writes them as above, and every rank
+gathers the fp32 params and moments over rank 0's ``model``, ``expert``
+and ``stage`` groups onto rank 0 alone, leaf by leaf, rank 0 writes them
+as above, and every rank
 then waits at a barrier;
 :meth:`restore_global` reads the full tree on every rank and cuts the
 rank's slices. So a checkpoint written by a world of N restores in a
@@ -161,9 +162,10 @@ class StateCheckpointer:
 
     def save_global(self, step: int, tree: dict, mesh, cfg) -> None:
         """:meth:`save` of the global tree from every rank's slices (a
-        collective: every rank calls it; module doc). Only the ranks of
-        rank 0's ``model`` group (every other coordinate 0) gather; the
-        rest wait at the barrier."""
+        collective: every rank calls it; module doc). Only the ranks
+        whose ``data`` and ``seq`` coordinates are 0 gather, over the
+        ``model``, ``expert`` and ``stage`` groups onto rank 0
+        (``sharding.gather_params``); the rest wait at the barrier."""
         import torch.distributed as dist
 
         from kvedge_torch.parallel.sharding import gather_tree
@@ -173,7 +175,7 @@ class StateCheckpointer:
                              for k, v in tree.items()})
             return
         if all(mesh.index(axis) == 0 for axis in mesh.axis_names
-               if axis != "model"):
+               if axis not in ("model", "expert", "stage")):
             full = {k: gather_tree(mesh, v, cfg, dst=0)
                     for k, v in tree.items()}
             if dist.get_rank() == 0:

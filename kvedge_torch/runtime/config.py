@@ -9,16 +9,17 @@ same names and defaults, for the subset the ported payloads run:
                the section keeps the reference's name so that one TOML
                parses in both packages
     [mesh]     axes over the world of processes, one card each: data,
-               model and seq may span more than one device (the
-               reference's MeshSpec rules resolve an axis of 0); a
-               stage or expert axis above 1 is refused
+               model, seq, stage and expert may span more than one
+               device (the reference's MeshSpec rules resolve an axis
+               of 0)
     [distributed]  num_processes, coordinator_address,
                coordinator_port, process_id (the reference's spec;
                parallel/distributed.py joins the world at boot)
     [model]    preset, vocab, d_model, n_heads, n_kv_heads, n_layers, d_ff,
                experts (the MoE expert count, 0 = dense), expert_top_k
                (0 = 1; 2 = GShard top-2), expert_capacity_factor (0 =
-               the drop-free experts / top_k), pipeline_schedule ("" only)
+               the drop-free experts / top_k), pipeline_schedule ("" =
+               "gpipe" | "1f1b"; used under a stage axis above 1)
     [payload]  kind ("devicecheck", the default, | "transformer-probe" |
                "inference-probe" | "train" | "eval" | "serve" | "none"),
                seq (the model's
@@ -70,15 +71,18 @@ same names and defaults, for the subset the ported payloads run:
 Any other section or key is REFUSED with its name, not ignored: a knob
 the port does not implement would otherwise silently change nothing
 (``[model] n_experts`` among them: the key is ``experts``). Still
-refused by name: a ``stage`` or ``expert`` mesh axis above 1,
-``pipeline_schedule`` and pipelining, and a mesh over several cards in
-one process (ROADMAP Queue A item 7b), and the ``serve`` and
-``inference-probe`` payloads over a ``seq`` axis (sequence parallelism
-is the training layout; serving shards over ``data`` and ``model``).
+refused by name: a mesh over several cards in one process (ROADMAP
+Queue A item 7c), the ``serve`` and ``inference-probe`` payloads over a
+``seq`` axis (sequence parallelism is the training layout; serving
+shards over ``data`` and ``model``), and those payloads over a
+``stage`` or ``expert`` axis above 1 (item 7d; a checkpoint trained on
+such a mesh is gathered, so one process serves it).
 The mesh resolves against ``num_processes`` (the port runs one card a
 process), and :meth:`RuntimeConfig.model_config` derives the model from
 it as the reference's ``derive_model_config`` does: a ``seq`` axis
-means ring attention unless ``[payload] attention`` names Ulysses.
+means ring attention unless ``[payload] attention`` names Ulysses, an
+``expert`` axis an MoE model with its experts split over it, and a
+``stage`` axis a pipelined layer stack.
 :meth:`RuntimeConfig.to_toml` writes the canonical document
 and :meth:`RuntimeConfig.apply` materializes it, as
 ``kvedge-bootstrap apply`` does.
@@ -191,10 +195,8 @@ def _toml_bool(value: bool) -> str:
     return "true" if value else "false"
 
 
-# The axes the port shards over, and those it refuses above 1 (ROADMAP
-# Queue A item 7b: the pipelines and the expert-parallel MoE).
-_MESH_AXES = ("data", "model", "seq")
-_REFUSED_AXES = ("stage", "expert")
+# The axes the port shards over.
+_MESH_AXES = ("data", "model", "seq", "stage", "expert")
 
 
 class MeshConfigError(RuntimeConfigError):
@@ -289,12 +291,6 @@ def _mesh_axes(table) -> tuple[tuple[str, int], ...]:
 
 
 def _refuse_axis(axis: str, size: int) -> None:
-    if axis in _REFUSED_AXES:
-        what = ("pipelining" if axis == "stage"
-                else "the expert-parallel MoE")
-        raise RuntimeConfigError(
-            f"[mesh] axis {axis!r} = {size}: {what} is not ported to "
-            "PyTorch yet (ROADMAP Queue A item 7b)")
     raise RuntimeConfigError(
         f"[mesh] axis {axis!r} = {size}: the PyTorch port shards over "
         f"{list(_MESH_AXES)} only")
@@ -568,11 +564,10 @@ class RuntimeConfig:
         _mesh_axes(dict(self.mesh_axes))
         _distributed({k: getattr(self, k) for k in _DISTRIBUTED_KEYS})
         self._validate_world()
-        if self.pipeline_schedule != "":
+        if self.pipeline_schedule not in ("", "gpipe", "1f1b"):
             raise RuntimeConfigError(
-                f"[model] pipeline_schedule = {self.pipeline_schedule!r}: "
-                "pipelining needs a 'stage' mesh axis over more than one "
-                "device (ROADMAP Queue A item 7b)")
+                "[model] pipeline_schedule must be 'gpipe' or '1f1b' "
+                "('' = gpipe)")
         for name in ("serving_prefix_host_mb",
                      "serving_sched_max_queue_depth",
                      "serving_sched_swap_budget_mb",
@@ -858,9 +853,9 @@ class RuntimeConfig:
 
     def _validate_world(self) -> None:
         """The mesh against the world: one card a process, so the mesh
-        resolves against ``num_processes``; no ``stage`` or ``expert``
-        axis above 1; ``serve`` and ``inference-probe`` on no ``seq``
-        axis."""
+        resolves against ``num_processes``; ``serve`` and
+        ``inference-probe`` on no ``seq``, ``stage`` or ``expert`` axis
+        above 1."""
         wanted = 1
         for _, size in self.mesh_axes:
             wanted *= size or 1
@@ -869,16 +864,26 @@ class RuntimeConfig:
                 f"[mesh] axes {dict(self.mesh_axes)} want {wanted} devices "
                 "in one process; the PyTorch port runs one card a process "
                 "([distributed] num_processes), and several cards in one "
-                "process are not ported yet (ROADMAP Queue A item 7b)")
+                "process are not ported yet (ROADMAP Queue A item 7c)")
         for axis, size in self.axis_sizes().items():
             if size > 1 and axis not in _MESH_AXES:
                 _refuse_axis(axis, size)
-        if (self.payload in ("serve", "inference-probe")
-                and self.axis_sizes().get("seq", 1) > 1):
+        if self.payload not in ("serve", "inference-probe"):
+            return
+        sizes = self.axis_sizes()
+        if sizes.get("seq", 1) > 1:
             raise RuntimeConfigError(
                 f"[payload] kind = {self.payload!r} over a 'seq' axis of "
-                f"{self.axis_sizes()['seq']}: sequence parallelism is the "
+                f"{sizes['seq']}: sequence parallelism is the "
                 "training layout; serving shards over 'data' and 'model'")
+        for axis, article in (("stage", "a"), ("expert", "an")):
+            if sizes.get(axis, 1) > 1:
+                raise RuntimeConfigError(
+                    f"[payload] kind = {self.payload!r} over {article} "
+                    f"{axis!r} axis of {sizes[axis]}: serving over the "
+                    "'stage' and 'expert' axes is not ported yet (ROADMAP "
+                    "Queue A item 7d); a checkpoint trained on such a mesh "
+                    "is gathered, so one process serves it")
 
     def _validate_experts(self) -> None:
         """The reference parser's checks of the MoE knobs, with its
@@ -903,7 +908,8 @@ class RuntimeConfig:
             raise RuntimeConfigError(
                 "[model] expert_top_k must be 1 or 2 (0 = default 1)")
 
-    def model_config(self, dtype: str = "bfloat16") -> TransformerConfig:
+    def model_config(self, dtype: str = "bfloat16",
+                     device=None) -> TransformerConfig:
         """The model of every payload, derived from ``[model]`` and the
         mesh as the reference's ``derive_model_config`` derives it, with
         its messages (:class:`MeshConfigError`):
@@ -916,11 +922,20 @@ class RuntimeConfig:
         * a preset's head count rises to the ``model`` axis, and for
           Ulysses rounds up to a multiple of seq x model; an explicit
           ``n_heads`` that Ulysses cannot split is refused;
-        * the MoE fields with no ``expert`` axis: ``experts`` as given,
-          top_k ``expert_top_k or 1``, the capacity factor
-          ``expert_capacity_factor or experts / top_k`` (provably
-          drop-free, so training and dropless serving compute the same
-          function), and MoE knobs on a dense model refused;
+        * the MoE fields: ``experts`` as given (a count the ``expert``
+          axis does not divide is refused) or, unset, the ``expert``
+          axis's size when above 1; top_k ``expert_top_k or 1``, the
+          capacity factor ``expert_capacity_factor or experts / top_k``
+          (provably drop-free, so training and dropless serving compute
+          the same function), and MoE knobs on a dense model refused;
+        * a ``stage`` axis above 1: a preset's ``n_layers`` rounds up to
+          a multiple of it (an explicit one that does not divide is
+          refused), ``pipeline_stages`` is its size and
+          ``pipeline_schedule`` defaults to "gpipe";
+        * ``dtype``, except that on the CPU (``device``) a stage axis
+          above 1 with a ``model`` axis above 1 or more than one expert
+          derives "float32", as the reference does on its CPU backend
+          (a JAX compiler workaround: the card keeps ``dtype``);
         * the port's own rule for a ``model`` axis: it shards whole heads
           and K/V heads (``parallel/sharding.check_shardable``)."""
         axis_sizes = self.axis_sizes()
@@ -947,29 +962,53 @@ class RuntimeConfig:
                     f"attention on this mesh: the head count must divide by "
                     f"seq x model = {group}")
             n_heads = group * -(-n_heads // group)  # round up, preset-derived
-        if not self.experts and (self.expert_top_k
-                                 or self.expert_capacity_factor):
+        n_experts_axis = axis_sizes.get("expert", 1)
+        if self.experts:
+            n_experts = self.experts
+            if n_experts % n_experts_axis:
+                raise MeshConfigError(
+                    f"[model] experts = {n_experts} must divide by the "
+                    f"mesh's expert axis ({n_experts_axis}) — each device "
+                    "holds E/ep whole experts (parallel/sharding.py)")
+        else:
+            n_experts = n_experts_axis if n_experts_axis > 1 else 0
+        if not n_experts and (self.expert_top_k
+                              or self.expert_capacity_factor):
             raise MeshConfigError(
                 "[model] expert_top_k/expert_capacity_factor are set but "
                 "the model is dense (no [model] experts and no 'expert' "
                 "mesh axis) — set experts = N or drop the MoE knobs")
+        stages = axis_sizes.get("stage", 1)
+        n_layers = self.n_layers or base["n_layers"]
+        if stages > 1 and n_layers % stages:
+            if self.n_layers:
+                raise MeshConfigError(
+                    f"[model] n_layers = {n_layers} must divide by the "
+                    f"mesh's stage axis ({stages}) — each stage holds L/S "
+                    "whole layers")
+            n_layers = stages * -(-n_layers // stages)  # round up
         top_k = self.expert_top_k or 1
         capacity = (self.expert_capacity_factor
-                    or max(self.experts, 1) / top_k)
+                    or max(n_experts, 1) / top_k)
+        on_cpu = device is not None and str(device).split(":")[0] == "cpu"
+        if stages > 1 and (model_axis > 1 or n_experts > 1) and on_cpu:
+            dtype = "float32"
         tcfg = TransformerConfig(
             vocab=self.vocab or base["vocab"],
             d_model=self.d_model or base["d_model"],
             n_heads=n_heads,
             n_kv_heads=self.n_kv_heads or base["n_kv_heads"],
-            n_layers=self.n_layers or base["n_layers"],
+            n_layers=n_layers,
             d_ff=self.d_ff or base["d_ff"],
             max_seq=self.max_seq,
             dtype=dtype,
             paged_attention=self.payload_paged_attention or "auto",
             attention=attention,
-            n_experts=self.experts,
+            n_experts=n_experts,
             expert_top_k=top_k,
             expert_capacity_factor=float(capacity),
+            pipeline_stages=stages if stages > 1 else 0,
+            pipeline_schedule=self.pipeline_schedule or "gpipe",
         )
         try:
             tcfg.validate()

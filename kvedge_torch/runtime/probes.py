@@ -63,10 +63,11 @@ PROBE_PROMPT = 8
 PROBE_NEW_TOKENS = 4
 
 
-def transformer_probe_config(cfg: RuntimeConfig,
-                             dtype: str = "bfloat16") -> TransformerConfig:
+def transformer_probe_config(cfg: RuntimeConfig, dtype: str = "bfloat16",
+                             device=None) -> TransformerConfig:
     """The ``[model]`` config at ``PROBE_SEQ`` tokens."""
-    return dataclasses.replace(cfg, max_seq=PROBE_SEQ).model_config(dtype)
+    return dataclasses.replace(cfg, max_seq=PROBE_SEQ).model_config(
+        dtype, device)
 
 
 def inference_probe_config(dtype: str = "bfloat16") -> TransformerConfig:
@@ -93,7 +94,7 @@ def run_transformer_probe(cfg: RuntimeConfig, device=None,
     from kvedge_torch.models.transformer import init_params
 
     try:
-        tcfg = transformer_probe_config(cfg, dtype)
+        tcfg = transformer_probe_config(cfg, dtype, resolve_device(device))
     except RuntimeConfigError as e:
         # A healthy runtime with an un-runnable model: a clear config
         # message, not a generic "probe failed" traceback.

@@ -146,7 +146,7 @@ def run_train_payload(cfg: RuntimeConfig, device=None,
             ok=False, error="[payload] kind = 'train' requires corpus = "
             "'<path>' (a KVFEED01 token file, typically on the state volume)")
     try:
-        tcfg = cfg.model_config(dtype)
+        tcfg = cfg.model_config(dtype, dev)
     except MeshConfigError as e:
         return PayloadResult(ok=False, error=str(e))
     mesh = build_mesh(cfg.mesh)
@@ -221,7 +221,7 @@ def run_eval_payload(cfg: RuntimeConfig, device=None,
             "'<path>' or eval_corpus = '<path>' (a KVFEED01 token file; "
             "eval_corpus is the held-out split)")
     try:
-        tcfg = cfg.model_config(dtype)
+        tcfg = cfg.model_config(dtype, dev)
     except MeshConfigError as e:
         return PayloadResult(ok=False, error=str(e))
     mesh = build_mesh(cfg.mesh)

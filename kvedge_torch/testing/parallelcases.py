@@ -65,9 +65,10 @@ def train_cases(cases: list) -> list:
     """``{"axes", "cfg" (TransformerConfig fields), "params" (numpy
     tree), "batches" (global [B, T+1] arrays)}`` -> ``{"losses",
     "grads", "params"}``: a train step a batch on this rank's slices and
-    rows, the loss after each, and (rank 0 only) the gathered gradients
-    of the first batch, as the first step hands them to AdamW, and the
-    gathered params after the last step; or ``{"error": message}``."""
+    rows, the loss after each, the gathered gradients of the first batch
+    as the first step hands them to AdamW (every rank's: a replicated
+    leaf is this rank's own copy), and (rank 0 only) the gathered params
+    after the last step; or ``{"error": message}``."""
     results = []
     for case in cases:
         mesh = build_mesh(MeshSpec(tuple(case["axes"])))
@@ -92,8 +93,7 @@ def train_cases(cases: list) -> list:
         first = distributed.rank() == 0
         results.append({
             "losses": losses,
-            "grads": ({k: v.numpy() for k, v in grads.items()}
-                      if first else None),
+            "grads": {k: v.numpy() for k, v in grads.items()},
             "params": ({k: v.numpy() for k, v in full.items()}
                        if first else None)})
     return results
@@ -111,15 +111,53 @@ def shard_round_trip(axes, cfg_fields: dict, tree: dict) -> dict:
             "full": {k: v.numpy() for k, v in full.items()}}
 
 
+def stash_cases(cases: list) -> list:
+    """``{"axes", "cfg", "params", "batch"}`` of a 1F1B config ->
+    ``{"peak", "depth"}``: the most stage inputs this rank's stash held
+    at once over one ``loss_and_grads``, and its ring's depth."""
+    from kvedge_torch.parallel import pipeline1f1b
+
+    results = []
+    real = pipeline1f1b._Stash
+    stashes = []
+
+    class Recording(real):
+        def __init__(self, depth):
+            super().__init__(depth)
+            self.peak = 0
+            stashes.append(self)
+
+        def put(self, i, x):
+            super().put(i, x)
+            self.peak = max(self.peak,
+                            sum(s is not None for s in self.slots))
+
+    pipeline1f1b._Stash = Recording
+    try:
+        for case in cases:
+            mesh = build_mesh(MeshSpec(tuple(case["axes"])))
+            cfg = TransformerConfig(**case["cfg"])
+            params = master_params(case["params"], cfg, "cpu", mesh)
+            loss_and_grads(params, shard_batch(
+                mesh, torch.as_tensor(case["batch"])), cfg, mesh)
+            results.append({"peak": stashes[-1].peak,
+                            "depth": len(stashes[-1].slots)})
+    finally:
+        pipeline1f1b._Stash = real
+    return results
+
+
 def families(attention: list = (), train: list = (),
-             round_trips: list = (), payloads: list = ()) -> dict:
+             round_trips: list = (), payloads: list = (),
+             stash: list = ()) -> dict:
     """Every case family in one world: ``{"attention": ..., "train":
-    ..., "round_trips": ..., "payloads": ...}`` (a round trip is
-    ``(axes, cfg fields, tree)``)."""
+    ..., "round_trips": ..., "payloads": ..., "stash": ...}`` (a round
+    trip is ``(axes, cfg fields, tree)``)."""
     return {"attention": attention_cases(list(attention)),
             "train": train_cases(list(train)),
             "round_trips": [shard_round_trip(*case) for case in round_trips],
-            "payloads": payload_cases(list(payloads))}
+            "payloads": payload_cases(list(payloads)),
+            "stash": stash_cases(list(stash))}
 
 
 def payload_cases(cases: list) -> list:

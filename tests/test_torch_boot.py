@@ -276,7 +276,7 @@ def test_degraded_states_answer_as_the_reference(tmp_path, monkeypatch,
     ({"mesh_axes": (("data", 1), ("seq", 2)), "num_processes": 2},
      r"kind = 'serve' over a 'seq' axis of 2"),
     ({"mesh_axes": (("expert", 0),), "num_processes": 2},
-     r"'expert' = 2: the expert-parallel MoE .* Queue A item 7b"),
+     r"kind = 'serve' over an 'expert' axis of 2: .* Queue A item 7d"),
 ], ids=["mesh", "num_processes"])
 def test_a_config_the_parser_refuses_degrades_the_boot(tmp_path, fields,
                                                        message):
@@ -561,11 +561,14 @@ def test_status_token_round_trips_through_config_toml():
      '[payload]\nkind = "serve"\n', r"kind = 'serve' over a 'seq' axis"),
     ('[distributed]\nprocess_id = 3\n', "process_id 3 not in"),
     ('[distributed]\nhosts = 2\n', r"\['hosts'\]"),
-    ('[model]\npipeline_schedule = "1f1b"\n', r"pipelining.*item 7"),
+    ('[model]\npipeline_schedule = "zb"\n',
+     r"pipeline_schedule must be 'gpipe' or '1f1b'"),
     ('[mesh]\naxes = { data = 0, stage = 2 }\n[distributed]\n'
-     'num_processes = 4\n', r"'stage' = 2: pipelining.*item 7"),
-    ('[mesh]\naxes = { expert = 0 }\n[distributed]\nnum_processes = 2\n',
-     r"'expert' = 2: the expert-parallel MoE.*item 7"),
+     'num_processes = 4\n[payload]\nkind = "serve"\n',
+     r"'serve' over a 'stage' axis of 2.*item 7"),
+    ('[mesh]\naxes = { expert = 0 }\n[distributed]\nnum_processes = 2\n'
+     '[payload]\nkind = "inference-probe"\n',
+     r"'inference-probe' over an 'expert' axis of 2.*item 7"),
     ('[mesh]\naxes = { data = 1, seq = 2 }\n[distributed]\n'
      'num_processes = 2\n[payload]\nkind = "inference-probe"\n',
      r"'inference-probe' over a 'seq' axis"),

@@ -454,11 +454,11 @@ def test_prefix_persistence_and_other_left_out_knobs_are_refused():
                         ("[payload]\nattention = 'ulysses'\n", "ulysses")):
         with pytest.raises(RuntimeConfigError, match=match):
             ServeConfig.parse(text).model_config()
-    # remat_policy "dots" and MoE are ported: accepted, with the
-    # reference's refusals of invalid MoE values; pipelining is not.
+    # remat_policy "dots", MoE and pipelining are ported: accepted, with
+    # the reference's refusals of invalid values.
     dataclasses.replace(TransformerConfig(**KW), remat_policy="dots",
                         n_experts=4, expert_top_k=2).validate()
-    for change, match in ((dict(pipeline_stages=2), "pipeline_stages"),
+    for change, match in ((dict(pipeline_stages=-1), "pipeline_stages"),
                           (dict(n_experts=-1), "n_experts"),
                           (dict(n_experts=4, expert_capacity_factor=0.0),
                            "capacity"),

@@ -381,6 +381,7 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
         "            'data.feeder', 'parallel', 'parallel.distributed',\n"
         "            'parallel.mesh', 'parallel.sharding',\n"
         "            'parallel.ringattention', 'parallel.ulysses',\n"
+        "            'parallel.pipeline', 'parallel.pipeline1f1b',\n"
         "            'testing.world', 'testing.parallelcases',\n"
         "            'testing.slicecases', 'testing.servingfaults'):\n"
         "    assert 'kvedge_torch.' + new in mods, mods\n"

@@ -190,22 +190,27 @@ def test_config_refuses_what_the_port_does_not_run():
         (dict(n_experts=4, expert_capacity_factor=0.0), "capacity"),
         (dict(n_experts=4, expert_top_k=3), "top_k"),
         (dict(n_experts=1, expert_top_k=2), "top_k"),
-        (dict(pipeline_stages=2), "pipelining"),
+        (dict(pipeline_schedule="1f1b", n_experts=4), "does not support MoE"),
     ]:
         with pytest.raises(ValueError, match=match):
             dataclasses.replace(cfg, **change).validate()
-    # fused_xent, remat_policy="dots", MoE and the sequence-parallel
-    # attentions are ported: they validate, as in the reference.
+    # fused_xent, remat_policy="dots", MoE, the sequence-parallel
+    # attentions and the pipelines are ported: they validate, as in the
+    # reference.
     for change in (dict(fused_xent=True), dict(remat_policy="dots"),
                    dict(n_experts=4), dict(n_experts=4, expert_top_k=2),
-                   dict(attention="ring"), dict(attention="ulysses")):
+                   dict(attention="ring"), dict(attention="ulysses"),
+                   dict(pipeline_stages=2),
+                   dict(pipeline_stages=2, pipeline_schedule="1f1b")):
         dataclasses.replace(cfg, **change).validate()
     # The reference's messages for the values it also refuses.
     for change in (dict(attention="local"), dict(remat_policy="some"),
                    dict(n_experts=-1),
                    dict(n_experts=4, expert_capacity_factor=0.0),
                    dict(n_experts=4, expert_top_k=3),
-                   dict(n_experts=1, expert_top_k=2)):
+                   dict(n_experts=1, expert_top_k=2),
+                   dict(pipeline_stages=3, n_layers=4),
+                   dict(pipeline_schedule="1f1b", n_experts=4)):
         with pytest.raises(ValueError) as theirs:
             dataclasses.replace(jtr.TransformerConfig(), **change).validate()
         with pytest.raises(ValueError) as ours:
