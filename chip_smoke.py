@@ -478,6 +478,31 @@ imports nothing of JAX. Phases, each printing one JSON line:
             8 x 512 equal the same steps on the same mesh with no
             process group within 1e-3 (phase 17's bound). Budget 45 s,
             reported.
+17c. local  (run after slice, once the script has left that world) one
+            pod's local ranks (``parallel/launch.py``) on the one card.
+            (a) A paged ``serve`` TOML with ``[mesh] axes = { data = 2 }``
+            and no ``[distributed]`` booted through ``start_runtime``:
+            ``/healthz`` is 503 within 10 s with the reference's
+            "mesh resolution failed: ... wants 2 devices, have 1", and
+            no child of the script is alive. (b) The default mesh ``{
+            data = 0, model = 1 }``: ``serve.boot_serve`` at the
+            flagship width, fp32, 2 layers, numpy-seeded weights, the
+            serve phase's fp32 knobs: the launcher counts one card and
+            starts no rank, the device check reports 1 device on a [1,
+            1] mesh, four of the serve phase's fp32 requests return its
+            ``serve_fp32`` tokens, and B1's count (zeroed just before,
+            read just after) is gated through ``expect_counts``; the
+            first ``/healthz`` 200 after the boot began and the largest
+            ``VmRSS`` of this process sampled meanwhile. (c) The local
+            rank's entry point (``python -m kvedge_torch.parallel.launch``)
+            started by the launcher's own spawn code as the only rank of
+            a world of one (local rank 0, one card, a ``FileStore`` in
+            the phase's directory; this process does not join): it
+            binds ``cuda:0`` as its current device, joins an NCCL world
+            of one, runs the ``devicecheck`` payload (its probe's
+            checksum equal to this process's on the same card) and exits
+            0; no process is left. Started first, it runs beside (a)
+            and (b). Budget 30 s, reported.
 18. kernels  one line listing every ported kernel, after a line with
             the seconds each phase took.
 
@@ -6470,6 +6495,213 @@ def phase_slice(torch, np, pa, kfns, serve, sliceserve, serving, sf,
     return bf16
 
 
+# ---- phase 17c: local --------------------------------------------------
+
+LOCAL_DIR = os.path.join(HERE, "build", "chip_smoke_local")
+
+
+def local_subdir(name) -> str:
+    import shutil
+
+    path = os.path.join(LOCAL_DIR, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def vmrss_bytes() -> int:
+    """This process's resident set now (``VmRSS``)."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def live_children() -> list:
+    """Pids of this process's children that have not exited (from
+    ``/proc``; a zombie has exited)."""
+    me, out = os.getpid(), []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as fh:
+                state, ppid = fh.read().rsplit(")", 1)[1].split()[:2]
+        except (OSError, ValueError):
+            continue
+        if int(ppid) == me and state != "Z":
+            out.append(int(pid))
+    return out
+
+
+def local_child(torch, launch_mod, RuntimeConfig, device):
+    """(c)'s rank: the launcher's child command as local rank 0 of a
+    world of one, a ``devicecheck`` TOML, a ``FileStore`` in its
+    directory. Returns (the launcher's ``Ranks``, the directory)."""
+    from kvedge_torch.parallel.distributed import WorldLayout
+
+    where = local_subdir("child")
+    cfg = RuntimeConfig(state_dir=where, expected_platform=(
+        "cpu" if device == "cpu" else "gpu"))
+    path = os.path.join(where, "config.toml")
+    with open(path, "w") as fh:
+        fh.write(cfg.to_toml())
+    layout = WorldLayout(1, 0, 1, "file://" + os.path.join(where, "store"))
+    ranks = launch_mod.Ranks(
+        [launch_mod.child_command(path, 0, layout, torch.device(device),
+                                  "bfloat16", 0)],
+        [os.path.join(where, "rank0.log")],
+        dict(os.environ, PYTHONPATH=HERE))
+    return ranks, where
+
+
+def phase_local(torch, np, kfns, serve, boot_mod, launch_mod, ServeConfig,
+                RuntimeConfig, plain, device="cuda", preset="flagship",
+                max_seq=2048):
+    """One pod's local ranks on the one card (module doc, phase 17c)."""
+    from kvedge_torch.runtime.devicecheck import run_device_check
+
+    t_phase = time.perf_counter()
+    ranks, child_dir = local_child(torch, launch_mod, RuntimeConfig, device)
+    child = ranks.procs[0].pid
+    out = {}
+    try:
+        # (a) A mesh the card cannot hold: degraded before any rank.
+        cfg_a = ServeConfig(
+            preset=preset, max_seq=max_seq, payload="serve",
+            payload_serving="paged", mesh_axes=(("data", 2),),
+            state_dir=local_subdir("mesh2"), status_port=0,
+            status_bind="127.0.0.1", serving_prefix_persist=False,
+            expected_platform="cpu" if device == "cpu" else "gpu")
+        # A CPU rehearsal has no card to count: the chart's count of one.
+        saved = os.environ.get(launch_mod.CARDS_ENV)
+        if device == "cpu":
+            os.environ[launch_mod.CARDS_ENV] = "1"
+        t0 = time.perf_counter()
+        try:
+            handle = boot_mod.start_runtime(cfg_a, device=device)
+        finally:
+            if device == "cpu":
+                os.environ.pop(launch_mod.CARDS_ENV)
+                if saved is not None:
+                    os.environ[launch_mod.CARDS_ENV] = saved
+        try:
+            base = f"http://127.0.0.1:{handle.status_port}"
+            while True:
+                code, doc = get_any(base + "/healthz")
+                if code == 503 or time.perf_counter() - t0 > 10.0:
+                    break
+                time.sleep(0.02)
+            degrade_s = time.perf_counter() - t0
+        finally:
+            handle.shutdown()
+        strays = [p for p in live_children() if p != child]
+        reason = doc.get("reason", "")
+        out["mesh_over_cards"] = {
+            "healthz": code, "seconds_to_503": degrade_s, "reason": reason,
+            "local_ranks": handle.local is not None,
+            "live_children": strays}
+        check(code == 503 and degrade_s <= 10.0,
+              f"(a) /healthz {code} after {degrade_s:.2f} s")
+        check(reason.startswith("mesh resolution failed: ")
+              and "wants 2 devices, have 1" in reason,
+              f"(a) degraded for {reason!r}")
+        check(handle.local is None and not strays,
+              f"(a) started local ranks: {strays}")
+
+        # (b) The one visible card: no rank started, the serve phase's
+        # fp32 tokens.
+        cfg_b = ServeConfig(
+            preset=preset, max_seq=max_seq, payload_serving="paged",
+            serving_slots=4, serving_page_size=16, serving_prefill_chunk=64,
+            serving_window=64, n_layers=WINDOW_LAYERS,
+            serving_speculative=0, serving_prefix_cache=False,
+            serving_prefix_persist=False, state_dir=local_subdir("one"))
+        rss, done = [vmrss_bytes()], threading.Event()
+
+        def sample():
+            while not done.wait(0.05):
+                rss.append(vmrss_bytes())
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        t0 = time.perf_counter()
+        rt = serve.boot_serve(cfg_b, port=0, host="127.0.0.1",
+                              device=device, dtype="float32", seed=0)
+        handle = rt.handle
+        try:
+            base = f"http://127.0.0.1:{rt.port}"
+            hz_code, _ = get_any(base + "/healthz")
+            healthy_s = time.perf_counter() - t0
+            check(hz_code == 200, f"(b) /healthz {hz_code}")
+            snap = handle.snapshot()
+            reqs = plain["fp32_requests"][:4]
+            zero_counts(kfns)
+            results, _, _ = run_burst(base + "/generate", reqs)
+            got = counts(kfns)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            tokens = [d["tokens"] for _, d in results]
+        finally:
+            rt.close()
+            done.set()
+            sampler.join()
+        want = expect_counts(kfns, device,
+                             paged_decode=got["paged_decode"])
+        b1_ok = got == want and (device != "cuda" or got["paged_decode"] > 0)
+        out["one_card"] = {
+            "first_healthz_200_s": healthy_s,
+            "peak_vmrss_bytes": max(rss),
+            "device_count": snap["check"]["device_count"],
+            "mesh_shape": snap["check"]["mesh_shape"],
+            "local_ranks": handle.local is not None,
+            "distributed": snap["distributed"],
+            "tokens_equal_serve_fp32": tokens == plain["fp32"][:4],
+            "launches": got, "b1_launches": got["paged_decode"]}
+        check(handle.local is None and not snap["distributed"]["active"],
+              "(b) the launcher started ranks on one card")
+        check((snap["check"]["device_count"], snap["check"]["mesh_shape"])
+              == (1, [1, 1]), f"(b) check {snap['check']}")
+        check(all(c == 200 for c, _ in results) and
+              tokens == plain["fp32"][:4],
+              "(b) tokens differ from the serve phase's fp32 tokens")
+        check(b1_ok, f"(b) kernel launches {got}, want {want}")
+
+        # (c) The child, started first, ran beside (a) and (b).
+        own = run_device_check(RuntimeConfig(expected_platform=(
+            "cpu" if device == "cpu" else "gpu")), device)
+        ranks.wait(120.0)
+    finally:
+        ranks.kill()
+    code = ranks.procs[0].returncode
+    log = ranks.tail(0)
+    last = [ln for ln in log.splitlines() if "payload 'devicecheck'" in ln]
+    bound = f"global rank 0 of 1 on {'cpu' if device == 'cpu' else 'cuda:0'}"
+    joined = ("joined a nccl world of 1" if device == "cuda"
+              else "joined a gloo world of 1")
+    checksum = (float(last[0].rsplit("probe_checksum=", 1)[1])
+                if last else None)
+    out["child"] = {"exit_code": code, "log_tail": log[-600:],
+                    "probe_checksum": checksum,
+                    "own_probe_checksum": own.probe_checksum,
+                    "live_children": live_children()}
+    check(code == 0, f"(c) the child exited {code}: {log[-1500:]}")
+    check(bound in log and (device == "cpu" or "(current device 0)" in log),
+          f"(c) the child's binding: {log[-1500:]}")
+    check(joined in log, f"(c) the child's world: {log[-1500:]}")
+    check(last and "ok=True device_count=1 mesh_shape=[1, 1]" in last[0]
+          and checksum == own.probe_checksum,
+          f"(c) the child's device check: {last}, own {own.probe_checksum}")
+    check(not out["child"]["live_children"],
+          f"(c) processes left: {out['child']['live_children']}")
+    seconds = time.perf_counter() - t_phase
+    out.update(phase="local", seconds=seconds, budget_s=30.0,
+               child_dir=os.path.relpath(child_dir, HERE), ok=True)
+    emit(out)
+    return out["one_card"]
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -6500,6 +6732,7 @@ def main() -> int:
         from kvedge_torch.ops import rmsnorm as rn
         from kvedge_torch.ops import xent as xe
         from kvedge_torch.parallel import distributed as dist_mod
+        from kvedge_torch.parallel import launch as launch_mod
         from kvedge_torch.runtime import boot as boot_mod
         from kvedge_torch.runtime import healthcheck as hc
         from kvedge_torch.runtime import recovery
@@ -6664,6 +6897,10 @@ def main() -> int:
         finally:
             dist_mod.shutdown_world()
 
+        phase = enter("local")
+        local_doc = phase_local(torch, np, kfns, serve, boot_mod, launch_mod,
+                                ServeConfig, RuntimeConfig, plain)
+
         phase = enter("kernels")
         kernels = [{
             "name": "paged_decode", "route": "cuda",
@@ -6682,6 +6919,7 @@ def main() -> int:
             "launches_moe": moe_serve_doc["kernel_launches"],
             "launches_boot": boot_doc["b1_launches_three"],
             "launches_slice": slice_doc["b1_launches"],
+            "launches_local": local_doc["b1_launches"],
             "status": "redesigned (thread-block cluster split, scores "
                       "in shared memory, cp.async K/V); on the serve path "
                       "launched inside replayed CUDA graphs, counted per "

@@ -1,10 +1,9 @@
-"""The GPU chart's entire user-facing config surface: seven values.
+"""The GPU chart's entire user-facing config surface: eight values.
 
-The port's copy of ``kvedge_tpu/config/values.py``. The seven field
-names, their defaults but one, ``parse_set_flag`` and
-``parse_set_file_flag`` are the same, so one values file and one
-``--set`` line drive both packages' renders. What is TPU-specific
-changes:
+The port's copy of ``kvedge_tpu/config/values.py``. Seven field names,
+their defaults but one, ``parse_set_flag`` and ``parse_set_file_flag``
+are the same, so one values file and one ``--set`` line without the
+eighth drive both packages' renders. What is TPU-specific changes:
 
 ====================================  =========================================
 kvedge-tpu                            kvedge-torch
@@ -16,8 +15,16 @@ kvedge-tpu                            kvedge-torch
                                         Kubernetes' label-value rule (it has
                                         capitals, which the TPU check refuses)
 ``tpuNumHosts`` (N > 1 renders a      the same: N > 1 renders a StatefulSet
-  StatefulSet over a slice)             of N pods, one GPU each
+  StatefulSet over a slice)             of N pods
+the chips a host, fixed by            ``gpusPerHost`` (default 1): the
+  ``tpuAccelerator``'s machine type     ``nvidia.com/gpu`` cards each pod asks
+                                        for, one local rank each
 ====================================  =========================================
+
+``gpusPerHost`` is the port's own value: the JAX package's parser
+refuses unknown keys, so a values file that sets it drives only the
+port's chart. The config TOML's ``[mesh]`` must resolve over
+``tpuNumHosts x gpusPerHost`` cards, or the render fails.
 
 ``jaxRuntimeConfig`` keeps its name: it carries the runtime TOML, which
 the port's ``RuntimeConfig`` parses.
@@ -59,9 +66,12 @@ class ChartValues:
     # to, as the nvidia.com/gpu.product node label names it
     # (reference: macAddress, values.yaml:17).
     tpuAccelerator: str = "NVIDIA-H100-80GB-HBM3"
-    # Hosts, one GPU each: 1 renders the Deployment, N > 1 a StatefulSet
-    # of N pods (reference: the JAX chart's tpuNumHosts).
+    # Hosts: 1 renders the Deployment, N > 1 a StatefulSet of N pods
+    # (reference: the JAX chart's tpuNumHosts).
     tpuNumHosts: int = 1
+    # Cards each pod asks for, one local rank each (the port's own value:
+    # the reference's chip count a host is its machine type's).
+    gpusPerHost: int = 1
 
     def validate(self) -> None:
         # Resource names must be RFC 1123 labels after the prefix is applied;
@@ -91,6 +101,13 @@ class ChartValues:
             raise ValueError(
                 f"tpuNumHosts must be a positive integer, got "
                 f"{self.tpuNumHosts!r}"
+            )
+        if not isinstance(self.gpusPerHost, int) or isinstance(
+            self.gpusPerHost, bool
+        ) or self.gpusPerHost < 1:
+            raise ValueError(
+                f"gpusPerHost must be a positive integer, got "
+                f"{self.gpusPerHost!r}"
             )
 
     def replace(self, **kwargs) -> "ChartValues":

@@ -137,15 +137,21 @@ def on_cuda(what: str, t) -> bool:
 
 
 def launch(name: str, what: str, symbol: str, argtypes, args,
-           shape_note: str) -> None:
-    """Call the C entry point ``symbol`` of ``csrc/<name>.cu`` and raise
-    unless it returned 0 (launched): a negative code is a shape the
-    kernel does not take, a positive one ``cudaGetLastError()``."""
+           shape_note: str, device) -> None:
+    """Call the C entry point ``symbol`` of ``csrc/<name>.cu`` on
+    ``device`` (the card its tensors are on, made the calling thread's
+    current device for the call: a runtime launch goes to the current
+    device) and raise unless it returned 0 (launched): a negative code
+    is a shape the kernel does not take, a positive one
+    ``cudaGetLastError()``."""
+    import torch
+
     fn = getattr(load(name), symbol)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    rc = fn(*args)
+    with torch.cuda.device(device):
+        rc = fn(*args)
     if rc != 0:
         raise RuntimeError(
             f"{what} kernel launch failed: "

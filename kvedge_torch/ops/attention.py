@@ -216,7 +216,7 @@ def flash_forward(q, k, v):
         [_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
         (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
          out.data_ptr(), lse.data_ptr(), bh, seq, dh, softmax_scale(dh),
-         stream), f"BH={bh}, T={seq}, Dh={dh}, dtype={q.dtype}")
+         stream), f"BH={bh}, T={seq}, Dh={dh}, dtype={q.dtype}", q.device)
     flash_forward.launches += 1
     return out, lse
 
@@ -234,7 +234,7 @@ def flash_backward_dq(q, k, v, dout, lse, delta):
         (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
          dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
          bh, seq, dh, softmax_scale(dh), stream),
-        f"BH={bh}, T={seq}, Dh={dh}, dtype={q.dtype}")
+        f"BH={bh}, T={seq}, Dh={dh}, dtype={q.dtype}", q.device)
     flash_backward_dq.launches += 1
     return dq
 
@@ -253,7 +253,7 @@ def flash_backward_dkv(q, k, v, dout, lse, delta):
         (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
          dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
          dv.data_ptr(), bh, seq, dh, softmax_scale(dh), stream),
-        f"BH={bh}, T={seq}, Dh={dh}, dtype={q.dtype}")
+        f"BH={bh}, T={seq}, Dh={dh}, dtype={q.dtype}", q.device)
     flash_backward_dkv.launches += 1
     return dk, dv
 

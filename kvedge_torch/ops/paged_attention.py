@@ -216,7 +216,7 @@ def paged_decode_attention(q, pool_k, pool_v, tables, q_positions,
          smem, score_divisor(dh, q.dtype), stream),
         f"B={batch}, H={h}, K={kv}, Dh={dh}, page={page}, "
         f"max_pages={max_pages}, dtype={q.dtype}, int8={quantized}, "
-        f"split={split}")
+        f"split={split}", q.device)
     paged_decode_attention.launches += 1
     return out
 

@@ -66,7 +66,8 @@ def rmsnorm_forward(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
     _build.launch(_KERNEL, "rmsnorm", "kvedge_rmsnorm_fwd",
                   [i, p, p, p, i, i, p],
                   (_DTYPE_CODES[x.dtype], x.data_ptr(), gain.data_ptr(),
-                   y.data_ptr(), n, d, stream), f"N={n}, D={d}, {x.dtype}")
+                   y.data_ptr(), n, d, stream), f"N={n}, D={d}, {x.dtype}",
+                  x.device)
     rmsnorm_forward.launches += 1
     return y
 

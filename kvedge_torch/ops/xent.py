@@ -172,7 +172,7 @@ def xent_forward(x, e, targets):
                   [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
                   (_DTYPE_CODES[x.dtype], x.data_ptr(), e.data_ptr(),
                    targets.data_ptr(), lse.data_ptr(), tlogit.data_ptr(),
-                   n, v, d, stream), _note(n, v, d, x.dtype))
+                   n, v, d, stream), _note(n, v, d, x.dtype), x.device)
     xent_forward.launches += 1
     return lse, tlogit
 
@@ -187,7 +187,8 @@ def _backward(what, symbol, out, x, e, targets, lse, g):
                   [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
                   (_DTYPE_CODES[x.dtype], x.data_ptr(), e.data_ptr(),
                    targets.data_ptr(), lse.data_ptr(), g.data_ptr(),
-                   out.data_ptr(), n, v, d, stream), _note(n, v, d, x.dtype))
+                   out.data_ptr(), n, v, d, stream), _note(n, v, d, x.dtype),
+                  x.device)
     return out
 
 

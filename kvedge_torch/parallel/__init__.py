@@ -2,14 +2,14 @@
 ``torch.distributed``: the counterpart of the JAX package's
 ``parallel/``.
 
-The port runs one card a process. ``distributed`` joins the world at
-boot, ``mesh`` lays its ranks out over the ``data``, ``model``, ``seq``,
-``stage`` and ``expert`` axes, ``sharding`` cuts the param tree and
-writes the collectives XLA inserts in the reference, ``ringattention``
-and ``ulysses`` attend across the ``seq`` group, and ``pipeline``
-(GPipe, :func:`pipeline_layers`) and ``pipeline1f1b`` run the layer
-stack over the ``stage`` group. Several cards in one process are not
-ported yet (ROADMAP Queue A item 7c).
+Each process drives one card. ``launch`` starts one local rank a card
+that a pod sees, ``distributed`` joins them and the other pods' into
+one world at boot, ``mesh`` lays its ranks out over the ``data``,
+``model``, ``seq``, ``stage`` and ``expert`` axes, ``sharding`` cuts the
+param tree and writes the collectives XLA inserts in the reference,
+``ringattention`` and ``ulysses`` attend across the ``seq`` group, and
+``pipeline`` (GPipe, :func:`pipeline_layers`) and ``pipeline1f1b`` run
+the layer stack over the ``stage`` group.
 """
 
 from kvedge_torch.parallel.mesh import build_mesh, local_mesh

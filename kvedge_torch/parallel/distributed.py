@@ -1,9 +1,12 @@
 """Join the world of processes at runtime boot: ``torch.distributed``.
 
 The counterpart of the JAX package's ``parallel/distributed.py``. The
-port runs one card a process, so the world size is
-``[distributed] num_processes`` and each process's device is its one
-card (``cuda:0``, or the CPU when the caller asks for it).
+world holds one rank a card: ``[distributed] num_processes`` pods, each
+with the L cards it sees (``parallel/launch.py`` starts local ranks 1 to
+L-1 beside the booting process, local rank 0). Global rank
+``process_id x L + local_rank`` runs on ``cuda:<local_rank>`` (or the
+CPU when the caller asks for it); the world's size is ``num_processes x
+L`` (:class:`WorldLayout`).
 
 Identity resolution is the reference's, with its order of sources and
 its messages:
@@ -14,14 +17,17 @@ its messages:
 * coordinator: explicit config > ``KVEDGE_COORDINATOR`` env > first host
   of ``TPU_WORKER_HOSTNAMES`` env (comma-separated).
 
-``num_processes == 1`` is a strict no-op: a single-host install never
-forms a process group. Above 1, :func:`maybe_initialize` calls
-:func:`init_world`: a ``TCPStore`` at the coordinator (hosted by rank
-0), then ``init_process_group`` with a finite timeout, so a missing peer
-fails the join instead of hanging it; it runs once a process, as the
+One pod with one card is a strict no-op: it never forms a process
+group. Across pods the rendezvous is a ``TCPStore`` at the coordinator
+(hosted by global rank 0); one pod with several cards meets on a
+``FileStore`` in a private directory under its state dir, so two pods
+never collide on a port. :func:`init_world` then calls
+``init_process_group`` with a finite timeout, so a missing peer fails
+the join instead of hanging it; it runs once a process, as the
 reference's ``_initialized_as`` guard has it. The backend is NCCL with
 ``device_id`` set on a CUDA device; gloo only where the CPU was asked
 for. A failed NCCL init is an error, never retried on gloo.
+:func:`maybe_initialize` joins a pod of one card a process.
 """
 
 from __future__ import annotations
@@ -43,9 +49,10 @@ _HOST_ORDINAL = re.compile(r"-(\d+)$")
 # collective before the join (or the collective) fails.
 JOIN_TIMEOUT_S = 300.0
 
-# The arguments of this process's join, once it succeeded: a process
-# joins one world.
+# The arguments of this process's join and its pod's cards, once it
+# succeeded: a process joins one world.
 _world: tuple | None = None
+_cards = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +66,59 @@ class DistributedState:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class WorldLayout:
+    """Where a pod's ranks sit in the world: ``cards`` local ranks (one a
+    card) in each of ``num_processes`` pods, meeting at ``coordinator``
+    (``host:port`` or ``file://<path>``; "" for a world of one)."""
+
+    num_processes: int
+    process_id: int
+    cards: int
+    coordinator: str
+
+    @property
+    def world_size(self) -> int:
+        return self.num_processes * self.cards
+
+    def rank(self, local_rank: int) -> int:
+        """The global rank of this pod's ``local_rank``."""
+        if not 0 <= local_rank < self.cards:
+            raise ValueError(f"local rank {local_rank} out of range for "
+                             f"{self.cards} cards")
+        return self.process_id * self.cards + local_rank
+
+    def state(self) -> DistributedState:
+        """``/status``'s ``distributed``: the reference's four keys."""
+        if self.world_size == 1:
+            return DistributedState(active=False)
+        return DistributedState(active=True,
+                                num_processes=self.num_processes,
+                                process_id=self.process_id,
+                                coordinator=self.coordinator)
+
+
+def resolve_layout(spec: DistributedSpec, cards: int,
+                   environ: Mapping[str, str] | None = None,
+                   hostname: str | None = None,
+                   store_dir: str = "") -> WorldLayout:
+    """This pod's :class:`WorldLayout` for ``cards`` cards a pod: with one
+    pod, process 0 and a ``FileStore`` under ``store_dir`` (none for one
+    card); across pods, the identity and the coordinator the reference
+    resolves."""
+    spec.validate()
+    if cards < 1:
+        raise RuntimeConfigError(f"a pod needs a card, got {cards}")
+    if spec.num_processes == 1:
+        store = os.path.join(store_dir, "store") if cards > 1 else ""
+        return WorldLayout(1, 0, cards, f"file://{store}" if store else "")
+    environ = os.environ if environ is None else environ
+    hostname = socket.gethostname() if hostname is None else hostname
+    return WorldLayout(spec.num_processes,
+                       resolve_process_id(spec, environ, hostname), cards,
+                       resolve_coordinator(spec, environ))
 
 
 def resolve_process_id(spec: DistributedSpec,
@@ -111,23 +171,39 @@ def resolve_coordinator(spec: DistributedSpec,
     return addr
 
 
-def local_device(device=None) -> torch.device:
-    """The process's one card (``cuda:0``), or the CPU when asked for."""
+def local_device(device=None, local_rank: int = 0) -> torch.device:
+    """The card of ``local_rank`` (``cuda:<local_rank>``), or the CPU when
+    asked for."""
     from kvedge_torch.runtime.devicecheck import resolve_device
 
     dev = resolve_device(device)
-    return dev if dev.type == "cpu" else torch.device("cuda", 0)
+    return dev if dev.type == "cpu" else torch.device("cuda", local_rank)
+
+
+def make_store(coordinator: str, world_size: int, rank: int):
+    """The rendezvous store of ``coordinator``: a ``FileStore`` for
+    ``file://<path>``, else a ``TCPStore`` at ``host:port`` hosted by
+    rank 0, which does not wait for the others to connect (the join's
+    own barrier does, bounded by :data:`JOIN_TIMEOUT_S`)."""
+    import torch.distributed as dist
+
+    if coordinator.startswith("file://"):
+        return dist.FileStore(coordinator[len("file://"):], world_size)
+    host, _, port = coordinator.rpartition(":")
+    return dist.TCPStore(host, int(port), world_size, is_master=rank == 0,
+                         timeout=datetime.timedelta(seconds=JOIN_TIMEOUT_S),
+                         wait_for_workers=False)
 
 
 def init_world(backend: str, world_size: int, rank: int, coordinator: str,
-               device=None) -> None:
-    """Form the process group: ``coordinator`` is ``host:port`` (a
-    ``TCPStore`` there, hosted by rank 0) or ``file://<path>`` (a
-    ``FileStore``, for worlds on one machine). ``backend`` is "nccl"
-    (``device`` a CUDA device, bound as ``device_id``) or "gloo". Runs
-    once a process: a second call with the same arguments returns, with
-    others raises."""
-    global _world
+               device=None, *, store=None, cards: int = 1) -> None:
+    """Form the process group: ``coordinator`` is ``host:port`` or
+    ``file://<path>`` (:func:`make_store`; ``store`` is one made
+    already). ``backend`` is "nccl" (``device`` a CUDA device, made this
+    thread's current device and bound as ``device_id``) or "gloo";
+    ``cards`` is the local ranks of each pod. Runs once a process: a
+    second call with the same arguments returns, with others raises."""
+    global _world, _cards
     import torch.distributed as dist
 
     args = (backend, world_size, rank, coordinator, str(device))
@@ -139,13 +215,6 @@ def init_world(backend: str, world_size: int, rank: int, coordinator: str,
         return
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
-    timeout = datetime.timedelta(seconds=JOIN_TIMEOUT_S)
-    if coordinator.startswith("file://"):
-        store = dist.FileStore(coordinator[len("file://"):], world_size)
-    else:
-        host, _, port = coordinator.rpartition(":")
-        store = dist.TCPStore(host, int(port), world_size,
-                              is_master=rank == 0, timeout=timeout)
     kw = {}
     if backend == "nccl":
         dev = torch.device(device)
@@ -153,51 +222,49 @@ def init_world(backend: str, world_size: int, rank: int, coordinator: str,
             raise ValueError(f"the nccl backend needs a CUDA device, got {dev}")
         torch.cuda.set_device(dev)
         kw["device_id"] = dev
+    if store is None:
+        store = make_store(coordinator, world_size, rank)
     dist.init_process_group(backend, store=store, rank=rank,
-                            world_size=world_size, timeout=timeout, **kw)
-    _world = args
+                            world_size=world_size,
+                            timeout=datetime.timedelta(seconds=JOIN_TIMEOUT_S),
+                            **kw)
+    _world, _cards = args, cards
 
 
 def shutdown_world() -> None:
     """Leave the process group this process joined, if any."""
-    global _world
+    global _world, _cards
     import torch.distributed as dist
 
     if dist.is_initialized():
         dist.destroy_process_group()
     _world = None
+    _cards = 1
 
 
 def maybe_initialize(spec: DistributedSpec,
                      environ: Mapping[str, str] | None = None,
                      hostname: str | None = None,
                      device=None) -> DistributedState:
-    """Join the world if the config declares one.
+    """Join the world of ``spec``'s pods, one card each, if it has more
+    than one.
 
     Returns the resulting state; raises ``RuntimeConfigError`` on an
     unresolvable identity and propagates a failed join (the caller
     degrades the runtime rather than crash-looping). Idempotent within a
     process as long as the spec doesn't change (:func:`init_world`'s
     guard). ``device`` is the card unless the CPU is asked for (then the
-    backend is gloo).
+    backend is gloo). A pod of several cards joins through
+    ``parallel/launch.py``.
     """
     spec.validate()
     if spec.num_processes <= 1:
         return DistributedState(active=False)
-    environ = os.environ if environ is None else environ
-    hostname = socket.gethostname() if hostname is None else hostname
-
-    process_id = resolve_process_id(spec, environ, hostname)
-    coordinator = resolve_coordinator(spec, environ)
+    layout = resolve_layout(spec, 1, environ, hostname)
     dev = local_device(device)
-    init_world("gloo" if dev.type == "cpu" else "nccl", spec.num_processes,
-               process_id, coordinator, dev)
-    return DistributedState(
-        active=True,
-        num_processes=spec.num_processes,
-        process_id=process_id,
-        coordinator=coordinator,
-    )
+    init_world("gloo" if dev.type == "cpu" else "nccl", layout.world_size,
+               layout.rank(0), layout.coordinator, dev)
+    return layout.state()
 
 
 def world_size() -> int:
@@ -211,3 +278,9 @@ def rank() -> int:
     import torch.distributed as dist
 
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+def local_cards() -> int:
+    """The cards (local ranks) of each pod of the joined world; 1 when no
+    process group exists."""
+    return _cards

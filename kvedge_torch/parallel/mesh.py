@@ -1,10 +1,13 @@
 """The device mesh over the world of processes: the counterpart of the
 JAX package's ``parallel/mesh.py``.
 
-The port runs one card a process, so a mesh's devices are the world's
-ranks. :func:`build_mesh` resolves the ``[mesh]`` axes against the world
-size with the reference's ``MeshSpec`` rules and lays the ranks out with
-``torch.distributed.device_mesh.init_device_mesh`` under the axis names:
+Each rank drives one card, so a mesh's devices are the world's ranks:
+every card of every pod (``parallel/launch.py``). :func:`build_mesh`
+resolves the ``[mesh]`` axes against the world size with the reference's
+``MeshSpec`` rules and lays the ranks out with
+``torch.distributed.device_mesh.init_device_mesh`` under the axis names
+(each rank made its card, ``cuda:<local rank>``, the current device
+before the join, which ``init_device_mesh`` keeps):
 each axis gets its process group (``data``, ``model``, ``seq``,
 ``stage`` and ``expert`` alike), and each rank knows its coordinate on
 every axis and, for point-to-point hand-offs along an axis (the

@@ -10,7 +10,7 @@ the template subset the chart uses:
 * ``{{- define "name" -}}...{{ end -}}`` partials and ``include``
 * ``.Values.* / .Chart.Name|Version|AppVersion / .Release.Service`` atoms
 * pipelines with ``default``, ``trunc``, ``trimSuffix``, ``quote``,
-  ``toJson``, ``b64enc``, ``indent``
+  ``toJson``, ``b64enc``, ``indent``, ``mul``
 * ``{{- if eq <atom> <atom> }}...{{- end }}`` conditionals
 * ``{{-`` / ``-}}`` whitespace trimming
 
@@ -205,6 +205,12 @@ class Chart:
             n, s = args
             pad = " " * n
             return "\n".join(pad + line for line in str(s).split("\n"))
+        if func == "mul":
+            # sprig mul: the product of its arguments as integers.
+            out = 1
+            for v in args:
+                out *= int(v)
+            return out
         if func == "eq":
             a, b = args
             return a == b

@@ -21,18 +21,22 @@ kvedge-torch manifest                           reference template
 
 With ``tpuNumHosts`` N > 1 the JAX package's multi-host set renders in
 the same way: ``torch-gpu-runtime-multihost.yaml`` (a StatefulSet of N
-pods, one GPU each) and ``torch-gpu-hosts-service.yaml`` (its headless
-service) replace the Deployment and its PVC, and
+pods) and ``torch-gpu-hosts-service.yaml`` (its headless service)
+replace the Deployment and its PVC, and
 ``torch-gpu-healthz-test-multihost.yaml`` targets pod 0; the config
 TOML's ``[distributed] num_processes`` must equal N, or the render
-fails.
+fails. Each pod asks for ``gpusPerHost`` G cards (the reference's chips
+a host are fixed by its machine type), runs one local rank a card
+(``parallel/launch.py``) and, above one card, states G to the runtime as
+``KVEDGE_EXPECTED_CARDS``; the TOML's ``[mesh]`` must resolve over
+N x G cards, or the render fails.
 
 What is TPU-specific changes, and nothing else: the image
 (:data:`RUNTIME_IMAGE`, built by ``deployment/gpu/Dockerfile``), the node
 selector (``nvidia.com/gpu.product``, the label NVIDIA's GPU feature
-discovery sets), the device request (one ``nvidia.com/gpu``), the pod's
-memory request (:data:`POD_MEMORY`), and the modules the containers run
-(``kvedge_torch.bootstrap.entrypoint``,
+discovery sets), the device request (G ``nvidia.com/gpu``), the pod's
+memory request (:func:`pod_memory`, per local rank), the cards' env,
+and the modules the containers run (``kvedge_torch.bootstrap.entrypoint``,
 ``kvedge_torch.runtime.healthcheck``).
 
 The KubeVirt VM becomes a ``Deployment`` with ``replicas: 1`` and
@@ -69,15 +73,21 @@ RUNTIME_IMAGE = f"kvedgedev/torch-gpu-runtime:{APP_VERSION}"
 GPU_PRODUCT_SELECTOR = "nvidia.com/gpu.product"
 
 # Hardcoded pod resources, mirroring the reference's fixed VM size:
-# 4 cores (aziot-edge-vm.yaml:18) and one GPU. The memory request covers
-# the serve payload's peak resident set at the flagship's full width:
-# 6.35 GiB (the largest VmRSS sampled, 6,820,671,488 B) on an NVIDIA H100
-# 80GB HBM3 at a 700 W power limit, in chip_smoke.py's boot phase, which
-# gates it; 8Gi leaves ~26% above it.
+# 4 cores (aziot-edge-vm.yaml:18); the cards are gpusPerHost. The memory
+# request is per local rank, since every rank imports torch: one rank's
+# covers the serve payload's peak resident set at the flagship's full
+# width, 6.35 GiB (the largest VmRSS sampled, 6,820,671,488 B) on an
+# NVIDIA H100 80GB HBM3 at a 700 W power limit, in chip_smoke.py's boot
+# phase, which gates it; 8Gi leaves ~26% above it.
 POD_CPU = "4"
-POD_MEMORY = "8Gi"
+POD_MEMORY_PER_RANK_GI = 8
 GPU_RESOURCE = "nvidia.com/gpu"
-GPU_COUNT = 1
+
+
+def pod_memory(values: ChartValues) -> str:
+    """The pod's memory request: :data:`POD_MEMORY_PER_RANK_GI` a local
+    rank, one rank a card."""
+    return f"{POD_MEMORY_PER_RANK_GI * values.gpusPerHost}Gi"
 
 STATE_MOUNT = "/var/lib/kvedge/state"
 # Native PID-1 supervisor (native/kvedge-init.cc), built into the image.
@@ -189,6 +199,16 @@ def boot_config_secret(values: ChartValues) -> dict:
     }
 
 
+def cards_env(values: ChartValues) -> list[dict]:
+    """The pod's cards re-stated to the runtime, which holds them to the
+    cards it sees (``KVEDGE_EXPECTED_CARDS``); none at one card, so a
+    default render is the reference's."""
+    if values.gpusPerHost == 1:
+        return []
+    return [{"name": "KVEDGE_EXPECTED_CARDS",
+             "value": str(values.gpusPerHost)}]
+
+
 def runtime_deployment(values: ChartValues) -> dict:
     """The core resource: the GPU runtime Deployment — the VM analogue.
 
@@ -196,7 +216,7 @@ def runtime_deployment(values: ChartValues) -> dict:
 
     * ``running: true`` (:9) -> ``replicas: 1`` + ``strategy: Recreate``;
     * 4 cores / q35 (:18,:37) -> cpu 4 requests, the memory the serve
-      payload peaks at, and one GPU;
+      payload peaks at for each local rank, and ``gpusPerHost`` GPUs;
     * bootdisk -> DataVolume (:46-48) -> the state PVC mount;
     * serial-tagged config disk -> Secret (:25-28,:49-51) -> the config
       Secret mounted under ``/mnt/disks/<serial>``;
@@ -255,13 +275,13 @@ def runtime_deployment(values: ChartValues) -> dict:
                                     "name": "KVEDGE_EXPECTED_PROCESSES",
                                     "value": "1",
                                 },
-                            ],
+                            ] + cards_env(values),
                             "resources": {
                                 "requests": {
                                     "cpu": POD_CPU,
-                                    "memory": POD_MEMORY,
+                                    "memory": pod_memory(values),
                                 },
-                                "limits": {GPU_RESOURCE: GPU_COUNT},
+                                "limits": {GPU_RESOURCE: values.gpusPerHost},
                             },
                             # Probes target /version (server-alive), NOT
                             # /healthz: a degraded runtime must stay
@@ -367,7 +387,8 @@ def hosts_service(values: ChartValues) -> dict:
 
 
 def runtime_statefulset(values: ChartValues) -> dict:
-    """Multi-host variant of the runtime: one pod, one GPU, per host.
+    """Multi-host variant of the runtime: one pod, ``gpusPerHost`` GPUs,
+    per host.
 
     The pod template of :func:`runtime_deployment` with the reference's
     multi-host deltas:
@@ -410,7 +431,7 @@ def runtime_statefulset(values: ChartValues) -> dict:
             "name": "KVEDGE_EXPECTED_PROCESSES",
             "value": str(values.tpuNumHosts),
         },
-    ]
+    ] + cards_env(values)
     pod["volumes"] = [v for v in pod["volumes"] if v["name"] != "statedisk"]
     spec["volumeClaimTemplates"] = [
         {
@@ -538,6 +559,12 @@ def render_notes(values: ChartValues) -> str:
         "To check the status of the newly created PyTorch GPU runtime, "
         "try:\n"
         f"kubectl get {workload} {name}-runtime\n"
+    ) + (
+        f"Each pod runs one rank on each of its {values.gpusPerHost} GPUs; "
+        "the config TOML's [mesh] spans tpuNumHosts x gpusPerHost = "
+        f"{values.tpuNumHosts * values.gpusPerHost} GPUs.\n"
+        if values.gpusPerHost != 1 else ""
+    ) + (
         "\n"
         "To query the runtime status endpoint (once the pod is running):\n"
         f"curl http://$(kubectl get service {name}-runtime-ssh-service "
@@ -557,8 +584,9 @@ def render_notes(values: ChartValues) -> str:
 
 def _check_multihost_consistency(values: ChartValues) -> None:
     """Fail the render when the chart's shape and the TOML's topology
-    disagree (the reference's check and messages): the runtime would
-    find out only at boot, its pods blocking in the join."""
+    disagree (the reference's check and messages, and the port's own of
+    the mesh over the pods' cards): the runtime would find out only at
+    boot, its pods blocking in the join or degraded."""
     procs = parsed_runtime_config(values).num_processes
     if values.tpuNumHosts > 1 and procs != values.tpuNumHosts:
         raise ValueError(
@@ -571,6 +599,17 @@ def _check_multihost_consistency(values: ChartValues) -> None:
             f"runtime config declares [distributed] num_processes={procs} "
             f"but tpuNumHosts=1; set --set tpuNumHosts={procs} to render "
             "the multi-host StatefulSet")
+    cards = values.tpuNumHosts * values.gpusPerHost
+    mesh = parsed_runtime_config(values).mesh
+    try:
+        mesh.resolved_shape(cards)
+    except ValueError as e:
+        raise ValueError(
+            f"tpuNumHosts={values.tpuNumHosts} x gpusPerHost="
+            f"{values.gpusPerHost} = {cards} cards but the runtime config "
+            f"declares [mesh] axes = {dict(mesh.axes)} ({e}); the pods' "
+            "cards and the mesh must match (set gpusPerHost, or [mesh] "
+            "axes in the config TOML)") from None
 
 
 def render_all(values: ChartValues, include_dead: bool = False) -> RenderedChart:

@@ -6,12 +6,20 @@ what ``kvedge-runtime boot`` (the last ``runcmd`` of the boot document,
 reference's order: the status server first, answering in the
 ``booting`` state; the sweep of stranded tmp files; a heartbeat (with
 this boot's ``boot_count``) before the server answers; the topology
-check; the join of the world (``parallel/distributed.maybe_initialize``,
-a no-op at ``[distributed] num_processes = 1``); the payload; a second
-heartbeat. A payload that fails or raises, or a join that fails,
-degrades the runtime (``/status`` answers, ``/healthz`` is 503 with the
-reason) instead of crashing it; ``/status``'s ``distributed`` is the
-joined state. ``POST /profile`` is refused until the payload has run.
+check; the count of the cards the pod sees and the mesh resolved over
+``num_processes`` x that count (``parallel/launch.visible_cards``,
+``RuntimeConfig.check_world``); the local ranks, one a further card,
+and the join of the world (``parallel/launch.join_world``; with one
+card a pod ``parallel/distributed.maybe_initialize``, a no-op for one
+pod); the payload; a second heartbeat. A payload that fails or raises,
+a mesh the cards cannot hold, a local rank that exits or a join that
+fails degrades the runtime (``/status`` answers, ``/healthz`` is 503
+with the reason) instead of crashing it; a mesh that does not resolve
+starts no local rank. ``/status``'s
+``distributed`` is the joined state and its ``check`` the mesh over the
+whole world. This process is local rank 0: only it runs the status
+server and the heartbeat. ``POST /profile`` is refused until the payload
+has run.
 
 :func:`boot` never returns in a pod: it beats every
 ``heartbeat_interval_s`` on the main thread until SIGTERM or SIGINT,
@@ -30,6 +38,7 @@ import threading
 import time
 from typing import Callable
 
+from kvedge_torch.parallel import launch
 from kvedge_torch.parallel.distributed import (
     DistributedState,
     maybe_initialize,
@@ -66,8 +75,10 @@ class RuntimeHandle:
     serve_fn: Callable[[dict], dict] | None = None
     # The train and eval payloads' own result (train.PayloadResult).
     result: object = None
-    # The world this runtime joined at boot (inactive on one host).
+    # The world this runtime joined at boot (inactive for one pod of one
+    # card), and this pod's other local ranks (None without).
     distributed: DistributedState = DistributedState(active=False)
+    local: launch.LocalWorld | None = None
 
     @property
     def status_port(self) -> int:
@@ -115,6 +126,8 @@ class RuntimeHandle:
         closer = getattr(self.serve_fn, "close", None)
         if closer is not None:
             closer()
+        if self.local is not None:
+            self.local.close()
         if self.distributed.active:
             shutdown_world()
 
@@ -214,28 +227,46 @@ def _degraded(error: str) -> DeviceCheckResult:
     )
 
 
-def _topology_mismatch(cfg: RuntimeConfig) -> str:
-    """Non-empty iff the chart topology and the config TOML disagree.
+def _topology_mismatch(cfg: RuntimeConfig, device=None) -> str:
+    """Non-empty iff the chart topology and the config TOML, or the
+    chart and the cards this pod sees, disagree.
 
     The multi-host chart re-states its replica count as
     ``KVEDGE_EXPECTED_PROCESSES``; plain Helm cannot parse the config
     TOML at install time, so this boot-time check is what catches a TOML
     whose ``[distributed]`` section is missing or wrong — otherwise N
     pods would boot as N healthy, *independent* single-host runtimes.
+    A chart of several cards a pod states them as
+    ``KVEDGE_EXPECTED_CARDS``, held to the cards visible
+    (``parallel/launch.visible_cards``).
     """
     expected_raw = os.environ.get("KVEDGE_EXPECTED_PROCESSES", "")
-    if not expected_raw:
+    if expected_raw:
+        try:
+            expected = int(expected_raw)
+        except ValueError:
+            return (f"KVEDGE_EXPECTED_PROCESSES={expected_raw!r} is not an "
+                    "integer")
+        if expected != cfg.num_processes:
+            return (
+                f"topology mismatch: the chart was rendered for {expected} "
+                f"hosts (KVEDGE_EXPECTED_PROCESSES) but the runtime config "
+                f"declares [distributed] num_processes="
+                f"{cfg.num_processes}; fix the config TOML"
+            )
+    cards_raw = os.environ.get(launch.CARDS_ENV, "")
+    if not cards_raw:
         return ""
     try:
-        expected = int(expected_raw)
+        cards = int(cards_raw)
     except ValueError:
-        return f"KVEDGE_EXPECTED_PROCESSES={expected_raw!r} is not an integer"
-    if expected != cfg.num_processes:
+        return f"{launch.CARDS_ENV}={cards_raw!r} is not an integer"
+    visible = launch.visible_cards(cfg, device)
+    if cards != visible:
         return (
-            f"topology mismatch: the chart was rendered for {expected} "
-            f"hosts (KVEDGE_EXPECTED_PROCESSES) but the runtime config "
-            f"declares [distributed] num_processes="
-            f"{cfg.num_processes}; fix the config TOML"
+            f"topology mismatch: the chart was rendered for {cards} cards "
+            f"a host ({launch.CARDS_ENV}) but this pod sees {visible}; fix "
+            "gpusPerHost or the pod's cards"
         )
     return ""
 
@@ -295,6 +326,62 @@ def _run_payload(cfg: RuntimeConfig, handle: "RuntimeHandle", device=None,
         return run_device_check(cfg, device)
     except Exception as e:
         return _degraded(f"payload {cfg.payload!r} failed: {e!r}")
+
+
+def _boot_world(cfg: RuntimeConfig, handle: RuntimeHandle, device,
+                dtype: str, seed: int, params) -> DeviceCheckResult:
+    """The boot work after the status server is up (module doc): the
+    topology and config checks, the cards and the mesh over them, the
+    local ranks and the join, the payload. Returns the runtime's
+    check; ``handle`` gets the joined state and the local world."""
+    try:
+        topo_error = _topology_mismatch(cfg, device)
+        if topo_error:
+            return _degraded(topo_error)
+        # A config built in code skipped the parser: what it refuses
+        # (serve over a stage axis, ...) degrades the runtime here, with
+        # the same message; so does a mesh the pods' cards cannot hold.
+        cfg.validate()
+        cards = launch.visible_cards(cfg, device)
+        cfg.check_world(cfg.num_processes * cards)
+        if params is not None and cards > 1:
+            raise RuntimeConfigError(
+                "weights given in code reach local rank 0 only; a pod of "
+                f"{cards} cards serves a checkpoint or the seeded init")
+    except (RuntimeConfigError, RuntimeError) as e:  # or no card at all
+        return _degraded(str(e))
+    # Join the world BEFORE the payload, so the payload's mesh spans it.
+    # A failed join degrades the pod (status stays queryable) instead of
+    # crash-looping it.
+    try:
+        if cards == 1:  # one rank a pod: the pods' world, if any
+            handle.distributed = maybe_initialize(cfg.distributed,
+                                                  device=device)
+        else:
+            handle.distributed, handle.local = launch.join_world(
+                cfg, cards, device, dtype, seed)
+    except launch.LocalRankFailed as e:
+        return _degraded(str(e))
+    except Exception as e:
+        return _degraded(f"multi-host join failed "
+                         f"(num_processes={cfg.num_processes}): {e!r}")
+    if handle.local is None:
+        return _run_payload(cfg, handle, device, dtype, seed, params)
+
+    def rank_failed(why: str) -> None:
+        # /healthz turns 503 within a poll of a local rank's exit, even
+        # while this rank still waits in a collective with it.
+        if handle.check.ok or handle.check.platform == "booting":
+            handle.check = _degraded(why)
+
+    handle.local.watch(rank_failed)
+    check = _run_payload(cfg, handle, device, dtype, seed, params)
+    why = handle.local.failure()
+    if not check.ok or why is not None:
+        # The world is of no use without every rank: free the cards.
+        handle.local.close(grace_s=0.0)
+        return check if not check.ok else _degraded(why)
+    return check
 
 
 def start_runtime(cfg: RuntimeConfig, device=None, dtype: str = "bfloat16",
@@ -379,31 +466,7 @@ def start_runtime(cfg: RuntimeConfig, device=None, dtype: str = "bfloat16",
     writer.beat_once()  # heartbeat visible before the server answers
     server.start()
 
-    topo_error = _topology_mismatch(cfg)
-    if topo_error:
-        handle.check = _degraded(topo_error)
-    else:
-        try:
-            # A config built in code skipped the parser: what it refuses
-            # (a stage axis, serve across processes, ...) degrades the
-            # runtime here, with the same message.
-            cfg.validate()
-        except RuntimeConfigError as e:
-            handle.check = _degraded(str(e))
-        else:
-            # Join the world BEFORE the payload, so the payload's mesh
-            # spans it. A failed join degrades the pod (status stays
-            # queryable) instead of crash-looping it.
-            try:
-                handle.distributed = maybe_initialize(cfg.distributed,
-                                                      device=device)
-            except Exception as e:
-                handle.check = _degraded(
-                    f"multi-host join failed "
-                    f"(num_processes={cfg.num_processes}): {e!r}")
-            else:
-                handle.check = _run_payload(cfg, handle, device, dtype,
-                                            seed, params)
+    handle.check = _boot_world(cfg, handle, device, dtype, seed, params)
     boot_complete.set()  # safe to profile from handler threads now
     writer.beat_once()  # refresh: the booting heartbeat is now stale
     return handle

@@ -8,10 +8,11 @@ same names and defaults, for the subset the ported payloads run:
                the port's default, or "cpu"), expected_chips (0 = any);
                the section keeps the reference's name so that one TOML
                parses in both packages
-    [mesh]     axes over the world of processes, one card each: data,
-               model, seq, stage and expert may span more than one
-               device (the reference's MeshSpec rules resolve an axis
-               of 0)
+    [mesh]     axes over the world: every card of every process
+               (``[distributed] num_processes`` x the cards each pod
+               sees); data, model, seq, stage and expert may span more
+               than one device (the reference's MeshSpec rules resolve
+               an axis of 0)
     [distributed]  num_processes, coordinator_address,
                coordinator_port, process_id (the reference's spec;
                parallel/distributed.py joins the world at boot)
@@ -71,15 +72,20 @@ same names and defaults, for the subset the ported payloads run:
 Any other section or key is REFUSED with its name, not ignored: a knob
 the port does not implement would otherwise silently change nothing
 (``[model] n_experts`` among them: the key is ``experts``). Still
-refused by name: a mesh over several cards in one process (ROADMAP
-Queue A item 7c), the ``serve`` and ``inference-probe`` payloads over a
+refused by name: the ``serve`` and ``inference-probe`` payloads over a
 ``seq`` axis (sequence parallelism is the training layout; serving
 shards over ``data`` and ``model``), and those payloads over a
-``stage`` or ``expert`` axis above 1 (item 7d; a checkpoint trained on
-such a mesh is gathered, so one process serves it).
-The mesh resolves against ``num_processes`` (the port runs one card a
-process), and :meth:`RuntimeConfig.model_config` derives the model from
-it as the reference's ``derive_model_config`` does: a ``seq`` axis
+``stage`` or ``expert`` axis above 1 (ROADMAP Queue A item 2; a
+checkpoint trained on such a mesh is gathered, so one process serves
+it).
+The mesh resolves over the world's devices: at parse over
+``num_processes`` x :func:`fewest_cards` (the cards a process needs at
+the least; what depends on the real count waits for it), at boot over
+``num_processes`` x the cards the pod sees
+(:meth:`RuntimeConfig.check_world`, ``parallel/launch.py``), and in a
+joined world over its size (:meth:`RuntimeConfig.device_count`).
+:meth:`RuntimeConfig.model_config` derives the model from it as the
+reference's ``derive_model_config`` does: a ``seq`` axis
 means ring attention unless ``[payload] attention`` names Ulysses, an
 ``expert`` axis an MoE model with its experts split over it, and a
 ``stage`` axis a pipelined layer stack.
@@ -92,6 +98,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import tomllib
 from typing import Mapping
@@ -256,6 +263,24 @@ class MeshSpec:
         return dict(zip(self.axis_names(), self.resolved_shape(n_devices)))
 
 
+def fewest_cards(axes, num_processes: int) -> int:
+    """The fewest cards a process over which ``axes`` resolve in a world
+    of ``num_processes`` processes: the mesh's fixed product (an axis of
+    0 counts as 1) over ``num_processes`` where that divides, else the
+    least count that makes it divide (``fixed / gcd(fixed,
+    num_processes)``). A mesh with no axis of 0 whose product the
+    processes cannot share alike resolves on no count, and is refused.
+    The CPU has no cards to count, so this is its count of local ranks
+    (``parallel/launch.visible_cards``)."""
+    fixed = math.prod(size or 1 for _, size in axes)
+    if all(size for _, size in axes) and fixed % num_processes:
+        raise RuntimeConfigError(
+            f"mesh {dict(axes)} wants {fixed} devices, which [distributed] "
+            f"num_processes = {num_processes} cannot hold as the same "
+            "number of cards in every process")
+    return fixed // math.gcd(fixed, num_processes)
+
+
 @dataclasses.dataclass(frozen=True)
 class DistributedSpec:
     """The reference's ``DistributedSpec``: the world the runtime joins at
@@ -338,7 +363,8 @@ class RuntimeConfig:
     expected_chips: int = 0
     # [mesh] axes as (name, size) pairs (0 = inferred from the world).
     mesh_axes: tuple = (("data", 0), ("model", 1))
-    # [distributed]: the world of processes, one card each.
+    # [distributed]: the world of processes (pods), each with one rank a
+    # card it sees.
     num_processes: int = 1
     coordinator_address: str = ""
     coordinator_port: int = 8478
@@ -847,30 +873,54 @@ class RuntimeConfig:
         return DistributedSpec(**{k: getattr(self, k)
                                   for k in _DISTRIBUTED_KEYS})
 
-    def axis_sizes(self) -> dict[str, int]:
-        """The mesh resolved against the world (one card a process)."""
-        return self.mesh.axis_sizes(self.num_processes)
+    def device_count(self) -> int:
+        """The devices the mesh resolves over: the joined world's size
+        (``num_processes`` x the cards of each process), or, in a
+        process that joined none, ``num_processes`` x
+        :func:`fewest_cards`."""
+        import torch.distributed as dist
 
-    def _validate_world(self) -> None:
-        """The mesh against the world: one card a process, so the mesh
-        resolves against ``num_processes``; ``serve`` and
-        ``inference-probe`` on no ``seq``, ``stage`` or ``expert`` axis
-        above 1."""
-        wanted = 1
-        for _, size in self.mesh_axes:
-            wanted *= size or 1
-        if self.num_processes == 1 and wanted > 1:
-            raise RuntimeConfigError(
-                f"[mesh] axes {dict(self.mesh_axes)} want {wanted} devices "
-                "in one process; the PyTorch port runs one card a process "
-                "([distributed] num_processes), and several cards in one "
-                "process are not ported yet (ROADMAP Queue A item 7c)")
-        for axis, size in self.axis_sizes().items():
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_world_size()
+        return self.num_processes * fewest_cards(self.mesh_axes,
+                                                 self.num_processes)
+
+    def axis_sizes(self, n_devices: int | None = None) -> dict[str, int]:
+        """The mesh resolved over ``n_devices`` (None: over
+        :meth:`device_count`)."""
+        return self.mesh.axis_sizes(self.device_count() if n_devices is None
+                                    else n_devices)
+
+    def check_world(self, n_devices: int) -> tuple[int, ...]:
+        """Boot's check of the mesh over the ``n_devices`` it found
+        (``num_processes`` x the cards each pod sees), before any local
+        rank starts: the mesh resolves, with the reference's
+        "mesh resolution failed: ..." (``runtime/devicecheck.py``), and
+        the parser's refusals of resolved axes hold over it. Returns the
+        mesh's shape. The model's derivation and the batch over ``data``
+        run in the payloads, against the joined world."""
+        try:
+            shape = self.mesh.resolved_shape(n_devices)
+        except RuntimeConfigError as e:
+            raise RuntimeConfigError(f"mesh resolution failed: {e}") from None
+        self._validate_world(n_devices)
+        return shape
+
+    def _validate_world(self, n_devices: int | None = None) -> None:
+        """The mesh over ``n_devices`` (None, at parse: over
+        ``num_processes`` x :func:`fewest_cards`, so an axis of 0 is
+        refused here only where it is above 1 on every count): only the
+        port's axes above 1; ``serve`` and ``inference-probe`` on no
+        ``seq``, ``stage`` or ``expert`` axis above 1."""
+        if n_devices is None:
+            n_devices = self.num_processes * fewest_cards(
+                self.mesh_axes, self.num_processes)
+        sizes = self.axis_sizes(n_devices)
+        for axis, size in sizes.items():
             if size > 1 and axis not in _MESH_AXES:
                 _refuse_axis(axis, size)
         if self.payload not in ("serve", "inference-probe"):
             return
-        sizes = self.axis_sizes()
         if sizes.get("seq", 1) > 1:
             raise RuntimeConfigError(
                 f"[payload] kind = {self.payload!r} over a 'seq' axis of "
@@ -882,7 +932,7 @@ class RuntimeConfig:
                     f"[payload] kind = {self.payload!r} over {article} "
                     f"{axis!r} axis of {sizes[axis]}: serving over the "
                     "'stage' and 'expert' axes is not ported yet (ROADMAP "
-                    "Queue A item 7d); a checkpoint trained on such a mesh "
+                    "Queue A item 2); a checkpoint trained on such a mesh "
                     "is gathered, so one process serves it")
 
     def _validate_experts(self) -> None:

@@ -82,10 +82,11 @@ def run_device_check(cfg=None, device: str | torch.device | None = None
     checked against the same product on the CPU. With a runtime config,
     its ``[tpu] platform`` and ``expected_chips`` are held to what is
     visible, with the reference's messages, and its ``[mesh]`` resolved
-    over the joined world (one card a process: the device count is the
-    world's size) is reported. Raises when the card is missing (see
-    :func:`resolve_device`)."""
-    from kvedge_torch.parallel.distributed import world_size
+    over the joined world (one rank a card: the device count is the
+    world's size, ``num_processes`` x the cards of each pod, as the
+    reference's is ``len(jax.devices())``) is reported. Raises when the
+    card is missing (see :func:`resolve_device`)."""
+    from kvedge_torch.parallel.distributed import local_cards, world_size
 
     dev = resolve_device(device)
     world = world_size()
@@ -117,11 +118,12 @@ def run_device_check(cfg=None, device: str | torch.device | None = None
         except ValueError as e:
             return _failure(platform, count, kinds,
                             f"mesh resolution failed: {e}")
-        if world != cfg.num_processes:
+        cards = local_cards()
+        if world != cfg.num_processes * cards:
             return _failure(
                 platform, count, kinds,
-                f"[distributed] num_processes = {cfg.num_processes}, but "
-                f"this process is in a world of {world}")
+                f"[distributed] num_processes = {cfg.num_processes} x "
+                f"{cards} cards, but this process is in a world of {world}")
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(PROBE_ROWS, PROBE_DIM, generator=gen).to(torch.bfloat16)
     w = torch.randn(PROBE_DIM, PROBE_DIM, generator=gen).to(torch.bfloat16)

@@ -81,13 +81,16 @@ on, ``flight-bundle.json`` lands beside it. ``serving_window = "auto"``,
 ``serving_occupancy_ring`` and ``serving_debug_locks`` reach the
 server; ``[status] token`` gates the POST routes.
 
-Across processes (``[distributed] num_processes > 1``) the payload is
+In a world of more than one rank (several pods, or one pod's local
+ranks, ``parallel/launch.py``) the payload is
 the reference's leader-serves: every rank holds its ``[mesh]`` slices of
-the same weights; rank 0 serves, over a
+the same weights; global rank 0 serves, over a
 ``runtime/sliceserve.SlicePagedKVCache`` whose device ops every rank
 replays (paged) or by relaying each request to every rank's
-model-sharded ``generate`` (contiguous); the others answer 503 naming
-the leader (:func:`_join_slice`).
+model-sharded ``generate`` (contiguous); local rank 0 of the other
+pods answers 503 naming the leader, and a pod's other local ranks
+follow the leader's stream on their main thread (:func:`_join_slice`,
+:func:`follow_slice`).
 
 ``ServeRuntime`` builds the data path (device check, weights, the
 server); :func:`run_serve_payload` is the ``serve`` payload the runtime
@@ -1159,15 +1162,15 @@ def run_serve_payload(cfg: ServeConfig, device=None, dtype: str = "bfloat16",
     decode path (and capturing its graphs) before the endpoint goes
     live; its time and token sum are the check's ``probe_ms`` and
     ``probe_checksum``. ``serve_fn`` is
-    :meth:`ServeRuntime.payload_fn`'s. With ``[distributed]
-    num_processes > 1`` every rank joins the slice (:func:`_join_slice`):
-    rank 0's runtime serves (its probe crosses the whole slice), the
-    others return a follower ``serve_fn`` that answers 503."""
+    :meth:`ServeRuntime.payload_fn`'s. In a world of more than one rank
+    every rank joins the slice (:func:`_join_slice`): rank 0's runtime
+    serves (its probe crosses the whole slice), the others return a
+    follower ``serve_fn`` that answers 503."""
     base = run_device_check(cfg, device)
     if not base.ok:
         return base, None
     leader = None
-    if cfg.num_processes > 1:
+    if world_size() > 1:
         leader, follower_fn = _join_slice(cfg, device, dtype, seed, params)
         if follower_fn is not None:
             return dataclasses.replace(base, probe_ms=0.0,
@@ -1190,16 +1193,20 @@ def run_serve_payload(cfg: ServeConfig, device=None, dtype: str = "bfloat16",
     ), rt.payload_fn()
 
 
-def _join_slice(cfg: ServeConfig, device, dtype: str, seed: int, params):
+def _join_slice(cfg: ServeConfig, device, dtype: str, seed: int, params,
+                follow_here: bool = False):
     """The multi-process ``serve`` (the reference's leader-serves, over the
     world ``init_world`` joined): every rank restores the same weights
-    (``params``, or the latest checkpoint on the shared
-    ``checkpoint_dir``), cuts its slices for the mesh of ``[mesh]`` and
-    builds its transport at the same point of the collective order.
-    Returns ``(leader, None)`` on rank 0, whose runtime serves
-    ``/generate``; ``(None, follower_fn)`` elsewhere, where a thread
-    replays the leader's stream and this pod's ``/generate`` answers 503
-    naming the leader. A follower's replay that fails re-enters the loop
+    (``params``, or the latest checkpoint: on the shared
+    ``checkpoint_dir`` across pods, in the pod's state dir within one),
+    cuts its slices for the mesh of ``[mesh]`` and builds its transport
+    at the same point of the collective order. Returns ``(leader, None)``
+    on rank 0, whose runtime serves ``/generate``; ``(None,
+    follower_fn)`` elsewhere, where a thread replays the leader's stream
+    and this pod's ``/generate`` answers 503 naming the leader; with
+    ``follow_here`` (a pod's other local ranks) the replay runs on the
+    calling thread until the leader's STOP and returns ``(None,
+    None)``. A follower's replay that fails re-enters the loop
     ``serving_recovery_attempts`` times (the leader's reformation barrier
     is its first op then); when they are spent the process exits with
     code 13, so the StatefulSet restarts the slice."""
@@ -1211,7 +1218,7 @@ def _join_slice(cfg: ServeConfig, device, dtype: str, seed: int, params):
         follow_paged,
     )
 
-    if params is None and not cfg.checkpoint_dir:
+    if params is None and not cfg.checkpoint_dir and cfg.num_processes > 1:
         raise RuntimeConfigError(
             "multi-host serve needs [runtime] checkpoint_dir on shared "
             "storage: every process restores the same checkpoint")
@@ -1267,6 +1274,9 @@ def _join_slice(cfg: ServeConfig, device, dtype: str, seed: int, params):
                       f"stream ({e!r}); rejoining ({tries}/{rejoins})",
                       flush=True)
 
+    if follow_here:
+        follow()
+        return None, None
     thread = threading.Thread(target=follow, name="kvedge-serve-follow",
                               daemon=True)
     thread.start()
@@ -1278,11 +1288,18 @@ def _join_slice(cfg: ServeConfig, device, dtype: str, seed: int, params):
 
     backend = "multihost-paged-follower" if paged else "multihost-follower"
     follower_fn.stats = lambda: {"backend": backend,
-                                 "processes": cfg.num_processes}
+                                 "processes": world_size()}
     follower_fn.close = lambda drain=False: None
     follower_fn.join = thread.join
     follower_fn.cache = cache
     return None, follower_fn
+
+
+def follow_slice(cfg: ServeConfig, device, dtype: str, seed: int) -> None:
+    """A pod's local rank above 0 in the ``serve`` payload: its slices of
+    the weights, then the leader's op stream replayed on this thread
+    until the leader's STOP (:func:`_join_slice`)."""
+    _join_slice(cfg, device, dtype, seed, None, follow_here=True)
 
 
 def boot_serve(cfg: ServeConfig, *, port: int, host: str | None = None,

@@ -29,8 +29,10 @@ world (``parallel/mesh.py``), with the model derived from it
 each rank reads its ``batch / data`` rows at ``data_index * rows``
 through the feeder's ``global_batch`` and ``shard_offset`` (ranks that
 share a data index read the same rows), and a world of more than one
-process needs ``[runtime] checkpoint_dir`` on storage every rank
-reaches. Checkpoints are the global tree (``runtime/checkpoint.py``).
+pod needs ``[runtime] checkpoint_dir`` on storage every rank reaches
+(the local ranks of one pod share its state dir, as one reference host
+does). Checkpoints are the global tree, written by global rank 0
+(``runtime/checkpoint.py``), and so is the progress file.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from kvedge_torch.data.feeder import open_feeder
 from kvedge_torch.models.training import master_params, run_training
 from kvedge_torch.models.transformer import global_loss, init_params, loss_fn
 from kvedge_torch.models.weights import expected_shapes
+from kvedge_torch.parallel.distributed import rank
 from kvedge_torch.parallel.mesh import build_mesh
 from kvedge_torch.runtime.checkpoint import StateCheckpointer
 from kvedge_torch.runtime.config import MeshConfigError, RuntimeConfig
@@ -163,13 +166,15 @@ def run_train_payload(cfg: RuntimeConfig, device=None,
                              global_batch=cfg.train_batch,
                              shard_offset=offset)
         last_write = 0.0
+        writer = rank() == 0
 
         def on_step(step: int, loss: float) -> None:
-            # Best-effort telemetry, throttled off the hot loop; a failed
-            # write never aborts healthy training.
+            # Best-effort telemetry from global rank 0, throttled off the
+            # hot loop; a failed write never aborts healthy training.
             nonlocal last_write
             now = time.time()
-            if step < cfg.train_steps and now - last_write < 1.0:
+            if not writer or (step < cfg.train_steps
+                              and now - last_write < 1.0):
                 return
             last_write = now
             try:

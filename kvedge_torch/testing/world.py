@@ -11,8 +11,9 @@ arguments, and pickles its return value. The children import only
 
 A world has a deadline. On a timeout or any rank's failure every child
 is killed and :class:`WorldError` carries each rank's exit code and the
-tail of its stderr, so a hung collective fails its test in seconds
-instead of hanging the suite.
+tail of its output, so a hung collective fails its test in seconds
+instead of hanging the suite. The spawning and watching is
+``parallel/launch.Ranks``, the runtime's own.
 """
 
 from __future__ import annotations
@@ -20,9 +21,10 @@ from __future__ import annotations
 import importlib
 import os
 import pickle
-import subprocess
 import sys
 import time
+
+from kvedge_torch.parallel.launch import Ranks
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -50,45 +52,29 @@ def run_world(target: str, n: int, *args, tmp_dir: str,
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
                    [_REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    procs, logs = [], []
-    for rank in range(n):
-        log = open(os.path.join(tmp_dir, f"rank{rank}.err"), "w+b")
-        logs.append(log)
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "kvedge_torch.testing.world", spec,
-             str(rank)], stdout=subprocess.DEVNULL, stderr=log, env=env,
-            cwd=tmp_dir))
+    ranks = Ranks(
+        [[sys.executable, "-m", "kvedge_torch.testing.world", spec, str(rank)]
+         for rank in range(n)],
+        [os.path.join(tmp_dir, f"rank{rank}.err") for rank in range(n)],
+        env, cwd=tmp_dir)
     deadline = time.monotonic() + timeout_s
     failed = ""
     try:
-        while True:
-            codes = [p.poll() for p in procs]
-            if any(c not in (None, 0) for c in codes):
+        while not ranks.done():
+            if ranks.failed() is not None:
                 failed = "a rank failed"
-                break
-            if all(c == 0 for c in codes):
                 break
             if time.monotonic() > deadline:
                 failed = f"the world outlived its {timeout_s} s deadline"
                 break
             time.sleep(0.02)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
+        ranks.kill()
     if failed:
-        tails = []
-        for rank, (p, log) in enumerate(zip(procs, logs)):
-            log.seek(0)
-            err = log.read().decode(errors="replace")[-2000:]
-            tails.append(f"--- rank {rank} (exit {p.returncode}) ---\n{err}")
-        for log in logs:
-            log.close()
+        tails = [f"--- rank {rank} (exit {p.returncode}) ---\n"
+                 f"{ranks.tail(rank)}" for rank, p in enumerate(ranks.procs)]
         raise WorldError(f"{target} on {n} ranks: {failed}\n"
                          + "\n".join(tails))
-    for log in logs:
-        log.close()
     out = []
     for rank in range(n):
         with open(os.path.join(tmp_dir, f"rank{rank}.out.pkl"), "rb") as fh:

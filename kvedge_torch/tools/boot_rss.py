@@ -3,8 +3,9 @@
     python -m kvedge_torch.tools.boot_rss [--preset flagship]
         [--device cuda|cpu] [--out PATH]
 
-One process, which the GPU chart's memory request
-(``kvedge_torch/render/manifests.py``'s ``POD_MEMORY``) must cover,
+One process, which the GPU chart's memory request for each local rank
+(``kvedge_torch/render/manifests.py``'s ``POD_MEMORY_PER_RANK_GI``) must
+cover,
 walked through what a pod's entrypoint does, reading its resident set
 (``VmRSS`` from ``/proc/self/status``) and its peak (``ru_maxrss``) after
 each stage:

@@ -276,7 +276,7 @@ def test_degraded_states_answer_as_the_reference(tmp_path, monkeypatch,
     ({"mesh_axes": (("data", 1), ("seq", 2)), "num_processes": 2},
      r"kind = 'serve' over a 'seq' axis of 2"),
     ({"mesh_axes": (("expert", 0),), "num_processes": 2},
-     r"kind = 'serve' over an 'expert' axis of 2: .* Queue A item 7d"),
+     r"kind = 'serve' over an 'expert' axis of 2: .* Queue A item 2"),
 ], ids=["mesh", "num_processes"])
 def test_a_config_the_parser_refuses_degrades_the_boot(tmp_path, fields,
                                                        message):
@@ -553,8 +553,9 @@ def test_status_token_round_trips_through_config_toml():
 
 
 @pytest.mark.parametrize("text,match", [
-    ('[mesh]\naxes = { data = 2, model = 1 }\n',
-     r"several cards in one process.*Queue A item 7"),
+    ('[mesh]\naxes = { data = 3, model = 1 }\n[distributed]\n'
+     'num_processes = 2\n', r"wants 3 devices, which \[distributed\] "
+     r"num_processes = 2 cannot hold"),
     ('[mesh]\naxes = { data = 0, seq = 0 }\n', "at most one mesh axis"),
     ('[mesh]\nshape = [1]\n', r"\['shape'\]"),
     ('[mesh]\naxes = { seq = 0 }\n[distributed]\nnum_processes = 2\n'
@@ -565,10 +566,10 @@ def test_status_token_round_trips_through_config_toml():
      r"pipeline_schedule must be 'gpipe' or '1f1b'"),
     ('[mesh]\naxes = { data = 0, stage = 2 }\n[distributed]\n'
      'num_processes = 4\n[payload]\nkind = "serve"\n',
-     r"'serve' over a 'stage' axis of 2.*item 7"),
+     r"'serve' over a 'stage' axis of 2.*item 2"),
     ('[mesh]\naxes = { expert = 0 }\n[distributed]\nnum_processes = 2\n'
      '[payload]\nkind = "inference-probe"\n',
-     r"'inference-probe' over an 'expert' axis of 2.*item 7"),
+     r"'inference-probe' over an 'expert' axis of 2.*item 2"),
     ('[mesh]\naxes = { data = 1, seq = 2 }\n[distributed]\n'
      'num_processes = 2\n[payload]\nkind = "inference-probe"\n',
      r"'inference-probe' over a 'seq' axis"),

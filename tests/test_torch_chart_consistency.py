@@ -40,6 +40,11 @@ VALUE_MATRIX = [
     {"tpuNumHosts": 2, "tpuRuntimeEnableExternalSsh": False,
      "nameOverride": "slice-a",
      "jaxRuntimeConfig": "[distributed]\nnum_processes = 2\n"},
+    # Several GPUs a pod: the device request, the memory a rank and the
+    # cards' env, on one host and on several.
+    {"gpusPerHost": 4, "jaxRuntimeConfig": "[mesh]\naxes = { data = 4 }\n"},
+    {"tpuNumHosts": 2, "gpusPerHost": 2,
+     "jaxRuntimeConfig": "[distributed]\nnum_processes = 2\n"},
 ]
 SECRETS = ("torch-gpu-boot-config-secret.yaml",
            "torch-gpu-runtime-config-secret.yaml")
@@ -87,6 +92,9 @@ def test_boot_config_secret_byte_identical(chart, overrides):
     {"tpuNumHosts": 4,
      "jaxRuntimeConfig": "[distributed]\nnum_processes = 4\n"},
     {"tpuNumHosts": 2, "tpuRuntimeEnableExternalSsh": False,
+     "jaxRuntimeConfig": "[distributed]\nnum_processes = 2\n"},
+    {"gpusPerHost": 8},
+    {"tpuNumHosts": 2, "gpusPerHost": 4,
      "jaxRuntimeConfig": "[distributed]\nnum_processes = 2\n"}])
 def test_notes_match(chart, overrides):
     rendered = chart.render(overrides)
@@ -160,6 +168,13 @@ def test_define_with_nested_if_not_truncated(chart):
     )
     out = chart._render_text('{{ include "t.nested" . }}', {"Values": {}})
     assert out == "ABC"
+
+
+def test_mul_is_sprigs_integer_product(chart):
+    ctx = {"Values": dict(chart.default_values, gpusPerHost=4)}
+    assert chart._render_text("{{ mul 8 .Values.gpusPerHost }}Gi",
+                              ctx) == "32Gi"
+    assert chart._render_text("{{ mul 2 3 4 }}", ctx) == "24"
 
 
 def test_helmignore_glob_patterns(chart):

@@ -20,8 +20,8 @@ reference's message; a preset's depth rounds up to the stages and an
 explicit one that does not divide is refused; ``pipeline_schedule``;
 the dtype the reference derives on its CPU backend (float32 for a stage
 axis with a model axis or experts); ``serve`` and ``inference-probe``
-over a stage or expert axis refused by name, several cards in one
-process still refused.
+over a stage or expert axis refused by name, on one process as on
+several.
 """
 
 import dataclasses
@@ -200,12 +200,12 @@ def test_model_derivation_matches_the_reference(name):
 @pytest.mark.parametrize("text,match", [
     ('[mesh]\naxes = { data = 1, stage = 2 }\n[distributed]\n'
      'num_processes = 2\n[payload]\nkind = "serve"\n',
-     r"kind = 'serve' over a 'stage' axis of 2.*Queue A item 7d"),
+     r"kind = 'serve' over a 'stage' axis of 2.*Queue A item 2"),
     ('[mesh]\naxes = { expert = 0 }\n[distributed]\nnum_processes = 4\n'
      '[payload]\nkind = "inference-probe"\n',
-     r"kind = 'inference-probe' over an 'expert' axis of 4.*item 7d"),
-    ('[mesh]\naxes = { stage = 2 }\n',
-     r"several cards in one process.*Queue A item 7c"),
+     r"kind = 'inference-probe' over an 'expert' axis of 4.*item 2"),
+    ('[mesh]\naxes = { stage = 2 }\n[payload]\nkind = "serve"\n',
+     r"kind = 'serve' over a 'stage' axis of 2.*Queue A item 2"),
     ('[model]\npipeline_schedule = "zb"\n',
      r"pipeline_schedule must be 'gpipe' or '1f1b'"),
 ])

@@ -55,6 +55,12 @@ CASES = {
     "multihost-ssh-off": {"jaxRuntimeConfig": GPU_TOML + MULTI_TOML,
                           "tpuNumHosts": 2,
                           "tpuRuntimeEnableExternalSsh": False},
+    # The port's own value (the JAX renders of these cases leave it out).
+    "gpus-4": {"jaxRuntimeConfig": GPU_TOML + "[mesh]\naxes = { data = 4 }\n",
+               "gpusPerHost": 4},
+    "multihost-gpus-4": {"jaxRuntimeConfig": GPU_TOML + MULTI_TOML + (
+        "[mesh]\naxes = { data = 0, model = 4 }\n"),
+        "tpuNumHosts": 2, "gpusPerHost": 4},
 }
 
 # The boot document's three comment lines about the image: the only
@@ -107,8 +113,10 @@ def allowed(v: ChartValues, jax_doc: str) -> dict:
             "nvidia.com/gpu.product": "NVIDIA-H100-80GB-HBM3"},
         (work, CTR + ("image",)): "kvedgedev/torch-gpu-runtime:0.1.0",
         (work, CTR + ("command", 6)): "kvedge_torch.bootstrap.entrypoint",
-        (work, CTR + ("resources", "requests", "memory")): "8Gi",
-        (work, CTR + ("resources", "limits")): {"nvidia.com/gpu": 1},
+        (work, CTR + ("resources", "requests", "memory")):
+            f"{8 * v.gpusPerHost}Gi",
+        (work, CTR + ("resources", "limits")): {
+            "nvidia.com/gpu": v.gpusPerHost},
         (BOOT, ("data", "userdata")): _b64(
             jax_doc.replace(JAX_IMAGE_COMMENT, PORT_IMAGE_COMMENT)),
         # The default name prefix is the chart's name, kvedge-torch.
@@ -135,6 +143,14 @@ def allowed(v: ChartValues, jax_doc: str) -> dict:
                          "claimName")): f"{rt}-dv",
             (PVC, ("metadata", "name")): f"{rt}-dv",
         })
+    if v.gpusPerHost > 1:
+        # The cards re-stated to the runtime after the JAX env.
+        env = ([{"name": "KVEDGE_COORDINATOR", "value": f"{rt}-0.{rt}-hosts"},
+                {"name": "KVEDGE_EXPECTED_PROCESSES",
+                 "value": str(v.tpuNumHosts)}] if multi else
+               [{"name": "KVEDGE_EXPECTED_PROCESSES", "value": "1"}])
+        table[(work, CTR + ("env",))] = env + [
+            {"name": "KVEDGE_EXPECTED_CARDS", "value": str(v.gpusPerHost)}]
     port = manifests.status_port(v)
     if v.tpuRuntimeEnableExternalSsh:
         table.update({
@@ -163,8 +179,14 @@ def _set(doc, path, value):
     doc[path[-1]] = value
 
 
+def _jax_overrides(overrides):
+    """The values the JAX package reads: all but the port's own."""
+    return {k: v for k, v in overrides.items() if k != "gpusPerHost"}
+
+
 def _renders(overrides):
-    theirs = jax_render_all(jvalues.DEFAULT_VALUES.replace(**overrides))
+    theirs = jax_render_all(jvalues.DEFAULT_VALUES.replace(
+        **_jax_overrides(overrides)))
     ours = render_all(DEFAULT_VALUES.replace(**overrides))
     return theirs, ours
 
@@ -193,11 +215,18 @@ def test_render_is_the_jax_render_but_for_the_listed_differences(case):
 def test_notes_are_the_jax_notes_but_for_the_chart_and_runtime(case):
     overrides = CASES[case]
     v = DEFAULT_VALUES.replace(**overrides)
-    theirs = jax_render_notes(jvalues.DEFAULT_VALUES.replace(**overrides))
+    theirs = jax_render_notes(jvalues.DEFAULT_VALUES.replace(
+        **_jax_overrides(overrides)))
     if not v.nameOverride:
         theirs = theirs.replace("kvedge-tpu-runtime", "kvedge-torch-runtime")
     theirs = theirs.replace("of kvedge-tpu.", "of kvedge-torch.").replace(
         "JAX TPU runtime", "PyTorch GPU runtime")
+    if v.gpusPerHost > 1:
+        theirs = theirs.replace(
+            "\n\nTo query",
+            f"\nEach pod runs one rank on each of its {v.gpusPerHost} GPUs; "
+            "the config TOML's [mesh] spans tpuNumHosts x gpusPerHost = "
+            f"{v.tpuNumHosts * v.gpusPerHost} GPUs.\n\nTo query", 1)
     assert render_notes(v) == theirs
     assert render_all(v).notes == theirs
 
@@ -267,7 +296,14 @@ def test_version_and_the_verbatim_copies():
     assert "gpu" in version.CHART_KEYWORDS
     assert inspect.getsource(emit) == inspect.getsource(jemit)
     ours = inspect.getsource(helmlite).replace("kvedge_torch.", "kvedge_tpu.")
-    assert ours == inspect.getsource(jhelmlite)
+    # The reference's helmlite and sprig's ``mul``, which the port's
+    # chart multiplies the memory a rank by.
+    mul = inspect.getsource(helmlite.Chart._call)
+    mul = mul[mul.index('        if func == "mul":'):
+              mul.index('        if func == "eq":')]
+    assert mul.count("\n") == 6 and "out *= int(v)" in mul
+    assert ours.replace(mul, "").replace(", ``mul``", "") == \
+        inspect.getsource(jhelmlite)
     assert inspect.getsource(values.parse_set_flag) == \
         inspect.getsource(jvalues.parse_set_flag)
     assert inspect.getsource(values.parse_set_file_flag) == \
@@ -283,12 +319,63 @@ def test_values_keep_the_reference_fields():
     ours = [(f.name, f.type) for f in dataclasses.fields(ChartValues)]
     theirs = [(f.name, f.type)
               for f in dataclasses.fields(jvalues.ChartValues)]
-    assert ours == theirs
-    for f in dataclasses.fields(ChartValues):
+    # The reference's fields, then the port's own gpusPerHost.
+    assert ours == theirs + [("gpusPerHost", "int")]
+    for f in dataclasses.fields(jvalues.ChartValues):
         if f.name != "tpuAccelerator":
             assert getattr(DEFAULT_VALUES, f.name) == \
                 getattr(jvalues.DEFAULT_VALUES, f.name)
     assert DEFAULT_VALUES.tpuAccelerator == "NVIDIA-H100-80GB-HBM3"
+    assert DEFAULT_VALUES.gpusPerHost == 1
+
+
+@pytest.mark.parametrize("hosts,gpus,axes", [
+    (1, 4, "{ data = 4 }"), (2, 4, "{ data = 0, model = 4 }")],
+    ids=["single-host", "multihost"])
+def test_gpus_per_host_asks_for_the_cards_and_states_them(hosts, gpus, axes):
+    """Each pod asks for its cards, 8Gi a rank, and re-states the count
+    as ``KVEDGE_EXPECTED_CARDS`` (the boot holds it to the cards seen)."""
+    toml = f"[mesh]\naxes = {axes}\n" + (
+        f"[distributed]\nnum_processes = {hosts}\n" if hosts > 1 else "")
+    chart = render_all(DEFAULT_VALUES.replace(
+        tpuNumHosts=hosts, gpusPerHost=gpus, jaxRuntimeConfig=toml))
+    ctr = chart.manifests[STS if hosts > 1 else DEP]["spec"]["template"][
+        "spec"]["containers"][0]
+    env = {e["name"]: e["value"] for e in ctr["env"]}
+    assert env["KVEDGE_EXPECTED_CARDS"] == "4"
+    assert env["KVEDGE_EXPECTED_PROCESSES"] == str(hosts)
+    assert ctr["resources"] == {"requests": {"cpu": "4", "memory": "32Gi"},
+                                "limits": {"nvidia.com/gpu": 4}}
+    assert manifests.pod_memory(DEFAULT_VALUES) == "8Gi"
+
+
+@pytest.mark.parametrize("hosts,gpus,axes", [
+    (1, 4, "{ data = 2 }"), (1, 2, "{ data = 0, model = 4 }"),
+    (2, 2, "{ data = 2, model = 1 }"), (1, 1, "{ data = 2 }")])
+def test_a_mesh_that_does_not_span_the_cards_fails_the_render(hosts, gpus,
+                                                             axes):
+    toml = f"[mesh]\naxes = {axes}\n" + (
+        f"[distributed]\nnum_processes = {hosts}\n" if hosts > 1 else "")
+    with pytest.raises(ValueError) as e:
+        render_all(DEFAULT_VALUES.replace(
+            tpuNumHosts=hosts, gpusPerHost=gpus, jaxRuntimeConfig=toml))
+    assert str(e.value).startswith(
+        f"tpuNumHosts={hosts} x gpusPerHost={gpus} = {hosts * gpus} cards "
+        "but the runtime config declares [mesh] axes = ")
+    assert "the pods' cards and the mesh must match" in str(e.value)
+
+
+def test_gpus_per_host_is_the_ports_own_value():
+    """Validated as tpuNumHosts is; the JAX package's values refuse it,
+    so a values file that sets it drives only the port's chart."""
+    for bad in (0, True, "2"):
+        with pytest.raises(ValueError, match="gpusPerHost must be a "
+                                             "positive integer"):
+            DEFAULT_VALUES.replace(gpusPerHost=bad)
+    assert values.parse_set_flag(DEFAULT_VALUES, "gpusPerHost=4") == \
+        DEFAULT_VALUES.replace(gpusPerHost=4)
+    with pytest.raises(ValueError, match="unknown value 'gpusPerHost'"):
+        jvalues.parse_set_flag(jvalues.DEFAULT_VALUES, "gpusPerHost=4")
 
 
 @pytest.mark.parametrize("label", [

@@ -344,7 +344,8 @@ def test_config_reads_the_reference_toml_names_and_refuses_the_rest():
     for text, match in [
         ('[payload]\nserving_bundle = 1\n', "serving_bundle"),
         ('[payload]\nserving_window = "fast"\n', "serving_window"),
-        ('[mesh]\naxes = {data = 2}\n', "mesh"),
+        ('[mesh]\naxes = {data = 3}\n[distributed]\nnum_processes = 2\n',
+         "mesh"),
         ('[model]\npreset = "huge"\n', "preset"),
         ('[payload]\nserving = "ragged"\n', "serving must be"),
         ('[payload]\nserving_overlap = "sometimes"\n', "serving_overlap"),
@@ -382,6 +383,7 @@ def test_port_imports_with_jax_and_kvedge_tpu_blocked():
         "            'parallel.mesh', 'parallel.sharding',\n"
         "            'parallel.ringattention', 'parallel.ulysses',\n"
         "            'parallel.pipeline', 'parallel.pipeline1f1b',\n"
+        "            'parallel.launch',\n"
         "            'testing.world', 'testing.parallelcases',\n"
         "            'testing.slicecases', 'testing.servingfaults'):\n"
         "    assert 'kvedge_torch.' + new in mods, mods\n"
