@@ -428,7 +428,7 @@ imports nothing of JAX. Phases, each printing one JSON line:
             served by a single-process ``serve`` at fp32, and two greedy
             requests must return the naive forward's argmax over the
             weights the mesh run held in memory. The world stays up for
-            the pipeline and slice phases.
+            the pipeline, slice and slice_moe phases.
 17a. slice  the multi-process serve's slice in that one-rank NCCL world
             (``runtime/sliceserve.py``; a mesh ``{ data = 0, model = 1
             }``, so every all-reduce of the model axis runs through NCCL,
@@ -478,7 +478,7 @@ imports nothing of JAX. Phases, each printing one JSON line:
             8 x 512 equal the same steps on the same mesh with no
             process group within 1e-3 (phase 17's bound). Budget 45 s,
             reported.
-17c. local  (run after slice, once the script has left that world) one
+17c. local  (run after slice_moe, once the script has left that world) one
             pod's local ranks (``parallel/launch.py``) on the one card.
             (a) A paged ``serve`` TOML with ``[mesh] axes = { data = 2 }``
             and no ``[distributed]`` booted through ``start_runtime``:
@@ -503,6 +503,27 @@ imports nothing of JAX. Phases, each printing one JSON line:
             checksum equal to this process's on the same card) and exits
             0; no process is left. Started first, it runs beside (a)
             and (b). Budget 30 s, reported.
+17d. slice_moe  (run after slice, in the same one-rank NCCL world,
+            before the script leaves it) the slice over the ``stage``
+            and ``expert`` axes: a mesh ``{ data = 0, stage = 1, expert
+            = 1 }`` with the MoE flagship (8 experts, top 2), so all 8
+            experts sit on this rank and each choice's sum over the
+            expert group runs through NCCL, inside the window and
+            prefill graphs; the stage axis of 1 runs every layer here and
+            the last stage's logits broadcast over a group of one. (a)
+            fp32, 2 layers: the moe phase's fp32 requests through a
+            slice whose broadcasts are recorded return the moe phase's
+            fp32 plain-server tokens; the record replayed by
+            ``follow_paged`` on a second cache on the card leaves its
+            pools' P pages, tables, lengths and carry equal to the
+            leader's bit for bit. (b) bf16, 8 layers: the serve burst's
+            9 requests through the slice leader (``serve.ServeRuntime``)
+            after its warm-ups and a burst on shifted ids return the moe
+            phase's plain burst's tokens; B1's count (zeroed just before
+            the burst, read just after) > 0 and every window graph
+            launching it (``graph_stats()``); the slice's tokens/s beside
+            the moe phase's, the ops by kind with their broadcast ms.
+            Budget 60 s, reported.
 18. kernels  one line listing every ported kernel, after a line with
             the seconds each phase took.
 
@@ -5682,7 +5703,13 @@ def moe_serve(torch, np, pa, serve, ServeConfig, forward, dense_doc,
         check(ok, f"MoE fp32 {mode} tokens differ from the kernel path's")
     check(forward_ok, "MoE fp32 kernel tokens differ from forward's argmax")
     check(launched, f"MoE fp32 B1 launches {counts}")
-    return serve_doc
+    # The plain server's MoE answers, which the slice_moe phase's are
+    # held to.
+    plain = {"bf16": [d["tokens"] for _, d in results],
+             "fp32": tokens["auto"], "fp32_requests": greedy,
+             **{k: doc[k] for k in ("decode_tokens_per_s",
+                                    "ms_per_decode_step")}}
+    return serve_doc, plain
 
 
 def moe_train(torch, np, kfns, training, tr, ttr, serve, forward,
@@ -5812,7 +5839,8 @@ def phase_moe(torch, np, pa, kfns, kvc, ttr, training, tr, serve,
     """The MoE flagship (``MOE``) through the main path: window, spec
     window and prefill-chunk graphs against eager at WINDOW_LAYERS, the
     serve burst against the dense one, the fp32 paths, and a
-    train-then-serve round."""
+    train-then-serve round. Returns the serve and train docs and the
+    plain server's MoE tokens (the slice_moe phase's reference)."""
     seconds, t0 = {}, time.perf_counter()
 
     def lap(name):
@@ -5832,8 +5860,9 @@ def phase_moe(torch, np, pa, kfns, kvc, ttr, training, tr, serve,
                          n_layers=WINDOW_LAYERS, model=MOE,
                          name="moe_prefill_graphs")
     lap("moe_prefill_graphs")
-    serve_doc = moe_serve(torch, np, pa, serve, ServeConfig, forward,
-                          dense_doc, device, preset, max_seq)
+    serve_doc, plain = moe_serve(torch, np, pa, serve, ServeConfig,
+                                 forward, dense_doc, device, preset,
+                                 max_seq)
     lap("moe_serve_and_fp32")
     train_doc = moe_train(torch, np, kfns, training, tr, ttr, serve, forward,
                           params_from_numpy, RuntimeConfig, open_feeder,
@@ -5841,7 +5870,7 @@ def phase_moe(torch, np, pa, kfns, kvc, ttr, training, tr, serve,
     lap("moe_train")
     emit({"phase": "moe_seconds", "seconds": seconds,
           "total_s": sum(seconds.values()), "ok": True})
-    return serve_doc, train_doc
+    return serve_doc, train_doc, plain
 
 
 # ---- phase 17: the mesh --------------------------------------------------
@@ -5923,8 +5952,8 @@ def phase_mesh(torch, np, kfns, tr, dist_mod, serve, forward,
         return captured[-1]
 
     tr.run_training = recording
-    # The world stays up for the pipeline and slice phases (one world a
-    # process); main leaves it after the slice phase.
+    # The world stays up for the pipeline, slice and slice_moe phases
+    # (one world a process); main leaves it after slice_moe.
     try:
         world = {"backend": torch.distributed.get_backend(),
                  "size": torch.distributed.get_world_size()}
@@ -6277,40 +6306,16 @@ def direct_burst(rt, reqs):
     return out, time.perf_counter() - t0
 
 
-def phase_slice(torch, np, pa, kfns, serve, sliceserve, serving, sf,
-                recovery, ServeConfig, plain, device="cuda",
-                preset="flagship", max_seq=2048):
-    """The multi-process serve's slice in the one-rank NCCL world the mesh
-    phase formed (module doc, phase 17a)."""
-    from kvedge_torch.models.transformer import init_params
-    from kvedge_torch.models.weights import sharded_params
-    from kvedge_torch.parallel.mesh import build_mesh
-    from kvedge_torch.runtime.config import MeshSpec
-    from kvedge_torch.runtime.failures import OpBudgets, SliceFollowerLost
-
-    t_phase = time.perf_counter()
-    mesh = build_mesh(MeshSpec(axes=(("data", 0), ("model", 1))))
-    check(mesh.distributed and mesh.size("model") == 1,
-          f"slice mesh {mesh.sizes} outside a world")
-
-    def cfg_of(n_layers=0, **kw):
-        return ServeConfig(preset=preset, max_seq=max_seq,
-                           payload_serving="paged", serving_slots=4,
-                           serving_page_size=16, serving_prefill_chunk=64,
-                           serving_window=64, serving_prefix_cache=False,
-                           serving_prefix_persist=False, n_layers=n_layers,
-                           state_dir=SEEDED_STATE_DIR, **kw)
-
-    def weights_of(cfg, dtype):
-        tcfg = cfg.model_config(dtype)
-        return sharded_params(init_params(0, tcfg), tcfg, device, mesh)
-
-    # bf16 at 8 layers: the serve phase's 9 requests, the serve runtime's
-    # knobs, the weights it served; warm-ups capture the window graphs, a
-    # burst on shifted ids the prefill graphs, then the measured burst.
-    cfg = cfg_of()
-    rt = slice_runtime(np, serve, sliceserve, ServeConfig, mesh,
-                       weights_of(cfg, "bfloat16"), cfg, "bfloat16", device)
+def slice_burst(np, kfns, serve, sliceserve, ServeConfig, mesh, weights,
+                cfg, device, plain):
+    """The serve phase's 9 requests at bf16 through a slice leader
+    runtime over ``mesh``: warm-ups capture the window graphs, a burst
+    on shifted ids the prefill graphs, then the measured burst in the
+    serve phase's admission order, every kernel count zeroed just
+    before it and read just after. Its tokens against ``plain["bf16"]``,
+    its ops by kind with their broadcast ms, B1 per window replay."""
+    rt = slice_runtime(np, serve, sliceserve, ServeConfig, mesh, weights,
+                       cfg, "bfloat16", device)
     try:
         cache = rt.server._cache
         vocab = rt.tcfg.vocab
@@ -6352,7 +6357,7 @@ def phase_slice(torch, np, pa, kfns, serve, sliceserve, serving, sf,
     finally:
         rt.close()
     gen = sum(r["n_new"] * len(r["tokens"]) for r in reqs)
-    bf16 = {"n_layers": rt.tcfg.n_layers, "tokens_equal_plain":
+    return {"n_layers": rt.tcfg.n_layers, "tokens_equal_plain":
             got == plain["bf16"], "wall_s": wall,
             "decode_tokens_per_s": gen / wall, "measured_burst": burst,
             "plain": {k: v for k, v in plain.items()
@@ -6364,13 +6369,16 @@ def phase_slice(torch, np, pa, kfns, serve, sliceserve, serving, sf,
             "prefill_graphs": graphs["prefill_graphs"],
             "backend": backend, "ops_by_kind_all": bill, **frames}
 
-    # fp32 at 2 layers: the serve phase's fp32 requests through a slice
-    # whose broadcasts are recorded, then the record replayed by the
-    # follower loop on a second cache on this card.
-    cfg32 = cfg_of(WINDOW_LAYERS)
-    w32 = weights_of(cfg32, "float32")
-    rt = slice_runtime(np, serve, sliceserve, ServeConfig, mesh, w32, cfg32,
-                       "float32", device)
+
+def slice_replay(torch, np, serve, sliceserve, ServeConfig, mesh, weights,
+                 cfg, device, plain):
+    """``plain["fp32_requests"]`` at fp32 through a slice whose
+    broadcasts are recorded, then the record replayed by the follower
+    loop on a second cache on this card: the tokens against
+    ``plain["fp32"]``, and the follower's pools (their P pages), tables,
+    lengths and carry against the leader's bit for bit."""
+    rt = slice_runtime(np, serve, sliceserve, ServeConfig, mesh, weights,
+                       cfg, "float32", device)
     log = []
     lead = rt.server._cache
     real = lead._bcast
@@ -6395,7 +6403,7 @@ def phase_slice(torch, np, pa, kfns, serve, sliceserve, serving, sf,
     replay = iter(log)
     follower._bcast = lambda tree: next(replay)
     t0 = time.perf_counter()
-    sliceserve.follow_paged(follower, w32)
+    sliceserve.follow_paged(follower, weights)
     follower.wait_device()
     replay_s = time.perf_counter() - t0
     # The pools' P pages; not the sink page past them, which every
@@ -6414,12 +6422,62 @@ def phase_slice(torch, np, pa, kfns, serve, sliceserve, serving, sf,
     kinds = sorted({sliceserve._OP_NAMES[int(t[0])] for t in log
                     if isinstance(t, np.ndarray) and t.shape == (4,)
                     and t.dtype == np.int64})
-    fp32 = {"n_layers": WINDOW_LAYERS,
+    return {"n_layers": rt.tcfg.n_layers,
             "tokens_equal_plain": got32 == plain["fp32"],
             "replay": {"broadcasts": len(log), "header_kinds": kinds,
                        "seconds": replay_s,
                        "follower_graphs": follower.graph_stats()["graphs"],
                        "bit_exact": same_state}}
+
+
+def b1_in_windows(burst: dict, device) -> bool:
+    """B1 launched over a :func:`slice_burst` and inside every window
+    graph it replayed (a CPU rehearsal takes the plain version)."""
+    return device != "cuda" or (
+        burst["b1_launches"] > 0 and bool(burst["b1_launches_per_replay"])
+        and all(v > 0 for v in burst["b1_launches_per_replay"].values()))
+
+
+def phase_slice(torch, np, pa, kfns, serve, sliceserve, serving, sf,
+                recovery, ServeConfig, plain, device="cuda",
+                preset="flagship", max_seq=2048):
+    """The multi-process serve's slice in the one-rank NCCL world the mesh
+    phase formed (module doc, phase 17a)."""
+    from kvedge_torch.models.transformer import init_params
+    from kvedge_torch.models.weights import sharded_params
+    from kvedge_torch.parallel.mesh import build_mesh
+    from kvedge_torch.runtime.config import MeshSpec
+    from kvedge_torch.runtime.failures import OpBudgets, SliceFollowerLost
+
+    t_phase = time.perf_counter()
+    mesh = build_mesh(MeshSpec(axes=(("data", 0), ("model", 1))))
+    check(mesh.distributed and mesh.size("model") == 1,
+          f"slice mesh {mesh.sizes} outside a world")
+
+    def cfg_of(n_layers=0, **kw):
+        return ServeConfig(preset=preset, max_seq=max_seq,
+                           payload_serving="paged", serving_slots=4,
+                           serving_page_size=16, serving_prefill_chunk=64,
+                           serving_window=64, serving_prefix_cache=False,
+                           serving_prefix_persist=False, n_layers=n_layers,
+                           state_dir=SEEDED_STATE_DIR, **kw)
+
+    def weights_of(cfg, dtype):
+        tcfg = cfg.model_config(dtype)
+        return sharded_params(init_params(0, tcfg), tcfg, device, mesh)
+
+    # bf16 at 8 layers: the serve phase's 9 requests, the serve runtime's
+    # knobs, the weights it served.
+    cfg = cfg_of()
+    bf16 = slice_burst(np, kfns, serve, sliceserve, ServeConfig, mesh,
+                       weights_of(cfg, "bfloat16"), cfg, device, plain)
+    # fp32 at 2 layers: the serve phase's fp32 requests, recorded and
+    # replayed.
+    cfg32 = cfg_of(WINDOW_LAYERS)
+    w32 = weights_of(cfg32, "float32")
+    fp32 = slice_replay(torch, np, serve, sliceserve, ServeConfig, mesh,
+                        w32, cfg32, device, plain)
+    same_state = fp32["replay"]["bit_exact"]
 
     # A lost follower: a hang at a broadcast of a warm fp32 slice, the
     # supervisor re-forms the op stream and revives, the same tokens.
@@ -6466,10 +6524,7 @@ def phase_slice(torch, np, pa, kfns, serve, sliceserve, serving, sf,
         server.close()
         plan.close()
     seconds = time.perf_counter() - t_phase
-    # B1 runs on the card only (a CPU rehearsal takes the plain version).
-    b1_ok = device != "cuda" or (
-        bf16["b1_launches"] > 0 and bool(bf16["b1_launches_per_replay"])
-        and all(v > 0 for v in bf16["b1_launches_per_replay"].values()))
+    b1_ok = b1_in_windows(bf16, device)
     ok = (bf16["tokens_equal_plain"] and b1_ok
           and fp32["tokens_equal_plain"]
           and all(same_state.values())
@@ -6492,6 +6547,73 @@ def phase_slice(torch, np, pa, kfns, serve, sliceserve, serving, sf,
           f"a hang at a broadcast raised {heal['failure']}")
     check(heal["state"] == "healthy" and heal["tokens_equal"]
           and heal["tokens_equal_plain"], f"slice heal: {heal}")
+    return bf16
+
+
+# ---- phase 17d: slice_moe -------------------------------------------------
+
+SLICE_MOE_BUDGET_S = 60.0   # reported, not gated
+SLICE_MOE_AXES = (("data", 0), ("stage", 1), ("expert", 1))
+
+
+def phase_slice_moe(torch, np, kfns, serve, sliceserve, ServeConfig, plain,
+                    device="cuda", preset="flagship", max_seq=2048):
+    """The slice over the ``stage`` and ``expert`` axes, on the MoE
+    flagship, in the one-rank NCCL world (module doc, phase 17d)."""
+    from kvedge_torch.models.transformer import init_params
+    from kvedge_torch.models.weights import sharded_params
+    from kvedge_torch.parallel.mesh import build_mesh
+
+    t_phase = time.perf_counter()
+
+    def cfg_of(n_layers=0):
+        return ServeConfig(preset=preset, max_seq=max_seq,
+                           payload_serving="paged", serving_slots=4,
+                           serving_page_size=16, serving_prefill_chunk=64,
+                           serving_window=64, serving_prefix_cache=False,
+                           serving_prefix_persist=False, n_layers=n_layers,
+                           mesh_axes=SLICE_MOE_AXES,
+                           state_dir=SEEDED_STATE_DIR, **MOE)
+
+    mesh = build_mesh(cfg_of().mesh)
+    check(mesh.distributed and mesh.size("stage") == 1
+          and mesh.size("expert") == 1,
+          f"slice_moe mesh {mesh.sizes} outside a world")
+
+    def weights_of(cfg, dtype):
+        tcfg = cfg.model_config(dtype, device)
+        check(tcfg.n_experts == MOE["experts"]
+              and tcfg.expert_top_k == MOE["expert_top_k"],
+              f"slice_moe serves {tcfg}, not the MoE flagship")
+        return sharded_params(init_params(0, tcfg), tcfg, device, mesh)
+
+    cfg32 = cfg_of(WINDOW_LAYERS)
+    fp32 = slice_replay(torch, np, serve, sliceserve, ServeConfig, mesh,
+                        weights_of(cfg32, "float32"), cfg32, device, plain)
+    same_state = fp32["replay"]["bit_exact"]
+    cfg = cfg_of()
+    bf16 = slice_burst(np, kfns, serve, sliceserve, ServeConfig, mesh,
+                       weights_of(cfg, "bfloat16"), cfg, device, plain)
+    b1_ok = b1_in_windows(bf16, device)
+    seconds = time.perf_counter() - t_phase
+    ok = (fp32["tokens_equal_plain"] and all(same_state.values())
+          and bf16["tokens_equal_plain"] and b1_ok)
+    emit({"phase": "slice_moe", "world": {
+              "backend": torch.distributed.get_backend(),
+              "size": torch.distributed.get_world_size()},
+          "mesh": mesh.sizes, "model": preset, **MOE, "fp32": fp32,
+          "bf16": bf16, "seconds": seconds,
+          "budget_s": SLICE_MOE_BUDGET_S,
+          "within_budget": seconds <= SLICE_MOE_BUDGET_S, "ok": ok})
+    check(fp32["tokens_equal_plain"],
+          "slice_moe fp32 tokens differ from the plain MoE server's")
+    check(all(same_state.values()),
+          f"slice_moe follower replay differs: {same_state}")
+    check(bf16["tokens_equal_plain"],
+          "slice_moe bf16 tokens differ from the plain MoE burst's")
+    check(b1_ok, f"B1 not launched on the slice_moe path: "
+                 f"{bf16['launches']}, per replay "
+                 f"{bf16['b1_launches_per_replay']}")
     return bf16
 
 
@@ -6840,7 +6962,7 @@ def main() -> int:
                               RuntimeConfig)
 
         phase = enter("moe")
-        moe_serve_doc, moe_train_doc = phase_moe(
+        moe_serve_doc, moe_train_doc, moe_plain = phase_moe(
             torch, np, pa, kfns, kvc, ttr, training, tr, serve, ServeConfig,
             RuntimeConfig, forward, params_from_numpy, open_feeder,
             write_corpus, serve.row_key_data, serve_doc)
@@ -6894,6 +7016,10 @@ def main() -> int:
             slice_doc = phase_slice(torch, np, pa, kfns, serve, sliceserve,
                                     serving_mod, sf, recovery, ServeConfig,
                                     plain)
+            phase = enter("slice_moe")
+            slice_moe_doc = phase_slice_moe(torch, np, kfns, serve,
+                                            sliceserve, ServeConfig,
+                                            moe_plain)
         finally:
             dist_mod.shutdown_world()
 
@@ -6919,6 +7045,7 @@ def main() -> int:
             "launches_moe": moe_serve_doc["kernel_launches"],
             "launches_boot": boot_doc["b1_launches_three"],
             "launches_slice": slice_doc["b1_launches"],
+            "launches_slice_moe": slice_moe_doc["b1_launches"],
             "launches_local": local_doc["b1_launches"],
             "status": "redesigned (thread-block cluster split, scores "
                       "in shared memory, cp.async K/V); on the serve path "

@@ -20,8 +20,12 @@ Every function takes the rank's ``mesh`` (:data:`NO_MESH` by default):
 under a ``model`` axis of tp the params are the rank's slices, the cache
 holds its ``K/tp`` K/V heads, and each block runs its local heads with
 the Megatron f and g around the sharded products, as the paged cache's
-blocks do; the logits come out replicated. The multi-process ``serve``
-payload's contiguous backend runs :func:`generate` so on every rank.
+blocks do; under a ``stage`` axis of S the cache holds the rank's
+``L/S`` layers and the stages run them in turn, handing the hidden
+state on (``transformer.run_stages``); under an ``expert`` axis each
+MoE block runs the rank's experts and sums each choice over the group.
+The logits come out replicated. The multi-process ``serve`` payload's
+contiguous backend runs :func:`generate` so on every rank.
 """
 
 from __future__ import annotations
@@ -41,17 +45,19 @@ from kvedge_torch.models.transformer import (
     _rmsnorm,
     _rotary,
     block_mlp,
-    readout,
+    embed_tokens,
+    run_stages,
     split_qkv,
     stacked_layer_params,
+    staged_logits,
     torch_dtype,
 )
 from kvedge_torch.ops.paged_attention import gather_attention
 from kvedge_torch.parallel.mesh import NO_MESH
 from kvedge_torch.parallel.sharding import (
     check_shardable,
+    check_stages,
     copy_to_model,
-    gather_from_model,
     reduce_from_model,
 )
 from kvedge_torch.runtime.devicecheck import resolve_device
@@ -76,16 +82,17 @@ def init_cache(cfg: TransformerConfig, batch: int,
                device: torch.device | str | None = None,
                mesh=NO_MESH) -> KVCache:
     """A zeroed cache on ``device`` (the card unless "cpu" is asked for),
-    with this rank's K/V heads under a ``model`` axis. Warns when an MoE
-    model's training capacity can bind
-    (``moe.warn_if_train_serve_divergence``)."""
+    with this rank's K/V heads under a ``model`` axis and its layers
+    under a ``stage`` axis. Warns when an MoE model's training capacity
+    can bind (``moe.warn_if_train_serve_divergence``)."""
     cfg.validate()
     warn_if_train_serve_divergence(cfg)
-    tp = mesh.size("model")
+    tp, stages = mesh.size("model"), mesh.size("stage")
     if tp > 1:
         check_shardable(cfg, tp)
-    shape = (cfg.n_layers, batch, max_seq or cfg.max_seq, cfg.kv_heads // tp,
-             cfg.d_head)
+    check_stages(cfg, stages)
+    shape = (cfg.n_layers // stages, batch, max_seq or cfg.max_seq,
+             cfg.kv_heads // tp, cfg.d_head)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
@@ -121,16 +128,20 @@ def _run_layers(cfg: TransformerConfig, params: dict, x, cache: KVCache,
                 pos: int, all_positions: bool = False, mesh=NO_MESH):
     """The layer stack over the cache; returns (logits, cache advanced to
     ``pos + Q``). ``all_positions`` reads logits at every query position
-    (``[B, Q, V]``), otherwise only the last (``[B, V]``)."""
+    (``[B, Q, V]``), otherwise only the last (``[B, V]``). Under a
+    ``stage`` axis the rank's ``L/S`` layers, in the stages' turn."""
     stacked = stacked_layer_params(params, cfg)
-    for layer in range(cfg.n_layers):
-        x = _attend_layer(cfg, x, tuple(p[layer] for p in stacked),
-                          cache.k[layer], cache.v[layer], pos, mesh)
-    cache = dataclasses.replace(cache, length=pos + x.shape[1])
-    x = _rmsnorm(x, params["ln_final"])
-    logits = readout(x if all_positions else x[:, -1], params["embedding"],
-                     mesh)
-    return logits, cache
+
+    def local_layers(x):
+        for layer in range(stacked[0].shape[0]):
+            x = _attend_layer(cfg, x, tuple(p[layer] for p in stacked),
+                              cache.k[layer], cache.v[layer], pos, mesh)
+        return x
+
+    logits = staged_logits(run_stages(x, mesh, local_layers),
+                           params["ln_final"], params["embedding"], mesh,
+                           all_positions)
+    return logits, dataclasses.replace(cache, length=pos + x.shape[1])
 
 
 @torch.no_grad()
@@ -138,7 +149,7 @@ def prefill(params: dict, tokens: torch.Tensor, cache: KVCache,
             cfg: TransformerConfig, mesh=NO_MESH):
     """Feed a ``[B, T]`` prompt into an empty cache; returns
     (last-position logits ``[B, V]`` fp32, the filled cache)."""
-    x = gather_from_model(params["embedding"][tokens], mesh).to(
+    x = embed_tokens(params["embedding"], tokens, mesh).to(
         torch_dtype(cfg.dtype))
     return _run_layers(cfg, params, x, cache, 0, mesh=mesh)
 
@@ -148,7 +159,7 @@ def decode_step(params: dict, cache: KVCache, tokens: torch.Tensor,
                 cfg: TransformerConfig, mesh=NO_MESH):
     """One decode step: ``[B]`` tokens at position ``cache.length``;
     returns (logits ``[B, V]`` fp32, the cache advanced by one)."""
-    x = gather_from_model(params["embedding"][tokens], mesh)[:, None].to(
+    x = embed_tokens(params["embedding"], tokens, mesh)[:, None].to(
         torch_dtype(cfg.dtype))
     return _run_layers(cfg, params, x, cache, cache.length, mesh=mesh)
 

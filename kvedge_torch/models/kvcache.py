@@ -57,6 +57,16 @@ Differences that are the port's, not the reference's:
   (prefill chunks, decode steps, verify passes): dropless routing with
   fixed shapes and no host value, so the same graphs capture it under
   the same keys.
+* Across ranks (``runtime/sliceserve.py``) a device function runs the
+  rank's shard: under a ``stage`` axis its ``L/S`` layers over a pool of
+  those layers only (the reference replicates the pool over ``stage``),
+  the first stage embedding, each stage handing the hidden state to the
+  next by a broadcast inside the same pass, and the last stage's logits
+  broadcast to all (``transformer.run_stages`` and ``staged_logits``);
+  under an ``expert`` axis its ``E/ep`` experts, each choice summed over
+  the ``expert`` group (``moe.moe_ffn_dropless``), over the whole pool.
+  The collectives run inside the captured graphs, as the ``model``
+  axis's all-reduces do.
 * The page copies (COW, swap, snapshots) are ``index_select`` /
   ``index_copy_`` over the ``[L, P + 1, ...]`` slabs on the current
   stream, so they run in stream order with the window graphs replayed
@@ -86,9 +96,11 @@ from kvedge_torch.models.transformer import (
     _rmsnorm,
     _rotary,
     block_mlp,
-    readout,
+    embed_tokens,
+    run_stages,
     split_qkv,
     stacked_layer_params,
+    staged_logits,
     torch_dtype,
 )
 from kvedge_torch.ops.paged_attention import (
@@ -99,8 +111,8 @@ from kvedge_torch.ops.paged_attention import (
 from kvedge_torch.parallel.mesh import NO_MESH
 from kvedge_torch.parallel.sharding import (
     check_shardable,
+    check_stages,
     copy_to_model,
-    gather_from_model,
     reduce_from_model,
 )
 from kvedge_torch.runtime.devicecheck import resolve_device
@@ -267,22 +279,24 @@ def _run_paged(cfg, params, state, x, q_positions, slot=None, live=None,
                all_positions: bool = False, write_mask=None, mesh=NO_MESH):
     """The layer stack over the paged cache; logits at the last query
     position ``[B, V]``, or at every one ``[B, Q, V]`` with
-    ``all_positions``; replicated on every model rank (the readout's
-    partial logits are summed over ``model``)."""
+    ``all_positions``; replicated on every rank (the readout's partial
+    logits are summed over ``model``, and the last stage's broadcast
+    over ``stage``). Under a ``stage`` axis the params and the pools
+    hold this rank's ``L/S`` layers, indexed from 0, and the stages run
+    them in turn (``transformer.run_stages``)."""
     stacked = stacked_layer_params(params, cfg)
-    for layer in range(cfg.n_layers):
-        x = _paged_attend_layer(cfg, state, x,
-                                tuple(p[layer] for p in stacked), layer,
-                                q_positions, slot, live, write_mask, mesh)
-    x = _rmsnorm(x, params["ln_final"])
-    return readout(x if all_positions else x[:, -1], params["embedding"],
-                   mesh)
 
+    def local_layers(x):
+        for layer in range(stacked[0].shape[0]):
+            x = _paged_attend_layer(cfg, state, x,
+                                    tuple(p[layer] for p in stacked), layer,
+                                    q_positions, slot, live, write_mask,
+                                    mesh)
+        return x
 
-def _embed(params: dict, tokens, mesh):
-    """The embedding rows of ``tokens``, gathered over ``model`` from the
-    feature-sharded table (identity without a model group)."""
-    return gather_from_model(params["embedding"][tokens], mesh)
+    return staged_logits(run_stages(x, mesh, local_layers),
+                         params["ln_final"], params["embedding"], mesh,
+                         all_positions)
 
 
 @dataclasses.dataclass
@@ -311,7 +325,7 @@ def run_prefill(params: dict, state: PagedState, cfg: TransformerConfig,
     ``inp.offset``..; returns the last position's logits ``[V]``. No host
     value enters the body, so one captured graph serves every slot and
     offset of a chunk length (the reference's ``_paged_prefill_impl``)."""
-    x = _embed(params, inp.tokens, mesh)[None]
+    x = embed_tokens(params["embedding"], inp.tokens, mesh)[None]
     q_positions = (inp.offset + torch.arange(inp.tokens.shape[0],
                                              device=inp.tokens.device))[None]
     return _run_paged(cfg, params, state, x, q_positions, slot=inp.slot,
@@ -340,7 +354,7 @@ def _decode_step_core(params: dict, state: PagedState, tokens,
     ``live`` ``[B]`` bool marks the rows whose K/V are written and whose
     lengths advance (in place). Shared by the single step and the
     windows, so the two agree token for token."""
-    x = _embed(params, tokens, mesh)[:, None]
+    x = embed_tokens(params["embedding"], tokens, mesh)[:, None]
     logits = _run_paged(cfg, params, state, x, state.lengths[:, None],
                         live=live, mesh=mesh)
     state.lengths += live.to(state.lengths.dtype)
@@ -442,7 +456,7 @@ def _spec_verify_core(params: dict, state: PagedState, tokens,
     is the next pass's first write, as in plain decode. No host read:
     it runs inside a captured graph."""
     k_len = tokens.shape[1] - 1
-    x = _embed(params, tokens, mesh)  # [B, 1+K, D]
+    x = embed_tokens(params["embedding"], tokens, mesh)  # [B, 1+K, D]
     offsets = torch.arange(1 + k_len, device=tokens.device)
     q_positions = state.lengths[:, None] + offsets[None]
     # Offset 0 (the pending token) always writes; draft offsets only for
@@ -640,11 +654,16 @@ class PagedKVCache:
     first rows, and its outputs carry ``bucket`` rows.
 
     ``mesh`` (:data:`~kvedge_torch.parallel.mesh.NO_MESH` by default) is
-    the rank's mesh when the cache serves a model sharded over
-    ``model``: the pools hold this rank's ``K/tp`` K/V heads (and int8
-    scales) and every device function runs the rank's shard with the
-    model-axis collectives (:func:`_paged_attend_layer`). Params are
-    then the rank's slices (``parallel/sharding.shard_params``).
+    the rank's mesh when the cache serves a sharded model: under a
+    ``model`` axis the pools hold this rank's ``K/tp`` K/V heads (and
+    int8 scales) and every device function runs the rank's shard with
+    the model-axis collectives (:func:`_paged_attend_layer`); under a
+    ``stage`` axis of S they hold its ``L/S`` layers only, ``[L/S, P +
+    1, page, K/tp, Dh]`` (the page count stays the whole model's
+    derivation, so each rank's bytes shrink to 1/S); under an
+    ``expert`` axis every rank holds the whole pool, as a data replica
+    does. Params are then the rank's slices
+    (``parallel/sharding.shard_params``).
     """
 
     def __init__(self, cfg: TransformerConfig, *, slots: int, pages: int,
@@ -662,9 +681,10 @@ class PagedKVCache:
             raise ValueError("slots, pages and page_size must be >= 1")
         if min_bucket < 0:
             raise ValueError(f"min_bucket must be >= 0, got {min_bucket}")
-        tp = mesh.size("model")
+        tp, stages = mesh.size("model"), mesh.size("stage")
         if tp > 1:
             check_shardable(cfg, tp)
+        check_stages(cfg, stages)
         self.cfg = cfg
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -680,9 +700,10 @@ class PagedKVCache:
         self.kv_quantized = kv_dtype == "int8"
         dtype = torch.int8 if self.kv_quantized else torch_dtype(cfg.dtype)
         # One page past the pool: the sink (see the module docstring);
-        # this rank's K/V heads under a model axis.
-        shape = (cfg.n_layers, pages + 1, page_size, cfg.kv_heads // tp,
-                 cfg.d_head)
+        # this rank's K/V heads under a model axis, its layers under a
+        # stage axis.
+        shape = (cfg.n_layers // stages, pages + 1, page_size,
+                 cfg.kv_heads // tp, cfg.d_head)
 
         def scale():
             return (torch.zeros(shape[:-1], dtype=torch.float32,

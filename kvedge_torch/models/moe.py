@@ -56,6 +56,18 @@ rank's slice). Routing, gates and combine are computed alike on every
 expert rank, so the router's, the norms' and attention's gradients are
 equal there and are not summed over ``expert``.
 
+Serving over an ``expert`` axis of ``ep`` (:func:`moe_ffn_dropless`)
+never forms per-expert slots, so it gathers nothing over ``expert``: a
+rank computes, for each choice, the contribution of the tokens whose
+chosen expert is one of its own (its weights gathered by the local
+index, the other rows zeroed by a select), and one all-reduce over the
+``expert`` group a choice completes it
+(``parallel/sharding.sum_over_experts``). Every row of a choice's sum
+is nonzero on exactly one rank, so the sum adds only zeros to it, and
+one process's rounding points stand: the gate product in the compute
+dtype, then choice 0 plus choice 1. The result equals one process's
+bit for bit.
+
 Under the pipelines (``parallel/pipeline.py``) a layer is given the mesh
 without ``data`` and ``seq`` (``Mesh.without``): capacity, positions and
 the load-balancing statistics bind on this rank's microbatch block, as
@@ -79,6 +91,7 @@ from kvedge_torch.parallel.sharding import (
     copy_to_model,
     gather_from_experts,
     reduce_from_model,
+    sum_over_experts,
 )
 
 
@@ -217,22 +230,35 @@ def moe_ffn(x: torch.Tensor, router_w, w_up, w_down, *,
 
 
 def moe_ffn_dropless(x: torch.Tensor, router_w, w_up, w_down, *,
-                     top_k: int = 1) -> torch.Tensor:
+                     top_k: int = 1, mesh=NO_MESH) -> torch.Tensor:
     """Per-token routed FFN without capacity, the serving path: x
     ``[N, D]`` -> ``[N, D]``. Each token runs through its top-k experts
     by a gather of their weights (``[N, D, F]`` a choice), combined with
     :func:`_route`'s gates: each choice's output times its gate in the
     compute dtype, choice 0 plus choice 1. Agrees with the training
     path when training capacity never bound
-    (:func:`warn_if_train_serve_divergence`)."""
+    (:func:`warn_if_train_serve_divergence`).
+
+    ``w_up`` and ``w_down`` are this rank's ``E/ep`` experts under an
+    ``expert`` axis (all E without one): a choice's rows routed to
+    another rank's expert are zeroed, and the choice is summed over the
+    ``expert`` group before the choices are added (module doc)."""
     _, idx, gates = _route(x, router_w, top_k)
     dtype = x.dtype
+    local = w_up.shape[0]
+    first = mesh.index("expert") * local
     out = None
     for choice in range(top_k):
         e = idx[:, choice]
+        if local < router_w.shape[-1]:
+            mine = (e >= first) & (e < first + local)
+            e = torch.where(mine, e - first, 0)
         up = torch.bmm(x[:, None, :], w_up[e].to(dtype))[:, 0]
         contrib = torch.bmm(gelu(up)[:, None, :], w_down[e].to(dtype))[:, 0]
         contrib = contrib * gates[:, choice, None].to(dtype)
+        if local < router_w.shape[-1]:
+            contrib = torch.where(mine[:, None], contrib, 0)
+        contrib = sum_over_experts(contrib, mesh)
         out = contrib if out is None else out + contrib
     return out
 
@@ -247,19 +273,22 @@ _GATHER_MAX_TOKENS = 64
 
 
 def routed_ffn_block(normed: torch.Tensor, router_w, w_up, w_down, *,
-                     top_k: int = 1) -> torch.Tensor:
+                     top_k: int = 1, mesh=NO_MESH) -> torch.Tensor:
     """The serving layers' MoE block, ``[B, Q, D]`` in and out; shared by
     contiguous decode and the paged cache so the two cannot drift. Past
     ``_GATHER_MAX_TOKENS`` tokens, a Python loop over fixed chunks of
-    that many rows, the last padded with zero rows."""
+    that many rows, the last padded with zero rows. ``mesh``: the
+    rank's experts (:func:`moe_ffn_dropless`)."""
     batch, q_len, d = normed.shape
     n_tokens = batch * q_len
     flat = normed.reshape(n_tokens, d)
     if n_tokens <= _GATHER_MAX_TOKENS:
-        out = moe_ffn_dropless(flat, router_w, w_up, w_down, top_k=top_k)
+        out = moe_ffn_dropless(flat, router_w, w_up, w_down, top_k=top_k,
+                               mesh=mesh)
     else:
         padded = F.pad(flat, (0, 0, 0, -n_tokens % _GATHER_MAX_TOKENS))
         out = torch.cat([
-            moe_ffn_dropless(chunk, router_w, w_up, w_down, top_k=top_k)
+            moe_ffn_dropless(chunk, router_w, w_up, w_down, top_k=top_k,
+                             mesh=mesh)
             for chunk in padded.split(_GATHER_MAX_TOKENS)])[:n_tokens]
     return out.reshape(batch, q_len, d)

@@ -67,7 +67,9 @@ from kvedge_torch.parallel.mesh import NO_MESH
 from kvedge_torch.parallel.sharding import (
     all_reduce_tokens,
     copy_to_model,
+    from_last_stage,
     gather_from_model,
+    hand_off,
     reduce_from_model,
     token_ranks,
 )
@@ -234,7 +236,9 @@ def block_mlp(cfg: TransformerConfig, x: torch.Tensor,
     the dropless routed experts (``moe.routed_ffn_block``). Under a
     ``model`` axis the layer holds this rank's F slice of every expert:
     f before the block, g over its gated outputs (the gates are linear
-    in them)."""
+    in them). Under an ``expert`` axis it holds ``E/ep`` whole experts
+    and the block sums each choice over the ``expert`` group, inside
+    the model axis's f and g."""
     if not cfg.n_experts:
         _, _, w_up, w_down, _, ln_mlp = layer_params
         return mlp(x, w_up, w_down, ln_mlp, mesh)
@@ -244,7 +248,7 @@ def block_mlp(cfg: TransformerConfig, x: torch.Tensor,
     normed = copy_to_model(_rmsnorm(x, ln_mlp), mesh)
     return x + reduce_from_model(
         routed_ffn_block(normed, router, w_up, w_down,
-                         top_k=cfg.expert_top_k), mesh)
+                         top_k=cfg.expert_top_k, mesh=mesh), mesh)
 
 
 def _layer(cfg: TransformerConfig, x: torch.Tensor, layer_params,
@@ -430,6 +434,56 @@ def readout(x: torch.Tensor, embedding: torch.Tensor, mesh=NO_MESH):
     part = copy_to_model(x, mesh).narrow(-1, mesh.index("model") * width,
                                          width)
     return reduce_from_model(tied_readout(part, embedding), mesh)
+
+
+def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor,
+                 mesh=NO_MESH) -> torch.Tensor:
+    """Serving's embedding rows of ``tokens``, ``[..., D]``, gathered over
+    ``model`` from the feature-sharded table. Only the first stage of a
+    ``stage`` axis embeds: a later stage's rows arrive by
+    :func:`run_stages`'s hand-off, so it gets a buffer of their shape
+    (no lookup, no collective)."""
+    if mesh.index("stage") > 0:
+        return torch.empty(
+            (*tokens.shape, embedding.shape[-1] * mesh.size("model")),
+            dtype=embedding.dtype, device=tokens.device)
+    return gather_from_model(embedding[tokens], mesh)
+
+
+def run_stages(x: torch.Tensor, mesh, run_local) -> torch.Tensor:
+    """The serving layer stack over a ``stage`` axis of S: stage s runs
+    its ``L/S`` layers (``run_local``, on the hidden state ``[B, Q, D]``)
+    once stage s - 1 handed that state on, and hands its output to the
+    next (``parallel/sharding.hand_off``); every rank takes part in
+    every hand-off, so the collectives run in one order on all of them.
+    Returns the last stage's output on the last stage (a stale buffer
+    elsewhere, which :func:`staged_logits` does not read). Without a
+    ``stage`` axis, ``run_local(x)``."""
+    me, n = mesh.index("stage"), mesh.size("stage")
+    for stage in range(n):
+        if stage == me:
+            x = run_local(x)
+        if stage < n - 1:
+            x = hand_off(x, mesh, stage)
+    return x
+
+
+def staged_logits(x: torch.Tensor, ln_final: torch.Tensor,
+                  embedding: torch.Tensor, mesh=NO_MESH,
+                  all_positions: bool = False) -> torch.Tensor:
+    """The serving head after :func:`run_stages`: ``ln_final`` and the
+    tied :func:`readout` on the last stage, at every query position
+    ``[B, Q, V]`` or the last ``[B, V]``, then broadcast from it over
+    the ``stage`` group (``parallel/sharding.from_last_stage``), so
+    every rank holds the same fp32 logits."""
+    if mesh.index("stage") == mesh.size("stage") - 1:
+        x = _rmsnorm(x, ln_final)
+        logits = readout(x if all_positions else x[:, -1], embedding, mesh)
+    else:
+        shape = x.shape[:-1] if all_positions else x.shape[:1]
+        logits = torch.empty((*shape, embedding.shape[0]),
+                             dtype=torch.float32, device=x.device)
+    return from_last_stage(logits, mesh)
 
 
 def forward_with_aux(params: dict, tokens: torch.Tensor,

@@ -82,10 +82,11 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig,
 def sharded_params(tree: dict, cfg: TransformerConfig,
                    device: torch.device | str, mesh) -> dict:
     """:func:`params_from_numpy` of the full ``tree``, cut to this rank's
-    slices under ``mesh`` (``parallel/sharding.shard_params``; the whole
-    tree without a ``model`` axis), each slice a tensor of its own on
-    ``device``: the serving weights of one rank of a model-sharded
-    slice."""
+    slices under ``mesh`` (``parallel/sharding.shard_params``: whole
+    heads over ``model``, whole layers over ``stage``, whole experts
+    over ``expert``; the whole tree without such an axis), each slice a
+    tensor of its own on ``device``: the serving weights of one rank of
+    a sharded slice."""
     from kvedge_torch.parallel.sharding import shard_params
 
     full = params_from_numpy(tree, cfg, "cpu")

@@ -36,6 +36,25 @@ gradient is summed over the ``data`` and ``seq`` groups, never over
 (:func:`reduce_grads`); the loss is the mean over the global tokens
 (``models/transformer.loss_fn``).
 
+Serving runs forward only, under ``torch.no_grad``, and adds three
+collectives with no autograd (``models/moe.py``, ``models/kvcache.py``,
+``models/decode.py``), each the identity where the mesh has no group
+for its axis, so :data:`~kvedge_torch.parallel.mesh.NO_MESH` decode
+runs none:
+
+* :func:`sum_over_experts`: one choice's contributions summed over the
+  ``expert`` group, in place and in the compute dtype. Each row is
+  nonzero on exactly one rank, so the sum adds only zeros to it and
+  keeps one process's bits.
+* :func:`hand_off`: the hidden state broadcast over the ``stage`` group
+  from the stage that just ran its layers; the next stage reads it.
+* :func:`from_last_stage`: the last stage's logits broadcast over the
+  ``stage`` group, so every rank's sampler, window bookkeeping and key
+  schedule see the same values.
+
+The two broadcasts are one NCCL (or gloo) ``broadcast`` each, which a
+CUDA graph captures as it captures the ``model`` axis's all-reduces.
+
 :func:`shard_params` cuts a rank's slices out of a full numpy or torch
 tree and :func:`gather_params` rebuilds the full tree over the
 ``model``, ``expert`` and ``stage`` groups. The fused
@@ -112,6 +131,15 @@ def check_shardable(cfg, tp: int) -> None:
             raise ValueError(
                 f"{what} {n} must divide by the 'model' axis size {tp}: "
                 "the port shards whole heads, K/V heads and features")
+
+
+def check_stages(cfg, stages: int) -> None:
+    """Refuse a layer stack the ``stage`` axis cannot cut into whole
+    layers."""
+    if cfg.n_layers % stages:
+        raise ValueError(
+            f"n_layers {cfg.n_layers} must divide by the 'stage' axis "
+            f"size {stages}: each stage holds L/S whole layers")
 
 
 # The axes a param is cut on, in the order a gather rebuilds them.
@@ -346,6 +374,32 @@ def gather_from_experts(x: torch.Tensor, mesh) -> torch.Tensor:
         return x
     return _GatherFromModel.apply(x, group, mesh.size("expert"),
                                   mesh.index("expert"), 0)
+
+
+def sum_over_experts(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The serving block's sum of one choice's contributions over the
+    ``expert`` group (module doc); x itself without a group."""
+    return _all_reduce(x, mesh.group("expert"))
+
+
+def hand_off(x: torch.Tensor, mesh, stage: int) -> torch.Tensor:
+    """``x`` as stage ``stage`` holds it, on every rank of this rank's
+    ``stage`` group (a broadcast from that stage, in place: a receiving
+    rank passes a buffer of the same shape and dtype); x itself without
+    a group."""
+    import torch.distributed as dist
+
+    group = mesh.group("stage")
+    if group is None:
+        return x
+    x = x.contiguous()
+    dist.broadcast(x, src=dist.get_global_rank(group, stage), group=group)
+    return x
+
+
+def from_last_stage(x: torch.Tensor, mesh) -> torch.Tensor:
+    """:func:`hand_off` from the last stage: its logits on every rank."""
+    return hand_off(x, mesh, mesh.size("stage") - 1)
 
 
 def token_groups(mesh) -> tuple:

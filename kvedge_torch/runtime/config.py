@@ -74,10 +74,7 @@ the port does not implement would otherwise silently change nothing
 (``[model] n_experts`` among them: the key is ``experts``). Still
 refused by name: the ``serve`` and ``inference-probe`` payloads over a
 ``seq`` axis (sequence parallelism is the training layout; serving
-shards over ``data`` and ``model``), and those payloads over a
-``stage`` or ``expert`` axis above 1 (ROADMAP Queue A item 2; a
-checkpoint trained on such a mesh is gathered, so one process serves
-it).
+shards over ``data``, ``model``, ``stage`` and ``expert``).
 The mesh resolves over the world's devices: at parse over
 ``num_processes`` x :func:`fewest_cards` (the cards a process needs at
 the least; what depends on the real count waits for it), at boot over
@@ -911,7 +908,7 @@ class RuntimeConfig:
         ``num_processes`` x :func:`fewest_cards`, so an axis of 0 is
         refused here only where it is above 1 on every count): only the
         port's axes above 1; ``serve`` and ``inference-probe`` on no
-        ``seq``, ``stage`` or ``expert`` axis above 1."""
+        ``seq`` axis above 1."""
         if n_devices is None:
             n_devices = self.num_processes * fewest_cards(
                 self.mesh_axes, self.num_processes)
@@ -925,15 +922,8 @@ class RuntimeConfig:
             raise RuntimeConfigError(
                 f"[payload] kind = {self.payload!r} over a 'seq' axis of "
                 f"{sizes['seq']}: sequence parallelism is the "
-                "training layout; serving shards over 'data' and 'model'")
-        for axis, article in (("stage", "a"), ("expert", "an")):
-            if sizes.get(axis, 1) > 1:
-                raise RuntimeConfigError(
-                    f"[payload] kind = {self.payload!r} over {article} "
-                    f"{axis!r} axis of {sizes[axis]}: serving over the "
-                    "'stage' and 'expert' axes is not ported yet (ROADMAP "
-                    "Queue A item 2); a checkpoint trained on such a mesh "
-                    "is gathered, so one process serves it")
+                "training layout; serving shards over 'data', 'model', "
+                "'stage' and 'expert'")
 
     def _validate_experts(self) -> None:
         """The reference parser's checks of the MoE knobs, with its

@@ -20,11 +20,13 @@ Across processes the transformer probe runs on the mesh of ``[mesh]``
 over the world (``parallel/mesh.py``), with the model derived from it:
 the batch is ``PROBE_BATCH_PER_DEVICE`` rows a device, each rank
 training on its data rows, seq chunk and model slices. The inference
-probe decodes there too, through the model-sharded contiguous decode
+probe decodes there too, through the sharded contiguous decode
 (``models/decode.generate(mesh=)``) on the rank's slices of the probe
-model, held against the full model's teacher-forced forward pass; a
-``model`` axis that does not divide the probe's heads fails the probe
-with its message.
+model (its heads over ``model``, its layers over ``stage``; the dense
+probe model has no experts to split, so an ``expert`` rank holds it
+whole), held against the full model's teacher-forced forward pass; a
+``model`` axis that does not divide the probe's heads, or a ``stage``
+axis its layers, fails the probe with its message.
 
 Both return a :class:`DeviceCheckResult` with ``probe_ms``; a failure is
 a result with ``ok`` false and the reference's message, never a raise.
@@ -152,11 +154,13 @@ def run_inference_probe(cfg: RuntimeConfig, device=None,
 
     from kvedge_torch.models.weights import sharded_params
     from kvedge_torch.parallel.mesh import build_mesh
+    from kvedge_torch.parallel.sharding import check_stages
 
     tcfg = inference_probe_config(dtype)
     try:
         dev = resolve_device(device)
         mesh = build_mesh(cfg.mesh)
+        check_stages(tcfg, mesh.size("stage"))
         tree = params if params is not None else init_params(0, tcfg)
         weights = params_from_numpy(tree, tcfg, dev)
         local = sharded_params(tree, tcfg, dev, mesh)

@@ -84,10 +84,11 @@ server; ``[status] token`` gates the POST routes.
 In a world of more than one rank (several pods, or one pod's local
 ranks, ``parallel/launch.py``) the payload is
 the reference's leader-serves: every rank holds its ``[mesh]`` slices of
-the same weights; global rank 0 serves, over a
+the same weights (heads over ``model``, whole layers over ``stage``,
+whole experts over ``expert``); global rank 0 serves, over a
 ``runtime/sliceserve.SlicePagedKVCache`` whose device ops every rank
 replays (paged) or by relaying each request to every rank's
-model-sharded ``generate`` (contiguous); local rank 0 of the other
+sharded ``generate`` (contiguous); local rank 0 of the other
 pods answers 503 naming the leader, and a pod's other local ranks
 follow the leader's stream on their main thread (:func:`_join_slice`,
 :func:`follow_slice`).
@@ -526,7 +527,7 @@ class ServeRuntime:
             raise RuntimeError(f"device check failed: "
                                f"{self.device_check.error}")
         self.cfg = cfg
-        self.tcfg = cfg.model_config(dtype)
+        self.tcfg = cfg.model_config(dtype, self.device)
         self.started_at = time.time()
         self.restored_step = None
         self.leader = leader
@@ -1223,7 +1224,7 @@ def _join_slice(cfg: ServeConfig, device, dtype: str, seed: int, params,
             "multi-host serve needs [runtime] checkpoint_dir on shared "
             "storage: every process restores the same checkpoint")
     dev = resolve_device(device)
-    tcfg = cfg.model_config(dtype)
+    tcfg = cfg.model_config(dtype, dev)
     restored_step, tree = ((None, params) if params is not None
                            else restore_latest_params(cfg, tcfg, seed))
     mesh = build_mesh(cfg.mesh)

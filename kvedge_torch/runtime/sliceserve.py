@@ -56,10 +56,17 @@ What is the port's:
 * **OP_SYNC carries the spec mask.** A sync while spec windows are in
   flight keeps those slots' device lengths (``PagedKVCache._sync``); the
   mask rides the payload, so a follower needs no host state for it.
-* **Swaps gather heads.** A swap-out all-gathers each page's heads over
-  the ``model`` group, as stored (no dtype change); a swap-in carries
-  every head and each rank scatters its own; a COW copies each rank's
-  own shard.
+* **Swaps gather heads and layers.** A swap-out all-gathers each page's
+  heads over the ``model`` group and then its layers over the ``stage``
+  group, as stored (no dtype change); a swap-in carries every head of
+  every layer and each rank scatters its own; a COW copies each rank's
+  own shard. An ``expert`` rank holds the whole pool, as a data replica.
+* **Stages and experts.** Under a ``stage`` axis a rank's pools hold its
+  own ``L/S`` layers (the reference replicates them over ``stage``), and
+  every device op runs the stages in turn, the hand-offs and the last
+  stage's logits broadcast inside the op (``models/kvcache.py``); under
+  an ``expert`` axis the MoE blocks sum each choice over the group. The
+  op stream and its wire are unchanged: every rank runs the same ops.
 * **Results are settled inside the op.** A prefill chunk's or a step's
   logits are waited for on the op thread, and the window harvests run
   there too, so a read that would block on a lost rank's collective is
@@ -348,12 +355,12 @@ class SlicePagedKVCache(PagedKVCache):
 
     def _swap_templates(self, n: int) -> tuple:
         """``(shape, dtype)`` of an OP_SWAPIN payload of ``n`` pages: the
-        ids, then every head of the pages as stored (``[L, n, page, K,
-        Dh]`` K and V, plus the fp32 ``[L, n, page, K]`` scales of an
-        int8 pool), on the wire."""
+        ids, then every head of every layer of the pages as stored
+        (``[L, n, page, K, Dh]`` K and V, plus the fp32 ``[L, n, page,
+        K]`` scales of an int8 pool), on the wire."""
         st = self.state
-        tp = self.mesh.size("model")
-        shape = (st.pool_k_full.shape[0], n, self.page_size,
+        tp, stages = self.mesh.size("model"), self.mesh.size("stage")
+        shape = (st.pool_k_full.shape[0] * stages, n, self.page_size,
                  st.pool_k_full.shape[3] * tp, st.pool_k_full.shape[4])
         wire = _WIRE[st.pool_k_full.dtype]
         out = [((n,), np.int32), (shape, wire), (shape, wire)]
@@ -620,8 +627,9 @@ class SlicePagedKVCache(PagedKVCache):
 
     def swapout_pages(self, ids):
         """Leader: broadcast the page ids; every rank gathers its heads
-        of the pages and all-gathers them over ``model``, so the leader
-        holds every head as stored, on the host."""
+        of the pages and all-gathers them over ``model``, then the
+        layers over ``stage``, so the leader holds every head of every
+        layer as stored, on the host."""
         self._check_live()
         self._flush_ops()
         ids_np = np.asarray(ids, np.int32)
@@ -636,20 +644,23 @@ class SlicePagedKVCache(PagedKVCache):
         import torch.distributed as dist
 
         snap = PagedKVCache.snapshot_pages(self, ids)
-        group, tp = self.mesh.group("model"), self.mesh.size("model")
-        if group is not None and tp > 1:
+        for axis, dim in (("model", 3), ("stage", 0)):
+            group, n = self.mesh.group(axis), self.mesh.size(axis)
+            if group is None or n == 1:
+                continue
             full = []
             for t in snap:
-                parts = [torch.empty_like(t) for _ in range(tp)]
+                parts = [torch.empty_like(t) for _ in range(n)]
                 dist.all_gather(parts, t.contiguous(), group=group)
-                full.append(torch.cat(parts, dim=3))
+                full.append(torch.cat(parts, dim=dim))
             snap = tuple(full)
         return self._host_copy(snap)
 
     def swapin_pages(self, ids, arrays) -> None:
-        """Leader: queue the ids and the snapshot's bytes (every head);
-        each rank writes its own heads back. Deferred: it rides the
-        frame of the dispatch that needs the pages."""
+        """Leader: queue the ids and the snapshot's bytes (every head of
+        every layer); each rank writes its own heads of its own layers
+        back. Deferred: it rides the frame of the dispatch that needs
+        the pages."""
         self._check_live()
         want = 4 if self.kv_quantized else 2
         if len(arrays) != want:
@@ -667,17 +678,19 @@ class SlicePagedKVCache(PagedKVCache):
                        lambda: self._exec_swapin(ids_np, arrs))
 
     def _exec_swapin(self, ids: np.ndarray, arrays: tuple) -> None:
-        tp, r = self.mesh.size("model"), self.mesh.index("model")
         local = []
         for arr, slab in zip(arrays, self._slabs()):
             t = _from_wire(arr, slab.dtype)
-            width = t.shape[3] // tp
-            local.append(t.narrow(3, r * width, width).contiguous())
+            for axis, dim in (("model", 3), ("stage", 0)):
+                width = t.shape[dim] // self.mesh.size(axis)
+                t = t.narrow(dim, self.mesh.index(axis) * width, width)
+            local.append(t.contiguous())
         PagedKVCache.swapin_pages(self, ids, tuple(local))
 
     def _device_cow(self, src: int, dst: int) -> None:
         """Leader: queue the (src, dst) pair; every rank copies its own
-        shard of the page. Deferred like a swap-in."""
+        shard of the page (its heads of its layers). Deferred like a
+        swap-in."""
         self._check_live()
         pair = np.asarray([src, dst], np.int32)
         self._queue_op((OP_COWP, int(src), int(dst), 0), (pair,),

@@ -275,8 +275,8 @@ def test_degraded_states_answer_as_the_reference(tmp_path, monkeypatch,
 @pytest.mark.parametrize("fields,message", [
     ({"mesh_axes": (("data", 1), ("seq", 2)), "num_processes": 2},
      r"kind = 'serve' over a 'seq' axis of 2"),
-    ({"mesh_axes": (("expert", 0),), "num_processes": 2},
-     r"kind = 'serve' over an 'expert' axis of 2: .* Queue A item 2"),
+    ({"mesh_axes": (("seq", 0),), "num_processes": 2},
+     r"kind = 'serve' over a 'seq' axis of 2: .*'stage' and 'expert'"),
 ], ids=["mesh", "num_processes"])
 def test_a_config_the_parser_refuses_degrades_the_boot(tmp_path, fields,
                                                        message):
@@ -564,12 +564,12 @@ def test_status_token_round_trips_through_config_toml():
     ('[distributed]\nhosts = 2\n', r"\['hosts'\]"),
     ('[model]\npipeline_schedule = "zb"\n',
      r"pipeline_schedule must be 'gpipe' or '1f1b'"),
-    ('[mesh]\naxes = { data = 0, stage = 2 }\n[distributed]\n'
+    ('[mesh]\naxes = { seq = 0, stage = 2 }\n[distributed]\n'
      'num_processes = 4\n[payload]\nkind = "serve"\n',
-     r"'serve' over a 'stage' axis of 2.*item 2"),
-    ('[mesh]\naxes = { expert = 0 }\n[distributed]\nnum_processes = 2\n'
-     '[payload]\nkind = "inference-probe"\n',
-     r"'inference-probe' over an 'expert' axis of 2.*item 2"),
+     r"'serve' over a 'seq' axis of 2"),
+    ('[mesh]\naxes = { expert = 2, seq = 0 }\n[distributed]\n'
+     'num_processes = 4\n[payload]\nkind = "inference-probe"\n',
+     r"'inference-probe' over a 'seq' axis of 2"),
     ('[mesh]\naxes = { data = 1, seq = 2 }\n[distributed]\n'
      'num_processes = 2\n[payload]\nkind = "inference-probe"\n',
      r"'inference-probe' over a 'seq' axis"),

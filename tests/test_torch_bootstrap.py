@@ -174,8 +174,8 @@ def test_apply_rebases_and_writes_the_canonical_toml(tmp_path):
 
 def test_apply_rejects_bad_config(tmp_path):
     for text, match in (("not [valid toml", "invalid"),
-                        ("[mesh]\naxes = { stage = 2 }\n[payload]\n"
-                         'kind = "serve"\n', "item 2")):
+                        ("[mesh]\naxes = { seq = 2 }\n[payload]\n"
+                         'kind = "serve"\n', "'seq' axis")):
         (tmp_path / "userdata").write_text(text)
         with pytest.raises(CommandError, match=match):
             run_command(("kvedge-bootstrap", "apply", "--source",

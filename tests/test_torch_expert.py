@@ -20,8 +20,9 @@ reference's message; a preset's depth rounds up to the stages and an
 explicit one that does not divide is refused; ``pipeline_schedule``;
 the dtype the reference derives on its CPU backend (float32 for a stage
 axis with a model axis or experts); ``serve`` and ``inference-probe``
-over a stage or expert axis refused by name, on one process as on
-several.
+over a stage or expert axis accepted by both parsers with the same
+mesh, on one process as on several, and still refused by name beside a
+``seq`` axis.
 """
 
 import dataclasses
@@ -198,18 +199,22 @@ def test_model_derivation_matches_the_reference(name):
 
 
 @pytest.mark.parametrize("text,match", [
-    ('[mesh]\naxes = { data = 1, stage = 2 }\n[distributed]\n'
-     'num_processes = 2\n[payload]\nkind = "serve"\n',
-     r"kind = 'serve' over a 'stage' axis of 2.*Queue A item 2"),
-    ('[mesh]\naxes = { expert = 0 }\n[distributed]\nnum_processes = 4\n'
-     '[payload]\nkind = "inference-probe"\n',
-     r"kind = 'inference-probe' over an 'expert' axis of 4.*item 2"),
-    ('[mesh]\naxes = { stage = 2 }\n[payload]\nkind = "serve"\n',
-     r"kind = 'serve' over a 'stage' axis of 2.*Queue A item 2"),
+    ('[mesh]\naxes = { seq = 2, stage = 2 }\n[distributed]\n'
+     'num_processes = 4\n[payload]\nkind = "serve"\n',
+     r"kind = 'serve' over a 'seq' axis of 2"),
+    ('[mesh]\naxes = { expert = 2, seq = 0 }\n[distributed]\n'
+     'num_processes = 4\n[payload]\nkind = "inference-probe"\n',
+     r"kind = 'inference-probe' over a 'seq' axis of 2"),
+    ('[mesh]\naxes = { stage = 2, expert = 2, seq = 2 }\n'
+     '[distributed]\nnum_processes = 8\n[payload]\nkind = "serve"\n',
+     r"kind = 'serve' over a 'seq' axis of 2"),
     ('[model]\npipeline_schedule = "zb"\n',
      r"pipeline_schedule must be 'gpipe' or '1f1b'"),
 ])
 def test_serving_over_stage_or_expert_is_refused_by_name(text, match):
+    """Serving over ``stage`` and ``expert`` is accepted (below); with a
+    ``seq`` axis beside them it is still refused, by the seq axis's
+    name."""
     with pytest.raises(RuntimeConfigError, match=match):
         RuntimeConfig.parse(text)
 
@@ -224,10 +229,20 @@ def test_serving_over_stage_or_expert_is_refused_by_name(text, match):
     '[model]\npipeline_schedule = "1f1b"\n',
     '[mesh]\naxes = { data = 2, stage = 2 }\n[distributed]\n'
     'num_processes = 4\n',
-], ids=["train-stage", "probe-stage-expert", "eval-expert", "devicecheck"])
+    '[mesh]\naxes = { data = 1, stage = 2 }\n[distributed]\n'
+    'num_processes = 2\n[payload]\nkind = "serve"\n',
+    '[mesh]\naxes = { expert = 0 }\n[distributed]\nnum_processes = 4\n'
+    '[payload]\nkind = "inference-probe"\n',
+    '[mesh]\naxes = { stage = 2 }\n[payload]\nkind = "serve"\n',
+    '[mesh]\naxes = { stage = 2, expert = 2 }\n[distributed]\n'
+    'num_processes = 4\n[payload]\nkind = "serve"\nserving = "paged"\n',
+], ids=["train-stage", "probe-stage-expert", "eval-expert", "devicecheck",
+        "serve-stage", "inference-probe-expert", "serve-stage-one-process",
+        "serve-stage-expert"])
 def test_stage_and_expert_meshes_parse_as_the_reference(text):
     """Accepted by both parsers, with the same mesh, schedule and
-    round trip through the TOML."""
+    round trip through the TOML (serving over ``stage`` and ``expert``
+    among them)."""
     ours, theirs = RuntimeConfig.parse(text), JaxConfig.parse(text)
     assert ours.mesh_axes == theirs.mesh.axes
     assert ours.pipeline_schedule == theirs.model.pipeline_schedule
